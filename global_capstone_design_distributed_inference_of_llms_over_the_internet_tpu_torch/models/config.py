@@ -1,0 +1,324 @@
+"""Model architecture configs for the supported decoder families.
+
+The PyTorch port's copy of the JAX package's ``models/config.py``; it must not
+import the JAX package. ``tests/test_torch_isolation.py`` holds the copy to
+its original.
+
+The reference supports the HF ``llama``/``mistral``/``mixtral`` model types plus
+GPT-2 (guards at reference ``src/llama_partition.py:82-93``). Here each family is
+described by one dataclass consumed by a single unified decoder implementation
+(`models.transformer`) instead of family-specific nn.Module classes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters for one decoder-only transformer family."""
+
+    model_type: str  # "gpt2" | "llama" | "mistral" | "mixtral" | "qwen2" | "gemma"
+    vocab_size: int
+    hidden_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    intermediate_size: int
+    max_position_embeddings: int = 2048
+
+    # Architectural switches
+    norm: str = "rmsnorm"          # "layernorm" (gpt2) | "rmsnorm" (llama family)
+    positional: str = "rope"       # "learned" (gpt2) | "rope"
+    activation: str = "silu"       # "gelu" (gpt2) | "silu"
+    mlp: str = "swiglu"            # "gelu_mlp" (gpt2: fc->act->proj) | "swiglu"
+    use_bias: bool = False         # gpt2 uses biases everywhere; llama none
+    attn_qkv_bias: bool = False    # qwen2: biases on q/k/v ONLY (not o, not mlp)
+    tie_word_embeddings: bool = True
+    rope_theta: float = 10000.0
+    # Llama-3.1-style RoPE frequency scaling (HF rope_scaling type "llama3"):
+    # (factor, low_freq_factor, high_freq_factor,
+    #  original_max_position_embeddings). None = unscaled RoPE. A tuple, not
+    # a dict, so the frozen config stays hashable.
+    rope_scaling: Optional[tuple] = None
+    norm_eps: float = 1e-5
+    sliding_window: Optional[int] = None  # mistral
+    # Decode-step KV paging (ops.attention.paged_decode_attention): > 0
+    # makes T == 1 steps read only cache pages holding real rows (online-
+    # softmax over a dynamic page count) instead of streaming the whole
+    # static bucket — HBM reads then track occupancy, the ~8pp padded-
+    # bucket roofline loss of docs/PERFORMANCE.md. 0 = one-pass attention.
+    decode_kv_page: int = 0
+
+    # MoE (mixtral)
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+
+    # Gemma-family switches:
+    # head_dim decoupled from hidden_size/num_heads (gemma-7b: hidden 3072,
+    # 16 heads, head_dim 256 — the projections are [D, H*Dh] with
+    # H*Dh != D). None = the usual hidden/heads.
+    head_dim_override: Optional[int] = None
+    # RMSNorm weights stored as an OFFSET from one: effective scale is
+    # (1 + w), zero-init (the HF Gemma convention — keeping the stored
+    # layout means convert_state_dict needs no rewrite pass).
+    norm_offset: bool = False
+    # Multiply token embeddings by sqrt(hidden_size) (Gemma "normalizer").
+    embed_scale: bool = False
+
+    # Gemma-2 switches:
+    # Sandwich norms: each sublayer output passes a POST-norm before the
+    # residual add (ln3 after attention, ln4 after the MLP).
+    post_norms: bool = False
+    # Logit softcapping, cap * tanh(x / cap): on attention scores pre-mask
+    # (attn) and on the LM head output (final). 0 = off.
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    # Attention score scale override (query_pre_attn_scalar ** -0.5);
+    # 0 = the usual head_dim ** -0.5.
+    query_scale: float = 0.0
+    # Alternating local/global attention: EVEN layer indices use this
+    # sliding window, odd layers attend globally (HF Gemma2 layout). The
+    # per-layer window rides the layer param tree as a "window" leaf so
+    # every engine's layer scan sees it. 0 = off.
+    altern_window: int = 0
+
+    @property
+    def head_dim(self) -> int:
+        return (self.head_dim_override
+                if self.head_dim_override is not None
+                else self.hidden_size // self.num_heads)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def __post_init__(self):
+        if self.head_dim_override is None:
+            assert self.hidden_size % self.num_heads == 0
+        assert self.num_heads % self.num_kv_heads == 0
+
+
+def gpt2_config(
+    vocab_size: int = 50257,
+    hidden_size: int = 768,
+    num_layers: int = 12,
+    num_heads: int = 12,
+    max_position_embeddings: int = 1024,
+    intermediate_size: Optional[int] = None,
+    norm_eps: float = 1e-5,
+) -> ModelConfig:
+    return ModelConfig(
+        model_type="gpt2",
+        vocab_size=vocab_size,
+        hidden_size=hidden_size,
+        num_layers=num_layers,
+        num_heads=num_heads,
+        num_kv_heads=num_heads,
+        intermediate_size=intermediate_size or 4 * hidden_size,
+        max_position_embeddings=max_position_embeddings,
+        norm="layernorm",
+        positional="learned",
+        activation="gelu",
+        mlp="gelu_mlp",
+        use_bias=True,
+        tie_word_embeddings=True,
+        norm_eps=norm_eps,
+    )
+
+
+def llama_config(
+    vocab_size: int = 32000,
+    hidden_size: int = 4096,
+    num_layers: int = 32,
+    num_heads: int = 32,
+    num_kv_heads: int = 8,
+    intermediate_size: int = 11008,
+    max_position_embeddings: int = 4096,
+    rope_theta: float = 10000.0,
+    tie_word_embeddings: bool = False,
+    norm_eps: float = 1e-5,
+) -> ModelConfig:
+    return ModelConfig(
+        model_type="llama",
+        vocab_size=vocab_size,
+        hidden_size=hidden_size,
+        num_layers=num_layers,
+        num_heads=num_heads,
+        num_kv_heads=num_kv_heads,
+        intermediate_size=intermediate_size,
+        max_position_embeddings=max_position_embeddings,
+        norm="rmsnorm",
+        positional="rope",
+        activation="silu",
+        mlp="swiglu",
+        use_bias=False,
+        tie_word_embeddings=tie_word_embeddings,
+        rope_theta=rope_theta,
+        norm_eps=norm_eps,
+    )
+
+
+def mistral_config(sliding_window: Optional[int] = 4096, **kw) -> ModelConfig:
+    cfg = llama_config(**kw)
+    return dataclasses.replace(cfg, model_type="mistral", sliding_window=sliding_window)
+
+
+def qwen2_config(norm_eps: float = 1e-6, **kw) -> ModelConfig:
+    """Qwen2/Qwen2.5: LLaMA architecture + biases on the q/k/v projections
+    (and rms eps 1e-6). Extends the reference's model-family guard
+    (``src/llama_partition.py:82-83`` accepts llama/mistral/mixtral only)."""
+    cfg = llama_config(norm_eps=norm_eps, **kw)
+    return dataclasses.replace(cfg, model_type="qwen2", attn_qkv_bias=True)
+
+
+def gemma_config(head_dim: int = 256, norm_eps: float = 1e-6,
+                 rope_theta: float = 10000.0,
+                 tie_word_embeddings: bool = True, **kw) -> ModelConfig:
+    """Gemma (1): LLaMA skeleton with four architectural twists — GeGLU
+    (tanh-gelu gate in the gated MLP), RMSNorm as a (1 + w) offset scale,
+    token embeddings multiplied by sqrt(hidden), and head_dim decoupled
+    from hidden/heads. Extends the reference's model-family guard
+    (``src/llama_partition.py:82-83`` accepts llama/mistral/mixtral only).
+    """
+    cfg = llama_config(norm_eps=norm_eps, rope_theta=rope_theta,
+                       tie_word_embeddings=tie_word_embeddings, **kw)
+    return dataclasses.replace(
+        cfg, model_type="gemma", activation="gelu_tanh",
+        head_dim_override=head_dim, norm_offset=True, embed_scale=True)
+
+
+def gemma2_config(head_dim: int = 256, query_pre_attn_scalar: float = 0.0,
+                  attn_softcap: float = 50.0, final_softcap: float = 30.0,
+                  sliding_window: int = 4096, **kw) -> ModelConfig:
+    """Gemma 2: the Gemma skeleton plus sandwich (pre+post) norms, attention
+    and final-logit softcapping, alternating local/global attention (even
+    layers windowed), and an optional query_pre_attn_scalar score scale."""
+    cfg = gemma_config(head_dim=head_dim, **kw)
+    return dataclasses.replace(
+        cfg, model_type="gemma2", post_norms=True,
+        attn_softcap=attn_softcap, final_softcap=final_softcap,
+        query_scale=(query_pre_attn_scalar ** -0.5
+                     if query_pre_attn_scalar else 0.0),
+        altern_window=sliding_window)
+
+
+def mixtral_config(num_experts: int = 8, num_experts_per_tok: int = 2, **kw) -> ModelConfig:
+    cfg = llama_config(**kw)
+    return dataclasses.replace(
+        cfg,
+        model_type="mixtral",
+        num_experts=num_experts,
+        num_experts_per_tok=num_experts_per_tok,
+    )
+
+
+# Named presets mirroring the reference's workload envelope (BASELINE.md).
+PRESETS = {
+    "gpt2": lambda: gpt2_config(),
+    "gpt2-medium": lambda: gpt2_config(hidden_size=1024, num_layers=24, num_heads=16),
+    "gpt2-large": lambda: gpt2_config(hidden_size=1280, num_layers=36, num_heads=20),
+    "gpt2-xl": lambda: gpt2_config(hidden_size=1600, num_layers=48, num_heads=25),
+    "llama-2-7b": lambda: llama_config(num_kv_heads=32),
+    "llama-3-8b": lambda: llama_config(
+        vocab_size=128256, hidden_size=4096, num_layers=32, num_heads=32,
+        num_kv_heads=8, intermediate_size=14336, max_position_embeddings=8192,
+        rope_theta=500000.0,
+    ),
+    "llama-3-70b": lambda: llama_config(
+        vocab_size=128256, hidden_size=8192, num_layers=80, num_heads=64,
+        num_kv_heads=8, intermediate_size=28672, max_position_embeddings=8192,
+        rope_theta=500000.0,
+    ),
+    # Llama-3.1: the reference's LB test model (BASELINE.md: Llama-3.1-8B,
+    # total_blocks=32) — 128k context via the llama3 RoPE frequency remap.
+    "llama-3.1-8b": lambda: dataclasses.replace(llama_config(
+        vocab_size=128256, hidden_size=4096, num_layers=32, num_heads=32,
+        num_kv_heads=8, intermediate_size=14336,
+        max_position_embeddings=131072, rope_theta=500000.0,
+    ), rope_scaling=(8.0, 1.0, 4.0, 8192)),
+    # Llama-3.2 small models: 3.1's 128k rope remap + tied embeddings.
+    "llama-3.2-1b": lambda: dataclasses.replace(llama_config(
+        vocab_size=128256, hidden_size=2048, num_layers=16, num_heads=32,
+        num_kv_heads=8, intermediate_size=8192,
+        max_position_embeddings=131072, rope_theta=500000.0,
+        tie_word_embeddings=True,
+    ), rope_scaling=(32.0, 1.0, 4.0, 8192)),
+    "llama-3.2-3b": lambda: dataclasses.replace(llama_config(
+        vocab_size=128256, hidden_size=3072, num_layers=28, num_heads=24,
+        num_kv_heads=8, intermediate_size=8192,
+        max_position_embeddings=131072, rope_theta=500000.0,
+        tie_word_embeddings=True,
+    ), rope_scaling=(32.0, 1.0, 4.0, 8192)),
+    "mixtral-8x7b": lambda: mixtral_config(
+        vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
+        num_kv_heads=8, intermediate_size=14336,
+    ),
+    "gemma-2b": lambda: gemma_config(
+        vocab_size=256000, hidden_size=2048, num_layers=18, num_heads=8,
+        num_kv_heads=1, intermediate_size=16384,
+        max_position_embeddings=8192,
+    ),
+    "gemma-7b": lambda: gemma_config(
+        vocab_size=256000, hidden_size=3072, num_layers=28, num_heads=16,
+        num_kv_heads=16, intermediate_size=24576,
+        max_position_embeddings=8192,
+    ),
+    "gemma-2-2b": lambda: gemma2_config(
+        vocab_size=256000, hidden_size=2304, num_layers=26, num_heads=8,
+        num_kv_heads=4, intermediate_size=9216,
+        max_position_embeddings=8192, query_pre_attn_scalar=256.0,
+    ),
+    "gemma-2-9b": lambda: gemma2_config(
+        vocab_size=256000, hidden_size=3584, num_layers=42, num_heads=16,
+        num_kv_heads=8, intermediate_size=14336,
+        max_position_embeddings=8192, query_pre_attn_scalar=256.0,
+    ),
+    "qwen2-0.5b": lambda: qwen2_config(
+        vocab_size=151936, hidden_size=896, num_layers=24, num_heads=14,
+        num_kv_heads=2, intermediate_size=4864, max_position_embeddings=32768,
+        rope_theta=1000000.0, tie_word_embeddings=True,
+    ),
+    "qwen2-7b": lambda: qwen2_config(
+        vocab_size=152064, hidden_size=3584, num_layers=28, num_heads=28,
+        num_kv_heads=4, intermediate_size=18944, max_position_embeddings=32768,
+        rope_theta=1000000.0,
+    ),
+}
+
+# Qwen2.5 shares the qwen2 architecture (HF model_type "qwen2") — alias
+# the existing entries so a hyperparameter fix can never silently diverge.
+PRESETS["qwen2.5-0.5b"] = PRESETS["qwen2-0.5b"]
+PRESETS["qwen2.5-7b"] = PRESETS["qwen2-7b"]
+
+
+def custom_engine_unsupported(cfg: ModelConfig) -> Optional[str]:
+    """Reason the sequence-parallel ring engine and the TP shard specs
+    cannot serve this config, or None. The gemma2 semantics live in
+    models.transformer.layer_forward (session/fused/oracle engines) and
+    in runtime.batching's gemma2-aware layer pieces (batched engine);
+    the remaining custom-math engines must refuse rather than silently
+    drop them."""
+    if (cfg.post_norms or cfg.attn_softcap or cfg.query_scale
+            or cfg.altern_window):
+        return ("gemma2 semantics (sandwich norms / softcap / per-layer "
+                "window) are not implemented on this engine")
+    return None
+
+
+def get_config(name: str) -> ModelConfig:
+    key = name.lower().split("/")[-1]
+    if key in PRESETS:
+        return PRESETS[key]()
+    # Longest alias first so "meta-llama-3-8b" resolves to llama-3-8b, not the
+    # "llama-3" prefix of a shorter alias. The alias must appear as a
+    # delimiter-bounded token: "distilgpt2" must NOT resolve to gpt2 (different
+    # architecture), while "meta-llama-3-8b" and "gpt2_finetuned" do resolve.
+    import re
+
+    for alias in sorted(PRESETS, key=len, reverse=True):
+        if re.search(rf"(^|[^a-z0-9]){re.escape(alias)}([^a-z0-9]|$)", key):
+            return PRESETS[alias]()
+    raise KeyError(f"unknown model preset: {name}")

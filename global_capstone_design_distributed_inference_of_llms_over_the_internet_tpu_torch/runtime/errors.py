@@ -1,0 +1,264 @@
+"""Failure taxonomy: ONE table for what is retryable and who gets blamed.
+
+The PyTorch port's copy of the JAX package's ``runtime/errors.py``; it must not
+import the JAX package. ``tests/test_torch_isolation.py`` holds the copy to
+its original.
+
+Before this module the retryable/permanent split that failover correctness
+depends on lived in scattered docstrings (transport.py, task_pool.py,
+batching.py) and two hard-coded ``except (PeerUnavailable, TimeoutError,
+ConnectionError, StageExecutionError)`` tuples in client.py. The runtime
+now consults this catalog (``retryable_types``, ``breaker_blame``,
+``from_wire``) and graftlint's ``failures`` analyzer statically checks the
+same table — an exception class in runtime//serving//scheduling that can
+surface through recovery but is missing here fails the lint.
+
+Contract with the analyzer (scripts/graftlint/failures.py): it parses this
+module's AST — the ``ErrorPolicy(...)`` rows and the string constants below
+— and never imports it. Keep the TAXONOMY tuple literal (no computed
+entries) or the lint goes blind.
+
+Policy values:
+
+- ``retryable``  — the client's recovery wrapper fails over to a
+  replacement peer and replays the journal (the paper's §fault-tolerance
+  claim). Blame says which breaker opens.
+- ``permanent``  — surfaces to the caller immediately; retrying cannot
+  help (exhausted deadline, oversized task, no route).
+- ``shed``       — load-shedding refusal; the caller backs off for
+  ``retry_after_s`` and re-submits. Not a peer failure: no blacklist,
+  no breaker.
+
+Scope values:
+
+- ``client`` — observable by the client recovery wrapper (these classes
+  may appear in ``retryable_types()``).
+- ``server`` — raised and converted server-side (to ``kind="stage"`` wire
+  frames or admission responses) before they reach recovery; catalogued so
+  the analyzer knows they are deliberate, but NEVER in the client tuple —
+  adding them there would silently change LocalTransport retry semantics.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple, Type
+
+RETRYABLE = "retryable"
+PERMANENT = "permanent"
+SHED = "shed"
+
+# Blame semantics for retryable failures (docs/FAULT_TOLERANCE.md, "Serving
+# from behind NAT"): `peer` is routing blame — the client routes around it;
+# `breaker_peer` means the exception carries a separate ``breaker_peer_id``
+# (the component whose circuit breaker opens — e.g. a dead relay volunteer,
+# never the NAT'd peer behind it). `none`: no peer is at fault.
+BLAME_PEER = "peer"
+BLAME_BREAKER = "breaker_peer"
+BLAME_NONE = "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class ErrorPolicy:
+    """One catalog row. ``wire`` names the error-frame marker that carries
+    this class across the wire (a boolean header flag like
+    ``deadline_expired`` or a ``kind=...`` discriminator), or None for
+    classes that never cross it under their own name."""
+
+    name: str
+    policy: str          # RETRYABLE | PERMANENT | SHED
+    blame: str           # BLAME_PEER | BLAME_BREAKER | BLAME_NONE
+    wire: Optional[str]  # "deadline_expired" | "task_rejected" |
+                         # "kind=push" | "kind=stage" | None
+    scope: str           # "client" | "server"
+    doc: str
+
+
+# The catalog. Order within a policy group is also the wire-dispatch
+# precedence: terminal flag markers (deadline_expired, task_rejected) are
+# checked BEFORE the kind= discriminators they ride on, so a terminal
+# classification can never be downgraded to a retryable stage error.
+TAXONOMY: Dict[str, ErrorPolicy] = {p.name: p for p in (
+    # -- retryable: fail over + journal replay --------------------------
+    ErrorPolicy(
+        name="PeerUnavailable", policy=RETRYABLE, blame=BLAME_PEER,
+        wire=None, scope="client",
+        doc="Peer dead/unreachable at dial or mid-call; the hop is "
+            "blacklisted for this session and a replacement discovered."),
+    ErrorPolicy(
+        name="TimeoutError", policy=RETRYABLE, blame=BLAME_PEER,
+        wire=None, scope="client",
+        doc="Builtin: socket/compute deadline on one hop — a hung host is "
+            "indistinguishable from a dead one at the caller."),
+    ErrorPolicy(
+        name="ConnectionError", policy=RETRYABLE, blame=BLAME_PEER,
+        wire=None, scope="client",
+        doc="Builtin: resets and refusals; WireError (corrupt frame) "
+            "inherits retryability from this ancestor — corruption fails "
+            "closed and replays."),
+    ErrorPolicy(
+        name="WireError", policy=RETRYABLE, blame=BLAME_PEER,
+        wire=None, scope="client",
+        doc="Malformed or CRC-failed frame. Corruption fails closed (the "
+            "chaos layer flips the trailing CRC byte precisely so) and the "
+            "client replays — never silently wrong activations."),
+    ErrorPolicy(
+        name="StageExecutionError", policy=RETRYABLE, blame=BLAME_PEER,
+        wire="kind=stage", scope="client",
+        doc="Server-sent stage failure (compute error, transient task "
+            "rejection, stage timeout). Carries origin ``peer_id`` so "
+            "chain-relayed errors blame the failing hop."),
+    ErrorPolicy(
+        name="PushChainError", policy=RETRYABLE, blame=BLAME_BREAKER,
+        wire="kind=push", scope="client",
+        doc="A DOWNSTREAM push-chain hop failed. ``peer_id`` is routing "
+            "blame; ``breaker_peer_id`` (when the frame's breaker_peer "
+            "differs) is the relay volunteer whose breaker opens."),
+    # -- permanent: surface immediately, never retried ------------------
+    ErrorPolicy(
+        name="DeadlineExceeded", policy=PERMANENT, blame=BLAME_NONE,
+        wire="deadline_expired", scope="client",
+        doc="End-to-end deadline budget exhausted. Deliberately NOT a "
+            "TimeoutError subclass: retrying burns replicas computing "
+            "tokens the caller stopped waiting for."),
+    ErrorPolicy(
+        name="TaskRejected", policy=PERMANENT, blame=BLAME_NONE,
+        wire="task_rejected", scope="client",
+        doc="Oversized work can never succeed on any retry or replacement "
+            "peer. Only ``permanent=True`` rejections cross the wire under "
+            "this flag; transient ones (runtime stopping) convert to "
+            "kind=stage and stay retryable."),
+    ErrorPolicy(
+        name="NoRouteError", policy=PERMANENT, blame=BLAME_NONE,
+        wire=None, scope="client",
+        doc="No live servers cover the required span even after the "
+            "blacklist amnesty — route computation, not a peer, failed."),
+    # -- shed: back off retry_after_s, no blacklist, no breaker ---------
+    ErrorPolicy(
+        name="Overloaded", policy=SHED, blame=BLAME_NONE,
+        wire=None, scope="client",
+        doc="Typed admission refusal with ``retry_after_s``. Must never "
+            "enter the retryable taxonomy: immediate retry is exactly "
+            "what an overloaded gateway needs less of."),
+    # -- server-local: converted before they reach recovery -------------
+    ErrorPolicy(
+        name="SlotFull", policy=RETRYABLE, blame=BLAME_PEER,
+        wire=None, scope="server",
+        doc="Batched engine admission: no free slot. Converts to a "
+            "kind=stage frame at the wire — the client fails over."),
+    ErrorPolicy(
+        name="AllocationFailed", policy=RETRYABLE, blame=BLAME_PEER,
+        wire=None, scope="server",
+        doc="KV arena could not satisfy an allocation within its timeout; "
+            "a replacement peer with free cache is the right response."),
+    ErrorPolicy(
+        name="AdmissionDenied", policy=PERMANENT, blame=BLAME_NONE,
+        wire=None, scope="server",
+        doc="A step would exceed the session's DECLARED max_length — the "
+            "request is malformed; every replacement peer would refuse "
+            "it identically."),
+)}
+
+
+# Classes that registered at their definition site (``@register``). The
+# builtins in TAXONOMY (TimeoutError, ConnectionError) have no definition
+# site and are injected here directly.
+_REGISTERED: Dict[str, type] = {
+    "TimeoutError": TimeoutError,
+    "ConnectionError": ConnectionError,
+}
+
+_RETRYABLE_CACHE: Optional[Tuple[type, ...]] = None
+
+
+def register(cls: type) -> type:
+    """Class decorator: declare this exception's policy HERE, at the
+    definition site, by pointing at its catalog row. Fails loudly at
+    import time for a class the catalog does not know."""
+    global _RETRYABLE_CACHE
+    entry = TAXONOMY.get(cls.__name__)
+    if entry is None:
+        raise KeyError(
+            f"{cls.__name__} is not in runtime/errors.py TAXONOMY — add a "
+            "row (policy, blame, wire, scope, doc) before registering")
+    cls.failure_policy = entry
+    _REGISTERED[cls.__name__] = cls
+    _RETRYABLE_CACHE = None
+    return cls
+
+
+def registered(name: str) -> type:
+    """Catalog row name -> registered class. KeyError names the module
+    that must be imported first (registration happens at definition)."""
+    try:
+        return _REGISTERED[name]
+    except KeyError:
+        raise KeyError(
+            f"{name} is catalogued but not registered yet — import the "
+            "module that defines it before mapping wire errors") from None
+
+
+def policy_of(exc: BaseException) -> Optional[ErrorPolicy]:
+    """The catalog row governing ``exc``, via the nearest registered
+    ancestor (so _BreakerOpen inherits PeerUnavailable's row and WireError
+    inherits ConnectionError's). None for uncatalogued exceptions."""
+    for base in type(exc).__mro__:
+        entry = TAXONOMY.get(base.__name__)
+        if entry is not None and base is _REGISTERED.get(base.__name__):
+            return entry
+    return None
+
+
+def retryable_types() -> Tuple[type, ...]:
+    """The client-observable retryable classes, for ``except`` clauses.
+
+    Derived from the catalog instead of hard-coding the tuple in
+    client.py: scope="client" rows with policy=retryable, resolved to
+    whatever classes have registered so far (the builtins are always
+    present; package classes join as their modules import). Cached until
+    the next registration."""
+    global _RETRYABLE_CACHE
+    if _RETRYABLE_CACHE is None:
+        _RETRYABLE_CACHE = tuple(
+            _REGISTERED[name]
+            for name, entry in TAXONOMY.items()
+            if entry.policy == RETRYABLE and entry.scope == "client"
+            and name in _REGISTERED)
+    return _RETRYABLE_CACHE
+
+
+def breaker_blame(exc: BaseException, routing_peer: str) -> str:
+    """Which peer's circuit breaker records this failure. Catalog rows
+    with blame=breaker_peer carry a ``breaker_peer_id`` that differs from
+    routing blame exactly when a relay volunteer (not the peer behind it)
+    died; everything else blames the routed peer."""
+    return getattr(exc, "breaker_peer_id", None) or routing_peer
+
+
+def from_wire(header: dict, peer_id: str = "?") -> BaseException:
+    """Error frame -> typed exception, per the catalog's wire markers.
+
+    Flag markers first, in TAXONOMY order: ``deadline_expired`` and
+    ``task_rejected`` are terminal classifications riding on kind=stage
+    frames, and checking kind= first would downgrade them to retryable
+    stage errors (burning failover attempts on a blown deadline)."""
+    msg = header.get("message")
+    if header.get("deadline_expired"):
+        return registered("DeadlineExceeded")(
+            msg or f"peer {peer_id}: deadline budget exhausted")
+    if header.get("task_rejected"):
+        return registered("TaskRejected")(
+            msg or f"peer {peer_id}: task rejected", permanent=True)
+    if header.get("kind") == "push":
+        exc = registered("PushChainError")(
+            header.get("peer", "?"), msg or "push failed")
+        # Relay-aware blame split (BLAME_BREAKER): present only when the
+        # breaker target differs from the routing target.
+        exc.breaker_peer_id = header.get("breaker_peer")
+        return exc
+    if header.get("kind") == "stage":
+        exc = registered("StageExecutionError")(msg or "stage error")
+        # Chain mode: the error may originate from a downstream hop.
+        exc.peer_id = header.get("peer")
+        return exc
+    return RuntimeError(f"peer {peer_id} error: {msg}")

@@ -1,0 +1,82 @@
+"""The environment-flag catalog: every env var this package reads.
+
+The PyTorch port's copy of the JAX package's ``utils/flags.py``; it must not
+import the JAX package. ``tests/test_torch_isolation.py`` holds the copy to
+its original.
+
+One ``Flag`` row per variable — name, default, docstring, and whether the
+value is resolved at TRACE time. Trace-time flags (``INT8_FOLD``,
+``MOE_SPARSE``, ...) are read while jit/scan bodies trace, so their value
+is baked into the compiled program and invisible to the jit cache key:
+flipping one after warmup does nothing until a retrace (new shape, new
+process). That hazard is exactly why reads are centralized — graftlint's
+``env-uncatalogued`` rule rejects any ``os.environ`` read in package code
+whose name has no row here, and the accessors below raise on uncatalogued
+names at runtime too.
+
+Pure stdlib, no jax: the catalog must be importable by static-analysis
+tooling and by every module without dragging a backend in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict
+
+
+@dataclasses.dataclass(frozen=True)
+class Flag:
+    name: str
+    default: str
+    doc: str
+    trace_time: bool = False    # read during tracing; retrace to change
+
+
+FLAGS: Dict[str, Flag] = {f.name: f for f in (
+    Flag("INT8_FOLD", "1",
+         "Keep per-layer 2-D int8 leaves packed and apply the per-channel "
+         "scale in the matmul epilogue (ops.int8_kernel) instead of "
+         "materializing bf16 weights. 0 restores dequant-materialize as "
+         "the kill switch.", trace_time=True),
+    Flag("NF4_KERNEL", "0",
+         "Route per-layer NF4 matmuls through the fused Pallas "
+         "dequant-matmul kernel (ops.nf4_kernel) instead of materializing "
+         "the weight. Default off.", trace_time=True),
+    Flag("MOE_SPARSE", "1",
+         "Route MoE layers through the sparse sort-and-dispatch path "
+         "(grouped expert matmuls). 0 restores the dense all-expert "
+         "einsums bit-for-bit.", trace_time=True),
+    Flag("MOE_CAPACITY_FACTOR", "2.0",
+         "Per-expert slot budget multiplier over perfectly-balanced load; "
+         "<= 0 means drop-free capacity.", trace_time=True),
+    Flag("XLA_FLAGS", "",
+         "XLA runtime flags; utils.platform.force_cpu_devices appends "
+         "--xla_force_host_platform_device_count for virtual-host runs."),
+    Flag("JAX_PLATFORMS", "",
+         "Backend selection; written (not read) by force_cpu_devices to "
+         "pin the CPU backend under tests and dry runs."),
+)}
+
+
+def _flag(name: str) -> Flag:
+    try:
+        return FLAGS[name]
+    except KeyError:
+        raise KeyError(
+            f"env var {name!r} is not in the utils/flags.py catalog — add "
+            "a Flag row (name, default, doc, trace_time) before reading it")
+
+
+def raw_flag(name: str) -> str:
+    """The flag's current string value (env override or catalog default)."""
+    return os.environ.get(name, _flag(name).default)
+
+
+def bool_flag(name: str) -> bool:
+    """Catalogued flag as a bool: the repo-wide '1' == on convention."""
+    return raw_flag(name) == "1"
+
+
+def float_flag(name: str) -> float:
+    return float(raw_flag(name))

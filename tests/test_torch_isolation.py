@@ -1,0 +1,113 @@
+"""The port stands alone: no module of it, and neither chip_smoke.py nor
+scripts/torch_profile_decode.py, imports jax, jaxlib or the JAX package
+(statically, and at run time with jax blocked); and the modules it copied
+from the JAX package have not drifted from their originals."""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.models import (
+    config as jconfig,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.runtime import (
+    errors as jerrors,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.scheduling import (
+    registry as jregistry,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.utils import (
+    flags as jflags,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.models import (
+    config as tconfig,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.runtime import (
+    errors as terrors,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.scheduling import (
+    registry as tregistry,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.utils import (
+    flags as tflags,
+)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+JAX_PKG = "global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu"
+PORT_PKG = JAX_PKG + "_torch"
+FORBIDDEN = {"jax", "jaxlib", JAX_PKG}
+
+
+def _port_files():
+    return sorted((REPO / PORT_PKG).rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "scripts" / "torch_profile_decode.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_port_module_imports_jax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) >= 20 and all(p.exists() for p in files)
+    bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p) & FORBIDDEN)
+           for p in files if _imported_roots(p) & FORBIDDEN}
+    assert not bad, bad
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                  .removesuffix(".__init__") for p in (REPO / PORT_PKG).rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"for name in {sorted(FORBIDDEN)!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"assert not any(k.split('.')[0] in {sorted(FORBIDDEN)!r} "
+        "for k, v in sys.modules.items() if v is not None)\n"
+        "print('imported', len(" f"{mods!r}" "))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert f"imported {len(mods)}" in proc.stdout
+
+
+def _field_table(cls):
+    return [(f.name, f.default, f.default_factory is not dataclasses.MISSING)
+            for f in dataclasses.fields(cls)]
+
+
+def test_model_config_copy_has_not_drifted():
+    assert _field_table(tconfig.ModelConfig) == _field_table(jconfig.ModelConfig)
+    assert sorted(tconfig.PRESETS) == sorted(jconfig.PRESETS)
+    for name in jconfig.PRESETS:
+        assert dataclasses.asdict(tconfig.PRESETS[name]()) == \
+            dataclasses.asdict(jconfig.PRESETS[name]()), name
+    assert dataclasses.asdict(tconfig.get_config("meta-llama-3.1-8b")) == \
+        dataclasses.asdict(jconfig.get_config("meta-llama-3.1-8b"))
+
+
+@pytest.mark.parametrize("table", ["flags", "errors", "registry"])
+def test_copied_catalogs_have_not_drifted(table):
+    if table == "flags":
+        assert {k: dataclasses.asdict(v) for k, v in tflags.FLAGS.items()} == \
+            {k: dataclasses.asdict(v) for k, v in jflags.FLAGS.items()}
+    elif table == "errors":
+        assert {k: dataclasses.asdict(v) for k, v in terrors.TAXONOMY.items()} == \
+            {k: dataclasses.asdict(v) for k, v in jerrors.TAXONOMY.items()}
+    else:
+        assert tregistry.REC_FIELDS == jregistry.REC_FIELDS
+        assert _field_table(tregistry.ServerRecord) == _field_table(jregistry.ServerRecord)
+        assert (tregistry.DEFAULT_TTL, tregistry.DISCOVERY_POOL) == \
+            (jregistry.DEFAULT_TTL, jregistry.DISCOVERY_POOL)
