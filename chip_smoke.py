@@ -4,19 +4,28 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Card: prints ``nvidia-smi``'s name and power limit, torch and CUDA versions.
-2. Build: compiles every CUDA kernel of the port from ``csrc/`` (in parallel).
-3. Kernels: calls each kernel's wrapper at the shapes the main path gives it
-   (llama-3.1-8b projections, M = 1, 16 and the prompt length), holds it
-   against its plain PyTorch version on the same card, and times the kernel,
-   the plain version and one PyTorch library call computing the same function.
-   Prints one JSON ``kernels`` line.
-4. Main path: builds the port's in-process ``--mode local`` cluster through
+2. Build: compiles every CUDA kernel of the port from ``csrc/``, one nvcc per
+   source, all at once.
+3. Kernels: calls each kernel's wrapper (``int8_dot``, ``nf4_dot``) at the
+   shapes the main paths give it (llama-3.1-8b projections, M = 1, 16 and the
+   prompt length), holds it against its plain PyTorch version on the same
+   card, and times the kernel, the plain version and one PyTorch library call
+   computing the same function. Prints one JSON line of shapes per kernel.
+4. Sampling: times one sampled draw at llama-3.1-8b's vocabulary, the
+   port's threefry ``sample_token`` beside a ``torch.multinomial`` draw.
+5. int8 path: builds the port's in-process ``--mode local`` cluster through
    ``main.py``'s own functions (llama-3.1-8b at full width and depth, random
    weights from a seed, ``--quant int8``, bfloat16, 4 even stages), serves 3
-   requests, checks that every projection went through the kernel (launch
-   counts reset just before, read just after), and holds the greedy tokens
-   to the port's ``--mode oracle`` on the same weights.
-5. Prints ``{"ok": true, "device": {...}}`` as its last line.
+   requests (two greedy, one sampled), checks that every projection went
+   through ``int8_dot`` (launch counts reset just before, read just after),
+   and holds the greedy tokens to an unsplit greedy loop over
+   ``full_forward`` with the executors' float32 cache.
+6. NF4 path: the same with ``--quant nf4`` and ``NF4_KERNEL=1``, through
+   ``nf4_dot``. Then failover: a second stage-2 executor joins, the pinned
+   stage-2 peer is killed after its 3rd decode step of a greedy request, and
+   the client must recover onto the replica with the fault-free tokens.
+7. Prints the ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as
+   its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
 refuses to run without a CUDA device, and outside a checkout of the repo.
@@ -25,7 +34,9 @@ refuses to run without a CUDA device, and outside a checkout of the repo.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -49,7 +60,8 @@ BF16_TOL = 2.0 ** -7   # max|kernel - plain| <= BF16_TOL * max|plain|: one
 F32_TOL = 1e-5         # float32 activations, relative to max|plain|
 LOGIT_GAP_TOL = 2.0 ** -6  # a near-tie: top-2 gap <= this * max|logit|
 LIBRARY_NOTE = ("torch.matmul(x, dequantized bf16 weight): a yardstick that "
-                "reads twice the weight bytes; the port never calls it")
+                "reads the weight as bf16; the port never calls it")
+REPLACES = {"int8_dot": "ops/int8_kernel.py:98", "nf4_dot": "ops/nf4_kernel.py:132"}
 
 
 def log(*parts):
@@ -101,14 +113,46 @@ def cuda_ms(fn, torch, reps: int = 25, flush=None) -> float:
     return statistics.median(times)
 
 
-def kernel_phase(torch, ik, dev, prompt_len: int, bw: float, flops: float):
+def check_and_time(torch, name, site, x, kernel_fn, plain_fn, library_fn,
+                   nbytes, bw, flops, flush):
+    """Hold one kernel call against its plain version (bf16 rule) and time
+    the kernel, the plain version and the library yardstick."""
+    m, k = x.shape
+    y = kernel_fn()
+    ref = plain_fn()
+    torch.cuda.synchronize()
+    n = ref.shape[1]
+    assert y.dtype == x.dtype and tuple(y.shape) == (m, n)
+    err = (y.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if not (err <= BF16_TOL * scale and torch.isfinite(y).all()):
+        raise AssertionError(f"{name} {site} M={m}: max|kernel-plain| "
+                             f"{err} > {BF16_TOL} * {scale}")
+    ops = 2 * m * k * n
+    return {"site": site, "M": m, "K": k, "N": n, "max_abs_err": err,
+            "ms": cuda_ms(kernel_fn, torch, flush=flush),
+            "plain_ms": cuda_ms(plain_fn, torch, flush=flush),
+            "library_ms": cuda_ms(library_fn, torch, flush=flush),
+            "bytes": nbytes,
+            "bound_ms": max(nbytes / bw, ops / flops) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= ops / flops else "operations",
+            "library": LIBRARY_NOTE}
+
+
+def check_f32(name, site, y32, ref32):
+    err32 = (y32 - ref32).abs().max().item()
+    if not err32 <= F32_TOL * ref32.abs().max().item():
+        raise AssertionError(f"{name} {site} float32: max err {err32}")
+    return err32
+
+
+def int8_phase(torch, ik, dev, prompt_len: int, bw: float, flops: float, flush):
     """int8_dot at every main-path shape: agreement and times."""
     from importlib import import_module
 
     QuantizedTensor = import_module(PORT + ".models.quant").QuantizedTensor
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
     rows = []
     for site, k, n in SITES:
         q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
@@ -118,51 +162,153 @@ def kernel_phase(torch, ik, dev, prompt_len: int, bw: float, flops: float):
         w_deq = (q.float() * s).to(torch.bfloat16)   # library yardstick only
         for m in (1, 16, prompt_len):
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            y = ik.int8_dot(x, w)
-            ref = ik.int8_dot_reference(x, q, s)
-            torch.cuda.synchronize()
-            assert y.dtype == torch.bfloat16 and tuple(y.shape) == (m, n)
-            err = (y.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            if not (err <= BF16_TOL * scale and torch.isfinite(y).all()):
-                raise AssertionError(f"int8_dot {site} M={m}: max|kernel-plain| "
-                                     f"{err} > {BF16_TOL} * {scale}")
-            nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
-            ops = 2 * m * k * n
-            row = {"site": site, "M": m, "K": k, "N": n, "max_abs_err": err,
-                   "ms": cuda_ms(lambda: ik.int8_dot(x, w), torch, flush=flush),
-                   "plain_ms": cuda_ms(lambda: ik.int8_dot_reference(x, q, s),
-                                       torch, flush=flush),
-                   "library_ms": cuda_ms(lambda: torch.matmul(x, w_deq), torch,
-                                         flush=flush),
-                   "bound_ms": max(nbytes / bw, ops / flops) * 1e3,
-                   "bound_by": "bytes" if nbytes / bw >= ops / flops else "operations",
-                   "library": LIBRARY_NOTE}
-            rows.append(row)
+            rows.append(check_and_time(
+                torch, "int8_dot", site, x, lambda: ik.int8_dot(x, w),
+                lambda: ik.int8_dot_reference(x, q, s),
+                lambda: torch.matmul(x, w_deq),
+                m * k * 2 + k * n + n * 4 + m * n * 2, bw, flops, flush))
         x32 = torch.randn((16, k), generator=gen, device=dev)
-        y32 = ik.int8_dot(x32, w)
-        ref32 = ik.int8_dot_reference(x32, q, s)
-        err32 = (y32 - ref32).abs().max().item()
-        if not err32 <= F32_TOL * ref32.abs().max().item():
-            raise AssertionError(f"int8_dot {site} float32: max err {err32}")
+        err32 = check_f32("int8_dot", site, ik.int8_dot(x32, w),
+                          ik.int8_dot_reference(x32, q, s))
         log(f"int8_dot {site} K={k} N={n}: bf16 ok at M=1,16,{prompt_len}; "
             f"float32 M=16 max err {err32:.3e}")
         del q, s, w, w_deq
     return rows
 
 
-def main_path(torch, ik, tmain, sampling_cls, dev_name: str):
-    """The port's --mode local cluster serving 3 requests, then the oracle."""
+def nf4_phase(torch, nk, dev, prompt_len: int, bw: float, flops: float, flush):
+    """nf4_dot at every main-path shape, on weights quantized by the port's
+    own NF4 quantizer: agreement and times."""
+    from importlib import import_module
+
+    quant = import_module(PORT + ".models.quant")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = []
+    for site, k, n in SITES:
+        w_bf16 = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        w = quant._quantize_leaf_nf4(w_bf16)
+        del w_bf16
+        w_deq = w.dequant()                          # library yardstick only
+        for m in (1, 16, prompt_len):
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            rows.append(check_and_time(
+                torch, "nf4_dot", site, x, lambda: nk.nf4_dot(x, w),
+                lambda: nk.nf4_dot_reference(x, w),
+                lambda: torch.matmul(x, w_deq),
+                m * k * 2 + k * n // 2 + (k // 64) * n * 2 + m * n * 2,
+                bw, flops, flush))
+        x32 = torch.randn((16, k), generator=gen, device=dev)
+        err32 = check_f32("nf4_dot", site, nk.nf4_dot(x32, w),
+                          nk.nf4_dot_reference(x32, w))
+        log(f"nf4_dot {site} K={k} N={n}: bf16 ok at M=1,16,{prompt_len}; "
+            f"float32 M=16 max err {err32:.3e}")
+        del w, w_deq
+    return rows
+
+
+def sampling_phase(torch, vocab: int, reps: int = 30):
+    """Host wall time of one sampled draw at the model's vocabulary, as the
+    final stage pays it per sampled token (each call ends in a host read of
+    the token): the port's ``sample_token`` (threefry Gumbel-max draw), and
+    the same filters followed by one ``torch.multinomial`` draw, the port's
+    draw before threefry. The draws alone beside them. The multinomial
+    rows are a yardstick the port never calls."""
+    from importlib import import_module
+
+    samp = import_module(PORT + ".ops.sampling")
+    tf3 = import_module(PORT + ".ops.threefry")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(vocab, generator=gen, device="cuda") * 4.0
+    recent = torch.randint(0, vocab, (samp.RECENT_WINDOW,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    knobs = (samp.RECENT_WINDOW, 0.7, 0.9, 50, 1.5)
+    probs = samp.sample_probs(logits, recent, *knobs)
+    logp = torch.log(torch.clamp(probs, min=1e-20))
+    key = tf3.prng_key(0)
+    fns = {
+        "sample_token_threefry": lambda: samp.sample_token(key, logits, recent, *knobs),
+        "sample_token_multinomial": lambda: int(torch.multinomial(
+            samp.sample_probs(logits, recent, *knobs), 1, generator=gen)),
+        "draw_threefry": lambda: int(tf3.categorical(key, logp)),
+        "draw_multinomial": lambda: int(torch.multinomial(probs, 1, generator=gen)),
+    }
+    out = {"vocab": vocab, "reps": reps}
+    for what, fn in fns.items():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        out[f"{what}_ms"] = 1e3 * statistics.median(times)
+    return out
+
+
+def first_difference(a, b) -> int:
+    return next(j for j in range(min(len(a), len(b)) + 1)
+                if j >= min(len(a), len(b)) or a[j] != b[j])
+
+
+def hold_to_reference(torch, cfg, params, ids, got, want, what: str) -> None:
+    """Equal tokens, or a first difference at a near-tie of the float32
+    reference's logits (top-2 gap <= LOGIT_GAP_TOL * max|logit|)."""
+    if got == want:
+        log(f"  {what}: tokens equal ({len(want)} tokens)")
+        return
+    i = first_difference(got, want)
+    logits = oracle_logits(torch, cfg, params, ids + want[:i])
+    top2 = torch.topk(logits, 2).values
+    gap = (top2[0] - top2[1]).item()
+    tol = LOGIT_GAP_TOL * logits.abs().max().item()
+    log(f"  {what}:\n    got  {got}\n    want {want}\n  first difference at "
+        f"step {i}: reference top-2 logit gap {gap:.4g} (near-tie tolerance {tol:.4g})")
+    if not gap <= tol:
+        raise AssertionError(f"{what}: tokens differ at a decisive step")
+
+
+def greedy_reference(torch, cfg, params, ids, max_new_tokens: int):
+    """Unsplit greedy loop over ``full_forward`` with a float32 KV cache,
+    what the stage executors keep, and the pipeline's stop rules."""
+    from importlib import import_module
+
+    tf = import_module(PORT + ".models.transformer")
+    REPEAT_STOP = import_module(PORT + ".runtime.client").REPEAT_STOP
+    dev = params["embed"]["wte"].device
+    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids) + max_new_tokens + 1,
+                              dtype=torch.float32, device=dev)
+    x = torch.tensor([ids], device=dev)
+    cur, out = 0, []
+    while len(out) < max_new_tokens:
+        if len(out) >= REPEAT_STOP and len(set(out[-REPEAT_STOP:])) == 1:
+            break
+        logits, kc, vc = tf.full_forward(cfg, params, x, kc, vc, cur)
+        cur += x.shape[1]
+        out.append(int(torch.argmax(logits[0, -1])))
+        x = torch.tensor([[out[-1]]], device=dev)
+    return out
+
+
+def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: str):
+    """The port's --mode local cluster serving 3 requests through kernel
+    `name` (`kernels` maps each kernel's name to its wrapper module; every
+    count is set to 0 just before the requests and read just after),
+    the launch count, and the greedy tokens held to the float32 reference.
+    Returns (summary, state for the failover drive)."""
     args = tmain.build_parser().parse_args(
-        ["--mode", "local", "--model", MODEL, "--quant", "int8",
+        ["--mode", "local", "--model", MODEL, "--quant", quant,
          "--dtype", "bfloat16", "--device", dev_name, "--seed", "0"])
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     cfg, params = tmain.load_model(args)
     client = tmain.build_local_client(args, cfg, params)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
-    log(f"main path: {MODEL} {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+    log(f"{quant} path: {MODEL} {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
         f"{client.plan.num_stages} stages "
         f"{[(s.start, s.end) for s in client.plan.stages]}, set-up {setup_s:.1f}s")
     tok = tmain.load_tokenizer()
@@ -170,62 +316,131 @@ def main_path(torch, ik, tmain, sampling_cls, dev_name: str):
                 (PROMPTS[1], sampling_cls(temperature=0.0)),
                 (PROMPTS[2], sampling_cls(temperature=0.7, top_p=0.9, top_k=50,
                                           repetition_penalty=1.5))]
-    ik._launches = 0
-    results = [client.generate([i % cfg.vocab_size for i in tok.encode(p)],
-                               MAX_NEW_TOKENS, sampling=sp) for p, sp in requests]
+    prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p, _ in requests]
+    for mod in kernels.values():
+        mod._launches = 0
+    results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
+               for ids, (_, sp) in zip(prompt_ids, requests)]
     torch.cuda.synchronize()
-    launches = ik._launches
+    launches = kernels[name]._launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tokens = sum(len(r.tokens) for r in results)
     need = 4 * cfg.num_layers * tokens
-    log(f"main path: {tokens} tokens over {len(results)} requests, int8_dot "
+    log(f"{quant} path: {tokens} tokens over {len(results)} requests, {name} "
         f"launches {launches} (>= 4 x {cfg.num_layers} x {tokens} = {need})")
     if launches < need:
-        raise AssertionError(f"int8_dot launched {launches} times, want >= {need}")
+        raise AssertionError(f"{name} launched {launches} times, want >= {need}")
     for (p, sp), r in zip(requests, results):
         log(f"  request T={sp.temperature}: {len(r.tokens)} tokens stopped by "
             f"{r.stopped_by}, ttft {r.ttft_s * 1e3:.1f} ms, decode "
             f"{1e3 * sum(r.decode_times_s) / max(len(r.decode_times_s), 1):.2f} "
             f"ms/token: {r.tokens}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    oracle = tmain.make_oracle_generate(args, cfg, params)
-    for (p, sp), r in zip(requests[:2], results[:2]):
-        ids = [i % cfg.vocab_size for i in tok.encode(p)]
-        want = oracle(ids, MAX_NEW_TOKENS, sp).tokens
-        if want == r.tokens:
-            log(f"  greedy tokens equal the oracle's ({len(want)} tokens)")
-            continue
-        i = next(j for j in range(min(len(want), len(r.tokens)) + 1)
-                 if j >= min(len(want), len(r.tokens)) or want[j] != r.tokens[j])
-        logits = oracle_logits(torch, cfg, oracle.params, ids + want[:i])
-        top2 = torch.topk(logits, 2).values
-        gap = (top2[0] - top2[1]).item()
-        tol = LOGIT_GAP_TOL * logits.abs().max().item()
-        log(f"  pipeline {r.tokens}\n  oracle   {want}\n  first difference at "
-            f"step {i}: oracle top-2 logit gap {gap:.4g} (near-tie tolerance {tol:.4g})")
-        if not gap <= tol:
-            raise AssertionError("greedy tokens differ from the oracle at a "
-                                 "decisive step")
+    ref_params = tmain._maybe_quantize(args, params)
+    for ids, r in zip(prompt_ids[:2], results[:2]):
+        want = greedy_reference(torch, cfg, ref_params, ids, MAX_NEW_TOKENS)
+        hold_to_reference(torch, cfg, ref_params, ids, r.tokens, want,
+                          "greedy tokens against the float32-cache reference")
     decode = [t for r in results for t in r.decode_times_s]
-    return {"model": MODEL, "layers": cfg.num_layers, "stages": client.plan.num_stages,
-            "requests": len(results), "tokens": tokens, "int8_dot_launches": launches,
-            "prefill_ms": [r.ttft_s * 1e3 for r in results],
-            "prompt_tokens": [len(tok.encode(p)) for p, _ in requests],
-            "decode_ms_per_token": 1e3 * statistics.median(decode),
-            "decode_ms_per_token_mean": 1e3 * sum(decode) / len(decode),
-            "peak_memory_gb": peak_gb, "setup_s": setup_s}
+    summary = {"model": MODEL, "quant": quant, "layers": cfg.num_layers,
+               "stages": client.plan.num_stages, "requests": len(results),
+               "tokens": tokens, f"{name}_launches": launches,
+               "prefill_ms": [r.ttft_s * 1e3 for r in results],
+               "prompt_tokens": [len(ids) for ids in prompt_ids],
+               "decode_ms_per_token": 1e3 * statistics.median(decode),
+               "decode_ms_per_token_mean": 1e3 * sum(decode) / len(decode),
+               "peak_memory_gb": peak_gb, "setup_s": setup_s}
+    state = {"args": args, "cfg": cfg, "params": params, "client": client,
+             "ref_params": ref_params, "prompt_ids": prompt_ids,
+             "results": results, "requests": requests}
+    return summary, state
+
+
+def failover_drive(torch, tmain, state):
+    """Kill the pinned stage-2 peer after its 3rd decode step of a greedy
+    request; the client must fail over to a second stage-2 executor, replay
+    the journal and produce the fault-free tokens (or differ first at a
+    near-tie of the float32 reference)."""
+    from importlib import import_module
+
+    executor_mod = import_module(PORT + ".runtime.executor")
+    client_mod = import_module(PORT + ".runtime.client")
+    args, cfg, client = state["args"], state["cfg"], state["client"]
+    transport = client.transport
+    spec = client.plan.stages[2]
+    replica_id = f"server-stage{spec.index}-replica"
+    replica = executor_mod.StageExecutor(
+        cfg, spec, tmain._stage_params(args, cfg, state["params"], spec),
+        peer_id=replica_id, device=torch.device(args.device))
+    transport.add_peer(replica_id, replica)
+    client.registry.register(client_mod.make_server_record(replica_id, spec,
+                                                           model=args.model))
+    pinned = next(h.peer_id for h in client.route() if h.key == f"stage{spec.index}")
+    seen = {"decode": 0}
+
+    def on_call(peer_id, req):
+        if peer_id == pinned and not req.is_prefill and not req.is_replay:
+            seen["decode"] += 1
+            if seen["decode"] == 3:
+                transport.kill(peer_id)
+
+    transport.on_call = on_call
+    before = client.recoveries
+    t0 = time.monotonic()
+    got = client.generate(state["prompt_ids"][0], MAX_NEW_TOKENS,
+                          sampling=state["requests"][0][1])
+    wall_s = time.monotonic() - t0
+    transport.on_call = None
+    recoveries = client.recoveries - before
+    log(f"failover: pinned {pinned} killed after {seen['decode']} decode calls, "
+        f"{recoveries} recovery, replica served {replica.requests_served} requests, "
+        f"{len(got.tokens)} tokens in {wall_s:.2f}s")
+    if recoveries < 1 or replica.requests_served <= 0:
+        raise AssertionError("failover did not recover onto the replica")
+    hold_to_reference(torch, cfg, state["ref_params"], state["prompt_ids"][0],
+                      got.tokens, state["results"][0].tokens,
+                      "failover tokens against the fault-free run")
+    return {"killed": pinned, "replacement": replica_id, "recoveries": recoveries,
+            "replica_requests_served": replica.requests_served,
+            "tokens": len(got.tokens), "equal_to_fault_free":
+            got.tokens == state["results"][0].tokens, "wall_s": wall_s,
+            "recovery_step_ms": 1e3 * max(got.decode_times_s),
+            "median_step_ms": 1e3 * statistics.median(got.decode_times_s)}
 
 
 def oracle_logits(torch, cfg, params, ids):
-    """The oracle's next-token logits after `ids` (one prefill)."""
+    """The float32-cache reference's next-token logits after `ids` (one
+    prefill)."""
     from importlib import import_module
 
     tf = import_module(PORT + ".models.transformer")
-    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids), device="cuda")
-    logits, _, _ = tf.full_forward(cfg, params, torch.tensor([ids], device="cuda"), kc, vc, 0)
+    dev = params["embed"]["wte"].device
+    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids), dtype=torch.float32,
+                              device=dev)
+    logits, _, _ = tf.full_forward(cfg, params, torch.tensor([ids], device=dev), kc, vc, 0)
     if not (torch.isfinite(logits).all() and tuple(logits.shape) == (1, len(ids), cfg.vocab_size)):
-        raise AssertionError("oracle logits are not finite or have the wrong shape")
+        raise AssertionError("reference logits are not finite or have the wrong shape")
     return logits[0, -1]
+
+
+def kernel_entry(name: str, rows, launches: int):
+    """One kernel of the ``kernels`` line: one decode layer's four sites at
+    M = 1 summed."""
+    decode_rows = [r for r in rows if r["M"] == 1]
+    return {"name": name, "route": "cuda",
+            "source": f"{PORT}/csrc/{name}.cu",
+            "replaces": "global_capstone_design_distributed_inference_of_llms_over_"
+                        "the_internet_tpu/" + REPLACES[name],
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in decode_rows),
+            "at": "one decode layer: wqkv+wo+wgu+wd at M=1, bf16, L2 cold",
+            "ms": sum(r["ms"] for r in decode_rows),
+            "plain_ms": sum(r["plain_ms"] for r in decode_rows),
+            "bound_ms": sum(r["bound_ms"] for r in decode_rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in decode_rows)
+            else "operations",
+            "library_ms": sum(r["library_ms"] for r in decode_rows),
+            "library": LIBRARY_NOTE}
 
 
 def main() -> int:
@@ -238,6 +453,7 @@ def main() -> int:
         from importlib import import_module
 
         ik = import_module(PORT + ".ops.int8_kernel")
+        nk = import_module(PORT + ".ops.nf4_kernel")
         tmain = import_module(PORT + ".main")
         sampling_cls = import_module(PORT + ".ops.sampling").SamplingParams
     except ImportError as exc:
@@ -247,6 +463,8 @@ def main() -> int:
     t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The NF4 path keeps per-layer NF4 leaves packed for nf4_dot.
+    os.environ["NF4_KERNEL"] = "1"
     smi = card()
     log(smi)
     name = torch.cuda.get_device_name(0)
@@ -254,38 +472,37 @@ def main() -> int:
         f"{torch.cuda.device_count()} visible")
     bw, flops = peaks_for(name)
 
-    build_s = build_kernels([PORT + ".ops.int8_kernel"])
+    build_s = build_kernels([PORT + ".ops.int8_kernel", PORT + ".ops.nf4_kernel"])
     log(f"build: {build_s:.1f}s")
-    from importlib import import_module
-
     for src, text in import_module(PORT + ".utils.cuda_build").build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
+    kernel_mods = {"int8_dot": ik, "nf4_dot": nk}
     prompt_len = len(PROMPTS[0].encode())
-    rows = kernel_phase(torch, ik, "cuda", prompt_len, bw, flops)
-    log(json.dumps({"int8_dot_shapes": rows, "card": smi}))
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    int8_rows = int8_phase(torch, ik, "cuda", prompt_len, bw, flops, flush)
+    log(json.dumps({"int8_dot_shapes": int8_rows, "card": smi}))
+    nf4_rows = nf4_phase(torch, nk, "cuda", prompt_len, bw, flops, flush)
+    log(json.dumps({"nf4_dot_shapes": nf4_rows, "card": smi}))
+    del flush
+    sampling = sampling_phase(torch, 128256)
+    log(json.dumps({"sampling_draw": sampling, "card": smi}))
 
-    summary = main_path(torch, ik, tmain, sampling_cls, "cuda")
-    log(json.dumps({"main_path": summary, "card": smi}))
+    int8_summary, state = serve(torch, kernel_mods, "int8_dot", tmain, sampling_cls,
+                                "int8", "cuda")
+    log(json.dumps({"main_path": int8_summary, "card": smi}))
+    del state
+    nf4_summary, state = serve(torch, kernel_mods, "nf4_dot", tmain, sampling_cls,
+                               "nf4", "cuda")
+    nf4_summary["failover"] = failover_drive(torch, tmain, state)
+    log(json.dumps({"nf4_path": nf4_summary, "card": smi}))
+    del state
 
-    decode_rows = [r for r in rows if r["M"] == 1]
-    kernel = {"name": "int8_dot", "route": "cuda",
-              "source": PORT + "/csrc/int8_dot.cu",
-              "replaces": "global_capstone_design_distributed_inference_of_llms_over_"
-                          "the_internet_tpu/ops/int8_kernel.py:98",
-              "launches": summary["int8_dot_launches"],
-              "max_abs_err": max(r["max_abs_err"] for r in decode_rows),
-              "at": "one decode layer: wqkv+wo+wgu+wd at M=1, bf16, L2 cold",
-              "ms": sum(r["ms"] for r in decode_rows),
-              "plain_ms": sum(r["plain_ms"] for r in decode_rows),
-              "bound_ms": sum(r["bound_ms"] for r in decode_rows),
-              "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in decode_rows)
-              else "operations",
-              "library_ms": sum(r["library_ms"] for r in decode_rows),
-              "library": LIBRARY_NOTE}
-    log(json.dumps({"kernels": [kernel]}))
+    kernels = [kernel_entry("int8_dot", int8_rows, int8_summary["int8_dot_launches"]),
+               kernel_entry("nf4_dot", nf4_rows, nf4_summary["nf4_dot_launches"])]
+    log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                           "count": torch.cuda.device_count()}}))

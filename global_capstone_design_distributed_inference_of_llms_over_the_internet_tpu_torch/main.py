@@ -16,6 +16,7 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
 
     python -m global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.main \\
         --mode local --model llama-3.1-8b --quant int8 --dtype bfloat16
+    NF4_KERNEL=1 python -m ...main --mode local --model llama-3.1-8b --quant nf4
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from .models.partition import StagePlan, parse_splits, slice_stage_params
 from .models.quant import quantize_params
 from .models.transformer import full_forward, init_kv_cache, init_params
 from .ops.sampling import RECENT_WINDOW, SamplingParams, sample_token
+from .ops.threefry import prng_key
 from .runtime.client import REPEAT_STOP, GenerationResult, PipelineClient, make_server_record
 from .runtime.executor import StageExecutor
 from .runtime.transport import LocalTransport
@@ -144,16 +146,18 @@ def make_oracle_generate(args, cfg: ModelConfig, params):
     sampling, eos_token_id=None)`` -> GenerationResult, with the weights it
     runs as its ``params`` attribute.
 
-    The KV cache is float32, as in the stage executors (the reference's
-    oracle keeps it in the weight dtype), so the oracle and ``--mode local``
-    compute the same numbers and their greedy tokens compare exactly."""
+    As in the reference (``main.py:431-432``), the KV cache takes the
+    weights' dtype, where the stage executors keep a float32 cache; under
+    ``--dtype bfloat16`` the oracle therefore computes other numbers than
+    ``--mode local``. The draw of step i uses ``PRNGKey(seed + i)``."""
     params = _maybe_quantize(args, params)
-    device = params["embed"]["wte"].device
+    wte = params["embed"]["wte"]
+    device = wte.device
 
     def generate(prompt_ids, max_new_tokens, sampling, eos_token_id=None, **_kw):
         max_len = max(128, len(prompt_ids) + max_new_tokens + 1)
         kc, vc = init_kv_cache(cfg, cfg.num_layers, 1, max_len,
-                               dtype=torch.float32, device=device)
+                               dtype=wte.dtype, device=device)
         tokens: List[int] = []
         decode_times: List[float] = []
         stopped = "max_tokens"
@@ -167,13 +171,10 @@ def make_oracle_generate(args, cfg: ModelConfig, params):
             window = tokens[-RECENT_WINDOW:]
             recent = torch.zeros(RECENT_WINDOW, dtype=torch.int32)
             recent[:len(window)] = torch.tensor(window, dtype=torch.int32)
-            gen = None
-            if not sampling.greedy:
-                gen = torch.Generator(device=device)
-                gen.manual_seed(args.seed + len(tokens))
-            tok = sample_token(gen, logits[0, -1], recent.to(device), len(window),
-                               sampling.temperature, sampling.top_p,
-                               sampling.top_k, sampling.repetition_penalty)
+            tok = sample_token(prng_key(args.seed + len(tokens)), logits[0, -1],
+                               recent.to(device), len(window), sampling.temperature,
+                               sampling.top_p, sampling.top_k,
+                               sampling.repetition_penalty)
             tokens.append(tok)
             dt = time.monotonic() - t0
             if len(tokens) == 1:
@@ -229,9 +230,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--splits", default=None,
                    help='stage boundaries, e.g. "10,20,30" (default: 4 even stages)')
     p.add_argument("--dtype", choices=sorted(_DTYPE_MAP), default="float32")
-    p.add_argument("--quant", choices=["none", "int8"], default="none",
+    p.add_argument("--quant", choices=["none", "int8", "nf4"], default="none",
                    help="weight-only block quantization; int8 runs every "
-                        "projection through the int8_dot kernel")
+                        "projection through the int8_dot kernel, nf4 through "
+                        "the nf4_dot kernel when NF4_KERNEL=1")
     p.add_argument("--prompt", default="Hello, my name is")
     p.add_argument("--max_new_tokens", type=int, default=32)
     p.add_argument("--temperature", type=float, default=0.7)

@@ -5,14 +5,16 @@ keeping its layout so the two packages compare like with like:
 
   * weights are stored [in, out];
   * per-layer parameters are STACKED along a leading layer axis ``[L, ...]``
-    in nested dicts of tensors (int8 weights as ``QuantizedTensor``);
+    in nested dicts of tensors (int8 weights as ``QuantizedTensor``, NF4
+    weights as ``NF4Tensor``);
   * ``lax.scan`` over layers becomes a Python loop that slices each layer's
     leaves (views, no copies);
   * KV caches are preallocated ``[L, B, S, Hkv, Dh]`` tensors written in
     place (see ``ops.attention``).
 
 Every projection goes through `_dot`, which sends packed int8 leaves to
-``ops.int8_kernel.int8_dot``. MoE, deep prompts, paged decode attention and
+``ops.int8_kernel.int8_dot`` and packed NF4 leaves to
+``ops.nf4_kernel.nf4_dot``. MoE, deep prompts, paged decode attention and
 the training forward are not ported yet and are refused loudly.
 """
 
@@ -25,10 +27,11 @@ import torch.nn.functional as F
 
 from ..ops.attention import cached_attention, update_kv_cache
 from ..ops.int8_kernel import int8_dot
+from ..ops.nf4_kernel import nf4_dot
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rotary import apply_rope, rope_cos_sin
 from .config import ModelConfig
-from .quant import QuantizedTensor, dequant_tree, tree_map
+from .quant import NF4Tensor, QuantizedTensor, dequant_tree, tree_map
 
 Params = Dict[str, Any]
 
@@ -157,9 +160,13 @@ def embed_tokens(cfg: ModelConfig, embed: Params, input_ids: torch.Tensor,
 
 
 def _dot(x: torch.Tensor, w) -> torch.Tensor:
-    """Weight matmul with quantized dispatch: a packed QuantizedTensor leaf
-    (left intact by dequant_tree under INT8_FOLD, the default) runs the
-    scale-folded int8 kernel; plain tensors take the ordinary matmul."""
+    """Weight matmul with quantized dispatch: a packed NF4Tensor leaf (left
+    intact by dequant_tree under NF4_KERNEL=1) runs the fused NF4 kernel; a
+    packed QuantizedTensor leaf (left intact under INT8_FOLD, the default)
+    runs the scale-folded int8 kernel; plain tensors take the ordinary
+    matmul."""
+    if isinstance(w, NF4Tensor):
+        return nf4_dot(x, w)
     if isinstance(w, QuantizedTensor):
         return int8_dot(x, w)
     return x @ w
@@ -186,8 +193,10 @@ def qkv_proj(cfg: ModelConfig, p: Params, x: torch.Tensor):
 
 def _concat_out_axis(leaves):
     """Concatenate projection weights along the OUTPUT axis — exact for
-    plain tensors and for QuantizedTensors (q and the per-output-channel s
-    concat together). None for mixed leaf types: the fusions then no-op."""
+    plain tensors, for QuantizedTensors (q and the per-output-channel s
+    concat together) and for NF4Tensors (packed codes and per-block scales:
+    the absmax blocks lie on the input axis, untouched by an N concat).
+    None for mixed or mismatched leaves: the fusions then no-op."""
     if all(isinstance(w, torch.Tensor) for w in leaves):
         return torch.cat(leaves, dim=-1)
     if all(isinstance(w, QuantizedTensor) for w in leaves):
@@ -196,6 +205,12 @@ def _concat_out_axis(leaves):
         return QuantizedTensor(torch.cat([w.q for w in leaves], dim=-1),
                                torch.cat([w.s for w in leaves], dim=-1),
                                leaves[0].dtype)
+    if all(isinstance(w, NF4Tensor) for w in leaves):
+        if len({w.dtype for w in leaves}) != 1 or len({w.in_dim for w in leaves}) != 1:
+            return None
+        return NF4Tensor(torch.cat([w.packed for w in leaves], dim=-1),
+                         torch.cat([w.scales for w in leaves], dim=-1),
+                         leaves[0].in_dim, leaves[0].dtype)
     return None
 
 

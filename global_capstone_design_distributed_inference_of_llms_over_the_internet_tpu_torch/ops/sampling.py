@@ -12,11 +12,9 @@
      value are all kept).
   6. top-p nucleus on the sorted probs: keep cumsum <= top_p, always keep
      the first, renormalize the kept mass.
-  7. renormalize and draw.
-
-Declared divergence: the draw uses a ``torch.Generator``, not JAX's
-threefry keys, so SAMPLED tokens differ from the reference's for the same
-seed; the distribution (`sample_probs`) and greedy tokens are the same.
+  7. renormalize and draw: Gumbel-max ``categorical`` over
+     ``log(max(probs, 1e-20))`` with a threefry key (``ops.threefry``), the
+     reference's own draw, so a seeded run samples the reference's tokens.
 """
 
 from __future__ import annotations
@@ -25,6 +23,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from .threefry import Key, categorical
 
 RECENT_WINDOW = 50  # reference: generated_tokens[-50:]
 
@@ -119,14 +119,15 @@ def sample_probs(logits: torch.Tensor, recent_tokens: torch.Tensor, num_valid: i
     return probs / torch.clamp(probs.sum(), min=1e-20)
 
 
-def sample_token(generator: torch.Generator, logits: torch.Tensor,
-                 recent_tokens: torch.Tensor, num_valid: int, temperature: float,
-                 top_p: float, top_k: int, repetition_penalty: float) -> int:
+def sample_token(key: Key, logits: torch.Tensor, recent_tokens: torch.Tensor,
+                 num_valid: int, temperature: float, top_p: float, top_k: int,
+                 repetition_penalty: float) -> int:
     """One sampling step, logits [V] -> token id. Greedy is the argmax of
-    the raw logits; otherwise one draw from `sample_probs` with
-    `generator` (which must live on the logits' device)."""
+    the raw logits (no draw, `key` unused); otherwise the threefry draw
+    ``categorical(key, log(max(probs, 1e-20)))`` from `sample_probs`
+    (reference ``ops/sampling.py:309``)."""
     if temperature <= 0.0:
         return int(torch.argmax(logits))
     probs = sample_probs(logits, recent_tokens, num_valid, temperature, top_p,
                          top_k, repetition_penalty)
-    return int(torch.multinomial(probs, 1, generator=generator))
+    return int(categorical(key, torch.log(torch.clamp(probs, min=1e-20))))

@@ -1,15 +1,20 @@
-"""Pipeline client: routing, the activation journal, the generation loop.
+"""Pipeline client: routing, journaled fault tolerance, the generation loop.
 
 Port of the plain path of the JAX package's ``runtime/client.py``: the
 tokenized prompt runs through the local first stage, then every remote hop
 of a fixed stage-chain route; the final hop returns a sampled token. Every
 activation sent to a hop is journaled (bounded by coalescing the oldest
-entries), which is what failover replay will consume. Stop rules: EOS, and
-5 identical tokens in a row.
+entries). Stop rules: EOS, and 5 identical tokens in a row.
 
-Failover (recovery wrapper, replay, rediscovery), the circuit breaker,
-latency and module routing, push chains, burst, beam and speculative
-decoding are not ported yet: a failed hop raises to the caller here.
+Fault tolerance as in the reference (``client.py:676-877``): a hop whose
+call fails with a retryable error (``runtime/errors.retryable_types``) is
+blacklisted for its stage, a replacement is discovered in the registry
+(with an amnesty when every candidate is blacklisted), the hop's journal is
+replayed to rebuild the replacement's KV cache, and the call is retried —
+at most ``MAX_ATTEMPTS`` attempts, gated by a per-peer `CircuitBreaker`.
+
+Module and latency routing, push chains, burst, beam and speculative
+decoding, deadlines and the telemetry hooks are not ported yet.
 
 Deliberate difference: journal entries keep the activation tensor on its
 device (tensors are never modified after they are sent), where the
@@ -20,8 +25,10 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import random
+import threading
 import time
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,21 +36,103 @@ from ..models.config import ModelConfig
 from ..models.partition import StagePlan, StageSpec
 from ..ops.sampling import SamplingParams
 from ..scheduling.registry import PlacementRegistry, ServerRecord
+from . import errors as _errors
 from .errors import register as _catalog
 from .executor import StageExecutor
 from .messages import StageRequest, StageResponse, clip_generated
-from .transport import Transport
+from .transport import PeerUnavailable, Transport
 
 logger = logging.getLogger(__name__)
 
+MAX_ATTEMPTS = 3          # attempts per hop call before the call fails
+SETTLE_SECONDS = 0.2      # pause after a replay, before the retried call
 REPEAT_STOP = 5           # 5 consecutive identical tokens end a generation
 # A coalesced replay chunk must stay replayable in one request.
 MAX_COALESCED_TOKENS = 4096
+# Engines that serve their full span only and refuse replay: a replacement
+# peer receives the session's replay journal, so rediscovery avoids them.
+SESSION_ONLY_ENGINES = ("batched", "sp")
 
 
 @_catalog
 class NoRouteError(RuntimeError):
     """No live server covers a required stage."""
+
+
+class _BreakerOpen(PeerUnavailable):
+    """Synthetic dial refusal: the peer's circuit breaker is open. A
+    PeerUnavailable, so the recovery wrapper fails over, but not counted
+    as a failure of the peer (it was never dialed)."""
+
+
+class CircuitBreaker:
+    """Per-peer circuit breaker for the client's recovery wrapper (port of
+    the reference's ``client.py:118-220``, without its telemetry hooks).
+
+      closed     normal; `threshold` CONSECUTIVE failures open it.
+      open       dials are skipped until the backoff elapses:
+                 ``base * 2**(opens-1)`` capped at ``max_backoff_s``, plus
+                 seeded jitter so clients do not re-probe in lockstep.
+      half_open  backoff elapsed: exactly one probe call is let through;
+                 success closes the breaker, failure re-opens it with the
+                 doubled backoff.
+
+    `now` is injectable so tests drive the clock instead of sleeping."""
+
+    def __init__(self, threshold: int = 3, base_backoff_s: float = 0.5,
+                 max_backoff_s: float = 30.0, jitter: float = 0.1, seed: int = 0,
+                 now: Callable[[], float] = time.monotonic):
+        self.threshold = threshold
+        self.base_backoff_s = base_backoff_s
+        self.max_backoff_s = max_backoff_s
+        self.jitter = jitter
+        self.now = now
+        self._rng = random.Random(seed)
+        self._lock = threading.Lock()
+        # peer -> {"state", "fails", "opened_at", "backoff", "opens"}
+        self._peers: Dict[str, dict] = {}
+
+    def _st(self, peer_id: str) -> dict:
+        return self._peers.setdefault(
+            peer_id, {"state": "closed", "fails": 0, "opened_at": 0.0,
+                      "backoff": 0.0, "opens": 0})
+
+    def state(self, peer_id: str) -> str:
+        with self._lock:
+            return self._peers.get(peer_id, {}).get("state", "closed")
+
+    def allow(self, peer_id: str) -> bool:
+        """May the caller dial this peer now? Open with the backoff pending:
+        no. Open with the backoff elapsed: yes, as the half-open probe.
+        Half-open with the probe already granted: no (one probe at a time)."""
+        with self._lock:
+            st = self._st(peer_id)
+            if st["state"] == "closed":
+                return True
+            if st["state"] == "open":
+                if self.now() - st["opened_at"] < st["backoff"]:
+                    return False
+                st["state"] = "half_open"
+                return True
+            return False
+
+    def record_success(self, peer_id: str) -> None:
+        with self._lock:
+            self._st(peer_id).update(state="closed", fails=0, backoff=0.0, opens=0)
+
+    def record_failure(self, peer_id: str) -> None:
+        with self._lock:
+            st = self._st(peer_id)
+            st["fails"] += 1
+            if st["state"] != "half_open" and st["fails"] < self.threshold:
+                return
+            # Threshold reached (closed) or the half-open probe failed:
+            # (re-)open with exponentially grown, jittered backoff.
+            st["opens"] += 1
+            backoff = min(self.base_backoff_s * (2 ** (st["opens"] - 1)),
+                          self.max_backoff_s)
+            backoff *= 1.0 + self._rng.uniform(0.0, self.jitter)
+            st.update(state="open", opened_at=self.now(), backoff=backoff, fails=0)
 
 
 @dataclasses.dataclass
@@ -99,7 +188,9 @@ class PipelineClient:
 
     def __init__(self, cfg: ModelConfig, plan: StagePlan, stage0: StageExecutor,
                  transport: Transport, registry: PlacementRegistry, *,
-                 request_timeout: float = 60.0, journal_max_entries: int = 256,
+                 request_timeout: float = 60.0,
+                 settle_seconds: float = SETTLE_SECONDS,
+                 journal_max_entries: int = 256,
                  seed: int = 0, model: Optional[str] = None):
         self.cfg = cfg
         self.model = model
@@ -108,14 +199,26 @@ class PipelineClient:
         self.transport = transport
         self.registry = registry
         self.request_timeout = request_timeout
+        self.settle_seconds = settle_seconds
         self.journal_max_entries = journal_max_entries
         self.seed = seed
         # hop key -> session -> activation journal
         self.journal: Dict[str, Dict[str, List[JournalEntry]]] = {}
-        # session -> every peer that held KV for it (released at the end)
+        # hop key -> peers that failed for that hop
+        self.failed_peers: Dict[str, set] = {}
+        # session -> every peer that held KV for it (released at the end): a
+        # peer failed over AWAY from may still be alive and hold a lease.
         self._session_peers: Dict[str, set] = {}
         self._route: Optional[List[Hop]] = None
         self.last_prefill_stage_times: Dict[str, float] = {}
+        # Seeded with the client seed so fault runs reproduce.
+        self.breaker = CircuitBreaker(seed=seed)
+        self._recoveries = 0
+
+    @property
+    def recoveries(self) -> int:
+        """Failovers to a replacement server so far."""
+        return self._recoveries
 
     # ------------------------------------------------------------------
     # Routing
@@ -126,7 +229,9 @@ class PipelineClient:
         hops: List[Hop] = []
         for spec in self.plan.stages[1:]:
             key = f"stage{spec.index}"
-            peer = self.registry.discover_stage(spec.index, model=self.model)
+            peer = self.registry.discover_stage(
+                spec.index, exclude=tuple(self.failed_peers.get(key, ())),
+                model=self.model)
             if peer is None:
                 raise NoRouteError(f"no live server for {key}")
             hops.append(Hop(key, peer, spec.start, spec.end, spec.is_last))
@@ -152,14 +257,91 @@ class PipelineClient:
                     entries[i:i + 2] = [_merge_entries(a, b)]
                     break
 
+    def _replay(self, hop: Hop, session_id: str, sampling: SamplingParams,
+                max_length: int) -> None:
+        """Rebuild a replacement peer's KV by replaying the hop's journal:
+        the first chunk as a prefill, the rest as ``is_replay`` chunks with
+        their cumulative cur_len."""
+        entries = self.journal.get(hop.key, {}).get(session_id, [])
+        for i, e in enumerate(entries):
+            req = StageRequest(
+                session_id=session_id, hidden=e.hidden, seq_len=e.seq_len,
+                cur_len=e.cur_len, is_prefill=(i == 0), is_replay=True,
+                max_length=max_length, sampling=sampling,
+                start_block=hop.start_block, end_block=hop.end_block)
+            self.transport.call(hop.peer_id, req, self.request_timeout)
+
+    def _call_with_recovery(self, hop: Hop, req: StageRequest) -> StageResponse:
+        """Up to MAX_ATTEMPTS attempts, gated by the per-peer circuit
+        breaker: an open breaker turns the dial into a synthetic retryable
+        failure (fail over without a dial), and only real observations feed
+        the breaker. Retryable errors are the catalog's
+        (``errors.retryable_types``); anything else surfaces at once."""
+        last_exc: Optional[Exception] = None
+        touched = self._session_peers.setdefault(req.session_id, set())
+        for attempt in range(MAX_ATTEMPTS):
+            touched.add(hop.peer_id)
+            try:
+                if not self.breaker.allow(hop.peer_id):
+                    raise _BreakerOpen(f"peer {hop.peer_id}: circuit breaker open")
+                resp = self.transport.call(hop.peer_id, req, self.request_timeout)
+                self.breaker.record_success(hop.peer_id)
+                return resp
+            except _errors.retryable_types() as exc:
+                if not isinstance(exc, _BreakerOpen):
+                    self.breaker.record_failure(_errors.breaker_blame(exc, hop.peer_id))
+                last_exc = exc
+                failed = self.failed_peers.setdefault(hop.key, set())
+                failed.add(hop.peer_id)
+                logger.warning("hop %s peer %s failed (attempt %d/%d): %s",
+                               hop.key, hop.peer_id, attempt + 1, MAX_ATTEMPTS, exc)
+                try:
+                    replacement = self._rediscover(hop)
+                except NoRouteError:
+                    continue  # a peer may re-register before we run out
+                hop.peer_id = replacement
+                self._recoveries += 1
+                try:
+                    self._replay(hop, req.session_id, req.sampling, req.max_length)
+                except _errors.retryable_types() as replay_exc:
+                    # The replacement died too: blacklist it, fail over again.
+                    last_exc = replay_exc
+                    failed.add(replacement)
+                    continue
+                if self.settle_seconds:
+                    time.sleep(self.settle_seconds)
+        raise RuntimeError(
+            f"hop {hop.key}: all {MAX_ATTEMPTS} attempts failed") from last_exc
+
+    def _rediscover(self, hop: Hop) -> str:
+        peer = self._rediscover_excluding(
+            hop, tuple(self.failed_peers.get(hop.key, ())))
+        if peer is None:
+            # Every candidate is blacklisted. Failures are often transient:
+            # give the failed peers another chance rather than fail with
+            # live servers present (the blacklist amnesty).
+            self.failed_peers.get(hop.key, set()).clear()
+            peer = self._rediscover_excluding(hop, ())
+        if peer is None:
+            raise NoRouteError(f"no replacement for {hop.key}")
+        return peer
+
+    def _rediscover_excluding(self, hop: Hop, exclude: Tuple[str, ...]) -> Optional[str]:
+        """A live peer of the hop's stage, not in `exclude`, avoiding the
+        engines that refuse a replay journal (the stage branch of the
+        reference's rediscovery)."""
+        return self.registry.discover_stage(
+            int(hop.key.removeprefix("stage")), exclude=exclude,
+            model=self.model, avoid_engine=SESSION_ONLY_ENGINES)
+
     def _walk(self, hidden: torch.Tensor, seq_len: int, cur_len: int,
               session_id: str, *, is_prefill: bool, max_length: int,
               sampling: SamplingParams, generated: Sequence[int] = (),
               step_seed: int = 0, stage_times: Dict[str, float]) -> StageResponse:
-        """Send the activation through every remote hop; return the final
-        hop's response (a sampled token)."""
+        """Send the activation through every remote hop, each call through
+        the recovery wrapper; return the final hop's response (a sampled
+        token)."""
         cur = hidden
-        touched = self._session_peers.setdefault(session_id, set())
         for hop in self.route():
             req = StageRequest(
                 session_id=session_id, hidden=cur, seq_len=seq_len,
@@ -167,9 +349,8 @@ class PipelineClient:
                 sampling=sampling, generated_tokens=clip_generated(generated),
                 step_seed=step_seed, start_block=hop.start_block,
                 end_block=hop.end_block)
-            touched.add(hop.peer_id)
             t0 = time.monotonic()
-            resp = self.transport.call(hop.peer_id, req, self.request_timeout)
+            resp = self._call_with_recovery(hop, req)
             stage_times[hop.key] = time.monotonic() - t0
             # Journal AFTER success: replay rebuilds exactly the applied
             # history.

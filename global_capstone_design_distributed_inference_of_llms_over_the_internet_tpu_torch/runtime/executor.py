@@ -35,6 +35,7 @@ from ..models.partition import (
 from ..models.quant import tree_map
 from ..models.transformer import fuse_qkv_params
 from ..ops.sampling import RECENT_WINDOW, sample_token
+from ..ops.threefry import fold_in, prng_key
 from .errors import register as _catalog
 from .kv_cache import AllocationFailed, KVArena, KVHandle
 from .messages import StageRequest, StageResponse
@@ -51,10 +52,11 @@ class StageExecutionError(RuntimeError):
 
 def _sample_rows(logits: torch.Tensor, t_real: int, req: StageRequest) -> list:
     """Final-stage sampling from the last real token's logits, per batch
-    row. logits: [B, T, V] -> list of B token ids. One generator seeded
-    with the step seed serves the rows in order, so row 0 of a batch draws
-    what a batch-1 request would. The recent-token window is per session,
-    shared by the rows."""
+    row. logits: [B, T, V] -> list of B token ids. Row 0 draws with
+    ``PRNGKey(step_seed)`` and row i with ``fold_in(base, i)``, the
+    reference's key schedule (``executor.py:160-173``), so row 0 of a batch
+    draws what a batch-1 request would. The recent-token window is per
+    session, shared by the rows."""
     last = logits[:, t_real - 1]
     n = min(len(req.generated_tokens), RECENT_WINDOW)
     recent = torch.zeros(RECENT_WINDOW, dtype=torch.int32)
@@ -62,12 +64,11 @@ def _sample_rows(logits: torch.Tensor, t_real: int, req: StageRequest) -> list:
         recent[:n] = torch.tensor(req.generated_tokens[-n:], dtype=torch.int32)
     recent = recent.to(last.device)
     sp = req.sampling
-    gen = None
-    if not sp.greedy:
-        gen = torch.Generator(device=last.device)
-        gen.manual_seed(req.step_seed)
-    return [sample_token(gen, row, recent, n, sp.temperature, sp.top_p,
-                         sp.top_k, sp.repetition_penalty) for row in last]
+    base = prng_key(req.step_seed)
+    return [sample_token(base if i == 0 else fold_in(base, i), row, recent, n,
+                         sp.temperature, sp.top_p, sp.top_k,
+                         sp.repetition_penalty)
+            for i, row in enumerate(last)]
 
 
 class StageExecutor:
@@ -87,6 +88,8 @@ class StageExecutor:
         self.peer_id = peer_id
         self.max_chunk_bytes = max_chunk_bytes
         self.cache_dtype = cache_dtype
+        # Forward calls that ran to the end (prefill, decode and replay).
+        self.requests_served = 0
         self.arena = arena or KVArena(
             num_layers=max(spec.num_layers, 1), num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, max_bytes=max_cache_bytes,
@@ -213,6 +216,7 @@ class StageExecutor:
                              handle.cache_len)
             handle.advance(n)
             outs.append(out)
+        self.requests_served += 1
 
         if sub_spec.is_last:
             tokens = _sample_rows(outs[-1], outs[-1].shape[1], req)

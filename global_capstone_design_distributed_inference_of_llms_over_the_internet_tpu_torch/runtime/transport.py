@@ -2,16 +2,18 @@
 
 Port of the JAX package's ``runtime/transport.py``: the `Transport` seam and
 `LocalTransport`, every stage executor in one process, with deterministic
-fault injection for tests (`kill`, `revive`, `fail_next`). Transports raise
-`PeerUnavailable` (a ConnectionError) for a dead peer. Telemetry, stalls,
-deadlines, push chains and the training verb are not ported yet.
+fault injection for tests (`kill`, `revive`, `fail_next`, and the `on_call`
+tap that sees every request first). Transports raise `PeerUnavailable` (a
+ConnectionError) for a dead peer, which the client's recovery wrapper fails
+over. Telemetry, stalls, deadlines, push chains and the training verb are
+not ported yet.
 """
 
 from __future__ import annotations
 
 import abc
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 from .errors import register as _catalog
 from .executor import StageExecutor
@@ -47,6 +49,10 @@ class LocalTransport(Transport):
         self._dead: Dict[str, bool] = {}
         self._fail_next: Dict[str, int] = {}
         self._lock = threading.Lock()
+        # Optional per-call tap for tests: (peer_id, request) -> None. It runs
+        # after this call read the peer's state, so a kill from the tap takes
+        # effect from the next call on.
+        self.on_call: Optional[Callable[[str, StageRequest], None]] = None
 
     def add_peer(self, peer_id: str, executor: StageExecutor) -> None:
         with self._lock:
@@ -56,6 +62,10 @@ class LocalTransport(Transport):
     def executor(self, peer_id: str) -> StageExecutor:
         with self._lock:
             return self._peers[peer_id]
+
+    def peers(self) -> Tuple[str, ...]:
+        with self._lock:
+            return tuple(self._peers)
 
     def kill(self, peer_id: str) -> None:
         with self._lock:
@@ -84,6 +94,8 @@ class LocalTransport(Transport):
             flake = self._fail_next.get(peer_id, 0)
             if flake > 0:
                 self._fail_next[peer_id] = flake - 1
+        if self.on_call is not None:
+            self.on_call(peer_id, request)
         if executor is None or dead:
             raise PeerUnavailable(f"peer {peer_id} is not reachable")
         if flake > 0:

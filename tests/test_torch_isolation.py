@@ -1,7 +1,8 @@
 """The port stands alone: no module of it, and neither chip_smoke.py nor
 scripts/torch_profile_decode.py, imports jax, jaxlib or the JAX package
 (statically, and at run time with jax blocked); and the modules it copied
-from the JAX package have not drifted from their originals."""
+from the JAX package have not drifted from their originals (the NF4 code
+book among them)."""
 
 import ast
 import dataclasses
@@ -14,6 +15,9 @@ import pytest
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.models import (
     config as jconfig,
 )
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.models import (
+    quant as jquant,
+)
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.runtime import (
     errors as jerrors,
 )
@@ -25,6 +29,9 @@ from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.
 )
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.models import (
     config as tconfig,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.models import (
+    quant as tquant,
 )
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.runtime import (
     errors as terrors,
@@ -98,9 +105,12 @@ def test_model_config_copy_has_not_drifted():
         dataclasses.asdict(jconfig.get_config("meta-llama-3.1-8b"))
 
 
-@pytest.mark.parametrize("table", ["flags", "errors", "registry"])
+@pytest.mark.parametrize("table", ["flags", "errors", "registry", "nf4"])
 def test_copied_catalogs_have_not_drifted(table):
-    if table == "flags":
+    if table == "nf4":
+        assert tquant.NF4_LEVELS == jquant.NF4_LEVELS
+        assert tquant.NF4_BLOCK == jquant.NF4_BLOCK
+    elif table == "flags":
         assert {k: dataclasses.asdict(v) for k, v in tflags.FLAGS.items()} == \
             {k: dataclasses.asdict(v) for k, v in jflags.FLAGS.items()}
     elif table == "errors":

@@ -11,10 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import (
+from _torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     assert_close,
     bridged,
     jax_params,
+    one_torch_thread,
     port_cfg,
     tiny_gpt2_j,
     tiny_llama_j,

@@ -7,7 +7,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import assert_close
+from _torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
+    assert_close,
+    one_torch_thread,
+)
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.ops import (
     attention as jatt,
     norms as jnorms,

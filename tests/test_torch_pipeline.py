@@ -2,7 +2,8 @@
 by its own main.run_local, on the same bridged weights: identical greedy
 tokens. Also: the port's pipeline equals the port's --mode oracle, the
 sampler's distribution equals JAX's over a sweep, seeded sampling is
-reproducible, and the CLI runs end to end on the CPU."""
+reproducible, a dead or flaky stage is handled by failover, and the CLI
+runs end to end on the CPU."""
 
 import itertools
 
@@ -12,9 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_helpers import assert_close, bridged, jax_params, port_cfg, tiny_llama_j
-from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu import (
-    main as jmain,
+from _torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
+    assert_close,
+    bridged,
+    jax_mode_generate,
+    jax_params,
+    one_torch_thread,
+    port_args,
+    port_cfg,
+    tiny_llama_j,
 )
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.ops import (
     sampling as jsamp,
@@ -31,20 +38,6 @@ STEPS = 16
 SPLITS = {"even4": [], "splits2": ["--splits", "2"]}
 
 
-def _jax_local_generate(monkeypatch, argv, jcfg, jparams):
-    """The JAX package's run_local, with its report swapped for a capture
-    of the client's generate function."""
-    captured = []
-    monkeypatch.setattr(jmain, "_generate_and_report",
-                        lambda args, fn, cfg, **kw: captured.append(fn) or 0)
-    jmain.run_local(jmain.build_parser().parse_args(argv), jcfg, jparams)
-    return captured[0]
-
-
-def _port_args(argv):
-    return tmain.build_parser().parse_args(argv + ["--device", "cpu"])
-
-
 @pytest.mark.parametrize("splits", sorted(SPLITS))
 @pytest.mark.parametrize("quant", ["none", "int8"])
 def test_local_pipeline_greedy_tokens_match_jax_and_oracle(monkeypatch, quant, splits):
@@ -54,18 +47,18 @@ def test_local_pipeline_greedy_tokens_match_jax_and_oracle(monkeypatch, quant, s
     argv = ["--mode", "local", "--quant", quant] + SPLITS[splits]
     greedy_j = jsamp.SamplingParams(temperature=0.0)
     greedy_t = tsamp.SamplingParams(temperature=0.0)
-    want = _jax_local_generate(monkeypatch, argv, jcfg, jp)(
+    want = jax_mode_generate(monkeypatch, argv, jcfg, jp)[0](
         PROMPT, STEPS, sampling=greedy_j).tokens
     assert len(want) == STEPS
 
     tp = bridged(jp)
-    client = tmain.build_local_client(_port_args(argv), tcfg, tp)
+    client = tmain.build_local_client(port_args(argv), tcfg, tp)
     assert client.plan.num_stages == (4 if splits == "even4" else 2)
     got = client.generate(PROMPT, STEPS, sampling=greedy_t)
     assert got.tokens == want
     assert got.stopped_by == "max_tokens"
 
-    oracle = tmain.make_oracle_generate(_port_args(argv), tcfg, tp)
+    oracle = tmain.make_oracle_generate(port_args(argv), tcfg, tp)
     assert oracle(PROMPT, STEPS, greedy_t).tokens == want
 
 
@@ -117,10 +110,13 @@ def test_push_recent_and_repetition_penalty_match_jax():
 
 
 def test_seeded_sampling_is_reproducible():
+    """Seeded draws come from threefry keys (PRNGKey(seed + step)): the same
+    seed repeats its tokens, another seed draws others, and the port's
+    oracle, keyed the same way, draws the pipeline's tokens."""
     jcfg = tiny_llama_j()
     tcfg = port_cfg(jcfg)
     tp = bridged(jax_params(jcfg, "int8"))
-    args = _port_args(["--mode", "local", "--quant", "int8", "--seed", "11"])
+    args = port_args(["--mode", "local", "--quant", "int8", "--seed", "11"])
     sampling = tsamp.SamplingParams(temperature=0.7, top_p=0.9, top_k=50,
                                     repetition_penalty=1.5)
     runs = [tmain.build_local_client(args, tcfg, tp).generate(
@@ -128,9 +124,11 @@ def test_seeded_sampling_is_reproducible():
     assert runs[0] == runs[1]
     assert len(runs[0]) >= 5
     other = tmain.build_local_client(
-        _port_args(["--mode", "local", "--quant", "int8", "--seed", "12"]),
+        port_args(["--mode", "local", "--quant", "int8", "--seed", "12"]),
         tcfg, tp).generate(PROMPT, 12, sampling=sampling).tokens
     assert other != runs[0]
+    oracle = tmain.make_oracle_generate(args, tcfg, tp)
+    assert oracle(PROMPT, 12, sampling).tokens == runs[0]
 
 
 def test_main_local_runs_on_cpu(capsys):
@@ -171,31 +169,68 @@ def test_kv_arena_buckets_and_accounting_match_jax():
     assert ta.used_bytes == 0 and ta.get("s") is None
 
 
-def test_dead_or_flaky_stage_fails_the_generation_and_frees_leases():
-    from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.runtime.transport import (
-        PeerUnavailable,
+@pytest.mark.parametrize("fault", ["kill", "flake"])
+def test_dead_or_flaky_stage_fails_the_generation_and_frees_leases(fault):
+    """With failover, a kill of the only replica of a stage raises after
+    MAX_ATTEMPTS attempts and frees every lease and journal entry; a
+    transient flake recovers onto the same peer with identical tokens.
+    After the peer is revived it serves the same tokens again: at once
+    after a flake, and after a kill only once the circuit breaker's
+    backoff has run out (three failures opened it) and its half-open
+    probe succeeds."""
+    from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.runtime.client import (
+        MAX_ATTEMPTS,
+        CircuitBreaker,
     )
 
     jcfg = tiny_llama_j()
     client = tmain.build_local_client(
-        _port_args(["--mode", "local", "--quant", "int8", "--splits", "2"]),
+        port_args(["--mode", "local", "--quant", "int8", "--splits", "2"]),
         port_cfg(jcfg), bridged(jax_params(jcfg)))
+    client.settle_seconds = 0.0
+    clock = [0.0]
+    client.breaker = CircuitBreaker(now=lambda: clock[0])
     greedy = tsamp.SamplingParams(temperature=0.0)
     want = client.generate(PROMPT, 6, sampling=greedy).tokens
     transport = client.transport
     server = transport.executor("server-stage1")
-    for fault in (lambda: transport.fail_next("server-stage1", 1),
-                  lambda: transport.kill("server-stage1")):
-        fault()
-        with pytest.raises(PeerUnavailable):
-            client.generate(PROMPT, 6, sampling=greedy)
-        # Failover is not ported yet: the error surfaces, and the session's
-        # leases and journal are released everywhere.
+
+    def assert_released():
+        # The session's leases and journal are released everywhere.
         assert client.stage0.arena.used_bytes == 0
         assert server.arena.used_bytes == 0
         assert all(not sessions for sessions in client.journal.values())
+
+    if fault == "kill":
+        transport.kill("server-stage1")
+        with pytest.raises(RuntimeError, match=f"all {MAX_ATTEMPTS} attempts failed"):
+            client.generate(PROMPT, 6, sampling=greedy)
+        assert_released()
+        assert client.breaker.state("server-stage1") == "open"
+        transport.revive("server-stage1")
+        # Revived, but the breaker's backoff has not run out: every attempt
+        # is refused without a dial.
+        served = server.requests_served
+        with pytest.raises(RuntimeError, match=f"all {MAX_ATTEMPTS} attempts failed"):
+            client.generate(PROMPT, 6, sampling=greedy)
+        assert_released()
+        assert server.requests_served == served
+        assert client.breaker.state("server-stage1") == "open"
+        # Past the backoff (at most base 0.5 s plus 10% jitter), the
+        # half-open probe goes through and closes the breaker.
+        clock[0] += 1.0
+        assert client.generate(PROMPT, 6, sampling=greedy).tokens == want
+        assert server.requests_served > served
+        assert client.breaker.state("server-stage1") == "closed"
+    else:
+        transport.fail_next("server-stage1", 1)
+        assert client.generate(PROMPT, 6, sampling=greedy).tokens == want
+        assert client.recoveries == 1
+        assert_released()
         transport.revive("server-stage1")
         assert client.generate(PROMPT, 6, sampling=greedy).tokens == want
+        assert client.breaker.state("server-stage1") == "closed"
+    assert_released()
 
 
 def test_executor_subspans_replay_and_missing_session():
