@@ -2,15 +2,21 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``--kernels-only``: steps 1-3 and stop, a development aid for iterating on
+the kernels; it never prints the last line of a smoke pass.)
 
 1. Card: prints ``nvidia-smi``'s name and power limit, torch and CUDA versions.
 2. Build: compiles every CUDA kernel of the port from ``csrc/``, one nvcc per
    source, all at once.
 3. Kernels: calls each kernel's wrapper (``int8_dot``, ``nf4_dot``) at the
-   shapes the main paths give it (llama-3.1-8b projections, M = 1, 16 and the
-   prompt length), holds it against its plain PyTorch version on the same
-   card, and times the kernel, the plain version and one PyTorch library call
-   computing the same function. Prints one JSON line of shapes per kernel.
+   shapes the main paths give it (llama-3.1-8b projections; ``int8_dot`` at
+   M = 1, 16 and the prompt length, ``nf4_dot`` at M = 1, 8, 16, the prompt
+   length, 128 and 512, each row with the route it took), holds it against
+   its plain PyTorch version on the same card, and times the kernel, the
+   plain version and one PyTorch library call computing the same function.
+   ``nf4_dot`` is also held at ragged shapes of both routes, and both of its
+   kernels are timed at M = 1..16 on wgu and wd (the crossover scan behind
+   ``MMA_MIN_M``). Prints one JSON line of shapes per kernel.
 4. Sampling: times one sampled draw at llama-3.1-8b's vocabulary, the
    port's threefry ``sample_token`` beside a ``torch.multinomial`` draw.
 5. int8 path: builds the port's in-process ``--mode local`` cluster through
@@ -21,9 +27,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and holds the greedy tokens to an unsplit greedy loop over
    ``full_forward`` with the executors' float32 cache.
 6. NF4 path: the same with ``--quant nf4`` and ``NF4_KERNEL=1``, through
-   ``nf4_dot``. Then failover: a second stage-2 executor joins, the pinned
-   stage-2 peer is killed after its 3rd decode step of a greedy request, and
-   the client must recover onto the replica with the fault-free tokens.
+   ``nf4_dot``, whose every prefill projection must take the tensor-core
+   route (``_launches_mma``). Then failover: a second stage-2 executor
+   joins, the pinned stage-2 peer is killed after its 3rd decode step of a
+   greedy request, and the client must recover onto the replica with the
+   fault-free tokens.
 7. Prints the ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as
    its last line.
 
@@ -37,6 +45,8 @@ import concurrent.futures
 import gc
 import json
 import os
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -64,8 +74,44 @@ LIBRARY_NOTE = ("torch.matmul(x, dequantized bf16 weight): a yardstick that "
 REPLACES = {"int8_dot": "ops/int8_kernel.py:98", "nf4_dot": "ops/nf4_kernel.py:132"}
 
 
+# Every line of the run is also kept here: the JSON lines outgrow the tail
+# of the output that a remote run returns.
+LOG_PATH = pathlib.Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke.log"
+_log_lines = []
+
+
 def log(*parts):
-    print(*parts, flush=True)  # noqa: T201
+    line = " ".join(str(p) for p in parts)
+    _log_lines.append(line)
+    print(line, flush=True)  # noqa: T201
+
+
+def save_log() -> None:
+    if _log_lines:
+        LOG_PATH.parent.mkdir(exist_ok=True)
+        LOG_PATH.write_text("\n".join(_log_lines) + "\n")
+
+
+def ptxas_usage(text: str):
+    """(kernel, line) for each register / spill line of ``nvcc -Xptxas -v``,
+    the kernel named by its template arguments, e.g.
+    ``nf4_dot_kernel<bf16,8>``."""
+    kernel = "?"
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"\d((?:int8|nf4)_dot(?:_mma)?_kernel)I(.*?)EEv",
+                          entry.group(1))
+            if m is None:
+                kernel = entry.group(1)
+                continue
+            args = m.group(2)
+            dtype = (["float"] if args.startswith("f") else
+                     ["bf16"] if args.startswith("13__nv_bfloat16") else [])
+            ints = re.findall(r"Li(\d+)E", args)
+            kernel = f"{m.group(1)}<{','.join(dtype + ints)}>"
+        elif "registers" in line or "spill" in line:
+            yield kernel, line.strip()
 
 
 def card() -> str:
@@ -113,21 +159,27 @@ def cuda_ms(fn, torch, reps: int = 25, flush=None) -> float:
     return statistics.median(times)
 
 
-def check_and_time(torch, name, site, x, kernel_fn, plain_fn, library_fn,
-                   nbytes, bw, flops, flush):
-    """Hold one kernel call against its plain version (bf16 rule) and time
-    the kernel, the plain version and the library yardstick."""
-    m, k = x.shape
-    y = kernel_fn()
-    ref = plain_fn()
+def check_bf16(torch, name, site, x, y, ref) -> float:
+    """max|kernel - plain|, held to BF16_TOL * max|plain|."""
+    m = x.shape[0]
     torch.cuda.synchronize()
-    n = ref.shape[1]
-    assert y.dtype == x.dtype and tuple(y.shape) == (m, n)
+    assert y.dtype == x.dtype and tuple(y.shape) == (m, ref.shape[1])
     err = (y.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     if not (err <= BF16_TOL * scale and torch.isfinite(y).all()):
         raise AssertionError(f"{name} {site} M={m}: max|kernel-plain| "
                              f"{err} > {BF16_TOL} * {scale}")
+    return err
+
+
+def check_and_time(torch, name, site, x, kernel_fn, plain_fn, library_fn,
+                   nbytes, bw, flops, flush):
+    """Hold one kernel call against its plain version (bf16 rule) and time
+    the kernel, the plain version and the library yardstick."""
+    m, k = x.shape
+    ref = plain_fn()
+    err = check_bf16(torch, name, site, x, kernel_fn(), ref)
+    n = ref.shape[1]
     ops = 2 * m * k * n
     return {"site": site, "M": m, "K": k, "N": n, "max_abs_err": err,
             "ms": cuda_ms(kernel_fn, torch, flush=flush),
@@ -176,35 +228,78 @@ def int8_phase(torch, ik, dev, prompt_len: int, bw: float, flops: float, flush):
     return rows
 
 
+def nf4_weight(torch, quant, gen, dev, k: int, n: int):
+    w_bf16 = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+    return quant._quantize_leaf_nf4(w_bf16)
+
+
 def nf4_phase(torch, nk, dev, prompt_len: int, bw: float, flops: float, flush):
     """nf4_dot at every main-path shape, on weights quantized by the port's
-    own NF4 quantizer: agreement and times."""
+    own NF4 quantizer: agreement and times, each row with its route; ragged
+    shapes of both routes; and the crossover scan of the two kernels at
+    M = 1..16 on wgu and wd. Returns (rows, scan)."""
     from importlib import import_module
 
     quant = import_module(PORT + ".models.quant")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    rows = []
+    rows, scan = [], []
+    ms = (1, 8, 16, prompt_len, 128, 512)
     for site, k, n in SITES:
-        w_bf16 = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
-        w = quant._quantize_leaf_nf4(w_bf16)
-        del w_bf16
+        w = nf4_weight(torch, quant, gen, dev, k, n)
         w_deq = w.dequant()                          # library yardstick only
-        for m in (1, 16, prompt_len):
+        for m in ms:
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            rows.append(check_and_time(
+            row = check_and_time(
                 torch, "nf4_dot", site, x, lambda: nk.nf4_dot(x, w),
                 lambda: nk.nf4_dot_reference(x, w),
                 lambda: torch.matmul(x, w_deq),
                 m * k * 2 + k * n // 2 + (k // 64) * n * 2 + m * n * 2,
-                bw, flops, flush))
+                bw, flops, flush)
+            row["route"] = nk._route(m, k, n, x.dtype)
+            rows.append(row)
         x32 = torch.randn((16, k), generator=gen, device=dev)
         err32 = check_f32("nf4_dot", site, nk.nf4_dot(x32, w),
                           nk.nf4_dot_reference(x32, w))
-        log(f"nf4_dot {site} K={k} N={n}: bf16 ok at M=1,16,{prompt_len}; "
+        log(f"nf4_dot {site} K={k} N={n}: bf16 ok at M={','.join(map(str, ms))} "
+            f"(routes {[r['route'] for r in rows[-len(ms):]]}); "
             f"float32 M=16 max err {err32:.3e}")
+        if site == "wgu":                            # a ragged M, tensor cores
+            x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
+            assert nk._route(33, k, n, x.dtype) == "mma"
+            err = check_bf16(torch, "nf4_dot", site, x, nk.nf4_dot(x, w),
+                             nk.nf4_dot_reference(x, w))
+            log(f"nf4_dot {site} ragged M=33 (mma): max err {err:.3e}")
+        if site in ("wgu", "wd"):
+            for m in range(1, 17):
+                x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+                ref = nk.nf4_dot_reference(x, w)
+                point = {"site": site, "M": m}
+                for route in ("simt", "mma"):
+                    check_bf16(torch, "nf4_dot", f"{site} {route}", x,
+                               nk._launch(x, w, route), ref)
+                    point[f"{route}_ms"] = cuda_ms(lambda: nk._launch(x, w, route),
+                                                   torch, flush=flush)
+                scan.append(point)
         del w, w_deq
-    return rows
+    # Ragged shapes: in_dim not a multiple of 64, the last column block part
+    # full; N % 16 != 0 takes the CUDA-core route.
+    for k, n, m, want in ((100, 97, 16, "simt"), (130, 50, 33, "simt"),
+                          (328, 48, 33, "mma")):
+        w = nf4_weight(torch, quant, gen, dev, k, n)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        assert nk._route(m, k, n, x.dtype) == want
+        err = check_bf16(torch, "nf4_dot", f"K={k} N={n}", x, nk.nf4_dot(x, w),
+                         nk.nf4_dot_reference(x, w))
+        log(f"nf4_dot ragged K={k} N={n} M={m} ({want}): max err {err:.3e}")
+    # The least M from which the tensor-core route is at least as fast at
+    # every scanned M of both sites.
+    faster = [p["mma_ms"] <= p["simt_ms"] for p in scan]
+    cross = next((m for m in range(1, 17)
+                  if all(f for p, f in zip(scan, faster) if p["M"] >= m)), None)
+    log(f"nf4_dot crossover: mma at least as fast from M={cross} "
+        f"(MMA_MIN_M = {nk.MMA_MIN_M})")
+    return rows, scan
 
 
 def sampling_phase(torch, vocab: int, reps: int = 30):
@@ -319,10 +414,12 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p, _ in requests]
     for mod in kernels.values():
         mod._launches = 0
+    kernels["nf4_dot"]._launches_mma = 0
     results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
                for ids, (_, sp) in zip(prompt_ids, requests)]
     torch.cuda.synchronize()
     launches = kernels[name]._launches
+    launches_mma = kernels["nf4_dot"]._launches_mma
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tokens = sum(len(r.tokens) for r in results)
     need = 4 * cfg.num_layers * tokens
@@ -330,6 +427,14 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
         f"launches {launches} (>= 4 x {cfg.num_layers} x {tokens} = {need})")
     if launches < need:
         raise AssertionError(f"{name} launched {launches} times, want >= {need}")
+    if name == "nf4_dot":
+        # One prefill call per site, layer and request, on the tensor cores.
+        need_mma = 4 * cfg.num_layers * len(results)
+        log(f"{quant} path: nf4_dot tensor-core launches {launches_mma} "
+            f"(>= 4 x {cfg.num_layers} x {len(results)} = {need_mma})")
+        if launches_mma < need_mma:
+            raise AssertionError(f"nf4_dot took the tensor-core route {launches_mma} "
+                                 f"times, want >= {need_mma}")
     for (p, sp), r in zip(requests, results):
         log(f"  request T={sp.temperature}: {len(r.tokens)} tokens stopped by "
             f"{r.stopped_by}, ttft {r.ttft_s * 1e3:.1f} ms, decode "
@@ -345,6 +450,7 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     summary = {"model": MODEL, "quant": quant, "layers": cfg.num_layers,
                "stages": client.plan.num_stages, "requests": len(results),
                "tokens": tokens, f"{name}_launches": launches,
+               "nf4_dot_launches_mma": launches_mma,
                "prefill_ms": [r.ttft_s * 1e3 for r in results],
                "prompt_tokens": [len(ids) for ids in prompt_ids],
                "decode_ms_per_token": 1e3 * statistics.median(decode),
@@ -423,28 +529,45 @@ def oracle_logits(torch, cfg, params, ids):
     return logits[0, -1]
 
 
-def kernel_entry(name: str, rows, launches: int):
-    """One kernel of the ``kernels`` line: one decode layer's four sites at
-    M = 1 summed."""
-    decode_rows = [r for r in rows if r["M"] == 1]
-    return {"name": name, "route": "cuda",
-            "source": f"{PORT}/csrc/{name}.cu",
-            "replaces": "global_capstone_design_distributed_inference_of_llms_over_"
-                        "the_internet_tpu/" + REPLACES[name],
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in decode_rows),
-            "at": "one decode layer: wqkv+wo+wgu+wd at M=1, bf16, L2 cold",
-            "ms": sum(r["ms"] for r in decode_rows),
-            "plain_ms": sum(r["plain_ms"] for r in decode_rows),
-            "bound_ms": sum(r["bound_ms"] for r in decode_rows),
-            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in decode_rows)
+def layer_sum(rows):
+    """The four sites' rows of one M summed: one layer."""
+    return {"ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations",
-            "library_ms": sum(r["library_ms"] for r in decode_rows),
-            "library": LIBRARY_NOTE}
+            "library_ms": sum(r["library_ms"] for r in rows),
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
-def main() -> int:
+def kernel_entry(name: str, rows, launches: int, prompt_len: int):
+    """One kernel of the ``kernels`` line: one decode layer's four sites at
+    M = 1 summed; for ``nf4_dot`` also one prefill layer (M = prompt_len)
+    under ``prefill``."""
+    decode_rows = [r for r in rows if r["M"] == 1]
+    entry = {"name": name, "route": "cuda",
+             "source": f"{PORT}/csrc/{name}.cu",
+             "replaces": "global_capstone_design_distributed_inference_of_llms_over_"
+                         "the_internet_tpu/" + REPLACES[name],
+             "launches": launches,
+             "at": "one decode layer: wqkv+wo+wgu+wd at M=1, bf16, L2 cold",
+             **layer_sum(decode_rows), "library": LIBRARY_NOTE}
+    if name == "nf4_dot":
+        pre = [r for r in rows if r["M"] == prompt_len]
+        entry["prefill"] = {
+            "at": f"one prefill layer: wqkv+wo+wgu+wd at M={prompt_len}, bf16, L2 cold",
+            "route": "+".join(sorted({r["route"] for r in pre})), **layer_sum(pre)}
+    return entry
+
+
+def main(argv) -> int:
     import torch
+
+    kernels_only = "--kernels-only" in argv
+    if set(argv) - {"--kernels-only"}:
+        print(f"usage: chip_smoke.py [--kernels-only], got {argv}",  # noqa: T201
+              file=sys.stderr)
+        return 2
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)  # noqa: T201
@@ -475,18 +598,25 @@ def main() -> int:
     build_s = build_kernels([PORT + ".ops.int8_kernel", PORT + ".ops.nf4_kernel"])
     log(f"build: {build_s:.1f}s")
     for src, text in import_module(PORT + ".utils.cuda_build").build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+        for kernel, line in ptxas_usage(text):
+            log(f"  {src} {kernel}: {line}")
 
     kernel_mods = {"int8_dot": ik, "nf4_dot": nk}
     prompt_len = len(PROMPTS[0].encode())
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     int8_rows = int8_phase(torch, ik, "cuda", prompt_len, bw, flops, flush)
     log(json.dumps({"int8_dot_shapes": int8_rows, "card": smi}))
-    nf4_rows = nf4_phase(torch, nk, "cuda", prompt_len, bw, flops, flush)
+    nf4_rows, scan = nf4_phase(torch, nk, "cuda", prompt_len, bw, flops, flush)
     log(json.dumps({"nf4_dot_shapes": nf4_rows, "card": smi}))
+    log(json.dumps({"nf4_dot_crossover": scan, "card": smi}))
+    log(json.dumps({"nf4_dot_per_layer": {
+        m: layer_sum([r for r in nf4_rows if r["M"] == m])
+        for m in sorted({r["M"] for r in nf4_rows})}, "card": smi}))
     del flush
+    if kernels_only:
+        log(f"total {time.monotonic() - t_start:.1f}s")
+        log("kernels-only: not a smoke pass")
+        return 0
     sampling = sampling_phase(torch, 128256)
     log(json.dumps({"sampling_draw": sampling, "card": smi}))
 
@@ -500,8 +630,10 @@ def main() -> int:
     log(json.dumps({"nf4_path": nf4_summary, "card": smi}))
     del state
 
-    kernels = [kernel_entry("int8_dot", int8_rows, int8_summary["int8_dot_launches"]),
-               kernel_entry("nf4_dot", nf4_rows, nf4_summary["nf4_dot_launches"])]
+    kernels = [kernel_entry("int8_dot", int8_rows, int8_summary["int8_dot_launches"],
+                            prompt_len),
+               kernel_entry("nf4_dot", nf4_rows, nf4_summary["nf4_dot_launches"],
+                            prompt_len)]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -510,4 +642,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main(sys.argv[1:]))
+    finally:
+        save_log()

@@ -6,11 +6,18 @@
 // Replaces the TPU kernel ops/nf4_kernel.py:_make_kernel (the Pallas kernel
 // behind nf4_dot) of the JAX package. It runs at every projection of
 // --quant nf4 serving with NF4_KERNEL=1: wqkv, wo, wgu and wd of every layer.
+// Two kernels compute that one function; the wrapper (ops/nf4_kernel.py,
+// `_route`) picks one from M, K, N and x's dtype alone:
+//   * nf4_dot_kernel, on the CUDA cores ("simt"): decode (M below
+//     MMA_MIN_M), float32 x, and shapes the tensor-core route does not take;
+//   * nf4_dot_mma_kernel, on the tensor cores ("mma"): bf16 x at prefill M
+//     with N % 16 == 0 and K % 8 == 0 (every llama-3.1-8b site).
 //
 // Layout of W (models/quant.py NF4Tensor): packed uint8 [P, N], P = in_pad/2,
 // the high nibble of packed[r][n] is weight row 2r, the low nibble row 2r+1;
 // scales bf16 [P/32, N], one absmax per 64 weight rows (32 packed rows).
 //
+// ---- nf4_dot_kernel (CUDA cores) ----
 // What bounds it on an H100: at decode (M = 1) every weight is used once, so
 // the kernel is bound by the bytes it reads: 0.5 B per weight plus 2 B of
 // scale per 64 weights (62.4 MB for the 8B model's fused gate/up weight,
@@ -39,11 +46,49 @@
 //   * Any M, K and N: rows past M, columns past N and x past in_dim (the
 //     padded rows of in_pad) are masked; the 16-byte loads are used only
 //     where N % 16 == 0 and the pointers are 16-byte aligned.
+// At prefill M it is slow: CUDA-core FMAs, and every 8-row M tile reads and
+// dequantizes every weight again. Not done yet: split-K so the N = 4096
+// sites fill all 132 SMs, and one lookup per byte instead of two.
 //
-// This is the simple, correct first design. Not done yet (a later PR's work):
-// tensor cores at prefill M (mma.sync / wgmma on bf16 tiles dequantized in
-// shared memory), split-K so the N = 4096 sites fill all 132 SMs, TMA with a
-// multi-stage shared-memory ring.
+// ---- nf4_dot_mma_kernel (tensor cores, bf16 x) ----
+// Replaces nf4_dot_kernel at prefill M (the prompt, every prefill chunk,
+// every failover replay). What bounds it: at M <= ~64 each packed byte
+// carries 4M FLOP, below the H100's bf16 ridge of ~295 FLOP/byte, so the
+// work is bound by the weight bytes (0.036 ms a llama-3.1-8b layer at
+// M = 30); above that, by the tensor cores. What the design does about it:
+//   * A block owns a BM x 32 output tile (BM = 32 for M <= 32, else 64)
+//     and walks K in steps of 256 weight rows (128 packed rows, 4 whole
+//     scale blocks, so no packed step is ragged inside P; only x is masked
+//     past K). The grid is ceil(M/BM) x ceil(N/32) with the M tiles fastest,
+//     so the M tiles of one column stripe run together and share its bytes
+//     in L2. The N = 4096 sites launch 128 blocks per M tile on 132 SMs.
+//   * Two rings in shared memory, filled with 16-byte cp.async.cg copies
+//     (zero-filled past P, N, M and K): warps 0-3 copy the packed bytes and
+//     scales 3 steps ahead, warps 4-7 the x tile 1 step ahead (cp.async
+//     groups are per thread, so each ring waits only for its own copies).
+//     Kept small, so that several blocks share an SM and one block's copies
+//     and barriers overlap another's work: 74.5 KB and 76 registers at
+//     BM = 32 (three blocks an SM), 107.5 KB at BM = 64 (two).
+//   * Each weight is dequantized once per block: per step the 8 warps expand
+//     the packed bytes into a bf16 [32 columns][256 rows] tile (column-major,
+//     so the two nibbles of a byte are one 4-byte store); per byte two
+//     lookups in the 16-level table, two multiplies by the column's scale
+//     and one __floats2bfloat162_rn, the same float32 product and rounding as
+//     above, so the tile is bit-equal to dequant_f32().to(bfloat16).
+//   * WMMA bf16 16x16x16 products with float accumulators: each warp takes 2
+//     of the step's 16 k-slices for all BM/16 x 2 output tiles, so every
+//     element of the x and weight tiles is read from shared memory once; the
+//     8 warps' partial sums are added in a fixed order through shared memory
+//     (aliased onto the drained rings), so results are deterministic. Tile
+//     rows are padded by 16 bytes so the fragment loads do not conflict on
+//     banks.
+//   * bf16 x * bf16 w is exact in float32: only the order of the sums differs
+//     from the plain version. Rows past M and columns past N are not stored.
+// Measured (PERF.md): at M = 30 it runs at ~6-10x the byte bound, and the
+// copies take most of that: a block reads a 32-byte strip of each packed
+// row (rows N bytes apart) and re-reads x from L2 for every 32 columns.
+// Wider strips need split-K or clusters to keep the N = 4096 sites' block
+// count, a later PR's work, as are wgmma/TMA where M reaches the hundreds.
 //
 // C interface (loaded with ctypes):
 //   int nf4_dot_launch(x, packed, scales, y, M, K, P, N, x_dtype, device,
@@ -52,10 +97,14 @@
 //     x_dtype: 0 = float32, 1 = bfloat16 (y has the same dtype as x);
 //     device: the CUDA device index of the tensors and of `stream`.
 //     Returns the cudaError_t of the launch (0 = success).
+//   int nf4_dot_mma_launch(...the same arguments...)
+//     The tensor-core route: x_dtype 1 only, N % 16 == 0, K % 8 == 0, and
+//     x, packed, scales, y 16-byte aligned (else an error code, no launch).
 //   const char* nf4_dot_error_string(int code)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 #include <stdint.h>
 
 namespace {
@@ -284,6 +333,307 @@ cudaError_t launch_typed(const void* x, const void* pk, const void* sc, void* y,
   return cudaGetLastError();
 }
 
+// ---- The tensor-core route ----
+
+namespace wmma = nvcuda::wmma;
+
+constexpr int kMmaThreads = 256;  // 8 warps
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kLoadThreads = kMmaThreads / 2;  // per ring: weights, x
+// Shared memory of an SM (228 KB), and what each block takes besides its
+// dynamic shared memory (1 KB reserved, the static level table).
+constexpr int kSmemPerSM = 233472;
+constexpr int kSmemPerBlock = 1024 + 128;
+
+// One block's tile: BM x BN outputs; K in steps of BK weight rows. Warps
+// 0-3 copy the packed bytes and scales through a ring of kStages steps,
+// warps 4-7 copy x through a ring of kXStages steps (cp.async groups are
+// per thread, so the two rings run ahead by different distances).
+template <int BM_>
+struct MmaTile {
+  static constexpr int BM = BM_, BN = 32, BK = 256;
+  static constexpr int kStages = 4, kXStages = 2;
+  static constexpr int kBKP = BK / 2;                      // packed rows
+  static constexpr int kScaleRows = kBKP / kRowsPerScale;  // scale rows
+  static constexpr int kGroups = BN / 16;                  // 16-column groups
+  static constexpr int kUnits = kScaleRows * kGroups;      // 32 x 16 dequant units
+  static constexpr int kK16PerWarp = BK / 16 / kMmaWarps;  // k-slices a warp
+  static constexpr int kTilePitch = BK + 8;                // bf16: x, w tiles
+  static constexpr int kPackedPitch = BN + 16;             // bytes
+  static constexpr int kRedPitch = BN + 4;                 // floats
+  static constexpr int kXBytes = BM * kTilePitch * 2;      // one x stage
+  static constexpr int kPackedBytes = kBKP * kPackedPitch;
+  static constexpr int kScaleBytes = kScaleRows * BN * 2;
+  static constexpr int kStageBytes = kPackedBytes + kScaleBytes;  // one weight stage
+  static constexpr int kXRingBytes = kXStages * kXBytes;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr int kWBytes = BN * kTilePitch * 2;
+  static constexpr int kSmemBytes = kXRingBytes + kRingBytes + kWBytes;
+  // Blocks an SM by shared memory, at most 3 (3 x 256 threads fit in the
+  // registers at <= 85 a thread).
+  static constexpr int kBlocksPerSM = kSmemPerSM / (kSmemBytes + kSmemPerBlock);
+  static constexpr int kMinBlocks = kBlocksPerSM < 3 ? kBlocksPerSM : 3;
+  static_assert(BM % 16 == 0 && BN % 16 == 0 && BK % 64 == 0, "whole tiles");
+  static_assert(BK % (16 * kMmaWarps) == 0, "every warp takes k-slices");
+  static_assert(kUnits % kMmaWarps == 0, "every warp takes dequant units");
+  static_assert(kScaleRows * (BN / 8) <= kLoadThreads, "one scale chunk a thread");
+  static_assert(kStages >= 2 && kXStages >= 2, "rings");
+  static_assert(kBlocksPerSM >= 1, "fits an SM");
+  static_assert(kXBytes % 128 == 0 && kPackedBytes % 128 == 0 &&
+                    kStageBytes % 128 == 0 && kWBytes % 128 == 0,
+                "aligned buffers");
+  static_assert(kMmaWarps * BM * kRedPitch * 4 <= kSmemBytes,
+                "the epilogue's partial sums fit in shared memory");
+};
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !valid (then
+// `src` is only a valid address and nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Step `step`'s packed rows and scales into one weight stage; `t` is the
+// thread's index among the weight loaders.
+template <class T>
+__device__ __forceinline__ void mma_load_weights(
+    unsigned char* stage, const uint8_t* __restrict__ pk,
+    const __nv_bfloat16* __restrict__ sc, int step, int n0, int P, int N,
+    int t) {
+  uint8_t* ps = stage;
+  __nv_bfloat16* ss = reinterpret_cast<__nv_bfloat16*>(stage + T::kPackedBytes);
+  // packed: kBKP rows x kGroups chunks of 16 columns
+  for (int i = t; i < T::kBKP * T::kGroups; i += kLoadThreads) {
+    const int row = i / T::kGroups, chunk = i % T::kGroups;
+    const int r = step * T::kBKP + row, n = n0 + chunk * 16;
+    const bool ok = r < P && n + 16 <= N;
+    cp_async16(ps + row * T::kPackedPitch + chunk * 16,
+               ok ? pk + static_cast<size_t>(r) * N + n : pk, ok);
+  }
+  if (t < T::kScaleRows * (T::BN / 8)) {  // scales: chunks of 8 columns
+    const int row = t / (T::BN / 8), chunk = t % (T::BN / 8);
+    const int r = step * T::kScaleRows + row, n = n0 + chunk * 8;
+    const bool ok = r < P / kRowsPerScale && n + 8 <= N;
+    cp_async16(ss + row * T::BN + chunk * 8,
+               ok ? sc + static_cast<size_t>(r) * N + n : sc, ok);
+  }
+}
+
+// Step `step`'s x tile (BM rows x BK) into one x stage; `t` is the thread's
+// index among the x loaders.
+template <class T>
+__device__ __forceinline__ void mma_load_x(__nv_bfloat16* xs,
+                                           const __nv_bfloat16* __restrict__ x,
+                                           int step, int m0, int M, int K,
+                                           int t) {
+  for (int i = t; i < T::BM * (T::BK / 8); i += kLoadThreads) {  // 8 a chunk
+    const int row = i / (T::BK / 8), chunk = i % (T::BK / 8);
+    const int m = m0 + row, k = step * T::BK + chunk * 8;
+    const bool ok = m < M && k < K;  // K % 8 == 0: a chunk is all in or out
+    cp_async16(xs + row * T::kTilePitch + chunk * 8,
+               ok ? x + static_cast<size_t>(m) * K + k : x, ok);
+  }
+}
+
+// The stage's packed bytes into the bf16 weight tile ws[column][k]. A unit
+// is 32 packed rows (one scale row) x 16 columns; lane l takes packed row
+// l of the unit, and per byte makes one 4-byte store of weight rows 2r and
+// 2r+1 of a column: two lookups in the 16-level table (16 banks, so lanes
+// never conflict), two multiplies by the column's scale, one rounding.
+template <class T>
+__device__ __forceinline__ void mma_dequant(const uint8_t* ps,
+                                            const __nv_bfloat16* ss,
+                                            __nv_bfloat16* ws,
+                                            const float* lut) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < T::kUnits / kMmaWarps; ++i) {
+    const int unit = warp + i * kMmaWarps;
+    const int c0 = (unit % T::kGroups) * 16;
+    const int rs = unit / T::kGroups;  // the unit's scale row in the step
+    const int row = rs * 32 + lane;
+    const int4 w = *reinterpret_cast<const int4*>(ps + row * T::kPackedPitch + c0);
+    const uint32_t* wq = reinterpret_cast<const uint32_t*>(&w);
+    const __nv_bfloat16* srow = ss + rs * T::BN + c0;
+    uint32_t* out = reinterpret_cast<uint32_t*>(ws) + row;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const uint32_t b = (wq[j >> 2] >> (8 * (j & 3))) & 0xFFu;
+      const float s = __bfloat162float(srow[j]);
+      const __nv_bfloat162 v =
+          __floats2bfloat162_rn(lut[b >> 4] * s, lut[b & 0xFu] * s);
+      out[(c0 + j) * (T::kTilePitch / 2)] =
+          *reinterpret_cast<const uint32_t*>(&v);
+    }
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(kMmaThreads, T::kMinBlocks)
+    nf4_dot_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                       const uint8_t* __restrict__ pk,
+                       const __nv_bfloat16* __restrict__ sc,
+                       __nv_bfloat16* __restrict__ y, int M, int K, int P,
+                       int N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float lut[16];
+  if (threadIdx.x < 16) lut[threadIdx.x] = kLevels[threadIdx.x];
+  const int warp = threadIdx.x >> 5;
+  const int m0 = blockIdx.x * T::BM;
+  const int n0 = blockIdx.y * T::BN;
+  const int steps = (P + T::kBKP - 1) / T::kBKP;
+  __nv_bfloat16* xring = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* wring = smem + T::kXRingBytes;
+  __nv_bfloat16* ws =
+      reinterpret_cast<__nv_bfloat16*>(wring + T::kRingBytes);
+  const bool weight_loader = threadIdx.x < kLoadThreads;  // warps 0-3
+  const int lt = threadIdx.x % kLoadThreads;
+
+  // Each loader fills its ring but one stage; empty groups keep its wait
+  // count uniform.
+  if (weight_loader) {
+    for (int s = 0; s < T::kStages - 1; ++s) {
+      if (s < steps) {
+        mma_load_weights<T>(wring + s * T::kStageBytes, pk, sc, s, n0, P, N, lt);
+      }
+      cp_async_commit();
+    }
+  } else {
+    for (int s = 0; s < T::kXStages - 1; ++s) {
+      if (s < steps) {
+        mma_load_x<T>(xring + s * (T::kXBytes / 2), x, s, m0, M, K, lt);
+      }
+      cp_async_commit();
+    }
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::BM / 16]
+                                                          [T::BN / 16];
+#pragma unroll
+  for (int i = 0; i < T::BM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < T::BN / 16; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int step = 0; step < steps; ++step) {
+    // Each loader's copies of step `step` have landed; after the barrier
+    // all have, and every warp is done with step - 1, whose ring slots and
+    // weight tile are now free.
+    if (weight_loader) {
+      cp_async_wait<T::kStages - 2>();
+    } else {
+      cp_async_wait<T::kXStages - 2>();
+    }
+    __syncthreads();
+    if (weight_loader) {
+      const int next = step + T::kStages - 1;
+      if (next < steps) {
+        mma_load_weights<T>(wring + (next % T::kStages) * T::kStageBytes, pk,
+                            sc, next, n0, P, N, lt);
+      }
+    } else {
+      const int next = step + T::kXStages - 1;
+      if (next < steps) {
+        mma_load_x<T>(xring + (next % T::kXStages) * (T::kXBytes / 2), x,
+                      next, m0, M, K, lt);
+      }
+    }
+    cp_async_commit();
+    const unsigned char* stage = wring + (step % T::kStages) * T::kStageBytes;
+    mma_dequant<T>(stage,
+                   reinterpret_cast<const __nv_bfloat16*>(stage +
+                                                          T::kPackedBytes),
+                   ws, lut);
+    __syncthreads();
+    const __nv_bfloat16* xs = xring + (step % T::kXStages) * (T::kXBytes / 2);
+#pragma unroll
+    for (int s = 0; s < T::kK16PerWarp; ++s) {
+      const int kk = (warp * T::kK16PerWarp + s) * 16;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::col_major>
+          b[T::BN / 16];
+#pragma unroll
+      for (int j = 0; j < T::BN / 16; ++j) {
+        wmma::load_matrix_sync(b[j], ws + j * 16 * T::kTilePitch + kk,
+                               T::kTilePitch);
+      }
+#pragma unroll
+      for (int i = 0; i < T::BM / 16; ++i) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major>
+            a;
+        wmma::load_matrix_sync(a, xs + i * 16 * T::kTilePitch + kk,
+                               T::kTilePitch);
+#pragma unroll
+        for (int j = 0; j < T::BN / 16; ++j) {
+          wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
+        }
+      }
+    }
+  }
+
+  // The 8 warps' partial sums, through shared memory (over the drained
+  // rings and the weight tile), added in warp order.
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < T::BM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < T::BN / 16; ++j) {
+      wmma::store_matrix_sync(
+          red + (warp * T::BM + i * 16) * T::kRedPitch + j * 16, acc[i][j],
+          T::kRedPitch, wmma::mem_row_major);
+    }
+  __syncthreads();
+  for (int e = threadIdx.x; e < T::BM * T::BN; e += kMmaThreads) {
+    const int r = e / T::BN, c = e % T::BN;
+    const int m = m0 + r, n = n0 + c;
+    if (m < M && n < N) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kMmaWarps; ++w) {
+        sum += red[(w * T::BM + r) * T::kRedPitch + c];
+      }
+      y[static_cast<size_t>(m) * N + n] = __float2bfloat16_rn(sum);
+    }
+  }
+}
+
+template <class T>
+cudaError_t launch_mma(const void* x, const void* pk, const void* sc, void* y,
+                       int M, int K, int P, int N, cudaStream_t stream) {
+  if ((N + T::BN - 1) / T::BN > 65535) return cudaErrorInvalidValue;
+  // Above 48 KB of dynamic shared memory must be asked for first.
+  cudaError_t err = cudaFuncSetAttribute(
+      nf4_dot_mma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + T::BM - 1) / T::BM, (N + T::BN - 1) / T::BN);
+  nf4_dot_mma_kernel<T><<<grid, kMmaThreads, T::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(pk),
+      static_cast<const __nv_bfloat16*>(sc), static_cast<__nv_bfloat16*>(y),
+      M, K, P, N);
+  return cudaGetLastError();
+}
+
+// By M: the prompt's M tile in one block row, 74.5 KB and 76 registers,
+// three blocks an SM; above 32 rows, 64-row tiles at 107.5 KB, two blocks
+// an SM. On the H100 the occupancy decides: deeper rings, 128-row tiles and
+// 64-row tiles at one block an SM were all slower (PERF.md).
+using SmallM = MmaTile<32>;  // M <= 32
+using LargeM = MmaTile<64>;  // M > 32
+
 }  // namespace
 
 extern "C" int nf4_dot_launch(const void* x, const void* packed,
@@ -309,6 +659,29 @@ extern "C" int nf4_dot_launch(const void* x, const void* packed,
   } else {
     err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+extern "C" int nf4_dot_mma_launch(const void* x, const void* packed,
+                                  const void* scales, void* y, int M, int K,
+                                  int P, int N, int x_dtype, int device,
+                                  void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || P <= 0 || P % kRowsPerScale != 0 ||
+      2 * P < K || 2 * P - K >= 2 * kRowsPerScale || x_dtype != 1 ||
+      N % 16 != 0 || K % 8 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(packed) |
+       reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(y)) %
+          16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = M <= SmallM::BM
+            ? launch_mma<SmallM>(x, packed, scales, y, M, K, P, N, st)
+            : launch_mma<LargeM>(x, packed, scales, y, M, K, P, N, st);
   return static_cast<int>(err);
 }
 
