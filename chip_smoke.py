@@ -9,14 +9,15 @@ the kernels; it never prints the last line of a smoke pass.)
 2. Build: compiles every CUDA kernel of the port from ``csrc/``, one nvcc per
    source, all at once.
 3. Kernels: calls each kernel's wrapper (``int8_dot``, ``nf4_dot``) at the
-   shapes the main paths give it (llama-3.1-8b projections; ``int8_dot`` at
-   M = 1, 16 and the prompt length, ``nf4_dot`` at M = 1, 8, 16, the prompt
-   length, 128 and 512, each row with the route it took), holds it against
-   its plain PyTorch version on the same card, and times the kernel, the
-   plain version and one PyTorch library call computing the same function.
-   ``nf4_dot`` is also held at ragged shapes of both routes, and both of its
-   kernels are timed at M = 1..16 on wgu and wd (the crossover scan behind
-   ``MMA_MIN_M``). Prints one JSON line of shapes per kernel.
+   shapes the main paths give it (llama-3.1-8b projections at M = 1, 8, 16,
+   the prompt length, 128 and 512, each row with the route it took), holds
+   it against its plain PyTorch version on the same card, and times the
+   kernel, the plain version and one PyTorch library call computing the
+   same function. Each is also held at ragged shapes of both its routes
+   (``int8_dot`` also at an x view 2 bytes into its storage), and both
+   kernels of each are timed at M = 1..16 on wgu and wd (the crossover scan
+   behind its ``MMA_MIN_M``). Prints JSON lines of shapes, crossover scan
+   and per-layer sums per kernel.
 4. Sampling: times one sampled draw at llama-3.1-8b's vocabulary, the
    port's threefry ``sample_token`` beside a ``torch.multinomial`` draw.
 5. int8 path: builds the port's in-process ``--mode local`` cluster through
@@ -24,11 +25,11 @@ the kernels; it never prints the last line of a smoke pass.)
    weights from a seed, ``--quant int8``, bfloat16, 4 even stages), serves 3
    requests (two greedy, one sampled), checks that every projection went
    through ``int8_dot`` (launch counts reset just before, read just after),
-   and holds the greedy tokens to an unsplit greedy loop over
-   ``full_forward`` with the executors' float32 cache.
+   whose every prefill projection must take the tensor-core route
+   (``_launches_mma``), and holds the greedy tokens to an unsplit greedy
+   loop over ``full_forward`` with the executors' float32 cache.
 6. NF4 path: the same with ``--quant nf4`` and ``NF4_KERNEL=1``, through
-   ``nf4_dot``, whose every prefill projection must take the tensor-core
-   route (``_launches_mma``). Then failover: a second stage-2 executor
+   ``nf4_dot``, with the same gates. Then failover: a second stage-2 executor
    joins, the pinned stage-2 peer is killed after its 3rd decode step of a
    greedy request, and the client must recover onto the replica with the
    fault-free tokens.
@@ -198,34 +199,115 @@ def check_f32(name, site, y32, ref32):
     return err32
 
 
+def int8_weight(torch, quant, gen, dev, k: int, n: int):
+    q = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    s = torch.rand((1, n), generator=gen, device=dev) * 1e-3 + 1e-4
+    return quant.QuantizedTensor(q, s, "bfloat16")
+
+
 def int8_phase(torch, ik, dev, prompt_len: int, bw: float, flops: float, flush):
-    """int8_dot at every main-path shape: agreement and times."""
+    """int8_dot at every main-path shape: agreement and times, each row with
+    its route; ragged shapes of both routes and an x view at an offset; and
+    the crossover scan of the two kernels at M = 1..16 on wgu and wd.
+    Returns (rows, scan)."""
     from importlib import import_module
 
-    QuantizedTensor = import_module(PORT + ".models.quant").QuantizedTensor
+    quant = import_module(PORT + ".models.quant")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows = []
+    rows, scan = [], []
+    ms = (1, 8, 16, prompt_len, 128, 512)
     for site, k, n in SITES:
-        q = torch.randint(-127, 128, (k, n), generator=gen, device=dev,
-                          dtype=torch.int8)
-        s = torch.rand((1, n), generator=gen, device=dev) * 1e-3 + 1e-4
-        w = QuantizedTensor(q, s, "bfloat16")
+        w = int8_weight(torch, quant, gen, dev, k, n)
+        q, s = w.q, w.s
         w_deq = (q.float() * s).to(torch.bfloat16)   # library yardstick only
-        for m in (1, 16, prompt_len):
+        for m in ms:
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            rows.append(check_and_time(
+            row = check_and_time(
                 torch, "int8_dot", site, x, lambda: ik.int8_dot(x, w),
                 lambda: ik.int8_dot_reference(x, q, s),
                 lambda: torch.matmul(x, w_deq),
-                m * k * 2 + k * n + n * 4 + m * n * 2, bw, flops, flush))
+                m * k * 2 + k * n + n * 4 + m * n * 2, bw, flops, flush)
+            row["route"] = ik._route(m, k, n, x.dtype)
+            rows.append(row)
         x32 = torch.randn((16, k), generator=gen, device=dev)
         err32 = check_f32("int8_dot", site, ik.int8_dot(x32, w),
                           ik.int8_dot_reference(x32, q, s))
-        log(f"int8_dot {site} K={k} N={n}: bf16 ok at M=1,16,{prompt_len}; "
+        log(f"int8_dot {site} K={k} N={n}: bf16 ok at M={','.join(map(str, ms))} "
+            f"(routes {[r['route'] for r in rows[-len(ms):]]}); "
             f"float32 M=16 max err {err32:.3e}")
+        if site == "wgu":                            # a ragged M, tensor cores
+            x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
+            assert ik._route(33, k, n, x.dtype) == "mma"
+            err = check_bf16(torch, "int8_dot", site, x, ik.int8_dot(x, w),
+                             ik.int8_dot_reference(x, q, s))
+            log(f"int8_dot {site} ragged M=33 (mma): max err {err:.3e}")
+            # A result depends on its row of x and its column of q alone: the
+            # prompt's rows of a taller x, and the gate half of the fused
+            # weight alone (other tiles), give the same bits.
+            x = torch.randn((128, k), generator=gen, device=dev).to(torch.bfloat16)
+            short = ik.int8_dot(x[:prompt_len], w)
+            gate = quant.QuantizedTensor(q[:, : n // 2].contiguous(),
+                                         s[:, : n // 2].contiguous(), "bfloat16")
+            if not (torch.equal(short, ik.int8_dot(x, w)[:prompt_len])
+                    and torch.equal(short[:, : n // 2], ik.int8_dot(x[:prompt_len], gate))):
+                raise AssertionError("int8_dot mma: a result depends on M or N")
+            log(f"int8_dot {site} mma: M={prompt_len} rows bit-equal at M=128 and "
+                f"at N={n // 2}")
+        if site in ("wgu", "wd"):
+            scan += scan_routes(torch, "int8_dot", site, k, gen, dev,
+                                lambda x, route: ik._launch(x, q, s, route),
+                                lambda x: ik.int8_dot_reference(x, q, s), flush)
         del q, s, w, w_deq
-    return rows
+    # Ragged shapes: the K tail inside a step, the last column block part
+    # full; N % 16 != 0 takes the CUDA-core route.
+    for k, n, m, want in ((100, 97, 16, "simt"), (328, 48, 33, "mma")):
+        w = int8_weight(torch, quant, gen, dev, k, n)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        assert ik._route(m, k, n, x.dtype) == want
+        err = check_bf16(torch, "int8_dot", f"K={k} N={n}", x, ik.int8_dot(x, w),
+                         ik.int8_dot_reference(x, w.q, w.s))
+        log(f"int8_dot ragged K={k} N={n} M={m} ({want}): max err {err:.3e}")
+    # x as a view 2 bytes into its storage: the tensor-core route's 16-byte
+    # copies take a clone of it.
+    k, n, m = 4096, 4096, prompt_len
+    w = int8_weight(torch, quant, gen, dev, k, n)
+    buf = torch.randn((m * k + 1,), generator=gen, device=dev).to(torch.bfloat16)
+    x = buf[1:].view(m, k)
+    assert x.data_ptr() % 16 == 2 and ik._route(m, k, n, x.dtype) == "mma"
+    before = ik._launches_mma
+    err = check_bf16(torch, "int8_dot", "x at a 2-byte offset", x, ik.int8_dot(x, w),
+                     ik.int8_dot_reference(x, w.q, w.s))
+    assert ik._launches_mma == before + 1
+    log(f"int8_dot x view at a 2-byte offset K={k} N={n} M={m} (mma, cloned): "
+        f"max err {err:.3e}")
+    log(f"int8_dot crossover: mma at least as fast from M={crossover(scan)} "
+        f"(MMA_MIN_M = {ik.MMA_MIN_M})")
+    return rows, scan
+
+
+def scan_routes(torch, name, site, k, gen, dev, launch, plain, flush):
+    """Both kernels of `name` (``launch(x, route)``) at M = 1..16, each held
+    to the plain version and timed: the crossover scan behind its
+    ``MMA_MIN_M``."""
+    points = []
+    for m in range(1, 17):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        ref = plain(x)
+        point = {"site": site, "M": m}
+        for route in ("simt", "mma"):
+            check_bf16(torch, name, f"{site} {route}", x, launch(x, route), ref)
+            point[f"{route}_ms"] = cuda_ms(lambda: launch(x, route), torch, flush=flush)
+        points.append(point)
+    return points
+
+
+def crossover(scan):
+    """The least M from which the tensor-core route is at least as fast at
+    every scanned M of every site."""
+    faster = [p["mma_ms"] <= p["simt_ms"] for p in scan]
+    return next((m for m in range(1, 17)
+                 if all(f for p, f in zip(scan, faster) if p["M"] >= m)), None)
 
 
 def nf4_weight(torch, quant, gen, dev, k: int, n: int):
@@ -271,16 +353,9 @@ def nf4_phase(torch, nk, dev, prompt_len: int, bw: float, flops: float, flush):
                              nk.nf4_dot_reference(x, w))
             log(f"nf4_dot {site} ragged M=33 (mma): max err {err:.3e}")
         if site in ("wgu", "wd"):
-            for m in range(1, 17):
-                x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-                ref = nk.nf4_dot_reference(x, w)
-                point = {"site": site, "M": m}
-                for route in ("simt", "mma"):
-                    check_bf16(torch, "nf4_dot", f"{site} {route}", x,
-                               nk._launch(x, w, route), ref)
-                    point[f"{route}_ms"] = cuda_ms(lambda: nk._launch(x, w, route),
-                                                   torch, flush=flush)
-                scan.append(point)
+            scan += scan_routes(torch, "nf4_dot", site, k, gen, dev,
+                                lambda x, route: nk._launch(x, w, route),
+                                lambda x: nk.nf4_dot_reference(x, w), flush)
         del w, w_deq
     # Ragged shapes: in_dim not a multiple of 64, the last column block part
     # full; N % 16 != 0 takes the CUDA-core route.
@@ -292,12 +367,7 @@ def nf4_phase(torch, nk, dev, prompt_len: int, bw: float, flops: float, flush):
         err = check_bf16(torch, "nf4_dot", f"K={k} N={n}", x, nk.nf4_dot(x, w),
                          nk.nf4_dot_reference(x, w))
         log(f"nf4_dot ragged K={k} N={n} M={m} ({want}): max err {err:.3e}")
-    # The least M from which the tensor-core route is at least as fast at
-    # every scanned M of both sites.
-    faster = [p["mma_ms"] <= p["simt_ms"] for p in scan]
-    cross = next((m for m in range(1, 17)
-                  if all(f for p, f in zip(scan, faster) if p["M"] >= m)), None)
-    log(f"nf4_dot crossover: mma at least as fast from M={cross} "
+    log(f"nf4_dot crossover: mma at least as fast from M={crossover(scan)} "
         f"(MMA_MIN_M = {nk.MMA_MIN_M})")
     return rows, scan
 
@@ -389,8 +459,9 @@ def greedy_reference(torch, cfg, params, ids, max_new_tokens: int):
 def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: str):
     """The port's --mode local cluster serving 3 requests through kernel
     `name` (`kernels` maps each kernel's name to its wrapper module; every
-    count is set to 0 just before the requests and read just after),
-    the launch count, and the greedy tokens held to the float32 reference.
+    count is set to 0 just before the requests and read just after), the
+    launch counts of both routes, and the greedy tokens held to the float32
+    reference.
     Returns (summary, state for the failover drive)."""
     args = tmain.build_parser().parse_args(
         ["--mode", "local", "--model", MODEL, "--quant", quant,
@@ -414,12 +485,12 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p, _ in requests]
     for mod in kernels.values():
         mod._launches = 0
-    kernels["nf4_dot"]._launches_mma = 0
+        mod._launches_mma = 0
     results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
                for ids, (_, sp) in zip(prompt_ids, requests)]
     torch.cuda.synchronize()
     launches = kernels[name]._launches
-    launches_mma = kernels["nf4_dot"]._launches_mma
+    launches_mma = kernels[name]._launches_mma
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tokens = sum(len(r.tokens) for r in results)
     need = 4 * cfg.num_layers * tokens
@@ -427,14 +498,13 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
         f"launches {launches} (>= 4 x {cfg.num_layers} x {tokens} = {need})")
     if launches < need:
         raise AssertionError(f"{name} launched {launches} times, want >= {need}")
-    if name == "nf4_dot":
-        # One prefill call per site, layer and request, on the tensor cores.
-        need_mma = 4 * cfg.num_layers * len(results)
-        log(f"{quant} path: nf4_dot tensor-core launches {launches_mma} "
-            f"(>= 4 x {cfg.num_layers} x {len(results)} = {need_mma})")
-        if launches_mma < need_mma:
-            raise AssertionError(f"nf4_dot took the tensor-core route {launches_mma} "
-                                 f"times, want >= {need_mma}")
+    # One prefill call per site, layer and request, on the tensor cores.
+    need_mma = 4 * cfg.num_layers * len(results)
+    log(f"{quant} path: {name} tensor-core launches {launches_mma} "
+        f"(>= 4 x {cfg.num_layers} x {len(results)} = {need_mma})")
+    if launches_mma < need_mma:
+        raise AssertionError(f"{name} took the tensor-core route {launches_mma} "
+                             f"times, want >= {need_mma}")
     for (p, sp), r in zip(requests, results):
         log(f"  request T={sp.temperature}: {len(r.tokens)} tokens stopped by "
             f"{r.stopped_by}, ttft {r.ttft_s * 1e3:.1f} ms, decode "
@@ -450,7 +520,7 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     summary = {"model": MODEL, "quant": quant, "layers": cfg.num_layers,
                "stages": client.plan.num_stages, "requests": len(results),
                "tokens": tokens, f"{name}_launches": launches,
-               "nf4_dot_launches_mma": launches_mma,
+               f"{name}_launches_mma": launches_mma,
                "prefill_ms": [r.ttft_s * 1e3 for r in results],
                "prompt_tokens": [len(ids) for ids in prompt_ids],
                "decode_ms_per_token": 1e3 * statistics.median(decode),
@@ -542,8 +612,8 @@ def layer_sum(rows):
 
 def kernel_entry(name: str, rows, launches: int, prompt_len: int):
     """One kernel of the ``kernels`` line: one decode layer's four sites at
-    M = 1 summed; for ``nf4_dot`` also one prefill layer (M = prompt_len)
-    under ``prefill``."""
+    M = 1 summed, and one prefill layer (M = prompt_len) under
+    ``prefill``."""
     decode_rows = [r for r in rows if r["M"] == 1]
     entry = {"name": name, "route": "cuda",
              "source": f"{PORT}/csrc/{name}.cu",
@@ -552,11 +622,10 @@ def kernel_entry(name: str, rows, launches: int, prompt_len: int):
              "launches": launches,
              "at": "one decode layer: wqkv+wo+wgu+wd at M=1, bf16, L2 cold",
              **layer_sum(decode_rows), "library": LIBRARY_NOTE}
-    if name == "nf4_dot":
-        pre = [r for r in rows if r["M"] == prompt_len]
-        entry["prefill"] = {
-            "at": f"one prefill layer: wqkv+wo+wgu+wd at M={prompt_len}, bf16, L2 cold",
-            "route": "+".join(sorted({r["route"] for r in pre})), **layer_sum(pre)}
+    pre = [r for r in rows if r["M"] == prompt_len]
+    entry["prefill"] = {
+        "at": f"one prefill layer: wqkv+wo+wgu+wd at M={prompt_len}, bf16, L2 cold",
+        "route": "+".join(sorted({r["route"] for r in pre})), **layer_sum(pre)}
     return entry
 
 
@@ -604,14 +673,15 @@ def main(argv) -> int:
     kernel_mods = {"int8_dot": ik, "nf4_dot": nk}
     prompt_len = len(PROMPTS[0].encode())
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
-    int8_rows = int8_phase(torch, ik, "cuda", prompt_len, bw, flops, flush)
-    log(json.dumps({"int8_dot_shapes": int8_rows, "card": smi}))
-    nf4_rows, scan = nf4_phase(torch, nk, "cuda", prompt_len, bw, flops, flush)
-    log(json.dumps({"nf4_dot_shapes": nf4_rows, "card": smi}))
-    log(json.dumps({"nf4_dot_crossover": scan, "card": smi}))
-    log(json.dumps({"nf4_dot_per_layer": {
-        m: layer_sum([r for r in nf4_rows if r["M"] == m])
-        for m in sorted({r["M"] for r in nf4_rows})}, "card": smi}))
+    int8_rows, int8_scan = int8_phase(torch, ik, "cuda", prompt_len, bw, flops, flush)
+    nf4_rows, nf4_scan = nf4_phase(torch, nk, "cuda", prompt_len, bw, flops, flush)
+    for kname, rows, scan in (("int8_dot", int8_rows, int8_scan),
+                              ("nf4_dot", nf4_rows, nf4_scan)):
+        log(json.dumps({f"{kname}_shapes": rows, "card": smi}))
+        log(json.dumps({f"{kname}_crossover": scan, "card": smi}))
+        log(json.dumps({f"{kname}_per_layer": {
+            m: layer_sum([r for r in rows if r["M"] == m])
+            for m in sorted({r["M"] for r in rows})}, "card": smi}))
     del flush
     if kernels_only:
         log(f"total {time.monotonic() - t_start:.1f}s")

@@ -8,17 +8,23 @@ fold differs from dequantize-then-matmul only in accumulation order.
 
 Two versions of one function:
 
-  * the CUDA kernel ``csrc/int8_dot.cu`` (Hopper, ``sm_90a``), launched for
-    a tensor on the card — it reads the int8 bytes straight from device
-    memory and never materializes a scaled weight;
+  * the CUDA kernels of ``csrc/int8_dot.cu`` (Hopper, ``sm_90a``), launched
+    for a tensor on the card. `_route` picks one from M, K, N and x's dtype
+    alone: "mma", the tensor-core kernel (bf16 x, M >= `MMA_MIN_M`, the
+    alignment its 16-byte copies need: N % 16 == 0, K % 8 == 0), which
+    widens each int8 weight once per block into a bf16 tile in shared
+    memory; else "simt", the CUDA-core kernel, which reads the int8 bytes
+    straight from device memory and takes any M, K and N. Neither ever
+    materializes a scaled weight: both scale the float32 sums;
   * `int8_dot_reference`, the plain PyTorch version, taken for a tensor on
     the CPU (the CPU tests) and used by ``chip_smoke.py`` to check the
-    kernel on the card.
+    kernels on the card.
 
-`int8_dot` launches the kernel or raises; it never falls back from the card
-to the plain version. ``_launches`` counts kernel launches (not calls of the
-plain version), so a run can show that its main path went through the
-kernel.
+`int8_dot` launches the routed kernel or raises; it never falls back from
+one kernel to the other, or from the card to the plain version.
+``_launches`` counts kernel launches of both routes (not calls of the plain
+version) and ``_launches_mma`` those of the tensor-core route, so a run can
+show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -33,7 +39,13 @@ from ..utils.cuda_build import load_kernel_library
 SOURCE = "int8_dot.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# The least M that takes the tensor-core route: from the crossover scan of
+# ``chip_smoke.py`` (both kernels at M = 1..16 on wgu and wd, PERF.md): on
+# the H100 the tensor-core kernel is the faster at both sites from M = 5.
+MMA_MIN_M = 5
+
 _launches = 0
+_launches_mma = 0
 _lib = None
 
 
@@ -44,6 +56,8 @@ def _library() -> ctypes.CDLL:
         lib.int8_dot_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                                         + [ctypes.c_void_p])
         lib.int8_dot_launch.restype = ctypes.c_int
+        lib.int8_dot_mma_launch.argtypes = lib.int8_dot_launch.argtypes
+        lib.int8_dot_mma_launch.restype = ctypes.c_int
         lib.int8_dot_error_string.argtypes = [ctypes.c_int]
         lib.int8_dot_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -61,8 +75,20 @@ def int8_dot_reference(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tor
     return ((x.float() @ q.float()) * s).to(x.dtype)
 
 
-def _launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    global _launches
+def _route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
+    """The kernel for x [m, k] of `dtype` times an int8 weight [k, n]: "mma"
+    (tensor cores) for bf16 x at M >= MMA_MIN_M with N % 16 == 0 and
+    K % 8 == 0, else "simt" (CUDA cores)."""
+    if dtype == torch.bfloat16 and m >= MMA_MIN_M and n % 16 == 0 and k % 8 == 0:
+        return "mma"
+    return "simt"
+
+
+def _launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+            route: str | None = None) -> torch.Tensor:
+    """Launch the kernel that `_route` names (`route` overrides it only for
+    ``chip_smoke.py``'s crossover scan)."""
+    global _launches, _launches_mma
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
         raise TypeError(f"int8_dot kernel takes float32 or bfloat16 x, got {x.dtype}")
@@ -82,27 +108,33 @@ def _launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x on {dev}, q on {q.device}, s on {s.device}")
     if max(m, k, n) >= 2 ** 31:
         raise ValueError(f"int8_dot kernel shape [{m}, {k}] x [{k}, {n}] too large")
+    route = route or _route(m, k, n, x.dtype)
     x = x.contiguous()
+    if route == "mma" and x.data_ptr() % 16:
+        x = x.clone()               # a view's offset: the copies need 16 B
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
     lib = _library()
+    entry = {"mma": lib.int8_dot_mma_launch, "simt": lib.int8_dot_launch}[route]
     # The raw current-stream handle: the cheap form of
     # torch.cuda.current_stream(dev).cuda_stream, on the decode hot path.
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    rc = lib.int8_dot_launch(x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
-                             m, k, n, code, dev.index, stream)
+    rc = entry(x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+               m, k, n, code, dev.index, stream)
     if rc != 0:
-        raise RuntimeError("int8_dot kernel launch failed: "
+        raise RuntimeError(f"int8_dot {route} kernel launch failed: "
                            + lib.int8_dot_error_string(rc).decode())
     _launches += 1
+    if route == "mma":
+        _launches_mma += 1
     return y
 
 
 def int8_dot(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """x [..., K] @ int8 weight [K, N] with the scale folded into the
     epilogue -> [..., N] in x.dtype. CPU tensors take the plain version;
-    CUDA tensors launch the kernel (or raise)."""
+    CUDA tensors launch the routed kernel (or raise)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.device.type == "cpu":
