@@ -29,11 +29,28 @@ the kernels; it never prints the last line of a smoke pass.)
    (``_launches_mma``), and holds the greedy tokens to an unsplit greedy
    loop over ``full_forward`` with the executors' float32 cache.
 6. NF4 path: the same with ``--quant nf4`` and ``NF4_KERNEL=1``, through
-   ``nf4_dot``, with the same gates. Then failover: a second stage-2 executor
-   joins, the pinned stage-2 peer is killed after its 3rd decode step of a
-   greedy request, and the client must recover onto the replica with the
-   fault-free tokens.
-7. Prints the ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as
+   ``nf4_dot``, with the same gates. Both serve phases run with telemetry
+   off; the NF4 client is built as under ``--telemetry``, so its metrics go
+   to the process-global registry, which stays disabled until step 7.
+7. Telemetry on the NF4 path, same client: one greedy request run with
+   telemetry off and on in turn (4 pairs, ABBA order) must give the same
+   tokens and the same ``nf4_dot`` launch counts of both routes; the median
+   decode ms/token and TTFT of each side are printed, not gated. One more
+   pair under torch's sync debug mode must report as many host syncs with
+   telemetry on as off. Then failover with
+   telemetry and the flight recorder on: a second stage-2 executor joins,
+   the pinned stage-2 peer is killed after its 3rd decode step of a greedy
+   request, and the client must recover onto the replica with the
+   fault-free tokens. The recorder must hold the session's start, transport
+   error / peer failure, failover, replay start and end, and end; its dump
+   (with the registry) goes through the doctor, whose one failure chain must
+   name the tokens the client replayed, and each request's critical-path
+   parts must sum to its wall time. Prints the registry's summary and the
+   per-layer families (client TTFT, step and per-hop times, server step
+   latency per phase and per stage, KV bytes, transport bytes) and the
+   hooks' own host cost (client and transport over stub stages, telemetry
+   off and on), then turns telemetry off and clears it.
+8. Prints the ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as
    its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -51,6 +68,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 PORT = "global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch"
@@ -70,6 +88,10 @@ BF16_TOL = 2.0 ** -7   # max|kernel - plain| <= BF16_TOL * max|plain|: one
 #                        bf16 ulp at the output's scale (sums in other orders)
 F32_TOL = 1e-5         # float32 activations, relative to max|plain|
 LOGIT_GAP_TOL = 2.0 ** -6  # a near-tie: top-2 gap <= this * max|logit|
+KILL_AFTER_DECODES = 3  # the failover drive kills the pinned peer after this
+#                         many decode steps it served
+TELEMETRY_PAIRS = 4     # telemetry off / on runs of one request, in ABBA order
+HOOK_STEPS = 2000       # decode steps of the stub pipeline that prices the hooks
 LIBRARY_NOTE = ("torch.matmul(x, dequantized bf16 weight): a yardstick that "
                 "reads the weight as bf16; the port never calls it")
 REPLACES = {"int8_dot": "ops/int8_kernel.py:98", "nf4_dot": "ops/nf4_kernel.py:132"}
@@ -456,16 +478,17 @@ def greedy_reference(torch, cfg, params, ids, max_new_tokens: int):
     return out
 
 
-def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: str):
+def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: str,
+          extra_argv=()):
     """The port's --mode local cluster serving 3 requests through kernel
     `name` (`kernels` maps each kernel's name to its wrapper module; every
     count is set to 0 just before the requests and read just after), the
     launch counts of both routes, and the greedy tokens held to the float32
-    reference.
-    Returns (summary, state for the failover drive)."""
+    reference. `extra_argv` goes to the CLI parser.
+    Returns (summary, state for the telemetry phase and the failover drive)."""
     args = tmain.build_parser().parse_args(
         ["--mode", "local", "--model", MODEL, "--quant", quant,
-         "--dtype", "bfloat16", "--device", dev_name, "--seed", "0"])
+         "--dtype", "bfloat16", "--device", dev_name, "--seed", "0", *extra_argv])
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -557,7 +580,7 @@ def failover_drive(torch, tmain, state):
     def on_call(peer_id, req):
         if peer_id == pinned and not req.is_prefill and not req.is_replay:
             seen["decode"] += 1
-            if seen["decode"] == 3:
+            if seen["decode"] == KILL_AFTER_DECODES:
                 transport.kill(peer_id)
 
     transport.on_call = on_call
@@ -582,6 +605,247 @@ def failover_drive(torch, tmain, state):
             got.tokens == state["results"][0].tokens, "wall_s": wall_s,
             "recovery_step_ms": 1e3 * max(got.decode_times_s),
             "median_step_ms": 1e3 * statistics.median(got.decode_times_s)}
+
+
+def median_ms(seconds):
+    return 1e3 * statistics.median(seconds) if seconds else None
+
+
+def hist_view(h):
+    """count, sum and p50/p90/p99 (interpolated in the buckets) of one
+    histogram series, in ms."""
+    q = {f"p{int(x * 100)}_ms": (None if h.quantile(x) is None else 1e3 * h.quantile(x))
+         for x in (0.5, 0.9, 0.99)}
+    return {"count": h.count, "sum_ms": 1e3 * h.sum, **q}
+
+
+def family_view(reg, name):
+    """{labels: value} of one family of the registry: histograms as
+    hist_view, counters and gauges as their value."""
+    fam = reg.get(name)
+    if fam is None:
+        return {}
+    children = fam.children() if hasattr(fam, "children") else (fam,)
+    out = {}
+    for child in children:
+        key = ",".join(f"{k}={v}" for k, v in child.labels) or "-"
+        out[key] = hist_view(child) if hasattr(child, "quantile") else child.value
+    return out
+
+
+def count_syncs(torch, fn) -> int:
+    """Host syncs that torch's sync debug mode reports while fn runs."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def hook_cost(torch, tel, on: bool) -> float:
+    """Host us a decode step of the port's client and LocalTransport over
+    stub stages (3 remote hops, no model, nothing on the card), with
+    telemetry on or off: the instrumentation's own cost on this host, in
+    the code the served path runs. Median of 5 rounds of HOOK_STEPS
+    steps."""
+    from importlib import import_module
+
+    client_mod = import_module(PORT + ".runtime.client")
+    transport_mod = import_module(PORT + ".runtime.transport")
+    messages = import_module(PORT + ".runtime.messages")
+    partition = import_module(PORT + ".models.partition")
+    registry_mod = import_module(PORT + ".scheduling.registry")
+    sampling_cls = import_module(PORT + ".ops.sampling").SamplingParams
+
+    class StubStage:
+        """Returns its input (or, last, the next position as the token)."""
+
+        device = torch.device("cpu")
+
+        def __init__(self, peer_id, last):
+            self.peer_id, self.last = peer_id, last
+
+        def forward(self, req):
+            n = req.cur_len + req.seq_len
+            if self.last:
+                return messages.StageResponse(req.session_id, token_id=n, cache_len=n)
+            return messages.StageResponse(req.session_id, hidden=req.hidden, cache_len=n)
+
+        def drop_session(self, session_id):
+            pass
+
+    plan = partition.StagePlan.even(32, 4)
+    transport = transport_mod.LocalTransport()
+    registry = registry_mod.PlacementRegistry()
+    for spec in plan.stages[1:]:
+        transport.add_peer(f"stub{spec.index}", StubStage(f"stub{spec.index}", spec.is_last))
+        registry.register(client_mod.make_server_record(f"stub{spec.index}", spec))
+    stage0 = StubStage("stub0", False)
+    stage0.forward = lambda req: messages.StageResponse(
+        req.session_id, hidden=torch.zeros(1, req.seq_len, 8), cache_len=req.seq_len)
+    client = client_mod.PipelineClient(None, plan, stage0, transport, registry,
+                                       settle_seconds=0.0,
+                                       metrics=tel.get_registry())
+    (tel.enable if on else tel.disable)()
+    try:
+        rounds = []
+        for _ in range(5):
+            r = client.generate([1, 2, 3], HOOK_STEPS + 1,
+                                sampling=sampling_cls(temperature=0.0))
+            rounds.append(1e6 * statistics.median(r.decode_times_s))
+    finally:
+        tel.disable()
+        tel.get_tracer().clear()
+        tel.get_recorder().clear()
+    return statistics.median(rounds)
+
+
+def telemetry_phase(torch, tmain, nk, state, smi: str):
+    """Telemetry on the NF4 path, on the serve phase's client (whose metrics
+    go to the process-global registry).
+
+    1. One greedy request, telemetry off and on in turn, TELEMETRY_PAIRS
+       pairs in ABBA order (off on, on off, ...): equal tokens and equal
+       nf4_dot launch counts of both routes in every run (counts set to 0
+       before each run, read after). The median decode ms/token and TTFT of
+       each side are reported, not gated. One more pair runs under
+       torch's sync debug mode: the host syncs it reports must be as many
+       with telemetry on as off. And the hooks alone are priced on this
+       host: the client and transport over stub stages (hook_cost).
+    2. The failover drive with telemetry on and the recorder cleared just
+       before it: the recorder must hold the session's story, and the
+       doctor, over the dump of it, must name one failure chain with the
+       tokens the client replayed (the prompt and the decode steps the
+       killed peer served) and split each request's wall time into parts
+       that sum to it.
+    3. The registry's summary and the per-layer families.
+    Telemetry is off and cleared at the end, whatever happens."""
+    from importlib import import_module
+
+    tel = import_module(PORT + ".telemetry")
+    doctor = import_module(PORT + ".telemetry.doctor")
+    client, ids = state["client"], state["prompt_ids"][0]
+    greedy = state["requests"][0][1]
+    runs = {"off": [], "on": []}
+    try:
+        for i in range(TELEMETRY_PAIRS):
+            for side in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                (tel.enable if side == "on" else tel.disable)()
+                nk._launches = 0
+                nk._launches_mma = 0
+                r = client.generate(ids, MAX_NEW_TOKENS, sampling=greedy)
+                torch.cuda.synchronize()
+                runs[side].append({"tokens": r.tokens, "ttft_s": r.ttft_s,
+                                   "decode_s": median_ms(r.decode_times_s) / 1e3,
+                                   "launches": (nk._launches, nk._launches_mma)})
+        syncs = {}
+        for side in ("off", "on"):
+            (tel.enable if side == "on" else tel.disable)()
+            syncs[side] = count_syncs(torch, lambda: client.generate(
+                ids, MAX_NEW_TOKENS, sampling=greedy))
+        if syncs["on"] != syncs["off"]:
+            raise AssertionError(f"telemetry adds host syncs: {syncs}")
+        every = runs["off"] + runs["on"]
+        if any(r["tokens"] != every[0]["tokens"] for r in every):
+            raise AssertionError("telemetry on/off: the tokens differ between runs")
+        if any(r["launches"] != every[0]["launches"] for r in every):
+            raise AssertionError("telemetry on/off: nf4_dot launch counts differ: "
+                                 f"{[r['launches'] for r in every]}")
+        overhead = {"card": smi, "pairs": TELEMETRY_PAIRS, "order": "ABBA",
+                    "syncs_per_request": syncs,
+                    "tokens": len(every[0]["tokens"]),
+                    "nf4_dot_launches": every[0]["launches"][0],
+                    "nf4_dot_launches_mma": every[0]["launches"][1]}
+        for side, rs in runs.items():
+            overhead[f"decode_ms_per_token_{side}"] = median_ms([r["decode_s"] for r in rs])
+            overhead[f"ttft_ms_{side}"] = median_ms([r["ttft_s"] for r in rs])
+            overhead[f"decode_ms_per_token_{side}_runs"] = [1e3 * r["decode_s"] for r in rs]
+        log(f"telemetry off/on ({smi}): decode "
+            f"{overhead['decode_ms_per_token_off']:.3f} / "
+            f"{overhead['decode_ms_per_token_on']:.3f} ms/token, ttft "
+            f"{overhead['ttft_ms_off']:.1f} / {overhead['ttft_ms_on']:.1f} ms "
+            f"(medians of {TELEMETRY_PAIRS} runs each); tokens and nf4_dot "
+            f"launches {every[0]['launches']} equal in all {len(every)} runs; "
+            f"host syncs a request {syncs}")
+
+        tel.enable()
+        tel.get_recorder().clear()
+        tel.get_tracer().clear()
+        failover = failover_drive(torch, tmain, state)
+        evs = tel.get_recorder().events()
+        starts = [e for e in evs if e.name == "session_start"]
+        if len(starts) != 1:
+            raise AssertionError(f"want one session_start, got {len(starts)}")
+        sid = starts[0].session_id
+        names = {e.name for e in evs if e.session_id == sid}
+        want = {"session_start", "failover", "replay_start", "replay_done", "session_end"}
+        if not want <= names or not names & {"transport_error", "peer_failed"}:
+            raise AssertionError(f"recorder lacks the failover story: {sorted(names)}")
+        replayed = len(ids) + KILL_AFTER_DECODES
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "events.jsonl")
+            tel.get_recorder().dump(path, registry=tel.get_registry())
+            streams = doctor.load_dumps([path])
+        report = doctor.diagnose_streams(streams)
+        chains = doctor.failure_chains(doctor.merge_timeline(streams))
+        if len(chains) != 1 or sid not in chains[0]["sessions"] or \
+                f"replay of {replayed} tokens" not in chains[0]["chain"] or \
+                f"{sid}: {replayed} tokens" not in report:
+            raise AssertionError(f"doctor: want one chain replaying {replayed} tokens "
+                                 f"of {sid}, got:\n{report}")
+        log("doctor over the failover dump:\n" + report.rstrip())
+        reports = doctor.critical_path_reports(streams)
+        if len(reports) != failover["tokens"]:
+            raise AssertionError(f"critical path: {len(reports)} requests, want one "
+                                 f"per step ({failover['tokens']})")
+        for rep in reports:
+            total = sum(rep["parts"].values())
+            if not abs(total - rep["wall_s"]) <= 1e-9 * rep["wall_s"] + 1e-12:
+                raise AssertionError(f"critical path parts {rep['parts']} sum to "
+                                     f"{total}, wall {rep['wall_s']}")
+        log(doctor.render_critical_path(reports).rstrip())
+
+        reg = tel.get_registry()
+        per_stage = {}
+        for sp in tel.get_tracer().spans():
+            if sp.name == "server_forward" and sp.end_s is not None:
+                key = f"{sp.attrs.get('peer')},{sp.attrs.get('phase')}"
+                per_stage.setdefault(key, []).append(sp.end_s - sp.start_s)
+        families = {
+            "card": smi,
+            "covers": (f"the {TELEMETRY_PAIRS + 1} telemetry-on runs of the "
+                       "request and the failover run"),
+            "summary": tel.summary(reg),
+            **{name: family_view(reg, name) for name in (
+                "client_ttft_seconds", "client_step_seconds",
+                "client_stage_time_seconds", "server_step_latency_seconds",
+                "server_kv_used_bytes", "transport_bytes_sent_total")},
+            "server_forward_span_ms_by_stage": {
+                k: {"count": len(v), "p50_ms": median_ms(v)} for k, v in sorted(per_stage.items())},
+            "critical_path_parts_ms": {
+                part: 1e3 * sum(r["parts"][part] for r in reports)
+                for part in reports[0]["parts"]},
+        }
+        log(json.dumps({"telemetry_families": families}))
+        # Last: the stub pipeline's series land in the same registry.
+        overhead["hook_us_per_decode_step_stub_stages"] = hooks_us = {
+            side: hook_cost(torch, tel, side == "on") for side in ("off", "on")}
+        log(f"telemetry hooks alone, client and transport over stub stages "
+            f"({smi}): {hooks_us['off']:.1f} / {hooks_us['on']:.1f} us a decode "
+            f"step, off / on")
+        return {"overhead": overhead, "failover": failover,
+                "doctor": {"chains": len(chains), "replayed_tokens": replayed,
+                           "critical_path_requests": len(reports)}}
+    finally:
+        tel.disable()
+        tel.get_tracer().clear()
+        tel.get_recorder().clear()
+        tel.get_registry().reset()
 
 
 def oracle_logits(torch, cfg, params, ids):
@@ -694,10 +958,14 @@ def main(argv) -> int:
                                 "int8", "cuda")
     log(json.dumps({"main_path": int8_summary, "card": smi}))
     del state
+    # As under --telemetry: the client's metrics go to the global registry,
+    # which stays disabled until the telemetry phase.
     nf4_summary, state = serve(torch, kernel_mods, "nf4_dot", tmain, sampling_cls,
-                               "nf4", "cuda")
-    nf4_summary["failover"] = failover_drive(torch, tmain, state)
+                               "nf4", "cuda", extra_argv=("--telemetry",))
+    tele = telemetry_phase(torch, tmain, nk, state, smi)
+    nf4_summary["failover"] = tele.pop("failover")
     log(json.dumps({"nf4_path": nf4_summary, "card": smi}))
+    log(json.dumps({"telemetry": tele, "card": smi}))
     del state
 
     kernels = [kernel_entry("int8_dot", int8_rows, int8_summary["int8_dot_launches"],

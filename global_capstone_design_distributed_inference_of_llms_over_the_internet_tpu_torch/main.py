@@ -1,6 +1,6 @@
-"""CLI entry point of the PyTorch port: ``--mode local`` and ``--mode oracle``.
+"""CLI entry point of the PyTorch port: ``--mode local``, ``oracle`` and ``doctor``.
 
-Port of the JAX package's ``main.py`` for its first two modes:
+Port of the JAX package's ``main.py`` for these modes:
 
   * ``--mode local``  — in-process cluster: fixed-split stage servers
     (``StageExecutor`` over a ``KVArena``) behind ``LocalTransport``, and
@@ -8,6 +8,18 @@ Port of the JAX package's ``main.py`` for its first two modes:
     no ``--splits`` the model is cut into 4 even stages.
   * ``--mode oracle`` — the unpartitioned model, one ``full_forward`` per
     token: the port's own single-device reference.
+  * ``--mode doctor`` — post-mortem over flight-recorder dumps
+    (``--dumps f1.jsonl,f2.jsonl``, written by ``--events-dump``): failure
+    chains, replay cost, anomalies, and with ``--critical_path`` each
+    request's wall time split by layer. The reference's live scrape of
+    servers (no ``--dumps``) needs the TCP swarm, which is not ported yet.
+
+Telemetry as in the reference: ``--telemetry`` turns on the process-global
+metrics registry, tracer and flight recorder (the client folds its series
+into that registry); ``--events-dump PATH`` records events and writes them
+to PATH at exit, on a fatal exception and on SIGTERM/SIGINT;
+``--profile_phases`` turns on the phase profiler; ``--log-json`` logs one
+JSON object per line.
 
 Weights are random-initialized from the ``--model`` preset and ``--seed``
 (no checkpoint loading yet); tokenization is the UTF-8 byte fallback.
@@ -17,12 +29,15 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
     python -m global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.main \\
         --mode local --model llama-3.1-8b --quant int8 --dtype bfloat16
     NF4_KERNEL=1 python -m ...main --mode local --model llama-3.1-8b --quant nf4
+    python -m ...main --mode local --telemetry --events-dump ev.jsonl
+    python -m ...main --mode doctor --dumps ev.jsonl --critical_path
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import random
 import sys
 import time
@@ -110,6 +125,16 @@ def _stage_params(args, cfg: ModelConfig, params, spec):
 # Modes
 # ---------------------------------------------------------------------------
 
+def _client_metrics(args):
+    """Under ``--telemetry`` the client folds its series into the
+    process-global registry; otherwise it keeps its private one."""
+    if args.telemetry:
+        from . import telemetry
+
+        return telemetry.get_registry()
+    return None
+
+
 def build_local_client(args, cfg: ModelConfig, params) -> PipelineClient:
     """The in-process cluster of ``--mode local``, fixed splits: one
     executor per stage >= 1 registered behind ``LocalTransport``, stage 0
@@ -130,7 +155,8 @@ def build_local_client(args, cfg: ModelConfig, params) -> PipelineClient:
                            _stage_params(args, cfg, params, plan.stages[0]),
                            peer_id="client-local", device=device)
     return PipelineClient(cfg, plan, stage0, transport, registry,
-                          seed=args.seed, model=args.model)
+                          seed=args.seed, model=args.model,
+                          metrics=_client_metrics(args))
 
 
 def run_local(args, cfg: ModelConfig, params) -> int:
@@ -203,6 +229,31 @@ def run_oracle(args, cfg: ModelConfig, params) -> int:
     return _generate_and_report(args, make_oracle_generate(args, cfg, params), cfg)
 
 
+def run_doctor(args) -> int:
+    """Merge flight-recorder dumps onto one timeline and report failure
+    chains (error -> retry -> failover -> replay), per-session replay cost
+    and metric anomalies; with ``--critical_path``, the per-request
+    attribution of wall time from the spans the dumps carry."""
+    from .telemetry import doctor as _doc
+
+    if not args.dumps:
+        _emit("error: --mode doctor needs --dumps: the live scrape of servers' "
+              "event rings comes with the TCP swarm, which the port does not "
+              "have yet (ROADMAP Queue 1 #2)", file=sys.stderr)
+        return 2
+    paths = [p.strip() for p in args.dumps.split(",") if p.strip()]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        _emit("error: dump file(s) not found: " + ", ".join(missing),
+              file=sys.stderr)
+        return 1
+    streams = _doc.load_dumps(paths)
+    _emit(_doc.diagnose_streams(streams), end="")
+    if args.critical_path:
+        _emit(_doc.render_critical_path(_doc.critical_path_reports(streams)), end="")
+    return 0
+
+
 def _generate_and_report(args, generate_fn, cfg: ModelConfig) -> int:
     tokenizer = load_tokenizer()
     prompt_ids = [i % cfg.vocab_size for i in tokenizer.encode(args.prompt)]
@@ -224,7 +275,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.main",
         description="PyTorch/CUDA port of the distributed LLM inference pipeline")
-    p.add_argument("--mode", choices=["local", "oracle"], default="local")
+    p.add_argument("--mode", choices=["local", "oracle", "doctor"], default="local")
     p.add_argument("--model", default="gpt2",
                    help="architecture preset (gpt2, llama-3.1-8b, ...)")
     p.add_argument("--splits", default=None,
@@ -243,12 +294,71 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where the model runs; cuda never falls back to the CPU")
+    p.add_argument("--telemetry", action="store_true",
+                   help="enable the process-global metrics registry, request "
+                        "tracer and flight recorder; the client folds its "
+                        "series into the same registry. Default off: every "
+                        "instrument site is a cheap boolean check.")
+    p.add_argument("--events-dump", dest="events_dump", default=None,
+                   metavar="PATH",
+                   help="enable the flight recorder and write its event ring "
+                        "to PATH as JSONL on fatal exceptions, SIGTERM/SIGINT "
+                        "and normal exit: the file --mode doctor reads. "
+                        "Records even without --telemetry.")
+    p.add_argument("--dumps", default=None, metavar="PATHS",
+                   help="doctor mode: comma-separated event-dump files "
+                        "(--events-dump output) to diagnose")
+    p.add_argument("--critical_path", action="store_true",
+                   help="doctor mode: also report each request's critical "
+                        "path, its wall time split into network / queue / "
+                        "compute / replay / client (the parts sum to the "
+                        "wall time). Needs dumps from runs with --telemetry.")
+    p.add_argument("--profile_phases", action="store_true",
+                   help="enable the host-side phase profiler: per-phase "
+                        "latency histograms (server_phase_seconds) over the "
+                        "serving path")
+    p.add_argument("--log-json", dest="log_json", action="store_true",
+                   help="emit every log record as one JSON object per line "
+                        "instead of the structured text format")
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO)
+    from .telemetry import setup_logging
+
+    setup_logging(json_mode=args.log_json, level=logging.INFO)
+    if args.telemetry:
+        # Before any component fetches a metric handle; register_all()
+        # inside makes every family visible, zero-valued ones too.
+        from . import telemetry
+
+        telemetry.enable()
+    if args.profile_phases:
+        # After the telemetry flip, so the phase histograms land in the
+        # enabled registry.
+        from .telemetry.profiling import enable_phase_profiling
+
+        enable_phase_profiling()
+    if args.events_dump:
+        # The recorder alone (the registry stays off unless --telemetry),
+        # the crash hooks, and a dump at normal exit.
+        import atexit
+
+        from .telemetry import events as _events
+
+        _events.get_recorder().enable()
+        _events.emit("process_start", mode=args.mode, pid=os.getpid())
+        reg = None
+        if args.telemetry:
+            from . import telemetry as _t
+
+            reg = _t.get_registry()
+        _events.install_crash_hooks(args.events_dump, registry=reg)
+        atexit.register(
+            lambda: _events.get_recorder().dump(args.events_dump, registry=reg))
+    if args.mode == "doctor":
+        return run_doctor(args)  # no model needed
     cfg, params = load_model(args)
     run = {"local": run_local, "oracle": run_oracle}[args.mode]
     return run(args, cfg, params)

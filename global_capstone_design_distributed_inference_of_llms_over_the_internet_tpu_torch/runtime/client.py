@@ -13,8 +13,15 @@ blacklisted for its stage, a replacement is discovered in the registry
 replayed to rebuild the replacement's KV cache, and the call is retried —
 at most ``MAX_ATTEMPTS`` attempts, gated by a per-peer `CircuitBreaker`.
 
+Telemetry as in the reference: the client's metrics live in a private,
+always-on registry unless the caller passes one (``main.py`` passes the
+process-global registry under ``--telemetry``); session, failover and
+replay events go to the flight recorder; each pipeline step is one trace
+(a ``pipeline_step`` root, a span per hop, each recording its server's
+span). Every field is a host value the client already holds.
+
 Module and latency routing, push chains, burst, beam and speculative
-decoding, deadlines and the telemetry hooks are not ported yet.
+decoding, deadlines and their telemetry hooks are not ported yet.
 
 Deliberate difference: journal entries keep the activation tensor on its
 device (tensors are never modified after they are sent), where the
@@ -36,6 +43,9 @@ from ..models.config import ModelConfig
 from ..models.partition import StagePlan, StageSpec
 from ..ops.sampling import SamplingParams
 from ..scheduling.registry import PlacementRegistry, ServerRecord
+from ..telemetry import MetricsRegistry, get_tracer
+from ..telemetry import catalog as _tm
+from ..telemetry import events as _ev
 from . import errors as _errors
 from .errors import register as _catalog
 from .executor import StageExecutor
@@ -67,7 +77,7 @@ class _BreakerOpen(PeerUnavailable):
 
 class CircuitBreaker:
     """Per-peer circuit breaker for the client's recovery wrapper (port of
-    the reference's ``client.py:118-220``, without its telemetry hooks).
+    the reference's ``client.py:118-220``).
 
       closed     normal; `threshold` CONSECUTIVE failures open it.
       open       dials are skipped until the backoff elapses:
@@ -77,11 +87,14 @@ class CircuitBreaker:
                  success closes the breaker, failure re-opens it with the
                  doubled backoff.
 
-    `now` is injectable so tests drive the clock instead of sleeping."""
+    Transitions emit breaker_open / breaker_half_open / breaker_close events
+    and count in ``client_breaker_transitions_total{state}``; every skipped
+    dial counts in ``client_breaker_open_skips_total``. `now` is injectable
+    so tests drive the clock instead of sleeping."""
 
     def __init__(self, threshold: int = 3, base_backoff_s: float = 0.5,
                  max_backoff_s: float = 30.0, jitter: float = 0.1, seed: int = 0,
-                 now: Callable[[], float] = time.monotonic):
+                 now: Callable[[], float] = time.monotonic, metrics=None):
         self.threshold = threshold
         self.base_backoff_s = base_backoff_s
         self.max_backoff_s = max_backoff_s
@@ -91,6 +104,8 @@ class CircuitBreaker:
         self._lock = threading.Lock()
         # peer -> {"state", "fails", "opened_at", "backoff", "opens"}
         self._peers: Dict[str, dict] = {}
+        self._m_transitions = _tm.get("client_breaker_transitions_total", metrics)
+        self._m_skips = _tm.get("client_breaker_open_skips_total", metrics)
 
     def _st(self, peer_id: str) -> dict:
         return self._peers.setdefault(
@@ -111,14 +126,23 @@ class CircuitBreaker:
                 return True
             if st["state"] == "open":
                 if self.now() - st["opened_at"] < st["backoff"]:
+                    self._m_skips.inc()
                     return False
                 st["state"] = "half_open"
+                self._m_transitions.labels(state="half_open").inc()
+                _ev.emit("breaker_half_open", peer=peer_id, opens=st["opens"])
                 return True
+            self._m_skips.inc()
             return False
 
     def record_success(self, peer_id: str) -> None:
         with self._lock:
-            self._st(peer_id).update(state="closed", fails=0, backoff=0.0, opens=0)
+            st = self._st(peer_id)
+            was = st["state"]
+            st.update(state="closed", fails=0, backoff=0.0, opens=0)
+        if was != "closed":
+            self._m_transitions.labels(state="close").inc()
+            _ev.emit("breaker_close", peer=peer_id)
 
     def record_failure(self, peer_id: str) -> None:
         with self._lock:
@@ -133,6 +157,10 @@ class CircuitBreaker:
                           self.max_backoff_s)
             backoff *= 1.0 + self._rng.uniform(0.0, self.jitter)
             st.update(state="open", opened_at=self.now(), backoff=backoff, fails=0)
+            opens = st["opens"]
+        self._m_transitions.labels(state="open").inc()
+        _ev.emit("breaker_open", peer=peer_id, opens=opens,
+                 backoff_s=round(backoff, 4))
 
 
 @dataclasses.dataclass
@@ -191,7 +219,7 @@ class PipelineClient:
                  request_timeout: float = 60.0,
                  settle_seconds: float = SETTLE_SECONDS,
                  journal_max_entries: int = 256,
-                 seed: int = 0, model: Optional[str] = None):
+                 seed: int = 0, model: Optional[str] = None, metrics=None):
         self.cfg = cfg
         self.model = model
         self.plan = plan
@@ -211,14 +239,28 @@ class PipelineClient:
         self._session_peers: Dict[str, set] = {}
         self._route: Optional[List[Hop]] = None
         self.last_prefill_stage_times: Dict[str, float] = {}
+        # The client's metrics: a private always-on registry by default
+        # (`recoveries` reads it), or the caller's (the process-global one
+        # under --telemetry). Route plans go to the process-global registry,
+        # as the reference's scheduler family does.
+        self.metrics = metrics if metrics is not None else MetricsRegistry(enabled=True)
+        self._m_ttft = _tm.get("client_ttft_seconds", self.metrics)
+        self._m_step = _tm.get("client_step_seconds", self.metrics)
+        self._m_stage_time = _tm.get("client_stage_time_seconds", self.metrics)
+        self._m_retries = _tm.get("client_retries_total", self.metrics)
+        self._m_recoveries = _tm.get("client_recoveries_total", self.metrics)
+        self._m_generations = _tm.get("client_generations_total", self.metrics)
+        self._m_tokens = _tm.get("client_tokens_generated_total", self.metrics)
+        self._m_route_plans = _tm.get("scheduler_route_plans_total")
+        self._m_route_hops = _tm.get("scheduler_route_hops")
         # Seeded with the client seed so fault runs reproduce.
-        self.breaker = CircuitBreaker(seed=seed)
-        self._recoveries = 0
+        self.breaker = CircuitBreaker(seed=seed, metrics=self.metrics)
 
     @property
     def recoveries(self) -> int:
-        """Failovers to a replacement server so far."""
-        return self._recoveries
+        """Failovers to a replacement server so far: a view of
+        ``client_recoveries_total``."""
+        return int(self._m_recoveries.value)
 
     # ------------------------------------------------------------------
     # Routing
@@ -235,6 +277,8 @@ class PipelineClient:
             if peer is None:
                 raise NoRouteError(f"no live server for {key}")
             hops.append(Hop(key, peer, spec.start, spec.end, spec.is_last))
+        self._m_route_plans.labels(planner="stage").inc()
+        self._m_route_hops.observe(len(hops))
         return hops
 
     def route(self, refresh: bool = False) -> List[Hop]:
@@ -263,6 +307,10 @@ class PipelineClient:
         the first chunk as a prefill, the rest as ``is_replay`` chunks with
         their cumulative cur_len."""
         entries = self.journal.get(hop.key, {}).get(session_id, [])
+        tokens = sum(e.seq_len for e in entries)
+        _ev.emit("replay_start", session_id=session_id, peer=hop.peer_id,
+                 entries=len(entries), tokens=tokens)
+        t0 = time.monotonic()
         for i, e in enumerate(entries):
             req = StageRequest(
                 session_id=session_id, hidden=e.hidden, seq_len=e.seq_len,
@@ -270,6 +318,8 @@ class PipelineClient:
                 max_length=max_length, sampling=sampling,
                 start_block=hop.start_block, end_block=hop.end_block)
             self.transport.call(hop.peer_id, req, self.request_timeout)
+        _ev.emit("replay_done", session_id=session_id, peer=hop.peer_id,
+                 tokens=tokens, seconds=round(time.monotonic() - t0, 4))
 
     def _call_with_recovery(self, hop: Hop, req: StageRequest) -> StageResponse:
         """Up to MAX_ATTEMPTS attempts, gated by the per-peer circuit
@@ -291,16 +341,30 @@ class PipelineClient:
                 if not isinstance(exc, _BreakerOpen):
                     self.breaker.record_failure(_errors.breaker_blame(exc, hop.peer_id))
                 last_exc = exc
+                self._m_retries.inc()
+                trace_id = (req.trace.get("trace_id")
+                            if isinstance(req.trace, dict) else None)
+                _ev.emit("hop_retry", session_id=req.session_id,
+                         trace_id=trace_id, hop=hop.key, peer=hop.peer_id,
+                         attempt=attempt + 1,
+                         error=f"{type(exc).__name__}: {exc}"[:200])
+                _ev.emit("peer_failed", session_id=req.session_id,
+                         trace_id=trace_id, hop=hop.key, peer=hop.peer_id,
+                         reason=type(exc).__name__)
                 failed = self.failed_peers.setdefault(hop.key, set())
                 failed.add(hop.peer_id)
                 logger.warning("hop %s peer %s failed (attempt %d/%d): %s",
                                hop.key, hop.peer_id, attempt + 1, MAX_ATTEMPTS, exc)
+                old_peer = hop.peer_id
                 try:
                     replacement = self._rediscover(hop)
                 except NoRouteError:
                     continue  # a peer may re-register before we run out
                 hop.peer_id = replacement
-                self._recoveries += 1
+                self._m_recoveries.inc()
+                _ev.emit("failover", session_id=req.session_id,
+                         trace_id=trace_id, hop=hop.key, old_peer=old_peer,
+                         new_peer=replacement)
                 try:
                     self._replay(hop, req.session_id, req.sampling, req.max_length)
                 except _errors.retryable_types() as replay_exc:
@@ -320,6 +384,8 @@ class PipelineClient:
             # Every candidate is blacklisted. Failures are often transient:
             # give the failed peers another chance rather than fail with
             # live servers present (the blacklist amnesty).
+            _ev.emit("blacklist_amnesty", hop=hop.key,
+                     cleared=len(self.failed_peers.get(hop.key, ())))
             self.failed_peers.get(hop.key, set()).clear()
             peer = self._rediscover_excluding(hop, ())
         if peer is None:
@@ -337,21 +403,38 @@ class PipelineClient:
     def _walk(self, hidden: torch.Tensor, seq_len: int, cur_len: int,
               session_id: str, *, is_prefill: bool, max_length: int,
               sampling: SamplingParams, generated: Sequence[int] = (),
-              step_seed: int = 0, stage_times: Dict[str, float]) -> StageResponse:
+              step_seed: int = 0, stage_times: Dict[str, float],
+              root) -> StageResponse:
         """Send the activation through every remote hop, each call through
         the recovery wrapper; return the final hop's response (a sampled
-        token)."""
+        token). `root` is the step's root span, opened by the generation
+        loop so that stage 0 and every hop share one trace (the no-op span
+        with tracing off)."""
+        phase = "prefill" if is_prefill else "decode"
+        tracer = get_tracer()
         cur = hidden
-        for hop in self.route():
+        for i, hop in enumerate(self.route()):
             req = StageRequest(
                 session_id=session_id, hidden=cur, seq_len=seq_len,
                 cur_len=cur_len, is_prefill=is_prefill, max_length=max_length,
                 sampling=sampling, generated_tokens=clip_generated(generated),
                 step_seed=step_seed, start_block=hop.start_block,
-                end_block=hop.end_block)
+                end_block=hop.end_block,
+                trace=root.wire_context(hop=i) if root else None)
+            hop_span = tracer.start_span(
+                f"hop:{hop.key}", trace_id=root.trace_id,
+                parent_id=root.span_id, kind="client", peer=hop.peer_id,
+                phase=phase) if root else root
             t0 = time.monotonic()
-            resp = self._call_with_recovery(hop, req)
-            stage_times[hop.key] = time.monotonic() - t0
+            try:
+                resp = self._call_with_recovery(hop, req)
+            except BaseException as exc:
+                hop_span.end(error=repr(exc))
+                raise
+            dt = time.monotonic() - t0
+            hop_span.end(server=resp.span)
+            stage_times[hop.key] = dt
+            self._m_stage_time.labels(hop=hop.key, phase=phase).observe(dt)
             # Journal AFTER success: replay rebuilds exactly the applied
             # history.
             self._journal_append(hop.key, session_id,
@@ -395,13 +478,22 @@ class PipelineClient:
         len(generated)``, purely session-local. Session state (KV leases,
         journal) is released when the generator finishes or is closed."""
         session_id = session_id or f"sess-{time.monotonic_ns():x}"
+        _ev.emit("session_start", session_id=session_id,
+                 prompt_len=len(prompt_ids), max_new_tokens=max_new_tokens)
+        recoveries_before = self.recoveries
+        tokens_out = 0
         try:
-            yield from self._generate_steps(
-                prompt_ids, max_new_tokens, sampling=sampling or SamplingParams(),
-                eos_token_id=eos_token_id, session_id=session_id,
-                max_length=max_length)
+            for step in self._generate_steps(
+                    prompt_ids, max_new_tokens, sampling=sampling or SamplingParams(),
+                    eos_token_id=eos_token_id, session_id=session_id,
+                    max_length=max_length):
+                tokens_out += len(step.new_tokens)
+                yield step
         finally:
             self._end_session(session_id)
+            _ev.emit("session_end", session_id=session_id,
+                     tokens=tokens_out or None,
+                     recoveries=self.recoveries - recoveries_before)
 
     def _generate_steps(self, prompt_ids: Sequence[int], max_new_tokens: int, *,
                         sampling: SamplingParams, eos_token_id: Optional[int],
@@ -414,16 +506,27 @@ class PipelineClient:
         generated: List[int] = []
         stopped_by = "max_tokens"
 
+        tracer = get_tracer()
         t0 = time.monotonic()
+        root = tracer.start_span("pipeline_step", kind="client",
+                                 session_id=session_id, phase="prefill")
+        s0_span = tracer.start_span(
+            "hop:stage0", trace_id=root.trace_id, parent_id=root.span_id,
+            kind="client", phase="prefill", peer=self.stage0.peer_id) if root else root
         s0_resp = self.stage0.forward(StageRequest(
             session_id=session_id, hidden=ids, seq_len=prompt_len, cur_len=0,
             is_prefill=True, max_length=max_length, sampling=sampling))
+        s0_span.end()
         times: Dict[str, float] = {}
-        resp = self._walk(s0_resp.hidden, prompt_len, 0, session_id,
-                          is_prefill=True, max_length=max_length,
-                          sampling=sampling, generated=generated,
-                          step_seed=self.seed, stage_times=times)
+        try:
+            resp = self._walk(s0_resp.hidden, prompt_len, 0, session_id,
+                              is_prefill=True, max_length=max_length,
+                              sampling=sampling, generated=generated,
+                              step_seed=self.seed, stage_times=times, root=root)
+        finally:
+            root.end()
         ttft = time.monotonic() - t0
+        self._m_ttft.observe(ttft)
         self.last_prefill_stage_times = times
         generated.append(int(resp.token_id))
         yield GenerationStep(new_tokens=[generated[-1]])
@@ -440,21 +543,31 @@ class PipelineClient:
                 break
             t0 = time.monotonic()
             step_ids = torch.tensor([[generated[-1]]], dtype=torch.int64, device=device)
-            s0_resp = self.stage0.forward(StageRequest(
-                session_id=session_id, hidden=step_ids, seq_len=1,
-                cur_len=cur_len, is_prefill=False, max_length=max_length,
-                sampling=sampling))
-            times = {}
-            resp = self._walk(s0_resp.hidden, 1, cur_len, session_id,
-                              is_prefill=False, max_length=max_length,
-                              sampling=sampling, generated=generated,
-                              step_seed=self.seed + len(generated),
-                              stage_times=times)
-            decode_times.append(time.monotonic() - t0)
+            step_span = tracer.start_span(
+                "pipeline_step", kind="client", session_id=session_id,
+                phase="decode", step=len(generated))
+            try:
+                s0_resp = self.stage0.forward(StageRequest(
+                    session_id=session_id, hidden=step_ids, seq_len=1,
+                    cur_len=cur_len, is_prefill=False, max_length=max_length,
+                    sampling=sampling))
+                times = {}
+                resp = self._walk(s0_resp.hidden, 1, cur_len, session_id,
+                                  is_prefill=False, max_length=max_length,
+                                  sampling=sampling, generated=generated,
+                                  step_seed=self.seed + len(generated),
+                                  stage_times=times, root=step_span)
+            finally:
+                step_span.end()
+            dt = time.monotonic() - t0
+            decode_times.append(dt)
+            self._m_step.observe(dt)
+            self._m_tokens.inc(1)
             cur_len += 1
             generated.append(int(resp.token_id))
             yield GenerationStep(new_tokens=[generated[-1]])
 
+        self._m_generations.inc()
         yield GenerationStep(new_tokens=[], done=True, result=GenerationResult(
             tokens=generated, ttft_s=ttft, decode_times_s=decode_times,
             stopped_by=stopped_by))

@@ -36,6 +36,7 @@ from ..models.quant import tree_map
 from ..models.transformer import fuse_qkv_params
 from ..ops.sampling import RECENT_WINDOW, sample_token
 from ..ops.threefry import fold_in, prng_key
+from ..telemetry import events as _ev
 from .errors import register as _catalog
 from .kv_cache import AllocationFailed, KVArena, KVHandle
 from .messages import StageRequest, StageResponse
@@ -152,10 +153,14 @@ class StageExecutor:
         """Arena lease as a STAGE error, so a full arena is retryable
         client-side rather than a crash."""
         try:
-            return self.arena.allocate(req.session_id, req.max_length,
-                                       num_layers=num_layers, batch=batch)
+            handle = self.arena.allocate(req.session_id, req.max_length,
+                                         num_layers=num_layers, batch=batch)
         except AllocationFailed as exc:
             raise StageExecutionError(str(exc)) from exc
+        _ev.emit("server_session_open", session_id=req.session_id,
+                 peer=self.peer_id, max_length=req.max_length,
+                 replay=req.is_replay)
+        return handle
 
     def _session_cache(self, req: StageRequest, num_layers: int,
                        batch: int = 1) -> KVHandle:
@@ -241,4 +246,7 @@ class StageExecutor:
     # ------------------------------------------------------------------
 
     def drop_session(self, session_id: str) -> None:
+        if self.arena.get(session_id) is not None:
+            _ev.emit("server_session_closed", session_id=session_id,
+                     peer=self.peer_id)
         self.arena.free(session_id)

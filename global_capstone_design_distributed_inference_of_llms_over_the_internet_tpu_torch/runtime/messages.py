@@ -4,8 +4,9 @@
 The reference ships sampling params and the recent-token window in the
 request metadata on EVERY step, so the final stage samples statelessly.
 ``hidden`` is a torch tensor: int token ids [B, T] into the first stage,
-float activations [B, T, D] between stages. Beam, speculative, deep-prompt,
-training, push-chain, tracing, deadline and burst fields are not ported
+float activations [B, T, D] between stages. The trace context travels on
+the request and the serving peer's span on the response. Beam, speculative,
+deep-prompt, training, push-chain, deadline and burst fields are not ported
 yet, nor are the backward messages.
 """
 
@@ -36,6 +37,10 @@ class StageRequest:
     # Absolute block sub-range to execute (None = the server's whole span).
     start_block: Optional[int] = None
     end_block: Optional[int] = None
+    # Trace context (telemetry.tracing):
+    # {"trace_id": <16 hex>, "parent": <client span_id>, "hop": <int>}.
+    # None = tracing off; servers treat it as opaque.
+    trace: Optional[dict] = None
 
 
 @dataclasses.dataclass
@@ -48,6 +53,9 @@ class StageResponse:
     # Batch>1 sampling: one token per batch row (token_id mirrors row 0).
     token_ids: Optional[Tuple[int, ...]] = None
     cache_len: int = 0                     # server-side KV length after the step
+    # The serving peer's span summary (telemetry.tracing Span.to_wire()):
+    # its own start/end plus attrs. None when the request carried no trace.
+    span: Optional[dict] = None
 
     @property
     def is_token(self) -> bool:

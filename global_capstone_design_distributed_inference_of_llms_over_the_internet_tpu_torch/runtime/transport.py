@@ -5,16 +5,26 @@ Port of the JAX package's ``runtime/transport.py``: the `Transport` seam and
 fault injection for tests (`kill`, `revive`, `fail_next`, and the `on_call`
 tap that sees every request first). Transports raise `PeerUnavailable` (a
 ConnectionError) for a dead peer, which the client's recovery wrapper fails
-over. Telemetry, stalls, deadlines, push chains and the training verb are
-not ported yet.
+over. `LocalTransport` is the serving boundary of its peers, so it records
+their ``transport_*`` and ``server_*`` metrics, the ``server_forward`` span
+and the phase profiler's ``server`` phase. Its timings are host time: an
+intermediate stage's step returns once its kernels are enqueued, and only
+the last stage's includes the token read it already does. Stalls (and with
+them ``transport_timeout``), deadlines, push chains and the training verb
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import abc
 import threading
+import time
 from typing import Callable, Dict, Optional, Tuple
 
+from ..telemetry import catalog as _tm
+from ..telemetry import events as _ev
+from ..telemetry import get_tracer
+from ..telemetry.profiling import get_profiler as _get_profiler
 from .errors import register as _catalog
 from .executor import StageExecutor
 from .messages import StageRequest, StageResponse
@@ -53,6 +63,14 @@ class LocalTransport(Transport):
         # after this call read the peer's state, so a kill from the tap takes
         # effect from the next call on.
         self.on_call: Optional[Callable[[str, StageRequest], None]] = None
+        # Telemetry (process-global registry and tracer; a no-op unless
+        # enabled). Bytes are tensor nbytes, read from metadata.
+        self._m_calls = _tm.get("transport_calls_total")
+        self._m_sent = _tm.get("transport_bytes_sent_total")
+        self._m_recv = _tm.get("transport_bytes_received_total")
+        self._m_step = _tm.get("server_step_latency_seconds")
+        self._m_tokens = _tm.get("server_tokens_total")
+        self._m_requests = _tm.get("server_requests_total")
 
     def add_peer(self, peer_id: str, executor: StageExecutor) -> None:
         with self._lock:
@@ -88,6 +106,7 @@ class LocalTransport(Transport):
 
     def call(self, peer_id: str, request: StageRequest,
              timeout: Optional[float] = None) -> StageResponse:
+        t_in = time.monotonic()
         with self._lock:
             executor = self._peers.get(peer_id)
             dead = self._dead.get(peer_id, True)
@@ -96,8 +115,42 @@ class LocalTransport(Transport):
                 self._fail_next[peer_id] = flake - 1
         if self.on_call is not None:
             self.on_call(peer_id, request)
+        trace_id = (request.trace.get("trace_id")
+                    if isinstance(request.trace, dict) else None)
         if executor is None or dead:
+            _ev.emit("transport_error", session_id=request.session_id,
+                     trace_id=trace_id, peer=peer_id, verb="forward",
+                     error="peer not reachable")
             raise PeerUnavailable(f"peer {peer_id} is not reachable")
         if flake > 0:
+            _ev.emit("transport_error", session_id=request.session_id,
+                     trace_id=trace_id, peer=peer_id, verb="forward",
+                     error="transient failure (injected)")
             raise PeerUnavailable(f"peer {peer_id} transient failure (injected)")
-        return executor.forward(request)
+        phase = "prefill" if request.is_prefill else "decode"
+        self._m_calls.labels(verb="forward").inc()
+        if request.hidden is not None:
+            self._m_sent.inc(request.hidden.nbytes)
+        span = get_tracer().span_from_wire(
+            request.trace, "server_forward", kind="server", peer=peer_id,
+            phase=phase)
+        t0 = time.monotonic()
+        try:
+            resp = executor.forward(request)
+        except BaseException as exc:
+            self._m_requests.labels(outcome="error").inc()
+            span.end(error=repr(exc))
+            raise
+        dur = time.monotonic() - t0
+        self._m_step.labels(phase=phase).observe(dur)
+        self._m_tokens.labels(phase=phase).inc(request.seq_len)
+        self._m_requests.labels(outcome="ok").inc()
+        _get_profiler().observe("server", time.monotonic() - t_in)
+        # queue_s: the wait at this boundary before compute; the doctor's
+        # critical path splits the hop into queue and compute with it.
+        span.set(cache_len=resp.cache_len, queue_s=max(0.0, t0 - t_in)).end()
+        if resp.hidden is not None:
+            self._m_recv.inc(resp.hidden.nbytes)
+        if request.trace is not None:
+            resp.span = span.to_wire()
+        return resp

@@ -1,8 +1,8 @@
 """Placement registry: the service-discovery layer (DHT-schema mirror).
 
 The PyTorch port keeps this module as a copy of the JAX package's
-``scheduling/registry.py`` without its telemetry event hooks (telemetry is
-not ported yet); ``tests/test_torch_isolation.py`` holds the record schema
+``scheduling/registry.py``, telemetry hooks included; only this note
+differs, and ``tests/test_torch_isolation.py`` holds the rest of the file
 to the original.
 
 The reference's control plane is a Kademlia DHT (``src/dht_utils.py``) storing
@@ -37,6 +37,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..telemetry import events as _ev
 
 DEFAULT_TTL = 45.0          # src/main.py:524
 DISCOVERY_POOL = 5          # random among 5 newest, src/rpc_transport.py:337-344
@@ -214,6 +215,8 @@ class PlacementRegistry:
                 del self._servers[p]
             live = [r for r in self._servers.values()
                     if _model_ok(r, model)]
+        for p in dead:
+            _ev.emit("registry_expired", peer=p)
         return live
 
     def live_servers(self, model: Optional[str] = None) -> List[ServerRecord]:
@@ -225,6 +228,11 @@ class PlacementRegistry:
             if rec is not None and rec.expired():
                 del self._servers[peer_id]
                 rec = None
+                expired = True
+            else:
+                expired = False
+        if expired:
+            _ev.emit("registry_expired", peer=peer_id)
         return rec
 
     def discover_stage(self, stage_index: int,

@@ -1,0 +1,300 @@
+"""Canonical catalog of every runtime metric: the ONE place names, label
+sets, help strings, and bucket layouts are declared.
+
+Instrumentation sites fetch metrics through this module (never by calling
+``registry.counter(...)`` with an inline name), which buys three properties:
+
+  * a typo'd metric name is a KeyError at import/first-use, not a silently
+    forked time series;
+  * ``register_all()`` can materialize the full schema on any registry — the
+    exposition surface shows every family (zero-valued included) and
+    ``scripts/check_metrics_documented.py`` can diff the schema against
+    docs/OBSERVABILITY.md;
+  * docs and code cannot drift without a tier-1 test failing.
+
+All helpers operate on the process-global registry by default (disabled until
+``telemetry.enable()``), and accept an explicit registry for components that
+own one (PipelineClient) and for tests.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+from .metrics import (
+    COUNTER,
+    DEFAULT_LATENCY_BUCKETS,
+    GAUGE,
+    HISTOGRAM,
+    MetricsRegistry,
+    get_registry,
+)
+
+# Sub-second work (single decode hops, queue waits): 0.1 ms .. 10 s.
+FAST_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 10.0,
+)
+# Batch occupancy (sessions coalesced per decode round).
+FILL_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0, 24.0, 32.0, 64.0)
+# Route lengths (hops per planned pipeline).
+HOP_BUCKETS = (1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0)
+# MoE expert load relative to perfectly balanced routing (1.0 = uniform;
+# the top bucket catches a single expert absorbing ~everything).
+LOAD_BUCKETS = (0.0, 0.25, 0.5, 0.75, 1.0, 1.5, 2.0, 3.0, 4.0, 8.0)
+
+# name -> (kind, help, label names, histogram buckets or None)
+SPEC: Dict[str, Tuple[str, str, Tuple[str, ...], Optional[Sequence[float]]]] = {
+    # -- server hot path ----------------------------------------------------
+    "server_step_latency_seconds": (
+        HISTOGRAM, "Stage forward latency at the serving boundary, per phase.",
+        ("phase",), FAST_BUCKETS),
+    "server_queue_wait_seconds": (
+        HISTOGRAM,
+        "Time a session waited for its batching round to execute.",
+        (), FAST_BUCKETS),
+    "server_batch_fill_sessions": (
+        HISTOGRAM, "Sessions coalesced into one batched decode round.",
+        (), FILL_BUCKETS),
+    "server_decode_round_seconds": (
+        HISTOGRAM, "Wall time of one batched decode round (all slots).",
+        (), FAST_BUCKETS),
+    "server_tokens_total": (
+        COUNTER, "Tokens processed by this stage, per phase.",
+        ("phase",), None),
+    "server_requests_total": (
+        COUNTER, "Stage requests served, per outcome (ok|error).",
+        ("outcome",), None),
+    # -- KV arena -----------------------------------------------------------
+    "server_kv_used_bytes": (
+        GAUGE, "KV arena bytes currently leased.", (), None),
+    "server_kv_capacity_bytes": (
+        GAUGE, "KV arena byte budget.", (), None),
+    "server_kv_occupancy_ratio": (
+        GAUGE, "KV arena used/capacity (0..1).", (), None),
+    "server_kv_alloc_total": (
+        COUNTER, "KV session leases granted.", (), None),
+    "server_kv_alloc_failures_total": (
+        COUNTER, "KV allocations refused (arena full past timeout, "
+                 "oversized, or duplicate session).", (), None),
+    "server_kv_alloc_wait_seconds": (
+        HISTOGRAM, "Backpressure: time an allocation waited for free space.",
+        (), FAST_BUCKETS),
+    "server_kv_evictions_total": (
+        COUNTER, "Idle sessions evicted by the arena backstop.", (), None),
+    # -- prefix cache -------------------------------------------------------
+    "server_prefix_cache_hits_total": (
+        COUNTER, "Prefill prefix lookups served from the store.", (), None),
+    "server_prefix_cache_misses_total": (
+        COUNTER, "Prefill prefix lookups that missed.", (), None),
+    "server_prefix_cache_evictions_total": (
+        COUNTER, "Prefix grains evicted (LRU byte budget).", (), None),
+    "server_prefix_cache_grains_reused_total": (
+        COUNTER, "Individual KV grains spliced from the store.", (), None),
+    "server_prefix_cache_used_bytes": (
+        GAUGE, "Prefix store resident bytes.", (), None),
+    # -- elastic server control loop ----------------------------------------
+    "server_heartbeats_total": (
+        COUNTER, "Registry heartbeats published.", (), None),
+    "server_rebalances_total": (
+        COUNTER, "Span migrations executed by the elastic server.", (), None),
+    "server_deadline_rejected_total": (
+        COUNTER, "Requests refused because their deadline budget was "
+                 "already spent on arrival/queueing.", (), None),
+    # -- client -------------------------------------------------------------
+    "client_ttft_seconds": (
+        HISTOGRAM, "Time to first token (prefill walk + first sample).",
+        (), DEFAULT_LATENCY_BUCKETS),
+    "client_step_seconds": (
+        HISTOGRAM, "Whole-pipeline decode step wall time, client view.",
+        (), FAST_BUCKETS),
+    "client_stage_time_seconds": (
+        HISTOGRAM, "Per-hop wall time observed by the client, per phase.",
+        ("hop", "phase"), FAST_BUCKETS),
+    "client_retries_total": (
+        COUNTER, "Hop attempts beyond the first (recovery retry loop).",
+        (), None),
+    "client_recoveries_total": (
+        COUNTER, "Successful failovers to a replacement server.", (), None),
+    "client_generations_total": (
+        COUNTER, "generate() calls completed.", (), None),
+    "client_tokens_generated_total": (
+        COUNTER, "Tokens emitted to callers.", (), None),
+    "client_breaker_transitions_total": (
+        COUNTER, "Per-peer circuit-breaker state transitions "
+                 "(open|half_open|close).", ("state",), None),
+    "client_breaker_open_skips_total": (
+        COUNTER, "Dial attempts skipped because the peer's breaker was "
+                 "open (each skip is a reconnect the backoff prevented).",
+        (), None),
+    "client_deadline_expired_total": (
+        COUNTER, "Hops abandoned client-side because the end-to-end "
+                 "deadline budget ran out.", (), None),
+    "client_registry_stale_reads_total": (
+        COUNTER, "Registry reads served from the client's stale snapshot "
+                 "while every registry address was down (TTL grace).",
+        (), None),
+    "client_registry_fallback_reads_total": (
+        COUNTER, "Registry reads served by a live stage server's gossip "
+                 "mirror after every seed failed (any-peer bootstrap).",
+        (), None),
+    "client_route_cache_evictions_total": (
+        COUNTER, "Route-cache entries evicted because the cache hit its "
+                 "configured capacity.", (), None),
+    # -- transport ----------------------------------------------------------
+    "transport_calls_total": (
+        COUNTER, "Transport round trips, per verb.", ("verb",), None),
+    "transport_bytes_sent_total": (
+        COUNTER, "Payload bytes sent to peers (tensor bytes for the "
+                 "in-process transport, frame bytes for TCP).", (), None),
+    "transport_bytes_received_total": (
+        COUNTER, "Payload bytes received from peers.", (), None),
+    "transport_rtt_seconds": (
+        HISTOGRAM, "Measured ping round-trip time.", (), FAST_BUCKETS),
+    "transport_faults_injected_total": (
+        COUNTER, "Chaos-layer fault firings, per kind (runtime.faults).",
+        ("kind",), None),
+    # -- NAT relay data plane ------------------------------------------------
+    "relay_forwarded_total": (
+        COUNTER, "Frames this volunteer forwarded on behalf of relayed "
+                 "(NAT'd) peers, per outcome (ok|error|drop|no_circuit).",
+        ("outcome",), None),
+    "relay_active_circuits": (
+        GAUGE, "Relay circuits (attached NAT'd peers with an unexpired "
+               "lease) this volunteer currently serves.", (), None),
+    # -- gossip control plane -----------------------------------------------
+    "gossip_rounds_total": (
+        COUNTER, "Anti-entropy exchanges, per role (initiator|responder).",
+        ("role",), None),
+    "gossip_entries_merged_total": (
+        COUNTER, "Record versions accepted into this process's gossip "
+                 "mirror (newer seq, or a winning tombstone).", (), None),
+    "gossip_mirror_records": (
+        GAUGE, "Live (non-tombstoned, unexpired) records in this "
+               "process's gossip mirror.", (), None),
+    "gossip_mirror_requests_total": (
+        COUNTER, "Registry verbs answered by this stage server's embedded "
+                 "mirror, per verb (register|heartbeat|unregister|list).",
+        ("verb",), None),
+    # -- scheduler ----------------------------------------------------------
+    "scheduler_route_plans_total": (
+        COUNTER, "Route computations, per planner (greedy|latency).",
+        ("planner",), None),
+    "scheduler_route_hops": (
+        HISTOGRAM, "Hops in each planned route.", (), HOP_BUCKETS),
+    "scheduler_rebalance_checks_total": (
+        COUNTER, "should_choose_other_blocks evaluations.", (), None),
+    "scheduler_rebalance_moves_total": (
+        COUNTER, "Rebalance checks that recommended moving.", (), None),
+    # -- burst decode (continuous-batching serving core) ----------------------
+    "server_burst_dispatches_total": (
+        COUNTER, "Burst decode programs dispatched (each runs up to N "
+                 "ticks for every active slot in one jitted call).",
+        (), None),
+    "server_burst_tokens_total": (
+        COUNTER, "Tokens emitted by burst decode dispatches; divide "
+                 "server_burst_dispatches_total by this for "
+                 "dispatches-per-token (the amortization the burst engine "
+                 "exists to win).", (), None),
+    "server_burst_ticks": (
+        HISTOGRAM, "Configured tick count per burst dispatch (the N of "
+                   "each lax.scan program).", (), FILL_BUCKETS),
+    # -- server task pools ----------------------------------------------------
+    "server_task_queue_depth": (
+        GAUGE, "Tasks queued in each stage-server pool "
+               "(inference|forward|backward), the pressure signal behind "
+               "queue_pressure events.", ("pool",), None),
+    # -- serving gateway ------------------------------------------------------
+    "gateway_requests_total": (
+        COUNTER, "Requests arriving at the gateway, per tenant and outcome "
+                 "(ok|shed|error).", ("tenant", "outcome"), None),
+    "gateway_shed_total": (
+        COUNTER, "Requests refused by admission control, per tenant and "
+                 "reason (rate|concurrency|queue_full).",
+        ("tenant", "reason"), None),
+    "gateway_tokens_served_total": (
+        COUNTER, "Tokens streamed back to tenants — the quantity "
+                 "weighted-fair scheduling balances.", ("tenant",), None),
+    "gateway_queue_wait_seconds": (
+        HISTOGRAM, "Admission-to-first-pipeline-step wait in the fair "
+                   "queue.", ("tenant",), FAST_BUCKETS),
+    "gateway_ttft_seconds": (
+        HISTOGRAM, "Submit-to-first-token latency through the gateway "
+                   "(queue wait + prefill).", ("tenant",),
+        DEFAULT_LATENCY_BUCKETS),
+    "gateway_queue_depth": (
+        GAUGE, "Requests admitted but not yet started (fair-queue "
+               "backlog).", (), None),
+    "gateway_active_sessions": (
+        GAUGE, "Sessions currently being decoded by the gateway's step "
+               "scheduler.", (), None),
+    # -- gateway SLOs ---------------------------------------------------------
+    "gateway_slo_ttft_violations_total": (
+        COUNTER, "First tokens delivered later than the tenant's declared "
+                 "TTFT objective.", ("tenant",), None),
+    "gateway_slo_token_violations_total": (
+        COUNTER, "Decode steps slower than the tenant's declared per-token "
+                 "latency objective.", ("tenant",), None),
+    "gateway_slo_burn_rate": (
+        GAUGE, "Error-budget burn rate over the rolling SLO window, per "
+               "tenant and objective (ttft|token): 1.0 consumes the budget "
+               "exactly at the target rate, >1.0 is on course to violate "
+               "the SLO.", ("tenant", "objective"), None),
+    # -- sparse MoE dispatch (models/moe.py; recorded via jax.debug.callback
+    #    only when the registry was enabled at trace time) -------------------
+    "moe_expert_load": (
+        HISTOGRAM, "Per-expert routed-slot share relative to perfectly "
+                   "balanced load (1.0 = uniform; one observation per "
+                   "expert per dispatch).", (), LOAD_BUCKETS),
+    "moe_tokens_total": (
+        COUNTER, "Token-slots routed through sparse MoE dispatch "
+                 "(tokens x top_k).", (), None),
+    "moe_dropped_total": (
+        COUNTER, "Token-slots dropped because their expert overflowed its "
+                 "capacity C (divide by moe_tokens_total for the drop "
+                 "fraction).", (), None),
+    "moe_max_expert_share": (
+        GAUGE, "Hottest expert's share of the last dispatch's routed "
+               "slots (hot-expert skew; uniform = 1/num_experts).",
+        (), None),
+    # -- phase profiler (--profile_phases) ------------------------------------
+    "server_phase_seconds": (
+        HISTOGRAM, "Serving hot-path phase wall time from the phase "
+                   "profiler, per phase (gateway_queue|burst_build|dispatch|"
+                   "device|readback|socket|server).",
+        ("phase",), FAST_BUCKETS),
+    "server_device_bubble_ratio": (
+        GAUGE, "Fraction of wall time the accelerator sat idle between "
+               "burst dispatches (0..1; phase profiler's live meter for "
+               "device-bound vs host-bound).", (), None),
+}
+
+
+def all_names() -> Tuple[str, ...]:
+    return tuple(sorted(SPEC))
+
+
+def get(name: str, registry: Optional[MetricsRegistry] = None):
+    """Fetch (creating on first use) the named metric from `registry` (global
+    by default). Labeled families return the `.labels(...)` facade."""
+    try:
+        kind, help_text, labels, buckets = SPEC[name]
+    except KeyError:
+        raise KeyError(f"metric {name!r} is not in the telemetry catalog")
+    reg = registry if registry is not None else get_registry()
+    if kind == COUNTER:
+        return reg.counter(name, help_text, labels=labels)
+    if kind == GAUGE:
+        return reg.gauge(name, help_text, labels=labels)
+    return reg.histogram(name, help_text,
+                         buckets=buckets or DEFAULT_LATENCY_BUCKETS,
+                         labels=labels)
+
+
+def register_all(registry: Optional[MetricsRegistry] = None) -> MetricsRegistry:
+    """Materialize every catalogued family on `registry` so exposition shows
+    the complete schema even before traffic."""
+    reg = registry if registry is not None else get_registry()
+    for name in all_names():
+        get(name, reg)
+    return reg

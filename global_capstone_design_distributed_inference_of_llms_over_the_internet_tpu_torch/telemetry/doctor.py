@@ -1,0 +1,581 @@
+"""Post-mortem doctor: turn flight-recorder dumps into a causal story.
+
+``--mode doctor`` feeds one or more JSONL dumps (written by
+telemetry/events.py on crash/signal/demand, or scraped live over the
+``dump-events`` wire verb) through this module, which:
+
+  * merges per-process event streams onto ONE timeline (wall-clock order —
+    cross-host skew is the reader's problem, as with spans);
+  * reconstructs per-session **failure chains**: trigger (timeout /
+    transport error / stage error) → failover → KV replay (with token
+    cost) → rebalance, correlated by session and trace id;
+  * surfaces **anomalies** from the metrics-registry snapshots embedded in
+    each dump (error counters that should be zero, retry/eviction rates);
+  * totals the **replay cost** each session paid for fault tolerance.
+
+Pure stdlib — the doctor must run on a laptop holding nothing but the
+dumps.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .events import load_dump
+
+# Events that can START a failure chain, with the human phrasing used in
+# the chain rendering.
+_TRIGGERS = {
+    "transport_timeout": "timeout",
+    "transport_error": "transport error",
+    "stage_timeout": "stage timeout",
+    "stage_error": "stage error",
+    "peer_failed": "peer failed",
+    "hop_retry": "retry",
+    "fault_injected": "injected fault",
+    "deadline_expired": "deadline expired",
+    "deadline_rejected": "deadline rejected",
+    "registry_unreachable": "registries unreachable",
+    "request_shed": "request shed",
+    "relay_forward_error": "relay lost",
+}
+# Events that CONTINUE a chain once triggered.
+_CHAIN = {
+    "hop_retry", "peer_failed", "failover", "replay_start", "replay_done",
+    "blacklist_amnesty", "rebalance_decision", "rebalance_done",
+    "rebalance_failed", "server_rejoin", "kv_eviction",
+    "breaker_open", "breaker_half_open", "breaker_close",
+    # Control-plane outage story: registries lost -> stale snapshot /
+    # gossip-served discovery -> seeds restored.
+    "registry_stale_serve", "gossip_fallback", "gossip_served_discovery",
+    "registry_recovered",
+    # Gateway fairness story: what got in and finished around a shed —
+    # a shed request's chain shows whether admission was load or a bug.
+    "request_admitted", "request_completed",
+    # Relay loss story: the circuit break (a trigger) is followed by the
+    # NAT'd peer re-attaching via a new volunteer.
+    "relay_attach",
+}
+
+# Counter patterns in the embedded Prometheus exposition that should be
+# zero in a healthy run; non-zero values become anomalies.
+_ANOMALY_COUNTERS = (
+    ("client_retries_total", "hop retries"),
+    ("client_recoveries_total", "failovers to replacement servers"),
+    ("server_kv_alloc_failures_total", "KV allocations refused"),
+    ("server_kv_evictions_total", "idle sessions evicted by the KV arena"),
+    ("server_prefix_cache_evictions_total", "prefix-cache grains evicted"),
+    ("gateway_shed_total", "requests refused by gateway admission control"),
+)
+_ERR_REQ_RE = re.compile(
+    r'^server_requests_total\{outcome="(error|timeout)"\} ([0-9.e+]+)',
+    re.M)
+
+
+def load_dumps(paths: Sequence[str]) -> List[dict]:
+    return [load_dump(p) for p in paths]
+
+
+def merge_timeline(streams: Sequence[dict]) -> List[dict]:
+    """All events from every stream, stamped with their source process, in
+    wall-clock order (ties broken by per-process monotonic ts)."""
+    merged: List[dict] = []
+    for i, st in enumerate(streams):
+        pid = st.get("meta", {}).get("pid")
+        src = f"pid{pid}" if pid is not None else f"dump{i}"
+        for ev in st.get("events", ()):
+            d = dict(ev)
+            d["_src"] = src
+            merged.append(d)
+    merged.sort(key=lambda d: (d.get("wall", 0.0), d.get("ts", 0.0)))
+    return merged
+
+
+def _fields(ev: dict) -> dict:
+    return ev.get("fields") or {}
+
+
+def _describe(ev: dict) -> str:
+    """One human phrase per event, used inside chain arrows."""
+    f = _fields(ev)
+    name = ev.get("event")
+    if name in ("transport_timeout", "stage_timeout"):
+        peer = f.get("peer") or f.get("hop") or "?"
+        return f"{peer} timeout"
+    if name == "transport_error":
+        return f"{f.get('peer', '?')} transport error"
+    if name == "stage_error":
+        return f"stage error ({str(f.get('error', ''))[:60]})"
+    if name == "hop_retry":
+        return (f"retry {f.get('hop', '?')} attempt "
+                f"{f.get('attempt', '?')}")
+    if name == "peer_failed":
+        return f"peer {f.get('peer', '?')} failed on {f.get('hop', '?')}"
+    if name == "failover":
+        return (f"failover {f.get('hop', '?')}: {f.get('old_peer', '?')}"
+                f" -> {f.get('new_peer', '?')}")
+    if name == "replay_start":
+        return f"replay of {f.get('tokens', '?')} tokens begins"
+    if name == "replay_done":
+        return f"replay of {f.get('tokens', '?')} tokens"
+    if name == "blacklist_amnesty":
+        return f"blacklist amnesty on {f.get('hop', '?')}"
+    if name == "rebalance_decision":
+        return (f"rebalance decision on {f.get('peer', '?')} away from "
+                f"blocks [{f.get('from_start', '?')}, "
+                f"{f.get('from_end', '?')})")
+    if name == "rebalance_done":
+        return f"rebalance to blocks [{f.get('start_block', '?')}, " \
+               f"{f.get('end_block', '?')}) done"
+    if name == "rebalance_failed":
+        return "rebalance FAILED"
+    if name == "server_rejoin":
+        return f"server {f.get('peer', '?')} re-registered"
+    if name == "kv_eviction":
+        return f"KV evicted {f.get('sessions', '?')} sessions"
+    if name == "fault_injected":
+        where = f.get("peer") or f.get("side", "?")
+        return f"injected {f.get('kind', '?')} at {where}"
+    if name == "breaker_open":
+        return (f"breaker OPEN on {f.get('peer', '?')} "
+                f"(backoff {f.get('backoff_s', '?')}s)")
+    if name == "breaker_half_open":
+        return f"breaker half-open probe of {f.get('peer', '?')}"
+    if name == "breaker_close":
+        return f"breaker closed on {f.get('peer', '?')}"
+    if name == "deadline_expired":
+        return f"deadline expired client-side ({f.get('over_s', '?')}s over)"
+    if name == "deadline_rejected":
+        return (f"{f.get('peer', '?')} rejected expired deadline "
+                f"(budget {f.get('budget_s', '?')}s)")
+    if name == "relay_forward_error":
+        return (f"relay {f.get('relay', '?')} lost for "
+                f"{f.get('peer', '?')} ({str(f.get('error', ''))[:60]})")
+    if name == "relay_attach":
+        return (f"{f.get('peer', '?')} attached via relay "
+                f"{f.get('relay', '?')}")
+    if name == "registry_unreachable":
+        return f"all {f.get('registries', '?')} registries unreachable"
+    if name == "registry_stale_serve":
+        return "discovery serving the stale registry snapshot"
+    if name == "gossip_fallback":
+        return (f"registry reads served by stage mirror "
+                f"{f.get('address', '?')}")
+    if name == "gossip_served_discovery":
+        return (f"mirror on {f.get('peer', '?')} served discovery "
+                f"({f.get('records', '?')} records)")
+    if name == "registry_recovered":
+        return (f"registry recovered after {f.get('stale_s', '?')}s "
+                f"(via {f.get('source', '?')})")
+    if name == "request_admitted":
+        return (f"tenant {f.get('tenant', '?')} admitted "
+                f"(queue depth {f.get('queue_depth', '?')})")
+    if name == "request_shed":
+        return (f"tenant {f.get('tenant', '?')} shed ({f.get('reason', '?')}"
+                f", retry in {f.get('retry_after_s', '?')}s)")
+    if name == "request_completed":
+        return (f"tenant {f.get('tenant', '?')} served "
+                f"{f.get('tokens', '?')} tokens")
+    return str(name)
+
+
+def failure_chains(timeline: Sequence[dict],
+                   gap_s: float = 30.0) -> List[dict]:
+    """Group trigger+follow-up events into causal chains.
+
+    Correlation key: session id when present, else trace id, else the
+    source process — so a client's retry/failover/replay and a server's
+    rebalance land in the SAME chain when they share a session, and
+    orphan server-side chains (rebalance after a peer died) still group.
+    A chain closes after `gap_s` of silence on its key."""
+    chains: List[dict] = []
+    open_by_key: Dict[str, dict] = {}
+    for ev in timeline:
+        name = ev.get("event")
+        if name not in _TRIGGERS and name not in _CHAIN:
+            continue
+        key = (ev.get("session") or ev.get("trace")
+               or ev.get("_src", "?"))
+        ch = open_by_key.get(key)
+        if ch is not None and ev.get("wall", 0.0) - ch["last_wall"] > gap_s:
+            ch = None
+        if ch is None:
+            # A non-trigger opener (e.g. a rebalance with no visible
+            # trigger in this dump set) still gets its own chain.
+            ch = {"key": key, "events": [], "trigger": name}
+            ch["first_wall"] = ev.get("wall", 0.0)
+            ch["sessions"] = set()
+            ch["traces"] = set()
+            open_by_key[key] = ch
+            chains.append(ch)
+        ch["events"].append(ev)
+        ch["last_wall"] = ev.get("wall", 0.0)
+        if ev.get("session"):
+            ch["sessions"].add(ev["session"])
+        if ev.get("trace"):
+            ch["traces"].add(ev["trace"])
+    # A server-side consequence chain with no trigger of its own (e.g. a
+    # rebalance after a peer died — the server never saw the client's
+    # timeout) folds into the overlapping-or-adjacent triggered chain, so
+    # "timeout -> failover -> replay -> rebalance" reads as ONE story.
+    triggered = [c for c in chains if c["trigger"] in _TRIGGERS]
+    merged: List[dict] = []
+    for ch in chains:
+        if ch["trigger"] in _TRIGGERS:
+            merged.append(ch)
+            continue
+        host = None
+        for t in triggered:
+            if (t["first_wall"] - gap_s <= ch["first_wall"]
+                    <= t["last_wall"] + gap_s):
+                host = t
+                break
+        if host is None:
+            merged.append(ch)
+            continue
+        host["events"] = sorted(
+            host["events"] + ch["events"],
+            key=lambda d: (d.get("wall", 0.0), d.get("ts", 0.0)))
+        host["first_wall"] = min(host["first_wall"], ch["first_wall"])
+        host["last_wall"] = max(host["last_wall"], ch["last_wall"])
+        host["sessions"] |= ch["sessions"]
+        host["traces"] |= ch["traces"]
+    chains = merged
+    for ch in chains:
+        # Collapse repeats (N identical retries read as one arrow + count).
+        steps: List[str] = []
+        counts: List[int] = []
+        for ev in ch["events"]:
+            desc = _describe(ev)
+            if steps and steps[-1] == desc:
+                counts[-1] += 1
+            else:
+                steps.append(desc)
+                counts.append(1)
+        ch["chain"] = " -> ".join(
+            s if c == 1 else f"{s} (x{c})"
+            for s, c in zip(steps, counts))
+        ch["duration_s"] = round(ch["last_wall"] - ch["first_wall"], 3)
+    return chains
+
+
+def replay_costs(timeline: Sequence[dict]) -> Dict[str, int]:
+    """session id -> total tokens replayed onto replacement peers."""
+    costs: Dict[str, int] = {}
+    for ev in timeline:
+        if ev.get("event") != "replay_done":
+            continue
+        sid = ev.get("session") or "?"
+        try:
+            costs[sid] = costs.get(sid, 0) + int(
+                _fields(ev).get("tokens", 0))
+        except (TypeError, ValueError):
+            continue
+    return costs
+
+
+def _counter_total(exposition: str, name: str) -> float:
+    total = 0.0
+    for m in re.finditer(
+            r"^%s(?:\{[^}]*\})? ([0-9.e+\-]+)$" % re.escape(name),
+            exposition, re.M):
+        try:
+            total += float(m.group(1))
+        except ValueError:
+            continue
+    return total
+
+
+def anomalies(streams: Sequence[dict]) -> List[str]:
+    """Non-zero should-be-zero counters from each dump's embedded metrics
+    snapshot, worst first."""
+    out: List[Tuple[float, str]] = []
+    for st in streams:
+        met = st.get("metrics")
+        if not met:
+            continue
+        expo = met.get("exposition", "")
+        pid = st.get("meta", {}).get("pid", "?")
+        for name, what in _ANOMALY_COUNTERS:
+            v = _counter_total(expo, name)
+            if v > 0:
+                out.append((v, f"pid{pid}: {name}={int(v)} ({what})"))
+        for m in _ERR_REQ_RE.finditer(expo):
+            v = float(m.group(2))
+            if v > 0:
+                out.append((v, f"pid{pid}: server_requests_total"
+                               f"{{outcome={m.group(1)}}}={int(v)}"))
+    out.sort(key=lambda t: -t[0])
+    return [s for _, s in out]
+
+
+def diagnose(paths: Sequence[str]) -> str:
+    """The full human-readable report ``--mode doctor`` prints."""
+    return diagnose_streams(load_dumps(paths))
+
+
+def diagnose_streams(streams: Sequence[dict]) -> str:
+    """diagnose() over already-loaded streams (shared by the dump-file and
+    live-scrape ingestion paths)."""
+    timeline = merge_timeline(streams)
+    chains = failure_chains(timeline)
+    costs = replay_costs(timeline)
+    anoms = anomalies(streams)
+
+    lines: List[str] = []
+    lines.append(f"doctor: {len(streams)} dump(s), "
+                 f"{len(timeline)} event(s) on the merged timeline")
+    for st in streams:
+        meta = st.get("meta", {})
+        note = f" error={meta['error']}" if meta.get("error") else ""
+        lines.append(f"  - {st.get('path', '?')}: pid={meta.get('pid', '?')}"
+                     f" events={len(st.get('events', ()))}"
+                     f" dropped={meta.get('dropped', 0)}{note}")
+    lines.append("")
+    lines.append(f"failure chains ({len(chains)}):")
+    if not chains:
+        lines.append("  none — no failover/replay/rebalance activity "
+                     "recorded")
+    for i, ch in enumerate(chains, 1):
+        sess = ",".join(sorted(ch["sessions"])) or "-"
+        trc = ",".join(sorted(ch["traces"])) or "-"
+        lines.append(f"  [{i}] session={sess} trace={trc} "
+                     f"span={ch['duration_s']}s")
+        lines.append(f"      {ch['chain']}")
+    lines.append("")
+    lines.append("per-session replay cost:")
+    if not costs:
+        lines.append("  none — no KV replay occurred")
+    for sid, toks in sorted(costs.items(), key=lambda t: -t[1]):
+        lines.append(f"  {sid}: {toks} tokens re-computed on replacement "
+                     f"peers")
+    lines.append("")
+    lines.append(f"top anomalies ({len(anoms)}):")
+    if not anoms:
+        lines.append("  none — embedded metrics snapshots look clean")
+    for a in anoms[:10]:
+        lines.append(f"  {a}")
+    # Fatal tail: if any dump ends in a fatal_exception/signal, say so
+    # up top of the ending.
+    fatals = [ev for ev in timeline
+              if ev.get("event") in ("fatal_exception", "signal_dump")]
+    if fatals:
+        lines.append("")
+        lines.append("process terminations:")
+        for ev in fatals:
+            f = _fields(ev)
+            if ev.get("event") == "fatal_exception":
+                lines.append(f"  {ev.get('_src')}: fatal "
+                             f"{f.get('type', '?')}: "
+                             f"{str(f.get('message', ''))[:120]}")
+            else:
+                lines.append(f"  {ev.get('_src')}: dumped on "
+                             f"{f.get('signal', '?')}")
+    return "\n".join(lines) + "\n"
+
+
+# -- critical-path analysis ---------------------------------------------------
+#
+# Spans ride dumps as `_spans` records (telemetry/events.py): the client's
+# root `pipeline_step` span per request step, one `hop:<key>` child per
+# stage call, and — embedded in each hop's attrs under "server" — the
+# serving peer's own span summary (StageResponse.span), which carries the
+# peer's compute window plus its pre-compute `queue_s`. That is enough to
+# split every request's wall time into the four places it can go.
+
+
+def _span_dur(sp: dict) -> float:
+    try:
+        return max(0.0, float(sp["end_s"]) - float(sp["start_s"]))
+    except (KeyError, TypeError, ValueError):
+        return 0.0
+
+
+def critical_path_reports(streams: Sequence[dict]) -> List[dict]:
+    """Per-request wall-time attribution from the span trees in `streams`.
+
+    One report per finished root `pipeline_step` span:
+
+      {"trace_id", "phase", "wall_s", "hops": n,
+       "parts": {"network", "queue", "compute", "replay", "client"},
+       "path": [(span name, seconds), ...]}   # the critical path
+
+    The parts are constructed to SUM to wall_s exactly (up to float
+    rounding): each hop's wall decomposes into server compute + server
+    queue + network (the remainder, with replay seconds carved out of it
+    when a KV replay fell inside the request), and whatever the hops do
+    not cover is client-side time (sampling, stop scans, journaling)."""
+    spans: List[dict] = []
+    for st in streams:
+        spans.extend(st.get("spans") or ())
+    replay_events = [ev for ev in merge_timeline(streams)
+                     if ev.get("event") == "replay_done"]
+
+    by_trace: Dict[str, List[dict]] = {}
+    for sp in spans:
+        tid = sp.get("trace_id")
+        if tid:
+            by_trace.setdefault(str(tid), []).append(sp)
+
+    reports: List[dict] = []
+    for tid, group in by_trace.items():
+        seen = set()
+        for root in sorted(group, key=lambda s: s.get("start_s", 0.0)):
+            if root.get("name") != "pipeline_step" \
+                    or root.get("end_s") is None \
+                    or root.get("span_id") in seen:
+                continue
+            seen.add(root.get("span_id"))
+            wall = _span_dur(root)
+            hops = sorted(
+                (s for s in group
+                 if s.get("parent") == root.get("span_id")
+                 and str(s.get("name", "")).startswith("hop:")
+                 and s.get("end_s") is not None),
+                key=lambda s: s.get("start_s", 0.0))
+            # Replay seconds inside this request's wall-clock window.
+            replay_budget = 0.0
+            for ev in replay_events:
+                in_trace = ev.get("trace") == tid
+                in_window = (root["start_s"] <= ev.get("wall", -1.0)
+                             <= root["end_s"])
+                if in_trace or in_window:
+                    try:
+                        replay_budget += float(
+                            _fields(ev).get("seconds", 0.0))
+                    except (TypeError, ValueError):
+                        pass
+            net = queue = compute = replay = 0.0
+            best_hop: Optional[dict] = None
+            best_srv: Optional[dict] = None
+            for hop in hops:
+                hop_wall = _span_dur(hop)
+                srv = (hop.get("attrs") or {}).get("server")
+                if not isinstance(srv, dict):
+                    srv = None
+                srv_dur = min(_span_dur(srv), hop_wall) if srv else 0.0
+                try:
+                    q_raw = float((srv.get("attrs") or {}).get("queue_s",
+                                                               0.0)) \
+                        if srv else 0.0
+                except (TypeError, ValueError):
+                    q_raw = 0.0
+                q = min(max(0.0, q_raw), hop_wall - srv_dur)
+                n = hop_wall - srv_dur - q
+                r = min(replay_budget, n)
+                replay_budget -= r
+                n -= r
+                compute += srv_dur
+                queue += q
+                net += n
+                replay += r
+                if best_hop is None or hop_wall > _span_dur(best_hop):
+                    best_hop, best_srv = hop, srv
+            covered = net + queue + compute + replay
+            parts = {
+                "network": net,
+                "queue": queue,
+                "compute": compute,
+                "replay": replay,
+                # Exact residual: the sum of the five parts IS wall_s.
+                "client": wall - covered,
+            }
+            path = [(str(root.get("name")), wall)]
+            if best_hop is not None:
+                path.append((str(best_hop.get("name")),
+                             _span_dur(best_hop)))
+                if best_srv is not None:
+                    path.append((str(best_srv.get("name", "server")),
+                                 _span_dur(best_srv)))
+            reports.append({
+                "trace_id": tid,
+                "phase": (root.get("attrs") or {}).get("phase"),
+                "wall_s": wall,
+                "hops": len(hops),
+                "parts": parts,
+                "path": path,
+            })
+    reports.sort(key=lambda r: -r["wall_s"])
+    return reports
+
+
+def render_critical_path(reports: Sequence[dict],
+                         top_n: int = 10) -> str:
+    """The human-readable section ``--mode doctor --critical_path``
+    appends: aggregate attribution first, then the slowest requests."""
+    lines: List[str] = []
+    lines.append(f"critical path ({len(reports)} request(s) with span "
+                 "trees):")
+    if not reports:
+        lines.append("  none — no finished pipeline_step spans in these "
+                     "dumps (run with --telemetry and --events-dump)")
+        return "\n".join(lines) + "\n"
+    total = {"network": 0.0, "queue": 0.0, "compute": 0.0, "replay": 0.0,
+             "client": 0.0}
+    wall_total = 0.0
+    for r in reports:
+        wall_total += r["wall_s"]
+        for k in total:
+            total[k] += r["parts"][k]
+    lines.append(f"  aggregate over {len(reports)} request(s), "
+                 f"{wall_total * 1e3:.1f} ms total wall:")
+    for k in ("compute", "network", "queue", "replay", "client"):
+        pct = 100.0 * total[k] / wall_total if wall_total > 0 else 0.0
+        lines.append(f"    {k:<8} {total[k] * 1e3:9.2f} ms  {pct:5.1f}%")
+    lines.append("")
+    lines.append(f"  slowest request(s) (top {min(top_n, len(reports))}):")
+    for r in reports[:top_n]:
+        p = r["parts"]
+        chain = " -> ".join(f"{name} {dur * 1e3:.2f}ms"
+                            for name, dur in r["path"])
+        lines.append(
+            f"    trace={r['trace_id']} phase={r['phase'] or '?'} "
+            f"hops={r['hops']} wall={r['wall_s'] * 1e3:.2f}ms "
+            f"[compute {p['compute'] * 1e3:.2f} / net "
+            f"{p['network'] * 1e3:.2f} / queue {p['queue'] * 1e3:.2f} / "
+            f"replay {p['replay'] * 1e3:.2f} / client "
+            f"{p['client'] * 1e3:.2f}]")
+        lines.append(f"      critical path: {chain}")
+    return "\n".join(lines) + "\n"
+
+
+def scrape_events(transport, peer_ids: Sequence[str]) -> List[dict]:
+    """Live-scrape variant: pull each peer's recorder over the
+    ``dump-events`` wire verb (TcpTransport.events_text) and parse it like
+    a dump file. Unreachable peers are skipped with a note in `meta`."""
+    import json as _json
+    streams: List[dict] = []
+    for pid in peer_ids:
+        try:
+            text = transport.events_text(pid)
+        except Exception as exc:               # noqa: BLE001 — per-peer
+            streams.append({"meta": {"peer": pid,
+                                     "error": f"{type(exc).__name__}: {exc}"},
+                            "metrics": None, "events": [],
+                            "path": f"live:{pid}"})
+            continue
+        meta: dict = {"peer": pid}
+        metrics: Optional[dict] = None
+        events: List[dict] = []
+        spans: List[dict] = []
+        for line in text.splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                d = _json.loads(line)
+            except _json.JSONDecodeError:
+                continue
+            if d.get("record") == "_meta":
+                meta.update(d)
+            elif d.get("record") == "_metrics":
+                metrics = d
+            elif d.get("record") == "_spans":
+                spans.extend(d.get("spans") or [])
+            elif "event" in d:
+                events.append(d)
+        streams.append({"meta": meta, "metrics": metrics,
+                        "events": events, "spans": spans,
+                        "path": f"live:{pid}"})
+    return streams

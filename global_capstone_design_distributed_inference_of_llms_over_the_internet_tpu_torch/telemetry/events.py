@@ -1,0 +1,541 @@
+"""Flight recorder: a fixed-size ring buffer of structured swarm events.
+
+PR 1's metrics say *that* p95 spiked; the flight recorder says *why*. Every
+fault-tolerance decision the runtime makes — a hop retry, a failover, a KV
+replay, an elastic rebalance, an arena eviction — lands here as a structured
+event (monotonic + wall timestamp, severity, subsystem, trace/session id,
+key=value payload). The buffer is bounded, thread-safe, dependency-free, and
+survives the process: on a fatal exception or SIGTERM/SIGINT the newest
+events dump to JSONL with the metrics-registry snapshot embedded, and
+``--mode doctor`` (telemetry/doctor.py) turns one or more dumps into a
+causal story of the failure.
+
+Design mirrors ``telemetry/metrics.py``:
+
+  * the process-global recorder starts DISABLED; a disabled ``emit()`` is
+    one attribute check + return (the `recorder_overhead` BENCH row prices
+    the ENABLED cost at <1% of a fused decode step);
+  * event names are declared ONCE in the ``EVENTS`` catalog below — a typo'd
+    name is a KeyError at the emit site, not a silently forked stream — and
+    ``scripts/check_metrics_documented.py`` diffs the catalog against
+    docs/OBSERVABILITY.md so code and docs cannot drift.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import signal
+import sys
+import threading
+import time
+import traceback
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
+
+DEBUG = "debug"
+INFO = "info"
+WARN = "warn"
+ERROR = "error"
+FATAL = "fatal"
+
+# Event catalog: name -> (subsystem, severity, help). The ONE place event
+# names are declared; emit() rejects anything else. Documented in
+# docs/OBSERVABILITY.md (drift-checked, tier-1).
+EVENTS: Dict[str, Tuple[str, str, str]] = {
+    # -- session lifecycle --------------------------------------------------
+    "session_start": (
+        "client", INFO,
+        "A generate() call opened a pipeline session (fields: kind, "
+        "prompt_len, max_new_tokens)."),
+    "session_end": (
+        "client", INFO,
+        "A pipeline session finished (fields: tokens, recoveries)."),
+    "server_session_open": (
+        "server", INFO,
+        "A stage executor admitted a new session into its KV arena."),
+    "server_session_closed": (
+        "server", INFO,
+        "A stage executor dropped a session (end_session or eviction)."),
+    # -- failover / replay --------------------------------------------------
+    "hop_retry": (
+        "client", WARN,
+        "A hop call failed and the recovery wrapper is retrying (fields: "
+        "hop, peer, attempt, error)."),
+    "peer_failed": (
+        "client", WARN,
+        "A peer was blacklisted for a hop after a failed call (fields: "
+        "hop, peer, reason)."),
+    "failover": (
+        "client", WARN,
+        "The client switched a hop to a replacement peer (fields: hop, "
+        "old_peer, new_peer)."),
+    "replay_start": (
+        "client", WARN,
+        "KV replay onto a replacement peer began (fields: peer, entries, "
+        "tokens)."),
+    "replay_done": (
+        "client", INFO,
+        "KV replay finished (fields: peer, tokens, seconds)."),
+    "blacklist_amnesty": (
+        "client", INFO,
+        "Rediscovery found no replacement and cleared the hop blacklist "
+        "(fields: hop, cleared)."),
+    # -- elastic membership / rebalance -------------------------------------
+    "server_join": (
+        "server", INFO,
+        "An elastic server loaded a span and went ONLINE (fields: peer, "
+        "start_block, end_block)."),
+    "server_leave": (
+        "server", INFO,
+        "A server shut down and unregistered (fields: peer)."),
+    "server_rejoin": (
+        "server", WARN,
+        "The heartbeat loop found the registry had forgotten this peer and "
+        "re-registered it (fields: peer)."),
+    "rebalance_decision": (
+        "server", INFO,
+        "The elastic server decided to migrate its span (fields: peer, "
+        "from_start, from_end)."),
+    "rebalance_done": (
+        "server", INFO,
+        "A span migration completed and the server is ONLINE on the new "
+        "blocks (fields: peer, start_block, end_block, seconds)."),
+    "rebalance_failed": (
+        "server", ERROR,
+        "A span migration failed; the server restored its previous span "
+        "(fields: peer, error)."),
+    # -- KV arena / prefix cache --------------------------------------------
+    "kv_eviction": (
+        "kv", WARN,
+        "The KV arena evicted idle sessions to reclaim bytes (fields: "
+        "sessions, bytes)."),
+    "kv_alloc_failed": (
+        "kv", ERROR,
+        "A KV allocation was refused (fields: reason; the session rides "
+        "the event's session column)."),
+    "kv_backpressure": (
+        "kv", WARN,
+        "A KV allocation waited for free space (fields: wait_s)."),
+    "prefix_eviction": (
+        "prefix", INFO,
+        "The prefix store evicted grains under its LRU byte budget "
+        "(fields: grains, bytes)."),
+    # -- transport ----------------------------------------------------------
+    "transport_error": (
+        "transport", ERROR,
+        "A transport round trip failed with a connection error (fields: "
+        "peer, error)."),
+    "transport_timeout": (
+        "transport", ERROR,
+        "A transport round trip exceeded its deadline (fields: peer)."),
+    "fault_injected": (
+        "transport", WARN,
+        "The chaos layer fired a scheduled fault (fields: kind, site, "
+        "peer, verb; runtime.faults.FaultPlan)."),
+    # -- NAT relay data plane ------------------------------------------------
+    "relay_attach": (
+        "relay", INFO,
+        "An unreachable server attached to (or re-selected) a relay "
+        "volunteer after failing the dial-back vote (fields: peer, relay, "
+        "address)."),
+    "relay_forward_error": (
+        "relay", ERROR,
+        "A relay circuit failed: the volunteer could not forward to its "
+        "relayed peer, or (client-side) an exchange through a volunteer "
+        "died (fields: relay, peer, verb, error)."),
+    # -- circuit breaker / deadline budgets ----------------------------------
+    "breaker_open": (
+        "client", WARN,
+        "A peer's circuit breaker opened after consecutive failures "
+        "(fields: peer, failures, backoff_s)."),
+    "breaker_half_open": (
+        "client", INFO,
+        "A peer's backoff elapsed; the breaker admits ONE probe call "
+        "(fields: peer)."),
+    "breaker_close": (
+        "client", INFO,
+        "A half-open probe succeeded; the peer is readmitted (fields: "
+        "peer)."),
+    "deadline_expired": (
+        "client", ERROR,
+        "The end-to-end deadline budget ran out client-side before a hop "
+        "was dialed (fields: hop, budget_s)."),
+    "deadline_rejected": (
+        "server", ERROR,
+        "A server refused already-expired work instead of computing dead "
+        "tokens (fields: peer, budget_s, waited_s)."),
+    # -- server request handling --------------------------------------------
+    "stage_error": (
+        "server", ERROR,
+        "A stage request failed in the executor (fields: peer, phase, "
+        "error)."),
+    "stage_timeout": (
+        "server", ERROR,
+        "A stage compute exceeded the server's per-step budget (fields: "
+        "peer, phase, budget_s)."),
+    "queue_pressure": (
+        "server", WARN,
+        "The serving queue crossed a pressure threshold (fields: pool, "
+        "level=high|normal, depth)."),
+    "task_rejected": (
+        "server", ERROR,
+        "The task pool refused work (fields: pool, reason)."),
+    "burst_round": (
+        "server", DEBUG,
+        "A batched final stage ran one multi-tick burst dispatch (fields: "
+        "sessions, ticks, tokens)."),
+    "burst_fallback": (
+        "client", WARN,
+        "A burst-mode session fell back to per-step decode because no "
+        "full-span batched peer was live (fields: reason)."),
+    # -- scheduler / registry -----------------------------------------------
+    "route_planned": (
+        "scheduler", DEBUG,
+        "A route was computed (fields: planner, hops, peers)."),
+    "rebalance_recommended": (
+        "scheduler", INFO,
+        "should_choose_other_blocks recommended moving (fields: peer, "
+        "quality, threshold)."),
+    "registry_expired": (
+        "registry", WARN,
+        "The placement registry expired a peer whose TTL lapsed (fields: "
+        "peer)."),
+    "registry_unreachable": (
+        "registry", WARN,
+        "Every registry address was down; serving the cached snapshot "
+        "under TTL grace (fields: registries)."),
+    "registry_stale_serve": (
+        "registry", WARN,
+        "Registry reads started being served from the client's stale "
+        "snapshot — the outage window opens here; every read inside it "
+        "counts in client_registry_stale_reads_total (fields: "
+        "registries)."),
+    "registry_recovered": (
+        "registry", INFO,
+        "Fresh registry records arrived after an outage window (fields: "
+        "stale_s, source=seed|mirror)."),
+    # -- gossip control plane ------------------------------------------------
+    "gossip_round": (
+        "gossip", DEBUG,
+        "One anti-entropy exchange with a peer completed (fields: peer, "
+        "sent, merged)."),
+    "gossip_fallback": (
+        "gossip", WARN,
+        "Every registry seed is down; the client's registry reads are "
+        "being served by a live stage server's gossip mirror (fields: "
+        "address, records)."),
+    "gossip_served_discovery": (
+        "gossip", INFO,
+        "A stage server's embedded mirror answered a discovery `list` — "
+        "a client is bootstrapping without any seed registry (fields: "
+        "peer, records)."),
+    "gossip_tombstone": (
+        "gossip", INFO,
+        "An unregister became a grace-period tombstone; older live "
+        "versions cannot resurrect the record (fields: peer, seq)."),
+    # -- serving gateway -----------------------------------------------------
+    "request_admitted": (
+        "gateway", INFO,
+        "Admission control accepted a tenant request into the fair queue "
+        "(fields: tenant, queue_depth, deadline_s)."),
+    "request_shed": (
+        "gateway", WARN,
+        "Admission control refused a tenant request — the caller got a "
+        "typed Overloaded with a retry hint (fields: tenant, reason, "
+        "retry_after_s)."),
+    "request_completed": (
+        "gateway", INFO,
+        "A gateway request finished streaming (fields: tenant, tokens, "
+        "queue_wait_s, outcome)."),
+    # -- process ------------------------------------------------------------
+    "process_start": (
+        "process", INFO,
+        "The recorder came up in this process (fields: mode, pid)."),
+    "fatal_exception": (
+        "process", FATAL,
+        "An uncaught exception is killing the process; the dump that "
+        "follows is the black box (fields: type, message, trace_tail)."),
+    "signal_dump": (
+        "process", WARN,
+        "SIGTERM/SIGINT triggered an event dump before shutdown (fields: "
+        "signal)."),
+}
+
+_SEVERITIES = (DEBUG, INFO, WARN, ERROR, FATAL)
+
+
+def all_event_names() -> Tuple[str, ...]:
+    return tuple(sorted(EVENTS))
+
+
+@dataclass
+class Event:
+    """One flight-recorder entry. `ts` is time.monotonic() (ordering within
+    a process); `wall` is time.time() (merging across processes — cross-host
+    skew is the doctor's problem, exactly as with spans)."""
+
+    ts: float
+    wall: float
+    name: str
+    subsystem: str
+    severity: str
+    trace_id: Optional[str] = None
+    session_id: Optional[str] = None
+    fields: dict = field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        d = {"ts": self.ts, "wall": self.wall, "event": self.name,
+             "sub": self.subsystem, "sev": self.severity}
+        if self.trace_id is not None:
+            d["trace"] = self.trace_id
+        if self.session_id is not None:
+            d["session"] = self.session_id
+        if self.fields:
+            d["fields"] = self.fields
+        return d
+
+
+class _Enabled:
+    """Shared mutable flag — one attribute read on the disabled fast path."""
+
+    __slots__ = ("on",)
+
+    def __init__(self, on: bool):
+        self.on = on
+
+
+class EventRecorder:
+    """Thread-safe fixed-size ring of Events (newest win, oldest fall off)."""
+
+    def __init__(self, capacity: int = 4096, enabled: bool = False):
+        self.capacity = capacity
+        self._enabled = _Enabled(enabled)
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self.dropped = 0            # events emitted after the ring was full
+
+    # -- state --------------------------------------------------------------
+
+    @property
+    def enabled(self) -> bool:
+        return self._enabled.on
+
+    def enable(self) -> None:
+        self._enabled.on = True
+
+    def disable(self) -> None:
+        self._enabled.on = False
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self.dropped = 0
+
+    # -- recording ----------------------------------------------------------
+
+    def emit(self, name: str, trace_id: Optional[str] = None,
+             session_id: Optional[str] = None,
+             severity: Optional[str] = None, **fields) -> None:
+        if not self._enabled.on:
+            return
+        try:
+            subsystem, default_sev, _ = EVENTS[name]
+        except KeyError:
+            raise KeyError(f"event {name!r} is not in the event catalog")
+        sev = severity or default_sev
+        if sev not in _SEVERITIES:
+            raise ValueError(f"unknown severity {sev!r}")
+        ev = Event(ts=time.monotonic(), wall=time.time(), name=name,
+                   subsystem=subsystem, severity=sev, trace_id=trace_id,
+                   session_id=session_id, fields=fields)
+        with self._lock:
+            if len(self._ring) == self.capacity:
+                self.dropped += 1
+            self._ring.append(ev)
+
+    def events(self) -> Tuple[Event, ...]:
+        with self._lock:
+            return tuple(self._ring)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+    # -- dumping ------------------------------------------------------------
+
+    def render_jsonl(self, registry=None) -> str:
+        """The dump format: line 1 a `_meta` record, then an optional
+        `_metrics` record embedding the registry's Prometheus exposition,
+        an optional `_spans` record embedding the tracer's recent span
+        buffer (the doctor's critical-path input), then one event per
+        line, oldest first."""
+        with self._lock:
+            dropped = self.dropped
+        lines = [json.dumps({
+            "record": "_meta", "pid": os.getpid(),
+            "argv": list(sys.argv), "wall": time.time(),
+            "mono": time.monotonic(), "capacity": self.capacity,
+            "dropped": dropped,
+        }, sort_keys=True)]
+        if registry is None:
+            from .metrics import get_registry
+            registry = get_registry()
+        if registry is not None and registry.enabled:
+            from .exposition import render, summary
+            lines.append(json.dumps({
+                "record": "_metrics", "summary": summary(registry),
+                "exposition": render(registry),
+            }, sort_keys=True))
+        from .tracing import get_tracer
+        tracer = get_tracer()
+        if tracer.enabled:
+            spans = [s.to_wire() for s in tracer.spans()]
+            if spans:
+                lines.append(json.dumps(
+                    {"record": "_spans", "spans": spans},
+                    sort_keys=True, default=str))
+        for ev in self.events():
+            lines.append(json.dumps(ev.to_dict(), sort_keys=True,
+                                    default=str))
+        return "\n".join(lines) + "\n"
+
+    def dump(self, path: str, registry=None) -> str:
+        """Write the JSONL dump to `path` (parent dirs created). Returns the
+        path so callers can log it. Never raises on I/O failure — the dump
+        runs inside crash handlers where a second exception would mask the
+        first."""
+        try:
+            text = self.render_jsonl(registry=registry)
+            d = os.path.dirname(path)
+            if d:
+                os.makedirs(d, exist_ok=True)
+            with open(path, "w", encoding="utf-8") as f:
+                f.write(text)
+        except Exception:                      # noqa: BLE001 — crash path
+            return path
+        return path
+
+
+# -- process-global recorder -------------------------------------------------
+
+_GLOBAL = EventRecorder(enabled=False)
+
+
+def get_recorder() -> EventRecorder:
+    return _GLOBAL
+
+
+def emit(name: str, trace_id: Optional[str] = None,
+         session_id: Optional[str] = None,
+         severity: Optional[str] = None, **fields) -> None:
+    """Module-level convenience over the global recorder. Disabled cost:
+    one flag read + return — instrument sites call this bare."""
+    if not _GLOBAL._enabled.on:
+        return
+    _GLOBAL.emit(name, trace_id=trace_id, session_id=session_id,
+                 severity=severity, **fields)
+
+
+# -- crash / signal dump hooks -----------------------------------------------
+
+def default_dump_path(base_dir: str = ".") -> str:
+    return os.path.join(base_dir, f"events-{os.getpid()}.jsonl")
+
+
+def install_crash_hooks(path: str,
+                        recorder: Optional[EventRecorder] = None,
+                        registry=None,
+                        signals: Tuple[int, ...] = (signal.SIGTERM,
+                                                    signal.SIGINT),
+                        ) -> Callable[[], None]:
+    """Arm the black box: dump `recorder` (global by default) to `path` on
+
+      * an uncaught exception reaching sys.excepthook (a `fatal_exception`
+        event with the traceback tail is appended first), and
+      * each signal in `signals` (a `signal_dump` event is appended first;
+        the previous handler — usually default termination — then runs).
+
+    Returns an uninstall closure restoring the prior hooks (for tests).
+    Signal handlers only install from the main thread; elsewhere the
+    excepthook alone is armed."""
+    rec = recorder if recorder is not None else _GLOBAL
+    prev_excepthook = sys.excepthook
+
+    def _excepthook(exc_type, exc, tb):
+        try:
+            tail = traceback.format_exception(exc_type, exc, tb)[-3:]
+            rec.emit("fatal_exception", type=exc_type.__name__,
+                     message=str(exc)[:500],
+                     trace_tail="".join(tail)[-1000:])
+            rec.dump(path, registry=registry)
+        except Exception:                      # noqa: BLE001 — crash path
+            pass
+        prev_excepthook(exc_type, exc, tb)
+
+    sys.excepthook = _excepthook
+
+    prev_handlers: Dict[int, object] = {}
+    in_main = threading.current_thread() is threading.main_thread()
+    if in_main:
+        for signum in signals:
+            def _handler(sig, frame, _prev_box=prev_handlers):
+                del frame
+                try:
+                    rec.emit("signal_dump",
+                             signal=signal.Signals(sig).name)
+                    rec.dump(path, registry=registry)
+                except Exception:              # noqa: BLE001 — crash path
+                    pass
+                prev = _prev_box.get(sig)
+                # Re-deliver with the prior disposition so default
+                # termination (and exit codes) stay intact.
+                signal.signal(sig, prev if callable(prev)
+                              else signal.SIG_DFL)
+                os.kill(os.getpid(), sig)
+            try:
+                prev_handlers[signum] = signal.signal(signum, _handler)
+            except (ValueError, OSError):
+                pass
+
+    def uninstall() -> None:
+        sys.excepthook = prev_excepthook
+        for signum, prev in prev_handlers.items():
+            try:
+                signal.signal(signum, prev)    # type: ignore[arg-type]
+            except (ValueError, OSError, TypeError):
+                pass
+
+    return uninstall
+
+
+# -- dump ingestion (shared with telemetry/doctor.py) -------------------------
+
+def load_dump(path: str) -> dict:
+    """Parse one JSONL dump into {"meta": dict, "metrics": dict|None,
+    "spans": [dict], "events": [dict]}. Tolerates truncated trailing lines
+    (a crash can cut the final write short)."""
+    meta: dict = {}
+    metrics: Optional[dict] = None
+    spans: List[dict] = []
+    events: List[dict] = []
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                d = json.loads(line)
+            except json.JSONDecodeError:
+                continue                       # truncated tail line
+            if d.get("record") == "_meta":
+                meta = d
+            elif d.get("record") == "_metrics":
+                metrics = d
+            elif d.get("record") == "_spans":
+                spans.extend(d.get("spans") or [])
+            elif "event" in d:
+                events.append(d)
+    return {"meta": meta, "metrics": metrics, "spans": spans,
+            "events": events, "path": path}

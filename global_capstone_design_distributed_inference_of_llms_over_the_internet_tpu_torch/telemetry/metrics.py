@@ -1,0 +1,379 @@
+"""Dependency-free metrics registry: counters, gauges, fixed-bucket histograms.
+
+The swarm's only observability used to be the DHT heartbeat plus the single
+throughput scalar each server gossips (scheduling/throughput.py) — enough for
+load balancing, useless for "where did this token's 40 ms go". This module is
+the process-local half of the answer: a Prometheus-shaped metric model with no
+third-party dependency (the container must not grow one), thread-safe, and a
+strict no-op when disabled so the fused decode hot path pays nothing by
+default.
+
+Design points:
+
+  * A `MetricsRegistry` owns metric FAMILIES keyed by name. A family without
+    labels is itself the writable metric; a family with labels hands out
+    per-label-value children via ``.labels(peer="x")``.
+  * Mutators (`inc`/`set`/`observe`) check one shared boolean before touching
+    any state — a disabled registry allocates nothing and takes no locks.
+  * Histograms are fixed-bucket (cumulative counts per upper bound, +Inf
+    implicit) with `quantile()` via linear interpolation inside the winning
+    bucket — the same estimate a Prometheus `histogram_quantile()` would give,
+    computed locally so `--mode status` and bench.py can print p50/p95 without
+    a scrape stack.
+  * The process-global registry starts DISABLED (`enable()` flips it); library
+    code instruments unconditionally and the flag decides the cost.
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+COUNTER = "counter"
+GAUGE = "gauge"
+HISTOGRAM = "histogram"
+
+# Latency-oriented default buckets (seconds): 1 ms .. 60 s, roughly 2.5x apart.
+DEFAULT_LATENCY_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+
+
+class _Enabled:
+    """Shared mutable flag; one attribute load on the hot path."""
+
+    __slots__ = ("on",)
+
+    def __init__(self, on: bool):
+        self.on = on
+
+
+class Metric:
+    """A single writable time series (one label-set of a family)."""
+
+    __slots__ = ("name", "labels", "_enabled", "_lock")
+
+    def __init__(self, name: str, labels: Tuple[Tuple[str, str], ...],
+                 enabled: _Enabled, lock: threading.Lock):
+        self.name = name
+        self.labels = labels          # ((label_name, label_value), ...)
+        self._enabled = enabled
+        self._lock = lock
+
+
+class Counter(Metric):
+    """Monotonically increasing float."""
+
+    __slots__ = ("_value",)
+
+    def __init__(self, name, labels, enabled, lock):
+        super().__init__(name, labels, enabled, lock)
+        self._value = 0.0
+
+    def inc(self, amount: float = 1.0) -> None:
+        if not self._enabled.on:
+            return
+        if amount < 0:
+            raise ValueError(f"counter {self.name} cannot decrease")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+
+class Gauge(Metric):
+    """Arbitrary float; optionally backed by a collect-time callback so
+    occupancy-style readings cost nothing between scrapes."""
+
+    __slots__ = ("_value", "_fn")
+
+    def __init__(self, name, labels, enabled, lock):
+        super().__init__(name, labels, enabled, lock)
+        self._value = 0.0
+        self._fn: Optional[Callable[[], float]] = None
+
+    def set(self, value: float) -> None:
+        if not self._enabled.on:
+            return
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        if not self._enabled.on:
+            return
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        self.inc(-amount)
+
+    def set_function(self, fn: Optional[Callable[[], float]]) -> None:
+        """Read `fn()` at collect time instead of a stored value. The callback
+        is registered regardless of the enabled flag (registration is cold);
+        collection only happens on an explicit scrape."""
+        with self._lock:
+            self._fn = fn
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            fn = self._fn
+            if fn is None:
+                return self._value
+        try:
+            return float(fn())
+        except Exception:
+            return float("nan")
+
+
+class Histogram(Metric):
+    """Fixed-bucket histogram (cumulative, Prometheus semantics)."""
+
+    __slots__ = ("buckets", "_counts", "_sum", "_count")
+
+    def __init__(self, name, labels, enabled, lock,
+                 buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS):
+        super().__init__(name, labels, enabled, lock)
+        bs = tuple(sorted(float(b) for b in buckets))
+        if not bs:
+            raise ValueError(f"histogram {name} needs at least one bucket")
+        self.buckets = bs                      # upper bounds, +Inf implicit
+        self._counts = [0] * (len(bs) + 1)     # last slot = +Inf overflow
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, value: float) -> None:
+        if not self._enabled.on:
+            return
+        idx = bisect.bisect_left(self.buckets, value)
+        with self._lock:
+            self._counts[idx] += 1
+            self._sum += value
+            self._count += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def bucket_counts(self) -> List[int]:
+        """CUMULATIVE counts per upper bound (ending with the +Inf total)."""
+        with self._lock:
+            out, acc = [], 0
+            for c in self._counts:
+                acc += c
+                out.append(acc)
+            return out
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Estimate the q-quantile (0..1) by linear interpolation inside the
+        winning bucket — what `histogram_quantile()` computes server-side.
+        Returns None when the histogram is empty. Values beyond the last
+        finite bucket clamp to that bound (the +Inf bucket has no width)."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile {q} outside [0, 1]")
+        with self._lock:
+            total = self._count
+            counts = list(self._counts)
+        if total == 0:
+            return None
+        rank = q * total
+        acc = 0.0
+        for i, c in enumerate(counts):
+            prev_acc = acc
+            acc += c
+            if acc >= rank and c > 0:
+                if i >= len(self.buckets):        # +Inf bucket
+                    return self.buckets[-1]
+                hi = self.buckets[i]
+                lo = self.buckets[i - 1] if i > 0 else 0.0
+                frac = (rank - prev_acc) / c
+                return lo + (hi - lo) * min(max(frac, 0.0), 1.0)
+        return self.buckets[-1]
+
+
+class _Family:
+    """One metric name: kind, help text, label schema, children."""
+
+    __slots__ = ("name", "kind", "help", "label_names", "buckets",
+                 "_children", "_lock")
+
+    def __init__(self, name: str, kind: str, help_text: str,
+                 label_names: Tuple[str, ...],
+                 buckets: Optional[Sequence[float]]):
+        self.name = name
+        self.kind = kind
+        self.help = help_text
+        self.label_names = label_names
+        self.buckets = buckets
+        self._children: Dict[Tuple[str, ...], Metric] = {}
+        self._lock = threading.Lock()
+
+
+_KIND_CLS = {COUNTER: Counter, GAUGE: Gauge, HISTOGRAM: Histogram}
+
+
+class _LabeledFamily:
+    """Callable-ish facade returned for families declared WITH labels: the
+    instrument site picks the child via ``.labels(...)``."""
+
+    __slots__ = ("_registry", "_family")
+
+    def __init__(self, registry: "MetricsRegistry", family: _Family):
+        self._registry = registry
+        self._family = family
+
+    @property
+    def name(self) -> str:
+        return self._family.name
+
+    def labels(self, **label_values: str) -> Metric:
+        return self._registry._child(self._family, label_values)
+
+    def children(self) -> Tuple[Metric, ...]:
+        with self._family._lock:
+            return tuple(self._family._children.values())
+
+
+class MetricsRegistry:
+    """Thread-safe family store. `enabled=False` turns every mutator into a
+    single attribute check + return."""
+
+    def __init__(self, enabled: bool = True):
+        self._enabled = _Enabled(enabled)
+        self._families: Dict[str, _Family] = {}
+        self._lock = threading.Lock()
+        self.created_at = time.monotonic()
+
+    # -- enablement ---------------------------------------------------------
+
+    @property
+    def enabled(self) -> bool:
+        return self._enabled.on
+
+    def set_enabled(self, on: bool) -> None:
+        self._enabled.on = bool(on)
+
+    def enable(self) -> None:
+        self.set_enabled(True)
+
+    def disable(self) -> None:
+        self.set_enabled(False)
+
+    def uptime_s(self) -> float:
+        return time.monotonic() - self.created_at
+
+    # -- family creation (get-or-create; idempotent) ------------------------
+
+    def _family(self, name: str, kind: str, help_text: str,
+                label_names: Sequence[str],
+                buckets: Optional[Sequence[float]] = None) -> _Family:
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is None:
+                fam = _Family(name, kind, help_text, tuple(label_names), buckets)
+                self._families[name] = fam
+                return fam
+        if fam.kind != kind:
+            raise ValueError(
+                f"metric {name} already registered as {fam.kind}, not {kind}"
+            )
+        if fam.label_names != tuple(label_names):
+            raise ValueError(
+                f"metric {name} label mismatch: {fam.label_names} vs "
+                f"{tuple(label_names)}"
+            )
+        return fam
+
+    def _child(self, fam: _Family, label_values: Dict[str, str]) -> Metric:
+        if set(label_values) != set(fam.label_names):
+            raise ValueError(
+                f"metric {fam.name} expects labels {fam.label_names}, "
+                f"got {tuple(label_values)}"
+            )
+        key = tuple(str(label_values[k]) for k in fam.label_names)
+        with fam._lock:
+            child = fam._children.get(key)
+            if child is None:
+                pairs = tuple(zip(fam.label_names, key))
+                cls = _KIND_CLS[fam.kind]
+                if fam.kind == HISTOGRAM:
+                    child = cls(fam.name, pairs, self._enabled,
+                                threading.Lock(),
+                                fam.buckets or DEFAULT_LATENCY_BUCKETS)
+                else:
+                    child = cls(fam.name, pairs, self._enabled,
+                                threading.Lock())
+                fam._children[key] = child
+            return child
+
+    def counter(self, name: str, help_text: str = "",
+                labels: Sequence[str] = ()):
+        fam = self._family(name, COUNTER, help_text, labels)
+        return _LabeledFamily(self, fam) if fam.label_names else \
+            self._child(fam, {})
+
+    def gauge(self, name: str, help_text: str = "",
+              labels: Sequence[str] = ()):
+        fam = self._family(name, GAUGE, help_text, labels)
+        return _LabeledFamily(self, fam) if fam.label_names else \
+            self._child(fam, {})
+
+    def histogram(self, name: str, help_text: str = "",
+                  buckets: Sequence[float] = DEFAULT_LATENCY_BUCKETS,
+                  labels: Sequence[str] = ()):
+        fam = self._family(name, HISTOGRAM, help_text, labels, buckets)
+        return _LabeledFamily(self, fam) if fam.label_names else \
+            self._child(fam, {})
+
+    # -- collection ---------------------------------------------------------
+
+    def get(self, name: str) -> Optional[object]:
+        """The family facade (labeled) or bare metric (unlabeled), or None."""
+        with self._lock:
+            fam = self._families.get(name)
+        if fam is None:
+            return None
+        return _LabeledFamily(self, fam) if fam.label_names else \
+            self._child(fam, {})
+
+    def families(self) -> List[_Family]:
+        with self._lock:
+            return sorted(self._families.values(), key=lambda f: f.name)
+
+    def collect(self) -> Iterable[Tuple[_Family, Tuple[Metric, ...]]]:
+        for fam in self.families():
+            with fam._lock:
+                children = tuple(
+                    fam._children[k] for k in sorted(fam._children)
+                )
+            yield fam, children
+
+    def names(self) -> Tuple[str, ...]:
+        with self._lock:
+            return tuple(sorted(self._families))
+
+    def reset(self) -> None:
+        """Drop all families (tests)."""
+        with self._lock:
+            self._families.clear()
+
+
+# -- process-global registry (default OFF: hot paths pay one bool check) -----
+
+_GLOBAL = MetricsRegistry(enabled=False)
+
+
+def get_registry() -> MetricsRegistry:
+    return _GLOBAL

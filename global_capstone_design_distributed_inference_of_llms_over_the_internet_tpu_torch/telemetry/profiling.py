@@ -1,0 +1,340 @@
+"""Hot-path phase profiler: where does one token's wall time actually go?
+
+bench.py answers that question offline; this module answers it LIVE. A
+`PhaseProfiler` brackets the serving hot path into named phases —
+
+  * ``gateway_queue`` — admission to first pipeline step (serving/gateway.py)
+  * ``burst_build``   — host-side burst argument prep (``_burst_prep``)
+  * ``dispatch``      — issuing the jitted burst program (host returns as soon
+                        as XLA enqueues; this is pure host overhead)
+  * ``device``        — dispatch to results-ready, fenced via
+                        ``block_until_ready`` so it measures the accelerator,
+                        not the host's willingness to look away
+  * ``readback``      — device buffers to host tokens (``_burst_collect``)
+  * ``socket``        — client-observed request/response turnaround per hop
+  * ``server``        — the whole serving boundary (validate + forward +
+                        respond, runtime/transport.py)
+
+— into per-phase aggregates, mirrored into the catalog histogram
+``server_phase_seconds{phase}`` whenever the metrics registry is enabled.
+
+On top of the phases it keeps the **device bubble-fraction** gauge: the
+fraction of wall time the accelerator sat idle between burst dispatches.
+Each ``device_interval(dispatch_t, ready_t)`` charges ``busy`` time from
+``max(dispatch_t, previous_ready_t)`` to ``ready_t`` — so overlapped
+(double-buffered) dispatches, where the next program is enqueued before the
+previous one drains, correctly count as zero bubble, while a host stall
+between rounds shows up as idle device time. This is the live meter for the
+ROADMAP question "is the serving path device-bound or host-bound".
+
+Default OFF, exactly like the metrics registry: every bracket site checks one
+attribute and allocates nothing when disabled (``--profile_phases`` flips it).
+Measuring the ``device`` phase requires fencing the dispatch, which trades
+away the burst engine's dispatch/compute overlap — that fidelity cost is the
+reason the profiler is a separate switch from ``--telemetry`` instead of
+riding it.
+
+The module also owns the compact **stats digest** each stage server gossips
+for ``--mode top`` (``DIGEST_FIELDS`` + ``stats_digest()``): tok/s, queue
+depth, breaker opens, cache hit ratio, bubble fraction — small enough to ride
+a gossip record, rich enough to render a whole-swarm table with no registry.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+from . import catalog
+from .metrics import MetricsRegistry, get_registry
+
+# Phases bracketed on the serving hot path (display order).
+PHASES: Tuple[str, ...] = (
+    "gateway_queue",
+    "burst_build",
+    "dispatch",
+    "device",
+    "readback",
+    "socket",
+    "server",
+)
+
+# Fields of the stats digest a stage server publishes over gossip for
+# ``--mode top``. scripts/check_metrics_documented.py pins this tuple against
+# the digest table in docs/OBSERVABILITY.md, so the view and its docs cannot
+# drift.
+DIGEST_FIELDS: Tuple[str, ...] = (
+    "tok_s",
+    "tokens_total",
+    "queue_depth",
+    "breaker_open",
+    "cache_hit_ratio",
+    "bubble_frac",
+    "moe_drop_frac",
+    "moe_hot_share",
+    "uptime_s",
+)
+
+
+class _PhaseStat:
+    __slots__ = ("count", "total_s", "max_s")
+
+    def __init__(self):
+        self.count = 0
+        self.total_s = 0.0
+        self.max_s = 0.0
+
+
+class _NoopBracket:
+    """Shared inert context manager: the disabled profiler's ``phase()``
+    returns this one object, so a dark bracket site costs one attribute
+    check and zero allocation."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
+
+
+_NOOP_BRACKET = _NoopBracket()
+
+
+class _Bracket:
+    """One live phase bracket (``with prof.phase("dispatch"):``)."""
+
+    __slots__ = ("_prof", "_name", "_t0")
+
+    def __init__(self, prof: "PhaseProfiler", name: str):
+        self._prof = prof
+        self._name = name
+        self._t0 = time.perf_counter()
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._prof.observe(self._name, time.perf_counter() - self._t0)
+        return None
+
+
+class PhaseProfiler:
+    """Per-phase wall-time aggregator + device bubble accounting.
+
+    Thread-safe; all mutators early-return when disabled. ``observe`` mirrors
+    into the catalog's ``server_phase_seconds`` histogram, which itself
+    no-ops unless the metrics registry is enabled — so the profiler works
+    standalone (``snapshot()``) and feeds Prometheus when both are on.
+    """
+
+    def __init__(self, enabled: bool = False,
+                 registry: Optional[MetricsRegistry] = None):
+        self.enabled = bool(enabled)
+        self._registry = registry
+        self._lock = threading.Lock()
+        self._stats: Dict[str, _PhaseStat] = {}
+        self._hist_cache: Dict[str, object] = {}
+        # Device bubble accounting (see device_interval).
+        self._last_ready: Optional[float] = None
+        self._busy_s = 0.0
+        self._wall_s = 0.0
+        self._intervals = 0
+
+    # -- enablement ---------------------------------------------------------
+
+    def set_enabled(self, on: bool) -> None:
+        self.enabled = bool(on)
+
+    # -- phase brackets -----------------------------------------------------
+
+    def phase(self, name: str):
+        """Context manager timing one phase occurrence. Disabled: returns the
+        shared no-op bracket."""
+        if not self.enabled:
+            return _NOOP_BRACKET
+        return _Bracket(self, name)
+
+    def observe(self, name: str, seconds: float) -> None:
+        """Record one phase occurrence of `seconds` wall time."""
+        if not self.enabled:
+            return
+        if seconds < 0.0:
+            seconds = 0.0
+        with self._lock:
+            st = self._stats.get(name)
+            if st is None:
+                st = self._stats[name] = _PhaseStat()
+            st.count += 1
+            st.total_s += seconds
+            if seconds > st.max_s:
+                st.max_s = seconds
+            hist = self._hist_cache.get(name)
+            if hist is None:
+                reg = self._registry if self._registry is not None \
+                    else get_registry()
+                hist = catalog.get("server_phase_seconds",
+                                   reg).labels(phase=name)
+                self._hist_cache[name] = hist
+        hist.observe(seconds)
+
+    # -- device bubble accounting -------------------------------------------
+
+    def device_interval(self, dispatch_t: float, ready_t: float) -> None:
+        """Account one fenced dispatch: program issued at `dispatch_t`,
+        results ready at `ready_t` (both ``time.perf_counter()``).
+
+        Busy time is charged from ``max(dispatch_t, previous ready_t)`` to
+        ``ready_t``: an overlapped dispatch (issued before the previous
+        program drained) contributes no idle time, while a gap between the
+        previous ready and this dispatch is a bubble — wall time the device
+        spent waiting on the host."""
+        if not self.enabled:
+            return
+        self.observe("device", ready_t - dispatch_t)
+        with self._lock:
+            anchor = self._last_ready
+            if anchor is None or anchor > ready_t:
+                anchor = dispatch_t
+            wall = max(0.0, ready_t - anchor)
+            busy = max(0.0, ready_t - max(dispatch_t, anchor))
+            self._wall_s += wall
+            self._busy_s += busy
+            self._intervals += 1
+            self._last_ready = ready_t
+
+    def bubble_fraction(self) -> float:
+        """Fraction of wall time the device sat idle between dispatches
+        (0..1). Zero until at least two intervals have been accounted."""
+        with self._lock:
+            if self._wall_s <= 0.0:
+                return 0.0
+            return max(0.0, 1.0 - self._busy_s / self._wall_s)
+
+    # -- reading ------------------------------------------------------------
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        """Per-phase aggregates: {phase: {count, total_s, mean_s, max_s}}."""
+        with self._lock:
+            out = {}
+            for name, st in self._stats.items():
+                out[name] = {
+                    "count": float(st.count),
+                    "total_s": st.total_s,
+                    "mean_s": st.total_s / st.count if st.count else 0.0,
+                    "max_s": st.max_s,
+                }
+            return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._stats.clear()
+            self._last_ready = None
+            self._busy_s = 0.0
+            self._wall_s = 0.0
+            self._intervals = 0
+
+
+# -- process-global profiler (default OFF, like the metrics registry) --------
+
+_GLOBAL = PhaseProfiler(enabled=False)
+
+
+def get_profiler() -> PhaseProfiler:
+    return _GLOBAL
+
+
+def enable_phase_profiling() -> None:
+    """Flip the global profiler on (``--profile_phases``) and wire the
+    bubble-fraction gauge so a metrics scrape reads it live."""
+    _GLOBAL.set_enabled(True)
+    catalog.get("server_device_bubble_ratio").set_function(
+        _GLOBAL.bubble_fraction)
+
+
+def disable_phase_profiling() -> None:
+    _GLOBAL.set_enabled(False)
+
+
+# -- swarm stats digest (gossiped for --mode top) -----------------------------
+
+
+class _RateMeter:
+    """Rolling rate between successive reads of a monotonic total."""
+
+    __slots__ = ("_t", "_v")
+
+    def __init__(self):
+        self._t: Optional[float] = None
+        self._v = 0.0
+
+    def rate(self, value: float) -> float:
+        now = time.monotonic()
+        prev_t, prev_v = self._t, self._v
+        self._t, self._v = now, value
+        if prev_t is None or now <= prev_t:
+            return 0.0
+        return max(0.0, (value - prev_v) / (now - prev_t))
+
+
+_TOK_RATE = _RateMeter()
+
+
+def _metric_sum(reg: MetricsRegistry, name: str,
+                only_label: Optional[Tuple[str, str]] = None) -> float:
+    """Sum an (optionally labeled) family's current values; 0.0 when the
+    family was never touched."""
+    fam = reg.get(name)
+    if fam is None:
+        return 0.0
+    children = fam.children() if hasattr(fam, "children") else (fam,)
+    total = 0.0
+    for child in children:
+        if only_label is not None and only_label not in child.labels:
+            continue
+        try:
+            total += float(child.value)
+        except Exception:
+            continue
+    return total
+
+
+def stats_digest(registry: Optional[MetricsRegistry] = None,
+                 profiler: Optional[PhaseProfiler] = None,
+                 rate_meter: Optional[_RateMeter] = None
+                 ) -> Dict[str, float]:
+    """Assemble the compact per-server digest gossiped for ``--mode top``.
+
+    Every key in DIGEST_FIELDS is always present (zeros when the registry is
+    disabled or a family untouched), so the top renderer never branches on
+    missing columns."""
+    reg = registry if registry is not None else get_registry()
+    prof = profiler if profiler is not None else get_profiler()
+    meter = rate_meter if rate_meter is not None else _TOK_RATE
+
+    tokens = (_metric_sum(reg, "server_tokens_total")
+              + _metric_sum(reg, "gateway_tokens_served_total"))
+    hits = _metric_sum(reg, "server_prefix_cache_hits_total")
+    misses = _metric_sum(reg, "server_prefix_cache_misses_total")
+    lookups = hits + misses
+    # Sparse MoE dispatch health (models/moe.py): drop fraction over this
+    # process's lifetime, hottest expert's share of the last dispatch.
+    # Zero for dense models — the columns render "-"-free but inert.
+    routed = _metric_sum(reg, "moe_tokens_total")
+    dropped = _metric_sum(reg, "moe_dropped_total")
+    return {
+        "tok_s": round(meter.rate(tokens), 2),
+        "tokens_total": tokens,
+        "queue_depth": (_metric_sum(reg, "server_task_queue_depth")
+                        + _metric_sum(reg, "gateway_queue_depth")),
+        "breaker_open": _metric_sum(reg, "client_breaker_transitions_total",
+                                    only_label=("state", "open")),
+        "cache_hit_ratio": (hits / lookups) if lookups else 0.0,
+        "bubble_frac": round(prof.bubble_fraction(), 4),
+        "moe_drop_frac": round((dropped / routed) if routed else 0.0, 4),
+        "moe_hot_share": round(_metric_sum(reg, "moe_max_expert_share"), 4),
+        "uptime_s": round(reg.uptime_s(), 1),
+    }

@@ -2,7 +2,8 @@
 scripts/torch_profile_decode.py, imports jax, jaxlib or the JAX package
 (statically, and at run time with jax blocked); and the modules it copied
 from the JAX package have not drifted from their originals (the NF4 code
-book among them)."""
+book among them, and the placement registry, which differs from its
+original only in its module docstring)."""
 
 import ast
 import dataclasses
@@ -121,3 +122,17 @@ def test_copied_catalogs_have_not_drifted(table):
         assert _field_table(tregistry.ServerRecord) == _field_table(jregistry.ServerRecord)
         assert (tregistry.DEFAULT_TTL, tregistry.DISCOVERY_POOL) == \
             (jregistry.DEFAULT_TTL, jregistry.DISCOVERY_POOL)
+
+
+def _without_module_docstring(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    first = tree.body[0]
+    assert isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant)
+    lines = path.read_text(encoding="utf-8").splitlines(keepends=True)
+    return "".join(lines[first.end_lineno:])
+
+
+def test_registry_copy_differs_from_its_original_only_in_the_docstring():
+    rel = pathlib.Path("scheduling") / "registry.py"
+    assert _without_module_docstring(REPO / PORT_PKG / rel) == \
+        _without_module_docstring(REPO / JAX_PKG / rel)
