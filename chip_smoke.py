@@ -50,8 +50,33 @@ the kernels; it never prints the last line of a smoke pass.)
    latency per phase and per stage, KV bytes, transport bytes) and the
    hooks' own host cost (client and transport over stub stages, telemetry
    off and on), then turns telemetry off and clears it.
-8. Prints the ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as
-   its last line.
+8. In-process TCP drive, after each of the int8 and NF4 paths (before the
+   telemetry phase on the NF4 one): that path's stage executors behind
+   ``TcpStageServer``s (each with its own ``StageRuntime``) registered at a
+   ``RegistryServer``, and the same 3 requests through a ``TcpTransport``
+   client (``RemoteRegistry`` discovery, wire bf16). The tokens must equal
+   the in-process run's exactly (the hidden state is bfloat16, so the bf16
+   wire round trip is the identity), with the launch gates of steps 5-6
+   (counts set to 0 just before the requests, read just after) and the
+   native wire codec loaded. On the int8 path a stage-2 replica joins and
+   the pinned stage-2 server is ``stop()``ped after its 3rd decode step
+   of a greedy request: the client must recover onto the replica with the
+   fault-free tokens.
+9. CLI drive: ``--mode registry``, then ``--mode serve --stage 1..3 --quant
+   int8 --dtype bfloat16 --seed 0`` and ``--mode client`` with the first
+   greedy prompt, each a process of its own on the card, started one after
+   another (handshake lines scraped, port 0 everywhere). The client's
+   printed generation must equal the in-process int8 run's for that
+   prompt, and the token ids on its ``TOKENS=`` line must equal that run's.
+   Each process's peak device memory is read from its ``PEAK_MEMORY_BYTES``
+   lines (a server prints one when it starts serving and one when it stops
+   on SIGINT, after the request); every child is killed at the end,
+   whatever happens.
+   ``tcp_path`` and ``cli_path`` JSON lines carry TTFT, decode ms/token,
+   the per-hop ``client_stage_time_seconds``, the client's ``socket``
+   phase and the peaks.
+10. Prints the ``kernels`` JSON line and ``{"ok": true, "device": {...}}``
+   as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
 refuses to run without a CUDA device, and outside a checkout of the repo.
@@ -65,6 +90,7 @@ import json
 import os
 import pathlib
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -88,8 +114,9 @@ BF16_TOL = 2.0 ** -7   # max|kernel - plain| <= BF16_TOL * max|plain|: one
 #                        bf16 ulp at the output's scale (sums in other orders)
 F32_TOL = 1e-5         # float32 activations, relative to max|plain|
 LOGIT_GAP_TOL = 2.0 ** -6  # a near-tie: top-2 gap <= this * max|logit|
-KILL_AFTER_DECODES = 3  # the failover drive kills the pinned peer after this
+KILL_AFTER_DECODES = 3  # the failover drives kill the pinned peer after this
 #                         many decode steps it served
+CLI_STEP_TIMEOUT_S = 300  # each CLI process: its handshake line, or the client's run
 TELEMETRY_PAIRS = 4     # telemetry off / on runs of one request, in ABBA order
 HOOK_STEPS = 2000       # decode steps of the stub pipeline that prices the hooks
 LIBRARY_NOTE = ("torch.matmul(x, dequantized bf16 weight): a yardstick that "
@@ -570,7 +597,8 @@ def failover_drive(torch, tmain, state):
     replica_id = f"server-stage{spec.index}-replica"
     replica = executor_mod.StageExecutor(
         cfg, spec, tmain._stage_params(args, cfg, state["params"], spec),
-        peer_id=replica_id, device=torch.device(args.device))
+        peer_id=replica_id, device=torch.device(args.device),
+        act_dtype=tmain._DTYPE_MAP[args.dtype])
     transport.add_peer(replica_id, replica)
     client.registry.register(client_mod.make_server_record(replica_id, spec,
                                                            model=args.model))
@@ -848,6 +876,295 @@ def telemetry_phase(torch, tmain, nk, state, smi: str):
         tel.get_registry().reset()
 
 
+def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool):
+    """The serve() run's executors behind TCP servers and a registry
+    service, the same requests through a TCP client at wire bf16: tokens
+    equal to the in-process run's, the launch gates of serve(), the native
+    codec; with `failover`, a stage-2 replica and the pinned server stopped
+    after its 3rd decode step. Returns the tcp_path summary."""
+    from importlib import import_module
+
+    net = import_module(PORT + ".runtime.net")
+    native = import_module(PORT + ".native")
+    task_pool = import_module(PORT + ".runtime.task_pool")
+    client_mod = import_module(PORT + ".runtime.client")
+    executor_mod = import_module(PORT + ".runtime.executor")
+    profiling = import_module(PORT + ".telemetry.profiling")
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    registry_srv = net.RegistryServer()
+    registry_srv.start()
+    servers = {}
+    transport = None
+
+    def serve_over_tcp(peer, ex):
+        srv = net.TcpStageServer(ex, task_pool.StageRuntime(), wire_dtype="bf16",
+                                 model=MODEL)
+        srv.start()
+        servers[peer] = srv
+        rec = client_mod.make_server_record(peer, ex.spec, model=MODEL)
+        rec.address = srv.address
+        registry_srv.registry.register(rec)
+
+    prof = profiling.get_profiler()
+    try:
+        for peer in local.transport.peers():
+            serve_over_tcp(peer, local.transport.executor(peer))
+        registry = net.RemoteRegistry(registry_srv.address)
+        transport = net.TcpTransport(registry, wire_dtype="bf16", model=MODEL)
+        client = client_mod.PipelineClient(cfg, local.plan, local.stage0, transport,
+                                           registry, seed=args.seed, model=MODEL)
+        torch.cuda.reset_peak_memory_stats()
+        profiling.enable_phase_profiling()
+        prof.reset()
+        for mod in kernels.values():
+            mod._launches = 0
+            mod._launches_mma = 0
+        results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
+                   for ids, (_, sp) in zip(state["prompt_ids"], state["requests"])]
+        torch.cuda.synchronize()
+        launches = kernels[name]._launches
+        launches_mma = kernels[name]._launches_mma
+        socket_phase = prof.snapshot().get("socket")
+        profiling.disable_phase_profiling()
+        if not native.have_native():
+            raise AssertionError("the native wire codec is not loaded")
+        tokens = sum(len(r.tokens) for r in results)
+        need, need_mma = 4 * cfg.num_layers * tokens, 4 * cfg.num_layers * len(results)
+        log(f"tcp {args.quant}: {tokens} tokens over {len(results)} requests, {name} "
+            f"launches {launches} (>= {need}), tensor-core {launches_mma} (>= {need_mma})")
+        if launches < need or launches_mma < need_mma:
+            raise AssertionError(f"tcp {args.quant}: {name} launches {launches} / "
+                                 f"{launches_mma}, want >= {need} / {need_mma}")
+        for r, want in zip(results, state["results"]):
+            if r.tokens != want.tokens:
+                raise AssertionError(f"tcp {args.quant}: tokens differ from the "
+                                     f"in-process run:\n  {r.tokens}\n  {want.tokens}")
+        log(f"  tcp {args.quant}: tokens of all {len(results)} requests equal the "
+            "in-process run's")
+        decode = [t for r in results for t in r.decode_times_s]
+        local_decode = [t for r in state["results"] for t in r.decode_times_s]
+        summary = {
+            "model": MODEL, "quant": args.quant, "wire_dtype": "bf16",
+            "stages": local.plan.num_stages, "requests": len(results),
+            "tokens": tokens, "tokens_equal_local": True,
+            f"{name}_launches": launches, f"{name}_launches_mma": launches_mma,
+            "native_codec": native.have_native(),
+            "ttft_ms": [r.ttft_s * 1e3 for r in results],
+            "ttft_ms_local": [r.ttft_s * 1e3 for r in state["results"]],
+            "decode_ms_per_token": 1e3 * statistics.median(decode),
+            "decode_ms_per_token_local": 1e3 * statistics.median(local_decode),
+            "client_stage_time_seconds": family_view(client.metrics,
+                                                     "client_stage_time_seconds"),
+            "socket_phase": socket_phase,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi}
+        summary["wire"] = wire_costs(torch, net, transport, cfg.hidden_size,
+                                     len(state["prompt_ids"][0]), list(servers))
+        log(f"  tcp {args.quant}: decode {summary['decode_ms_per_token']:.2f} ms/token "
+            f"(in-process {summary['decode_ms_per_token_local']:.2f}), ttft "
+            f"{[round(t, 1) for t in summary['ttft_ms']]} ms; wire {summary['wire']}")
+        if failover:
+            spec = local.plan.stages[2]
+            replica_id = f"tcp-stage{spec.index}-replica"
+            replica = executor_mod.StageExecutor(
+                cfg, spec, tmain._stage_params(args, cfg, state["params"], spec),
+                peer_id=replica_id, device=torch.device(args.device),
+                act_dtype=tmain._DTYPE_MAP[args.dtype])
+            serve_over_tcp(replica_id, replica)
+            pinned = next(h.peer_id for h in client.route() if h.key == f"stage{spec.index}")
+            seen = {"decode": 0}
+            call = transport.call
+
+            def stop_after_decodes(peer_id, req, timeout=None):
+                resp = call(peer_id, req, timeout)
+                if peer_id == pinned and not req.is_prefill and not req.is_replay:
+                    seen["decode"] += 1
+                    if seen["decode"] == KILL_AFTER_DECODES:
+                        servers[pinned].stop()
+                return resp
+
+            transport.call = stop_after_decodes
+            before = client.recoveries
+            got = client.generate(state["prompt_ids"][0], MAX_NEW_TOKENS,
+                                  sampling=state["requests"][0][1])
+            transport.call = call
+            recoveries = client.recoveries - before
+            log(f"  tcp failover: {pinned} stopped after {seen['decode']} decode steps, "
+                f"{recoveries} recovery, replica served {replica.requests_served} requests")
+            if recoveries < 1 or replica.requests_served <= 0:
+                raise AssertionError("tcp failover did not recover onto the replica")
+            if got.tokens != results[0].tokens:
+                raise AssertionError(f"tcp failover tokens differ:\n  {got.tokens}\n  "
+                                     f"{results[0].tokens}")
+            summary["failover"] = {
+                "stopped": pinned, "replacement": replica_id, "recoveries": recoveries,
+                "replica_requests_served": replica.requests_served,
+                "tokens": len(got.tokens), "equal_to_fault_free": True,
+                "recovery_step_ms": 1e3 * max(got.decode_times_s),
+                "median_step_ms": 1e3 * statistics.median(got.decode_times_s)}
+        return summary
+    finally:
+        profiling.disable_phase_profiling()
+        prof.reset()
+        if transport is not None:
+            transport.close()
+        for srv in servers.values():
+            srv.stop()
+        registry_srv.stop()
+
+
+def wire_costs(torch, net, transport, hidden: int, prompt_len: int, peers,
+               reps: int = 200):
+    """Host cost of the wire alone, on this host: one hop's activation
+    (a decode step's [1, 1, hidden] and a prefill's [1, prompt_len,
+    hidden], bfloat16 on the card) copied to the host, encoded to wire bf16
+    with its CRC-32C, checked and decoded again (medians in us); and the
+    median loopback round trip of an `info` frame to each server (ms)."""
+    out = {}
+    for what, t in (("decode_hop", 1), ("prefill_hop", prompt_len)):
+        x = torch.randn((1, t, hidden), device="cuda").to(torch.bfloat16)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            meta, body = net._encode_tensor(net._host_array(x), "bf16")
+            net.native.crc32c(body)
+            net.native.crc32c(body)
+            net._to_tensor(net._decode_tensor(meta, body))
+            times.append(time.perf_counter() - t0)
+        out[f"{what}_codec_us"] = 1e6 * statistics.median(times)
+        out[f"{what}_bytes"] = len(body)
+    rtts = [transport.ping(p) for p in peers for _ in range(20)]
+    out["info_round_trip_ms"] = 1e3 * statistics.median(r for r in rtts if r is not None)
+    return out
+
+
+def _wait_line(proc, path: pathlib.Path, prefix: str, what: str) -> str:
+    """The first line of the child's stdout file that starts with
+    `prefix`; raises if the child exits or CLI_STEP_TIMEOUT_S passes first."""
+    deadline = time.monotonic() + CLI_STEP_TIMEOUT_S
+    while time.monotonic() < deadline:
+        for line in path.read_text(errors="replace").splitlines():
+            if line.startswith(prefix):
+                return line
+        if proc.poll() is not None:
+            raise AssertionError(f"{what} exited ({proc.returncode}) before "
+                                 f"printing {prefix!r}")
+        time.sleep(0.2)
+    raise AssertionError(f"{what}: no {prefix!r} line in {CLI_STEP_TIMEOUT_S}s")
+
+
+def _stderr_tail(path: pathlib.Path, n: int = 30) -> str:
+    return "\n".join(path.read_text(errors="replace").splitlines()[-n:])
+
+
+def cli_drive(torch, tok, int8_state, smi: str):
+    """The port's swarm as processes on the card: a registry, three stage
+    servers (int8, bfloat16, seed 0) and a client with the first greedy
+    prompt, started one after another. The client's printed generation
+    and its ``TOKENS=`` ids must equal the in-process int8 run's. Returns
+    the cli_path summary."""
+    want = int8_state["results"][0]
+    sp = int8_state["requests"][0][1]
+    expect = (f"=== Generation ({len(want.tokens)} tokens, stopped by "
+              f"{want.stopped_by}) ===\n{tok.decode(want.tokens)}\n")
+    main = [sys.executable, "-m", PORT + ".main"]
+    model_args = ["--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
+                  "--seed", "0", "--device", "cuda"]
+    env = dict(os.environ, PYTHONIOENCODING="utf-8", PYTHONUNBUFFERED="1")
+    procs = []
+    peaks, held = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+
+        def spawn(what, argv):
+            out, err = tmp / f"{what}.out", tmp / f"{what}.err"
+            with open(out, "wb") as fo, open(err, "wb") as fe:
+                proc = subprocess.Popen(main + argv, stdout=fo, stderr=fe, env=env,
+                                        cwd=str(LOG_PATH.parents[1]))
+            procs.append((what, proc, err))
+            return proc, out
+
+        try:
+            t0 = time.monotonic()
+            proc, out = spawn("registry", ["--mode", "registry", "--registry_port", "0"])
+            addr = _wait_line(proc, out, "REGISTRY_ADDR=", "registry").split("=", 1)[1]
+            start_s = {"registry": time.monotonic() - t0}
+            for k in (1, 2, 3):
+                t0 = time.monotonic()
+                proc, out = spawn(f"stage{k}", ["--mode", "serve", "--stage", str(k),
+                                                "--registry_addr", addr, "--rpc_port", "0",
+                                                *model_args])
+                line = _wait_line(proc, out, "SERVING ", f"stage {k} server")
+                # Printed before the SERVING line.
+                peak = re.search(r"PEAK_MEMORY_BYTES=(\d+)", out.read_text())
+                peaks[f"stage{k}_at_start"] = peak and int(peak.group(1))
+                start_s[f"stage{k}"] = time.monotonic() - t0
+                log(f"cli: {line} ({start_s[f'stage{k}']:.1f}s)")
+            t0 = time.monotonic()
+            client = subprocess.run(
+                main + ["--mode", "client", "--registry_addr", addr, *model_args,
+                        "--prompt", PROMPTS[0], "--max_new_tokens", str(MAX_NEW_TOKENS),
+                        "--temperature", str(sp.temperature), "--top_p", str(sp.top_p),
+                        "--top_k", str(sp.top_k),
+                        "--repetition_penalty", str(sp.repetition_penalty)],
+                capture_output=True, env=env, timeout=CLI_STEP_TIMEOUT_S,
+                cwd=str(LOG_PATH.parents[1]))
+            client_s = time.monotonic() - t0
+            stdout = client.stdout.decode("utf-8", errors="replace")
+            if client.returncode != 0:
+                raise AssertionError(f"client exited {client.returncode}:\n"
+                                     + client.stderr.decode(errors="replace")[-3000:])
+            if expect not in stdout:
+                raise AssertionError(f"cli client text differs from the in-process "
+                                     f"run's:\n{stdout}\nwant:\n{expect}")
+            ids = re.search(r"^TOKENS=(\[[0-9, ]*\])$", stdout, re.M)
+            if ids is None or json.loads(ids.group(1)) != want.tokens:
+                raise AssertionError(f"cli client token ids differ from the in-process "
+                                     f"run's:\n{ids and ids.group(1)}\nwant:\n{want.tokens}")
+            log(f"cli: client text and token ids equal the in-process int8 run's "
+                f"({len(want.tokens)} tokens, {client_s:.1f}s with set-up)")
+            ttft = float(re.search(r"TTFT: ([0-9.]+)s", stdout).group(1))
+            tps = float(re.search(r"Decode: [0-9.]+s total, ([0-9.]+) tokens/s",
+                                  stdout).group(1))
+            peak = re.search(r"PEAK_MEMORY_BYTES=(\d+) ALLOCATED_BYTES=(\d+)", stdout)
+            peaks["client"] = peak and int(peak.group(1))
+            held["client"] = peak and int(peak.group(2))
+            # A server prints its peak again when SIGINT stops it.
+            for what, proc, _ in procs[1:]:
+                proc.send_signal(signal.SIGINT)
+            for what, proc, _ in procs[1:]:
+                proc.wait(timeout=CLI_STEP_TIMEOUT_S)
+                last = re.findall(r"PEAK_MEMORY_BYTES=(\d+) ALLOCATED_BYTES=(\d+)",
+                                  (tmp / f"{what}.out").read_text())
+                peaks[f"{what}_after_request"] = (int(last[-1][0]) if len(last) == 2
+                                                  else None)
+                held[what] = int(last[-1][1]) if len(last) == 2 else None
+            missing = [k for k, v in peaks.items() if v is None]
+            if missing:
+                raise AssertionError(f"cli: no peak device memory from {missing}")
+            summary = {"model": MODEL, "quant": "int8", "wire_dtype": "bf16",
+                       "processes": 5, "prompt": PROMPTS[0],
+                       "tokens": len(want.tokens), "text_equal_in_process": True,
+                       "ttft_ms_printed": ttft * 1e3,
+                       "decode_ms_per_token_mean_printed": 1e3 / tps if tps else None,
+                       "peak_memory_gb": {k: v / 1e9 for k, v in peaks.items()},
+                       "held_memory_gb": {k: v and v / 1e9 for k, v in held.items()},
+                       "start_s": start_s, "client_run_s": client_s, "card": smi}
+            log(f"cli: ttft {ttft * 1e3:.0f} ms, decode "
+                f"{summary['decode_ms_per_token_mean_printed']:.2f} ms/token (mean, "
+                f"printed); peaks GB {summary['peak_memory_gb']}; held GB "
+                f"{summary['held_memory_gb']}")
+            return summary
+        except BaseException:
+            for what, _, err in procs:
+                log(f"--- {what} stderr tail:\n{_stderr_tail(err)}")
+            raise
+        finally:
+            for _, proc, _ in procs:
+                proc.kill()
+            for _, proc, _ in procs:
+                proc.wait(timeout=60)
+
+
 def oracle_logits(torch, cfg, params, ids):
     """The float32-cache reference's next-token logits after `ids` (one
     prefill)."""
@@ -957,16 +1274,27 @@ def main(argv) -> int:
     int8_summary, state = serve(torch, kernel_mods, "int8_dot", tmain, sampling_cls,
                                 "int8", "cuda")
     log(json.dumps({"main_path": int8_summary, "card": smi}))
+    tcp = {"int8": tcp_drive(torch, kernel_mods, "int8_dot", tmain, state, smi,
+                             failover=True)}
+    # What the CLI drive compares with; the weights go.
+    int8_state = {k: state[k] for k in ("results", "requests")}
     del state
     # As under --telemetry: the client's metrics go to the global registry,
     # which stays disabled until the telemetry phase.
     nf4_summary, state = serve(torch, kernel_mods, "nf4_dot", tmain, sampling_cls,
                                "nf4", "cuda", extra_argv=("--telemetry",))
+    tcp["nf4"] = tcp_drive(torch, kernel_mods, "nf4_dot", tmain, state, smi,
+                           failover=False)
     tele = telemetry_phase(torch, tmain, nk, state, smi)
     nf4_summary["failover"] = tele.pop("failover")
     log(json.dumps({"nf4_path": nf4_summary, "card": smi}))
     log(json.dumps({"telemetry": tele, "card": smi}))
     del state
+    log(json.dumps({"tcp_path": tcp}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = cli_drive(torch, tmain.load_tokenizer(), int8_state, smi)
+    log(json.dumps({"cli_path": cli}))
 
     kernels = [kernel_entry("int8_dot", int8_rows, int8_summary["int8_dot_launches"],
                             prompt_len),

@@ -20,7 +20,7 @@ the training forward are not ported yet and are refused loudly.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,17 +87,23 @@ def _dense(gen: torch.Generator, shape, dtype, device, scale: float = 0.02):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device="cpu") -> Params:
+                device="cpu", layer_range: Optional[Tuple[int, int]] = None
+                ) -> Params:
     """Random init of the FULL model with stacked layers, N(0, 0.02) dense
     weights, drawn from `generator` (which must live on `device`).
 
     Built layer by layer on the device: each stacked leaf is allocated once
     in `dtype` and filled one layer at a time, so the float32 working copy
     never exceeds one layer's leaf. The draws differ from the reference's
-    (torch's generator is not threefry); tests bridge JAX weights instead."""
+    (torch's generator is not threefry); tests bridge JAX weights instead.
+
+    ``layer_range=(a, b)`` keeps layers a..b-1 only (stacked from index 0):
+    every layer is still drawn, in order, so the kept ones hold the values
+    of the full init, and a process serving one span never holds the rest."""
     _check_supported(cfg)
     schema = _layer_schema(cfg)
-    n = cfg.num_layers
+    lo, hi = (0, cfg.num_layers) if layer_range is None else layer_range
+    n = hi - lo
 
     def alloc(node):
         if isinstance(node, dict):
@@ -118,11 +124,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             elif v[1] == "dense":
                 out[k][li] = _dense(generator, v[0], dtype, device)
 
-    for li in range(n):
-        fill(schema, layers, li)
+    def draw(node):
+        for v in node.values():
+            if isinstance(v, dict):
+                draw(v)
+            elif v[1] == "dense":
+                _dense(generator, v[0], dtype, device)
+
+    for li in range(cfg.num_layers):
+        if lo <= li < hi:
+            fill(schema, layers, li - lo)
+        else:
+            draw(schema)   # advance the generator past a layer not kept
     if cfg.altern_window:
         layers["window"] = torch.tensor(
-            [cfg.altern_window if i % 2 == 0 else 0 for i in range(n)],
+            [cfg.altern_window if i % 2 == 0 else 0 for i in range(lo, hi)],
             dtype=torch.int32, device=device)
 
     d = cfg.hidden_size

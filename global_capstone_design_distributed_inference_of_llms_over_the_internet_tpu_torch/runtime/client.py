@@ -18,7 +18,8 @@ always-on registry unless the caller passes one (``main.py`` passes the
 process-global registry under ``--telemetry``); session, failover and
 replay events go to the flight recorder; each pipeline step is one trace
 (a ``pipeline_step`` root, a span per hop, each recording its server's
-span). Every field is a host value the client already holds.
+span). Every field is a host value the client already holds. Under the
+phase profiler each hop attempt's transport call is the ``socket`` phase.
 
 Module and latency routing, push chains, burst, beam and speculative
 decoding, deadlines and their telemetry hooks are not ported yet.
@@ -46,6 +47,7 @@ from ..scheduling.registry import PlacementRegistry, ServerRecord
 from ..telemetry import MetricsRegistry, get_tracer
 from ..telemetry import catalog as _tm
 from ..telemetry import events as _ev
+from ..telemetry.profiling import get_profiler as _get_profiler
 from . import errors as _errors
 from .errors import register as _catalog
 from .executor import StageExecutor
@@ -334,7 +336,10 @@ class PipelineClient:
             try:
                 if not self.breaker.allow(hop.peer_id):
                     raise _BreakerOpen(f"peer {hop.peer_id}: circuit breaker open")
-                resp = self.transport.call(hop.peer_id, req, self.request_timeout)
+                # The "socket" phase: one request/response turnaround on the
+                # wire, per attempt (the recovery machinery stays outside).
+                with _get_profiler().phase("socket"):
+                    resp = self.transport.call(hop.peer_id, req, self.request_timeout)
                 self.breaker.record_success(hop.peer_id)
                 return resp
             except _errors.retryable_types() as exc:

@@ -12,8 +12,14 @@ a prefill chunk; a decode with no cached session otherwise is a hard error.
 Differences from the reference's engine: PyTorch runs eagerly, so the step
 is a direct call and sequences are not padded to compile buckets (prefill
 still runs in byte-bounded chunks). Offload, tensor parallelism, the prefix
-cache, deep prompts, speculative verify, beam search and training are not
-ported yet.
+cache, deep prompts, speculative verify, beam search, burst decode, push
+chains, session rewind and training are not ported: a request that asks
+for one is refused with a `StageExecutionError` naming its field (the TCP
+server sends it back as a ``kind: "stage"`` error frame). Given
+``act_dtype`` (the model's ``--dtype``), a float activation is cast to it
+on arrival: the wire decodes to float32, so a bfloat16 model computes the
+same numbers after a TCP hop as after an in-process one, where the
+reference's engine would compute that stage in float32.
 """
 
 from __future__ import annotations
@@ -44,6 +50,10 @@ from .messages import StageRequest, StageResponse
 logger = logging.getLogger(__name__)
 
 SEQ_BUCKETS = (1, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+# warmup(): a prefill of the first length, then steps of the others, in a
+# session of this capacity.
+WARMUP_SEQ_LENS = (16, 8, 1)
+WARMUP_MAX_LENGTH = 128
 
 
 @_catalog
@@ -72,6 +82,21 @@ def _sample_rows(logits: torch.Tensor, t_real: int, req: StageRequest) -> list:
             for i, row in enumerate(last)]
 
 
+def _unported_field(req: StageRequest) -> Optional[str]:
+    """The first request field this executor does not implement that the
+    request sets, or None."""
+    for name, is_set in (("hypo_ids", req.hypo_ids is not None),
+                         ("num_logprobs", req.num_logprobs > 0),
+                         ("draft_tokens", req.draft_tokens is not None),
+                         ("prompts", req.prompts is not None),
+                         ("burst_len", req.burst_len > 0),
+                         ("next_servers", bool(req.next_servers)),
+                         ("start_from_position", req.start_from_position is not None)):
+        if is_set:
+            return name
+    return None
+
+
 class StageExecutor:
     """One pipeline stage's compute engine (one 'server' in reference terms)."""
 
@@ -80,12 +105,15 @@ class StageExecutor:
                  max_cache_bytes: int = 1 << 30,
                  cache_dtype: torch.dtype = torch.float32,
                  peer_id: str = "local",
-                 max_chunk_bytes: int = 256 * 1024 * 1024):
+                 max_chunk_bytes: int = 256 * 1024 * 1024,
+                 act_dtype: Optional[torch.dtype] = None):
         self.cfg = cfg
         self.spec = spec
         self.device = torch.device(device)
         # Engine-side fused layout: one wqkv and one wgu matmul per layer.
         self.params = fuse_qkv_params(params)
+        # The dtype float activations are cast to on arrival (None: as sent).
+        self.act_dtype = act_dtype
         self.peer_id = peer_id
         self.max_chunk_bytes = max_chunk_bytes
         self.cache_dtype = cache_dtype
@@ -188,9 +216,16 @@ class StageExecutor:
 
     def forward(self, req: StageRequest) -> StageResponse:
         """Run one step of this stage for one session."""
+        field = _unported_field(req)
+        if field is not None:
+            raise StageExecutionError(
+                f"request field {field!r} is not ported: this stage serves "
+                "plain prefill and decode steps")
         a, b = self._resolve_range(req)
         sub_spec, sub_params, step = self._get_subspan(a, b)
         x = req.hidden.to(self.device)
+        if x.is_floating_point() and self.act_dtype not in (None, x.dtype):
+            x = x.to(self.act_dtype)
         want_ndim = 2 if sub_spec.is_first else 3
         if x.ndim != want_ndim:
             raise StageExecutionError(
@@ -244,6 +279,27 @@ class StageExecutor:
     # ------------------------------------------------------------------
     # Lifecycle
     # ------------------------------------------------------------------
+
+    def warmup(self) -> None:
+        """One throwaway session through the span before serving (prefill,
+        then steps of the other lengths), as the reference's serve mode
+        does: the first real request then pays no one-time device set-up
+        (library handles, kernel modules) inside its client's deadline."""
+        cur = 0
+        for i, t in enumerate(WARMUP_SEQ_LENS):
+            if self.spec.is_first:
+                x = torch.zeros((1, t), dtype=torch.int64)
+            else:
+                x = torch.zeros((1, t, self.cfg.hidden_size), dtype=torch.float32)
+            try:
+                self.forward(StageRequest(
+                    session_id="__warmup__", hidden=x, seq_len=t, cur_len=cur,
+                    is_prefill=(i == 0), max_length=WARMUP_MAX_LENGTH))
+                cur += t
+            except Exception as exc:  # warmup must never kill a server
+                logger.warning("warmup step (T=%d) failed: %s", t, exc,
+                               exc_info=True)
+        self.drop_session("__warmup__")
 
     def drop_session(self, session_id: str) -> None:
         if self.arena.get(session_id) is not None:

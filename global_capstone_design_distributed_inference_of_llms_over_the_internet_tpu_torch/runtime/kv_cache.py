@@ -114,6 +114,16 @@ class KVArena:
         with self._lock:
             return self._used_bytes
 
+    @property
+    def bytes_left(self) -> int:
+        with self._lock:
+            return self.max_bytes - self._used_bytes
+
+    def tokens_left(self) -> int:
+        """Advertised capacity: the ``cache_tokens_left`` a server publishes
+        with its heartbeat and its ``info`` frame."""
+        return max(0, self.bytes_left) // max(self.bytes_for(1), 1)
+
     def _publish_occupancy(self) -> None:
         used = self._used_bytes
         self._m_used.set(used)

@@ -5,9 +5,18 @@ The reference ships sampling params and the recent-token window in the
 request metadata on EVERY step, so the final stage samples statelessly.
 ``hidden`` is a torch tensor: int token ids [B, T] into the first stage,
 float activations [B, T, D] between stages. The trace context travels on
-the request and the serving peer's span on the response. Beam, speculative,
-deep-prompt, training, push-chain, deadline and burst fields are not ported
-yet, nor are the backward messages.
+the request and the serving peer's span on the response.
+
+The request carries every header field the reference's wire carries, with
+the reference's defaults, so that the TCP plane (``runtime/net.py``) builds
+one from any frame a client of either package sends. The deadline budget
+and the priority are honoured; the exotic fields (beam ``hypo_ids`` and
+``num_logprobs``, speculative ``draft_tokens``, deep ``prompts``, burst
+decode, push-chain ``next_servers``, the ``start_from_position`` rewind)
+are refused by the executor with a `StageExecutionError` that names the
+field, never ignored. ``prefix_len`` is a sharing hint that a server
+without a prefix store ignores, as in the reference. The training fields
+and the backward messages are not ported.
 """
 
 from __future__ import annotations
@@ -37,10 +46,39 @@ class StageRequest:
     # Absolute block sub-range to execute (None = the server's whole span).
     start_block: Optional[int] = None
     end_block: Optional[int] = None
+    # Deep prompts [span_layers, pre_seq, D] (refused by the port's executor).
+    prompts: Optional[torch.Tensor] = None
+    # Session rewind to this position before the step (refused).
+    start_from_position: Optional[int] = None
+    # Beam search: KV row each hypothesis continues from, and top-N
+    # logprobs instead of a sampled token (refused).
+    hypo_ids: Optional[Tuple[int, ...]] = None
+    num_logprobs: int = 0
+    # Speculative decoding: the K client-drafted tokens to verify (refused).
+    draft_tokens: Optional[Tuple[int, ...]] = None
+    # Model identity declared by the originating client; a server holding
+    # another model refuses the request.
+    model: Optional[str] = None
+    # Push-chain route: the hops after this one (refused).
+    next_servers: Tuple[dict, ...] = ()
+    # Prompt-prefix sharing hint: the leading prefix_len tokens of a prefill
+    # may be shared across sessions. A server without a prefix store (every
+    # port server) ignores it, as the reference's do.
+    prefix_len: int = 0
     # Trace context (telemetry.tracing):
     # {"trace_id": <16 hex>, "parent": <client span_id>, "hop": <int>}.
     # None = tracing off; servers treat it as opaque.
     trace: Optional[dict] = None
+    # Seconds of the end-to-end deadline left when the request left its
+    # sender; a server that finds it spent refuses the work. None = none.
+    deadline_budget_s: Optional[float] = None
+    # Tenant priority (lower = more urgent) for the server's task pool.
+    priority: Optional[float] = None
+    # Burst decode: up to burst_len ticks in one call, at most burst_budget
+    # tokens emitted, stopping at eos_token_id (refused).
+    burst_len: int = 0
+    burst_budget: int = 0
+    eos_token_id: Optional[int] = None
 
 
 @dataclasses.dataclass

@@ -11,7 +11,9 @@ and the phase profiler's ``server`` phase. Its timings are host time: an
 intermediate stage's step returns once its kernels are enqueued, and only
 the last stage's includes the token read it already does. Stalls (and with
 them ``transport_timeout``), deadlines, push chains and the training verb
-are not ported yet.
+are not ported yet; the TCP transport is ``runtime/net.py``. The deadline
+error class lives here as in the reference, so that a server's
+``deadline_expired`` frame maps onto it (``errors.from_wire``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,14 @@ class PeerUnavailable(ConnectionError):
     """The peer is dead/unreachable (the client must fail over)."""
 
 
+@_catalog
+class DeadlineExceeded(RuntimeError):
+    """The request's end-to-end deadline budget ran out (a server refused
+    already-expired work). Not a TimeoutError/ConnectionError subclass:
+    those are retryable, and retrying an exhausted deadline only burns more
+    of a budget that is already spent."""
+
+
 class Transport(abc.ABC):
     """Client-side view: submit a request to a named peer."""
 
@@ -45,6 +55,12 @@ class Transport(abc.ABC):
 
     def end_session(self, peer_id: str, session_id: str) -> None:
         """Best-effort: release the session's KV lease on a peer."""
+
+    def ping(self, peer_id: str) -> Optional[float]:
+        """Measured RTT to a peer in seconds, or None if unreachable. Base:
+        None (unsupported); a transport overrides it with a real round trip."""
+        del peer_id
+        return None
 
 
 class LocalTransport(Transport):
@@ -76,6 +92,11 @@ class LocalTransport(Transport):
         with self._lock:
             self._peers[peer_id] = executor
             self._dead[peer_id] = False
+
+    def remove_peer(self, peer_id: str) -> None:
+        with self._lock:
+            self._peers.pop(peer_id, None)
+            self._dead.pop(peer_id, None)
 
     def executor(self, peer_id: str) -> StageExecutor:
         with self._lock:

@@ -2,8 +2,9 @@
 scripts/torch_profile_decode.py, imports jax, jaxlib or the JAX package
 (statically, and at run time with jax blocked); and the modules it copied
 from the JAX package have not drifted from their originals (the NF4 code
-book among them, and the placement registry, which differs from its
-original only in its module docstring)."""
+book among them, the placement registry, which differs from its original
+only in its module docstring, and the byte-equal copies of the chaos
+layer, the task pool and the wire codec's source)."""
 
 import ast
 import dataclasses
@@ -130,6 +131,16 @@ def _without_module_docstring(path):
     assert isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant)
     lines = path.read_text(encoding="utf-8").splitlines(keepends=True)
     return "".join(lines[first.end_lineno:])
+
+
+@pytest.mark.parametrize("rel", ["runtime/faults.py", "runtime/task_pool.py",
+                                 "csrc/codec.cpp"])
+def test_byte_equal_copies(rel):
+    """The chaos layer, the task pool and the wire codec's C++ source are
+    copies of the JAX package's, byte for byte (the codec's lives in its
+    ``native/``)."""
+    original = rel.replace("csrc/", "native/")
+    assert (REPO / PORT_PKG / rel).read_bytes() == (REPO / JAX_PKG / original).read_bytes()
 
 
 def test_registry_copy_differs_from_its_original_only_in_the_docstring():

@@ -584,9 +584,8 @@ def test_bubble_fraction_synthetic_stall():
 
 def test_profiled_pipeline_populates_server_phase(weights):
     """With the profiler on, the port's 2-remote-stage generation fills the
-    serving boundary's ``server`` phase, one observation per remote call.
-    (The reference's client-side ``socket`` phase comes with the TCP client,
-    which the port does not have yet.)"""
+    serving boundary's ``server`` phase and the client's ``socket`` phase
+    (each hop's transport call), one observation each per remote call."""
     enable_phase_profiling()
     prof = get_profiler()
     prof.reset()
@@ -596,7 +595,8 @@ def test_profiled_pipeline_populates_server_phase(weights):
         snap = prof.snapshot()
         assert snap["server"]["count"] == 2 * 3    # 2 remote stages, 3 steps
         assert snap["server"]["total_s"] > 0.0
-        assert "socket" not in snap
+        assert snap["socket"]["count"] == 2 * 3
+        assert snap["socket"]["total_s"] >= snap["server"]["total_s"] > 0.0
     finally:
         disable_phase_profiling()
         prof.reset()
