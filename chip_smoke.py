@@ -10,7 +10,8 @@ the kernels; it never prints the last line of a smoke pass.)
    source, all at once.
 3. Kernels: calls each kernel's wrapper (``int8_dot``, ``nf4_dot``) at the
    shapes the main paths give it (llama-3.1-8b projections at M = 1, 8, 16,
-   the prompt length, 128 and 512, each row with the route it took), holds
+   the prompt length, the prompt's sequence bucket (the M a padded prefill
+   runs at), 128 and 512, each row with the route it took), holds
    it against its plain PyTorch version on the same card, and times the
    kernel, the plain version and one PyTorch library call computing the
    same function. Each is also held at ragged shapes of both its routes
@@ -19,7 +20,9 @@ the kernels; it never prints the last line of a smoke pass.)
    behind its ``MMA_MIN_M``). Prints JSON lines of shapes, crossover scan
    and per-layer sums per kernel.
 4. Sampling: times one sampled draw at llama-3.1-8b's vocabulary, the
-   port's threefry ``sample_token`` beside a ``torch.multinomial`` draw.
+   port's threefry ``sample_token`` beside a ``torch.multinomial`` draw
+   (the triple-repeat guard decides on the device, as on the final stage:
+   one host read a draw, the token's).
 5. int8 path: builds the port's in-process ``--mode local`` cluster through
    ``main.py``'s own functions (llama-3.1-8b at full width and depth, random
    weights from a seed, ``--quant int8``, bfloat16, 4 even stages), serves 3
@@ -27,9 +30,23 @@ the kernels; it never prints the last line of a smoke pass.)
    through ``int8_dot`` (launch counts reset just before, read just after),
    whose every prefill projection must take the tensor-core route
    (``_launches_mma``), and holds the greedy tokens to an unsplit greedy
-   loop over ``full_forward`` with the executors' float32 cache.
+   loop over ``full_forward`` with the executors' float32 cache. Every
+   stage replays CUDA graphs of its step (``runtime/graphs.py``): the
+   launch counts are the ones the graphs hold, added per replay; captures
+   and replays are counted per path (set to 0 with the launch counts) and
+   replays must reach stages x tokens; TTFT of the first request (which
+   pays the captures) is reported apart from the later ones, with the
+   peak and held device memory. Then, on this path: the capture check
+   (for every key the run captured, one replay and the eager step on
+   copies of the same cache must be bit-equal), the host syncs of one more
+   greedy request (one a token: the read of the token), a
+   ``torch.profiler`` trace of 8 captured decode steps (device busy ms and
+   idle share), and two sessions open at once (a greedy request while
+   another session holds its lease: its lease slot is new, so it pays
+   captures of its own; its TTFT, captures and reserved memory beside a
+   request on a reused slot, whose tokens it must equal).
 6. NF4 path: the same with ``--quant nf4`` and ``NF4_KERNEL=1``, through
-   ``nf4_dot``, with the same gates. Both serve phases run with telemetry
+   ``nf4_dot``, with the same gates and the capture check. Both serve phases run with telemetry
    off; the NF4 client is built as under ``--telemetry``, so its metrics go
    to the process-global registry, which stays disabled until step 7.
 7. Telemetry on the NF4 path, same client: one greedy request run with
@@ -56,12 +73,17 @@ the kernels; it never prints the last line of a smoke pass.)
    ``RegistryServer``, and the same 3 requests through a ``TcpTransport``
    client (``RemoteRegistry`` discovery, wire bf16). The tokens must equal
    the in-process run's exactly (the hidden state is bfloat16, so the bf16
-   wire round trip is the identity), with the launch gates of steps 5-6
-   (counts set to 0 just before the requests, read just after) and the
-   native wire codec loaded. On the int8 path a stage-2 replica joins and
+   wire round trip is the identity), with the launch and graph-replay
+   gates of steps 5-6 (counts set to 0 just before the requests, read just
+   after) and the native wire codec loaded. On the int8 path a stage-2 replica joins and
    the pinned stage-2 server is ``stop()``ped after its 3rd decode step
    of a greedy request: the client must recover onto the replica with the
    fault-free tokens.
+8b. Oracle (after the int8 TCP drive): ``--mode oracle --quant int8``'s
+   greedy generation of the first prompt through the fused engine
+   (``runtime/fused_decode.py``, one captured decode step replayed per
+   token) twice, and through the oracle's eager per-token loop: the tokens
+   must be equal; decode ms/token and TTFT of both.
 9. CLI drive: ``--mode registry``, then ``--mode serve --stage 1..3 --quant
    int8 --dtype bfloat16 --seed 0`` and ``--mode client`` with the first
    greedy prompt, each a process of its own on the card, started one after
@@ -122,6 +144,8 @@ HOOK_STEPS = 2000       # decode steps of the stub pipeline that prices the hook
 LIBRARY_NOTE = ("torch.matmul(x, dequantized bf16 weight): a yardstick that "
                 "reads the weight as bf16; the port never calls it")
 REPLACES = {"int8_dot": "ops/int8_kernel.py:98", "nf4_dot": "ops/nf4_kernel.py:132"}
+# The memory line `--mode serve` and `--mode client` print.
+MEMORY_LINE = r"PEAK_MEMORY_BYTES=(\d+) ALLOCATED_BYTES=(\d+) RESERVED_BYTES=(\d+)"
 
 
 # Every line of the run is also kept here: the JSON lines outgrow the tail
@@ -254,7 +278,8 @@ def int8_weight(torch, quant, gen, dev, k: int, n: int):
     return quant.QuantizedTensor(q, s, "bfloat16")
 
 
-def int8_phase(torch, ik, dev, prompt_len: int, bw: float, flops: float, flush):
+def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
+               flops: float, flush):
     """int8_dot at every main-path shape: agreement and times, each row with
     its route; ragged shapes of both routes and an x view at an offset; and
     the crossover scan of the two kernels at M = 1..16 on wgu and wd.
@@ -265,7 +290,7 @@ def int8_phase(torch, ik, dev, prompt_len: int, bw: float, flops: float, flush):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows, scan = [], []
-    ms = (1, 8, 16, prompt_len, 128, 512)
+    ms = tuple(sorted({1, 8, 16, prompt_len, prefill_m, 128, 512}))
     for site, k, n in SITES:
         w = int8_weight(torch, quant, gen, dev, k, n)
         q, s = w.q, w.s
@@ -364,7 +389,8 @@ def nf4_weight(torch, quant, gen, dev, k: int, n: int):
     return quant._quantize_leaf_nf4(w_bf16)
 
 
-def nf4_phase(torch, nk, dev, prompt_len: int, bw: float, flops: float, flush):
+def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
+              flops: float, flush):
     """nf4_dot at every main-path shape, on weights quantized by the port's
     own NF4 quantizer: agreement and times, each row with its route; ragged
     shapes of both routes; and the crossover scan of the two kernels at
@@ -375,7 +401,7 @@ def nf4_phase(torch, nk, dev, prompt_len: int, bw: float, flops: float, flush):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows, scan = [], []
-    ms = (1, 8, 16, prompt_len, 128, 512)
+    ms = tuple(sorted({1, 8, 16, prompt_len, prefill_m, 128, 512}))
     for site, k, n in SITES:
         w = nf4_weight(torch, quant, gen, dev, k, n)
         w_deq = w.dequant()                          # library yardstick only
@@ -423,8 +449,9 @@ def nf4_phase(torch, nk, dev, prompt_len: int, bw: float, flops: float, flush):
 
 def sampling_phase(torch, vocab: int, reps: int = 30):
     """Host wall time of one sampled draw at the model's vocabulary, as the
-    final stage pays it per sampled token (each call ends in a host read of
-    the token): the port's ``sample_token`` (threefry Gumbel-max draw), and
+    final stage pays it per sampled token (each call ends in its one host
+    read, of the token; the penalty's triple-repeat guard is decided on the
+    device): the port's ``sample_token`` (threefry Gumbel-max draw), and
     the same filters followed by one ``torch.multinomial`` draw, the port's
     draw before threefry. The draws alone beside them. The multinomial
     rows are a yardstick the port never calls."""
@@ -533,16 +560,22 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
                 (PROMPTS[2], sampling_cls(temperature=0.7, top_p=0.9, top_k=50,
                                           repetition_penalty=1.5))]
     prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p, _ in requests]
+    executors = path_executors(client)
     for mod in kernels.values():
         mod._launches = 0
         mod._launches_mma = 0
+    for ex in executors:
+        ex.graphs.captures = ex.graphs.replays = 0
     results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
                for ids, (_, sp) in zip(prompt_ids, requests)]
     torch.cuda.synchronize()
     launches = kernels[name]._launches
     launches_mma = kernels[name]._launches_mma
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    reserved_gb = torch.cuda.memory_reserved() / 1e9
     tokens = sum(len(r.tokens) for r in results)
+    graphs = graph_counts(f"{quant} path", executors, tokens)
     need = 4 * cfg.num_layers * tokens
     log(f"{quant} path: {tokens} tokens over {len(results)} requests, {name} "
         f"launches {launches} (>= 4 x {cfg.num_layers} x {tokens} = {need})")
@@ -570,16 +603,211 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     summary = {"model": MODEL, "quant": quant, "layers": cfg.num_layers,
                "stages": client.plan.num_stages, "requests": len(results),
                "tokens": tokens, f"{name}_launches": launches,
-               f"{name}_launches_mma": launches_mma,
+               f"{name}_launches_mma": launches_mma, "graphs": graphs,
                "prefill_ms": [r.ttft_s * 1e3 for r in results],
+               "ttft_first_ms": results[0].ttft_s * 1e3,
+               "ttft_later_ms": [r.ttft_s * 1e3 for r in results[1:]],
                "prompt_tokens": [len(ids) for ids in prompt_ids],
                "decode_ms_per_token": 1e3 * statistics.median(decode),
                "decode_ms_per_token_mean": 1e3 * sum(decode) / len(decode),
-               "peak_memory_gb": peak_gb, "setup_s": setup_s}
+               "peak_memory_gb": peak_gb, "held_memory_gb": held_gb,
+               "reserved_memory_gb": reserved_gb, "setup_s": setup_s}
     state = {"args": args, "cfg": cfg, "params": params, "client": client,
              "ref_params": ref_params, "prompt_ids": prompt_ids,
              "results": results, "requests": requests}
     return summary, state
+
+
+def path_executors(client):
+    """Every stage executor of an in-process client: stage 0, then the
+    transport's peers."""
+    return [client.stage0] + [client.transport.executor(p) for p in client.transport.peers()]
+
+
+def graph_counts(what: str, executors, tokens: int):
+    """Captures and replays of the path's executors (counters set to 0
+    before the requests): every token is one step of every stage, each a
+    replay, so replays must reach stages x tokens."""
+    captures = sum(ex.graphs.captures for ex in executors)
+    replays = sum(ex.graphs.replays for ex in executors)
+    need = len(executors) * tokens
+    log(f"{what}: {captures} graph captures, {replays} replays (>= {len(executors)} "
+        f"stages x {tokens} tokens = {need})")
+    if replays < need:
+        raise AssertionError(f"{what}: {replays} graph replays, want >= {need}")
+    return {"captures": captures, "replays": replays,
+            "per_stage": {ex.peer_id: [ex.graphs.captures, ex.graphs.replays]
+                          for ex in executors}}
+
+
+def capture_phase(torch, client, quant: str):
+    """For every key the served run captured, on every stage: one replay of
+    its graph and the eager step, each on its own copy of the same cache
+    (the lease buffer as the run left it) and the same static input and
+    cache_len. Output and cache writes must be bit-equal."""
+    keys = 0
+    for ex in path_executors(client):
+        for key, st in ex.graphs.entries():
+            k0, v0 = st.k.clone(), st.v.clone()
+            ek, ev = k0.clone(), v0.clone()
+            eager = st.step(st.x, ek, ev, st.cache_len)
+            st.graph.replay()
+            torch.cuda.synchronize()
+            if not (torch.equal(st.graph.out, eager) and torch.equal(st.k, ek)
+                    and torch.equal(st.v, ev)):
+                err = (st.graph.out.float() - eager.float()).abs().max().item()
+                raise AssertionError(f"{quant} {ex.peer_id} key {key[:3]}: replay "
+                                     f"differs from the eager step (max err {err})")
+            st.k.copy_(k0)
+            st.v.copy_(v0)
+            keys += 1
+    log(f"{quant} capture: replay bit-equal to the eager step for all {keys} "
+        "captured keys (output and cache writes)")
+    return {"keys": keys, "bit_equal": True}
+
+
+def sync_phase(torch, client, ids, greedy) -> dict:
+    """Host syncs of one in-process greedy request after its graphs exist:
+    one a token, the read of the sampled token."""
+    box = {}
+    syncs = count_syncs(torch, lambda: box.setdefault(
+        "r", client.generate(ids, MAX_NEW_TOKENS, sampling=greedy)))
+    tokens = len(box["r"].tokens)
+    log(f"host syncs of one greedy request: {syncs} for {tokens} tokens")
+    if syncs != tokens:
+        raise AssertionError(f"{syncs} host syncs for {tokens} tokens, want one a token")
+    return {"syncs": syncs, "tokens": tokens}
+
+
+def concurrent_phase(torch, client, ids, greedy) -> dict:
+    """Two sessions open at once on the same stages. Session A runs its
+    prefill and one decode step and holds its lease; meanwhile session B
+    runs a whole greedy request. B's lease is another buffer pair, a new
+    slot, and graph keys hold the slot, so every stage captures B's step
+    shapes inside B's request (the reference's jit cache is keyed by shape
+    alone). Then a request alone, on a reused slot, for comparison: B's
+    tokens must equal it. Prints B's TTFT and captures, the alone request's
+    TTFT, and the memory the allocator reserves before and after B, each
+    read after ``empty_cache()``: what stays reserved then is the live
+    tensors and the graphs' pools (a live graph's pool is never released),
+    so the difference is what B's graphs and lease added."""
+    executors = path_executors(client)
+
+    def captures():
+        return sum(ex.graphs.captures for ex in executors)
+
+    def reserved():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    held = client.generate_stepwise(ids, MAX_NEW_TOKENS, sampling=greedy)
+    next(held)
+    next(held)
+    c0, reserved0 = captures(), reserved()
+    second = client.generate(ids, MAX_NEW_TOKENS, sampling=greedy)
+    c1, reserved1 = captures(), reserved()
+    held.close()
+    alone = client.generate(ids, MAX_NEW_TOKENS, sampling=greedy)
+    if second.tokens != alone.tokens:
+        raise AssertionError("a second session's tokens differ from the same "
+                             "request's alone")
+    out = {"second_session_ttft_ms": 1e3 * second.ttft_s,
+           "second_session_captures": c1 - c0,
+           "alone_ttft_ms": 1e3 * alone.ttft_s,
+           "alone_captures": captures() - c1,
+           "graphs_held": sum(len(ex.graphs.entries()) for ex in executors),
+           "reserved_gb_before": reserved0 / 1e9, "reserved_gb_after": reserved1 / 1e9}
+    log(f"two sessions at once: the second's TTFT {out['second_session_ttft_ms']:.1f} ms "
+        f"with {c1 - c0} captures, reserved {reserved0 / 1e9:.3f} -> "
+        f"{reserved1 / 1e9:.3f} GB; alone on a reused slot "
+        f"{out['alone_ttft_ms']:.1f} ms with {out['alone_captures']} captures")
+    return out
+
+
+def busy_us(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted(intervals):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def profile_phase(torch, client, ids, greedy, smi: str, steps: int = 8) -> dict:
+    """torch.profiler over `steps` captured decode steps of the in-process
+    client: wall ms a step (host clock, each ending in the token read), the
+    device's busy ms (union of the traced kernels) and idle share."""
+    gen = client.generate_stepwise(ids, steps + 2, sampling=greedy)
+    next(gen)                                       # prefill and first token
+    next(gen)                                       # one untraced decode step
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    walls = []
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            next(gen)
+            walls.append(time.perf_counter() - t0)
+    gen.close()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    wall_ms = 1e3 * sum(walls) / steps
+    out = {"card": smi, "decode_steps_traced": steps, "wall_ms_per_step": wall_ms,
+           "kernels_per_step": len(kernels) / steps}
+    if kernels:
+        busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
+        out.update(device_busy_ms_per_step=busy, device_idle_share=1 - busy / wall_ms)
+        by_name = {}
+        for e in kernels:
+            ms_n = by_name.setdefault(e.name[:80], [0.0, 0])
+            ms_n[0] += (e.time_range.end - e.time_range.start) / 1e3 / steps
+            ms_n[1] += 1 / steps
+        out["top_kernels_ms_per_step"] = [
+            {"name": k, "ms": v[0], "launches": v[1]}
+            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]]
+        log(f"profile: {wall_ms:.2f} ms a captured decode step, device busy {busy:.2f} ms, "
+            f"idle {100 * (1 - busy / wall_ms):.1f}%, {len(kernels) / steps:.0f} kernels a step")
+    else:
+        out["device_busy_ms_per_step"] = "not measured: the profiler saw no device time"
+        log("profile: the profiler recorded no device activity")
+    return out
+
+
+def oracle_phase(torch, tmain, sampling_cls, cfg, params, ids, smi: str) -> dict:
+    """``--mode oracle --quant int8``'s greedy generation through the fused
+    engine (one captured decode step replayed a token) against the eager
+    per-token loop of the same oracle: equal tokens. Times of both."""
+    args = tmain.build_parser().parse_args(
+        ["--mode", "oracle", "--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
+         "--device", "cuda", "--seed", "0"])
+    generate = tmain.make_oracle_generate(args, cfg, params)
+    greedy = sampling_cls(temperature=0.0)
+    fused = [generate(ids, MAX_NEW_TOKENS, greedy) for _ in range(2)]
+    eager = generate.per_token(ids, MAX_NEW_TOKENS, greedy)
+    log(f"oracle int8: fused {fused[0].tokens}\n  per-token {eager.tokens}")
+    if not fused[0].tokens == fused[1].tokens == eager.tokens:
+        raise AssertionError("oracle: the fused engine's tokens differ from the "
+                             "per-token loop's")
+
+    def ms(r):
+        return 1e3 * statistics.median(r.decode_times_s) if r.decode_times_s else None
+
+    out = {"card": smi, "tokens": len(eager.tokens), "stopped_by": eager.stopped_by,
+           "tokens_equal_per_token": True,
+           "fused_decode_ms_per_token": [ms(r) for r in fused],
+           "per_token_decode_ms_per_token": ms(eager),
+           "fused_ttft_ms": [1e3 * r.ttft_s for r in fused],
+           "per_token_ttft_ms": 1e3 * eager.ttft_s}
+    log(f"oracle int8: decode {out['fused_decode_ms_per_token']} ms/token fused (first "
+        f"call pays the capture), {out['per_token_decode_ms_per_token']:.2f} per token "
+        "eager")
+    return out
 
 
 def failover_drive(torch, tmain, state):
@@ -919,6 +1147,9 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool)
         for mod in kernels.values():
             mod._launches = 0
             mod._launches_mma = 0
+        executors = path_executors(local)
+        for ex in executors:
+            ex.graphs.captures = ex.graphs.replays = 0
         results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
                    for ids, (_, sp) in zip(state["prompt_ids"], state["requests"])]
         torch.cuda.synchronize()
@@ -929,6 +1160,7 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool)
         if not native.have_native():
             raise AssertionError("the native wire codec is not loaded")
         tokens = sum(len(r.tokens) for r in results)
+        graphs = graph_counts(f"tcp {args.quant}", executors, tokens)
         need, need_mma = 4 * cfg.num_layers * tokens, 4 * cfg.num_layers * len(results)
         log(f"tcp {args.quant}: {tokens} tokens over {len(results)} requests, {name} "
             f"launches {launches} (>= {need}), tensor-core {launches_mma} (>= {need_mma})")
@@ -948,7 +1180,7 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool)
             "stages": local.plan.num_stages, "requests": len(results),
             "tokens": tokens, "tokens_equal_local": True,
             f"{name}_launches": launches, f"{name}_launches_mma": launches_mma,
-            "native_codec": native.have_native(),
+            "graphs": graphs, "native_codec": native.have_native(),
             "ttft_ms": [r.ttft_s * 1e3 for r in results],
             "ttft_ms_local": [r.ttft_s * 1e3 for r in state["results"]],
             "decode_ms_per_token": 1e3 * statistics.median(decode),
@@ -1071,7 +1303,7 @@ def cli_drive(torch, tok, int8_state, smi: str):
                   "--seed", "0", "--device", "cuda"]
     env = dict(os.environ, PYTHONIOENCODING="utf-8", PYTHONUNBUFFERED="1")
     procs = []
-    peaks, held = {}, {}
+    peaks, held, reserved = {}, {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
 
@@ -1125,19 +1357,20 @@ def cli_drive(torch, tok, int8_state, smi: str):
             ttft = float(re.search(r"TTFT: ([0-9.]+)s", stdout).group(1))
             tps = float(re.search(r"Decode: [0-9.]+s total, ([0-9.]+) tokens/s",
                                   stdout).group(1))
-            peak = re.search(r"PEAK_MEMORY_BYTES=(\d+) ALLOCATED_BYTES=(\d+)", stdout)
+            peak = re.search(MEMORY_LINE, stdout)
             peaks["client"] = peak and int(peak.group(1))
             held["client"] = peak and int(peak.group(2))
+            reserved["client"] = peak and int(peak.group(3))
             # A server prints its peak again when SIGINT stops it.
             for what, proc, _ in procs[1:]:
                 proc.send_signal(signal.SIGINT)
             for what, proc, _ in procs[1:]:
                 proc.wait(timeout=CLI_STEP_TIMEOUT_S)
-                last = re.findall(r"PEAK_MEMORY_BYTES=(\d+) ALLOCATED_BYTES=(\d+)",
-                                  (tmp / f"{what}.out").read_text())
+                last = re.findall(MEMORY_LINE, (tmp / f"{what}.out").read_text())
                 peaks[f"{what}_after_request"] = (int(last[-1][0]) if len(last) == 2
                                                   else None)
                 held[what] = int(last[-1][1]) if len(last) == 2 else None
+                reserved[what] = int(last[-1][2]) if len(last) == 2 else None
             missing = [k for k, v in peaks.items() if v is None]
             if missing:
                 raise AssertionError(f"cli: no peak device memory from {missing}")
@@ -1148,11 +1381,14 @@ def cli_drive(torch, tok, int8_state, smi: str):
                        "decode_ms_per_token_mean_printed": 1e3 / tps if tps else None,
                        "peak_memory_gb": {k: v / 1e9 for k, v in peaks.items()},
                        "held_memory_gb": {k: v and v / 1e9 for k, v in held.items()},
+                       "reserved_memory_gb": {k: v and v / 1e9
+                                              for k, v in reserved.items()},
                        "start_s": start_s, "client_run_s": client_s, "card": smi}
             log(f"cli: ttft {ttft * 1e3:.0f} ms, decode "
                 f"{summary['decode_ms_per_token_mean_printed']:.2f} ms/token (mean, "
                 f"printed); peaks GB {summary['peak_memory_gb']}; held GB "
-                f"{summary['held_memory_gb']}")
+                f"{summary['held_memory_gb']}; reserved GB "
+                f"{summary['reserved_memory_gb']}")
             return summary
         except BaseException:
             for what, _, err in procs:
@@ -1191,10 +1427,10 @@ def layer_sum(rows):
             "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
-def kernel_entry(name: str, rows, launches: int, prompt_len: int):
+def kernel_entry(name: str, rows, launches: int, prefill_m: int):
     """One kernel of the ``kernels`` line: one decode layer's four sites at
-    M = 1 summed, and one prefill layer (M = prompt_len) under
-    ``prefill``."""
+    M = 1 summed, and one prefill layer (M = prefill_m, the prompt padded to
+    its sequence bucket, as the executors run it) under ``prefill``."""
     decode_rows = [r for r in rows if r["M"] == 1]
     entry = {"name": name, "route": "cuda",
              "source": f"{PORT}/csrc/{name}.cu",
@@ -1203,9 +1439,9 @@ def kernel_entry(name: str, rows, launches: int, prompt_len: int):
              "launches": launches,
              "at": "one decode layer: wqkv+wo+wgu+wd at M=1, bf16, L2 cold",
              **layer_sum(decode_rows), "library": LIBRARY_NOTE}
-    pre = [r for r in rows if r["M"] == prompt_len]
+    pre = [r for r in rows if r["M"] == prefill_m]
     entry["prefill"] = {
-        "at": f"one prefill layer: wqkv+wo+wgu+wd at M={prompt_len}, bf16, L2 cold",
+        "at": f"one prefill layer: wqkv+wo+wgu+wd at M={prefill_m}, bf16, L2 cold",
         "route": "+".join(sorted({r["route"] for r in pre})), **layer_sum(pre)}
     return entry
 
@@ -1253,9 +1489,15 @@ def main(argv) -> int:
 
     kernel_mods = {"int8_dot": ik, "nf4_dot": nk}
     prompt_len = len(PROMPTS[0].encode())
+    # The executors pad a prompt to its sequence bucket: the M its prefill
+    # projections run at.
+    prefill_m = import_module(PORT + ".runtime.kv_cache").round_to_bucket(
+        prompt_len, import_module(PORT + ".runtime.executor").SEQ_BUCKETS)
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
-    int8_rows, int8_scan = int8_phase(torch, ik, "cuda", prompt_len, bw, flops, flush)
-    nf4_rows, nf4_scan = nf4_phase(torch, nk, "cuda", prompt_len, bw, flops, flush)
+    int8_rows, int8_scan = int8_phase(torch, ik, "cuda", prompt_len, prefill_m, bw,
+                                      flops, flush)
+    nf4_rows, nf4_scan = nf4_phase(torch, nk, "cuda", prompt_len, prefill_m, bw,
+                                   flops, flush)
     for kname, rows, scan in (("int8_dot", int8_rows, int8_scan),
                               ("nf4_dot", nf4_rows, nf4_scan)):
         log(json.dumps({f"{kname}_shapes": rows, "card": smi}))
@@ -1273,9 +1515,20 @@ def main(argv) -> int:
 
     int8_summary, state = serve(torch, kernel_mods, "int8_dot", tmain, sampling_cls,
                                 "int8", "cuda")
+    greedy = state["requests"][0][1]
+    int8_summary["capture"] = capture_phase(torch, state["client"], "int8")
+    int8_summary["syncs_per_request"] = sync_phase(torch, state["client"],
+                                                   state["prompt_ids"][0], greedy)
+    int8_summary["profile"] = profile_phase(torch, state["client"],
+                                            state["prompt_ids"][0], greedy, smi)
+    int8_summary["two_sessions"] = concurrent_phase(torch, state["client"],
+                                                    state["prompt_ids"][0], greedy)
     log(json.dumps({"main_path": int8_summary, "card": smi}))
     tcp = {"int8": tcp_drive(torch, kernel_mods, "int8_dot", tmain, state, smi,
                              failover=True)}
+    oracle = oracle_phase(torch, tmain, sampling_cls, state["cfg"], state["params"],
+                          state["prompt_ids"][0], smi)
+    log(json.dumps({"oracle": oracle}))
     # What the CLI drive compares with; the weights go.
     int8_state = {k: state[k] for k in ("results", "requests")}
     del state
@@ -1283,6 +1536,7 @@ def main(argv) -> int:
     # which stays disabled until the telemetry phase.
     nf4_summary, state = serve(torch, kernel_mods, "nf4_dot", tmain, sampling_cls,
                                "nf4", "cuda", extra_argv=("--telemetry",))
+    nf4_summary["capture"] = capture_phase(torch, state["client"], "nf4")
     tcp["nf4"] = tcp_drive(torch, kernel_mods, "nf4_dot", tmain, state, smi,
                            failover=False)
     tele = telemetry_phase(torch, tmain, nk, state, smi)
@@ -1297,9 +1551,9 @@ def main(argv) -> int:
     log(json.dumps({"cli_path": cli}))
 
     kernels = [kernel_entry("int8_dot", int8_rows, int8_summary["int8_dot_launches"],
-                            prompt_len),
+                            prefill_m),
                kernel_entry("nf4_dot", nf4_rows, nf4_summary["nf4_dot_launches"],
-                            prompt_len)]
+                            prefill_m)]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,8 +7,11 @@ Port of the JAX package's ``main.py`` for these modes:
     (``StageExecutor`` over a ``KVArena``) behind ``LocalTransport``, and
     the pipeline client running stage 0, one generation end to end. With
     no ``--splits`` the model is cut into 4 even stages.
-  * ``--mode oracle`` — the unpartitioned model, one ``full_forward`` per
-    token: the port's own single-device reference.
+  * ``--mode oracle`` — the unpartitioned model, the port's own
+    single-device reference: greedy generation on the fused engine
+    (``runtime/fused_decode.py``; on the card one captured decode step
+    replayed per token, the tokens read back once per chunk of up to 32),
+    sampled generation one ``full_forward`` per token.
   * ``--mode doctor`` — post-mortem over flight-recorder dumps
     (``--dumps f1.jsonl,f2.jsonl``, written by ``--events-dump``): failure
     chains, replay cost, anomalies, and with ``--critical_path`` each
@@ -24,13 +27,20 @@ Port of the JAX package's ``main.py`` for these modes:
     remote stages over ``TcpTransport``, discovered through the registry.
   ``serve`` and ``client`` hold only their stage's weights (every layer is
   still drawn, so the weights equal the full init's), print their peak
-  and held device memory as ``PEAK_MEMORY_BYTES=N ALLOCATED_BYTES=M`` and
+  and held device memory as ``PEAK_MEMORY_BYTES=N ALLOCATED_BYTES=M
+  RESERVED_BYTES=R`` and
   build the kernels and the wire codec before they serve; ``serve`` runs
   one throwaway session through its span first, as the reference does. The reference's gossip mirror, dial-back
   reachability vote and relay attach are not ported (ROADMAP Queue 1 #4),
   nor are the flags of the engines the port lacks (``--batched``, ``--sp``,
   ``--tp``, ``--use_load_balancing``, ``--use_cpu_offload``,
   ``--prefix_cache_mb``, ``--relay_capacity``): each exits naming itself.
+
+On the card every stage executor (``local``, ``serve`` and the client's
+stage 0) pads each prefill chunk and decode step to a sequence bucket and
+replays a CUDA graph of its step, captured at the first step of that
+shape (``serve`` captures the common shapes in its warmup): see
+``runtime/executor.py`` and ``runtime/graphs.py``.
 
 Telemetry as in the reference: ``--telemetry`` turns on the process-global
 metrics registry, tracer and flight recorder (the client folds its series
@@ -77,6 +87,8 @@ from .ops.sampling import RECENT_WINDOW, SamplingParams, sample_token
 from .ops.threefry import prng_key
 from .runtime.client import REPEAT_STOP, GenerationResult, PipelineClient, make_server_record
 from .runtime.executor import StageExecutor
+from .runtime.fused_decode import make_fused_decode
+from .runtime.kv_cache import DEFAULT_BUCKETS, round_to_bucket
 from .runtime.transport import LocalTransport
 from .scheduling.registry import PlacementRegistry
 
@@ -221,23 +233,83 @@ def run_local(args, cfg: ModelConfig, params) -> int:
     return _generate_and_report(args, client.generate, cfg)
 
 
+def oracle_cache_len(prompt_len: int, max_new_tokens: int) -> int:
+    """The oracle's KV cache rows: room for the prompt and the new tokens
+    (at least 128), rounded up to a cache bucket. Both oracle loops use it:
+    attention reads the whole cache, so the two see the same shapes."""
+    return round_to_bucket(max(128, prompt_len + max_new_tokens + 1), DEFAULT_BUCKETS)
+
+
+def _drive_chunks(prompt_ids, max_new_tokens: int, eos_token_id, *,
+                  prefill_first_token, run_chunk, chunk: int) -> GenerationResult:
+    """Chunked greedy generation (the reference's ``_drive_chunks``,
+    ``main.py:412-465``). ``prefill_first_token(prompt_ids) -> token`` runs
+    the prompt; ``run_chunk(last_token, cur_len, n) -> tokens`` runs n
+    fused steps. The stop rules (EOS, 5 identical tokens) are checked per
+    token inside a chunk, since the fused steps may overshoot a stop and
+    the kept tokens must be the per-token loop's; each chunk's whole wall
+    time is spread over the tokens kept."""
+    t0 = time.monotonic()
+    tokens = [prefill_first_token(prompt_ids)]
+    ttft = time.monotonic() - t0
+    cur = len(prompt_ids)
+    decode_times: List[float] = []
+    stopped = "max_tokens"
+    while len(tokens) < max_new_tokens and stopped == "max_tokens":
+        if eos_token_id is not None and tokens[-1] == eos_token_id:
+            stopped = "eos"
+            break
+        if len(tokens) >= REPEAT_STOP and len(set(tokens[-REPEAT_STOP:])) == 1:
+            stopped = "repeat"
+            break
+        n = min(chunk, max_new_tokens - len(tokens))
+        t0 = time.monotonic()
+        got = run_chunk(tokens[-1], cur, n)
+        dt = time.monotonic() - t0
+        kept = 0
+        for tok in got:
+            tokens.append(tok)
+            cur += 1
+            kept += 1
+            if eos_token_id is not None and tok == eos_token_id:
+                stopped = "eos"
+                break
+            if len(tokens) >= REPEAT_STOP and len(set(tokens[-REPEAT_STOP:])) == 1:
+                stopped = "repeat"
+                break
+        decode_times.extend([dt / max(kept, 1)] * kept)
+    return GenerationResult(tokens=tokens[:max_new_tokens], ttft_s=ttft,
+                            decode_times_s=decode_times[:max(len(tokens) - 1, 0)],
+                            stopped_by=stopped)
+
+
 def make_oracle_generate(args, cfg: ModelConfig, params):
-    """Unpartitioned generation, one ``full_forward`` per token, with the
-    pipeline's sampling rules (per-step seed ``seed + len(tokens)``, EOS
-    and 5x-repeat stops). Returns ``generate(prompt_ids, max_new_tokens,
-    sampling, eos_token_id=None)`` -> GenerationResult, with the weights it
-    runs as its ``params`` attribute.
+    """Unpartitioned generation with the pipeline's sampling rules (per-step
+    seed ``seed + len(tokens)``, EOS and 5x-repeat stops). Returns
+    ``generate(prompt_ids, max_new_tokens, sampling, eos_token_id=None)``
+    -> GenerationResult, with the weights it runs as its ``params``
+    attribute and the per-token loop as its ``per_token`` attribute.
+
+    Greedy generation runs on the fused engine (``runtime/fused_decode.py``,
+    the reference's ``exact_head`` head), as the reference's oracle does:
+    the prompt through ``full_forward``, then chunks of min(max_new_tokens,
+    32) decode steps, on the card each a replay of one captured step, the
+    tokens read back once a chunk. Sampled generation runs the per-token loop, one
+    ``full_forward`` per token (the reference folds its sampler into a
+    fused engine too; not ported yet). The draw of step i uses
+    ``PRNGKey(seed + i)``.
 
     As in the reference (``main.py:431-432``), the KV cache takes the
     weights' dtype, where the stage executors keep a float32 cache; under
     ``--dtype bfloat16`` the oracle therefore computes other numbers than
-    ``--mode local``. The draw of step i uses ``PRNGKey(seed + i)``."""
+    ``--mode local``."""
     params = _maybe_quantize(args, params)
     wte = params["embed"]["wte"]
     device = wte.device
+    engines = {}
 
-    def generate(prompt_ids, max_new_tokens, sampling, eos_token_id=None, **_kw):
-        max_len = max(128, len(prompt_ids) + max_new_tokens + 1)
+    def per_token(prompt_ids, max_new_tokens, sampling, eos_token_id=None, **_kw):
+        max_len = oracle_cache_len(len(prompt_ids), max_new_tokens)
         kc, vc = init_kv_cache(cfg, cfg.num_layers, 1, max_len,
                                dtype=wte.dtype, device=device)
         tokens: List[int] = []
@@ -276,7 +348,29 @@ def make_oracle_generate(args, cfg: ModelConfig, params):
         return GenerationResult(tokens=tokens, ttft_s=ttft,
                                 decode_times_s=decode_times, stopped_by=stopped)
 
+    def generate(prompt_ids, max_new_tokens, sampling, eos_token_id=None, **_kw):
+        if not sampling.greedy:
+            return per_token(prompt_ids, max_new_tokens, sampling, eos_token_id)
+        chunk = min(max_new_tokens, 32)
+        max_len = oracle_cache_len(len(prompt_ids), max_new_tokens)
+        engine = engines.get((chunk, max_len))
+        if engine is None:
+            engine = engines[(chunk, max_len)] = make_fused_decode(
+                cfg, params, chunk, max_len)
+
+        def prefill_first(ids):
+            logits = engine.prefill(torch.tensor([list(ids)], dtype=torch.int64))
+            return int(torch.argmax(logits[0, -1]))
+
+        def run_chunk(last, cur, n):
+            return engine(last, cur, n)[:n].tolist()
+
+        return _drive_chunks(prompt_ids, max_new_tokens, eos_token_id,
+                             prefill_first_token=prefill_first,
+                             run_chunk=run_chunk, chunk=chunk)
+
     generate.params = params
+    generate.per_token = per_token
     return generate
 
 
@@ -302,11 +396,13 @@ def refuse_unported_flags(args) -> None:
 
 
 def _report_peak_memory(device: torch.device) -> None:
-    """This process's peak device memory and what it holds now, on a line
-    of its own."""
+    """This process's peak device memory, what its tensors hold now and
+    what its allocator reserves now (the captured steps' memory pools
+    included), on a line of its own."""
     if device.type == "cuda":
         _emit(f"PEAK_MEMORY_BYTES={torch.cuda.max_memory_allocated(device)} "
-              f"ALLOCATED_BYTES={torch.cuda.memory_allocated(device)}", flush=True)
+              f"ALLOCATED_BYTES={torch.cuda.memory_allocated(device)} "
+              f"RESERVED_BYTES={torch.cuda.memory_reserved(device)}", flush=True)
 
 
 def _build_native(args, device: torch.device) -> None:

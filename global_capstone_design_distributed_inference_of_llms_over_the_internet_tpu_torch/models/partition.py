@@ -13,6 +13,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
+from ..ops.attention import CacheLen
 from .config import ModelConfig
 from .quant import tree_map
 from .transformer import embed_tokens, lm_head, stack_forward
@@ -120,11 +121,12 @@ def slice_stage_params(cfg: ModelConfig, params: Params, spec: StageSpec) -> Par
 
 def stage_forward(cfg: ModelConfig, spec: StageSpec, params: Params,
                   inputs: torch.Tensor, k_caches: torch.Tensor,
-                  v_caches: torch.Tensor, cache_len: int
+                  v_caches: torch.Tensor, cache_len: CacheLen
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Uniform stage forward, role-dispatched. inputs: int token ids [B, T]
     for the first stage, float hidden [B, T, D] otherwise. Returns
-    (hidden-or-logits, k_caches, v_caches); caches are updated in place."""
+    (hidden-or-logits, k_caches, v_caches); caches are updated in place.
+    `cache_len` is an int or a 0-d int64 device tensor (a captured step)."""
     t = inputs.shape[1]
     positions = cache_len + torch.arange(t, device=inputs.device)[None, :]
     x = embed_tokens(cfg, params["embed"], inputs, positions) if spec.is_first else inputs

@@ -17,6 +17,7 @@ Norms, biases, embeddings and the LM head stay in full precision.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict
 
 import torch
@@ -59,6 +60,14 @@ NF4_LEVELS = (
 NF4_BLOCK = 64
 
 
+@functools.lru_cache(maxsize=None)
+def _nf4_levels(device: torch.device) -> torch.Tensor:
+    """NF4_LEVELS as a float32 tensor on `device`, made once per device: a
+    captured step (``runtime/graphs.py``) that dequantizes cannot copy
+    from the host, and its eager warm-up run makes this first."""
+    return torch.tensor(NF4_LEVELS, dtype=torch.float32, device=device)
+
+
 class NF4Tensor:
     """4-bit NormalFloat weight: packed codes + per-block bf16 absmax scales.
 
@@ -87,8 +96,7 @@ class NF4Tensor:
         pairs, out = self.packed.shape[-2:]
         in_pad = 2 * pairs
         codes = torch.stack([self.packed >> 4, self.packed & 0xF], dim=-2)
-        levels = torch.tensor(NF4_LEVELS, dtype=torch.float32,
-                              device=self.packed.device)
+        levels = _nf4_levels(self.packed.device)
         vals = levels[codes.reshape(*lead, in_pad, out).long()]
         vals = vals.reshape(*lead, in_pad // NF4_BLOCK, NF4_BLOCK, out)
         vals = vals * self.scales.float()[..., :, None, :]

@@ -10,7 +10,12 @@ keeping its layout so the two packages compare like with like:
   * ``lax.scan`` over layers becomes a Python loop that slices each layer's
     leaves (views, no copies);
   * KV caches are preallocated ``[L, B, S, Hkv, Dh]`` tensors written in
-    place (see ``ops.attention``).
+    place (see ``ops.attention``);
+  * ``cache_len`` is a Python int or a 0-d int64 tensor on the device, and
+    positions are ``cache_len + arange(T)`` on the device: with a tensor
+    the forward reads nothing back to the host, so it can be captured as a
+    CUDA graph (``runtime/graphs.py``), the counterpart of the
+    reference's jitted step.
 
 Every projection goes through `_dot`, which sends packed int8 leaves to
 ``ops.int8_kernel.int8_dot`` and packed NF4 leaves to
@@ -25,7 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import cached_attention, update_kv_cache
+from ..ops.attention import CacheLen, cached_attention, update_kv_cache
 from ..ops.int8_kernel import int8_dot
 from ..ops.nf4_kernel import nf4_dot
 from ..ops.norms import layer_norm, rms_norm
@@ -305,7 +310,7 @@ def make_rope(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _attention(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
-               k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: int,
+               k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: CacheLen,
                window=None) -> torch.Tensor:
     b, t, _ = x.shape
     q, k, v = qkv_proj(cfg, p, x)
@@ -333,7 +338,7 @@ def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
                   k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  cache_len: int) -> torch.Tensor:
+                  cache_len: CacheLen) -> torch.Tensor:
     """Pre-norm residual block. x: [B, T, D] -> [B, T, D]; writes this
     layer's new keys/values into k_cache/v_cache ([B, S, Hkv, Dh]) in place."""
     p = dequant_tree(p)
@@ -351,7 +356,7 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
 
 def stack_forward(cfg: ModelConfig, layers: Params, x: torch.Tensor,
                   positions: torch.Tensor, k_caches: torch.Tensor,
-                  v_caches: torch.Tensor, cache_len: int
+                  v_caches: torch.Tensor, cache_len: CacheLen
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run a span of stacked layers (a loop over the leading axis L).
     k_caches/v_caches: [L, B, S, Hkv, Dh], updated in place and returned."""
@@ -384,7 +389,8 @@ def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_len: int,
 
 def full_forward(cfg: ModelConfig, params: Params, input_ids: torch.Tensor,
                  k_caches: torch.Tensor, v_caches: torch.Tensor,
-                 cache_len: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                 cache_len: CacheLen
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole unpartitioned model (the single-device oracle path). Returns
     (logits [B, T, V] float32, caches updated in place)."""
     t = input_ids.shape[1]

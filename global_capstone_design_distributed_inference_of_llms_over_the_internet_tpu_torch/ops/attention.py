@@ -10,35 +10,56 @@ Deliberate difference from the reference: the KV cache is written IN PLACE
 layer's cache is a view into the stage's stacked ``[L, B, S, Hkv, Dh]``
 buffer, so an in-place write costs the new rows only, not a copy of the
 whole cache per layer per step.
+
+``cache_len`` is a Python int or a 0-d int64 tensor on the cache's device.
+With a tensor nothing here reads a value back to the host, so a step can
+be captured as a CUDA graph and replayed at other lengths
+(``runtime/graphs.py``): the write goes to device indices, attention reads
+the whole cache bucket and the causal mask hides the rows at or past
+``cache_len + T``, as the reference's jitted step does.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
 NEG_INF = -1e30
 
+CacheLen = Union[int, torch.Tensor]
+
+
+def check_cache_write(cache_len: int, t: int, capacity: int) -> None:
+    """Raise unless rows [cache_len, cache_len + t) lie in a cache of
+    `capacity` rows: the host-side range check of a write, made by whoever
+    knows the host length (a device write would fail or, in a captured
+    step, land out of bounds)."""
+    if cache_len < 0 or cache_len + t > capacity:
+        raise ValueError(f"cache write [{cache_len}, {cache_len + t}) outside "
+                         f"cache of length {capacity}")
+
 
 def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
                     k_new: torch.Tensor, v_new: torch.Tensor,
-                    cache_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    cache_len: CacheLen) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write T new tokens at positions [cache_len, cache_len+T), in place.
 
     k_cache/v_cache: [B, S, Hkv, Dh]; k_new/v_new: [B, T, Hkv, Dh]. Returns
-    the same (updated) cache tensors."""
+    the same (updated) cache tensors. The rows are addressed by a device
+    index, so a tensor `cache_len` is never read back; an int one is
+    range-checked here, a tensor one by the caller."""
     t = k_new.shape[1]
-    if cache_len < 0 or cache_len + t > k_cache.shape[1]:
-        raise ValueError(f"cache write [{cache_len}, {cache_len + t}) outside "
-                         f"cache of length {k_cache.shape[1]}")
-    k_cache[:, cache_len:cache_len + t] = k_new.to(k_cache.dtype)
-    v_cache[:, cache_len:cache_len + t] = v_new.to(v_cache.dtype)
+    if not isinstance(cache_len, torch.Tensor):
+        check_cache_write(cache_len, t, k_cache.shape[1])
+    pos = cache_len + torch.arange(t, device=k_cache.device)
+    k_cache.index_copy_(1, pos, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, pos, v_new.to(v_cache.dtype))
     return k_cache, v_cache
 
 
 def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len: int, *,
+                     v_cache: torch.Tensor, cache_len: CacheLen, *,
                      sliding_window=None, scale: float = 0.0,
                      logit_softcap: float = 0.0) -> torch.Tensor:
     """Causal attention of T query tokens over a cache holding cache_len+T
@@ -46,29 +67,32 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     k_cache/v_cache: [B, S, Hkv, Dh] with the new keys already written.
     Returns [B, T, H, Dh].
 
-    Only the cache_len + T written rows are read: the rows past them are
-    masked in the reference, and a masked softmax weight is exactly zero.
-    sliding_window <= 0 (or None) disables the window; scale overrides
-    head_dim ** -0.5; logit_softcap > 0 applies cap * tanh(s / cap)."""
+    The whole cache is read, as in the reference: the causal mask hides
+    the rows at or past cache_len + T, and a masked softmax weight is
+    exactly zero. sliding_window (an int, or the per-layer 0-d tensor leaf
+    of the alternating-window families) <= 0 or None disables the window;
+    scale overrides head_dim ** -0.5; logit_softcap > 0 applies
+    cap * tanh(s / cap)."""
     b, t, h, dh = q.shape
+    s = k_cache.shape[1]
     hkv = k_cache.shape[2]
     groups = h // hkv
-    s = cache_len + t
     q = q * (scale if scale else dh ** -0.5)
     qg = q.reshape(b, t, hkv, groups, dh).float()
-    k = k_cache[:, :s].float()
-    scores = torch.einsum("bthgd,bshd->bhgts", qg, k)
+    scores = torch.einsum("bthgd,bshd->bhgts", qg, k_cache.float())
     if logit_softcap:
         scores = logit_softcap * torch.tanh(scores / logit_softcap)
     q_pos = cache_len + torch.arange(t, device=q.device)
     k_pos = torch.arange(s, device=q.device)
     allowed = k_pos[None, :] <= q_pos[:, None]
-    if sliding_window is not None:
-        w = int(sliding_window)
-        if w > 0:
-            allowed &= k_pos[None, :] > (q_pos[:, None] - w)
+    if isinstance(sliding_window, torch.Tensor):
+        # A device value: the mask is built from it, never read back.
+        allowed &= ((k_pos[None, :] > (q_pos[:, None] - sliding_window))
+                    | (sliding_window <= 0))
+    elif sliding_window is not None and sliding_window > 0:
+        allowed &= k_pos[None, :] > (q_pos[:, None] - sliding_window)
     scores = torch.where(allowed, scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
-    v = v_cache[:, :s]
-    out = torch.einsum("bhgts,bshd->bthgd", probs.to(v.dtype).float(), v.float())
+    out = torch.einsum("bhgts,bshd->bthgd", probs.to(v_cache.dtype).float(),
+                       v_cache.float())
     return out.reshape(b, t, h, dh).to(q.dtype)

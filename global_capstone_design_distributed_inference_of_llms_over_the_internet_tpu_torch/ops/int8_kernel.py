@@ -24,17 +24,20 @@ Two versions of one function:
 one kernel to the other, or from the card to the plain version.
 ``_launches`` counts kernel launches of both routes (not calls of the plain
 version) and ``_launches_mma`` those of the tensor-core route, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels (``ops/launch_counts.py``:
+a launch recorded into a CUDA graph counts on each replay).
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
 from ..models.quant import QuantizedTensor
 from ..utils.cuda_build import load_kernel_library
+from . import launch_counts
 
 SOURCE = "int8_dot.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -88,7 +91,6 @@ def _launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
             route: str | None = None) -> torch.Tensor:
     """Launch the kernel that `_route` names (`route` overrides it only for
     ``chip_smoke.py``'s crossover scan)."""
-    global _launches, _launches_mma
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
         raise TypeError(f"int8_dot kernel takes float32 or bfloat16 x, got {x.dtype}")
@@ -125,9 +127,8 @@ def _launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"int8_dot {route} kernel launch failed: "
                            + lib.int8_dot_error_string(rc).decode())
-    _launches += 1
-    if route == "mma":
-        _launches_mma += 1
+    names = ("_launches", "_launches_mma") if route == "mma" else ("_launches",)
+    launch_counts.count(sys.modules[__name__], *names)
     return y
 
 

@@ -27,17 +27,20 @@ Two versions of one function:
 one kernel to the other, or from the card to the plain version.
 ``_launches`` counts kernel launches of both routes (not calls of the plain
 version) and ``_launches_mma`` those of the tensor-core route, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels (``ops/launch_counts.py``:
+a launch recorded into a CUDA graph counts on each replay).
 """
 
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
 from ..models.quant import NF4_BLOCK, NF4Tensor
 from ..utils.cuda_build import load_kernel_library
+from . import launch_counts
 
 SOURCE = "nf4_dot.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -91,7 +94,6 @@ def _route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
 def _launch(x: torch.Tensor, w: NF4Tensor, route: str | None = None) -> torch.Tensor:
     """Launch the kernel that `_route` names (`route` overrides it only for
     ``chip_smoke.py``'s crossover scan)."""
-    global _launches, _launches_mma
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
         raise TypeError(f"nf4_dot kernel takes float32 or bfloat16 x, got {x.dtype}")
@@ -132,9 +134,8 @@ def _launch(x: torch.Tensor, w: NF4Tensor, route: str | None = None) -> torch.Te
     if rc != 0:
         raise RuntimeError(f"nf4_dot {route} kernel launch failed: "
                            + lib.nf4_dot_error_string(rc).decode())
-    _launches += 1
-    if route == "mma":
-        _launches_mma += 1
+    names = ("_launches", "_launches_mma") if route == "mma" else ("_launches",)
+    launch_counts.count(sys.modules[__name__], *names)
     return y
 
 

@@ -22,8 +22,9 @@ def rope_frequencies(head_dim: int, theta: float, scaling=None,
     """
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=device), exponents)
+    # A fill, not a host-to-device copy: this runs inside captured steps.
+    inv_freq = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                          device=device), exponents)
     if scaling is None:
         return inv_freq
     factor, low_ff, high_ff, orig_max = scaling

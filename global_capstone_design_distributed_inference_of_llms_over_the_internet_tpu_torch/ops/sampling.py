@@ -62,7 +62,8 @@ def push_recent(tokens: torch.Tensor, num_valid: int, new_token: int):
 def apply_repetition_penalty(logits: torch.Tensor, recent_tokens: torch.Tensor,
                              num_valid: int, repetition_penalty: float) -> torch.Tensor:
     """Count-scaled, sign-aware repetition penalty over the recent window.
-    logits: [V] float32; recent_tokens: [RECENT_WINDOW] int (newest last)."""
+    logits: [V] float32; recent_tokens: [RECENT_WINDOW] int (newest last).
+    Runs on the logits' device and reads nothing back to the host."""
     vocab = logits.shape[-1]
     window = recent_tokens.shape[0]
     valid = torch.arange(window, device=logits.device) < num_valid
@@ -75,13 +76,17 @@ def apply_repetition_penalty(logits: torch.Tensor, recent_tokens: torch.Tensor,
     logits = torch.where(counts > 0, penalized, logits)
 
     n = num_valid
-    t1, t2, t3 = (int(recent_tokens[min(max(n - i, 0), window - 1)]) for i in (1, 2, 3))
-    if n >= 3 and t1 == t2 == t3:
-        strong = rp ** 3
-        cur = logits[t1]
-        logits = logits.clone()
-        logits[t1] = torch.where(cur > 0, cur / strong, cur * strong)
-    return logits
+    if n < 3:
+        return logits
+    # Triple-repeat guard, decided on the device: the newest token's logit
+    # takes the strong penalty where the three newest tokens agree, and is
+    # written back unchanged where they do not.
+    t1, t2, t3 = (recent_tokens[min(n - i, window - 1)].long() for i in (1, 2, 3))
+    idx = t1.reshape(1)
+    cur = logits.index_select(0, idx)
+    strong = rp ** 3
+    hit = torch.where(cur > 0, cur / strong, cur * strong)
+    return logits.index_copy(0, idx, torch.where((t1 == t2) & (t2 == t3), hit, cur))
 
 
 def _top_k_filter(probs: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -123,9 +128,10 @@ def sample_token(key: Key, logits: torch.Tensor, recent_tokens: torch.Tensor,
                  num_valid: int, temperature: float, top_p: float, top_k: int,
                  repetition_penalty: float) -> int:
     """One sampling step, logits [V] -> token id. Greedy is the argmax of
-    the raw logits (no draw, `key` unused); otherwise the threefry draw
-    ``categorical(key, log(max(probs, 1e-20)))`` from `sample_probs`
-    (reference ``ops/sampling.py:309``)."""
+    the raw logits (no draw; `key` and the window unused); otherwise the
+    threefry draw ``categorical(key, log(max(probs, 1e-20)))`` from
+    `sample_probs` (reference ``ops/sampling.py:309``). The read of the
+    token is its one host sync."""
     if temperature <= 0.0:
         return int(torch.argmax(logits))
     probs = sample_probs(logits, recent_tokens, num_valid, temperature, top_p,

@@ -506,8 +506,9 @@ class PipelineClient:
                         ) -> Iterator[GenerationStep]:
         prompt_len = len(prompt_ids)
         max_length = max_length or prompt_len + max_new_tokens
-        device = self.stage0.device
-        ids = torch.tensor([list(prompt_ids)], dtype=torch.int64, device=device)
+        # Ids are made on the host: stage 0 copies them to its device
+        # without a host sync (a device tensor made from a list would sync).
+        ids = torch.tensor([list(prompt_ids)], dtype=torch.int64)
         generated: List[int] = []
         stopped_by = "max_tokens"
 
@@ -547,7 +548,7 @@ class PipelineClient:
                 stopped_by = "repeat"
                 break
             t0 = time.monotonic()
-            step_ids = torch.tensor([[generated[-1]]], dtype=torch.int64, device=device)
+            step_ids = torch.tensor([[generated[-1]]], dtype=torch.int64)
             step_span = tracer.start_span(
                 "pipeline_step", kind="client", session_id=session_id,
                 phase="decode", step=len(generated))

@@ -9,9 +9,17 @@ Replay semantics as in the reference: a prefill clears any existing session
 cache; a decode with no cached session and ``is_replay=True`` is treated as
 a prefill chunk; a decode with no cached session otherwise is a hard error.
 
-Differences from the reference's engine: PyTorch runs eagerly, so the step
-is a direct call and sequences are not padded to compile buckets (prefill
-still runs in byte-bounded chunks). Offload, tensor parallelism, the prefix
+As in the reference, each prefill chunk and decode step is padded to a
+sequence bucket and run by one step per (seq bucket, cache bucket): on the
+card a CUDA graph, captured at its first use or in `warmup` and replayed
+from then on (``runtime/graphs.py``), the counterpart of the reference's
+jitted step; on the CPU the same step function runs directly. Right-padded
+chunks are safe: padded queries only produce output rows, trimmed here,
+and padded cache rows sit past ``cache_len``, masked until a real token
+overwrites them. A chunk whose bucket would reach past the lease runs at
+its exact length instead (one more graph at the tail of a session).
+
+Differences from the reference's engine: offload, tensor parallelism, the prefix
 cache, deep prompts, speculative verify, beam search, burst decode, push
 chains, session rewind and training are not ported: a request that asks
 for one is refused with a `StageExecutionError` naming its field (the TCP
@@ -28,6 +36,7 @@ import logging
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..models.config import ModelConfig
 from ..models.partition import (
@@ -40,18 +49,20 @@ from ..models.partition import (
 )
 from ..models.quant import tree_map
 from ..models.transformer import fuse_qkv_params
+from ..ops.attention import check_cache_write
 from ..ops.sampling import RECENT_WINDOW, sample_token
 from ..ops.threefry import fold_in, prng_key
 from ..telemetry import events as _ev
 from .errors import register as _catalog
-from .kv_cache import AllocationFailed, KVArena, KVHandle
+from .graphs import StepGraphs
+from .kv_cache import AllocationFailed, KVArena, KVHandle, round_to_bucket
 from .messages import StageRequest, StageResponse
 
 logger = logging.getLogger(__name__)
 
 SEQ_BUCKETS = (1, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 # warmup(): a prefill of the first length, then steps of the others, in a
-# session of this capacity.
+# session of this capacity (on the card, each captures its graph).
 WARMUP_SEQ_LENS = (16, 8, 1)
 WARMUP_MAX_LENGTH = 128
 
@@ -67,14 +78,18 @@ def _sample_rows(logits: torch.Tensor, t_real: int, req: StageRequest) -> list:
     ``PRNGKey(step_seed)`` and row i with ``fold_in(base, i)``, the
     reference's key schedule (``executor.py:160-173``), so row 0 of a batch
     draws what a batch-1 request would. The recent-token window is per
-    session, shared by the rows."""
+    session, shared by the rows; greedy rows need none. The one host sync a
+    row makes is the read of its token."""
     last = logits[:, t_real - 1]
-    n = min(len(req.generated_tokens), RECENT_WINDOW)
-    recent = torch.zeros(RECENT_WINDOW, dtype=torch.int32)
-    if n:
-        recent[:n] = torch.tensor(req.generated_tokens[-n:], dtype=torch.int32)
-    recent = recent.to(last.device)
     sp = req.sampling
+    window = list(req.generated_tokens[-RECENT_WINDOW:])
+    n = len(window)
+    recent = None
+    if not sp.greedy:
+        recent = torch.zeros(RECENT_WINDOW, dtype=torch.int32)
+        if n:
+            recent[:n] = torch.tensor(window, dtype=torch.int32)
+        recent = recent.to(last.device, non_blocking=True)
     base = prng_key(req.step_seed)
     return [sample_token(base if i == 0 else fold_in(base, i), row, recent, n,
                          sp.temperature, sp.top_p, sp.top_k,
@@ -123,6 +138,9 @@ class StageExecutor:
             num_layers=max(spec.num_layers, 1), num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, max_bytes=max_cache_bytes,
             device=self.device, dtype=cache_dtype)
+        # The captured steps; a graph goes when its lease buffers do.
+        self.graphs = StepGraphs(self.device)
+        self.arena.add_release_hook(self.graphs.drop_slot)
         # Sub-span execution units keyed by relative layer range (a, b): a
         # request may cover only part of the loaded span.
         self._subspans: Dict[tuple, tuple] = {}
@@ -223,7 +241,8 @@ class StageExecutor:
                 "plain prefill and decode steps")
         a, b = self._resolve_range(req)
         sub_spec, sub_params, step = self._get_subspan(a, b)
-        x = req.hidden.to(self.device)
+        # An id tensor from the host crosses without a host sync.
+        x = req.hidden.to(self.device, non_blocking=True)
         if x.is_floating_point() and self.act_dtype not in (None, x.dtype):
             x = x.to(self.act_dtype)
         want_ndim = 2 if sub_spec.is_first else 3
@@ -252,10 +271,8 @@ class StageExecutor:
         outs = []
         for off in range(0, t_real, chunk):
             n = min(chunk, t_real - off)
-            out, _, _ = step(sub_params, x[:, off:off + n], handle.k, handle.v,
-                             handle.cache_len)
-            handle.advance(n)
-            outs.append(out)
+            outs.append(self._dispatch_chunk((a, b), step, sub_params,
+                                             x[:, off:off + n], handle, n))
         self.requests_served += 1
 
         if sub_spec.is_last:
@@ -267,6 +284,27 @@ class StageExecutor:
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
         return StageResponse(session_id=req.session_id, hidden=out,
                              cache_len=handle.cache_len)
+
+    def _dispatch_chunk(self, span: tuple, step, sub_params, x: torch.Tensor,
+                        handle: KVHandle, n: int) -> torch.Tensor:
+        """ONE bucket-padded step of n real tokens against the session
+        cache (the reference's ``_dispatch_chunk``, ``executor.py:690``):
+        advances the cache and returns the output trimmed to n rows."""
+        tb = round_to_bucket(n, SEQ_BUCKETS)
+        if handle.cache_len + tb > handle.bucket_len:
+            # Padding would write past the lease: run the exact length (its
+            # own graph), as the reference pays one more compile here.
+            tb = n
+        check_cache_write(handle.cache_len, tb, handle.bucket_len)
+        if tb != n:
+            x = F.pad(x, (0, 0) * (x.ndim - 2) + (0, tb - n))
+        key = (span, tb, handle.bucket_len, handle.slot, x.dtype)
+        out = self.graphs.run(
+            key, handle.slot,
+            lambda xs, k, v, cache_len: step(sub_params, xs, k, v, cache_len)[0],
+            x, handle.k, handle.v, handle.cache_len, n)
+        handle.advance(n)
+        return out
 
     def _max_chunk_tokens(self, batch: int) -> int:
         """Tokens per prefill chunk: the byte budget over the per-token
@@ -284,7 +322,10 @@ class StageExecutor:
         """One throwaway session through the span before serving (prefill,
         then steps of the other lengths), as the reference's serve mode
         does: the first real request then pays no one-time device set-up
-        (library handles, kernel modules) inside its client's deadline."""
+        (library handles, kernel modules) inside its client's deadline. On
+        the card each step captures its graph, at the 128-token cache
+        bucket; the session's buffers then go to the arena's free list, and
+        the next lease of that shape takes them and their graphs."""
         cur = 0
         for i, t in enumerate(WARMUP_SEQ_LENS):
             if self.spec.is_first:

@@ -8,14 +8,26 @@ free memory. Idle sessions can be evicted (`evict_idle`). The arena
 publishes its occupancy gauges and allocation counters, and records
 ``kv_alloc_failed`` / ``kv_backpressure`` / ``kv_eviction`` events, from
 host integers it already keeps.
+
+Deliberate difference from the reference: a freed lease's buffers are
+reused in place. A captured step (``runtime/graphs.py``) reads fixed
+addresses, so a freed lease's ``k``/``v`` go on a free list keyed by shape
+(layers, batch, bucket) and the next lease of that shape takes them, each
+zeroed with one ``zero_()`` so it starts as a fresh lease does. Free-listed
+bytes count as free for admission (``used_bytes``, ``bytes_left`` and
+``tokens_left`` are the reference's); they are released, and the release
+hooks told (the executor drops the graphs that read them), when an
+allocation of another shape needs the room. Each buffer pair keeps one
+``slot`` number for its life, the key its graphs are filed under.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -59,6 +71,7 @@ class KVHandle:
     cache_len: int = 0
     last_used: float = dataclasses.field(default_factory=time.monotonic)
     freed: bool = False
+    slot: int = -1           # the buffer pair's number in its arena
 
     def admit(self, new_tokens: int) -> None:
         """Admission check before dispatching a step."""
@@ -101,6 +114,12 @@ class KVArena:
         self._used_bytes = 0
         self._handles: Dict[str, KVHandle] = {}
         self._pending: set = set()
+        # Freed buffer pairs by shape, each (slot, k, v, nbytes), and their
+        # bytes; called with a slot's number when its buffers are released.
+        self._free: Dict[tuple, List[tuple]] = {}
+        self._free_bytes = 0
+        self._slots = itertools.count()
+        self._release_hooks: List[Callable[[int], None]] = []
 
     def bytes_for(self, bucket_len: int, num_layers: Optional[int] = None,
                   batch: int = 1) -> int:
@@ -168,6 +187,14 @@ class KVArena:
                             f"bytes used, need {nbytes}, timed out after "
                             f"{timeout:.1f}s")
                 self._used_bytes += nbytes
+                shape = (layers, batch, bucket_len, self.num_kv_heads, self.head_dim)
+                reused = self._free.get(shape)
+                reused = reused.pop() if reused else None
+                if reused is not None:
+                    self._free_bytes -= reused[3]
+                    released = []
+                else:
+                    released = self._release_free()
             except BaseException:
                 self._pending.discard(session_id)
                 raise
@@ -178,10 +205,18 @@ class KVArena:
                          wait_s=round(wait_s, 4))
             self._m_allocs.inc()
             self._publish_occupancy()
+        for slot in released:
+            for hook in self._release_hooks:
+                hook(slot)
         try:
-            shape = (layers, batch, bucket_len, self.num_kv_heads, self.head_dim)
-            k = torch.zeros(shape, dtype=self.dtype, device=self.device)
-            v = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            if reused is not None:
+                slot, k, v, _ = reused
+                k.zero_()
+                v.zero_()
+            else:
+                slot = next(self._slots)
+                k = torch.zeros(shape, dtype=self.dtype, device=self.device)
+                v = torch.zeros(shape, dtype=self.dtype, device=self.device)
         except BaseException:
             # Roll back the reservation (e.g. device OOM) so it never leaks.
             with self._lock:
@@ -192,11 +227,32 @@ class KVArena:
                 self._publish_occupancy()
             raise
         handle = KVHandle(session_id=session_id, max_length=max_length,
-                          bucket_len=bucket_len, nbytes=nbytes, k=k, v=v)
+                          bucket_len=bucket_len, nbytes=nbytes, k=k, v=v,
+                          slot=slot)
         with self._lock:
             self._pending.discard(session_id)
             self._handles[session_id] = handle
         return handle
+
+    def _release_free(self) -> List[int]:
+        """Drop free-listed buffer pairs (under the lock, after the new
+        lease's bytes joined the used ones) until the leases and what stays
+        on the free list fit the budget. Returns the released slots."""
+        released = []
+        for shape in list(self._free):
+            entries = self._free[shape]
+            while entries and self._used_bytes + self._free_bytes > self.max_bytes:
+                slot, _, _, size = entries.pop()
+                self._free_bytes -= size
+                released.append(slot)
+            if not entries:
+                del self._free[shape]
+        return released
+
+    def add_release_hook(self, hook: Callable[[int], None]) -> None:
+        """Call ``hook(slot)`` whenever a free-listed buffer pair is released."""
+        with self._lock:
+            self._release_hooks.append(hook)
 
     def get(self, session_id: str) -> Optional[KVHandle]:
         with self._lock:
@@ -208,7 +264,12 @@ class KVArena:
             if handle is None or handle.freed:
                 return
             handle.freed = True
-            handle.k = None  # type: ignore[assignment]  # drop device buffers
+            # The buffers go on the free list for the next lease of their
+            # shape; the handle lets go of them.
+            self._free.setdefault(tuple(handle.k.shape), []).append(
+                (handle.slot, handle.k, handle.v, handle.nbytes))
+            self._free_bytes += handle.nbytes
+            handle.k = None  # type: ignore[assignment]
             handle.v = None  # type: ignore[assignment]
             self._used_bytes -= handle.nbytes
             self._lock.notify_all()

@@ -118,13 +118,15 @@ def test_nf4_failover_replay_runs_the_kernel_path(monkeypatch, weights):
                         lambda x, w, _f=tnk.nf4_dot_reference: calls.append(x.shape[0])
                         or _f(x, w))
     # Kill the stage-3 peer that served the prefill: the next decode step
-    # fails over, and the replica replays the 4-token prompt chunk.
+    # fails over, and the replica replays the 4-token prompt chunk. The
+    # executors pad each chunk to its sequence bucket, as the reference's
+    # do: 4 tokens run at M = 8.
     transport.on_call = lambda peer, req: (
         transport.kill(peer) if req.is_prefill and not req.is_replay and "s3" in peer
         else None)
     client.generate([5, 9, 23, 7], max_new_tokens=3, sampling=GREEDY)
     assert client.recoveries == 1
-    assert calls.count(4) >= 2 * 4             # prefill + replay, 4 sites
+    assert calls.count(8) >= 2 * 4             # prefill + replay, 4 sites
 
 
 # -- circuit breaker state machine (injected clock, no sleeps) ----------------
