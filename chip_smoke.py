@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``--kernels-only``: steps 1-3 and stop, a development aid for iterating on
-the kernels; it never prints the last line of a smoke pass.)
+(``--kernels-only``: steps 1-3b and stop, a development aid for iterating
+on the kernels; it never prints the last line of a smoke pass.)
 
 1. Card: prints ``nvidia-smi``'s name and power limit, torch and CUDA versions.
 2. Build: compiles every CUDA kernel of the port from ``csrc/``, one nvcc per
@@ -19,18 +19,31 @@ the kernels; it never prints the last line of a smoke pass.)
    kernels of each are timed at M = 1..16 on wgu and wd (the crossover scan
    behind its ``MMA_MIN_M``). Prints JSON lines of shapes, crossover scan
    and per-layer sums per kernel.
-4. Sampling: times one sampled draw at llama-3.1-8b's vocabulary, the
-   port's threefry ``sample_token`` beside a ``torch.multinomial`` draw
-   (the triple-repeat guard decides on the device, as on the final stage:
-   one host read a draw, the token's).
+3b. The draw kernel (``sample_draw``, ``csrc/sample_draw.cu``): at V =
+   128256 and 1000, B = 1 and 4, temperatures 0.7 and 1.5, 8 seeds each,
+   its Gumbel noise must be bit-equal to the plain ``threefry.gumbel`` and
+   its tokens equal to the plain draw; planted ties in far-apart blocks go
+   to the first index. Times of the kernel, the plain version and
+   ``torch.multinomial`` on the same probs (a yardstick), and its bound.
+4. Sampler: the captured sampler (``runtime/graphs.Sampler``, one graph
+   per batch rows and vocabulary) must give the eager device sampler's
+   tokens at llama-3.1-8b's vocabulary for B = 1 and 2 over greedy and
+   every top_k 0 / 1 / 50, top_p 0.9 / 1.0, rp 1.0 / 1.5, with windows of
+   0, 2, 3 identical and 60 tokens; host ms a call of both (each ends in
+   its one read), the draws alone, a replay's device ms.
 5. int8 path: builds the port's in-process ``--mode local`` cluster through
    ``main.py``'s own functions (llama-3.1-8b at full width and depth, random
    weights from a seed, ``--quant int8``, bfloat16, 4 even stages), serves 3
    requests (two greedy, one sampled), checks that every projection went
    through ``int8_dot`` (launch counts reset just before, read just after),
    whose every prefill projection must take the tensor-core route
-   (``_launches_mma``), and holds the greedy tokens to an unsplit greedy
-   loop over ``full_forward`` with the executors' float32 cache. Every
+   (``_launches_mma``), and every sampled token through one ``sample_draw``
+   (launches and the last stage's sampler replays >= sampled tokens), and
+   holds the greedy tokens to an unsplit greedy loop over ``full_forward``
+   with the executors' float32 cache and the sampled request's to the
+   same loop sampling with the plain sampler and the pipeline's step seeds
+   (equal, or a first difference where the reference's two best perturbed
+   scores are within the near-tie tolerance). Every
    stage replays CUDA graphs of its step (``runtime/graphs.py``): the
    launch counts are the ones the graphs hold, added per replay; captures
    and replays are counted per path (set to 0 with the launch counts) and
@@ -39,7 +52,8 @@ the kernels; it never prints the last line of a smoke pass.)
    peak and held device memory. Then, on this path: the capture check
    (for every key the run captured, one replay and the eager step on
    copies of the same cache must be bit-equal), the host syncs of one more
-   greedy request (one a token: the read of the token), a
+   greedy and one more sampled request (one a token: the read of the
+   token), a
    ``torch.profiler`` trace of 8 captured decode steps (device busy ms and
    idle share), and two sessions open at once (a greedy request while
    another session holds its lease: its lease slot is new, so it pays
@@ -68,28 +82,37 @@ the kernels; it never prints the last line of a smoke pass.)
    hooks' own host cost (client and transport over stub stages, telemetry
    off and on), then turns telemetry off and clears it.
 8. In-process TCP drive, after each of the int8 and NF4 paths (before the
-   telemetry phase on the NF4 one): that path's stage executors behind
-   ``TcpStageServer``s (each with its own ``StageRuntime``) registered at a
-   ``RegistryServer``, and the same 3 requests through a ``TcpTransport``
-   client (``RemoteRegistry`` discovery, wire bf16). The tokens must equal
-   the in-process run's exactly (the hidden state is bfloat16, so the bf16
-   wire round trip is the identity), with the launch and graph-replay
-   gates of steps 5-6 (counts set to 0 just before the requests, read just
-   after) and the native wire codec loaded. On the int8 path a stage-2 replica joins and
-   the pinned stage-2 server is ``stop()``ped after its 3rd decode step
-   of a greedy request: the client must recover onto the replica with the
-   fault-free tokens.
+   telemetry phase on the NF4 one). The path's stage executors, with no
+   act_dtype (as ``--mode serve`` builds them: an arrival computes in the
+   float32 the wire decodes to), behind ``TcpStageServer``s (each with its
+   own ``StageRuntime``) registered at a ``RegistryServer``, and the same
+   3 requests through a ``TcpTransport`` client (``RemoteRegistry``
+   discovery). int8 runs at wire f32, so each hop hands on the float32 it
+   computed: first the requests run in process with every executor after
+   stage 0 given ``act_dtype=torch.float32`` (held to the references as in
+   step 5), and the TCP tokens must equal that chain's exactly. NF4 runs at
+   wire bf16, ``--wire_dtype``'s default, so each hop rounds to bfloat16:
+   its requests are held to the float32-cache references as in step 5.
+   Both with the launch,
+   draw and graph-replay gates of steps 5-6 (counts set to 0 just before
+   the requests, read just after; tensor-core launches: stage 0's prefill
+   sites, the only ones still given bf16 x) and the native wire codec
+   loaded. On the int8 path a stage-2 replica joins and the pinned stage-2
+   server is ``stop()``ped after its 3rd decode step of a greedy request:
+   the client must recover onto the replica with the fault-free tokens.
 8b. Oracle (after the int8 TCP drive): ``--mode oracle --quant int8``'s
-   greedy generation of the first prompt through the fused engine
-   (``runtime/fused_decode.py``, one captured decode step replayed per
-   token) twice, and through the oracle's eager per-token loop: the tokens
-   must be equal; decode ms/token and TTFT of both.
+   generation of the first prompt, greedy and then sampled, through the
+   fused engines (``runtime/fused_decode.py``, one captured decode step
+   replayed per token; the sampled one holds the sampler) twice, and
+   through the oracle's eager per-token loop: the tokens must be equal;
+   decode ms/token and TTFT of both.
 9. CLI drive: ``--mode registry``, then ``--mode serve --stage 1..3 --quant
-   int8 --dtype bfloat16 --seed 0`` and ``--mode client`` with the first
-   greedy prompt, each a process of its own on the card, started one after
-   another (handshake lines scraped, port 0 everywhere). The client's
-   printed generation must equal the in-process int8 run's for that
-   prompt, and the token ids on its ``TOKENS=`` line must equal that run's.
+   int8 --dtype bfloat16 --seed 0 --wire_dtype f32`` and ``--mode client``
+   with the first greedy prompt, each a process of its own on the card,
+   started one after another (handshake lines scraped, port 0
+   everywhere). The client's printed generation must equal the in-process
+   int8 float32 chain's for that prompt (step 8), and the token ids on its
+   ``TOKENS=`` line must equal that run's.
    Each process's peak device memory is read from its ``PEAK_MEMORY_BYTES``
    lines (a server prints one when it starts serving and one when it stops
    on SIGINT, after the request); every child is killed at the end,
@@ -97,8 +120,8 @@ the kernels; it never prints the last line of a smoke pass.)
    ``tcp_path`` and ``cli_path`` JSON lines carry TTFT, decode ms/token,
    the per-hop ``client_stage_time_seconds``, the client's ``socket``
    phase and the peaks.
-10. Prints the ``kernels`` JSON line and ``{"ok": true, "device": {...}}``
-   as its last line.
+10. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
+   ``sample_draw``) and ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
 refuses to run without a CUDA device, and outside a checkout of the repo.
@@ -112,6 +135,7 @@ import json
 import os
 import pathlib
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -143,7 +167,25 @@ TELEMETRY_PAIRS = 4     # telemetry off / on runs of one request, in ABBA order
 HOOK_STEPS = 2000       # decode steps of the stub pipeline that prices the hooks
 LIBRARY_NOTE = ("torch.matmul(x, dequantized bf16 weight): a yardstick that "
                 "reads the weight as bf16; the port never calls it")
-REPLACES = {"int8_dot": "ops/int8_kernel.py:98", "nf4_dot": "ops/nf4_kernel.py:132"}
+REPLACES = {"int8_dot": "ops/int8_kernel.py:98", "nf4_dot": "ops/nf4_kernel.py:132",
+            # Not a Pallas kernel: the reference leaves the draw to XLA in
+            # sample_token (jitted as sample_token_jit).
+            "sample_draw": "ops/sampling.py:309"}
+# The draw's bound: the integer instructions an element needs on sm_90,
+# against the CUDA cores' int32 rate: 64 int32 lanes an SM (NVIDIA's Hopper
+# architecture white paper) x 132 SMs x 1.98 GHz (the H100 SXM's boost
+# clock). An element: the counter's low word plus the key (1 IADD3; the
+# high word is 0 and x0 starts at the key) + 20 rounds x 3 (IADD3, one
+# SHF.L.W funnel shift for the constant rotate, LOP3 xor) + 5 key
+# injections x 2 words (one IADD3 each, the round constant folded in) + the
+# uniform's bits (the output xor, the shift, the or) = 74. The float work
+# (the uniform's product, two logf, the score) is not counted: it only
+# raises the bound. `draw_sass` reads the built kernel's own opcodes.
+DRAW_INT_OPS = 74
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+DRAW_LIBRARY_NOTE = ("no single PyTorch call draws threefry Gumbel-max tokens; "
+                     "multinomial_ms times torch.multinomial on the same probs, "
+                     "another draw, as a yardstick only")
 # The memory line `--mode serve` and `--mode client` print.
 MEMORY_LINE = r"PEAK_MEMORY_BYTES=(\d+) ALLOCATED_BYTES=(\d+) RESERVED_BYTES=(\d+)"
 
@@ -212,17 +254,21 @@ def build_kernels(modules) -> float:
     return time.monotonic() - t0
 
 
-def cuda_ms(fn, torch, reps: int = 25, flush=None) -> float:
+def cuda_ms(fn, torch, reps: int = 25, flush=None, spin: bool = False) -> float:
     """Median device time of one call, CUDA events around each call. A
     write of `flush` (1 GiB) before each call evicts the L2 (the main path
     reads each weight cold) and keeps the stream busy while the host
-    enqueues the call, so the events bracket device time, not host time."""
+    enqueues the call, so the events bracket device time, not host time.
+    `spin` keeps the stream busy with a spin kernel instead, leaving the
+    L2 as the last call left it (inputs the main path has just written)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+        elif spin:
+            torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -447,45 +493,236 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
     return rows, scan
 
 
-def sampling_phase(torch, vocab: int, reps: int = 30):
-    """Host wall time of one sampled draw at the model's vocabulary, as the
-    final stage pays it per sampled token (each call ends in its one host
-    read, of the token; the penalty's triple-repeat guard is decided on the
-    device): the port's ``sample_token`` (threefry Gumbel-max draw), and
-    the same filters followed by one ``torch.multinomial`` draw, the port's
-    draw before threefry. The draws alone beside them. The multinomial
-    rows are a yardstick the port never calls."""
+def host_ms(fn, torch, reps: int = 30) -> float:
+    """Median host wall time of one call that ends in a host read."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def replay_kernels(torch, replay, reps: int = 10):
+    """Device kernels of `replay` by name under torch.profiler: ms and
+    launches a replay, the 8 longest (where a captured sampler's time goes)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            replay()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms_n = by_name.setdefault(e.name[:80], [0.0, 0])
+            ms_n[0] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+            ms_n[1] += 1 / reps
+    return [{"name": k, "ms": v[0], "launches": v[1]}
+            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]]
+
+
+def sampler_phase(torch, vocab: int):
+    """The captured sampler (``runtime/graphs.Sampler``) against the eager
+    device sampler (``ops/sampling.sample_token`` with Python knobs and
+    keys) at the model's vocabulary: equal tokens for B = 1 and 2 rows
+    (row 0 keyed PRNGKey(seed), row 1 fold_in(base, 1)) over greedy and
+    every top_k 0 / 1 / 50, top_p 0.9 / 1.0, rp 1.0 / 1.5 at temperature
+    0.7, with windows of 0, 2, 3 identical and 60 tokens. One capture per
+    (B, V). Then host ms per call (each ends in its one read, of the
+    token): the captured sampler, the eager sampler, the eager filters with
+    a ``torch.multinomial`` draw (the draw before threefry, a yardstick);
+    the draws alone (kernel, plain, multinomial); the device ms of one
+    replay and its longest kernels."""
     from importlib import import_module
 
     samp = import_module(PORT + ".ops.sampling")
     tf3 = import_module(PORT + ".ops.threefry")
+    dk = import_module(PORT + ".ops.draw_kernel")
+    graphs = import_module(PORT + ".runtime.graphs")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    hot = 4242                                   # the repeated token, a top logit
+    windows = {"empty": [], "two": [11, hot], "triple": [7, hot, hot, hot],
+               "sixty": [(97 * i) % vocab for i in range(60)]}
+    grid = [(0.0, 0.9, 50, 1.5)] + [(0.7, p, k, rp) for k in (0, 1, 50)
+                                    for p in (0.9, 1.0) for rp in (1.0, 1.5)]
+    sampler = graphs.Sampler("cuda")
+    checked = 0
+    for window in windows.values():
+        w = window[-samp.RECENT_WINDOW:]
+        recent = torch.zeros(samp.RECENT_WINDOW, dtype=torch.int32, device="cuda")
+        if w:
+            recent[:len(w)] = torch.tensor(w, dtype=torch.int32, device="cuda")
+        for i, knobs in enumerate(grid):
+            for batch in (1, 2):
+                logits = torch.randn((batch, vocab), generator=gen, device="cuda") * 4.0
+                logits[:, hot] = logits[:, hot].abs() + 8.0
+                seed = 1000 + i
+                got = sampler(logits, window, samp.SamplingParams(*knobs), seed)
+                base = tf3.prng_key(seed)
+                want = [int(samp.sample_token(base if b == 0 else tf3.fold_in(base, b),
+                                              logits[b], recent, len(w), *knobs))
+                        for b in range(batch)]
+                if got != want:
+                    raise AssertionError(f"captured sampler {got} != eager {want} at "
+                                         f"knobs {knobs}, window {len(window)}, B={batch}")
+                checked += batch
+    if sampler.captures != 2:
+        raise AssertionError(f"the sampler captured {sampler.captures} graphs, want 2")
+    log(f"captured sampler: tokens equal the eager sampler's in {checked} rows "
+        f"({len(grid)} knob settings x {len(windows)} windows x B = 1, 2; "
+        f"{sampler.captures} captures, {sampler.replays} replays)")
+
     logits = torch.randn(vocab, generator=gen, device="cuda") * 4.0
-    recent = torch.randint(0, vocab, (samp.RECENT_WINDOW,), generator=gen,
-                           device="cuda", dtype=torch.int32)
+    window = windows["sixty"]
+    recent = torch.tensor(window[-samp.RECENT_WINDOW:], dtype=torch.int32, device="cuda")
     knobs = (samp.RECENT_WINDOW, 0.7, 0.9, 50, 1.5)
+    sp = samp.SamplingParams(0.7, 0.9, 50, 1.5)
     probs = samp.sample_probs(logits, recent, *knobs)
     logp = torch.log(torch.clamp(probs, min=1e-20))
     key = tf3.prng_key(0)
-    fns = {
-        "sample_token_threefry": lambda: samp.sample_token(key, logits, recent, *knobs),
-        "sample_token_multinomial": lambda: int(torch.multinomial(
-            samp.sample_probs(logits, recent, *knobs), 1, generator=gen)),
-        "draw_threefry": lambda: int(tf3.categorical(key, logp)),
-        "draw_multinomial": lambda: int(torch.multinomial(probs, 1, generator=gen)),
-    }
-    out = {"vocab": vocab, "reps": reps}
-    for what, fn in fns.items():
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        out[f"{what}_ms"] = 1e3 * statistics.median(times)
+    entry = sampler._graphs[(1, vocab)]
+    out = {"vocab": vocab, "rows_checked": checked, "captures": sampler.captures,
+           "tokens_equal_eager": True}
+    for what, fn in {
+            "captured_sampler": lambda: sampler(logits[None], window, sp, 0),
+            "eager_sample_token": lambda: int(samp.sample_token(key, logits, recent, *knobs)),
+            "eager_filters_multinomial": lambda: int(torch.multinomial(
+                samp.sample_probs(logits, recent, *knobs), 1, generator=gen)),
+            "draw_kernel": lambda: int(dk.sample_draw(key, logp)),
+            "draw_plain": lambda: int(dk.sample_draw_reference(key, logp)),
+            "draw_multinomial": lambda: int(torch.multinomial(probs, 1, generator=gen)),
+    }.items():
+        out[f"{what}_host_ms"] = host_ms(fn, torch)
+    out["captured_replay_device_ms"] = cuda_ms(entry.graph.replay, torch, spin=True)
+    out["replay_kernels"] = replay_kernels(torch, entry.graph.replay)
+    log("captured sampler replay, top kernels (ms, launches a replay): " + ", ".join(
+        f"{k['name'][:40]} {k['ms']:.3f} x{k['launches']:g}" for k in out["replay_kernels"][:4]))
+    log(f"sampler at V={vocab}: captured {out['captured_sampler_host_ms']:.3f} ms a "
+        f"call (replay {out['captured_replay_device_ms']:.3f} ms on the device), eager "
+        f"{out['eager_sample_token_host_ms']:.3f} ms; draw kernel "
+        f"{out['draw_kernel_host_ms']:.3f} ms, plain {out['draw_plain_host_ms']:.3f} ms "
+        "(host ms, each with its read)")
     return out
+
+
+def draw_bound(rows: int, vocab: int, bw: float):
+    """(bound ms, what bounds it) of one draw of `rows` rows of `vocab`:
+    the bytes (logp read, keys read, tokens written) over the memory rate,
+    and the cipher's integer operations over the CUDA cores' int32 rate."""
+    nbytes = rows * vocab * 4 + rows * 16 + rows * 4
+    ops = rows * vocab * DRAW_INT_OPS
+    t_bytes, t_ops = nbytes / bw, ops / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def draw_sass():
+    """Opcode counts of the built draw_partial_kernel's SASS
+    (``cuobjdump -sass`` of the library in build/kernels), the record
+    behind DRAW_INT_OPS: SHF.L.W counts the cipher's rotates. None, and a
+    log line, where cuobjdump is not installed."""
+    from importlib import import_module
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("draw sass: no cuobjdump")
+        return None
+    build_dir = import_module(PORT + ".utils.cuda_build").BUILD_DIR
+    lib = max(build_dir.glob("sample_draw-*.so"), key=lambda p: p.stat().st_mtime)
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, inside = {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = "draw_partial_kernel" in line
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if inside and op:
+            full = op.group(1)
+            key = "SHF.L.W" if full.startswith("SHF.L.W") else full.split(".")[0]
+            counts[key] = counts.get(key, 0) + 1
+    counts = dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+    log(f"draw sass ({lib.name}, draw_partial_kernel): {sum(counts.values())} "
+        f"instructions; {counts}")
+    return counts
+
+
+def draw_phase(torch, dk, tf3, bw: float):
+    """sample_draw against its plain version on the card: for V = 128256
+    and 1000 (a row not a multiple of the block), B = 1 and 4, logits at
+    temperatures 0.7 and 1.5 and 8 seeds each (64 keys a width), the
+    kernel's Gumbel noise must be bit-equal to ``threefry.gumbel`` and its
+    tokens equal to ``sample_draw_reference``; planted ties (equal scores
+    in far-apart blocks) must go to the first index. Times of the kernel,
+    the plain version and ``torch.multinomial`` on the same probs (a
+    yardstick: another function), at B = 1 and 4 on the full vocabulary."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draws, rows_out = 0, []
+    for vocab in (128256, 1000):
+        for batch in (1, 4):
+            for temp in (0.7, 1.5):
+                for seed in range(8):
+                    logits = torch.randn((batch, vocab), generator=gen, device="cuda") * 4.0
+                    probs = torch.softmax(logits / temp, dim=-1)
+                    logp = torch.log(torch.clamp(probs, min=1e-20))
+                    keys = tf3.fold_in(tf3.prng_key(seed + 1000 * batch),
+                                       torch.arange(batch, device="cuda"))
+                    noise = torch.empty_like(logp)
+                    got = dk.sample_draw(keys, logp, noise_out=noise)
+                    want = dk.sample_draw_reference(keys, logp)
+                    torch.cuda.synchronize()
+                    plain_noise = tf3.gumbel(keys, (vocab,))
+                    if not torch.equal(noise, plain_noise):
+                        bad = (noise != plain_noise).sum().item()
+                        raise AssertionError(f"sample_draw V={vocab} B={batch}: {bad} noise "
+                                             "values differ from the plain version's bits")
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"sample_draw V={vocab} B={batch} T={temp} "
+                                             f"seed {seed}: {got.tolist()} != {want.tolist()}")
+                    draws += batch
+        # Ties: each row's three planted maxima score exactly 1e30 (the
+        # noise is below its ulp); the first of them must win.
+        for batch in (1, 4):
+            logp = torch.randn((batch, vocab), generator=gen, device="cuda")
+            planted = [[vocab // 3 + 7 * r, vocab // 11 + r, vocab - 1 - r] for r in range(batch)]
+            for r, idx in enumerate(planted):
+                logp[r, idx] = 1e30
+            keys = tf3.fold_in(tf3.prng_key(77), torch.arange(batch, device="cuda"))
+            got = dk.sample_draw(keys, logp).tolist()
+            want = [min(idx) for idx in planted]
+            if got != want or dk.sample_draw_reference(keys, logp).tolist() != want:
+                raise AssertionError(f"sample_draw ties V={vocab} B={batch}: {got}, want {want}")
+    log(f"sample_draw: noise bit-equal and tokens equal to the plain version in {draws} "
+        "draws (V = 128256 and 1000, B = 1 and 4, T = 0.7 and 1.5); planted ties go "
+        "to the first index")
+    for batch in (1, 4):
+        vocab = 128256
+        logits = torch.randn((batch, vocab), generator=gen, device="cuda") * 4.0
+        probs = torch.softmax(logits / 0.7, dim=-1)
+        logp = torch.log(torch.clamp(probs, min=1e-20))
+        keys = tf3.fold_in(tf3.prng_key(5), torch.arange(batch, device="cuda"))
+        # The timed inputs' own output against the plain version's.
+        noise = torch.empty_like(logp)
+        got = dk.sample_draw(keys, logp, noise_out=noise)
+        want = dk.sample_draw_reference(keys, logp)
+        err = (noise - tf3.gumbel(keys, (vocab,))).abs().max().item()
+        mismatches = int((got != want).sum().item())
+        if err != 0 or mismatches:
+            raise AssertionError(f"sample_draw timed row B={batch}: noise error {err}, "
+                                 f"{mismatches} tokens differ")
+        bound_ms, bound_by = draw_bound(batch, vocab, bw)
+        rows_out.append({
+            "B": batch, "V": vocab, "max_abs_err": err, "token_mismatches": mismatches,
+            "ms": cuda_ms(lambda: dk.sample_draw(keys, logp), torch, reps=200, spin=True),
+            "plain_ms": cuda_ms(lambda: dk.sample_draw_reference(keys, logp), torch,
+                                spin=True),
+            "multinomial_ms": cuda_ms(lambda: torch.multinomial(probs, 1, generator=gen),
+                                      torch, reps=200, spin=True),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+    return {"draws_checked": draws, "noise_bit_equal": True, "ties_first_index": True,
+            "int_ops_per_element": DRAW_INT_OPS, "sass": draw_sass(), "times": rows_out}
 
 
 def first_difference(a, b) -> int:
@@ -532,6 +769,64 @@ def greedy_reference(torch, cfg, params, ids, max_new_tokens: int):
     return out
 
 
+def sampled_reference(torch, cfg, params, ids, sp, seed: int, max_new_tokens: int):
+    """Unsplit sampled loop over ``full_forward`` with a float32 KV cache,
+    the plain sampler (eager ``sample_probs`` and the plain draw,
+    ``sample_draw_reference``) and the pipeline's key schedule (step i:
+    ``PRNGKey(seed + i)``, the window the tokens so far) and stop rules.
+    Returns its tokens and, per step, the gap between its two best
+    perturbed scores (Gumbel noise plus log-probs) and the near-tie
+    tolerance there: LOGIT_GAP_TOL times the scores' scale, max|logit| over
+    the temperature."""
+    from importlib import import_module
+
+    tf = import_module(PORT + ".models.transformer")
+    samp = import_module(PORT + ".ops.sampling")
+    tf3 = import_module(PORT + ".ops.threefry")
+    dk = import_module(PORT + ".ops.draw_kernel")
+    REPEAT_STOP = import_module(PORT + ".runtime.client").REPEAT_STOP
+    dev = params["embed"]["wte"].device
+    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids) + max_new_tokens + 1,
+                              dtype=torch.float32, device=dev)
+    x = torch.tensor([ids], device=dev)
+    cur, out, gaps = 0, [], []
+    while len(out) < max_new_tokens:
+        if len(out) >= REPEAT_STOP and len(set(out[-REPEAT_STOP:])) == 1:
+            break
+        logits, kc, vc = tf.full_forward(cfg, params, x, kc, vc, cur)
+        logits = logits[0, -1]
+        cur += x.shape[1]
+        w = out[-samp.RECENT_WINDOW:]
+        recent = torch.zeros(samp.RECENT_WINDOW, dtype=torch.int32, device=dev)
+        if w:
+            recent[:len(w)] = torch.tensor(w, dtype=torch.int32, device=dev)
+        probs = samp.sample_probs(logits, recent, len(w), sp.temperature, sp.top_p,
+                                  sp.top_k, sp.repetition_penalty)
+        logp = torch.log(torch.clamp(probs, min=1e-20))
+        key = tf3.prng_key(seed + len(out))
+        top2 = torch.topk(tf3.gumbel(key, logp.shape, dev) + logp, 2).values
+        gaps.append(((top2[0] - top2[1]).item(),
+                     LOGIT_GAP_TOL * logits.abs().max().item() / max(sp.temperature, 1e-5)))
+        out.append(int(dk.sample_draw_reference(key, logp)))
+        x = torch.tensor([[out[-1]]], device=dev)
+    return {"tokens": out, "gaps": gaps}
+
+
+def hold_sampled(ref, got, what: str) -> None:
+    """Equal tokens, or a first difference where the reference's two best
+    perturbed scores lie within the near-tie tolerance."""
+    want = ref["tokens"]
+    if got == want:
+        log(f"  {what}: tokens equal ({len(want)} tokens)")
+        return
+    i = first_difference(got, want)
+    gap, tol = ref["gaps"][i] if i < len(ref["gaps"]) else (float("inf"), 0.0)
+    log(f"  {what}:\n    got  {got}\n    want {want}\n  first difference at step {i}: "
+        f"reference top-2 perturbed-score gap {gap:.4g} (near-tie tolerance {tol:.4g})")
+    if not gap <= tol:
+        raise AssertionError(f"{what}: tokens differ at a decisive step")
+
+
 def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: str,
           extra_argv=()):
     """The port's --mode local cluster serving 3 requests through kernel
@@ -561,16 +856,13 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
                                           repetition_penalty=1.5))]
     prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p, _ in requests]
     executors = path_executors(client)
-    for mod in kernels.values():
-        mod._launches = 0
-        mod._launches_mma = 0
-    for ex in executors:
-        ex.graphs.captures = ex.graphs.replays = 0
+    reset_counts(kernels, executors)
     results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
                for ids, (_, sp) in zip(prompt_ids, requests)]
     torch.cuda.synchronize()
     launches = kernels[name]._launches
     launches_mma = kernels[name]._launches_mma
+    draws = draw_gate(f"{quant} path", kernels, executors, results, requests)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     held_gb = torch.cuda.memory_allocated() / 1e9
     reserved_gb = torch.cuda.memory_reserved() / 1e9
@@ -595,10 +887,8 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
             f"ms/token: {r.tokens}")
 
     ref_params = tmain._maybe_quantize(args, params)
-    for ids, r in zip(prompt_ids[:2], results[:2]):
-        want = greedy_reference(torch, cfg, ref_params, ids, MAX_NEW_TOKENS)
-        hold_to_reference(torch, cfg, ref_params, ids, r.tokens, want,
-                          "greedy tokens against the float32-cache reference")
+    refs = references(torch, cfg, ref_params, prompt_ids, requests, args.seed)
+    hold_requests(torch, cfg, ref_params, refs, results, f"{quant} path")
     decode = [t for r in results for t in r.decode_times_s]
     summary = {"model": MODEL, "quant": quant, "layers": cfg.num_layers,
                "stages": client.plan.num_stages, "requests": len(results),
@@ -610,12 +900,80 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
                "prompt_tokens": [len(ids) for ids in prompt_ids],
                "decode_ms_per_token": 1e3 * statistics.median(decode),
                "decode_ms_per_token_mean": 1e3 * sum(decode) / len(decode),
+               **greedy_and_sampled_ms(results, requests), "sample_draw": draws,
                "peak_memory_gb": peak_gb, "held_memory_gb": held_gb,
                "reserved_memory_gb": reserved_gb, "setup_s": setup_s}
     state = {"args": args, "cfg": cfg, "params": params, "client": client,
              "ref_params": ref_params, "prompt_ids": prompt_ids,
-             "results": results, "requests": requests}
+             "results": results, "requests": requests, "references": refs}
     return summary, state
+
+
+def reset_counts(kernels, executors) -> None:
+    """Every kernel's launch counts and the path's graph and sampler
+    counters to 0, just before a path's requests."""
+    for mod in kernels.values():
+        mod._launches = 0
+        if hasattr(mod, "_launches_mma"):
+            mod._launches_mma = 0
+    for ex in executors:
+        ex.graphs.captures = ex.graphs.replays = 0
+        ex.sampler.captures = ex.sampler.replays = 0
+
+
+def draw_gate(what: str, kernels, executors, results, requests) -> dict:
+    """sample_draw launches on the path (counts reset just before its
+    requests) must reach its sampled tokens: one draw a sampled token, on
+    the final stage, through the captured sampler (its replays count)."""
+    sampled = sum(len(r.tokens) for r, (_, sp) in zip(results, requests) if not sp.greedy)
+    launches = kernels["sample_draw"]._launches
+    replays = sum(ex.sampler.replays for ex in executors)
+    captures = sum(ex.sampler.captures for ex in executors)
+    log(f"{what}: sample_draw launches {launches} (>= {sampled} sampled tokens), "
+        f"sampler {captures} captures, {replays} replays")
+    if launches < sampled or replays < sampled:
+        raise AssertionError(f"{what}: {launches} sample_draw launches and {replays} "
+                             f"sampler replays for {sampled} sampled tokens")
+    return {"launches": launches, "sampled_tokens": sampled,
+            "sampler_captures": captures, "sampler_replays": replays}
+
+
+def greedy_and_sampled_ms(results, requests) -> dict:
+    """Median decode ms/token of the greedy requests and of the sampled one."""
+    def ms(greedy):
+        steps = [t for r, (_, sp) in zip(results, requests) if sp.greedy == greedy
+                 for t in r.decode_times_s]
+        return 1e3 * statistics.median(steps) if steps else None
+
+    return {"greedy_decode_ms_per_token": ms(True),
+            "sampled_decode_ms_per_token": ms(False)}
+
+
+def references(torch, cfg, params, prompt_ids, requests, seed):
+    """The float32-cache reference of each request: the greedy loop, or
+    the sampled loop with the pipeline's step seeds."""
+    out = []
+    for ids, (_, sp) in zip(prompt_ids, requests):
+        if sp.greedy:
+            out.append({"ids": ids, "tokens": greedy_reference(torch, cfg, params, ids,
+                                                                MAX_NEW_TOKENS)})
+        else:
+            out.append({"ids": ids, **sampled_reference(torch, cfg, params, ids, sp, seed,
+                                                        MAX_NEW_TOKENS)})
+    return out
+
+
+def hold_requests(torch, cfg, params, refs, results, what: str) -> None:
+    """Each request's tokens against its float32-cache reference: equal, or
+    a first difference at a near-tie (greedy: of the logits; sampled: of
+    the perturbed scores)."""
+    for ref, r in zip(refs, results):
+        if "gaps" in ref:
+            hold_sampled(ref, r.tokens, f"{what}: sampled tokens against the "
+                         "float32-cache sampled reference")
+        else:
+            hold_to_reference(torch, cfg, params, ref["ids"], r.tokens, ref["tokens"],
+                              f"{what}: greedy tokens against the float32-cache reference")
 
 
 def path_executors(client):
@@ -666,17 +1024,24 @@ def capture_phase(torch, client, quant: str):
     return {"keys": keys, "bit_equal": True}
 
 
-def sync_phase(torch, client, ids, greedy) -> dict:
-    """Host syncs of one in-process greedy request after its graphs exist:
-    one a token, the read of the sampled token."""
-    box = {}
-    syncs = count_syncs(torch, lambda: box.setdefault(
-        "r", client.generate(ids, MAX_NEW_TOKENS, sampling=greedy)))
-    tokens = len(box["r"].tokens)
-    log(f"host syncs of one greedy request: {syncs} for {tokens} tokens")
-    if syncs != tokens:
-        raise AssertionError(f"{syncs} host syncs for {tokens} tokens, want one a token")
-    return {"syncs": syncs, "tokens": tokens}
+def sync_phase(torch, client, prompt_ids, requests) -> dict:
+    """Host syncs of one in-process greedy request and one sampled request
+    after their graphs exist: one a token, the read of the token (the
+    sampled one through the captured sampler: its scalars go to the device
+    in a non-blocking copy from pinned memory)."""
+    out = {}
+    for ids, (_, sp) in zip(prompt_ids[1:], requests[1:]):
+        what = "greedy" if sp.greedy else "sampled"
+        box = {}
+        syncs = count_syncs(torch, lambda: box.setdefault(
+            "r", client.generate(ids, MAX_NEW_TOKENS, sampling=sp)))
+        tokens = len(box["r"].tokens)
+        log(f"host syncs of one {what} request: {syncs} for {tokens} tokens")
+        if syncs != tokens:
+            raise AssertionError(f"{what}: {syncs} host syncs for {tokens} tokens, "
+                                 "want one a token")
+        out[what] = {"syncs": syncs, "tokens": tokens}
+    return out
 
 
 def concurrent_phase(torch, client, ids, greedy) -> dict:
@@ -779,34 +1144,45 @@ def profile_phase(torch, client, ids, greedy, smi: str, steps: int = 8) -> dict:
     return out
 
 
-def oracle_phase(torch, tmain, sampling_cls, cfg, params, ids, smi: str) -> dict:
-    """``--mode oracle --quant int8``'s greedy generation through the fused
-    engine (one captured decode step replayed a token) against the eager
-    per-token loop of the same oracle: equal tokens. Times of both."""
+def oracle_phase(torch, tmain, sampling_cls, dk, cfg, params, ids, smi: str) -> dict:
+    """``--mode oracle --quant int8`` through the fused engines (one
+    captured decode step replayed a token) against the eager per-token
+    loop of the same oracle, greedy and then sampled (the fused sampled
+    engine: the sampler in the captured step, key PRNGKey(seed + i)):
+    equal tokens; at least one sample_draw a sampled token in the fused
+    calls. Times of both; the first fused call pays the captures."""
     args = tmain.build_parser().parse_args(
         ["--mode", "oracle", "--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
          "--device", "cuda", "--seed", "0"])
     generate = tmain.make_oracle_generate(args, cfg, params)
-    greedy = sampling_cls(temperature=0.0)
-    fused = [generate(ids, MAX_NEW_TOKENS, greedy) for _ in range(2)]
-    eager = generate.per_token(ids, MAX_NEW_TOKENS, greedy)
-    log(f"oracle int8: fused {fused[0].tokens}\n  per-token {eager.tokens}")
-    if not fused[0].tokens == fused[1].tokens == eager.tokens:
-        raise AssertionError("oracle: the fused engine's tokens differ from the "
-                             "per-token loop's")
 
     def ms(r):
         return 1e3 * statistics.median(r.decode_times_s) if r.decode_times_s else None
 
-    out = {"card": smi, "tokens": len(eager.tokens), "stopped_by": eager.stopped_by,
-           "tokens_equal_per_token": True,
-           "fused_decode_ms_per_token": [ms(r) for r in fused],
-           "per_token_decode_ms_per_token": ms(eager),
-           "fused_ttft_ms": [1e3 * r.ttft_s for r in fused],
-           "per_token_ttft_ms": 1e3 * eager.ttft_s}
-    log(f"oracle int8: decode {out['fused_decode_ms_per_token']} ms/token fused (first "
-        f"call pays the capture), {out['per_token_decode_ms_per_token']:.2f} per token "
-        "eager")
+    out = {"card": smi}
+    for what, sp in (("greedy", sampling_cls(temperature=0.0)),
+                     ("sampled", sampling_cls(temperature=0.7, top_p=0.9, top_k=50,
+                                              repetition_penalty=1.5))):
+        dk._launches = 0
+        fused = [generate(ids, MAX_NEW_TOKENS, sp) for _ in range(2)]
+        draws = dk._launches
+        eager = generate.per_token(ids, MAX_NEW_TOKENS, sp)
+        log(f"oracle int8 {what}: fused {fused[0].tokens}\n  per-token {eager.tokens}")
+        if not fused[0].tokens == fused[1].tokens == eager.tokens:
+            raise AssertionError(f"oracle {what}: the fused engine's tokens differ from "
+                                 "the per-token loop's")
+        if not sp.greedy and draws < 2 * len(eager.tokens):
+            raise AssertionError(f"oracle sampled: {draws} sample_draw launches for "
+                                 f"{2 * len(eager.tokens)} tokens")
+        out[what] = {"tokens": len(eager.tokens), "stopped_by": eager.stopped_by,
+                     "tokens_equal_per_token": True, "sample_draw_launches_fused": draws,
+                     "fused_decode_ms_per_token": [ms(r) for r in fused],
+                     "per_token_decode_ms_per_token": ms(eager),
+                     "fused_ttft_ms": [1e3 * r.ttft_s for r in fused],
+                     "per_token_ttft_ms": 1e3 * eager.ttft_s}
+        log(f"oracle int8 {what}: decode {out[what]['fused_decode_ms_per_token']} ms/token "
+            f"fused (first call pays the capture), "
+            f"{out[what]['per_token_decode_ms_per_token']:.2f} per token eager")
     return out
 
 
@@ -1104,12 +1480,47 @@ def telemetry_phase(torch, tmain, nk, state, smi: str):
         tel.get_registry().reset()
 
 
-def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool):
+def f32_chain(torch, state) -> dict:
+    """The path's requests in process with every executor after stage 0
+    given ``act_dtype=torch.float32``: the float32 activations that a TCP
+    hop hands a stage that casts nothing, as ``--mode serve`` builds it.
+    Its tokens are what the TCP drive at wire f32 and the CLI drive must
+    give; each request is held to its float32-cache reference. The
+    executors' act_dtype is set back after. Returns the results and the
+    run's times."""
+    local, cfg = state["client"], state["cfg"]
+    remote = [local.transport.executor(p) for p in local.transport.peers()]
+    saved = [ex.act_dtype for ex in remote]
+    for ex in remote:
+        ex.act_dtype = torch.float32
+    try:
+        results = [local.generate(ids, MAX_NEW_TOKENS, sampling=sp)
+                   for ids, (_, sp) in zip(state["prompt_ids"], state["requests"])]
+    finally:
+        for ex, dtype in zip(remote, saved):
+            ex.act_dtype = dtype
+    hold_requests(torch, cfg, state["ref_params"], state["references"], results,
+                  f"{state['args'].quant} float32-after-stage-0 chain")
+    return {"results": results,
+            "ttft_ms": [r.ttft_s * 1e3 for r in results],
+            **greedy_and_sampled_ms(results, state["requests"])}
+
+
+def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
+              wire: str):
     """The serve() run's executors behind TCP servers and a registry
-    service, the same requests through a TCP client at wire bf16: tokens
-    equal to the in-process run's, the launch gates of serve(), the native
-    codec; with `failover`, a stage-2 replica and the pinned server stopped
-    after its 3rd decode step. Returns the tcp_path summary."""
+    service, each with no act_dtype (as ``--mode serve`` builds it: an
+    arrival computes in the float32 the wire decodes to), the same
+    requests through a TCP client at wire dtype `wire`. At ``f32`` the
+    tokens must equal the float32-after-stage-0 chain's (`f32_chain`); at
+    ``bf16``, ``--wire_dtype``'s default, each hop rounds the activation
+    to bfloat16, and each request is held to its float32-cache reference
+    (`hold_requests`: equal, or a first difference at a near-tie). Both:
+    the launch gates of serve() (tensor-core launches: stage 0's prefill
+    sites, the only ones that still get bf16 x), one sample_draw a sampled
+    token, the native codec; with `failover`, a stage-2 replica and the
+    pinned server stopped after its 3rd decode step. Returns the tcp_path
+    summary."""
     from importlib import import_module
 
     net = import_module(PORT + ".runtime.net")
@@ -1119,13 +1530,17 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool)
     executor_mod = import_module(PORT + ".runtime.executor")
     profiling = import_module(PORT + ".telemetry.profiling")
     args, cfg, local = state["args"], state["cfg"], state["client"]
+    chain = f32_chain(torch, state) if wire == "f32" else None
     registry_srv = net.RegistryServer()
     registry_srv.start()
     servers = {}
     transport = None
+    remote = [local.transport.executor(p) for p in local.transport.peers()]
+    saved = [ex.act_dtype for ex in remote]
 
     def serve_over_tcp(peer, ex):
-        srv = net.TcpStageServer(ex, task_pool.StageRuntime(), wire_dtype="bf16",
+        ex.act_dtype = None
+        srv = net.TcpStageServer(ex, task_pool.StageRuntime(), wire_dtype=wire,
                                  model=MODEL)
         srv.start()
         servers[peer] = srv
@@ -1138,57 +1553,74 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool)
         for peer in local.transport.peers():
             serve_over_tcp(peer, local.transport.executor(peer))
         registry = net.RemoteRegistry(registry_srv.address)
-        transport = net.TcpTransport(registry, wire_dtype="bf16", model=MODEL)
+        transport = net.TcpTransport(registry, wire_dtype=wire, model=MODEL)
         client = client_mod.PipelineClient(cfg, local.plan, local.stage0, transport,
                                            registry, seed=args.seed, model=MODEL)
         torch.cuda.reset_peak_memory_stats()
         profiling.enable_phase_profiling()
         prof.reset()
-        for mod in kernels.values():
-            mod._launches = 0
-            mod._launches_mma = 0
         executors = path_executors(local)
-        for ex in executors:
-            ex.graphs.captures = ex.graphs.replays = 0
+        reset_counts(kernels, executors)
         results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
                    for ids, (_, sp) in zip(state["prompt_ids"], state["requests"])]
         torch.cuda.synchronize()
         launches = kernels[name]._launches
         launches_mma = kernels[name]._launches_mma
+        draws = draw_gate(f"tcp {args.quant}", kernels, executors, results,
+                          state["requests"])
         socket_phase = prof.snapshot().get("socket")
         profiling.disable_phase_profiling()
         if not native.have_native():
             raise AssertionError("the native wire codec is not loaded")
         tokens = sum(len(r.tokens) for r in results)
         graphs = graph_counts(f"tcp {args.quant}", executors, tokens)
-        need, need_mma = 4 * cfg.num_layers * tokens, 4 * cfg.num_layers * len(results)
+        # Stage 0 (in the client) is the one span whose prefill x is still
+        # bf16: the stages behind TCP get float32 x, the CUDA-core route.
+        stage0_layers = local.plan.stages[0].num_layers
+        need, need_mma = 4 * cfg.num_layers * tokens, 4 * stage0_layers * len(results)
         log(f"tcp {args.quant}: {tokens} tokens over {len(results)} requests, {name} "
-            f"launches {launches} (>= {need}), tensor-core {launches_mma} (>= {need_mma})")
+            f"launches {launches} (>= {need}), tensor-core {launches_mma} (>= 4 x "
+            f"{stage0_layers} stage-0 layers x {len(results)} = {need_mma})")
         if launches < need or launches_mma < need_mma:
             raise AssertionError(f"tcp {args.quant}: {name} launches {launches} / "
                                  f"{launches_mma}, want >= {need} / {need_mma}")
-        for r, want in zip(results, state["results"]):
-            if r.tokens != want.tokens:
-                raise AssertionError(f"tcp {args.quant}: tokens differ from the "
-                                     f"in-process run:\n  {r.tokens}\n  {want.tokens}")
-        log(f"  tcp {args.quant}: tokens of all {len(results)} requests equal the "
-            "in-process run's")
+        if chain is not None:
+            for r, want in zip(results, chain["results"]):
+                if r.tokens != want.tokens:
+                    raise AssertionError(f"tcp {args.quant}: tokens differ from the "
+                                         f"in-process float32-after-stage-0 chain's:\n  "
+                                         f"{r.tokens}\n  {want.tokens}")
+            log(f"  tcp {args.quant}: tokens of all {len(results)} requests equal the "
+                "in-process float32-after-stage-0 chain's")
+        else:
+            hold_requests(torch, cfg, state["ref_params"], state["references"], results,
+                          f"tcp {args.quant} wire {wire}")
         decode = [t for r in results for t in r.decode_times_s]
         local_decode = [t for r in state["results"] for t in r.decode_times_s]
         summary = {
-            "model": MODEL, "quant": args.quant, "wire_dtype": "bf16",
+            "model": MODEL, "quant": args.quant, "wire_dtype": wire,
+            "act_dtype_after_hop": "float32",
             "stages": local.plan.num_stages, "requests": len(results),
-            "tokens": tokens, "tokens_equal_local": True,
+            "tokens": tokens,
+            "held_to": ("equal to the float32-after-stage-0 chain" if chain is not None
+                        else "float32-cache references, near-tie rule"),
             f"{name}_launches": launches, f"{name}_launches_mma": launches_mma,
+            "sample_draw": draws,
             "graphs": graphs, "native_codec": native.have_native(),
             "ttft_ms": [r.ttft_s * 1e3 for r in results],
             "ttft_ms_local": [r.ttft_s * 1e3 for r in state["results"]],
             "decode_ms_per_token": 1e3 * statistics.median(decode),
             "decode_ms_per_token_local": 1e3 * statistics.median(local_decode),
+            **greedy_and_sampled_ms(results, state["requests"]),
             "client_stage_time_seconds": family_view(client.metrics,
                                                      "client_stage_time_seconds"),
             "socket_phase": socket_phase,
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi}
+        if chain is not None:
+            summary["ttft_ms_f32_chain"] = chain["ttft_ms"]
+            summary["f32_chain_in_process"] = {k: v for k, v in chain.items()
+                                               if k != "results"}
+            state["f32_chain_results"] = chain["results"]
         summary["wire"] = wire_costs(torch, net, transport, cfg.hidden_size,
                                      len(state["prompt_ids"][0]), list(servers))
         log(f"  tcp {args.quant}: decode {summary['decode_ms_per_token']:.2f} ms/token "
@@ -1199,8 +1631,7 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool)
             replica_id = f"tcp-stage{spec.index}-replica"
             replica = executor_mod.StageExecutor(
                 cfg, spec, tmain._stage_params(args, cfg, state["params"], spec),
-                peer_id=replica_id, device=torch.device(args.device),
-                act_dtype=tmain._DTYPE_MAP[args.dtype])
+                peer_id=replica_id, device=torch.device(args.device))
             serve_over_tcp(replica_id, replica)
             pinned = next(h.peer_id for h in client.route() if h.key == f"stage{spec.index}")
             seen = {"decode": 0}
@@ -1242,28 +1673,33 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool)
         for srv in servers.values():
             srv.stop()
         registry_srv.stop()
+        for ex, dtype in zip(remote, saved):
+            ex.act_dtype = dtype
 
 
 def wire_costs(torch, net, transport, hidden: int, prompt_len: int, peers,
                reps: int = 200):
     """Host cost of the wire alone, on this host: one hop's activation
     (a decode step's [1, 1, hidden] and a prefill's [1, prompt_len,
-    hidden], bfloat16 on the card) copied to the host, encoded to wire bf16
-    with its CRC-32C, checked and decoded again (medians in us); and the
-    median loopback round trip of an `info` frame to each server (ms)."""
+    hidden]: bfloat16 on the card out of stage 0, float32 out of a stage
+    that computes in float32) copied to the host, encoded to the wire
+    dtype (bf16, and f32, the TCP drive's) with its CRC-32C, checked and
+    decoded again (medians in us); and the median loopback round trip of
+    an `info` frame to each server (ms)."""
     out = {}
-    for what, t in (("decode_hop", 1), ("prefill_hop", prompt_len)):
-        x = torch.randn((1, t, hidden), device="cuda").to(torch.bfloat16)
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            meta, body = net._encode_tensor(net._host_array(x), "bf16")
-            net.native.crc32c(body)
-            net.native.crc32c(body)
-            net._to_tensor(net._decode_tensor(meta, body))
-            times.append(time.perf_counter() - t0)
-        out[f"{what}_codec_us"] = 1e6 * statistics.median(times)
-        out[f"{what}_bytes"] = len(body)
+    for wire, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        for what, t in (("decode_hop", 1), ("prefill_hop", prompt_len)):
+            x = torch.randn((1, t, hidden), device="cuda").to(dtype)
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                meta, body = net._encode_tensor(net._host_array(x), wire)
+                net.native.crc32c(body)
+                net.native.crc32c(body)
+                net._to_tensor(net._decode_tensor(meta, body))
+                times.append(time.perf_counter() - t0)
+            out[f"{what}_{wire}_codec_us"] = 1e6 * statistics.median(times)
+            out[f"{what}_{wire}_bytes"] = len(body)
     rtts = [transport.ping(p) for p in peers for _ in range(20)]
     out["info_round_trip_ms"] = 1e3 * statistics.median(r for r in rtts if r is not None)
     return out
@@ -1290,17 +1726,19 @@ def _stderr_tail(path: pathlib.Path, n: int = 30) -> str:
 
 def cli_drive(torch, tok, int8_state, smi: str):
     """The port's swarm as processes on the card: a registry, three stage
-    servers (int8, bfloat16, seed 0) and a client with the first greedy
-    prompt, started one after another. The client's printed generation
-    and its ``TOKENS=`` ids must equal the in-process int8 run's. Returns
-    the cli_path summary."""
-    want = int8_state["results"][0]
+    servers (int8, bfloat16, seed 0, wire f32) and a client with the first
+    greedy prompt, started one after another. Each server computes what
+    arrives in float32 (``serve`` casts nothing), so the client's printed
+    generation and its ``TOKENS=`` ids must equal the in-process int8
+    float32-after-stage-0 chain's (`f32_chain`). Returns the cli_path
+    summary."""
+    want = int8_state["f32_chain_results"][0]
     sp = int8_state["requests"][0][1]
     expect = (f"=== Generation ({len(want.tokens)} tokens, stopped by "
               f"{want.stopped_by}) ===\n{tok.decode(want.tokens)}\n")
     main = [sys.executable, "-m", PORT + ".main"]
     model_args = ["--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
-                  "--seed", "0", "--device", "cuda"]
+                  "--seed", "0", "--device", "cuda", "--wire_dtype", "f32"]
     env = dict(os.environ, PYTHONIOENCODING="utf-8", PYTHONUNBUFFERED="1")
     procs = []
     peaks, held, reserved = {}, {}, {}
@@ -1347,13 +1785,14 @@ def cli_drive(torch, tok, int8_state, smi: str):
                                      + client.stderr.decode(errors="replace")[-3000:])
             if expect not in stdout:
                 raise AssertionError(f"cli client text differs from the in-process "
-                                     f"run's:\n{stdout}\nwant:\n{expect}")
+                                     f"float32 chain's:\n{stdout}\nwant:\n{expect}")
             ids = re.search(r"^TOKENS=(\[[0-9, ]*\])$", stdout, re.M)
             if ids is None or json.loads(ids.group(1)) != want.tokens:
                 raise AssertionError(f"cli client token ids differ from the in-process "
-                                     f"run's:\n{ids and ids.group(1)}\nwant:\n{want.tokens}")
-            log(f"cli: client text and token ids equal the in-process int8 run's "
-                f"({len(want.tokens)} tokens, {client_s:.1f}s with set-up)")
+                                     f"float32 chain's:\n{ids and ids.group(1)}\nwant:\n"
+                                     f"{want.tokens}")
+            log(f"cli: client text and token ids equal the in-process int8 float32 "
+                f"chain's ({len(want.tokens)} tokens, {client_s:.1f}s with set-up)")
             ttft = float(re.search(r"TTFT: ([0-9.]+)s", stdout).group(1))
             tps = float(re.search(r"Decode: [0-9.]+s total, ([0-9.]+) tokens/s",
                                   stdout).group(1))
@@ -1374,9 +1813,9 @@ def cli_drive(torch, tok, int8_state, smi: str):
             missing = [k for k, v in peaks.items() if v is None]
             if missing:
                 raise AssertionError(f"cli: no peak device memory from {missing}")
-            summary = {"model": MODEL, "quant": "int8", "wire_dtype": "bf16",
+            summary = {"model": MODEL, "quant": "int8", "wire_dtype": "f32",
                        "processes": 5, "prompt": PROMPTS[0],
-                       "tokens": len(want.tokens), "text_equal_in_process": True,
+                       "tokens": len(want.tokens), "text_equal_f32_chain": True,
                        "ttft_ms_printed": ttft * 1e3,
                        "decode_ms_per_token_mean_printed": 1e3 / tps if tps else None,
                        "peak_memory_gb": {k: v / 1e9 for k, v in peaks.items()},
@@ -1446,6 +1885,24 @@ def kernel_entry(name: str, rows, launches: int, prefill_m: int):
     return entry
 
 
+def draw_entry(draw, launches: int):
+    """sample_draw in the ``kernels`` line: one draw of one row at the 128k
+    vocabulary, as the final stage runs it for each sampled token (B = 4
+    under ``batch4``). ``max_abs_err`` is the measured max |noise - plain
+    noise| of the timed row's own inputs (its tokens are compared too)."""
+    row = next(r for r in draw["times"] if r["B"] == 1)
+    return {"name": "sample_draw", "route": "cuda",
+            "source": f"{PORT}/csrc/sample_draw.cu",
+            "replaces": "global_capstone_design_distributed_inference_of_llms_over_the_"
+                        "internet_tpu/" + REPLACES["sample_draw"],
+            "launches": launches,
+            "at": "one draw, B=1, V=128256, float32 logp in L2",
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "multinomial_ms": row["multinomial_ms"], "library": DRAW_LIBRARY_NOTE,
+            "batch4": next(r for r in draw["times"] if r["B"] == 4)}
+
+
 def main(argv) -> int:
     import torch
 
@@ -1463,6 +1920,8 @@ def main(argv) -> int:
 
         ik = import_module(PORT + ".ops.int8_kernel")
         nk = import_module(PORT + ".ops.nf4_kernel")
+        dk = import_module(PORT + ".ops.draw_kernel")
+        tf3 = import_module(PORT + ".ops.threefry")
         tmain = import_module(PORT + ".main")
         sampling_cls = import_module(PORT + ".ops.sampling").SamplingParams
     except ImportError as exc:
@@ -1481,13 +1940,14 @@ def main(argv) -> int:
         f"{torch.cuda.device_count()} visible")
     bw, flops = peaks_for(name)
 
-    build_s = build_kernels([PORT + ".ops.int8_kernel", PORT + ".ops.nf4_kernel"])
+    build_s = build_kernels([PORT + ".ops.int8_kernel", PORT + ".ops.nf4_kernel",
+                             PORT + ".ops.draw_kernel"])
     log(f"build: {build_s:.1f}s")
     for src, text in import_module(PORT + ".utils.cuda_build").build_logs.items():
         for kernel, line in ptxas_usage(text):
             log(f"  {src} {kernel}: {line}")
 
-    kernel_mods = {"int8_dot": ik, "nf4_dot": nk}
+    kernel_mods = {"int8_dot": ik, "nf4_dot": nk, "sample_draw": dk}
     prompt_len = len(PROMPTS[0].encode())
     # The executors pad a prompt to its sequence bucket: the M its prefill
     # projections run at.
@@ -1506,31 +1966,35 @@ def main(argv) -> int:
             m: layer_sum([r for r in rows if r["M"] == m])
             for m in sorted({r["M"] for r in rows})}, "card": smi}))
     del flush
+    draw = draw_phase(torch, dk, tf3, bw)
+    log(json.dumps({"sample_draw": draw, "card": smi}))
     if kernels_only:
         log(f"total {time.monotonic() - t_start:.1f}s")
         log("kernels-only: not a smoke pass")
         return 0
-    sampling = sampling_phase(torch, 128256)
-    log(json.dumps({"sampling_draw": sampling, "card": smi}))
+    sampler = sampler_phase(torch, 128256)
+    log(json.dumps({"sampler": sampler, "card": smi}))
 
     int8_summary, state = serve(torch, kernel_mods, "int8_dot", tmain, sampling_cls,
                                 "int8", "cuda")
     greedy = state["requests"][0][1]
     int8_summary["capture"] = capture_phase(torch, state["client"], "int8")
     int8_summary["syncs_per_request"] = sync_phase(torch, state["client"],
-                                                   state["prompt_ids"][0], greedy)
+                                                   state["prompt_ids"], state["requests"])
     int8_summary["profile"] = profile_phase(torch, state["client"],
                                             state["prompt_ids"][0], greedy, smi)
     int8_summary["two_sessions"] = concurrent_phase(torch, state["client"],
                                                     state["prompt_ids"][0], greedy)
     log(json.dumps({"main_path": int8_summary, "card": smi}))
+    # int8 at wire f32, held to the in-process chain exactly; NF4 at the
+    # CLI's default wire bf16, held to the float32-cache references.
     tcp = {"int8": tcp_drive(torch, kernel_mods, "int8_dot", tmain, state, smi,
-                             failover=True)}
-    oracle = oracle_phase(torch, tmain, sampling_cls, state["cfg"], state["params"],
+                             failover=True, wire="f32")}
+    oracle = oracle_phase(torch, tmain, sampling_cls, dk, state["cfg"], state["params"],
                           state["prompt_ids"][0], smi)
     log(json.dumps({"oracle": oracle}))
     # What the CLI drive compares with; the weights go.
-    int8_state = {k: state[k] for k in ("results", "requests")}
+    int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
     # As under --telemetry: the client's metrics go to the global registry,
     # which stays disabled until the telemetry phase.
@@ -1538,7 +2002,7 @@ def main(argv) -> int:
                                "nf4", "cuda", extra_argv=("--telemetry",))
     nf4_summary["capture"] = capture_phase(torch, state["client"], "nf4")
     tcp["nf4"] = tcp_drive(torch, kernel_mods, "nf4_dot", tmain, state, smi,
-                           failover=False)
+                           failover=False, wire="bf16")
     tele = telemetry_phase(torch, tmain, nk, state, smi)
     nf4_summary["failover"] = tele.pop("failover")
     log(json.dumps({"nf4_path": nf4_summary, "card": smi}))
@@ -1553,7 +2017,8 @@ def main(argv) -> int:
     kernels = [kernel_entry("int8_dot", int8_rows, int8_summary["int8_dot_launches"],
                             prefill_m),
                kernel_entry("nf4_dot", nf4_rows, nf4_summary["nf4_dot_launches"],
-                            prefill_m)]
+                            prefill_m),
+               draw_entry(draw, int8_summary["sample_draw"]["launches"])]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -87,7 +87,7 @@ from .ops.sampling import RECENT_WINDOW, SamplingParams, sample_token
 from .ops.threefry import prng_key
 from .runtime.client import REPEAT_STOP, GenerationResult, PipelineClient, make_server_record
 from .runtime.executor import StageExecutor
-from .runtime.fused_decode import make_fused_decode
+from .runtime.fused_decode import make_fused_decode, make_fused_sample_decode
 from .runtime.kv_cache import DEFAULT_BUCKETS, round_to_bucket
 from .runtime.transport import LocalTransport
 from .scheduling.registry import PlacementRegistry
@@ -242,13 +242,15 @@ def oracle_cache_len(prompt_len: int, max_new_tokens: int) -> int:
 
 def _drive_chunks(prompt_ids, max_new_tokens: int, eos_token_id, *,
                   prefill_first_token, run_chunk, chunk: int) -> GenerationResult:
-    """Chunked greedy generation (the reference's ``_drive_chunks``,
+    """Chunked generation (the reference's ``_drive_chunks``,
     ``main.py:412-465``). ``prefill_first_token(prompt_ids) -> token`` runs
-    the prompt; ``run_chunk(last_token, cur_len, n) -> tokens`` runs n
-    fused steps. The stop rules (EOS, 5 identical tokens) are checked per
-    token inside a chunk, since the fused steps may overshoot a stop and
-    the kept tokens must be the per-token loop's; each chunk's whole wall
-    time is spread over the tokens kept."""
+    the prompt; ``run_chunk(last_token, cur_len, n, step) -> tokens`` runs
+    n fused steps, ``step`` being the key schedule's index of the chunk's
+    first token (the tokens so far; the greedy engine ignores it). The stop
+    rules (EOS, 5 identical tokens) are checked per token inside a chunk,
+    since the fused steps may overshoot a stop and the kept tokens must be
+    the per-token loop's; each chunk's whole wall time is spread over the
+    tokens kept."""
     t0 = time.monotonic()
     tokens = [prefill_first_token(prompt_ids)]
     ttft = time.monotonic() - t0
@@ -264,7 +266,7 @@ def _drive_chunks(prompt_ids, max_new_tokens: int, eos_token_id, *,
             break
         n = min(chunk, max_new_tokens - len(tokens))
         t0 = time.monotonic()
-        got = run_chunk(tokens[-1], cur, n)
+        got = run_chunk(tokens[-1], cur, n, len(tokens))
         dt = time.monotonic() - t0
         kept = 0
         for tok in got:
@@ -290,14 +292,16 @@ def make_oracle_generate(args, cfg: ModelConfig, params):
     -> GenerationResult, with the weights it runs as its ``params``
     attribute and the per-token loop as its ``per_token`` attribute.
 
-    Greedy generation runs on the fused engine (``runtime/fused_decode.py``,
-    the reference's ``exact_head`` head), as the reference's oracle does:
-    the prompt through ``full_forward``, then chunks of min(max_new_tokens,
-    32) decode steps, on the card each a replay of one captured step, the
-    tokens read back once a chunk. Sampled generation runs the per-token loop, one
-    ``full_forward`` per token (the reference folds its sampler into a
-    fused engine too; not ported yet). The draw of step i uses
-    ``PRNGKey(seed + i)``.
+    Generation runs on the fused engines (``runtime/fused_decode.py``), as
+    the reference's oracle does (``main.py:492-522``): the prompt through
+    ``full_forward``, then chunks of min(max_new_tokens, 32) decode steps,
+    on the card each a replay of one captured step, the tokens read back
+    once a chunk. Greedy takes the argmax of the reference's ``exact_head``
+    head; sampled runs the full sampler inside the step, its first token
+    drawn by the captured sampler with ``PRNGKey(seed)`` and step i with
+    ``PRNGKey(seed + i)``. The per-token loop, one eager ``full_forward``
+    and sampler call per token with the same key schedule, is what the
+    engines are held to (``per_token``; the tests and ``chip_smoke.py``).
 
     As in the reference (``main.py:431-432``), the KV cache takes the
     weights' dtype, where the stage executors keep a float32 cache; under
@@ -325,10 +329,10 @@ def make_oracle_generate(args, cfg: ModelConfig, params):
             window = tokens[-RECENT_WINDOW:]
             recent = torch.zeros(RECENT_WINDOW, dtype=torch.int32)
             recent[:len(window)] = torch.tensor(window, dtype=torch.int32)
-            tok = sample_token(prng_key(args.seed + len(tokens)), logits[0, -1],
-                               recent.to(device), len(window), sampling.temperature,
-                               sampling.top_p, sampling.top_k,
-                               sampling.repetition_penalty)
+            tok = int(sample_token(prng_key(args.seed + len(tokens)), logits[0, -1],
+                                   recent.to(device), len(window), sampling.temperature,
+                                   sampling.top_p, sampling.top_k,
+                                   sampling.repetition_penalty))
             tokens.append(tok)
             dt = time.monotonic() - t0
             if len(tokens) == 1:
@@ -349,21 +353,29 @@ def make_oracle_generate(args, cfg: ModelConfig, params):
                                 decode_times_s=decode_times, stopped_by=stopped)
 
     def generate(prompt_ids, max_new_tokens, sampling, eos_token_id=None, **_kw):
-        if not sampling.greedy:
-            return per_token(prompt_ids, max_new_tokens, sampling, eos_token_id)
         chunk = min(max_new_tokens, 32)
         max_len = oracle_cache_len(len(prompt_ids), max_new_tokens)
-        engine = engines.get((chunk, max_len))
+        key = (sampling.greedy, chunk, max_len)
+        engine = engines.get(key)
         if engine is None:
-            engine = engines[(chunk, max_len)] = make_fused_decode(
-                cfg, params, chunk, max_len)
+            make = make_fused_decode if sampling.greedy else make_fused_sample_decode
+            engine = engines[key] = make(cfg, params, chunk, max_len)
+        if sampling.greedy:
+            def prefill_first(ids):
+                logits = engine.prefill(torch.tensor([list(ids)], dtype=torch.int64))
+                return int(torch.argmax(logits[0, -1]))
 
-        def prefill_first(ids):
-            logits = engine.prefill(torch.tensor([list(ids)], dtype=torch.int64))
-            return int(torch.argmax(logits[0, -1]))
+            def run_chunk(last, cur, n, step):
+                return engine(last, cur, n)[:n].tolist()
+        else:
+            engine.begin(sampling)
 
-        def run_chunk(last, cur, n):
-            return engine(last, cur, n)[:n].tolist()
+            def prefill_first(ids):
+                logits = engine.prefill(torch.tensor([list(ids)], dtype=torch.int64))
+                return engine.first_token(logits[0, -1:], args.seed)
+
+            def run_chunk(last, cur, n, step):
+                return engine(last, cur, n, args.seed + step)[:n].tolist()
 
         return _drive_chunks(prompt_ids, max_new_tokens, eos_token_id,
                              prefill_first_token=prefill_first,
@@ -456,9 +468,10 @@ def run_serve(args) -> int:
     peer_id = args.peer_id or f"stage{args.stage}-{os.getpid()}"
     ping_tx = TcpTransport(registry, wire_dtype=args.wire_dtype)
     cfg, shard = load_stage_model(args, spec)
+    # No act_dtype: an arriving activation computes in the float32 the wire
+    # decodes to, as the reference's server computes it.
     server = FixedStageServer(peer_id, cfg, spec, shard, registry,
-                              executor_kwargs={"device": device,
-                                               "act_dtype": _DTYPE_MAP[args.dtype]},
+                              executor_kwargs={"device": device},
                               pinger=_pinger_from_transport(ping_tx),
                               model=args.model)
     del shard

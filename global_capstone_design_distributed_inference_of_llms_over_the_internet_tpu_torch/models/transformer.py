@@ -185,11 +185,15 @@ def _dot(x: torch.Tensor, w) -> torch.Tensor:
     intact by dequant_tree under NF4_KERNEL=1) runs the fused NF4 kernel; a
     packed QuantizedTensor leaf (left intact under INT8_FOLD, the default)
     runs the scale-folded int8 kernel; plain tensors take the ordinary
-    matmul."""
+    matmul, in the promoted dtype where x and w differ (float32 x against
+    bf16 weights after a TCP hop, as ``jnp.matmul`` promotes)."""
     if isinstance(w, NF4Tensor):
         return nf4_dot(x, w)
     if isinstance(w, QuantizedTensor):
         return int8_dot(x, w)
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
     return x @ w
 
 

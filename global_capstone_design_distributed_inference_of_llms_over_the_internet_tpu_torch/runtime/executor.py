@@ -23,11 +23,18 @@ Differences from the reference's engine: offload, tensor parallelism, the prefix
 cache, deep prompts, speculative verify, beam search, burst decode, push
 chains, session rewind and training are not ported: a request that asks
 for one is refused with a `StageExecutionError` naming its field (the TCP
-server sends it back as a ``kind: "stage"`` error frame). Given
-``act_dtype`` (the model's ``--dtype``), a float activation is cast to it
-on arrival: the wire decodes to float32, so a bfloat16 model computes the
-same numbers after a TCP hop as after an in-process one, where the
-reference's engine would compute that stage in float32.
+server sends it back as a ``kind: "stage"`` error frame).
+
+A float activation computes in the dtype it arrives in, as in the
+reference: after a TCP hop that is the float32 the wire decodes to, so a
+bfloat16 model's stages behind ``--mode serve`` compute in float32 (bf16
+weights times float32 activations). Given ``act_dtype``, an arrival is
+cast to it instead: ``main``'s in-process executors pass the model's
+``--dtype``, so their hops hand bfloat16 along unchanged.
+
+The final stage samples with the captured sampler (``runtime/graphs.py``
+`Sampler`): the request's window and knobs go to the device in one copy,
+every row's token comes back in one read.
 """
 
 from __future__ import annotations
@@ -50,11 +57,9 @@ from ..models.partition import (
 from ..models.quant import tree_map
 from ..models.transformer import fuse_qkv_params
 from ..ops.attention import check_cache_write
-from ..ops.sampling import RECENT_WINDOW, sample_token
-from ..ops.threefry import fold_in, prng_key
 from ..telemetry import events as _ev
 from .errors import register as _catalog
-from .graphs import StepGraphs
+from .graphs import Sampler, StepGraphs
 from .kv_cache import AllocationFailed, KVArena, KVHandle, round_to_bucket
 from .messages import StageRequest, StageResponse
 
@@ -72,29 +77,22 @@ class StageExecutionError(RuntimeError):
     """Server-side hard error (e.g. decode without a cached session)."""
 
 
-def _sample_rows(logits: torch.Tensor, t_real: int, req: StageRequest) -> list:
+def _sample_rows(logits: torch.Tensor, t_real: int, req: StageRequest,
+                 sampler: Sampler) -> list:
     """Final-stage sampling from the last real token's logits, per batch
     row. logits: [B, T, V] -> list of B token ids. Row 0 draws with
     ``PRNGKey(step_seed)`` and row i with ``fold_in(base, i)``, the
-    reference's key schedule (``executor.py:160-173``), so row 0 of a batch
-    draws what a batch-1 request would. The recent-token window is per
-    session, shared by the rows; greedy rows need none. The one host sync a
-    row makes is the read of its token."""
+    reference's key schedule (``executor.py:160-178``), so row 0 of a batch
+    draws what a batch-1 request would. The recent-token window (the
+    request's ``generated_tokens``) is per session, shared by the rows.
+    Sampled rows go through `sampler` (the executor's); greedy rows
+    are the argmax alone and build no window. All rows' tokens are read
+    back at once: the call's one host sync."""
     last = logits[:, t_real - 1]
     sp = req.sampling
-    window = list(req.generated_tokens[-RECENT_WINDOW:])
-    n = len(window)
-    recent = None
-    if not sp.greedy:
-        recent = torch.zeros(RECENT_WINDOW, dtype=torch.int32)
-        if n:
-            recent[:n] = torch.tensor(window, dtype=torch.int32)
-        recent = recent.to(last.device, non_blocking=True)
-    base = prng_key(req.step_seed)
-    return [sample_token(base if i == 0 else fold_in(base, i), row, recent, n,
-                         sp.temperature, sp.top_p, sp.top_k,
-                         sp.repetition_penalty)
-            for i, row in enumerate(last)]
+    if sp.greedy:
+        return torch.argmax(last, dim=-1).tolist()
+    return sampler(last.float(), req.generated_tokens, sp, req.step_seed)
 
 
 def _unported_field(req: StageRequest) -> Optional[str]:
@@ -127,7 +125,8 @@ class StageExecutor:
         self.device = torch.device(device)
         # Engine-side fused layout: one wqkv and one wgu matmul per layer.
         self.params = fuse_qkv_params(params)
-        # The dtype float activations are cast to on arrival (None: as sent).
+        # The dtype float activations are cast to on arrival (None: as they
+        # arrive, float32 after a TCP hop, as the reference computes them).
         self.act_dtype = act_dtype
         self.peer_id = peer_id
         self.max_chunk_bytes = max_chunk_bytes
@@ -140,6 +139,8 @@ class StageExecutor:
             device=self.device, dtype=cache_dtype)
         # The captured steps; a graph goes when its lease buffers do.
         self.graphs = StepGraphs(self.device)
+        # The captured sampler of the final stage.
+        self.sampler = Sampler(self.device)
         self.arena.add_release_hook(self.graphs.drop_slot)
         # Sub-span execution units keyed by relative layer range (a, b): a
         # request may cover only part of the loaded span.
@@ -276,7 +277,7 @@ class StageExecutor:
         self.requests_served += 1
 
         if sub_spec.is_last:
-            tokens = _sample_rows(outs[-1], outs[-1].shape[1], req)
+            tokens = _sample_rows(outs[-1], outs[-1].shape[1], req, self.sampler)
             return StageResponse(
                 session_id=req.session_id, token_id=tokens[0],
                 token_ids=tuple(tokens) if len(tokens) > 1 else None,

@@ -30,21 +30,40 @@ and a 0-d ``cache_len`` tensor that the host fills before each replay.
     a capture are never charged to it.
   * No fallback: on a CUDA tensor a capture or replay that fails raises. On
     the CPU there is no graph, and the same step function runs directly.
+
+`Sampler` is the final stage's sampler captured the same way, once per
+(batch rows, vocabulary) of its owner: the reference jits ``sample_token``
+once (``ops/sampling.py:317``) and vmaps it over rows with the key
+schedule of its ``_sample_rows`` (``runtime/executor.py:160-178``). Its
+graph reads logits ``[B, V]`` and one int64 vector of the request's
+scalars (`pack_sampler_inputs`: the window, its length, top_k, the step
+seed and the float32 bits of the three float knobs); the keys are built
+inside it, ``PRNGKey(step_seed)`` for row 0 and ``fold_in(base, i)`` for
+row i. A call writes the vector into a pinned host buffer of its graph,
+copies it to the device without blocking, replays, and reads the tokens
+back: the one host sync. The copy is waited for (an event) before the
+pinned buffer is written again, so a later call never overwrites bytes a
+copy has yet to read.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import struct
 import threading
-from typing import Callable, Dict, Hashable, List, Optional, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops import int8_kernel, launch_counts, nf4_kernel
+from ..ops import draw_kernel, int8_kernel, launch_counts, nf4_kernel
+from ..ops.sampling import RECENT_WINDOW, SamplingParams, sample_token
+from ..ops.threefry import fold_in, prng_key
 
 # The kernel wrappers' launch counters (module, attribute).
 _COUNTERS = ((int8_kernel, "_launches"), (int8_kernel, "_launches_mma"),
-             (nf4_kernel, "_launches"), (nf4_kernel, "_launches_mma"))
+             (nf4_kernel, "_launches"), (nf4_kernel, "_launches_mma"),
+             (draw_kernel, "_launches"))
 
 
 def _add_counts(delta: Tuple[int, ...]) -> None:
@@ -63,12 +82,42 @@ def _warm_up(fn: Callable[[], torch.Tensor], stream: torch.cuda.Stream) -> None:
     current.wait_stream(stream)
 
 
+# Captures in flight, over all threads, and whether the collector was on
+# when the first of them began.
+_gc_lock = threading.Lock()
+_gc_state = {"captures": 0, "was_enabled": False}
+
+
+def _collector_off() -> None:
+    with _gc_lock:
+        if _gc_state["captures"] == 0:
+            _gc_state["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _gc_state["captures"] += 1
+
+
+def _collector_back() -> None:
+    """Turn the collector back on when the last capture in flight ends."""
+    with _gc_lock:
+        _gc_state["captures"] -= 1
+        if _gc_state["captures"] == 0 and _gc_state["was_enabled"]:
+            gc.enable()
+
+
 def _record(fn: Callable[[], torch.Tensor], pool, stream: torch.cuda.Stream):
-    """Capture `fn` on `stream` into a new graph over `pool`."""
+    """Capture `fn` on `stream` into a new graph over `pool`. The cyclic
+    garbage collector is off meanwhile, until every capture in flight on
+    any thread has ended: run inside a capture, it would destroy
+    unreachable graphs (another executor's, a stopped server's) on that
+    thread, and a graph's destruction invalidates the capture."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool, stream=stream,
-                          capture_error_mode="thread_local"):
-        out = fn()
+    _collector_off()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            out = fn()
+    finally:
+        _collector_back()
     return graph, out
 
 
@@ -172,3 +221,115 @@ class StepGraphs:
         with self._lock:
             for key in [key for key, e in self._steps.items() if e.slot == slot]:
                 del self._steps[key]
+
+
+# ---------------------------------------------------------------------------
+# The captured sampler
+# ---------------------------------------------------------------------------
+
+# Entries of the packed sampler scalars after the window.
+_NVALID, _TOP_K, _SEED, _FLOATS = range(RECENT_WINDOW, RECENT_WINDOW + 4)
+PACKED_LEN = _FLOATS + 3
+
+
+def _f32_bits(x: float) -> int:
+    """The bits of float32(x) as a signed 32-bit int."""
+    return struct.unpack("<i", struct.pack("<f", x))[0]
+
+
+def pack_sampler_inputs(window: Sequence[int], sampling: SamplingParams,
+                        step_seed: int) -> List[int]:
+    """The host scalars of one sampling call as PACKED_LEN ints: the last
+    RECENT_WINDOW tokens of `window` zero-padded, their count, top_k, the
+    step seed, and float32 temperature, top_p and repetition penalty as
+    their bits."""
+    w = [int(t) for t in window][-RECENT_WINDOW:]
+    return (w + [0] * (RECENT_WINDOW - len(w))
+            + [len(w), int(sampling.top_k), int(step_seed)]
+            + [_f32_bits(x) for x in (sampling.temperature, sampling.top_p,
+                                      sampling.repetition_penalty)])
+
+
+def sample_packed(logits: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """The sampled tokens int32 [B] of float32 logits [B, V] under the
+    packed scalars (int64 [PACKED_LEN] on the logits' device), row 0 keyed
+    ``PRNGKey(step_seed)`` and row i ``fold_in(base, i)``. Device work
+    only: this is what `Sampler` captures."""
+    recent = packed[:RECENT_WINDOW].to(torch.int32)
+    temperature, top_p, rp = packed[_FLOATS:].to(torch.int32).view(torch.float32)
+    base = prng_key(packed[_SEED])
+    if logits.shape[0] == 1:
+        # The hot path, as the reference's: row 0's key is the base itself,
+        # and no fold_in (~150 small integer kernels) runs.
+        keys = base[None]
+    else:
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        keys = torch.where((rows == 0)[:, None], base, fold_in(base, rows))
+    return sample_token(keys, logits, recent, packed[_NVALID].to(torch.int32),
+                        temperature, top_p, packed[_TOP_K].to(torch.int32), rp)
+
+
+class _SamplerGraph:
+    """One captured sampler: its static logits and packed scalars on the
+    device, the pinned host buffer the scalars are copied from, and the
+    event that marks the end of the last copy."""
+
+    def __init__(self, batch: int, vocab: int, device: torch.device):
+        self.logits = torch.zeros((batch, vocab), dtype=torch.float32, device=device)
+        self.packed = torch.zeros(PACKED_LEN, dtype=torch.int64, device=device)
+        self.host = torch.zeros(PACKED_LEN, dtype=torch.int64, pin_memory=True)
+        self.copied = torch.cuda.Event()
+        self.graph: Optional[Captured] = None
+
+    def load(self, values: List[int], logits: torch.Tensor) -> None:
+        if not self.copied.query():
+            self.copied.synchronize()   # the last copy has not read it yet
+        self.host.numpy()[:] = values
+        self.packed.copy_(self.host, non_blocking=True)
+        self.copied.record()
+        self.logits.copy_(logits)
+
+
+class Sampler:
+    """An owner's sampler for logits [B, V] on one device (the final
+    stage's executor; the fused sampled oracle's first token). On the card,
+    one graph per (B, V), captured at first use and replayed; elsewhere
+    `sample_packed` runs directly. `captures` and `replays` count them."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.enabled = self.device.type == "cuda"
+        self.captures = 0
+        self.replays = 0
+        self._graphs: Dict[Tuple[int, int], _SamplerGraph] = {}
+        self._lock = threading.Lock()
+        self._pool = None
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    def __call__(self, logits: torch.Tensor, window: Sequence[int],
+                 sampling: SamplingParams, step_seed: int) -> List[int]:
+        """The B sampled token ids of logits [B, V] (float32, on this
+        device), read back to the host at once: the call's one sync."""
+        values = pack_sampler_inputs(window, sampling, step_seed)
+        if not self.enabled:
+            packed = torch.tensor(values, dtype=torch.int64, device=self.device)
+            return sample_packed(logits.float(), packed).tolist()
+        with self._lock:
+            entry = self._graphs.get(tuple(logits.shape))
+            if entry is None:
+                entry = self._capture(*logits.shape)
+            entry.load(values, logits)
+            entry.graph.replay()
+            self.replays += 1
+            return entry.graph.out.tolist()
+
+    def _capture(self, batch: int, vocab: int) -> _SamplerGraph:
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        entry = _SamplerGraph(batch, vocab, self.device)
+        entry.graph = capture(lambda: sample_packed(entry.logits, entry.packed),
+                              self._pool, self._stream)
+        self._graphs[(batch, vocab)] = entry
+        self.captures += 1
+        return entry

@@ -854,6 +854,13 @@ class TcpStageServer(_FramedTcpServer):
                                "message": f"stage compute timed out after "
                                           f"{budget:.0f}s"})
             return
+        # The server span and phase end at compute completion, before the
+        # encode, as the reference's (net.py:1316-1323): a hidden state's
+        # host copy (which waits for this stage's kernels) and its encode
+        # fall outside them.
+        _get_profiler().observe("server", time.monotonic() - t_req)
+        span.set(cache_len=resp.cache_len,
+                 queue_s=max(0.0, t_compute - t_req)).end()
         if resp.is_token:
             if stream is not None:
                 # The stream's server-side recent-token window.
@@ -867,16 +874,11 @@ class TcpStageServer(_FramedTcpServer):
                 frame["token_ids"] = list(resp.token_ids)
             body = b""
         else:
-            # The host copy waits for this stage's kernels: the span below
-            # covers the device work.
             meta, body = _encode_tensor(_host_array(resp.hidden), resp_wire_dtype)
             frame = {
                 "verb": "hidden", "session_id": resp.session_id,
                 "cache_len": resp.cache_len, "tensor": meta,
             }
-        _get_profiler().observe("server", time.monotonic() - t_req)
-        span.set(cache_len=resp.cache_len,
-                 queue_s=max(0.0, t_compute - t_req)).end()
         if req.trace is not None:
             frame["span"] = span.to_wire()
         _send_frame(sock, frame, body)

@@ -81,6 +81,9 @@ from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_
     attention as tatt,
 )
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.ops import (
+    draw_kernel as tdk,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.ops import (
     int8_kernel as tik,
 )
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.ops import (
@@ -401,14 +404,14 @@ def test_drive_chunks_trims_an_overshoot_and_spreads_the_chunk_time():
     seq = [4, 9, 9, 9, 9, 9, 2, 2]                  # a repeat stop mid-chunk
     chunks = []
 
-    def run_chunk(last, cur, n):
-        chunks.append((last, cur, n))
+    def run_chunk(last, cur, n, step):
+        chunks.append((last, cur, n, step))
         return seq[1:1 + n]
 
     res = tmain._drive_chunks([1, 2, 3], 8, None, prefill_first_token=lambda ids: seq[0],
                               run_chunk=run_chunk, chunk=7)
     assert res.tokens == seq[:6] and res.stopped_by == "repeat"
-    assert chunks == [(4, 3, 7)]
+    assert chunks == [(4, 3, 7, 1)]                 # step: the key schedule's index
     assert len(res.decode_times_s) == 5 and len(set(res.decode_times_s)) == 1
     res = tmain._drive_chunks([1], 8, 9, prefill_first_token=lambda ids: 4,
                               run_chunk=run_chunk, chunk=7)
@@ -466,6 +469,7 @@ def test_capture_counts_launches_per_replay(monkeypatch, stub_graphs):
     for mod in (tik, tnk):
         monkeypatch.setattr(mod, "_launches", 100)
         monkeypatch.setattr(mod, "_launches_mma", 10)
+    monkeypatch.setattr(tdk, "_launches", 50)
     out = torch.zeros(1)
 
     def fn():                                       # what a step's wrappers count
@@ -474,18 +478,67 @@ def test_capture_counts_launches_per_replay(monkeypatch, stub_graphs):
         launch_counts.count(tik, "_launches", "_launches_mma")
         for _ in range(2):
             launch_counts.count(tnk, "_launches")
+        launch_counts.count(tdk, "_launches")       # the sampler's draw
         return out
 
     captured = tgraphs.capture(fn, None, None)
     # The warm-up ran (it counts); the capture ran nothing (taken off).
-    assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma) == \
-        (104, 11, 102, 10)
-    assert captured.launches == (4, 1, 2, 0)
+    assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma,
+            tdk._launches) == (104, 11, 102, 10, 51)
+    assert captured.launches == (4, 1, 2, 0, 1)
     captured.graph.fn = lambda: out                 # a replay runs no wrapper
     for _ in range(3):
         captured.replay()
-    assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma) == \
-        (116, 14, 108, 10)
+    assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma,
+            tdk._launches) == (116, 14, 108, 10, 54)
+
+
+def test_capture_runs_with_the_collector_off(monkeypatch):
+    """_record turns Python's cyclic garbage collector off for the capture
+    (a graph destroyed inside a capture invalidates it) and back on after,
+    also when the captured function raises."""
+    import contextlib
+    import gc
+
+    seen = []
+    monkeypatch.setattr(tgraphs.torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(tgraphs.torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    graph, out = tgraphs._record(lambda: seen.append(gc.isenabled()) or 7, None, None)
+    assert out == 7 and seen == [False] and gc.isenabled()
+
+    def boom():
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError):
+        tgraphs._record(boom, None, None)
+    assert gc.isenabled()
+
+
+def test_collector_stays_off_until_the_last_capture_ends(monkeypatch):
+    """Two captures that overlap (here a second begins and ends inside the
+    first, as on another thread): the first to end leaves the collector off,
+    and the last turns it back on."""
+    import contextlib
+    import gc
+
+    monkeypatch.setattr(tgraphs.torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(tgraphs.torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    seen = []
+
+    def outer():
+        tgraphs._record(lambda: seen.append(gc.isenabled()), None, None)
+        seen.append(gc.isenabled())
+
+    tgraphs._record(outer, None, None)
+    assert seen == [False, False] and gc.isenabled()
+    gc.disable()
+    try:
+        tgraphs._record(lambda: None, None, None)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
 
 
 def test_capture_charges_no_launch_of_another_thread(monkeypatch, stub_graphs):
@@ -499,7 +552,7 @@ def test_capture_charges_no_launch_of_another_thread(monkeypatch, stub_graphs):
     first = tgraphs.capture(lambda: launch_counts.count(tik, "_launches") or out,
                             None, None)
     first.graph.fn = lambda: out
-    assert first.launches == (1, 0, 0, 0)
+    assert first.launches == (1, 0, 0, 0, 0)
     recording, other_done = threading.Event(), threading.Event()
     calls = []
 
@@ -525,7 +578,7 @@ def test_capture_charges_no_launch_of_another_thread(monkeypatch, stub_graphs):
     second = tgraphs.capture(step, None, None)
     thread.join(10.0)
     assert not thread.is_alive() and len(calls) == 2
-    assert second.launches == (0, 0, 2, 0)
+    assert second.launches == (0, 0, 2, 0, 0)
     # first's warm-up 1 + 5 replays + 3 eager; step's warm-up 2.
     assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma) == \
         (9, 3, 2, 0)

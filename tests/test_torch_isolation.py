@@ -92,6 +92,25 @@ def test_every_port_module_imports_with_jax_blocked():
     assert f"imported {len(mods)}" in proc.stdout
 
 
+@pytest.mark.parametrize("module", ["draw_kernel", "int8_kernel", "nf4_kernel"])
+def test_importing_a_kernel_wrapper_builds_nothing(module):
+    """A kernel wrapper, the sampler and the graphs import without building
+    or loading any library: the build waits for the first launch (or
+    ``build()``), so the CPU tests, which import every module, build
+    nothing."""
+    code = (
+        "import importlib\n"
+        f"m = importlib.import_module('{PORT_PKG}.ops.{module}')\n"
+        f"importlib.import_module('{PORT_PKG}.runtime.graphs')\n"
+        f"from {PORT_PKG}.utils import cuda_build\n"
+        "print(m._lib is None, m._launches, sorted(cuda_build._loaded), "
+        "sorted(cuda_build.build_logs))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[0] == "True 0 [] []"
+
+
 def _field_table(cls):
     return [(f.name, f.default, f.default_factory is not dataclasses.MISSING)
             for f in dataclasses.fields(cls)]

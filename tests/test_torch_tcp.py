@@ -31,6 +31,7 @@ import sys
 import time
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -67,6 +68,9 @@ from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.
 )
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch import (
     main as tmain,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch import (
+    telemetry as ttel,
 )
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.models.partition import (
     StagePlan,
@@ -239,6 +243,70 @@ def test_mixed_chain(weights, references, wire_dtype, client_pkg, stage2_pkg):
     assert tokens == references[f"jax_{wire_dtype}"] == references["local"]
     foreign = swarm.servers[f"{stage2_pkg}-s2-r0"]
     assert foreign.stream_opens == 1 and foreign.stream_steps == NEW_TOKENS
+
+
+@pytest.fixture(scope="module")
+def weights_bf16():
+    jcfg = tiny_llama_j()
+    jp = jax_params(jcfg, dtype=jnp.bfloat16)
+    return jcfg, jp, port_cfg(jcfg), bridged(jp)
+
+
+@pytest.fixture(scope="module")
+def references_bf16(weights_bf16):
+    """The JAX-only chain's greedy tokens on the bfloat16 model, per wire
+    dtype."""
+    return {wd: _swarm_tokens(weights_bf16, ALL["jax"], wd, "jax", GREEDY)[0]
+            for wd in ("f32", "bf16")}
+
+
+@pytest.mark.parametrize("wire_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("client_pkg,stage2_pkg", [("jax", "port"), ("port", "jax")])
+def test_mixed_chain_bfloat16(weights_bf16, references_bf16, wire_dtype, client_pkg,
+                              stage2_pkg):
+    """A bfloat16 model: a server computes an arriving activation in the
+    float32 the wire decodes to (bf16 weights against float32 activations),
+    the reference's engine, and a port executor built without ``act_dtype``
+    (as ``--mode serve`` builds it) does the same, so a chain mixing the
+    packages gives the JAX-only chain's greedy tokens at either wire."""
+    layout = {1: [client_pkg], 2: [stage2_pkg], 3: [client_pkg]}
+    tokens, swarm = _swarm_tokens(weights_bf16, layout, wire_dtype, client_pkg, GREEDY)
+    assert len(tokens) == NEW_TOKENS
+    assert tokens == references_bf16[wire_dtype]
+    assert swarm.servers[f"{stage2_pkg}-s2-r0"].stream_steps == NEW_TOKENS
+
+
+def test_server_span_ends_before_the_encode(weights, monkeypatch):
+    """The server_forward span ends at compute completion, before the
+    hidden state's host copy and encode (the reference's
+    ``net.py:1316-1323``): with every encode slowed by DELAY_S, each server
+    span stays shorter than DELAY_S, while the encodes did run."""
+    delay_s = 0.25
+    encode = tnet._encode_tensor
+    encoded = []
+
+    def slow_encode(arr, wire_dtype):
+        encoded.append(tuple(arr.shape))
+        time.sleep(delay_s)
+        return encode(arr, wire_dtype)
+
+    monkeypatch.setattr(tnet, "_encode_tensor", slow_encode)
+    ttel.enable()
+    ttel.get_tracer().clear()
+    try:
+        swarm = Swarm(weights, ALL["port"], "f32")
+        try:
+            _generate(swarm.client("port"), "port", GREEDY, n=2)
+        finally:
+            swarm.stop()
+        spans = [sp for sp in ttel.get_tracer().spans() if sp.name == "server_forward"]
+    finally:
+        ttel.disable()
+        ttel.get_tracer().clear()
+    assert {sp.attrs["peer"] for sp in spans} == {"port-s1-r0", "port-s2-r0", "port-s3-r0"}
+    assert len(encoded) >= 2 * len(spans) // 3
+    assert all(sp.duration_s is not None and sp.duration_s < delay_s for sp in spans), \
+        [sp.duration_s for sp in spans]
 
 
 def test_failover_onto_replica(weights, references):

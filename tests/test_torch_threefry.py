@@ -180,6 +180,9 @@ def test_batched_rows_draw_with_folded_keys():
     from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.runtime.executor import (
         _sample_rows,
     )
+    from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.runtime.graphs import (
+        Sampler,
+    )
     from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.runtime.messages import (
         StageRequest,
     )
@@ -190,7 +193,7 @@ def test_batched_rows_draw_with_folded_keys():
     req = StageRequest(session_id="s", hidden=None, seq_len=1, cur_len=0,
                        is_prefill=False, max_length=8, sampling=sp,
                        generated_tokens=(4, 5), step_seed=17)
-    rows = _sample_rows(logits.expand(4, 1, 512), 1, req)
+    rows = _sample_rows(logits.expand(4, 1, 512), 1, req, Sampler("cpu"))
     recent = torch.zeros(tsamp.RECENT_WINDOW, dtype=torch.int32)
     recent[:2] = torch.tensor([4, 5])
     base = tf.prng_key(17)
@@ -198,7 +201,7 @@ def test_batched_rows_draw_with_folded_keys():
         key = base if i == 0 else tf.fold_in(base, i)
         assert tok == tsamp.sample_token(key, logits[0, 0], recent, 2, sp.temperature,
                                          sp.top_p, sp.top_k, sp.repetition_penalty)
-    assert rows[0] == _sample_rows(logits, 1, req)[0]
+    assert rows[0] == _sample_rows(logits, 1, req, Sampler("cpu"))[0]
 
 
 def test_replicated_cluster_samples_like_the_plain_one():
