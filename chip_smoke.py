@@ -11,14 +11,21 @@ on the kernels; it never prints the last line of a smoke pass.)
 3. Kernels: calls each kernel's wrapper (``int8_dot``, ``nf4_dot``) at the
    shapes the main paths give it (llama-3.1-8b projections at M = 1, 8, 16,
    the prompt length, the prompt's sequence bucket (the M a padded prefill
-   runs at), 128 and 512, each row with the route it took), holds
+   runs at), 128 and 512, ``nf4_dot`` also at M = 2, each row with the
+   route it took), holds
    it against its plain PyTorch version on the same card, and times the
    kernel, the plain version and one PyTorch library call computing the
-   same function. Each is also held at ragged shapes of both its routes
-   (``int8_dot`` also at an x view 2 bytes into its storage), and both
-   kernels of each are timed at M = 1..16 on wgu and wd (the crossover scan
-   behind its ``MMA_MIN_M``). Prints JSON lines of shapes, crossover scan
-   and per-layer sums per kernel.
+   same function. Each is also held at ragged shapes of every route
+   (``int8_dot`` also at an x view 2 bytes into its storage). ``int8_dot``'s
+   two kernels are timed at M = 1..16 on wgu and wd, ``nf4_dot``'s three
+   (decode "gemv" at M <= 2, "simt", "mma") at M = 1..4 (the crossover
+   scans behind each ``MMA_MIN_M``). ``nf4_dot``'s decode kernel is also
+   held at every site with float32 x at M = 1 and 2 (``F32_TOL``), must
+   give the same bits on two launches, is timed at M = 1 in both dtypes
+   beside the old CUDA-core kernel and the library (``nf4_dot_decode``),
+   and at every cluster size (``nf4_dot_gemv_plans``, the scan behind
+   ``_gemv_plan``). Prints JSON lines of shapes, crossover scan and
+   per-layer sums per kernel.
 3b. The draw kernel (``sample_draw``, ``csrc/sample_draw.cu``): at V =
    128256 and 1000, B = 1 and 4, temperatures 0.7 and 1.5, 8 seeds each,
    its Gumbel noise must be bit-equal to the plain ``threefry.gumbel`` and
@@ -43,7 +50,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    with the executors' float32 cache and the sampled request's to the
    same loop sampling with the plain sampler and the pipeline's step seeds
    (equal, or a first difference where the reference's two best perturbed
-   scores are within the near-tie tolerance). Every
+   scores are within the near-tie tolerance, or where its draw or the
+   run's lies within it of the top-k / top-p cut). Every
    stage replays CUDA graphs of its step (``runtime/graphs.py``): the
    launch counts are the ones the graphs hold, added per replay; captures
    and replays are counted per path (set to 0 with the launch counts) and
@@ -60,7 +68,9 @@ on the kernels; it never prints the last line of a smoke pass.)
    captures of its own; its TTFT, captures and reserved memory beside a
    request on a reused slot, whose tokens it must equal).
 6. NF4 path: the same with ``--quant nf4`` and ``NF4_KERNEL=1``, through
-   ``nf4_dot``, with the same gates and the capture check. Both serve phases run with telemetry
+   ``nf4_dot``, with the same gates and the capture check, and one more:
+   every launch is a prefill on the tensor cores or a decode step on the
+   decode kernel (``_launches == _launches_mma + _launches_gemv``). Both serve phases run with telemetry
    off; the NF4 client is built as under ``--telemetry``, so its metrics go
    to the process-global registry, which stays disabled until step 7.
 7. Telemetry on the NF4 path, same client: one greedy request run with
@@ -96,8 +106,9 @@ on the kernels; it never prints the last line of a smoke pass.)
    Both with the launch,
    draw and graph-replay gates of steps 5-6 (counts set to 0 just before
    the requests, read just after; tensor-core launches: stage 0's prefill
-   sites, the only ones still given bf16 x) and the native wire codec
-   loaded. On the int8 path a stage-2 replica joins and the pinned stage-2
+   sites, the only ones still given bf16 x; on NF4 every decode step on the
+   decode kernel, and only stages 1-3's float32 prefill on the CUDA-core
+   route) and the native wire codec loaded. On the int8 path a stage-2 replica joins and the pinned stage-2
    server is ``stop()``ped after its 3rd decode step of a greedy request:
    the client must recover onto the replica with the fault-free tokens.
 8b. Oracle (after the int8 TCP drive): ``--mode oracle --quant int8``'s
@@ -121,7 +132,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    the per-hop ``client_stage_time_seconds``, the client's ``socket``
    phase and the peaks.
 10. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
-   ``sample_draw``) and ``{"ok": true, "device": {...}}`` as its last line.
+   ``sample_draw``; each matmul with its launches by route) and
+   ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
 refuses to run without a CUDA device, and outside a checkout of the repo.
@@ -180,7 +192,8 @@ REPLACES = {"int8_dot": "ops/int8_kernel.py:98", "nf4_dot": "ops/nf4_kernel.py:1
 # injections x 2 words (one IADD3 each, the round constant folded in) + the
 # uniform's bits (the output xor, the shift, the or) = 74. The float work
 # (the uniform's product, two logf, the score) is not counted: it only
-# raises the bound. `draw_sass` reads the built kernel's own opcodes.
+# raises the bound. `sass_counts` reads the built kernel's own opcodes
+# (SHF.L.W counts the cipher's rotates).
 DRAW_INT_OPS = 74
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
 DRAW_LIBRARY_NOTE = ("no single PyTorch call draws threefry Gumbel-max tokens; "
@@ -216,7 +229,7 @@ def ptxas_usage(text: str):
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d((?:int8|nf4)_dot(?:_mma)?_kernel)I(.*?)EEv",
+            m = re.search(r"\d((?:int8|nf4)_(?:dot(?:_mma)?|gemv)_kernel)I(.*?)EEv",
                           entry.group(1))
             if m is None:
                 kernel = entry.group(1)
@@ -406,16 +419,19 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
     return rows, scan
 
 
-def scan_routes(torch, name, site, k, gen, dev, launch, plain, flush):
-    """Both kernels of `name` (``launch(x, route)``) at M = 1..16, each held
-    to the plain version and timed: the crossover scan behind its
-    ``MMA_MIN_M``."""
+def scan_routes(torch, name, site, k, gen, dev, launch, plain, flush,
+                routes=("simt", "mma"), ms=range(1, 17), takes=lambda route, m: True):
+    """The kernels of `name` (``launch(x, route)``) at each M of `ms` (each
+    route where ``takes(route, m)``), each held to the plain version and
+    timed: the crossover scan behind its ``MMA_MIN_M``."""
     points = []
-    for m in range(1, 17):
+    for m in ms:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         ref = plain(x)
         point = {"site": site, "M": m}
-        for route in ("simt", "mma"):
+        for route in routes:
+            if not takes(route, m):
+                continue
             check_bf16(torch, name, f"{site} {route}", x, launch(x, route), ref)
             point[f"{route}_ms"] = cuda_ms(lambda: launch(x, route), torch, flush=flush)
         points.append(point)
@@ -423,10 +439,11 @@ def scan_routes(torch, name, site, k, gen, dev, launch, plain, flush):
 
 
 def crossover(scan):
-    """The least M from which the tensor-core route is at least as fast at
-    every scanned M of every site."""
-    faster = [p["mma_ms"] <= p["simt_ms"] for p in scan]
-    return next((m for m in range(1, 17)
+    """The least M from which the tensor-core route is at least as fast as
+    every other scanned route at every scanned M of every site."""
+    faster = [all(p["mma_ms"] <= v for key, v in p.items() if key.endswith("_ms"))
+              for p in scan]
+    return next((m for m in sorted({p["M"] for p in scan})
                  if all(f for p, f in zip(scan, faster) if p["M"] >= m)), None)
 
 
@@ -435,19 +452,30 @@ def nf4_weight(torch, quant, gen, dev, k: int, n: int):
     return quant._quantize_leaf_nf4(w_bf16)
 
 
+def nf4_bytes(m: int, k: int, n: int, xsize: int) -> int:
+    """Bytes one nf4_dot call must move: x, the packed weight, its scales, y."""
+    return m * k * xsize + k * n // 2 + (k // 64) * n * 2 + m * n * xsize
+
+
 def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
               flops: float, flush):
     """nf4_dot at every main-path shape, on weights quantized by the port's
-    own NF4 quantizer: agreement and times, each row with its route; ragged
-    shapes of both routes; and the crossover scan of the two kernels at
-    M = 1..16 on wgu and wd. Returns (rows, scan)."""
+    own NF4 quantizer: agreement and times, each row with its route
+    (decode M = 1 and 2 on "gemv"); float32 x at M = 1 and 2 on "gemv"
+    (F32_TOL) and at M = 16 on "simt"; two launches of the decode kernel
+    bit-equal (bf16 and float32); at M = 1 the decode kernel, the old
+    CUDA-core kernel ("simt") and the library at every site in both dtypes
+    (`decode` rows); the decode kernel at every cluster size at M = 1 (the
+    plan scan behind `_gemv_plan`); ragged shapes of every route; and the
+    crossover scan of the three kernels at M = 1..4 on wgu and wd. Returns
+    (rows, scan, decode, plans)."""
     from importlib import import_module
 
     quant = import_module(PORT + ".models.quant")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    rows, scan = [], []
-    ms = tuple(sorted({1, 8, 16, prompt_len, prefill_m, 128, 512}))
+    rows, scan, decode, plans = [], [], [], []
+    ms = tuple(sorted({1, 2, 8, 16, prompt_len, prefill_m, 128, 512}))
     for site, k, n in SITES:
         w = nf4_weight(torch, quant, gen, dev, k, n)
         w_deq = w.dequant()                          # library yardstick only
@@ -457,16 +485,66 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
                 torch, "nf4_dot", site, x, lambda: nk.nf4_dot(x, w),
                 lambda: nk.nf4_dot_reference(x, w),
                 lambda: torch.matmul(x, w_deq),
-                m * k * 2 + k * n // 2 + (k // 64) * n * 2 + m * n * 2,
-                bw, flops, flush)
+                nf4_bytes(m, k, n, 2), bw, flops, flush)
             row["route"] = nk._route(m, k, n, x.dtype)
             rows.append(row)
-        x32 = torch.randn((16, k), generator=gen, device=dev)
-        err32 = check_f32("nf4_dot", site, nk.nf4_dot(x32, w),
-                          nk.nf4_dot_reference(x32, w))
+        assert [r["route"] for r in rows[-len(ms):][:2]] == ["gemv", "gemv"]
+        errs32 = {}
+        for m in (1, 2, 16):
+            x32 = torch.randn((m, k), generator=gen, device=dev)
+            assert nk._route(m, k, n, x32.dtype) == ("gemv" if m <= 2 else "simt")
+            errs32[m] = check_f32("nf4_dot", f"{site} M={m}", nk.nf4_dot(x32, w),
+                                  nk.nf4_dot_reference(x32, w))
+        # The decode kernel is deterministic: the same bits from two launches.
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((1, k), generator=gen, device=dev).to(dtype)
+            if not torch.equal(nk.nf4_dot(x, w), nk.nf4_dot(x, w)):
+                raise AssertionError(f"nf4_dot gemv {site} {dtype}: two launches differ")
+        # Decode at M = 1 in both dtypes (stage 0 and in process bf16, the
+        # stages behind TCP float32): the decode kernel beside the old
+        # CUDA-core kernel, the plain version and the library, each held.
+        w_deq32 = w.dequant_f32()                    # library yardstick only
+        for dtype, deq, xsize in ((torch.bfloat16, w_deq, 2), (torch.float32, w_deq32, 4)):
+            x = torch.randn((1, k), generator=gen, device=dev).to(dtype)
+            ref = nk.nf4_dot_reference(x, w)
+            check = check_bf16 if dtype == torch.bfloat16 else (
+                lambda torch_, name, where, x_, y, r: check_f32(name, where, y.float(), r.float()))
+            row = {"site": site, "M": 1, "K": k, "N": n,
+                   "dtype": str(dtype).replace("torch.", "")}
+            for route in ("gemv", "simt"):
+                row[f"{route}_max_abs_err"] = check(torch, "nf4_dot", f"{site} {route}", x,
+                                                    nk._launch(x, w, route), ref)
+                row[f"{route}_ms"] = cuda_ms(lambda: nk._launch(x, w, route), torch,
+                                             flush=flush)
+            row["plain_ms"] = cuda_ms(lambda: nk.nf4_dot_reference(x, w), torch, flush=flush)
+            row["library_ms"] = cuda_ms(lambda: torch.matmul(x, deq), torch, flush=flush)
+            row["bytes"] = nf4_bytes(1, k, n, xsize)
+            row["bound_ms"] = row["bytes"] / bw * 1e3
+            row["bound_by"] = "bytes"
+            row["plan"] = list(nk._gemv_plan(1, k, n))
+            decode.append(row)
+        # The plan scan: the decode kernel at every cluster size (bf16, M = 1).
+        x = torch.randn((1, k), generator=gen, device=dev).to(torch.bfloat16)
+        ref = nk.nf4_dot_reference(x, w)
+        point = {"site": site, "plan": list(nk._gemv_plan(1, k, n))}
+        blocks = -(-k // 64)
+        for split in range(1, nk.GEMV_MAX_SPLIT + 1):
+            if -(-blocks // split) > nk.GEMV_MAX_CHUNK:
+                continue
+            plan = (nk.GEMV_STRIP, split)
+            check_bf16(torch, "nf4_dot", f"{site} gemv split {split}", x,
+                       nk._launch(x, w, "gemv", plan), ref)
+            point[f"split{split}_ms"] = cuda_ms(lambda: nk._launch(x, w, "gemv", plan),
+                                                torch, flush=flush)
+        plans.append(point)
         log(f"nf4_dot {site} K={k} N={n}: bf16 ok at M={','.join(map(str, ms))} "
-            f"(routes {[r['route'] for r in rows[-len(ms):]]}); "
-            f"float32 M=16 max err {err32:.3e}")
+            f"(routes {[r['route'] for r in rows[-len(ms):]]}); float32 max err "
+            f"{errs32[1]:.3e} (M=1, gemv), {errs32[2]:.3e} (M=2, gemv), "
+            f"{errs32[16]:.3e} (M=16, simt); gemv bit-equal over two launches; "
+            f"M=1 gemv / simt / library ms: bf16 {decode[-2]['gemv_ms']:.4f} / "
+            f"{decode[-2]['simt_ms']:.4f} / {decode[-2]['library_ms']:.4f}, float32 "
+            f"{decode[-1]['gemv_ms']:.4f} / {decode[-1]['simt_ms']:.4f} / "
+            f"{decode[-1]['library_ms']:.4f}; plan {point['plan']}")
         if site == "wgu":                            # a ragged M, tensor cores
             x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
             assert nk._route(33, k, n, x.dtype) == "mma"
@@ -476,21 +554,34 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
         if site in ("wgu", "wd"):
             scan += scan_routes(torch, "nf4_dot", site, k, gen, dev,
                                 lambda x, route: nk._launch(x, w, route),
-                                lambda x: nk.nf4_dot_reference(x, w), flush)
-        del w, w_deq
+                                lambda x: nk.nf4_dot_reference(x, w), flush,
+                                routes=("gemv", "simt", "mma"), ms=range(1, 5),
+                                takes=lambda route, m: route != "gemv"
+                                or m <= nk.GEMV_MAX_M)
+        del w, w_deq, w_deq32
     # Ragged shapes: in_dim not a multiple of 64, the last column block part
-    # full; N % 16 != 0 takes the CUDA-core route.
-    for k, n, m, want in ((100, 97, 16, "simt"), (130, 50, 33, "simt"),
-                          (328, 48, 33, "mma")):
+    # full; N % 16 != 0 takes the CUDA-core route, at decode M too.
+    for k, n, m, dtype, want in ((100, 97, 16, torch.bfloat16, "simt"),
+                                 (130, 50, 33, torch.bfloat16, "simt"),
+                                 (328, 48, 33, torch.bfloat16, "mma"),
+                                 (100, 97, 1, torch.bfloat16, "simt"),
+                                 (4096, 4104, 1, torch.bfloat16, "simt"),
+                                 (100, 97, 1, torch.float32, "simt"),
+                                 (100, 96, 1, torch.bfloat16, "gemv"),
+                                 (130, 48, 2, torch.bfloat16, "gemv"),
+                                 (4100, 4112, 1, torch.float32, "gemv"),
+                                 (4104, 96, 1, torch.bfloat16, "gemv"),
+                                 (130, 48, 2, torch.float32, "gemv")):
         w = nf4_weight(torch, quant, gen, dev, k, n)
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         assert nk._route(m, k, n, x.dtype) == want
-        err = check_bf16(torch, "nf4_dot", f"K={k} N={n}", x, nk.nf4_dot(x, w),
-                         nk.nf4_dot_reference(x, w))
-        log(f"nf4_dot ragged K={k} N={n} M={m} ({want}): max err {err:.3e}")
+        y, ref = nk.nf4_dot(x, w), nk.nf4_dot_reference(x, w)
+        err = (check_bf16(torch, "nf4_dot", f"K={k} N={n}", x, y, ref)
+               if dtype == torch.bfloat16 else check_f32("nf4_dot", f"K={k} N={n}", y, ref))
+        log(f"nf4_dot ragged K={k} N={n} M={m} {dtype} ({want}): max err {err:.3e}")
     log(f"nf4_dot crossover: mma at least as fast from M={crossover(scan)} "
         f"(MMA_MIN_M = {nk.MMA_MIN_M})")
-    return rows, scan
+    return rows, scan, decode, plans
 
 
 def host_ms(fn, torch, reps: int = 30) -> float:
@@ -618,25 +709,26 @@ def draw_bound(rows: int, vocab: int, bw: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def draw_sass():
-    """Opcode counts of the built draw_partial_kernel's SASS
-    (``cuobjdump -sass`` of the library in build/kernels), the record
-    behind DRAW_INT_OPS: SHF.L.W counts the cipher's rotates. None, and a
-    log line, where cuobjdump is not installed."""
+def sass_counts(library: str, kernel: str):
+    """Opcode counts of one kernel's SASS in the built library
+    ``build/kernels/<library>-*.so`` (``cuobjdump -sass``), the function
+    picked by a substring of its mangled name; SHF.L.W apart (the draw's
+    rotates), other opcodes by their first word. None, and a log line,
+    where cuobjdump is not installed."""
     from importlib import import_module
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        log("draw sass: no cuobjdump")
+        log(f"{kernel} sass: no cuobjdump")
         return None
     build_dir = import_module(PORT + ".utils.cuda_build").BUILD_DIR
-    lib = max(build_dir.glob("sample_draw-*.so"), key=lambda p: p.stat().st_mtime)
+    lib = max(build_dir.glob(f"{library}-*.so"), key=lambda p: p.stat().st_mtime)
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           timeout=120, check=True).stdout
     counts, inside = {}, False
     for line in text.splitlines():
         if "Function :" in line:
-            inside = "draw_partial_kernel" in line
+            inside = kernel in line
             continue
         op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if inside and op:
@@ -644,8 +736,7 @@ def draw_sass():
             key = "SHF.L.W" if full.startswith("SHF.L.W") else full.split(".")[0]
             counts[key] = counts.get(key, 0) + 1
     counts = dict(sorted(counts.items(), key=lambda kv: -kv[1]))
-    log(f"draw sass ({lib.name}, draw_partial_kernel): {sum(counts.values())} "
-        f"instructions; {counts}")
+    log(f"{kernel} sass ({lib.name}): {sum(counts.values())} instructions; {counts}")
     return counts
 
 
@@ -722,7 +813,8 @@ def draw_phase(torch, dk, tf3, bw: float):
                                       torch, reps=200, spin=True),
             "bound_ms": bound_ms, "bound_by": bound_by})
     return {"draws_checked": draws, "noise_bit_equal": True, "ties_first_index": True,
-            "int_ops_per_element": DRAW_INT_OPS, "sass": draw_sass(), "times": rows_out}
+            "int_ops_per_element": DRAW_INT_OPS,
+            "sass": sass_counts("sample_draw", "draw_partial_kernel"), "times": rows_out}
 
 
 def first_difference(a, b) -> int:
@@ -777,7 +869,8 @@ def sampled_reference(torch, cfg, params, ids, sp, seed: int, max_new_tokens: in
     Returns its tokens and, per step, the gap between its two best
     perturbed scores (Gumbel noise plus log-probs) and the near-tie
     tolerance there: LOGIT_GAP_TOL times the scores' scale, max|logit| over
-    the temperature."""
+    the temperature; and, for `filter_tie`, the seed and each step's probs
+    after and before the top-k and top-p filters."""
     from importlib import import_module
 
     tf = import_module(PORT + ".models.transformer")
@@ -789,7 +882,7 @@ def sampled_reference(torch, cfg, params, ids, sp, seed: int, max_new_tokens: in
     kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids) + max_new_tokens + 1,
                               dtype=torch.float32, device=dev)
     x = torch.tensor([ids], device=dev)
-    cur, out, gaps = 0, [], []
+    cur, out, gaps, steps = 0, [], [], []
     while len(out) < max_new_tokens:
         if len(out) >= REPEAT_STOP and len(set(out[-REPEAT_STOP:])) == 1:
             break
@@ -803,18 +896,71 @@ def sampled_reference(torch, cfg, params, ids, sp, seed: int, max_new_tokens: in
         probs = samp.sample_probs(logits, recent, len(w), sp.temperature, sp.top_p,
                                   sp.top_k, sp.repetition_penalty)
         logp = torch.log(torch.clamp(probs, min=1e-20))
+        unfiltered = samp.sample_probs(logits, recent, len(w), sp.temperature, 1.0, 0,
+                                       sp.repetition_penalty)
+        steps.append((probs, unfiltered))
         key = tf3.prng_key(seed + len(out))
         top2 = torch.topk(tf3.gumbel(key, logp.shape, dev) + logp, 2).values
         gaps.append(((top2[0] - top2[1]).item(),
                      LOGIT_GAP_TOL * logits.abs().max().item() / max(sp.temperature, 1e-5)))
         out.append(int(dk.sample_draw_reference(key, logp)))
         x = torch.tensor([[out[-1]]], device=dev)
-    return {"tokens": out, "gaps": gaps}
+    return {"tokens": out, "gaps": gaps, "steps": steps, "seed": seed}
+
+
+def filter_tie(ref, i: int, got: int, want: int, tol: float):
+    """Whether the run's token at step i is a draw of the reference's with
+    its top-k / top-p cut moved across a token whose log-prob before the
+    filters lies within `tol` of the cut, as a change of the log-probs
+    within the tolerance moves it. The moves: each cut token within `tol`
+    of the least one kept joins the kept set; the reference's own draw,
+    where it lies within `tol` of the greatest one cut, leaves it (alone or
+    with one such token joining). Each moved set is drawn again with the
+    step's key, Gumbel-max over its renormalized probs as the reference
+    draws (``tf3.gumbel(prng_key(seed + i))``); the run's token must be one
+    of the draws. Returns (explained, what was read)."""
+    from importlib import import_module
+
+    tf3 = import_module(PORT + ".ops.threefry")
+    probs, unfiltered = ref["steps"][i]
+    logp = unfiltered.double().clamp(min=1e-300).log()
+    kept = probs > 0
+    least_kept = logp[kept].min().item()
+    most_cut = logp[~kept].max().item() if (~kept).any() else float("-inf")
+    near_cut = ((~kept) & (logp >= least_kept - tol)).nonzero().flatten().tolist()
+    noise = tf3.gumbel(tf3.prng_key(ref["seed"] + i), probs.shape, probs.device)
+
+    def draw(keep) -> int:
+        p = unfiltered.masked_fill(~keep, 0.0)
+        p = p / p.sum().clamp(min=1e-20)
+        return int((noise + p.clamp(min=1e-20).log()).argmax())
+
+    bases = [kept]
+    want_at_cut = logp[want].item() <= most_cut + tol
+    if want_at_cut:
+        without_want = kept.clone()
+        without_want[want] = False
+        bases.append(without_want)
+    redrawn = set()
+    for base in bases:
+        redrawn.add(draw(base))
+        for c in near_cut:
+            moved = base.clone()
+            moved[c] = True
+            redrawn.add(draw(moved))
+    return got in redrawn, {
+        "kept": int(kept.sum()), "least_kept_logp": least_kept, "most_cut_logp": most_cut,
+        "near_cut": near_cut, "want_at_cut": want_at_cut, "redraw_of_kept": draw(kept),
+        "redrawn": sorted(redrawn), "got": got, "got_logp": logp[got].item(),
+        "got_cut": not bool(kept[got]), "want": want, "want_logp": logp[want].item()}
 
 
 def hold_sampled(ref, got, what: str) -> None:
-    """Equal tokens, or a first difference where the reference's two best
-    perturbed scores lie within the near-tie tolerance."""
+    """Equal tokens, or a first difference at a near-tie: where the
+    reference's two best perturbed scores lie within the near-tie
+    tolerance, or where the run's token is the reference's draw with the
+    top-k / top-p cut moved across a token within the tolerance of it
+    (`filter_tie`)."""
     want = ref["tokens"]
     if got == want:
         log(f"  {what}: tokens equal ({len(want)} tokens)")
@@ -823,7 +969,12 @@ def hold_sampled(ref, got, what: str) -> None:
     gap, tol = ref["gaps"][i] if i < len(ref["gaps"]) else (float("inf"), 0.0)
     log(f"  {what}:\n    got  {got}\n    want {want}\n  first difference at step {i}: "
         f"reference top-2 perturbed-score gap {gap:.4g} (near-tie tolerance {tol:.4g})")
-    if not gap <= tol:
+    if gap <= tol:
+        return
+    tie, seen = (filter_tie(ref, i, got[i], want[i], tol)
+                 if i < min(len(got), len(want)) else (False, {}))
+    log(f"  {what}: at the filters' cut: {seen}, explained by a moved cut: {tie}")
+    if not tie:
         raise AssertionError(f"{what}: tokens differ at a decisive step")
 
 
@@ -862,6 +1013,7 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     torch.cuda.synchronize()
     launches = kernels[name]._launches
     launches_mma = kernels[name]._launches_mma
+    launches_gemv = getattr(kernels[name], "_launches_gemv", None)
     draws = draw_gate(f"{quant} path", kernels, executors, results, requests)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -880,6 +1032,15 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     if launches_mma < need_mma:
         raise AssertionError(f"{name} took the tensor-core route {launches_mma} "
                              f"times, want >= {need_mma}")
+    if launches_gemv is not None:
+        # Every stage computes in bf16 here: each launch is a prefill on the
+        # tensor cores or a decode step on the decode kernel.
+        log(f"{quant} path: {name} decode-kernel launches {launches_gemv} (= "
+            f"{launches} - {launches_mma} tensor-core)")
+        if launches != launches_mma + launches_gemv:
+            raise AssertionError(f"{name}: {launches - launches_mma - launches_gemv} "
+                                 "launches took neither the tensor cores nor the "
+                                 "decode kernel")
     for (p, sp), r in zip(requests, results):
         log(f"  request T={sp.temperature}: {len(r.tokens)} tokens stopped by "
             f"{r.stopped_by}, ttft {r.ttft_s * 1e3:.1f} ms, decode "
@@ -893,7 +1054,9 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     summary = {"model": MODEL, "quant": quant, "layers": cfg.num_layers,
                "stages": client.plan.num_stages, "requests": len(results),
                "tokens": tokens, f"{name}_launches": launches,
-               f"{name}_launches_mma": launches_mma, "graphs": graphs,
+               f"{name}_launches_mma": launches_mma,
+               **({f"{name}_launches_gemv": launches_gemv}
+                  if launches_gemv is not None else {}), "graphs": graphs,
                "prefill_ms": [r.ttft_s * 1e3 for r in results],
                "ttft_first_ms": results[0].ttft_s * 1e3,
                "ttft_later_ms": [r.ttft_s * 1e3 for r in results[1:]],
@@ -913,9 +1076,9 @@ def reset_counts(kernels, executors) -> None:
     """Every kernel's launch counts and the path's graph and sampler
     counters to 0, just before a path's requests."""
     for mod in kernels.values():
-        mod._launches = 0
-        if hasattr(mod, "_launches_mma"):
-            mod._launches_mma = 0
+        for counter in ("_launches", "_launches_mma", "_launches_gemv"):
+            if hasattr(mod, counter):
+                setattr(mod, counter, 0)
     for ex in executors:
         ex.graphs.captures = ex.graphs.replays = 0
         ex.sampler.captures = ex.sampler.replays = 0
@@ -1368,13 +1531,13 @@ def telemetry_phase(torch, tmain, nk, state, smi: str):
         for i in range(TELEMETRY_PAIRS):
             for side in (("off", "on") if i % 2 == 0 else ("on", "off")):
                 (tel.enable if side == "on" else tel.disable)()
-                nk._launches = 0
-                nk._launches_mma = 0
+                nk._launches = nk._launches_mma = nk._launches_gemv = 0
                 r = client.generate(ids, MAX_NEW_TOKENS, sampling=greedy)
                 torch.cuda.synchronize()
                 runs[side].append({"tokens": r.tokens, "ttft_s": r.ttft_s,
                                    "decode_s": median_ms(r.decode_times_s) / 1e3,
-                                   "launches": (nk._launches, nk._launches_mma)})
+                                   "launches": (nk._launches, nk._launches_mma,
+                                                nk._launches_gemv)})
         syncs = {}
         for side in ("off", "on"):
             (tel.enable if side == "on" else tel.disable)()
@@ -1392,7 +1555,8 @@ def telemetry_phase(torch, tmain, nk, state, smi: str):
                     "syncs_per_request": syncs,
                     "tokens": len(every[0]["tokens"]),
                     "nf4_dot_launches": every[0]["launches"][0],
-                    "nf4_dot_launches_mma": every[0]["launches"][1]}
+                    "nf4_dot_launches_mma": every[0]["launches"][1],
+                    "nf4_dot_launches_gemv": every[0]["launches"][2]}
         for side, rs in runs.items():
             overhead[f"decode_ms_per_token_{side}"] = median_ms([r["decode_s"] for r in rs])
             overhead[f"ttft_ms_{side}"] = median_ms([r["ttft_s"] for r in rs])
@@ -1506,6 +1670,29 @@ def f32_chain(torch, state) -> dict:
             **greedy_and_sampled_ms(results, state["requests"])}
 
 
+def gemv_gate(what: str, name: str, cfg, local, graphs, tokens: int, requests: int,
+              launches: int, launches_mma: int, launches_gemv: int) -> None:
+    """Over TCP every decode step of every layer takes the decode kernel
+    (stage 0 with bf16 x, stages 1-3 with the float32 the wire decodes to),
+    and only the float32 prefill of stages 1-3 takes the CUDA-core route:
+    4 launches a layer of those stages for each request, and for each
+    eager warm-up run of a capture (at most one a capture)."""
+    simt = launches - launches_mma - launches_gemv
+    later = cfg.num_layers - local.plan.stages[0].num_layers
+    need_gemv = 4 * cfg.num_layers * (tokens - requests)
+    captures = sum(c for peer, (c, _) in graphs["per_stage"].items()
+                   if peer != local.stage0.peer_id)
+    passes, rest = divmod(simt, 4 * later)
+    log(f"{what}: {name} decode-kernel launches {launches_gemv} (>= 4 x "
+        f"{cfg.num_layers} x {tokens - requests} decode steps = {need_gemv}), "
+        f"CUDA-core {simt} (float32 prefill: 4 x {later} layers x {passes} passes, "
+        f"{requests} requests + <= {captures} warm-ups)")
+    if launches_gemv < need_gemv or rest or not requests <= passes <= requests + captures:
+        raise AssertionError(f"{what}: {name} launches gemv {launches_gemv} / simt {simt}: "
+                             "a decode step left the decode kernel, or more than the "
+                             "float32 prefill took the CUDA-core route")
+
+
 def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
               wire: str):
     """The serve() run's executors behind TCP servers and a registry
@@ -1566,6 +1753,7 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
         torch.cuda.synchronize()
         launches = kernels[name]._launches
         launches_mma = kernels[name]._launches_mma
+        launches_gemv = getattr(kernels[name], "_launches_gemv", None)
         draws = draw_gate(f"tcp {args.quant}", kernels, executors, results,
                           state["requests"])
         socket_phase = prof.snapshot().get("socket")
@@ -1584,6 +1772,9 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
         if launches < need or launches_mma < need_mma:
             raise AssertionError(f"tcp {args.quant}: {name} launches {launches} / "
                                  f"{launches_mma}, want >= {need} / {need_mma}")
+        if launches_gemv is not None:
+            gemv_gate(f"tcp {args.quant}", name, cfg, local, graphs, tokens,
+                      len(results), launches, launches_mma, launches_gemv)
         if chain is not None:
             for r, want in zip(results, chain["results"]):
                 if r.tokens != want.tokens:
@@ -1605,6 +1796,8 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
             "held_to": ("equal to the float32-after-stage-0 chain" if chain is not None
                         else "float32-cache references, near-tie rule"),
             f"{name}_launches": launches, f"{name}_launches_mma": launches_mma,
+            **({f"{name}_launches_gemv": launches_gemv}
+               if launches_gemv is not None else {}),
             "sample_draw": draws,
             "graphs": graphs, "native_codec": native.have_native(),
             "ttft_ms": [r.ttft_s * 1e3 for r in results],
@@ -1866,17 +2059,30 @@ def layer_sum(rows):
             "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
-def kernel_entry(name: str, rows, launches: int, prefill_m: int):
+def decode_layer(rows):
+    """The four sites' `decode` rows of one dtype summed: one layer at M = 1."""
+    keys = ("gemv_ms", "simt_ms", "plain_ms", "library_ms", "bound_ms")
+    return {key: sum(r[key] for r in rows) for key in keys}
+
+
+def kernel_entry(name: str, rows, summary, prefill_m: int):
     """One kernel of the ``kernels`` line: one decode layer's four sites at
     M = 1 summed, and one prefill layer (M = prefill_m, the prompt padded to
-    its sequence bucket, as the executors run it) under ``prefill``."""
+    its sequence bucket, as the executors run it) under ``prefill``; the
+    path's launches, and under ``launches_by_route`` each route's share."""
     decode_rows = [r for r in rows if r["M"] == 1]
+    launches = summary[f"{name}_launches"]
+    by_route = {"mma": summary[f"{name}_launches_mma"]}
+    if f"{name}_launches_gemv" in summary:
+        by_route["gemv"] = summary[f"{name}_launches_gemv"]
+    by_route["simt"] = launches - sum(by_route.values())
     entry = {"name": name, "route": "cuda",
              "source": f"{PORT}/csrc/{name}.cu",
              "replaces": "global_capstone_design_distributed_inference_of_llms_over_"
                          "the_internet_tpu/" + REPLACES[name],
-             "launches": launches,
+             "launches": launches, "launches_by_route": by_route,
              "at": "one decode layer: wqkv+wo+wgu+wd at M=1, bf16, L2 cold",
+             "decode_route": "+".join(sorted({r["route"] for r in decode_rows})),
              **layer_sum(decode_rows), "library": LIBRARY_NOTE}
     pre = [r for r in rows if r["M"] == prefill_m]
     entry["prefill"] = {
@@ -1956,8 +2162,8 @@ def main(argv) -> int:
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     int8_rows, int8_scan = int8_phase(torch, ik, "cuda", prompt_len, prefill_m, bw,
                                       flops, flush)
-    nf4_rows, nf4_scan = nf4_phase(torch, nk, "cuda", prompt_len, prefill_m, bw,
-                                   flops, flush)
+    nf4_rows, nf4_scan, nf4_decode, nf4_plans = nf4_phase(
+        torch, nk, "cuda", prompt_len, prefill_m, bw, flops, flush)
     for kname, rows, scan in (("int8_dot", int8_rows, int8_scan),
                               ("nf4_dot", nf4_rows, nf4_scan)):
         log(json.dumps({f"{kname}_shapes": rows, "card": smi}))
@@ -1965,6 +2171,15 @@ def main(argv) -> int:
         log(json.dumps({f"{kname}_per_layer": {
             m: layer_sum([r for r in rows if r["M"] == m])
             for m in sorted({r["M"] for r in rows})}, "card": smi}))
+    log(json.dumps({"nf4_dot_decode": nf4_decode, "nf4_dot_decode_per_layer": {
+        dtype: decode_layer([r for r in nf4_decode if r["dtype"] == dtype])
+        for dtype in ("bfloat16", "float32")}, "card": smi}))
+    log(json.dumps({"nf4_dot_gemv_plans": nf4_plans, "card": smi}))
+    # The decode kernel's instructions (bf16 and float32 x at M = 1): the
+    # whole function, its loop over a scale block most of it.
+    log(json.dumps({"nf4_gemv_sass": {
+        dtype: sass_counts("nf4_dot", f"nf4_gemv_kernelI{mangled}Li1E")
+        for dtype, mangled in (("bfloat16", "13__nv_bfloat16"), ("float32", "f"))}}))
     del flush
     draw = draw_phase(torch, dk, tf3, bw)
     log(json.dumps({"sample_draw": draw, "card": smi}))
@@ -2014,10 +2229,8 @@ def main(argv) -> int:
     cli = cli_drive(torch, tmain.load_tokenizer(), int8_state, smi)
     log(json.dumps({"cli_path": cli}))
 
-    kernels = [kernel_entry("int8_dot", int8_rows, int8_summary["int8_dot_launches"],
-                            prefill_m),
-               kernel_entry("nf4_dot", nf4_rows, nf4_summary["nf4_dot_launches"],
-                            prefill_m),
+    kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m),
+               kernel_entry("nf4_dot", nf4_rows, nf4_summary, prefill_m),
                draw_entry(draw, int8_summary["sample_draw"]["launches"])]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")

@@ -4,26 +4,88 @@
 //   product, then rounded: ops/nf4_kernel.py:122-124 of the JAX package).
 //
 // Replaces the TPU kernel ops/nf4_kernel.py:_make_kernel (the Pallas kernel
-// behind nf4_dot) of the JAX package. It runs at every projection of
-// --quant nf4 serving with NF4_KERNEL=1: wqkv, wo, wgu and wd of every layer.
-// Two kernels compute that one function; the wrapper (ops/nf4_kernel.py,
-// `_route`) picks one from M, K, N and x's dtype alone:
-//   * nf4_dot_kernel, on the CUDA cores ("simt"): decode (M below
-//     MMA_MIN_M), float32 x, and shapes the tensor-core route does not take;
+// behind nf4_dot, the pallas_call at :132) of the JAX package. It runs at
+// every projection of --quant nf4 serving with NF4_KERNEL=1: wqkv, wo, wgu
+// and wd of every layer. Three kernels compute that one function; the
+// wrapper (ops/nf4_kernel.py, `_route`) picks one from M, K, N and x's dtype
+// alone:
+//   * nf4_gemv_kernel ("gemv"): decode, M <= 2 (bf16 x below MMA_MIN_M,
+//     float32 x at M <= 2), N % 16 == 0, K <= 32768;
 //   * nf4_dot_mma_kernel, on the tensor cores ("mma"): bf16 x at prefill M
-//     with N % 16 == 0 and K % 8 == 0 (every llama-3.1-8b site).
+//     with N % 16 == 0 and K % 8 == 0 (every llama-3.1-8b site);
+//   * nf4_dot_kernel, on the CUDA cores ("simt"): float32 x at prefill M, and
+//     shapes the other two do not take (N % 16 != 0, say).
 //
 // Layout of W (models/quant.py NF4Tensor): packed uint8 [P, N], P = in_pad/2,
 // the high nibble of packed[r][n] is weight row 2r, the low nibble row 2r+1;
 // scales bf16 [P/32, N], one absmax per 64 weight rows (32 packed rows).
 //
-// ---- nf4_dot_kernel (CUDA cores) ----
-// What bounds it on an H100: at decode (M = 1) every weight is used once, so
-// the kernel is bound by the bytes it reads: 0.5 B per weight plus 2 B of
+// ---- nf4_gemv_kernel (decode: M <= 2, bf16 or float32 x) ----
+// What bounds it on an H100: at M <= 2 every weight is used once or twice,
+// so the work is bound by the bytes it reads: 0.5 B per weight plus 2 B of
 // scale per 64 weights (62.4 MB for the 8B model's fused gate/up weight,
-// 115.9 MB for one layer's four sites: 34.6 us at 3.35 TB/s). Per weight it
-// also does a table lookup, a multiply and a rounding before the FMA, which
-// at M = 1 is near the same time on the CUDA cores as the byte stream.
+// 115.9 MB for one layer's four sites: 0.0346 ms at 3.35 TB/s). The per-
+// weight work comes close to that: at ~3.35 TB/s the CUDA cores have about
+// five instructions a weight, and a lookup, a multiply and a rounding come
+// before the product. What the design does about it:
+//   * Split-K across a thread-block cluster fills the card at every site. A
+//     CTA owns a strip of 128 columns and a K chunk of it: a whole number of
+//     32-row scale blocks, ceil(blocks / S) of them for rank r of a cluster
+//     of S <= 8 (the portable size) along K. The wrapper's host function
+//     `_gemv_plan` picks S per shape and passes it in; the launch takes it as
+//     its cluster dimension (cudaLaunchKernelEx), which graphs capture. The
+//     plan asks for the least split that gives ~1.5 CTAs an SM (192) with as
+//     many blocks for every warp: at llama-3.1-8b's sites wqkv 48 strips x
+//     4, wo 32 x 8, wgu 224 x 1, wd 32 x 7 CTAs of 4 warps (PERF.md: the
+//     fastest of the plan scan; more, shorter CTAs pay the x stage, the
+//     cluster barrier and their own start more often).
+//   * Each CTA sums its 4 warps' partials in shared memory in warp order and
+//     stores the sum into rank 0's shared memory through distributed shared
+//     memory (cooperative_groups map_shared_rank), one slot a rank; after a
+//     cluster barrier rank 0 adds the slots in rank order 0..S-1 and writes
+//     y. The result is deterministic: one launch, no workspace, no atomics.
+//     (The ranks push their sums, so rank 0 only reads its own shared memory
+//     and no rank's shared memory is read after it exits. A relaxed cluster
+//     arrive at the start, waited for before the push, makes sure rank 0
+//     has started before anyone writes to it.)
+//   * Whole lines: lane l of a warp reads 16 bytes (16 columns) of packed row
+//     R + l % 4 at column 16 (l / 4), so one load instruction reads 4 rows x
+//     128 contiguous bytes. A warp walks the 32 rows of one scale block as 4
+//     slices of 8 rows, two 16-byte loads a lane a slice, and issues the next
+//     block's 8 loads and scales before it works on this one (the first
+//     block's before x is staged): 8-16 loads in flight a lane, 4-8 KB a
+//     warp, 32-64 KB an SM at two CTAs an SM.
+//   * One scale load per scale block: a lane's 16 columns' bf16 scales, two
+//     16-byte loads (a broadcast among the 4 lanes of a column group),
+//     widened once for the block's 8 packed rows.
+//   * Per byte one 8-byte lookup of its two levels in a 256-entry pair
+//     table in shared memory (32 KB: 16 copies of each entry side by side,
+//     lane l reading copy l % 16, so a half-warp's 16 lanes always hit 16
+//     different bank pairs, whatever the bytes) and the float32 products by
+//     the scale. For bf16 x the two weights of a byte are rounded by one
+//     __floats2bfloat162_rn, bit-equal to dequant_f32().to(bfloat16), and
+//     that pair is exactly one register of an mma.sync m16n8k16 A fragment:
+//     column 16g + 2j (fragment row g) or 16g + 2j + 1 (row g + 8), weight
+//     rows 2r, 2r + 1 (k 2c, 2c + 1). So the FMAs run on the tensor cores, in
+//     float32, with x in the B fragment (fragment column m = lane group g,
+//     zero past M): no widening of the weights and no FMA on the CUDA cores.
+//     For float32 x there is no rounding and the two FMAs a weight pair and
+//     row of x run on the CUDA cores in float32; the 4 lanes that share a
+//     column group add their sums with two shuffles, in a fixed order.
+//   * The CTA's K chunk of x (M <= 2 rows) is staged in shared memory once,
+//     with 16-byte loads, as the pairs the inner loop reads: bf16 pairs for
+//     the mma, float32 pairs for the FMAs, zero past K.
+//   * Only the order of the float32 sums differs from the plain version.
+// Measured (PERF.md): a llama-3.1-8b layer's four sites at M = 1 in ~0.099
+// ms with the L2 cold, 2.9x the byte bound and half the CUDA-core kernel's
+// time; how the rest splits between the weight stream and each launch's
+// start and end is not measured.
+//
+// ---- nf4_dot_kernel (CUDA cores) ----
+// The first port of the kernel and the decode kernel until the gemv route:
+// now float32 x at prefill M and shapes the other routes do not take. What
+// bounds it: at small M the bytes it reads, as above; per weight it does a
+// table lookup, a multiply and a rounding before the FMA.
 //
 // What the design does about it:
 //   * The TPU kernel split the matmul by nibble parity (x_even @ deq(hi) +
@@ -47,8 +109,9 @@
 //     padded rows of in_pad) are masked; the 16-byte loads are used only
 //     where N % 16 == 0 and the pointers are 16-byte aligned.
 // At prefill M it is slow: CUDA-core FMAs, and every 8-row M tile reads and
-// dequantizes every weight again. Not done yet: split-K so the N = 4096
-// sites fill all 132 SMs, and one lookup per byte instead of two.
+// dequantizes every weight again. At M = 1 (PERF.md) it ran at 5.5x the
+// byte bound: 128 blocks at N = 4096, a scale load per packed row, 32-byte
+// pieces of 16 rows per warp load.
 //
 // ---- nf4_dot_mma_kernel (tensor cores, bf16 x) ----
 // Replaces nf4_dot_kernel at prefill M (the prompt, every prefill chunk,
@@ -100,8 +163,13 @@
 //   int nf4_dot_mma_launch(...the same arguments...)
 //     The tensor-core route: x_dtype 1 only, N % 16 == 0, K % 8 == 0, and
 //     x, packed, scales, y 16-byte aligned (else an error code, no launch).
+//   int nf4_dot_gemv_launch(...the same arguments..., strip_cols, split)
+//     The decode route: M <= 2, N % 16 == 0, packed and scales 16-byte
+//     aligned; strip_cols = 128 and the cluster size split (1..8) from the
+//     wrapper's `_gemv_plan`, with at most 64 scale blocks a rank.
 //   const char* nf4_dot_error_string(int code)
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -634,6 +702,399 @@ cudaError_t launch_mma(const void* x, const void* pk, const void* sc, void* y,
 using SmallM = MmaTile<32>;  // M <= 32
 using LargeM = MmaTile<64>;  // M > 32
 
+// ---- The decode route: split-K over a cluster ----
+
+namespace cg = cooperative_groups;
+
+constexpr int kGemvWarps = 4;
+constexpr int kGemvThreads = kGemvWarps * 32;
+constexpr int kGemvStrip = 128;   // columns a CTA: 8 lane groups x 16
+constexpr int kGemvMaxSplit = 8;  // the portable cluster size
+constexpr int kGemvMaxChunk = 64; // scale blocks a rank (its x stage)
+constexpr int kGemvSlice = 8;     // packed rows an mma k-slice (k = 16)
+
+// x staged for the inner loop: one pair (weight rows 2r, 2r + 1) a packed
+// row and x row, as bf16 bits (the mma's B fragment) or as float32.
+template <typename T>
+struct GemvX;
+template <>
+struct GemvX<__nv_bfloat16> {
+  using Pair = uint32_t;
+  static __device__ __forceinline__ Pair make(const __nv_bfloat16* xr, int k,
+                                              int K) {
+    const uint16_t* b = reinterpret_cast<const uint16_t*>(xr);
+    const uint32_t lo = k < K ? b[k] : 0u;
+    const uint32_t hi = k + 1 < K ? b[k + 1] : 0u;
+    return lo | (hi << 16);
+  }
+};
+template <>
+struct GemvX<float> {
+  using Pair = float2;
+  static __device__ __forceinline__ Pair make(const float* xr, int k, int K) {
+    return make_float2(k < K ? xr[k] : 0.f, k + 1 < K ? xr[k + 1] : 0.f);
+  }
+};
+
+// One scale block of a lane: its two packed rows of each of the block's 4
+// slices (w[2t]: row 8t + c, w[2t + 1]: row 8t + c + 4 of the block), 16
+// columns each, and the 16 columns' bf16 scales.
+struct GemvBlock {
+  int4 w[8];
+  int4 s[2];
+};
+
+__device__ __forceinline__ void gemv_load(GemvBlock& b,
+                                          const uint8_t* __restrict__ pk,
+                                          const __nv_bfloat16* __restrict__ sc,
+                                          int blk, int c, int n0, int N,
+                                          bool col_ok) {
+  if (!col_ok) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) b.w[i] = make_int4(0, 0, 0, 0);
+    b.s[0] = b.s[1] = make_int4(0, 0, 0, 0);
+    return;
+  }
+  const uint8_t* base =
+      pk + (static_cast<size_t>(blk) * kRowsPerScale + c) * N + n0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    b.w[2 * t] = __ldg(reinterpret_cast<const int4*>(
+        base + static_cast<size_t>(kGemvSlice * t) * N));
+    b.w[2 * t + 1] = __ldg(reinterpret_cast<const int4*>(
+        base + static_cast<size_t>(kGemvSlice * t + 4) * N));
+  }
+  const int4* srow =
+      reinterpret_cast<const int4*>(sc + static_cast<size_t>(blk) * N + n0);
+  b.s[0] = __ldg(srow);
+  b.s[1] = __ldg(srow + 1);
+}
+
+// The levels of the two codes of byte j of `v` (high nibble, low nibble)
+// from the pair table: entry b of it is 16 copies of (level[b >> 4],
+// level[b & 15]) side by side, 128 bytes, and `tab` is the shared address
+// of the copy this lane reads (lane % 16), so the 16 lanes of a half-warp
+// always read 16 different bank pairs.
+__device__ __forceinline__ float2 gemv_levels(uint32_t v, uint32_t tab, int j) {
+  const uint32_t addr = tab + (__byte_perm(v, 0u, 0x4440u | j) << 7);
+  float2 levels;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(levels.x), "=f"(levels.y)
+               : "r"(addr));
+  return levels;
+}
+
+__device__ __forceinline__ uint32_t gemv_pair(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A lane's sums: for bf16 x, the 8 mma accumulators of its column group
+// (lanes with c = 0 hold y[m][16g + 2j] in d[j][m], y[m][16g + 2j + 1] in
+// d[j][2 + m]); for float32 x, acc[m][j] of its 16 columns.
+template <typename T, int M>
+struct GemvAcc;
+
+template <int M>
+struct GemvAcc<__nv_bfloat16, M> {
+  float d[8][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[j][i] = 0.f;
+  }
+  // One scale block: per slice the x pairs of rows 8t + c and 8t + c + 4
+  // (lane group g is fragment column m = g), then per byte pair j of the
+  // two packed rows one mma over 16 columns x 16 weight rows.
+  __device__ __forceinline__ void block(const GemvBlock& b, uint32_t tab,
+                                        const uint32_t* xs, int xstride,
+                                        int row0, int g, int c) {
+    float s[16];
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(b.s);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s[2 * i] = __uint_as_float(sw[i] << 16);
+      s[2 * i + 1] = __uint_as_float(sw[i] & 0xFFFF0000u);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int r = row0 + kGemvSlice * t + c;
+      const uint32_t b0 = g < M ? xs[g * xstride + r] : 0u;
+      const uint32_t b1 = g < M ? xs[g * xstride + r + 4] : 0u;
+      const uint32_t* wp = reinterpret_cast<const uint32_t*>(&b.w[2 * t]);
+      const uint32_t* wq = reinterpret_cast<const uint32_t*>(&b.w[2 * t + 1]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // word q: bytes 4q..4q+3 = pairs 2q, 2q+1
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = 2 * q + h;  // the pair: columns 16g + 2j, 16g + 2j + 1
+          const float s0 = s[2 * j], s1 = s[2 * j + 1];
+          const float2 p0 = gemv_levels(wp[q], tab, 2 * h);
+          const float2 p1 = gemv_levels(wp[q], tab, 2 * h + 1);
+          const float2 q0 = gemv_levels(wq[q], tab, 2 * h);
+          const float2 q1 = gemv_levels(wq[q], tab, 2 * h + 1);
+          uint32_t a[4];
+          a[0] = gemv_pair(p0.x * s0, p0.y * s0);
+          a[1] = gemv_pair(p1.x * s1, p1.y * s1);
+          a[2] = gemv_pair(q0.x * s0, q0.y * s0);
+          a[3] = gemv_pair(q1.x * s1, q1.y * s1);
+          mma_16816(d[j], a, b0, b1);
+        }
+      }
+    }
+  }
+  // y[m][16g + jj] of the lane's column group (valid on lanes with c = 0).
+  __device__ __forceinline__ float out(int m, int jj) const {
+    return d[jj >> 1][(jj & 1) * 2 + m];
+  }
+  __device__ __forceinline__ void reduce_lanes() {}
+};
+
+template <int M>
+struct GemvAcc<float, M> {
+  float acc[M][16];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
+  }
+  __device__ __forceinline__ void row(int4 w, const float (&s)[16],
+                                      uint32_t tab, const float2 (&xp)[M]) {
+    const uint32_t* wv = reinterpret_cast<const uint32_t*>(&w);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int j = 4 * q + h;
+        const float2 lv = gemv_levels(wv[q], tab, h);
+        const float whi = lv.x * s[j];
+        const float wlo = lv.y * s[j];
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+          acc[m][j] = fmaf(xp[m].x, whi, acc[m][j]);
+          acc[m][j] = fmaf(xp[m].y, wlo, acc[m][j]);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void block(const GemvBlock& b, uint32_t tab,
+                                        const float2* xs, int xstride,
+                                        int row0, int, int c) {
+    float s[16];
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(b.s);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s[2 * i] = __uint_as_float(sw[i] << 16);
+      s[2 * i + 1] = __uint_as_float(sw[i] & 0xFFFF0000u);
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int r = row0 + kGemvSlice * t + c;
+      float2 xp[M], xq[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        xp[m] = xs[m * xstride + r];
+        xq[m] = xs[m * xstride + r + 4];
+      }
+      row(b.w[2 * t], s, tab, xp);
+      row(b.w[2 * t + 1], s, tab, xq);
+    }
+  }
+  __device__ __forceinline__ float out(int m, int jj) const {
+    return acc[m][jj];
+  }
+  // The 4 lanes of a column group (c = lane % 4) hold sums over different
+  // rows: (c0 + c1) + (c2 + c3) on every one of them.
+  __device__ __forceinline__ void reduce_lanes() {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], 1);
+        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], 2);
+      }
+  }
+};
+
+// Shared memory of a CTA: the pair table (256 entries x 16 copies of two
+// levels), the x stage [M][chunk rows], the warps' sums [warps][M][strip]
+// and rank 0's slots [split][M][strip].
+constexpr int kGemvTableBytes = 256 * 16 * 8;
+template <typename T, int M>
+constexpr size_t gemv_smem(int chunk_rows, int split) {
+  return kGemvTableBytes + sizeof(typename GemvX<T>::Pair) * M * chunk_rows +
+         sizeof(float) * (kGemvWarps + split) * M * kGemvStrip;
+}
+
+// The CTA's packed rows [row0, row0 + nrows) of x (M rows) into the stage
+// as pairs: 16-byte loads (8 bf16 or 4 float32: 4 or 2 pairs) where `vec`
+// (K a multiple of them, x 16-byte aligned; a load is then all inside K or
+// all past it), else a pair at a time; zero past K.
+template <typename T, int M>
+__device__ __forceinline__ void gemv_stage_x(typename GemvX<T>::Pair* xs,
+                                             const T* __restrict__ x,
+                                             int xstride, int row0, int nrows,
+                                             int K, bool vec) {
+  constexpr int kPairs = 8 / sizeof(T);
+  if (vec) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      for (int i = threadIdx.x; i < nrows / kPairs; i += kGemvThreads) {
+        const int k = 2 * (row0 + i * kPairs);
+        const int4 v = k < K ? __ldg(reinterpret_cast<const int4*>(
+                                   x + static_cast<size_t>(m) * K + k))
+                             : make_int4(0, 0, 0, 0);
+        *reinterpret_cast<int4*>(xs + m * xstride + i * kPairs) = v;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    for (int r = threadIdx.x; r < nrows; r += kGemvThreads) {
+      xs[m * xstride + r] = GemvX<T>::make(x + static_cast<size_t>(m) * K,
+                                           2 * (row0 + r), K);
+    }
+  }
+}
+
+template <typename T, int M>
+__global__ void __launch_bounds__(kGemvThreads)
+    nf4_gemv_kernel(const T* __restrict__ x, const uint8_t* __restrict__ pk,
+                    const __nv_bfloat16* __restrict__ sc, T* __restrict__ y,
+                    int K, int P, int N, int chunk, bool vec_x) {
+  using Pair = typename GemvX<T>::Pair;
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;  // the cluster spans gridDim.x
+  const int split = gridDim.x;
+  const int strip0 = blockIdx.y * kGemvStrip;
+  const int blocks = P / kRowsPerScale;
+  const int b0 = rank * chunk;
+  const int b1 = min(b0 + chunk, blocks);
+  const int xstride = chunk * kRowsPerScale;
+  const int nrows = max(b1 - b0, 0) * kRowsPerScale;
+  float2* table = reinterpret_cast<float2*>(gsmem);
+  Pair* xs = reinterpret_cast<Pair*>(gsmem + kGemvTableBytes);
+  float* wsum = reinterpret_cast<float*>(gsmem + kGemvTableBytes +
+                                         sizeof(Pair) * M * xstride);
+  float* slots = wsum + kGemvWarps * M * kGemvStrip;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int n0 = strip0 + 16 * g;
+  const bool col_ok = n0 < N;  // N % 16 == 0: all 16 columns or none
+  // The warp's scale blocks: b0 + warp, b0 + warp + 4, ...; the first one's
+  // loads are issued before x is staged, and each next one's before this
+  // one's work.
+  int blk = b0 + warp;
+  GemvBlock cur, nxt;
+  if (blk < b1) gemv_load(cur, pk, sc, blk, c, n0, N, col_ok);
+  // A rank writes rank 0's shared memory only once every rank has started:
+  // arrive now, wait before the push (long since met by then).
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  for (int e = threadIdx.x; e < 256 * 16; e += kGemvThreads) {
+    const int b = e >> 4;
+    table[e] = make_float2(kLevels[b >> 4], kLevels[b & 15]);
+  }
+  gemv_stage_x<T, M>(xs, x, xstride, b0 * kRowsPerScale, nrows, K, vec_x);
+  __syncthreads();
+
+  const uint32_t tab =
+      static_cast<uint32_t>(__cvta_generic_to_shared(table)) + 8 * (lane & 15);
+  GemvAcc<T, M> acc;
+  acc.zero();
+  for (; blk < b1; blk += kGemvWarps) {
+    if (blk + kGemvWarps < b1) {
+      gemv_load(nxt, pk, sc, blk + kGemvWarps, c, n0, N, col_ok);
+    }
+    acc.block(cur, tab, xs, xstride, (blk - b0) * kRowsPerScale, g, c);
+    cur = nxt;
+  }
+  acc.reduce_lanes();
+  if (c == 0) {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+        wsum[(warp * M + m) * kGemvStrip + 16 * g + jj] = acc.out(m, jj);
+  }
+  __syncthreads();
+  // This CTA's sum, warps in order, into its slot of rank 0's shared memory.
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* root = cluster.map_shared_rank(slots, 0);
+  for (int i = threadIdx.x; i < M * kGemvStrip; i += kGemvThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGemvWarps; ++w) v += wsum[w * M * kGemvStrip + i];
+    root[rank * M * kGemvStrip + i] = v;
+  }
+  cluster.sync();
+  if (rank == 0) {
+    for (int i = threadIdx.x; i < M * kGemvStrip; i += kGemvThreads) {
+      const int m = i / kGemvStrip, n = strip0 + i % kGemvStrip;
+      if (n < N) {
+        float v = 0.f;
+        for (int r = 0; r < split; ++r) v += slots[r * M * kGemvStrip + i];
+        y[static_cast<size_t>(m) * N + n] = from_f32<T>(v);
+      }
+    }
+  }
+}
+
+template <typename T, int M>
+cudaError_t launch_gemv(const void* x, const void* pk, const void* sc, void* y,
+                        int K, int P, int N, int split, cudaStream_t stream) {
+  const int blocks = P / kRowsPerScale;
+  const int chunk = (blocks + split - 1) / split;
+  const int strips = (N + kGemvStrip - 1) / kGemvStrip;
+  if (chunk > kGemvMaxChunk || strips > 65535) return cudaErrorInvalidValue;
+  const size_t smem = gemv_smem<T, M>(chunk * kRowsPerScale, split);
+  // Above 48 KB of dynamic shared memory must be asked for first.
+  cudaError_t err = cudaFuncSetAttribute(
+      nf4_gemv_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, strips, 1);
+  cfg.blockDim = dim3(kGemvThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, nf4_gemv_kernel<T, M>, static_cast<const T*>(x),
+      static_cast<const uint8_t*>(pk), static_cast<const __nv_bfloat16*>(sc),
+      static_cast<T*>(y), K, P, N, chunk,
+      K % (16 / static_cast<int>(sizeof(T))) == 0 &&
+          reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The most a CTA takes (kGemvMaxChunk blocks of float32 x at M = 2, the
+// largest cluster's slots): 76 KB, two CTAs an SM; bf16 x at M = 1 takes
+// at most 44 KB.
+static_assert(2 * (gemv_smem<float, 2>(kGemvMaxChunk * kRowsPerScale,
+                                       kGemvMaxSplit) + 1024) <= kSmemPerSM,
+              "two of the gemv's largest CTAs fit an SM's shared memory");
+
 }  // namespace
 
 extern "C" int nf4_dot_launch(const void* x, const void* packed,
@@ -682,6 +1143,37 @@ extern "C" int nf4_dot_mma_launch(const void* x, const void* packed,
   err = M <= SmallM::BM
             ? launch_mma<SmallM>(x, packed, scales, y, M, K, P, N, st)
             : launch_mma<LargeM>(x, packed, scales, y, M, K, P, N, st);
+  return static_cast<int>(err);
+}
+
+extern "C" int nf4_dot_gemv_launch(const void* x, const void* packed,
+                                   const void* scales, void* y, int M, int K,
+                                   int P, int N, int x_dtype, int device,
+                                   void* stream, int strip_cols, int split) {
+  if (M <= 0 || M > 2 || K <= 0 || N <= 0 || P <= 0 ||
+      P % kRowsPerScale != 0 || 2 * P < K || 2 * P - K >= 2 * kRowsPerScale ||
+      N % 16 != 0 || strip_cols != kGemvStrip || split < 1 ||
+      split > kGemvMaxSplit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((reinterpret_cast<uintptr_t>(packed) |
+       reinterpret_cast<uintptr_t>(scales)) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0) {
+    err = M == 1 ? launch_gemv<float, 1>(x, packed, scales, y, K, P, N, split, st)
+                 : launch_gemv<float, 2>(x, packed, scales, y, K, P, N, split, st);
+  } else if (x_dtype == 1) {
+    err = M == 1 ? launch_gemv<__nv_bfloat16, 1>(x, packed, scales, y, K, P, N,
+                                                 split, st)
+                 : launch_gemv<__nv_bfloat16, 2>(x, packed, scales, y, K, P, N,
+                                                 split, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

@@ -13,20 +13,23 @@ Two versions of one function:
 
   * the CUDA kernels of ``csrc/nf4_dot.cu`` (Hopper, ``sm_90a``), launched
     for a tensor on the card. `_route` picks one from M, K, N and x's dtype
-    alone: "mma", the tensor-core kernel (bf16 x, M >= `MMA_MIN_M`, the
-    alignment its 16-byte copies need: N % 16 == 0, K % 8 == 0), which
-    dequantizes each weight once per block into shared memory; else
-    "simt", the CUDA-core kernel, which reads the packed nibbles and the
-    bf16 scales straight from device memory (0.5 B per weight plus 2 B
-    per 64) and takes any M, K and N;
+    alone: "gemv", the decode kernel (M <= `GEMV_MAX_M`: bf16 x below
+    `MMA_MIN_M`, float32 x; N % 16 == 0, K <= `GEMV_MAX_K`), split-K over a
+    thread-block cluster whose size `_gemv_plan` picks; "mma", the
+    tensor-core kernel (bf16 x, M >= `MMA_MIN_M`, the alignment its 16-byte
+    copies need: N % 16 == 0, K % 8 == 0), which dequantizes each weight
+    once per block into shared memory; else "simt", the CUDA-core kernel,
+    which reads the packed nibbles and the bf16 scales straight from device
+    memory (0.5 B per weight plus 2 B per 64) and takes any M, K and N;
   * `nf4_dot_reference`, the plain PyTorch version, taken for a tensor on
     the CPU (the CPU tests) and used by ``chip_smoke.py`` to check the
     kernels on the card.
 
 `nf4_dot` launches the routed kernel or raises; it never falls back from
 one kernel to the other, or from the card to the plain version.
-``_launches`` counts kernel launches of both routes (not calls of the plain
-version) and ``_launches_mma`` those of the tensor-core route, so a run can
+``_launches`` counts kernel launches of every route (not calls of the plain
+version), ``_launches_mma`` those of the tensor-core route and
+``_launches_gemv`` those of the decode route, so a run can
 show that its main path went through the kernels (``ops/launch_counts.py``:
 a launch recorded into a CUDA graph counts on each replay).
 """
@@ -50,8 +53,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the H100 the tensor-core kernel is the faster at both sites from M = 3.
 MMA_MIN_M = 3
 
+# The decode route's geometry, as ``csrc/nf4_dot.cu`` has it (kGemv*): a CTA
+# of 4 warps owns 128 columns; a cluster of at most 8 CTAs (the portable
+# size) splits K, each rank at most 64 scale blocks (its x stage in shared
+# memory). A plan asks for 192 CTAs (~1.5 an SM of the H100's 132; three
+# fit an SM): in ``chip_smoke.py``'s plan scan the least split that reached
+# about that many was the fastest at every llama-3.1-8b site (PERF.md).
+GEMV_MAX_M = 2
+GEMV_STRIP = 128
+GEMV_WARPS = 4
+GEMV_MAX_SPLIT = 8
+GEMV_MAX_CHUNK = 64
+GEMV_MAX_K = GEMV_MAX_SPLIT * GEMV_MAX_CHUNK * NF4_BLOCK
+GEMV_FILL_CTAS = 192
+
 _launches = 0
 _launches_mma = 0
+_launches_gemv = 0
 _lib = None
 
 
@@ -64,6 +82,9 @@ def _library() -> ctypes.CDLL:
         lib.nf4_dot_launch.restype = ctypes.c_int
         lib.nf4_dot_mma_launch.argtypes = lib.nf4_dot_launch.argtypes
         lib.nf4_dot_mma_launch.restype = ctypes.c_int
+        lib.nf4_dot_gemv_launch.argtypes = (lib.nf4_dot_launch.argtypes
+                                            + [ctypes.c_int] * 2)
+        lib.nf4_dot_gemv_launch.restype = ctypes.c_int
         lib.nf4_dot_error_string.argtypes = [ctypes.c_int]
         lib.nf4_dot_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -83,17 +104,45 @@ def nf4_dot_reference(x: torch.Tensor, w: NF4Tensor) -> torch.Tensor:
 
 
 def _route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
-    """The kernel for x [m, k] of `dtype` times an NF4 weight [k, n]: "mma"
-    (tensor cores) for bf16 x at M >= MMA_MIN_M with N % 16 == 0 and
-    K % 8 == 0, else "simt" (CUDA cores)."""
+    """The kernel for x [m, k] of `dtype` times an NF4 weight [k, n]:
+    "gemv" (decode) for M <= GEMV_MAX_M, bf16 x below MMA_MIN_M or float32
+    x, with N % 16 == 0 and K <= GEMV_MAX_K; "mma" (tensor cores) for bf16
+    x at M >= MMA_MIN_M with N % 16 == 0 and K % 8 == 0; else "simt" (CUDA
+    cores)."""
+    decode = m <= GEMV_MAX_M and (dtype == torch.float32 or
+                                  (dtype == torch.bfloat16 and m < MMA_MIN_M))
+    if decode and n % 16 == 0 and k <= GEMV_MAX_K:
+        return "gemv"
     if dtype == torch.bfloat16 and m >= MMA_MIN_M and n % 16 == 0 and k % 8 == 0:
         return "mma"
     return "simt"
 
 
-def _launch(x: torch.Tensor, w: NF4Tensor, route: str | None = None) -> torch.Tensor:
-    """Launch the kernel that `_route` names (`route` overrides it only for
-    ``chip_smoke.py``'s crossover scan)."""
+def _gemv_plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(strip_cols, split) of the decode kernel for x [m, k] times a weight
+    [k, n]: strips of GEMV_STRIP columns, and the cluster size `split` that
+    cuts K into whole 64-row scale blocks, ceil(blocks / split) a rank. The
+    least split (at most GEMV_MAX_SPLIT, each rank at most GEMV_MAX_CHUNK
+    blocks) that gives GEMV_FILL_CTAS CTAs and the same number of blocks to
+    every warp; else the least that gives GEMV_FILL_CTAS; else the most.
+    The split is then cut to the ranks that get a block. M does not change
+    the plan: a CTA's sums for both rows share its loads."""
+    del m
+    blocks = -(-k // NF4_BLOCK)
+    strips = -(-n // GEMV_STRIP)
+    least = -(-blocks // GEMV_MAX_CHUNK)
+    splits = range(least, min(GEMV_MAX_SPLIT, blocks) + 1)
+    filled = [s for s in splits if strips * s >= GEMV_FILL_CTAS]
+    even = [s for s in filled if blocks % (s * GEMV_WARPS) == 0]
+    split = (even or filled or [max(splits, default=least)])[0]
+    return GEMV_STRIP, -(-blocks // -(-blocks // split))
+
+
+def _launch(x: torch.Tensor, w: NF4Tensor, route: str | None = None,
+            plan: tuple[int, int] | None = None) -> torch.Tensor:
+    """Launch the kernel that `_route` names (`route` overrides it, and
+    `plan` the decode kernel's `_gemv_plan`, only for ``chip_smoke.py``'s
+    scans)."""
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
         raise TypeError(f"nf4_dot kernel takes float32 or bfloat16 x, got {x.dtype}")
@@ -125,18 +174,24 @@ def _launch(x: torch.Tensor, w: NF4Tensor, route: str | None = None) -> torch.Te
     if m == 0:
         return y
     lib = _library()
-    entry = {"mma": lib.nf4_dot_mma_launch, "simt": lib.nf4_dot_launch}[route]
+    entry = {"mma": lib.nf4_dot_mma_launch, "simt": lib.nf4_dot_launch,
+             "gemv": lib.nf4_dot_gemv_launch}[route]
+    extra = (plan or _gemv_plan(m, k, n)) if route == "gemv" else ()
     # The raw current-stream handle: the cheap form of
     # torch.cuda.current_stream(dev).cuda_stream, on the decode hot path.
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     rc = entry(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-               y.data_ptr(), m, k, pairs, n, code, dev.index, stream)
+               y.data_ptr(), m, k, pairs, n, code, dev.index, stream, *extra)
     if rc != 0:
         raise RuntimeError(f"nf4_dot {route} kernel launch failed: "
                            + lib.nf4_dot_error_string(rc).decode())
-    names = ("_launches", "_launches_mma") if route == "mma" else ("_launches",)
-    launch_counts.count(sys.modules[__name__], *names)
+    launch_counts.count(sys.modules[__name__], *_COUNTED[route])
     return y
+
+
+# The counters a launch of each route adds one to.
+_COUNTED = {"simt": ("_launches",), "mma": ("_launches", "_launches_mma"),
+            "gemv": ("_launches", "_launches_gemv")}
 
 
 def nf4_dot(x: torch.Tensor, w: NF4Tensor) -> torch.Tensor:

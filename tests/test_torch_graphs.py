@@ -469,6 +469,7 @@ def test_capture_counts_launches_per_replay(monkeypatch, stub_graphs):
     for mod in (tik, tnk):
         monkeypatch.setattr(mod, "_launches", 100)
         monkeypatch.setattr(mod, "_launches_mma", 10)
+    monkeypatch.setattr(tnk, "_launches_gemv", 20)
     monkeypatch.setattr(tdk, "_launches", 50)
     out = torch.zeros(1)
 
@@ -478,19 +479,27 @@ def test_capture_counts_launches_per_replay(monkeypatch, stub_graphs):
         launch_counts.count(tik, "_launches", "_launches_mma")
         for _ in range(2):
             launch_counts.count(tnk, "_launches")
+        launch_counts.count(tnk, "_launches", "_launches_gemv")
         launch_counts.count(tdk, "_launches")       # the sampler's draw
         return out
 
     captured = tgraphs.capture(fn, None, None)
     # The warm-up ran (it counts); the capture ran nothing (taken off).
     assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma,
-            tdk._launches) == (104, 11, 102, 10, 51)
-    assert captured.launches == (4, 1, 2, 0, 1)
+            tnk._launches_gemv, tdk._launches) == (104, 11, 103, 10, 21, 51)
+    assert captured.launches == (4, 1, 3, 0, 1, 1)
     captured.graph.fn = lambda: out                 # a replay runs no wrapper
     for _ in range(3):
         captured.replay()
     assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma,
-            tdk._launches) == (116, 14, 108, 10, 54)
+            tnk._launches_gemv, tdk._launches) == (116, 14, 112, 10, 24, 54)
+
+
+@pytest.mark.parametrize("counter", ["_launches", "_launches_mma", "_launches_gemv"])
+def test_graph_counters_hold_every_nf4_route(counter):
+    """A replay adds the launches of each of nf4_dot's routes: its counters
+    are all among the ones a capture tallies."""
+    assert hasattr(tnk, counter) and (tnk, counter) in tgraphs._COUNTERS
 
 
 def test_capture_runs_with_the_collector_off(monkeypatch):
@@ -552,7 +561,7 @@ def test_capture_charges_no_launch_of_another_thread(monkeypatch, stub_graphs):
     first = tgraphs.capture(lambda: launch_counts.count(tik, "_launches") or out,
                             None, None)
     first.graph.fn = lambda: out
-    assert first.launches == (1, 0, 0, 0, 0)
+    assert first.launches == (1, 0, 0, 0, 0, 0)
     recording, other_done = threading.Event(), threading.Event()
     calls = []
 
@@ -578,7 +587,7 @@ def test_capture_charges_no_launch_of_another_thread(monkeypatch, stub_graphs):
     second = tgraphs.capture(step, None, None)
     thread.join(10.0)
     assert not thread.is_alive() and len(calls) == 2
-    assert second.launches == (0, 0, 2, 0, 0)
+    assert second.launches == (0, 0, 2, 0, 0, 0)
     # first's warm-up 1 + 5 replays + 3 eager; step's warm-up 2.
     assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma) == \
         (9, 3, 2, 0)
