@@ -9,23 +9,26 @@ on the kernels; it never prints the last line of a smoke pass.)
 2. Build: compiles every CUDA kernel of the port from ``csrc/``, one nvcc per
    source, all at once.
 3. Kernels: calls each kernel's wrapper (``int8_dot``, ``nf4_dot``) at the
-   shapes the main paths give it (llama-3.1-8b projections at M = 1, 8, 16,
-   the prompt length, the prompt's sequence bucket (the M a padded prefill
-   runs at), 128 and 512, ``nf4_dot`` also at M = 2, each row with the
-   route it took), holds
+   shapes the main paths give it (llama-3.1-8b projections at M = 1, 2, 8,
+   16, the prompt length, the prompt's sequence bucket (the M a padded
+   prefill runs at), 128 and 512, each row with the route it took), holds
    it against its plain PyTorch version on the same card, and times the
    kernel, the plain version and one PyTorch library call computing the
-   same function. Each is also held at ragged shapes of every route
-   (``int8_dot`` also at an x view 2 bytes into its storage). ``int8_dot``'s
-   two kernels are timed at M = 1..16 on wgu and wd, ``nf4_dot``'s three
-   (decode "gemv" at M <= 2, "simt", "mma") at M = 1..4 (the crossover
-   scans behind each ``MMA_MIN_M``). ``nf4_dot``'s decode kernel is also
-   held at every site with float32 x at M = 1 and 2 (``F32_TOL``), must
-   give the same bits on two launches, is timed at M = 1 in both dtypes
-   beside the old CUDA-core kernel and the library (``nf4_dot_decode``),
-   and at every cluster size (``nf4_dot_gemv_plans``, the scan behind
-   ``_gemv_plan``). Prints JSON lines of shapes, crossover scan and
-   per-layer sums per kernel.
+   same function. Each is also held at ragged shapes of every route and
+   at an x view 2 bytes into its storage (``int8_dot``: on the tensor-core
+   and the decode routes). Each kernel's three routes (decode "gemv" at
+   M <= 2, "simt", "mma") are timed at M = 1..8 (``int8_dot``) or 1..4
+   (``nf4_dot``) on wgu and wd (the crossover scans behind each
+   ``MMA_MIN_M``). Each decode kernel is also held at every site with
+   float32 x at M = 1 and 2 (``F32_TOL``), must give the same bits on two
+   launches in both dtypes (``int8_dot``'s also the same bits for a fused
+   weight's columns as for its parts alone), is timed at M = 1 in both
+   dtypes beside the old CUDA-core kernel, the plain version and the library
+   (``<kernel>_decode``), and at every cluster size (``<kernel>_gemv_plans``,
+   the scan behind ``_gemv_plan``); the SASS opcode counts of the decode
+   kernels (``int8_dot``'s old CUDA-core kernel beside its new one) are
+   printed. Prints JSON lines of shapes, crossover scan and per-layer sums
+   per kernel.
 3b. The draw kernel (``sample_draw``, ``csrc/sample_draw.cu``): at V =
    128256 and 1000, B = 1 and 4, temperatures 0.7 and 1.5, 8 seeds each,
    its Gumbel noise must be bit-equal to the plain ``threefry.gumbel`` and
@@ -44,7 +47,9 @@ on the kernels; it never prints the last line of a smoke pass.)
    requests (two greedy, one sampled), checks that every projection went
    through ``int8_dot`` (launch counts reset just before, read just after),
    whose every prefill projection must take the tensor-core route
-   (``_launches_mma``), and every sampled token through one ``sample_draw``
+   (``_launches_mma``) and every launch the tensor cores or the decode
+   kernel (``_launches == _launches_mma + _launches_gemv``), and every
+   sampled token through one ``sample_draw``
    (launches and the last stage's sampler replays >= sampled tokens), and
    holds the greedy tokens to an unsplit greedy loop over ``full_forward``
    with the executors' float32 cache and the sampled request's to the
@@ -68,9 +73,9 @@ on the kernels; it never prints the last line of a smoke pass.)
    captures of its own; its TTFT, captures and reserved memory beside a
    request on a reused slot, whose tokens it must equal).
 6. NF4 path: the same with ``--quant nf4`` and ``NF4_KERNEL=1``, through
-   ``nf4_dot``, with the same gates and the capture check, and one more:
-   every launch is a prefill on the tensor cores or a decode step on the
-   decode kernel (``_launches == _launches_mma + _launches_gemv``). Both serve phases run with telemetry
+   ``nf4_dot``, with the same gates (every launch a prefill on the tensor
+   cores or a decode step on the decode kernel) and the capture check.
+   Both serve phases run with telemetry
    off; the NF4 client is built as under ``--telemetry``, so its metrics go
    to the process-global registry, which stays disabled until step 7.
 7. Telemetry on the NF4 path, same client: one greedy request run with
@@ -106,9 +111,9 @@ on the kernels; it never prints the last line of a smoke pass.)
    Both with the launch,
    draw and graph-replay gates of steps 5-6 (counts set to 0 just before
    the requests, read just after; tensor-core launches: stage 0's prefill
-   sites, the only ones still given bf16 x; on NF4 every decode step on the
-   decode kernel, and only stages 1-3's float32 prefill on the CUDA-core
-   route) and the native wire codec loaded. On the int8 path a stage-2 replica joins and the pinned stage-2
+   sites, the only ones still given bf16 x; on both every decode step on
+   the decode kernel, and only stages 1-3's float32 prefill on the
+   CUDA-core route) and the native wire codec loaded. On the int8 path a stage-2 replica joins and the pinned stage-2
    server is ``stop()``ped after its 3rd decode step of a greedy request:
    the client must recover onto the replica with the fault-free tokens.
 8b. Oracle (after the int8 TCP drive): ``--mode oracle --quant int8``'s
@@ -337,19 +342,31 @@ def int8_weight(torch, quant, gen, dev, k: int, n: int):
     return quant.QuantizedTensor(q, s, "bfloat16")
 
 
+def int8_bytes(m: int, k: int, n: int, xsize: int) -> int:
+    """Bytes one int8_dot call must move: x, the int8 weight, its scales, y."""
+    return m * k * xsize + k * n + n * 4 + m * n * xsize
+
+
 def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
                flops: float, flush):
     """int8_dot at every main-path shape: agreement and times, each row with
-    its route; ragged shapes of both routes and an x view at an offset; and
-    the crossover scan of the two kernels at M = 1..16 on wgu and wd.
-    Returns (rows, scan)."""
+    its route (decode M = 1 and 2 on "gemv"); float32 x at M = 1 and 2 on
+    "gemv" (F32_TOL) and at M = 16 on "simt"; two launches of the decode
+    kernel bit-equal (bf16 and float32); at M = 1 the decode kernel, the old
+    CUDA-core kernel ("simt"), the plain version and the library at every
+    site in both dtypes (`decode` rows); a fused weight's columns bit-equal
+    to its parts' alone on the decode route; the decode kernel at every
+    cluster size at M = 1 (the plan scan behind `_gemv_plan`); ragged shapes of
+    every route and an x view at an offset on the tensor-core and the
+    decode routes; and the crossover scan of the three kernels at M = 1..8
+    on wgu and wd. Returns (rows, scan, decode, plans)."""
     from importlib import import_module
 
     quant = import_module(PORT + ".models.quant")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows, scan = [], []
-    ms = tuple(sorted({1, 8, 16, prompt_len, prefill_m, 128, 512}))
+    rows, scan, decode, plans = [], [], [], []
+    ms = tuple(sorted({1, 2, 8, 16, prompt_len, prefill_m, 128, 512}))
     for site, k, n in SITES:
         w = int8_weight(torch, quant, gen, dev, k, n)
         q, s = w.q, w.s
@@ -360,15 +377,38 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
                 torch, "int8_dot", site, x, lambda: ik.int8_dot(x, w),
                 lambda: ik.int8_dot_reference(x, q, s),
                 lambda: torch.matmul(x, w_deq),
-                m * k * 2 + k * n + n * 4 + m * n * 2, bw, flops, flush)
+                int8_bytes(m, k, n, 2), bw, flops, flush)
             row["route"] = ik._route(m, k, n, x.dtype)
             rows.append(row)
-        x32 = torch.randn((16, k), generator=gen, device=dev)
-        err32 = check_f32("int8_dot", site, ik.int8_dot(x32, w),
-                          ik.int8_dot_reference(x32, q, s))
         log(f"int8_dot {site} K={k} N={n}: bf16 ok at M={','.join(map(str, ms))} "
-            f"(routes {[r['route'] for r in rows[-len(ms):]]}); "
-            f"float32 M=16 max err {err32:.3e}")
+            f"(routes {[r['route'] for r in rows[-len(ms):]]})")
+        assert [r["route"] for r in rows[-len(ms):][:2]] == ["gemv", "gemv"]
+        q32 = q.float()                              # library yardstick only
+        rows_1, point = decode_checks(
+            torch, "int8_dot", ik, site, k, n, lambda x: ik.int8_dot(x, w),
+            lambda x, route, plan=None: ik._launch(x, q, s, route, plan),
+            lambda x: ik.int8_dot_reference(x, q, s),
+            {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
+             torch.float32: lambda x: torch.matmul(x, q32) * s},
+            int8_bytes, -(-k // ik.GEMV_ROWS), gen, dev, bw, flush)
+        decode += rows_1
+        plans.append(point)
+        del q32
+        # The decode kernel's plan depends on K alone: a fused weight's
+        # columns and a part's alone (wq, wk of wq|wk|wv; wg of wg|wu, as a
+        # full_forward over the loaded weights runs them) give the same bits.
+        if site in ("wqkv", "wgu"):
+            cuts = ((0, 4096), (4096, 5120)) if site == "wqkv" else ((0, n // 2),)
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((1, k), generator=gen, device=dev).to(dtype)
+                whole = ik.int8_dot(x, w)
+                for a, b in cuts:
+                    part = quant.QuantizedTensor(q[:, a:b].contiguous(),
+                                                 s[:, a:b].contiguous(), "bfloat16")
+                    if not torch.equal(whole[:, a:b], ik.int8_dot(x, part)):
+                        raise AssertionError(f"int8_dot gemv {site} {dtype}: columns "
+                                             f"{a}:{b} differ alone")
+            log(f"int8_dot {site} gemv: columns {cuts} bit-equal alone, bf16 and float32")
         if site == "wgu":                            # a ragged M, tensor cores
             x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
             assert ik._route(33, k, n, x.dtype) == "mma"
@@ -390,33 +430,111 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
         if site in ("wgu", "wd"):
             scan += scan_routes(torch, "int8_dot", site, k, gen, dev,
                                 lambda x, route: ik._launch(x, q, s, route),
-                                lambda x: ik.int8_dot_reference(x, q, s), flush)
+                                lambda x: ik.int8_dot_reference(x, q, s), flush,
+                                routes=("gemv", "simt", "mma"), ms=range(1, 9),
+                                takes=lambda route, m: route != "gemv"
+                                or m <= ik.GEMV_MAX_M)
         del q, s, w, w_deq
-    # Ragged shapes: the K tail inside a step, the last column block part
-    # full; N % 16 != 0 takes the CUDA-core route.
-    for k, n, m, want in ((100, 97, 16, "simt"), (328, 48, 33, "mma")):
+    # Ragged shapes: the K tail inside a step or a stage, the last column
+    # block part full; N % 16 != 0 takes the CUDA-core route, at decode M
+    # too, and so does a K past the decode kernel's x stage.
+    for k, n, m, dtype, want in ((100, 97, 16, torch.bfloat16, "simt"),
+                                 (328, 48, 33, torch.bfloat16, "mma"),
+                                 (100, 97, 1, torch.bfloat16, "simt"),
+                                 (4096, 4104, 1, torch.bfloat16, "simt"),
+                                 (100, 97, 2, torch.float32, "simt"),
+                                 (ik.GEMV_MAX_K + 32, 48, 1, torch.bfloat16, "simt"),
+                                 (100, 96, 1, torch.bfloat16, "gemv"),
+                                 (130, 48, 2, torch.bfloat16, "gemv"),
+                                 (4100, 4112, 1, torch.float32, "gemv"),
+                                 (4104, 96, 1, torch.bfloat16, "gemv"),
+                                 (130, 48, 2, torch.float32, "gemv"),
+                                 (ik.GEMV_MAX_K, 48, 2, torch.float32, "gemv")):
         w = int8_weight(torch, quant, gen, dev, k, n)
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         assert ik._route(m, k, n, x.dtype) == want
-        err = check_bf16(torch, "int8_dot", f"K={k} N={n}", x, ik.int8_dot(x, w),
-                         ik.int8_dot_reference(x, w.q, w.s))
-        log(f"int8_dot ragged K={k} N={n} M={m} ({want}): max err {err:.3e}")
-    # x as a view 2 bytes into its storage: the tensor-core route's 16-byte
-    # copies take a clone of it.
-    k, n, m = 4096, 4096, prompt_len
+        y, ref = ik.int8_dot(x, w), ik.int8_dot_reference(x, w.q, w.s)
+        err = (check_bf16(torch, "int8_dot", f"K={k} N={n}", x, y, ref)
+               if dtype == torch.bfloat16 else check_f32("int8_dot", f"K={k} N={n}", y, ref))
+        log(f"int8_dot ragged K={k} N={n} M={m} {dtype} ({want}): max err {err:.3e}")
+    # x as a view 2 bytes into its storage: the tensor-core and the decode
+    # routes' 16-byte copies take a clone of it.
+    k, n = 4096, 4096
     w = int8_weight(torch, quant, gen, dev, k, n)
-    buf = torch.randn((m * k + 1,), generator=gen, device=dev).to(torch.bfloat16)
-    x = buf[1:].view(m, k)
-    assert x.data_ptr() % 16 == 2 and ik._route(m, k, n, x.dtype) == "mma"
-    before = ik._launches_mma
-    err = check_bf16(torch, "int8_dot", "x at a 2-byte offset", x, ik.int8_dot(x, w),
-                     ik.int8_dot_reference(x, w.q, w.s))
-    assert ik._launches_mma == before + 1
-    log(f"int8_dot x view at a 2-byte offset K={k} N={n} M={m} (mma, cloned): "
-        f"max err {err:.3e}")
+    for m, route, counter in ((prompt_len, "mma", "_launches_mma"),
+                              (1, "gemv", "_launches_gemv")):
+        buf = torch.randn((m * k + 1,), generator=gen, device=dev).to(torch.bfloat16)
+        x = buf[1:].view(m, k)
+        assert x.data_ptr() % 16 == 2 and ik._route(m, k, n, x.dtype) == route
+        before = getattr(ik, counter)
+        err = check_bf16(torch, "int8_dot", "x at a 2-byte offset", x, ik.int8_dot(x, w),
+                         ik.int8_dot_reference(x, w.q, w.s))
+        assert getattr(ik, counter) == before + 1
+        log(f"int8_dot x view at a 2-byte offset K={k} N={n} M={m} ({route}, cloned): "
+            f"max err {err:.3e}")
     log(f"int8_dot crossover: mma at least as fast from M={crossover(scan)} "
         f"(MMA_MIN_M = {ik.MMA_MIN_M})")
-    return rows, scan
+    return rows, scan, decode, plans
+
+
+def decode_checks(torch, name, mod, site, k, n, dot, launch, plain, yardsticks,
+                  nbytes, units, gen, dev, bw, flush):
+    """The decode kernel of `name` (wrapper module `mod`) at one site:
+    float32 x held at M = 1 and 2 on "gemv" (F32_TOL) and at M = 16 on
+    "simt"; two launches bit-equal in both dtypes; at M = 1 in both dtypes
+    (stage 0 and in process bf16, the stages behind TCP float32) the decode
+    kernel beside the old CUDA-core kernel, the plain version and the
+    library (``yardsticks[dtype](x)``), each held; and the decode kernel at
+    every cluster size whose ranks' chunks fit (`units`: K in the plan's
+    units), bf16 at M = 1: the scan behind `_gemv_plan`. `dot(x)` is the
+    wrapper, ``launch(x, route, plan=None)`` one route, `plain(x)` the plain
+    version. Returns (the two decode rows, the plan scan's point)."""
+    errs32 = {}
+    for m in (1, 2, 16):
+        x32 = torch.randn((m, k), generator=gen, device=dev)
+        assert mod._route(m, k, n, x32.dtype) == ("gemv" if m <= 2 else "simt")
+        errs32[m] = check_f32(name, f"{site} M={m}", dot(x32), plain(x32))
+    # The decode kernel is deterministic: the same bits from two launches.
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn((1, k), generator=gen, device=dev).to(dtype)
+        if not torch.equal(dot(x), dot(x)):
+            raise AssertionError(f"{name} gemv {site} {dtype}: two launches differ")
+    rows = []
+    for dtype, xsize in ((torch.bfloat16, 2), (torch.float32, 4)):
+        x = torch.randn((1, k), generator=gen, device=dev).to(dtype)
+        ref = plain(x)
+        row = {"site": site, "M": 1, "K": k, "N": n,
+               "dtype": str(dtype).replace("torch.", "")}
+        for route in ("gemv", "simt"):
+            y = launch(x, route)
+            row[f"{route}_max_abs_err"] = (
+                check_bf16(torch, name, f"{site} {route}", x, y, ref)
+                if dtype == torch.bfloat16 else check_f32(name, f"{site} {route}", y, ref))
+            row[f"{route}_ms"] = cuda_ms(lambda: launch(x, route), torch, flush=flush)
+        row["plain_ms"] = cuda_ms(lambda: plain(x), torch, flush=flush)
+        row["library_ms"] = cuda_ms(lambda: yardsticks[dtype](x), torch, flush=flush)
+        row["bytes"] = nbytes(1, k, n, xsize)
+        row["bound_ms"] = row["bytes"] / bw * 1e3
+        row["bound_by"] = "bytes"
+        row["plan"] = list(mod._gemv_plan(1, k, n))
+        rows.append(row)
+    x = torch.randn((1, k), generator=gen, device=dev).to(torch.bfloat16)
+    ref = plain(x)
+    point = {"site": site, "plan": list(mod._gemv_plan(1, k, n))}
+    for split in range(1, mod.GEMV_MAX_SPLIT + 1):
+        if -(-units // split) > mod.GEMV_MAX_CHUNK:
+            continue
+        plan = (mod.GEMV_STRIP, split)
+        check_bf16(torch, name, f"{site} gemv split {split}", x, launch(x, "gemv", plan), ref)
+        point[f"split{split}_ms"] = cuda_ms(lambda: launch(x, "gemv", plan), torch,
+                                            flush=flush)
+    log(f"{name} {site} K={k} N={n}: float32 max err {errs32[1]:.3e} (M=1, gemv), "
+        f"{errs32[2]:.3e} (M=2, gemv), {errs32[16]:.3e} (M=16, simt); gemv bit-equal "
+        f"over two launches; M=1 gemv / simt / library ms: bf16 {rows[0]['gemv_ms']:.4f}"
+        f" / {rows[0]['simt_ms']:.4f} / {rows[0]['library_ms']:.4f}, float32 "
+        f"{rows[1]['gemv_ms']:.4f} / {rows[1]['simt_ms']:.4f} / "
+        f"{rows[1]['library_ms']:.4f}; plan {point['plan']}")
+    return rows, point
 
 
 def scan_routes(torch, name, site, k, gen, dev, launch, plain, flush,
@@ -488,63 +606,19 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
                 nf4_bytes(m, k, n, 2), bw, flops, flush)
             row["route"] = nk._route(m, k, n, x.dtype)
             rows.append(row)
-        assert [r["route"] for r in rows[-len(ms):][:2]] == ["gemv", "gemv"]
-        errs32 = {}
-        for m in (1, 2, 16):
-            x32 = torch.randn((m, k), generator=gen, device=dev)
-            assert nk._route(m, k, n, x32.dtype) == ("gemv" if m <= 2 else "simt")
-            errs32[m] = check_f32("nf4_dot", f"{site} M={m}", nk.nf4_dot(x32, w),
-                                  nk.nf4_dot_reference(x32, w))
-        # The decode kernel is deterministic: the same bits from two launches.
-        for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn((1, k), generator=gen, device=dev).to(dtype)
-            if not torch.equal(nk.nf4_dot(x, w), nk.nf4_dot(x, w)):
-                raise AssertionError(f"nf4_dot gemv {site} {dtype}: two launches differ")
-        # Decode at M = 1 in both dtypes (stage 0 and in process bf16, the
-        # stages behind TCP float32): the decode kernel beside the old
-        # CUDA-core kernel, the plain version and the library, each held.
-        w_deq32 = w.dequant_f32()                    # library yardstick only
-        for dtype, deq, xsize in ((torch.bfloat16, w_deq, 2), (torch.float32, w_deq32, 4)):
-            x = torch.randn((1, k), generator=gen, device=dev).to(dtype)
-            ref = nk.nf4_dot_reference(x, w)
-            check = check_bf16 if dtype == torch.bfloat16 else (
-                lambda torch_, name, where, x_, y, r: check_f32(name, where, y.float(), r.float()))
-            row = {"site": site, "M": 1, "K": k, "N": n,
-                   "dtype": str(dtype).replace("torch.", "")}
-            for route in ("gemv", "simt"):
-                row[f"{route}_max_abs_err"] = check(torch, "nf4_dot", f"{site} {route}", x,
-                                                    nk._launch(x, w, route), ref)
-                row[f"{route}_ms"] = cuda_ms(lambda: nk._launch(x, w, route), torch,
-                                             flush=flush)
-            row["plain_ms"] = cuda_ms(lambda: nk.nf4_dot_reference(x, w), torch, flush=flush)
-            row["library_ms"] = cuda_ms(lambda: torch.matmul(x, deq), torch, flush=flush)
-            row["bytes"] = nf4_bytes(1, k, n, xsize)
-            row["bound_ms"] = row["bytes"] / bw * 1e3
-            row["bound_by"] = "bytes"
-            row["plan"] = list(nk._gemv_plan(1, k, n))
-            decode.append(row)
-        # The plan scan: the decode kernel at every cluster size (bf16, M = 1).
-        x = torch.randn((1, k), generator=gen, device=dev).to(torch.bfloat16)
-        ref = nk.nf4_dot_reference(x, w)
-        point = {"site": site, "plan": list(nk._gemv_plan(1, k, n))}
-        blocks = -(-k // 64)
-        for split in range(1, nk.GEMV_MAX_SPLIT + 1):
-            if -(-blocks // split) > nk.GEMV_MAX_CHUNK:
-                continue
-            plan = (nk.GEMV_STRIP, split)
-            check_bf16(torch, "nf4_dot", f"{site} gemv split {split}", x,
-                       nk._launch(x, w, "gemv", plan), ref)
-            point[f"split{split}_ms"] = cuda_ms(lambda: nk._launch(x, w, "gemv", plan),
-                                                torch, flush=flush)
-        plans.append(point)
         log(f"nf4_dot {site} K={k} N={n}: bf16 ok at M={','.join(map(str, ms))} "
-            f"(routes {[r['route'] for r in rows[-len(ms):]]}); float32 max err "
-            f"{errs32[1]:.3e} (M=1, gemv), {errs32[2]:.3e} (M=2, gemv), "
-            f"{errs32[16]:.3e} (M=16, simt); gemv bit-equal over two launches; "
-            f"M=1 gemv / simt / library ms: bf16 {decode[-2]['gemv_ms']:.4f} / "
-            f"{decode[-2]['simt_ms']:.4f} / {decode[-2]['library_ms']:.4f}, float32 "
-            f"{decode[-1]['gemv_ms']:.4f} / {decode[-1]['simt_ms']:.4f} / "
-            f"{decode[-1]['library_ms']:.4f}; plan {point['plan']}")
+            f"(routes {[r['route'] for r in rows[-len(ms):]]})")
+        assert [r["route"] for r in rows[-len(ms):][:2]] == ["gemv", "gemv"]
+        w_deq32 = w.dequant_f32()                    # library yardstick only
+        rows_1, point = decode_checks(
+            torch, "nf4_dot", nk, site, k, n, lambda x: nk.nf4_dot(x, w),
+            lambda x, route, plan=None: nk._launch(x, w, route, plan),
+            lambda x: nk.nf4_dot_reference(x, w),
+            {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
+             torch.float32: lambda x: torch.matmul(x, w_deq32)},
+            nf4_bytes, -(-k // 64), gen, dev, bw, flush)
+        decode += rows_1
+        plans.append(point)
         if site == "wgu":                            # a ragged M, tensor cores
             x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
             assert nk._route(33, k, n, x.dtype) == "mma"
@@ -2065,11 +2139,13 @@ def decode_layer(rows):
     return {key: sum(r[key] for r in rows) for key in keys}
 
 
-def kernel_entry(name: str, rows, summary, prefill_m: int):
+def kernel_entry(name: str, rows, summary, prefill_m: int, decode):
     """One kernel of the ``kernels`` line: one decode layer's four sites at
     M = 1 summed, and one prefill layer (M = prefill_m, the prompt padded to
     its sequence bucket, as the executors run it) under ``prefill``; the
-    path's launches, and under ``launches_by_route`` each route's share."""
+    decode layer with float32 x (the stages behind TCP) under
+    ``decode_float32``, from the `decode` rows; the path's launches, and
+    under ``launches_by_route`` each route's share."""
     decode_rows = [r for r in rows if r["M"] == 1]
     launches = summary[f"{name}_launches"]
     by_route = {"mma": summary[f"{name}_launches_mma"]}
@@ -2088,6 +2164,9 @@ def kernel_entry(name: str, rows, summary, prefill_m: int):
     entry["prefill"] = {
         "at": f"one prefill layer: wqkv+wo+wgu+wd at M={prefill_m}, bf16, L2 cold",
         "route": "+".join(sorted({r["route"] for r in pre})), **layer_sum(pre)}
+    entry["decode_float32"] = {
+        "at": "one decode layer: wqkv+wo+wgu+wd at M=1, float32 x, L2 cold",
+        **decode_layer([r for r in decode if r["dtype"] == "float32"])}
     return entry
 
 
@@ -2160,8 +2239,8 @@ def main(argv) -> int:
     prefill_m = import_module(PORT + ".runtime.kv_cache").round_to_bucket(
         prompt_len, import_module(PORT + ".runtime.executor").SEQ_BUCKETS)
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
-    int8_rows, int8_scan = int8_phase(torch, ik, "cuda", prompt_len, prefill_m, bw,
-                                      flops, flush)
+    int8_rows, int8_scan, int8_decode, int8_plans = int8_phase(
+        torch, ik, "cuda", prompt_len, prefill_m, bw, flops, flush)
     nf4_rows, nf4_scan, nf4_decode, nf4_plans = nf4_phase(
         torch, nk, "cuda", prompt_len, prefill_m, bw, flops, flush)
     for kname, rows, scan in (("int8_dot", int8_rows, int8_scan),
@@ -2171,15 +2250,23 @@ def main(argv) -> int:
         log(json.dumps({f"{kname}_per_layer": {
             m: layer_sum([r for r in rows if r["M"] == m])
             for m in sorted({r["M"] for r in rows})}, "card": smi}))
-    log(json.dumps({"nf4_dot_decode": nf4_decode, "nf4_dot_decode_per_layer": {
-        dtype: decode_layer([r for r in nf4_decode if r["dtype"] == dtype])
-        for dtype in ("bfloat16", "float32")}, "card": smi}))
-    log(json.dumps({"nf4_dot_gemv_plans": nf4_plans, "card": smi}))
-    # The decode kernel's instructions (bf16 and float32 x at M = 1): the
-    # whole function, its loop over a scale block most of it.
+    for kname, dec, plans in (("int8_dot", int8_decode, int8_plans),
+                              ("nf4_dot", nf4_decode, nf4_plans)):
+        log(json.dumps({f"{kname}_decode": dec, f"{kname}_decode_per_layer": {
+            dtype: decode_layer([r for r in dec if r["dtype"] == dtype])
+            for dtype in ("bfloat16", "float32")}, "card": smi}))
+        log(json.dumps({f"{kname}_gemv_plans": plans, "card": smi}))
+    # The decode kernels' instructions (bf16 and float32 x at M = 1): the
+    # whole function, its loop over a scale block or a stage most of it;
+    # int8_dot's old CUDA-core kernel beside its new one.
+    dtypes = (("bfloat16", "13__nv_bfloat16"), ("float32", "f"))
     log(json.dumps({"nf4_gemv_sass": {
         dtype: sass_counts("nf4_dot", f"nf4_gemv_kernelI{mangled}Li1E")
-        for dtype, mangled in (("bfloat16", "13__nv_bfloat16"), ("float32", "f"))}}))
+        for dtype, mangled in dtypes}}))
+    log(json.dumps({"int8_gemv_sass": {
+        f"{kernel} {dtype}": sass_counts("int8_dot", f"{kernel}I{mangled}Li1E")
+        for kernel in ("int8_gemv_kernel", "int8_dot_kernel")
+        for dtype, mangled in dtypes}}))
     del flush
     draw = draw_phase(torch, dk, tf3, bw)
     log(json.dumps({"sample_draw": draw, "card": smi}))
@@ -2229,8 +2316,8 @@ def main(argv) -> int:
     cli = cli_drive(torch, tmain.load_tokenizer(), int8_state, smi)
     log(json.dumps({"cli_path": cli}))
 
-    kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m),
-               kernel_entry("nf4_dot", nf4_rows, nf4_summary, prefill_m),
+    kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m, int8_decode),
+               kernel_entry("nf4_dot", nf4_rows, nf4_summary, prefill_m, nf4_decode),
                draw_entry(draw, int8_summary["sample_draw"]["launches"])]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")

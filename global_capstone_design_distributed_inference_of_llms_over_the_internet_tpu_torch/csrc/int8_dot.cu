@@ -2,16 +2,87 @@
 // epilogue:  y[M, N] = (x[M, K] @ q[K, N]) * s[N], rounded to x's dtype.
 //
 // Replaces the TPU kernel ops/int8_kernel.py:_make_kernel (the Pallas
-// kernel behind int8_dot) of the JAX package. It runs at every projection
-// of --quant int8 serving: wqkv, wo, wgu and wd of every layer. Two
-// kernels compute that one function; the wrapper (ops/int8_kernel.py,
-// `_route`) picks one from M, K, N and x's dtype alone:
-//   * int8_dot_kernel, on the CUDA cores ("simt"): decode (M below
-//     MMA_MIN_M), float32 x, and shapes the tensor-core route does not take;
+// kernel behind int8_dot, the pallas_call at :98) of the JAX package. It
+// runs at every projection of --quant int8 serving: wqkv, wo, wgu and wd of
+// every layer. Three kernels compute that one function; the wrapper
+// (ops/int8_kernel.py, `_route`) picks one from M, K, N and x's dtype alone:
+//   * int8_gemv_kernel ("gemv"): decode, M <= 2 (bf16 x below MMA_MIN_M,
+//     float32 x at M <= 2), N % 16 == 0, K <= 32768;
 //   * int8_dot_mma_kernel, on the tensor cores ("mma"): bf16 x at prefill M
-//     with N % 16 == 0 and K % 8 == 0 (every llama-3.1-8b site).
+//     with N % 16 == 0 and K % 8 == 0 (every llama-3.1-8b site);
+//   * int8_dot_kernel, on the CUDA cores ("simt"): float32 x at prefill M,
+//     bf16 x at M 3-4, and shapes the other two do not take (N % 16 != 0).
+//
+// ---- int8_gemv_kernel (decode: M <= 2, bf16 or float32 x) ----
+// What bounds it on an H100: at M <= 2 every weight byte is used once or
+// twice, so the work is bound by the bytes it reads: K * N int8 weights
+// (218 MB for one llama-3.1-8b layer's four sites: 0.0652 ms at 3.35 TB/s).
+// What the design does about it:
+//   * Split-K across a thread-block cluster fills the card at every site. A
+//     CTA of 4 warps owns a strip of 128 columns and a K chunk of it: a
+//     whole number of 128-row stages, ceil(stages / S) of them for rank r
+//     of a cluster of S <= 8 (the portable size) along K. The wrapper's
+//     host function `_gemv_plan` picks S per shape and passes it in; the
+//     launch takes it as its cluster dimension (cudaLaunchKernelEx), which
+//     graphs capture. The plan depends on K alone (the least split that
+//     gives every rank as many stages, at most 8), so that a fused weight
+//     and its parts sum a column in the same order and give the same bits:
+//     at llama-3.1-8b's sites wqkv 48 strips x 4, wo 32 x 4, wgu 224 x 4,
+//     wd 32 x 8 CTAs.
+//   * Each CTA sums its 4 warps' partials in shared memory in warp order and
+//     stores the sum into rank 0's shared memory through distributed shared
+//     memory (cooperative_groups map_shared_rank), one slot a rank; after a
+//     cluster barrier rank 0 adds the slots in rank order 0..S-1, multiplies
+//     each column by its f32 scale once and rounds to x's dtype. The result
+//     is deterministic: one launch, no workspace, no atomics. (A relaxed
+//     cluster arrive at the start, waited for before the push, makes sure
+//     rank 0 has started before anyone writes to it.)
+//   * The CTA streams its chunk in stages of 128 rows x 128 columns (16 KB),
+//     by cp.async into a ring of 4 stages in shared memory (64 KB), 3
+//     stages ahead of the work (the first three asked for before x is
+//     staged): 48 KB a CTA, ~70 KB an SM in flight. One warp instruction
+//     copies 4 rows x 128 contiguous bytes, and the CTA's 4 warps copy and
+//     work on the same 128 rows together, one barrier a stage (warp w on
+//     rows 32 w .. 32 w + 31): on the H100 a pure read of this shape ran
+//     at ~1.4x the speed of one where each warp streamed its own rows
+//     through a ring of its own (PERF.md). A stage's 16-byte chunks are
+//     swizzled so that the lanes' fragment reads are free of bank
+//     conflicts: lane (g, c) of a warp reads chunk g (16 columns) of rows
+//     2c, 2c + 1, 2c + 8, 2c + 9 of each 16-row slice.
+//   * No per-weight int-to-float conversion instruction (I2F runs at 16
+//     results a clock an SM on sm_90, an eighth of the FFMA rate). For bf16
+//     x: one byte_perm puts a weight of row 2c and one of row 2c + 1 (the
+//     two k of an mma A-fragment register) under the low bytes of two
+//     halves; two LOP3s make 0x4300 | (b & 0x7F) = 128 + (b & 0x7F) and
+//     0x4300 | (b & 0x80) = 128 or 256 from each half; one bf16x2
+//     subtraction leaves b exactly: 4 instructions for 2 weights. The
+//     pair is one register of an mma.sync m16n8k16 A fragment: fragment row
+//     g is column 16g + 2j, row g + 8 column 16g + 2j + 1, k the slice's
+//     rows 2c, 2c + 1, 2c + 8, 2c + 9; x is the B fragment (fragment column
+//     m = lane group g, zero past M). So the FMAs run on the tensor cores,
+//     in float32. For float32 x: per 4-byte word one XOR with 0x80808080,
+//     then per weight one byte_perm under the float exponent 0x4B000000
+//     and one subtraction of 8388736.0f (b exactly), then M FFMAs on the
+//     CUDA cores; the 4 lanes that share a column group add their sums with
+//     two shuffles, in a fixed order.
+//   * The CTA's K chunk of x (M <= 2 rows) is staged in shared memory once,
+//     with 16-byte loads, zero past K; bf16 x in its own layout (a 32-bit
+//     word is the B-fragment register of two k), float32 as it is.
+//   * bf16 x * an int8 weight is exact in float32: only the order of the
+//     float32 sums differs from the plain version.
+// SASS (chip_smoke.py's int8_gemv_sass, PERF.md): the bf16 kernel's loop
+// over a stage takes 128 weights a lane with 64 PRMT, 128 LOP3, 64 HADD2
+// and 16 HMMA, 2.1 instructions a weight and no I2F (1616 instructions in
+// all); the float32 kernel's 128 PRMT, 128 FADD, 32 LOP3 and 128 FFMA, 3.25
+// a weight (1768); the old int8_dot_kernel<bf16, 1> 128 I2F beside 144
+// FFMA, one conversion a weight (1488).
+// Measured (PERF.md): a llama-3.1-8b layer's four sites at M = 1 in ~0.132
+// ms with the L2 cold (bf16 and float32 x alike), 2.0x the byte bound,
+// against 0.177 for int8_dot_kernel in the same run.
 //
 // ---- int8_dot_kernel (CUDA cores) ----
+// The first port of the kernel and the decode kernel until the gemv route:
+// now float32 x at prefill M, bf16 x at M 3-4 and ragged N.
 // What bounds it on an H100: at decode (M = 1) the work is one multiply-add
 // per weight byte, so the kernel is bound by reading q from device memory
 // (K * N bytes; 117 MB for the 8B model's fused gate/up weight). At large M
@@ -32,8 +103,8 @@
 //     results are deterministic. The grid is ceil(N/32) x ceil(M/MT).
 //   * Any M, K and N: rows past M, columns past N and the K tail are masked;
 //     the 16-byte loads are used only where N % 16 == 0, else byte loads.
-// Not done yet: split-K across blocks, so that the N = 4096 sites fill all
-// 132 SMs at decode.
+// At M = 1 (PERF.md) it ran at 2.7x the byte bound: 128 blocks at N = 4096
+// on 132 SMs, and one int8-to-float conversion instruction a weight.
 //
 // ---- int8_dot_mma_kernel (tensor cores, bf16 x) ----
 // Replaces int8_dot_kernel at prefill M (the prompt, every prefill chunk,
@@ -88,8 +159,13 @@
 //   int int8_dot_mma_launch(...the same arguments...)
 //     The tensor-core route: x_dtype 1 only, N % 16 == 0, K % 8 == 0, and
 //     x, q, s, y 16-byte aligned (else an error code, no launch).
+//   int int8_dot_gemv_launch(...the same arguments..., strip_cols, split)
+//     The decode route: M <= 2, N % 16 == 0, q 16-byte aligned,
+//     strip_cols == 128, 1 <= split <= 8 (the cluster size), at most 128
+//     stages of 128 rows a rank (else an error code, no launch).
 //   const char* int8_dot_error_string(int code)
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -556,6 +632,374 @@ cudaError_t launch_mma_m(const void* x, const void* q, const void* s, void* y,
              : launch_mma<MmaTile<BM, 32>>(x, q, s, y, M, K, N, stream);
 }
 
+// ---- The decode route: split-K over a cluster ----
+
+namespace cg = cooperative_groups;
+
+constexpr int kGemvWarps = 4;
+constexpr int kGemvThreads = kGemvWarps * 32;
+constexpr int kGemvStrip = 128;     // columns a CTA: 8 lane groups x 16
+constexpr int kGemvMaxSplit = 8;    // the portable cluster size
+constexpr int kGemvRows = 128;      // rows of q a stage: 32 for each warp
+constexpr int kGemvMaxChunk = 32;   // stages a rank (its x stage)
+constexpr int kGemvStages = 4;      // the CTA's ring of stages
+constexpr int kGemvStageBytes = kGemvRows * kGemvStrip;  // 16 KB
+constexpr int kGemvRingBytes = kGemvStages * kGemvStageBytes;
+constexpr int kGemvCopies = kGemvStageBytes / 16 / kGemvThreads;  // a thread's
+constexpr int kGemvXPad = 8;        // elements past each staged row of x
+
+// The row of a warp's 32 that its lane group c reads as load e: in slice
+// t = e / 4 (16 rows, one mma k-slice), rows 2c, 2c + 1, 2c + 8, 2c + 9.
+__device__ __forceinline__ int gemv_row(int e, int c) {
+  return 16 * (e >> 2) + 2 * c + (e & 1) + 8 * ((e >> 1) & 1);
+}
+
+// A stage in shared memory is [128 rows][8 chunks of 16 bytes], chunk j of
+// row r at position j ^ (2 ((r >> 1) & 3)): a lane of group (g, c) reads
+// chunk g of rows 2c + ..., so the 8 lanes of a quarter-warp hit 8
+// different bank quads.
+__device__ __forceinline__ int gemv_chunk(int r, int j) {
+  return j ^ (((r >> 1) & 3) << 1);
+}
+
+// This thread's 8 copies of stage `stage` (rows 128 stage .. + 127 of the
+// strip) into ring slot `slot`: copy e of thread t is chunk t % 8 of row
+// 16 e + t / 8, so one warp instruction reads 4 rows x 128 contiguous
+// bytes; zero-filled past K and N.
+__device__ __forceinline__ void gemv_copy(unsigned char* slot,
+                                          const int8_t* __restrict__ q,
+                                          int stage, int n_strip, int K, int N) {
+  const int r0 = threadIdx.x >> 3, j = threadIdx.x & 7;
+  const int n = n_strip + 16 * j;
+#pragma unroll
+  for (int e = 0; e < kGemvCopies; ++e) {
+    const int r = r0 + 16 * e;
+    const int k = stage * kGemvRows + r;
+    const bool ok = k < K && n < N;  // N % 16 == 0: all 16 columns or none
+    cp_async16(slot + r * kGemvStrip + 16 * gemv_chunk(r, j),
+               ok ? q + static_cast<size_t>(k) * N + n : q, ok);
+  }
+}
+
+// (a & b) | c in one LOP3.
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// Byte e of `lo` and of `hi` (the same column in rows 2c and 2c + 1) as a
+// bf16 pair, exactly, with no conversion instruction: the bytes go under
+// the low bytes of two halves; 0x4300 | (b & 0x7F) is 128 + (b & 0x7F),
+// 0x4300 | (b & 0x80) is 128 or 256, and their difference is b.
+template <int E>
+__device__ __forceinline__ uint32_t gemv_widen_pair(uint32_t lo, uint32_t hi) {
+  const uint32_t p = __byte_perm(lo, hi, 0x4400u + 0x1111u * E);
+  const uint32_t v = and_or(p, 0x007F007Fu, 0x43004300u);
+  const uint32_t b = and_or(p, 0x00800080u, 0x43004300u);
+  uint32_t out;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(out) : "r"(v), "r"(b));
+  return out;
+}
+
+// Byte I of a word already XORed with 0x80808080 (b + 128) as a float,
+// exactly: under the exponent of 2^23, then 2^23 + 128 off.
+template <int I>
+__device__ __forceinline__ float gemv_widen(uint32_t biased) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650u | I)) -
+         8388736.0f;
+}
+
+__device__ __forceinline__ void gemv_mma(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A lane's sums: for bf16 x, the 8 mma accumulators of its column group
+// (lanes with c = 0 hold y[m][16g + 2j] in d[j][m], y[m][16g + 2j + 1] in
+// d[j][2 + m]); for float32 x, acc[m][j] of its 16 columns.
+template <typename T, int M>
+struct GemvAcc;
+
+template <int M>
+struct GemvAcc<__nv_bfloat16, M> {
+  float d[8][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[j][i] = 0.f;
+  }
+  // A warp's 32 rows of a stage: per 16-row slice the x pairs of rows 2c,
+  // 2c + 1 and 2c + 8, 2c + 9 (lane group g is fragment column m = g), then
+  // per column pair j one mma over 16 columns x 16 rows.
+  __device__ __forceinline__ void rows(const int4 (&w)[8],
+                                       const __nv_bfloat16* xs, int xstride,
+                                       int row0, int g, int c) {
+    const uint32_t* xw = reinterpret_cast<const uint32_t*>(xs) +
+                         (g < M ? g : 0) * (xstride / 2);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int r = (row0 + 16 * t) / 2 + c;
+      const uint32_t x0 = xw[r], x1 = xw[r + 4];
+      const uint32_t b0 = g < M ? x0 : 0u, b1 = g < M ? x1 : 0u;
+      const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&w[4 * t]);
+      const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&w[4 * t + 1]);
+      const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&w[4 * t + 2]);
+      const uint32_t* w3 = reinterpret_cast<const uint32_t*>(&w[4 * t + 3]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // word q: columns 4q..4q+3 = pairs 2q, 2q+1
+        uint32_t a[4];
+        a[0] = gemv_widen_pair<0>(w0[q], w1[q]);
+        a[1] = gemv_widen_pair<1>(w0[q], w1[q]);
+        a[2] = gemv_widen_pair<0>(w2[q], w3[q]);
+        a[3] = gemv_widen_pair<1>(w2[q], w3[q]);
+        gemv_mma(d[2 * q], a, b0, b1);
+        a[0] = gemv_widen_pair<2>(w0[q], w1[q]);
+        a[1] = gemv_widen_pair<3>(w0[q], w1[q]);
+        a[2] = gemv_widen_pair<2>(w2[q], w3[q]);
+        a[3] = gemv_widen_pair<3>(w2[q], w3[q]);
+        gemv_mma(d[2 * q + 1], a, b0, b1);
+      }
+    }
+  }
+  // y[m][16g + jj] of the lane's column group (valid on lanes with c = 0).
+  __device__ __forceinline__ float out(int m, int jj) const {
+    return d[jj >> 1][(jj & 1) * 2 + m];
+  }
+  __device__ __forceinline__ void reduce_lanes() {}
+};
+
+template <int M>
+struct GemvAcc<float, M> {
+  float acc[M][16];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
+  }
+  template <int I>
+  __device__ __forceinline__ void column(uint32_t biased, int j,
+                                         const float (&xv)[M]) {
+    const float wf = gemv_widen<I>(biased);
+#pragma unroll
+    for (int m = 0; m < M; ++m) acc[m][j] = fmaf(xv[m], wf, acc[m][j]);
+  }
+  __device__ __forceinline__ void rows(const int4 (&w)[8],
+                                       const float* xs, int xstride,
+                                       int row0, int, int c) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int r = row0 + gemv_row(e, c);
+      float xv[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) xv[m] = xs[m * xstride + r];
+      const uint32_t* wv = reinterpret_cast<const uint32_t*>(&w[e]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t biased = wv[q] ^ 0x80808080u;
+        column<0>(biased, 4 * q, xv);
+        column<1>(biased, 4 * q + 1, xv);
+        column<2>(biased, 4 * q + 2, xv);
+        column<3>(biased, 4 * q + 3, xv);
+      }
+    }
+  }
+  __device__ __forceinline__ float out(int m, int jj) const {
+    return acc[m][jj];
+  }
+  // The 4 lanes of a column group (c = lane % 4) hold sums over different
+  // rows: (c0 + c1) + (c2 + c3) on every one of them.
+  __device__ __forceinline__ void reduce_lanes() {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], 1);
+        acc[m][j] += __shfl_xor_sync(0xffffffffu, acc[m][j], 2);
+      }
+  }
+};
+
+// Shared memory of a CTA: the warps' rings, the x stage [M][chunk rows +
+// pad], the warps' sums [warps][M][strip] and rank 0's slots
+// [split][M][strip].
+template <typename T, int M>
+constexpr size_t gemv_smem(int chunk, int split) {
+  return kGemvRingBytes + sizeof(T) * M * (chunk * kGemvRows + kGemvXPad) +
+         sizeof(float) * (kGemvWarps + split) * M * kGemvStrip;
+}
+
+// The CTA's rows [row0, row0 + nrows) of x (M rows) into the stage:
+// 16-byte loads where `vec` (K a multiple of them and x 16-byte aligned; a
+// load is then all inside K or all past it), else one element at a time;
+// zero past K.
+template <typename T, int M>
+__device__ __forceinline__ void gemv_stage_x(T* xs, const T* __restrict__ x,
+                                             int xstride, int row0, int nrows,
+                                             int K, bool vec) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (vec) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      for (int i = threadIdx.x; i < nrows / kVec; i += kGemvThreads) {
+        const int k = row0 + i * kVec;
+        const int4 v = k < K ? __ldg(reinterpret_cast<const int4*>(
+                                   x + static_cast<size_t>(m) * K + k))
+                             : make_int4(0, 0, 0, 0);
+        *reinterpret_cast<int4*>(xs + m * xstride + i * kVec) = v;
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    for (int r = threadIdx.x; r < nrows; r += kGemvThreads) {
+      const int k = row0 + r;
+      xs[m * xstride + r] =
+          k < K ? x[static_cast<size_t>(m) * K + k] : from_f32<T>(0.f);
+    }
+  }
+}
+
+template <typename T, int M>
+__global__ void __launch_bounds__(kGemvThreads)
+    int8_gemv_kernel(const T* __restrict__ x, const int8_t* __restrict__ q,
+                     const float* __restrict__ s, T* __restrict__ y, int K,
+                     int N, int chunk, bool vec_x) {
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;  // the cluster spans gridDim.x
+  const int split = gridDim.x;
+  const int strip0 = blockIdx.y * kGemvStrip;
+  const int stages = (K + kGemvRows - 1) / kGemvRows;
+  const int s0 = rank * chunk;
+  const int nrows = max(min(s0 + chunk, stages) - s0, 0) * kGemvRows;
+  const int xstride = chunk * kGemvRows + kGemvXPad;
+  T* xs = reinterpret_cast<T*>(gsmem + kGemvRingBytes);
+  float* wsum = reinterpret_cast<float*>(gsmem + kGemvRingBytes +
+                                         sizeof(T) * M * xstride);
+  float* slots = wsum + kGemvWarps * M * kGemvStrip;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  // The rank's stages s0 .. s1 - 1 through the ring; the first
+  // kGemvStages - 1 are asked for before x is staged, and each later one
+  // kGemvStages - 1 stages ahead of the work.
+  const int count = max(min(s0 + chunk, stages) - s0, 0);
+#pragma unroll
+  for (int i = 0; i < kGemvStages - 1; ++i) {
+    if (i < count) gemv_copy(gsmem + i * kGemvStageBytes, q, s0 + i, strip0, K, N);
+    cp_async_commit();
+  }
+  // A rank writes rank 0's shared memory only once every rank has started:
+  // arrive now, wait before the push (long since met by then).
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  gemv_stage_x<T, M>(xs, x, xstride, s0 * kGemvRows, nrows, K, vec_x);
+
+  GemvAcc<T, M> acc;
+  acc.zero();
+  // Warp w works on rows 32 w .. 32 w + 31 of each stage; lane (g, c) reads
+  // chunk g of its rows (at position g ^ 2c: gemv_chunk).
+  const int lane_off = 32 * warp * kGemvStrip + 16 * (g ^ (2 * c));
+  for (int i = 0; i < count; ++i) {
+    // Stage i's copies (this thread's) have landed; after the barrier all
+    // have, x is staged, and every warp is done with stage i - 1, whose
+    // slot the next copies take.
+    cp_async_wait<kGemvStages - 2>();
+    __syncthreads();
+    if (i + kGemvStages - 1 < count) {
+      gemv_copy(gsmem + ((i + kGemvStages - 1) % kGemvStages) * kGemvStageBytes, q,
+                s0 + i + kGemvStages - 1, strip0, K, N);
+    }
+    cp_async_commit();
+    const unsigned char* st =
+        gsmem + (i % kGemvStages) * kGemvStageBytes + lane_off;
+    int4 w[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      w[e] = *reinterpret_cast<const int4*>(st + gemv_row(e, c) * kGemvStrip);
+    }
+    acc.rows(w, xs, xstride, i * kGemvRows + 32 * warp, g, c);
+  }
+  cp_async_wait<0>();
+  acc.reduce_lanes();
+  if (c == 0) {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+        wsum[(warp * M + m) * kGemvStrip + 16 * g + jj] = acc.out(m, jj);
+  }
+  __syncthreads();
+  // This CTA's sum, warps in order, into its slot of rank 0's shared memory.
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* root = cluster.map_shared_rank(slots, 0);
+  for (int i = threadIdx.x; i < M * kGemvStrip; i += kGemvThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kGemvWarps; ++w) v += wsum[w * M * kGemvStrip + i];
+    root[rank * M * kGemvStrip + i] = v;
+  }
+  cluster.sync();
+  if (rank == 0) {
+    for (int i = threadIdx.x; i < M * kGemvStrip; i += kGemvThreads) {
+      const int m = i / kGemvStrip, n = strip0 + i % kGemvStrip;
+      if (n < N) {
+        float v = 0.f;
+        for (int r = 0; r < split; ++r) v += slots[r * M * kGemvStrip + i];
+        y[static_cast<size_t>(m) * N + n] = from_f32<T>(v * s[n]);
+      }
+    }
+  }
+}
+
+template <typename T, int M>
+cudaError_t launch_gemv(const void* x, const void* q, const void* s, void* y,
+                        int K, int N, int split, cudaStream_t stream) {
+  const int stages = (K + kGemvRows - 1) / kGemvRows;
+  const int chunk = (stages + split - 1) / split;
+  const int strips = (N + kGemvStrip - 1) / kGemvStrip;
+  if (chunk > kGemvMaxChunk || strips > 65535) return cudaErrorInvalidValue;
+  const size_t smem = gemv_smem<T, M>(chunk, split);
+  // Above 48 KB of dynamic shared memory must be asked for first.
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_gemv_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, strips, 1);
+  cfg.blockDim = dim3(kGemvThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, int8_gemv_kernel<T, M>, static_cast<const T*>(x),
+      static_cast<const int8_t*>(q), static_cast<const float*>(s),
+      static_cast<T*>(y), K, N, chunk,
+      K % (16 / static_cast<int>(sizeof(T))) == 0 &&
+          reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The most a CTA takes (kGemvMaxChunk stages of float32 x at M = 2, the
+// largest cluster's slots): 108 KB, two CTAs an SM.
+static_assert(2 * (gemv_smem<float, 2>(kGemvMaxChunk, kGemvMaxSplit) + 1024) <=
+                  kSmemPerSM,
+              "two of the gemv's largest CTAs fit an SM's shared memory");
+
+
 }  // namespace
 
 extern "C" int int8_dot_launch(const void* x, const void* q, const void* s,
@@ -596,6 +1040,32 @@ extern "C" int int8_dot_mma_launch(const void* x, const void* q, const void* s,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = M <= 32 ? launch_mma_m<32>(x, q, s, y, M, K, N, st)
                 : launch_mma_m<64>(x, q, s, y, M, K, N, st);
+  return static_cast<int>(err);
+}
+
+extern "C" int int8_dot_gemv_launch(const void* x, const void* q, const void* s,
+                                    void* y, int M, int K, int N, int x_dtype,
+                                    int device, void* stream, int strip_cols,
+                                    int split) {
+  if (M <= 0 || M > 2 || K <= 0 || N <= 0 || N % 16 != 0 ||
+      strip_cols != kGemvStrip || split < 1 || split > kGemvMaxSplit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (reinterpret_cast<uintptr_t>(q) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0) {
+    err = M == 1 ? launch_gemv<float, 1>(x, q, s, y, K, N, split, st)
+                 : launch_gemv<float, 2>(x, q, s, y, K, N, split, st);
+  } else if (x_dtype == 1) {
+    err = M == 1 ? launch_gemv<__nv_bfloat16, 1>(x, q, s, y, K, N, split, st)
+                 : launch_gemv<__nv_bfloat16, 2>(x, q, s, y, K, N, split, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

@@ -1,9 +1,11 @@
-"""``int8_dot``'s two kernels: `_route` picks the tensor-core kernel ("mma")
-or the CUDA-core kernel ("simt") from M, K, N and x's dtype alone; CPU
-tensors take the plain version at any M and launch nothing; both C entry
-points of ``csrc/int8_dot.cu`` take the same arguments (read from the
-source text, nothing CUDA imported); and the plain version agrees with the
-reference's Pallas kernel, run interpreted, at prefill M with bf16 x."""
+"""``int8_dot``'s three kernels: `_route` picks the decode kernel ("gemv"),
+the tensor-core kernel ("mma") or the CUDA-core kernel ("simt") from M, K,
+N and x's dtype alone; CPU tensors take the plain version at any M and
+launch nothing; the C entry points of ``csrc/int8_dot.cu`` take the same
+arguments (read from the source text, nothing CUDA imported); and the
+plain version agrees with the reference's Pallas kernel, run interpreted,
+at prefill M with bf16 x. The decode kernel's plan and its decode-M
+agreement are in ``test_torch_int8_gemv.py``."""
 
 import re
 
@@ -48,7 +50,7 @@ ROUTES = [
     ("bf16 below MMA_MIN_M", MIN - 1, 4096, 4096, torch.bfloat16, "simt"),
     ("bf16 at MMA_MIN_M", MIN, 4096, 4096, torch.bfloat16, "mma"),
     ("bf16 prefill chunk", 2048, 4096, 4096, torch.bfloat16, "mma"),
-    ("float32 at M 1", 1, 4096, 4096, torch.float32, "simt"),
+    ("float32 at M 1", 1, 4096, 4096, torch.float32, "gemv"),
     ("float32 at MMA_MIN_M", MIN, 4096, 4096, torch.float32, "simt"),
     ("float32 at M 512", 512, 4096, 4096, torch.float32, "simt"),
     ("bf16 N not a multiple of 16", 30, 4096, 4104, torch.bfloat16, "simt"),
@@ -56,8 +58,22 @@ ROUTES = [
     ("bf16 K not a multiple of 8", 30, 4100, 4096, torch.bfloat16, "simt"),
     ("bf16 K 100", 30, 100, 96, torch.bfloat16, "simt"),
     ("bf16 K 328 N 48 (K tail inside a step)", 33, 328, 48, torch.bfloat16, "mma"),
-] + [(f"llama-3.1-8b {site} M {m}", m, k, n, torch.bfloat16, "simt" if m == 1 else "mma")
-     for site, (k, n) in LLAMA_8B_SITES.items() for m in (1, 30)]
+    ("bf16 at M 1", 1, 4096, 4096, torch.bfloat16, "gemv"),
+    ("bf16 at GEMV_MAX_M", tk.GEMV_MAX_M, 4096, 4096, torch.bfloat16, "gemv"),
+    ("bf16 past GEMV_MAX_M", tk.GEMV_MAX_M + 1, 4096, 4096, torch.bfloat16, "simt"),
+    ("float32 at GEMV_MAX_M", tk.GEMV_MAX_M, 4096, 4096, torch.float32, "gemv"),
+    ("float32 past GEMV_MAX_M", tk.GEMV_MAX_M + 1, 4096, 4096, torch.float32, "simt"),
+    ("bf16 M 1 ragged K 100", 1, 100, 96, torch.bfloat16, "gemv"),
+    ("float32 M 2 ragged K 4100", 2, 4100, 4112, torch.float32, "gemv"),
+    ("bf16 M 1 N not a multiple of 16", 1, 4096, 4104, torch.bfloat16, "simt"),
+    ("float32 M 2 N 97", 2, 128, 97, torch.float32, "simt"),
+    ("bf16 M 1 K at GEMV_MAX_K", 1, tk.GEMV_MAX_K, 4096, torch.bfloat16, "gemv"),
+    ("bf16 M 1 K past the x stage", 1, tk.GEMV_MAX_K + 1, 4096, torch.bfloat16, "simt"),
+    ("float32 M 1 K past the x stage", 1, tk.GEMV_MAX_K + 32, 48, torch.float32, "simt"),
+] + [(f"llama-3.1-8b {site} M {m}", m, k, n, torch.bfloat16, "gemv" if m == 1 else "mma")
+     for site, (k, n) in LLAMA_8B_SITES.items() for m in (1, 30)] + [
+    (f"llama-3.1-8b {site} M {m} float32", m, k, n, torch.float32, "gemv")
+    for site, (k, n) in LLAMA_8B_SITES.items() for m in (1, 2)]
 
 
 @pytest.mark.parametrize("case,m,k,n,dtype,route", ROUTES, ids=[r[0] for r in ROUTES])
@@ -70,10 +86,10 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(m):
     gen = torch.Generator().manual_seed(m)
     w = tquant._quantize_leaf((torch.randn(256, 128, generator=gen) * 0.02).to(torch.bfloat16))
     x = torch.randn(m, 256, generator=gen).to(torch.bfloat16)
-    assert tk._route(m, 256, 128, x.dtype) == ("simt" if m < tk.MMA_MIN_M else "mma")
-    before = (tk._launches, tk._launches_mma)
+    assert tk._route(m, 256, 128, x.dtype) == ("gemv" if m <= tk.GEMV_MAX_M else "mma")
+    before = (tk._launches, tk._launches_mma, tk._launches_gemv)
     got = tk.int8_dot(x, w)
-    assert (tk._launches, tk._launches_mma) == before
+    assert (tk._launches, tk._launches_mma, tk._launches_gemv) == before
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, 128)
     assert torch.equal(got, tk.int8_dot_reference(x, w.q, w.s))
 
