@@ -27,8 +27,12 @@ on the kernels; it never prints the last line of a smoke pass.)
    (``<kernel>_decode``), and at every cluster size (``<kernel>_gemv_plans``,
    the scan behind ``_gemv_plan``); the SASS opcode counts of the decode
    kernels (``int8_dot``'s old CUDA-core kernel beside its new one) are
-   printed. Prints JSON lines of shapes, crossover scan and per-layer sums
-   per kernel.
+   printed. The batched engine's regime, M = 8 (every slot of a round), is
+   held and timed at every site in float32 x (stages 1-3: the CUDA-core
+   route, F32_TOL) and bf16 x (the tensor cores), beside the plain version
+   and the library (``torch.matmul(x32, q.float()) * s`` and NF4's
+   counterpart), with its bound (``<kernel>_batched``). Prints JSON lines
+   of shapes, crossover scan and per-layer sums per kernel.
 3b. The draw kernel (``sample_draw``, ``csrc/sample_draw.cu``): at V =
    128256 and 1000, B = 1 and 4, temperatures 0.7 and 1.5, 8 seeds each,
    its Gumbel noise must be bit-equal to the plain ``threefry.gumbel`` and
@@ -136,8 +140,39 @@ on the kernels; it never prints the last line of a smoke pass.)
    ``tcp_path`` and ``cli_path`` JSON lines carry TTFT, decode ms/token,
    the per-hop ``client_stage_time_seconds``, the client's ``socket``
    phase and the peaks.
-10. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
-   ``sample_draw``; each matmul with its launches by route) and
+10. Batched path (after the oracle; ``batched_path``): the int8 path's
+   stages 1-3 as ``--mode serve --batched`` builds them (batched engines,
+   ``runtime/batching.py``: bfloat16 slot caches of 8 slots x 2048 rows,
+   each warmed up, adapters with the default round window) and 8 clients
+   on threads, each with its own warmed-up stage-0 executor, over a
+   ``LocalTransport`` that hands each hop float32 (as a TCP hop at wire
+   f32 does; stage 1's round window covers the clients' stage-0 steps,
+   which share the card: STAGE0_STEP_S): 8 requests at once (6 greedy, 2
+   sampled), each held to its
+   float32-cache reference as in step 5; no capture after the warm-ups;
+   each stage's rounds at most MAX_NEW_TOKENS - 1 + ROUND_SLACK (not one a
+   session and token); ``int8_dot`` launches by route (stage 0's prefill
+   on the tensor cores and decode on the decode kernel, stages 1-3 on the
+   CUDA-core route, one a site and layer for each prefill and round); a
+   ``sample_draw`` a sampled token; at most one host sync a prefill and
+   one a round of the last stage. Then the fill scan (1, 2, 4, 8 sessions
+   at once: ms a round, tokens/s; each fill's tokens equal the fill-8
+   run's), the same 8 requests one after another on the session engines,
+   every captured key's replay bit-equal to its eager step (outputs, head
+   logits, cache writes), the same 8 sessions over in-process TCP
+   (``TcpStageServer`` with no runtime, wire f32: tokens equal to the
+   in-process run's, the same gates; in every batched run the sessions
+   start decoding together, once each has its first token), and each
+   stage's round alone (device
+   ms at fills 1/2/4/8, the last stage's leader round and its syncs, top
+   kernels). Prints ``batched_path``.
+11. Batched CLI drive (after step 9): ``--mode registry``, 3 x ``--mode
+   serve --batched``, and two ``--mode client`` processes at once, whose
+   generations and ``TOKENS=`` ids must equal the in-process batched run's
+   for their prompts; prints ``batched_cli_path``.
+12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
+   ``sample_draw``; each matmul with its launches by route, the batched
+   path's launches, and its M = 8 layer) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -147,6 +182,7 @@ refuses to run without a CUDA device, and outside a checkout of the repo.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import gc
 import json
 import os
@@ -158,6 +194,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 PORT = "global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch"
@@ -165,6 +202,27 @@ MODEL = "llama-3.1-8b"
 PROMPTS = ("The quick brown fox jumps over", "Pipeline stages pass activations",
            "Sampling with a seed: once upon")
 MAX_NEW_TOKENS = 32
+# The batched path: `--mode serve --batched`'s defaults (slots a stage, KV
+# rows a slot), its 8 requests (the three above and five more prompts of
+# 30-32 bytes; 6 greedy, 2 sampled), and the rounds a stage may take beyond
+# one a decode step: sessions that finish their prefill apart decode alone
+# until they meet in a round, and a round that closes before a straggler
+# arrives starts another (at most two each, say, for 8 sessions).
+SLOTS = 8
+MAX_SESSION_LEN = 2048
+BATCH_PROMPTS = PROMPTS + ("Eight sessions share one round", "Slot caches keep every session",
+                           "A batched step serves them all", "Stage servers hand on hidden st",
+                           "Tokens come back in one read ok")
+BATCH_SAMPLED = (2, 7)   # indices of BATCH_PROMPTS sampled; the rest greedy
+ROUND_SLACK = 2 * SLOTS
+# The batched drives' clients share the card with the servers: each
+# client's stage-0 decode step runs after the others' (3-4.5 ms each with
+# its host work; scripts/torch_batched_rounds.py), so the last session
+# reaches stage 1 up to ~36 ms after the first at 8 sessions, and the
+# default 3 ms window splits them into 2-3 rounds a step. Stage 1's window
+# covers that spread (STAGE0_STEP_S a session); stages 2 and 3 keep the
+# default, since one round releases its sessions to them together.
+STAGE0_STEP_S = 0.005
 # (site, K, N) of llama-3.1-8b's four projection launches per layer after the
 # executor's fusion: wqkv = wq|wk|wv, wgu = wg|wu.
 SITES = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("wgu", 4096, 28672),
@@ -173,6 +231,10 @@ SITES = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("wgu", 4096, 28672),
 # tensor-core FLOP/s, the rate of the kernel's input type.
 PEAKS = (("H200", 4.8e12, 989e12), ("H100 NVL", 3.9e12, 835e12),
          ("H100 PCIe", 2.0e12, 756e12), ("H100", 3.35e12, 989e12))
+# Published float32 FLOP/s outside the tensor cores (data sheets), the rate
+# of a float32-x call's operations.
+F32_PEAKS = (("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12),
+             ("H100", 67e12))
 BF16_TOL = 2.0 ** -7   # max|kernel - plain| <= BF16_TOL * max|plain|: one
 #                        bf16 ulp at the output's scale (sums in other orders)
 F32_TOL = 1e-5         # float32 activations, relative to max|plain|
@@ -262,6 +324,10 @@ def peaks_for(name: str):
     raise RuntimeError(f"no published peaks for {name!r}")
 
 
+def f32_peak_for(name: str) -> float:
+    return next(flops for key, flops in F32_PEAKS if key in name)
+
+
 def build_kernels(modules) -> float:
     """Build every kernel at once, one nvcc per source."""
     from importlib import import_module
@@ -348,7 +414,7 @@ def int8_bytes(m: int, k: int, n: int, xsize: int) -> int:
 
 
 def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
-               flops: float, flush):
+               flops: float, flush, f32_flops: float):
     """int8_dot at every main-path shape: agreement and times, each row with
     its route (decode M = 1 and 2 on "gemv"); float32 x at M = 1 and 2 on
     "gemv" (F32_TOL) and at M = 16 on "simt"; two launches of the decode
@@ -359,13 +425,14 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
     cluster size at M = 1 (the plan scan behind `_gemv_plan`); ragged shapes of
     every route and an x view at an offset on the tensor-core and the
     decode routes; and the crossover scan of the three kernels at M = 1..8
-    on wgu and wd. Returns (rows, scan, decode, plans)."""
+    on wgu and wd; the batched regime, M = SLOTS in float32 and bf16
+    (`batch_rows`). Returns (rows, scan, decode, plans, batch)."""
     from importlib import import_module
 
     quant = import_module(PORT + ".models.quant")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows, scan, decode, plans = [], [], [], []
+    rows, scan, decode, plans, batch = [], [], [], [], []
     ms = tuple(sorted({1, 2, 8, 16, prompt_len, prefill_m, 128, 512}))
     for site, k, n in SITES:
         w = int8_weight(torch, quant, gen, dev, k, n)
@@ -393,6 +460,13 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
             int8_bytes, -(-k // ik.GEMV_ROWS), gen, dev, bw, flush)
         decode += rows_1
         plans.append(point)
+        batch += batch_rows(
+            torch, "int8_dot", ik, site, k, n, lambda x: ik.int8_dot(x, w),
+            lambda x: ik.int8_dot_reference(x, q, s),
+            {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
+             torch.float32: lambda x: torch.matmul(x, q32) * s},
+            int8_bytes, gen, dev, bw, {torch.float32: f32_flops, torch.bfloat16: flops},
+            flush)
         del q32
         # The decode kernel's plan depends on K alone: a fused weight's
         # columns and a part's alone (wq, wk of wq|wk|wv; wg of wg|wu, as a
@@ -474,7 +548,7 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
             f"max err {err:.3e}")
     log(f"int8_dot crossover: mma at least as fast from M={crossover(scan)} "
         f"(MMA_MIN_M = {ik.MMA_MIN_M})")
-    return rows, scan, decode, plans
+    return rows, scan, decode, plans, batch
 
 
 def decode_checks(torch, name, mod, site, k, n, dot, launch, plain, yardsticks,
@@ -537,6 +611,35 @@ def decode_checks(torch, name, mod, site, k, n, dot, launch, plain, yardsticks,
     return rows, point
 
 
+def batch_rows(torch, name, mod, site, k, n, dot, plain, yardsticks, nbytes, gen,
+               dev, bw, flops, flush):
+    """The batched engine's regime at one site: M = SLOTS rows (every slot
+    of a round), float32 x (stages 1-3: the "simt" route) and bf16 x (the
+    tensor cores), each held to the plain version (F32_TOL / BF16_TOL) and
+    timed beside the plain version and the library yardstick
+    (``yardsticks[dtype](x)``); the bound takes the operations at the rate
+    of x's type (`flops[dtype]`)."""
+    rows = []
+    for dtype, xsize in ((torch.float32, 4), (torch.bfloat16, 2)):
+        x = torch.randn((SLOTS, k), generator=gen, device=dev).to(dtype)
+        ref, y = plain(x), dot(x)
+        err = (check_f32(name, f"{site} M={SLOTS}", y, ref) if dtype == torch.float32
+               else check_bf16(torch, name, f"{site} M={SLOTS}", x, y, ref))
+        nb, ops = nbytes(SLOTS, k, n, xsize), 2 * SLOTS * k * n
+        rows.append({"site": site, "M": SLOTS, "K": k, "N": n,
+                     "dtype": str(dtype).replace("torch.", ""),
+                     "route": mod._route(SLOTS, k, n, dtype), "max_abs_err": err,
+                     "ms": cuda_ms(lambda: dot(x), torch, flush=flush),
+                     "plain_ms": cuda_ms(lambda: plain(x), torch, flush=flush),
+                     "library_ms": cuda_ms(lambda: yardsticks[dtype](x), torch, flush=flush),
+                     "bytes": nb, "bound_ms": max(nb / bw, ops / flops[dtype]) * 1e3,
+                     "bound_by": "bytes" if nb / bw >= ops / flops[dtype] else "operations"})
+    log(f"{name} {site} M={SLOTS}: float32 ({rows[0]['route']}) {rows[0]['ms']:.4f} ms, "
+        f"bf16 ({rows[1]['route']}) {rows[1]['ms']:.4f} ms; library {rows[0]['library_ms']:.4f}"
+        f" / {rows[1]['library_ms']:.4f}")
+    return rows
+
+
 def scan_routes(torch, name, site, k, gen, dev, launch, plain, flush,
                 routes=("simt", "mma"), ms=range(1, 17), takes=lambda route, m: True):
     """The kernels of `name` (``launch(x, route)``) at each M of `ms` (each
@@ -576,7 +679,7 @@ def nf4_bytes(m: int, k: int, n: int, xsize: int) -> int:
 
 
 def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
-              flops: float, flush):
+              flops: float, flush, f32_flops: float):
     """nf4_dot at every main-path shape, on weights quantized by the port's
     own NF4 quantizer: agreement and times, each row with its route
     (decode M = 1 and 2 on "gemv"); float32 x at M = 1 and 2 on "gemv"
@@ -585,14 +688,15 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
     CUDA-core kernel ("simt") and the library at every site in both dtypes
     (`decode` rows); the decode kernel at every cluster size at M = 1 (the
     plan scan behind `_gemv_plan`); ragged shapes of every route; and the
-    crossover scan of the three kernels at M = 1..4 on wgu and wd. Returns
-    (rows, scan, decode, plans)."""
+    crossover scan of the three kernels at M = 1..4 on wgu and wd; the
+    batched regime, M = SLOTS in float32 and bf16 (`batch_rows`). Returns
+    (rows, scan, decode, plans, batch)."""
     from importlib import import_module
 
     quant = import_module(PORT + ".models.quant")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    rows, scan, decode, plans = [], [], [], []
+    rows, scan, decode, plans, batch = [], [], [], [], []
     ms = tuple(sorted({1, 2, 8, 16, prompt_len, prefill_m, 128, 512}))
     for site, k, n in SITES:
         w = nf4_weight(torch, quant, gen, dev, k, n)
@@ -619,6 +723,13 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
             nf4_bytes, -(-k // 64), gen, dev, bw, flush)
         decode += rows_1
         plans.append(point)
+        batch += batch_rows(
+            torch, "nf4_dot", nk, site, k, n, lambda x: nk.nf4_dot(x, w),
+            lambda x: nk.nf4_dot_reference(x, w),
+            {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
+             torch.float32: lambda x: torch.matmul(x, w_deq32)},
+            nf4_bytes, gen, dev, bw, {torch.float32: f32_flops, torch.bfloat16: flops},
+            flush)
         if site == "wgu":                            # a ragged M, tensor cores
             x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
             assert nk._route(33, k, n, x.dtype) == "mma"
@@ -655,7 +766,7 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
         log(f"nf4_dot ragged K={k} N={n} M={m} {dtype} ({want}): max err {err:.3e}")
     log(f"nf4_dot crossover: mma at least as fast from M={crossover(scan)} "
         f"(MMA_MIN_M = {nk.MMA_MIN_M})")
-    return rows, scan, decode, plans
+    return rows, scan, decode, plans, batch
 
 
 def host_ms(fn, torch, reps: int = 30) -> float:
@@ -748,7 +859,7 @@ def sampler_phase(torch, vocab: int):
     probs = samp.sample_probs(logits, recent, *knobs)
     logp = torch.log(torch.clamp(probs, min=1e-20))
     key = tf3.prng_key(0)
-    entry = sampler._graphs[(1, vocab)]
+    entry = sampler._graphs[(False, 1, vocab)]
     out = {"vocab": vocab, "rows_checked": checked, "captures": sampler.captures,
            "tokens_equal_eager": True}
     for what, fn in {
@@ -1991,18 +2102,14 @@ def _stderr_tail(path: pathlib.Path, n: int = 30) -> str:
     return "\n".join(path.read_text(errors="replace").splitlines()[-n:])
 
 
-def cli_drive(torch, tok, int8_state, smi: str):
+def cli_drive(torch, tok, wants, smi: str, serve_argv=()):
     """The port's swarm as processes on the card: a registry, three stage
-    servers (int8, bfloat16, seed 0, wire f32) and a client with the first
-    greedy prompt, started one after another. Each server computes what
-    arrives in float32 (``serve`` casts nothing), so the client's printed
-    generation and its ``TOKENS=`` ids must equal the in-process int8
-    float32-after-stage-0 chain's (`f32_chain`). Returns the cli_path
-    summary."""
-    want = int8_state["f32_chain_results"][0]
-    sp = int8_state["requests"][0][1]
-    expect = (f"=== Generation ({len(want.tokens)} tokens, stopped by "
-              f"{want.stopped_by}) ===\n{tok.decode(want.tokens)}\n")
+    servers (int8, bfloat16, seed 0, wire f32, and `serve_argv`) and one
+    client a `wants` entry (prompt, the in-process result its tokens must
+    equal, its sampling), the clients run at once. Each server computes
+    what arrives in float32 (``serve`` casts nothing), so each client's
+    printed generation and its ``TOKENS=`` ids must equal its in-process
+    run's over float32 hops. Returns the summary."""
     main = [sys.executable, "-m", PORT + ".main"]
     model_args = ["--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
                   "--seed", "0", "--device", "cuda", "--wire_dtype", "f32"]
@@ -2029,7 +2136,7 @@ def cli_drive(torch, tok, int8_state, smi: str):
                 t0 = time.monotonic()
                 proc, out = spawn(f"stage{k}", ["--mode", "serve", "--stage", str(k),
                                                 "--registry_addr", addr, "--rpc_port", "0",
-                                                *model_args])
+                                                *model_args, *serve_argv])
                 line = _wait_line(proc, out, "SERVING ", f"stage {k} server")
                 # Printed before the SERVING line.
                 peak = re.search(r"PEAK_MEMORY_BYTES=(\d+)", out.read_text())
@@ -2037,40 +2144,49 @@ def cli_drive(torch, tok, int8_state, smi: str):
                 start_s[f"stage{k}"] = time.monotonic() - t0
                 log(f"cli: {line} ({start_s[f'stage{k}']:.1f}s)")
             t0 = time.monotonic()
-            client = subprocess.run(
-                main + ["--mode", "client", "--registry_addr", addr, *model_args,
-                        "--prompt", PROMPTS[0], "--max_new_tokens", str(MAX_NEW_TOKENS),
-                        "--temperature", str(sp.temperature), "--top_p", str(sp.top_p),
-                        "--top_k", str(sp.top_k),
-                        "--repetition_penalty", str(sp.repetition_penalty)],
-                capture_output=True, env=env, timeout=CLI_STEP_TIMEOUT_S,
-                cwd=str(LOG_PATH.parents[1]))
+            clients = []
+            for i, (prompt, _, sp) in enumerate(wants):
+                proc, out = spawn(f"client{i}", [
+                    "--mode", "client", "--registry_addr", addr, *model_args,
+                    "--prompt", prompt, "--max_new_tokens", str(MAX_NEW_TOKENS),
+                    "--temperature", str(sp.temperature), "--top_p", str(sp.top_p),
+                    "--top_k", str(sp.top_k),
+                    "--repetition_penalty", str(sp.repetition_penalty)])
+                clients.append((proc, out))
+            ttft, tps = [], []
+            for i, ((proc, out), (prompt, want, _)) in enumerate(zip(clients, wants)):
+                code = proc.wait(timeout=CLI_STEP_TIMEOUT_S)
+                # Bytes decoded as they are: a generation may hold a "\r",
+                # which a text read would turn into a newline.
+                stdout = out.read_bytes().decode("utf-8", errors="replace")
+                if code != 0:
+                    raise AssertionError(f"client {i} exited {code}:\n"
+                                         + _stderr_tail(procs[4 + i][2], 60))
+                expect = (f"=== Generation ({len(want.tokens)} tokens, stopped by "
+                          f"{want.stopped_by}) ===\n{tok.decode(want.tokens)}\n")
+                if expect not in stdout:
+                    raise AssertionError(f"cli client {i} text differs from its in-process "
+                                         f"run's:\n{stdout}\nwant:\n{expect}")
+                ids = re.search(r"^TOKENS=(\[[0-9, ]*\])$", stdout, re.M)
+                if ids is None or json.loads(ids.group(1)) != want.tokens:
+                    raise AssertionError(f"cli client {i} token ids differ from its "
+                                         f"in-process run's:\n{ids and ids.group(1)}\n"
+                                         f"want:\n{want.tokens}")
+                ttft.append(float(re.search(r"TTFT: ([0-9.]+)s", stdout).group(1)))
+                tps.append(float(re.search(r"Decode: [0-9.]+s total, ([0-9.]+) tokens/s",
+                                           stdout).group(1)))
+                peak = re.search(MEMORY_LINE, stdout)
+                peaks[f"client{i}"] = peak and int(peak.group(1))
+                held[f"client{i}"] = peak and int(peak.group(2))
+                reserved[f"client{i}"] = peak and int(peak.group(3))
             client_s = time.monotonic() - t0
-            stdout = client.stdout.decode("utf-8", errors="replace")
-            if client.returncode != 0:
-                raise AssertionError(f"client exited {client.returncode}:\n"
-                                     + client.stderr.decode(errors="replace")[-3000:])
-            if expect not in stdout:
-                raise AssertionError(f"cli client text differs from the in-process "
-                                     f"float32 chain's:\n{stdout}\nwant:\n{expect}")
-            ids = re.search(r"^TOKENS=(\[[0-9, ]*\])$", stdout, re.M)
-            if ids is None or json.loads(ids.group(1)) != want.tokens:
-                raise AssertionError(f"cli client token ids differ from the in-process "
-                                     f"float32 chain's:\n{ids and ids.group(1)}\nwant:\n"
-                                     f"{want.tokens}")
-            log(f"cli: client text and token ids equal the in-process int8 float32 "
-                f"chain's ({len(want.tokens)} tokens, {client_s:.1f}s with set-up)")
-            ttft = float(re.search(r"TTFT: ([0-9.]+)s", stdout).group(1))
-            tps = float(re.search(r"Decode: [0-9.]+s total, ([0-9.]+) tokens/s",
-                                  stdout).group(1))
-            peak = re.search(MEMORY_LINE, stdout)
-            peaks["client"] = peak and int(peak.group(1))
-            held["client"] = peak and int(peak.group(2))
-            reserved["client"] = peak and int(peak.group(3))
+            log(f"cli: every client's text and token ids equal its in-process run's "
+                f"({len(wants)} clients at once, {client_s:.1f}s with set-up)")
             # A server prints its peak again when SIGINT stops it.
-            for what, proc, _ in procs[1:]:
+            servers = procs[1:4]
+            for what, proc, _ in servers:
                 proc.send_signal(signal.SIGINT)
-            for what, proc, _ in procs[1:]:
+            for what, proc, _ in servers:
                 proc.wait(timeout=CLI_STEP_TIMEOUT_S)
                 last = re.findall(MEMORY_LINE, (tmp / f"{what}.out").read_text())
                 peaks[f"{what}_after_request"] = (int(last[-1][0]) if len(last) == 2
@@ -2081,18 +2197,21 @@ def cli_drive(torch, tok, int8_state, smi: str):
             if missing:
                 raise AssertionError(f"cli: no peak device memory from {missing}")
             summary = {"model": MODEL, "quant": "int8", "wire_dtype": "f32",
-                       "processes": 5, "prompt": PROMPTS[0],
-                       "tokens": len(want.tokens), "text_equal_f32_chain": True,
-                       "ttft_ms_printed": ttft * 1e3,
-                       "decode_ms_per_token_mean_printed": 1e3 / tps if tps else None,
+                       "serve_argv": list(serve_argv), "processes": 4 + len(wants),
+                       "prompts": [w[0] for w in wants],
+                       "tokens": [len(w[1].tokens) for w in wants],
+                       "text_equal_in_process": True,
+                       "ttft_ms_printed": [t * 1e3 for t in ttft],
+                       "decode_ms_per_token_mean_printed": [1e3 / t if t else None
+                                                            for t in tps],
                        "peak_memory_gb": {k: v / 1e9 for k, v in peaks.items()},
                        "held_memory_gb": {k: v and v / 1e9 for k, v in held.items()},
                        "reserved_memory_gb": {k: v and v / 1e9
                                               for k, v in reserved.items()},
                        "start_s": start_s, "client_run_s": client_s, "card": smi}
-            log(f"cli: ttft {ttft * 1e3:.0f} ms, decode "
-                f"{summary['decode_ms_per_token_mean_printed']:.2f} ms/token (mean, "
-                f"printed); peaks GB {summary['peak_memory_gb']}; held GB "
+            log(f"cli: ttft {[round(t * 1e3) for t in ttft]} ms, decode "
+                f"{[round(v, 2) for v in summary['decode_ms_per_token_mean_printed']]} "
+                f"ms/token (mean, printed); peaks GB {summary['peak_memory_gb']}; held GB "
                 f"{summary['held_memory_gb']}; reserved GB "
                 f"{summary['reserved_memory_gb']}")
             return summary
@@ -2105,6 +2224,442 @@ def cli_drive(torch, tok, int8_state, smi: str):
                 proc.kill()
             for _, proc, _ in procs:
                 proc.wait(timeout=60)
+
+
+class Observed:
+    """Stands in for one of an adapter's histogram handles (round fills,
+    round seconds, queue waits): keeps what it observes."""
+
+    def __init__(self):
+        self.values = []
+
+    def observe(self, value):
+        self.values.append(value)
+
+
+def float32_hops():
+    """A LocalTransport that hands each hop its activation in float32, as
+    a TCP hop at wire f32 does."""
+    from importlib import import_module
+
+    transport_mod = import_module(PORT + ".runtime.transport")
+
+    class Float32Hops(transport_mod.LocalTransport):
+        def call(self, peer_id, request, timeout=None):
+            if request.hidden is not None and request.hidden.is_floating_point():
+                request = dataclasses.replace(request, hidden=request.hidden.float())
+            return super().call(peer_id, request, timeout)
+
+    return Float32Hops()
+
+
+def observe_fills(adapters) -> None:
+    for a in adapters:
+        a._m_fill = Observed()
+
+
+def stage1_window(adapters, sessions: int) -> None:
+    """Stage 1's round window for `sessions` clients on this card (see
+    STAGE0_STEP_S); stages 2 and 3 keep the default."""
+    adapters[0].window_s = max(adapters[-1].window_s, sessions * STAGE0_STEP_S)
+
+
+def batched_requests(tok, sampling_cls, cfg):
+    """The batched path's 8 requests: (prompt ids, sampling) each."""
+    greedy = sampling_cls(temperature=0.0)
+    sampled = sampling_cls(temperature=0.7, top_p=0.9, top_k=50, repetition_penalty=1.5)
+    return [([i % cfg.vocab_size for i in tok.encode(p)],
+             sampled if j in BATCH_SAMPLED else greedy)
+            for j, p in enumerate(BATCH_PROMPTS)]
+
+
+def batched_engines(torch, tmain, state):
+    """Stages 1-3 of the int8 path as `--mode serve --batched` builds them:
+    batched engines (bfloat16 slot caches, SLOTS slots of MAX_SESSION_LEN
+    rows) behind adapters with the default round window, each warmed up.
+    Returns (adapters, warm-up seconds a stage)."""
+    from importlib import import_module
+
+    batching = import_module(PORT + ".runtime.batching")
+    args, cfg, params = state["args"], state["cfg"], state["params"]
+    adapters, warm_s = [], {}
+    for spec in state["client"].plan.stages[1:]:
+        engine = batching.BatchedStageExecutor(
+            cfg, spec, tmain._stage_params(args, cfg, params, spec), device="cuda",
+            slots=SLOTS, max_len=MAX_SESSION_LEN, dtype=torch.bfloat16)
+        adapter = batching.BatchingStageAdapter(engine, peer_id=f"batched-stage{spec.index}")
+        t0 = time.monotonic()
+        adapter.warmup()
+        torch.cuda.synchronize()
+        warm_s[adapter.peer_id] = time.monotonic() - t0
+        adapters.append(adapter)
+    log(f"batched: stages 1-3 engines, {SLOTS} slots x {MAX_SESSION_LEN} rows, warm-up "
+        f"{ {k: round(v, 2) for k, v in warm_s.items()} } s, "
+        f"{[a.inner.graphs.captures for a in adapters]} step captures")
+    return adapters, warm_s
+
+
+def stage0_executors(torch, tmain, state, n: int):
+    """`n` stage-0 executors, one a client (each `--mode client` process has
+    its own), on one fused copy of stage 0's weights, each warmed up with a
+    prefill and a step of the batched prompts' shape: their captures happen
+    before the clients run at once."""
+    from importlib import import_module
+
+    executor_mod = import_module(PORT + ".runtime.executor")
+    messages = import_module(PORT + ".runtime.messages")
+    transformer = import_module(PORT + ".models.transformer")
+    args, cfg = state["args"], state["cfg"]
+    spec = state["client"].plan.stages[0]
+    shard = transformer.fuse_qkv_params(tmain._stage_params(args, cfg, state["params"], spec))
+    out = []
+    for i in range(n):
+        ex = executor_mod.StageExecutor(cfg, spec, shard, peer_id=f"batched-client{i}",
+                                        device="cuda", act_dtype=torch.bfloat16)
+        for t, cur in ((32, 0), (1, 32)):
+            ex.forward(messages.StageRequest(
+                session_id="__warmup__", hidden=torch.zeros((1, t), dtype=torch.int64),
+                seq_len=t, cur_len=cur, is_prefill=cur == 0, max_length=32 + MAX_NEW_TOKENS))
+        ex.drop_session("__warmup__")
+        out.append(ex)
+    return out
+
+
+def run_clients(jobs):
+    """Each (client, ids, sampling) job on a thread of its own, released
+    together; the sessions start decoding together, once every one has its
+    first token (requests admitted as one batch: sessions whose prefills
+    end apart would decode a step or more apart, and two groups of them
+    can then alternate rounds for the whole run). Returns (results, wall
+    seconds from the release to the last end)."""
+    barrier = threading.Barrier(len(jobs) + 1)
+    prefilled = threading.Barrier(len(jobs))
+    results, errors = [None] * len(jobs), []
+
+    def run(i):
+        client, ids, sp = jobs[i]
+        barrier.wait(timeout=60)
+        try:
+            steps = client.generate_stepwise(ids, MAX_NEW_TOKENS, sampling=sp)
+            next(steps)                                 # prefill, first token
+            prefilled.wait(timeout=CLI_STEP_TIMEOUT_S)
+            for step in steps:          # to its end, which ends the session
+                if step.done:
+                    results[i] = step.result
+        except BaseException as exc:  # raised below, in the caller's thread
+            errors.append(exc)
+            prefilled.abort()
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    barrier.wait(timeout=60)
+    t0 = time.monotonic()
+    for t in threads:
+        t.join(timeout=CLI_STEP_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a batched client did not finish")
+    return results, wall
+
+
+def batched_counts(kernels, adapters, stage0s) -> None:
+    """Every kernel count and every graph and sampler counter of the
+    batched path to 0."""
+    reset_counts(kernels, stage0s)
+    for a in adapters:
+        a.inner.graphs.captures = a.inner.graphs.replays = 0
+        a.inner.sampler.captures = a.inner.sampler.replays = 0
+
+
+def batched_gates(what: str, kernels, cfg, adapters, stage0s, results, requests,
+                  rounds_before) -> dict:
+    """Gates of one batched run (counts set to 0 just before it): no
+    capture anywhere (every shape was warmed up); each stage's rounds at
+    most MAX_NEW_TOKENS - 1 + ROUND_SLACK; int8_dot launches by route
+    (stage 0's prefill on the tensor cores and its decode on the decode
+    kernel, one each a site, layer and token; stages 1-3 on the CUDA-core
+    route, one a site and layer for each prefill and each round); one
+    sample_draw a sampled token at least."""
+    ik = kernels["int8_dot"]
+    rounds = {a.peer_id: a.inner.decode_steps - rounds_before[a.peer_id] for a in adapters}
+    captures = (sum(a.inner.graphs.captures + a.inner.sampler.captures for a in adapters)
+                + sum(ex.graphs.captures + ex.sampler.captures for ex in stage0s))
+    tokens = sum(len(r.tokens) for r in results)
+    decode_tokens = tokens - len(results)
+    simt = ik._launches - ik._launches_mma - ik._launches_gemv
+    layers0 = stage0s[0].spec.num_layers
+    need = {"mma": 4 * layers0 * len(results), "gemv": 4 * layers0 * decode_tokens,
+            "simt": sum(4 * a.spec.num_layers * (len(results) + rounds[a.peer_id])
+                        for a in adapters)}
+    got = {"mma": ik._launches_mma, "gemv": ik._launches_gemv, "simt": simt}
+    sampled = sum(len(r.tokens) for r, (_, sp) in zip(results, requests) if not sp.greedy)
+    draws = kernels["sample_draw"]._launches
+    limit = MAX_NEW_TOKENS - 1 + ROUND_SLACK
+    log(f"{what}: {tokens} tokens over {len(results)} sessions; rounds a stage {rounds} "
+        f"(<= {limit}; one session a round would take {decode_tokens}); int8_dot "
+        f"launches by route {got} (want >= {need}); captures {captures}; sample_draw "
+        f"{draws} (>= {sampled} sampled tokens)")
+    if captures:
+        raise AssertionError(f"{what}: {captures} captures after warm-up")
+    if any(r > limit for r in rounds.values()):
+        raise AssertionError(f"{what}: rounds {rounds}, want <= {limit} a stage")
+    if any(got[k] < need[k] for k in need):
+        raise AssertionError(f"{what}: int8_dot launches {got}, want >= {need}")
+    if draws < sampled:
+        raise AssertionError(f"{what}: {draws} sample_draw launches for {sampled} "
+                             "sampled tokens")
+    return {"rounds": rounds, "round_limit": limit,
+            "fills": {a.peer_id: list(a._m_fill.values) for a in adapters},
+            "int8_dot_launches": ik._launches,
+            "int8_dot_launches_by_route": got, "sample_draw_launches": draws,
+            "captures_after_warmup": captures}
+
+
+def batched_capture_check(torch, adapters) -> dict:
+    """For every key each batched engine captured: one replay of its graph
+    and its step run eagerly on the same static inputs, each from a copy
+    of the same caches. Outputs (and the head's logits on the last stage)
+    and cache writes must be bit-equal."""
+    keys = 0
+    for a in adapters:
+        eng = a.inner
+        for key, entry in eng.graphs.entries():
+            step = eng._decode_step if key[0] == "decode" else eng._prefill_step
+            k0, v0 = eng.k.clone(), eng.v.clone()
+            entry.graph.replay()
+            out = entry.graph.out
+            got = [t.clone() for t in (out if isinstance(out, tuple) else (out,))]
+            kr, vr = eng.k.clone(), eng.v.clone()
+            eng.k.copy_(k0)
+            eng.v.copy_(v0)
+            eager = step(entry.x, entry.scalars.tensor)
+            eager = eager if isinstance(eager, tuple) else (eager,)
+            torch.cuda.synchronize()
+            ok = (all(torch.equal(g, e) for g, e in zip(got, eager))
+                  and torch.equal(eng.k, kr) and torch.equal(eng.v, vr))
+            eng.k.copy_(k0)
+            eng.v.copy_(v0)
+            if not ok:
+                err = max((g.float() - e.float()).abs().max().item()
+                          for g, e in zip(got, eager))
+                raise AssertionError(f"batched {a.peer_id} key {key}: replay differs "
+                                     f"from the eager step (max err {err})")
+            keys += 1
+    log(f"batched capture: replay bit-equal to the eager step for all {keys} keys "
+        "(outputs, head logits and cache writes)")
+    return {"keys": keys, "bit_equal": True}
+
+
+def round_phase(torch, adapters, smi: str, reps: int = 10) -> dict:
+    """Each batched stage's decode round alone, SLOTS sessions of a 32-row
+    prompt in its slots: the device ms of one round (CUDA events, the
+    stream kept busy while the round is enqueued) at fills 1, 2, 4 and 8;
+    on the last stage the host ms of a round as its leader runs it (the
+    step and the argmax read of every row) at fill 8; the host syncs of
+    that round; and the top kernels of a round at fill 8 under
+    torch.profiler."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    out = {"card": smi}
+    for a in adapters:
+        eng = a.inner
+        d = eng.cfg.hidden_size
+        sids = [f"round{i}" for i in range(SLOTS)]
+        for sid in sids:
+            eng.prefill(sid, torch.randn((1, 32, d), generator=gen, device="cuda"))
+        rows = {sid: torch.randn((1, 1, d), generator=gen, device="cuda") for sid in sids}
+        stage = {}
+        for fill in (1, 2, 4, 8):
+            inputs = {sid: rows[sid] for sid in sids[:fill]}
+            stage[f"fill{fill}_device_ms"] = cuda_ms(lambda: eng.decode_batch(inputs),
+                                                     torch, reps=reps, spin=True)
+        full = {sid: rows[sid] for sid in sids}
+        if eng.spec.is_last:
+            greedy = {sid: _greedy_request() for sid in sids}
+
+            def leader_round():
+                eng.decode_batch(full)
+                return eng.sample_round(greedy)
+
+            stage["fill8_leader_host_ms"] = host_ms(leader_round, torch, reps=reps)
+            stage["fill8_host_syncs"] = count_syncs(torch, leader_round)
+        stage["fill8_top_kernels"] = replay_kernels(torch, lambda: eng.decode_batch(full),
+                                                    reps=3)
+        for sid in sids:
+            eng.end_session(sid)
+        out[a.peer_id] = stage
+        log(f"batched round {a.peer_id}: device ms at fills 1/2/4/8 "
+            f"{[round(stage[f'fill{f}_device_ms'], 3) for f in (1, 2, 4, 8)]}"
+            + (f", leader's round {stage['fill8_leader_host_ms']:.2f} ms host with "
+               f"{stage['fill8_host_syncs']} sync" if eng.spec.is_last else "")
+            + "; top kernels " + ", ".join(f"{k['name'][:40]} {k['ms']:.3f}"
+                                           for k in stage["fill8_top_kernels"][:4]))
+    return out
+
+
+def _greedy_request():
+    from importlib import import_module
+
+    messages = import_module(PORT + ".runtime.messages")
+    sampling = import_module(PORT + ".ops.sampling")
+    return messages.StageRequest(session_id="", hidden=None, seq_len=1, cur_len=0,
+                                 is_prefill=False, max_length=MAX_SESSION_LEN,
+                                 sampling=sampling.SamplingParams(temperature=0.0))
+
+
+def batched_run_view(results, wall: float, requests) -> dict:
+    tokens = sum(len(r.tokens) for r in results)
+    decode = [t for r in results for t in r.decode_times_s]
+    return {"sessions": len(results), "tokens": tokens, "wall_s": wall,
+            "aggregate_tokens_per_s": tokens / wall,
+            "per_session_ms_per_token": 1e3 * statistics.median(decode),
+            **greedy_and_sampled_ms(results, requests),
+            "ttft_ms": [r.ttft_s * 1e3 for r in results]}
+
+
+def batched_path(torch, kernels, tmain, sampling_cls, state, smi: str):
+    """Steps 10-11: the int8 path's stages 1-3 on batched engines. In
+    process over float32 hops: 8 concurrent clients, each request held to
+    its float32-cache reference, with the rounds, launch, capture and sync
+    gates; the fill scan (1, 2, 4, 8 sessions at once); the same 8
+    requests one after another on the session engines; every captured
+    key's replay against its eager step; the rounds alone. Then the same
+    engines behind TcpStageServers with no runtime, the 8 clients over
+    TcpTransport at wire f32: tokens equal to the in-process run's.
+    Returns (summary, the in-process results for the CLI drive)."""
+    from importlib import import_module
+
+    client_mod = import_module(PORT + ".runtime.client")
+    registry_mod = import_module(PORT + ".scheduling.registry")
+    net = import_module(PORT + ".runtime.net")
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    requests = batched_requests(tmain.load_tokenizer(), sampling_cls, cfg)
+    reqs = [(None, sp) for _, sp in requests]
+    refs = state["references"] + references(
+        torch, cfg, state["ref_params"], [ids for ids, _ in requests[3:]], reqs[3:], args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    adapters, warm_s = batched_engines(torch, tmain, state)
+    stage0s = stage0_executors(torch, tmain, state, SLOTS)
+    transport = float32_hops()
+    registry = registry_mod.PlacementRegistry()
+    for a in adapters:
+        transport.add_peer(a.peer_id, a)
+        registry.register(client_mod.make_server_record(a.peer_id, a.spec, model=MODEL,
+                                                        engine="batched"))
+    clients = [client_mod.PipelineClient(cfg, local.plan, ex, transport, registry,
+                                         seed=args.seed, model=MODEL) for ex in stage0s]
+    jobs = [(c, ids, sp) for c, (ids, sp) in zip(clients, requests)]
+    summary = {"model": MODEL, "quant": "int8", "slots": SLOTS,
+               "max_session_len": MAX_SESSION_LEN, "warmup_s": warm_s,
+               "window_ms": 1e3 * adapters[-1].window_s,
+               "stage1_window_ms_at_8": 1e3 * SLOTS * STAGE0_STEP_S, "card": smi}
+
+    batched_counts(kernels, adapters, stage0s)
+    observe_fills(adapters)
+    stage1_window(adapters, len(jobs))
+    before = {a.peer_id: a.inner.decode_steps for a in adapters}
+    box = {}
+    syncs = count_syncs(torch, lambda: box.setdefault("run", run_clients(jobs)))
+    results, wall = box["run"]
+    torch.cuda.synchronize()
+    summary["in_process"] = {
+        **batched_run_view(results, wall, reqs),
+        **batched_gates("batched in process", kernels, cfg, adapters, stage0s, results,
+                        reqs, before),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "held_memory_gb": torch.cuda.memory_allocated() / 1e9,
+        "reserved_memory_gb": torch.cuda.memory_reserved() / 1e9}
+    last_rounds = summary["in_process"]["rounds"][adapters[-1].peer_id]
+    summary["in_process"]["host_syncs"] = syncs
+    summary["in_process"]["host_syncs_per_round"] = (syncs - len(results)) / last_rounds
+    log(f"batched in process: {syncs} host syncs for {len(results)} prefills and "
+        f"{last_rounds} rounds of the last stage")
+    if syncs > len(results) + last_rounds:
+        raise AssertionError(f"batched: {syncs} host syncs, want <= one a prefill and "
+                             "one a round")
+    hold_requests(torch, cfg, state["ref_params"], refs, results, "batched in process")
+    v = summary["in_process"]
+    log(f"batched in process: {v['tokens']} tokens in {wall:.2f}s, "
+        f"{v['aggregate_tokens_per_s']:.1f} tokens/s, {v['per_session_ms_per_token']:.2f} "
+        f"ms/token a session; peak / held / reserved GB {v['peak_memory_gb']:.2f} / "
+        f"{v['held_memory_gb']:.2f} / {v['reserved_memory_gb']:.2f}")
+
+    scan = {}
+    for fill in (1, 2, 4, 8):
+        stage1_window(adapters, fill)
+        before = {a.peer_id: a.inner.decode_steps for a in adapters}
+        got, wall_f = run_clients(jobs[:fill])
+        scan[fill] = {**batched_run_view(got, wall_f, reqs[:fill]),
+                      "stage1_window_ms": 1e3 * adapters[0].window_s,
+                      "rounds": {a.peer_id: a.inner.decode_steps - before[a.peer_id]
+                                 for a in adapters}}
+        for r, want in zip(got, results):
+            if r.tokens != want.tokens:
+                raise AssertionError(f"batched fill {fill}: tokens differ from the fill-8 "
+                                     f"run's:\n  {r.tokens}\n  {want.tokens}")
+        log(f"batched fill {fill}: {scan[fill]['per_session_ms_per_token']:.2f} ms a round "
+            f"(client decode ms/token), {scan[fill]['aggregate_tokens_per_s']:.1f} tokens/s "
+            f"in all, rounds {scan[fill]['rounds']}")
+    summary["fill_scan"] = scan
+
+    t0 = time.monotonic()
+    session = [local.generate(ids, MAX_NEW_TOKENS, sampling=sp) for ids, sp in requests]
+    summary["session_engine_one_after_another"] = batched_run_view(
+        session, time.monotonic() - t0, reqs)
+    log(f"session engine, the 8 requests one after another: "
+        f"{summary['session_engine_one_after_another']['aggregate_tokens_per_s']:.1f} "
+        f"tokens/s, {summary['session_engine_one_after_another']['per_session_ms_per_token']:.2f}"
+        " ms/token")
+    summary["capture"] = batched_capture_check(torch, adapters)
+
+    registry_srv = net.RegistryServer()
+    registry_srv.start()
+    servers, transports = [], []
+    try:
+        for a in adapters:
+            srv = net.TcpStageServer(a, None, wire_dtype="f32", model=MODEL)
+            srv.start()
+            servers.append(srv)
+            rec = client_mod.make_server_record(a.peer_id, a.spec, model=MODEL,
+                                                engine="batched")
+            rec.address = srv.address
+            registry_srv.registry.register(rec)
+        tcp_jobs = []
+        for ex, (ids, sp) in zip(stage0s, requests):
+            remote = net.RemoteRegistry(registry_srv.address)
+            tx = net.TcpTransport(remote, wire_dtype="f32", model=MODEL)
+            transports.append(tx)
+            tcp_jobs.append((client_mod.PipelineClient(cfg, local.plan, ex, tx, remote,
+                                                       seed=args.seed, model=MODEL), ids, sp))
+        batched_counts(kernels, adapters, stage0s)
+        observe_fills(adapters)
+        stage1_window(adapters, len(tcp_jobs))
+        before = {a.peer_id: a.inner.decode_steps for a in adapters}
+        got, wall = run_clients(tcp_jobs)
+        torch.cuda.synchronize()
+        summary["tcp"] = {**batched_run_view(got, wall, reqs),
+                          **batched_gates("batched tcp", kernels, cfg, adapters, stage0s,
+                                          got, reqs, before)}
+        for r, want in zip(got, results):
+            if r.tokens != want.tokens:
+                raise AssertionError(f"batched tcp: tokens differ from the in-process "
+                                     f"batched run's:\n  {r.tokens}\n  {want.tokens}")
+        log(f"batched tcp: tokens of all {len(got)} sessions equal the in-process run's; "
+            f"{summary['tcp']['aggregate_tokens_per_s']:.1f} tokens/s, "
+            f"{summary['tcp']['per_session_ms_per_token']:.2f} ms/token a session")
+    finally:
+        for tx in transports:
+            tx.close()
+        for srv in servers:
+            srv.stop()
+        registry_srv.stop()
+    summary["rounds_alone"] = round_phase(torch, adapters, smi)
+    return summary, results
 
 
 def oracle_logits(torch, cfg, params, ids):
@@ -2139,7 +2694,7 @@ def decode_layer(rows):
     return {key: sum(r[key] for r in rows) for key in keys}
 
 
-def kernel_entry(name: str, rows, summary, prefill_m: int, decode):
+def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batched):
     """One kernel of the ``kernels`` line: one decode layer's four sites at
     M = 1 summed, and one prefill layer (M = prefill_m, the prompt padded to
     its sequence bucket, as the executors run it) under ``prefill``; the
@@ -2167,10 +2722,21 @@ def kernel_entry(name: str, rows, summary, prefill_m: int, decode):
     entry["decode_float32"] = {
         "at": "one decode layer: wqkv+wo+wgu+wd at M=1, float32 x, L2 cold",
         **decode_layer([r for r in decode if r["dtype"] == "float32"])}
+    # The batched regime: every slot of a round, M = SLOTS.
+    for dtype in ("float32", "bfloat16"):
+        rows_b = [r for r in batch if r["dtype"] == dtype]
+        entry[f"batched_{dtype}"] = {
+            "at": f"one batched round's layer: wqkv+wo+wgu+wd at M={SLOTS}, {dtype} x, "
+                  "L2 cold", "route": "+".join(sorted({r["route"] for r in rows_b})),
+            **layer_sum(rows_b)}
+    if batched is not None:
+        # The batched path's own run (counts set to 0 just before it).
+        entry["launches_batched_path"] = batched["int8_dot_launches"]
+        entry["launches_batched_path_by_route"] = batched["int8_dot_launches_by_route"]
     return entry
 
 
-def draw_entry(draw, launches: int):
+def draw_entry(draw, launches: int, launches_batched: int):
     """sample_draw in the ``kernels`` line: one draw of one row at the 128k
     vocabulary, as the final stage runs it for each sampled token (B = 4
     under ``batch4``). ``max_abs_err`` is the measured max |noise - plain
@@ -2180,7 +2746,7 @@ def draw_entry(draw, launches: int):
             "source": f"{PORT}/csrc/sample_draw.cu",
             "replaces": "global_capstone_design_distributed_inference_of_llms_over_the_"
                         "internet_tpu/" + REPLACES["sample_draw"],
-            "launches": launches,
+            "launches": launches, "launches_batched_path": launches_batched,
             "at": "one draw, B=1, V=128256, float32 logp in L2",
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
@@ -2239,10 +2805,15 @@ def main(argv) -> int:
     prefill_m = import_module(PORT + ".runtime.kv_cache").round_to_bucket(
         prompt_len, import_module(PORT + ".runtime.executor").SEQ_BUCKETS)
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
-    int8_rows, int8_scan, int8_decode, int8_plans = int8_phase(
-        torch, ik, "cuda", prompt_len, prefill_m, bw, flops, flush)
-    nf4_rows, nf4_scan, nf4_decode, nf4_plans = nf4_phase(
-        torch, nk, "cuda", prompt_len, prefill_m, bw, flops, flush)
+    f32_flops = f32_peak_for(name)
+    int8_rows, int8_scan, int8_decode, int8_plans, int8_batch = int8_phase(
+        torch, ik, "cuda", prompt_len, prefill_m, bw, flops, flush, f32_flops)
+    nf4_rows, nf4_scan, nf4_decode, nf4_plans, nf4_batch = nf4_phase(
+        torch, nk, "cuda", prompt_len, prefill_m, bw, flops, flush, f32_flops)
+    for kname, batch in (("int8_dot", int8_batch), ("nf4_dot", nf4_batch)):
+        log(json.dumps({f"{kname}_batched": batch, f"{kname}_batched_per_layer": {
+            dtype: layer_sum([r for r in batch if r["dtype"] == dtype])
+            for dtype in ("float32", "bfloat16")}, "card": smi}))
     for kname, rows, scan in (("int8_dot", int8_rows, int8_scan),
                               ("nf4_dot", nf4_rows, nf4_scan)):
         log(json.dumps({f"{kname}_shapes": rows, "card": smi}))
@@ -2295,7 +2866,10 @@ def main(argv) -> int:
     oracle = oracle_phase(torch, tmain, sampling_cls, dk, state["cfg"], state["params"],
                           state["prompt_ids"][0], smi)
     log(json.dumps({"oracle": oracle}))
-    # What the CLI drive compares with; the weights go.
+    batched, batched_results = batched_path(torch, kernel_mods, tmain, sampling_cls,
+                                            state, smi)
+    log(json.dumps({"batched_path": batched}))
+    # What the CLI drives compare with; the weights go.
     int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
     # As under --telemetry: the client's metrics go to the global registry,
@@ -2313,12 +2887,24 @@ def main(argv) -> int:
     log(json.dumps({"tcp_path": tcp}))
     gc.collect()
     torch.cuda.empty_cache()
-    cli = cli_drive(torch, tmain.load_tokenizer(), int8_state, smi)
+    tok = tmain.load_tokenizer()
+    cli = cli_drive(torch, tok, [(PROMPTS[0], int8_state["f32_chain_results"][0],
+                                  int8_state["requests"][0][1])], smi)
     log(json.dumps({"cli_path": cli}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    greedy = sampling_cls(temperature=0.0)
+    batched["cli"] = cli_drive(torch, tok, [(PROMPTS[0], batched_results[0], greedy),
+                                            (PROMPTS[1], batched_results[1], greedy)],
+                               smi, serve_argv=("--batched",))
+    log(json.dumps({"batched_cli_path": batched["cli"]}))
 
-    kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m, int8_decode),
-               kernel_entry("nf4_dot", nf4_rows, nf4_summary, prefill_m, nf4_decode),
-               draw_entry(draw, int8_summary["sample_draw"]["launches"])]
+    kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m, int8_decode,
+                            int8_batch, batched["in_process"]),
+               kernel_entry("nf4_dot", nf4_rows, nf4_summary, prefill_m, nf4_decode,
+                            nf4_batch, None),
+               draw_entry(draw, int8_summary["sample_draw"]["launches"],
+                          batched["in_process"]["sample_draw_launches"])]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -23,6 +23,13 @@ Port of the JAX package's ``main.py`` for these modes:
     stage's executor behind a ``StageRuntime`` and a ``TcpStageServer``,
     registered at ``--registry_addr`` with a heartbeat every TTL/3 and the
     next hops' RTTs; prints ``SERVING stage=K span=[a,b) addr=... peer=...``.
+    With ``--batched`` the stage runs the slot-batched engine
+    (``runtime/batching.py``: ``--slots`` sessions of up to
+    ``--max_session_len`` tokens, one captured decode round for every live
+    session) behind a ``BatchingStageAdapter``, with compute inline on the
+    handler threads, advertised as ``engine=batched``. The full-span
+    batched server (``--stage 0 --batched``) serves burst decode, which is
+    not ported yet.
   * ``--mode client`` — the pipeline client with stage 0 in process and the
     remote stages over ``TcpTransport``, discovered through the registry.
   ``serve`` and ``client`` hold only their stage's weights (every layer is
@@ -32,7 +39,7 @@ Port of the JAX package's ``main.py`` for these modes:
   build the kernels and the wire codec before they serve; ``serve`` runs
   one throwaway session through its span first, as the reference does. The reference's gossip mirror, dial-back
   reachability vote and relay attach are not ported (ROADMAP Queue 1 #4),
-  nor are the flags of the engines the port lacks (``--batched``, ``--sp``,
+  nor are the flags of the engines the port lacks (``--burst``, ``--sp``,
   ``--tp``, ``--use_load_balancing``, ``--use_cpu_offload``,
   ``--prefix_cache_mb``, ``--relay_capacity``): each exits naming itself.
 
@@ -62,6 +69,7 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
     python -m ...main --mode registry --registry_port 31330
     python -m ...main --mode serve --stage 1 --registry_addr 127.0.0.1:31330 \\
         --model llama-3.1-8b --quant int8 --dtype bfloat16      (stages 1..3)
+    python -m ...main --mode serve --stage 1 --batched --slots 8 ...
     python -m ...main --mode client --registry_addr 127.0.0.1:31330 \\
         --model llama-3.1-8b --quant int8 --dtype bfloat16 --prompt "Hi"
 """
@@ -394,7 +402,7 @@ def run_oracle(args, cfg: ModelConfig, params) -> int:
 # Flags of the reference's serve and client modes whose engines or
 # features the port does not have, with their defaults: any other value
 # exits naming the flag.
-UNPORTED_FLAGS = (("batched", False), ("sp", 1), ("tp", 1),
+UNPORTED_FLAGS = (("burst", 0), ("sp", 1), ("tp", 1),
                   ("use_load_balancing", False), ("use_cpu_offload", False),
                   ("prefix_cache_mb", 0), ("relay_capacity", 0))
 
@@ -403,8 +411,8 @@ def refuse_unported_flags(args) -> None:
     for dest, default in UNPORTED_FLAGS:
         if getattr(args, dest) != default:
             raise SystemExit(f"--{dest} is not ported: the port's servers run "
-                             "the per-session engine on one device, with no "
-                             "relays")
+                             "the per-session or the batched engine on one "
+                             "device, with no relays")
 
 
 def _report_peak_memory(device: torch.device) -> None:
@@ -460,6 +468,10 @@ def run_serve(args) -> int:
 
     device = resolve_device(args.device)
     plan = stage_plan(args, get_config(args.model))
+    if args.stage == 0 and args.batched:
+        raise SystemExit("--stage 0 --batched (the full-span batched server) "
+                         "serves burst decode, which is not ported yet "
+                         "(ROADMAP Queue 1 #1b)")
     if not 1 <= args.stage < plan.num_stages:
         raise SystemExit(f"--stage must be 1..{plan.num_stages - 1} for serve "
                          "mode (stage 0 runs inside the client)")
@@ -468,19 +480,32 @@ def run_serve(args) -> int:
     peer_id = args.peer_id or f"stage{args.stage}-{os.getpid()}"
     ping_tx = TcpTransport(registry, wire_dtype=args.wire_dtype)
     cfg, shard = load_stage_model(args, spec)
+    executor = None
+    if args.batched:
+        from .runtime.batching import BatchedStageExecutor, BatchingStageAdapter
+
+        # The slot caches take the serve dtype, as the reference's
+        # (main.py:937).
+        engine = BatchedStageExecutor(
+            cfg, spec, shard, device=device, slots=args.slots,
+            max_len=args.max_session_len, dtype=_DTYPE_MAP[args.dtype])
+        executor = BatchingStageAdapter(engine, peer_id=peer_id)
     # No act_dtype: an arriving activation computes in the float32 the wire
     # decodes to, as the reference's server computes it.
     server = FixedStageServer(peer_id, cfg, spec, shard, registry,
                               executor_kwargs={"device": device},
                               pinger=_pinger_from_transport(ping_tx),
-                              model=args.model)
+                              model=args.model, executor=executor)
     del shard
     ex = server.executor
     _build_native(args, device)
     ex.warmup()
     # One compute thread owns the device; the handler threads own sockets.
-    runtime = StageRuntime(high_water=args.queue_high_water,
-                           low_water=args.queue_low_water)
+    # Not for the batched engine: concurrent handler calls are how its
+    # round window coalesces, and its own lock guards the device.
+    runtime = (None if args.batched else
+               StageRuntime(high_water=args.queue_high_water,
+                            low_water=args.queue_low_water))
     srv = TcpStageServer(ex, runtime, host=args.host, port=args.rpc_port,
                          wire_dtype=args.wire_dtype, model=args.model,
                          allow_fault_injection=args.allow_fault_injection)
@@ -658,10 +683,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--queue_low_water", type=int, default=None,
                    help="serve mode: task-pool depth at which pressure "
                         "relaxes to `level=normal` (default 8)")
+    p.add_argument("--batched", action="store_true",
+                   help="serve mode: the continuous slot-batched engine — "
+                        "concurrent plain sessions coalesce into ONE "
+                        "captured decode step per round; advertised as "
+                        "engine=batched so clients route plain sessions "
+                        "here and replays to per-session replicas")
+    p.add_argument("--slots", type=int, default=8,
+                   help="serve --batched: max concurrent sessions")
+    p.add_argument("--max_session_len", type=int, default=2048,
+                   help="serve --batched: per-slot KV capacity (tokens)")
     # The reference's flags for engines the port does not have: accepted by
     # the parser so that a reference command line fails with a clear
     # message (refuse_unported_flags), never silently.
-    p.add_argument("--batched", action="store_true", help="not ported")
+    p.add_argument("--burst", type=int, default=0, help="not ported")
     p.add_argument("--sp", type=int, default=1, help="not ported")
     p.add_argument("--tp", type=int, default=1, help="not ported")
     p.add_argument("--use_load_balancing", action="store_true", help="not ported")

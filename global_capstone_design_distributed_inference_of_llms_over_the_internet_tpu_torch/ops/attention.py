@@ -17,6 +17,15 @@ be captured as a CUDA graph and replayed at other lengths
 (``runtime/graphs.py``): the write goes to device indices, attention reads
 the whole cache bucket and the causal mask hides the rows at or past
 ``cache_len + T``, as the reference's jitted step does.
+
+The slot-major engine (``runtime/batching.py``) has its own pair:
+`slot_cache_write` writes each slot's rows at that slot's own length (an
+``[S]`` device tensor) under an ``[S]`` active mask, and `slot_attention`
+takes a per-slot mask ``[S, T, M]`` and keeps the reference's batched
+operand dtypes (``runtime/batching.py:586-616``): the cache cast to the
+query's dtype, scores summed in float32, probabilities cast to the cache's
+dtype for the value product. The single-session functions above keep
+their own (float32 throughout) and their bits.
 """
 
 from __future__ import annotations
@@ -96,3 +105,45 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(b, t, h, dh).to(q.dtype)
+
+
+def slot_cache_write(cache: torch.Tensor, new: torch.Tensor,
+                     lengths: torch.Tensor, active: torch.Tensor) -> None:
+    """Write T rows per slot at that slot's own length, in place: the
+    reference's vmapped ``dynamic_update_slice`` (``runtime/batching.py:
+    594-604``). cache: [S, M, Hkv, Dh] (one layer); new: [S, T, Hkv, Dh];
+    lengths: [S] int; active: [S] bool, both on the cache's device. Each
+    start is clamped to [0, M - T] as ``dynamic_update_slice`` clamps it,
+    and an inactive slot writes back the rows already there, so a slot
+    parked near M never loses its last rows."""
+    s, t = new.shape[:2]
+    dev = cache.device
+    start = torch.clamp(lengths.long(), 0, cache.shape[1] - t)
+    rows = start[:, None] + torch.arange(t, device=dev)
+    slots = torch.arange(s, device=dev)[:, None].expand(s, t)
+    old = cache[slots, rows]
+    cache[slots, rows] = torch.where(active[:, None, None, None],
+                                     new.to(cache.dtype), old)
+
+
+def slot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   allowed: torch.Tensor, *, scale: float = 0.0,
+                   logit_softcap: float = 0.0) -> torch.Tensor:
+    """Attention of T queries per slot over M keys per slot. q: [S, T, H,
+    Dh]; k/v: [S, M, Hkv, Dh] (a slot cache, or a prefill's fresh keys);
+    allowed: [S, T, M] bool. Returns [S, T, H, Dh] in the promoted dtype
+    of v's and q's, as the reference's einsum returns it. Scores sum in
+    float32 over operands in q's dtype (the cache cast to it first); a
+    masked score is NEG_INF, so its softmax weight is exactly zero."""
+    s, t, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = (q * (scale if scale else dh ** -0.5)).reshape(s, t, hkv, h // hkv, dh)
+    scores = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.to(q.dtype).float())
+    if logit_softcap:
+        scores = logit_softcap * torch.tanh(scores / logit_softcap)
+    scores = torch.where(allowed[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    vq = v.to(q.dtype)
+    out = torch.einsum("bhgts,bshd->bthgd", probs.float(), vq.float())
+    return out.to(torch.promote_types(probs.dtype, vq.dtype)).reshape(s, t, h, dh)

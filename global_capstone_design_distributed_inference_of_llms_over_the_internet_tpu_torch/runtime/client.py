@@ -269,13 +269,15 @@ class PipelineClient:
     # ------------------------------------------------------------------
 
     def _compute_route(self) -> List[Hop]:
-        """Fixed stage-chain route: one discovered peer per remote stage."""
+        """Fixed stage-chain route: one discovered peer per remote stage,
+        a batched peer where the stage has one (every session of this
+        client is a plain one, which a batched peer serves)."""
         hops: List[Hop] = []
         for spec in self.plan.stages[1:]:
             key = f"stage{spec.index}"
             peer = self.registry.discover_stage(
                 spec.index, exclude=tuple(self.failed_peers.get(key, ())),
-                model=self.model)
+                model=self.model, prefer_engine="batched")
             if peer is None:
                 raise NoRouteError(f"no live server for {key}")
             hops.append(Hop(key, peer, spec.start, spec.end, spec.is_last))

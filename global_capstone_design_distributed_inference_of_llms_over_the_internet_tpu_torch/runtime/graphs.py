@@ -39,11 +39,9 @@ graph reads logits ``[B, V]`` and one int64 vector of the request's
 scalars (`pack_sampler_inputs`: the window, its length, top_k, the step
 seed and the float32 bits of the three float knobs); the keys are built
 inside it, ``PRNGKey(step_seed)`` for row 0 and ``fold_in(base, i)`` for
-row i. A call writes the vector into a pinned host buffer of its graph,
-copies it to the device without blocking, replays, and reads the tokens
-back: the one host sync. The copy is waited for (an event) before the
-pinned buffer is written again, so a later call never overwrites bytes a
-copy has yet to read.
+row i. A call copies the vector to the device from pinned memory without
+blocking (`StagedInts`), replays, and reads the tokens back: the one host
+sync.
 """
 
 from __future__ import annotations
@@ -270,39 +268,66 @@ def sample_packed(logits: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
                         temperature, top_p, packed[_TOP_K].to(torch.int32), rp)
 
 
-class _SamplerGraph:
-    """One captured sampler: its static logits and packed scalars on the
-    device, the pinned host buffer the scalars are copied from, and the
-    event that marks the end of the last copy."""
+class StagedInts:
+    """An int64 device tensor of `shape` filled from host ints without
+    blocking the host: each load writes the values into a fresh block of
+    pinned memory from torch's caching host allocator and copies it on
+    the current stream. The allocator records the copy and reuses the
+    block only once the copy has read it, so a load never waits for the
+    device, however far behind the host it runs (one buffer guarded by an
+    event made a load wait whenever the device had not reached the last
+    copy yet: a batched round's leader then held its lock that long)."""
 
-    def __init__(self, batch: int, vocab: int, device: torch.device):
+    def __init__(self, shape, device: torch.device):
+        self.tensor = torch.zeros(shape, dtype=torch.int64, device=device)
+
+    def load(self, values: Sequence[int]) -> torch.Tensor:
+        host = torch.tensor(values, dtype=torch.int64).reshape(self.tensor.shape)
+        self.tensor.copy_(host.pin_memory(), non_blocking=True)
+        return self.tensor
+
+
+def sample_rows_packed(logits: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """The tokens int32 [B] of float32 logits [B, V], row i sampled under
+    its own packed scalars ``packed[i]`` (int64 [B, PACKED_LEN]): its own
+    knobs, window and key ``PRNGKey(step_seed_i)``, so each row draws what
+    its request draws alone (a batch-1 `sample_packed`). A greedy row
+    (temperature <= 0) takes the argmax."""
+    return torch.cat([sample_packed(logits[i:i + 1], packed[i])
+                      for i in range(logits.shape[0])])
+
+
+class _SamplerGraph:
+    """One captured sampler: its static logits, its packed scalars staged
+    from the host (`StagedInts`) and its graph."""
+
+    def __init__(self, batch: int, vocab: int, packed_shape, device: torch.device):
         self.logits = torch.zeros((batch, vocab), dtype=torch.float32, device=device)
-        self.packed = torch.zeros(PACKED_LEN, dtype=torch.int64, device=device)
-        self.host = torch.zeros(PACKED_LEN, dtype=torch.int64, pin_memory=True)
-        self.copied = torch.cuda.Event()
+        self.packed = StagedInts(packed_shape, device)
         self.graph: Optional[Captured] = None
 
     def load(self, values: List[int], logits: torch.Tensor) -> None:
-        if not self.copied.query():
-            self.copied.synchronize()   # the last copy has not read it yet
-        self.host.numpy()[:] = values
-        self.packed.copy_(self.host, non_blocking=True)
-        self.copied.record()
+        self.packed.load(values)
         self.logits.copy_(logits)
 
 
 class Sampler:
     """An owner's sampler for logits [B, V] on one device (the final
-    stage's executor; the fused sampled oracle's first token). On the card,
-    one graph per (B, V), captured at first use and replayed; elsewhere
-    `sample_packed` runs directly. `captures` and `replays` count them."""
+    stage's executor; the fused sampled oracle's first token; a batched
+    engine's rounds). On the card, one graph per (form, B, V), captured at
+    first use and replayed; elsewhere the function runs directly.
+    `captures` and `replays` count them.
+
+    Two forms: a call samples every row with one request's scalars (row i
+    keyed ``fold_in(base, i)``); `rows` samples row i with request i's
+    own (`sample_rows_packed`)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.enabled = self.device.type == "cuda"
         self.captures = 0
         self.replays = 0
-        self._graphs: Dict[Tuple[int, int], _SamplerGraph] = {}
+        self._graphs: Dict[Tuple[bool, int, int], _SamplerGraph] = {}
         self._lock = threading.Lock()
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
@@ -311,26 +336,109 @@ class Sampler:
                  sampling: SamplingParams, step_seed: int) -> List[int]:
         """The B sampled token ids of logits [B, V] (float32, on this
         device), read back to the host at once: the call's one sync."""
-        values = pack_sampler_inputs(window, sampling, step_seed)
+        return self._run(False, logits, pack_sampler_inputs(window, sampling, step_seed))
+
+    def rows(self, logits: torch.Tensor,
+             requests: Sequence[Tuple[Sequence[int], SamplingParams, int]]) -> List[int]:
+        """Row i of logits [B, V] sampled with request i's (window,
+        sampling, step_seed), all B tokens read back at once: one sync."""
+        values = [v for req in requests for v in pack_sampler_inputs(*req)]
+        return self._run(True, logits, values)
+
+    def _run(self, per_row: bool, logits: torch.Tensor, values: List[int]) -> List[int]:
+        fn = sample_rows_packed if per_row else sample_packed
+        shape = (logits.shape[0], PACKED_LEN) if per_row else (PACKED_LEN,)
         if not self.enabled:
             packed = torch.tensor(values, dtype=torch.int64, device=self.device)
-            return sample_packed(logits.float(), packed).tolist()
+            return fn(logits.float(), packed.reshape(shape)).tolist()
         with self._lock:
-            entry = self._graphs.get(tuple(logits.shape))
+            key = (per_row, *logits.shape)
+            entry = self._graphs.get(key)
             if entry is None:
-                entry = self._capture(*logits.shape)
+                entry = self._capture(key, fn, shape)
             entry.load(values, logits)
             entry.graph.replay()
             self.replays += 1
             return entry.graph.out.tolist()
 
-    def _capture(self, batch: int, vocab: int) -> _SamplerGraph:
+    def _capture(self, key, fn, shape) -> _SamplerGraph:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
-        entry = _SamplerGraph(batch, vocab, self.device)
-        entry.graph = capture(lambda: sample_packed(entry.logits, entry.packed),
+        entry = _SamplerGraph(key[1], key[2], shape, self.device)
+        entry.graph = capture(lambda: fn(entry.logits, entry.packed.tensor),
                               self._pool, self._stream)
-        self._graphs[(batch, vocab)] = entry
+        self._graphs[key] = entry
         self.captures += 1
         return entry
+
+
+# ---------------------------------------------------------------------------
+# The batched engine's captured steps
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _SlotStep:
+    x: torch.Tensor
+    scalars: StagedInts
+    graph: Captured
+
+
+class SlotSteps:
+    """A batched engine's captured steps (``runtime/batching.py``), the
+    counterpart of its reference's jit cache: one graph per key (a decode
+    step width, or a prefill bucket and input dtype) over a static input
+    `x` and a static int64 vector of the call's host scalars (the slots'
+    lengths and active mask; or the slot and the prompt's real length),
+    staged from pinned memory before each replay: no host value goes
+    inside a capture. The engine's slot caches are fixed tensors that the
+    step reads and writes in place.
+
+    A new key runs once eagerly on the capture stream (with the call's own
+    inputs, so the run is the call: the step is idempotent for fixed
+    inputs) and is captured; each call then copies its inputs in and
+    replays. `run` returns the graph's static output: the caller reads or
+    clones it before the next call of that key (the engine's callers hold
+    its lock). On the CPU the step runs directly."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.enabled = self.device.type == "cuda"
+        self.captures = 0
+        self.replays = 0
+        self._steps: Dict[Hashable, _SlotStep] = {}
+        self._lock = threading.Lock()
+        self._pool = None
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    def run(self, key: Hashable, step: Callable, x: torch.Tensor,
+            scalars: Sequence[int]):
+        """``step(x, s)`` with s the int64 tensor of `scalars`."""
+        if not self.enabled:
+            return step(x, torch.tensor(scalars, dtype=torch.int64, device=x.device))
+        with self._lock:
+            entry = self._steps.get(key)
+            if entry is None:
+                entry = self._capture(key, step, x, scalars)
+            entry.x.copy_(x, non_blocking=True)
+            entry.scalars.load(scalars)
+            entry.graph.replay()
+            self.replays += 1
+            return entry.graph.out
+
+    def _capture(self, key, step, x, scalars) -> _SlotStep:
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        static_x = x.to(self.device, copy=True)
+        staged = StagedInts((len(scalars),), self.device)
+        staged.load(scalars)
+        graph = capture(lambda: step(static_x, staged.tensor), self._pool, self._stream)
+        entry = _SlotStep(static_x, staged, graph)
+        self._steps[key] = entry
+        self.captures += 1
+        return entry
+
+    def entries(self) -> List[Tuple[Hashable, "_SlotStep"]]:
+        with self._lock:
+            return list(self._steps.items())

@@ -24,7 +24,10 @@ Components:
     deltas per step), ``end_session``, ``info``, ``metrics``,
     ``dump-events``, ``reach_check`` and the gated ``fault`` admin verb.
     Compute goes through a `StageRuntime` (one compute thread owns the
-    card, handler threads own the sockets).
+    card, handler threads own the sockets), or, for a batched engine
+    (``runtime/batching.py``), runs inline on the handler threads; ``info``
+    reports the executor's ``engine`` and a batched engine's
+    ``decode_steps``.
   * `TcpTransport` is the client side of `Transport`: peer addresses from
     registry records, one persistent connection per peer, plain prefill
     and decode on streams, socket errors mapped onto the retryable
@@ -540,14 +543,16 @@ class RequestLog:
 
 
 class TcpStageServer(_FramedTcpServer):
-    """Serves one StageExecutor over TCP.
+    """Serves one StageExecutor (or a ``BatchingStageAdapter``) over TCP.
 
-    Each connection's handler thread submits compute to `runtime`'s pools
-    and blocks on the future: one compute thread owns the card while the
-    handler threads own the sockets. The server starts and stops the
-    runtime."""
+    With a `runtime`, each connection's handler thread submits compute to
+    its pools and blocks on the future: one compute thread owns the card
+    while the handler threads own the sockets; the server starts and stops
+    the runtime. With ``runtime=None`` compute runs inline on the handler
+    threads, as a batched engine needs: concurrent calls are how its round
+    window coalesces, and its own lock guards the card."""
 
-    def __init__(self, executor: StageExecutor, runtime: StageRuntime,
+    def __init__(self, executor: StageExecutor, runtime: Optional[StageRuntime],
                  host: str = "127.0.0.1",
                  port: int = 0, wire_dtype: str = "bf16",
                  model: Optional[str] = None,
@@ -574,20 +579,24 @@ class TcpStageServer(_FramedTcpServer):
                  priority: Optional[float] = None):
         budget = (COMPUTE_TIMEOUT_S if timeout is None
                   else min(timeout, COMPUTE_TIMEOUT_S))
+        if self.runtime is None:
+            return fn(*args)
         kwargs = {} if priority is None else {"priority": priority}
         return self.runtime.call(kind, fn, *args, size=size, timeout=budget,
                                  **kwargs)
 
     def start(self) -> None:
         super().start()
-        self.runtime.start()
+        if self.runtime is not None:
+            self.runtime.start()
         logger.info("stage server %s on %s (span [%d, %d))",
                     self.peer_id, self.address,
                     self.executor.spec.start, self.executor.spec.end)
 
     def stop(self) -> None:
         super().stop()
-        self.runtime.stop()
+        if self.runtime is not None:
+            self.runtime.stop()
 
     def _dispatch(self, sock, header: dict, payload: bytes) -> None:
         verb = header.get("verb")
@@ -663,18 +672,23 @@ class TcpStageServer(_FramedTcpServer):
 
     def _info(self, ex) -> dict:
         spec = ex.spec
-        return {
+        frame = {
             "verb": "info", "peer_id": ex.peer_id,
             "start_block": spec.start, "end_block": spec.end,
             "cache_tokens_left": ex.arena.tokens_left(),
             "requests_served": ex.requests_served,
-            "engine": "session",
+            "engine": getattr(ex, "engine", "session"),
             "version": 1,
             # No LoRA training here: a trainer checks this before shipping.
             "lora": False,
             "recent_requests": self.request_log.tail(20),
             "telemetry": _texp.summary(_get_metrics_registry()),
         }
+        # A batched engine's rounds, beside the requests it served.
+        steps = getattr(getattr(ex, "inner", None), "decode_steps", None)
+        if steps is not None:
+            frame["decode_steps"] = steps
+        return frame
 
     # ------------------------------------------------------------------
     # Persistent inference streams

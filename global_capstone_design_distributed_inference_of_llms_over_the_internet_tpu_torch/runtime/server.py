@@ -77,7 +77,10 @@ def _pinger_from_transport(
 class FixedStageServer:
     """Fixed-split server: a statically assigned span and its heartbeat.
     With `transport`, `start_serving` adds the executor to it; without,
-    another front end serves `executor` at `address`."""
+    another front end serves `executor` at `address`. Given `executor`
+    (a batched engine's adapter, say) it serves that one instead of
+    building a `StageExecutor`; its record carries the executor's
+    ``engine`` tag."""
 
     def __init__(
         self,
@@ -92,6 +95,7 @@ class FixedStageServer:
         pinger: Optional[Callable[[ServerRecord], Optional[float]]] = None,
         model: Optional[str] = None,
         address: Optional[str] = None,
+        executor=None,
     ):
         self.peer_id = peer_id
         self.address = address
@@ -102,8 +106,8 @@ class FixedStageServer:
         self._pinger = (pinger if pinger is not None
                         else _pinger_from_transport(transport))
         self.next_server_rtts: Dict[str, float] = {}
-        self.executor = StageExecutor(cfg, spec, params, peer_id=peer_id,
-                                      **(executor_kwargs or {}))
+        self.executor = executor or StageExecutor(
+            cfg, spec, params, peer_id=peer_id, **(executor_kwargs or {}))
 
     def _record(self) -> ServerRecord:
         return ServerRecord(
@@ -113,6 +117,7 @@ class FixedStageServer:
             stage_index=self.spec.index,
             next_server_rtts=self._published_rtts(),
             model=self.model, address=self.address,
+            engine=getattr(self.executor, "engine", "session"),
         )
 
     def start_serving(self) -> None:

@@ -465,7 +465,7 @@ def test_spent_deadline_and_model_mismatch_refused(port_swarm):
         other.close()
 
 
-@pytest.mark.parametrize("flag", [["--batched"], ["--sp", "2"], ["--tp", "2"],
+@pytest.mark.parametrize("flag", [["--burst", "4"], ["--sp", "2"], ["--tp", "2"],
                                   ["--use_load_balancing"], ["--use_cpu_offload"],
                                   ["--prefix_cache_mb", "64"], ["--relay_capacity", "2"]])
 def test_unported_serve_flag_exits_naming_it(flag):
