@@ -28,11 +28,21 @@ on the kernels; it never prints the last line of a smoke pass.)
    the scan behind ``_gemv_plan``); the SASS opcode counts of the decode
    kernels (``int8_dot``'s old CUDA-core kernel beside its new one) are
    printed. The batched engine's regime, M = 8 (every slot of a round), is
-   held and timed at every site in float32 x (stages 1-3: the CUDA-core
-   route, F32_TOL) and bf16 x (the tensor cores), beside the plain version
-   and the library (``torch.matmul(x32, q.float()) * s`` and NF4's
-   counterpart), with its bound (``<kernel>_batched``). Prints JSON lines
-   of shapes, crossover scan and per-layer sums per kernel.
+   held and timed at every site in float32 x (stages 1-3: ``int8_dot``'s
+   batched route "f32mma", ``nf4_dot``'s CUDA-core route; F32_TOL) and
+   bf16 x (the tensor cores), beside the plain version, the library
+   (``torch.matmul(x32, q.float()) * s`` and NF4's counterpart) and, for
+   ``int8_dot``, the old CUDA-core kernel in the same run, with its bound
+   (``<kernel>_batched``; float32 x's operations at a third of the bf16
+   rate, F32_TERMS); so is float32 x at the prompt's bucket (the prefill
+   of the stages behind TCP, the CUDA-core route). ``int8_dot``'s batched
+   route is also held at every site at M = 3, 4 and 8 (F32_TOL), must give
+   the same bits on two launches, for a row at M = 3 as at M = 8 whatever
+   the other rows hold, and for a fused weight's columns as for its parts
+   alone; it is timed at M = 1 and 2 beside the decode kernel with float32
+   x (``int8_dot_f32mma``), and its SASS must be read and hold no I2F.
+   Prints JSON lines of shapes, crossover scan and per-layer sums per
+   kernel.
 3b. The draw kernel (``sample_draw``, ``csrc/sample_draw.cu``): at V =
    128256 and 1000, B = 1 and 4, temperatures 0.7 and 1.5, 8 seeds each,
    its Gumbel noise must be bit-equal to the plain ``threefry.gumbel`` and
@@ -152,15 +162,19 @@ on the kernels; it never prints the last line of a smoke pass.)
    float32-cache reference as in step 5; no capture after the warm-ups;
    each stage's rounds at most MAX_NEW_TOKENS - 1 + ROUND_SLACK (not one a
    session and token); ``int8_dot`` launches by route (stage 0's prefill
-   on the tensor cores and decode on the decode kernel, stages 1-3 on the
-   CUDA-core route, one a site and layer for each prefill and round); a
+   on the tensor cores and decode on the decode kernel; on stages 1-3
+   exactly one batched-route launch a site and layer for each round and
+   one CUDA-core launch a site and layer for each float32 prefill); a
    ``sample_draw`` a sampled token; at most one host sync a prefill and
-   one a round of the last stage. Then the fill scan (1, 2, 4, 8 sessions
+   one a round of the last stage; each stage's ``arrivals`` are logged (a
+   step's spread against the round window, the hops between stages). Then
+   the fill scan (1, 2, 4, 8 sessions
    at once: ms a round, tokens/s; each fill's tokens equal the fill-8
    run's), the same 8 requests one after another on the session engines,
    every captured key's replay bit-equal to its eager step (outputs, head
    logits, cache writes), the same 8 sessions over in-process TCP
-   (``TcpStageServer`` with no runtime, wire f32: tokens equal to the
+   (``TcpStageServer`` with no runtime, wire f32; stages 2 and 3 there
+   take a round window of TCP_HOP_S a session: tokens equal to the
    in-process run's, the same gates; in every batched run the sessions
    start decoding together, once each has its first token), and each
    stage's round alone (device
@@ -220,9 +234,22 @@ ROUND_SLACK = 2 * SLOTS
 # its host work; scripts/torch_batched_rounds.py), so the last session
 # reaches stage 1 up to ~36 ms after the first at 8 sessions, and the
 # default 3 ms window splits them into 2-3 rounds a step. Stage 1's window
-# covers that spread (STAGE0_STEP_S a session); stages 2 and 3 keep the
-# default, since one round releases its sessions to them together.
+# covers that spread (STAGE0_STEP_S a session). In process stages 2 and 3
+# keep the default: a round's sessions leave stage 1 together and a step's
+# arrivals at stages 2 and 3 spread 0.7-1.2 ms at the median and 3.4 at most
+# on the H100 (`arrivals`, PERF.md).
 STAGE0_STEP_S = 0.005
+# Over in-process TCP each hop of every session is Python work on this one
+# interpreter (a handler's reply, the client's receive and send, the next
+# handler's receive): 18-24 ms a hop at the median, and a step's arrivals at
+# stages 2 and 3 spread 2.1-3.0 ms at the median, 3.2-5.7 at the p90 and up
+# to 9.8. A 3 ms window splits such a step, and a session left behind stays
+# a round behind its step's others, so splits pile up: at the default stages
+# 2 and 3 ran 44-59 rounds in both runs of one H100 call (the gate allows
+# 47), 31-32 at 1 ms a session, 8 ms at 8 sessions
+# (scripts/torch_batched_tcp.py, PERF.md). Over TCP stages 2 and 3 take
+# TCP_HOP_S a session; in process the default holds.
+TCP_HOP_S = 0.001
 # (site, K, N) of llama-3.1-8b's four projection launches per layer after the
 # executor's fusion: wqkv = wq|wk|wv, wgu = wg|wu.
 SITES = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("wgu", 4096, 28672),
@@ -231,10 +258,11 @@ SITES = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("wgu", 4096, 28672),
 # tensor-core FLOP/s, the rate of the kernel's input type.
 PEAKS = (("H200", 4.8e12, 989e12), ("H100 NVL", 3.9e12, 835e12),
          ("H100 PCIe", 2.0e12, 756e12), ("H100", 3.35e12, 989e12))
-# Published float32 FLOP/s outside the tensor cores (data sheets), the rate
-# of a float32-x call's operations.
-F32_PEAKS = (("H200", 67e12), ("H100 NVL", 60e12), ("H100 PCIe", 51e12),
-             ("H100", 67e12))
+# A float32-x call's operations at their least: x as three bf16 terms on the
+# bf16 tensor cores gives each float32 x times int8 product exactly
+# (int8_dot's batched route), so the bound takes three times the operations
+# at the bf16 rate (a third of the rate), not the CUDA cores' float32 rate.
+F32_TERMS = 3
 BF16_TOL = 2.0 ** -7   # max|kernel - plain| <= BF16_TOL * max|plain|: one
 #                        bf16 ulp at the output's scale (sums in other orders)
 F32_TOL = 1e-5         # float32 activations, relative to max|plain|
@@ -296,7 +324,7 @@ def ptxas_usage(text: str):
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d((?:int8|nf4)_(?:dot(?:_mma)?|gemv)_kernel)I(.*?)EEv",
+            m = re.search(r"\d((?:int8|nf4)_(?:dot(?:_mma)?|gemv|f32mma)_kernel)I(.*?)EEv",
                           entry.group(1))
             if m is None:
                 kernel = entry.group(1)
@@ -322,10 +350,6 @@ def peaks_for(name: str):
         if key in name:
             return bw, flops
     raise RuntimeError(f"no published peaks for {name!r}")
-
-
-def f32_peak_for(name: str) -> float:
-    return next(flops for key, flops in F32_PEAKS if key in name)
 
 
 def build_kernels(modules) -> float:
@@ -425,14 +449,18 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
     cluster size at M = 1 (the plan scan behind `_gemv_plan`); ragged shapes of
     every route and an x view at an offset on the tensor-core and the
     decode routes; and the crossover scan of the three kernels at M = 1..8
-    on wgu and wd; the batched regime, M = SLOTS in float32 and bf16
-    (`batch_rows`). Returns (rows, scan, decode, plans, batch)."""
+    on wgu and wd; the batched regime, M = SLOTS in float32 (the batched
+    route beside the old CUDA-core kernel) and bf16 (`batch_rows`), and
+    the batched route's own checks (`f32mma_checks`; a fused weight's
+    columns bit-equal to its parts' at M = SLOTS too); the float32 prefill
+    at M = prefill_m (`batch_rows`, the stages behind TCP). Returns (rows,
+    scan, decode, plans, batch, f32mma)."""
     from importlib import import_module
 
     quant = import_module(PORT + ".models.quant")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows, scan, decode, plans, batch = [], [], [], [], []
+    rows, scan, decode, plans, batch, f32mma = [], [], [], [], [], []
     ms = tuple(sorted({1, 2, 8, 16, prompt_len, prefill_m, 128, 512}))
     for site, k, n in SITES:
         w = int8_weight(torch, quant, gen, dev, k, n)
@@ -466,23 +494,32 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
             {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
              torch.float32: lambda x: torch.matmul(x, q32) * s},
             int8_bytes, gen, dev, bw, {torch.float32: f32_flops, torch.bfloat16: flops},
-            flush)
+            flush, old=lambda x: ik._launch(x, q, s, "simt"))
+        batch += batch_rows(
+            torch, "int8_dot", ik, site, k, n, lambda x: ik.int8_dot(x, w),
+            lambda x: ik.int8_dot_reference(x, q, s),
+            {torch.float32: lambda x: torch.matmul(x, q32) * s}, int8_bytes, gen, dev, bw,
+            {torch.float32: f32_flops}, flush, m=prefill_m, dtypes=("float32",))
         del q32
-        # The decode kernel's plan depends on K alone: a fused weight's
-        # columns and a part's alone (wq, wk of wq|wk|wv; wg of wg|wu, as a
-        # full_forward over the loaded weights runs them) give the same bits.
+        f32mma.append(f32mma_checks(torch, ik, site, k, n, q, s, gen, dev, flush))
+        # The decode kernel's and the batched route's plans depend on K
+        # alone: a fused weight's columns and a part's alone (wq, wk of
+        # wq|wk|wv; wg of wg|wu, as a full_forward over the loaded weights
+        # runs them) give the same bits.
         if site in ("wqkv", "wgu"):
             cuts = ((0, 4096), (4096, 5120)) if site == "wqkv" else ((0, n // 2),)
-            for dtype in (torch.bfloat16, torch.float32):
-                x = torch.randn((1, k), generator=gen, device=dev).to(dtype)
+            for dtype, m in ((torch.bfloat16, 1), (torch.float32, 1),
+                             (torch.float32, SLOTS)):
+                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
                 whole = ik.int8_dot(x, w)
                 for a, b in cuts:
                     part = quant.QuantizedTensor(q[:, a:b].contiguous(),
                                                  s[:, a:b].contiguous(), "bfloat16")
                     if not torch.equal(whole[:, a:b], ik.int8_dot(x, part)):
-                        raise AssertionError(f"int8_dot gemv {site} {dtype}: columns "
-                                             f"{a}:{b} differ alone")
-            log(f"int8_dot {site} gemv: columns {cuts} bit-equal alone, bf16 and float32")
+                        raise AssertionError(f"int8_dot {ik._route(m, k, n, dtype)} {site} "
+                                             f"{dtype} M={m}: columns {a}:{b} differ alone")
+            log(f"int8_dot {site} gemv (bf16 and float32) and f32mma (M={SLOTS}): "
+                f"columns {cuts} bit-equal alone")
         if site == "wgu":                            # a ragged M, tensor cores
             x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
             assert ik._route(33, k, n, x.dtype) == "mma"
@@ -523,7 +560,14 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
                                  (4100, 4112, 1, torch.float32, "gemv"),
                                  (4104, 96, 1, torch.bfloat16, "gemv"),
                                  (130, 48, 2, torch.float32, "gemv"),
-                                 (ik.GEMV_MAX_K, 48, 2, torch.float32, "gemv")):
+                                 (ik.GEMV_MAX_K, 48, 2, torch.float32, "gemv"),
+                                 (132, 48, 5, torch.float32, "f32mma"),
+                                 (130, 48, 5, torch.float32, "simt"),
+                                 (4100, 4112, SLOTS, torch.float32, "f32mma"),
+                                 (126 * ik.GEMV_ROWS, 48, 3, torch.float32, "f32mma"),
+                                 (ik.GEMV_MAX_K, 48, SLOTS, torch.float32, "f32mma"),
+                                 (ik.GEMV_MAX_K + 32, 48, 3, torch.float32, "simt"),
+                                 (100, 97, SLOTS, torch.float32, "simt")):
         w = int8_weight(torch, quant, gen, dev, k, n)
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         assert ik._route(m, k, n, x.dtype) == want
@@ -531,24 +575,68 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
         err = (check_bf16(torch, "int8_dot", f"K={k} N={n}", x, y, ref)
                if dtype == torch.bfloat16 else check_f32("int8_dot", f"K={k} N={n}", y, ref))
         log(f"int8_dot ragged K={k} N={n} M={m} {dtype} ({want}): max err {err:.3e}")
-    # x as a view 2 bytes into its storage: the tensor-core and the decode
-    # routes' 16-byte copies take a clone of it.
+    # x as a view one element into its storage: the tensor-core, the decode
+    # and the batched routes' 16-byte copies take a clone of it.
     k, n = 4096, 4096
     w = int8_weight(torch, quant, gen, dev, k, n)
-    for m, route, counter in ((prompt_len, "mma", "_launches_mma"),
-                              (1, "gemv", "_launches_gemv")):
-        buf = torch.randn((m * k + 1,), generator=gen, device=dev).to(torch.bfloat16)
+    for m, dtype, route, counter in ((prompt_len, torch.bfloat16, "mma", "_launches_mma"),
+                                     (1, torch.bfloat16, "gemv", "_launches_gemv"),
+                                     (SLOTS, torch.float32, "f32mma", "_launches_f32mma")):
+        buf = torch.randn((m * k + 1,), generator=gen, device=dev).to(dtype)
         x = buf[1:].view(m, k)
-        assert x.data_ptr() % 16 == 2 and ik._route(m, k, n, x.dtype) == route
+        assert x.data_ptr() % 16 == buf.element_size() and ik._route(m, k, n, dtype) == route
         before = getattr(ik, counter)
-        err = check_bf16(torch, "int8_dot", "x at a 2-byte offset", x, ik.int8_dot(x, w),
-                         ik.int8_dot_reference(x, w.q, w.s))
+        y, ref = ik.int8_dot(x, w), ik.int8_dot_reference(x, w.q, w.s)
+        err = (check_bf16(torch, "int8_dot", "x at an offset", x, y, ref)
+               if dtype == torch.bfloat16 else check_f32("int8_dot", "x at an offset", y, ref))
         assert getattr(ik, counter) == before + 1
-        log(f"int8_dot x view at a 2-byte offset K={k} N={n} M={m} ({route}, cloned): "
-            f"max err {err:.3e}")
+        log(f"int8_dot x view {buf.element_size()} bytes into its storage K={k} N={n} "
+            f"M={m} ({route}, cloned): max err {err:.3e}")
     log(f"int8_dot crossover: mma at least as fast from M={crossover(scan)} "
         f"(MMA_MIN_M = {ik.MMA_MIN_M})")
-    return rows, scan, decode, plans, batch
+    return rows, scan, decode, plans, batch, f32mma
+
+
+def f32mma_checks(torch, ik, site, k, n, q, s, gen, dev, flush):
+    """int8_dot's batched route at one site: float32 x held at M = 3, 4
+    and SLOTS (F32_TOL); two launches bit-equal at M = SLOTS; the first 3
+    rows at M = 3 bit-equal to the same rows at M = SLOTS, and again with
+    the other rows redrawn. Then the route at M = 1 and 2, which its entry
+    point takes but `_route` sends to the decode kernel, held (F32_TOL) and
+    timed beside the decode kernel with float32 x, L2 cold (the three-term
+    time at M = SLOTS beside the old kernel is in `batch_rows`)."""
+    dot = lambda x: ik._launch(x, q, s, "f32mma")              # noqa: E731
+    plain = lambda x: ik.int8_dot_reference(x, q, s)           # noqa: E731
+    errs = {}
+    for m in (3, 4, SLOTS):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        assert ik._route(m, k, n, x.dtype) == "f32mma"
+        errs[m] = check_f32("int8_dot", f"{site} f32mma M={m}", dot(x), plain(x))
+    x = torch.randn((SLOTS, k), generator=gen, device=dev)
+    y = dot(x)
+    if not torch.equal(y, dot(x)):
+        raise AssertionError(f"int8_dot f32mma {site}: two launches differ")
+    other = torch.cat([x[:3], torch.randn((SLOTS - 3, k), generator=gen, device=dev)])
+    if not (torch.equal(dot(x[:3]), y[:3]) and torch.equal(dot(other)[:3], y[:3])):
+        raise AssertionError(f"int8_dot f32mma {site}: a row's bits depend on M or on "
+                             "the other rows")
+    ref = plain(x)
+    point = {"site": site, "M": SLOTS, "K": k, "N": n, "plan": list(ik._gemv_plan(SLOTS, k, n)),
+             "max_abs_err": errs,
+             "rel_err": (y - ref).abs().max().item() / ref.abs().max().item()}
+    for m in (1, 2):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        assert ik._route(m, k, n, x.dtype) == "gemv"
+        gemv = lambda x=x: ik._launch(x, q, s, "gemv")        # noqa: E731
+        check_f32("int8_dot", f"{site} f32mma M={m}", dot(x), plain(x))
+        point[f"M{m}_f32mma_ms"] = cuda_ms(lambda x=x: dot(x), torch, flush=flush)
+        point[f"M{m}_gemv_ms"] = cuda_ms(gemv, torch, flush=flush)
+    log(f"int8_dot {site} f32mma: float32 max err {errs[3]:.3e} / {errs[4]:.3e} / "
+        f"{errs[SLOTS]:.3e} at M = 3 / 4 / {SLOTS} ({point['rel_err']:.2e} of max|plain|); "
+        f"bit-equal over two launches and for rows 0-2 at M = 3; at M = 1 / 2 "
+        f"{point['M1_f32mma_ms']:.4f} / {point['M2_f32mma_ms']:.4f} ms against the decode "
+        f"kernel's {point['M1_gemv_ms']:.4f} / {point['M2_gemv_ms']:.4f}; plan {point['plan']}")
+    return point
 
 
 def decode_checks(torch, name, mod, site, k, n, dot, launch, plain, yardsticks,
@@ -612,31 +700,41 @@ def decode_checks(torch, name, mod, site, k, n, dot, launch, plain, yardsticks,
 
 
 def batch_rows(torch, name, mod, site, k, n, dot, plain, yardsticks, nbytes, gen,
-               dev, bw, flops, flush):
-    """The batched engine's regime at one site: M = SLOTS rows (every slot
-    of a round), float32 x (stages 1-3: the "simt" route) and bf16 x (the
-    tensor cores), each held to the plain version (F32_TOL / BF16_TOL) and
-    timed beside the plain version and the library yardstick
-    (``yardsticks[dtype](x)``); the bound takes the operations at the rate
-    of x's type (`flops[dtype]`)."""
+               dev, bw, flops, flush, old=None, m=SLOTS,
+               dtypes=("float32", "bfloat16")):
+    """One site at M = `m` rows, each dtype of `dtypes`: by default the
+    batched engine's regime, M = SLOTS (every slot of a round), float32 x
+    (stages 1-3: the route `_route` gives) and bf16 x (the tensor cores);
+    with ``m=prefill_m, dtypes=("float32",)`` the float32 prefill of the
+    stages behind TCP. Each held to the plain version (F32_TOL / BF16_TOL)
+    and timed beside the plain version and the library yardstick
+    (``yardsticks[dtype](x)``), and with float32 x at M = SLOTS beside
+    ``old(x)``, the CUDA-core kernel it replaced, where given
+    (``simt_ms``); the bound takes the operations at the rate `flops[dtype]`
+    gives x's type (float32: a third of the bf16 rate, F32_TERMS)."""
     rows = []
-    for dtype, xsize in ((torch.float32, 4), (torch.bfloat16, 2)):
-        x = torch.randn((SLOTS, k), generator=gen, device=dev).to(dtype)
+    for dtype in (getattr(torch, d) for d in dtypes):
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         ref, y = plain(x), dot(x)
-        err = (check_f32(name, f"{site} M={SLOTS}", y, ref) if dtype == torch.float32
-               else check_bf16(torch, name, f"{site} M={SLOTS}", x, y, ref))
-        nb, ops = nbytes(SLOTS, k, n, xsize), 2 * SLOTS * k * n
-        rows.append({"site": site, "M": SLOTS, "K": k, "N": n,
+        err = (check_f32(name, f"{site} M={m}", y, ref) if dtype == torch.float32
+               else check_bf16(torch, name, f"{site} M={m}", x, y, ref))
+        nb, ops = nbytes(m, k, n, x.element_size()), 2 * m * k * n
+        rows.append({"site": site, "M": m, "K": k, "N": n,
                      "dtype": str(dtype).replace("torch.", ""),
-                     "route": mod._route(SLOTS, k, n, dtype), "max_abs_err": err,
+                     "route": mod._route(m, k, n, dtype), "max_abs_err": err,
                      "ms": cuda_ms(lambda: dot(x), torch, flush=flush),
                      "plain_ms": cuda_ms(lambda: plain(x), torch, flush=flush),
                      "library_ms": cuda_ms(lambda: yardsticks[dtype](x), torch, flush=flush),
                      "bytes": nb, "bound_ms": max(nb / bw, ops / flops[dtype]) * 1e3,
                      "bound_by": "bytes" if nb / bw >= ops / flops[dtype] else "operations"})
-    log(f"{name} {site} M={SLOTS}: float32 ({rows[0]['route']}) {rows[0]['ms']:.4f} ms, "
-        f"bf16 ({rows[1]['route']}) {rows[1]['ms']:.4f} ms; library {rows[0]['library_ms']:.4f}"
-        f" / {rows[1]['library_ms']:.4f}")
+        if old is not None and dtype == torch.float32 and m == SLOTS:
+            rows[-1]["simt_max_abs_err"] = check_f32(name, f"{site} simt M={m}",
+                                                     old(x), ref)
+            rows[-1]["simt_ms"] = cuda_ms(lambda: old(x), torch, flush=flush)
+    log(f"{name} {site} M={m}: " + ", ".join(
+        f"{r['dtype']} ({r['route']}) {r['ms']:.4f} ms"
+        + (f" (simt {r['simt_ms']:.4f})" if "simt_ms" in r else "")
+        + f", library {r['library_ms']:.4f}" for r in rows))
     return rows
 
 
@@ -689,8 +787,9 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
     (`decode` rows); the decode kernel at every cluster size at M = 1 (the
     plan scan behind `_gemv_plan`); ragged shapes of every route; and the
     crossover scan of the three kernels at M = 1..4 on wgu and wd; the
-    batched regime, M = SLOTS in float32 and bf16 (`batch_rows`). Returns
-    (rows, scan, decode, plans, batch)."""
+    batched regime, M = SLOTS in float32 and bf16, and the float32 prefill
+    at M = prefill_m (`batch_rows`). Returns (rows, scan, decode, plans,
+    batch)."""
     from importlib import import_module
 
     quant = import_module(PORT + ".models.quant")
@@ -730,6 +829,11 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
              torch.float32: lambda x: torch.matmul(x, w_deq32)},
             nf4_bytes, gen, dev, bw, {torch.float32: f32_flops, torch.bfloat16: flops},
             flush)
+        batch += batch_rows(
+            torch, "nf4_dot", nk, site, k, n, lambda x: nk.nf4_dot(x, w),
+            lambda x: nk.nf4_dot_reference(x, w),
+            {torch.float32: lambda x: torch.matmul(x, w_deq32)}, nf4_bytes, gen, dev, bw,
+            {torch.float32: f32_flops}, flush, m=prefill_m, dtypes=("float32",))
         if site == "wgu":                            # a ragged M, tensor cores
             x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
             assert nk._route(33, k, n, x.dtype) == "mma"
@@ -1199,6 +1303,7 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     launches = kernels[name]._launches
     launches_mma = kernels[name]._launches_mma
     launches_gemv = getattr(kernels[name], "_launches_gemv", None)
+    launches_f32mma = getattr(kernels[name], "_launches_f32mma", None)
     draws = draw_gate(f"{quant} path", kernels, executors, results, requests)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -1241,7 +1346,9 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
                "tokens": tokens, f"{name}_launches": launches,
                f"{name}_launches_mma": launches_mma,
                **({f"{name}_launches_gemv": launches_gemv}
-                  if launches_gemv is not None else {}), "graphs": graphs,
+                  if launches_gemv is not None else {}),
+               **({f"{name}_launches_f32mma": launches_f32mma}
+                  if launches_f32mma is not None else {}), "graphs": graphs,
                "prefill_ms": [r.ttft_s * 1e3 for r in results],
                "ttft_first_ms": results[0].ttft_s * 1e3,
                "ttft_later_ms": [r.ttft_s * 1e3 for r in results[1:]],
@@ -1261,7 +1368,7 @@ def reset_counts(kernels, executors) -> None:
     """Every kernel's launch counts and the path's graph and sampler
     counters to 0, just before a path's requests."""
     for mod in kernels.values():
-        for counter in ("_launches", "_launches_mma", "_launches_gemv"):
+        for counter in ("_launches", "_launches_mma", "_launches_gemv", "_launches_f32mma"):
             if hasattr(mod, counter):
                 setattr(mod, counter, 0)
     for ex in executors:
@@ -1957,6 +2064,9 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
         if launches < need or launches_mma < need_mma:
             raise AssertionError(f"tcp {args.quant}: {name} launches {launches} / "
                                  f"{launches_mma}, want >= {need} / {need_mma}")
+        if getattr(kernels[name], "_launches_f32mma", 0):
+            raise AssertionError(f"tcp {args.quant}: {name} took the batched route: a "
+                                 "session runs no float32 x at M 3-8")
         if launches_gemv is not None:
             gemv_gate(f"tcp {args.quant}", name, cfg, local, graphs, tokens,
                       len(results), launches, launches_mma, launches_gemv)
@@ -2254,14 +2364,68 @@ def float32_hops():
 
 
 def observe_fills(adapters) -> None:
+    """From now on, each adapter's round fills, and the monotonic instants
+    at which each decode request reaches it and leaves it, with its
+    session (`arrivals`)."""
     for a in adapters:
         a._m_fill = Observed()
+        a._arrived, a._left = [], []
+        decode = type(a)._decode
+
+        def timed(req, a=a, decode=decode):
+            a._arrived.append((time.monotonic(), req.session_id))
+            try:
+                return decode(a, req)
+            finally:
+                a._left.append((time.monotonic(), req.session_id))
+
+        a._decode = timed
 
 
-def stage1_window(adapters, sessions: int) -> None:
+def arrivals(adapters) -> dict:
+    """Per stage, since `observe_fills`: the spread of each decode step's
+    arrivals (ms from a step's first session to its last, a session's n-th
+    decode request being its step n), which one round window must cover for
+    one round to take the step; the steps whose spread passed the window;
+    and from stage 2 on, each hop (ms from a request leaving the stage
+    before to the same session's next request reaching this one)."""
+    def by_step(events):
+        seen, out = {}, {}
+        for t, sid in events:
+            seen[sid] = seen.get(sid, -1) + 1
+            out[(sid, seen[sid])] = t
+        return out
+
+    def quantiles(values):
+        v = sorted(values)
+        return ({"median": v[len(v) // 2], "p90": v[(9 * (len(v) - 1)) // 10], "max": v[-1]}
+                if v else {})
+
+    out, left = {}, None
+    for a in adapters:
+        came = by_step(a._arrived)
+        steps = {}
+        for (_, n), t in came.items():
+            steps.setdefault(n, []).append(t)
+        spreads = [1e3 * (max(v) - min(v)) for v in steps.values()]
+        entry = {"window_ms": 1e3 * a.window_s, "steps": len(spreads),
+                 "spread_ms": quantiles(spreads),
+                 "steps_over_window": sum(x > 1e3 * a.window_s for x in spreads)}
+        if left is not None:
+            entry["hop_ms"] = quantiles([1e3 * (t - left[key]) for key, t in came.items()
+                                         if key in left])
+        out[a.peer_id] = entry
+        left = by_step(a._left)
+    return out
+
+
+def round_windows(adapters, sessions: int, default: float, tcp: bool = False) -> None:
     """Stage 1's round window for `sessions` clients on this card (see
-    STAGE0_STEP_S); stages 2 and 3 keep the default."""
-    adapters[0].window_s = max(adapters[-1].window_s, sessions * STAGE0_STEP_S)
+    STAGE0_STEP_S); stages 2 and 3 keep the `default` in process and take
+    TCP_HOP_S a session over TCP."""
+    adapters[0].window_s = max(default, sessions * STAGE0_STEP_S)
+    for a in adapters[1:]:
+        a.window_s = max(default, sessions * TCP_HOP_S) if tcp else default
 
 
 def batched_requests(tok, sampling_cls, cfg):
@@ -2380,39 +2544,52 @@ def batched_gates(what: str, kernels, cfg, adapters, stage0s, results, requests,
     capture anywhere (every shape was warmed up); each stage's rounds at
     most MAX_NEW_TOKENS - 1 + ROUND_SLACK; int8_dot launches by route
     (stage 0's prefill on the tensor cores and its decode on the decode
-    kernel, one each a site, layer and token; stages 1-3 on the CUDA-core
-    route, one a site and layer for each prefill and each round); one
-    sample_draw a sampled token at least."""
+    kernel, one each a site, layer and token at least; on stages 1-3
+    exactly one batched-route launch a site and layer for each round, and
+    one CUDA-core launch a site and layer for each float32 prefill, which
+    is all the CUDA-core route runs); one sample_draw a sampled token at
+    least."""
     ik = kernels["int8_dot"]
     rounds = {a.peer_id: a.inner.decode_steps - rounds_before[a.peer_id] for a in adapters}
     captures = (sum(a.inner.graphs.captures + a.inner.sampler.captures for a in adapters)
                 + sum(ex.graphs.captures + ex.sampler.captures for ex in stage0s))
     tokens = sum(len(r.tokens) for r in results)
     decode_tokens = tokens - len(results)
-    simt = ik._launches - ik._launches_mma - ik._launches_gemv
+    simt = ik._launches - ik._launches_mma - ik._launches_gemv - ik._launches_f32mma
     layers0 = stage0s[0].spec.num_layers
     need = {"mma": 4 * layers0 * len(results), "gemv": 4 * layers0 * decode_tokens,
-            "simt": sum(4 * a.spec.num_layers * (len(results) + rounds[a.peer_id])
-                        for a in adapters)}
-    got = {"mma": ik._launches_mma, "gemv": ik._launches_gemv, "simt": simt}
+            "f32mma": sum(4 * a.spec.num_layers * rounds[a.peer_id] for a in adapters),
+            "simt": sum(4 * a.spec.num_layers * len(results) for a in adapters)}
+    got = {"mma": ik._launches_mma, "gemv": ik._launches_gemv,
+           "f32mma": ik._launches_f32mma, "simt": simt}
     sampled = sum(len(r.tokens) for r, (_, sp) in zip(results, requests) if not sp.greedy)
     draws = kernels["sample_draw"]._launches
     limit = MAX_NEW_TOKENS - 1 + ROUND_SLACK
+    spread = arrivals(adapters)
     log(f"{what}: {tokens} tokens over {len(results)} sessions; rounds a stage {rounds} "
         f"(<= {limit}; one session a round would take {decode_tokens}); int8_dot "
-        f"launches by route {got} (want >= {need}); captures {captures}; sample_draw "
-        f"{draws} (>= {sampled} sampled tokens)")
+        f"launches by route {got} (want mma, gemv >= and f32mma, simt == {need}); "
+        f"captures {captures}; sample_draw {draws} (>= {sampled} sampled tokens)")
+    log(f"{what}: arrivals a stage {json.dumps(spread)}")
     if captures:
         raise AssertionError(f"{what}: {captures} captures after warm-up")
     if any(r > limit for r in rounds.values()):
         raise AssertionError(f"{what}: rounds {rounds}, want <= {limit} a stage")
-    if any(got[k] < need[k] for k in need):
+    if any(got[k] < need[k] for k in ("mma", "gemv")):
         raise AssertionError(f"{what}: int8_dot launches {got}, want >= {need}")
+    if got["f32mma"] != need["f32mma"]:
+        raise AssertionError(f"{what}: {got['f32mma']} batched-route launches, want one "
+                             f"a site and layer for each round of stages 1-3: "
+                             f"{need['f32mma']}")
+    if got["simt"] != need["simt"]:
+        raise AssertionError(f"{what}: {got['simt']} CUDA-core launches, want only the "
+                             f"float32 prefills of stages 1-3: {need['simt']}")
     if draws < sampled:
         raise AssertionError(f"{what}: {draws} sample_draw launches for {sampled} "
                              "sampled tokens")
     return {"rounds": rounds, "round_limit": limit,
             "fills": {a.peer_id: list(a._m_fill.values) for a in adapters},
+            "arrivals": spread,
             "int8_dot_launches": ik._launches,
             "int8_dot_launches_by_route": got, "sample_draw_launches": draws,
             "captures_after_warmup": captures}
@@ -2544,6 +2721,7 @@ def batched_path(torch, kernels, tmain, sampling_cls, state, smi: str):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     adapters, warm_s = batched_engines(torch, tmain, state)
+    window = adapters[-1].window_s                  # the adapters' default
     stage0s = stage0_executors(torch, tmain, state, SLOTS)
     transport = float32_hops()
     registry = registry_mod.PlacementRegistry()
@@ -2556,12 +2734,13 @@ def batched_path(torch, kernels, tmain, sampling_cls, state, smi: str):
     jobs = [(c, ids, sp) for c, (ids, sp) in zip(clients, requests)]
     summary = {"model": MODEL, "quant": "int8", "slots": SLOTS,
                "max_session_len": MAX_SESSION_LEN, "warmup_s": warm_s,
-               "window_ms": 1e3 * adapters[-1].window_s,
-               "stage1_window_ms_at_8": 1e3 * SLOTS * STAGE0_STEP_S, "card": smi}
+               "window_ms": 1e3 * window,
+               "stage1_window_ms_at_8": 1e3 * SLOTS * STAGE0_STEP_S,
+               "tcp_later_window_ms_at_8": 1e3 * max(window, SLOTS * TCP_HOP_S), "card": smi}
 
     batched_counts(kernels, adapters, stage0s)
     observe_fills(adapters)
-    stage1_window(adapters, len(jobs))
+    round_windows(adapters, len(jobs), window)
     before = {a.peer_id: a.inner.decode_steps for a in adapters}
     box = {}
     syncs = count_syncs(torch, lambda: box.setdefault("run", run_clients(jobs)))
@@ -2591,7 +2770,7 @@ def batched_path(torch, kernels, tmain, sampling_cls, state, smi: str):
 
     scan = {}
     for fill in (1, 2, 4, 8):
-        stage1_window(adapters, fill)
+        round_windows(adapters, fill, window)
         before = {a.peer_id: a.inner.decode_steps for a in adapters}
         got, wall_f = run_clients(jobs[:fill])
         scan[fill] = {**batched_run_view(got, wall_f, reqs[:fill]),
@@ -2638,7 +2817,7 @@ def batched_path(torch, kernels, tmain, sampling_cls, state, smi: str):
                                                        seed=args.seed, model=MODEL), ids, sp))
         batched_counts(kernels, adapters, stage0s)
         observe_fills(adapters)
-        stage1_window(adapters, len(tcp_jobs))
+        round_windows(adapters, len(tcp_jobs), window, tcp=True)
         before = {a.peer_id: a.inner.decode_steps for a in adapters}
         got, wall = run_clients(tcp_jobs)
         torch.cuda.synchronize()
@@ -2678,8 +2857,11 @@ def oracle_logits(torch, cfg, params, ids):
 
 
 def layer_sum(rows):
-    """The four sites' rows of one M summed: one layer."""
-    return {"ms": sum(r["ms"] for r in rows),
+    """The four sites' rows of one M summed: one layer (and the old
+    CUDA-core kernel's ms where every row has it)."""
+    old = ({"simt_ms": sum(r["simt_ms"] for r in rows)}
+           if rows and all("simt_ms" in r for r in rows) else {})
+    return {"ms": sum(r["ms"] for r in rows), **old,
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
@@ -2700,12 +2882,15 @@ def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batche
     its sequence bucket, as the executors run it) under ``prefill``; the
     decode layer with float32 x (the stages behind TCP) under
     ``decode_float32``, from the `decode` rows; the path's launches, and
-    under ``launches_by_route`` each route's share."""
+    under ``launches_by_route`` each route's share; the batched regime
+    (M = SLOTS) under ``batched_<dtype>`` with its route (float32 with the
+    old CUDA-core kernel's ms beside it for ``int8_dot``)."""
     decode_rows = [r for r in rows if r["M"] == 1]
     launches = summary[f"{name}_launches"]
     by_route = {"mma": summary[f"{name}_launches_mma"]}
-    if f"{name}_launches_gemv" in summary:
-        by_route["gemv"] = summary[f"{name}_launches_gemv"]
+    for route in ("gemv", "f32mma"):
+        if f"{name}_launches_{route}" in summary:
+            by_route[route] = summary[f"{name}_launches_{route}"]
     by_route["simt"] = launches - sum(by_route.values())
     entry = {"name": name, "route": "cuda",
              "source": f"{PORT}/csrc/{name}.cu",
@@ -2722,13 +2907,15 @@ def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batche
     entry["decode_float32"] = {
         "at": "one decode layer: wqkv+wo+wgu+wd at M=1, float32 x, L2 cold",
         **decode_layer([r for r in decode if r["dtype"] == "float32"])}
-    # The batched regime: every slot of a round, M = SLOTS.
-    for dtype in ("float32", "bfloat16"):
-        rows_b = [r for r in batch if r["dtype"] == dtype]
-        entry[f"batched_{dtype}"] = {
-            "at": f"one batched round's layer: wqkv+wo+wgu+wd at M={SLOTS}, {dtype} x, "
-                  "L2 cold", "route": "+".join(sorted({r["route"] for r in rows_b})),
-            **layer_sum(rows_b)}
+    # The batched regime: every slot of a round, M = SLOTS; and the float32
+    # prefill of the stages behind TCP.
+    for key, dtype, m, what in (("batched_float32", "float32", SLOTS, "one batched round's"),
+                                ("batched_bfloat16", "bfloat16", SLOTS, "one batched round's"),
+                                ("prefill_float32", "float32", prefill_m, "one prefill")):
+        rows_b = [r for r in batch if r["dtype"] == dtype and r["M"] == m]
+        entry[key] = {
+            "at": f"{what} layer: wqkv+wo+wgu+wd at M={m}, {dtype} x, L2 cold",
+            "route": "+".join(sorted({r["route"] for r in rows_b})), **layer_sum(rows_b)}
     if batched is not None:
         # The batched path's own run (counts set to 0 just before it).
         entry["launches_batched_path"] = batched["int8_dot_launches"]
@@ -2805,15 +2992,20 @@ def main(argv) -> int:
     prefill_m = import_module(PORT + ".runtime.kv_cache").round_to_bucket(
         prompt_len, import_module(PORT + ".runtime.executor").SEQ_BUCKETS)
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
-    f32_flops = f32_peak_for(name)
-    int8_rows, int8_scan, int8_decode, int8_plans, int8_batch = int8_phase(
+    f32_flops = flops / F32_TERMS
+    int8_rows, int8_scan, int8_decode, int8_plans, int8_batch, int8_f32mma = int8_phase(
         torch, ik, "cuda", prompt_len, prefill_m, bw, flops, flush, f32_flops)
+    log(json.dumps({"int8_dot_f32mma": int8_f32mma, "int8_dot_f32mma_per_layer": {
+        f"M={m}": {route: sum(p[f"M{m}_{route}_ms"] for p in int8_f32mma)
+                   for route in ("f32mma", "gemv")} for m in (1, 2)}, "card": smi}))
     nf4_rows, nf4_scan, nf4_decode, nf4_plans, nf4_batch = nf4_phase(
         torch, nk, "cuda", prompt_len, prefill_m, bw, flops, flush, f32_flops)
     for kname, batch in (("int8_dot", int8_batch), ("nf4_dot", nf4_batch)):
         log(json.dumps({f"{kname}_batched": batch, f"{kname}_batched_per_layer": {
-            dtype: layer_sum([r for r in batch if r["dtype"] == dtype])
-            for dtype in ("float32", "bfloat16")}, "card": smi}))
+            f"{dtype} M={m}": layer_sum([r for r in batch
+                                         if r["dtype"] == dtype and r["M"] == m])
+            for dtype, m in (("float32", SLOTS), ("bfloat16", SLOTS),
+                             ("float32", prefill_m))}, "card": smi}))
     for kname, rows, scan in (("int8_dot", int8_rows, int8_scan),
                               ("nf4_dot", nf4_rows, nf4_scan)):
         log(json.dumps({f"{kname}_shapes": rows, "card": smi}))
@@ -2834,10 +3026,23 @@ def main(argv) -> int:
     log(json.dumps({"nf4_gemv_sass": {
         dtype: sass_counts("nf4_dot", f"nf4_gemv_kernelI{mangled}Li1E")
         for dtype, mangled in dtypes}}))
-    log(json.dumps({"int8_gemv_sass": {
-        f"{kernel} {dtype}": sass_counts("int8_dot", f"{kernel}I{mangled}Li1E")
-        for kernel in ("int8_gemv_kernel", "int8_dot_kernel")
-        for dtype, mangled in dtypes}}))
+    # int8_dot's batched route beside the old kernel it replaced at M = 8;
+    # no int-to-float instruction anywhere in it.
+    int8_sass = {f"{kernel} {dtype}": sass_counts("int8_dot", f"{kernel}I{mangled}Li1E")
+                 for kernel in ("int8_gemv_kernel", "int8_dot_kernel")
+                 for dtype, mangled in dtypes}
+    int8_sass["int8_dot_kernel float32 M=8"] = sass_counts("int8_dot",
+                                                           "int8_dot_kernelIfLi8E")
+    f32mma_sass = sass_counts("int8_dot", "int8_f32mma_kernelE")
+    int8_sass["int8_f32mma_kernel float32"] = f32mma_sass
+    log(json.dumps({"int8_gemv_sass": int8_sass}))
+    # The check must have read the kernel: no cuobjdump, or no function of
+    # that name in the library, fails it as an I2F would.
+    if not f32mma_sass:
+        raise AssertionError("int8_f32mma_kernel: no SASS read (cuobjdump missing or no "
+                             "function int8_f32mma_kernel in the library)")
+    if f32mma_sass.get("I2F", 0):
+        raise AssertionError(f"int8_f32mma_kernel: {f32mma_sass['I2F']} I2F in its SASS")
     del flush
     draw = draw_phase(torch, dk, tf3, bw)
     log(json.dumps({"sample_draw": draw, "card": smi}))

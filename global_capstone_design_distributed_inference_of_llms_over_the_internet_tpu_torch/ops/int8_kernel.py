@@ -12,7 +12,11 @@ Two versions of one function:
     for a tensor on the card. `_route` picks one from M, K, N and x's dtype
     alone: "gemv", the decode kernel (M <= `GEMV_MAX_M`: bf16 x below
     `MMA_MIN_M`, float32 x; N % 16 == 0, K <= `GEMV_MAX_K`), split-K over a
-    thread-block cluster whose size `_gemv_plan` picks; "mma", the
+    thread-block cluster whose size `_gemv_plan` picks; "f32mma", the
+    batched round's kernel (float32 x at `F32MMA_MIN_M` <= M <=
+    `F32MMA_MAX_M`, N % 16 == 0, K % 4 == 0, K <= `GEMV_MAX_K`): the
+    decode kernel's structure and plan (`_gemv_plan`) on the tensor cores
+    with x split into `F32MMA_TERMS` bf16 terms; "mma", the
     tensor-core kernel (bf16 x, M >= `MMA_MIN_M`, the alignment its 16-byte
     copies need: N % 16 == 0, K % 8 == 0), which widens each int8 weight
     once per block into a bf16 tile in shared memory; else "simt", the
@@ -27,9 +31,10 @@ Two versions of one function:
 one kernel to the other, or from the card to the plain version.
 ``_launches`` counts kernel launches of every route (not calls of the plain
 version), ``_launches_mma`` those of the tensor-core route and
-``_launches_gemv`` those of the decode route, so a run can show that its
-main path went through the kernels (``ops/launch_counts.py``:
-a launch recorded into a CUDA graph counts on each replay).
+``_launches_gemv`` those of the decode route and ``_launches_f32mma``
+those of the batched route, so a run can show that its main path went
+through the kernels (``ops/launch_counts.py``: a launch recorded into a
+CUDA graph counts on each replay).
 """
 
 from __future__ import annotations
@@ -69,9 +74,20 @@ GEMV_MAX_CHUNK = 32
 GEMV_MAX_K = GEMV_MAX_SPLIT * GEMV_MAX_CHUNK * GEMV_ROWS
 GEMV_RANK_STAGES = 8
 
+# The batched route's geometry, as ``csrc/int8_dot.cu`` has it (kF32Mma*):
+# the decode kernel's strips, stages, cluster and plan, x as all 8 columns
+# of the mma's B fragment (the batched engine's M = --slots, 8 by default),
+# each float32 value as F32MMA_TERMS bf16 terms; a ring of F32MMA_STAGES
+# slots, each a stage's weights and its rows of x.
+F32MMA_MIN_M = GEMV_MAX_M + 1
+F32MMA_MAX_M = 8
+F32MMA_TERMS = 3
+F32MMA_STAGES = 3
+
 _launches = 0
 _launches_mma = 0
 _launches_gemv = 0
+_launches_f32mma = 0
 _lib = None
 
 
@@ -87,6 +103,8 @@ def _library() -> ctypes.CDLL:
         lib.int8_dot_gemv_launch.argtypes = (lib.int8_dot_launch.argtypes
                                              + [ctypes.c_int] * 2)
         lib.int8_dot_gemv_launch.restype = ctypes.c_int
+        lib.int8_dot_f32mma_launch.argtypes = lib.int8_dot_gemv_launch.argtypes
+        lib.int8_dot_f32mma_launch.restype = ctypes.c_int
         lib.int8_dot_error_string.argtypes = [ctypes.c_int]
         lib.int8_dot_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -107,13 +125,17 @@ def int8_dot_reference(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tor
 def _route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
     """The kernel for x [m, k] of `dtype` times an int8 weight [k, n]:
     "gemv" (decode) for M <= GEMV_MAX_M, bf16 x below MMA_MIN_M or float32
-    x, with N % 16 == 0 and K <= GEMV_MAX_K; "mma" (tensor cores) for bf16
-    x at M >= MMA_MIN_M with N % 16 == 0 and K % 8 == 0; else "simt" (CUDA
-    cores)."""
+    x, with N % 16 == 0 and K <= GEMV_MAX_K; "f32mma" (the batched round)
+    for float32 x at F32MMA_MIN_M <= M <= F32MMA_MAX_M with N % 16 == 0,
+    K % 4 == 0 and K <= GEMV_MAX_K; "mma" (tensor cores) for bf16 x at M >=
+    MMA_MIN_M with N % 16 == 0 and K % 8 == 0; else "simt" (CUDA cores)."""
     decode = m <= GEMV_MAX_M and (dtype == torch.float32 or
                                   (dtype == torch.bfloat16 and m < MMA_MIN_M))
     if decode and n % 16 == 0 and k <= GEMV_MAX_K:
         return "gemv"
+    if (dtype == torch.float32 and F32MMA_MIN_M <= m <= F32MMA_MAX_M
+            and n % 16 == 0 and k % 4 == 0 and k <= GEMV_MAX_K):
+        return "f32mma"
     if dtype == torch.bfloat16 and m >= MMA_MIN_M and n % 16 == 0 and k % 8 == 0:
         return "mma"
     return "simt"
@@ -148,7 +170,7 @@ def _launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
             route: str | None = None,
             plan: tuple[int, int] | None = None) -> torch.Tensor:
     """Launch the kernel that `_route` names (`route` overrides it, and
-    `plan` the decode kernel's `_gemv_plan`, only for ``chip_smoke.py``'s
+    `plan` the split-K kernels' `_gemv_plan`, only for ``chip_smoke.py``'s
     scans)."""
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
@@ -171,15 +193,18 @@ def _launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"int8_dot kernel shape [{m}, {k}] x [{k}, {n}] too large")
     route = route or _route(m, k, n, x.dtype)
     x = x.contiguous()
-    if route in ("mma", "gemv") and x.data_ptr() % 16:
+    if route in ("mma", "gemv", "f32mma") and x.data_ptr() % 16:
         x = x.clone()               # a view's offset: the copies need 16 B
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
     lib = _library()
     entry = {"mma": lib.int8_dot_mma_launch, "simt": lib.int8_dot_launch,
-             "gemv": lib.int8_dot_gemv_launch}[route]
-    extra = (plan or _gemv_plan(m, k, n)) if route == "gemv" else ()
+             "gemv": lib.int8_dot_gemv_launch,
+             "f32mma": lib.int8_dot_f32mma_launch}[route]
+    # Both split-K routes take `_gemv_plan`: a function of K alone, so a
+    # fused weight and its parts, and a row at any M, give the same bits.
+    extra = (plan or _gemv_plan(m, k, n)) if route in ("gemv", "f32mma") else ()
     # The raw current-stream handle: the cheap form of
     # torch.cuda.current_stream(dev).cuda_stream, on the decode hot path.
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -194,7 +219,8 @@ def _launch(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 # The counters a launch of each route adds one to.
 _COUNTED = {"simt": ("_launches",), "mma": ("_launches", "_launches_mma"),
-            "gemv": ("_launches", "_launches_gemv")}
+            "gemv": ("_launches", "_launches_gemv"),
+            "f32mma": ("_launches", "_launches_f32mma")}
 
 
 def int8_dot(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:

@@ -60,9 +60,9 @@ from ..ops.threefry import fold_in, prng_key
 
 # The kernel wrappers' launch counters (module, attribute).
 _COUNTERS = ((int8_kernel, "_launches"), (int8_kernel, "_launches_mma"),
-             (int8_kernel, "_launches_gemv"), (nf4_kernel, "_launches"),
-             (nf4_kernel, "_launches_mma"), (nf4_kernel, "_launches_gemv"),
-             (draw_kernel, "_launches"))
+             (int8_kernel, "_launches_gemv"), (int8_kernel, "_launches_f32mma"),
+             (nf4_kernel, "_launches"), (nf4_kernel, "_launches_mma"),
+             (nf4_kernel, "_launches_gemv"), (draw_kernel, "_launches"))
 
 
 def _add_counts(delta: Tuple[int, ...]) -> None:

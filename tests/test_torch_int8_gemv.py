@@ -151,7 +151,8 @@ def test_gemv_plan_fills_the_card_at_every_llama_site(site):
     assert in_flight / 132 >= 32 * 1024
 
 
-@pytest.mark.parametrize("counter", ["_launches", "_launches_mma", "_launches_gemv"])
+@pytest.mark.parametrize("counter", ["_launches", "_launches_mma", "_launches_gemv",
+                                     "_launches_f32mma"])
 def test_graph_counters_hold_every_int8_route(counter):
     """A replay adds the launches of each of int8_dot's routes, and a launch
     of a route counts on its own counter and on ``_launches``."""
@@ -176,9 +177,10 @@ def test_cpu_tensors_at_decode_m_take_the_plain_version(m, dtype):
     _, tw = _quantized(r, 320, 96)
     x = torch.from_numpy(r.standard_normal((m, 320)).astype(np.float32)).to(dtype)
     assert tk._route(m, 320, 96, dtype) == "gemv"
-    before = (tk._launches, tk._launches_mma, tk._launches_gemv)
+    before = (tk._launches, tk._launches_mma, tk._launches_gemv, tk._launches_f32mma)
     got = tk.int8_dot(x, tw)
-    assert (tk._launches, tk._launches_mma, tk._launches_gemv) == before
+    assert (tk._launches, tk._launches_mma, tk._launches_gemv,
+            tk._launches_f32mma) == before
     assert got.dtype == dtype and tuple(got.shape) == (m, 96)
     assert torch.equal(got, tk.int8_dot_reference(x, tw.q, tw.s))
 

@@ -1,11 +1,13 @@
-"""``int8_dot``'s three kernels: `_route` picks the decode kernel ("gemv"),
-the tensor-core kernel ("mma") or the CUDA-core kernel ("simt") from M, K,
-N and x's dtype alone; CPU tensors take the plain version at any M and
-launch nothing; the C entry points of ``csrc/int8_dot.cu`` take the same
+"""``int8_dot``'s four kernels: `_route` picks the decode kernel ("gemv"),
+the batched round's kernel ("f32mma"), the tensor-core kernel ("mma") or
+the CUDA-core kernel ("simt") from M, K, N and x's dtype alone; CPU
+tensors take the plain version at any M and launch nothing; the C entry
+points of ``csrc/int8_dot.cu`` take the same
 arguments (read from the source text, nothing CUDA imported); and the
 plain version agrees with the reference's Pallas kernel, run interpreted,
 at prefill M with bf16 x. The decode kernel's plan and its decode-M
-agreement are in ``test_torch_int8_gemv.py``."""
+agreement are in ``test_torch_int8_gemv.py``, the batched route's in
+``test_torch_int8_f32mma.py``."""
 
 import re
 
@@ -51,7 +53,7 @@ ROUTES = [
     ("bf16 at MMA_MIN_M", MIN, 4096, 4096, torch.bfloat16, "mma"),
     ("bf16 prefill chunk", 2048, 4096, 4096, torch.bfloat16, "mma"),
     ("float32 at M 1", 1, 4096, 4096, torch.float32, "gemv"),
-    ("float32 at MMA_MIN_M", MIN, 4096, 4096, torch.float32, "simt"),
+    ("float32 at MMA_MIN_M", MIN, 4096, 4096, torch.float32, "f32mma"),
     ("float32 at M 512", 512, 4096, 4096, torch.float32, "simt"),
     ("bf16 N not a multiple of 16", 30, 4096, 4104, torch.bfloat16, "simt"),
     ("bf16 N 97", 30, 128, 97, torch.bfloat16, "simt"),
@@ -62,7 +64,7 @@ ROUTES = [
     ("bf16 at GEMV_MAX_M", tk.GEMV_MAX_M, 4096, 4096, torch.bfloat16, "gemv"),
     ("bf16 past GEMV_MAX_M", tk.GEMV_MAX_M + 1, 4096, 4096, torch.bfloat16, "simt"),
     ("float32 at GEMV_MAX_M", tk.GEMV_MAX_M, 4096, 4096, torch.float32, "gemv"),
-    ("float32 past GEMV_MAX_M", tk.GEMV_MAX_M + 1, 4096, 4096, torch.float32, "simt"),
+    ("float32 past GEMV_MAX_M", tk.GEMV_MAX_M + 1, 4096, 4096, torch.float32, "f32mma"),
     ("bf16 M 1 ragged K 100", 1, 100, 96, torch.bfloat16, "gemv"),
     ("float32 M 2 ragged K 4100", 2, 4100, 4112, torch.float32, "gemv"),
     ("bf16 M 1 N not a multiple of 16", 1, 4096, 4104, torch.bfloat16, "simt"),
@@ -70,10 +72,29 @@ ROUTES = [
     ("bf16 M 1 K at GEMV_MAX_K", 1, tk.GEMV_MAX_K, 4096, torch.bfloat16, "gemv"),
     ("bf16 M 1 K past the x stage", 1, tk.GEMV_MAX_K + 1, 4096, torch.bfloat16, "simt"),
     ("float32 M 1 K past the x stage", 1, tk.GEMV_MAX_K + 32, 48, torch.float32, "simt"),
+    ("float32 at M 3", 3, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 at M 5", 5, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 at M 8 (the batched round)", 8, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 at F32MMA_MAX_M", tk.F32MMA_MAX_M, 14336, 4096, torch.float32, "f32mma"),
+    ("float32 at M 9", 9, 4096, 4096, torch.float32, "simt"),
+    ("float32 at M 16", 16, 4096, 4096, torch.float32, "simt"),
+    ("float32 M 8 K at GEMV_MAX_K", 8, tk.GEMV_MAX_K, 48, torch.float32, "f32mma"),
+    ("float32 M 8 K past the plan", 8, tk.GEMV_MAX_K + 4, 48, torch.float32, "simt"),
+    ("float32 M 3 K past the plan", 3, tk.GEMV_MAX_K + 128, 4096, torch.float32, "simt"),
+    ("float32 M 8 ragged K 4100", 8, 4100, 4112, torch.float32, "f32mma"),
+    ("float32 M 8 K not a multiple of 4", 8, 4098, 4096, torch.float32, "simt"),
+    ("float32 M 5 K 130", 5, 130, 48, torch.float32, "simt"),
+    ("float32 M 8 N not a multiple of 16", 8, 4096, 4104, torch.float32, "simt"),
+    ("float32 M 5 N 97", 5, 128, 97, torch.float32, "simt"),
+    ("bf16 at M 8 keeps mma", 8, 4096, 4096, torch.bfloat16, "mma"),
+    ("bf16 at M 3 keeps simt", 3, 4096, 4096, torch.bfloat16, "simt"),
 ] + [(f"llama-3.1-8b {site} M {m}", m, k, n, torch.bfloat16, "gemv" if m == 1 else "mma")
      for site, (k, n) in LLAMA_8B_SITES.items() for m in (1, 30)] + [
     (f"llama-3.1-8b {site} M {m} float32", m, k, n, torch.float32, "gemv")
-    for site, (k, n) in LLAMA_8B_SITES.items() for m in (1, 2)]
+    for site, (k, n) in LLAMA_8B_SITES.items() for m in (1, 2)] + [
+    (f"llama-3.1-8b {site} M {m} float32 (batched)", m, k, n, torch.float32,
+     "f32mma" if m <= 8 else "simt")
+    for site, (k, n) in LLAMA_8B_SITES.items() for m in (3, 8, 32)]
 
 
 @pytest.mark.parametrize("case,m,k,n,dtype,route", ROUTES, ids=[r[0] for r in ROUTES])
@@ -87,9 +108,10 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(m):
     w = tquant._quantize_leaf((torch.randn(256, 128, generator=gen) * 0.02).to(torch.bfloat16))
     x = torch.randn(m, 256, generator=gen).to(torch.bfloat16)
     assert tk._route(m, 256, 128, x.dtype) == ("gemv" if m <= tk.GEMV_MAX_M else "mma")
-    before = (tk._launches, tk._launches_mma, tk._launches_gemv)
+    before = (tk._launches, tk._launches_mma, tk._launches_gemv, tk._launches_f32mma)
     got = tk.int8_dot(x, w)
-    assert (tk._launches, tk._launches_mma, tk._launches_gemv) == before
+    assert (tk._launches, tk._launches_mma, tk._launches_gemv,
+            tk._launches_f32mma) == before
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, 128)
     assert torch.equal(got, tk.int8_dot_reference(x, w.q, w.s))
 
