@@ -28,14 +28,23 @@ on the kernels; it never prints the last line of a smoke pass.)
    the scan behind ``_gemv_plan``); the SASS opcode counts of the decode
    kernels (``int8_dot``'s old CUDA-core kernel beside its new one) are
    printed. The batched engine's regime, M = 8 (every slot of a round), is
-   held and timed at every site in float32 x (stages 1-3: ``int8_dot``'s
-   batched route "f32mma", ``nf4_dot``'s CUDA-core route; F32_TOL) and
-   bf16 x (the tensor cores), beside the plain version, the library
-   (``torch.matmul(x32, q.float()) * s`` and NF4's counterpart) and, for
-   ``int8_dot``, the old CUDA-core kernel in the same run, with its bound
-   (``<kernel>_batched``; float32 x's operations at a third of the bf16
-   rate, F32_TERMS); so is float32 x at the prompt's bucket (the prefill
-   of the stages behind TCP, the CUDA-core route). ``int8_dot``'s batched
+   held and timed at every site in float32 x (stages 1-3: each kernel's
+   "f32mma" route; F32_TOL) and bf16 x (the tensor cores), beside the
+   plain version, the library (``torch.matmul(x32, q.float()) * s`` and
+   NF4's counterpart) and the old CUDA-core kernel in the same run, with
+   its bound (``<kernel>_batched``; float32 x's operations at a third of
+   the bf16 rate, F32_TERMS); so is float32 x at the prompt's bucket (the
+   prefill of the stages behind TCP: ``int8_dot``'s CUDA-core route,
+   ``nf4_dot``'s "f32mma" beside the CUDA-core kernel it replaced).
+   ``nf4_dot``'s "f32mma" is also held at every site at M = 3, 8, 16, 32,
+   33, 64 and 512 (F32_TOL), must give the same bits on two launches, for
+   rows 0-2 at M = 3 as at M = 32 whatever the other rows hold, for rows
+   of a later M tile alone, and for a fused weight's columns as for its
+   parts alone (``nf4_dot_f32mma``); its crossover scan against "simt"
+   runs at M = 3..16 on wgu and wd with float32 x
+   (``nf4_dot_f32mma_crossover``); its SASS (8- and 16-row tiles) must be
+   read, hold HMMA and no STL / LDL, and ptxas must report no spill
+   (``nf4_f32mma_sass``). ``int8_dot``'s batched
    route is also held at every site at M = 3, 4 and 8 (F32_TOL), must give
    the same bits on two launches, for a row at M = 3 as at M = 8 whatever
    the other rows hold, and for a fused weight's columns as for its parts
@@ -126,8 +135,10 @@ on the kernels; it never prints the last line of a smoke pass.)
    draw and graph-replay gates of steps 5-6 (counts set to 0 just before
    the requests, read just after; tensor-core launches: stage 0's prefill
    sites, the only ones still given bf16 x; on both every decode step on
-   the decode kernel, and only stages 1-3's float32 prefill on the
-   CUDA-core route) and the native wire codec loaded. On the int8 path a stage-2 replica joins and the pinned stage-2
+   the decode kernel, and stages 1-3's float32 prefill exactly on the
+   route `_route` gives it, ``int8_dot``'s CUDA-core route and
+   ``nf4_dot``'s "f32mma", with no launch on any other route) and the
+   native wire codec loaded. On the int8 path a stage-2 replica joins and the pinned stage-2
    server is ``stop()``ped after its 3rd decode step of a greedy request:
    the client must recover onto the replica with the fault-free tokens.
 8b. Oracle (after the int8 TCP drive): ``--mode oracle --quant int8``'s
@@ -185,8 +196,9 @@ on the kernels; it never prints the last line of a smoke pass.)
    generations and ``TOKENS=`` ids must equal the in-process batched run's
    for their prompts; prints ``batched_cli_path``.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
-   ``sample_draw``; each matmul with its launches by route, the batched
-   path's launches, and its M = 8 layer) and
+   ``sample_draw``; each matmul with its launches by route in process and
+   over TCP, the batched path's launches, and its M = 8 and float32
+   prefill layers) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -485,7 +497,7 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
             lambda x: ik.int8_dot_reference(x, q, s),
             {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
              torch.float32: lambda x: torch.matmul(x, q32) * s},
-            int8_bytes, -(-k // ik.GEMV_ROWS), gen, dev, bw, flush)
+            int8_bytes, -(-k // ik.GEMV_ROWS), gen, dev, bw, flush, "simt")
         decode += rows_1
         plans.append(point)
         batch += batch_rows(
@@ -640,21 +652,23 @@ def f32mma_checks(torch, ik, site, k, n, q, s, gen, dev, flush):
 
 
 def decode_checks(torch, name, mod, site, k, n, dot, launch, plain, yardsticks,
-                  nbytes, units, gen, dev, bw, flush):
+                  nbytes, units, gen, dev, bw, flush, route16):
     """The decode kernel of `name` (wrapper module `mod`) at one site:
     float32 x held at M = 1 and 2 on "gemv" (F32_TOL) and at M = 16 on
-    "simt"; two launches bit-equal in both dtypes; at M = 1 in both dtypes
-    (stage 0 and in process bf16, the stages behind TCP float32) the decode
-    kernel beside the old CUDA-core kernel, the plain version and the
-    library (``yardsticks[dtype](x)``), each held; and the decode kernel at
-    every cluster size whose ranks' chunks fit (`units`: K in the plan's
-    units), bf16 at M = 1: the scan behind `_gemv_plan`. `dot(x)` is the
-    wrapper, ``launch(x, route, plan=None)`` one route, `plain(x)` the plain
-    version. Returns (the two decode rows, the plan scan's point)."""
+    `route16`, the route `_route` must give it ("simt" for int8_dot,
+    "f32mma" for nf4_dot); two launches bit-equal in both dtypes; at M = 1
+    in both dtypes (stage 0 and in process bf16, the stages behind TCP
+    float32) the decode kernel beside the old CUDA-core kernel, the plain
+    version and the library (``yardsticks[dtype](x)``), each held; and the
+    decode kernel at every cluster size whose ranks' chunks fit (`units`: K
+    in the plan's units), bf16 at M = 1: the scan behind `_gemv_plan`.
+    `dot(x)` is the wrapper, ``launch(x, route, plan=None)`` one route,
+    `plain(x)` the plain version. Returns (the two decode rows, the plan
+    scan's point)."""
     errs32 = {}
     for m in (1, 2, 16):
         x32 = torch.randn((m, k), generator=gen, device=dev)
-        assert mod._route(m, k, n, x32.dtype) == ("gemv" if m <= 2 else "simt")
+        assert mod._route(m, k, n, x32.dtype) == ("gemv" if m <= 2 else route16)
         errs32[m] = check_f32(name, f"{site} M={m}", dot(x32), plain(x32))
     # The decode kernel is deterministic: the same bits from two launches.
     for dtype in (torch.bfloat16, torch.float32):
@@ -691,7 +705,7 @@ def decode_checks(torch, name, mod, site, k, n, dot, launch, plain, yardsticks,
         point[f"split{split}_ms"] = cuda_ms(lambda: launch(x, "gemv", plan), torch,
                                             flush=flush)
     log(f"{name} {site} K={k} N={n}: float32 max err {errs32[1]:.3e} (M=1, gemv), "
-        f"{errs32[2]:.3e} (M=2, gemv), {errs32[16]:.3e} (M=16, simt); gemv bit-equal "
+        f"{errs32[2]:.3e} (M=2, gemv), {errs32[16]:.3e} (M=16, {route16}); gemv bit-equal "
         f"over two launches; M=1 gemv / simt / library ms: bf16 {rows[0]['gemv_ms']:.4f}"
         f" / {rows[0]['simt_ms']:.4f} / {rows[0]['library_ms']:.4f}, float32 "
         f"{rows[1]['gemv_ms']:.4f} / {rows[1]['simt_ms']:.4f} / "
@@ -708,9 +722,8 @@ def batch_rows(torch, name, mod, site, k, n, dot, plain, yardsticks, nbytes, gen
     with ``m=prefill_m, dtypes=("float32",)`` the float32 prefill of the
     stages behind TCP. Each held to the plain version (F32_TOL / BF16_TOL)
     and timed beside the plain version and the library yardstick
-    (``yardsticks[dtype](x)``), and with float32 x at M = SLOTS beside
-    ``old(x)``, the CUDA-core kernel it replaced, where given
-    (``simt_ms``); the bound takes the operations at the rate `flops[dtype]`
+    (``yardsticks[dtype](x)``), and with float32 x beside ``old(x)``, the
+    CUDA-core kernel it replaced, where given (``simt_ms``); the bound takes the operations at the rate `flops[dtype]`
     gives x's type (float32: a third of the bf16 rate, F32_TERMS)."""
     rows = []
     for dtype in (getattr(torch, d) for d in dtypes):
@@ -727,7 +740,7 @@ def batch_rows(torch, name, mod, site, k, n, dot, plain, yardsticks, nbytes, gen
                      "library_ms": cuda_ms(lambda: yardsticks[dtype](x), torch, flush=flush),
                      "bytes": nb, "bound_ms": max(nb / bw, ops / flops[dtype]) * 1e3,
                      "bound_by": "bytes" if nb / bw >= ops / flops[dtype] else "operations"})
-        if old is not None and dtype == torch.float32 and m == SLOTS:
+        if old is not None and dtype == torch.float32:
             rows[-1]["simt_max_abs_err"] = check_f32(name, f"{site} simt M={m}",
                                                      old(x), ref)
             rows[-1]["simt_ms"] = cuda_ms(lambda: old(x), torch, flush=flush)
@@ -739,28 +752,35 @@ def batch_rows(torch, name, mod, site, k, n, dot, plain, yardsticks, nbytes, gen
 
 
 def scan_routes(torch, name, site, k, gen, dev, launch, plain, flush,
-                routes=("simt", "mma"), ms=range(1, 17), takes=lambda route, m: True):
+                routes=("simt", "mma"), ms=range(1, 17), takes=lambda route, m: True,
+                dtype=None):
     """The kernels of `name` (``launch(x, route)``) at each M of `ms` (each
-    route where ``takes(route, m)``), each held to the plain version and
-    timed: the crossover scan behind its ``MMA_MIN_M``."""
+    route where ``takes(route, m)``), x of `dtype` (bf16 by default), each
+    held to the plain version and timed: the crossover scan behind its
+    ``MMA_MIN_M`` (with float32 x, behind ``F32MMA_MIN_M``)."""
+    dtype = dtype or torch.bfloat16
     points = []
     for m in ms:
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         ref = plain(x)
-        point = {"site": site, "M": m}
+        point = {"site": site, "M": m, "dtype": str(dtype).replace("torch.", "")}
         for route in routes:
             if not takes(route, m):
                 continue
-            check_bf16(torch, name, f"{site} {route}", x, launch(x, route), ref)
+            if dtype == torch.float32:
+                check_f32(name, f"{site} {route} M={m}", launch(x, route), ref)
+            else:
+                check_bf16(torch, name, f"{site} {route}", x, launch(x, route), ref)
             point[f"{route}_ms"] = cuda_ms(lambda: launch(x, route), torch, flush=flush)
         points.append(point)
     return points
 
 
-def crossover(scan):
-    """The least M from which the tensor-core route is at least as fast as
-    every other scanned route at every scanned M of every site."""
-    faster = [all(p["mma_ms"] <= v for key, v in p.items() if key.endswith("_ms"))
+def crossover(scan, route="mma"):
+    """The least M from which `route` (the tensor-core route by default) is
+    at least as fast as every other scanned route at every scanned M of
+    every site."""
+    faster = [all(p[f"{route}_ms"] <= v for key, v in p.items() if key.endswith("_ms"))
               for p in scan]
     return next((m for m in sorted({p["M"] for p in scan})
                  if all(f for p, f in zip(scan, faster) if p["M"] >= m)), None)
@@ -781,21 +801,25 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
     """nf4_dot at every main-path shape, on weights quantized by the port's
     own NF4 quantizer: agreement and times, each row with its route
     (decode M = 1 and 2 on "gemv"); float32 x at M = 1 and 2 on "gemv"
-    (F32_TOL) and at M = 16 on "simt"; two launches of the decode kernel
+    (F32_TOL) and at M = 16 on "f32mma"; two launches of the decode kernel
     bit-equal (bf16 and float32); at M = 1 the decode kernel, the old
     CUDA-core kernel ("simt") and the library at every site in both dtypes
     (`decode` rows); the decode kernel at every cluster size at M = 1 (the
     plan scan behind `_gemv_plan`); ragged shapes of every route; and the
     crossover scan of the three kernels at M = 1..4 on wgu and wd; the
     batched regime, M = SLOTS in float32 and bf16, and the float32 prefill
-    at M = prefill_m (`batch_rows`). Returns (rows, scan, decode, plans,
-    batch)."""
+    at M = prefill_m (`batch_rows`; float32 x on "f32mma" beside the
+    CUDA-core kernel it replaced); the float32 prefill route's own checks
+    (`nf4_f32mma_checks`; a fused weight's columns bit-equal to its parts'
+    at M = prefill_m) and its crossover scan against "simt" at M = 3..16
+    on wgu and wd. Returns (rows, scan, decode, plans, batch, f32mma,
+    f32_scan)."""
     from importlib import import_module
 
     quant = import_module(PORT + ".models.quant")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    rows, scan, decode, plans, batch = [], [], [], [], []
+    rows, scan, decode, plans, batch, f32mma, f32_scan = [], [], [], [], [], [], []
     ms = tuple(sorted({1, 2, 8, 16, prompt_len, prefill_m, 128, 512}))
     for site, k, n in SITES:
         w = nf4_weight(torch, quant, gen, dev, k, n)
@@ -819,21 +843,39 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
             lambda x: nk.nf4_dot_reference(x, w),
             {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
              torch.float32: lambda x: torch.matmul(x, w_deq32)},
-            nf4_bytes, -(-k // 64), gen, dev, bw, flush)
+            nf4_bytes, -(-k // 64), gen, dev, bw, flush, "f32mma")
         decode += rows_1
         plans.append(point)
+        simt = lambda x: nk._launch(x, w, "simt")       # noqa: E731
         batch += batch_rows(
             torch, "nf4_dot", nk, site, k, n, lambda x: nk.nf4_dot(x, w),
             lambda x: nk.nf4_dot_reference(x, w),
             {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
              torch.float32: lambda x: torch.matmul(x, w_deq32)},
             nf4_bytes, gen, dev, bw, {torch.float32: f32_flops, torch.bfloat16: flops},
-            flush)
+            flush, old=simt)
         batch += batch_rows(
             torch, "nf4_dot", nk, site, k, n, lambda x: nk.nf4_dot(x, w),
             lambda x: nk.nf4_dot_reference(x, w),
             {torch.float32: lambda x: torch.matmul(x, w_deq32)}, nf4_bytes, gen, dev, bw,
-            {torch.float32: f32_flops}, flush, m=prefill_m, dtypes=("float32",))
+            {torch.float32: f32_flops}, flush, m=prefill_m, dtypes=("float32",), old=simt)
+        f32mma.append(nf4_f32mma_checks(torch, nk, site, k, n, w, gen, dev))
+        # The float32 prefill route's plan depends on K alone: a fused
+        # weight's columns and a part's alone (wq, wk of wq|wk|wv; wg of
+        # wg|wu, as a full_forward over the loaded weights runs them) give
+        # the same bits.
+        if site in ("wqkv", "wgu"):
+            cuts = ((0, 4096), (4096, 5120)) if site == "wqkv" else ((0, n // 2),)
+            x = torch.randn((prefill_m, k), generator=gen, device=dev)
+            assert nk._route(prefill_m, k, n, x.dtype) == "f32mma"
+            whole = nk.nf4_dot(x, w)
+            for a, b in cuts:
+                part = quant.NF4Tensor(w.packed[:, a:b].contiguous(),
+                                       w.scales[:, a:b].contiguous(), w.in_dim, w.dtype)
+                if not torch.equal(whole[:, a:b], nk.nf4_dot(x, part)):
+                    raise AssertionError(f"nf4_dot f32mma {site} M={prefill_m}: columns "
+                                         f"{a}:{b} differ alone")
+            log(f"nf4_dot {site} f32mma (M={prefill_m}): columns {cuts} bit-equal alone")
         if site == "wgu":                            # a ragged M, tensor cores
             x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
             assert nk._route(33, k, n, x.dtype) == "mma"
@@ -847,6 +889,11 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
                                 routes=("gemv", "simt", "mma"), ms=range(1, 5),
                                 takes=lambda route, m: route != "gemv"
                                 or m <= nk.GEMV_MAX_M)
+            f32_scan += scan_routes(torch, "nf4_dot", site, k, gen, dev,
+                                    lambda x, route: nk._launch(x, w, route),
+                                    lambda x: nk.nf4_dot_reference(x, w), flush,
+                                    routes=("simt", "f32mma"), ms=range(3, 17),
+                                    dtype=torch.float32)
         del w, w_deq, w_deq32
     # Ragged shapes: in_dim not a multiple of 64, the last column block part
     # full; N % 16 != 0 takes the CUDA-core route, at decode M too.
@@ -860,7 +907,15 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
                                  (130, 48, 2, torch.bfloat16, "gemv"),
                                  (4100, 4112, 1, torch.float32, "gemv"),
                                  (4104, 96, 1, torch.bfloat16, "gemv"),
-                                 (130, 48, 2, torch.float32, "gemv")):
+                                 (130, 48, 2, torch.float32, "gemv"),
+                                 (4104, 96, 3, torch.float32, "f32mma"),
+                                 (328, 48, 33, torch.float32, "f32mma"),
+                                 (4096, 4112, 40, torch.float32, "f32mma"),
+                                 (64, 16, 5, torch.float32, "f32mma"),
+                                 (nk.GEMV_MAX_K, 48, 17, torch.float32, "f32mma"),
+                                 (nk.GEMV_MAX_K + 64, 48, 3, torch.float32, "f32mma"),
+                                 (100, 96, 5, torch.float32, "simt"),
+                                 (130, 50, 8, torch.float32, "simt")):
         w = nf4_weight(torch, quant, gen, dev, k, n)
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         assert nk._route(m, k, n, x.dtype) == want
@@ -868,9 +923,58 @@ def nf4_phase(torch, nk, dev, prompt_len: int, prefill_m: int, bw: float,
         err = (check_bf16(torch, "nf4_dot", f"K={k} N={n}", x, y, ref)
                if dtype == torch.bfloat16 else check_f32("nf4_dot", f"K={k} N={n}", y, ref))
         log(f"nf4_dot ragged K={k} N={n} M={m} {dtype} ({want}): max err {err:.3e}")
+    # x as a view one element into its storage: the float32 prefill route's
+    # 16-byte copies take a clone of it.
+    k, n, m = 4096, 4096, prefill_m
+    w = nf4_weight(torch, quant, gen, dev, k, n)
+    buf = torch.randn((m * k + 1,), generator=gen, device=dev)
+    x = buf[1:].view(m, k)
+    assert x.data_ptr() % 16 == 4 and nk._route(m, k, n, x.dtype) == "f32mma"
+    before = nk._launches_f32mma
+    err = check_f32("nf4_dot", "x at an offset", nk.nf4_dot(x, w), nk.nf4_dot_reference(x, w))
+    assert nk._launches_f32mma == before + 1
+    log(f"nf4_dot x view 4 bytes into its storage K={k} N={n} M={m} (f32mma, cloned): "
+        f"max err {err:.3e}")
     log(f"nf4_dot crossover: mma at least as fast from M={crossover(scan)} "
-        f"(MMA_MIN_M = {nk.MMA_MIN_M})")
-    return rows, scan, decode, plans, batch
+        f"(MMA_MIN_M = {nk.MMA_MIN_M}); float32 x, f32mma at least as fast as simt from "
+        f"M={crossover(f32_scan, 'f32mma')} (F32MMA_MIN_M = {nk.F32MMA_MIN_M})")
+    return rows, scan, decode, plans, batch, f32mma, f32_scan
+
+
+def nf4_f32mma_checks(torch, nk, site, k, n, w, gen, dev):
+    """nf4_dot's float32 prefill route at one site: float32 x held at M =
+    3, 8, 16, 32, 33, 64 and 512 (F32_TOL); two launches bit-equal at M =
+    32; rows 0-2 at M = 3 bit-equal to the same rows at M = 32, and again
+    with the other rows redrawn; rows 32-34 at M = 64 (a later M tile)
+    bit-equal to those rows alone. The times at M = SLOTS and prefill_m
+    beside the CUDA-core kernel are in `batch_rows`."""
+    dot = lambda x: nk._launch(x, w, "f32mma")                 # noqa: E731
+    plain = lambda x: nk.nf4_dot_reference(x, w)               # noqa: E731
+    errs, rel = {}, {}
+    for m in (3, SLOTS, 16, 32, 33, 64, 512):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        assert nk._route(m, k, n, x.dtype) == "f32mma"
+        ref = plain(x)
+        errs[m] = check_f32("nf4_dot", f"{site} f32mma M={m}", dot(x), ref)
+        rel[m] = errs[m] / ref.abs().max().item()
+        if m == 64 and not torch.equal(dot(x)[32:35], dot(x[32:35].contiguous())):
+            raise AssertionError(f"nf4_dot f32mma {site}: rows of a later M tile "
+                                 "differ alone")
+    x = torch.randn((32, k), generator=gen, device=dev)
+    y = dot(x)
+    if not torch.equal(y, dot(x)):
+        raise AssertionError(f"nf4_dot f32mma {site}: two launches differ")
+    other = torch.cat([x[:3], torch.randn((29, k), generator=gen, device=dev)])
+    if not (torch.equal(dot(x[:3].contiguous()), y[:3]) and torch.equal(dot(other)[:3], y[:3])):
+        raise AssertionError(f"nf4_dot f32mma {site}: a row's bits depend on M or on the "
+                             "other rows")
+    point = {"site": site, "K": k, "N": n, "plan": list(nk._f32mma_plan(32, k, n)),
+             "max_abs_err": errs, "rel_err": rel}
+    log(f"nf4_dot {site} f32mma: float32 max err / max|plain| "
+        + ", ".join(f"{v:.2e} (M={m})" for m, v in rel.items())
+        + f"; bit-equal over two launches, for rows 0-2 at M = 3 and rows 32-34 of M = 64; "
+        f"plan {point['plan']}")
+    return point
 
 
 def host_ms(fn, torch, reps: int = 30) -> float:
@@ -1963,26 +2067,32 @@ def f32_chain(torch, state) -> dict:
 
 
 def gemv_gate(what: str, name: str, cfg, local, graphs, tokens: int, requests: int,
-              launches: int, launches_mma: int, launches_gemv: int) -> None:
+              by_route: dict, prefill_route: str) -> None:
     """Over TCP every decode step of every layer takes the decode kernel
     (stage 0 with bf16 x, stages 1-3 with the float32 the wire decodes to),
-    and only the float32 prefill of stages 1-3 takes the CUDA-core route:
-    4 launches a layer of those stages for each request, and for each
-    eager warm-up run of a capture (at most one a capture)."""
-    simt = launches - launches_mma - launches_gemv
+    and the float32 prefill of stages 1-3 takes `prefill_route` (the route
+    `_route` gives float32 x at the prompt's bucket: "simt" for int8_dot,
+    "f32mma" for nf4_dot): exactly 4 launches a layer of those stages for
+    each request, and for each eager warm-up run of a capture (at most one
+    a capture); besides stage 0's prefill on the tensor cores, no launch
+    takes any other route. `by_route` maps each route to its launches."""
     later = cfg.num_layers - local.plan.stages[0].num_layers
     need_gemv = 4 * cfg.num_layers * (tokens - requests)
     captures = sum(c for peer, (c, _) in graphs["per_stage"].items()
                    if peer != local.stage0.peer_id)
-    passes, rest = divmod(simt, 4 * later)
-    log(f"{what}: {name} decode-kernel launches {launches_gemv} (>= 4 x "
+    passes, rest = divmod(by_route[prefill_route], 4 * later)
+    others = {route: n for route, n in by_route.items()
+              if route not in ("mma", "gemv", prefill_route) and n}
+    log(f"{what}: {name} decode-kernel launches {by_route['gemv']} (>= 4 x "
         f"{cfg.num_layers} x {tokens - requests} decode steps = {need_gemv}), "
-        f"CUDA-core {simt} (float32 prefill: 4 x {later} layers x {passes} passes, "
-        f"{requests} requests + <= {captures} warm-ups)")
-    if launches_gemv < need_gemv or rest or not requests <= passes <= requests + captures:
-        raise AssertionError(f"{what}: {name} launches gemv {launches_gemv} / simt {simt}: "
-                             "a decode step left the decode kernel, or more than the "
-                             "float32 prefill took the CUDA-core route")
+        f"{prefill_route} {by_route[prefill_route]} (float32 prefill: 4 x {later} layers x "
+        f"{passes} passes, {requests} requests + <= {captures} warm-ups), other routes "
+        f"{others or 0}")
+    if (by_route["gemv"] < need_gemv or rest or not requests <= passes <= requests + captures
+            or others):
+        raise AssertionError(f"{what}: {name} launches by route {by_route}: a decode step "
+                             f"left the decode kernel, or the float32 prefill left "
+                             f"{prefill_route}, or another route ran")
 
 
 def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
@@ -2043,9 +2153,11 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
         results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
                    for ids, (_, sp) in zip(state["prompt_ids"], state["requests"])]
         torch.cuda.synchronize()
-        launches = kernels[name]._launches
-        launches_mma = kernels[name]._launches_mma
-        launches_gemv = getattr(kernels[name], "_launches_gemv", None)
+        mod = kernels[name]
+        launches, launches_mma = mod._launches, mod._launches_mma
+        launches_gemv, launches_f32mma = mod._launches_gemv, mod._launches_f32mma
+        by_route = {"mma": launches_mma, "gemv": launches_gemv, "f32mma": launches_f32mma,
+                    "simt": launches - launches_mma - launches_gemv - launches_f32mma}
         draws = draw_gate(f"tcp {args.quant}", kernels, executors, results,
                           state["requests"])
         socket_phase = prof.snapshot().get("socket")
@@ -2055,7 +2167,13 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
         tokens = sum(len(r.tokens) for r in results)
         graphs = graph_counts(f"tcp {args.quant}", executors, tokens)
         # Stage 0 (in the client) is the one span whose prefill x is still
-        # bf16: the stages behind TCP get float32 x, the CUDA-core route.
+        # bf16: the stages behind TCP get float32 x at the prompt's bucket,
+        # which takes the route `_route` gives it at every site.
+        prefill_m = import_module(PORT + ".runtime.kv_cache").round_to_bucket(
+            len(state["prompt_ids"][0]), executor_mod.SEQ_BUCKETS)
+        prefill_route = {mod._route(prefill_m, k, n, torch.float32) for _, k, n in SITES}
+        assert len(prefill_route) == 1, prefill_route
+        prefill_route = prefill_route.pop()
         stage0_layers = local.plan.stages[0].num_layers
         need, need_mma = 4 * cfg.num_layers * tokens, 4 * stage0_layers * len(results)
         log(f"tcp {args.quant}: {tokens} tokens over {len(results)} requests, {name} "
@@ -2064,12 +2182,8 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
         if launches < need or launches_mma < need_mma:
             raise AssertionError(f"tcp {args.quant}: {name} launches {launches} / "
                                  f"{launches_mma}, want >= {need} / {need_mma}")
-        if getattr(kernels[name], "_launches_f32mma", 0):
-            raise AssertionError(f"tcp {args.quant}: {name} took the batched route: a "
-                                 "session runs no float32 x at M 3-8")
-        if launches_gemv is not None:
-            gemv_gate(f"tcp {args.quant}", name, cfg, local, graphs, tokens,
-                      len(results), launches, launches_mma, launches_gemv)
+        gemv_gate(f"tcp {args.quant}", name, cfg, local, graphs, tokens, len(results),
+                  by_route, prefill_route)
         if chain is not None:
             for r, want in zip(results, chain["results"]):
                 if r.tokens != want.tokens:
@@ -2091,8 +2205,9 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
             "held_to": ("equal to the float32-after-stage-0 chain" if chain is not None
                         else "float32-cache references, near-tie rule"),
             f"{name}_launches": launches, f"{name}_launches_mma": launches_mma,
-            **({f"{name}_launches_gemv": launches_gemv}
-               if launches_gemv is not None else {}),
+            f"{name}_launches_gemv": launches_gemv,
+            f"{name}_launches_f32mma": launches_f32mma,
+            f"{name}_launches_by_route": by_route, "float32_prefill_route": prefill_route,
             "sample_draw": draws,
             "graphs": graphs, "native_codec": native.have_native(),
             "ttft_ms": [r.ttft_s * 1e3 for r in results],
@@ -2876,15 +2991,19 @@ def decode_layer(rows):
     return {key: sum(r[key] for r in rows) for key in keys}
 
 
-def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batched):
+def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batched, tcp):
     """One kernel of the ``kernels`` line: one decode layer's four sites at
     M = 1 summed, and one prefill layer (M = prefill_m, the prompt padded to
     its sequence bucket, as the executors run it) under ``prefill``; the
     decode layer with float32 x (the stages behind TCP) under
     ``decode_float32``, from the `decode` rows; the path's launches, and
-    under ``launches_by_route`` each route's share; the batched regime
-    (M = SLOTS) under ``batched_<dtype>`` with its route (float32 with the
-    old CUDA-core kernel's ms beside it for ``int8_dot``)."""
+    under ``launches_by_route`` each route's share; the same path over
+    in-process TCP (`tcp`, its summary) under ``launches_tcp_by_route``
+    (stages 1-3's float32 prefill: ``int8_dot`` on "simt", ``nf4_dot`` on
+    "f32mma"); the batched regime (M = SLOTS) and the float32 prefill (M =
+    prefill_m) under ``batched_<dtype>`` and ``prefill_float32`` with their
+    route (float32 with the old CUDA-core kernel's ms beside it where the
+    phase timed it)."""
     decode_rows = [r for r in rows if r["M"] == 1]
     launches = summary[f"{name}_launches"]
     by_route = {"mma": summary[f"{name}_launches_mma"]}
@@ -2897,6 +3016,8 @@ def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batche
              "replaces": "global_capstone_design_distributed_inference_of_llms_over_"
                          "the_internet_tpu/" + REPLACES[name],
              "launches": launches, "launches_by_route": by_route,
+             "launches_tcp": tcp[f"{name}_launches"],
+             "launches_tcp_by_route": tcp[f"{name}_launches_by_route"],
              "at": "one decode layer: wqkv+wo+wgu+wd at M=1, bf16, L2 cold",
              "decode_route": "+".join(sorted({r["route"] for r in decode_rows})),
              **layer_sum(decode_rows), "library": LIBRARY_NOTE}
@@ -2998,8 +3119,10 @@ def main(argv) -> int:
     log(json.dumps({"int8_dot_f32mma": int8_f32mma, "int8_dot_f32mma_per_layer": {
         f"M={m}": {route: sum(p[f"M{m}_{route}_ms"] for p in int8_f32mma)
                    for route in ("f32mma", "gemv")} for m in (1, 2)}, "card": smi}))
-    nf4_rows, nf4_scan, nf4_decode, nf4_plans, nf4_batch = nf4_phase(
+    nf4_rows, nf4_scan, nf4_decode, nf4_plans, nf4_batch, nf4_f32mma, nf4_f32_scan = nf4_phase(
         torch, nk, "cuda", prompt_len, prefill_m, bw, flops, flush, f32_flops)
+    log(json.dumps({"nf4_dot_f32mma": nf4_f32mma, "nf4_dot_f32mma_crossover": nf4_f32_scan,
+                    "card": smi}))
     for kname, batch in (("int8_dot", int8_batch), ("nf4_dot", nf4_batch)):
         log(json.dumps({f"{kname}_batched": batch, f"{kname}_batched_per_layer": {
             f"{dtype} M={m}": layer_sum([r for r in batch
@@ -3043,6 +3166,25 @@ def main(argv) -> int:
                              "function int8_f32mma_kernel in the library)")
     if f32mma_sass.get("I2F", 0):
         raise AssertionError(f"int8_f32mma_kernel: {f32mma_sass['I2F']} I2F in its SASS")
+    # nf4_dot's float32 prefill route at each M tile (8 and 16 rows of x):
+    # on the tensor cores (HMMA), with no local memory (a spill would show
+    # as STL / LDL, and in ptxas's spill lines).
+    nf4_sass = {f"nf4_f32mma_kernel<{frags}>": sass_counts("nf4_dot",
+                                                           f"nf4_f32mma_kernelILi{frags}E")
+                for frags in (1, nk.F32MMA_MAX_FRAGS)}
+    spills = [line for src, text in import_module(PORT + ".utils.cuda_build")
+              .build_logs.items() for kernel, line in ptxas_usage(text)
+              if kernel.startswith("nf4_f32mma_kernel") and "spill" in line
+              and not re.fullmatch(r"0 bytes stack frame, 0 bytes spill stores, "
+                                   r"0 bytes spill loads", line)]
+    log(json.dumps({"nf4_f32mma_sass": nf4_sass, "nf4_f32mma_spills": spills}))
+    for kernel, counts in nf4_sass.items():
+        if not counts or not counts.get("HMMA"):
+            raise AssertionError(f"{kernel}: no SASS read or no HMMA (cuobjdump missing, or "
+                                 "no such function in the library)")
+        if counts.get("STL") or counts.get("LDL") or spills:
+            raise AssertionError(f"{kernel}: local memory in its SASS ({counts.get('STL', 0)} "
+                                 f"STL, {counts.get('LDL', 0)} LDL) or spills {spills}")
     del flush
     draw = draw_phase(torch, dk, tf3, bw)
     log(json.dumps({"sample_draw": draw, "card": smi}))
@@ -3105,9 +3247,9 @@ def main(argv) -> int:
     log(json.dumps({"batched_cli_path": batched["cli"]}))
 
     kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m, int8_decode,
-                            int8_batch, batched["in_process"]),
+                            int8_batch, batched["in_process"], tcp["int8"]),
                kernel_entry("nf4_dot", nf4_rows, nf4_summary, prefill_m, nf4_decode,
-                            nf4_batch, None),
+                            nf4_batch, None, tcp["nf4"]),
                draw_entry(draw, int8_summary["sample_draw"]["launches"],
                           batched["in_process"]["sample_draw_launches"])]
     log(json.dumps({"kernels": kernels}))

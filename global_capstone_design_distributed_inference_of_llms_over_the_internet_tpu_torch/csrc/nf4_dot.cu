@@ -6,15 +6,18 @@
 // Replaces the TPU kernel ops/nf4_kernel.py:_make_kernel (the Pallas kernel
 // behind nf4_dot, the pallas_call at :132) of the JAX package. It runs at
 // every projection of --quant nf4 serving with NF4_KERNEL=1: wqkv, wo, wgu
-// and wd of every layer. Three kernels compute that one function; the
+// and wd of every layer. Four kernels compute that one function; the
 // wrapper (ops/nf4_kernel.py, `_route`) picks one from M, K, N and x's dtype
 // alone:
 //   * nf4_gemv_kernel ("gemv"): decode, M <= 2 (bf16 x below MMA_MIN_M,
 //     float32 x at M <= 2), N % 16 == 0, K <= 32768;
+//   * nf4_f32mma_kernel ("f32mma", after nf4_f32mma_split_kernel): float32 x
+//     at M >= 3 (the prefill of the stages behind TCP, which compute in the
+//     float32 the wire decodes to), N % 16 == 0, K % 8 == 0, any K;
 //   * nf4_dot_mma_kernel, on the tensor cores ("mma"): bf16 x at prefill M
 //     with N % 16 == 0 and K % 8 == 0 (every llama-3.1-8b site);
-//   * nf4_dot_kernel, on the CUDA cores ("simt"): float32 x at prefill M, and
-//     shapes the other two do not take (N % 16 != 0, say).
+//   * nf4_dot_kernel, on the CUDA cores ("simt"): the shapes the others do
+//     not take (N % 16 != 0, K % 8 != 0 at prefill M, say).
 //
 // Layout of W (models/quant.py NF4Tensor): packed uint8 [P, N], P = in_pad/2,
 // the high nibble of packed[r][n] is weight row 2r, the low nibble row 2r+1;
@@ -81,9 +84,83 @@
 // time; how the rest splits between the weight stream and each launch's
 // start and end is not measured.
 //
+// ---- nf4_f32mma_kernel (float32 x at prefill M) ----
+// The stages behind TCP compute in the float32 the wire decodes to, as the
+// reference does, so their prefill projections get float32 x at the
+// prompt's bucket (M = 32 for chip_smoke.py's prompts; chunks up to 2048).
+// The function is the reference's: w = NF4_LEVELS[code] * scale in float32,
+// float32 sums, y float32. What bounds it on an H100: at M = 32 a packed
+// byte (two weights) carries 128 FLOP, under the bf16 ridge, so on the
+// tensor cores the weight bytes would (0.035 ms a llama-3.1-8b layer); but
+// float32 products are not bf16 ones. The CUDA-core kernel did every
+// product as an FFMA (13.96 GFLOP a layer at M = 32) and re-read and
+// dequantized every weight for each 8-row M tile. What the design does:
+//   * The products on the tensor cores in bf16 terms. x = x0 + x1 + x2,
+//     each term bf16 of what the earlier ones leave (exact for every normal
+//     float32). Each NF4 level = L0 + L1, L0 = bf16(level), L1 = bf16(level
+//     - L0): 2^-17 of the level at most. The scale is bf16 and the same for
+//     a scale block's 64 k, so a block's sums are taken over the levels and
+//     multiplied by each column's scale once per block (an FFMA into the
+//     running sums): level * scale * x summed per block, not the rounded
+//     float32 weight, a difference of 2^-24 of a product. Per block the
+//     products x_t * L_u with t + u <= 2 ((0,0), (1,0), (0,1), (2,0),
+//     (1,1)) go through mma.sync m16n8k16 into float32 sums; each product
+//     of two bf16 terms is exact in float32, so only the dropped terms
+//     (about 2^-17 of a product) and the order of the sums differ from the
+//     plain version: 2.2-3.4e-6 of max|plain| at the llama-3.1-8b sites
+//     (chip_smoke.py, PERF.md).
+//   * nf4_f32mma_split_kernel splits x into its three terms once a call,
+//     into scratch the wrapper allocates, pairs c and c + 4 of each 8 pairs
+//     side by side (one B-fragment register pair of the mma). Split in each
+//     CTA instead, every x value is split once for every column strip (224
+//     times at wgu), behind a second barrier in every block.
+//   * The decode kernel's strips and split-K: a CTA owns 128 columns, a
+//     warp 32 of them (two m16 tiles), and the ranks of a thread-block
+//     cluster (split <= 8, the wrapper's `_f32mma_plan`, a function of K
+//     alone so that fused and unfused projections give the same bits) a
+//     whole number of scale blocks each. M tiles of 16 rows (two n8
+//     fragments of x; 8 rows when M <= 8) along the grid's second
+//     dimension, next to each other, so the M tiles of a strip share its
+//     weight bytes in L2.
+//   * A ring of 3 slots in shared memory, one scale block each (the
+//     strip's 32 packed rows, its 128 scales, the block's terms of x),
+//     filled by cp.async two blocks ahead; rows swizzled (16-byte chunk q
+//     of row r at q ^ 2 (r & 3)), so a warp's 4-byte weight reads and
+//     8-byte x-term reads are free of bank conflicts without padding.
+//   * Per byte one 8-byte lookup in a 256-entry pair table in shared
+//     memory (8 copies of each entry, lane % 8 reading its own) gives both
+//     level terms' A-fragment registers of its two weights (rows 2r, 2r +
+//     1: exactly one register of the m16n8k16 A fragment): no float math a
+//     weight. Lane (g, c) reads columns 4g .. 4g + 3 of the warp's 32:
+//     fragment row g of tile t is column 4g + 2t, row g + 8 column 4g + 2t
+//     + 1.
+//   * After the loop each CTA's sums go into its drained ring; once every
+//     rank is past its loop each pushes its sums of row m into rank m %
+//     split's slots through distributed shared memory, and after a cluster
+//     barrier each rank adds its rows in rank order and writes y: one
+//     launch (after the split), no atomics, deterministic, and a row's
+//     bits do not depend on M or on the other rows. (Pulling the sums from
+//     the other ranks instead waits out a distributed shared memory load
+//     for each rank and row.)
+//   * 47 KB of shared memory a CTA at 16 rows and 122 registers, so four
+//     CTAs share an SM: 16-row M tiles ran 21% faster at M = 32 than
+//     32-row ones at three CTAs an SM, which read and look up each weight
+//     half as often; 16 table copies (conflict-free lookups, 32 KB) and a
+//     ring of 4 ran 7-11% slower (scripts/torch_nf4_f32mma_variants.py).
+// Measured (PERF.md): a llama-3.1-8b layer's four sites at M = 32 in
+// ~0.39 ms with the L2 cold, against 1.26 for the CUDA-core kernel and
+// 0.45 for torch.matmul on the dequantized float32 weight in the same run
+// (9.3x the 0.042 ms bound); at M = 8 ~0.18 ms against 0.38. The loop runs
+// near mma.sync's issue rate on this card (~10 cycles an m16n8k16 per SM
+// sub-partition at four CTAs an SM, scripts/torch_nf4_f32mma_profile.py);
+// a CTA's set-up, the cluster's barriers and the push take about a third
+// of its time. Three products instead of five took 13% off at 5.0e-6 of
+// max|plain| (scripts/torch_nf4_f32mma_variants.py).
+//
 // ---- nf4_dot_kernel (CUDA cores) ----
-// The first port of the kernel and the decode kernel until the gemv route:
-// now float32 x at prefill M and shapes the other routes do not take. What
+// The first port of the kernel, the decode kernel until the gemv route and
+// float32 prefill until the f32mma route: now the shapes the other routes
+// do not take. What
 // bounds it: at small M the bytes it reads, as above; per weight it does a
 // table lookup, a multiply and a rounding before the FMA.
 //
@@ -167,6 +244,12 @@
 //     The decode route: M <= 2, N % 16 == 0, packed and scales 16-byte
 //     aligned; strip_cols = 128 and the cluster size split (1..8) from the
 //     wrapper's `_gemv_plan`, with at most 64 scale blocks a rank.
+//   int nf4_dot_f32mma_launch(...the gemv's arguments..., terms)
+//     The float32 prefill route: x_dtype 0, N % 16 == 0, K % 8 == 0, x,
+//     packed, scales and terms 16-byte aligned; the plan (strip_cols = 128,
+//     split 1..8) from the wrapper's `_f32mma_plan`; terms is scratch of
+//     3 * M * P 32-bit words that the wrapper allocates. Two launches on
+//     `stream`: the split of x into terms, then the matmul.
 //   const char* nf4_dot_error_string(int code)
 
 #include <cooperative_groups.h>
@@ -1053,6 +1136,33 @@ __global__ void __launch_bounds__(kGemvThreads)
   }
 }
 
+// A launch of `kernel` on `grid`, its x dimension the split ranks of one
+// thread-block cluster (cudaLaunchKernelEx, which CUDA graphs capture), with
+// `smem` bytes of dynamic shared memory: above 48 KB it must be asked for
+// first. Both split-K kernels launch this way.
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kGemvThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <typename T, int M>
 cudaError_t launch_gemv(const void* x, const void* pk, const void* sc, void* y,
                         int K, int P, int N, int split, cudaStream_t stream) {
@@ -1060,32 +1170,13 @@ cudaError_t launch_gemv(const void* x, const void* pk, const void* sc, void* y,
   const int chunk = (blocks + split - 1) / split;
   const int strips = (N + kGemvStrip - 1) / kGemvStrip;
   if (chunk > kGemvMaxChunk || strips > 65535) return cudaErrorInvalidValue;
-  const size_t smem = gemv_smem<T, M>(chunk * kRowsPerScale, split);
-  // Above 48 KB of dynamic shared memory must be asked for first.
-  cudaError_t err = cudaFuncSetAttribute(
-      nf4_gemv_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, strips, 1);
-  cfg.blockDim = dim3(kGemvThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, nf4_gemv_kernel<T, M>, static_cast<const T*>(x),
+  return launch_cluster(
+      nf4_gemv_kernel<T, M>, dim3(split, strips, 1),
+      gemv_smem<T, M>(chunk * kRowsPerScale, split), stream, static_cast<const T*>(x),
       static_cast<const uint8_t*>(pk), static_cast<const __nv_bfloat16*>(sc),
       static_cast<T*>(y), K, P, N, chunk,
       K % (16 / static_cast<int>(sizeof(T))) == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 // The most a CTA takes (kGemvMaxChunk blocks of float32 x at M = 2, the
@@ -1094,6 +1185,363 @@ cudaError_t launch_gemv(const void* x, const void* pk, const void* sc, void* y,
 static_assert(2 * (gemv_smem<float, 2>(kGemvMaxChunk * kRowsPerScale,
                                        kGemvMaxSplit) + 1024) <= kSmemPerSM,
               "two of the gemv's largest CTAs fit an SM's shared memory");
+
+// ---- The float32 prefill route: bf16 terms on the tensor cores ----
+
+constexpr int kF32MmaTerms = 3;        // bf16 terms of a float32 x value
+constexpr int kF32MmaLevelTerms = 2;   // bf16 terms of an NF4 level
+constexpr int kF32MmaProducts = 5;     // term products summed, t + u <= 2
+constexpr int kF32MmaMaxFrags = 2;     // n8 fragments of x a CTA: 16 rows
+constexpr int kF32MmaStages = 3;       // ring slots, one scale block each
+constexpr int kF32MmaCopies = 8;       // copies of each pair-table entry
+constexpr int kF32MmaSplitThreads = 256;
+constexpr int kF32MmaTableBytes = 256 * kF32MmaCopies * 8;
+
+// Product p of a scale block's sums: x term f32mma_x(p) times level term
+// f32mma_l(p): (0, 0), (1, 0), (0, 1), (2, 0), (1, 1), the largest first.
+__host__ __device__ constexpr int f32mma_x(int p) {
+  return p == 1 || p == 4 ? 1 : p == 3 ? 2 : 0;
+}
+__host__ __device__ constexpr int f32mma_l(int p) { return p == 2 || p == 4 ? 1 : 0; }
+
+// A CTA's shared memory at NF n8 fragments of x (8 NF rows): the pair
+// table, then a ring of kF32MmaStages slots, each one scale block of the
+// strip: its 32 packed rows x 128 columns, its 128 bf16 scales, and its 64
+// k of each row of x as the terms (32 words a row and term). Rows of the
+// weights and of the terms are swizzled: 16-byte chunk q of row r sits at
+// chunk q ^ 2 (r & 3), so the lanes' reads below are free of bank
+// conflicts with no padding. After the loop the drained ring takes the
+// CTA's sums [column][row + 2 pad] and then the slots that the cluster's
+// ranks push to this one, [rank][row / split][column].
+template <int NF>
+struct F32MmaTile {
+  static constexpr int kRows = 8 * NF;
+  static constexpr int kWBytes = kRowsPerScale * kGemvStrip;
+  static constexpr int kSBytes = kGemvStrip * 2;
+  static constexpr int kXtBytes = kF32MmaTerms * kRows * kRowsPerScale * 4;
+  static constexpr int kSlotBytes = kWBytes + kSBytes + kXtBytes;
+  static constexpr int kSumPitch = kRows + 2;
+  static constexpr int kSumBytes = kGemvStrip * kSumPitch * 4;
+  static constexpr int kSmem = kF32MmaTableBytes + kF32MmaStages * kSlotBytes;
+  static_assert(kSlotBytes % 16 == 0 && kSumBytes % 16 == 0, "16-byte copies");
+  static_assert(kSumBytes + (kRows + kGemvMaxSplit - 1) * kGemvStrip * 4 <=
+                    kF32MmaStages * kSlotBytes,
+                "the sums and the pushed slots fit the drained ring");
+};
+
+// Four CTAs an SM at every number of rows (47 KB at 16 rows).
+static_assert(4 * (F32MmaTile<kF32MmaMaxFrags>::kSmem + 1024) <= kSmemPerSM,
+              "four of the largest CTAs fit an SM's shared memory");
+
+// Pair q of row m (x[m][2q], x[m][2q + 1]) sits in the term buffer at word
+// f32mma_pos(q) of the row: within each 8 pairs (a k16 slice) pairs c and
+// c + 4, the B fragment's two registers of lane c, side by side.
+__device__ __forceinline__ int f32mma_pos(int q) {
+  return (q & ~7) | ((q & 3) << 1) | ((q >> 2) & 1);
+}
+
+// x [M, K] float32 into its bf16 terms, once a call: term t of a value is
+// bf16 of what the earlier terms leave (each subtraction exact; three terms
+// hold every normal float32 exactly); a word holds a pair of k. terms is
+// [kF32MmaTerms][M][P] words, zero past K.
+__global__ void __launch_bounds__(kF32MmaSplitThreads)
+    nf4_f32mma_split_kernel(const float* __restrict__ x, uint32_t* __restrict__ terms,
+                            int M, int K, int P) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kF32MmaSplitThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(M) * P) return;
+  const int m = static_cast<int>(i / P), q = static_cast<int>(i % P);
+  float2 v = 2 * q < K ? *reinterpret_cast<const float2*>(x + static_cast<size_t>(m) * K + 2 * q)
+                       : make_float2(0.f, 0.f);
+  uint32_t* out = terms + static_cast<size_t>(m) * P + f32mma_pos(q);
+#pragma unroll
+  for (int u = 0; u < kF32MmaTerms; ++u) {
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.x, v.y);
+    out[static_cast<size_t>(u) * M * P] = *reinterpret_cast<const uint32_t*>(&b);
+    v.x -= __low2float(b);
+    v.y -= __high2float(b);
+  }
+}
+
+// The pair-table entry of byte b: the A-fragment register of its two
+// levels (weight rows 2r, 2r + 1: the high nibble's level in the low half)
+// for each level term, L0 = bf16(level), L1 = bf16(level - L0). `levels`:
+// the 16 levels in shared memory.
+__device__ __forceinline__ uint2 f32mma_entry(const float* levels, int b) {
+  uint32_t w[kF32MmaLevelTerms];
+  float hi = levels[b >> 4], lo = levels[b & 15];
+#pragma unroll
+  for (int u = 0; u < kF32MmaLevelTerms; ++u) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(hi, lo);
+    w[u] = *reinterpret_cast<const uint32_t*>(&p);
+    hi -= __low2float(p);
+    lo -= __high2float(p);
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+// Byte j of `v` through the pair table: both level terms' A registers.
+// `tab` is the shared address of the copy this lane reads (lane %
+// kF32MmaCopies): at 8 copies two lanes of a half-warp share a bank pair
+// only when their bytes differ in the lowest bit.
+__device__ __forceinline__ uint2 f32mma_levels(uint32_t v, uint32_t tab, int j) {
+  const uint32_t addr = tab + __byte_perm(v, 0u, 0x4440u | j) * (kF32MmaCopies * 8);
+  uint2 out;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+               : "=r"(out.x), "=r"(out.y)
+               : "r"(addr));
+  return out;
+}
+
+__device__ __forceinline__ void mma_16816_zero(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// This thread's copies of scale block `blk` into ring slot `slot`: the
+// strip's 32 packed rows (16-byte chunk e: row e / 8, chunk e % 8), its 128
+// scales (threads 0-15), and the block's 32 words of each term of each of
+// the tile's rows (chunk e: term and row e / 8, chunk e % 8), swizzled;
+// zero-filled past N and past M.
+template <int NF>
+__device__ __forceinline__ void f32mma_copy(unsigned char* slot,
+                                            const uint8_t* __restrict__ pk,
+                                            const __nv_bfloat16* __restrict__ sc,
+                                            const uint32_t* __restrict__ terms, int blk,
+                                            int strip0, int m0, int M, int P, int N) {
+  using T = F32MmaTile<NF>;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int e0 = 0; e0 < kRowsPerScale * 8 / kGemvThreads; ++e0) {
+    const int e = t + e0 * kGemvThreads;
+    const int row = e >> 3, q = e & 7;
+    const bool ok = strip0 + 16 * q < N;
+    cp_async16(slot + row * kGemvStrip + 16 * (q ^ (2 * (row & 3))),
+               ok ? pk + (static_cast<size_t>(blk) * kRowsPerScale + row) * N + strip0 + 16 * q
+                  : pk,
+               ok);
+  }
+  if (t < kGemvStrip / 8) {
+    const bool ok = strip0 + 8 * t < N;
+    cp_async16(slot + T::kWBytes + 16 * t,
+               ok ? sc + static_cast<size_t>(blk) * N + strip0 + 8 * t : sc, ok);
+  }
+  unsigned char* xs = slot + T::kWBytes + T::kSBytes;
+#pragma unroll
+  for (int e0 = 0; e0 < (kF32MmaTerms * T::kRows * 8 + kGemvThreads - 1) / kGemvThreads;
+       ++e0) {
+    const int e = t + e0 * kGemvThreads;
+    if (e < kF32MmaTerms * T::kRows * 8) {
+      const int u = e / (T::kRows * 8), m = (e >> 3) % T::kRows, q = e & 7;
+      const bool ok = m0 + m < M;
+      cp_async16(xs + (u * T::kRows + m) * 128 + 16 * (q ^ (2 * (m & 3))),
+                 ok ? terms + (static_cast<size_t>(u) * M + m0 + m) * P + blk * kRowsPerScale +
+                          4 * q
+                    : terms,
+                 ok);
+    }
+  }
+}
+
+// A warp's 32 columns of one scale block into its sums. Lane (g, c) reads 4
+// bytes (columns 4g .. 4g + 3 of the warp's) of packed rows c and c + 4 of
+// each 8-row slice: fragment row g of tile t is column 4g + 2t, row g + 8
+// column 4g + 2t + 1, k the slice's weight rows 2c, 2c + 1 (row c) and 2c +
+// 8, 2c + 9 (row c + 4). Per slice the products of the level terms (A) and
+// x's terms (B: fragment f is rows 8f .. 8f + 7 of the tile) go into the
+// block's own float32 sums; then each column's scale multiplies the block's
+// sums into the running ones, in block order.
+template <int NF>
+__device__ __forceinline__ void f32mma_block(float (&acc)[2][NF][4],
+                                             const unsigned char* slot, uint32_t tab,
+                                             int warp, int g, int c) {
+  using T = F32MmaTile<NF>;
+  // Row r = 8 sl + c (+ 4) has r & 3 = c: its word 8 warp + g sits at
+  // (8 warp + g) ^ 8c.
+  const uint32_t* wr =
+      reinterpret_cast<const uint32_t*>(slot) + 32 * c + ((8 * warp + g) ^ (8 * c));
+  const uint2 sraw = *reinterpret_cast<const uint2*>(slot + T::kWBytes + 64 * warp + 8 * g);
+  const float s[4] = {__uint_as_float(sraw.x << 16), __uint_as_float(sraw.x & 0xFFFF0000u),
+                      __uint_as_float(sraw.y << 16), __uint_as_float(sraw.y & 0xFFFF0000u)};
+  // Row 8f + g of a term has (8f + g) & 3 = g & 3: slice sl's words sit at
+  // 8 (sl ^ (g & 3)) + 2c.
+  const uint32_t* xr = reinterpret_cast<const uint32_t*>(slot + T::kWBytes + T::kSBytes) +
+                       32 * g + 2 * c;
+  float blk[2][NF][4];
+#pragma unroll
+  for (int sl = 0; sl < 4; ++sl) {
+    const uint32_t w0 = wr[32 * kGemvSlice * sl];
+    const uint32_t w1 = wr[32 * (kGemvSlice * sl + 4)];
+    uint32_t a[kF32MmaLevelTerms][2][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const uint2 e0 = f32mma_levels(w0, tab, 2 * t);
+      const uint2 e1 = f32mma_levels(w0, tab, 2 * t + 1);
+      const uint2 e2 = f32mma_levels(w1, tab, 2 * t);
+      const uint2 e3 = f32mma_levels(w1, tab, 2 * t + 1);
+      a[0][t][0] = e0.x, a[0][t][1] = e1.x, a[0][t][2] = e2.x, a[0][t][3] = e3.x;
+      a[1][t][0] = e0.y, a[1][t][1] = e1.y, a[1][t][2] = e2.y, a[1][t][3] = e3.y;
+    }
+    const int xoff = 8 * (sl ^ (g & 3));
+    uint2 b[kF32MmaTerms][NF];
+#pragma unroll
+    for (int u = 0; u < kF32MmaTerms; ++u)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        b[u][f] = *reinterpret_cast<const uint2*>(xr + (u * T::kRows + 8 * f) * 32 + xoff);
+#pragma unroll
+    for (int p = 0; p < kF32MmaProducts; ++p)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          const uint2 bb = b[f32mma_x(p)][f];
+          if (sl == 0 && p == 0) {
+            mma_16816_zero(blk[t][f], a[f32mma_l(p)][t], bb.x, bb.y);
+          } else {
+            mma_16816(blk[t][f], a[f32mma_l(p)][t], bb.x, bb.y);
+          }
+        }
+  }
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[t][f][e] = fmaf(blk[t][f][e], s[2 * t + (e >> 1)], acc[t][f][e]);
+}
+
+template <int NF>
+__global__ void __launch_bounds__(kGemvThreads)
+    nf4_f32mma_kernel(const uint32_t* __restrict__ terms, const uint8_t* __restrict__ pk,
+                      const __nv_bfloat16* __restrict__ sc, float* __restrict__ y,
+                      int M, int P, int N, int chunk) {
+  using T = F32MmaTile<NF>;
+  extern __shared__ __align__(16) unsigned char gsmem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x;  // the cluster spans gridDim.x
+  const int split = gridDim.x;
+  const int m0 = blockIdx.y * T::kRows;
+  const int strip0 = blockIdx.z * kGemvStrip;
+  const int blocks = P / kRowsPerScale;
+  const int b0 = rank * chunk;
+  const int count = max(min(b0 + chunk, blocks) - b0, 0);
+  unsigned char* ring = gsmem + kF32MmaTableBytes;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+
+  // The rank's scale blocks b0 .. b0 + count - 1 through the ring; the
+  // first kF32MmaStages - 1 are asked for before the table is built, and
+  // each later one kF32MmaStages - 1 blocks ahead of the work.
+#pragma unroll
+  for (int i = 0; i < kF32MmaStages - 1; ++i) {
+    if (i < count) {
+      f32mma_copy<NF>(ring + i * T::kSlotBytes, pk, sc, terms, b0 + i, strip0, m0, M, P, N);
+    }
+    cp_async_commit();
+  }
+  // The levels into shared memory first: a warp's entries read 4-8
+  // different levels, which __constant__ memory would serialise.
+  __shared__ float levels[16];
+  if (threadIdx.x < 16) levels[threadIdx.x] = kLevels[threadIdx.x];
+  __syncthreads();
+  uint2* table = reinterpret_cast<uint2*>(gsmem);
+  for (int e = threadIdx.x; e < 256 * kF32MmaCopies; e += kGemvThreads) {
+    table[e] = f32mma_entry(levels, e / kF32MmaCopies);
+  }
+  const uint32_t tab = static_cast<uint32_t>(__cvta_generic_to_shared(gsmem)) +
+                       8 * (lane % kF32MmaCopies);
+  float acc[2][NF][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][f][e] = 0.f;
+  for (int i = 0; i < count; ++i) {
+    // Block i has landed; after the barrier every warp is done with block
+    // i - 1, whose slot the next copies take.
+    cp_async_wait<kF32MmaStages - 2>();
+    __syncthreads();
+    if (i + kF32MmaStages - 1 < count) {
+      f32mma_copy<NF>(ring + ((i + kF32MmaStages - 1) % kF32MmaStages) * T::kSlotBytes, pk,
+                      sc, terms, b0 + i + kF32MmaStages - 1, strip0, m0, M, P, N);
+    }
+    cp_async_commit();
+    f32mma_block<NF>(acc, ring + (i % kF32MmaStages) * T::kSlotBytes, tab, warp, g, c);
+  }
+  // The ring is drained: the CTA's sums go into it, [column][row], each
+  // lane's D rows 2c, 2c + 1 as one 8-byte store (the 2-word pad keeps a
+  // half-warp's stores on 16 different bank pairs).
+  cp_async_wait<0>();
+  __syncthreads();
+  float* sums = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = 32 * warp + 4 * g + 2 * t + h;
+        *reinterpret_cast<float2*>(sums + col * T::kSumPitch + 8 * f + 2 * c) =
+            make_float2(acc[t][f][2 * h], acc[t][f][2 * h + 1]);
+      }
+  // Rank r owns rows r, r + split, ... of the tile. Once every rank is past
+  // its loop (its ring drained) each pushes its sums of every row into the
+  // owner's slots (thread = column), through distributed shared memory;
+  // after the second barrier each rank adds its rows' slots in rank order
+  // 0 .. split - 1 and writes y. One launch, no atomics, deterministic.
+  cluster.sync();
+  const int col = threadIdx.x;
+  const int rows = min(T::kRows, M - m0);
+  const int per = (rows + split - 1) / split;
+  float* slots = reinterpret_cast<float*>(ring + T::kSumBytes);
+  for (int m = 0; m < rows; ++m) {
+    cluster.map_shared_rank(slots, m % split)[(rank * per + m / split) * kGemvStrip + col] =
+        sums[col * T::kSumPitch + m];
+  }
+  cluster.sync();
+  if (strip0 + col < N) {
+    for (int j = 0; j < per && rank + j * split < rows; ++j) {
+      float v = 0.f;
+      for (int r = 0; r < split; ++r) v += slots[(r * per + j) * kGemvStrip + col];
+      y[static_cast<size_t>(m0 + rank + j * split) * N + strip0 + col] = v;
+    }
+  }
+}
+
+template <int NF>
+cudaError_t launch_f32mma(const void* x, const void* pk, const void* sc, void* y,
+                          void* terms, int M, int K, int P, int N, int split,
+                          cudaStream_t stream) {
+  using T = F32MmaTile<NF>;
+  const int blocks = P / kRowsPerScale;
+  const int chunk = (blocks + split - 1) / split;
+  const int strips = (N + kGemvStrip - 1) / kGemvStrip;
+  const int tiles = (M + T::kRows - 1) / T::kRows;
+  const size_t words = static_cast<size_t>(M) * P;
+  if (strips > 65535 || tiles > 65535 ||
+      (words + kF32MmaSplitThreads - 1) / kF32MmaSplitThreads > 0x7FFFFFFF) {
+    return cudaErrorInvalidValue;
+  }
+  nf4_f32mma_split_kernel<<<static_cast<unsigned>((words + kF32MmaSplitThreads - 1) /
+                                                  kF32MmaSplitThreads),
+                            kF32MmaSplitThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<uint32_t*>(terms), M, K, P);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // The M tiles of a strip are neighbours in the grid, so they share its
+  // weight bytes in L2.
+  return launch_cluster(nf4_f32mma_kernel<NF>, dim3(split, tiles, strips), T::kSmem,
+                        stream, static_cast<const uint32_t*>(terms),
+                        static_cast<const uint8_t*>(pk),
+                        static_cast<const __nv_bfloat16*>(sc), static_cast<float*>(y), M, P,
+                        N, chunk);
+}
 
 }  // namespace
 
@@ -1174,6 +1622,32 @@ extern "C" int nf4_dot_gemv_launch(const void* x, const void* packed,
   } else {
     err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+extern "C" int nf4_dot_f32mma_launch(const void* x, const void* packed,
+                                     const void* scales, void* y, int M, int K,
+                                     int P, int N, int x_dtype, int device,
+                                     void* stream, int strip_cols, int split,
+                                     void* terms) {
+  if (M <= 0 || K <= 0 || N <= 0 || P <= 0 || P % kRowsPerScale != 0 ||
+      2 * P < K || 2 * P - K >= 2 * kRowsPerScale || x_dtype != 0 ||
+      N % 16 != 0 || K % 8 != 0 || strip_cols != kGemvStrip || split < 1 ||
+      split > kGemvMaxSplit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(packed) |
+       reinterpret_cast<uintptr_t>(scales) | reinterpret_cast<uintptr_t>(terms)) % 16 !=
+      0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // One n8 fragment of x for M <= 8, else M tiles of 8 kF32MmaMaxFrags rows.
+  err = M <= 8 ? launch_f32mma<1>(x, packed, scales, y, terms, M, K, P, N, split, st)
+               : launch_f32mma<kF32MmaMaxFrags>(x, packed, scales, y, terms, M, K, P, N,
+                                                split, st);
   return static_cast<int>(err);
 }
 

@@ -15,12 +15,17 @@ Two versions of one function:
     for a tensor on the card. `_route` picks one from M, K, N and x's dtype
     alone: "gemv", the decode kernel (M <= `GEMV_MAX_M`: bf16 x below
     `MMA_MIN_M`, float32 x; N % 16 == 0, K <= `GEMV_MAX_K`), split-K over a
-    thread-block cluster whose size `_gemv_plan` picks; "mma", the
-    tensor-core kernel (bf16 x, M >= `MMA_MIN_M`, the alignment its 16-byte
-    copies need: N % 16 == 0, K % 8 == 0), which dequantizes each weight
-    once per block into shared memory; else "simt", the CUDA-core kernel,
-    which reads the packed nibbles and the bf16 scales straight from device
-    memory (0.5 B per weight plus 2 B per 64) and takes any M, K and N;
+    thread-block cluster whose size `_gemv_plan` picks; "f32mma", float32 x
+    at prefill M (M >= `F32MMA_MIN_M`, N % 16 == 0, K % 8 == 0, any K: the
+    prefill of the stages behind TCP), the decode kernel's strips and
+    cluster split-K on the tensor cores, with x split into `F32MMA_TERMS`
+    bf16 terms and each NF4 level into two, and a plan of K alone
+    (`_f32mma_plan`); "mma", the tensor-core kernel for bf16 x
+    (M >= `MMA_MIN_M`, the alignment its 16-byte copies need: N % 16 == 0,
+    K % 8 == 0), which dequantizes each weight once per block into shared
+    memory; else "simt", the CUDA-core kernel, which reads the packed
+    nibbles and the bf16 scales straight from device memory (0.5 B per
+    weight plus 2 B per 64) and takes any M, K and N (ragged N or K);
   * `nf4_dot_reference`, the plain PyTorch version, taken for a tensor on
     the CPU (the CPU tests) and used by ``chip_smoke.py`` to check the
     kernels on the card.
@@ -28,10 +33,11 @@ Two versions of one function:
 `nf4_dot` launches the routed kernel or raises; it never falls back from
 one kernel to the other, or from the card to the plain version.
 ``_launches`` counts kernel launches of every route (not calls of the plain
-version), ``_launches_mma`` those of the tensor-core route and
-``_launches_gemv`` those of the decode route, so a run can
-show that its main path went through the kernels (``ops/launch_counts.py``:
-a launch recorded into a CUDA graph counts on each replay).
+version), ``_launches_mma`` those of the tensor-core route,
+``_launches_gemv`` those of the decode route and ``_launches_f32mma`` those
+of the float32 prefill route, so a run can show that its main path went
+through the kernels (``ops/launch_counts.py``: a launch recorded into a
+CUDA graph counts on each replay).
 """
 
 from __future__ import annotations
@@ -67,9 +73,23 @@ GEMV_MAX_CHUNK = 64
 GEMV_MAX_K = GEMV_MAX_SPLIT * GEMV_MAX_CHUNK * NF4_BLOCK
 GEMV_FILL_CTAS = 192
 
+# The float32 prefill route's geometry, as ``csrc/nf4_dot.cu`` has it
+# (kF32Mma*): the decode kernel's 128-column strips and cluster split-K, x
+# in n8 fragments of the mma (up to F32MMA_MAX_FRAGS, 16 rows, a CTA; more
+# rows take further M tiles), each float32 x value as F32MMA_TERMS bf16
+# terms (the scratch the wrapper allocates). A CTA stages its chunk of K
+# through a ring of scale-block slots, so its shared memory does not depend
+# on K and the route takes any K. The plan (`_f32mma_plan`) depends on K
+# alone and gives each rank at least F32MMA_RANK_BLOCKS scale blocks.
+F32MMA_MIN_M = GEMV_MAX_M + 1
+F32MMA_MAX_FRAGS = 2
+F32MMA_TERMS = 3
+F32MMA_RANK_BLOCKS = 8
+
 _launches = 0
 _launches_mma = 0
 _launches_gemv = 0
+_launches_f32mma = 0
 _lib = None
 
 
@@ -85,6 +105,9 @@ def _library() -> ctypes.CDLL:
         lib.nf4_dot_gemv_launch.argtypes = (lib.nf4_dot_launch.argtypes
                                             + [ctypes.c_int] * 2)
         lib.nf4_dot_gemv_launch.restype = ctypes.c_int
+        lib.nf4_dot_f32mma_launch.argtypes = (lib.nf4_dot_gemv_launch.argtypes
+                                              + [ctypes.c_void_p])
+        lib.nf4_dot_f32mma_launch.restype = ctypes.c_int
         lib.nf4_dot_error_string.argtypes = [ctypes.c_int]
         lib.nf4_dot_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -106,13 +129,17 @@ def nf4_dot_reference(x: torch.Tensor, w: NF4Tensor) -> torch.Tensor:
 def _route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
     """The kernel for x [m, k] of `dtype` times an NF4 weight [k, n]:
     "gemv" (decode) for M <= GEMV_MAX_M, bf16 x below MMA_MIN_M or float32
-    x, with N % 16 == 0 and K <= GEMV_MAX_K; "mma" (tensor cores) for bf16
-    x at M >= MMA_MIN_M with N % 16 == 0 and K % 8 == 0; else "simt" (CUDA
-    cores)."""
+    x, with N % 16 == 0 and K <= GEMV_MAX_K; "f32mma" (tensor cores, x and
+    the levels as bf16 terms) for float32 x at M >= F32MMA_MIN_M with N % 16
+    == 0 and K % 8 == 0; "mma" (tensor cores) for bf16 x
+    at M >= MMA_MIN_M with N % 16 == 0 and K % 8 == 0; else "simt" (CUDA
+    cores: ragged N or K)."""
     decode = m <= GEMV_MAX_M and (dtype == torch.float32 or
                                   (dtype == torch.bfloat16 and m < MMA_MIN_M))
     if decode and n % 16 == 0 and k <= GEMV_MAX_K:
         return "gemv"
+    if dtype == torch.float32 and m >= F32MMA_MIN_M and n % 16 == 0 and k % 8 == 0:
+        return "f32mma"
     if dtype == torch.bfloat16 and m >= MMA_MIN_M and n % 16 == 0 and k % 8 == 0:
         return "mma"
     return "simt"
@@ -138,10 +165,28 @@ def _gemv_plan(m: int, k: int, n: int) -> tuple[int, int]:
     return GEMV_STRIP, -(-blocks // -(-blocks // split))
 
 
+def _f32mma_plan(m: int, k: int, n: int) -> tuple[int, int]:
+    """(strip_cols, split) of the float32 prefill kernel for x [m, k] times
+    a weight [k, n]: strips of GEMV_STRIP columns, and the most ranks up to
+    GEMV_MAX_SPLIT that each take at least F32MMA_RANK_BLOCKS whole 64-row
+    scale blocks, ceil(blocks / split) a rank; the split is then cut to the
+    ranks that get a block.
+
+    The plan depends on K alone, not on N or M (`_gemv_plan` follows N):
+    the order of a column's float32 sums follows the split, so a fused
+    weight (wq|wk|wv, wg|wu, as the stage executors hold them) and its
+    parts (as a full_forward over the loaded weights runs them) give the
+    same bits, and so does a row at any M."""
+    del m, n
+    blocks = -(-k // NF4_BLOCK)
+    split = max(1, min(GEMV_MAX_SPLIT, blocks // F32MMA_RANK_BLOCKS))
+    return GEMV_STRIP, -(-blocks // -(-blocks // split))
+
+
 def _launch(x: torch.Tensor, w: NF4Tensor, route: str | None = None,
             plan: tuple[int, int] | None = None) -> torch.Tensor:
     """Launch the kernel that `_route` names (`route` overrides it, and
-    `plan` the decode kernel's `_gemv_plan`, only for ``chip_smoke.py``'s
+    `plan` the split-K kernels' plan, only for ``chip_smoke.py``'s
     scans)."""
     code = _DTYPE_CODE.get(x.dtype)
     if code is None:
@@ -168,15 +213,21 @@ def _launch(x: torch.Tensor, w: NF4Tensor, route: str | None = None,
         raise ValueError(f"nf4_dot kernel shape [{m}, {k}] x [{k}, {n}] too large")
     route = route or _route(m, k, n, x.dtype)
     x = x.contiguous()
-    if route == "mma" and x.data_ptr() % 16:
+    if route in ("mma", "f32mma") and x.data_ptr() % 16:
         x = x.clone()               # a view's offset: the copies need 16 B
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m == 0:
         return y
     lib = _library()
     entry = {"mma": lib.nf4_dot_mma_launch, "simt": lib.nf4_dot_launch,
-             "gemv": lib.nf4_dot_gemv_launch}[route]
-    extra = (plan or _gemv_plan(m, k, n)) if route == "gemv" else ()
+             "gemv": lib.nf4_dot_gemv_launch, "f32mma": lib.nf4_dot_f32mma_launch}[route]
+    plans = {"gemv": _gemv_plan, "f32mma": _f32mma_plan}
+    extra = tuple(plan or plans[route](m, k, n)) if route in plans else ()
+    if route == "f32mma":
+        # Scratch for x's bf16 terms, [F32MMA_TERMS, M, P] words: the
+        # kernel's first pass splits x into it once, every CTA reads it.
+        terms = torch.empty((F32MMA_TERMS, m, pairs), dtype=torch.int32, device=dev)
+        extra += (terms.data_ptr(),)
     # The raw current-stream handle: the cheap form of
     # torch.cuda.current_stream(dev).cuda_stream, on the decode hot path.
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -191,7 +242,8 @@ def _launch(x: torch.Tensor, w: NF4Tensor, route: str | None = None,
 
 # The counters a launch of each route adds one to.
 _COUNTED = {"simt": ("_launches",), "mma": ("_launches", "_launches_mma"),
-            "gemv": ("_launches", "_launches_gemv")}
+            "gemv": ("_launches", "_launches_gemv"),
+            "f32mma": ("_launches", "_launches_f32mma")}
 
 
 def nf4_dot(x: torch.Tensor, w: NF4Tensor) -> torch.Tensor:

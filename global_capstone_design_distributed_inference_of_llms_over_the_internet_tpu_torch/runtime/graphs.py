@@ -62,7 +62,8 @@ from ..ops.threefry import fold_in, prng_key
 _COUNTERS = ((int8_kernel, "_launches"), (int8_kernel, "_launches_mma"),
              (int8_kernel, "_launches_gemv"), (int8_kernel, "_launches_f32mma"),
              (nf4_kernel, "_launches"), (nf4_kernel, "_launches_mma"),
-             (nf4_kernel, "_launches_gemv"), (draw_kernel, "_launches"))
+             (nf4_kernel, "_launches_gemv"), (nf4_kernel, "_launches_f32mma"),
+             (draw_kernel, "_launches"))
 
 
 def _add_counts(delta: Tuple[int, ...]) -> None:

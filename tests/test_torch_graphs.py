@@ -471,6 +471,7 @@ def test_capture_counts_launches_per_replay(monkeypatch, stub_graphs):
         monkeypatch.setattr(mod, "_launches_mma", 10)
         monkeypatch.setattr(mod, "_launches_gemv", 20)
     monkeypatch.setattr(tik, "_launches_f32mma", 30)
+    monkeypatch.setattr(tnk, "_launches_f32mma", 40)
     monkeypatch.setattr(tdk, "_launches", 50)
     out = torch.zeros(1)
 
@@ -483,24 +484,26 @@ def test_capture_counts_launches_per_replay(monkeypatch, stub_graphs):
         for _ in range(2):
             launch_counts.count(tnk, "_launches")
         launch_counts.count(tnk, "_launches", "_launches_gemv")
+        launch_counts.count(tnk, "_launches", "_launches_f32mma")
         launch_counts.count(tdk, "_launches")       # the sampler's draw
         return out
 
     captured = tgraphs.capture(fn, None, None)
     # The warm-up ran (it counts); the capture ran nothing (taken off).
     assert (tik._launches, tik._launches_mma, tik._launches_gemv, tik._launches_f32mma,
-            tnk._launches, tnk._launches_mma, tnk._launches_gemv, tdk._launches) == \
-        (105, 11, 21, 31, 103, 10, 21, 51)
-    assert captured.launches == (5, 1, 1, 1, 3, 0, 1, 1)
+            tnk._launches, tnk._launches_mma, tnk._launches_gemv, tnk._launches_f32mma,
+            tdk._launches) == (105, 11, 21, 31, 104, 10, 21, 41, 51)
+    assert captured.launches == (5, 1, 1, 1, 4, 0, 1, 1, 1)
     captured.graph.fn = lambda: out                 # a replay runs no wrapper
     for _ in range(3):
         captured.replay()
     assert (tik._launches, tik._launches_mma, tik._launches_gemv, tik._launches_f32mma,
-            tnk._launches, tnk._launches_mma, tnk._launches_gemv, tdk._launches) == \
-        (120, 14, 24, 34, 112, 10, 24, 54)
+            tnk._launches, tnk._launches_mma, tnk._launches_gemv, tnk._launches_f32mma,
+            tdk._launches) == (120, 14, 24, 34, 116, 10, 24, 44, 54)
 
 
-@pytest.mark.parametrize("counter", ["_launches", "_launches_mma", "_launches_gemv"])
+@pytest.mark.parametrize("counter", ["_launches", "_launches_mma", "_launches_gemv",
+                                     "_launches_f32mma"])
 def test_graph_counters_hold_every_nf4_route(counter):
     """A replay adds the launches of each of nf4_dot's routes: its counters
     are all among the ones a capture tallies."""
@@ -566,7 +569,7 @@ def test_capture_charges_no_launch_of_another_thread(monkeypatch, stub_graphs):
     first = tgraphs.capture(lambda: launch_counts.count(tik, "_launches") or out,
                             None, None)
     first.graph.fn = lambda: out
-    assert first.launches == (1, 0, 0, 0, 0, 0, 0, 0)
+    assert first.launches == (1, 0, 0, 0, 0, 0, 0, 0, 0)
     recording, other_done = threading.Event(), threading.Event()
     calls = []
 
@@ -592,7 +595,7 @@ def test_capture_charges_no_launch_of_another_thread(monkeypatch, stub_graphs):
     second = tgraphs.capture(step, None, None)
     thread.join(10.0)
     assert not thread.is_alive() and len(calls) == 2
-    assert second.launches == (0, 0, 0, 0, 2, 0, 0, 0)
+    assert second.launches == (0, 0, 0, 0, 2, 0, 0, 0, 0)
     # first's warm-up 1 + 5 replays + 3 eager; step's warm-up 2.
     assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma) == \
         (9, 3, 2, 0)

@@ -1,6 +1,6 @@
-"""``nf4_dot``'s three kernels: `_route` picks the decode kernel ("gemv"),
-the tensor-core kernel ("mma") or the CUDA-core kernel ("simt") from M, K,
-N and x's dtype alone; `_gemv_plan` cuts K into whole scale blocks for a
+"""``nf4_dot``'s four kernels: `_route` picks the decode kernel ("gemv"),
+the float32 prefill kernel ("f32mma"), the tensor-core kernel ("mma") or
+the CUDA-core kernel ("simt") from M, K, N and x's dtype alone; `_gemv_plan` cuts K into whole scale blocks for a
 cluster of at most 8 CTAs and puts a CTA on every SM of the H100 at every
 llama-3.1-8b site;
 CPU tensors take the plain version at any M and launch nothing; and the
@@ -39,15 +39,22 @@ ROUTES = [
     ("bf16 prefill chunk", 2048, 4096, 4096, torch.bfloat16, "mma"),
     ("float32 at M 1", 1, 4096, 4096, torch.float32, "gemv"),
     ("float32 at M 2", 2, 4096, 4096, torch.float32, "gemv"),
-    ("float32 at M 3", 3, 4096, 4096, torch.float32, "simt"),
+    ("float32 at M 3", 3, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 at M 8", 8, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 at M 32", 32, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 at M 33", 33, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 prefill chunk", 2048, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 M 3 N 97", 3, 4096, 97, torch.float32, "simt"),
+    ("float32 M 3 K 4100", 3, 4100, 4096, torch.float32, "simt"),
+    ("float32 M 3 past GEMV_MAX_K", 3, tnk.GEMV_MAX_K + 8, 4096, torch.float32, "f32mma"),
     ("bf16 M 1 N 4104", 1, 4096, 4104, torch.bfloat16, "simt"),
     ("bf16 M 1 N 97", 1, 128, 97, torch.bfloat16, "simt"),
     ("float32 M 1 N 97", 1, 128, 97, torch.float32, "simt"),
     ("bf16 M 1 K 100 N 96 (ragged in_dim)", 1, 100, 96, torch.bfloat16, "gemv"),
     ("bf16 M 1 at GEMV_MAX_K", 1, tnk.GEMV_MAX_K, 4096, torch.bfloat16, "gemv"),
     ("bf16 M 1 past GEMV_MAX_K", 1, tnk.GEMV_MAX_K + 1, 4096, torch.bfloat16, "simt"),
-    ("float32 at MMA_MIN_M", MIN, 4096, 4096, torch.float32, "simt"),
-    ("float32 at M 512", 512, 4096, 4096, torch.float32, "simt"),
+    ("float32 at MMA_MIN_M", MIN, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 at M 512", 512, 4096, 4096, torch.float32, "f32mma"),
     ("bf16 N not a multiple of 16", 30, 4096, 4104, torch.bfloat16, "simt"),
     ("bf16 N 97", 30, 128, 97, torch.bfloat16, "simt"),
     ("bf16 K not a multiple of 8", 30, 4100, 4096, torch.bfloat16, "simt"),
@@ -56,6 +63,8 @@ ROUTES = [
 ] + [(f"llama-3.1-8b {site} M {m}", m, k, n, torch.bfloat16, "gemv" if m == 1 else "mma")
      for site, (k, n) in LLAMA_8B_SITES.items() for m in (1, 30)] + [
     (f"llama-3.1-8b {site} float32 M 1", 1, k, n, torch.float32, "gemv")
+    for site, (k, n) in LLAMA_8B_SITES.items()] + [
+    (f"llama-3.1-8b {site} float32 M 32", 32, k, n, torch.float32, "f32mma")
     for site, (k, n) in LLAMA_8B_SITES.items()]
 
 
@@ -71,9 +80,10 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing(m):
         (torch.randn(256, 128, generator=gen) * 0.02).to(torch.bfloat16))
     x = torch.randn(m, 256, generator=gen).to(torch.bfloat16)
     assert tnk._route(m, 256, 128, x.dtype) == ("gemv" if m < tnk.MMA_MIN_M else "mma")
-    before = (tnk._launches, tnk._launches_mma, tnk._launches_gemv)
+    before = (tnk._launches, tnk._launches_mma, tnk._launches_gemv, tnk._launches_f32mma)
     got = tnk.nf4_dot(x, w)
-    assert (tnk._launches, tnk._launches_mma, tnk._launches_gemv) == before
+    assert (tnk._launches, tnk._launches_mma, tnk._launches_gemv,
+            tnk._launches_f32mma) == before
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (m, 128)
     assert torch.equal(got, tnk.nf4_dot_reference(x, w))
 
@@ -111,13 +121,16 @@ def _signature(src: str, name: str):
 
 
 def test_both_entry_points_take_the_same_arguments():
-    """The three C entry points take the same 11 arguments; the decode
-    route's then takes its plan, as `_gemv_plan` returns it."""
+    """The four C entry points take the same 11 arguments; the two split-K
+    routes' then take their plan, as `_gemv_plan` and `_f32mma_plan`
+    return it, and the float32 prefill route's the scratch for x's terms."""
     src = _source()
     simt = _signature(src, "nf4_dot_launch")
     assert len(simt) == 11
     assert _signature(src, "nf4_dot_mma_launch") == simt
     assert _signature(src, "nf4_dot_gemv_launch") == simt + ["int strip_cols", "int split"]
+    assert _signature(src, "nf4_dot_f32mma_launch") == simt + ["int strip_cols", "int split",
+                                                               "void* terms"]
 
 
 def _constant(src: str, name: str) -> int:
