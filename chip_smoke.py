@@ -34,8 +34,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    NF4's counterpart) and the old CUDA-core kernel in the same run, with
    its bound (``<kernel>_batched``; float32 x's operations at a third of
    the bf16 rate, F32_TERMS); so is float32 x at the prompt's bucket (the
-   prefill of the stages behind TCP: ``int8_dot``'s CUDA-core route,
-   ``nf4_dot``'s "f32mma" beside the CUDA-core kernel it replaced).
+   prefill of the stages behind TCP: each kernel's "f32mma" beside the
+   CUDA-core kernel it replaced).
    ``nf4_dot``'s "f32mma" is also held at every site at M = 3, 8, 16, 32,
    33, 64 and 512 (F32_TOL), must give the same bits on two launches, for
    rows 0-2 at M = 3 as at M = 32 whatever the other rows hold, for rows
@@ -44,12 +44,18 @@ on the kernels; it never prints the last line of a smoke pass.)
    runs at M = 3..16 on wgu and wd with float32 x
    (``nf4_dot_f32mma_crossover``); its SASS (8- and 16-row tiles) must be
    read, hold HMMA and no STL / LDL, and ptxas must report no spill
-   (``nf4_f32mma_sass``). ``int8_dot``'s batched
-   route is also held at every site at M = 3, 4 and 8 (F32_TOL), must give
-   the same bits on two launches, for a row at M = 3 as at M = 8 whatever
-   the other rows hold, and for a fused weight's columns as for its parts
-   alone; it is timed at M = 1 and 2 beside the decode kernel with float32
-   x (``int8_dot_f32mma``), and its SASS must be read and hold no I2F.
+   (``nf4_f32mma_sass``). ``int8_dot``'s "f32mma"
+   is also held at every site at M = 3, 4, 8, 9, 16, 32, 33, 64, 512 and
+   2048 (F32_TOL) and timed at M = 3, 8, 16, 32, 33, 64 and 512 beside the
+   CUDA-core kernel, the library and the bound; it must give the same bits
+   on two launches, for rows 0-2 at M = 3 as at M = 32 whatever the other
+   rows hold, for rows of a later M tile alone, and for a fused weight's
+   columns as for its parts alone (at M = 8 and the prompt's bucket); it
+   is timed at M = 1 and 2 beside the decode kernel with float32 x
+   (``int8_dot_f32mma``); its crossover scan against "simt" runs at M =
+   3..64 on wgu and wd (``int8_dot_f32mma_crossover``); its SASS (8- and
+   16-row tiles) must be read, hold HMMA, no I2F and no STL / LDL, and
+   ptxas must report no spill (``int8_gemv_sass``).
    Prints JSON lines of shapes, crossover scan and per-layer sums per
    kernel.
 3b. The draw kernel (``sample_draw``, ``csrc/sample_draw.cu``): at V =
@@ -136,8 +142,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    the requests, read just after; tensor-core launches: stage 0's prefill
    sites, the only ones still given bf16 x; on both every decode step on
    the decode kernel, and stages 1-3's float32 prefill exactly on the
-   route `_route` gives it, ``int8_dot``'s CUDA-core route and
-   ``nf4_dot``'s "f32mma", with no launch on any other route) and the
+   route `_route` gives it, "f32mma" for both kernels, with no launch on
+   any other route) and the
    native wire codec loaded. On the int8 path a stage-2 replica joins and the pinned stage-2
    server is ``stop()``ped after its 3rd decode step of a greedy request:
    the client must recover onto the replica with the fault-free tokens.
@@ -174,8 +180,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    each stage's rounds at most MAX_NEW_TOKENS - 1 + ROUND_SLACK (not one a
    session and token); ``int8_dot`` launches by route (stage 0's prefill
    on the tensor cores and decode on the decode kernel; on stages 1-3
-   exactly one batched-route launch a site and layer for each round and
-   one CUDA-core launch a site and layer for each float32 prefill); a
+   exactly one "f32mma" launch a site and layer for each round and for
+   each float32 prefill, and none on the CUDA cores); a
    ``sample_draw`` a sampled token; at most one host sync a prefill and
    one a round of the last stage; each stage's ``arrivals`` are logged (a
    step's spread against the round window, the hops between stages). Then
@@ -278,6 +284,11 @@ F32_TERMS = 3
 BF16_TOL = 2.0 ** -7   # max|kernel - plain| <= BF16_TOL * max|plain|: one
 #                        bf16 ulp at the output's scale (sums in other orders)
 F32_TOL = 1e-5         # float32 activations, relative to max|plain|
+# int8_dot's float32 route: the M it is held at (the batched rounds, both
+# tile sizes, the prompt's bucket, failover replays, prefill chunks) and
+# the M it is timed at beside the CUDA-core kernel it replaced.
+F32_CHECKED_M = (3, 4, 8, 9, 16, 32, 33, 64, 512, 2048)
+F32_TIMED_M = (3, 8, 16, 32, 33, 64, 512)
 LOGIT_GAP_TOL = 2.0 ** -6  # a near-tie: top-2 gap <= this * max|logit|
 KILL_AFTER_DECODES = 3  # the failover drives kill the pinned peer after this
 #                         many decode steps it served
@@ -453,26 +464,28 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
                flops: float, flush, f32_flops: float):
     """int8_dot at every main-path shape: agreement and times, each row with
     its route (decode M = 1 and 2 on "gemv"); float32 x at M = 1 and 2 on
-    "gemv" (F32_TOL) and at M = 16 on "simt"; two launches of the decode
+    "gemv" (F32_TOL) and at M = 16 on "f32mma"; two launches of the decode
     kernel bit-equal (bf16 and float32); at M = 1 the decode kernel, the old
     CUDA-core kernel ("simt"), the plain version and the library at every
     site in both dtypes (`decode` rows); a fused weight's columns bit-equal
     to its parts' alone on the decode route; the decode kernel at every
     cluster size at M = 1 (the plan scan behind `_gemv_plan`); ragged shapes of
     every route and an x view at an offset on the tensor-core and the
-    decode routes; and the crossover scan of the three kernels at M = 1..8
-    on wgu and wd; the batched regime, M = SLOTS in float32 (the batched
-    route beside the old CUDA-core kernel) and bf16 (`batch_rows`), and
-    the batched route's own checks (`f32mma_checks`; a fused weight's
-    columns bit-equal to its parts' at M = SLOTS too); the float32 prefill
-    at M = prefill_m (`batch_rows`, the stages behind TCP). Returns (rows,
-    scan, decode, plans, batch, f32mma)."""
+    decode routes (and the float32 route); the crossover scan of the three
+    kernels at M = 1..8 on wgu and wd; the batched regime, M = SLOTS in
+    float32 (the float32 route beside the old CUDA-core kernel) and bf16
+    (`batch_rows`), and the float32 prefill at M = prefill_m (`batch_rows`,
+    the stages behind TCP, beside the old kernel); the float32 route's own
+    checks (`f32mma_checks`; a fused weight's columns bit-equal to its
+    parts' at M = SLOTS and prefill_m too) and its crossover scan against
+    "simt" at M = 3..64 on wgu and wd. Returns (rows, scan, decode, plans,
+    batch, f32mma, f32_scan)."""
     from importlib import import_module
 
     quant = import_module(PORT + ".models.quant")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows, scan, decode, plans, batch, f32mma = [], [], [], [], [], []
+    rows, scan, decode, plans, batch, f32mma, f32_scan = [], [], [], [], [], [], []
     ms = tuple(sorted({1, 2, 8, 16, prompt_len, prefill_m, 128, 512}))
     for site, k, n in SITES:
         w = int8_weight(torch, quant, gen, dev, k, n)
@@ -497,7 +510,7 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
             lambda x: ik.int8_dot_reference(x, q, s),
             {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
              torch.float32: lambda x: torch.matmul(x, q32) * s},
-            int8_bytes, -(-k // ik.GEMV_ROWS), gen, dev, bw, flush, "simt")
+            int8_bytes, -(-k // ik.GEMV_ROWS), gen, dev, bw, flush, "f32mma")
         decode += rows_1
         plans.append(point)
         batch += batch_rows(
@@ -511,17 +524,19 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
             torch, "int8_dot", ik, site, k, n, lambda x: ik.int8_dot(x, w),
             lambda x: ik.int8_dot_reference(x, q, s),
             {torch.float32: lambda x: torch.matmul(x, q32) * s}, int8_bytes, gen, dev, bw,
-            {torch.float32: f32_flops}, flush, m=prefill_m, dtypes=("float32",))
+            {torch.float32: f32_flops}, flush, m=prefill_m, dtypes=("float32",),
+            old=lambda x: ik._launch(x, q, s, "simt"))
         del q32
-        f32mma.append(f32mma_checks(torch, ik, site, k, n, q, s, gen, dev, flush))
-        # The decode kernel's and the batched route's plans depend on K
+        f32mma.append(f32mma_checks(torch, ik, site, k, n, q, s, gen, dev, flush, bw,
+                                    f32_flops))
+        # The decode kernel's and the float32 route's plans depend on K
         # alone: a fused weight's columns and a part's alone (wq, wk of
         # wq|wk|wv; wg of wg|wu, as a full_forward over the loaded weights
         # runs them) give the same bits.
         if site in ("wqkv", "wgu"):
             cuts = ((0, 4096), (4096, 5120)) if site == "wqkv" else ((0, n // 2),)
             for dtype, m in ((torch.bfloat16, 1), (torch.float32, 1),
-                             (torch.float32, SLOTS)):
+                             (torch.float32, SLOTS), (torch.float32, prefill_m)):
                 x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
                 whole = ik.int8_dot(x, w)
                 for a, b in cuts:
@@ -530,7 +545,7 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
                     if not torch.equal(whole[:, a:b], ik.int8_dot(x, part)):
                         raise AssertionError(f"int8_dot {ik._route(m, k, n, dtype)} {site} "
                                              f"{dtype} M={m}: columns {a}:{b} differ alone")
-            log(f"int8_dot {site} gemv (bf16 and float32) and f32mma (M={SLOTS}): "
+            log(f"int8_dot {site} gemv (bf16 and float32) and f32mma (M={SLOTS}, {prefill_m}): "
                 f"columns {cuts} bit-equal alone")
         if site == "wgu":                            # a ragged M, tensor cores
             x = torch.randn((33, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -557,6 +572,11 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
                                 routes=("gemv", "simt", "mma"), ms=range(1, 9),
                                 takes=lambda route, m: route != "gemv"
                                 or m <= ik.GEMV_MAX_M)
+            f32_scan += scan_routes(torch, "int8_dot", site, k, gen, dev,
+                                    lambda x, route: ik._launch(x, q, s, route),
+                                    lambda x: ik.int8_dot_reference(x, q, s), flush,
+                                    routes=("simt", "f32mma"), ms=range(3, 65),
+                                    dtype=torch.float32)
         del q, s, w, w_deq
     # Ragged shapes: the K tail inside a step or a stage, the last column
     # block part full; N % 16 != 0 takes the CUDA-core route, at decode M
@@ -579,7 +599,13 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
                                  (126 * ik.GEMV_ROWS, 48, 3, torch.float32, "f32mma"),
                                  (ik.GEMV_MAX_K, 48, SLOTS, torch.float32, "f32mma"),
                                  (ik.GEMV_MAX_K + 32, 48, 3, torch.float32, "simt"),
-                                 (100, 97, SLOTS, torch.float32, "simt")):
+                                 (100, 97, SLOTS, torch.float32, "simt"),
+                                 (4100, 4112, 33, torch.float32, "f32mma"),
+                                 (132, 48, 17, torch.float32, "f32mma"),
+                                 (ik.GEMV_MAX_K, 48, 40, torch.float32, "f32mma"),
+                                 (130, 48, 40, torch.float32, "simt"),
+                                 (100, 97, 32, torch.float32, "simt"),
+                                 (ik.GEMV_MAX_K + 32, 48, 17, torch.float32, "simt")):
         w = int8_weight(torch, quant, gen, dev, k, n)
         x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         assert ik._route(m, k, n, x.dtype) == want
@@ -588,12 +614,13 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
                if dtype == torch.bfloat16 else check_f32("int8_dot", f"K={k} N={n}", y, ref))
         log(f"int8_dot ragged K={k} N={n} M={m} {dtype} ({want}): max err {err:.3e}")
     # x as a view one element into its storage: the tensor-core, the decode
-    # and the batched routes' 16-byte copies take a clone of it.
+    # and the float32 routes' 16-byte copies take a clone of it.
     k, n = 4096, 4096
     w = int8_weight(torch, quant, gen, dev, k, n)
     for m, dtype, route, counter in ((prompt_len, torch.bfloat16, "mma", "_launches_mma"),
                                      (1, torch.bfloat16, "gemv", "_launches_gemv"),
-                                     (SLOTS, torch.float32, "f32mma", "_launches_f32mma")):
+                                     (SLOTS, torch.float32, "f32mma", "_launches_f32mma"),
+                                     (prefill_m, torch.float32, "f32mma", "_launches_f32mma")):
         buf = torch.randn((m * k + 1,), generator=gen, device=dev).to(dtype)
         x = buf[1:].view(m, k)
         assert x.data_ptr() % 16 == buf.element_size() and ik._route(m, k, n, dtype) == route
@@ -605,37 +632,59 @@ def int8_phase(torch, ik, dev, prompt_len: int, prefill_m: int, bw: float,
         log(f"int8_dot x view {buf.element_size()} bytes into its storage K={k} N={n} "
             f"M={m} ({route}, cloned): max err {err:.3e}")
     log(f"int8_dot crossover: mma at least as fast from M={crossover(scan)} "
-        f"(MMA_MIN_M = {ik.MMA_MIN_M})")
-    return rows, scan, decode, plans, batch, f32mma
+        f"(MMA_MIN_M = {ik.MMA_MIN_M}); float32 x, f32mma at least as fast as simt from "
+        f"M={crossover(f32_scan, 'f32mma')} (F32MMA_MIN_M = {ik.F32MMA_MIN_M})")
+    return rows, scan, decode, plans, batch, f32mma, f32_scan
 
 
-def f32mma_checks(torch, ik, site, k, n, q, s, gen, dev, flush):
-    """int8_dot's batched route at one site: float32 x held at M = 3, 4
-    and SLOTS (F32_TOL); two launches bit-equal at M = SLOTS; the first 3
-    rows at M = 3 bit-equal to the same rows at M = SLOTS, and again with
-    the other rows redrawn. Then the route at M = 1 and 2, which its entry
-    point takes but `_route` sends to the decode kernel, held (F32_TOL) and
-    timed beside the decode kernel with float32 x, L2 cold (the three-term
-    time at M = SLOTS beside the old kernel is in `batch_rows`)."""
+def f32mma_checks(torch, ik, site, k, n, q, s, gen, dev, flush, bw, f32_flops):
+    """int8_dot's float32 route at one site: float32 x held at every M of
+    F32_CHECKED_M (F32_TOL), and at every M of F32_TIMED_M timed (L2 cold)
+    beside the CUDA-core kernel it replaced ("simt", held too), the
+    library (``torch.matmul(x32, q.float()) * s``) and the bound; two
+    launches bit-equal at M = 32; rows 0-2 at M = 3 (an 8-row tile)
+    bit-equal to the same rows at M = 32 (16-row tiles), and again with
+    the other rows redrawn; rows 32-34 and 40-42 of M = 64 (both fragments
+    of a later M tile) bit-equal to those rows alone. Then the route at M
+    = 1 and 2, which its entry point takes but `_route` sends to the decode
+    kernel, held (F32_TOL) and timed beside the decode kernel with float32
+    x, L2 cold."""
     dot = lambda x: ik._launch(x, q, s, "f32mma")              # noqa: E731
+    simt = lambda x: ik._launch(x, q, s, "simt")               # noqa: E731
     plain = lambda x: ik.int8_dot_reference(x, q, s)           # noqa: E731
-    errs = {}
-    for m in (3, 4, SLOTS):
+    q32 = q.float()                                            # library yardstick only
+    errs, rel, times = {}, {}, []
+    for m in F32_CHECKED_M:
         x = torch.randn((m, k), generator=gen, device=dev)
         assert ik._route(m, k, n, x.dtype) == "f32mma"
-        errs[m] = check_f32("int8_dot", f"{site} f32mma M={m}", dot(x), plain(x))
-    x = torch.randn((SLOTS, k), generator=gen, device=dev)
+        ref, y = plain(x), dot(x)
+        errs[m] = check_f32("int8_dot", f"{site} f32mma M={m}", y, ref)
+        rel[m] = errs[m] / ref.abs().max().item()
+        if m == 64 and not all(torch.equal(y[a:a + 3], dot(x[a:a + 3].contiguous()))
+                               for a in (32, 40)):
+            raise AssertionError(f"int8_dot f32mma {site}: rows of a later M tile differ "
+                                 "alone")
+        if m in F32_TIMED_M:
+            nb, ops = int8_bytes(m, k, n, 4), 2 * m * k * n
+            times.append({
+                "M": m, "ms": cuda_ms(lambda: dot(x), torch, flush=flush),
+                "simt_max_abs_err": check_f32("int8_dot", f"{site} simt M={m}", simt(x), ref),
+                "simt_ms": cuda_ms(lambda: simt(x), torch, flush=flush),
+                "library_ms": cuda_ms(lambda: torch.matmul(x, q32) * s, torch, flush=flush),
+                "bound_ms": max(nb / bw, ops / f32_flops) * 1e3,
+                "bound_by": "bytes" if nb / bw >= ops / f32_flops else "operations"})
+        del x, y, ref
+    del q32
+    x = torch.randn((32, k), generator=gen, device=dev)
     y = dot(x)
     if not torch.equal(y, dot(x)):
         raise AssertionError(f"int8_dot f32mma {site}: two launches differ")
-    other = torch.cat([x[:3], torch.randn((SLOTS - 3, k), generator=gen, device=dev)])
-    if not (torch.equal(dot(x[:3]), y[:3]) and torch.equal(dot(other)[:3], y[:3])):
+    other = torch.cat([x[:3], torch.randn((29, k), generator=gen, device=dev)])
+    if not (torch.equal(dot(x[:3].contiguous()), y[:3]) and torch.equal(dot(other)[:3], y[:3])):
         raise AssertionError(f"int8_dot f32mma {site}: a row's bits depend on M or on "
                              "the other rows")
-    ref = plain(x)
-    point = {"site": site, "M": SLOTS, "K": k, "N": n, "plan": list(ik._gemv_plan(SLOTS, k, n)),
-             "max_abs_err": errs,
-             "rel_err": (y - ref).abs().max().item() / ref.abs().max().item()}
+    point = {"site": site, "K": k, "N": n, "plan": list(ik._gemv_plan(32, k, n)),
+             "max_abs_err": errs, "rel_err": rel, "times": times}
     for m in (1, 2):
         x = torch.randn((m, k), generator=gen, device=dev)
         assert ik._route(m, k, n, x.dtype) == "gemv"
@@ -643,11 +692,15 @@ def f32mma_checks(torch, ik, site, k, n, q, s, gen, dev, flush):
         check_f32("int8_dot", f"{site} f32mma M={m}", dot(x), plain(x))
         point[f"M{m}_f32mma_ms"] = cuda_ms(lambda x=x: dot(x), torch, flush=flush)
         point[f"M{m}_gemv_ms"] = cuda_ms(gemv, torch, flush=flush)
-    log(f"int8_dot {site} f32mma: float32 max err {errs[3]:.3e} / {errs[4]:.3e} / "
-        f"{errs[SLOTS]:.3e} at M = 3 / 4 / {SLOTS} ({point['rel_err']:.2e} of max|plain|); "
-        f"bit-equal over two launches and for rows 0-2 at M = 3; at M = 1 / 2 "
-        f"{point['M1_f32mma_ms']:.4f} / {point['M2_f32mma_ms']:.4f} ms against the decode "
-        f"kernel's {point['M1_gemv_ms']:.4f} / {point['M2_gemv_ms']:.4f}; plan {point['plan']}")
+    log(f"int8_dot {site} f32mma: float32 max err / max|plain| "
+        + ", ".join(f"{v:.2e} (M={m})" for m, v in rel.items())
+        + "; bit-equal over two launches, for rows 0-2 at M = 3 and 32 and rows 32-34, "
+        "40-42 of M = 64; ms (simt, library) "
+        + ", ".join(f"M={r['M']} {r['ms']:.4f} ({r['simt_ms']:.4f}, {r['library_ms']:.4f})"
+                    for r in times)
+        + f"; at M = 1 / 2 {point['M1_f32mma_ms']:.4f} / {point['M2_f32mma_ms']:.4f} ms "
+        f"against the decode kernel's {point['M1_gemv_ms']:.4f} / {point['M2_gemv_ms']:.4f}; "
+        f"plan {point['plan']}")
     return point
 
 
@@ -2071,8 +2124,8 @@ def gemv_gate(what: str, name: str, cfg, local, graphs, tokens: int, requests: i
     """Over TCP every decode step of every layer takes the decode kernel
     (stage 0 with bf16 x, stages 1-3 with the float32 the wire decodes to),
     and the float32 prefill of stages 1-3 takes `prefill_route` (the route
-    `_route` gives float32 x at the prompt's bucket: "simt" for int8_dot,
-    "f32mma" for nf4_dot): exactly 4 launches a layer of those stages for
+    `_route` gives float32 x at the prompt's bucket: "f32mma" for both
+    kernels): exactly 4 launches a layer of those stages for
     each request, and for each eager warm-up run of a capture (at most one
     a capture); besides stage 0's prefill on the tensor cores, no launch
     takes any other route. `by_route` maps each route to its launches."""
@@ -2660,10 +2713,9 @@ def batched_gates(what: str, kernels, cfg, adapters, stage0s, results, requests,
     most MAX_NEW_TOKENS - 1 + ROUND_SLACK; int8_dot launches by route
     (stage 0's prefill on the tensor cores and its decode on the decode
     kernel, one each a site, layer and token at least; on stages 1-3
-    exactly one batched-route launch a site and layer for each round, and
-    one CUDA-core launch a site and layer for each float32 prefill, which
-    is all the CUDA-core route runs); one sample_draw a sampled token at
-    least."""
+    exactly one float32-route launch a site and layer for each round and
+    for each float32 prefill, and no CUDA-core launch); one sample_draw a
+    sampled token at least."""
     ik = kernels["int8_dot"]
     rounds = {a.peer_id: a.inner.decode_steps - rounds_before[a.peer_id] for a in adapters}
     captures = (sum(a.inner.graphs.captures + a.inner.sampler.captures for a in adapters)
@@ -2673,8 +2725,9 @@ def batched_gates(what: str, kernels, cfg, adapters, stage0s, results, requests,
     simt = ik._launches - ik._launches_mma - ik._launches_gemv - ik._launches_f32mma
     layers0 = stage0s[0].spec.num_layers
     need = {"mma": 4 * layers0 * len(results), "gemv": 4 * layers0 * decode_tokens,
-            "f32mma": sum(4 * a.spec.num_layers * rounds[a.peer_id] for a in adapters),
-            "simt": sum(4 * a.spec.num_layers * len(results) for a in adapters)}
+            "f32mma": sum(4 * a.spec.num_layers * (rounds[a.peer_id] + len(results))
+                          for a in adapters),
+            "simt": 0}
     got = {"mma": ik._launches_mma, "gemv": ik._launches_gemv,
            "f32mma": ik._launches_f32mma, "simt": simt}
     sampled = sum(len(r.tokens) for r, (_, sp) in zip(results, requests) if not sp.greedy)
@@ -2693,12 +2746,11 @@ def batched_gates(what: str, kernels, cfg, adapters, stage0s, results, requests,
     if any(got[k] < need[k] for k in ("mma", "gemv")):
         raise AssertionError(f"{what}: int8_dot launches {got}, want >= {need}")
     if got["f32mma"] != need["f32mma"]:
-        raise AssertionError(f"{what}: {got['f32mma']} batched-route launches, want one "
-                             f"a site and layer for each round of stages 1-3: "
-                             f"{need['f32mma']}")
+        raise AssertionError(f"{what}: {got['f32mma']} float32-route launches, want one "
+                             f"a site and layer for each round and each prefill of stages "
+                             f"1-3: {need['f32mma']}")
     if got["simt"] != need["simt"]:
-        raise AssertionError(f"{what}: {got['simt']} CUDA-core launches, want only the "
-                             f"float32 prefills of stages 1-3: {need['simt']}")
+        raise AssertionError(f"{what}: {got['simt']} CUDA-core launches, want none")
     if draws < sampled:
         raise AssertionError(f"{what}: {draws} sample_draw launches for {sampled} "
                              "sampled tokens")
@@ -2999,11 +3051,11 @@ def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batche
     ``decode_float32``, from the `decode` rows; the path's launches, and
     under ``launches_by_route`` each route's share; the same path over
     in-process TCP (`tcp`, its summary) under ``launches_tcp_by_route``
-    (stages 1-3's float32 prefill: ``int8_dot`` on "simt", ``nf4_dot`` on
-    "f32mma"); the batched regime (M = SLOTS) and the float32 prefill (M =
-    prefill_m) under ``batched_<dtype>`` and ``prefill_float32`` with their
-    route (float32 with the old CUDA-core kernel's ms beside it where the
-    phase timed it)."""
+    (stages 1-3's float32 prefill: both on "f32mma"); the batched regime
+    (M = SLOTS) and the float32 prefill (M = prefill_m) under
+    ``batched_<dtype>`` and ``prefill_float32`` with their route (float32
+    with the old CUDA-core kernel's ms beside it where the phase timed
+    it)."""
     decode_rows = [r for r in rows if r["M"] == 1]
     launches = summary[f"{name}_launches"]
     by_route = {"mma": summary[f"{name}_launches_mma"]}
@@ -3114,11 +3166,17 @@ def main(argv) -> int:
         prompt_len, import_module(PORT + ".runtime.executor").SEQ_BUCKETS)
     flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     f32_flops = flops / F32_TERMS
-    int8_rows, int8_scan, int8_decode, int8_plans, int8_batch, int8_f32mma = int8_phase(
-        torch, ik, "cuda", prompt_len, prefill_m, bw, flops, flush, f32_flops)
-    log(json.dumps({"int8_dot_f32mma": int8_f32mma, "int8_dot_f32mma_per_layer": {
-        f"M={m}": {route: sum(p[f"M{m}_{route}_ms"] for p in int8_f32mma)
-                   for route in ("f32mma", "gemv")} for m in (1, 2)}, "card": smi}))
+    (int8_rows, int8_scan, int8_decode, int8_plans, int8_batch, int8_f32mma,
+     int8_f32_scan) = int8_phase(torch, ik, "cuda", prompt_len, prefill_m, bw, flops, flush,
+                                 f32_flops)
+    per_layer = {f"M={m}": {route: sum(p[f"M{m}_{route}_ms"] for p in int8_f32mma)
+                            for route in ("f32mma", "gemv")} for m in (1, 2)}
+    for m in F32_TIMED_M:
+        rows_m = [r for p in int8_f32mma for r in p["times"] if r["M"] == m]
+        per_layer[f"M={m}"] = {key: sum(r[key] for r in rows_m)
+                               for key in ("ms", "simt_ms", "library_ms", "bound_ms")}
+    log(json.dumps({"int8_dot_f32mma": int8_f32mma, "int8_dot_f32mma_per_layer": per_layer,
+                    "int8_dot_f32mma_crossover": int8_f32_scan, "card": smi}))
     nf4_rows, nf4_scan, nf4_decode, nf4_plans, nf4_batch, nf4_f32mma, nf4_f32_scan = nf4_phase(
         torch, nk, "cuda", prompt_len, prefill_m, bw, flops, flush, f32_flops)
     log(json.dumps({"nf4_dot_f32mma": nf4_f32mma, "nf4_dot_f32mma_crossover": nf4_f32_scan,
@@ -3149,36 +3207,36 @@ def main(argv) -> int:
     log(json.dumps({"nf4_gemv_sass": {
         dtype: sass_counts("nf4_dot", f"nf4_gemv_kernelI{mangled}Li1E")
         for dtype, mangled in dtypes}}))
-    # int8_dot's batched route beside the old kernel it replaced at M = 8;
-    # no int-to-float instruction anywhere in it.
+    # int8_dot's float32 route at each M tile beside the old kernel it
+    # replaced; no int-to-float instruction anywhere in it.
     int8_sass = {f"{kernel} {dtype}": sass_counts("int8_dot", f"{kernel}I{mangled}Li1E")
                  for kernel in ("int8_gemv_kernel", "int8_dot_kernel")
                  for dtype, mangled in dtypes}
     int8_sass["int8_dot_kernel float32 M=8"] = sass_counts("int8_dot",
                                                            "int8_dot_kernelIfLi8E")
-    f32mma_sass = sass_counts("int8_dot", "int8_f32mma_kernelE")
-    int8_sass["int8_f32mma_kernel float32"] = f32mma_sass
+    f32mma_sass = {f"int8_f32mma_kernel<{frags}>": sass_counts("int8_dot",
+                                                               f"int8_f32mma_kernelILi{frags}E")
+                   for frags in (1, ik.F32MMA_MAX_FRAGS)}
+    int8_sass.update(f32mma_sass)
     log(json.dumps({"int8_gemv_sass": int8_sass}))
-    # The check must have read the kernel: no cuobjdump, or no function of
-    # that name in the library, fails it as an I2F would.
-    if not f32mma_sass:
-        raise AssertionError("int8_f32mma_kernel: no SASS read (cuobjdump missing or no "
-                             "function int8_f32mma_kernel in the library)")
-    if f32mma_sass.get("I2F", 0):
-        raise AssertionError(f"int8_f32mma_kernel: {f32mma_sass['I2F']} I2F in its SASS")
-    # nf4_dot's float32 prefill route at each M tile (8 and 16 rows of x):
-    # on the tensor cores (HMMA), with no local memory (a spill would show
-    # as STL / LDL, and in ptxas's spill lines).
+    for kernel, counts in f32mma_sass.items():
+        if counts and counts.get("I2F", 0):
+            raise AssertionError(f"{kernel}: {counts['I2F']} I2F in its SASS")
+    # Both float32 routes at each M tile (8 and 16 rows of x): on the tensor
+    # cores (HMMA; no cuobjdump, or no function of that name in the library,
+    # fails it), with no local memory (a spill would show as STL / LDL, and
+    # in ptxas's spill lines).
     nf4_sass = {f"nf4_f32mma_kernel<{frags}>": sass_counts("nf4_dot",
                                                            f"nf4_f32mma_kernelILi{frags}E")
                 for frags in (1, nk.F32MMA_MAX_FRAGS)}
     spills = [line for src, text in import_module(PORT + ".utils.cuda_build")
               .build_logs.items() for kernel, line in ptxas_usage(text)
-              if kernel.startswith("nf4_f32mma_kernel") and "spill" in line
+              if kernel.startswith(("nf4_f32mma_kernel", "int8_f32mma_kernel"))
+              and "spill" in line
               and not re.fullmatch(r"0 bytes stack frame, 0 bytes spill stores, "
                                    r"0 bytes spill loads", line)]
-    log(json.dumps({"nf4_f32mma_sass": nf4_sass, "nf4_f32mma_spills": spills}))
-    for kernel, counts in nf4_sass.items():
+    log(json.dumps({"nf4_f32mma_sass": nf4_sass, "f32mma_spills": spills}))
+    for kernel, counts in {**f32mma_sass, **nf4_sass}.items():
         if not counts or not counts.get("HMMA"):
             raise AssertionError(f"{kernel}: no SASS read or no HMMA (cuobjdump missing, or "
                                  "no such function in the library)")

@@ -8,12 +8,14 @@
 // (ops/int8_kernel.py, `_route`) picks one from M, K, N and x's dtype alone:
 //   * int8_gemv_kernel ("gemv"): decode, M <= 2 (bf16 x below MMA_MIN_M,
 //     float32 x at M <= 2), N % 16 == 0, K <= 32768;
-//   * int8_f32mma_kernel ("f32mma"): float32 x at 3 <= M <= 8 (the batched
-//     engine's rounds at stages 1-3), N % 16 == 0, K % 4 == 0, K <= 32768;
+//   * int8_f32mma_kernel ("f32mma"): float32 x at M >= 3 (stages 1-3's
+//     prefill and the batched engine's rounds, which compute in the float32
+//     the wire decodes to), N % 16 == 0, K % 4 == 0, K <= 32768;
 //   * int8_dot_mma_kernel, on the tensor cores ("mma"): bf16 x at prefill M
 //     with N % 16 == 0 and K % 8 == 0 (every llama-3.1-8b site);
-//   * int8_dot_kernel, on the CUDA cores ("simt"): float32 x at prefill M,
-//     bf16 x at M 3-4, and shapes the others do not take (N % 16 != 0).
+//   * int8_dot_kernel, on the CUDA cores ("simt"): bf16 x at M 3-4, and
+//     shapes the others do not take (N % 16 != 0; float32 x with K % 4 != 0
+//     or K > 32768).
 //
 // ---- int8_gemv_kernel (decode: M <= 2, bf16 or float32 x) ----
 // What bounds it on an H100: at M <= 2 every weight byte is used once or
@@ -82,50 +84,76 @@
 // ms with the L2 cold (bf16 and float32 x alike), 2.0x the byte bound,
 // against 0.177 for int8_dot_kernel in the same run.
 //
-// ---- int8_f32mma_kernel (the batched round: float32 x, 3 <= M <= 8) ----
-// A batched round computes every slot, so stages 1-3 run each site at M =
-// --slots (8) with the float32 x of the wire and of the engine's step
-// buffer. What bounds it on an H100: at M = 8 each weight byte carries 16
-// FLOP, far below the tensor cores' ridge, so the K * N int8 bytes (0.066
-// ms a llama-3.1-8b layer). int8_dot_kernel<float, 8> was bound by
-// instructions instead: an I2F and 8 FFMAs a weight on the CUDA cores, and
-// no split-K. What the design does about it: int8_gemv_kernel's structure
-// (the strips, the cluster split-K with its plan, the cp.async ring, the
-// conflict-free swizzle, the exact bf16 A fragments of gemv_widen_pair),
-// with x as the whole n8 B fragment:
-//   * Each ring slot carries its stage's 128 rows of x (8 rows of float32,
-//     4 KB) beside the 16 KB of weights, copied with them, so x is never
-//     staged ahead of the loop: a rank's whole chunk of x, split, would
-//     take 48-84 KB of shared memory (one CTA an SM at wd) and its loads
-//     would run in series at each CTA's start (0.237 ms a layer against
-//     0.165, chip_smoke.py, PERF.md).
+// ---- int8_f32mma_kernel (float32 x at M >= 3) ----
+// Stages 1-3 compute in the float32 the wire decodes to, as the reference
+// does: their prefill projections get float32 x at the prompt's bucket (M
+// = 32 for chip_smoke.py's prompts; failover replays 33-63, chunks up to
+// 2048), and a batched round every slot (M = --slots, 8). What bounds it on
+// an H100: at M = 8 each weight byte carries 16 FLOP, at M = 32 64, far
+// below the tensor cores' ridge, so the K * N int8 bytes (0.066 ms a
+// llama-3.1-8b layer) if the products ran on the tensor cores; float32
+// products are not bf16 ones, though. int8_dot_kernel<float, 8> did an I2F
+// and M FFMAs a weight on the CUDA cores, re-read every weight for each
+// 8-row M tile, and had no split-K. What the design does about it:
+// int8_gemv_kernel's structure (the strips, the cluster split-K with its
+// plan, the cp.async ring, the conflict-free swizzle, the exact bf16 A
+// fragments of gemv_widen_pair) with x in the B fragments:
+//   * M tiles of 16 rows (two n8 fragments of x) past M = 8, 8 rows up to
+//     it, along the grid's second dimension, next to each other, so the M
+//     tiles of a strip share its weight bytes in L2. Each A fragment is
+//     widened once for both fragments: 6 mma a widening at 16 rows. 8-row
+//     tiles at every M ran a layer at M = 32 in 0.306 ms against 0.237
+//     (scripts/torch_f32mma_variants.py int8_dot rows8, PERF.md).
+//   * Each ring slot carries its stage's 128 rows of the tile's x (float32,
+//     4 or 8.5 KB) beside the 16 KB of weights, copied with them, so x is
+//     never staged ahead of the loop: a rank's whole chunk of x, split,
+//     would take 48-84 KB of shared memory at 8 rows and its loads would
+//     run in series at each CTA's start (0.237 ms a layer against 0.165 at
+//     M = 8, chip_smoke.py, PERF.md).
 //   * A lane splits its B fragments into three bf16 terms as it reads
 //     them: hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid) (each
 //     subtraction exact; three terms hold every normal float32 exactly).
-//     Each x value is read, and split, by one lane of the CTA. Per A
-//     fragment one mma a term, hi first, into the same float32
-//     accumulators: each term * int8 product is exact, so only the order
-//     of the float32 sums (and the tensor cores' own accumulation) differs
-//     from the plain version. A row's sums never touch another row's, so a
-//     row gives the same bits whatever M it is launched at and whatever
-//     the other rows hold.
-//   * At M = 8 lane (g, c) holds rows m = 2c, 2c + 1 of its columns, so
-//     every lane stores its sums, into a padded layout free of bank
-//     conflicts (f32mma_sum_at). The warps' sums and rank 0's slots go into
-//     the drained ring, after a cluster barrier that every rank reaches
-//     past its loop: with a ring of 3 slots a CTA takes 61 KB, and three
-//     fit an SM at every site.
+//     Each x value is read, and split, by one lane of a CTA: once for each
+//     column strip, with no scratch. A build with no split instruction at
+//     all (wrong sums, the variants script's nosplit) ran a layer 1-2%
+//     faster at M = 32 and under 1% at M = 8: the most a split pre-pass,
+//     as nf4_dot's, could save, for its own launch and 3 x M x K bf16 of
+//     scratch in every captured prefill graph's pool (176 MB at a
+//     2048-row chunk of wd). Per A fragment one mma a fragment and term,
+//     hi first, into the same float32 accumulators: each term * int8
+//     product is exact, so only the order of the float32 sums (and the
+//     tensor cores' own accumulation) differs from the plain version.
+//   * A row's sums never touch another row's, and a fragment's
+//     accumulators take the same products in the same order at either
+//     tile size, so a row gives the same bits whatever M it is launched at
+//     and whatever the other rows hold.
+//   * After the loop each warp's sums go into the drained ring, in a padded
+//     layout free of bank conflicts (f32mma_sum_at); once every rank is
+//     past its loop each pushes its sum of row m (warps in order) into rank
+//     m % split's slots through distributed shared memory, and after a
+//     cluster barrier each rank adds its rows' slots in rank order and
+//     writes y: at 16 rows and split 8 two rows a rank, not all 16 on rank
+//     0. With a ring of 3 slots a CTA takes 62208 bytes at 8 rows and
+//     75264 at 16, and three fit an SM (128 and 168 registers); a ring of
+//     4 ran 7% slower at M = 32 (the variants script's stages4).
 //   * The plan (strip, split) is the gemv's `_gemv_plan`, a function of K
 //     alone, so that a fused weight and its parts sum every column in the
 //     same order. x needs K % 4 == 0 (16-byte copies, all in or all out).
 // Two terms would leave 2.0-3.0e-6 of max|plain| at the llama-3.1-8b sites
-// against three's 0.8-2.0e-6, for 3% of the time (PERF.md): the kernel takes
-// three (scripts/torch_f32mma_variants.py compares a copy with kF32MmaTerms
-// = 2).
+// against three's 0.8-2.0e-6, for 3% of the time at M = 8 (PERF.md): the
+// kernel takes three (scripts/torch_f32mma_variants.py compares builds with
+// other constants).
+// Measured (PERF.md): a llama-3.1-8b layer's four sites at M = 32 in ~0.236
+// ms with the L2 cold, against ~1.145 for int8_dot_kernel<float, 8> and
+// ~0.465 for torch.matmul on the float32-widened weight in the same run
+// (3.5x the 0.068 ms byte bound); ~0.143 at M = 8. The products run near
+// mma.sync's issue rate; set-up, the cluster barriers and the push take
+// about a quarter of a CTA (scripts/torch_f32mma_profile.py int8_dot).
 //
 // ---- int8_dot_kernel (CUDA cores) ----
-// The first port of the kernel and the decode kernel until the gemv route:
-// now float32 x at prefill M, bf16 x at M 3-4 and ragged N.
+// The first port of the kernel, the decode kernel until the gemv route and
+// float32 prefill until the f32mma route took every float32 M >= 3: now bf16
+// x at M 3-4 and the shapes the other routes do not take.
 // What bounds it on an H100: at decode (M = 1) the work is one multiply-add
 // per weight byte, so the kernel is bound by reading q from device memory
 // (K * N bytes; 117 MB for the 8B model's fused gate/up weight). At large M
@@ -207,9 +235,9 @@
 //     strip_cols == 128, 1 <= split <= 8 (the cluster size), at most 128
 //     stages of 128 rows a rank (else an error code, no launch).
 //   int int8_dot_f32mma_launch(...the gemv's arguments...)
-//     The batched route: x_dtype 0 only, 1 <= M <= 8, K % 4 == 0, N % 16 ==
-//     0, x and q 16-byte aligned, strip_cols == 128, 1 <= split <= 8 (else
-//     an error code, no launch).
+//     The float32 route: x_dtype 0 only, M >= 1, K % 4 == 0, N % 16 == 0,
+//     x and q 16-byte aligned, strip_cols == 128, 1 <= split <= 8 (else an
+//     error code, no launch); 8-row M tiles up to M = 8, 16-row past it.
 //   const char* int8_dot_error_string(int code)
 
 #include <cooperative_groups.h>
@@ -1005,24 +1033,24 @@ __global__ void __launch_bounds__(kGemvThreads)
   }
 }
 
-// A launch of `kernel` on a grid of split x strips CTAs, each column
-// strip's split ranks one thread-block cluster (cudaLaunchKernelEx, which
-// CUDA graphs capture), with `smem` bytes of dynamic shared memory: above
-// 48 KB it must be asked for first. Both split-K kernels launch this way.
+// A launch of `kernel` on `grid`, the grid.x ranks of a split along K one
+// thread-block cluster (cudaLaunchKernelEx, which CUDA graphs capture),
+// with `smem` bytes of dynamic shared memory: above 48 KB it must be asked
+// for first. Both split-K kernels launch this way.
 template <typename... Params, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(Params...), int split, int strips, size_t smem,
+cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid, size_t smem,
                            cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, strips, 1);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(kGemvThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.x = grid.x;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -1041,7 +1069,8 @@ cudaError_t launch_gemv(const void* x, const void* q, const void* s, void* y,
   if (chunk > kGemvMaxChunk || strips > 65535) return cudaErrorInvalidValue;
   const bool aligned = K % (16 / static_cast<int>(sizeof(T))) == 0 &&
                        reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  return launch_cluster(int8_gemv_kernel<T, M>, split, strips, gemv_smem<T, M>(chunk, split),
+  return launch_cluster(int8_gemv_kernel<T, M>, dim3(split, strips, 1),
+                        gemv_smem<T, M>(chunk, split),
                         stream, static_cast<const T*>(x), static_cast<const int8_t*>(q),
                         static_cast<const float*>(s), static_cast<T*>(y), K, N, chunk,
                         aligned);
@@ -1053,58 +1082,70 @@ static_assert(2 * (gemv_smem<float, 2>(kGemvMaxChunk, kGemvMaxSplit) + 1024) <=
                   kSmemPerSM,
               "two of the gemv's largest CTAs fit an SM's shared memory");
 
-// ---- The batched route: float32 x at M <= 8 as bf16 terms ----
+// ---- The float32 route: float32 x at M >= 3 as bf16 terms ----
 
-constexpr int kF32MmaRows = 8;   // rows of x: the mma's n8 B fragment
-constexpr int kF32MmaTerms = 3;  // bf16 terms of a float32 x value
+constexpr int kF32MmaRows = 8;      // rows of x in one n8 B fragment of the mma
+constexpr int kF32MmaMaxFrags = 2;  // fragments a CTA: 16-row M tiles past M = 8
+constexpr int kF32MmaTerms = 3;     // bf16 terms of a float32 x value
 // A ring slot: the stage's 128 x 128 int8 weights, then its 128 rows of x
-// as float32 [8][128 + 8] (the pad keeps a warp's 8-byte fragment reads
-// free of bank conflicts). A ring of 3 slots (two stages ahead of the
-// work) lets three CTAs share an SM: a layer's four sites ran in 0.150 ms
-// against 0.162 with the gemv's 4 slots and two CTAs an SM
-// (scripts/torch_f32mma_variants.py, PERF.md).
+// as float32 [tile rows][128 + 8] (the pad keeps a warp's 8-byte fragment
+// reads free of bank conflicts). A ring of 3 slots (two stages ahead of the
+// work) lets three CTAs share an SM at both tile sizes: at M = 8 a layer's
+// four sites ran in 0.150 ms against 0.162 with the gemv's 4 slots and two
+// CTAs an SM (scripts/torch_f32mma_variants.py, PERF.md).
 constexpr int kF32MmaXRow = kGemvRows + 8;
-constexpr int kF32MmaSlotBytes = kGemvStageBytes + 4 * kF32MmaRows * kF32MmaXRow;
 constexpr int kF32MmaStages = 3;
-constexpr int kF32MmaSmem = kF32MmaStages * kF32MmaSlotBytes;
-constexpr int kF32MmaXCopies = kF32MmaRows * kGemvRows / 4 / kGemvThreads;
-// The warps' sums after the loop, [warp][m][148 words]: column col of row m
-// at m * 148 + col + col / 16, so that a warp's stores of its D fragments
-// (lane (g, c): columns 16g + ..., rows 2c, 2c + 1) hit 32 different banks.
+// The warps' sums after the loop, [warp][row][148 words]: column col of row
+// m at m * 148 + col + col / 16, so that a warp's stores of its D fragments
+// (lane (g, c): columns 16g + ..., rows 2c, 2c + 1 of a fragment) hit 32
+// different banks.
 constexpr int kF32MmaSumRow = kGemvStrip + kGemvStrip / 16 + 12;  // 148 words
-constexpr int kF32MmaSumBytes = 4 * kGemvWarps * kF32MmaRows * kF32MmaSumRow;
-constexpr int kF32MmaSlotsAt = 20480;  // rank 0's slots in the drained ring
 
-static_assert(kF32MmaSumBytes <= kF32MmaSlotsAt &&
-                  kF32MmaSlotsAt + 4 * kGemvMaxSplit * kF32MmaRows * kGemvStrip <=
-                      kF32MmaSmem,
-              "the warps' sums and rank 0's slots fit the drained ring");
-static_assert(kF32MmaSlotBytes % 16 == 0 && (4 * kF32MmaXRow) % 16 == 0,
-              "16-byte copies");
-static_assert(3 * (kF32MmaSmem + 1024) <= kSmemPerSM, "three CTAs fit an SM");
+// A CTA's shared memory at NF fragments of x (8 NF rows): the ring; after
+// the loop the drained ring takes the warps' sums and then the slots that
+// the cluster's ranks push to this one, [rank][row / split][column].
+template <int NF>
+struct F32MmaTile {
+  static constexpr int kRows = kF32MmaRows * NF;
+  static constexpr int kSlotBytes = kGemvStageBytes + 4 * kRows * kF32MmaXRow;
+  static constexpr int kSmem = kF32MmaStages * kSlotBytes;
+  static constexpr int kXCopies = kRows * kGemvRows / 4 / kGemvThreads;  // a thread's
+  static constexpr int kSumBytes = 4 * kGemvWarps * kRows * kF32MmaSumRow;
+  static_assert(kSlotBytes % 16 == 0 && (4 * kF32MmaXRow) % 16 == 0 && kSumBytes % 16 == 0,
+                "16-byte copies");
+  static_assert(kSumBytes + 4 * (kRows + kGemvMaxSplit - 1) * kGemvStrip <= kSmem,
+                "the warps' sums and the pushed slots fit the drained ring");
+};
+
+// Three CTAs an SM at both tile sizes (62208 bytes at 8 rows, 75264 at 16).
+static_assert(3 * (F32MmaTile<kF32MmaMaxFrags>::kSmem + 1024) <= kSmemPerSM,
+              "three of the largest CTAs fit an SM's shared memory");
+static_assert(kGemvThreads == kGemvStrip, "a thread a column of the strip");
 
 __device__ __forceinline__ int f32mma_sum_at(int m, int col) {
   return m * kF32MmaSumRow + col + (col >> 4);
 }
 
 // This thread's copies of stage `stage` into ring slot `slot`: the gemv's
-// weight copies, and 16-byte chunks of the stage's rows of x (chunk e of
-// thread t: row m = e / 32 of x, 4 floats at 4 (e % 32)); zero-filled for
-// m >= M and past K (K % 4 == 0: a chunk is all in or all out).
+// weight copies, and 16-byte chunks of the stage's rows of the M tile's x
+// (chunk e of thread t: row m = e / 32 of the tile, 4 floats at 4 (e %
+// 32)); zero-filled past M and past K (K % 4 == 0: a chunk is all in or
+// all out).
+template <int NF>
 __device__ __forceinline__ void f32mma_copy(unsigned char* slot,
                                             const int8_t* __restrict__ q,
                                             const float* __restrict__ x, int stage,
-                                            int n_strip, int M, int K, int N) {
+                                            int n_strip, int m0, int M, int K, int N) {
   gemv_copy(slot, q, stage, n_strip, K, N);
   float* xs = reinterpret_cast<float*>(slot + kGemvStageBytes);
 #pragma unroll
-  for (int e0 = 0; e0 < kF32MmaXCopies; ++e0) {
+  for (int e0 = 0; e0 < F32MmaTile<NF>::kXCopies; ++e0) {
     const int e = threadIdx.x + e0 * kGemvThreads;
     const int m = e >> 5, r = 4 * (e & 31);
     const int k = stage * kGemvRows + r;
-    const bool ok = m < M && k < K;
+    const bool ok = m0 + m < M && k < K;
     cp_async16(xs + m * kF32MmaXRow + r,
-               ok ? x + static_cast<size_t>(m) * K + k : x, ok);
+               ok ? x + static_cast<size_t>(m0 + m) * K + k : x, ok);
   }
 }
 
@@ -1122,19 +1163,26 @@ __device__ __forceinline__ void f32mma_split(float2 v, uint32_t (&b)[kF32MmaTerm
   }
 }
 
-// A warp's 32 rows of a stage into the lane's 8 accumulators: per 16-row
-// slice the B fragments of every term (lane group g is row m = g of x: k =
-// 2c, 2c + 1 and 2c + 8, 2c + 9 of the slice), then per column pair j
-// (d[j]: D row g is column 16g + 2j, row g + 8 column 16g + 2j + 1; lane
-// (g, c) holds m = 2c, 2c + 1) one mma a term, hi first.
-__device__ __forceinline__ void f32mma_rows(float (&d)[8][4], const int4 (&w)[8],
+// A warp's 32 rows of a stage into the lane's accumulators: per 16-row
+// slice the B fragments of every term of every fragment f (lane group g is
+// row 8f + g of the tile: k = 2c, 2c + 1 and 2c + 8, 2c + 9 of the slice),
+// then per column pair j (d[f][j]: D row g is column 16g + 2j, row g + 8
+// column 16g + 2j + 1; lane (g, c) holds rows 8f + 2c, 8f + 2c + 1) each A
+// fragment widened once and one mma a fragment and term, hi first. A
+// fragment's accumulators take the same products in the same order at
+// either tile size.
+template <int NF>
+__device__ __forceinline__ void f32mma_rows(float (&d)[NF][8][4], const int4 (&w)[8],
                                             const float* xs, int g, int c) {
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
-    const float* xr = xs + g * kF32MmaXRow + 16 * t + 2 * c;
-    uint32_t b0[kF32MmaTerms], b1[kF32MmaTerms];
-    f32mma_split(*reinterpret_cast<const float2*>(xr), b0);
-    f32mma_split(*reinterpret_cast<const float2*>(xr + 8), b1);
+    uint32_t b0[NF][kF32MmaTerms], b1[NF][kF32MmaTerms];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const float* xr = xs + (kF32MmaRows * f + g) * kF32MmaXRow + 16 * t + 2 * c;
+      f32mma_split(*reinterpret_cast<const float2*>(xr), b0[f]);
+      f32mma_split(*reinterpret_cast<const float2*>(xr + 8), b1[f]);
+    }
     const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&w[4 * t]);
     const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&w[4 * t + 1]);
     const uint32_t* w2 = reinterpret_cast<const uint32_t*>(&w[4 * t + 2]);
@@ -1147,26 +1195,34 @@ __device__ __forceinline__ void f32mma_rows(float (&d)[8][4], const int4 (&w)[8]
       a[2] = gemv_widen_pair<0>(w2[q], w3[q]);
       a[3] = gemv_widen_pair<1>(w2[q], w3[q]);
 #pragma unroll
-      for (int u = 0; u < kF32MmaTerms; ++u) gemv_mma(d[2 * q], a, b0[u], b1[u]);
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int u = 0; u < kF32MmaTerms; ++u) gemv_mma(d[f][2 * q], a, b0[f][u], b1[f][u]);
       a[0] = gemv_widen_pair<2>(w0[q], w1[q]);
       a[1] = gemv_widen_pair<3>(w0[q], w1[q]);
       a[2] = gemv_widen_pair<2>(w2[q], w3[q]);
       a[3] = gemv_widen_pair<3>(w2[q], w3[q]);
 #pragma unroll
-      for (int u = 0; u < kF32MmaTerms; ++u) gemv_mma(d[2 * q + 1], a, b0[u], b1[u]);
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int u = 0; u < kF32MmaTerms; ++u)
+          gemv_mma(d[f][2 * q + 1], a, b0[f][u], b1[f][u]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kGemvThreads)
+template <int NF>
+__global__ void __launch_bounds__(kGemvThreads, 3)
     int8_f32mma_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
                        const float* __restrict__ s, float* __restrict__ y, int M,
-                       int K, int N, int chunk) {
+                       int K, int N, int chunk, int per) {
+  using T = F32MmaTile<NF>;
   extern __shared__ __align__(16) unsigned char gsmem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = blockIdx.x;  // the cluster spans gridDim.x
   const int split = gridDim.x;
-  const int strip0 = blockIdx.y * kGemvStrip;
+  const int m0 = blockIdx.y * T::kRows;
+  const int strip0 = blockIdx.z * kGemvStrip;
   const int stages = (K + kGemvRows - 1) / kGemvRows;
   const int s0 = rank * chunk;
   const int count = max(min(s0 + chunk, stages) - s0, 0);
@@ -1176,17 +1232,20 @@ __global__ void __launch_bounds__(kGemvThreads)
 #pragma unroll
   for (int i = 0; i < kF32MmaStages - 1; ++i) {
     if (i < count) {
-      f32mma_copy(gsmem + i * kF32MmaSlotBytes, q, x, s0 + i, strip0, M, K, N);
+      f32mma_copy<NF>(gsmem + i * T::kSlotBytes, q, x, s0 + i, strip0, m0, M, K, N);
     }
     cp_async_commit();
   }
-  float d[8][4];
+  float d[NF][8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int f = 0; f < NF; ++f)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) d[j][i] = 0.f;
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[f][j][i] = 0.f;
   // Warp w works on rows 32 w .. 32 w + 31 of each stage; lane (g, c) reads
-  // chunk g of its rows (at position g ^ 2c: gemv_chunk) and x's row g.
+  // chunk g of its rows (at position g ^ 2c: gemv_chunk) and x's row g of
+  // each fragment.
   const int lane_off = 32 * warp * kGemvStrip + 16 * (g ^ (2 * c));
   for (int i = 0; i < count; ++i) {
     // As int8_gemv_kernel's loop: stage i (its weights and its rows of x)
@@ -1195,68 +1254,101 @@ __global__ void __launch_bounds__(kGemvThreads)
     cp_async_wait<kF32MmaStages - 2>();
     __syncthreads();
     if (i + kF32MmaStages - 1 < count) {
-      f32mma_copy(gsmem + ((i + kF32MmaStages - 1) % kF32MmaStages) * kF32MmaSlotBytes, q,
-                  x, s0 + i + kF32MmaStages - 1, strip0, M, K, N);
+      f32mma_copy<NF>(gsmem + ((i + kF32MmaStages - 1) % kF32MmaStages) * T::kSlotBytes, q,
+                      x, s0 + i + kF32MmaStages - 1, strip0, m0, M, K, N);
     }
     cp_async_commit();
-    const unsigned char* slot = gsmem + (i % kF32MmaStages) * kF32MmaSlotBytes;
+    const unsigned char* slot = gsmem + (i % kF32MmaStages) * T::kSlotBytes;
     int4 w[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       w[e] = *reinterpret_cast<const int4*>(slot + lane_off + gemv_row(e, c) * kGemvStrip);
     }
-    f32mma_rows(d, w, reinterpret_cast<const float*>(slot + kGemvStageBytes) + 32 * warp,
-                g, c);
+    f32mma_rows<NF>(d, w, reinterpret_cast<const float*>(slot + kGemvStageBytes) + 32 * warp,
+                    g, c);
   }
   // The ring is drained: the warps' sums go into it.
   cp_async_wait<0>();
   __syncthreads();
   float* wsum = reinterpret_cast<float*>(gsmem);
-  float* mine = wsum + warp * kF32MmaRows * kF32MmaSumRow;
+  float* mine = wsum + warp * T::kRows * kF32MmaSumRow;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int f = 0; f < NF; ++f)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      mine[f32mma_sum_at(2 * c + (i & 1), 16 * g + 2 * j + (i >> 1))] = d[j][i];
-  __syncthreads();
-  // Every rank is past its loop, so rank 0's ring takes the slots. This
-  // CTA's sum, warps in order, into its slot; rank 0 adds the slots in rank
-  // order, then each column's scale.
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        mine[f32mma_sum_at(kF32MmaRows * f + 2 * c + (i & 1), 16 * g + 2 * j + (i >> 1))] =
+            d[f][j][i];
+  // Rank r owns rows r, r + split, ... of the tile. Once every rank is past
+  // its loop (its ring drained) each pushes its sum of every row, warps in
+  // order, into the owner's slots through distributed shared memory (warp
+  // w the rows of owners w and w + 4, lane l columns 4l .. 4l + 3: one
+  // 16-byte store, 2% faster at M = 32 than a column a thread,
+  // scripts/torch_f32mma_variants.py int8_dot push1); after the second
+  // barrier each rank adds its rows' slots in rank order 0 .. split - 1
+  // (thread = column), then each column's scale. One launch, no atomics,
+  // deterministic, and a row's bits do not depend on M or on the other
+  // rows.
   cluster.sync();
-  float* slots = reinterpret_cast<float*>(gsmem + kF32MmaSlotsAt);
-  float* root = cluster.map_shared_rank(slots, 0);
-  for (int i = threadIdx.x; i < kF32MmaRows * kGemvStrip; i += kGemvThreads) {
-    const int at = f32mma_sum_at(i / kGemvStrip, i % kGemvStrip);
-    float v = 0.f;
+  const int col = threadIdx.x;
+  const int rows = min(T::kRows, M - m0);
+  // Row m = j * split + o goes to rank o's slot rank * per + j; the host
+  // passes per = ceil(kRows / split), so the kernel divides nothing (no
+  // I2F in it).
+  float* slots = reinterpret_cast<float*>(gsmem + T::kSumBytes);
+  const int c4 = 4 * (threadIdx.x & 31);
+  for (int j = 0; j < per; ++j) {
+    for (int o = warp; o < split && j * split + o < rows; o += kGemvWarps) {
+      const int m = j * split + o;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int w = 0; w < kGemvWarps; ++w) v += wsum[w * kF32MmaRows * kF32MmaSumRow + at];
-    root[rank * kF32MmaRows * kGemvStrip + i] = v;
+      for (int w = 0; w < kGemvWarps; ++w) {
+        const float* src = wsum + w * T::kRows * kF32MmaSumRow + f32mma_sum_at(m, c4);
+        v.x += src[0];
+        v.y += src[1];
+        v.z += src[2];
+        v.w += src[3];
+      }
+      *reinterpret_cast<float4*>(cluster.map_shared_rank(slots, o) +
+                                 (rank * per + j) * kGemvStrip + c4) = v;
+    }
   }
   cluster.sync();
-  if (rank == 0) {
-    for (int i = threadIdx.x; i < M * kGemvStrip; i += kGemvThreads) {
-      const int m = i / kGemvStrip, n = strip0 + i % kGemvStrip;
-      if (n < N) {
-        float v = 0.f;
-        for (int r = 0; r < split; ++r) v += slots[r * kF32MmaRows * kGemvStrip + i];
-        y[static_cast<size_t>(m) * N + n] = v * s[n];
-      }
+  if (strip0 + col < N) {
+    for (int j = 0; j < per && rank + j * split < rows; ++j) {
+      float v = 0.f;
+      for (int r = 0; r < split; ++r) v += slots[(r * per + j) * kGemvStrip + col];
+      y[static_cast<size_t>(m0 + rank + j * split) * N + strip0 + col] = v * s[strip0 + col];
     }
   }
 }
 
-cudaError_t launch_f32mma(const void* x, const void* q, const void* s, void* y, int M,
-                          int K, int N, int split, cudaStream_t stream) {
+// The M tiles of a strip are neighbours in the grid (y inside z), so they
+// share its weight bytes in L2.
+template <int NF>
+cudaError_t launch_f32mma_tiles(const void* x, const void* q, const void* s, void* y, int M,
+                                int K, int N, int split, cudaStream_t stream) {
+  using T = F32MmaTile<NF>;
   const int stages = (K + kGemvRows - 1) / kGemvRows;
   const int chunk = (stages + split - 1) / split;
   const int strips = (N + kGemvStrip - 1) / kGemvStrip;
-  if (strips > 65535) return cudaErrorInvalidValue;
-  return launch_cluster(int8_f32mma_kernel, split, strips, kF32MmaSmem, stream,
+  const int tiles = (M + T::kRows - 1) / T::kRows;
+  const int per = (T::kRows + split - 1) / split;  // rows a rank owns at most
+  if (strips > 65535 || tiles > 65535) return cudaErrorInvalidValue;
+  return launch_cluster(int8_f32mma_kernel<NF>, dim3(split, tiles, strips), T::kSmem, stream,
                         static_cast<const float*>(x), static_cast<const int8_t*>(q),
                         static_cast<const float*>(s), static_cast<float*>(y), M, K, N,
-                        chunk);
+                        chunk, per);
 }
 
+// 8-row tiles up to M = 8 (the batched rounds), 16-row tiles past it.
+cudaError_t launch_f32mma(const void* x, const void* q, const void* s, void* y, int M,
+                          int K, int N, int split, cudaStream_t stream) {
+  return M <= kF32MmaRows
+             ? launch_f32mma_tiles<1>(x, q, s, y, M, K, N, split, stream)
+             : launch_f32mma_tiles<kF32MmaMaxFrags>(x, q, s, y, M, K, N, split, stream);
+}
 
 }  // namespace
 
@@ -1331,7 +1423,7 @@ extern "C" int int8_dot_f32mma_launch(const void* x, const void* q, const void* 
                                       void* y, int M, int K, int N, int x_dtype,
                                       int device, void* stream, int strip_cols,
                                       int split) {
-  if (M <= 0 || M > kF32MmaRows || K <= 0 || K % 4 != 0 || N <= 0 || N % 16 != 0 ||
+  if (M <= 0 || K <= 0 || K % 4 != 0 || N <= 0 || N % 16 != 0 ||
       x_dtype != 0 || strip_cols != kGemvStrip || split < 1 || split > kGemvMaxSplit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

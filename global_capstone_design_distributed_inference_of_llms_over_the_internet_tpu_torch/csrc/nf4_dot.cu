@@ -146,16 +146,16 @@
 //     CTAs share an SM: 16-row M tiles ran 21% faster at M = 32 than
 //     32-row ones at three CTAs an SM, which read and look up each weight
 //     half as often; 16 table copies (conflict-free lookups, 32 KB) and a
-//     ring of 4 ran 7-11% slower (scripts/torch_nf4_f32mma_variants.py).
+//     ring of 4 ran 7-11% slower (scripts/torch_f32mma_variants.py).
 // Measured (PERF.md): a llama-3.1-8b layer's four sites at M = 32 in
 // ~0.39 ms with the L2 cold, against 1.26 for the CUDA-core kernel and
 // 0.45 for torch.matmul on the dequantized float32 weight in the same run
 // (9.3x the 0.042 ms bound); at M = 8 ~0.18 ms against 0.38. The loop runs
 // near mma.sync's issue rate on this card (~10 cycles an m16n8k16 per SM
-// sub-partition at four CTAs an SM, scripts/torch_nf4_f32mma_profile.py);
+// sub-partition at four CTAs an SM, scripts/torch_f32mma_profile.py);
 // a CTA's set-up, the cluster's barriers and the push take about a third
 // of its time. Three products instead of five took 13% off at 5.0e-6 of
-// max|plain| (scripts/torch_nf4_f32mma_variants.py).
+// max|plain| (scripts/torch_f32mma_variants.py).
 //
 // ---- nf4_dot_kernel (CUDA cores) ----
 // The first port of the kernel, the decode kernel until the gemv route and

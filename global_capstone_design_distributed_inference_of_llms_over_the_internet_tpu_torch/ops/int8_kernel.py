@@ -12,17 +12,18 @@ Two versions of one function:
     for a tensor on the card. `_route` picks one from M, K, N and x's dtype
     alone: "gemv", the decode kernel (M <= `GEMV_MAX_M`: bf16 x below
     `MMA_MIN_M`, float32 x; N % 16 == 0, K <= `GEMV_MAX_K`), split-K over a
-    thread-block cluster whose size `_gemv_plan` picks; "f32mma", the
-    batched round's kernel (float32 x at `F32MMA_MIN_M` <= M <=
-    `F32MMA_MAX_M`, N % 16 == 0, K % 4 == 0, K <= `GEMV_MAX_K`): the
+    thread-block cluster whose size `_gemv_plan` picks; "f32mma", float32
+    x at M >= `F32MMA_MIN_M` (the prefill of the stages behind TCP and the
+    batched rounds; N % 16 == 0, K % 4 == 0, K <= `GEMV_MAX_K`): the
     decode kernel's structure and plan (`_gemv_plan`) on the tensor cores
-    with x split into `F32MMA_TERMS` bf16 terms; "mma", the
+    with x split into `F32MMA_TERMS` bf16 terms, in M tiles of up to
+    `F32MMA_MAX_FRAGS` n8 fragments; "mma", the
     tensor-core kernel (bf16 x, M >= `MMA_MIN_M`, the alignment its 16-byte
     copies need: N % 16 == 0, K % 8 == 0), which widens each int8 weight
     once per block into a bf16 tile in shared memory; else "simt", the
-    CUDA-core kernel, which reads the int8 bytes straight from device
-    memory and takes any M, K and N. None ever materializes a scaled
-    weight: each scales the float32 sums;
+    CUDA-core kernel (bf16 x at M 3-4, ragged shapes), which reads the
+    int8 bytes straight from device memory and takes any M, K and N. None
+    ever materializes a scaled weight: each scales the float32 sums;
   * `int8_dot_reference`, the plain PyTorch version, taken for a tensor on
     the CPU (the CPU tests) and used by ``chip_smoke.py`` to check the
     kernels on the card.
@@ -32,7 +33,7 @@ one kernel to the other, or from the card to the plain version.
 ``_launches`` counts kernel launches of every route (not calls of the plain
 version), ``_launches_mma`` those of the tensor-core route and
 ``_launches_gemv`` those of the decode route and ``_launches_f32mma``
-those of the batched route, so a run can show that its main path went
+those of the float32 route, so a run can show that its main path went
 through the kernels (``ops/launch_counts.py``: a launch recorded into a
 CUDA graph counts on each replay).
 """
@@ -74,13 +75,16 @@ GEMV_MAX_CHUNK = 32
 GEMV_MAX_K = GEMV_MAX_SPLIT * GEMV_MAX_CHUNK * GEMV_ROWS
 GEMV_RANK_STAGES = 8
 
-# The batched route's geometry, as ``csrc/int8_dot.cu`` has it (kF32Mma*):
-# the decode kernel's strips, stages, cluster and plan, x as all 8 columns
-# of the mma's B fragment (the batched engine's M = --slots, 8 by default),
-# each float32 value as F32MMA_TERMS bf16 terms; a ring of F32MMA_STAGES
-# slots, each a stage's weights and its rows of x.
+# The float32 route's geometry, as ``csrc/int8_dot.cu`` has it (kF32Mma*):
+# the decode kernel's strips, stages, cluster and plan; x in n8 B fragments
+# of the mma (F32MMA_ROWS rows each), M tiles of one fragment up to M = 8
+# (the batched engine's M = --slots, 8 by default) and of F32MMA_MAX_FRAGS
+# past it, next to each other in the grid; each float32 value as
+# F32MMA_TERMS bf16 terms; a ring of F32MMA_STAGES slots, each a stage's
+# weights and its rows of the tile's x.
 F32MMA_MIN_M = GEMV_MAX_M + 1
-F32MMA_MAX_M = 8
+F32MMA_ROWS = 8
+F32MMA_MAX_FRAGS = 2
 F32MMA_TERMS = 3
 F32MMA_STAGES = 3
 
@@ -125,15 +129,15 @@ def int8_dot_reference(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tor
 def _route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
     """The kernel for x [m, k] of `dtype` times an int8 weight [k, n]:
     "gemv" (decode) for M <= GEMV_MAX_M, bf16 x below MMA_MIN_M or float32
-    x, with N % 16 == 0 and K <= GEMV_MAX_K; "f32mma" (the batched round)
-    for float32 x at F32MMA_MIN_M <= M <= F32MMA_MAX_M with N % 16 == 0,
-    K % 4 == 0 and K <= GEMV_MAX_K; "mma" (tensor cores) for bf16 x at M >=
+    x, with N % 16 == 0 and K <= GEMV_MAX_K; "f32mma" (tensor cores, x as
+    bf16 terms) for float32 x at M >= F32MMA_MIN_M with N % 16 == 0, K % 4
+    == 0 and K <= GEMV_MAX_K; "mma" (tensor cores) for bf16 x at M >=
     MMA_MIN_M with N % 16 == 0 and K % 8 == 0; else "simt" (CUDA cores)."""
     decode = m <= GEMV_MAX_M and (dtype == torch.float32 or
                                   (dtype == torch.bfloat16 and m < MMA_MIN_M))
     if decode and n % 16 == 0 and k <= GEMV_MAX_K:
         return "gemv"
-    if (dtype == torch.float32 and F32MMA_MIN_M <= m <= F32MMA_MAX_M
+    if (dtype == torch.float32 and m >= F32MMA_MIN_M
             and n % 16 == 0 and k % 4 == 0 and k <= GEMV_MAX_K):
         return "f32mma"
     if dtype == torch.bfloat16 and m >= MMA_MIN_M and n % 16 == 0 and k % 8 == 0:
@@ -154,8 +158,9 @@ def _gemv_plan(m: int, k: int, n: int) -> tuple[int, int]:
     The plan depends on K alone, not on N or M: the order of a column's
     float32 sums follows the split, so a fused weight (wq|wk|wv, wg|wu, as
     the stage executors hold them) and its parts (as a full_forward over
-    the loaded weights runs them) give the same bits, and a CTA's sums for
-    both rows of x share its loads."""
+    the loaded weights runs them) give the same bits, a CTA's sums for
+    both rows of x at decode share its loads, and a row gives the same
+    bits at every M of the float32 route."""
     del m, n
     stages = -(-k // GEMV_ROWS)
     least = -(-stages // GEMV_MAX_CHUNK)

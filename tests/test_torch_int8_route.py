@@ -1,12 +1,12 @@
 """``int8_dot``'s four kernels: `_route` picks the decode kernel ("gemv"),
-the batched round's kernel ("f32mma"), the tensor-core kernel ("mma") or
+the float32 kernel ("f32mma"), the tensor-core kernel ("mma") or
 the CUDA-core kernel ("simt") from M, K, N and x's dtype alone; CPU
 tensors take the plain version at any M and launch nothing; the C entry
 points of ``csrc/int8_dot.cu`` take the same
 arguments (read from the source text, nothing CUDA imported); and the
 plain version agrees with the reference's Pallas kernel, run interpreted,
 at prefill M with bf16 x. The decode kernel's plan and its decode-M
-agreement are in ``test_torch_int8_gemv.py``, the batched route's in
+agreement are in ``test_torch_int8_gemv.py``, the float32 route's in
 ``test_torch_int8_f32mma.py``."""
 
 import re
@@ -54,7 +54,8 @@ ROUTES = [
     ("bf16 prefill chunk", 2048, 4096, 4096, torch.bfloat16, "mma"),
     ("float32 at M 1", 1, 4096, 4096, torch.float32, "gemv"),
     ("float32 at MMA_MIN_M", MIN, 4096, 4096, torch.float32, "f32mma"),
-    ("float32 at M 512", 512, 4096, 4096, torch.float32, "simt"),
+    ("float32 at M 512", 512, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 prefill chunk", 2048, 14336, 4096, torch.float32, "f32mma"),
     ("bf16 N not a multiple of 16", 30, 4096, 4104, torch.bfloat16, "simt"),
     ("bf16 N 97", 30, 128, 97, torch.bfloat16, "simt"),
     ("bf16 K not a multiple of 8", 30, 4100, 4096, torch.bfloat16, "simt"),
@@ -75,9 +76,14 @@ ROUTES = [
     ("float32 at M 3", 3, 4096, 4096, torch.float32, "f32mma"),
     ("float32 at M 5", 5, 4096, 4096, torch.float32, "f32mma"),
     ("float32 at M 8 (the batched round)", 8, 4096, 4096, torch.float32, "f32mma"),
-    ("float32 at F32MMA_MAX_M", tk.F32MMA_MAX_M, 14336, 4096, torch.float32, "f32mma"),
-    ("float32 at M 9", 9, 4096, 4096, torch.float32, "simt"),
-    ("float32 at M 16", 16, 4096, 4096, torch.float32, "simt"),
+    ("float32 at F32MMA_ROWS (one 8-row tile)", tk.F32MMA_ROWS, 14336, 4096, torch.float32,
+     "f32mma"),
+    ("float32 at M 9", 9, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 at M 16", 16, 4096, 4096, torch.float32, "f32mma"),
+    ("float32 at M 33 (a failover replay)", 33, 4096, 28672, torch.float32, "f32mma"),
+    ("float32 M 32 K past the plan", 32, tk.GEMV_MAX_K + 4, 48, torch.float32, "simt"),
+    ("float32 M 32 K not a multiple of 4", 32, 4098, 4096, torch.float32, "simt"),
+    ("float32 M 512 N not a multiple of 16", 512, 4096, 4104, torch.float32, "simt"),
     ("float32 M 8 K at GEMV_MAX_K", 8, tk.GEMV_MAX_K, 48, torch.float32, "f32mma"),
     ("float32 M 8 K past the plan", 8, tk.GEMV_MAX_K + 4, 48, torch.float32, "simt"),
     ("float32 M 3 K past the plan", 3, tk.GEMV_MAX_K + 128, 4096, torch.float32, "simt"),
@@ -92,8 +98,7 @@ ROUTES = [
      for site, (k, n) in LLAMA_8B_SITES.items() for m in (1, 30)] + [
     (f"llama-3.1-8b {site} M {m} float32", m, k, n, torch.float32, "gemv")
     for site, (k, n) in LLAMA_8B_SITES.items() for m in (1, 2)] + [
-    (f"llama-3.1-8b {site} M {m} float32 (batched)", m, k, n, torch.float32,
-     "f32mma" if m <= 8 else "simt")
+    (f"llama-3.1-8b {site} M {m} float32 (batched)", m, k, n, torch.float32, "f32mma")
     for site, (k, n) in LLAMA_8B_SITES.items() for m in (3, 8, 32)]
 
 
