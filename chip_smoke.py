@@ -197,14 +197,41 @@ on the kernels; it never prints the last line of a smoke pass.)
    stage's round alone (device
    ms at fills 1/2/4/8, the last stage's leader round and its syncs, top
    kernels). Prints ``batched_path``.
+10b. Burst path (after the batched path, whose engines are released
+   first; ``burst_path``): one full-span batched engine on the int8 path's
+   weights (all 32 layers, bf16 slot caches of 8 slots x 2048 rows),
+   warmed up as ``--mode serve --stage 0 --batched --burst 8`` warms it
+   (the reserved memory before and after the 8-tick burst's capture
+   printed). The batched path's 8 requests per step on that engine
+   (``decode_batch`` + ``sample_round``), through ``decode_burst`` (8
+   ticks a burst) and through ``burst_stream``: both bursts' tokens must
+   equal the per-step tokens, which are held to the float32-cache
+   references as in step 5; one host sync and one replay a burst, no
+   capture; ``int8_dot`` launches exactly 4 x 32 x 8 a burst, counted by
+   route, none on the CUDA cores; ``sample_draw`` one a slot row a tick.
+   Then 8 client threads asking for ``burst=8`` through the adapter over
+   ``LocalTransport``: no ``burst_fallback`` event, a dispatch a round,
+   the engine's tokens, <= one host sync a prefill and a round, no
+   capture, and the launches of the prefills and rounds exactly; the same
+   8 clients over in-process TCP (``TcpStageServer`` with no runtime, wire
+   f32, beside a second full-span peer): equal tokens; one more greedy
+   request whose pinned peer is ``stop()``ped after its first burst: it
+   recovers onto the other peer with the fault-free tokens (the recovery
+   step's wall printed); the device ms of a burst replay at fills
+   1/2/4/8 and of a tick at N = 1, 4, 8, 16 (each N's capture seconds and
+   reserved memory). Prints ``burst_path``.
 11. Batched CLI drive (after step 9): ``--mode registry``, 3 x ``--mode
    serve --batched``, and two ``--mode client`` processes at once, whose
    generations and ``TOKENS=`` ids must equal the in-process batched run's
    for their prompts; prints ``batched_cli_path``.
+11b. Burst CLI drive: ``--mode registry``, one ``--mode serve --stage 0
+   --batched --burst 8`` and two ``--mode client --burst 8`` processes at
+   once, whose generations and ``TOKENS=`` ids must equal the in-process
+   burst clients'; prints ``burst_cli_path``.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``; each matmul with its launches by route in process and
-   over TCP, the batched path's launches, and its M = 8 and float32
-   prefill layers) and
+   over TCP, the batched path's and the burst path's launches by route,
+   and its M = 8 and float32 prefill layers) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -268,6 +295,11 @@ STAGE0_STEP_S = 0.005
 # (scripts/torch_batched_tcp.py, PERF.md). Over TCP stages 2 and 3 take
 # TCP_HOP_S a session; in process the default holds.
 TCP_HOP_S = 0.001
+# The burst path: a full-span server's engine (`--mode serve --stage 0
+# --batched`'s defaults, SLOTS x MAX_SESSION_LEN), BURST_TICKS decode ticks a
+# replay; the tick counts whose device ms a tick is scanned at fill 8.
+BURST_TICKS = 8
+BURST_TICK_SCAN = (1, 4, 8, 16)
 # (site, K, N) of llama-3.1-8b's four projection launches per layer after the
 # executor's fusion: wqkv = wq|wk|wv, wgu = wg|wu.
 SITES = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("wgu", 4096, 28672),
@@ -1268,14 +1300,16 @@ def first_difference(a, b) -> int:
                 if j >= min(len(a), len(b)) or a[j] != b[j])
 
 
-def hold_to_reference(torch, cfg, params, ids, got, want, what: str) -> None:
-    """Equal tokens, or a first difference at a near-tie of the float32
-    reference's logits (top-2 gap <= LOGIT_GAP_TOL * max|logit|)."""
+def hold_to_reference(torch, cfg, params, ids, got, want, what: str,
+                      cache_dtype=None) -> None:
+    """Equal tokens, or a first difference at a near-tie of the reference's
+    logits (its KV cache `cache_dtype`, float32 by default; top-2 gap <=
+    LOGIT_GAP_TOL * max|logit|)."""
     if got == want:
         log(f"  {what}: tokens equal ({len(want)} tokens)")
         return
     i = first_difference(got, want)
-    logits = oracle_logits(torch, cfg, params, ids + want[:i])
+    logits = oracle_logits(torch, cfg, params, ids + want[:i], cache_dtype)
     top2 = torch.topk(logits, 2).values
     gap = (top2[0] - top2[1]).item()
     tol = LOGIT_GAP_TOL * logits.abs().max().item()
@@ -1285,16 +1319,17 @@ def hold_to_reference(torch, cfg, params, ids, got, want, what: str) -> None:
         raise AssertionError(f"{what}: tokens differ at a decisive step")
 
 
-def greedy_reference(torch, cfg, params, ids, max_new_tokens: int):
+def greedy_reference(torch, cfg, params, ids, max_new_tokens: int, cache_dtype=None):
     """Unsplit greedy loop over ``full_forward`` with a float32 KV cache,
-    what the stage executors keep, and the pipeline's stop rules."""
+    what the stage executors keep (or `cache_dtype`, what another engine
+    keeps), and the pipeline's stop rules."""
     from importlib import import_module
 
     tf = import_module(PORT + ".models.transformer")
     REPEAT_STOP = import_module(PORT + ".runtime.client").REPEAT_STOP
     dev = params["embed"]["wte"].device
     kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids) + max_new_tokens + 1,
-                              dtype=torch.float32, device=dev)
+                              dtype=cache_dtype or torch.float32, device=dev)
     x = torch.tensor([ids], device=dev)
     cur, out = 0, []
     while len(out) < max_new_tokens:
@@ -1307,8 +1342,10 @@ def greedy_reference(torch, cfg, params, ids, max_new_tokens: int):
     return out
 
 
-def sampled_reference(torch, cfg, params, ids, sp, seed: int, max_new_tokens: int):
-    """Unsplit sampled loop over ``full_forward`` with a float32 KV cache,
+def sampled_reference(torch, cfg, params, ids, sp, seed: int, max_new_tokens: int,
+                      cache_dtype=None):
+    """Unsplit sampled loop over ``full_forward`` with a float32 KV cache
+    (or `cache_dtype`),
     the plain sampler (eager ``sample_probs`` and the plain draw,
     ``sample_draw_reference``) and the pipeline's key schedule (step i:
     ``PRNGKey(seed + i)``, the window the tokens so far) and stop rules.
@@ -1326,7 +1363,7 @@ def sampled_reference(torch, cfg, params, ids, sp, seed: int, max_new_tokens: in
     REPEAT_STOP = import_module(PORT + ".runtime.client").REPEAT_STOP
     dev = params["embed"]["wte"].device
     kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids) + max_new_tokens + 1,
-                              dtype=torch.float32, device=dev)
+                              dtype=cache_dtype or torch.float32, device=dev)
     x = torch.tensor([ids], device=dev)
     cur, out, gaps, steps = 0, [], [], []
     while len(out) < max_new_tokens:
@@ -1561,31 +1598,35 @@ def greedy_and_sampled_ms(results, requests) -> dict:
             "sampled_decode_ms_per_token": ms(False)}
 
 
-def references(torch, cfg, params, prompt_ids, requests, seed):
-    """The float32-cache reference of each request: the greedy loop, or
-    the sampled loop with the pipeline's step seeds."""
+def references(torch, cfg, params, prompt_ids, requests, seed, cache_dtype=None):
+    """The float32-cache (or `cache_dtype`-cache) reference of each
+    request: the greedy loop, or the sampled loop with the pipeline's step
+    seeds."""
     out = []
     for ids, (_, sp) in zip(prompt_ids, requests):
         if sp.greedy:
-            out.append({"ids": ids, "tokens": greedy_reference(torch, cfg, params, ids,
-                                                                MAX_NEW_TOKENS)})
+            out.append({"ids": ids, "tokens": greedy_reference(
+                torch, cfg, params, ids, MAX_NEW_TOKENS, cache_dtype)})
         else:
             out.append({"ids": ids, **sampled_reference(torch, cfg, params, ids, sp, seed,
-                                                        MAX_NEW_TOKENS)})
+                                                        MAX_NEW_TOKENS, cache_dtype)})
+        out[-1]["cache_dtype"] = cache_dtype
     return out
 
 
 def hold_requests(torch, cfg, params, refs, results, what: str) -> None:
-    """Each request's tokens against its float32-cache reference: equal, or
-    a first difference at a near-tie (greedy: of the logits; sampled: of
-    the perturbed scores)."""
+    """Each request's tokens against its reference (float32-cache unless
+    it names another cache dtype): equal, or a first difference at a
+    near-tie (greedy: of the logits; sampled: of the perturbed scores)."""
     for ref, r in zip(refs, results):
         if "gaps" in ref:
             hold_sampled(ref, r.tokens, f"{what}: sampled tokens against the "
-                         "float32-cache sampled reference")
+                         f"{ref.get('cache_dtype') or 'float32'}-cache sampled reference")
         else:
             hold_to_reference(torch, cfg, params, ref["ids"], r.tokens, ref["tokens"],
-                              f"{what}: greedy tokens against the float32-cache reference")
+                              f"{what}: greedy tokens against the "
+                              f"{ref.get('cache_dtype') or 'float32'}-cache reference",
+                              ref.get("cache_dtype"))
 
 
 def path_executors(client):
@@ -2380,14 +2421,16 @@ def _stderr_tail(path: pathlib.Path, n: int = 30) -> str:
     return "\n".join(path.read_text(errors="replace").splitlines()[-n:])
 
 
-def cli_drive(torch, tok, wants, smi: str, serve_argv=()):
-    """The port's swarm as processes on the card: a registry, three stage
-    servers (int8, bfloat16, seed 0, wire f32, and `serve_argv`) and one
-    client a `wants` entry (prompt, the in-process result its tokens must
-    equal, its sampling), the clients run at once. Each server computes
-    what arrives in float32 (``serve`` casts nothing), so each client's
-    printed generation and its ``TOKENS=`` ids must equal its in-process
-    run's over float32 hops. Returns the summary."""
+def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), client_argv=()):
+    """The port's swarm as processes on the card: a registry, a server a
+    stage of `stages` (int8, bfloat16, seed 0, wire f32, and `serve_argv`)
+    and one client a `wants` entry (prompt, the in-process result its
+    tokens must equal, its sampling; and `client_argv`), the clients run at
+    once. Each server computes what arrives in float32 (``serve`` casts
+    nothing), so each client's printed generation and its ``TOKENS=`` ids
+    must equal its in-process run's over float32 hops (with ``stages=(0,)``
+    the one full-span server: the in-process full-span run's). Returns the
+    summary."""
     main = [sys.executable, "-m", PORT + ".main"]
     model_args = ["--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
                   "--seed", "0", "--device", "cuda", "--wire_dtype", "f32"]
@@ -2410,7 +2453,7 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=()):
             proc, out = spawn("registry", ["--mode", "registry", "--registry_port", "0"])
             addr = _wait_line(proc, out, "REGISTRY_ADDR=", "registry").split("=", 1)[1]
             start_s = {"registry": time.monotonic() - t0}
-            for k in (1, 2, 3):
+            for k in stages:
                 t0 = time.monotonic()
                 proc, out = spawn(f"stage{k}", ["--mode", "serve", "--stage", str(k),
                                                 "--registry_addr", addr, "--rpc_port", "0",
@@ -2429,7 +2472,7 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=()):
                     "--prompt", prompt, "--max_new_tokens", str(MAX_NEW_TOKENS),
                     "--temperature", str(sp.temperature), "--top_p", str(sp.top_p),
                     "--top_k", str(sp.top_k),
-                    "--repetition_penalty", str(sp.repetition_penalty)])
+                    "--repetition_penalty", str(sp.repetition_penalty), *client_argv])
                 clients.append((proc, out))
             ttft, tps = [], []
             for i, ((proc, out), (prompt, want, _)) in enumerate(zip(clients, wants)):
@@ -2439,7 +2482,7 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=()):
                 stdout = out.read_bytes().decode("utf-8", errors="replace")
                 if code != 0:
                     raise AssertionError(f"client {i} exited {code}:\n"
-                                         + _stderr_tail(procs[4 + i][2], 60))
+                                         + _stderr_tail(procs[1 + len(stages) + i][2], 60))
                 expect = (f"=== Generation ({len(want.tokens)} tokens, stopped by "
                           f"{want.stopped_by}) ===\n{tok.decode(want.tokens)}\n")
                 if expect not in stdout:
@@ -2461,7 +2504,7 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=()):
             log(f"cli: every client's text and token ids equal its in-process run's "
                 f"({len(wants)} clients at once, {client_s:.1f}s with set-up)")
             # A server prints its peak again when SIGINT stops it.
-            servers = procs[1:4]
+            servers = procs[1:1 + len(stages)]
             for what, proc, _ in servers:
                 proc.send_signal(signal.SIGINT)
             for what, proc, _ in servers:
@@ -2475,7 +2518,9 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=()):
             if missing:
                 raise AssertionError(f"cli: no peak device memory from {missing}")
             summary = {"model": MODEL, "quant": "int8", "wire_dtype": "f32",
-                       "serve_argv": list(serve_argv), "processes": 4 + len(wants),
+                       "serve_argv": list(serve_argv), "stages": list(stages),
+                       "client_argv": list(client_argv),
+                       "processes": 1 + len(stages) + len(wants),
                        "prompts": [w[0] for w in wants],
                        "tokens": [len(w[1].tokens) for w in wants],
                        "text_equal_in_process": True,
@@ -2657,13 +2702,14 @@ def stage0_executors(torch, tmain, state, n: int):
     return out
 
 
-def run_clients(jobs):
+def run_clients(jobs, burst: int = 0):
     """Each (client, ids, sampling) job on a thread of its own, released
     together; the sessions start decoding together, once every one has its
     first token (requests admitted as one batch: sessions whose prefills
     end apart would decode a step or more apart, and two groups of them
-    can then alternate rounds for the whole run). Returns (results, wall
-    seconds from the release to the last end)."""
+    can then alternate rounds for the whole run); with `burst`, each asks
+    for bursts of that many ticks. Returns (results, wall seconds from the
+    release to the last end)."""
     barrier = threading.Barrier(len(jobs) + 1)
     prefilled = threading.Barrier(len(jobs))
     results, errors = [None] * len(jobs), []
@@ -2672,7 +2718,8 @@ def run_clients(jobs):
         client, ids, sp = jobs[i]
         barrier.wait(timeout=60)
         try:
-            steps = client.generate_stepwise(ids, MAX_NEW_TOKENS, sampling=sp)
+            steps = client.generate_stepwise(ids, MAX_NEW_TOKENS, sampling=sp,
+                                             **({"burst": burst} if burst else {}))
             next(steps)                                 # prefill, first token
             prefilled.wait(timeout=CLI_STEP_TIMEOUT_S)
             for step in steps:          # to its end, which ends the session
@@ -3005,18 +3052,468 @@ def batched_path(torch, kernels, tmain, sampling_cls, state, smi: str):
             srv.stop()
         registry_srv.stop()
     summary["rounds_alone"] = round_phase(torch, adapters, smi)
+    return summary, results, refs
+
+
+class Tokens:
+    """A run's tokens where `hold_requests` wants a GenerationResult."""
+
+    def __init__(self, tokens):
+        self.tokens = tokens
+
+
+def full_span_adapter(torch, state, peer_id: str, params=None):
+    """The full-span batched engine `--mode serve --stage 0 --batched`
+    builds (every layer, the embedding and the head; bfloat16 slot caches
+    of SLOTS x MAX_SESSION_LEN rows) on the int8 path's quantized weights,
+    behind an adapter with the default round window. `params`: another
+    engine's fused tree, shared (a second peer holds no second copy)."""
+    from importlib import import_module
+
+    batching = import_module(PORT + ".runtime.batching")
+    partition = import_module(PORT + ".models.partition")
+    cfg = state["cfg"]
+    spec = partition.StagePlan.even(cfg.num_layers, 1).stages[0]
+    engine = batching.BatchedStageExecutor(
+        cfg, spec, state["ref_params"] if params is None else params, device="cuda",
+        slots=SLOTS, max_len=MAX_SESSION_LEN, dtype=torch.bfloat16)
+    return batching.BatchingStageAdapter(engine, peer_id=peer_id)
+
+
+def _burst_done(gen) -> bool:
+    """The host's stop rules (the byte tokenizer has no eos)."""
+    return len(gen) >= MAX_NEW_TOKENS or (len(gen) >= 5 and len(set(gen[-5:])) == 1)
+
+
+def burst_engine_runs(torch, eng, requests, seed: int):
+    """The 8 requests on one full-span engine three ways, each after its
+    own prefills (each session's first token as the adapter samples it):
+    per step (`decode_batch` + `sample_round`, the host's stop rules),
+    through `decode_burst` (BURST_TICKS a burst, the per-burst spec the
+    wire ships), and through `burst_stream`. Yields (what, tokens by
+    request, the callable that ran the decode), the decode run inside the
+    caller's counts."""
+    from importlib import import_module
+
+    executor_mod = import_module(PORT + ".runtime.executor")
+    messages = import_module(PORT + ".runtime.messages")
+
+    def request(sid, sp, gen):
+        return messages.StageRequest(session_id=sid, hidden=None, seq_len=1, cur_len=0,
+                                     is_prefill=False, max_length=MAX_SESSION_LEN,
+                                     sampling=sp, generated_tokens=tuple(gen[-50:]),
+                                     step_seed=seed + len(gen))
+
+    def prefill():
+        gen, sps = {}, {}
+        for i, (ids, sp) in enumerate(requests):
+            sid = f"burst{i}"
+            h = eng.prefill(sid, torch.tensor([ids]))
+            gen[sid] = executor_mod._sample_rows(eng.logits(h[:, -1:]), 1,
+                                                 request(sid, sp, []), eng.sampler)
+            sps[sid] = sp
+        return gen, sps
+
+    def entry(gen, sp):
+        return {"token": gen[-1], "seed": seed + len(gen),
+                "budget": MAX_NEW_TOKENS - len(gen), "eos": None,
+                "generated": tuple(gen[-50:]), "temperature": sp.temperature,
+                "top_p": sp.top_p, "top_k": sp.top_k,
+                "repetition_penalty": sp.repetition_penalty}
+
+    def per_step(gen, sps):
+        while True:
+            live = [sid for sid in gen if not _burst_done(gen[sid])]
+            if not live:
+                return
+            eng.decode_batch({sid: torch.tensor([[gen[sid][-1]]]) for sid in live})
+            toks = eng.sample_round({sid: request(sid, sps[sid], gen[sid]) for sid in live})
+            for sid in live:
+                gen[sid].append(toks[sid])
+
+    def bursts(gen, sps):
+        live = set(gen)
+        while live:
+            entries = {sid: entry(gen[sid], sps[sid]) for sid in sorted(live)
+                       if not _burst_done(gen[sid])}
+            live = set(entries)
+            if not entries:
+                return
+            for sid, r in eng.decode_burst(entries, BURST_TICKS).items():
+                gen[sid].extend(r["tokens"])
+                if r["stop"] is not None:
+                    live.discard(sid)
+
+    def stream(gen, sps):
+        entries = {sid: entry(g, sps[sid]) for sid, g in gen.items()}
+        for block in eng.burst_stream(entries, BURST_TICKS):
+            for sid, r in block.items():
+                gen[sid].extend(r["tokens"])
+
+    for what, run in (("per_step", per_step), ("decode_burst", bursts),
+                      ("burst_stream", stream)):
+        gen, sps = prefill()
+        yield what, gen, (lambda run=run, gen=gen, sps=sps: run(gen, sps))
+        for sid in gen:
+            eng.end_session(sid)
+
+
+def burst_scan(torch, eng, smi: str) -> dict:
+    """Device ms of one burst replay (CUDA events, the stream kept busy)
+    at fills 1/2/4/8 with BURST_TICKS ticks, and a tick's at fill 8 with
+    N = BURST_TICK_SCAN ticks (each N's graph captured at its first call:
+    its capture seconds and the reserved memory after it), and the top
+    kernels of a burst at fill 8 under torch.profiler; SLOTS sessions of a
+    32-token prompt in the slots, every slot's budget N."""
+    from importlib import import_module
+
+    batching = import_module(PORT + ".runtime.batching")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    for sid in list(eng._slot_of):     # a session the stopped peer never ended
+        eng.end_session(sid)
+    sids = [f"scan{i}" for i in range(SLOTS)]
+    for sid in sids:
+        eng.prefill(sid, torch.randint(0, eng.cfg.vocab_size, (1, 32), generator=gen))
+
+    def carry(fill, n):
+        entries = {sid: {"token": 7, "seed": i, "budget": n, "eos": None, "generated": (7,),
+                         "temperature": 0.7 if i % 2 else 0.0, "top_p": 0.9, "top_k": 50,
+                         "repetition_penalty": 1.5}
+                   for i, sid in enumerate(sids[:fill])}
+        return torch.tensor(eng._burst_prep(entries, n)[1], device="cuda")
+
+    def replay(n, c):
+        return lambda: eng.graphs.run_carry(("burst", n), lambda x: eng._burst_step(x, n), c,
+                                            (SLOTS, batching.BURST_COLS))
+
+    out = {"card": smi, "fill_device_ms": {}, "tick_device_ms": {}, "capture_s": {},
+           "reserved_gb_after_capture": {}}
+    for fill in (1, 2, 4, 8):
+        out["fill_device_ms"][fill] = cuda_ms(replay(BURST_TICKS, carry(fill, BURST_TICKS)),
+                                              torch, reps=5, spin=True)
+    for n in BURST_TICK_SCAN:
+        c = carry(SLOTS, n)
+        if n != BURST_TICKS:
+            t0 = time.monotonic()
+            replay(n, c)()
+            torch.cuda.synchronize()
+            out["capture_s"][n] = time.monotonic() - t0
+            out["reserved_gb_after_capture"][n] = torch.cuda.memory_reserved() / 1e9
+        out["tick_device_ms"][n] = cuda_ms(replay(n, c), torch, reps=5, spin=True) / n
+    # Where a burst's device time goes, by kernel (ms and launches a burst).
+    out["top_kernels"] = replay_kernels(torch, replay(BURST_TICKS, carry(SLOTS, BURST_TICKS)),
+                                        reps=2)
+    for sid in sids:
+        eng.end_session(sid)
+    log(f"burst scan: device ms a burst of {BURST_TICKS} at fills 1/2/4/8 "
+        f"{[round(out['fill_device_ms'][f], 2) for f in (1, 2, 4, 8)]}; a tick at N = "
+        f"{list(BURST_TICK_SCAN)}: {[round(out['tick_device_ms'][n], 3) for n in BURST_TICK_SCAN]}"
+        f"; captures {out['capture_s']} s, reserved GB {out['reserved_gb_after_capture']}; "
+        f"top kernels a burst " + ", ".join(f"{k['name'][:40]} {k['ms']:.2f} ms x "
+                                            f"{k['launches']:.0f}" for k in out["top_kernels"]))
+    return out
+
+
+def burst_view(results, wall: float) -> dict:
+    """A burst run's numbers: tokens/s over the wall from the release to
+    the last end, each session's decode ms/token (its bursts' wall over the
+    tokens they brought) and ms a burst, TTFT."""
+    ms_token = [1e3 * sum(r.decode_times_s) / max(len(r.tokens) - 1, 1) for r in results]
+    return {"sessions": len(results), "tokens": sum(len(r.tokens) for r in results),
+            "wall_s": wall,
+            "aggregate_tokens_per_s": sum(len(r.tokens) for r in results) / wall,
+            "per_session_ms_per_token": statistics.median(ms_token),
+            "ms_per_burst": 1e3 * statistics.median(
+                [t for r in results for t in r.decode_times_s]),
+            "bursts_per_session": [len(r.decode_times_s) for r in results],
+            "ttft_ms": [r.ttft_s * 1e3 for r in results]}
+
+
+def burst_path(torch, kernels, tmain, sampling_cls, state, refs, batched, smi: str):
+    """Step 10b: burst decode on one full-span engine (the int8 path's
+    weights, all 32 layers, bf16, SLOTS slots of MAX_SESSION_LEN rows,
+    BURST_TICKS ticks a burst), warmed up as `--mode serve --stage 0
+    --batched --burst 8` warms it. The batched path's 8 requests per step,
+    through `decode_burst` and through `burst_stream` on that engine: the
+    bursts' tokens equal the per-step tokens and are held to the
+    float32-cache references; one host sync, one replay and no capture a
+    burst; int8_dot launches 4 x layers x N a burst, by route; sample_draw
+    one a slot row a tick. Then 8 client threads with burst = 8 through the
+    adapter over LocalTransport (no burst_fallback event, a dispatch a
+    round, the engine's tokens), the same over in-process TCP with a
+    second full-span peer, the pinned one stopped after its first burst
+    of one more request (the fault-free tokens), and the device scan.
+    Returns (summary, the in-process client results for the CLI drive)."""
+    from importlib import import_module
+
+    client_mod = import_module(PORT + ".runtime.client")
+    registry_mod = import_module(PORT + ".scheduling.registry")
+    transport_mod = import_module(PORT + ".runtime.transport")
+    net = import_module(PORT + ".runtime.net")
+    events = import_module(PORT + ".telemetry.events")
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    requests = batched_requests(tmain.load_tokenizer(), sampling_cls, cfg)
+    reqs = [(None, sp) for _, sp in requests]
+    ik, dk = kernels["int8_dot"], kernels["sample_draw"]
+    layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    adapter = full_span_adapter(torch, state, "burst-full")
+    eng = adapter.inner
+    t0 = time.monotonic()
+    adapter.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t0
+    reserved_before = torch.cuda.memory_reserved() / 1e9
+    t0 = time.monotonic()
+    adapter.warmup(burst=BURST_TICKS)
+    torch.cuda.synchronize()
+    warm_burst_s = time.monotonic() - t0
+    reserved_after = torch.cuda.memory_reserved() / 1e9
+    head_f32_gb = cfg.vocab_size * cfg.hidden_size * 4 / 1e9
+    summary = {"model": MODEL, "quant": "int8", "layers": layers, "slots": SLOTS,
+               "max_session_len": MAX_SESSION_LEN, "ticks": BURST_TICKS, "card": smi,
+               "warmup_s_without_burst": warm_s, "warmup_s_with_burst": warm_burst_s,
+               "captures": eng.graphs.captures,
+               "reserved_gb_without_burst_graph": reserved_before,
+               "reserved_gb_with_burst_graph": reserved_after,
+               "head_float32_copy_gb": head_f32_gb}
+    log(f"burst: full-span engine, {layers} layers, {SLOTS} slots x {MAX_SESSION_LEN} rows; "
+        f"warm-up {warm_s:.1f}s, then with the {BURST_TICKS}-tick burst {warm_burst_s:.1f}s; "
+        f"reserved GB {reserved_before:.2f} -> {reserved_after:.2f} with the burst graph "
+        f"(a float32 head copy {head_f32_gb:.2f} GB, {BURST_TICKS} made in the graph)")
+
+    runs, engine = {}, None
+    for what, gen, decode in burst_engine_runs(torch, eng, requests, args.seed):
+        eng.graphs.captures = eng.graphs.replays = 0
+        eng.sampler.captures = eng.sampler.replays = 0
+        reset_counts(kernels, [])
+        before = eng.burst_dispatches
+        t0 = time.monotonic()
+        syncs = count_syncs(torch, decode)
+        wall = time.monotonic() - t0
+        tokens = [gen[f"burst{i}"] for i in range(len(requests))]
+        runs[what] = tokens
+        if what == "per_step":
+            continue
+        bursts = eng.burst_dispatches - before
+        by_route = {"mma": ik._launches_mma, "gemv": ik._launches_gemv,
+                    "f32mma": ik._launches_f32mma,
+                    "simt": ik._launches - ik._launches_mma - ik._launches_gemv
+                    - ik._launches_f32mma}
+        need = 4 * layers * BURST_TICKS * bursts
+        draws_need = SLOTS * BURST_TICKS * bursts
+        decoded = sum(len(t) - 1 for t in tokens)
+        view = {"bursts": bursts, "host_syncs": syncs, "replays": eng.graphs.replays,
+                "captures": eng.graphs.captures + eng.sampler.captures,
+                "int8_dot_launches": ik._launches, "int8_dot_launches_by_route": by_route,
+                "sample_draw_launches": dk._launches, "decode_wall_s": wall,
+                "decode_tokens_per_s": decoded / wall,
+                "ms_per_burst": 1e3 * wall / bursts}
+        log(f"burst {what}: {bursts} bursts for {decoded} decoded tokens, {syncs} host syncs, "
+            f"{view['replays']} replays, {view['captures']} captures; int8_dot {ik._launches} "
+            f"launches (want 4 x {layers} x {BURST_TICKS} x {bursts} = {need}) by route "
+            f"{by_route}; sample_draw {dk._launches} (want {draws_need}); "
+            f"{view['decode_tokens_per_s']:.1f} tokens/s, {view['ms_per_burst']:.1f} ms a burst")
+        if tokens != runs["per_step"]:
+            for t, want in zip(tokens, runs["per_step"]):
+                log(f"  {t}\n  {want}")
+            raise AssertionError(f"burst {what}: tokens differ from the per-step rounds of "
+                                 "the same engine")
+        if syncs > bursts or view["replays"] != bursts or view["captures"]:
+            raise AssertionError(f"burst {what}: {syncs} host syncs, {view['replays']} "
+                                 f"replays and {view['captures']} captures for {bursts} "
+                                 "bursts: want one sync and one replay a burst, no capture")
+        if ik._launches != need or by_route["simt"]:
+            raise AssertionError(f"burst {what}: int8_dot launches {ik._launches} by route "
+                                 f"{by_route}, want {need} and no CUDA-core launch")
+        if dk._launches != draws_need:
+            raise AssertionError(f"burst {what}: {dk._launches} sample_draw launches, want "
+                                 f"{draws_need} (one a slot row a tick)")
+        summary[what] = view
+        if what == "decode_burst":
+            engine = view
+    # The engine keeps bf16 slot caches and computes in bf16 from the
+    # embedding on (rms_norm, rope and slot_attention keep x's dtype), so
+    # its reference keeps a bf16 cache: the rule of the session paths'
+    # float32-cache references (the cache the engine keeps), applied here.
+    # Against those float32-cache references the first differences are
+    # logged, not gated.
+    bf16_refs = references(torch, cfg, state["ref_params"], [ids for ids, _ in requests],
+                           reqs, args.seed, torch.bfloat16)
+    hold_requests(torch, cfg, state["ref_params"], bf16_refs,
+                  [Tokens(t) for t in runs["per_step"]], "burst engine per step")
+    summary["float32_cache_reference_first_difference"] = [
+        first_difference(t, ref["tokens"]) for t, ref in zip(runs["per_step"], refs)]
+    log(f"burst engine: decode_burst and burst_stream tokens equal the per-step rounds' "
+        f"for all {len(requests)} requests, held to the bf16-cache references; against "
+        f"the float32-cache references the first differences are at steps "
+        f"{summary['float32_cache_reference_first_difference']} (not gated)")
+    summary["engine"] = engine
+    summary["tokens_equal_per_step"] = True
+
+    # The adapter and 8 clients in process.
+    transport = transport_mod.LocalTransport()
+    registry = registry_mod.PlacementRegistry()
+    transport.add_peer(adapter.peer_id, adapter)
+    registry.register(client_mod.make_server_record(adapter.peer_id, eng.spec, model=MODEL,
+                                                    engine="batched"))
+    clients = [client_mod.PipelineClient(cfg, local.plan, local.stage0, transport, registry,
+                                         seed=args.seed, model=MODEL)
+               for _ in range(len(requests))]
+    jobs = [(c, ids, sp) for c, (ids, sp) in zip(clients, requests)]
+    adapter._m_fill = Observed()
+    eng.graphs.captures = eng.sampler.captures = 0
+    reset_counts(kernels, [])
+    before = eng.burst_dispatches
+    recorder = events.get_recorder()
+    recorder.enable()
+    recorder.clear()
+    try:
+        box = {}
+        syncs = count_syncs(torch, lambda: box.setdefault("run", run_clients(
+            jobs, burst=BURST_TICKS)))
+        fallbacks = [e for e in recorder.events() if e.name == "burst_fallback"]
+    finally:
+        recorder.disable()
+        recorder.clear()
+    results, wall = box["run"]
+    rounds = len(adapter._m_fill.values)
+    dispatches = eng.burst_dispatches - before
+    sampled = sum(1 for _, sp in requests if not sp.greedy)
+    need = 4 * layers * (len(requests) + BURST_TICKS * rounds)
+    draws_need = SLOTS * BURST_TICKS * rounds + sampled
+    captures = eng.graphs.captures + eng.sampler.captures
+    summary["in_process"] = {**burst_view(results, wall), "rounds": rounds,
+                             "fills": adapter._m_fill.values, "burst_dispatches": dispatches,
+                             "host_syncs": syncs, "burst_fallback_events": len(fallbacks),
+                             "captures_after_warmup": captures,
+                             "int8_dot_launches": ik._launches,
+                             "sample_draw_launches": dk._launches,
+                             "batched_path_in_process": {
+                                 k: batched["in_process"][k] for k in (
+                                     "aggregate_tokens_per_s", "per_session_ms_per_token")},
+                             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                             "held_memory_gb": torch.cuda.memory_allocated() / 1e9,
+                             "reserved_memory_gb": torch.cuda.memory_reserved() / 1e9}
+    v = summary["in_process"]
+    log(f"burst in process: {v['tokens']} tokens in {wall:.2f}s, "
+        f"{v['aggregate_tokens_per_s']:.1f} tokens/s, {v['per_session_ms_per_token']:.2f} "
+        f"ms/token a session, {v['ms_per_burst']:.1f} ms a burst (the batched path: "
+        f"{batched['in_process']['aggregate_tokens_per_s']:.1f} tokens/s, "
+        f"{batched['in_process']['per_session_ms_per_token']:.2f} ms/token); {rounds} rounds "
+        f"(fills {v['fills']}), {dispatches} dispatches, {syncs} host syncs, {captures} "
+        f"captures, {len(fallbacks)} burst_fallback events; int8_dot {ik._launches} (want "
+        f"{need}), sample_draw {dk._launches} (want {draws_need}); peak / held / reserved GB "
+        f"{v['peak_memory_gb']:.2f} / {v['held_memory_gb']:.2f} / {v['reserved_memory_gb']:.2f}")
+    if fallbacks or dispatches != rounds or dispatches == 0:
+        raise AssertionError(f"burst in process: {len(fallbacks)} burst_fallback events, "
+                             f"{dispatches} dispatches for {rounds} rounds")
+    if [r.tokens for r in results] != runs["per_step"]:
+        raise AssertionError("burst in process: client tokens differ from the engine's")
+    if syncs > len(requests) + rounds or captures:
+        raise AssertionError(f"burst in process: {syncs} host syncs, {captures} captures: "
+                             "want <= one a prefill and one a round, none")
+    if ik._launches != need or dk._launches != draws_need:
+        raise AssertionError(f"burst in process: int8_dot {ik._launches} (want {need}), "
+                             f"sample_draw {dk._launches} (want {draws_need})")
+
+    # Over in-process TCP, with a second full-span peer for the failover.
+    second = full_span_adapter(torch, state, "burst-full-2", params=eng.params)
+    second.warmup(burst=BURST_TICKS)
+    registry_srv = net.RegistryServer()
+    registry_srv.start()
+    servers, transports = {}, []
+    try:
+        for a in (adapter, second):
+            srv = net.TcpStageServer(a, None, wire_dtype="f32", model=MODEL)
+            srv.start()
+            servers[a.peer_id] = srv
+            rec = client_mod.make_server_record(a.peer_id, a.spec, model=MODEL,
+                                                engine="batched")
+            rec.address = srv.address
+            registry_srv.registry.register(rec)
+
+        def tcp_client():
+            remote = net.RemoteRegistry(registry_srv.address)
+            tx = net.TcpTransport(remote, wire_dtype="f32", model=MODEL)
+            transports.append(tx)
+            return client_mod.PipelineClient(cfg, local.plan, local.stage0, tx, remote,
+                                             seed=args.seed, model=MODEL)
+
+        tcp_jobs = [(tcp_client(), ids, sp) for ids, sp in requests]
+        # Over TCP a round's arrivals spread with the handler threads' and
+        # clients' Python work on one interpreter: the window the batched
+        # TCP drive gives stages 2-3, TCP_HOP_S a session.
+        for a in (adapter, second):
+            a._m_fill = Observed()
+            a.window_s = max(a.window_s, len(tcp_jobs) * TCP_HOP_S)
+        got, wall = run_clients(tcp_jobs, burst=BURST_TICKS)
+        if [r.tokens for r in got] != runs["per_step"]:
+            raise AssertionError("burst tcp: tokens differ from the in-process run's")
+        summary["tcp"] = {**burst_view(got, wall), "window_ms": 1e3 * adapter.window_s,
+                          "fills": {a.peer_id: a._m_fill.values for a in (adapter, second)}}
+        log(f"burst tcp: tokens of all {len(got)} sessions equal the in-process run's; "
+            f"{summary['tcp']['aggregate_tokens_per_s']:.1f} tokens/s, "
+            f"{summary['tcp']['per_session_ms_per_token']:.2f} ms/token a session, "
+            f"{summary['tcp']['ms_per_burst']:.1f} ms a burst, round fills at a "
+            f"{summary['tcp']['window_ms']:.0f} ms window {summary['tcp']['fills']}")
+
+        client = tcp_client()
+        pinned = client._discover_burst_peer()
+        spare = next(p for p in servers if p != pinned)
+        call = client.transport.call
+        seen = {"bursts": 0}
+
+        def stop_after_first_burst(peer_id, req, timeout=None):
+            resp = call(peer_id, req, timeout)
+            if peer_id == pinned and req.burst_len:
+                seen["bursts"] += 1
+                if seen["bursts"] == 1:
+                    servers[pinned].stop()
+            return resp
+
+        client.transport.call = stop_after_first_burst
+        spare_adapter = adapter if spare == adapter.peer_id else second
+        served0 = spare_adapter.requests_served
+        fo = client.generate(requests[0][0], MAX_NEW_TOKENS, sampling=requests[0][1],
+                             burst=BURST_TICKS)
+        if client.recoveries < 1 or spare_adapter.requests_served <= served0:
+            raise AssertionError("burst failover did not recover onto the other peer")
+        if fo.tokens != runs["per_step"][0]:
+            raise AssertionError(f"burst failover tokens differ:\n  {fo.tokens}\n  "
+                                 f"{runs['per_step'][0]}")
+        summary["failover"] = {
+            "stopped": pinned, "replacement": spare, "recoveries": client.recoveries,
+            "replacement_requests": spare_adapter.requests_served - served0,
+            "equal_to_fault_free": True,
+            "recovery_step_ms": 1e3 * max(fo.decode_times_s),
+            "median_step_ms": 1e3 * statistics.median(fo.decode_times_s)}
+        log(f"burst failover: {pinned} stopped after its first burst; recovered onto {spare} "
+            f"({summary['failover']['replacement_requests']} requests: the replay and the "
+            f"bursts), tokens equal the fault-free run's; recovery step "
+            f"{summary['failover']['recovery_step_ms']:.1f} ms, median burst "
+            f"{summary['failover']['median_step_ms']:.1f} ms")
+    finally:
+        for tx in transports:
+            tx.close()
+        for srv in servers.values():
+            srv.stop()
+        registry_srv.stop()
+    summary["scan"] = burst_scan(torch, eng, smi)
+    summary["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return summary, results
 
 
-def oracle_logits(torch, cfg, params, ids):
-    """The float32-cache reference's next-token logits after `ids` (one
-    prefill)."""
+def oracle_logits(torch, cfg, params, ids, cache_dtype=None):
+    """The float32-cache (or `cache_dtype`-cache) reference's next-token
+    logits after `ids` (one prefill)."""
     from importlib import import_module
 
     tf = import_module(PORT + ".models.transformer")
     dev = params["embed"]["wte"].device
-    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids), dtype=torch.float32,
-                              device=dev)
+    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids),
+                              dtype=cache_dtype or torch.float32, device=dev)
     logits, _, _ = tf.full_forward(cfg, params, torch.tensor([ids], device=dev), kc, vc, 0)
     if not (torch.isfinite(logits).all() and tuple(logits.shape) == (1, len(ids), cfg.vocab_size)):
         raise AssertionError("reference logits are not finite or have the wrong shape")
@@ -3043,7 +3540,8 @@ def decode_layer(rows):
     return {key: sum(r[key] for r in rows) for key in keys}
 
 
-def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batched, tcp):
+def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batched, tcp,
+                 burst):
     """One kernel of the ``kernels`` line: one decode layer's four sites at
     M = 1 summed, and one prefill layer (M = prefill_m, the prompt padded to
     its sequence bucket, as the executors run it) under ``prefill``; the
@@ -3055,7 +3553,8 @@ def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batche
     (M = SLOTS) and the float32 prefill (M = prefill_m) under
     ``batched_<dtype>`` and ``prefill_float32`` with their route (float32
     with the old CUDA-core kernel's ms beside it where the phase timed
-    it)."""
+    it); the burst path's bursts (`burst`, the engine drive's summary)
+    under ``launches_burst_path`` and ``launches_burst_path_by_route``."""
     decode_rows = [r for r in rows if r["M"] == 1]
     launches = summary[f"{name}_launches"]
     by_route = {"mma": summary[f"{name}_launches_mma"]}
@@ -3093,10 +3592,13 @@ def kernel_entry(name: str, rows, summary, prefill_m: int, decode, batch, batche
         # The batched path's own run (counts set to 0 just before it).
         entry["launches_batched_path"] = batched["int8_dot_launches"]
         entry["launches_batched_path_by_route"] = batched["int8_dot_launches_by_route"]
+    if burst is not None:
+        entry["launches_burst_path"] = burst["int8_dot_launches"]
+        entry["launches_burst_path_by_route"] = burst["int8_dot_launches_by_route"]
     return entry
 
 
-def draw_entry(draw, launches: int, launches_batched: int):
+def draw_entry(draw, launches: int, launches_batched: int, launches_burst: int):
     """sample_draw in the ``kernels`` line: one draw of one row at the 128k
     vocabulary, as the final stage runs it for each sampled token (B = 4
     under ``batch4``). ``max_abs_err`` is the measured max |noise - plain
@@ -3107,6 +3609,7 @@ def draw_entry(draw, launches: int, launches_batched: int):
             "replaces": "global_capstone_design_distributed_inference_of_llms_over_the_"
                         "internet_tpu/" + REPLACES["sample_draw"],
             "launches": launches, "launches_batched_path": launches_batched,
+            "launches_burst_path": launches_burst,
             "at": "one draw, B=1, V=128256, float32 logp in L2",
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
@@ -3271,9 +3774,15 @@ def main(argv) -> int:
     oracle = oracle_phase(torch, tmain, sampling_cls, dk, state["cfg"], state["params"],
                           state["prompt_ids"][0], smi)
     log(json.dumps({"oracle": oracle}))
-    batched, batched_results = batched_path(torch, kernel_mods, tmain, sampling_cls,
-                                            state, smi)
+    batched, batched_results, batched_refs = batched_path(torch, kernel_mods, tmain,
+                                                          sampling_cls, state, smi)
     log(json.dumps({"batched_path": batched}))
+    # The batched engines are gone with batched_path's frame.
+    gc.collect()
+    torch.cuda.empty_cache()
+    burst, burst_results = burst_path(torch, kernel_mods, tmain, sampling_cls, state,
+                                      batched_refs, batched, smi)
+    log(json.dumps({"burst_path": burst}))
     # What the CLI drives compare with; the weights go.
     int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
@@ -3303,13 +3812,21 @@ def main(argv) -> int:
                                             (PROMPTS[1], batched_results[1], greedy)],
                                smi, serve_argv=("--batched",))
     log(json.dumps({"batched_cli_path": batched["cli"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    burst["cli"] = cli_drive(torch, tok, [(PROMPTS[0], burst_results[0], greedy),
+                                          (PROMPTS[1], burst_results[1], greedy)],
+                             smi, serve_argv=("--batched", "--burst", str(BURST_TICKS)),
+                             stages=(0,), client_argv=("--burst", str(BURST_TICKS)))
+    log(json.dumps({"burst_cli_path": burst["cli"]}))
 
     kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m, int8_decode,
-                            int8_batch, batched["in_process"], tcp["int8"]),
+                            int8_batch, batched["in_process"], tcp["int8"], burst["engine"]),
                kernel_entry("nf4_dot", nf4_rows, nf4_summary, prefill_m, nf4_decode,
-                            nf4_batch, None, tcp["nf4"]),
+                            nf4_batch, None, tcp["nf4"], None),
                draw_entry(draw, int8_summary["sample_draw"]["launches"],
-                          batched["in_process"]["sample_draw_launches"])]
+                          batched["in_process"]["sample_draw_launches"],
+                          burst["engine"]["sample_draw_launches"])]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

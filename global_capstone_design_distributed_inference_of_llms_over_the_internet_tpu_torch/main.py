@@ -27,11 +27,17 @@ Port of the JAX package's ``main.py`` for these modes:
     (``runtime/batching.py``: ``--slots`` sessions of up to
     ``--max_session_len`` tokens, one captured decode round for every live
     session) behind a ``BatchingStageAdapter``, with compute inline on the
-    handler threads, advertised as ``engine=batched``. The full-span
-    batched server (``--stage 0 --batched``) serves burst decode, which is
-    not ported yet.
+    handler threads, advertised as ``engine=batched``. ``--stage 0
+    --batched`` serves the whole model from one batched engine, the one
+    server shape that runs burst decode (N decode ticks with sampling on
+    the device in one captured graph); ``--burst N`` captures the N-tick
+    burst in its warm-up. ``--stage 0`` without ``--batched`` exits, as the
+    reference's does: stage 0 runs inside the client.
   * ``--mode client`` — the pipeline client with stage 0 in process and the
     remote stages over ``TcpTransport``, discovered through the registry.
+    With ``--burst N`` (``client`` and ``local``) the session asks a
+    full-span batched peer for N tokens a request, and falls back to the
+    per-step loop (a ``burst_fallback`` event) when none is live.
   ``serve`` and ``client`` hold only their stage's weights (every layer is
   still drawn, so the weights equal the full init's), print their peak
   and held device memory as ``PEAK_MEMORY_BYTES=N ALLOCATED_BYTES=M
@@ -39,9 +45,9 @@ Port of the JAX package's ``main.py`` for these modes:
   build the kernels and the wire codec before they serve; ``serve`` runs
   one throwaway session through its span first, as the reference does. The reference's gossip mirror, dial-back
   reachability vote and relay attach are not ported (ROADMAP Queue 1 #4),
-  nor are the flags of the engines the port lacks (``--burst``, ``--sp``,
-  ``--tp``, ``--use_load_balancing``, ``--use_cpu_offload``,
-  ``--prefix_cache_mb``, ``--relay_capacity``): each exits naming itself.
+  nor are the flags of the engines the port lacks (``--sp``, ``--tp``,
+  ``--use_load_balancing``, ``--use_cpu_offload``, ``--prefix_cache_mb``,
+  ``--relay_capacity``): each exits naming itself.
 
 On the card every stage executor (``local``, ``serve`` and the client's
 stage 0) pads each prefill chunk and decode step to a sequence bucket and
@@ -70,6 +76,8 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
     python -m ...main --mode serve --stage 1 --registry_addr 127.0.0.1:31330 \\
         --model llama-3.1-8b --quant int8 --dtype bfloat16      (stages 1..3)
     python -m ...main --mode serve --stage 1 --batched --slots 8 ...
+    python -m ...main --mode serve --stage 0 --batched --burst 8 ...
+    python -m ...main --mode client --burst 8 ...
     python -m ...main --mode client --registry_addr 127.0.0.1:31330 \\
         --model llama-3.1-8b --quant int8 --dtype bfloat16 --prompt "Hi"
 """
@@ -238,7 +246,7 @@ def build_local_client(args, cfg: ModelConfig, params) -> PipelineClient:
 def run_local(args, cfg: ModelConfig, params) -> int:
     """In-process cluster: fixed-split servers + client, one generation."""
     client = build_local_client(args, cfg, params)
-    return _generate_and_report(args, client.generate, cfg)
+    return _generate_and_report(args, client.generate, cfg, pipeline_client=True)
 
 
 def oracle_cache_len(prompt_len: int, max_new_tokens: int) -> int:
@@ -402,7 +410,7 @@ def run_oracle(args, cfg: ModelConfig, params) -> int:
 # Flags of the reference's serve and client modes whose engines or
 # features the port does not have, with their defaults: any other value
 # exits naming the flag.
-UNPORTED_FLAGS = (("burst", 0), ("sp", 1), ("tp", 1),
+UNPORTED_FLAGS = (("sp", 1), ("tp", 1),
                   ("use_load_balancing", False), ("use_cpu_offload", False),
                   ("prefix_cache_mb", 0), ("relay_capacity", 0))
 
@@ -467,15 +475,23 @@ def run_serve(args) -> int:
     from .runtime.task_pool import StageRuntime
 
     device = resolve_device(args.device)
-    plan = stage_plan(args, get_config(args.model))
-    if args.stage == 0 and args.batched:
-        raise SystemExit("--stage 0 --batched (the full-span batched server) "
-                         "serves burst decode, which is not ported yet "
-                         "(ROADMAP Queue 1 #1b)")
-    if not 1 <= args.stage < plan.num_stages:
+    cfg = get_config(args.model)
+    plan = stage_plan(args, cfg)
+    if args.stage == 0:
+        # The full-span server, the only shape that runs burst decode: its
+        # sampled tokens feed its own embedding. --splits is ignored.
+        if not args.batched:
+            raise SystemExit(
+                "--stage 0 serves the FULL model span and requires "
+                "--batched (the burst-capable continuous-batching engine); "
+                "classic stage 0 runs inside the client")
+        spec = StagePlan.even(cfg.num_layers, 1).stages[0]
+    elif not 1 <= args.stage < plan.num_stages:
         raise SystemExit(f"--stage must be 1..{plan.num_stages - 1} for serve "
-                         "mode (stage 0 runs inside the client)")
-    spec = plan.stages[args.stage]
+                         "mode (stage 0 runs inside the client; --stage 0 "
+                         "--batched serves the full span for --burst)")
+    else:
+        spec = plan.stages[args.stage]
     registry = RemoteRegistry(args.registry_addr, peers_cache=args.peers_cache)
     peer_id = args.peer_id or f"stage{args.stage}-{os.getpid()}"
     ping_tx = TcpTransport(registry, wire_dtype=args.wire_dtype)
@@ -499,7 +515,11 @@ def run_serve(args) -> int:
     del shard
     ex = server.executor
     _build_native(args, device)
-    ex.warmup()
+    if args.batched:
+        # The N-tick burst too, so that no capture happens in a round.
+        ex.warmup(burst=args.burst)
+    else:
+        ex.warmup()
     # One compute thread owns the device; the handler threads own sockets.
     # Not for the batched engine: concurrent handler calls are how its
     # round window coalesces, and its own lock guards the device.
@@ -551,7 +571,7 @@ def run_client(args) -> int:
                             seed=args.seed, model=args.model,
                             metrics=_client_metrics(args))
     try:
-        return _generate_and_report(args, client.generate, cfg)
+        return _generate_and_report(args, client.generate, cfg, pipeline_client=True)
     finally:
         transport.close()
         _report_peak_memory(device)
@@ -582,14 +602,22 @@ def run_doctor(args) -> int:
     return 0
 
 
-def _generate_and_report(args, generate_fn, cfg: ModelConfig) -> int:
+def _generate_and_report(args, generate_fn, cfg: ModelConfig,
+                         pipeline_client: bool = False) -> int:
     tokenizer = load_tokenizer()
     prompt_ids = [i % cfg.vocab_size for i in tokenizer.encode(args.prompt)]
     sampling = SamplingParams(temperature=args.temperature, top_p=args.top_p,
                               top_k=args.top_k,
                               repetition_penalty=args.repetition_penalty)
+    kw = {}
+    if args.burst:
+        if pipeline_client:
+            kw["burst"] = args.burst
+        else:
+            logger.warning("--burst is ignored in --mode %s "
+                           "(pipeline-client modes only)", args.mode)
     res = generate_fn(prompt_ids, args.max_new_tokens, sampling=sampling,
-                      eos_token_id=tokenizer.eos_token_id)
+                      eos_token_id=tokenizer.eos_token_id, **kw)
     _emit(f"\n=== Generation ({len(res.tokens)} tokens, "
           f"stopped by {res.stopped_by}) ===")
     _emit(tokenizer.decode(res.tokens))
@@ -653,7 +681,8 @@ def build_parser() -> argparse.ArgumentParser:
     # Network roles (registry / serve / client), the reference's flags.
     p.add_argument("--stage", type=int, default=0,
                    help="serve mode: which pipeline stage this server runs "
-                        "(1..N; stage 0 lives in the client)")
+                        "(1..N; stage 0 lives in the client; 0 with "
+                        "--batched serves the full model span for --burst)")
     p.add_argument("--registry_addr", default="127.0.0.1:31330",
                    help="serve/client: the registry's host:port; "
                         "comma-separate a primary and standbys")
@@ -693,10 +722,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve --batched: max concurrent sessions")
     p.add_argument("--max_session_len", type=int, default=2048,
                    help="serve --batched: per-slot KV capacity (tokens)")
+    p.add_argument("--burst", type=int, default=0,
+                   help="burst decode: N decode ticks per request, sampled on "
+                        "a full-span batched peer's device (client and local "
+                        "modes; serve --stage 0 --batched captures the N-tick "
+                        "burst in its warm-up). 0 = per-step decode")
     # The reference's flags for engines the port does not have: accepted by
     # the parser so that a reference command line fails with a clear
     # message (refuse_unported_flags), never silently.
-    p.add_argument("--burst", type=int, default=0, help="not ported")
     p.add_argument("--sp", type=int, default=1, help="not ported")
     p.add_argument("--tp", type=int, default=1, help="not ported")
     p.add_argument("--use_load_balancing", action="store_true", help="not ported")

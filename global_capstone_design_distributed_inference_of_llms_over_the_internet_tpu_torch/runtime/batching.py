@@ -15,6 +15,19 @@ per decode width T and one per prefill bucket, the slot index, the slots'
 lengths and the active mask staged into the graph as device values. On
 the CPU the same step functions run directly.
 
+Burst decode (the reference's serving core, ``batching.py:30-38``): a
+full-span engine runs N decode ticks for every live slot in one captured
+graph (`decode_burst`, one graph per N). Each tick embeds the carried
+token, runs the T = 1 decode body of `_decode_step` and the head, samples
+every row on the device (`graphs.sample_rows_packed`, the per-row path of
+`sample_round`, row s keyed ``PRNGKey(step_seed_s + i)``), and applies
+the host's stop rules in the host's order (the budget, then eos, then the
+5-run repeat), so a burst's tokens are bit-equal to the per-step rounds
+of the same engine. The host pays one replay and one read a burst;
+`burst_stream` keeps every carry on the device and replays burst k+1
+before it reads burst k back. `BatchingStageAdapter` coalesces burst
+requests into rounds of their own, keyed ``("burst", N)``.
+
 The layer pieces are the reference's (``batching.py:104-142``):
 `_layer_mask` and `_residual` here; its ``_softcap_and_mask`` and
 ``_qscale`` are inside ``ops.attention.slot_attention``, which the
@@ -22,8 +35,8 @@ prefill runs over the prompt's fresh keys and the decode step over the
 slot caches.
 
 Not ported yet, and refused by the adapter with a retryable
-`StageExecutionError`: burst decode (ROADMAP Queue 1 #1b), speculative
-rows and session rewind (#3), the prefix store (#1c), push chains.
+`StageExecutionError`: speculative rows and session rewind (ROADMAP
+Queue 1 #3), the prefix store (#1c), push chains.
 
 Deliberate divergences from the reference:
   * The last stage's head runs once a round, inside the captured decode
@@ -41,9 +54,11 @@ Deliberate divergences from the reference:
     no buffers, so a failed step cannot leave them deleted (``:498-518``).
   * `BatchingStageAdapter.warmup` captures every prefill bucket up to
     ``max_len`` and the decode step of width 1 (and the samplers on the
-    last stage), where the reference compiles the smallest bucket only
+    last stage, and the burst of ``burst`` ticks on a full-span engine),
+    where the reference compiles the smallest bucket only
     (``:1130-1169``): a capture at first use would happen while other
-    threads run device work.
+    threads run device work. With no ``rewind`` yet, the burst warms a
+    fresh warm-up session.
 """
 
 from __future__ import annotations
@@ -72,18 +87,73 @@ from ..models.transformer import (
 )
 from ..ops.attention import slot_attention, slot_cache_write
 from ..ops.rotary import apply_rope
-from ..ops.sampling import SamplingParams
+from ..ops.sampling import RECENT_WINDOW, SamplingParams
 from ..telemetry import catalog as _tm
 from ..telemetry import events as _ev
+from ..telemetry.profiling import get_profiler as _get_profiler
+from .client import REPEAT_STOP
 from .errors import register as _catalog
 from .executor import StageExecutionError, _sample_rows
-from .graphs import Sampler, SlotSteps
+from .graphs import (
+    _FLOATS,
+    _NVALID,
+    _SEED,
+    _TOP_K,
+    PACKED_LEN,
+    Sampler,
+    SlotSteps,
+    pack_sampler_inputs,
+    sample_rows_packed,
+)
 from .kv_cache import round_to_bucket
 from .messages import StageRequest, StageResponse
 
 Params = Dict[str, Any]
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024)
+
+# The client's repeat stop, applied on the device so that a burst stops
+# where the per-step loop would.
+BURST_REPEAT_STOP = REPEAT_STOP
+
+# A burst's carry, one int64 row a slot: the slot's packed sampler scalars
+# (`graphs.pack_sampler_inputs`: window, its length, top_k, the seed of the
+# burst's first tick, the float knobs' bits), then the carried token, the
+# slot's length, its alive flag, its repeat run, its budget left and its
+# eos id (-1: none).
+_TOK, _LEN, _ALIVE, _RUN, _LEFT, _EOS = range(PACKED_LEN, PACKED_LEN + 6)
+BURST_COLS = PACKED_LEN + 6
+# A burst's stop codes, as the reference's (``batching.py:894``).
+_BURST_STOPS = {0: None, 1: "eos", 2: "repeat"}
+
+
+def _burst_entry(rq: StageRequest) -> dict:
+    """A burst request's spec in the engine's per-burst form: everything
+    the wire ships every step, so failover needs no server-side sampler
+    state (the reference's ``_burst_entry``, ``batching.py:74``)."""
+    sp = rq.sampling
+    return {
+        "token": int(rq.hidden.reshape(-1)[0]),
+        "seed": int(rq.step_seed),
+        "budget": int(rq.burst_budget),
+        "eos": rq.eos_token_id,
+        "generated": rq.generated_tokens,
+        "temperature": sp.temperature,
+        "top_p": sp.top_p,
+        "top_k": sp.top_k,
+        "repetition_penalty": sp.repetition_penalty,
+    }
+
+
+def _push_recent_rows(recent: torch.Tensor, nvalid: torch.Tensor,
+                      new: torch.Tensor):
+    """`ops.sampling.push_recent` for each row: windows [S, W], their
+    lengths [S] and the new tokens [S]."""
+    full = nvalid >= RECENT_WINDOW
+    shifted = torch.where(full[:, None], torch.roll(recent, -1, dims=1), recent)
+    idx = torch.where(full, RECENT_WINDOW - 1, nvalid)
+    return (shifted.scatter(1, idx[:, None], new[:, None]),
+            torch.clamp(nvalid + 1, max=RECENT_WINDOW))
 
 
 @_catalog
@@ -145,6 +215,12 @@ class BatchedStageExecutor:
         # The last decode round's head output [S, V] (last stage only): the
         # step's static output, read before the next round.
         self.round_logits: Optional[torch.Tensor] = None
+        # Burst decode (full-span engines only).
+        self.burst_dispatches = 0          # bursts run
+        self.burst_tokens = 0              # tokens the bursts emitted
+        self._m_burst_ticks = _tm.get("server_burst_ticks")
+        self._m_burst_disp = _tm.get("server_burst_dispatches_total")
+        self._m_burst_toks = _tm.get("server_burst_tokens_total")
 
     # ------------------------------------------------------------------
     # Slots
@@ -259,6 +335,8 @@ class BatchedStageExecutor:
               else min(round_to_bucket(t, PREFILL_BUCKETS), self.max_len))
         if tb != t:
             x = F.pad(x, (0, 0) * (x.ndim - 2) + (0, tb - t))
+        if self.spec.is_first:
+            x = x.long()     # ids cross the wire as int32: one graph a bucket
         x = self._to_device(x)
         try:
             h = self.graphs.run(("prefill", tb, x.dtype), self._prefill_step,
@@ -278,10 +356,16 @@ class BatchedStageExecutor:
         [S, T, D]; scalars: the slots' lengths then their active flags.
         Returns the hidden rows [S, T, D] (inactive slots zeroed), and on
         the last stage also the head's logits [S, V] of row T-1."""
+        s_count = x.shape[0]
+        return self._decode_rows(x, scalars[:s_count], scalars[s_count:].bool())
+
+    def _decode_rows(self, x: torch.Tensor, lengths: torch.Tensor,
+                     active: torch.Tensor):
+        """`_decode_step`'s body: lengths int64 [S], active bool [S]. A
+        burst's tick runs it too."""
         cfg, spec = self.cfg, self.spec
-        s_count, t = x.shape[:2]
+        t = x.shape[1]
         dev = x.device
-        lengths, active = scalars[:s_count], scalars[s_count:].bool()
         positions = lengths[:, None] + torch.arange(t, device=dev)[None, :]
         h = (embed_tokens(cfg, self.params["embed"], x, positions)
              if spec.is_first else x)
@@ -371,6 +455,223 @@ class BatchedStageExecutor:
             tokens = self.sampler.rows(self.round_logits, per_row)
         return {sid: int(tokens[s]) for sid, s in rows.items()}
 
+    # ------------------------------------------------------------------
+    # Burst decode: N ticks a replay, sampling on the device
+    # ------------------------------------------------------------------
+
+    def _burst_step(self, carry: torch.Tensor, n_ticks: int):
+        """N decode ticks for every slot, a plain function of the carry
+        (int64 [S, BURST_COLS], see `BURST_COLS`) and the slot caches, the
+        reference's ``_build_burst`` (``batching.py:692``). Tick i of an
+        alive slot embeds its carried token, runs the T = 1 decode body
+        (`_decode_rows`, which writes the KV of alive slots only) and the
+        head, samples the slot's row as `sample_round` does
+        (`sample_rows_packed`) with key ``PRNGKey(seed + i)``, pushes the
+        token on the slot's window, and applies the stop rules in the
+        host's order: the budget counter, then eos, then the 5-run repeat.
+        A stop gates the next tick only: the sampled token is emitted.
+
+        Returns (result int64 [N + 2, S]: the emitted tokens of each tick,
+        -1 where the slot was not alive, then each slot's stop code (0
+        none, 1 eos, 2 repeat) and its length after the burst; the carry
+        after the burst, each seed advanced by the tokens its slot
+        emitted).
+
+        Tick i writes the KV rows at ``length + i`` and reads only rows up
+        to that one, so running the step twice on the same carry gives the
+        same caches and tokens: the warm-up run before a capture, and the
+        capture check, rely on it."""
+        packed = carry[:, :PACKED_LEN]
+        recent, nvalid = packed[:, :RECENT_WINDOW], packed[:, _NVALID]
+        seed0 = packed[:, _SEED]
+        tok, lengths, run, left, eos = (carry[:, c] for c in (_TOK, _LEN, _RUN, _LEFT, _EOS))
+        alive = carry[:, _ALIVE].bool()
+        len0 = lengths
+        stop = torch.zeros_like(tok)
+        toks = []
+        for i in range(n_ticks):
+            active = alive
+            _, logits = self._decode_rows(tok[:, None], lengths, active)
+            rows = torch.cat([recent, nvalid[:, None], packed[:, _TOP_K:_SEED],
+                              (seed0 + i)[:, None], packed[:, _FLOATS:]], dim=1)
+            sampled = sample_rows_packed(logits, rows).long()
+            eos_hit = active & (eos >= 0) & (sampled == eos)
+            run = torch.where(active, torch.where(sampled == tok, run + 1, 1), run)
+            rep_hit = active & (run >= BURST_REPEAT_STOP)
+            left = torch.where(active, left - 1, left)
+            pushed, grown = _push_recent_rows(recent, nvalid, sampled)
+            recent = torch.where(active[:, None], pushed, recent)
+            nvalid = torch.where(active, grown, nvalid)
+            lengths = torch.where(active, lengths + 1, lengths)
+            first = stop == 0
+            stop = torch.where(eos_hit & first, 1, stop)
+            stop = torch.where(rep_hit & ~eos_hit & first, 2, stop)
+            alive = active & ~eos_hit & ~rep_hit & (left > 0)
+            tok = torch.where(active, sampled, tok)
+            toks.append(torch.where(active, sampled, -1))
+        packed = torch.cat([recent, nvalid[:, None], packed[:, _TOP_K:_SEED],
+                            (seed0 + lengths - len0)[:, None], packed[:, _FLOATS:]], dim=1)
+        carry = torch.cat([packed, torch.stack([tok, lengths, alive.long(), run, left, eos],
+                                               dim=1)], dim=1)
+        return torch.cat([torch.stack(toks), stop[None], lengths[None]]), carry
+
+    def _burst_prep(self, entries: Dict[str, dict], n_ticks: int):
+        """The burst's slot rows and its carry (host ints, BURST_COLS a
+        slot), from per-session specs {token, seed, budget, eos (None:
+        none), generated, temperature, top_p, top_k, repetition_penalty}
+        (the reference's ``_burst_prep``, ``batching.py:827``). A slot's
+        budget is clamped to one burst's ticks. Refuses an engine that does
+        not span the whole model, N < 1, a budget below 1 and a burst past
+        ``max_len``."""
+        if not (self.spec.is_first and self.spec.is_last):
+            raise RuntimeError(
+                "burst decode requires the full model span (on-device "
+                "sampling feeds tokens straight back into the embedding)")
+        if n_ticks < 1:
+            raise ValueError(f"burst of {n_ticks} ticks")
+        idle = SamplingParams(temperature=0.0, top_p=1.0, top_k=0, repetition_penalty=1.0)
+        carry = [pack_sampler_inputs((), idle, 0) + [0, int(n), 0, 0, 0, -1]
+                 for n in self.lengths]
+        rows: Dict[str, int] = {}
+        for sid, e in entries.items():
+            s = self._slot_of.get(sid)
+            if s is None:
+                raise KeyError(f"unknown session {sid} (prefill first)")
+            budget = min(int(e["budget"]), n_ticks)
+            if budget < 1:
+                raise ValueError(f"session {sid}: burst budget must be >= 1")
+            if int(self.lengths[s]) + budget > self.max_len:
+                raise RuntimeError(
+                    f"session {sid}: burst of {budget} past length "
+                    f"{int(self.lengths[s])} exceeds max_len {self.max_len}")
+            gen = [int(t) for t in e["generated"]]
+            run = next((j for j, t in enumerate(reversed(gen)) if t != gen[-1]), len(gen))
+            sp = SamplingParams(temperature=float(e["temperature"]), top_p=float(e["top_p"]),
+                                top_k=int(e["top_k"]),
+                                repetition_penalty=float(e["repetition_penalty"]))
+            eos = e.get("eos")
+            carry[s] = (pack_sampler_inputs(gen, sp, int(e["seed"]))
+                        + [int(e["token"]), int(self.lengths[s]), 1, run, budget,
+                           -1 if eos is None else int(eos)])
+            rows[sid] = s
+        return rows, carry
+
+    def _burst_dispatch(self, n_ticks: int, carry):
+        """One replay of the N-tick graph (captured at its first use) on
+        `carry`: host rows, or the carry an earlier burst returned. Returns
+        the graph's (result, carry), which its next replay overwrites."""
+        out = self.graphs.run_carry(("burst", n_ticks),
+                                    lambda c: self._burst_step(c, n_ticks), carry,
+                                    (self.slots, BURST_COLS))
+        self.decode_steps += 1
+        self.burst_dispatches += 1
+        self._m_burst_disp.inc()
+        self._m_burst_ticks.observe(n_ticks)
+        return out
+
+    def _burst_collect(self, rows: Dict[str, int], result: torch.Tensor) -> Dict[str, dict]:
+        """Read one burst's result back (its one host sync) and advance the
+        host lengths."""
+        res = result.tolist()
+        toks, stop, lengths = res[:-2], res[-2], res[-1]
+        out: Dict[str, dict] = {}
+        total = 0
+        for sid, s in rows.items():
+            m = lengths[s] - int(self.lengths[s])
+            total += m
+            out[sid] = {"tokens": [toks[i][s] for i in range(m)],
+                        "stop": _BURST_STOPS[stop[s]], "cache_len": lengths[s]}
+            self.lengths[s] = lengths[s]
+        self.burst_tokens += total
+        self._m_burst_toks.inc(total)
+        return out
+
+    @staticmethod
+    def _ready(t: torch.Tensor) -> None:
+        """Wait for the work that produces `t` (the phase profiler's fence)."""
+        if t.is_cuda:
+            torch.cuda.current_stream(t.device).synchronize()
+
+    def decode_burst(self, entries: Dict[str, dict], n_ticks: int) -> Dict[str, dict]:
+        """Up to ``n_ticks`` decode ticks for every session of `entries` in
+        one replay. Returns {session_id: {tokens, stop, cache_len}}:
+        ``tokens`` the emitted ids (<= n_ticks; the device's stops truncate
+        them), ``stop`` None, "eos" or "repeat". Sessions join and leave
+        between bursts only."""
+        if not entries:
+            return {}
+        prof = _get_profiler()
+        with prof.phase("burst_build"):
+            rows, carry = self._burst_prep(entries, n_ticks)
+        t_d = time.perf_counter()
+        result, _ = self._burst_dispatch(n_ticks, carry)
+        if prof.enabled:
+            # Fenced: the device phase runs from the dispatch to the ready.
+            prof.observe("dispatch", time.perf_counter() - t_d)
+            self._ready(result)
+            prof.device_interval(t_d, time.perf_counter())
+        with prof.phase("readback"):
+            return self._burst_collect(rows, result)
+
+    def burst_stream(self, entries: Dict[str, dict], n_ticks: int):
+        """Bursts of one resident cohort until every session has stopped or
+        spent its budget (a generator of {session_id: {tokens, stop,
+        cache_len}} blocks, empty ones skipped; the reference's
+        ``burst_stream``, ``batching.py:950``). Every carry stays on the
+        device: a burst's result is copied on the device and its carry fed
+        back into the graph's input before the next replay, which is
+        dispatched before this burst is read back, so the one read a
+        burst overlaps the next burst. The budget counter starts at the
+        whole budget and ticks down across bursts."""
+        if not entries:
+            return
+        prof = _get_profiler()
+        with prof.phase("burst_build"):
+            rows, carry = self._burst_prep(entries, n_ticks)
+        remaining = {sid: int(e["budget"]) for sid, e in entries.items()}
+        finished = {sid: False for sid in entries}
+        for sid, s in rows.items():
+            b = int(entries[sid]["budget"])
+            if int(self.lengths[s]) + b > self.max_len:
+                raise RuntimeError(
+                    f"session {sid}: stream budget of {b} past length "
+                    f"{int(self.lengths[s])} exceeds max_len {self.max_len}")
+            carry[s][_LEFT] = b
+        pending: List[tuple] = []
+        done = False
+        while not done or pending:
+            if not done:
+                t_d = time.perf_counter() if prof.enabled else None
+                result, carry = self._burst_dispatch(n_ticks, carry)
+                if t_d is not None:
+                    prof.observe("dispatch", time.perf_counter() - t_d)
+                # The next replay overwrites the graph's outputs: keep this
+                # burst's result (`carry` is copied into the input first).
+                pending.append((result.clone(), t_d))
+            # One burst in flight: read the oldest back once a newer one is
+            # dispatched, or once every session is done.
+            while pending and (done or len(pending) > 1):
+                result_p, t_d = pending.pop(0)
+                if t_d is not None and prof.enabled:
+                    self._ready(result_p)
+                    t_r = time.perf_counter()
+                    prof.device_interval(t_d, t_r)
+                    block = self._burst_collect(rows, result_p)
+                    prof.observe("readback", time.perf_counter() - t_r)
+                else:
+                    block = self._burst_collect(rows, result_p)
+                live = {}
+                for sid, res in block.items():
+                    remaining[sid] -= len(res["tokens"])
+                    if res["stop"] is not None or remaining[sid] <= 0:
+                        finished[sid] = True
+                    if res["tokens"]:
+                        live[sid] = res
+                if all(finished.values()):
+                    done = True
+                if live:
+                    yield live
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Final-stage head over [1, T, D] -> [1, T, V] (float32)."""
         return lm_head(self.cfg, self.params, hidden)
@@ -383,15 +684,15 @@ class BatchedStageExecutor:
 
 class _Round:
     """One coalescing window: requests that arrive while it is open share a
-    single batched step. Rounds are keyed by step width T (seq_len), so a
-    round's sessions always share one captured step."""
+    single batched step. Rounds are keyed by step width T (seq_len), or by
+    ("burst", N), so a round's sessions always share one captured step."""
 
     __slots__ = ("reqs", "outs", "tokens", "err", "bad", "lengths", "event",
                  "closed", "t_exec")
 
     def __init__(self):
         self.reqs: Dict[str, StageRequest] = {}
-        self.outs: Dict[str, torch.Tensor] = {}
+        self.outs: Dict[str, Any] = {}          # hidden rows, or burst results
         self.tokens: Dict[str, int] = {}            # last stage: sampled
         self.lengths: Dict[str, int] = {}
         self.err: Optional[Exception] = None      # whole-round failure
@@ -424,8 +725,6 @@ class _SlotArenaView:
 def _unported_reason(req: StageRequest) -> Optional[str]:
     """Why this port's adapter refuses a request the reference's serves,
     or None."""
-    if req.burst_len:
-        return "burst decode is not ported"
     if req.draft_tokens is not None:
         return "speculative verify is not ported"
     if req.next_servers:
@@ -439,8 +738,10 @@ class BatchingStageAdapter:
     concurrent decode calls coalesced — the FIRST arrival leads its width's
     round, waits ``window_s`` for followers, runs ONE `decode_batch` (and
     on the last stage samples every row), and every waiter picks up its own
-    row. Other request kinds are refused with a retryable stage error, so
-    clients route them to a per-session replica."""
+    row. On a full-span engine burst requests coalesce the same way into
+    rounds keyed ``("burst", N)``, each one `decode_burst`. Other request
+    kinds are refused with a retryable stage error, so clients route them
+    to a per-session replica."""
 
     engine = "batched"   # registry capability tag (ServerRecord.engine)
 
@@ -455,18 +756,20 @@ class BatchingStageAdapter:
         self.step_timeout = step_timeout
         self.requests_served = 0
         self._lock = threading.Lock()
-        # Open coalescing rounds, keyed by step width T.
-        self._rounds: Dict[int, _Round] = {}
+        # Open coalescing rounds, keyed by step width T or ("burst", N).
+        self._rounds: Dict[Any, _Round] = {}
         self._m_queue_wait = _tm.get("server_queue_wait_seconds")
         self._m_fill = _tm.get("server_batch_fill_sessions")
         self._m_round = _tm.get("server_decode_round_seconds")
         self.arena = _SlotArenaView(inner, self._lock)
 
-    def warmup(self) -> None:
+    def warmup(self, burst: int = 0) -> None:
         """Capture the steps serving runs before it serves: a prefill at
-        every bucket up to ``max_len`` and the decode step of width 1, and
-        on the last stage the prefill's and the round's samplers, under the
-        adapter's lock."""
+        every bucket up to ``max_len`` and the decode step of width 1, on
+        the last stage the prefill's and the round's samplers, and with
+        ``burst > 0`` on a full-span engine the burst of that many ticks
+        (over a fresh warm-up session: the port has no rewind yet), under
+        the adapter's lock."""
         first = self.spec.is_first
         d = self.cfg.hidden_size
         inner = self.inner
@@ -486,6 +789,12 @@ class BatchingStageAdapter:
             if self.spec.is_last:
                 _sample_rows(inner.logits(h[:, -1:]), 1, sampled, inner.sampler)
                 inner.sample_round({"__warmup__": sampled})
+            if burst > 0 and self.spec.is_first and self.spec.is_last:
+                inner.prefill("__warmup__", x[:, :4])
+                inner.decode_burst(
+                    {"__warmup__": {"token": 1, "seed": 0, "budget": burst, "eos": None,
+                                    "generated": (1,), "temperature": 0.0, "top_p": 1.0,
+                                    "top_k": 0, "repetition_penalty": 1.0}}, burst)
             inner.end_session("__warmup__")
 
     # -- protocol ----------------------------------------------------------
@@ -514,6 +823,17 @@ class BatchingStageAdapter:
             raise StageExecutionError(f"batched peer: {reason}")
         if req.is_prefill:
             return self._prefill(req)
+        if req.burst_len:
+            if not (self.spec.is_first and self.spec.is_last):
+                _ev.emit("task_rejected", session_id=req.session_id,
+                         pool="batched", reason="burst without full span")
+                raise StageExecutionError(
+                    "burst decode requires a full-span peer (on-device "
+                    "sampling feeds tokens back into the embedding)")
+            if req.seq_len != 1:
+                raise StageExecutionError(
+                    "a burst step carries exactly the one last accepted token")
+            return self._decode_burst(req)
         if req.seq_len != 1 and not req.is_replay:
             # Replay chunks are plain multi-token KV rebuilds (the client
             # discards the sampled token): decode_batch's T > 1 shape.
@@ -575,17 +895,62 @@ class BatchingStageAdapter:
                     f"server {cur} (stale retry?)")
         return None
 
+    def _validate_burst(self, req: StageRequest) -> Optional[str]:
+        """Burst admission on top of `_validate` (caller holds the lock):
+        every refusal `_burst_prep` would raise, so one bad session never
+        fails its round-mates."""
+        if req.burst_budget < 1:
+            return (f"session {req.session_id}: burst budget "
+                    f"{req.burst_budget} (want >= 1)")
+        cur = int(self.inner.lengths[self.inner.slot(req.session_id)])
+        budget = min(int(req.burst_budget), int(req.burst_len))
+        if cur + budget > self.inner.max_len:
+            return (f"session {req.session_id}: burst of {budget} past "
+                    f"{cur} exceeds max_len {self.inner.max_len}")
+        return None
+
     def _decode(self, req: StageRequest) -> StageResponse:
+        def run(r: _Round, good: Dict[str, StageRequest]) -> None:
+            r.outs = self.inner.decode_batch({s_id: rq.hidden for s_id, rq in good.items()})
+            if self.spec.is_last:
+                r.tokens = self.inner.sample_round(good)
+
+        r = self._coalesce(req.seq_len, req, self._validate, run)
+        return self._respond(req, r.outs[req.session_id], r.lengths[req.session_id],
+                             token=r.tokens.get(req.session_id))
+
+    def _decode_burst(self, req: StageRequest) -> StageResponse:
+        """Burst requests coalesce into one `decode_burst` a round, keyed
+        ``("burst", N)`` so that they never share a round with single-tick
+        decodes; sessions join and leave at round (burst) boundaries."""
+        n = int(req.burst_len)
+
+        def run(r: _Round, good: Dict[str, StageRequest]) -> None:
+            r.outs = self.inner.decode_burst(
+                {s_id: _burst_entry(rq) for s_id, rq in good.items()}, n)
+            _ev.emit("burst_round", sessions=len(good), ticks=n,
+                     tokens=sum(len(o["tokens"]) for o in r.outs.values()))
+
+        r = self._coalesce(("burst", n), req,
+                           lambda rq: self._validate(rq) or self._validate_burst(rq), run)
+        out = r.outs[req.session_id]
+        return StageResponse(session_id=req.session_id, burst_tokens=tuple(out["tokens"]),
+                             burst_stop=out["stop"], cache_len=r.lengths[req.session_id])
+
+    def _coalesce(self, key, req: StageRequest, validate, run) -> _Round:
+        """Join (or lead) the open round of `key`. The leader sleeps the
+        window, re-validates every joiner, and runs ``run(round, good)``
+        under the lock; every waiter then gets the round back, or its own
+        refusal or the round's failure raised."""
         sid = req.session_id
-        t = req.seq_len
         t_join = time.monotonic()
         with self._lock:
-            reason = self._validate(req)
+            reason = validate(req)
             if reason is not None:
                 raise StageExecutionError(reason)
-            r = self._rounds.get(t)
+            r = self._rounds.get(key)
             if r is None or r.closed:
-                r = self._rounds[t] = _Round()
+                r = self._rounds[key] = _Round()
                 leader = True       # whoever CREATES the round leads it
             else:
                 leader = False
@@ -600,13 +965,13 @@ class BatchingStageAdapter:
                 time.sleep(self.window_s)
                 with self._lock:
                     r.closed = True
-                    if self._rounds.get(t) is r:
-                        del self._rounds[t]
+                    if self._rounds.get(key) is r:
+                        del self._rounds[key]
                     # Re-validate: a session may have been dropped since it
                     # joined. Exclusions fail only their own waiter.
                     good = {}
                     for s_id, rq in r.reqs.items():
-                        reason = self._validate(rq)
+                        reason = validate(rq)
                         if reason is None:
                             good[s_id] = rq
                         else:
@@ -614,10 +979,7 @@ class BatchingStageAdapter:
                     if good:
                         r.t_exec = time.monotonic()
                         self._m_fill.observe(len(good))
-                        r.outs = self.inner.decode_batch(
-                            {s_id: rq.hidden for s_id, rq in good.items()})
-                        if self.spec.is_last:
-                            r.tokens = self.inner.sample_round(good)
+                        run(r, good)
                         r.lengths = {
                             s_id: int(self.inner.lengths[self.inner.slot(s_id)])
                             for s_id in good
@@ -627,8 +989,8 @@ class BatchingStageAdapter:
                 r.err = exc
                 with self._lock:  # a dead round must not accept joiners
                     r.closed = True
-                    if self._rounds.get(t) is r:
-                        del self._rounds[t]
+                    if self._rounds.get(key) is r:
+                        del self._rounds[key]
             finally:
                 r.event.set()
         elif not r.event.wait(self.step_timeout):
@@ -640,5 +1002,4 @@ class BatchingStageAdapter:
             raise StageExecutionError(str(r.err)) from r.err
         if sid in r.bad:
             raise StageExecutionError(r.bad[sid])
-        return self._respond(req, r.outs[sid], r.lengths[sid],
-                             token=r.tokens.get(sid))
+        return r

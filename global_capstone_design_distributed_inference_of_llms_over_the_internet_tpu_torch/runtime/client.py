@@ -21,8 +21,17 @@ replay events go to the flight recorder; each pipeline step is one trace
 span). Every field is a host value the client already holds. Under the
 phase profiler each hop attempt's transport call is the ``socket`` phase.
 
-Module and latency routing, push chains, burst, beam and speculative
-decoding, deadlines and their telemetry hooks are not ported yet.
+Burst generation (``generate(..., burst=N)``, the reference's
+``_generate_steps_burst``): the whole session runs on one full-span
+batched peer (``runtime/batching.py``), which answers each decode request
+with up to N tokens sampled on its device; the journal holds one
+multi-token entry a burst, so a replacement full-span peer replays the
+session across burst boundaries, and the client's per-token stop scan
+stays the authority. With no full-span batched peer live the session
+falls back to the per-step loop and emits ``burst_fallback``.
+
+Module and latency routing, push chains, beam and speculative decoding,
+deep prompts, deadlines and their telemetry hooks are not ported yet.
 
 Deliberate difference: journal entries keep the activation tensor on its
 device (tensors are never modified after they are sent), where the
@@ -61,6 +70,9 @@ SETTLE_SECONDS = 0.2      # pause after a replay, before the retried call
 REPEAT_STOP = 5           # 5 consecutive identical tokens end a generation
 # A coalesced replay chunk must stay replayable in one request.
 MAX_COALESCED_TOKENS = 4096
+# Journal and route key of the one full-span hop a burst session pins
+# (`_generate_steps_burst`); rediscovery takes another full-span peer.
+BURST_HOP_KEY = "burst"
 # Engines that serve their full span only and refuse replay: a replacement
 # peer receives the session's replay journal, so rediscovery avoids them.
 SESSION_ONLY_ENGINES = ("batched", "sp")
@@ -225,6 +237,7 @@ class PipelineClient:
         self.cfg = cfg
         self.model = model
         self.plan = plan
+        self.total_blocks = plan.stages[-1].end     # the model's layers
         self.stage0 = stage0
         self.transport = transport
         self.registry = registry
@@ -402,7 +415,11 @@ class PipelineClient:
     def _rediscover_excluding(self, hop: Hop, exclude: Tuple[str, ...]) -> Optional[str]:
         """A live peer of the hop's stage, not in `exclude`, avoiding the
         engines that refuse a replay journal (the stage branch of the
-        reference's rediscovery)."""
+        reference's rediscovery); for a burst hop, another full-span batched
+        peer (a batched engine takes a replay: a prefill, then multi-token
+        chunks)."""
+        if hop.key == BURST_HOP_KEY:
+            return self._discover_burst_peer(exclude=exclude)
         return self.registry.discover_stage(
             int(hop.key.removeprefix("stage")), exclude=exclude,
             model=self.model, avoid_engine=SESSION_ONLY_ENGINES)
@@ -463,12 +480,15 @@ class PipelineClient:
                  sampling: Optional[SamplingParams] = None,
                  eos_token_id: Optional[int] = None,
                  session_id: Optional[str] = None,
-                 max_length: Optional[int] = None) -> GenerationResult:
+                 max_length: Optional[int] = None,
+                 speculative_k: int = 0, deep_prompts=None,
+                 burst: int = 0) -> GenerationResult:
         result: Optional[GenerationResult] = None
         for step in self.generate_stepwise(
                 prompt_ids, max_new_tokens, sampling=sampling,
                 eos_token_id=eos_token_id, session_id=session_id,
-                max_length=max_length):
+                max_length=max_length, speculative_k=speculative_k,
+                deep_prompts=deep_prompts, burst=burst):
             if step.done:
                 result = step.result
         assert result is not None  # the generator's final yield carries it
@@ -478,22 +498,37 @@ class PipelineClient:
                           *, sampling: Optional[SamplingParams] = None,
                           eos_token_id: Optional[int] = None,
                           session_id: Optional[str] = None,
-                          max_length: Optional[int] = None
-                          ) -> Iterator[GenerationStep]:
+                          max_length: Optional[int] = None,
+                          speculative_k: int = 0, deep_prompts=None,
+                          burst: int = 0) -> Iterator[GenerationStep]:
         """Incremental ``generate``: yields after the prefill and after every
-        decode step. The per-step sampling seed is ``self.seed +
-        len(generated)``, purely session-local. Session state (KV leases,
-        journal) is released when the generator finishes or is closed."""
+        decode step (with ``burst > 0``, after every burst). The per-step
+        sampling seed is ``self.seed + len(generated)``, purely
+        session-local, so a burst's tokens are the per-step loop's. Session
+        state (KV leases, journal) is released when the generator finishes
+        or is closed. ``speculative_k`` and ``deep_prompts`` are the
+        reference's arguments: not ported, they raise (``ValueError``
+        beside ``burst``, as the reference's)."""
+        if burst > 0 and (speculative_k > 0 or deep_prompts is not None):
+            raise ValueError(
+                "burst decode samples on-device and is incompatible with "
+                "speculative drafting / deep prompts")
+        if speculative_k > 0 or deep_prompts is not None:
+            raise NotImplementedError(
+                "speculative decoding and deep prompts are not ported (ROADMAP "
+                "Queue 1 #3)")
         session_id = session_id or f"sess-{time.monotonic_ns():x}"
         _ev.emit("session_start", session_id=session_id,
                  prompt_len=len(prompt_ids), max_new_tokens=max_new_tokens)
         recoveries_before = self.recoveries
         tokens_out = 0
+        generate_steps = self._generate_steps_burst if burst > 0 else self._generate_steps
+        kw = {"burst": burst} if burst > 0 else {}
         try:
-            for step in self._generate_steps(
+            for step in generate_steps(
                     prompt_ids, max_new_tokens, sampling=sampling or SamplingParams(),
                     eos_token_id=eos_token_id, session_id=session_id,
-                    max_length=max_length):
+                    max_length=max_length, **kw):
                 tokens_out += len(step.new_tokens)
                 yield step
         finally:
@@ -574,6 +609,125 @@ class PipelineClient:
             cur_len += 1
             generated.append(int(resp.token_id))
             yield GenerationStep(new_tokens=[generated[-1]])
+
+        self._m_generations.inc()
+        yield GenerationStep(new_tokens=[], done=True, result=GenerationResult(
+            tokens=generated, ttft_s=ttft, decode_times_s=decode_times,
+            stopped_by=stopped_by))
+
+    def _discover_burst_peer(self, exclude: Tuple[str, ...] = ()) -> Optional[str]:
+        """A live batched final-stage peer that spans the whole model, the
+        only server that can run a burst (its sampled tokens feed its own
+        embedding), not in `exclude`; the highest throughput wins."""
+        cands = [
+            r for r in self.registry.live_servers(model=self.model)
+            if r.engine == "batched" and r.final_stage
+            and r.start_block <= 0 and r.end_block >= self.total_blocks
+            and r.peer_id not in exclude
+            and getattr(r, "state", "online") == "online"
+        ]
+        if not cands:
+            return None
+        return max(cands, key=lambda r: r.throughput).peer_id
+
+    def _generate_steps_burst(self, prompt_ids: Sequence[int], max_new_tokens: int, *,
+                              sampling: SamplingParams, eos_token_id: Optional[int],
+                              session_id: str, max_length: Optional[int], burst: int
+                              ) -> Iterator[GenerationStep]:
+        """The burst counterpart of `_generate_steps` (the reference's
+        ``_generate_steps_burst``, ``client.py:1589-1715``): the prompt's
+        ids go straight to one full-span batched peer, and each decode
+        request asks it for up to `burst` ticks. Each burst is journaled as
+        one multi-token entry (the carried-in token and every emitted token
+        but the last, whose KV the next burst writes), so a failover replays
+        across burst boundaries; the host's per-token stop scan decides
+        what is kept."""
+        prompt_len = len(prompt_ids)
+        max_length = max_length or (prompt_len + max_new_tokens)
+        peer = self._discover_burst_peer()
+        if peer is None:
+            _ev.emit("burst_fallback", session_id=session_id,
+                     reason="no full-span batched peer is live")
+            yield from self._generate_steps(
+                prompt_ids, max_new_tokens, sampling=sampling,
+                eos_token_id=eos_token_id, session_id=session_id,
+                max_length=max_length)
+            return
+        hop = Hop(key=BURST_HOP_KEY, peer_id=peer, start_block=0,
+                  end_block=self.total_blocks, expect_token=True)
+        generated: List[int] = []
+        stopped_by = "max_tokens"
+
+        t0 = time.monotonic()
+        ids = torch.tensor([list(prompt_ids)], dtype=torch.int64)
+        resp = self._call_with_recovery(hop, StageRequest(
+            session_id=session_id, hidden=ids, seq_len=prompt_len, cur_len=0,
+            is_prefill=True, max_length=max_length, sampling=sampling,
+            step_seed=self.seed, start_block=hop.start_block,
+            end_block=hop.end_block, prefix_len=prompt_len))
+        if not resp.is_token:
+            raise RuntimeError(f"burst peer {hop.peer_id} returned no prefill token")
+        self._journal_append(hop.key, session_id, JournalEntry(ids, prompt_len, 0))
+        ttft = time.monotonic() - t0
+        self._m_ttft.observe(ttft)
+        generated.append(int(resp.token_id))
+        yield GenerationStep(new_tokens=[generated[-1]])
+
+        decode_times: List[float] = []
+        cur_len = prompt_len
+        while len(generated) < max_new_tokens:
+            # The host's stop rules first, in the per-step loop's order: a
+            # burst's last token may be an eos or a repeat that the device
+            # could not act on (a stop gates the next tick only).
+            if eos_token_id is not None and generated[-1] == eos_token_id:
+                stopped_by = "eos"
+                break
+            if (len(generated) >= REPEAT_STOP
+                    and len(set(generated[-REPEAT_STOP:])) == 1):
+                stopped_by = "repeat"
+                break
+            t0 = time.monotonic()
+            resp = self._call_with_recovery(hop, StageRequest(
+                session_id=session_id,
+                hidden=torch.tensor([[generated[-1]]], dtype=torch.int64),
+                seq_len=1, cur_len=cur_len, is_prefill=False,
+                max_length=max_length, sampling=sampling,
+                generated_tokens=clip_generated(generated),
+                step_seed=self.seed + len(generated),
+                start_block=hop.start_block, end_block=hop.end_block,
+                burst_len=burst,
+                burst_budget=min(burst, max_new_tokens - len(generated)),
+                eos_token_id=eos_token_id))
+            if not resp.is_burst:
+                raise RuntimeError(f"burst peer {hop.peer_id} returned no token block")
+            toks = list(resp.burst_tokens)
+            self._journal_append(hop.key, session_id, JournalEntry(
+                torch.tensor([[generated[-1], *toks[:-1]]], dtype=torch.int64),
+                len(toks), cur_len))
+            dt = time.monotonic() - t0
+            decode_times.append(dt)
+            self._m_step.observe(dt)
+            self._m_tokens.inc(len(toks))
+            cur_len += len(toks)
+            # The per-token scan of the per-step loop: the device may run
+            # past the host's stop point by ticks it could not see.
+            n_before = len(generated)
+            stop = None
+            for tok in toks:
+                if len(generated) >= max_new_tokens:
+                    break
+                generated.append(int(tok))
+                if eos_token_id is not None and tok == eos_token_id:
+                    stop = "eos"
+                    break
+                if (len(generated) >= REPEAT_STOP
+                        and len(set(generated[-REPEAT_STOP:])) == 1):
+                    stop = "repeat"
+                    break
+            yield GenerationStep(new_tokens=generated[n_before:])
+            if stop is not None:
+                stopped_by = stop
+                break
 
         self._m_generations.inc()
         yield GenerationStep(new_tokens=[], done=True, result=GenerationResult(

@@ -400,7 +400,11 @@ class SlotSteps:
     inputs) and is captured; each call then copies its inputs in and
     replays. `run` returns the graph's static output: the caller reads or
     clones it before the next call of that key (the engine's callers hold
-    its lock). On the CPU the step runs directly."""
+    its lock). On the CPU the step runs directly.
+
+    `run_carry` serves a step whose one input is state it hands on (a
+    burst's carry): staged from host ints like the scalars, or copied on
+    the device from the carry an earlier replay returned."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -428,14 +432,44 @@ class SlotSteps:
             return entry.graph.out
 
     def _capture(self, key, step, x, scalars) -> _SlotStep:
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
         static_x = x.to(self.device, copy=True)
         staged = StagedInts((len(scalars),), self.device)
         staged.load(scalars)
-        graph = capture(lambda: step(static_x, staged.tensor), self._pool, self._stream)
-        entry = _SlotStep(static_x, staged, graph)
+        return self._add(key, static_x, staged, lambda: step(static_x, staged.tensor))
+
+    def run_carry(self, key: Hashable, step: Callable, carry, shape):
+        """``step(c)`` for the int64 tensor c of `shape`: `carry` is c's
+        host ints (rows of ints), staged from pinned memory, or a device
+        tensor, copied on the device. Returns the graph's static output."""
+        if not self.enabled:
+            if not isinstance(carry, torch.Tensor):
+                carry = torch.tensor(carry, dtype=torch.int64, device=self.device)
+            return step(carry.reshape(shape))
+        with self._lock:
+            entry = self._steps.get(key)
+            if entry is None:
+                staged = StagedInts(shape, self.device)
+                self._load(staged, carry)
+                entry = self._add(key, staged.tensor, staged, lambda: step(staged.tensor))
+            else:
+                self._load(entry.scalars, carry)
+            entry.graph.replay()
+            self.replays += 1
+            return entry.graph.out
+
+    @staticmethod
+    def _load(staged: "StagedInts", carry) -> None:
+        if isinstance(carry, torch.Tensor):
+            staged.tensor.copy_(carry)
+        else:
+            staged.load([v for row in carry for v in row])
+
+    def _add(self, key, x, staged, fn) -> _SlotStep:
+        """Capture `fn` as the graph of `key`."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        entry = _SlotStep(x, staged, capture(fn, self._pool, self._stream))
         self._steps[key] = entry
         self.captures += 1
         return entry

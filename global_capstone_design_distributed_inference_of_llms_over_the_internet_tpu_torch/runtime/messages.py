@@ -17,6 +17,10 @@ are refused by the executor with a `StageExecutionError` that names the
 field, never ignored. ``prefix_len`` is a sharing hint that a server
 without a prefix store ignores, as in the reference. The training fields
 and the backward messages are not ported.
+
+A full-span batched peer (``runtime/batching.py``) serves a burst
+request (``burst_len > 0``) and answers it with a burst reply: the tokens one
+burst emitted and why it stopped early.
 """
 
 from __future__ import annotations
@@ -75,7 +79,8 @@ class StageRequest:
     # Tenant priority (lower = more urgent) for the server's task pool.
     priority: Optional[float] = None
     # Burst decode: up to burst_len ticks in one call, at most burst_budget
-    # tokens emitted, stopping at eos_token_id (refused).
+    # tokens emitted, stopping at eos_token_id (a full-span batched peer
+    # serves it; the per-session executor refuses it).
     burst_len: int = 0
     burst_budget: int = 0
     eos_token_id: Optional[int] = None
@@ -91,6 +96,12 @@ class StageResponse:
     # Batch>1 sampling: one token per batch row (token_id mirrors row 0).
     token_ids: Optional[Tuple[int, ...]] = None
     cache_len: int = 0                     # server-side KV length after the step
+    # Burst mode (request.burst_len > 0): the tokens one burst emitted
+    # (<= burst_len; the device's stop rules truncate it) and why it ended
+    # early: None (budget or burst boundary), "eos" or "repeat". cache_len
+    # is the KV length after every emitted tick.
+    burst_tokens: Optional[Tuple[int, ...]] = None
+    burst_stop: Optional[str] = None
     # The serving peer's span summary (telemetry.tracing Span.to_wire()):
     # its own start/end plus attrs. None when the request carried no trace.
     span: Optional[dict] = None
@@ -98,6 +109,10 @@ class StageResponse:
     @property
     def is_token(self) -> bool:
         return self.token_id is not None
+
+    @property
+    def is_burst(self) -> bool:
+        return self.burst_tokens is not None
 
 
 def clip_generated(tokens: Sequence[int], window: int = 50) -> Tuple[int, ...]:

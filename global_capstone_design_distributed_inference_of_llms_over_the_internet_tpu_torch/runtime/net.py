@@ -27,11 +27,14 @@ Components:
     card, handler threads own the sockets), or, for a batched engine
     (``runtime/batching.py``), runs inline on the handler threads; ``info``
     reports the executor's ``engine`` and a batched engine's
-    ``decode_steps``.
+    ``decode_steps``. A forward answers with ``token``, ``hidden`` or, for
+    a burst request to a full-span batched peer, ``burst`` (the tokens
+    the burst emitted and why it stopped).
   * `TcpTransport` is the client side of `Transport`: peer addresses from
     registry records, one persistent connection per peer, plain prefill
-    and decode on streams, socket errors mapped onto the retryable
-    taxonomy (``runtime/errors.py``).
+    and decode on streams (a burst request rides the classic frame),
+    socket errors mapped onto the retryable taxonomy
+    (``runtime/errors.py``).
   * `RegistryServer` / `RemoteRegistry`: the control plane, a JSON-over-TCP
     registry with TTL expiry server-side, a comma-separated HA address
     list and an on-disk peers cache on the client side.
@@ -875,7 +878,15 @@ class TcpStageServer(_FramedTcpServer):
         _get_profiler().observe("server", time.monotonic() - t_req)
         span.set(cache_len=resp.cache_len,
                  queue_s=max(0.0, t_compute - t_req)).end()
-        if resp.is_token:
+        if resp.is_burst:
+            # A burst's tokens: the reference's "burst" reply (net.py:1324).
+            frame = {
+                "verb": "burst", "session_id": resp.session_id,
+                "tokens": list(resp.burst_tokens), "stop": resp.burst_stop,
+                "cache_len": resp.cache_len,
+            }
+            body = b""
+        elif resp.is_token:
             if stream is not None:
                 # The stream's server-side recent-token window.
                 stream["generated"].append(int(resp.token_id))
@@ -1176,6 +1187,14 @@ class TcpTransport(Transport):
                         payload: bytes) -> StageResponse:
         verb = header.get("verb")
         span = header.get("span")
+        if verb == "burst":
+            return StageResponse(
+                session_id=header["session_id"],
+                burst_tokens=tuple(header["tokens"]),
+                burst_stop=header.get("stop"),
+                cache_len=header["cache_len"],
+                span=span,
+            )
         if verb == "token":
             ids = header.get("token_ids")
             return StageResponse(

@@ -8,7 +8,8 @@ engines chained as stages; the adapter behind ``LocalTransport`` with
 concurrent clients (greedy and seeded sampled), coalescing, refusals and
 stale retries; the three batching telemetry families and the
 ``task_rejected`` events. Plus the port's own refusals (MoE, speculative
-rows, burst, push chains, ``--stage 0 --batched``) and its captured steps
+rows, push chains, ``--stage 0`` without ``--batched``), a burst served
+by the full-span adapter as the JAX one serves it, and the captured steps
 replayed through a CPU stub of a graph.
 
 Tolerance: hidden rows and logits within ``assert_close``'s float32
@@ -439,9 +440,11 @@ def test_engine_refuses_moe():
                                        device="cpu")
 
 
-def test_stage0_batched_serve_is_refused():
-    with pytest.raises(SystemExit, match="1b"):
-        tmain.main(["--mode", "serve", "--stage", "0", "--batched", "--device", "cpu",
+def test_stage0_serve_without_batched_exits():
+    """``--stage 0`` serves the full span, with ``--batched`` only, as the
+    reference's serve mode (its stage 0 otherwise runs in the client)."""
+    with pytest.raises(SystemExit, match="requires --batched"):
+        tmain.main(["--mode", "serve", "--stage", "0", "--device", "cpu",
                     "--registry_addr", "127.0.0.1:1"])
 
 
@@ -523,11 +526,11 @@ def test_adapter_refuses_stale_cur_len_and_round_survives():
 
 # Requests both adapters refuse (of a session with no slot, as in
 # tests/test_batching.py:339), then those only the port's refuses (their
-# slices are not ported: burst #1b, speculative rows #3, push chains #2).
+# slices are not ported: speculative rows #3, push chains #2).
 COMMON_REFUSALS = [dict(hypo_ids=(0,)), dict(num_logprobs=2), dict(is_replay=True),
                    dict(start_from_position=0, cur_len=3), dict(start_block=1), dict()]
-PORT_REFUSALS = [dict(burst_len=4, burst_budget=4), dict(draft_tokens=(1,)),
-                 dict(draft_tokens=(1, 2), seq_len=3), dict(next_servers=({"peer_id": "x"},))]
+PORT_REFUSALS = [dict(draft_tokens=(1,)), dict(draft_tokens=(1, 2), seq_len=3),
+                 dict(next_servers=({"peer_id": "x"},))]
 
 
 def _refusal_request(mk, sid, bad):
@@ -558,10 +561,27 @@ def test_adapter_refuses_what_the_reference_refuses(bad):
     assert events[1] == events[0]
 
 
+def test_adapter_serves_a_burst():
+    """A burst request to the full-span adapters of both packages: the same
+    tokens, stop and cache length, and the session goes on with a plain
+    decode."""
+    ja, ta = adapters(8, slots=2, window_s=0.0)
+    got = []
+    for adapter, mk in ((ja, _jreq), (ta, _treq)):
+        first = adapter.forward(mk("s", [5, 9, 23], 0, True)).token_id
+        r = adapter.forward(mk("s", [first], 3, False, burst_len=4, burst_budget=3,
+                               generated_tokens=(first,), step_seed=1))
+        nxt = adapter.forward(mk("s", [r.burst_tokens[-1]], r.cache_len, False))
+        got.append((first, r.burst_tokens, r.burst_stop, r.cache_len, nxt.token_id,
+                    adapter.inner.burst_dispatches))
+    assert got[1] == got[0]
+    assert len(got[1][1]) == 3 and got[1][3] == 6
+
+
 @pytest.mark.parametrize("bad", PORT_REFUSALS, ids=lambda b: "-".join(b))
 def test_adapter_refuses_what_is_not_ported(bad):
-    """Burst, speculative rows and push chains are refused, retryably, with
-    a task_rejected event, and the session stays usable."""
+    """Speculative rows and push chains are refused, retryably, with a
+    task_rejected event, and the session stays usable."""
     _, ta = adapters(8, slots=2, window_s=0.0)
     ta.forward(_treq("s", [5, 9, 23], 0, True))
     ttel.get_recorder().enable()

@@ -9,6 +9,13 @@ batched replica (:176), and a killed batched peer fails over to a session
 replica (:237). Plus a JAX client against the port's batched server, and
 ``--mode serve --batched`` as processes.
 
+Burst decode over loopback TCP (full-span batched servers, the whole tiny
+model on 4 slots of 64 rows): a JAX client asking for ``burst=4`` from a
+port server and a port client from a JAX server give the unpartitioned
+loop's tokens, and the ``burst`` reply frame's bytes equal the JAX
+server's; ``--mode serve --stage 0 --batched --burst 4`` and ``--mode
+client --burst 4`` as processes.
+
 Tiny llama of ``tests/test_runtime_pipeline.py`` (8 layers), splits 2,4:
 stage 0 [0, 2) in the client, stage 1 [2, 4) a session server (its compute
 on a ``StageRuntime``), stage 2 [4, 8) the batched final stage; wire f32.
@@ -16,7 +23,10 @@ Tolerance: none, tokens are compared for equality with the JAX package's
 unpartitioned loop (``oracle_generate``), greedy and seeded sampled.
 """
 
+import json
 import re
+import socket
+import struct
 import subprocess
 import sys
 import threading
@@ -24,6 +34,7 @@ import threading
 import jax
 import numpy as np
 import pytest
+import torch
 
 from _torch_port_helpers import (  # noqa: F401 (one_torch_thread: autouse)
     bridged,
@@ -44,6 +55,9 @@ from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.
 )
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.ops.sampling import (
     SamplingParams as JSamplingParams,
+)
+from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.runtime import (
+    batching as jbatching,
 )
 from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.runtime import (
     net as jnet,
@@ -320,3 +334,188 @@ def test_sequential_session_takes_a_round_a_step(swarm):
     assert swarm.adapter.inner.decode_steps - before == 3
     assert np.all(swarm.adapter.inner.lengths == 0)
     tx.close()
+
+
+# -- burst decode over loopback TCP ---------------------------------------------
+
+BURST_PROMPT = [5, 9, 23, 7, 81]
+
+
+def full_span_server(pkg, jcfg, jp, cfg, params):
+    """A full-span batched server of `pkg` (peer ``{pkg}-full``) at wire f32:
+    the port's behind a TcpStageServer with no runtime, warmed up with the
+    4-tick burst; the JAX one as its tests build it."""
+    if pkg == "jax":
+        inner = jbatching.BatchedStageExecutor(
+            jcfg, JStagePlan.even(jcfg.num_layers, 1).stages[0], jp, slots=4, max_len=64)
+        inner.lengths = inner.lengths.astype(np.int64)   # test_torch_batching.py's reason
+        adapter = jbatching.BatchingStageAdapter(inner, window_s=0.0, peer_id="jax-full")
+        srv = jnet.TcpStageServer(adapter, wire_dtype="f32")
+    else:
+        inner = BatchedStageExecutor(cfg, StagePlan.even(cfg.num_layers, 1).stages[0], params,
+                                     slots=4, max_len=64, device="cpu")
+        adapter = BatchingStageAdapter(inner, window_s=0.0, peer_id="port-full")
+        adapter.warmup(burst=4)
+        srv = tnet.TcpStageServer(adapter, None, wire_dtype="f32")
+    srv.start()
+    return srv, adapter
+
+
+class BurstSwarm:
+    """A RegistryServer and the full-span server of one package."""
+
+    def __init__(self, pkg):
+        self.jcfg = tiny_cfg()
+        self.jp = j_init_params(jax.random.PRNGKey(0), self.jcfg)
+        self.cfg = port_cfg(self.jcfg)
+        self.params = bridged(self.jp)
+        self.registry = tnet.RegistryServer(ttl=600.0)
+        self.registry.start()
+        self.server, self.adapter = full_span_server(pkg, self.jcfg, self.jp, self.cfg,
+                                                     self.params)
+        rec = make_server_record(self.adapter.peer_id,
+                                 StagePlan.even(self.cfg.num_layers, 1).stages[0],
+                                 engine="batched")
+        rec.address = self.server.address
+        self.registry.registry.register(rec)
+
+    def client(self, pkg, seed):
+        if pkg == "jax":
+            plan = JStagePlan.from_splits(self.jcfg.num_layers, jparse_splits(SPLITS))
+            registry = jnet.RemoteRegistry(self.registry.address)
+            transport = jnet.TcpTransport(registry, wire_dtype="f32")
+            stage0 = JStageExecutor(self.jcfg, plan.stages[0],
+                                    jslice(self.jcfg, self.jp, plan.stages[0]), peer_id="jclient")
+            return JPipelineClient(self.jcfg, plan, stage0, transport, registry,
+                                   settle_seconds=0.0, seed=seed), transport
+        plan = StagePlan.from_splits(self.cfg.num_layers, parse_splits(SPLITS))
+        registry = tnet.RemoteRegistry(self.registry.address)
+        transport = tnet.TcpTransport(registry, wire_dtype="f32")
+        stage0 = StageExecutor(self.cfg, plan.stages[0],
+                               slice_stage_params(self.cfg, self.params, plan.stages[0]),
+                               peer_id="tclient", device="cpu")
+        return PipelineClient(self.cfg, plan, stage0, transport, registry,
+                              settle_seconds=0.0, seed=seed), transport
+
+    def stop(self):
+        self.server.stop()
+        self.registry.stop()
+
+
+@pytest.mark.parametrize("client_pkg,server_pkg,knobs",
+                         [("jax", "port", SAMPLED), ("port", "jax", SAMPLED)],
+                         ids=["jax-client-port-server", "port-client-jax-server"])
+def test_burst_across_packages_over_tcp(client_pkg, server_pkg, knobs):
+    """A client of one package asks the other package's full-span server
+    for bursts of 4, seeded sampled (greedy runs in the CLI test): the
+    unpartitioned loop's tokens, every decode request a burst (no
+    fallback)."""
+    swarm = BurstSwarm(server_pkg)
+    client, transport = swarm.client(client_pkg, seed=5)
+    try:
+        sp = (JSamplingParams if client_pkg == "jax" else SamplingParams)(*knobs)
+        got = client.generate(BURST_PROMPT, max_new_tokens=10, sampling=sp, burst=4)
+        want = oracle_generate(swarm.jcfg, swarm.jp, BURST_PROMPT, 10,
+                               JSamplingParams(*knobs), seed=5)
+        assert got.tokens == want
+        assert swarm.adapter.inner.burst_dispatches >= len(got.decode_times_s) > 0
+    finally:
+        transport.close()
+        swarm.stop()
+
+
+def _raw_frame(sock):
+    """One whole reply frame off the socket, as bytes."""
+    def exact(n):
+        buf = b""
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            assert chunk, "peer closed"
+            buf += chunk
+        return buf
+
+    head = exact(8)
+    header = exact(struct.unpack("<I", head[4:])[0])
+    plen = exact(4)
+    return head + header + plen + exact(struct.unpack("<I", plen)[0] + 4)
+
+
+def test_burst_reply_bytes_equal_jax():
+    """The same prefill and burst request to a port and a JAX full-span
+    server: the ``burst`` reply frames are byte-equal (header key order,
+    tokens, stop, cache length, an empty payload and its checksum)."""
+    jcfg = tiny_cfg()
+    jp = j_init_params(jax.random.PRNGKey(0), jcfg)
+    cfg, params = port_cfg(jcfg), bridged(jp)
+    frames, servers = [], []
+    try:
+        for pkg in ("jax", "port"):
+            srv, _ = full_span_server(pkg, jcfg, jp, cfg, params)
+            servers.append(srv)
+            host, port = srv.address.rsplit(":", 1)
+            with socket.create_connection((host, int(port)), timeout=TIMEOUT_S) as s:
+                s.settimeout(TIMEOUT_S)
+                sp = SamplingParams(*SAMPLED)
+                pre = tnet.StageRequest(session_id="b", hidden=torch.tensor([BURST_PROMPT]),
+                                        seq_len=5, cur_len=0, is_prefill=True, max_length=64,
+                                        sampling=sp, step_seed=3)
+                meta, body = tnet._encode_tensor(tnet._host_array(pre.hidden), "f32")
+                tnet._send_frame(s, tnet._request_header(pre, meta), body)
+                first = tnet._recv_frame(s)[0]["token_id"]
+                req = tnet.StageRequest(session_id="b", hidden=torch.tensor([[first]]), seq_len=1,
+                                        cur_len=5, is_prefill=False, max_length=64,
+                                        sampling=sp, generated_tokens=(first,), step_seed=4,
+                                        burst_len=4, burst_budget=4, eos_token_id=None)
+                meta, body = tnet._encode_tensor(tnet._host_array(req.hidden), "f32")
+                tnet._send_frame(s, tnet._request_header(req, meta), body)
+                frames.append(_raw_frame(s))
+    finally:
+        for srv in servers:
+            srv.stop()
+    assert frames[1] == frames[0]
+    header = json.loads(frames[1][8:8 + struct.unpack("<I", frames[1][4:8])[0]])
+    assert list(header) == ["verb", "session_id", "tokens", "stop", "cache_len"]
+    assert header["verb"] == "burst" and len(header["tokens"]) == 4
+    assert header["cache_len"] == 9
+
+
+def test_cli_burst_server_and_client(tmp_path):
+    """``--mode registry``, ``--mode serve --stage 0 --batched --burst 4``
+    (gpt2, int8, wire f32) and ``--mode client --burst 4``: the client's
+    token ids equal ``--mode local --burst 4``'s, which has no full-span
+    peer and falls back to the per-step loop (its ``burst_fallback``
+    event), while the client's bursts emit none."""
+    common = ["--model", "gpt2", "--quant", "int8", "--seed", "1", "--wire_dtype", "f32",
+              "--max_new_tokens", "6", "--temperature", "0", "--prompt", "Burst", "--burst", "4"]
+    procs = []
+
+    def events(path):
+        return [json.loads(line).get("event") for line in path.read_text().splitlines()
+                if line.strip()]
+
+    try:
+        procs.append(_port_cli("--mode", "registry", "--registry_port", "0"))
+        addr = _handshake(procs[0], "REGISTRY_ADDR=").split("=", 1)[1]
+        procs.append(_port_cli("--mode", "serve", "--stage", "0", "--batched", "--slots", "2",
+                               "--max_session_len", "64", "--registry_addr", addr, *common))
+        line = _handshake(procs[1], "SERVING ", timeout_s=TIMEOUT_S)
+        assert line.split()[1:3] == ["stage=0", "span=[0,12)"]
+        client = _port_cli("--mode", "client", "--registry_addr", addr, *common,
+                           "--events-dump", str(tmp_path / "client.jsonl"))
+        procs.append(client)
+        out = client.communicate(timeout=TIMEOUT_S)[0].decode("utf-8", errors="replace")
+        assert client.returncode == 0, out[-2000:]
+        local = subprocess.run(
+            [sys.executable, "-m", tmain.__name__, "--device", "cpu", "--mode", "local",
+             *common, "--events-dump", str(tmp_path / "local.jsonl")], cwd=REPO,
+            capture_output=True, timeout=TIMEOUT_S)
+        assert local.returncode == 0
+        ids = [re.findall(r"^TOKENS=(\[[0-9, ]*\])$", o, re.M)
+               for o in (out, local.stdout.decode("utf-8", errors="replace"))]
+        assert len(ids[0]) == 1 and ids[0] == ids[1]
+        assert "burst_fallback" not in events(tmp_path / "client.jsonl")
+        assert "burst_fallback" in events(tmp_path / "local.jsonl")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait(timeout=30)

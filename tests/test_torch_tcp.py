@@ -465,13 +465,24 @@ def test_spent_deadline_and_model_mismatch_refused(port_swarm):
         other.close()
 
 
-@pytest.mark.parametrize("flag", [["--burst", "4"], ["--sp", "2"], ["--tp", "2"],
+@pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"],
                                   ["--use_load_balancing"], ["--use_cpu_offload"],
                                   ["--prefix_cache_mb", "64"], ["--relay_capacity", "2"]])
 def test_unported_serve_flag_exits_naming_it(flag):
     with pytest.raises(SystemExit, match=f"{flag[0]} is not ported"):
         tmain.main(["--mode", "serve", "--stage", "1", "--device", "cpu",
                     "--registry_addr", "127.0.0.1:1", *flag])
+
+
+@pytest.mark.parametrize("mode", ["serve", "client", "local"])
+def test_burst_flag_is_served(mode):
+    """``--burst N`` passes the flag check in every mode that takes it
+    (``--mode serve --stage 0 --batched`` runs it as processes in
+    tests/test_torch_serve_batched.py)."""
+    args = tmain.build_parser().parse_args(["--mode", mode, "--stage", "0", "--batched",
+                                            "--burst", "4", "--device", "cpu"])
+    tmain.refuse_unported_flags(args)
+    assert args.burst == 4
 
 
 @pytest.mark.parametrize("client_pkg", ["port", "jax"])
