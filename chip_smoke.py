@@ -220,6 +220,39 @@ on the kernels; it never prints the last line of a smoke pass.)
    step's wall printed); the device ms of a burst replay at fills
    1/2/4/8 and of a tick at N = 1, 4, 8, 16 (each N's capture seconds and
    reserved memory). Prints ``burst_path``.
+10c. Prefix path (after the burst path; ``prefix_path``): the prompt-prefix
+   KV store on the int8 path's weights. ``int8_dot`` at the cold prefill's
+   bucket (M = 1024) at every site, bf16 ("mma") and float32 ("f32mma")
+   x, held and timed beside the plain version, the library and the bound.
+   A ``--mode local --prefix_cache_mb 1024`` client built by ``main``'s
+   functions (a store on every stage, stage 0 too): five requests with 16
+   new tokens, A (a seeded 512-token preamble, 8 grains of 64, and a
+   32-token tail; cold), B and C (other tails; C sampled at 0.7 / 0.9 /
+   50 / 1.5), D (the preamble's first 256 tokens, 256 others, a tail) and
+   E = A, each beside the same prompt with every store off: (a) in
+   process, (b) over in-process TCP (stages 1-3 behind TcpStageServers as
+   ``--mode serve`` builds them, float32 from the wire; each server's
+   ``info`` ``prefix_cache`` equal to its store's counters). Gates: every
+   stage's store counters after each request (A misses everywhere, B, C
+   and E reuse 8 grains, D 4); A's rows each stage hands on and its tokens
+   bit-equal to the store-less run's; E's first 512 rows bit-equal to A's;
+   each warm request's tokens equal to the store-less run's or first
+   different at a near-tie (the script's rules); A's prefill at the 1024
+   bucket and E's at the 32 bucket, one ``int8_dot`` launch a site and
+   layer on the route `_route` gives each stage's dtype; in process one
+   host sync a token and one a stage after stage 0 for A and for E; one
+   ``sample_draw`` a sampled token. (e) Stage 1's store budgeted at 3
+   grains: its bytes stay under the budget and a repeat of A finds its
+   chain broken at the first link. The host ms to hash a prefill's grains
+   (ids, bf16 rows on the card, float32 rows on the host). (c) Stages 1-3
+   on batched engines with a store (the tail step warmed up at every
+   bucket) and 8 client threads sharing the preamble, (d) the full-span
+   burst engine with a store and 8 burst clients: no capture after warm-up,
+   one miss and 7 hits of 8 grains a store, tokens held to the store-less
+   run's as above. Prints TTFT cold and warm, the prefill launches by
+   route and bucket, host syncs, captures at the first hit, the store's
+   bytes, peak / held / reserved GB with and without the store, and the
+   phase's seconds.
 11. Batched CLI drive (after step 9): ``--mode registry``, 3 x ``--mode
    serve --batched``, and two ``--mode client`` processes at once, whose
    generations and ``TOKENS=`` ids must equal the in-process batched run's
@@ -231,7 +264,8 @@ on the kernels; it never prints the last line of a smoke pass.)
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``; each matmul with its launches by route in process and
    over TCP, the batched path's and the burst path's launches by route,
-   and its M = 8 and float32 prefill layers) and
+   and its M = 8 and float32 prefill layers; the prefix path's prefills by
+   route and bucket and its layer at M = 1024) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -300,6 +334,18 @@ TCP_HOP_S = 0.001
 # replay; the tick counts whose device ms a tick is scanned at fill 8.
 BURST_TICKS = 8
 BURST_TICK_SCAN = (1, 4, 8, 16)
+# The prefix path: a preamble of PREFIX_GRAINS store grains (512 tokens),
+# a PREFIX_TAIL-token tail of each request's own, PREFIX_NEW_TOKENS new
+# tokens, a PREFIX_CACHE_MB store on every stage. A cold, B and C warm (C
+# sampled), D sharing the preamble's first half, E = A; the grains each
+# reuses on every stage.
+PREFIX_GRAINS = 8
+PREFIX_TAIL = 32
+PREFIX_NEW_TOKENS = 16
+PREFIX_CACHE_MB = 1024
+PREFIX_ORDER = ("A", "B", "C", "D", "E")
+PREFIX_REUSED = {"A": 0, "B": PREFIX_GRAINS, "C": PREFIX_GRAINS, "D": PREFIX_GRAINS // 2,
+                 "E": PREFIX_GRAINS}
 # (site, K, N) of llama-3.1-8b's four projection launches per layer after the
 # executor's fusion: wqkv = wq|wk|wv, wgu = wg|wu.
 SITES = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("wgu", 4096, 28672),
@@ -1598,7 +1644,8 @@ def greedy_and_sampled_ms(results, requests) -> dict:
             "sampled_decode_ms_per_token": ms(False)}
 
 
-def references(torch, cfg, params, prompt_ids, requests, seed, cache_dtype=None):
+def references(torch, cfg, params, prompt_ids, requests, seed, cache_dtype=None,
+               max_new_tokens=MAX_NEW_TOKENS):
     """The float32-cache (or `cache_dtype`-cache) reference of each
     request: the greedy loop, or the sampled loop with the pipeline's step
     seeds."""
@@ -1606,10 +1653,10 @@ def references(torch, cfg, params, prompt_ids, requests, seed, cache_dtype=None)
     for ids, (_, sp) in zip(prompt_ids, requests):
         if sp.greedy:
             out.append({"ids": ids, "tokens": greedy_reference(
-                torch, cfg, params, ids, MAX_NEW_TOKENS, cache_dtype)})
+                torch, cfg, params, ids, max_new_tokens, cache_dtype)})
         else:
             out.append({"ids": ids, **sampled_reference(torch, cfg, params, ids, sp, seed,
-                                                        MAX_NEW_TOKENS, cache_dtype)})
+                                                        max_new_tokens, cache_dtype)})
         out[-1]["cache_dtype"] = cache_dtype
     return out
 
@@ -1859,10 +1906,14 @@ def failover_drive(torch, tmain, state):
     transport.add_peer(replica_id, replica)
     client.registry.register(client_mod.make_server_record(replica_id, spec,
                                                            model=args.model))
-    pinned = next(h.peer_id for h in client.route() if h.key == f"stage{spec.index}")
     seen = {"decode": 0}
 
     def on_call(peer_id, req):
+        # The session's stage-2 peer is the first it calls there: its route
+        # picks a replica by the prompt head's affinity.
+        if req.start_block != spec.start:
+            return
+        pinned = seen.setdefault("pinned", peer_id)
         if peer_id == pinned and not req.is_prefill and not req.is_replay:
             seen["decode"] += 1
             if seen["decode"] == KILL_AFTER_DECODES:
@@ -1875,6 +1926,7 @@ def failover_drive(torch, tmain, state):
                           sampling=state["requests"][0][1])
     wall_s = time.monotonic() - t0
     transport.on_call = None
+    pinned = seen["pinned"]
     recoveries = client.recoveries - before
     log(f"failover: pinned {pinned} killed after {seen['decode']} decode calls, "
         f"{recoveries} recovery, replica served {replica.requests_served} requests, "
@@ -2330,16 +2382,18 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
                 cfg, spec, tmain._stage_params(args, cfg, state["params"], spec),
                 peer_id=replica_id, device=torch.device(args.device))
             serve_over_tcp(replica_id, replica)
-            pinned = next(h.peer_id for h in client.route() if h.key == f"stage{spec.index}")
             seen = {"decode": 0}
             call = transport.call
 
             def stop_after_decodes(peer_id, req, timeout=None):
                 resp = call(peer_id, req, timeout)
-                if peer_id == pinned and not req.is_prefill and not req.is_replay:
-                    seen["decode"] += 1
-                    if seen["decode"] == KILL_AFTER_DECODES:
-                        servers[pinned].stop()
+                # The session's stage-2 peer: the first it calls there.
+                if req.start_block == spec.start:
+                    pinned = seen.setdefault("pinned", peer_id)
+                    if peer_id == pinned and not req.is_prefill and not req.is_replay:
+                        seen["decode"] += 1
+                        if seen["decode"] == KILL_AFTER_DECODES:
+                            servers[pinned].stop()
                 return resp
 
             transport.call = stop_after_decodes
@@ -2347,6 +2401,7 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
             got = client.generate(state["prompt_ids"][0], MAX_NEW_TOKENS,
                                   sampling=state["requests"][0][1])
             transport.call = call
+            pinned = seen["pinned"]
             recoveries = client.recoveries - before
             log(f"  tcp failover: {pinned} stopped after {seen['decode']} decode steps, "
                 f"{recoveries} recovery, replica served {replica.requests_served} requests")
@@ -2650,11 +2705,12 @@ def batched_requests(tok, sampling_cls, cfg):
             for j, p in enumerate(BATCH_PROMPTS)]
 
 
-def batched_engines(torch, tmain, state):
+def batched_engines(torch, tmain, state, prefix_cache_bytes: int = 0):
     """Stages 1-3 of the int8 path as `--mode serve --batched` builds them:
     batched engines (bfloat16 slot caches, SLOTS slots of MAX_SESSION_LEN
-    rows) behind adapters with the default round window, each warmed up.
-    Returns (adapters, warm-up seconds a stage)."""
+    rows; a prefix store of `prefix_cache_bytes` if > 0) behind adapters
+    with the default round window, each warmed up. Returns (adapters,
+    warm-up seconds a stage)."""
     from importlib import import_module
 
     batching = import_module(PORT + ".runtime.batching")
@@ -2663,7 +2719,8 @@ def batched_engines(torch, tmain, state):
     for spec in state["client"].plan.stages[1:]:
         engine = batching.BatchedStageExecutor(
             cfg, spec, tmain._stage_params(args, cfg, params, spec), device="cuda",
-            slots=SLOTS, max_len=MAX_SESSION_LEN, dtype=torch.bfloat16)
+            slots=SLOTS, max_len=MAX_SESSION_LEN, dtype=torch.bfloat16,
+            prefix_cache_bytes=prefix_cache_bytes, model=MODEL)
         adapter = batching.BatchingStageAdapter(engine, peer_id=f"batched-stage{spec.index}")
         t0 = time.monotonic()
         adapter.warmup()
@@ -2676,11 +2733,13 @@ def batched_engines(torch, tmain, state):
     return adapters, warm_s
 
 
-def stage0_executors(torch, tmain, state, n: int):
+def stage0_executors(torch, tmain, state, n: int, prompt_len: int = 32,
+                     new_tokens: int = MAX_NEW_TOKENS):
     """`n` stage-0 executors, one a client (each `--mode client` process has
     its own), on one fused copy of stage 0's weights, each warmed up with a
-    prefill and a step of the batched prompts' shape: their captures happen
-    before the clients run at once."""
+    prefill and a step of the prompts' shape (`prompt_len` tokens and
+    `new_tokens` more): their captures happen before the clients run at
+    once."""
     from importlib import import_module
 
     executor_mod = import_module(PORT + ".runtime.executor")
@@ -2693,16 +2752,17 @@ def stage0_executors(torch, tmain, state, n: int):
     for i in range(n):
         ex = executor_mod.StageExecutor(cfg, spec, shard, peer_id=f"batched-client{i}",
                                         device="cuda", act_dtype=torch.bfloat16)
-        for t, cur in ((32, 0), (1, 32)):
+        for t, cur in ((prompt_len, 0), (1, prompt_len)):
             ex.forward(messages.StageRequest(
                 session_id="__warmup__", hidden=torch.zeros((1, t), dtype=torch.int64),
-                seq_len=t, cur_len=cur, is_prefill=cur == 0, max_length=32 + MAX_NEW_TOKENS))
+                seq_len=t, cur_len=cur, is_prefill=cur == 0,
+                max_length=prompt_len + new_tokens))
         ex.drop_session("__warmup__")
         out.append(ex)
     return out
 
 
-def run_clients(jobs, burst: int = 0):
+def run_clients(jobs, burst: int = 0, max_new_tokens: int = MAX_NEW_TOKENS):
     """Each (client, ids, sampling) job on a thread of its own, released
     together; the sessions start decoding together, once every one has its
     first token (requests admitted as one batch: sessions whose prefills
@@ -2718,7 +2778,7 @@ def run_clients(jobs, burst: int = 0):
         client, ids, sp = jobs[i]
         barrier.wait(timeout=60)
         try:
-            steps = client.generate_stepwise(ids, MAX_NEW_TOKENS, sampling=sp,
+            steps = client.generate_stepwise(ids, max_new_tokens, sampling=sp,
                                              **({"burst": burst} if burst else {}))
             next(steps)                                 # prefill, first token
             prefilled.wait(timeout=CLI_STEP_TIMEOUT_S)
@@ -2818,7 +2878,8 @@ def batched_capture_check(torch, adapters) -> dict:
     for a in adapters:
         eng = a.inner
         for key, entry in eng.graphs.entries():
-            step = eng._decode_step if key[0] == "decode" else eng._prefill_step
+            step = {"decode": eng._decode_step, "prefill": eng._prefill_step,
+                    "tail": eng._tail_step}[key[0]]
             k0, v0 = eng.k.clone(), eng.v.clone()
             entry.graph.replay()
             out = entry.graph.out
@@ -3062,12 +3123,13 @@ class Tokens:
         self.tokens = tokens
 
 
-def full_span_adapter(torch, state, peer_id: str, params=None):
+def full_span_adapter(torch, state, peer_id: str, params=None, prefix_cache_bytes: int = 0):
     """The full-span batched engine `--mode serve --stage 0 --batched`
     builds (every layer, the embedding and the head; bfloat16 slot caches
-    of SLOTS x MAX_SESSION_LEN rows) on the int8 path's quantized weights,
-    behind an adapter with the default round window. `params`: another
-    engine's fused tree, shared (a second peer holds no second copy)."""
+    of SLOTS x MAX_SESSION_LEN rows; a prefix store of `prefix_cache_bytes`
+    if > 0) on the int8 path's quantized weights, behind an adapter with
+    the default round window. `params`: another engine's fused tree,
+    shared (a second peer holds no second copy)."""
     from importlib import import_module
 
     batching = import_module(PORT + ".runtime.batching")
@@ -3076,7 +3138,8 @@ def full_span_adapter(torch, state, peer_id: str, params=None):
     spec = partition.StagePlan.even(cfg.num_layers, 1).stages[0]
     engine = batching.BatchedStageExecutor(
         cfg, spec, state["ref_params"] if params is None else params, device="cuda",
-        slots=SLOTS, max_len=MAX_SESSION_LEN, dtype=torch.bfloat16)
+        slots=SLOTS, max_len=MAX_SESSION_LEN, dtype=torch.bfloat16,
+        prefix_cache_bytes=prefix_cache_bytes, model=MODEL)
     return batching.BatchingStageAdapter(engine, peer_id=peer_id)
 
 
@@ -3505,6 +3568,562 @@ def burst_path(torch, kernels, tmain, sampling_cls, state, refs, batched, smi: s
     return summary, results
 
 
+# ---------------------------------------------------------------------------
+# The prefix path (step 10c)
+# ---------------------------------------------------------------------------
+
+def prefix_prompts(torch, cfg, grain: int):
+    """The prefix path's prompts, ids from a seeded generator: A, B and C
+    the preamble (PREFIX_GRAINS grains) and a tail of their own, D the
+    preamble's first half, another half and a tail, E = A."""
+    gen = torch.Generator().manual_seed(4)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    pre = ids(PREFIX_GRAINS * grain)
+    a, b, c = (pre + ids(PREFIX_TAIL) for _ in range(3))
+    d = pre[:len(pre) // 2] + ids(len(pre) // 2) + ids(PREFIX_TAIL)
+    return {"A": a, "B": b, "C": c, "D": d, "E": a}
+
+
+def prefix_expected():
+    """(hits, misses, grains reused) every stage's store must show after
+    each request of PREFIX_ORDER."""
+    hits = misses = grains = 0
+    out = {}
+    for name in PREFIX_ORDER:
+        n = PREFIX_REUSED[name]
+        hits, misses, grains = hits + (n > 0), misses + (n == 0), grains + n
+        out[name] = (hits, misses, grains)
+    return out
+
+
+def int8_routes(ik) -> dict:
+    return {"mma": ik._launches_mma, "gemv": ik._launches_gemv, "f32mma": ik._launches_f32mma,
+            "simt": ik._launches - ik._launches_mma - ik._launches_gemv - ik._launches_f32mma}
+
+
+def memory_view(torch) -> dict:
+    torch.cuda.synchronize()
+    return {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "held_gb": torch.cuda.memory_allocated() / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+
+
+class PrefixProbe:
+    """On a client and its stage executors, while `on`: the hidden rows
+    each stage hands on for a prefill (stage 0's and each hop's), and the
+    (peer, sequence bucket) of every captured step that runs. `close`
+    takes the wrappers off."""
+
+    def __init__(self, client, executors):
+        self.rows, self.buckets, self.on = [], set(), False
+        self._undo = []
+        forward, call = client.stage0.forward, client.transport.call
+
+        def stage0(req):
+            resp = forward(req)
+            if self.on and req.is_prefill:
+                self.rows.append(resp.hidden)
+            return resp
+
+        def hop(peer_id, req, timeout=None):
+            resp = call(peer_id, req, timeout)
+            if self.on and req.is_prefill and resp.hidden is not None:
+                self.rows.append(resp.hidden)
+            return resp
+
+        client.stage0.forward, client.transport.call = stage0, hop
+        self._undo += [(client.stage0, "forward"), (client.transport, "call")]
+        for ex in executors:
+            def graphed(key, *rest, ex=ex, run=ex.graphs.run):
+                if self.on:
+                    self.buckets.add((ex.peer_id, key[1]))
+                return run(key, *rest)
+
+            ex.graphs.run = graphed
+            self._undo.append((ex.graphs, "run"))
+
+    def close(self) -> None:
+        for obj, name in self._undo:
+            delattr(obj, name)
+
+
+def prefix_request(torch, kernels, client, probe, ids, sp) -> dict:
+    """One request of the prefix path: its result, and for its prefill
+    (counts set to 0 just before it, read after its first token) the
+    int8_dot launches by route, the graphs' buckets and the rows each stage
+    handed on; the host syncs of the whole request."""
+    box = {}
+
+    def run():
+        reset_counts(kernels, [])
+        probe.rows.clear()
+        probe.buckets.clear()
+        probe.on = True
+        steps = client.generate_stepwise(ids, PREFIX_NEW_TOKENS, sampling=sp)
+        next(steps)
+        probe.on = False
+        box.update(routes=int8_routes(kernels["int8_dot"]), buckets=sorted(probe.buckets),
+                   rows=list(probe.rows))
+        for step in steps:
+            if step.done:
+                box["result"] = step.result
+        box["draws"] = kernels["sample_draw"]._launches
+
+    box["syncs"] = count_syncs(torch, run)
+    return box
+
+
+def hold_warm(torch, state, ids, sp, got, want, what: str, cache_dtype=None) -> str:
+    """A warm request's tokens `got` against the store-less run's `want`:
+    equal, or a first difference at a near-tie: greedy, of the reference's
+    logits there (`hold_to_reference`); sampled, both runs held to the
+    sampled reference by the script's rule (`hold_sampled`, `filter_tie`)."""
+    if got == want:
+        return "equal"
+    cfg, params = state["cfg"], state["ref_params"]
+    if sp.greedy:
+        hold_to_reference(torch, cfg, params, ids, got, want, what, cache_dtype)
+    else:
+        ref = sampled_reference(torch, cfg, params, ids, sp, state["args"].seed,
+                                PREFIX_NEW_TOKENS, cache_dtype)
+        hold_sampled(ref, want, f"{what}: the store-less run")
+        hold_sampled(ref, got, f"{what}: the warm run")
+    return f"first difference at step {first_difference(got, want)}, a near-tie"
+
+
+def prefix_drive(torch, kernels, client, executors, prompts, sps, what: str, state,
+                 in_process: bool) -> dict:
+    """The prefix path's requests on `client` twice: with every executor's
+    store off (the store-less run), then on (each executor's own store, as
+    it was). Gates: the store's counters on every stage after each request
+    as PREFIX_ORDER implies; the cold request's rows each stage handed on
+    and its tokens bit-equal to the store-less run's; a full hit's first
+    PREFIX_GRAINS grains of rows bit-equal to the cold run's; every warm
+    request's tokens held by `hold_warm`; the cold prefill at the cold
+    bucket and a warm one at the tail's, on the route `_route` gives each
+    stage's dtype, one launch a site and layer; in process one host sync a
+    token and one a stage after stage 0 (its arrival's prefix rows read to
+    the host once)."""
+    ik = kernels["int8_dot"]
+    cfg, grain = state["cfg"], executors[0].prefix_store.grain
+    stores = [ex.prefix_store for ex in executors]
+    probe = PrefixProbe(client, executors)
+    try:
+        for ex in executors:
+            ex.prefix_store = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        plain = {name: prefix_request(torch, kernels, client, probe, prompts[name], sps[name])
+                 for name in ("A", "B", "C", "D")}
+        mem_plain = memory_view(torch)
+        for ex, store in zip(executors, stores):
+            ex.prefix_store = store
+        torch.cuda.reset_peak_memory_stats()
+        expect, runs, captures = prefix_expected(), {}, {}
+        for name in PREFIX_ORDER:
+            before = sum(ex.graphs.captures for ex in executors)
+            runs[name] = prefix_request(torch, kernels, client, probe, prompts[name], sps[name])
+            captures[name] = sum(ex.graphs.captures for ex in executors) - before
+            for ex in executors:
+                st = ex.prefix_store.stats()
+                if (st["hits"], st["misses"], st["grains_reused"]) != expect[name]:
+                    raise AssertionError(f"prefix {what} {ex.peer_id} after {name}: store {st}, "
+                                         f"want (hits, misses, grains) {expect[name]}")
+        mem_store = memory_view(torch)
+    finally:
+        probe.close()
+    cold, warm = runs["A"], runs["E"]
+    base = {name: plain["A" if name == "E" else name] for name in PREFIX_ORDER}
+    if cold["result"].tokens != base["A"]["result"].tokens or not all(
+            torch.equal(r, p) for r, p in zip(cold["rows"], base["A"]["rows"])):
+        raise AssertionError(f"prefix {what}: the cold request differs from the store-less run")
+    p = PREFIX_GRAINS * grain
+    if not all(torch.equal(r[:, :p], c[:, :p]) for r, c in zip(warm["rows"], cold["rows"])):
+        raise AssertionError(f"prefix {what}: a full hit's stored rows differ from the cold run's")
+    rows_err = {name: max((r.float() - b.float()).abs().max().item()
+                          for r, b in zip(runs[name]["rows"], base[name]["rows"]))
+                for name in PREFIX_ORDER}
+    held = {name: hold_warm(torch, state, prompts[name], sps[name],
+                            runs[name]["result"].tokens, base[name]["result"].tokens,
+                            f"prefix {what} {name}")
+            for name in PREFIX_ORDER if name != "A"}
+    # The prefill's launches: stage 0 in bf16; the other stages in the
+    # dtype they compute in (bf16 in process, float32 behind TCP).
+    stage_dtypes = [torch.bfloat16] + [torch.bfloat16 if in_process else torch.float32] * 3
+    layers = [ex.spec.num_layers for ex in executors]
+    for name, run in (("A", cold), ("E", warm)):
+        m = round_to_bucket_of(len(prompts[name]) - PREFIX_REUSED[name] * grain)
+        want = {}
+        for dtype, n_layers in zip(stage_dtypes, layers):
+            route = {ik._route(m, k, n, dtype) for _, k, n in SITES}
+            assert len(route) == 1, route
+            route = route.pop()
+            want[route] = want.get(route, 0) + 4 * n_layers
+        got = {k: v for k, v in run["routes"].items() if v}
+        buckets = {tb for _, tb in run["buckets"]}
+        log(f"prefix {what} {name}: int8_dot launches of the prefill by route {got} (want "
+            f"{want}), graph buckets {run['buckets']}")
+        if got != want or buckets != {m}:
+            raise AssertionError(f"prefix {what} {name}: prefill launches {got} at buckets "
+                                 f"{buckets}, want {want} at {m}")
+    tokens = {name: len(run["result"].tokens) for name, run in runs.items()}
+    # The sampled request: one sample_draw a token at least (its counts set
+    # to 0 just before it).
+    if runs["C"]["draws"] < tokens["C"]:
+        raise AssertionError(f"prefix {what} C: {runs['C']['draws']} sample_draw launches for "
+                             f"{tokens['C']} sampled tokens")
+    if in_process:
+        for name in ("A", "E"):
+            want_syncs = tokens[name] + len(executors) - 1
+            if runs[name]["syncs"] != want_syncs:
+                raise AssertionError(f"prefix {what} {name}: {runs[name]['syncs']} host syncs, "
+                                     f"want {want_syncs} (a token each, one a stage's "
+                                     "prefix rows)")
+    ttft = {name: run["result"].ttft_s * 1e3 for name, run in runs.items()}
+    summary = {
+        "requests": PREFIX_ORDER, "prompt_tokens": {n: len(prompts[n]) for n in PREFIX_ORDER},
+        "grains_reused_a_stage": PREFIX_REUSED, "new_tokens": tokens,
+        "ttft_cold_ms": ttft["A"], "ttft_warm_ms": statistics.median(
+            [ttft[n] for n in ("B", "C", "E")]), "ttft_ms": ttft,
+        "ttft_store_less_ms": {n: r["result"].ttft_s * 1e3 for n, r in plain.items()},
+        "decode_ms_per_token": {n: median_ms(r["result"].decode_times_s)
+                                for n, r in runs.items()},
+        "prefill_launches": {"cold": cold["routes"], "warm": warm["routes"]},
+        "prefill_buckets": {"cold": cold["buckets"], "warm": warm["buckets"]},
+        "host_syncs": {"cold": cold["syncs"], "warm": warm["syncs"],
+                       "store_less_cold": plain["A"]["syncs"]},
+        "captures": captures, "captures_at_first_hit": captures["B"],
+        "sample_draw_launches_sampled_request": runs["C"]["draws"],
+        "store_bytes": {ex.peer_id: ex.prefix_store.stats()["bytes"] for ex in executors},
+        "store": {ex.peer_id: ex.prefix_store.stats() for ex in executors},
+        "rows_max_abs_diff_to_store_less": rows_err, "tokens_held": held,
+        "memory_store_less": mem_plain, "memory_store": mem_store}
+    log(f"prefix {what}: TTFT cold {ttft['A']:.1f} ms, warm {summary['ttft_warm_ms']:.1f} ms "
+        f"(B, C, E: {[round(ttft[n], 1) for n in 'BCE']}); host syncs cold / warm "
+        f"{cold['syncs']} / {warm['syncs']} for {tokens['A']} / {tokens['E']} tokens; "
+        f"{captures['B']} captures at the first hit; store bytes {summary['store_bytes']}; "
+        f"tokens {held}; memory without / with the store {mem_plain} / {mem_store}")
+    return summary
+
+
+def round_to_bucket_of(t: int) -> int:
+    """The session executors' sequence bucket of a t-token chunk."""
+    from importlib import import_module
+
+    return import_module(PORT + ".runtime.kv_cache").round_to_bucket(
+        t, import_module(PORT + ".runtime.executor").SEQ_BUCKETS)
+
+
+def prefix_eviction(torch, kernels, client, prompts, sps, what: str) -> dict:
+    """Stage 1's store budgeted at 3 grains (its entries' bytes: the grain's
+    KV rows and bf16 output rows), the others off: request A registers 8
+    grains, the used bytes stay under the budget and the last 3 stay; A
+    again finds its first link gone, so the chain stops there (a miss)
+    though 3 links are stored; its tokens equal the first run's."""
+    from importlib import import_module
+
+    store_mod = import_module(PORT + ".runtime.prefix_cache")
+    executors = path_executors(client)
+    ex = executors[1]
+    cfg = ex.cfg
+    grain = store_mod.DEFAULT_GRAIN
+    per = (ex.arena.bytes_for(grain, ex.spec.num_layers)
+           + grain * cfg.hidden_size * torch.empty((), dtype=torch.bfloat16).element_size())
+    saved = [e.prefix_store for e in executors]
+    for e in executors:
+        e.prefix_store = None
+    ex.prefix_store = store = store_mod.PrefixStore(3 * per)
+    try:
+        first = client.generate(prompts["A"], PREFIX_NEW_TOKENS, sampling=sps["A"])
+        after_first = store.stats()
+        again = client.generate(prompts["A"], PREFIX_NEW_TOKENS, sampling=sps["A"])
+        after_again = store.stats()
+    finally:
+        for e, st in zip(executors, saved):
+            e.prefix_store = st
+    log(f"prefix {what} eviction: budget {3 * per} bytes (3 grains); after A {after_first}; "
+        f"after A again {after_again}")
+    if not (after_first["bytes"] <= 3 * per and after_first["entries"] == 3
+            and after_first["evictions"] == PREFIX_GRAINS - 3
+            and (after_again["hits"], after_again["misses"]) == (0, 2)
+            and again.tokens == first.tokens):
+        raise AssertionError(f"prefix {what} eviction: {after_first} then {after_again}")
+    return {"budget_bytes": 3 * per, "after_first": after_first, "after_again": after_again}
+
+
+def prefix_hash_ms(torch, cfg, prompt_len: int, grain: int) -> dict:
+    """Host ms to hash a prefill's grains as each stage does: stage 0's ids
+    (on the host), and stages 1-3's hidden rows in process (bf16 on the
+    card: one read to the host first) and behind TCP (float32 on the
+    host, as the wire hands them on)."""
+    from importlib import import_module
+
+    store_mod = import_module(PORT + ".runtime.prefix_cache")
+    n = (prompt_len - 1) // grain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    ids = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen, device="cuda").cpu()
+    rows = torch.randn((1, prompt_len, cfg.hidden_size), generator=gen, device="cuda")
+    xs = {"stage0_ids": ids, "hidden_in_process_bf16_device": rows.to(torch.bfloat16),
+          "hidden_tcp_float32_host": rows.cpu()}
+    coords = (0, 8, 1, "x", "y", MODEL)
+    return {key: host_ms(lambda x=x: store_mod.chain_digests(
+        store_mod.grain_blocks(x, n, grain), coords), torch) for key, x in xs.items()}
+
+
+def prefix_kernel_rows(torch, ik, bw: float, flops: float, m: int, smi: str) -> dict:
+    """int8_dot at the cold prefill's bucket M = `m` at every site: bf16 x
+    (the tensor cores, in process) and float32 x ("f32mma", the stages
+    behind TCP), each held to the plain version and timed beside it and
+    the library, with its bound (float32's operations at a third of the
+    bf16 rate, F32_TERMS), L2 cold. Returns one layer's sums a dtype."""
+    from importlib import import_module
+
+    quant = import_module(PORT + ".models.quant")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    rows = []
+    for site, k, n in SITES:
+        w = int8_weight(torch, quant, gen, "cuda", k, n)
+        w_deq, q32 = (w.q.float() * w.s).to(torch.bfloat16), w.q.float()  # yardsticks only
+        rows += batch_rows(
+            torch, "int8_dot", ik, site, k, n, lambda x: ik.int8_dot(x, w),
+            lambda x: ik.int8_dot_reference(x, w.q, w.s),
+            {torch.bfloat16: lambda x: torch.matmul(x, w_deq),
+             torch.float32: lambda x: torch.matmul(x, q32) * w.s},
+            int8_bytes, gen, "cuda", bw,
+            {torch.float32: flops / F32_TERMS, torch.bfloat16: flops}, flush, m=m,
+            dtypes=("bfloat16", "float32"))
+        del w, w_deq, q32
+    per_layer = {d: layer_sum([r for r in rows if r["dtype"] == d])
+                 for d in ("bfloat16", "float32")}
+    for d in per_layer:
+        per_layer[d]["route"] = "+".join(sorted({r["route"] for r in rows if r["dtype"] == d}))
+    log(json.dumps({f"int8_dot_prefill_M{m}": rows, f"int8_dot_prefill_M{m}_per_layer": per_layer,
+                    "card": smi}))
+    return per_layer
+
+
+def prefix_batched(torch, kernels, tmain, state, prompts, sps, what: str) -> dict:
+    """(c) The int8 path's stages 1-3 on batched engines with a store
+    (`batched_engines`, warmed up: the tail step at every bucket too) and
+    SLOTS client threads, each with its own warmed-up stage 0, over float32
+    hops; every prompt the preamble and a tail of its own. The clients run
+    once with the stores off and once on. Gates: no capture after the
+    warm-ups; every stage's store one miss (the first prefill it serves)
+    and SLOTS - 1 hits of PREFIX_GRAINS grains; each request's tokens held
+    to the store-less run's by `hold_warm`."""
+    from importlib import import_module
+
+    client_mod = import_module(PORT + ".runtime.client")
+    registry_mod = import_module(PORT + ".scheduling.registry")
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    adapters, warm_s = batched_engines(torch, tmain, state, PREFIX_CACHE_MB << 20)
+    stage0s = stage0_executors(torch, tmain, state, SLOTS, len(prompts[0]), PREFIX_NEW_TOKENS)
+    transport = float32_hops()
+    registry = registry_mod.PlacementRegistry()
+    for a in adapters:
+        transport.add_peer(a.peer_id, a)
+        registry.register(client_mod.make_server_record(a.peer_id, a.spec, model=MODEL,
+                                                        engine="batched"))
+    jobs = [(client_mod.PipelineClient(cfg, local.plan, ex, transport, registry,
+                                       seed=args.seed, model=MODEL), ids, sp)
+            for ex, ids, sp in zip(stage0s, prompts, sps)]
+    batched_counts(kernels, adapters, stage0s)
+    stores = [a.inner.prefix_store for a in adapters]
+    for a in adapters:
+        a.inner.prefix_store = None
+    plain, _ = run_clients(jobs, max_new_tokens=PREFIX_NEW_TOKENS)
+    for a, store in zip(adapters, stores):
+        a.inner.prefix_store = store
+    box = {}
+    syncs = count_syncs(torch, lambda: box.setdefault("run", run_clients(
+        jobs, max_new_tokens=PREFIX_NEW_TOKENS)))
+    results, wall = box["run"]
+    captures = (sum(a.inner.graphs.captures + a.inner.sampler.captures for a in adapters)
+                + sum(ex.graphs.captures + ex.sampler.captures for ex in stage0s))
+    stats = {a.peer_id: a.inner.prefix_store.stats() for a in adapters}
+    want = (SLOTS - 1, 1, (SLOTS - 1) * PREFIX_GRAINS)
+    log(f"prefix {what}: {captures} captures after warm-up; stores {stats}")
+    if captures:
+        raise AssertionError(f"prefix {what}: {captures} captures after warm-up")
+    for peer, st in stats.items():
+        if (st["hits"], st["misses"], st["grains_reused"]) != want:
+            raise AssertionError(f"prefix {what} {peer}: store {st}, want (hits, misses, "
+                                 f"grains) {want}")
+    held = [hold_warm(torch, state, ids, sp, r.tokens, p.tokens, f"prefix {what} {i}")
+            for i, (r, p, ids, sp) in enumerate(zip(results, plain, prompts, sps))]
+    ttft = sorted(r.ttft_s * 1e3 for r in results)
+    out = {"warmup_s": warm_s, "captures_after_warmup": captures, "store": stats,
+           "host_syncs": syncs, "ttft_ms": [r.ttft_s * 1e3 for r in results],
+           "ttft_store_less_ms": [r.ttft_s * 1e3 for r in plain],
+           "ttft_median_ms": statistics.median(ttft), "wall_s": wall,
+           "aggregate_tokens_per_s": sum(len(r.tokens) for r in results) / wall,
+           "tokens_held": held, **{f"memory_{k}": v for k, v in memory_view(torch).items()}}
+    log(f"prefix {what}: TTFT median {out['ttft_median_ms']:.1f} ms (store-less "
+        f"{statistics.median(out['ttft_store_less_ms']):.1f}), {syncs} host syncs, tokens {held}")
+    return out
+
+
+def prefix_burst(torch, kernels, state, prompts, sps, what: str) -> dict:
+    """(d) The full-span burst engine with a store (`--mode serve --stage 0
+    --batched --burst 8 --prefix_cache_mb`, warmed up so) and SLOTS burst
+    clients sharing the preamble, once with the store off and once on.
+    Gates as `prefix_batched`, tokens held to bf16-cache references (the
+    cache that engine keeps)."""
+    from importlib import import_module
+
+    client_mod = import_module(PORT + ".runtime.client")
+    registry_mod = import_module(PORT + ".scheduling.registry")
+    transport_mod = import_module(PORT + ".runtime.transport")
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    adapter = full_span_adapter(torch, state, "prefix-burst",
+                                prefix_cache_bytes=PREFIX_CACHE_MB << 20)
+    adapter.warmup(burst=BURST_TICKS)
+    eng = adapter.inner
+    transport = transport_mod.LocalTransport()
+    registry = registry_mod.PlacementRegistry()
+    transport.add_peer(adapter.peer_id, adapter)
+    registry.register(client_mod.make_server_record(adapter.peer_id, eng.spec, model=MODEL,
+                                                    engine="batched"))
+    jobs = [(client_mod.PipelineClient(cfg, local.plan, local.stage0, transport, registry,
+                                       seed=args.seed, model=MODEL), ids, sp)
+            for ids, sp in zip(prompts, sps)]
+    eng.graphs.captures = eng.sampler.captures = 0
+    store, eng.prefix_store = eng.prefix_store, None
+    before = eng.burst_dispatches
+    plain, _ = run_clients(jobs, burst=BURST_TICKS, max_new_tokens=PREFIX_NEW_TOKENS)
+    eng.prefix_store = store
+    box = {}
+    syncs = count_syncs(torch, lambda: box.setdefault("run", run_clients(
+        jobs, burst=BURST_TICKS, max_new_tokens=PREFIX_NEW_TOKENS)))
+    results, wall = box["run"]
+    captures = eng.graphs.captures + eng.sampler.captures
+    st = store.stats()
+    want = (SLOTS - 1, 1, (SLOTS - 1) * PREFIX_GRAINS)
+    dispatches = eng.burst_dispatches - before
+    log(f"prefix {what}: {captures} captures after warm-up, {dispatches} bursts; store {st}")
+    if captures or not dispatches:
+        raise AssertionError(f"prefix {what}: {captures} captures after warm-up, "
+                             f"{dispatches} bursts")
+    if (st["hits"], st["misses"], st["grains_reused"]) != want:
+        raise AssertionError(f"prefix {what}: store {st}, want (hits, misses, grains) {want}")
+    held = [hold_warm(torch, state, ids, sp, r.tokens, p.tokens, f"prefix {what} {i}",
+                      torch.bfloat16)
+            for i, (r, p, ids, sp) in enumerate(zip(results, plain, prompts, sps))]
+    out = {"captures_after_warmup": captures, "bursts": dispatches, "store": st,
+           "host_syncs": syncs, "ttft_ms": [r.ttft_s * 1e3 for r in results],
+           "ttft_store_less_ms": [r.ttft_s * 1e3 for r in plain],
+           "ttft_median_ms": statistics.median(r.ttft_s * 1e3 for r in results),
+           "wall_s": wall, "tokens_held": held,
+           **{f"memory_{k}": v for k, v in memory_view(torch).items()}}
+    log(f"prefix {what}: TTFT median {out['ttft_median_ms']:.1f} ms (store-less "
+        f"{statistics.median(out['ttft_store_less_ms']):.1f}), {syncs} host syncs, tokens {held}")
+    return out
+
+
+def prefix_path(torch, kernels, tmain, sampling_cls, state, bw: float, flops: float,
+                smi: str) -> dict:
+    """Step 10c: the prefix store on the int8 path's weights. The
+    PREFIX_ORDER requests (`prefix_prompts`) through a `--mode local
+    --prefix_cache_mb PREFIX_CACHE_MB` client built by `main`'s own
+    functions, (a) in process and (b) over in-process TCP (stages 1-3
+    behind TcpStageServers as `--mode serve` builds them: float32 from the
+    wire), each against the store-less run (`prefix_drive`); the eviction
+    check (e); the host cost of hashing; (c) the batched engines and (d)
+    the burst engine, SLOTS clients sharing the preamble; int8_dot at the
+    cold prefill's bucket. Prints ``prefix_path``."""
+    from importlib import import_module
+
+    net = import_module(PORT + ".runtime.net")
+    task_pool = import_module(PORT + ".runtime.task_pool")
+    client_mod = import_module(PORT + ".runtime.client")
+    store_mod = import_module(PORT + ".runtime.prefix_cache")
+    t0 = time.monotonic()
+    cfg = state["cfg"]
+    grain = store_mod.DEFAULT_GRAIN
+    prompts = prefix_prompts(torch, cfg, grain)
+    greedy = sampling_cls(temperature=0.0)
+    sampled = sampling_cls(temperature=0.7, top_p=0.9, top_k=50, repetition_penalty=1.5)
+    sps = {name: sampled if name == "C" else greedy for name in PREFIX_ORDER}
+    bucket = round_to_bucket_of(len(prompts["A"]))
+    out = {"model": MODEL, "quant": "int8", "grain": grain, "preamble_tokens": grain * PREFIX_GRAINS,
+           "tail_tokens": PREFIX_TAIL, "store_mb": PREFIX_CACHE_MB, "card": smi}
+    out["int8_dot_at_cold_bucket"] = prefix_kernel_rows(torch, kernels["int8_dot"], bw, flops,
+                                                        bucket, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = tmain.build_parser().parse_args(
+        ["--mode", "local", "--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
+         "--device", "cuda", "--seed", "0", "--prefix_cache_mb", str(PREFIX_CACHE_MB)])
+    tmain.refuse_unported_flags(args)
+    client = tmain.build_local_client(args, cfg, state["params"])
+    executors = path_executors(client)
+    if not all(ex.prefix_store is not None and ex.prefix_store.max_bytes == PREFIX_CACHE_MB << 20
+               for ex in executors):
+        raise AssertionError("--prefix_cache_mb did not reach every executor")
+    out["in_process"] = prefix_drive(torch, kernels, client, executors, prompts, sps,
+                                     "in process", state, in_process=True)
+    out["eviction"] = prefix_eviction(torch, kernels, client, prompts, sps, "in process")
+    for ex in executors:
+        ex.prefix_store = store_mod.PrefixStore(PREFIX_CACHE_MB << 20)
+    registry_srv = net.RegistryServer()
+    registry_srv.start()
+    servers, transport = [], None
+    try:
+        for ex in executors[1:]:
+            ex.act_dtype = None              # as --mode serve builds it
+            srv = net.TcpStageServer(ex, task_pool.StageRuntime(), wire_dtype="f32", model=MODEL)
+            srv.start()
+            servers.append(srv)
+            rec = client_mod.make_server_record(ex.peer_id, ex.spec, model=MODEL)
+            rec.address = srv.address
+            registry_srv.registry.register(rec)
+        registry = net.RemoteRegistry(registry_srv.address)
+        transport = net.TcpTransport(registry, wire_dtype="f32", model=MODEL)
+        tcp_client = client_mod.PipelineClient(cfg, client.plan, client.stage0, transport,
+                                               registry, seed=args.seed, model=MODEL)
+        out["tcp"] = prefix_drive(torch, kernels, tcp_client, executors, prompts, sps,
+                                  "over tcp", state, in_process=False)
+        info = {ex.peer_id: transport.info(ex.peer_id).get("prefix_cache")
+                for ex in executors[1:]}
+        log(f"prefix over tcp: info prefix_cache {info}")
+        if info != {ex.peer_id: ex.prefix_store.stats() for ex in executors[1:]}:
+            raise AssertionError(f"prefix over tcp: info {info} is not the stores' stats")
+        out["tcp"]["info_prefix_cache"] = info
+    finally:
+        if transport is not None:
+            transport.close()
+        for srv in servers:
+            srv.stop()
+        registry_srv.stop()
+    out["hash_host_ms"] = prefix_hash_ms(torch, cfg, len(prompts["A"]), grain)
+    log(f"prefix hash host ms: {out['hash_host_ms']}")
+    del client, executors, tcp_client
+    gc.collect()
+    torch.cuda.empty_cache()
+    ids8 = [prompts["A"][:grain * PREFIX_GRAINS] + prompts[n][grain * PREFIX_GRAINS:]
+            for n in "ABC"]
+    gen = torch.Generator().manual_seed(7)
+    ids8 += [ids8[0][:grain * PREFIX_GRAINS]
+             + torch.randint(0, cfg.vocab_size, (PREFIX_TAIL,), generator=gen).tolist()
+             for _ in range(SLOTS - 3)]
+    sps8 = [sampled if i in BATCH_SAMPLED else greedy for i in range(SLOTS)]
+    out["batched"] = prefix_batched(torch, kernels, tmain, state, ids8, sps8, "batched")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["burst"] = prefix_burst(torch, kernels, state, ids8, sps8, "burst")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t0
+    log(f"prefix path: {out['phase_s']:.1f}s")
+    return out
+
+
 def oracle_logits(torch, cfg, params, ids, cache_dtype=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
     logits after `ids` (one prefill)."""
@@ -3783,6 +4402,10 @@ def main(argv) -> int:
     burst, burst_results = burst_path(torch, kernel_mods, tmain, sampling_cls, state,
                                       batched_refs, batched, smi)
     log(json.dumps({"burst_path": burst}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    prefix = prefix_path(torch, kernel_mods, tmain, sampling_cls, state, bw, flops, smi)
+    log(json.dumps({"prefix_path": prefix}))
     # What the CLI drives compare with; the weights go.
     int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
@@ -3827,6 +4450,13 @@ def main(argv) -> int:
                draw_entry(draw, int8_summary["sample_draw"]["launches"],
                           batched["in_process"]["sample_draw_launches"],
                           burst["engine"]["sample_draw_launches"])]
+    # The prefix path's prefills: a cold one at its bucket, a warm one at
+    # the tail's (each counted alone), and one layer at the cold bucket.
+    kernels[0]["prefix_path"] = {
+        "launches_by_route": {where: prefix[where]["prefill_launches"]
+                              for where in ("in_process", "tcp")},
+        "buckets": {where: prefix[where]["prefill_buckets"] for where in ("in_process", "tcp")},
+        "at_cold_bucket": prefix["int8_dot_at_cold_bucket"]}
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

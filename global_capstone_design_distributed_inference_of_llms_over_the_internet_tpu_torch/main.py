@@ -46,8 +46,13 @@ Port of the JAX package's ``main.py`` for these modes:
   one throwaway session through its span first, as the reference does. The reference's gossip mirror, dial-back
   reachability vote and relay attach are not ported (ROADMAP Queue 1 #4),
   nor are the flags of the engines the port lacks (``--sp``, ``--tp``,
-  ``--use_load_balancing``, ``--use_cpu_offload``, ``--prefix_cache_mb``,
-  ``--relay_capacity``): each exits naming itself.
+  ``--use_load_balancing``, ``--use_cpu_offload``, ``--relay_capacity``):
+  each exits naming itself.
+
+``--prefix_cache_mb N`` gives every executor of ``local`` (stage 0
+included) and each ``serve`` executor, session or batched (``--stage 0
+--batched`` included), a prompt-prefix KV store of N MiB
+(``runtime/prefix_cache.py``); the ``info`` verb reports its counters.
 
 On the card every stage executor (``local``, ``serve`` and the client's
 stage 0) pads each prefill chunk and decode step to a sequence bucket and
@@ -226,18 +231,25 @@ def build_local_client(args, cfg: ModelConfig, params) -> PipelineClient:
     device = resolve_device(args.device)
     plan = stage_plan(args, cfg)
     transport = LocalTransport()
-    registry = PlacementRegistry(rng=random.Random(args.seed))
+    # In-process peers live as long as the client and send no heartbeat:
+    # their records never expire. A client routes each prompt head anew
+    # (its route cache is keyed by the head's affinity), so a record that
+    # expired after the reference's 45 s would leave a later prompt with
+    # no route.
+    registry = PlacementRegistry(ttl=float("inf"), rng=random.Random(args.seed))
     for spec in plan.stages[1:]:
         peer = f"server-stage{spec.index}"
         ex = StageExecutor(cfg, spec, _stage_params(args, cfg, params, spec),
                            peer_id=peer, device=device,
-                           act_dtype=_DTYPE_MAP[args.dtype])
+                           act_dtype=_DTYPE_MAP[args.dtype],
+                           prefix_cache_bytes=args.prefix_cache_mb << 20)
         transport.add_peer(peer, ex)
         registry.register(make_server_record(peer, spec, model=args.model))
     stage0 = StageExecutor(cfg, plan.stages[0],
                            _stage_params(args, cfg, params, plan.stages[0]),
                            peer_id="client-local", device=device,
-                           act_dtype=_DTYPE_MAP[args.dtype])
+                           act_dtype=_DTYPE_MAP[args.dtype],
+                           prefix_cache_bytes=args.prefix_cache_mb << 20)
     return PipelineClient(cfg, plan, stage0, transport, registry,
                           seed=args.seed, model=args.model,
                           metrics=_client_metrics(args))
@@ -412,7 +424,7 @@ def run_oracle(args, cfg: ModelConfig, params) -> int:
 # exits naming the flag.
 UNPORTED_FLAGS = (("sp", 1), ("tp", 1),
                   ("use_load_balancing", False), ("use_cpu_offload", False),
-                  ("prefix_cache_mb", 0), ("relay_capacity", 0))
+                  ("relay_capacity", 0))
 
 
 def refuse_unported_flags(args) -> None:
@@ -504,12 +516,15 @@ def run_serve(args) -> int:
         # (main.py:937).
         engine = BatchedStageExecutor(
             cfg, spec, shard, device=device, slots=args.slots,
-            max_len=args.max_session_len, dtype=_DTYPE_MAP[args.dtype])
+            max_len=args.max_session_len, dtype=_DTYPE_MAP[args.dtype],
+            prefix_cache_bytes=args.prefix_cache_mb << 20, model=args.model)
         executor = BatchingStageAdapter(engine, peer_id=peer_id)
     # No act_dtype: an arriving activation computes in the float32 the wire
     # decodes to, as the reference's server computes it.
     server = FixedStageServer(peer_id, cfg, spec, shard, registry,
-                              executor_kwargs={"device": device},
+                              executor_kwargs={
+                                  "device": device,
+                                  "prefix_cache_bytes": args.prefix_cache_mb << 20},
                               pinger=_pinger_from_transport(ping_tx),
                               model=args.model, executor=executor)
     del shard
@@ -727,6 +742,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "a full-span batched peer's device (client and local "
                         "modes; serve --stage 0 --batched captures the N-tick "
                         "burst in its warm-up). 0 = per-step decode")
+    p.add_argument("--prefix_cache_mb", type=int, default=0,
+                   help="enable the content-addressed prompt-prefix KV "
+                        "store with this byte budget (MiB) on every stage "
+                        "executor, session or batched: repeat prefills reuse "
+                        "cached KV for shared prompt prefixes at 64-token "
+                        "granularity (runtime.prefix_cache). 0 = off")
     # The reference's flags for engines the port does not have: accepted by
     # the parser so that a reference command line fails with a clear
     # message (refuse_unported_flags), never silently.
@@ -734,7 +755,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1, help="not ported")
     p.add_argument("--use_load_balancing", action="store_true", help="not ported")
     p.add_argument("--use_cpu_offload", action="store_true", help="not ported")
-    p.add_argument("--prefix_cache_mb", type=int, default=0, help="not ported")
     p.add_argument("--relay_capacity", type=int, default=0, help="not ported")
     return p
 

@@ -34,9 +34,17 @@ The layer pieces are the reference's (``batching.py:104-142``):
 prefill runs over the prompt's fresh keys and the decode step over the
 slot caches.
 
+The prefix store (``runtime/prefix_cache.py``; the reference's
+``_prefill_with_store``, ``batching.py:427-495``): given
+``prefix_cache_bytes``, a prefill marked ``prefix_len`` copies the stored
+KV of its leading grains into the slot's rows and runs only the tail, a
+step captured once a prefill bucket that attends over the slot's rows
+``[0, p + T)`` with the reused length ``p`` a device value (`_tail_step`).
+Its digest coordinates carry the batch dim and the model tag.
+
 Not ported yet, and refused by the adapter with a retryable
 `StageExecutionError`: speculative rows and session rewind (ROADMAP
-Queue 1 #3), the prefix store (#1c), push chains.
+Queue 1 #3), push chains.
 
 Deliberate divergences from the reference:
   * The last stage's head runs once a round, inside the captured decode
@@ -54,11 +62,11 @@ Deliberate divergences from the reference:
     no buffers, so a failed step cannot leave them deleted (``:498-518``).
   * `BatchingStageAdapter.warmup` captures every prefill bucket up to
     ``max_len`` and the decode step of width 1 (and the samplers on the
-    last stage, and the burst of ``burst`` ticks on a full-span engine),
-    where the reference compiles the smallest bucket only
-    (``:1130-1169``): a capture at first use would happen while other
-    threads run device work. With no ``rewind`` yet, the burst warms a
-    fresh warm-up session.
+    last stage, the burst of ``burst`` ticks on a full-span engine, and
+    with a store the tail step at every bucket), where the reference
+    compiles the smallest bucket only (``:1130-1169``): a capture at first
+    use would happen while other threads run device work. With no
+    ``rewind`` yet, the burst warms a fresh warm-up session.
 """
 
 from __future__ import annotations
@@ -107,6 +115,7 @@ from .graphs import (
 )
 from .kv_cache import round_to_bucket
 from .messages import StageRequest, StageResponse
+from .prefix_cache import PrefixStore, chain_digests, grain_blocks
 
 Params = Dict[str, Any]
 
@@ -191,7 +200,8 @@ class BatchedStageExecutor:
 
     def __init__(self, cfg: ModelConfig, spec: StageSpec, params: Params, *,
                  device, slots: int = 8, max_len: int = 2048,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, prefix_cache_bytes: int = 0,
+                 model: Optional[str] = None):
         _check_supported(cfg)
         self.cfg = cfg
         self.spec = spec
@@ -221,6 +231,13 @@ class BatchedStageExecutor:
         self._m_burst_ticks = _tm.get("server_burst_ticks")
         self._m_burst_disp = _tm.get("server_burst_dispatches_total")
         self._m_burst_toks = _tm.get("server_burst_tokens_total")
+        # The prompt-prefix KV store (None: off), slot layout: entries hold
+        # [L, G, Hkv, Dh] KV segments and off the last stage [1, G, D]
+        # output rows. The model tag goes into the digests' coordinates:
+        # two models' equal prompts must not share entries.
+        self.model = model
+        self.prefix_store = (PrefixStore(prefix_cache_bytes)
+                             if prefix_cache_bytes > 0 else None)
 
     # ------------------------------------------------------------------
     # Slots
@@ -315,14 +332,62 @@ class BatchedStageExecutor:
             self.v[li, :, :t].index_copy_(0, slot, v.to(self.dtype))
         return h
 
+    def _tail_step(self, x: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
+        """A prefill's tail after a prefix hit. x: ids [1, T] or hidden
+        [1, T, D] (padded to its bucket) at positions [p, p + T); scalars:
+        (slot, p). Rows [p, p + T) of the slot take the tail's keys and
+        values, and the tail attends over the slot's rows up to its own
+        position: the stored prefix, then itself (the reference's
+        ``_build_prefill_suffix``, ``batching.py:317``)."""
+        cfg, spec = self.cfg, self.spec
+        slot, p = scalars[:1], scalars[1]
+        t = x.shape[1]
+        dev = x.device
+        positions = p + torch.arange(t, device=dev)[None, :]
+        h = (embed_tokens(cfg, self.params["embed"], x, positions)
+             if spec.is_first else x)
+        rope = make_rope(cfg, positions)
+        pos_grid = torch.arange(self.max_len, device=dev)[None, None, :]
+        qpos = positions[:, :, None]
+        allowed = pos_grid <= qpos                       # [1, T, M]
+        if cfg.sliding_window:
+            allowed &= pos_grid > qpos - cfg.sliding_window
+        rows = positions[0]
+        slots = slot.expand(t)
+        for li in range(spec.num_layers):
+            lp = self._layer(li)
+            q, k, v = qkv_proj(cfg, lp["attn"], _norm(cfg, lp["ln1"], h))
+            if rope is not None:
+                q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+            self.k[li][slots, rows] = k[0].to(self.dtype)
+            self.v[li][slots, rows] = v[0].to(self.dtype)
+            m = _layer_mask(lp, allowed, qpos, pos_grid)
+            out = slot_attention(q, self.k[li].index_select(0, slot),
+                                 self.v[li].index_select(0, slot), m,
+                                 scale=cfg.query_scale, logit_softcap=cfg.attn_softcap)
+            h = _residual(cfg, lp, h, self._attn_out(lp, out))
+        return h
+
     def prefill(self, session_id: str, x: torch.Tensor,
                 prefix_len: int = 0) -> torch.Tensor:
         """Join/restart a session: x = ids [1, T] (first stage) or hidden
-        [1, T, D]. Returns the hidden rows [1, T, D], pad trimmed.
-        `prefix_len` is accepted and ignored, as by a reference engine with
-        no prefix store."""
-        del prefix_len
+        [1, T, D]. Returns the hidden rows [1, T, D], pad trimmed; on a
+        prefix hit of the last stage only the tail's rows (the adapter
+        samples from the last). With a store, ``prefix_len > 0`` marks the
+        prompt shareable (`_prefill_with_store`)."""
+        if self.prefix_store is not None and prefix_len > 0:
+            return self._prefill_with_store(session_id, x, prefix_len)
         return self._prefill_full(session_id, x)
+
+    def _padded(self, x: torch.Tensor, tb: int) -> torch.Tensor:
+        """`x` right-padded to `tb` rows on the engine's device; ids as
+        int64 (they cross the wire as int32: one graph a bucket)."""
+        t = x.shape[1]
+        if tb != t:
+            x = F.pad(x, (0, 0) * (x.ndim - 2) + (0, tb - t))
+        if self.spec.is_first:
+            x = x.long()
+        return self._to_device(x)
 
     def _prefill_full(self, session_id: str, x: torch.Tensor) -> torch.Tensor:
         t = x.shape[1]
@@ -333,11 +398,7 @@ class BatchedStageExecutor:
         # table, the exact length.
         tb = (t if t > PREFILL_BUCKETS[-1]
               else min(round_to_bucket(t, PREFILL_BUCKETS), self.max_len))
-        if tb != t:
-            x = F.pad(x, (0, 0) * (x.ndim - 2) + (0, tb - t))
-        if self.spec.is_first:
-            x = x.long()     # ids cross the wire as int32: one graph a bucket
-        x = self._to_device(x)
+        x = self._padded(x, tb)
         try:
             h = self.graphs.run(("prefill", tb, x.dtype), self._prefill_step,
                                 x, (s, t))
@@ -346,6 +407,69 @@ class BatchedStageExecutor:
             raise
         self.lengths[s] = t
         return h[:, :t].clone()
+
+    def _run_tail(self, s: int, x: torch.Tensor, p: int) -> torch.Tensor:
+        """The tail step of `x` (padded, on the device) at rows [p, p + T)
+        of slot `s`: one graph a bucket and input dtype."""
+        return self.graphs.run(("tail", x.shape[1], x.dtype), self._tail_step, x, (s, p))
+
+    def _prefill_with_store(self, session_id: str, x: torch.Tensor,
+                            prefix_len: int) -> torch.Tensor:
+        """The store's prefill (the reference's ``_prefill_with_store``,
+        ``batching.py:427-495``): hash ``min(prefix_len, T - 1) // grain``
+        grains of the prompt; with no stored chain run the whole prefill
+        and register every grain; else copy the chain's KV into the slot's
+        leading rows, run the tail (`_tail_step`) and register the grains
+        the chain did not cover. A host prompt is hashed as it is (behind
+        TCP); a device one's prefix rows are read to the host once."""
+        store = self.prefix_store
+        t = x.shape[1]
+        grain = store.grain
+        n_grains = min(prefix_len, t - 1) // grain
+        if n_grains <= 0:
+            return self._prefill_full(session_id, x)
+        # The batch dim rides the coordinates because entries are [L, G,
+        # ...] slices of a batch-1 slot; the model tag because equal token
+        # prefixes of two models must not alias.
+        coords = ("slot", self.spec.start, self.spec.end, str(x.dtype), str(self.dtype),
+                  x.shape[0], self.model)
+        keys = chain_digests(grain_blocks(x, n_grains, grain), coords)
+        chain = store.lookup_chain(keys, need_out=not self.spec.is_last)
+        if not chain:
+            h = self._prefill_full(session_id, x)
+            self._register(self._slot_of[session_id], keys, 0, h)
+            return h
+        p = len(chain) * grain
+        if t > self.max_len:
+            raise ValueError(f"prompt {t} exceeds slot max_len {self.max_len}")
+        s = self._alloc(session_id)
+        ts = t - p
+        tb = (ts if ts > PREFILL_BUCKETS[-1]
+              else min(round_to_bucket(ts, PREFILL_BUCKETS), self.max_len - p))
+        try:
+            for cache, part in ((self.k, "k"), (self.v, "v")):
+                segs = [getattr(e, part) for e in chain]
+                cache[:, s, :p].copy_(segs[0] if len(segs) == 1 else torch.cat(segs, dim=1))
+            h = self._run_tail(s, self._padded(x[:, p:], tb), p)[:, :ts].clone()
+        except Exception:
+            self._recover_slot(session_id, s)
+            raise
+        self.lengths[s] = t
+        full = h if self.spec.is_last else torch.cat([*(e.out for e in chain), h], dim=1)
+        self._register(s, keys, len(chain), full)
+        return full
+
+    def _register(self, s: int, keys, first: int, rows: torch.Tensor) -> None:
+        """Store grains ``first..len(keys)`` of slot `s`: their KV rows, and
+        off the last stage their rows of `rows` (the prompt's hidden rows
+        from row 0). Clones: an entry outlives the slot and the step's
+        static output."""
+        g = self.prefix_store.grain
+        for i in range(first, len(keys)):
+            span = slice(i * g, (i + 1) * g)
+            self.prefix_store.put(keys[i], self.k[:, s, span].clone(),
+                                  self.v[:, s, span].clone(),
+                                  None if self.spec.is_last else rows[:, span].clone())
 
     # ------------------------------------------------------------------
     # Batched decode: one step for EVERY active slot
@@ -765,7 +889,8 @@ class BatchingStageAdapter:
 
     def warmup(self, burst: int = 0) -> None:
         """Capture the steps serving runs before it serves: a prefill at
-        every bucket up to ``max_len`` and the decode step of width 1, on
+        every bucket up to ``max_len`` (with a store, the tail step of a
+        prefix hit at every bucket too) and the decode step of width 1, on
         the last stage the prefill's and the round's samplers, and with
         ``burst > 0`` on a full-span engine the burst of that many ticks
         (over a fresh warm-up session: the port has no rewind yet), under
@@ -777,10 +902,14 @@ class BatchingStageAdapter:
                                cur_len=0, is_prefill=False, max_length=0,
                                sampling=SamplingParams(), generated_tokens=(1, 2, 3))
         with self._lock:
-            for tb in sorted({min(b, inner.max_len) for b in PREFILL_BUCKETS}):
+            buckets = sorted({min(b, inner.max_len) for b in PREFILL_BUCKETS})
+            for tb in buckets:
                 x = (torch.zeros((1, tb), dtype=torch.int64) if first
                      else torch.zeros((1, tb, d), dtype=torch.float32))
                 inner.prefill("__warmup__", x)
+            if inner.prefix_store is not None:
+                for tb in buckets:
+                    inner._run_tail(inner.slot("__warmup__"), inner._padded(x[:, :tb], tb), 0)
             # The reference's warm-up session: 4 tokens, then one step.
             h = inner.prefill("__warmup__", x[:, :4])
             step = (torch.zeros((1, 1), dtype=torch.int64) if first

@@ -21,6 +21,15 @@ replay events go to the flight recorder; each pipeline step is one trace
 span). Every field is a host value the client already holds. Under the
 phase profiler each hop attempt's transport call is the ``socket`` phase.
 
+Routes as the reference's (``client.py:618-656``, ``:1432-1441``): a
+session's replicas are picked by a rendezvous hash of its prompt head
+(`prompt_affinity`), so shared-prefix prompts from any client land on the
+peers whose prefix stores are warm; routes are cached by (kind,
+min_context, affinity), the least recently used affinity route evicted
+past ``route_cache_capacity`` (``client_route_cache_evictions_total``).
+Every prefill is marked shareable: stage 0 with ``prefix_len`` the prompt's
+length, each hop too (``prefix_len`` only on a prefill).
+
 Burst generation (``generate(..., burst=N)``, the reference's
 ``_generate_steps_burst``): the whole session runs on one full-span
 batched peer (``runtime/batching.py``), which answers each decode request
@@ -41,12 +50,14 @@ reference copies each one to host memory.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import random
 import threading
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..models.config import ModelConfig
@@ -76,6 +87,18 @@ BURST_HOP_KEY = "burst"
 # Engines that serve their full span only and refuse replay: a replacement
 # peer receives the session's replay journal, so rediscovery avoids them.
 SESSION_ONLY_ENGINES = ("batched", "sp")
+# Prompt tokens the affinity digest covers: one prefix-store grain.
+AFFINITY_TOKENS = 64
+# The route cache's kind field: the port routes plain sessions only.
+PLAIN = "plain"
+
+
+def prompt_affinity(prompt_ids: Sequence[int]) -> str:
+    """The prompt head's digest that steers replica choice (the
+    reference's ``client.py:1432-1441``): sha1 of the first
+    AFFINITY_TOKENS ids as int32 bytes."""
+    head = np.asarray(list(prompt_ids[:AFFINITY_TOKENS]), np.int32)
+    return hashlib.sha1(head.tobytes()).hexdigest()
 
 
 @_catalog
@@ -233,7 +256,8 @@ class PipelineClient:
                  request_timeout: float = 60.0,
                  settle_seconds: float = SETTLE_SECONDS,
                  journal_max_entries: int = 256,
-                 seed: int = 0, model: Optional[str] = None, metrics=None):
+                 seed: int = 0, model: Optional[str] = None, metrics=None,
+                 route_cache_capacity: int = 64):
         self.cfg = cfg
         self.model = model
         self.plan = plan
@@ -252,7 +276,9 @@ class PipelineClient:
         # session -> every peer that held KV for it (released at the end): a
         # peer failed over AWAY from may still be alive and hold a lease.
         self._session_peers: Dict[str, set] = {}
-        self._route: Optional[List[Hop]] = None
+        # (kind, min_context, affinity) -> route, least recently used first.
+        self.route_cache_capacity = int(route_cache_capacity)
+        self._routes: Dict[tuple, List[Hop]] = {}
         self.last_prefill_stage_times: Dict[str, float] = {}
         # The client's metrics: a private always-on registry by default
         # (`recoveries` reads it), or the caller's (the process-global one
@@ -268,6 +294,8 @@ class PipelineClient:
         self._m_tokens = _tm.get("client_tokens_generated_total", self.metrics)
         self._m_route_plans = _tm.get("scheduler_route_plans_total")
         self._m_route_hops = _tm.get("scheduler_route_hops")
+        self._m_route_evictions = _tm.get("client_route_cache_evictions_total",
+                                          self.metrics)
         # Seeded with the client seed so fault runs reproduce.
         self.breaker = CircuitBreaker(seed=seed, metrics=self.metrics)
 
@@ -281,16 +309,19 @@ class PipelineClient:
     # Routing
     # ------------------------------------------------------------------
 
-    def _compute_route(self) -> List[Hop]:
+    def _compute_route(self, min_context: Optional[int] = None,
+                       affinity: Optional[str] = None) -> List[Hop]:
         """Fixed stage-chain route: one discovered peer per remote stage,
         a batched peer where the stage has one (every session of this
-        client is a plain one, which a batched peer serves)."""
+        client is a plain one, which a batched peer serves); with
+        `affinity`, the replica its rendezvous hash picks."""
         hops: List[Hop] = []
         for spec in self.plan.stages[1:]:
             key = f"stage{spec.index}"
             peer = self.registry.discover_stage(
                 spec.index, exclude=tuple(self.failed_peers.get(key, ())),
-                model=self.model, prefer_engine="batched")
+                model=self.model, prefer_engine="batched", min_context=min_context,
+                affinity=affinity)
             if peer is None:
                 raise NoRouteError(f"no live server for {key}")
             hops.append(Hop(key, peer, spec.start, spec.end, spec.is_last))
@@ -298,10 +329,27 @@ class PipelineClient:
         self._m_route_hops.observe(len(hops))
         return hops
 
-    def route(self, refresh: bool = False) -> List[Hop]:
-        if refresh or self._route is None:
-            self._route = self._compute_route()
-        return self._route
+    def route(self, refresh: bool = False, min_context: Optional[int] = None,
+              affinity: Optional[str] = None) -> List[Hop]:
+        """The cached route of (kind, `min_context`, `affinity`), planned
+        anew with `refresh` (the reference's ``route``, ``client.py:618``).
+        Past ``route_cache_capacity`` the least recently used route with an
+        affinity goes: the affinity=None routes are a bounded handful that
+        every session without one shares, and a session touches its own
+        key every step, so no live generation loses its route."""
+        key = (PLAIN, min_context, affinity)
+        if refresh or key not in self._routes:
+            while len(self._routes) >= self.route_cache_capacity:
+                victim = next((k for k in self._routes if k[2] is not None), None)
+                if victim is None:
+                    break
+                self._routes.pop(victim)
+                self._m_route_evictions.inc()
+            self._routes.pop(key, None)
+            self._routes[key] = self._compute_route(min_context, affinity)
+        else:
+            self._routes[key] = self._routes.pop(key)      # LRU touch
+        return self._routes[key]
 
     # ------------------------------------------------------------------
     # Journal
@@ -428,22 +476,26 @@ class PipelineClient:
               session_id: str, *, is_prefill: bool, max_length: int,
               sampling: SamplingParams, generated: Sequence[int] = (),
               step_seed: int = 0, stage_times: Dict[str, float],
-              root) -> StageResponse:
-        """Send the activation through every remote hop, each call through
-        the recovery wrapper; return the final hop's response (a sampled
-        token). `root` is the step's root span, opened by the generation
-        loop so that stage 0 and every hop share one trace (the no-op span
-        with tracing off)."""
+              root, prefix_len: int = 0, affinity: Optional[str] = None
+              ) -> StageResponse:
+        """Send the activation through every remote hop of the session's
+        route (keyed by its `max_length` and prompt-head `affinity`), each
+        call through the recovery wrapper; return the final hop's response
+        (a sampled token). A prefill carries `prefix_len` to every hop.
+        `root` is the step's root span, opened by the generation loop so
+        that stage 0 and every hop share one trace (the no-op span with
+        tracing off)."""
         phase = "prefill" if is_prefill else "decode"
         tracer = get_tracer()
         cur = hidden
-        for i, hop in enumerate(self.route()):
+        for i, hop in enumerate(self.route(min_context=max_length, affinity=affinity)):
             req = StageRequest(
                 session_id=session_id, hidden=cur, seq_len=seq_len,
                 cur_len=cur_len, is_prefill=is_prefill, max_length=max_length,
                 sampling=sampling, generated_tokens=clip_generated(generated),
                 step_seed=step_seed, start_block=hop.start_block,
                 end_block=hop.end_block,
+                prefix_len=prefix_len if is_prefill else 0,
                 trace=root.wire_context(hop=i) if root else None)
             hop_span = tracer.start_span(
                 f"hop:{hop.key}", trace_id=root.trace_id,
@@ -543,6 +595,7 @@ class PipelineClient:
                         ) -> Iterator[GenerationStep]:
         prompt_len = len(prompt_ids)
         max_length = max_length or prompt_len + max_new_tokens
+        affinity = prompt_affinity(prompt_ids)
         # Ids are made on the host: stage 0 copies them to its device
         # without a host sync (a device tensor made from a list would sync).
         ids = torch.tensor([list(prompt_ids)], dtype=torch.int64)
@@ -558,14 +611,16 @@ class PipelineClient:
             kind="client", phase="prefill", peer=self.stage0.peer_id) if root else root
         s0_resp = self.stage0.forward(StageRequest(
             session_id=session_id, hidden=ids, seq_len=prompt_len, cur_len=0,
-            is_prefill=True, max_length=max_length, sampling=sampling))
+            is_prefill=True, max_length=max_length, sampling=sampling,
+            prefix_len=prompt_len))
         s0_span.end()
         times: Dict[str, float] = {}
         try:
             resp = self._walk(s0_resp.hidden, prompt_len, 0, session_id,
                               is_prefill=True, max_length=max_length,
                               sampling=sampling, generated=generated,
-                              step_seed=self.seed, stage_times=times, root=root)
+                              step_seed=self.seed, stage_times=times, root=root,
+                              prefix_len=prompt_len, affinity=affinity)
         finally:
             root.end()
         ttft = time.monotonic() - t0
@@ -599,7 +654,8 @@ class PipelineClient:
                                   is_prefill=False, max_length=max_length,
                                   sampling=sampling, generated=generated,
                                   step_seed=self.seed + len(generated),
-                                  stage_times=times, root=step_span)
+                                  stage_times=times, root=step_span,
+                                  affinity=affinity)
             finally:
                 step_span.end()
             dt = time.monotonic() - t0
@@ -736,8 +792,11 @@ class PipelineClient:
 
     def _end_session(self, session_id: str) -> None:
         self.stage0.drop_session(session_id)
+        # Every peer that held the session's KV: the ones it called (failed
+        # over from included) and those of the cached routes.
         peers = set(self._session_peers.pop(session_id, ()))
-        peers.update(hop.peer_id for hop in self._route or ())
+        for hops in self._routes.values():
+            peers.update(hop.peer_id for hop in hops)
         for peer_id in peers:
             try:
                 self.transport.end_session(peer_id, session_id)

@@ -19,11 +19,16 @@ and padded cache rows sit past ``cache_len``, masked until a real token
 overwrites them. A chunk whose bucket would reach past the lease runs at
 its exact length instead (one more graph at the tail of a session).
 
-Differences from the reference's engine: offload, tensor parallelism, the prefix
-cache, deep prompts, speculative verify, beam search, burst decode, push
-chains, session rewind and training are not ported: a request that asks
-for one is refused with a `StageExecutionError` naming its field (the TCP
-server sends it back as a ``kind: "stage"`` error frame).
+Given ``prefix_cache_bytes``, a prefill marked with ``prefix_len`` reuses
+the stored KV of its leading grains (``runtime/prefix_cache.py``, the
+reference's ``executor.py:544-661``): the chain's rows are copied into the
+fresh lease and only the tail runs, as a chunk at ``cache_len = p``.
+
+Differences from the reference's engine: offload, tensor parallelism, deep
+prompts, speculative verify, beam search, burst decode, push chains,
+session rewind and training are not ported: a request that asks for one is
+refused with a `StageExecutionError` naming its field (the TCP server sends
+it back as a ``kind: "stage"`` error frame).
 
 A float activation computes in the dtype it arrives in, as in the
 reference: after a TCP hop that is the float32 the wire decodes to, so a
@@ -62,6 +67,7 @@ from .errors import register as _catalog
 from .graphs import Sampler, StepGraphs
 from .kv_cache import AllocationFailed, KVArena, KVHandle, round_to_bucket
 from .messages import StageRequest, StageResponse
+from .prefix_cache import PrefixStore, chain_digests, grain_blocks
 
 logger = logging.getLogger(__name__)
 
@@ -119,7 +125,8 @@ class StageExecutor:
                  cache_dtype: torch.dtype = torch.float32,
                  peer_id: str = "local",
                  max_chunk_bytes: int = 256 * 1024 * 1024,
-                 act_dtype: Optional[torch.dtype] = None):
+                 act_dtype: Optional[torch.dtype] = None,
+                 prefix_cache_bytes: int = 0):
         self.cfg = cfg
         self.spec = spec
         self.device = torch.device(device)
@@ -133,6 +140,9 @@ class StageExecutor:
         self.cache_dtype = cache_dtype
         # Forward calls that ran to the end (prefill, decode and replay).
         self.requests_served = 0
+        # The prompt-prefix KV store (None: off, the default).
+        self.prefix_store = (PrefixStore(prefix_cache_bytes)
+                             if prefix_cache_bytes > 0 else None)
         self.arena = arena or KVArena(
             num_layers=max(spec.num_layers, 1), num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, max_bytes=max_cache_bytes,
@@ -264,17 +274,36 @@ class StageExecutor:
             raise StageExecutionError(f"seq_len {t_real} != tensor T {x.shape[1]}")
         handle.admit(t_real)
 
+        skip, pfx_outs, pfx_register = 0, [], []
+        if self.prefix_store is not None and req.is_prefill and req.prefix_len > 0:
+            skip, pfx_outs, pfx_register = self._reuse_prefix(req, x, handle, a, b,
+                                                              sub_spec.is_last)
+
         # Chunked prefill: an oversized request runs as byte-bounded chunks
         # over the same session cache (identical numerics: each chunk
         # attends causally to everything already written). Intermediate
         # stages concatenate chunk outputs; the last samples from the last.
         chunk = self._max_chunk_tokens(x.shape[0])
         outs = []
-        for off in range(0, t_real, chunk):
+        for off in range(skip, t_real, chunk):
             n = min(chunk, t_real - off)
             outs.append(self._dispatch_chunk((a, b), step, sub_params,
                                              x[:, off:off + n], handle, n))
         self.requests_served += 1
+
+        if pfx_register:
+            # The grains the chain did not cover: KV rows from the lease
+            # (written by the chunks), and off the final stage the output
+            # rows a later hit forwards. Clones: an entry outlives the
+            # lease, whose buffers the arena hands to the next session.
+            full = None
+            if not sub_spec.is_last:
+                full = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+                outs = [full]
+            for key, g0, g1 in pfx_register:
+                self.prefix_store.put(
+                    key, handle.k[:, :, g0:g1].clone(), handle.v[:, :, g0:g1].clone(),
+                    None if full is None else full[:, g0 - skip:g1 - skip].clone())
 
         if sub_spec.is_last:
             tokens = _sample_rows(outs[-1], outs[-1].shape[1], req, self.sampler)
@@ -282,9 +311,42 @@ class StageExecutor:
                 session_id=req.session_id, token_id=tokens[0],
                 token_ids=tuple(tokens) if len(tokens) > 1 else None,
                 cache_len=handle.cache_len)
+        # On a hit the next hop still needs every row: the stored prefix
+        # rows go before the computed ones.
+        outs = pfx_outs + outs
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
         return StageResponse(session_id=req.session_id, hidden=out,
                              cache_len=handle.cache_len)
+
+    def _reuse_prefix(self, req: StageRequest, x: torch.Tensor, handle: KVHandle,
+                      a: int, b: int, is_last: bool):
+        """The store's part of a prefill marked ``prefix_len``: hash
+        ``min(prefix_len, T - 1) // grain`` grains of the arriving rows (the
+        clamp leaves the final stage a computed row to sample from) under
+        the coordinates (blocks, batch, x dtype, cache dtype, model), copy
+        the longest stored chain's KV into the lease's leading rows and
+        advance the lease past it. The host tensor is hashed where the
+        request carries one (behind TCP); a device arrival's prefix rows
+        are read to the host once. Returns (the rows reused, the chain's
+        stored output rows, (digest, first row, end row) of each grain to
+        register)."""
+        grain = self.prefix_store.grain
+        n_grains = min(req.prefix_len, req.seq_len - 1) // grain
+        if n_grains <= 0:
+            return 0, [], []
+        coords = (self.spec.start + a, self.spec.start + b, x.shape[0], str(x.dtype),
+                  str(self.cache_dtype), req.model)
+        src = req.hidden if req.hidden.device.type == "cpu" else x
+        keys = chain_digests(grain_blocks(src, n_grains, grain), coords)
+        chain = self.prefix_store.lookup_chain(keys, need_out=not is_last)
+        p = len(chain) * grain
+        if chain:
+            for lease, part in ((handle.k, "k"), (handle.v, "v")):
+                segs = [getattr(e, part) for e in chain]
+                lease[:, :, :p].copy_(segs[0] if len(segs) == 1 else torch.cat(segs, dim=2))
+            handle.advance(p)
+        return (p, [e.out for e in chain if e.out is not None],
+                [(keys[g], g * grain, (g + 1) * grain) for g in range(len(chain), n_grains)])
 
     def _dispatch_chunk(self, span: tuple, step, sub_params, x: torch.Tensor,
                         handle: KVHandle, n: int) -> torch.Tensor:

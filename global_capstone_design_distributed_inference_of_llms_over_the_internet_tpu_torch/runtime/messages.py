@@ -14,9 +14,10 @@ and the priority are honoured; the exotic fields (beam ``hypo_ids`` and
 ``num_logprobs``, speculative ``draft_tokens``, deep ``prompts``, burst
 decode, push-chain ``next_servers``, the ``start_from_position`` rewind)
 are refused by the executor with a `StageExecutionError` that names the
-field, never ignored. ``prefix_len`` is a sharing hint that a server
-without a prefix store ignores, as in the reference. The training fields
-and the backward messages are not ported.
+field, never ignored. ``prefix_len`` marks a prefill's leading tokens
+shareable: a server with a prefix store (``runtime/prefix_cache.py``)
+reuses their stored KV, one without ignores it, as in the reference. The
+training fields and the backward messages are not ported.
 
 A full-span batched peer (``runtime/batching.py``) serves a burst
 request (``burst_len > 0``) and answers it with a burst reply: the tokens one
@@ -66,8 +67,8 @@ class StageRequest:
     # Push-chain route: the hops after this one (refused).
     next_servers: Tuple[dict, ...] = ()
     # Prompt-prefix sharing hint: the leading prefix_len tokens of a prefill
-    # may be shared across sessions. A server without a prefix store (every
-    # port server) ignores it, as the reference's do.
+    # may be shared across sessions. A server with a prefix store reuses
+    # them; one without ignores the hint, as the reference's do.
     prefix_len: int = 0
     # Trace context (telemetry.tracing):
     # {"trace_id": <16 hex>, "parent": <client span_id>, "hop": <int>}.

@@ -691,6 +691,14 @@ class TcpStageServer(_FramedTcpServer):
         steps = getattr(getattr(ex, "inner", None), "decode_steps", None)
         if steps is not None:
             frame["decode_steps"] = steps
+        # The prefix store's counters, the executor's or the engine's. An
+        # empty store is falsy (it has a length): test for None, where the
+        # reference's ``or`` drops an empty store's stats.
+        store = getattr(ex, "prefix_store", None)
+        if store is None:
+            store = getattr(getattr(ex, "inner", None), "prefix_store", None)
+        if store is not None:
+            frame["prefix_cache"] = store.stats()
         return frame
 
     # ------------------------------------------------------------------
