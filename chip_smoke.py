@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
 Run from the root of a checkout:  python3 chip_smoke.py
-(``--kernels-only``: steps 1-3b and stop, a development aid for iterating
+(``--kernels-only``: steps 1-3c and stop, a development aid for iterating
 on the kernels; it never prints the last line of a smoke pass.)
 
 1. Card: prints ``nvidia-smi``'s name and power limit, torch and CUDA versions.
@@ -64,6 +64,17 @@ on the kernels; it never prints the last line of a smoke pass.)
    its tokens equal to the plain draw; planted ties in far-apart blocks go
    to the first index. Times of the kernel, the plain version and
    ``torch.multinomial`` on the same probs (a yardstick), and its bound.
+3c. Paged decode attention (``paged_decode_attention``,
+   ``csrc/paged_decode_attention.cu``) at llama-3.1-8b's heads (H = 32,
+   Hkv = 8, Dh = 128, B = 1, page 64): cache buckets 128, 2048 and 8192,
+   cache_len 0, 63, 64, 1000 and S - 1 where they fit, float32 and bf16
+   caches under float32 and bf16 q, each held against the plain version
+   on the card (F32_TOL all float32, BF16_TOL where a bf16 rounds); a 0-d
+   device cache_len gives the int's bits; one launch captured in a CUDA
+   graph replays bit-equal to eager launches at three lengths. Device ms,
+   L2 cold, beside the plain version, ``cached_attention`` over the whole
+   bucket, ``scaled_dot_product_attention`` over the occupied rows with
+   GQA (a yardstick) and the bound (the occupied pages' bytes).
 4. Sampler: the captured sampler (``runtime/graphs.Sampler``, one graph
    per batch rows and vocabulary) must give the eager device sampler's
    tokens at llama-3.1-8b's vocabulary for B = 1 and 2 over greedy and
@@ -153,6 +164,34 @@ on the kernels; it never prints the last line of a smoke pass.)
    replayed per token; the sampled one holds the sampler) twice, and
    through the oracle's eager per-token loop: the tokens must be equal;
    decode ms/token and TTFT of both.
+8c. Paged path (after the oracle; ``paged_path``): the int8 ``--mode
+   local`` cluster built by ``main``'s functions with
+   ``dataclasses.replace(cfg, decode_kv_page=64)``. The 3 requests of step
+   5, once to capture and once counted: held to the float32-cache
+   references, and to the unpaged run's tokens (equal, or a first
+   difference at a near-tie); no capture; exactly one paged launch a layer
+   and decode step (the decode graph of every stage holds one a layer, its
+   prefill graphs none); every captured key's replay bit-equal to its
+   eager step; one host sync a token. A 1500-token prompt (a 2048-row
+   bucket): decode ms/token paged against unpaged (ABBA after a warm run
+   each), held to the float32-cache greedy reference. The fused greedy
+   oracle with the paged config: its tokens equal its per-token loop's and
+   the unpaged oracle's (or a near-tie of its bf16-cache reference); one
+   paged launch a layer a replayed step.
+8d. Gateway path (``gateway_path``): stages 1-3 of the int8 path behind
+   ``TcpStageServer``s (float32 from the wire), one ``PipelineClient`` and
+   a ``GatewayServer`` over it, tenants gold (weight 4) and bronze (1).
+   The batched path's 8 prompts, greedy, first one after another without
+   the gateway, then preloaded on a paused gateway from 8 threads through
+   ``GatewaySubmitClient`` and released: tokens equal the sequential
+   run's; gold:bronze served tokens within +/-25% of 4:1 over the
+   contended window (the reference's overload rule). A spent budget
+   raises ``DeadlineExceeded`` before any hop is dialed, and through a
+   paused gateway; a strict gateway sheds with ``concurrency``, ``rate``
+   and ``queue_full``, each with ``retry_after_s > 0``. The full-span burst
+   engine of step 10b behind TCP and a gateway with ``burst=8``: tokens
+   equal the same requests' sequential burst runs. Prints TTFT and queue
+   wait medians a tenant, tokens/s and the shed reasons.
 9. CLI drive: ``--mode registry``, then ``--mode serve --stage 1..3 --quant
    int8 --dtype bfloat16 --seed 0 --wire_dtype f32`` and ``--mode client``
    with the first greedy prompt, each a process of its own on the card,
@@ -160,6 +199,10 @@ on the kernels; it never prints the last line of a smoke pass.)
    everywhere). The client's printed generation must equal the in-process
    int8 float32 chain's for that prompt (step 8), and the token ids on its
    ``TOKENS=`` line must equal that run's.
+   The same swarm then serves a ``--mode gateway`` process (gold and
+   bronze) and one ``--mode submit`` process a tenant at once, greedy:
+   both exit 0 and their ``TOKENS=`` ids equal the in-process gateway's
+   for their prompts (step 8d).
    Each process's peak device memory is read from its ``PEAK_MEMORY_BYTES``
    lines (a server prints one when it starts serving and one when it stops
    on SIGINT, after the request); every child is killed at the end,
@@ -262,10 +305,12 @@ on the kernels; it never prints the last line of a smoke pass.)
    once, whose generations and ``TOKENS=`` ids must equal the in-process
    burst clients'; prints ``burst_cli_path``.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
-   ``sample_draw``; each matmul with its launches by route in process and
-   over TCP, the batched path's and the burst path's launches by route,
-   and its M = 8 and float32 prefill layers; the prefix path's prefills by
-   route and bucket and its layer at M = 1024) and
+   ``sample_draw``, ``paged_decode_attention`` with the paged path's
+   launches and its times at the paged path's shape; each matmul with its
+   launches by route in process and over TCP, the batched path's and the
+   burst path's launches by route, and its M = 8 and float32 prefill
+   layers; the prefix path's prefills by route and bucket and its layer at
+   M = 1024) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -346,6 +391,30 @@ PREFIX_CACHE_MB = 1024
 PREFIX_ORDER = ("A", "B", "C", "D", "E")
 PREFIX_REUSED = {"A": 0, "B": PREFIX_GRAINS, "C": PREFIX_GRAINS, "D": PREFIX_GRAINS // 2,
                  "E": PREFIX_GRAINS}
+# Paged decode attention (step 3c, the paged path of step 8c): the page the
+# layer reads a decode step's cache by (bench.py's value), the buckets and
+# cache lengths the kernel is held at (and S - 1), llama-3.1-8b's heads (H,
+# Hkv, Dh), the row of the ``kernels`` line (S, cache_len, q dtype, cache
+# dtype: the session executors' bf16 activations over their float32
+# cache), and the long prompt of the paged path (a 2048-row bucket).
+PAGE = 64
+PAGED_S = (128, 2048, 8192)
+PAGED_LENS = (0, 63, 64, 1000)
+PAGED_HEADS = (32, 8, 128)
+PAGED_HEADLINE = (2048, 1000, "bfloat16", "float32")
+LONG_PROMPT_TOKENS = 1500
+PAGED_LIBRARY_NOTE = ("torch.nn.functional.scaled_dot_product_attention over the "
+                      "occupied rows with enable_gqa (q cast to the cache's dtype): a "
+                      "yardstick the port never calls; cached_attention_ms is the port's "
+                      "own attention over the whole bucket, what the layer runs without "
+                      "a page")
+# The H100's float32 rate outside the tensor cores (data sheet, SXM): the
+# operations bound of a call whose inputs are not all bf16.
+F32_FLOPS = 67e12
+# The gateway path (step 8d): the tenants' weights (the reference's overload
+# drill) and the tenant of each of the batched path's 8 prompts.
+GATEWAY_WEIGHTS = {"gold": 4.0, "bronze": 1.0}
+GATEWAY_ORDER = ("gold",) * 4 + ("bronze",) * 4
 # (site, K, N) of llama-3.1-8b's four projection launches per layer after the
 # executor's fusion: wqkv = wq|wk|wv, wgu = wg|wu.
 SITES = (("wqkv", 4096, 6144), ("wo", 4096, 4096), ("wgu", 4096, 28672),
@@ -378,7 +447,10 @@ LIBRARY_NOTE = ("torch.matmul(x, dequantized bf16 weight): a yardstick that "
 REPLACES = {"int8_dot": "ops/int8_kernel.py:98", "nf4_dot": "ops/nf4_kernel.py:132",
             # Not a Pallas kernel: the reference leaves the draw to XLA in
             # sample_token (jitted as sample_token_jit).
-            "sample_draw": "ops/sampling.py:309"}
+            "sample_draw": "ops/sampling.py:309",
+            # Nor this: the reference's paged decode attention is XLA, a
+            # fori_loop with a traced trip count.
+            "paged_decode_attention": "ops/attention.py:58"}
 # The draw's bound: the integer instructions an element needs on sm_90,
 # against the CUDA cores' int32 rate: 64 int32 lanes an SM (NVIDIA's Hopper
 # architecture white paper) x 132 SMs x 1.98 GHz (the H100 SXM's boost
@@ -1886,6 +1958,461 @@ def oracle_phase(torch, tmain, sampling_cls, dk, cfg, params, ids, smi: str) -> 
     return out
 
 
+def paged_path(torch, kernels, tmain, sampling_cls, state, smi: str) -> dict:
+    """Step 8c: the int8 ``--mode local`` cluster built by ``main``'s own
+    functions with ``decode_kv_page = PAGE`` (the executors' float32
+    caches, bf16 activations), against the unpaged cluster of step 5 in
+    the same process. The 3 requests (once to capture, then counted): the
+    tokens held to the float32-cache references as in step 5, and each
+    compared with the unpaged run's; no capture; exactly one
+    paged_decode_attention launch a layer and decode step (the decode
+    graph of every stage holds one a layer, the prefill graphs none);
+    every captured key's replay bit-equal to its eager step; one host sync
+    a token. A long prompt (LONG_PROMPT_TOKENS, a 2048-row bucket): decode
+    ms/token paged against unpaged, in ABBA order after a warm run of
+    each, tokens held to the float32-cache greedy reference. The fused
+    greedy oracle with the paged config (twice) against its own
+    per-token loop (equal) and the unpaged fused oracle (equal, or a first
+    difference at a near-tie of the bf16-cache reference the oracle
+    keeps)."""
+    from importlib import import_module
+
+    graphs_mod = import_module(PORT + ".runtime.graphs")
+    pk = kernels["paged_decode_attention"]
+    args, cfg, params = state["args"], state["cfg"], state["params"]
+    paged_cfg = dataclasses.replace(cfg, decode_kv_page=PAGE)
+    t_phase = time.monotonic()
+    client = tmain.build_local_client(args, paged_cfg, params)
+    executors = path_executors(client)
+    requests, prompt_ids = state["requests"], state["prompt_ids"]
+
+    def run_requests():
+        return [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
+                for ids, (_, sp) in zip(prompt_ids, requests)]
+
+    reset_counts(kernels, executors)
+    cold = run_requests()
+    cold_captures = sum(ex.graphs.captures for ex in executors)
+    reset_counts(kernels, executors)
+    results = run_requests()
+    torch.cuda.synchronize()
+    launches = pk._launches
+    captures = sum(ex.graphs.captures for ex in executors)
+    decode_steps = sum(len(r.tokens) - 1 for r in results)
+    need = cfg.num_layers * decode_steps
+    draws = draw_gate("paged path", kernels, executors, results, requests)
+    log(f"paged path: {decode_steps} decode steps, paged_decode_attention launches "
+        f"{launches} (want {cfg.num_layers} layers x {decode_steps} = {need}), {captures} "
+        f"captures after the cold run's {cold_captures}")
+    if captures or launches != need:
+        raise AssertionError(f"paged path: {launches} paged launches and {captures} "
+                             f"captures, want {need} and none")
+    slot = graphs_mod._COUNTERS.index((pk, "_launches"))
+    held = {}
+    for ex in executors:
+        by_bucket = {}
+        for key, st in ex.graphs.entries():
+            by_bucket.setdefault(key[1], set()).add(st.graph.launches[slot])
+        held[ex.peer_id] = {str(k): sorted(v) for k, v in by_bucket.items()}
+        if by_bucket.get(1) != {ex.spec.num_layers} or any(
+                v != {0} for k, v in by_bucket.items() if k != 1):
+            raise AssertionError(f"paged path {ex.peer_id}: paged launches a graph by seq "
+                                 f"bucket {held[ex.peer_id]}, want {ex.spec.num_layers} in "
+                                 "the decode step's and none in a prefill's")
+    if [r.tokens for r in cold] != [r.tokens for r in results]:
+        raise AssertionError("paged path: the counted run's tokens differ from the cold run's")
+    hold_requests(torch, cfg, state["ref_params"], state["references"], results, "paged path")
+    first_diff = [None if r.tokens == u.tokens else first_difference(r.tokens, u.tokens)
+                  for r, u in zip(results, state["results"])]
+    for ids, (_, sp), r, u in zip(prompt_ids, requests, results, state["results"]):
+        # A sampled request is held to its sampled reference above, by the
+        # perturbed scores' near-tie rule.
+        if sp.greedy:
+            hold_to_reference(torch, cfg, state["ref_params"], ids, r.tokens, u.tokens,
+                              "paged path against the unpaged run")
+    log(f"paged path: tokens against the unpaged run's: first differences {first_diff} "
+        "(None: equal)")
+    capture = capture_phase(torch, client, "int8 paged")
+    syncs = sync_phase(torch, client, prompt_ids, requests)
+
+    # A long prompt in a 2048-row bucket: decode ms/token, paged against
+    # unpaged, each warm before the ABBA runs.
+    gen = torch.Generator().manual_seed(1)
+    long_ids = torch.randint(0, cfg.vocab_size, (LONG_PROMPT_TOKENS,), generator=gen).tolist()
+    greedy = sampling_cls(temperature=0.0)
+    sides = {"unpaged": state["client"], "paged": client}
+    long_runs = {side: [] for side in sides}
+    for side in ("unpaged", "paged"):
+        sides[side].generate(long_ids, MAX_NEW_TOKENS, sampling=greedy)
+    for side in ("unpaged", "paged", "paged", "unpaged"):
+        reset_counts(kernels, path_executors(sides[side]))
+        r = sides[side].generate(long_ids, MAX_NEW_TOKENS, sampling=greedy)
+        torch.cuda.synchronize()
+        if side == "paged" and pk._launches != cfg.num_layers * (len(r.tokens) - 1):
+            raise AssertionError(f"paged long prompt: {pk._launches} paged launches for "
+                                 f"{len(r.tokens) - 1} decode steps")
+        if side == "unpaged" and pk._launches:
+            raise AssertionError(f"unpaged long prompt: {pk._launches} paged launches")
+        long_runs[side].append(r)
+    long_ref = greedy_reference(torch, cfg, state["ref_params"], long_ids, MAX_NEW_TOKENS)
+    for side, runs in long_runs.items():
+        for r in runs:
+            hold_to_reference(torch, cfg, state["ref_params"], long_ids, r.tokens, long_ref,
+                              f"long prompt {side}")
+    long_view = {side: {
+        "decode_ms_per_token": [1e3 * statistics.median(r.decode_times_s) for r in runs],
+        "ttft_ms": [1e3 * r.ttft_s for r in runs],
+        "tokens_equal_reference": [r.tokens == long_ref for r in runs]}
+        for side, runs in long_runs.items()}
+    log(f"paged long prompt ({LONG_PROMPT_TOKENS} tokens, bucket 2048): decode ms/token "
+        f"paged {long_view['paged']['decode_ms_per_token']}, unpaged "
+        f"{long_view['unpaged']['decode_ms_per_token']} (ABBA)")
+
+    # The fused greedy oracle, paged and unpaged, on the quantized tree.
+    oargs = tmain.build_parser().parse_args(
+        ["--mode", "oracle", "--model", MODEL, "--quant", "none", "--dtype", "bfloat16",
+         "--device", "cuda", "--seed", "0"])
+    ids = prompt_ids[0]
+    oracle_paged = tmain.make_oracle_generate(oargs, paged_cfg, state["ref_params"])
+    oracle_unpaged = tmain.make_oracle_generate(oargs, cfg, state["ref_params"])
+    pk._launches = 0
+    fused = [oracle_paged(ids, MAX_NEW_TOKENS, greedy)]
+    pk._launches = 0
+    fused.append(oracle_paged(ids, MAX_NEW_TOKENS, greedy))
+    fused_launches = pk._launches
+    per_token = oracle_paged.per_token(ids, MAX_NEW_TOKENS, greedy)
+    unpaged_fused = oracle_unpaged(ids, MAX_NEW_TOKENS, greedy)
+    if not fused[0].tokens == fused[1].tokens == per_token.tokens:
+        raise AssertionError(f"paged oracle: fused {fused[0].tokens} / {fused[1].tokens}, "
+                             f"per-token {per_token.tokens}")
+    # One chunk of MAX_NEW_TOKENS - 1 replayed steps, whatever the stop
+    # rules then keep; the second call captures nothing.
+    if fused_launches != cfg.num_layers * (MAX_NEW_TOKENS - 1):
+        raise AssertionError(f"paged oracle: {fused_launches} paged launches for "
+                             f"{MAX_NEW_TOKENS - 1} replayed decode steps")
+    hold_to_reference(torch, cfg, state["ref_params"], ids, fused[0].tokens,
+                      unpaged_fused.tokens, "paged fused oracle against the unpaged one",
+                      torch.bfloat16)
+    oracle_view = {"tokens": len(fused[0].tokens),
+                   "equal_unpaged": fused[0].tokens == unpaged_fused.tokens,
+                   "equal_per_token": True, "paged_launches_second_call": fused_launches,
+                   "fused_decode_ms_per_token": [1e3 * statistics.median(r.decode_times_s)
+                                                 for r in fused],
+                   "unpaged_fused_decode_ms_per_token":
+                       1e3 * statistics.median(unpaged_fused.decode_times_s)}
+    log(f"paged oracle: fused tokens equal its per-token loop's, equal the unpaged fused "
+        f"oracle's: {oracle_view['equal_unpaged']}; {fused_launches} paged launches in "
+        f"{MAX_NEW_TOKENS - 1} replayed steps")
+    decode = [t for r in results for t in r.decode_times_s]
+    summary = {"model": MODEL, "quant": "int8", "page": PAGE, "requests": len(results),
+               "decode_steps": decode_steps, "paged_launches": launches,
+               "captures_cold": cold_captures, "captures": captures,
+               "graph_paged_launches_by_seq_bucket": held,
+               "first_difference_against_unpaged": first_diff,
+               "decode_ms_per_token": 1e3 * statistics.median(decode),
+               "decode_ms_per_token_unpaged": 1e3 * statistics.median(
+                   [t for r in state["results"] for t in r.decode_times_s]),
+               "sample_draw": draws, "capture": capture, "syncs_per_request": syncs,
+               "long_prompt": {"tokens": LONG_PROMPT_TOKENS, **long_view},
+               "oracle": oracle_view, "seconds": time.monotonic() - t_phase, "card": smi}
+    log(f"paged path: {summary['seconds']:.1f}s")
+    return summary
+
+
+def gateway_run(serving, gw_client, tenants, prompts, order, max_new: int, burst: int = 0):
+    """One gateway over `gw_client`, preloaded while paused with one request
+    a prompt (tenant by `order`) from threads through `GatewaySubmitClient`,
+    then released. Returns (results by request, the served-token log,
+    wall seconds from the release to the last result)."""
+    gw = serving.GatewayServer([gw_client], tenants, port=0, max_queue_depth=64,
+                               max_active=len(prompts), start_paused=True, burst=burst)
+    gw.start()
+    got, errors = {}, {}
+
+    def submit(i):
+        try:
+            got[i] = serving.GatewaySubmitClient(gw.address).submit(
+                order[i], prompts[i], max_new, deadline_s=600.0,
+                session_id=f"gw-{order[i]}-{i}-{burst}", timeout=900.0)
+        except Exception as exc:  # noqa: BLE001 — raised below, after the join
+            errors[i] = exc
+
+    threads = [threading.Thread(target=submit, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    try:
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 60.0
+        while gw.queue.depth() < len(prompts):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"gateway preload: {gw.queue.depth()} of "
+                                     f"{len(prompts)} queued")
+            time.sleep(0.01)
+        t0 = time.monotonic()
+        gw.resume()
+        for th in threads:
+            th.join(timeout=900.0)
+        wall = time.monotonic() - t0
+    finally:
+        gw.stop()
+    if errors or len(got) != len(prompts):
+        raise AssertionError(f"gateway requests failed: {errors}")
+    return [got[i] for i in range(len(prompts))], list(gw.step_log), wall
+
+
+def fair_window(step_log, gold_total: int, slack: float) -> dict:
+    """The served-token ratio over the contended window (up to gold's last
+    token) against the 4:1 weights: within +/-25%, with one service
+    quantum of slack (a token, or a burst), the reference's overload rule
+    (``main.py:2024-2046``)."""
+    served, cut = 0, len(step_log)
+    for pos, tenant in enumerate(step_log):
+        served += tenant == "gold"
+        if served == gold_total:
+            cut = pos + 1
+            break
+    window = step_log[:cut]
+    gold = window.count("gold")
+    bronze = len(window) - gold
+    want = GATEWAY_WEIGHTS["gold"] / GATEWAY_WEIGHTS["bronze"]
+    expected = gold / want
+    ok = gold == gold_total and abs(bronze - expected) <= max(slack, 0.25 * expected)
+    return {"gold": gold, "bronze": bronze, "ratio": gold / bronze if bronze else None,
+            "expected_bronze": expected, "slack": max(slack, 0.25 * expected), "ok": ok,
+            "log": "".join(t[0] for t in step_log)}
+
+
+def gateway_path(torch, kernels, tmain, state, smi: str) -> dict:
+    """Step 8d: the serving gateway on the int8 path. Stages 1-3 behind
+    ``TcpStageServer``s as the TCP drive builds them (float32 from the
+    wire), a registry service, and one ``PipelineClient`` (stage 0 in
+    process, wire f32) that a ``GatewayServer`` owns. The batched path's 8
+    prompts, greedy, GATEWAY_ORDER's tenants (gold weight 4, bronze 1):
+    first one after another without the gateway (the token oracle), then
+    preloaded on a paused gateway and released: each request's tokens equal
+    its sequential run's, the served-token ratio within +/-25% of 4:1.
+    A strict gateway sheds with ``concurrency``, ``rate`` and
+    ``queue_full`` (``retry_after_s > 0`` each); a request whose budget is
+    spent before the first hop raises ``DeadlineExceeded`` in the client
+    (no hop dialed) and through a paused gateway. Then the full-span burst
+    engine of step 10b behind TCP and a gateway with ``burst=8``: its
+    tokens equal the same requests' sequential burst runs, fairness within
+    one burst of slack. Prints TTFT and queue-wait medians a tenant,
+    tokens/s and the shed counts. Returns the summary and the gateway's
+    tokens by prompt (for the CLI drive)."""
+    from importlib import import_module
+
+    net = import_module(PORT + ".runtime.net")
+    task_pool = import_module(PORT + ".runtime.task_pool")
+    client_mod = import_module(PORT + ".runtime.client")
+    transport_mod = import_module(PORT + ".runtime.transport")
+    serving = import_module(PORT + ".serving")
+    sampling_cls = import_module(PORT + ".ops.sampling").SamplingParams
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    t_phase = time.monotonic()
+    tok = tmain.load_tokenizer()
+    prompts = [[i % cfg.vocab_size for i in tok.encode(p)] for p in BATCH_PROMPTS]
+    order = GATEWAY_ORDER
+    greedy = sampling_cls(temperature=0.0)
+    registry_srv = net.RegistryServer()
+    registry_srv.start()
+    servers, transport, adapter = [], None, None
+    remote = [local.transport.executor(p) for p in local.transport.peers()]
+    saved = [ex.act_dtype for ex in remote]
+    summary = {"model": MODEL, "quant": "int8", "wire_dtype": "f32", "tenants": dict(
+        GATEWAY_WEIGHTS), "order": list(order), "max_new_tokens": MAX_NEW_TOKENS,
+        "card": smi}
+    try:
+        for ex in remote:
+            ex.act_dtype = None
+            srv = net.TcpStageServer(ex, task_pool.StageRuntime(), wire_dtype="f32",
+                                     model=MODEL)
+            srv.start()
+            servers.append(srv)
+            rec = client_mod.make_server_record(ex.peer_id, ex.spec, model=MODEL)
+            rec.address = srv.address
+            registry_srv.registry.register(rec)
+        registry = net.RemoteRegistry(registry_srv.address)
+        transport = net.TcpTransport(registry, wire_dtype="f32", model=MODEL)
+        client = client_mod.PipelineClient(cfg, local.plan, local.stage0, transport,
+                                           registry, seed=args.seed, model=MODEL)
+        baseline = [client.generate(ids, MAX_NEW_TOKENS, sampling=greedy).tokens
+                    for ids in prompts]
+        chain = state["f32_chain_results"]
+        if baseline[:2] != [r.tokens for r in chain[:2]]:
+            raise AssertionError("gateway swarm: sequential tokens differ from the "
+                                 "float32-after-stage-0 chain's")
+        tenants = {n: serving.TenantConfig(n, weight=w, rate=1000.0, burst=1000.0)
+                   for n, w in GATEWAY_WEIGHTS.items()}
+        results, step_log, wall = gateway_run(serving, client, tenants, prompts, order,
+                                              MAX_NEW_TOKENS)
+        got = [r["tokens"] for r in results]
+        if got != baseline:
+            for g, b in zip(got, baseline):
+                log(f"  {g}\n  {b}")
+            raise AssertionError("gateway: tokens differ from the sequential run's")
+        gold_total = sum(len(b) for b, t in zip(baseline, order) if t == "gold")
+        fair = fair_window(step_log, gold_total, 1.0)
+        if not fair["ok"]:
+            raise AssertionError(f"gateway: served tokens {fair} outside +/-25% of 4:1")
+
+        def per_tenant(rows):
+            return {t: {"ttft_ms_median": 1e3 * statistics.median(
+                        r["ttft_s"] for r, o in zip(rows, order) if o == t),
+                        "queue_wait_ms_median": 1e3 * statistics.median(
+                        r["queue_wait_s"] for r, o in zip(rows, order) if o == t)}
+                    for t in GATEWAY_WEIGHTS}
+
+        summary["session"] = {"tokens_equal_sequential": True, "fairness": fair,
+                              "per_tenant": per_tenant(results), "wall_s": wall,
+                              "tokens_per_s": sum(len(g) for g in got) / wall}
+        log(f"gateway: {len(got)} requests' tokens equal the sequential run's; served "
+            f"gold:bronze {fair['gold']}:{fair['bronze']} in the contended window (4:1 "
+            f"within {fair['slack']:.1f}); {summary['session']['tokens_per_s']:.1f} "
+            f"tokens/s; {summary['session']['per_tenant']}")
+
+        # Deadlines: a spent budget raises before any hop is dialed, and a
+        # request that waits its budget away in a paused gateway's queue
+        # comes back as DeadlineExceeded.
+        calls = {"n": 0}
+        call = transport.call
+
+        def counting(peer_id, req, timeout=None):
+            calls["n"] += 1
+            return call(peer_id, req, timeout)
+
+        transport.call = counting
+        try:
+            steps = client.generate_stepwise(prompts[0], 4, deadline_at=time.monotonic() - 1.0)
+            next(steps)
+            raise AssertionError("a spent deadline did not raise")
+        except transport_mod.DeadlineExceeded:
+            pass
+        finally:
+            transport.call = call
+        if calls["n"]:
+            raise AssertionError(f"a spent deadline dialed {calls['n']} hops")
+        late = serving.GatewayServer([client], tenants, port=0, start_paused=True)
+        late.start()
+        late_err = {}
+
+        def submit_late():
+            try:
+                serving.GatewaySubmitClient(late.address).submit(
+                    "gold", prompts[0], 4, deadline_s=0.05, timeout=60.0)
+            except RuntimeError as exc:
+                late_err["msg"] = str(exc)
+
+        th = threading.Thread(target=submit_late, daemon=True)
+        th.start()
+        while late.queue.depth() < 1:
+            time.sleep(0.01)
+        time.sleep(0.2)
+        late.resume()
+        th.join(timeout=60.0)
+        late.stop()
+        if "DeadlineExceeded" not in late_err.get("msg", ""):
+            raise AssertionError(f"a budget spent in the queue: {late_err}")
+        summary["deadline"] = {"client_raised_before_dial": True,
+                               "gateway_error": late_err["msg"][:200]}
+        log(f"gateway deadlines: a spent budget raises DeadlineExceeded before any dial; "
+            f"through the gateway: {late_err['msg'][:120]}")
+
+        # Shedding on a strict gateway, never resumed.
+        strict = {"slow": serving.TenantConfig("slow", rate=1000.0, burst=1000.0,
+                                               max_concurrency=1),
+                  "bursty": serving.TenantConfig("bursty", rate=1e-3, burst=1.0),
+                  "filler": serving.TenantConfig("filler", rate=1000.0, burst=1000.0)}
+        gw2 = serving.GatewayServer([client], strict, port=0, max_queue_depth=3,
+                                    max_active=1, start_paused=True)
+        gw2.start()
+        sub = serving.GatewaySubmitClient(gw2.address)
+        sheds, waiters = {}, []
+
+        def quietly(tenant):
+            try:
+                sub.submit(tenant, prompts[0], 2, timeout=60.0)
+            except Exception:  # noqa: BLE001 — the stop fails the queued waiter
+                pass
+
+        try:
+            for depth, (tenant, want) in enumerate((("slow", "concurrency"),
+                                                    ("bursty", "rate"),
+                                                    ("filler", "queue_full"))):
+                th = threading.Thread(target=quietly, args=(tenant,), daemon=True)
+                th.start()
+                waiters.append(th)
+                deadline = time.monotonic() + 30.0
+                while gw2.queue.depth() < depth + 1 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                try:
+                    sub.submit(tenant, prompts[0], 2, timeout=30.0)
+                    raise AssertionError(f"strict gateway served {tenant}")
+                except serving.Overloaded as exc:
+                    if exc.reason != want or not exc.retry_after_s > 0:
+                        raise AssertionError(f"strict gateway {tenant}: {exc.reason} "
+                                             f"{exc.retry_after_s}, want {want} > 0")
+                    sheds[exc.reason] = exc.retry_after_s
+        finally:
+            gw2.stop()
+        for th in waiters:
+            th.join(timeout=30.0)
+        summary["shed"] = {"retry_after_s": sheds, "count": len(sheds)}
+        log(f"gateway shedding: {sheds} (reason: retry_after_s)")
+
+        # Bursts: the full-span burst engine behind TCP, a gateway with burst=8.
+        adapter = full_span_adapter(torch, state, "gateway-burst")
+        adapter.warmup(burst=BURST_TICKS)
+        bsrv = net.TcpStageServer(adapter, None, wire_dtype="f32", model=MODEL)
+        bsrv.start()
+        servers.append(bsrv)
+        spec = import_module(PORT + ".models.partition").StagePlan.even(
+            cfg.num_layers, 1).stages[0]
+        brec = client_mod.make_server_record(adapter.peer_id, spec, model=MODEL,
+                                             engine="batched")
+        brec.address = bsrv.address
+        registry_srv.registry.register(brec)
+        before = adapter.inner.burst_dispatches
+        burst_base = [client.generate(ids, MAX_NEW_TOKENS, sampling=greedy,
+                                      burst=BURST_TICKS).tokens for ids in prompts]
+        seq_bursts = adapter.inner.burst_dispatches - before
+        results_b, step_log_b, wall_b = gateway_run(serving, client, tenants, prompts, order,
+                                                    MAX_NEW_TOKENS, burst=BURST_TICKS)
+        got_b = [r["tokens"] for r in results_b]
+        gw_bursts = adapter.inner.burst_dispatches - before - seq_bursts
+        if not seq_bursts or not gw_bursts:
+            raise AssertionError(f"burst gateway: {seq_bursts} / {gw_bursts} bursts ran")
+        if got_b != burst_base:
+            for g, b in zip(got_b, burst_base):
+                log(f"  {g}\n  {b}")
+            raise AssertionError("burst gateway: tokens differ from the sequential burst "
+                                 "runs'")
+        fair_b = fair_window(step_log_b, sum(len(b) for b, t in zip(burst_base, order)
+                                             if t == "gold"), float(BURST_TICKS))
+        if not fair_b["ok"]:
+            raise AssertionError(f"burst gateway: served tokens {fair_b} outside +/-25% "
+                                 "of 4:1 (one burst of slack)")
+        summary["burst"] = {"ticks": BURST_TICKS, "tokens_equal_sequential_bursts": True,
+                            "bursts_sequential": seq_bursts, "bursts_gateway": gw_bursts,
+                            "fairness": fair_b, "per_tenant": per_tenant(results_b),
+                            "wall_s": wall_b,
+                            "tokens_per_s": sum(len(g) for g in got_b) / wall_b}
+        log(f"gateway burst={BURST_TICKS}: tokens equal the sequential burst runs', "
+            f"{gw_bursts} bursts; gold:bronze {fair_b['gold']}:{fair_b['bronze']}; "
+            f"{summary['burst']['tokens_per_s']:.1f} tokens/s; {summary['burst']['per_tenant']}")
+        summary["seconds"] = time.monotonic() - t_phase
+        log(f"gateway path: {summary['seconds']:.1f}s")
+        return summary, dict(zip(BATCH_PROMPTS, got))
+    finally:
+        if transport is not None:
+            transport.close()
+        for srv in servers:
+            srv.stop()
+        registry_srv.stop()
+        for ex, dtype in zip(remote, saved):
+            ex.act_dtype = dtype
+
+
 def failover_drive(torch, tmain, state):
     """Kill the pinned stage-2 peer after its 3rd decode step of a greedy
     request; the client must fail over to a second stage-2 executor, replay
@@ -1968,6 +2495,134 @@ def family_view(reg, name):
         key = ",".join(f"{k}={v}" for k, v in child.labels) or "-"
         out[key] = hist_view(child) if hasattr(child, "quantile") else child.value
     return out
+
+
+def paged_bound(s_rows: int, cache_len: int, h: int, hkv: int, dh: int, q_size: int,
+                kv_size: int, bw: float, flops: float, f32_flops: float):
+    """The least time of one paged decode attention call: the occupied
+    pages of K and V (every head), q and the output, against the bytes
+    rate; its multiply-adds (q . k and w . v for every query head over the
+    occupied rows) against the peak of the inputs' type (bf16 tensor cores
+    where both are bf16, else float32 CUDA cores). Returns (ms, by)."""
+    rows = (cache_len // PAGE + 1) * PAGE
+    nbytes = 2 * rows * hkv * dh * kv_size + 2 * h * dh * q_size
+    ops = 4 * h * dh * rows
+    rate = flops if (q_size, kv_size) == (2, 2) else f32_flops
+    return max(nbytes / bw, ops / rate) * 1e3, ("bytes" if nbytes / bw >= ops / rate
+                                               else "operations")
+
+
+def paged_phase(torch, pk, attn, bw: float, flops: float):
+    """paged_decode_attention against its plain version on the card at
+    llama-3.1-8b's heads (H = 32, Hkv = 8, Dh = 128, B = 1, page 64): every
+    cache bucket of PAGED_S, cache_len of PAGED_LENS and S - 1 where they
+    fit, float32 and bf16 caches under float32 and bf16 q (F32_TOL where
+    all is float32, BF16_TOL where a bf16 rounds); the launch with a 0-d
+    int64 device cache_len bit-equal to the one with an int; one launch
+    captured in a CUDA graph replayed at three lengths bit-equal to eager
+    launches. Device ms, L2 cold, of the kernel, the plain version,
+    ``cached_attention`` over the whole bucket (what the layer runs
+    without a page), ``scaled_dot_product_attention`` over the occupied
+    rows with GQA (a yardstick the port never calls; q cast to the cache's
+    dtype first where they differ), and the bound."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    h, hkv, dh = PAGED_HEADS
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rows, checked = [], 0
+    for s in PAGED_S:
+        for kv_name, kv_dtype in dtypes.items():
+            k = torch.randn((1, s, hkv, dh), generator=gen, device="cuda").to(kv_dtype)
+            v = torch.randn((1, s, hkv, dh), generator=gen, device="cuda").to(kv_dtype)
+            for q_name, q_dtype in dtypes.items():
+                q = torch.randn((1, 1, h, dh), generator=gen, device="cuda").to(q_dtype)
+                for cl in sorted({c for c in PAGED_LENS + (s - 1,) if c < s}):
+                    want = attn.paged_decode_attention(q, k, v, cl, PAGE)
+                    got = pk.paged_decode_attention(q, k, v, cl, PAGE)
+                    dev_len = torch.full((), cl, dtype=torch.int64, device="cuda")
+                    got_dev = pk.paged_decode_attention(q, k, v, dev_len, PAGE)
+                    torch.cuda.synchronize()
+                    what = f"paged_decode_attention S={s} cache_len={cl} q {q_name} kv {kv_name}"
+                    if got.dtype != q.dtype or got.shape != q.shape:
+                        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}")
+                    if not torch.equal(got, got_dev):
+                        raise AssertionError(f"{what}: a device cache_len gives other bits")
+                    err = (got.float() - want.float()).abs().max().item()
+                    scale = want.float().abs().max().item()
+                    tol = F32_TOL if (q_name, kv_name) == ("float32", "float32") else BF16_TOL
+                    if not (err <= tol * scale and torch.isfinite(got).all()):
+                        raise AssertionError(f"{what}: max|kernel-plain| {err} > {tol} * {scale}")
+                    checked += 1
+                    qs = q.to(kv_dtype).transpose(1, 2)
+                    ks, vs = k[:, :cl + 1].transpose(1, 2), v[:, :cl + 1].transpose(1, 2)
+                    bound_ms, bound_by = paged_bound(
+                        s, cl, h, hkv, dh, q.element_size(), k.element_size(), bw, flops,
+                        F32_FLOPS)
+                    rows.append({
+                        "S": s, "cache_len": cl, "page": PAGE, "q_dtype": q_name,
+                        "kv_dtype": kv_name, "max_abs_err": err, "tolerance": tol * scale,
+                        "ms": cuda_ms(lambda: pk.paged_decode_attention(q, k, v, dev_len, PAGE),
+                                      torch, reps=25, flush=flush),
+                        "plain_ms": cuda_ms(lambda: attn.paged_decode_attention(
+                            q, k, v, cl, PAGE), torch, reps=5, flush=flush),
+                        "cached_attention_ms": cuda_ms(lambda: attn.cached_attention(
+                            q, k, v, cl), torch, reps=10, flush=flush),
+                        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                            qs, ks, vs, enable_gqa=True), torch, reps=10, flush=flush),
+                        "bound_ms": bound_ms, "bound_by": bound_by})
+    # One launch captured with a device cache_len replays at any length.
+    s = 2048
+    k = torch.randn((1, s, hkv, dh), generator=gen, device="cuda")
+    v = torch.randn((1, s, hkv, dh), generator=gen, device="cuda")
+    q = torch.randn((1, 1, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
+    dev_len = torch.zeros((), dtype=torch.int64, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        pk.paged_decode_attention(q, k, v, dev_len, PAGE)       # eager warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pk.paged_decode_attention(q, k, v, dev_len, PAGE)
+    replayed = []
+    for cl in (5, 700, 2047):
+        dev_len.fill_(cl)
+        graph.replay()
+        eager = pk.paged_decode_attention(q, k, v, cl, PAGE)
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            raise AssertionError(f"paged_decode_attention: the captured launch at cache_len "
+                                 f"{cl} differs from an eager launch")
+        replayed.append(cl)
+    del flush
+    log(f"paged_decode_attention: within tolerance of the plain version at {checked} "
+        f"shapes (S {PAGED_S}, cache_len {PAGED_LENS} and S - 1, q and caches float32 and "
+        f"bf16); a device cache_len gives the int's bits; one captured launch replayed "
+        f"at cache_len {replayed} bit-equal to eager launches")
+    return {"checked": checked, "graph_replays_bit_equal": replayed, "times": rows,
+            "heads": {"H": h, "Hkv": hkv, "Dh": dh}, "page": PAGE,
+            "chunk_plan": {str(s): pk.chunk_plan(s, PAGE) for s in PAGED_S}}
+
+
+def paged_entry(phase, launches: int, launches_fused: int):
+    """paged_decode_attention in the ``kernels`` line: the paged session
+    path's shape, a 2048-row bucket at cache_len 1000 with bf16 q over the
+    float32 cache the executors keep (every shape of step 3c is in the
+    ``paged_decode_attention`` line of the log)."""
+    row = next(r for r in phase["times"] if (r["S"], r["cache_len"], r["q_dtype"],
+                                             r["kv_dtype"]) == PAGED_HEADLINE)
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": f"{PORT}/csrc/paged_decode_attention.cu",
+            "replaces": "global_capstone_design_distributed_inference_of_llms_over_the_"
+                        "internet_tpu/" + REPLACES["paged_decode_attention"],
+            "launches": launches, "launches_fused_oracle": launches_fused,
+            "at": "B=1, H=32, Hkv=8, Dh=128, page 64, S=2048, cache_len=1000, bf16 q, "
+                  "float32 cache, L2 cold",
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "cached_attention_ms")},
+            "library": PAGED_LIBRARY_NOTE}
 
 
 def count_syncs(torch, fn) -> int:
@@ -2476,7 +3131,8 @@ def _stderr_tail(path: pathlib.Path, n: int = 30) -> str:
     return "\n".join(path.read_text(errors="replace").splitlines()[-n:])
 
 
-def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), client_argv=()):
+def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), client_argv=(),
+              gateway=None):
     """The port's swarm as processes on the card: a registry, a server a
     stage of `stages` (int8, bfloat16, seed 0, wire f32, and `serve_argv`)
     and one client a `wants` entry (prompt, the in-process result its
@@ -2484,8 +3140,12 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
     once. Each server computes what arrives in float32 (``serve`` casts
     nothing), so each client's printed generation and its ``TOKENS=`` ids
     must equal its in-process run's over float32 hops (with ``stages=(0,)``
-    the one full-span server: the in-process full-span run's). Returns the
-    summary."""
+    the one full-span server: the in-process full-span run's). With
+    `gateway` ({"tenants": JSON, "submits": [(tenant, prompt, tokens)]}),
+    after the clients a ``--mode gateway`` process joins the same swarm and
+    a ``--mode submit`` process a submit runs at once, each greedy: every
+    submit exits 0 and its ``TOKENS=`` ids equal the in-process gateway's
+    for its prompt. Returns the summary."""
     main = [sys.executable, "-m", PORT + ".main"]
     model_args = ["--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
                   "--seed", "0", "--device", "cuda", "--wire_dtype", "f32"]
@@ -2558,8 +3218,54 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
             client_s = time.monotonic() - t0
             log(f"cli: every client's text and token ids equal its in-process run's "
                 f"({len(wants)} clients at once, {client_s:.1f}s with set-up)")
-            # A server prints its peak again when SIGINT stops it.
             servers = procs[1:1 + len(stages)]
+            gateway_view = None
+            if gateway is not None:
+                t0 = time.monotonic()
+                proc, out = spawn("gateway", ["--mode", "gateway", "--registry_addr", addr,
+                                              "--rpc_port", "0", "--tenants",
+                                              gateway["tenants"], *model_args])
+                line = _wait_line(proc, out, "GATEWAY ", "gateway")
+                gw_addr = re.search(r"addr=(\S+)", line).group(1)
+                peak = re.search(r"PEAK_MEMORY_BYTES=(\d+)", out.read_text())
+                peaks["gateway_at_start"] = peak and int(peak.group(1))
+                start_s["gateway"] = time.monotonic() - t0
+                log(f"cli: {line} ({start_s['gateway']:.1f}s)")
+                servers = servers + [procs[-1]]
+                t0 = time.monotonic()
+                subs = []
+                for i, (tenant, prompt, _) in enumerate(gateway["submits"]):
+                    subs.append(spawn(f"submit{i}", [
+                        "--mode", "submit", "--gateway_addr", gw_addr, "--tenant", tenant,
+                        "--prompt", prompt, "--max_new_tokens", str(MAX_NEW_TOKENS),
+                        "--temperature", "0", "--deadline_s", "600",
+                        "--request_timeout", str(CLI_STEP_TIMEOUT_S), *model_args]))
+                submit_ttft, submit_wait = [], []
+                for i, ((proc, out), (tenant, _, want)) in enumerate(
+                        zip(subs, gateway["submits"])):
+                    code = proc.wait(timeout=CLI_STEP_TIMEOUT_S)
+                    stdout = out.read_bytes().decode("utf-8", errors="replace")
+                    if code != 0:
+                        raise AssertionError(f"submit {i} ({tenant}) exited {code}:\n"
+                                             f"{stdout}")
+                    ids = re.findall(r"^TOKENS=(\[[0-9, ]*\])$", stdout, re.M)
+                    if len(ids) != 1 or json.loads(ids[0]) != want:
+                        raise AssertionError(f"cli submit {i} ({tenant}) token ids differ "
+                                             f"from the in-process gateway's:\n{ids}\n"
+                                             f"want:\n{want}")
+                    line = re.search(r"ttft=([0-9.]+)s queue_wait=([0-9.]+)s", stdout)
+                    submit_ttft.append(float(line.group(1)) * 1e3)
+                    submit_wait.append(float(line.group(2)) * 1e3)
+                gateway_view = {"submits": [t for t, _, _ in gateway["submits"]],
+                                "prompts": [p for _, p, _ in gateway["submits"]],
+                                "tokens_equal_in_process_gateway": True,
+                                "ttft_ms_printed": submit_ttft,
+                                "queue_wait_ms_printed": submit_wait,
+                                "run_s": time.monotonic() - t0}
+                log(f"cli gateway: {len(subs)} submit processes exited 0, their token ids "
+                    f"equal the in-process gateway's; ttft {submit_ttft} ms, queue wait "
+                    f"{submit_wait} ms")
+            # A server prints its peak again when SIGINT stops it.
             for what, proc, _ in servers:
                 proc.send_signal(signal.SIGINT)
             for what, proc, _ in servers:
@@ -2587,6 +3293,8 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
                        "reserved_memory_gb": {k: v and v / 1e9
                                               for k, v in reserved.items()},
                        "start_s": start_s, "client_run_s": client_s, "card": smi}
+            if gateway_view is not None:
+                summary["gateway"] = gateway_view
             log(f"cli: ttft {[round(t * 1e3) for t in ttft]} ms, decode "
                 f"{[round(v, 2) for v in summary['decode_ms_per_token_mean_printed']]} "
                 f"ms/token (mean, printed); peaks GB {summary['peak_memory_gb']}; held GB "
@@ -4254,6 +4962,8 @@ def main(argv) -> int:
         ik = import_module(PORT + ".ops.int8_kernel")
         nk = import_module(PORT + ".ops.nf4_kernel")
         dk = import_module(PORT + ".ops.draw_kernel")
+        pk = import_module(PORT + ".ops.paged_attention_kernel")
+        attn = import_module(PORT + ".ops.attention")
         tf3 = import_module(PORT + ".ops.threefry")
         tmain = import_module(PORT + ".main")
         sampling_cls = import_module(PORT + ".ops.sampling").SamplingParams
@@ -4274,13 +4984,14 @@ def main(argv) -> int:
     bw, flops = peaks_for(name)
 
     build_s = build_kernels([PORT + ".ops.int8_kernel", PORT + ".ops.nf4_kernel",
-                             PORT + ".ops.draw_kernel"])
+                             PORT + ".ops.draw_kernel", PORT + ".ops.paged_attention_kernel"])
     log(f"build: {build_s:.1f}s")
     for src, text in import_module(PORT + ".utils.cuda_build").build_logs.items():
         for kernel, line in ptxas_usage(text):
             log(f"  {src} {kernel}: {line}")
 
-    kernel_mods = {"int8_dot": ik, "nf4_dot": nk, "sample_draw": dk}
+    kernel_mods = {"int8_dot": ik, "nf4_dot": nk, "sample_draw": dk,
+                   "paged_decode_attention": pk}
     prompt_len = len(PROMPTS[0].encode())
     # The executors pad a prompt to its sequence bucket: the M its prefill
     # projections run at.
@@ -4368,6 +5079,10 @@ def main(argv) -> int:
     del flush
     draw = draw_phase(torch, dk, tf3, bw)
     log(json.dumps({"sample_draw": draw, "card": smi}))
+    t0 = time.monotonic()
+    paged = paged_phase(torch, pk, attn, bw, flops)
+    log(json.dumps({"paged_decode_attention": paged, "card": smi}))
+    log(f"paged kernel phase: {time.monotonic() - t0:.1f}s")
     if kernels_only:
         log(f"total {time.monotonic() - t_start:.1f}s")
         log("kernels-only: not a smoke pass")
@@ -4393,6 +5108,14 @@ def main(argv) -> int:
     oracle = oracle_phase(torch, tmain, sampling_cls, dk, state["cfg"], state["params"],
                           state["prompt_ids"][0], smi)
     log(json.dumps({"oracle": oracle}))
+    paged_run = paged_path(torch, kernel_mods, tmain, sampling_cls, state, smi)
+    log(json.dumps({"paged_path": paged_run}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    gateway, gateway_tokens = gateway_path(torch, kernel_mods, tmain, state, smi)
+    log(json.dumps({"gateway_path": gateway}))
+    gc.collect()
+    torch.cuda.empty_cache()
     batched, batched_results, batched_refs = batched_path(torch, kernel_mods, tmain,
                                                           sampling_cls, state, smi)
     log(json.dumps({"batched_path": batched}))
@@ -4425,8 +5148,15 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tok = tmain.load_tokenizer()
+    # The same swarm then serves a --mode gateway process and a --mode
+    # submit process a tenant.
+    submits = [(tenant, BATCH_PROMPTS[i], gateway_tokens[BATCH_PROMPTS[i]])
+               for i, tenant in ((0, "gold"), (GATEWAY_ORDER.index("bronze"), "bronze"))]
     cli = cli_drive(torch, tok, [(PROMPTS[0], int8_state["f32_chain_results"][0],
-                                  int8_state["requests"][0][1])], smi)
+                                  int8_state["requests"][0][1])], smi,
+                    gateway={"tenants": json.dumps({"tenants": {
+                        t: {"weight": w} for t, w in GATEWAY_WEIGHTS.items()}}),
+                        "submits": submits})
     log(json.dumps({"cli_path": cli}))
     gc.collect()
     torch.cuda.empty_cache()
@@ -4449,7 +5179,9 @@ def main(argv) -> int:
                             nf4_batch, None, tcp["nf4"], None),
                draw_entry(draw, int8_summary["sample_draw"]["launches"],
                           batched["in_process"]["sample_draw_launches"],
-                          burst["engine"]["sample_draw_launches"])]
+                          burst["engine"]["sample_draw_launches"]),
+               paged_entry(paged, paged_run["paged_launches"],
+                           paged_run["oracle"]["paged_launches_second_call"])]
     # The prefix path's prefills: a cold one at its bucket, a warm one at
     # the tail's (each counted alone), and one layer at the cold bucket.
     kernels[0]["prefix_path"] = {

@@ -1,5 +1,5 @@
 """CLI entry point of the PyTorch port: ``--mode local``, ``oracle``,
-``doctor``, ``registry``, ``serve`` and ``client``.
+``doctor``, ``registry``, ``serve``, ``client``, ``gateway`` and ``submit``.
 
 Port of the JAX package's ``main.py`` for these modes:
 
@@ -38,6 +38,19 @@ Port of the JAX package's ``main.py`` for these modes:
     With ``--burst N`` (``client`` and ``local``) the session asks a
     full-span batched peer for N tokens a request, and falls back to the
     per-step loop (a ``burst_fallback`` event) when none is live.
+  * ``--mode gateway`` — the multi-tenant serving front door
+    (``serving/gateway.py``): ``--gateway_clients`` pipeline clients, each
+    with its own stage 0 as ``client`` builds one, against the swarm at
+    ``--registry_addr``, behind the framed-TCP ``submit`` verb; tenants
+    from ``--tenants`` (inline JSON or a file: weight, rate, burst,
+    max_concurrency, SLOs, and the global max_queue_depth / max_active);
+    prints ``GATEWAY addr=... tenants=...``.
+  * ``--mode submit`` — ``--submit_requests`` requests to
+    ``--gateway_addr`` as ``--tenant``, one after another, each printing
+    its tokens (``TOKENS=[..]``) or its shed reason; no weights load. Exit
+    1 only when every request was shed.
+  ``--deadline_s`` gives ``client``, ``local`` and ``submit`` requests an
+  end-to-end budget.
   ``serve`` and ``client`` hold only their stage's weights (every layer is
   still drawn, so the weights equal the full init's), print their peak
   and held device memory as ``PEAK_MEMORY_BYTES=N ALLOCATED_BYTES=M
@@ -85,12 +98,17 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
     python -m ...main --mode client --burst 8 ...
     python -m ...main --mode client --registry_addr 127.0.0.1:31330 \\
         --model llama-3.1-8b --quant int8 --dtype bfloat16 --prompt "Hi"
+    python -m ...main --mode gateway --registry_addr 127.0.0.1:31330 \\
+        --tenants '{"tenants": {"gold": {"weight": 4}, "bronze": {}}}' ...
+    python -m ...main --mode submit --gateway_addr 127.0.0.1:31340 \\
+        --tenant gold --prompt "Hi" --deadline_s 30
 """
 
 from __future__ import annotations
 
 import argparse
 import gc
+import json
 import logging
 import os
 import random
@@ -592,6 +610,99 @@ def run_client(args) -> int:
         _report_peak_memory(device)
 
 
+def _load_tenants_config(raw: Optional[str]):
+    """Parse --tenants: inline JSON (starts with '{') or a file path;
+    omitted means one 'default' tenant with the library defaults."""
+    from .serving import parse_tenants_config
+
+    raw = raw or '{"default": {}}'
+    if not raw.lstrip().startswith("{"):
+        with open(raw) as f:
+            raw = f.read()
+    return parse_tenants_config(json.loads(raw))
+
+
+def run_gateway(args) -> int:
+    """--mode gateway: the multi-tenant serving front door. Owns
+    ``--gateway_clients`` pipeline clients against the swarm at
+    --registry_addr, each with its own stage 0 over one copy of stage 0's
+    weights, and serves the framed-TCP ``submit`` verb until interrupted."""
+    from .runtime.net import RemoteRegistry, TcpTransport
+    from .serving import GatewayServer
+
+    tenants, max_queue_depth, max_active = _load_tenants_config(args.tenants)
+    device = resolve_device(args.device)
+    plan = stage_plan(args, get_config(args.model))
+    registry = RemoteRegistry(args.registry_addr, peers_cache=args.peers_cache)
+    cfg, shard = load_stage_model(args, plan.stages[0])
+    _build_native(args, device)
+    transports, clients = [], []
+    for i in range(max(1, args.gateway_clients)):
+        tx = TcpTransport(registry, wire_dtype=args.wire_dtype, model=args.model)
+        transports.append(tx)
+        stage0 = StageExecutor(cfg, plan.stages[0], shard, peer_id=f"gateway-local-{i}",
+                               device=device, act_dtype=_DTYPE_MAP[args.dtype])
+        clients.append(PipelineClient(cfg, plan, stage0, tx, registry,
+                                      request_timeout=args.request_timeout,
+                                      seed=args.seed, model=args.model,
+                                      metrics=_client_metrics(args)))
+    del shard
+    gw = GatewayServer(clients, tenants, host=args.host, port=args.rpc_port,
+                       max_queue_depth=max_queue_depth, max_active=max_active,
+                       allow_fault_injection=args.allow_fault_injection)
+    gw.start()
+    _report_peak_memory(device)
+    _emit(f"GATEWAY addr={gw.address} tenants={','.join(sorted(tenants))} "
+          f"clients={len(clients)} max_queue_depth={max_queue_depth} "
+          f"max_active={max_active}", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        gw.stop()
+        for tx in transports:
+            tx.close()
+        _report_peak_memory(device)
+    return 0
+
+
+def run_submit(args) -> int:
+    """--mode submit: --submit_requests requests to --gateway_addr as
+    --tenant, one after another. No weights load here (the gateway's swarm
+    holds the model): only the tokenizer, and the preset for its vocabulary."""
+    from .serving import GatewaySubmitClient, Overloaded
+
+    cfg = get_config(args.model)
+    tokenizer = load_tokenizer()
+    prompt_ids = [i % cfg.vocab_size for i in tokenizer.encode(args.prompt)]
+    client = GatewaySubmitClient(args.gateway_addr)
+    shed = 0
+    for i in range(args.submit_requests):
+        t0 = time.perf_counter()
+        try:
+            res = client.submit(
+                args.tenant, prompt_ids, args.max_new_tokens,
+                temperature=args.temperature, top_p=args.top_p, top_k=args.top_k,
+                repetition_penalty=args.repetition_penalty,
+                deadline_s=args.deadline_s, timeout=args.request_timeout)
+        except Overloaded as exc:
+            shed += 1
+            _emit(f"[{i}] SHED ({exc.reason}): retry after "
+                  f"{exc.retry_after_s:.3f}s -- {exc}")
+            continue
+        dt = time.perf_counter() - t0
+        _emit(f"[{i}] {len(res['tokens'])} tokens in {dt:.2f}s "
+              f"(ttft={res['ttft_s'] or 0:.3f}s "
+              f"queue_wait={res['queue_wait_s'] or 0:.3f}s "
+              f"stopped_by={res['stopped_by']}): "
+              f"{tokenizer.decode(res['tokens'])!r}")
+        _emit(f"TOKENS={res['tokens']}")
+    # Shedding is the gateway doing its job; only all-shed is a failure.
+    return 1 if shed == args.submit_requests else 0
+
+
 def run_doctor(args) -> int:
     """Merge flight-recorder dumps onto one timeline and report failure
     chains (error -> retry -> failover -> replay), per-session replay cost
@@ -625,12 +736,13 @@ def _generate_and_report(args, generate_fn, cfg: ModelConfig,
                               top_k=args.top_k,
                               repetition_penalty=args.repetition_penalty)
     kw = {}
-    if args.burst:
-        if pipeline_client:
-            kw["burst"] = args.burst
-        else:
-            logger.warning("--burst is ignored in --mode %s "
-                           "(pipeline-client modes only)", args.mode)
+    for flag in ("deadline_s", "burst"):
+        if getattr(args, flag):
+            if pipeline_client:
+                kw[flag] = getattr(args, flag)
+            else:
+                logger.warning("--%s is ignored in --mode %s "
+                               "(pipeline-client modes only)", flag, args.mode)
     res = generate_fn(prompt_ids, args.max_new_tokens, sampling=sampling,
                       eos_token_id=tokenizer.eos_token_id, **kw)
     _emit(f"\n=== Generation ({len(res.tokens)} tokens, "
@@ -648,7 +760,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.main",
         description="PyTorch/CUDA port of the distributed LLM inference pipeline")
     p.add_argument("--mode", choices=["local", "oracle", "doctor", "registry",
-                                      "serve", "client"], default="local")
+                                      "serve", "client", "gateway", "submit"],
+                   default="local")
     p.add_argument("--model", default="gpt2",
                    help="architecture preset (gpt2, llama-3.1-8b, ...)")
     p.add_argument("--splits", default=None,
@@ -718,6 +831,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve/client: persist the last-known live server "
                         "addresses to PATH (JSON) and load them at start")
     p.add_argument("--request_timeout", type=float, default=60.0)
+    p.add_argument("--deadline_s", type=float, default=None,
+                   help="end-to-end wall-clock budget for the WHOLE "
+                        "generation: each hop ships the seconds remaining, "
+                        "servers refuse already-expired work, and "
+                        "exhaustion raises DeadlineExceeded instead of "
+                        "burning retries (pipeline-client modes and submit)")
+    # The multi-tenant serving gateway (--mode gateway / submit).
+    p.add_argument("--tenants", default=None, metavar="JSON_OR_PATH",
+                   help="gateway mode: tenant table as inline JSON (starts "
+                        "with '{') or a path to a JSON file. Per tenant: "
+                        "weight (fair share), rate + burst (admission "
+                        "token bucket), max_concurrency; top-level "
+                        "max_queue_depth / max_active set the global "
+                        "watermark and the interleaving width. Omitted: "
+                        "one 'default' tenant with library defaults.")
+    p.add_argument("--gateway_addr", default="127.0.0.1:31340",
+                   help="submit mode: the gateway's host:port "
+                        "(--mode gateway prints it at startup)")
+    p.add_argument("--gateway_clients", type=int, default=1,
+                   help="gateway mode: number of PipelineClients the "
+                        "gateway round-robins new sessions across")
+    p.add_argument("--tenant", default="default",
+                   help="submit mode: tenant to submit as")
+    p.add_argument("--submit_requests", type=int, default=1,
+                   help="submit mode: how many requests to fire "
+                        "sequentially")
     p.add_argument("--allow_fault_injection", action="store_true",
                    help="accept the `fault` admin verb (registry and serve "
                         "roles); never on a production swarm")
@@ -798,9 +937,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return run_doctor(args)  # no model needed
     if args.mode == "registry":
         return run_registry(args)
-    if args.mode in ("serve", "client"):
+    if args.mode == "submit":
+        return run_submit(args)  # no model: the gateway's swarm holds it
+    if args.mode in ("serve", "client", "gateway"):
         # Each loads its own stage's weights only.
-        return {"serve": run_serve, "client": run_client}[args.mode](args)
+        return {"serve": run_serve, "client": run_client,
+                "gateway": run_gateway}[args.mode](args)
     cfg, params = load_model(args)
     run = {"local": run_local, "oracle": run_oracle}[args.mode]
     return run(args, cfg, params)

@@ -19,8 +19,11 @@ keeping its layout so the two packages compare like with like:
 
 Every projection goes through `_dot`, which sends packed int8 leaves to
 ``ops.int8_kernel.int8_dot`` and packed NF4 leaves to
-``ops.nf4_kernel.nf4_dot``. MoE, deep prompts, paged decode attention and
-the training forward are not ported yet and are refused loudly.
+``ops.nf4_kernel.nf4_dot``. With ``cfg.decode_kv_page`` set, a decode
+step's attention reads the occupied pages of the cache only
+(``ops.paged_attention_kernel``), under the reference's condition. MoE,
+deep prompts and the training forward are not ported yet and are refused
+loudly.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 from ..ops.attention import CacheLen, cached_attention, update_kv_cache
 from ..ops.int8_kernel import int8_dot
 from ..ops.nf4_kernel import nf4_dot
+from ..ops.paged_attention_kernel import paged_decode_attention
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rotary import apply_rope, rope_cos_sin
 from .config import ModelConfig
@@ -44,8 +48,6 @@ Params = Dict[str, Any]
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError("MoE layers are not ported yet")
-    if cfg.decode_kv_page:
-        raise NotImplementedError("paged decode attention is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -323,9 +325,17 @@ def _attention(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     update_kv_cache(k_cache, v_cache, k, v, cache_len)
-    out = cached_attention(q, k_cache, v_cache, cache_len,
-                           sliding_window=window, scale=cfg.query_scale,
-                           logit_softcap=cfg.attn_softcap)
+    if (cfg.decode_kv_page and t == 1 and window is None
+            and not cfg.attn_softcap and not cfg.query_scale
+            and k_cache.shape[1] % cfg.decode_kv_page == 0):
+        # The reference's condition (models/transformer.py:436-440): the
+        # decode step reads only the pages that hold real rows.
+        out = paged_decode_attention(q, k_cache, v_cache, cache_len,
+                                     cfg.decode_kv_page)
+    else:
+        out = cached_attention(q, k_cache, v_cache, cache_len,
+                               sliding_window=window, scale=cfg.query_scale,
+                               logit_softcap=cfg.attn_softcap)
     y = _dot(out.reshape(b, t, -1), p["wo"])
     if "bo" in p:
         y = y + p["bo"]

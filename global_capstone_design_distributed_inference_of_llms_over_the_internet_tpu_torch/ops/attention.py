@@ -18,6 +18,12 @@ be captured as a CUDA graph and replayed at other lengths
 the whole cache bucket and the causal mask hides the rows at or past
 ``cache_len + T``, as the reference's jitted step does.
 
+`paged_decode_attention` is the plain version of the reference's decode
+attention over the occupied pages (``decode_kv_page``). It walks the pages
+with a trip count read to the host, so a captured step cannot run it: on
+the card the layer launches its kernel (``ops/paged_attention_kernel.py``),
+which reads ``cache_len`` on the device.
+
 The slot-major engine (``runtime/batching.py``) has its own pair:
 `slot_cache_write` writes each slot's rows at that slot's own length (an
 ``[S]`` device tensor) under an ``[S]`` active mask, and `slot_attention`
@@ -65,6 +71,54 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_cache.index_copy_(1, pos, k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, pos, v_new.to(v_cache.dtype))
     return k_cache, v_cache
+
+
+def paged_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, cache_len: CacheLen,
+                           page: int) -> torch.Tensor:
+    """Single-token decode attention over the occupied pages of the cache:
+    the plain version of the reference's ``paged_decode_attention``
+    (``ops/attention.py:58-114``), line for line. q: [B, 1, H, Dh];
+    k_cache/v_cache: [B, S, Hkv, Dh] with the new key already written at
+    cache_len; S % page must be 0. Returns [B, 1, H, Dh] in q's dtype.
+
+    The online-softmax (flash) accumulation walks pages 0 .. cache_len //
+    page in order: q scaled in its own dtype, scores summed in float32,
+    positions past cache_len masked, a float32 running max and
+    denominator, the weights cast to v's dtype for the value product,
+    which sums in float32. The trip count is read to the host, so this
+    version is not for a captured step: on the card the layer launches
+    the kernel (``ops/paged_attention_kernel.py``), which reads cache_len
+    on the device."""
+    b, t, h, dh = q.shape
+    if t != 1:
+        raise ValueError(f"paged decode attention takes T == 1, got {t}")
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    groups = h // hkv
+    if s % page:
+        raise ValueError(f"cache bucket {s} not divisible by page {page}")
+    cl = int(cache_len)
+    qg = (q * (dh ** -0.5)).reshape(b, hkv, groups, dh)
+    n_pages = (cl + page) // page   # keys 0..cache_len inclusive
+    m = torch.full((b, hkv, groups), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, groups), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, groups, dh), dtype=torch.float32, device=q.device)
+    for j in range(n_pages):
+        kp = k_cache[:, j * page:(j + 1) * page]
+        vp = v_cache[:, j * page:(j + 1) * page]
+        sc = torch.einsum("bhgd,bphd->bhgp", qg.float(), kp.float())
+        pos = j * page + torch.arange(page, device=q.device)
+        sc = torch.where((pos <= cl)[None, None, None, :], sc,
+                         torch.full_like(sc, NEG_INF))
+        m2 = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp(m - m2)
+        w = torch.exp(sc - m2[..., None])
+        l = l * corr + w.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgp,bphd->bhgd", w.to(vp.dtype).float(), vp.float())
+        m = m2
+    out = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
 def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,

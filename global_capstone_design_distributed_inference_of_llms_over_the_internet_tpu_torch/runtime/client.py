@@ -39,8 +39,18 @@ session across burst boundaries, and the client's per-token stop scan
 stays the authority. With no full-span batched peer live the session
 falls back to the per-step loop and emits ``burst_fallback``.
 
-Module and latency routing, push chains, beam and speculative decoding,
-deep prompts, deadlines and their telemetry hooks are not ported yet.
+Deadlines and priority as the reference's (``client.py:725-745``,
+``:931-958``, ``:1599-1679``): ``generate(..., deadline_s=)`` sets an
+end-to-end budget, ``generate_stepwise(..., deadline_at=, priority=)``
+takes the gateway's absolute deadline and tenant priority. Every remote
+hop, and every request of the burst path, carries the budget left when it
+is sent (``deadline_budget_s``) and the session's priority; a spent budget
+raises `DeadlineExceeded` before the hop is dialed, counted in
+``client_deadline_expired_total`` with a ``deadline_expired`` event. As in
+the reference, stage 0 (in process) and replays carry neither.
+
+Module and latency routing, push chains, beam and speculative decoding and
+deep prompts are not ported yet.
 
 Deliberate difference: journal entries keep the activation tensor on its
 device (tensors are never modified after they are sent), where the
@@ -72,7 +82,7 @@ from . import errors as _errors
 from .errors import register as _catalog
 from .executor import StageExecutor
 from .messages import StageRequest, StageResponse, clip_generated
-from .transport import PeerUnavailable, Transport
+from .transport import DeadlineExceeded, PeerUnavailable, Transport
 
 logger = logging.getLogger(__name__)
 
@@ -296,6 +306,10 @@ class PipelineClient:
         self._m_route_hops = _tm.get("scheduler_route_hops")
         self._m_route_evictions = _tm.get("client_route_cache_evictions_total",
                                           self.metrics)
+        self._m_deadline = _tm.get("client_deadline_expired_total", self.metrics)
+        # Gateway-assigned tenant priority of each live session (lower = more
+        # urgent), stamped on every request the session sends.
+        self._session_priority: Dict[str, float] = {}
         # Seeded with the client seed so fault runs reproduce.
         self.breaker = CircuitBreaker(seed=seed, metrics=self.metrics)
 
@@ -350,6 +364,24 @@ class PipelineClient:
         else:
             self._routes[key] = self._routes.pop(key)      # LRU touch
         return self._routes[key]
+
+    def _deadline_budget(self, deadline_at: Optional[float], session_id: str, *,
+                         trace_id=None, peer: Optional[str] = None) -> Optional[float]:
+        """The end-to-end budget left (seconds), or None for a session
+        without a deadline. A spent budget raises `DeadlineExceeded` here,
+        before any hop is dialed, with the ``deadline_expired`` event: the
+        client's side of the server's ``deadline_rejected`` refusal."""
+        if deadline_at is None:
+            return None
+        remaining = deadline_at - time.monotonic()
+        if remaining <= 0.0:
+            self._m_deadline.inc()
+            _ev.emit("deadline_expired", session_id=session_id, trace_id=trace_id,
+                     peer=peer, over_s=round(-remaining, 6))
+            raise DeadlineExceeded(
+                f"session {session_id}: deadline exceeded ({-remaining:.3f}s past) "
+                f"before dialing {peer or 'the next hop'}")
+        return remaining
 
     # ------------------------------------------------------------------
     # Journal
@@ -476,19 +508,23 @@ class PipelineClient:
               session_id: str, *, is_prefill: bool, max_length: int,
               sampling: SamplingParams, generated: Sequence[int] = (),
               step_seed: int = 0, stage_times: Dict[str, float],
-              root, prefix_len: int = 0, affinity: Optional[str] = None
-              ) -> StageResponse:
+              root, prefix_len: int = 0, affinity: Optional[str] = None,
+              deadline_at: Optional[float] = None) -> StageResponse:
         """Send the activation through every remote hop of the session's
         route (keyed by its `max_length` and prompt-head `affinity`), each
         call through the recovery wrapper; return the final hop's response
-        (a sampled token). A prefill carries `prefix_len` to every hop.
-        `root` is the step's root span, opened by the generation loop so
-        that stage 0 and every hop share one trace (the no-op span with
-        tracing off)."""
+        (a sampled token). A prefill carries `prefix_len` to every hop;
+        every hop the budget left of `deadline_at` as it is sent (earlier
+        hops' time already spent) and the session's priority. `root` is
+        the step's root span, opened by the generation loop so that stage 0
+        and every hop share one trace (the no-op span with tracing off)."""
         phase = "prefill" if is_prefill else "decode"
         tracer = get_tracer()
         cur = hidden
         for i, hop in enumerate(self.route(min_context=max_length, affinity=affinity)):
+            budget = self._deadline_budget(deadline_at, session_id,
+                                           trace_id=root.trace_id if root else None,
+                                           peer=hop.peer_id)
             req = StageRequest(
                 session_id=session_id, hidden=cur, seq_len=seq_len,
                 cur_len=cur_len, is_prefill=is_prefill, max_length=max_length,
@@ -496,7 +532,9 @@ class PipelineClient:
                 step_seed=step_seed, start_block=hop.start_block,
                 end_block=hop.end_block,
                 prefix_len=prefix_len if is_prefill else 0,
-                trace=root.wire_context(hop=i) if root else None)
+                trace=root.wire_context(hop=i) if root else None,
+                deadline_budget_s=budget,
+                priority=self._session_priority.get(session_id))
             hop_span = tracer.start_span(
                 f"hop:{hop.key}", trace_id=root.trace_id,
                 parent_id=root.span_id, kind="client", peer=hop.peer_id,
@@ -534,13 +572,19 @@ class PipelineClient:
                  session_id: Optional[str] = None,
                  max_length: Optional[int] = None,
                  speculative_k: int = 0, deep_prompts=None,
+                 deadline_s: Optional[float] = None,
                  burst: int = 0) -> GenerationResult:
+        """One generation. ``deadline_s`` sets an end-to-end wall-clock
+        budget for the whole of it: each hop carries the seconds left,
+        servers refuse work that arrives spent, and a spent budget raises
+        `DeadlineExceeded` (not retryable) instead of burning failover
+        attempts."""
         result: Optional[GenerationResult] = None
         for step in self.generate_stepwise(
                 prompt_ids, max_new_tokens, sampling=sampling,
                 eos_token_id=eos_token_id, session_id=session_id,
                 max_length=max_length, speculative_k=speculative_k,
-                deep_prompts=deep_prompts, burst=burst):
+                deep_prompts=deep_prompts, deadline_s=deadline_s, burst=burst):
             if step.done:
                 result = step.result
         assert result is not None  # the generator's final yield carries it
@@ -552,15 +596,24 @@ class PipelineClient:
                           session_id: Optional[str] = None,
                           max_length: Optional[int] = None,
                           speculative_k: int = 0, deep_prompts=None,
+                          deadline_s: Optional[float] = None,
+                          deadline_at: Optional[float] = None,
+                          priority: Optional[float] = None,
                           burst: int = 0) -> Iterator[GenerationStep]:
         """Incremental ``generate``: yields after the prefill and after every
-        decode step (with ``burst > 0``, after every burst). The per-step
-        sampling seed is ``self.seed + len(generated)``, purely
-        session-local, so a burst's tokens are the per-step loop's. Session
-        state (KV leases, journal) is released when the generator finishes
-        or is closed. ``speculative_k`` and ``deep_prompts`` are the
-        reference's arguments: not ported, they raise (``ValueError``
-        beside ``burst``, as the reference's)."""
+        decode step (with ``burst > 0``, after every burst), so a caller (the
+        serving gateway) can interleave many sessions a step at a time. The
+        per-step sampling seed is ``self.seed + len(generated)``, purely
+        session-local, so interleaving changes no session's tokens and a
+        burst's tokens are the per-step loop's. ``deadline_at`` is an
+        absolute ``time.monotonic()`` deadline (it overrides
+        ``deadline_s``): the gateway stamps it at admission, so queue wait
+        spends the budget. ``priority`` is the gateway's tenant priority
+        (lower = more urgent), stamped on every request of the session.
+        Session state (KV leases, journal, priority) is released when the
+        generator finishes or is closed. ``speculative_k`` and
+        ``deep_prompts`` are the reference's arguments: not ported, they
+        raise (``ValueError`` beside ``burst``, as the reference's)."""
         if burst > 0 and (speculative_k > 0 or deep_prompts is not None):
             raise ValueError(
                 "burst decode samples on-device and is incompatible with "
@@ -570,6 +623,10 @@ class PipelineClient:
                 "speculative decoding and deep prompts are not ported (ROADMAP "
                 "Queue 1 #3)")
         session_id = session_id or f"sess-{time.monotonic_ns():x}"
+        if priority is not None:
+            self._session_priority[session_id] = float(priority)
+        if deadline_at is None and deadline_s is not None:
+            deadline_at = time.monotonic() + deadline_s
         _ev.emit("session_start", session_id=session_id,
                  prompt_len=len(prompt_ids), max_new_tokens=max_new_tokens)
         recoveries_before = self.recoveries
@@ -580,10 +637,11 @@ class PipelineClient:
             for step in generate_steps(
                     prompt_ids, max_new_tokens, sampling=sampling or SamplingParams(),
                     eos_token_id=eos_token_id, session_id=session_id,
-                    max_length=max_length, **kw):
+                    max_length=max_length, deadline_at=deadline_at, **kw):
                 tokens_out += len(step.new_tokens)
                 yield step
         finally:
+            self._session_priority.pop(session_id, None)
             self._end_session(session_id)
             _ev.emit("session_end", session_id=session_id,
                      tokens=tokens_out or None,
@@ -591,7 +649,8 @@ class PipelineClient:
 
     def _generate_steps(self, prompt_ids: Sequence[int], max_new_tokens: int, *,
                         sampling: SamplingParams, eos_token_id: Optional[int],
-                        session_id: str, max_length: Optional[int]
+                        session_id: str, max_length: Optional[int],
+                        deadline_at: Optional[float] = None
                         ) -> Iterator[GenerationStep]:
         prompt_len = len(prompt_ids)
         max_length = max_length or prompt_len + max_new_tokens
@@ -620,7 +679,8 @@ class PipelineClient:
                               is_prefill=True, max_length=max_length,
                               sampling=sampling, generated=generated,
                               step_seed=self.seed, stage_times=times, root=root,
-                              prefix_len=prompt_len, affinity=affinity)
+                              prefix_len=prompt_len, affinity=affinity,
+                              deadline_at=deadline_at)
         finally:
             root.end()
         ttft = time.monotonic() - t0
@@ -655,7 +715,7 @@ class PipelineClient:
                                   sampling=sampling, generated=generated,
                                   step_seed=self.seed + len(generated),
                                   stage_times=times, root=step_span,
-                                  affinity=affinity)
+                                  affinity=affinity, deadline_at=deadline_at)
             finally:
                 step_span.end()
             dt = time.monotonic() - t0
@@ -688,7 +748,8 @@ class PipelineClient:
 
     def _generate_steps_burst(self, prompt_ids: Sequence[int], max_new_tokens: int, *,
                               sampling: SamplingParams, eos_token_id: Optional[int],
-                              session_id: str, max_length: Optional[int], burst: int
+                              session_id: str, max_length: Optional[int], burst: int,
+                              deadline_at: Optional[float] = None
                               ) -> Iterator[GenerationStep]:
         """The burst counterpart of `_generate_steps` (the reference's
         ``_generate_steps_burst``, ``client.py:1589-1715``): the prompt's
@@ -707,7 +768,7 @@ class PipelineClient:
             yield from self._generate_steps(
                 prompt_ids, max_new_tokens, sampling=sampling,
                 eos_token_id=eos_token_id, session_id=session_id,
-                max_length=max_length)
+                max_length=max_length, deadline_at=deadline_at)
             return
         hop = Hop(key=BURST_HOP_KEY, peer_id=peer, start_block=0,
                   end_block=self.total_blocks, expect_token=True)
@@ -720,7 +781,10 @@ class PipelineClient:
             session_id=session_id, hidden=ids, seq_len=prompt_len, cur_len=0,
             is_prefill=True, max_length=max_length, sampling=sampling,
             step_seed=self.seed, start_block=hop.start_block,
-            end_block=hop.end_block, prefix_len=prompt_len))
+            end_block=hop.end_block, prefix_len=prompt_len,
+            deadline_budget_s=self._deadline_budget(deadline_at, session_id,
+                                                    peer=hop.peer_id),
+            priority=self._session_priority.get(session_id)))
         if not resp.is_token:
             raise RuntimeError(f"burst peer {hop.peer_id} returned no prefill token")
         self._journal_append(hop.key, session_id, JournalEntry(ids, prompt_len, 0))
@@ -753,7 +817,10 @@ class PipelineClient:
                 start_block=hop.start_block, end_block=hop.end_block,
                 burst_len=burst,
                 burst_budget=min(burst, max_new_tokens - len(generated)),
-                eos_token_id=eos_token_id))
+                eos_token_id=eos_token_id,
+                deadline_budget_s=self._deadline_budget(deadline_at, session_id,
+                                                        peer=hop.peer_id),
+                priority=self._session_priority.get(session_id)))
             if not resp.is_burst:
                 raise RuntimeError(f"burst peer {hop.peer_id} returned no token block")
             toks = list(resp.burst_tokens)

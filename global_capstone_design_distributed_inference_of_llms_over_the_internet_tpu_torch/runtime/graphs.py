@@ -54,7 +54,7 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..ops import draw_kernel, int8_kernel, launch_counts, nf4_kernel
+from ..ops import draw_kernel, int8_kernel, launch_counts, nf4_kernel, paged_attention_kernel
 from ..ops.sampling import RECENT_WINDOW, SamplingParams, sample_token
 from ..ops.threefry import fold_in, prng_key
 
@@ -63,7 +63,7 @@ _COUNTERS = ((int8_kernel, "_launches"), (int8_kernel, "_launches_mma"),
              (int8_kernel, "_launches_gemv"), (int8_kernel, "_launches_f32mma"),
              (nf4_kernel, "_launches"), (nf4_kernel, "_launches_mma"),
              (nf4_kernel, "_launches_gemv"), (nf4_kernel, "_launches_f32mma"),
-             (draw_kernel, "_launches"))
+             (draw_kernel, "_launches"), (paged_attention_kernel, "_launches"))
 
 
 def _add_counts(delta: Tuple[int, ...]) -> None:

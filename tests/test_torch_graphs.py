@@ -493,7 +493,7 @@ def test_capture_counts_launches_per_replay(monkeypatch, stub_graphs):
     assert (tik._launches, tik._launches_mma, tik._launches_gemv, tik._launches_f32mma,
             tnk._launches, tnk._launches_mma, tnk._launches_gemv, tnk._launches_f32mma,
             tdk._launches) == (105, 11, 21, 31, 104, 10, 21, 41, 51)
-    assert captured.launches == (5, 1, 1, 1, 4, 0, 1, 1, 1)
+    assert captured.launches == (5, 1, 1, 1, 4, 0, 1, 1, 1, 0)
     captured.graph.fn = lambda: out                 # a replay runs no wrapper
     for _ in range(3):
         captured.replay()
@@ -569,7 +569,7 @@ def test_capture_charges_no_launch_of_another_thread(monkeypatch, stub_graphs):
     first = tgraphs.capture(lambda: launch_counts.count(tik, "_launches") or out,
                             None, None)
     first.graph.fn = lambda: out
-    assert first.launches == (1, 0, 0, 0, 0, 0, 0, 0, 0)
+    assert first.launches == (1, 0, 0, 0, 0, 0, 0, 0, 0, 0)
     recording, other_done = threading.Event(), threading.Event()
     calls = []
 
@@ -595,7 +595,7 @@ def test_capture_charges_no_launch_of_another_thread(monkeypatch, stub_graphs):
     second = tgraphs.capture(step, None, None)
     thread.join(10.0)
     assert not thread.is_alive() and len(calls) == 2
-    assert second.launches == (0, 0, 0, 0, 2, 0, 0, 0, 0)
+    assert second.launches == (0, 0, 0, 0, 2, 0, 0, 0, 0, 0)
     # first's warm-up 1 + 5 replays + 3 eager; step's warm-up 2.
     assert (tik._launches, tik._launches_mma, tnk._launches, tnk._launches_mma) == \
         (9, 3, 2, 0)

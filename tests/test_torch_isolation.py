@@ -4,7 +4,7 @@ scripts/torch_profile_decode.py, imports jax, jaxlib or the JAX package
 from the JAX package have not drifted from their originals (the NF4 code
 book among them, the placement registry, which differs from its original
 only in its module docstring, and the byte-equal copies of the chaos
-layer, the task pool and the wire codec's source)."""
+layer, the task pool, the wire codec's source and the serving gateway)."""
 
 import ast
 import dataclasses
@@ -92,7 +92,8 @@ def test_every_port_module_imports_with_jax_blocked():
     assert f"imported {len(mods)}" in proc.stdout
 
 
-@pytest.mark.parametrize("module", ["draw_kernel", "int8_kernel", "nf4_kernel"])
+@pytest.mark.parametrize("module", ["draw_kernel", "int8_kernel", "nf4_kernel",
+                                    "paged_attention_kernel"])
 def test_importing_a_kernel_wrapper_builds_nothing(module):
     """A kernel wrapper, the sampler and the graphs import without building
     or loading any library: the build waits for the first launch (or
@@ -153,11 +154,14 @@ def _without_module_docstring(path):
 
 
 @pytest.mark.parametrize("rel", ["runtime/faults.py", "runtime/task_pool.py",
-                                 "csrc/codec.cpp"])
+                                 "csrc/codec.cpp", "serving/__init__.py",
+                                 "serving/admission.py", "serving/fair_queue.py",
+                                 "serving/gateway.py"])
 def test_byte_equal_copies(rel):
-    """The chaos layer, the task pool and the wire codec's C++ source are
-    copies of the JAX package's, byte for byte (the codec's lives in its
-    ``native/``)."""
+    """The chaos layer, the task pool, the wire codec's C++ source and the
+    serving gateway (admission, fair queue, gateway; their relative imports
+    resolve to the port's own runtime, ops and telemetry) are copies of the
+    JAX package's, byte for byte (the codec's lives in its ``native/``)."""
     original = rel.replace("csrc/", "native/")
     assert (REPO / PORT_PKG / rel).read_bytes() == (REPO / JAX_PKG / original).read_bytes()
 
