@@ -304,13 +304,44 @@ on the kernels; it never prints the last line of a smoke pass.)
    --batched --burst 8`` and two ``--mode client --burst 8`` processes at
    once, whose generations and ``TOKENS=`` ids must equal the in-process
    burst clients'; prints ``burst_cli_path``.
+11c. Elastic CLI drive (``elastic_cli_path``): ``--mode registry``, then 3 x
+   ``--mode serve --use_load_balancing --num_blocks 8 --splits 8`` (int8,
+   bfloat16, wire f32), each started once the one before it prints
+   ``SERVING elastic``: their spans must be [8,16), [16,24), [24,32);
+   ``--mode status --splits 8 --total_blocks 32`` must exit 0 and print
+   ``coverage: [0,8) client-local; [8,32)x1``; ``--mode client
+   --use_load_balancing --splits 8`` must print step 8's in-process int8
+   float32 chain's generation and ``TOKENS=`` ids. Peaks scraped, every
+   child killed whatever happens; its seconds printed.
+12a. Elastic path (after the prefix path, on the int8 path's weights;
+   ``elastic_path``): ``--mode local --use_load_balancing`` built by
+   ``main``'s functions, 3 elastic servers, each warmed up and probing
+   its throughput (``probe_throughput=True``): the spans must be [8,16),
+   [16,24), [24,32); each probe (2 untimed and 10 timed one-token
+   forwards, each ending in a device sync) must capture nothing in its
+   timed steps, launch ``int8_dot`` exactly 4 x 8 x 12 times, all on the
+   decode kernel (the route ``_route`` gives a bf16 row), and advertise
+   its compute term (below the network term; the compute rps, the network
+   term and the advertised value printed). Step 5's 3 requests run on the
+   fixed split again and twice on the swarm: greedy tokens equal the
+   fixed split's, the sampled one held as in step 5, every projection on
+   ``int8_dot`` (tensor cores or the decode kernel). A fourth server on
+   [16,28) forces a sub-span hop into [24,32) (its captures printed):
+   same tokens. Re-span: with it gone, one server stacked on [8,16)
+   leaves [16,24) uncovered and ``maybe_rebalance`` moves it back; held
+   memory must grow by at most 1 GiB (seconds, allocated and reserved
+   memory printed); same tokens. Failover: the fourth server joins as a
+   replica of [16,24), the pinned module-routed peer is killed after its
+   3rd decode step, and the client must recover onto the replica with
+   the fault-free tokens (the recovery step printed).
+   ``derive_num_blocks`` on the card is printed.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``, ``paged_decode_attention`` with the paged path's
    launches and its times at the paged path's shape; each matmul with its
    launches by route in process and over TCP, the batched path's and the
    burst path's launches by route, and its M = 8 and float32 prefill
    layers; the prefix path's prefills by route and bucket and its layer at
-   M = 1024) and
+   M = 1024; the elastic path's requests and probes by route) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -3132,7 +3163,7 @@ def _stderr_tail(path: pathlib.Path, n: int = 30) -> str:
 
 
 def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), client_argv=(),
-              gateway=None):
+              gateway=None, status=None):
     """The port's swarm as processes on the card: a registry, a server a
     stage of `stages` (int8, bfloat16, seed 0, wire f32, and `serve_argv`)
     and one client a `wants` entry (prompt, the in-process result its
@@ -3145,13 +3176,17 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
     after the clients a ``--mode gateway`` process joins the same swarm and
     a ``--mode submit`` process a submit runs at once, each greedy: every
     submit exits 0 and its ``TOKENS=`` ids equal the in-process gateway's
-    for its prompt. Returns the summary."""
+    for its prompt. With `status` ({"argv": [...], "coverage": line}),
+    once the servers serve, a ``--mode status`` process must exit 0 and
+    print that coverage line. Returns the summary (with each server's
+    ``SERVING`` line)."""
     main = [sys.executable, "-m", PORT + ".main"]
     model_args = ["--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
                   "--seed", "0", "--device", "cuda", "--wire_dtype", "f32"]
     env = dict(os.environ, PYTHONIOENCODING="utf-8", PYTHONUNBUFFERED="1")
     procs = []
     peaks, held, reserved = {}, {}, {}
+    serving = []
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
 
@@ -3178,7 +3213,24 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
                 peak = re.search(r"PEAK_MEMORY_BYTES=(\d+)", out.read_text())
                 peaks[f"stage{k}_at_start"] = peak and int(peak.group(1))
                 start_s[f"stage{k}"] = time.monotonic() - t0
+                serving.append(line)
                 log(f"cli: {line} ({start_s[f'stage{k}']:.1f}s)")
+            status_view = None
+            if status is not None:
+                t0 = time.monotonic()
+                proc, out = spawn("status", ["--mode", "status", "--registry_addr", addr,
+                                             *status["argv"]])
+                code = proc.wait(timeout=CLI_STEP_TIMEOUT_S)
+                lines = out.read_text(errors="replace").splitlines()
+                coverage = [line for line in lines if line.startswith("coverage:")]
+                status_view = {"exit": code, "coverage": coverage, "lines": lines,
+                               "run_s": time.monotonic() - t0}
+                log(f"cli status: exit {code} ({status_view['run_s']:.1f}s)\n  "
+                    + "\n  ".join(lines))
+                if code != 0 or coverage != [status["coverage"]]:
+                    raise AssertionError(f"cli status: exit {code}, coverage {coverage}, "
+                                         f"want 0 and {status['coverage']!r}:\n"
+                                         + _stderr_tail(tmp / "status.err"))
             t0 = time.monotonic()
             clients = []
             for i, (prompt, _, sp) in enumerate(wants):
@@ -3197,7 +3249,7 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
                 stdout = out.read_bytes().decode("utf-8", errors="replace")
                 if code != 0:
                     raise AssertionError(f"client {i} exited {code}:\n"
-                                         + _stderr_tail(procs[1 + len(stages) + i][2], 60))
+                                         + _stderr_tail(tmp / f"client{i}.err", 60))
                 expect = (f"=== Generation ({len(want.tokens)} tokens, stopped by "
                           f"{want.stopped_by}) ===\n{tok.decode(want.tokens)}\n")
                 if expect not in stdout:
@@ -3293,8 +3345,11 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
                        "reserved_memory_gb": {k: v and v / 1e9
                                               for k, v in reserved.items()},
                        "start_s": start_s, "client_run_s": client_s, "card": smi}
+            summary["serving"] = serving
             if gateway_view is not None:
                 summary["gateway"] = gateway_view
+            if status_view is not None:
+                summary["status"] = status_view
             log(f"cli: ttft {[round(t * 1e3) for t in ttft]} ms, decode "
                 f"{[round(v, 2) for v in summary['decode_ms_per_token_mean_printed']]} "
                 f"ms/token (mean, printed); peaks GB {summary['peak_memory_gb']}; held GB "
@@ -4832,6 +4887,244 @@ def prefix_path(torch, kernels, tmain, sampling_cls, state, bw: float, flops: fl
     return out
 
 
+def elastic_probe(torch, server_cls, kernels, probes: dict):
+    """Wrap `server_cls._probe` so that each elastic server's probe runs
+    with every launch count at 0 and is read just after: its `int8_dot`
+    launches by route, its steps (seconds, captures) and what it
+    advertised. Returns the original, to put back."""
+    original = server_cls._probe
+    ik = kernels["int8_dot"]
+
+    def probe(server):
+        reset_counts(kernels, [])
+        advertised = original(server)
+        torch.cuda.synchronize()
+        probes[server.peer_id] = {"span": [server.spec.start, server.spec.end],
+                                  "advertised": advertised, "routes": int8_routes(ik),
+                                  "steps": list(server.probe_steps)}
+        return advertised
+
+    server_cls._probe = probe
+    return original
+
+
+def probe_gate(what: str, probe: dict, layers: int, hidden: int, throughput) -> dict:
+    """A probe times 2 untimed and 10 timed one-token forwards of its span:
+    no capture in a timed step, exactly 4 x layers x 12 `int8_dot` launches,
+    all on the route `_route` gives a one-row bf16 x ("gemv"), and the
+    advertised value is the compute term (10 / the timed steps' seconds,
+    times 2 / (layers + 1)), below the network term."""
+    steps = probe["steps"]
+    timed = [st for st in steps if st["timed"]]
+    captures_timed = sum(st["captures"] for st in timed)
+    compute_rps = len(timed) / sum(st["seconds"] for st in timed)
+    compute_term = compute_rps * 2.0 / (layers + 1)
+    network = throughput.estimate_network_rps(None, throughput.hidden_request_bytes(hidden))
+    forwards = throughput.WARMUP_STEPS + throughput.TIMED_STEPS
+    want = {"mma": 0, "gemv": 4 * layers * forwards, "f32mma": 0, "simt": 0}
+    log(f"{what} {probe['span']}: compute {compute_rps:.1f} rps over {len(timed)} timed "
+        f"steps ({1e3 / compute_rps:.3f} ms a forward), compute term {compute_term:.2f}, "
+        f"network {network:.1f} rps, advertised {probe['advertised']:.2f}; captures in "
+        f"the timed steps {captures_timed} (untimed "
+        f"{sum(st['captures'] for st in steps) - captures_timed}); int8_dot {probe['routes']}")
+    if (len(steps) != forwards or len(timed) != throughput.TIMED_STEPS or captures_timed
+            or probe["routes"] != want or not compute_term < network
+            or abs(probe["advertised"] - compute_term) > 0.02 * compute_term):
+        raise AssertionError(f"{what}: probe {probe}: want {forwards} steps, no capture in "
+                             f"the timed ones, int8_dot {want}, and the compute term "
+                             f"{compute_term:.2f} (< network {network:.1f}) advertised")
+    return {"span": probe["span"], "compute_rps": compute_rps,
+            "forward_ms": 1e3 / compute_rps, "compute_term": compute_term,
+            "network_rps": network, "advertised": probe["advertised"],
+            "captures_timed": captures_timed, "int8_dot_launches_by_route": probe["routes"]}
+
+
+def elastic_requests(torch, kernels, client, servers, state, what: str, gate_launches=True):
+    """The 3 requests of step 5 through the elastic swarm (routes planned
+    anew, every count set to 0 just before): greedy tokens equal the
+    fixed-split in-process run's, the sampled one held to its reference;
+    with `gate_launches`, every projection on `int8_dot`, each launch a
+    prefill on the tensor cores or a decode step on the decode kernel."""
+    ik = kernels["int8_dot"]
+    cfg = state["cfg"]
+    client._routes.clear()
+    executors = [client.stage0] + [s.executor for s in servers if s.executor is not None]
+    reset_counts(kernels, executors)
+    results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
+               for ids, (_, sp) in zip(state["prompt_ids"], state["requests"])]
+    torch.cuda.synchronize()
+    routes = int8_routes(ik)
+    tokens = sum(len(r.tokens) for r in results)
+    for i, (r, (_, sp)) in enumerate(zip(results, state["requests"])):
+        if sp.greedy and r.tokens != state["results"][i].tokens:
+            raise AssertionError(f"{what}: greedy request {i} gave {r.tokens}, the fixed "
+                                 f"split {state['results'][i].tokens}")
+    hold_requests(torch, cfg, state["ref_params"],
+                  [ref for ref, (_, sp) in zip(state["references"], state["requests"])
+                   if not sp.greedy],
+                  [r for r, (_, sp) in zip(results, state["requests"]) if not sp.greedy],
+                  what)
+    need = 4 * cfg.num_layers * tokens
+    log(f"{what}: greedy tokens equal the fixed split's; int8_dot {ik._launches} launches "
+        f"(>= 4 x {cfg.num_layers} x {tokens} = {need}) {routes}")
+    if gate_launches and (ik._launches < need or routes["simt"] or routes["f32mma"]):
+        raise AssertionError(f"{what}: int8_dot {routes}, want >= {need} launches on the "
+                             "tensor cores and the decode kernel only")
+    hops = [(h.key, h.peer_id, h.start_block, h.end_block) for h in client.route(
+        min_context=max(len(ids) for ids in state["prompt_ids"]) + MAX_NEW_TOKENS)]
+    return {"results": results, "tokens": tokens, "int8_dot_launches": ik._launches,
+            "int8_dot_launches_by_route": routes, "hops": hops,
+            "captures": {ex.peer_id: ex.graphs.captures for ex in executors},
+            "ttft_ms": [r.ttft_s * 1e3 for r in results],
+            **greedy_and_sampled_ms(results, state["requests"])}
+
+
+def elastic_path(torch, kernels, tmain, state, smi: str) -> dict:
+    """Step 12a: ``--mode local --use_load_balancing`` on the int8 path's
+    weights, built by ``main``'s functions (3 elastic servers of 8 blocks,
+    stage 0 in the client), each server warmed up and probed. Gates: the
+    spans [8,16), [16,24), [24,32); each probe (`probe_gate`); step 5's
+    requests (`elastic_requests`); a fourth server on [16,28) forces a
+    sub-span hop into [24,32), same tokens; re-span: with it gone, one
+    server stacked on [8,16) leaves [16,24) uncovered, rule 2 moves it
+    back, held memory grows <= 1 GiB, same tokens; failover: a replica of
+    [16,24) joins, the pinned peer is killed after its 3rd decode step, the
+    client recovers onto the replica with the fault-free tokens."""
+    from importlib import import_module
+
+    server_mod = import_module(PORT + ".runtime.server")
+    throughput = import_module(PORT + ".scheduling.throughput")
+    t_phase = time.monotonic()
+    cfg, params = state["cfg"], state["params"]
+    args = tmain.build_parser().parse_args(
+        ["--mode", "local", "--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
+         "--device", "cuda", "--seed", "0", "--use_load_balancing"])
+    probes = {}
+    original = elastic_probe(torch, server_mod.ElasticStageServer, kernels, probes)
+    try:
+        t0 = time.monotonic()
+        client, servers = tmain.build_local_swarm(args, cfg, params, probe_throughput=True,
+                                                  warmup=True)
+        torch.cuda.synchronize()
+        setup_s = time.monotonic() - t0
+        spans = [[s.spec.start, s.spec.end] for s in servers]
+        log(f"elastic: {len(servers)} servers joined in {setup_s:.1f}s, spans {spans}")
+        if spans != [[8, 16], [16, 24], [24, 32]]:
+            raise AssertionError(f"elastic: spans {spans}, want [8,16), [16,24), [24,32)")
+        probe_view = [probe_gate(f"elastic probe {s.peer_id}", probes[s.peer_id],
+                                 s.spec.num_layers, cfg.hidden_size, throughput)
+                      for s in servers]
+        fixed = elastic_requests(torch, kernels, state["client"], [], state,
+                                 "elastic: the fixed split again", gate_launches=False)
+        first = elastic_requests(torch, kernels, client, servers, state, "elastic swarm")
+        warm = elastic_requests(torch, kernels, client, servers, state, "elastic swarm, warm")
+
+        # A fourth server on [16,28): the route enters [24,32) at block 28.
+        provider, executor_kwargs = servers[0].params_provider, servers[0].executor_kwargs
+        extra = server_mod.ElasticStageServer(
+            "server-3", cfg, provider, client.registry, client.transport, num_blocks=12,
+            total_blocks=cfg.num_layers, min_block=8, executor_kwargs=executor_kwargs,
+            warmup=True, model=args.model)
+        extra.load_span(extra._spec_for(16, 28))
+        overlap = elastic_requests(torch, kernels, client, servers + [extra], state,
+                                   "elastic swarm with [16,28)")
+        sub = [h for h in overlap["hops"]
+               if h[2] != client.registry.get(h[1]).start_block]
+        log(f"elastic overlap: hops {overlap['hops']}, sub-span {sub}, captures "
+            f"{overlap['captures']}")
+        if not sub:
+            raise AssertionError(f"elastic overlap: no sub-span hop in {overlap['hops']}")
+
+        # Re-span: [16,28) leaves; server-1 stacked on [8,16) uncovers
+        # [16,24); rule 2 moves it.
+        extra.shutdown()
+        mover = servers[1]
+        mover.load_span(mover._spec_for(8, 16))
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = memory_view(torch)
+        t0 = time.monotonic()
+        moved = mover.maybe_rebalance()
+        torch.cuda.synchronize()
+        respan_s = time.monotonic() - t0
+        after = memory_view(torch)
+        grew_gb = after["held_gb"] - before["held_gb"]
+        log(f"elastic re-span: moved {moved} to [{mover.spec.start},{mover.spec.end}) in "
+            f"{respan_s:.2f}s; held {before['held_gb']:.2f} -> {after['held_gb']:.2f} GB, "
+            f"reserved {before['reserved_gb']:.2f} -> {after['reserved_gb']:.2f} GB")
+        if not moved or [mover.spec.start, mover.spec.end] != [16, 24] or grew_gb > 2**30 / 1e9:
+            raise AssertionError(f"elastic re-span: moved {moved}, span "
+                                 f"{[mover.spec.start, mover.spec.end]}, held memory grew "
+                                 f"{grew_gb:.3f} GB (<= 1 GiB)")
+        respanned = elastic_requests(torch, kernels, client, servers, state,
+                                     "elastic swarm after the re-span")
+
+        # Failover: a replica of [16,24); the pinned peer is killed after
+        # its 3rd decode step.
+        extra.load_span(extra._spec_for(16, 24))
+        client._routes.clear()
+        transport, seen = client.transport, {"decode": 0}
+
+        def on_call(peer_id, req):
+            if req.start_block != 16:
+                return
+            pinned = seen.setdefault("pinned", peer_id)
+            if peer_id == pinned and not req.is_prefill and not req.is_replay:
+                seen["decode"] += 1
+                if seen["decode"] == KILL_AFTER_DECODES:
+                    transport.kill(peer_id)
+
+        transport.on_call = on_call
+        before_rec = client.recoveries
+        got = client.generate(state["prompt_ids"][0], MAX_NEW_TOKENS,
+                              sampling=state["requests"][0][1])
+        transport.on_call = None
+        hop = [h for h in client.route(min_context=len(state["prompt_ids"][0])
+                                       + MAX_NEW_TOKENS) if h.start_block == 16][0]
+        recovery_step_ms = 1e3 * max(got.decode_times_s)
+        log(f"elastic failover: pinned {seen.get('pinned')} killed after its "
+            f"{KILL_AFTER_DECODES}rd decode step ({seen['decode']} decode calls seen), hop "
+            f"{hop.key} now on {hop.peer_id}, "
+            f"{client.recoveries - before_rec} recovery, recovery step "
+            f"{recovery_step_ms:.1f} ms")
+        if (seen.get("pinned") != mover.peer_id or hop.peer_id != extra.peer_id
+                or client.recoveries - before_rec != 1
+                or got.tokens != state["results"][0].tokens):
+            raise AssertionError(f"elastic failover: pinned {seen.get('pinned')}, replaced "
+                                 f"by {hop.peer_id}, tokens {got.tokens}, want "
+                                 f"{state['results'][0].tokens}")
+        derived = server_mod.derive_num_blocks(cfg, dtype_bytes=2, quant="int8")
+        log(f"elastic: derive_num_blocks on this card (int8, bf16, 1 GiB arena, 15% "
+            f"headroom) = {derived}")
+    finally:
+        server_mod.ElasticStageServer._probe = original
+    view = {
+        "spans": spans, "setup_s": setup_s, "probes": probe_view,
+        "derive_num_blocks_int8": derived,
+        "ttft_ms": {"fixed_split": fixed["ttft_ms"], "elastic_first": first["ttft_ms"],
+                    "elastic_warm": warm["ttft_ms"]},
+        "decode_ms_per_token": {
+            k: {"greedy": v["greedy_decode_ms_per_token"],
+                "sampled": v["sampled_decode_ms_per_token"]}
+            for k, v in (("fixed_split", fixed), ("elastic_first", first),
+                         ("elastic_warm", warm), ("overlap", overlap),
+                         ("after_respan", respanned))},
+        "hops": {"elastic": warm["hops"], "overlap": overlap["hops"]},
+        "captures": {"elastic_first": first["captures"], "elastic_warm": warm["captures"],
+                     "overlap": overlap["captures"]},
+        "int8_dot_launches_by_route": {"elastic_first": first["int8_dot_launches_by_route"],
+                                       "overlap": overlap["int8_dot_launches_by_route"]},
+        "int8_dot_launches": first["int8_dot_launches"],
+        "respan": {"seconds": respan_s, "memory_before": before, "memory_after": after,
+                   "held_grew_gb": grew_gb},
+        "failover": {"killed": seen.get("pinned"), "replacement": hop.peer_id,
+                     "recovery_step_ms": recovery_step_ms,
+                     "median_step_ms": 1e3 * statistics.median(got.decode_times_s)},
+        "seconds": time.monotonic() - t_phase, "card": smi}
+    log(f"elastic path: {view['seconds']:.1f}s")
+    return view
+
+
 def oracle_logits(torch, cfg, params, ids, cache_dtype=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
     logits after `ids` (one prefill)."""
@@ -5129,6 +5422,12 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     prefix = prefix_path(torch, kernel_mods, tmain, sampling_cls, state, bw, flops, smi)
     log(json.dumps({"prefix_path": prefix}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    elastic = elastic_path(torch, kernel_mods, tmain, state, smi)
+    log(json.dumps({"elastic_path": elastic}))
+    gc.collect()
+    torch.cuda.empty_cache()
     # What the CLI drives compare with; the weights go.
     int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
@@ -5172,6 +5471,26 @@ def main(argv) -> int:
                              smi, serve_argv=("--batched", "--burst", str(BURST_TICKS)),
                              stages=(0,), client_argv=("--burst", str(BURST_TICKS)))
     log(json.dumps({"burst_cli_path": burst["cli"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Step 11c: 3 elastic servers as processes, each started once the one
+    # before it serves, so that it sees their records.
+    t0 = time.monotonic()
+    elastic["cli"] = cli_drive(
+        torch, tok, [(PROMPTS[0], int8_state["f32_chain_results"][0],
+                      int8_state["requests"][0][1])], smi,
+        serve_argv=("--use_load_balancing", "--num_blocks", "8", "--splits", "8"),
+        client_argv=("--use_load_balancing", "--splits", "8"),
+        status={"argv": ["--splits", "8", "--total_blocks", "32"],
+                "coverage": "coverage: [0,8) client-local; [8,32)x1"})
+    spans = [tuple(map(int, re.search(r"span=\[(\d+),(\d+)\)", line).groups()))
+             for line in elastic["cli"]["serving"]]
+    if spans != [(8, 16), (16, 24), (24, 32)]:
+        raise AssertionError(f"elastic cli: spans {elastic['cli']['serving']}")
+    elastic["cli"]["seconds"] = time.monotonic() - t0
+    log(json.dumps({"elastic_cli_path": elastic["cli"]}))
+    log(f"elastic phases: {elastic['seconds']:.1f}s in process, "
+        f"{elastic['cli']['seconds']:.1f}s as processes")
 
     kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m, int8_decode,
                             int8_batch, batched["in_process"], tcp["int8"], burst["engine"]),
@@ -5189,6 +5508,14 @@ def main(argv) -> int:
                               for where in ("in_process", "tcp")},
         "buckets": {where: prefix[where]["prefill_buckets"] for where in ("in_process", "tcp")},
         "at_cold_bucket": prefix["int8_dot_at_cold_bucket"]}
+    # The elastic path's requests (the first run through the swarm) and
+    # each server's probe, by route.
+    kernels[0]["elastic_path"] = {
+        "launches": elastic["int8_dot_launches"],
+        "launches_by_route": elastic["int8_dot_launches_by_route"]["elastic_first"],
+        "overlap_launches_by_route": elastic["int8_dot_launches_by_route"]["overlap"],
+        "probe_launches_by_route": {p["span"][0]: p["int8_dot_launches_by_route"]
+                                    for p in elastic["probes"]}}
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

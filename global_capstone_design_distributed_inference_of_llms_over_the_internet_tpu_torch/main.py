@@ -1,12 +1,17 @@
 """CLI entry point of the PyTorch port: ``--mode local``, ``oracle``,
-``doctor``, ``registry``, ``serve``, ``client``, ``gateway`` and ``submit``.
+``doctor``, ``registry``, ``serve``, ``client``, ``gateway``, ``submit`` and
+``status``.
 
 Port of the JAX package's ``main.py`` for these modes:
 
   * ``--mode local``  — in-process cluster: fixed-split stage servers
     (``StageExecutor`` over a ``KVArena``) behind ``LocalTransport``, and
     the pipeline client running stage 0, one generation end to end. With
-    no ``--splits`` the model is cut into 4 even stages.
+    no ``--splits`` the model is cut into 4 even stages. With
+    ``--use_load_balancing``, ``--num_servers`` elastic servers
+    (``runtime/server.ElasticStageServer``) join one after another, each
+    choosing a span of ``--num_blocks`` from the coverage the ones before
+    it left, and the client routes over block coverage.
   * ``--mode oracle`` — the unpartitioned model, the port's own
     single-device reference: greedy generation on the fused engine
     (``runtime/fused_decode.py``; on the card one captured decode step
@@ -32,12 +37,21 @@ Port of the JAX package's ``main.py`` for these modes:
     server shape that runs burst decode (N decode ticks with sampling on
     the device in one captured graph); ``--burst N`` captures the N-tick
     burst in its warm-up. ``--stage 0`` without ``--batched`` exits, as the
-    reference's does: stage 0 runs inside the client.
+    reference's does: stage 0 runs inside the client. With
+    ``--use_load_balancing`` the server is elastic: it chooses its span
+    of ``--num_blocks`` (default: what the card's free memory holds) from
+    the swarm's coverage past ``--splits``' first cut, re-spans when the
+    swarm would gain (``--balance_quality``, checked every randomized
+    ``--mean_balance_check_period``), swaps the executor on its socket,
+    and prints ``SERVING elastic span=[a,b) addr=... peer=...``.
   * ``--mode client`` — the pipeline client with stage 0 in process and the
     remote stages over ``TcpTransport``, discovered through the registry.
     With ``--burst N`` (``client`` and ``local``) the session asks a
     full-span batched peer for N tokens a request, and falls back to the
-    per-step loop (a ``burst_fallback`` event) when none is live.
+    per-step loop (a ``burst_fallback`` event) when none is live. With
+    ``--use_load_balancing`` (``client``, ``gateway``, ``local``) it routes
+    over block coverage, by least estimated latency with
+    ``--route_by_latency``.
   * ``--mode gateway`` — the multi-tenant serving front door
     (``serving/gateway.py``): ``--gateway_clients`` pipeline clients, each
     with its own stage 0 as ``client`` builds one, against the swarm at
@@ -49,18 +63,23 @@ Port of the JAX package's ``main.py`` for these modes:
     ``--gateway_addr`` as ``--tenant``, one after another, each printing
     its tokens (``TOKENS=[..]``) or its shed reason; no weights load. Exit
     1 only when every request was shed.
+  * ``--mode status`` — the swarm at ``--registry_addr``: a line a live
+    server (its ``info`` probed), the coverage from the client-local prefix
+    (``--splits``) to ``--total_blocks`` with uncovered runs marked, and
+    the health summary; exit 1 with no live server, 2 when the swarm is
+    unhealthy or a server does not answer. No weights load.
   ``--deadline_s`` gives ``client``, ``local`` and ``submit`` requests an
   end-to-end budget.
   ``serve`` and ``client`` hold only their stage's weights (every layer is
-  still drawn, so the weights equal the full init's), print their peak
+  still drawn, so the weights equal the full init's; an elastic ``serve``
+  draws each span it takes the same way), print their peak
   and held device memory as ``PEAK_MEMORY_BYTES=N ALLOCATED_BYTES=M
   RESERVED_BYTES=R`` and
   build the kernels and the wire codec before they serve; ``serve`` runs
   one throwaway session through its span first, as the reference does. The reference's gossip mirror, dial-back
-  reachability vote and relay attach are not ported (ROADMAP Queue 1 #4),
+  reachability vote and relay attach are not ported (ROADMAP Queue 1 #2b),
   nor are the flags of the engines the port lacks (``--sp``, ``--tp``,
-  ``--use_load_balancing``, ``--use_cpu_offload``, ``--relay_capacity``):
-  each exits naming itself.
+  ``--use_cpu_offload``, ``--relay_capacity``): each exits naming itself.
 
 ``--prefix_cache_mb N`` gives every executor of ``local`` (stage 0
 included) and each ``serve`` executor, session or batched (``--stage 0
@@ -102,6 +121,10 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
         --tenants '{"tenants": {"gold": {"weight": 4}, "bronze": {}}}' ...
     python -m ...main --mode submit --gateway_addr 127.0.0.1:31340 \\
         --tenant gold --prompt "Hi" --deadline_s 30
+    python -m ...main --mode serve --use_load_balancing --num_blocks 8 \\
+        --splits 8 --registry_addr 127.0.0.1:31330 ...   (each elastic server)
+    python -m ...main --mode client --use_load_balancing --splits 8 ...
+    python -m ...main --mode status --registry_addr 127.0.0.1:31330 --splits 8
 """
 
 from __future__ import annotations
@@ -225,6 +248,12 @@ def _stage_params(args, cfg: ModelConfig, params, spec):
 # Modes
 # ---------------------------------------------------------------------------
 
+def _model_id(args) -> str:
+    """The registry scope of every record and query: ``--model_name``, or
+    the ``--model`` preset."""
+    return args.model_name or args.model
+
+
 def _client_metrics(args):
     """Under ``--telemetry`` the client folds its series into the
     process-global registry; otherwise it keeps its private one."""
@@ -242,10 +271,16 @@ def stage_plan(args, cfg: ModelConfig) -> StagePlan:
             else StagePlan.from_splits(cfg.num_layers, splits))
 
 
-def build_local_client(args, cfg: ModelConfig, params) -> PipelineClient:
-    """The in-process cluster of ``--mode local``, fixed splits: one
-    executor per stage >= 1 registered behind ``LocalTransport``, stage 0
-    inside the client."""
+def build_local_swarm(args, cfg: ModelConfig, params, **server_kw):
+    """The in-process cluster of ``--mode local``: stage 0 inside the client
+    and the remote blocks behind ``LocalTransport``. Fixed splits: one
+    executor per stage >= 1. ``--use_load_balancing``: ``--num_servers``
+    elastic servers that join one after another, each choosing its span
+    over [stage 0's end, total blocks) from the coverage the ones before it
+    left (``--num_blocks`` each, by default the remote blocks over the
+    remote stages), `server_kw` passed on to each (a throughput probe, a
+    warm-up), and a module-routing client. Returns (client, the elastic
+    servers or [])."""
     device = resolve_device(args.device)
     plan = stage_plan(args, cfg)
     transport = LocalTransport()
@@ -255,22 +290,48 @@ def build_local_client(args, cfg: ModelConfig, params) -> PipelineClient:
     # expired after the reference's 45 s would leave a later prompt with
     # no route.
     registry = PlacementRegistry(ttl=float("inf"), rng=random.Random(args.seed))
-    for spec in plan.stages[1:]:
-        peer = f"server-stage{spec.index}"
-        ex = StageExecutor(cfg, spec, _stage_params(args, cfg, params, spec),
-                           peer_id=peer, device=device,
-                           act_dtype=_DTYPE_MAP[args.dtype],
-                           prefix_cache_bytes=args.prefix_cache_mb << 20)
-        transport.add_peer(peer, ex)
-        registry.register(make_server_record(peer, spec, model=args.model))
+    executor_kwargs = {"device": device, "act_dtype": _DTYPE_MAP[args.dtype],
+                       "prefix_cache_bytes": args.prefix_cache_mb << 20}
+    total = args.total_blocks or cfg.num_layers
+    servers = []
+    if args.use_load_balancing:
+        from .runtime.server import ElasticStageServer
+
+        min_block = plan.stages[0].end
+        num_blocks = args.num_blocks or max(
+            1, (cfg.num_layers - min_block) // max(plan.num_stages - 1, 1))
+        for i in range(args.num_servers):
+            server = ElasticStageServer(
+                f"server-{i}", cfg, lambda spec: _stage_params(args, cfg, params, spec),
+                registry, transport, executor_kwargs=executor_kwargs,
+                num_blocks=num_blocks, total_blocks=total, min_block=min_block,
+                balance_quality=args.balance_quality,
+                mean_balance_check_period=args.mean_balance_check_period,
+                bandwidth_mbps=args.network_bandwidth_mbps,
+                rng=random.Random(args.seed + i), model=_model_id(args), **server_kw)
+            server.start_serving()
+            servers.append(server)
+    else:
+        for spec in plan.stages[1:]:
+            peer = f"server-stage{spec.index}"
+            ex = StageExecutor(cfg, spec, _stage_params(args, cfg, params, spec),
+                               peer_id=peer, **executor_kwargs)
+            transport.add_peer(peer, ex)
+            registry.register(make_server_record(peer, spec, model=_model_id(args)))
     stage0 = StageExecutor(cfg, plan.stages[0],
                            _stage_params(args, cfg, params, plan.stages[0]),
-                           peer_id="client-local", device=device,
-                           act_dtype=_DTYPE_MAP[args.dtype],
-                           prefix_cache_bytes=args.prefix_cache_mb << 20)
-    return PipelineClient(cfg, plan, stage0, transport, registry,
-                          seed=args.seed, model=args.model,
-                          metrics=_client_metrics(args))
+                           peer_id="client-local", **executor_kwargs)
+    client = PipelineClient(cfg, plan, stage0, transport, registry,
+                            use_module_routing=bool(args.use_load_balancing),
+                            route_by_latency=args.route_by_latency, total_blocks=total,
+                            seed=args.seed, model=_model_id(args),
+                            metrics=_client_metrics(args))
+    return client, servers
+
+
+def build_local_client(args, cfg: ModelConfig, params) -> PipelineClient:
+    """The client of `build_local_swarm`."""
+    return build_local_swarm(args, cfg, params)[0]
 
 
 def run_local(args, cfg: ModelConfig, params) -> int:
@@ -440,8 +501,7 @@ def run_oracle(args, cfg: ModelConfig, params) -> int:
 # Flags of the reference's serve and client modes whose engines or
 # features the port does not have, with their defaults: any other value
 # exits naming the flag.
-UNPORTED_FLAGS = (("sp", 1), ("tp", 1),
-                  ("use_load_balancing", False), ("use_cpu_offload", False),
+UNPORTED_FLAGS = (("sp", 1), ("tp", 1), ("use_cpu_offload", False),
                   ("relay_capacity", 0))
 
 
@@ -498,12 +558,15 @@ def run_registry(args) -> int:
 
 
 def run_serve(args) -> int:
-    """One fixed-split stage server over TCP until interrupted; prints its
-    peak device memory again when it stops."""
+    """One fixed-split stage server over TCP until interrupted (an elastic
+    one under ``--use_load_balancing``); prints its peak device memory
+    again when it stops."""
     from .runtime.net import RemoteRegistry, TcpStageServer, TcpTransport
     from .runtime.server import FixedStageServer, _pinger_from_transport
     from .runtime.task_pool import StageRuntime
 
+    if args.use_load_balancing:
+        return _run_serve_elastic(args)
     device = resolve_device(args.device)
     cfg = get_config(args.model)
     plan = stage_plan(args, cfg)
@@ -535,7 +598,7 @@ def run_serve(args) -> int:
         engine = BatchedStageExecutor(
             cfg, spec, shard, device=device, slots=args.slots,
             max_len=args.max_session_len, dtype=_DTYPE_MAP[args.dtype],
-            prefix_cache_bytes=args.prefix_cache_mb << 20, model=args.model)
+            prefix_cache_bytes=args.prefix_cache_mb << 20, model=_model_id(args))
         executor = BatchingStageAdapter(engine, peer_id=peer_id)
     # No act_dtype: an arriving activation computes in the float32 the wire
     # decodes to, as the reference's server computes it.
@@ -544,7 +607,7 @@ def run_serve(args) -> int:
                                   "device": device,
                                   "prefix_cache_bytes": args.prefix_cache_mb << 20},
                               pinger=_pinger_from_transport(ping_tx),
-                              model=args.model, executor=executor)
+                              model=_model_id(args), executor=executor)
     del shard
     ex = server.executor
     _build_native(args, device)
@@ -560,7 +623,7 @@ def run_serve(args) -> int:
                StageRuntime(high_water=args.queue_high_water,
                             low_water=args.queue_low_water))
     srv = TcpStageServer(ex, runtime, host=args.host, port=args.rpc_port,
-                         wire_dtype=args.wire_dtype, model=args.model,
+                         wire_dtype=args.wire_dtype, model=_model_id(args),
                          allow_fault_injection=args.allow_fault_injection)
     srv.start()
     server.address = (f"{args.public_ip}:{srv.address.rsplit(':', 1)[1]}"
@@ -585,6 +648,91 @@ def run_serve(args) -> int:
     return 0
 
 
+def _run_serve_elastic(args) -> int:
+    """An elastic (load-balancing) stage server over TCP until interrupted:
+    the span is chosen from the swarm's live coverage (rule 1), chosen anew
+    when the swarm would gain (rule 2), and the executor is swapped on the
+    listening socket, which answers "server is re-spanning" in between.
+    Each span's weights are drawn from ``--seed`` as `load_stage_model`
+    draws a fixed stage's, so they equal the fixed split's slice; every
+    span (re)load warms its executor up before it goes ONLINE. The
+    reference's gossip loop beside it is not ported (ROADMAP Queue 1 #2b).
+    Prints ``SERVING elastic span=[a,b) addr=.. peer=..``."""
+    from .runtime.net import RemoteRegistry, TcpStageServer, TcpTransport
+    from .runtime.server import ElasticStageServer, derive_num_blocks
+    from .runtime.task_pool import StageRuntime
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.model)
+    peer = args.peer_id or f"lb-{os.getpid()}"
+    registry = RemoteRegistry(args.registry_addr, peers_cache=args.peers_cache)
+    _build_native(args, device)
+    # One compute thread owns the card: an elastic server takes whatever
+    # concurrency the swarm sends it.
+    srv = TcpStageServer(None, StageRuntime(high_water=args.queue_high_water,
+                                            low_water=args.queue_low_water),
+                         host=args.host, port=args.rpc_port, wire_dtype=args.wire_dtype,
+                         model=_model_id(args), peer_id=peer,
+                         allow_fault_injection=args.allow_fault_injection)
+    srv.start()
+    advert = (f"{args.public_ip}:{srv.address.rsplit(':', 1)[1]}"
+              if args.public_ip else srv.address)
+
+    class _Membership:
+        """The transport surface an elastic server joins, backed by the
+        listening socket: add_peer swaps the served executor in,
+        remove_peer unsets it."""
+
+        def add_peer(self, peer_id, executor):
+            srv.executor = executor
+
+        def remove_peer(self, peer_id):
+            srv.executor = None
+
+    splits = parse_splits(args.splits) if args.splits else None
+    min_block = splits[0] if splits else 0          # the client-local prefix
+    total = args.total_blocks or cfg.num_layers
+    num_blocks = args.num_blocks
+    if num_blocks is None:
+        # From the card's free memory (weights, KV arena, headroom), else
+        # (the CPU) a third of the remote blocks.
+        num_blocks = derive_num_blocks(
+            cfg, dtype_bytes=torch.empty((), dtype=_DTYPE_MAP[args.dtype]).element_size(),
+            quant=args.quant, device=device)
+        if num_blocks is not None:
+            num_blocks = min(num_blocks, max(total - min_block, 1))
+    num_blocks = num_blocks or max(1, (total - min_block) // 3)
+    ping_tx = TcpTransport(registry, wire_dtype=args.wire_dtype)
+    es = ElasticStageServer(
+        peer, cfg, lambda spec: load_stage_model(args, spec)[1], registry, _Membership(),
+        pinger=lambda rec: ping_tx.ping(rec.peer_id),
+        num_blocks=num_blocks, total_blocks=total, min_block=min_block,
+        balance_quality=args.balance_quality,
+        mean_balance_check_period=args.mean_balance_check_period,
+        bandwidth_mbps=args.network_bandwidth_mbps,
+        # No act_dtype: an arriving activation computes in the float32 the
+        # wire decodes to, as the fixed server's.
+        executor_kwargs={"device": device,
+                         "prefix_cache_bytes": args.prefix_cache_mb << 20},
+        advertise_address=advert, warmup=True,
+        rng=random.Random(args.seed + os.getpid()), model=_model_id(args))
+    try:
+        es.start()
+        _report_peak_memory(device)
+        _emit(f"SERVING elastic span=[{es.spec.start},{es.spec.end}) "
+              f"addr={advert} peer={peer}", flush=True)
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        es.stop()
+        ping_tx.close()
+        srv.stop()
+        _report_peak_memory(device)
+    return 0
+
+
 def run_client(args) -> int:
     """One generation through the TCP swarm at ``--registry_addr``."""
     from .runtime.net import RemoteRegistry, TcpTransport
@@ -593,15 +741,18 @@ def run_client(args) -> int:
     plan = stage_plan(args, get_config(args.model))
     registry = RemoteRegistry(args.registry_addr, peers_cache=args.peers_cache)
     transport = TcpTransport(registry, wire_dtype=args.wire_dtype,
-                             model=args.model)
+                             model=_model_id(args))
     cfg, shard = load_stage_model(args, plan.stages[0])
     stage0 = StageExecutor(cfg, plan.stages[0], shard, peer_id="client-local",
                            device=device, act_dtype=_DTYPE_MAP[args.dtype])
     del shard
     _build_native(args, device)
     client = PipelineClient(cfg, plan, stage0, transport, registry,
+                            use_module_routing=bool(args.use_load_balancing),
+                            route_by_latency=args.route_by_latency,
+                            total_blocks=args.total_blocks or cfg.num_layers,
                             request_timeout=args.request_timeout,
-                            seed=args.seed, model=args.model,
+                            seed=args.seed, model=_model_id(args),
                             metrics=_client_metrics(args))
     try:
         return _generate_and_report(args, client.generate, cfg, pipeline_client=True)
@@ -638,13 +789,16 @@ def run_gateway(args) -> int:
     _build_native(args, device)
     transports, clients = [], []
     for i in range(max(1, args.gateway_clients)):
-        tx = TcpTransport(registry, wire_dtype=args.wire_dtype, model=args.model)
+        tx = TcpTransport(registry, wire_dtype=args.wire_dtype, model=_model_id(args))
         transports.append(tx)
         stage0 = StageExecutor(cfg, plan.stages[0], shard, peer_id=f"gateway-local-{i}",
                                device=device, act_dtype=_DTYPE_MAP[args.dtype])
         clients.append(PipelineClient(cfg, plan, stage0, tx, registry,
+                                      use_module_routing=bool(args.use_load_balancing),
+                                      route_by_latency=args.route_by_latency,
+                                      total_blocks=args.total_blocks or cfg.num_layers,
                                       request_timeout=args.request_timeout,
-                                      seed=args.seed, model=args.model,
+                                      seed=args.seed, model=_model_id(args),
                                       metrics=_client_metrics(args)))
     del shard
     gw = GatewayServer(clients, tenants, host=args.host, port=args.rpc_port,
@@ -701,6 +855,170 @@ def run_submit(args) -> int:
         _emit(f"TOKENS={res['tokens']}")
     # Shedding is the gateway doing its job; only all-shed is a failure.
     return 1 if shed == args.submit_requests else 0
+
+
+def _print_swarm_health(infos: dict, total_servers: int = 0) -> None:
+    """The swarm's health from every probed server's ``info``: the peers
+    with the most failed requests in their recent-request rings, the
+    slowest hops, the prefix stores' hit rate and the least KV room left."""
+    if not infos:
+        return
+    unreachable = max(0, total_servers - len(infos))
+    _emit(f"swarm health ({len(infos)}/{total_servers or len(infos)} "
+          "server rings probed):")
+    if unreachable:
+        # The unreachable one is the likeliest to be failing: a clean
+        # summary of the others must not read as all clear.
+        _emit(f"  WARNING: {unreachable} server(s) unreachable for info — "
+              "their rings are NOT included below")
+    errs = []     # (count, peer, last failed record)
+    slows = []    # (max_dur_ms, peer, verb)
+    for peer, inf in infos.items():
+        recs = inf.get("recent_requests") or []
+        bad = [r for r in recs if r.get("outcome") != "ok"]
+        if bad:
+            errs.append((len(bad), peer, bad[-1]))
+        durs = [(r.get("dur_ms"), r.get("verb")) for r in recs
+                if r.get("dur_ms") is not None]
+        if durs:
+            d, v = max(durs)
+            slows.append((d, peer, v))
+    if errs:
+        errs.sort(reverse=True)
+        for n, peer, last in errs[:3]:
+            _emit(f"  errors: {peer} x{n} (last: {last.get('verb')} "
+                  f"{last.get('outcome')} {last.get('detail', '')})")
+    else:
+        _emit(f"  errors: none in the {len(infos)} probed ring(s)")
+    if slows:
+        slows.sort(reverse=True)
+        _emit("  slowest hops: " + ", ".join(
+            f"{peer} {d:.1f}ms ({v})" for d, peer, v in slows[:3]))
+    pfx = [(peer, inf["prefix_cache"]) for peer, inf in infos.items()
+           if isinstance(inf.get("prefix_cache"), dict)]
+    if pfx:
+        hits = sum(st.get("hits", 0) for _, st in pfx)
+        misses = sum(st.get("misses", 0) for _, st in pfx)
+        total = hits + misses
+        rate = f"{hits / total:.0%}" if total else "n/a"
+        _emit(f"  prefix cache: {len(pfx)} server(s), hit rate {rate} "
+              f"({hits}/{total}), "
+              f"{sum(st.get('grains_reused', 0) for _, st in pfx)} grains reused, "
+              f"{sum(st.get('bytes', 0) for _, st in pfx) >> 20} MiB resident")
+    pressure = [(inf.get("cache_tokens_left"), peer) for peer, inf in infos.items()
+                if inf.get("cache_tokens_left") is not None]
+    if pressure:
+        lo, lo_peer = min(pressure)
+        _emit(f"  cache pressure: min {lo} tokens left ({lo_peer}); "
+              f"total {sum(p for p, _ in pressure)} across "
+              f"{len(pressure)} server(s)")
+
+
+def _status_telemetry_line(tele) -> str:
+    """One line of a server's telemetry summary for ``--mode status``
+    (empty when its telemetry is off or it served no step yet)."""
+    if not tele or not tele.get("steps_total"):
+        return ""
+    parts = [f"steps={tele['steps_total']}"]
+    if tele.get("steps_per_s") is not None:
+        parts.append(f"{tele['steps_per_s']:.1f}/s")
+    if tele.get("step_p50_ms") is not None:
+        parts.append(f"p50={tele['step_p50_ms']:.1f}ms")
+    if tele.get("step_p95_ms") is not None:
+        parts.append(f"p95={tele['step_p95_ms']:.1f}ms")
+    if tele.get("cache_hit_rate") is not None:
+        parts.append(f"cache_hit={tele['cache_hit_rate'] * 100:.0f}%")
+    return "\n" + " " * 26 + "telemetry: " + " ".join(parts)
+
+
+def run_status(args) -> int:
+    """--mode status: the swarm at ``--registry_addr`` as an operator reads
+    it. One registry snapshot gives a line a live record (span, state,
+    throughput, KV room, the final stage, engine, model, published RTTs and
+    its ``info`` probe), the coverage as runs of equal replica count from
+    the client-local prefix (``--splits``) to ``--total_blocks`` (inferred
+    from the live records when not given, with a warning), each uncovered
+    run marked, and the swarm's health. Exit 1 when no server is live, 2
+    when a block is uncovered, no final stage is live or a server does not
+    answer its ``info``, else 0. No weights load."""
+    from .runtime.net import RemoteRegistry, TcpTransport
+
+    registry = RemoteRegistry(args.registry_addr, peers_cache=args.peers_cache)
+    # An explicit --model_name scopes the report; by default the whole swarm.
+    records = registry.live_servers(model=args.model_name)
+    st = registry.stale_info()
+    if st["seeds_down"]:
+        line = (f"registry seeds DOWN for {st['seeds_down_s']:.1f}s "
+                f"(every --registry_addr address unreachable)")
+        if st["stale"]:
+            line += (f"; serving STALE cached records for "
+                     f"{st['stale_s']:.1f}s (TTL grace)")
+        else:
+            line += "; records served via a stage server's gossip mirror"
+        _emit(line)
+    if not records:
+        _emit("no live servers")
+        return 1
+    total = args.total_blocks or max(r.end_block for r in records)
+    if not args.total_blocks:
+        _emit("warning: total_blocks inferred from LIVE records — dead "
+              "tail-stage servers shrink it; pass --total_blocks for a "
+              "reliable health check")
+    _emit(f"{len(records)} live server(s); total_blocks={total}")
+    snap = PlacementRegistry()
+    for r in records:
+        snap.register(r)
+    tx = TcpTransport(snap, wire_dtype=args.wire_dtype)
+    infos = {}
+    unreachable = []
+    for r in sorted(records, key=lambda r: (r.start_block, r.peer_id)):
+        extra = ""
+        if r.address:
+            try:
+                inf = tx.info(r.peer_id, timeout=3.0)
+                infos[r.peer_id] = inf
+                extra = f" served={inf.get('requests_served')} rtt_probe_ok"
+                extra += _status_telemetry_line(inf.get("telemetry"))
+            except Exception as exc:
+                extra = f" info_probe_failed({type(exc).__name__})"
+                unreachable.append((r.peer_id, r.address, f"{type(exc).__name__}: {exc}"))
+        rtts = ("" if not r.next_server_rtts else
+                " rtts=" + ",".join(f"{p}:{v * 1e3:.1f}ms"
+                                    for p, v in r.next_server_rtts.items()))
+        mdl = f" model={r.model}" if r.model else ""
+        eng = f" eng={r.engine}" if r.engine and r.engine != "session" else ""
+        _emit(f"  {r.peer_id:24s} [{r.start_block:3d},{r.end_block:3d}) "
+              f"{r.state:8s} thr={r.throughput:8.2f} "
+              f"cache_left={r.cache_tokens_left}"
+              f"{' FINAL' if r.final_stage else ''}{eng}{mdl}{rtts}{extra}")
+    # Runs of equal server count from the client-local prefix, which comes
+    # from --splits and is never inferred: a dead low server must not read
+    # as client-local.
+    base = parse_splits(args.splits)[0] if args.splits else 0
+    cov = [sum(1 for r in records if r.start_block <= b < r.end_block)
+           for b in range(total)]
+    runs, start = [], base
+    for b in range(base + 1, total + 1):
+        if b == total or cov[b] != cov[start]:
+            runs.append((start, b, cov[start]))
+            start = b
+    prefix = f"[0,{base}) client-local; " if base else ""
+    _emit("coverage: " + prefix + ", ".join(
+        f"[{a},{b})x{n}" + ("  <-- UNCOVERED" if n == 0 else "")
+        for a, b, n in runs))
+    _print_swarm_health(infos, total_servers=len(records))
+    tx.close()
+    healthy = all(n > 0 for _, _, n in runs)
+    if not any(r.final_stage for r in records):
+        # No live final stage finishes no request, whatever the coverage.
+        _emit("no live FINAL-stage server  <-- UNHEALTHY")
+        healthy = False
+    if unreachable:
+        for peer, addr, err in unreachable:
+            _emit(f"error: server {peer} at {addr} unreachable: {err}",
+                  file=sys.stderr)
+        healthy = False
+    return 0 if healthy else 2
 
 
 def run_doctor(args) -> int:
@@ -760,7 +1078,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.main",
         description="PyTorch/CUDA port of the distributed LLM inference pipeline")
     p.add_argument("--mode", choices=["local", "oracle", "doctor", "registry",
-                                      "serve", "client", "gateway", "submit"],
+                                      "serve", "client", "gateway", "submit",
+                                      "status"],
                    default="local")
     p.add_argument("--model", default="gpt2",
                    help="architecture preset (gpt2, llama-3.1-8b, ...)")
@@ -890,9 +1209,31 @@ def build_parser() -> argparse.ArgumentParser:
     # The reference's flags for engines the port does not have: accepted by
     # the parser so that a reference command line fails with a clear
     # message (refuse_unported_flags), never silently.
+    p.add_argument("--model_name", default=None,
+                   help="the registry scope of every record and query "
+                        "(default: --model); two models can share a registry")
+    # Load balancing (elastic servers, module routing).
+    p.add_argument("--use_load_balancing", action="store_true",
+                   help="local/serve: elastic servers that choose their span "
+                        "from the swarm's coverage and re-span when it would "
+                        "gain; client/gateway/local: route over block coverage")
+    p.add_argument("--route_by_latency", action="store_true",
+                   help="module routing minimizes the estimated step time "
+                        "(servers' published next-hop RTTs and the client's "
+                        "pings) instead of the greedy coverage walk")
+    p.add_argument("--num_blocks", type=int, default=None,
+                   help="an elastic server's span length (serve: from the "
+                        "card's free memory when omitted)")
+    p.add_argument("--total_blocks", type=int, default=None,
+                   help="blocks of the model (default: its layers); status: "
+                        "the range the coverage check spans")
+    p.add_argument("--num_servers", type=int, default=3,
+                   help="local --use_load_balancing: elastic servers")
+    p.add_argument("--balance_quality", type=float, default=0.75)
+    p.add_argument("--mean_balance_check_period", type=float, default=120.0)
+    p.add_argument("--network_bandwidth_mbps", type=float, default=None)
     p.add_argument("--sp", type=int, default=1, help="not ported")
     p.add_argument("--tp", type=int, default=1, help="not ported")
-    p.add_argument("--use_load_balancing", action="store_true", help="not ported")
     p.add_argument("--use_cpu_offload", action="store_true", help="not ported")
     p.add_argument("--relay_capacity", type=int, default=0, help="not ported")
     return p
@@ -937,6 +1278,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return run_doctor(args)  # no model needed
     if args.mode == "registry":
         return run_registry(args)
+    if args.mode == "status":
+        return run_status(args)  # no model: the swarm's records and info
     if args.mode == "submit":
         return run_submit(args)  # no model: the gateway's swarm holds it
     if args.mode in ("serve", "client", "gateway"):

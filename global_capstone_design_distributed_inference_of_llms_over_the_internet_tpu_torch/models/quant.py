@@ -24,8 +24,14 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.flags import bool_flag
+from .config import ModelConfig
 
 Params = Dict[str, Any]
+
+# Bits per weight for sizing (the reference's ``block_utils.py:46``): int8
+# is 8, NF4 4.25 (a 4-bit code and one bf16 scale per 64 weights), "none"
+# the weights' dtype.
+QUANT_BITS = {"none": None, "int8": 8, "nf4": 4.25}
 
 
 class QuantizedTensor:
@@ -256,3 +262,51 @@ def dequant_tree(tree: Params) -> Params:
         return x
 
     return f(tree)
+
+
+# ---------------------------------------------------------------------------
+# Quantization-aware sizing and server auto-capacity (the reference's
+# ``block_utils.get_block_size`` and ``server.py`` ``_choose_num_blocks``)
+# ---------------------------------------------------------------------------
+
+def params_per_block(cfg: ModelConfig) -> int:
+    """Parameter count of ONE transformer block (no embed/head)."""
+    d, i = cfg.hidden_size, cfg.intermediate_size
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = d * h * dh + 2 * d * hkv * dh + h * dh * d
+    if cfg.use_bias or cfg.attn_qkv_bias:
+        attn += h * dh + 2 * hkv * dh   # q/k/v biases (gpt2 and qwen2)
+    if cfg.use_bias:
+        attn += d                        # o bias (gpt2 only)
+    if cfg.is_moe:
+        mlp = cfg.num_experts * 3 * d * i + d * cfg.num_experts
+    elif cfg.mlp == "swiglu":
+        mlp = 3 * d * i
+    else:
+        mlp = 2 * d * i + (i + d if cfg.use_bias else 0)
+    norms = (4 if cfg.norm == "layernorm" else 2) * d
+    return attn + mlp + norms
+
+
+def block_bytes(cfg: ModelConfig, dtype_bytes: int = 2, quant: str = "none") -> int:
+    """Bytes one block occupies resident under `quant`."""
+    if quant not in QUANT_BITS:
+        raise ValueError(f"unknown quant mode {quant!r} "
+                         f"(expected one of {sorted(QUANT_BITS)})")
+    n = params_per_block(cfg)
+    bits = QUANT_BITS[quant]
+    if bits is None:
+        return n * dtype_bytes
+    return int(n * bits / 8)
+
+
+def choose_num_blocks(cfg: ModelConfig, memory_budget_bytes: int, *,
+                      dtype_bytes: int = 2, quant: str = "none",
+                      attn_cache_bytes: int = 0,
+                      reserve_fraction: float = 0.05) -> int:
+    """How many blocks fit a device budget after the KV-cache arena and a
+    safety reserve: the server auto-capacity rule."""
+    usable = int(memory_budget_bytes * (1.0 - reserve_fraction))
+    usable -= attn_cache_bytes
+    per = block_bytes(cfg, dtype_bytes, quant)
+    return max(1, min(cfg.num_layers, usable // max(per, 1)))

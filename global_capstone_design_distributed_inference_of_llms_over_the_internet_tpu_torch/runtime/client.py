@@ -49,8 +49,23 @@ raises `DeadlineExceeded` before the hop is dialed, counted in
 ``client_deadline_expired_total`` with a ``deadline_expired`` event. As in
 the reference, stage 0 (in process) and replays carry neither.
 
-Module and latency routing, push chains, beam and speculative decoding and
-deep prompts are not ported yet.
+Module routing (``use_module_routing``, the reference's
+``client.py:564-616``), for swarms of elastic servers whose spans overlap:
+the route covers [stage 0's end, total_blocks) hop by hop, each hop the
+live server that covers the next block and reaches furthest (then a
+batched engine on equal reach, then throughput), its hop key
+``blocks{n}``; a hop may enter a server mid-span (``start_block``), a
+server whose reach does not grow the coverage stops the walk, and the last
+hop must serve the final stage. A failed hop's replacement must cover the
+hop's exact span. ``route_by_latency`` (which implies module routing)
+plans the route of least estimated step time instead
+(``scheduling/routing.plan_min_latency_route``: the servers' published
+next-hop RTTs, the client's own pings of first-hop candidates, cached
+``ping_cache_ttl`` seconds), falling back to the greedy walk when it finds
+none. The module router ignores the prompt head's affinity.
+
+Push chains, beam and speculative decoding and deep prompts are not ported
+yet.
 
 Deliberate difference: journal entries keep the activation tensor on its
 device (tensors are never modified after they are sent), where the
@@ -101,6 +116,28 @@ SESSION_ONLY_ENGINES = ("batched", "sp")
 AFFINITY_TOKENS = 64
 # The route cache's kind field: the port routes plain sessions only.
 PLAIN = "plain"
+
+
+def _engine_usable(rec, full_span: bool = True,
+                   min_context: Optional[int] = None) -> bool:
+    """Can a plain session (needing `min_context` tokens) call `rec`'s
+    engine for a hop that covers its full span iff `full_span`? A batched
+    or sp engine serves its full span only, and refuses a prefill past the
+    context it advertises."""
+    if rec.engine not in SESSION_ONLY_ENGINES:
+        return True
+    if not full_span:
+        return False
+    return (min_context is None or rec.max_context is None
+            or rec.max_context >= min_context)
+
+
+def _soft_filter(items, pred):
+    """Keep the items matching `pred` unless that would leave none: a
+    candidate that fails loudly at call time (a retryable stage error)
+    beats an immediate NoRouteError when the swarm has nothing better."""
+    kept = [it for it in items if pred(it)]
+    return kept or items
 
 
 def prompt_affinity(prompt_ids: Sequence[int]) -> str:
@@ -214,7 +251,7 @@ class CircuitBreaker:
 class Hop:
     """One remote hop of the route: a pinned peer serving [start, end)."""
 
-    key: str                 # stable hop identity ("stage1")
+    key: str                 # stable hop identity ("stage1" / "blocks8")
     peer_id: str
     start_block: int
     end_block: int
@@ -263,6 +300,8 @@ class PipelineClient:
 
     def __init__(self, cfg: ModelConfig, plan: StagePlan, stage0: StageExecutor,
                  transport: Transport, registry: PlacementRegistry, *,
+                 use_module_routing: bool = False, route_by_latency: bool = False,
+                 total_blocks: Optional[int] = None,
                  request_timeout: float = 60.0,
                  settle_seconds: float = SETTLE_SECONDS,
                  journal_max_entries: int = 256,
@@ -271,7 +310,20 @@ class PipelineClient:
         self.cfg = cfg
         self.model = model
         self.plan = plan
-        self.total_blocks = plan.stages[-1].end     # the model's layers
+        self.total_blocks = total_blocks or plan.stages[-1].end   # the model's layers
+        if route_by_latency and not use_module_routing:
+            # The latency planner runs inside module routing only.
+            logger.warning("route_by_latency implies module routing; "
+                           "enabling use_module_routing")
+            use_module_routing = True
+        self.use_module_routing = use_module_routing
+        self.route_by_latency = route_by_latency
+        # peer -> (rtt_s, measured_at): the latency planner's first-hop
+        # pings, reused for ping_cache_ttl seconds (a route is planned anew
+        # on the recovery path, where re-pinging dead peers would add their
+        # timeouts to the failover).
+        self._ping_cache: Dict[str, Tuple[float, float]] = {}
+        self.ping_cache_ttl = 30.0
         self.stage0 = stage0
         self.transport = transport
         self.registry = registry
@@ -328,7 +380,10 @@ class PipelineClient:
         """Fixed stage-chain route: one discovered peer per remote stage,
         a batched peer where the stage has one (every session of this
         client is a plain one, which a batched peer serves); with
-        `affinity`, the replica its rendezvous hash picks."""
+        `affinity`, the replica its rendezvous hash picks. Under module
+        routing, the block-coverage route instead."""
+        if self.use_module_routing:
+            return self._compute_module_route(min_context)
         hops: List[Hop] = []
         for spec in self.plan.stages[1:]:
             key = f"stage{spec.index}"
@@ -343,6 +398,107 @@ class PipelineClient:
         self._m_route_hops.observe(len(hops))
         return hops
 
+    def _ping_candidates(self, peer_ids: Sequence[str]) -> Dict[str, float]:
+        """Concurrent pings, each answer reused for ping_cache_ttl seconds.
+        An unreachable peer is left out (the planner charges its default
+        RTT) and not cached, so a recovering peer is pinged again."""
+        now = time.monotonic()
+        out: Dict[str, float] = {}
+        to_ping: List[str] = []
+        for pid in peer_ids:
+            cached = self._ping_cache.get(pid)
+            if cached is not None and now - cached[1] < self.ping_cache_ttl:
+                out[pid] = cached[0]
+            else:
+                to_ping.append(pid)
+        if to_ping:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=min(8, len(to_ping))) as pool:
+                for pid, rtt in zip(to_ping, pool.map(self.transport.ping, to_ping)):
+                    if rtt is not None:
+                        out[pid] = rtt
+                        self._ping_cache[pid] = (rtt, now)
+        return out
+
+    def _compute_latency_route(self, min_context: Optional[int] = None) -> Optional[List[Hop]]:
+        """The route of least estimated step time over block coverage
+        (``scheduling/routing.plan_min_latency_route``): the servers'
+        published next-hop RTTs and the client's pings of the first-hop
+        candidates. None when the planner finds no route that ends on a
+        final stage (the caller falls back to the greedy walk)."""
+        from ..scheduling.routing import plan_min_latency_route
+
+        start = self.plan.stages[0].end
+        exclude = set()
+        for peers in self.failed_peers.values():
+            exclude |= peers
+        records = self.registry.live_servers(model=self.model)
+        if min_context is not None:
+            # An sp peer advertising less context than the session needs
+            # would refuse its prefill.
+            records = _soft_filter(
+                records, lambda r: (r.engine != "sp" or r.max_context is None
+                                    or r.max_context >= min_context))
+        cands = [rec.peer_id for rec in records
+                 if rec.start_block <= start < rec.end_block
+                 and rec.peer_id not in exclude]
+        client_rtts = self._ping_candidates(cands)
+        planned = plan_min_latency_route(records, start, self.total_blocks,
+                                         client_rtts=client_rtts, exclude=tuple(exclude))
+        if planned is not None and any(
+                h.record.engine in SESSION_ONLY_ENGINES
+                and (h.entry != h.record.start_block or h.end != h.record.end_block)
+                for h in planned):
+            # A batched or sp engine refuses a sub-span hop: plan without
+            # them rather than ship a route that fails at call time.
+            planned = plan_min_latency_route(
+                [r for r in records if r.engine not in SESSION_ONLY_ENGINES],
+                start, self.total_blocks, client_rtts=client_rtts,
+                exclude=tuple(exclude))
+        if planned is None:
+            return None
+        return [Hop(f"blocks{h.entry}", h.record.peer_id, h.entry, h.end,
+                    h.end >= self.total_blocks) for h in planned]
+
+    def _compute_module_route(self, min_context: Optional[int] = None) -> List[Hop]:
+        """Greedy block-coverage routing: cover [stage 0's end,
+        total_blocks) hop by hop, each hop the candidate covering the next
+        block with the largest end_block (then a batched engine, then
+        throughput), loop-guarded; the final hop must serve the final
+        stage."""
+        if self.route_by_latency:
+            hops = self._compute_latency_route(min_context)
+            if hops is not None:
+                return hops
+            logger.warning("latency planner found no route; "
+                           "falling back to greedy coverage routing")
+        hops: List[Hop] = []
+        covered = self.plan.stages[0].end
+        while covered < self.total_blocks:
+            key = f"blocks{covered}"
+            cands = self.registry.discover_block(
+                covered, exclude=tuple(self.failed_peers.get(key, ())), model=self.model)
+            cands = [c for c in cands if c.end_block > covered]
+            # A batched or sp engine serves its full span only: drop it
+            # softly where the hop would enter it mid-span.
+            cands = _soft_filter(cands, lambda c: _engine_usable(
+                c, full_span=c.start_block == covered, min_context=min_context))
+            if not cands:
+                raise NoRouteError(f"no live server covers block {covered}")
+            best = max(cands, key=lambda c: (c.end_block, c.engine == "batched",
+                                             c.throughput))
+            if best.end_block <= covered:       # loop guard
+                raise NoRouteError(f"route stuck at block {covered}")
+            is_final = best.end_block >= self.total_blocks
+            if is_final and not best.final_stage:
+                raise NoRouteError(f"last hop {best.peer_id} does not serve the final stage")
+            hops.append(Hop(key, best.peer_id, covered, best.end_block, is_final))
+            covered = best.end_block
+        self._m_route_plans.labels(planner="greedy").inc()
+        self._m_route_hops.observe(len(hops))
+        return hops
+
     def route(self, refresh: bool = False, min_context: Optional[int] = None,
               affinity: Optional[str] = None) -> List[Hop]:
         """The cached route of (kind, `min_context`, `affinity`), planned
@@ -350,7 +506,10 @@ class PipelineClient:
         Past ``route_cache_capacity`` the least recently used route with an
         affinity goes: the affinity=None routes are a bounded handful that
         every session without one shares, and a session touches its own
-        key every step, so no live generation loses its route."""
+        key every step, so no live generation loses its route. The module
+        router ignores `affinity` (its pick is deterministic already)."""
+        if self.use_module_routing:
+            affinity = None
         key = (PLAIN, min_context, affinity)
         if refresh or key not in self._routes:
             while len(self._routes) >= self.route_cache_capacity:
@@ -494,12 +653,24 @@ class PipelineClient:
 
     def _rediscover_excluding(self, hop: Hop, exclude: Tuple[str, ...]) -> Optional[str]:
         """A live peer of the hop's stage, not in `exclude`, avoiding the
-        engines that refuse a replay journal (the stage branch of the
-        reference's rediscovery); for a burst hop, another full-span batched
-        peer (a batched engine takes a replay: a prefill, then multi-token
-        chunks)."""
+        engines that refuse a replay journal; under module routing the
+        furthest-reaching live peer that covers the hop's whole span (a
+        final-stage one for the last hop); for a burst hop, another
+        full-span batched peer (a batched engine takes a replay: a prefill,
+        then multi-token chunks)."""
         if hop.key == BURST_HOP_KEY:
             return self._discover_burst_peer(exclude=exclude)
+        if self.use_module_routing:
+            # The replacement must cover the hop's exact span: the later
+            # hops already hold KV for theirs.
+            cands = [c for c in self.registry.discover_block(
+                        hop.start_block, exclude=exclude, model=self.model)
+                     if c.start_block <= hop.start_block and c.end_block >= hop.end_block
+                     and (not hop.expect_token or c.final_stage)]
+            cands = _soft_filter(cands, lambda c: c.engine not in SESSION_ONLY_ENGINES)
+            if not cands:
+                return None
+            return max(cands, key=lambda c: (c.end_block, c.throughput)).peer_id
         return self.registry.discover_stage(
             int(hop.key.removeprefix("stage")), exclude=exclude,
             model=self.model, avoid_engine=SESSION_ONLY_ENGINES)

@@ -50,6 +50,7 @@ import dataclasses
 import gc
 import struct
 import threading
+import time
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
@@ -102,6 +103,20 @@ def _collector_back() -> None:
         _gc_state["captures"] -= 1
         if _gc_state["captures"] == 0 and _gc_state["was_enabled"]:
             gc.enable()
+
+
+def collect_garbage() -> None:
+    """Run the cyclic garbage collector outside every capture: wait until
+    no capture is in flight on any thread, and hold off new ones while it
+    runs (a graph it destroys must not die inside a capture). An executor
+    that is let go of (an elastic server's old span) holds its graphs and
+    lease buffers in reference cycles until such a collection."""
+    while True:
+        with _gc_lock:
+            if _gc_state["captures"] == 0:
+                gc.collect()
+                return
+        time.sleep(0.001)
 
 
 def _record(fn: Callable[[], torch.Tensor], pool, stream: torch.cuda.Stream):

@@ -553,15 +553,23 @@ class TcpStageServer(_FramedTcpServer):
     while the handler threads own the sockets; the server starts and stops
     the runtime. With ``runtime=None`` compute runs inline on the handler
     threads, as a batched engine needs: concurrent calls are how its round
-    window coalesces, and its own lock guards the card."""
+    window coalesces, and its own lock guards the card.
 
-    def __init__(self, executor: StageExecutor, runtime: Optional[StageRuntime],
+    An elastic server swaps `executor` at run time when it re-spans, and
+    sets it to None in between: each request reads it once, and while it
+    is None a request gets the retryable stage error "server is
+    re-spanning". `peer_id` is fixed when the server is built (the
+    executor's, when one is given and no `peer_id`), so error frames name
+    this server whatever it serves."""
+
+    def __init__(self, executor: Optional[StageExecutor], runtime: Optional[StageRuntime],
                  host: str = "127.0.0.1",
                  port: int = 0, wire_dtype: str = "bf16",
                  model: Optional[str] = None,
-                 allow_fault_injection: bool = False):
+                 allow_fault_injection: bool = False,
+                 peer_id: Optional[str] = None):
         self.executor = executor
-        self.peer_id = executor.peer_id
+        self.peer_id = peer_id or (executor.peer_id if executor is not None else None)
         # Tagged requests for another model are refused before compute.
         self.model = model
         self.wire_dtype = wire_dtype
@@ -592,9 +600,9 @@ class TcpStageServer(_FramedTcpServer):
         super().start()
         if self.runtime is not None:
             self.runtime.start()
-        logger.info("stage server %s on %s (span [%d, %d))",
-                    self.peer_id, self.address,
-                    self.executor.spec.start, self.executor.spec.end)
+        ex = self.executor
+        logger.info("stage server %s on %s (span %s)", self.peer_id, self.address,
+                    f"[{ex.spec.start}, {ex.spec.end})" if ex is not None else "not chosen yet")
 
     def stop(self) -> None:
         super().stop()
@@ -629,7 +637,14 @@ class TcpStageServer(_FramedTcpServer):
         if verb == "fault":
             _send_frame(sock, self._fault_admin(header))
             return
+        # One read: an elastic server may swap or unset the executor at any
+        # moment, and the rest of this request must see one executor.
         ex = self.executor
+        if ex is None:
+            _send_frame(sock, {"verb": "error", "kind": "stage",
+                               "peer": self.peer_id or "?",
+                               "message": "server is re-spanning"})
+            return
         req_model = header.get("model")
         if (req_model is not None and self.model is not None
                 and req_model != self.model):
@@ -1700,3 +1715,7 @@ class RemoteRegistry:
                                           avoid_engine=avoid_engine,
                                           min_context=min_context,
                                           affinity=affinity)
+
+    def discover_block(self, block: int, exclude=(), model=None):
+        self._refresh()
+        return self._local.discover_block(block, exclude, model=model)

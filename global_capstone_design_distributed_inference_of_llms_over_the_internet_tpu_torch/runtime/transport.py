@@ -3,7 +3,8 @@
 Port of the JAX package's ``runtime/transport.py``: the `Transport` seam and
 `LocalTransport`, every stage executor in one process, with deterministic
 fault injection for tests (`kill`, `revive`, `fail_next`, and the `on_call`
-tap that sees every request first). Transports raise `PeerUnavailable` (a
+tap that sees every request first) and set link latencies (`rtts`, which
+`ping` reports for a live peer). Transports raise `PeerUnavailable` (a
 ConnectionError) for a dead peer, which the client's recovery wrapper fails
 over. `LocalTransport` is the serving boundary of its peers, so it records
 their ``transport_*`` and ``server_*`` metrics, the ``server_forward`` span
@@ -79,11 +80,16 @@ class LocalTransport(Transport):
         # after this call read the peer's state, so a kill from the tap takes
         # effect from the next call on.
         self.on_call: Optional[Callable[[str, StageRequest], None]] = None
+        # Link latencies `ping` reports, by peer (0.0 when unset): the
+        # in-process stand-in for measured RTTs, which servers publish and
+        # the latency route planner reads.
+        self.rtts: Dict[str, float] = {}
         # Telemetry (process-global registry and tracer; a no-op unless
         # enabled). Bytes are tensor nbytes, read from metadata.
         self._m_calls = _tm.get("transport_calls_total")
         self._m_sent = _tm.get("transport_bytes_sent_total")
         self._m_recv = _tm.get("transport_bytes_received_total")
+        self._m_rtt = _tm.get("transport_rtt_seconds")
         self._m_step = _tm.get("server_step_latency_seconds")
         self._m_tokens = _tm.get("server_tokens_total")
         self._m_requests = _tm.get("server_requests_total")
@@ -117,6 +123,18 @@ class LocalTransport(Transport):
     def fail_next(self, peer_id: str, n: int = 1) -> None:
         with self._lock:
             self._fail_next[peer_id] = n
+
+    def alive(self, peer_id: str) -> bool:
+        with self._lock:
+            return peer_id in self._peers and not self._dead.get(peer_id, True)
+
+    def ping(self, peer_id: str) -> Optional[float]:
+        if not self.alive(peer_id):
+            return None
+        with self._lock:
+            rtt = self.rtts.get(peer_id, 0.0)
+        self._m_rtt.observe(rtt)
+        return rtt
 
     def end_session(self, peer_id: str, session_id: str) -> None:
         with self._lock:

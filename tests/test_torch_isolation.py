@@ -4,7 +4,8 @@ scripts/torch_profile_decode.py, imports jax, jaxlib or the JAX package
 from the JAX package have not drifted from their originals (the NF4 code
 book among them, the placement registry, which differs from its original
 only in its module docstring, and the byte-equal copies of the chaos
-layer, the task pool, the wire codec's source and the serving gateway)."""
+layer, the task pool, the wire codec's source, the serving gateway and the
+swarm scheduling modules)."""
 
 import ast
 import dataclasses
@@ -156,12 +157,15 @@ def _without_module_docstring(path):
 @pytest.mark.parametrize("rel", ["runtime/faults.py", "runtime/task_pool.py",
                                  "csrc/codec.cpp", "serving/__init__.py",
                                  "serving/admission.py", "serving/fair_queue.py",
-                                 "serving/gateway.py"])
+                                 "serving/gateway.py", "scheduling/load_balancing.py",
+                                 "scheduling/throughput.py", "scheduling/routing.py"])
 def test_byte_equal_copies(rel):
-    """The chaos layer, the task pool, the wire codec's C++ source and the
-    serving gateway (admission, fair queue, gateway; their relative imports
-    resolve to the port's own runtime, ops and telemetry) are copies of the
-    JAX package's, byte for byte (the codec's lives in its ``native/``)."""
+    """The chaos layer, the task pool, the wire codec's C++ source, the
+    serving gateway (admission, fair queue, gateway) and the swarm
+    scheduling modules (load balancing, the throughput probe, latency
+    routing) are copies of the JAX package's, byte for byte (the codec's
+    lives in its ``native/``); their relative imports resolve to the port's
+    own runtime, ops, telemetry and registry."""
     original = rel.replace("csrc/", "native/")
     assert (REPO / PORT_PKG / rel).read_bytes() == (REPO / JAX_PKG / original).read_bytes()
 

@@ -466,8 +466,7 @@ def test_spent_deadline_and_model_mismatch_refused(port_swarm):
 
 
 @pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"],
-                                  ["--use_load_balancing"], ["--use_cpu_offload"],
-                                  ["--relay_capacity", "2"]])
+                                  ["--use_cpu_offload"], ["--relay_capacity", "2"]])
 def test_unported_serve_flag_exits_naming_it(flag):
     with pytest.raises(SystemExit, match=f"{flag[0]} is not ported"):
         tmain.main(["--mode", "serve", "--stage", "1", "--device", "cpu",
