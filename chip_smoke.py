@@ -313,6 +313,14 @@ on the kernels; it never prints the last line of a smoke pass.)
    --use_load_balancing --splits 8`` must print step 8's in-process int8
    float32 chain's generation and ``TOKENS=`` ids. Peaks scraped, every
    child killed whatever happens; its seconds printed.
+11d. Control-plane CLI drive (``control_cli_path``): ``--mode registry``,
+   ``--mode serve --stage 1 --relay_capacity 2``, ``--mode serve --stage 2
+   --public_ip 127.0.0.2`` (the servers bind 127.0.0.1, so nothing listens
+   at that address: it must print its ``RELAY:`` line), ``--mode serve
+   --stage 3`` (int8, wire f32), and a ``--mode client --peers_cache`` that
+   must print step 8's generation and ``TOKENS=`` ids; then the registry is
+   SIGKILLed and a second client with the same cache must print the same
+   through a gossip mirror. Every child killed whatever happens.
 12a. Elastic path (after the prefix path, on the int8 path's weights;
    ``elastic_path``): ``--mode local --use_load_balancing`` built by
    ``main``'s functions, 3 elastic servers, each warmed up and probing
@@ -335,13 +343,45 @@ on the kernels; it never prints the last line of a smoke pass.)
    3rd decode step, and the client must recover onto the replica with
    the fault-free tokens (the recovery step printed).
    ``derive_num_blocks`` on the card is printed.
+12b. Control-plane path (after the elastic path, on the int8 path's
+   executors; ``control_plane_path``): every server as ``--mode serve``
+   builds it (a ``StageRuntime``, float32 from the wire, a gossip mirror
+   and a gossip loop every GOSSIP_INTERVAL_S). First the push chain over
+   ``LocalTransport`` against the per-hop walk on the same executors:
+   equal tokens, one client call a step, ``int8_dot`` and ``sample_draw``
+   launches by route equal. (a) Two registries, 3 servers, step 5's 3
+   requests at wire f32, both registries stopped after the first request's
+   3rd decode step: every request equal to step 8's float32 chain; every
+   mirror holds the 3 records; a fresh ``RemoteRegistry`` bootstraps
+   through the first client's peers cache (a ``gossip_fallback`` event)
+   to the same greedy tokens; a registry restarted on the first one's
+   port is re-adopted; ``swarm-stats`` from every server lists the 3
+   records, each with its stats digest. (b) An executor-less volunteer
+   (capacity 2) and stage 2 advertised at UNROUTABLE: the dial-back vote
+   is False, ``attach_via_relay`` picks the volunteer, the 3 requests
+   equal step 8's chain, ``relay_forwarded_total`` counts at least a frame
+   a token, a push chain through the relayed peer gives the same tokens
+   in one call a step; the volunteer stopped after the relayed peer's 3rd
+   decode step, the client recovers onto a direct replica with the
+   fault-free tokens and the breaker blames the volunteer, not the peer
+   behind it (the recovery step printed). (c) Over TCP at wire f32 and at
+   bf16, per-hop, chain, chain, per-hop: tokens equal the per-hop walk's
+   (at f32 step 8's chain), one client call a step against three, the
+   warm runs' launches by route equal; decode ms/token and TTFT greedy and
+   sampled of each run and the client's ``socket`` phase printed; a
+   chain's last hop stopped after its 3rd decode step is recovered by
+   chain replay with the fault-free tokens. Every run's launch gate: every
+   projection of every token on ``int8_dot``, none on the CUDA cores, a
+   ``sample_draw`` a sampled token. The phase's seconds printed.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``, ``paged_decode_attention`` with the paged path's
    launches and its times at the paged path's shape; each matmul with its
    launches by route in process and over TCP, the batched path's and the
    burst path's launches by route, and its M = 8 and float32 prefill
    layers; the prefix path's prefills by route and bucket and its layer at
-   M = 1024; the elastic path's requests and probes by route) and
+   M = 1024; the elastic path's requests and probes by route; the
+   control-plane path's runs by route, and ``sample_draw``'s launches on
+   each) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -356,6 +396,7 @@ import gc
 import json
 import os
 import pathlib
+import random
 import re
 import shutil
 import signal
@@ -469,6 +510,12 @@ F32_CHECKED_M = (3, 4, 8, 9, 16, 32, 33, 64, 512, 2048)
 F32_TIMED_M = (3, 8, 16, 32, 33, 64, 512)
 LOGIT_GAP_TOL = 2.0 ** -6  # a near-tie: top-2 gap <= this * max|logit|
 KILL_AFTER_DECODES = 3  # the failover drives kill the pinned peer after this
+# The control-plane drives: the address a NAT'd server advertises (nothing
+# listens there), the CLI's --public_ip that nothing listens on (the servers
+# bind 127.0.0.1), and the gossip loops' interval in process.
+UNROUTABLE = "127.0.0.1:9"
+UNLISTENED_IP = "127.0.0.2"
+GOSSIP_INTERVAL_S = 0.25
 #                         many decode steps it served
 CLI_STEP_TIMEOUT_S = 300  # each CLI process: its handshake line, or the client's run
 TELEMETRY_PAIRS = 4     # telemetry off / on runs of one request, in ABBA order
@@ -3163,7 +3210,8 @@ def _stderr_tail(path: pathlib.Path, n: int = 30) -> str:
 
 
 def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), client_argv=(),
-              gateway=None, status=None):
+              gateway=None, status=None, stage_argv=None, relay_stages=(),
+              registry_kill=False):
     """The port's swarm as processes on the card: a registry, a server a
     stage of `stages` (int8, bfloat16, seed 0, wire f32, and `serve_argv`)
     and one client a `wants` entry (prompt, the in-process result its
@@ -3178,17 +3226,24 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
     submit exits 0 and its ``TOKENS=`` ids equal the in-process gateway's
     for its prompt. With `status` ({"argv": [...], "coverage": line}),
     once the servers serve, a ``--mode status`` process must exit 0 and
-    print that coverage line. Returns the summary (with each server's
-    ``SERVING`` line)."""
+    print that coverage line. `stage_argv` maps a stage to more argv of its
+    server; each stage of `relay_stages` must print its ``RELAY:`` line
+    before ``SERVING``. With `registry_kill` the clients keep a
+    ``--peers_cache`` file; once they are done the registry is SIGKILLed
+    and the clients run again, with the same cache, to the same tokens (a
+    gossip mirror serves discovery). Returns the summary (with each
+    server's ``SERVING`` line)."""
     main = [sys.executable, "-m", PORT + ".main"]
     model_args = ["--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
                   "--seed", "0", "--device", "cuda", "--wire_dtype", "f32"]
     env = dict(os.environ, PYTHONIOENCODING="utf-8", PYTHONUNBUFFERED="1")
     procs = []
     peaks, held, reserved = {}, {}, {}
-    serving = []
+    serving, relay_lines = [], []
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
+        if registry_kill:
+            client_argv = (*client_argv, "--peers_cache", str(tmp / "peers.json"))
 
         def spawn(what, argv):
             out, err = tmp / f"{what}.out", tmp / f"{what}.err"
@@ -3207,8 +3262,16 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
                 t0 = time.monotonic()
                 proc, out = spawn(f"stage{k}", ["--mode", "serve", "--stage", str(k),
                                                 "--registry_addr", addr, "--rpc_port", "0",
-                                                *model_args, *serve_argv])
+                                                *model_args, *serve_argv,
+                                                *(stage_argv or {}).get(k, ())])
                 line = _wait_line(proc, out, "SERVING ", f"stage {k} server")
+                if k in relay_stages:
+                    relay = [ln for ln in out.read_text().splitlines()
+                             if ln.startswith("RELAY: serving via volunteer ")]
+                    if len(relay) != 1:
+                        raise AssertionError(f"stage {k} server printed no RELAY: line")
+                    relay_lines.append(relay[0])
+                    log(f"cli: {relay[0]}")
                 # Printed before the SERVING line.
                 peak = re.search(r"PEAK_MEMORY_BYTES=(\d+)", out.read_text())
                 peaks[f"stage{k}_at_start"] = peak and int(peak.group(1))
@@ -3231,45 +3294,64 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
                     raise AssertionError(f"cli status: exit {code}, coverage {coverage}, "
                                          f"want 0 and {status['coverage']!r}:\n"
                                          + _stderr_tail(tmp / "status.err"))
+            def run_clients(tag):
+                """Every client at once; each must print its in-process
+                run's generation and token ids. Returns TTFTs and rates."""
+                clients = []
+                for i, (prompt, _, sp) in enumerate(wants):
+                    proc, out = spawn(f"client{i}{tag}", [
+                        "--mode", "client", "--registry_addr", addr, *model_args,
+                        "--prompt", prompt, "--max_new_tokens", str(MAX_NEW_TOKENS),
+                        "--temperature", str(sp.temperature), "--top_p", str(sp.top_p),
+                        "--top_k", str(sp.top_k),
+                        "--repetition_penalty", str(sp.repetition_penalty), *client_argv])
+                    clients.append((proc, out))
+                ttft, tps = [], []
+                for i, ((proc, out), (prompt, want, _)) in enumerate(zip(clients, wants)):
+                    code = proc.wait(timeout=CLI_STEP_TIMEOUT_S)
+                    # Bytes decoded as they are: a generation may hold a "\r",
+                    # which a text read would turn into a newline.
+                    stdout = out.read_bytes().decode("utf-8", errors="replace")
+                    if code != 0:
+                        raise AssertionError(f"client {i}{tag} exited {code}:\n"
+                                             + _stderr_tail(tmp / f"client{i}{tag}.err", 60))
+                    expect = (f"=== Generation ({len(want.tokens)} tokens, stopped by "
+                              f"{want.stopped_by}) ===\n{tok.decode(want.tokens)}\n")
+                    if expect not in stdout:
+                        raise AssertionError(f"cli client {i}{tag} text differs from its "
+                                             f"in-process run's:\n{stdout}\nwant:\n{expect}")
+                    ids = re.search(r"^TOKENS=(\[[0-9, ]*\])$", stdout, re.M)
+                    if ids is None or json.loads(ids.group(1)) != want.tokens:
+                        raise AssertionError(f"cli client {i}{tag} token ids differ from its "
+                                             f"in-process run's:\n{ids and ids.group(1)}\n"
+                                             f"want:\n{want.tokens}")
+                    ttft.append(float(re.search(r"TTFT: ([0-9.]+)s", stdout).group(1)))
+                    tps.append(float(re.search(r"Decode: [0-9.]+s total, ([0-9.]+) tokens/s",
+                                               stdout).group(1)))
+                    peak = re.search(MEMORY_LINE, stdout)
+                    peaks[f"client{i}{tag}"] = peak and int(peak.group(1))
+                    held[f"client{i}{tag}"] = peak and int(peak.group(2))
+                    reserved[f"client{i}{tag}"] = peak and int(peak.group(3))
+                return ttft, tps
+
             t0 = time.monotonic()
-            clients = []
-            for i, (prompt, _, sp) in enumerate(wants):
-                proc, out = spawn(f"client{i}", [
-                    "--mode", "client", "--registry_addr", addr, *model_args,
-                    "--prompt", prompt, "--max_new_tokens", str(MAX_NEW_TOKENS),
-                    "--temperature", str(sp.temperature), "--top_p", str(sp.top_p),
-                    "--top_k", str(sp.top_k),
-                    "--repetition_penalty", str(sp.repetition_penalty), *client_argv])
-                clients.append((proc, out))
-            ttft, tps = [], []
-            for i, ((proc, out), (prompt, want, _)) in enumerate(zip(clients, wants)):
-                code = proc.wait(timeout=CLI_STEP_TIMEOUT_S)
-                # Bytes decoded as they are: a generation may hold a "\r",
-                # which a text read would turn into a newline.
-                stdout = out.read_bytes().decode("utf-8", errors="replace")
-                if code != 0:
-                    raise AssertionError(f"client {i} exited {code}:\n"
-                                         + _stderr_tail(tmp / f"client{i}.err", 60))
-                expect = (f"=== Generation ({len(want.tokens)} tokens, stopped by "
-                          f"{want.stopped_by}) ===\n{tok.decode(want.tokens)}\n")
-                if expect not in stdout:
-                    raise AssertionError(f"cli client {i} text differs from its in-process "
-                                         f"run's:\n{stdout}\nwant:\n{expect}")
-                ids = re.search(r"^TOKENS=(\[[0-9, ]*\])$", stdout, re.M)
-                if ids is None or json.loads(ids.group(1)) != want.tokens:
-                    raise AssertionError(f"cli client {i} token ids differ from its "
-                                         f"in-process run's:\n{ids and ids.group(1)}\n"
-                                         f"want:\n{want.tokens}")
-                ttft.append(float(re.search(r"TTFT: ([0-9.]+)s", stdout).group(1)))
-                tps.append(float(re.search(r"Decode: [0-9.]+s total, ([0-9.]+) tokens/s",
-                                           stdout).group(1)))
-                peak = re.search(MEMORY_LINE, stdout)
-                peaks[f"client{i}"] = peak and int(peak.group(1))
-                held[f"client{i}"] = peak and int(peak.group(2))
-                reserved[f"client{i}"] = peak and int(peak.group(3))
+            ttft, tps = run_clients("")
             client_s = time.monotonic() - t0
             log(f"cli: every client's text and token ids equal its in-process run's "
                 f"({len(wants)} clients at once, {client_s:.1f}s with set-up)")
+            after_kill = None
+            if registry_kill:
+                procs[0][1].send_signal(signal.SIGKILL)
+                procs[0][1].wait(timeout=CLI_STEP_TIMEOUT_S)
+                t0 = time.monotonic()
+                kill_ttft, kill_tps = run_clients("_after_registry_kill")
+                after_kill = {"ttft_ms_printed": [t * 1e3 for t in kill_ttft],
+                              "decode_ms_per_token_mean_printed": [1e3 / t if t else None
+                                                                   for t in kill_tps],
+                              "client_run_s": time.monotonic() - t0,
+                              "tokens_equal_in_process": True}
+                log(f"cli: registry SIGKILLed; the clients again, with the same peers cache: "
+                    f"text and token ids equal ({after_kill['client_run_s']:.1f}s)")
             servers = procs[1:1 + len(stages)]
             gateway_view = None
             if gateway is not None:
@@ -3346,6 +3428,10 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
                                               for k, v in reserved.items()},
                        "start_s": start_s, "client_run_s": client_s, "card": smi}
             summary["serving"] = serving
+            if relay_lines:
+                summary["relay_lines"] = relay_lines
+            if after_kill is not None:
+                summary["after_registry_kill"] = after_kill
             if gateway_view is not None:
                 summary["gateway"] = gateway_view
             if status_view is not None:
@@ -5125,6 +5211,516 @@ def elastic_path(torch, kernels, tmain, state, smi: str) -> dict:
     return view
 
 
+class KillAfterForwards:
+    """A client's stage 0 that calls `kill` after its `n`-th forward (the
+    prefill is the first): a fault at a fixed step of a generation."""
+
+    def __init__(self, inner, n: int, kill):
+        self._inner, self._n, self._kill, self.calls = inner, n, kill, 0
+
+    def forward(self, req):
+        out = self._inner.forward(req)
+        self.calls += 1
+        if self.calls == self._n:
+            self._kill()
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+class ControlSwarm:
+    """Stage servers as ``--mode serve`` builds them (a ``StageRuntime``
+    each, a gossip mirror and a gossip loop at GOSSIP_INTERVAL_S, a record
+    at the registry service), and clients over ``TcpTransport``; `stop()`
+    tears everything down."""
+
+    def __init__(self, mods, registry, loop_registry):
+        self.m, self.registry, self.loop_registry = mods, registry, loop_registry
+        self.servers, self.nodes, self.recs, self.loops, self.transports = {}, {}, {}, [], []
+
+    def serve(self, peer_id, ex, spec=None, relay_capacity=0, address=None):
+        m = self.m
+        node = m["gossip"].GossipNode(peer_id, rng=random.Random(len(self.servers)))
+        srv = m["net"].TcpStageServer(
+            ex, m["task_pool"].StageRuntime() if ex is not None else None, wire_dtype="f32",
+            model=MODEL, peer_id=peer_id, gossip=node, relay_capacity=relay_capacity)
+        srv.start()
+        node.self_address = address or srv.address
+        if spec is not None:
+            rec = m["client"].make_server_record(peer_id, spec, model=MODEL)
+        else:                                   # an executor-less volunteer
+            rec = m["registry"].ServerRecord(peer_id=peer_id, start_block=0, end_block=0,
+                                             model=MODEL)
+        rec.address = address or srv.address
+        if relay_capacity:
+            rec.relay_capacity = relay_capacity
+        self.registry.register(rec)
+        node.publish(m["registry"].rec_to_dict(rec))
+        loop = m["gossip"].GossipLoop(
+            node, m["net"].gossip_exchange,
+            record_fn=lambda: dict(m["registry"].rec_to_dict(rec),
+                                   stats=m["profiling"].stats_digest()),
+            extra_peers_fn=lambda: [r.address for r in self.loop_registry.live_servers()
+                                    if r.address],
+            interval_s=GOSSIP_INTERVAL_S)
+        loop.start()
+        self.servers[peer_id], self.nodes[peer_id], self.recs[peer_id] = srv, node, rec
+        self.loops.append(loop)
+        return srv, rec
+
+    def client(self, cfg, plan, stage0, wire="f32", chain=False, registry=None, seed=0):
+        m = self.m
+        registry = registry or self.registry
+        tx = m["net"].TcpTransport(registry, wire_dtype=wire, model=MODEL)
+        self.transports.append(tx)
+        return m["client"].PipelineClient(cfg, plan, stage0, tx, registry, seed=seed,
+                                          model=MODEL, use_push_chain=chain)
+
+    def stop(self):
+        for loop in self.loops:
+            loop.stop()
+        for tx in self.transports:
+            tx.close()
+        for srv in self.servers.values():
+            srv.stop()
+
+
+def counted_calls(transport):
+    """Count the client's own calls on `transport` (peer ids in order)."""
+    calls = []
+    call = transport.call
+
+    def wrapped(peer_id, req, timeout=None):
+        calls.append(peer_id)
+        return call(peer_id, req, timeout)
+
+    transport.call = wrapped
+    return calls
+
+
+def control_run(torch, kernels, client, executors, state, what: str, want=None,
+                prof=None) -> dict:
+    """Step 5's 3 requests through `client`, every count set to 0 just
+    before: the tokens (equal to `want`'s where given), int8_dot launches by
+    route, sample_draw launches, the client's own calls on its TCP
+    transport (LocalTransport's chain recurses through its own call: its
+    caller counts entry calls with the tap), TTFT and decode ms/token
+    greedy and sampled, and the client's ``socket`` phase."""
+    reset_counts(kernels, executors)
+    if prof is not None:
+        prof.reset()
+    tcp = not hasattr(client.transport, "on_call")
+    calls = counted_calls(client.transport) if tcp else []
+    try:
+        results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
+                   for ids, (_, sp) in zip(state["prompt_ids"], state["requests"])]
+    finally:
+        if tcp:
+            del client.transport.call
+    torch.cuda.synchronize()
+    if want is not None:
+        for i, (r, w) in enumerate(zip(results, want)):
+            if r.tokens != w.tokens:
+                raise AssertionError(f"{what}: request {i} gave {r.tokens}, want {w.tokens}")
+    tokens = sum(len(r.tokens) for r in results)
+    return {"results": results, "tokens": tokens,
+            "int8_dot_launches_by_route": int8_routes(kernels["int8_dot"]),
+            "sample_draw_launches": kernels["sample_draw"]._launches,
+            "client_calls": len(calls) if tcp else None, "calls_by_peer": dict(
+                (p, calls.count(p)) for p in sorted(set(calls))),
+            "ttft_ms": [r.ttft_s * 1e3 for r in results],
+            **greedy_and_sampled_ms(results, state["requests"]),
+            "socket_phase": prof.snapshot().get("socket") if prof is not None else None}
+
+
+def launch_gate(what: str, kernels, cfg, run: dict, state) -> None:
+    """Every projection of every token on int8_dot, none on the CUDA
+    cores; one sample_draw a sampled token."""
+    need = 4 * cfg.num_layers * run["tokens"]
+    routes = run["int8_dot_launches_by_route"]
+    sampled = sum(len(r.tokens) for r, (_, sp) in zip(run["results"], state["requests"])
+                  if not sp.greedy)
+    calls = "" if run["client_calls"] is None else f", {run['client_calls']} client calls"
+    log(f"{what}: {run['tokens']} tokens, int8_dot {routes} (>= {need}), sample_draw "
+        f"{run['sample_draw_launches']} (>= {sampled}){calls}")
+    if sum(routes.values()) < need or routes["simt"] or run["sample_draw_launches"] < sampled:
+        raise AssertionError(f"{what}: int8_dot {routes} for {need} projections, sample_draw "
+                             f"{run['sample_draw_launches']} for {sampled} sampled tokens")
+
+
+def run_view(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "results"}
+
+
+def control_plane_path(torch, kernels, tmain, state, smi: str) -> dict:
+    """Step 12b: the decentralized control plane on the int8 path's
+    executors (stages 1-3 computing in the float32 the wire decodes to, as
+    ``--mode serve`` builds them), every server with a gossip mirror and
+    loop. (a) Gossip: two registries, both stopped after the first
+    request's 3rd decode step; every request equal to step 8's float32
+    chain; every mirror holds the 3 records; a fresh client bootstraps
+    through the first client's peers cache (``gossip_fallback``) to the
+    same tokens; a restarted registry is re-adopted; ``swarm-stats`` from
+    every server lists 3 records with their stats digests. (b) Relay: an
+    executor-less volunteer (capacity 2), stage 2 advertised at UNROUTABLE:
+    the vote is False, the attach picks the volunteer, the 3 requests
+    equal step 8's chain, ``relay_forwarded_total`` counts the frames, a
+    push chain through the relayed peer gives the same tokens; the
+    volunteer stopped after the 3rd decode step, the client recovers onto a
+    direct replica with the fault-free tokens and the breaker blames the
+    volunteer. (c) Push chains over LocalTransport and over TCP at wire f32
+    and bf16 (per-hop, chain, chain, per-hop): tokens equal to the per-hop
+    walk's, one client call a step, int8_dot launches by route equal to
+    the per-hop walk's; a stage-3 server stopped after the 3rd decode step
+    of a chain is recovered by chain replay with the fault-free tokens."""
+    from importlib import import_module
+
+    mods = {name: import_module(f"{PORT}.{path}") for name, path in (
+        ("net", "runtime.net"), ("gossip", "scheduling.gossip"),
+        ("registry", "scheduling.registry"), ("task_pool", "runtime.task_pool"),
+        ("client", "runtime.client"), ("executor", "runtime.executor"),
+        ("profiling", "telemetry.profiling"), ("tel", "telemetry"),
+        ("catalog", "telemetry.catalog"))}
+    net, tel = mods["net"], mods["tel"]
+    t_phase = time.monotonic()
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    plan, stage0 = local.plan, local.stage0
+    chain_ref = state["f32_chain_results"]
+    peers = list(local.transport.peers())
+    remote = {p: local.transport.executor(p) for p in peers}
+    saved = {p: ex.act_dtype for p, ex in remote.items()}
+    prof = mods["profiling"].get_profiler()
+    view = {"card": smi}
+    replicas = []
+
+    def replica(spec, peer_id):
+        ex = mods["executor"].StageExecutor(
+            cfg, spec, tmain._stage_params(args, cfg, state["params"], spec), peer_id=peer_id,
+            device=torch.device(args.device))
+        replicas.append(ex)
+        return ex
+
+    # (c0) The push chain over LocalTransport, the executors as --mode local
+    # builds them: the next hop gets what the per-hop walk hands it.
+    t0 = time.monotonic()
+    executors = path_executors(local)
+    entry = []
+    local.transport.on_call = lambda peer, req: (len(req.next_servers) == len(peers) - 1
+                                                 and entry.append(peer))
+    try:
+        walk = control_run(torch, kernels, local, executors, state, "chain local, per-hop")
+        local.use_push_chain = True
+        chained = control_run(torch, kernels, local, executors, state, "chain local",
+                              want=walk["results"])
+    finally:
+        local.use_push_chain = False
+        local.transport.on_call = None
+        local._routes.clear()
+    for run, what in ((walk, "chain local, per-hop"), (chained, "chain local")):
+        launch_gate(what, kernels, cfg, run, state)
+    if (len(entry) != chained["tokens"]
+            or chained["int8_dot_launches_by_route"] != walk["int8_dot_launches_by_route"]
+            or chained["sample_draw_launches"] != walk["sample_draw_launches"]):
+        raise AssertionError(f"chain local: {len(entry)} client calls for {chained['tokens']} "
+                             f"steps; launches {chained['int8_dot_launches_by_route']} against "
+                             f"the per-hop walk's {walk['int8_dot_launches_by_route']}")
+    view["chain_local"] = {"per_hop": run_view(walk), "chain": run_view(chained),
+                           "client_calls": len(entry), "seconds": time.monotonic() - t0}
+    log(f"chain local: tokens equal the per-hop walk's, {len(entry)} client calls for "
+        f"{chained['tokens']} steps, launches by route equal")
+
+    for ex in remote.values():
+        ex.act_dtype = None
+    seeds, swarm, registry_tel = [], None, False
+    try:
+        # (a) Gossip: two registries, both stopped mid-generation.
+        t0 = time.monotonic()
+        tel.get_recorder().enable()
+        tel.get_recorder().clear()
+        for _ in range(2):
+            rs = net.RegistryServer()
+            rs.start()
+            seeds.append(rs)
+        seed_addrs = ",".join(rs.address for rs in seeds)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_peers_")
+        cache = os.path.join(tmp, "peers.json")
+        registry = net.RemoteRegistry(seed_addrs, timeout=2.0, peers_cache=cache)
+        swarm = ControlSwarm(mods, registry, net.RemoteRegistry(seed_addrs, timeout=2.0))
+        for p in peers:
+            swarm.serve(p, remote[p], remote[p].spec)
+        deadline = time.monotonic() + 30.0
+        while (any(n.live_count() < len(peers) for n in swarm.nodes.values())
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+
+        def kill_seeds():
+            for rs in seeds:
+                rs.stop()
+
+        killer = KillAfterForwards(stage0, 1 + KILL_AFTER_DECODES, kill_seeds)
+        client = swarm.client(cfg, plan, killer)
+        executors = [stage0] + list(remote.values())
+        gossip_run = control_run(torch, kernels, client, executors, state,
+                                 "gossip: seeds stopped mid-request", want=chain_ref)
+        launch_gate("gossip", kernels, cfg, gossip_run, state)
+        mirrors = {p: n.live_count() for p, n in swarm.nodes.items()}
+        if killer.calls < 1 + KILL_AFTER_DECODES or any(v != len(peers) for v in mirrors.values()):
+            raise AssertionError(f"gossip: seeds stopped after {killer.calls} stage-0 steps; "
+                                 f"mirror records {mirrors}, want {len(peers)} each")
+        fresh_registry = net.RemoteRegistry(seed_addrs, timeout=0.5, peers_cache=cache)
+        boot = fresh_registry.live_servers(model=MODEL)
+        fresh = swarm.client(cfg, plan, stage0, registry=fresh_registry)
+        t1 = time.monotonic()
+        got = fresh.generate(state["prompt_ids"][0], MAX_NEW_TOKENS,
+                             sampling=state["requests"][0][1])
+        bootstrap_s = time.monotonic() - t1
+        names = [e.name for e in tel.get_recorder().events()]
+        if (len(boot) != len(peers) or "gossip_fallback" not in names
+                or got.tokens != chain_ref[0].tokens):
+            raise AssertionError(f"gossip bootstrap: {len(boot)} records, events "
+                                 f"{sorted(set(names))}, tokens {got.tokens}")
+        host, port = seeds[0].address.rsplit(":", 1)
+        restored = net.RegistryServer(host=host, port=int(port))
+        restored.start()
+        seeds.append(restored)
+        for rec in swarm.recs.values():
+            fresh_registry.register(rec)
+        readopted = len(fresh_registry.live_servers(model=MODEL))
+        stale = fresh_registry.stale_info()
+        stats = {p: fresh.transport.swarm_stats(p) for p in peers}
+        bad = {p: [r.get("peer_id") for r in v["records"] if "stats" in r]
+               for p, v in stats.items()}
+        if readopted != len(peers) or stale["seeds_down"] or any(
+                sorted(v) != sorted(peers) for v in bad.values()):
+            raise AssertionError(f"gossip: re-adopted {readopted} records ({stale}); "
+                                 f"swarm-stats records with a digest {bad}")
+        view["gossip"] = {
+            "run": run_view(gossip_run),
+            "seeds_stopped_after_stage0_step": 1 + KILL_AFTER_DECODES,
+            "mirror_records": mirrors, "bootstrap_records": len(boot),
+            "bootstrap_request_s": bootstrap_s,
+            "bootstrap_decode_ms_per_token": 1e3 * statistics.median(got.decode_times_s),
+            "events": sorted(set(names) & {"registry_unreachable", "gossip_fallback",
+                                           "gossip_served_discovery", "registry_recovered",
+                                           "registry_stale_serve"}),
+            "readopted_records": readopted, "swarm_stats_digest_keys": sorted(
+                stats[peers[0]]["self"]),
+            "seconds": time.monotonic() - t0}
+        log(f"gossip: 3 requests equal step 8's chain with both registries stopped after "
+            f"the first request's {KILL_AFTER_DECODES}rd decode step; mirrors {mirrors}; a "
+            f"fresh client bootstrapped {len(boot)} records through the peers cache "
+            f"(gossip_fallback) to the same tokens; a restarted registry re-adopted "
+            f"{readopted}; swarm-stats lists {len(peers)} records with digests on every "
+            f"server ({view['gossip']['seconds']:.1f}s)")
+        swarm.stop()
+        for rs in seeds:
+            rs.stop()
+        seeds = []
+        tel.get_recorder().disable()
+        tel.get_recorder().clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+        # (b) Relay: stage 2 behind a volunteer.
+        t0 = time.monotonic()
+        tel.enable()
+        registry_tel = True
+        seed = net.RegistryServer()
+        seed.start()
+        seeds.append(seed)
+        registry = net.RemoteRegistry(seed.address)
+        swarm = ControlSwarm(mods, registry, registry)
+        vsrv, _ = swarm.serve("volunteer", None, relay_capacity=2)
+        nat = peers[1]
+        for p in peers:
+            swarm.serve(p, remote[p], remote[p].spec,
+                        address=UNROUTABLE if p == nat else None)
+        ping_tx = net.TcpTransport(registry, wire_dtype="f32")
+        swarm.transports.append(ping_tx)
+        vote = net.check_direct_reachability(ping_tx, registry, UNROUTABLE)
+        attached = net.attach_via_relay(ping_tx, registry, nat, swarm.servers[nat].address)
+        if vote is not False or attached is None or attached["relay"] != "volunteer":
+            raise AssertionError(f"relay: vote {vote}, attach {attached}")
+        swarm.recs[nat].relay_via = "volunteer"
+        registry.register(swarm.recs[nat])
+        fwd = mods["catalog"].get("relay_forwarded_total").labels(outcome="ok")
+        before = fwd.value
+        client = swarm.client(cfg, plan, stage0)
+        relay_run = control_run(torch, kernels, client, executors, state, "relay",
+                                want=chain_ref, prof=None)
+        launch_gate("relay", kernels, cfg, relay_run, state)
+        forwarded = fwd.value - before
+        if forwarded < relay_run["tokens"]:
+            raise AssertionError(f"relay: relay_forwarded_total grew {forwarded}, want >= "
+                                 f"{relay_run['tokens']} (a frame a token)")
+        chain_client = swarm.client(cfg, plan, stage0, chain=True)
+        calls = counted_calls(chain_client.transport)
+        got = chain_client.generate(state["prompt_ids"][0], MAX_NEW_TOKENS,
+                                    sampling=state["requests"][0][1])
+        del chain_client.transport.call
+        if got.tokens != chain_ref[0].tokens or len(calls) != len(got.tokens):
+            raise AssertionError(f"relay chain: tokens {got.tokens}, {len(calls)} client "
+                                 f"calls for {len(got.tokens)} steps")
+        spec2 = remote[nat].spec
+        direct = replica(spec2, "stage2-direct")
+        swarm.serve("stage2-direct", direct, spec2)
+        seen = {"decode": 0}
+        call = client.transport.call
+
+        def stop_volunteer(peer_id, req, timeout=None):
+            resp = call(peer_id, req, timeout)
+            if peer_id == nat and not req.is_prefill and not req.is_replay:
+                seen["decode"] += 1
+                if seen["decode"] == KILL_AFTER_DECODES:
+                    vsrv.stop()
+            return resp
+
+        client.transport.call = stop_volunteer
+        before_rec = client.recoveries
+        try:
+            got = client.generate(state["prompt_ids"][0], MAX_NEW_TOKENS,
+                                  sampling=state["requests"][0][1])
+        finally:
+            del client.transport.call
+        vol_breaker = client.breaker._peers.get("volunteer", {})
+        nat_fails = client.breaker._peers.get(nat, {}).get("fails", 0)
+        recovery_step_ms = 1e3 * max(got.decode_times_s)
+        log(f"relay failover: the volunteer stopped after {nat}'s {seen['decode']}rd decode "
+            f"step, {client.recoveries - before_rec} recovery onto stage2-direct "
+            f"({direct.requests_served} requests), breaker volunteer {vol_breaker}, {nat} "
+            f"fails {nat_fails}, recovery step {recovery_step_ms:.1f} ms")
+        if (got.tokens != chain_ref[0].tokens or client.recoveries - before_rec < 1
+                or direct.requests_served <= 0 or nat_fails
+                or not (vol_breaker.get("fails", 0) >= 1
+                        or vol_breaker.get("state", "closed") != "closed")):
+            raise AssertionError(f"relay failover: tokens {got.tokens}, recoveries "
+                                 f"{client.recoveries - before_rec}, breaker {vol_breaker}, "
+                                 f"{nat} fails {nat_fails}")
+        view["relay"] = {
+            "vote": vote, "attached_to": attached["relay"], "run": run_view(relay_run),
+            "relay_forwarded_ok": forwarded, "chain_through_relay_calls": len(calls),
+            "failover": {"stopped": "volunteer", "replacement": "stage2-direct",
+                         "recoveries": client.recoveries - before_rec,
+                         "recovery_step_ms": recovery_step_ms,
+                         "median_step_ms": 1e3 * statistics.median(got.decode_times_s),
+                         "breaker_volunteer": vol_breaker, "breaker_nat_fails": nat_fails},
+            "seconds": time.monotonic() - t0}
+        log(f"relay: vote False, attached to the volunteer, 3 requests equal step 8's chain, "
+            f"{forwarded} frames forwarded, a push chain through the relayed peer equal "
+            f"({view['relay']['seconds']:.1f}s)")
+        swarm.stop()
+        seed.stop()
+        seeds = []
+        tel.disable()
+        tel.get_registry().reset()
+        tel.get_recorder().clear()
+        registry_tel = False
+
+        # (c) Push chains over TCP, per-hop / chain / chain / per-hop.
+        t0 = time.monotonic()
+        seed = net.RegistryServer()
+        seed.start()
+        seeds.append(seed)
+        registry = net.RemoteRegistry(seed.address)
+        swarm = ControlSwarm(mods, registry, registry)
+        for p in peers:
+            swarm.serve(p, remote[p], remote[p].spec)
+        mods["profiling"].enable_phase_profiling()
+        tcp = {}
+        for wire in ("f32", "bf16"):
+            clients = {"per_hop": swarm.client(cfg, plan, stage0, wire=wire),
+                       "chain": swarm.client(cfg, plan, stage0, wire=wire, chain=True)}
+            runs = []
+            for kind in ("per_hop", "chain", "chain", "per_hop"):
+                runs.append((kind, control_run(
+                    torch, kernels, clients[kind], executors, state,
+                    f"chain tcp {wire}: {kind}", prof=prof,
+                    want=chain_ref if wire == "f32" else (runs[0][1]["results"]
+                                                          if runs else None))))
+            for kind, run in runs:
+                launch_gate(f"chain tcp {wire}: {kind}", kernels, cfg, run, state)
+                want_calls = run["tokens"] * (1 if kind == "chain" else len(peers))
+                if run["client_calls"] != want_calls:
+                    raise AssertionError(f"chain tcp {wire}: {kind} made {run['client_calls']} "
+                                         f"client calls, want {want_calls}")
+            # Warm runs (the second of each): the same launches by route.
+            a2, b2 = runs[3][1], runs[2][1]
+            if (a2["int8_dot_launches_by_route"] != b2["int8_dot_launches_by_route"]
+                    or a2["sample_draw_launches"] != b2["sample_draw_launches"]):
+                raise AssertionError(f"chain tcp {wire}: launches {b2['int8_dot_launches_by_route']}"
+                                     f" against the per-hop walk's "
+                                     f"{a2['int8_dot_launches_by_route']}")
+            tcp[wire] = {f"{kind}_{i}": run_view(run) for i, (kind, run) in enumerate(runs)}
+            per_token = {route: n / b2["tokens"]
+                         for route, n in b2["int8_dot_launches_by_route"].items()}
+            tcp[wire]["int8_dot_launches_per_token"] = per_token
+            log(f"chain tcp {wire}: tokens equal the per-hop walk's in ABBA order, one client "
+                f"call a step, int8_dot a token by route {per_token} as the per-hop walk's; "
+                f"decode ms/token greedy / sampled per-hop "
+                f"{[round(r['greedy_decode_ms_per_token'], 2) for k, r in runs if k == 'per_hop']}"
+                f" / {[round(r['sampled_decode_ms_per_token'], 2) for k, r in runs if k == 'per_hop']}"
+                f", chain {[round(r['greedy_decode_ms_per_token'], 2) for k, r in runs if k == 'chain']}"
+                f" / {[round(r['sampled_decode_ms_per_token'], 2) for k, r in runs if k == 'chain']}; "
+                f"socket phase mean ms per-hop "
+                f"{[round(1e3 * r['socket_phase']['mean_s'], 3) for k, r in runs if k == 'per_hop']}"
+                f", chain {[round(1e3 * r['socket_phase']['mean_s'], 3) for k, r in runs if k == 'chain']}")
+        mods["profiling"].disable_phase_profiling()
+        prof.reset()
+        # A stage-3 server stopped mid-generation under a chain.
+        spec3 = remote[peers[-1]].spec
+        swarm.serve("stage3-replica", replica(spec3, "stage3-replica"), spec3)
+        client = swarm.client(cfg, plan, stage0, chain=True)
+        seen = {"decode": 0}
+        call = client.transport.call
+
+        def stop_last(peer_id, req, timeout=None):
+            resp = call(peer_id, req, timeout)
+            if not req.is_prefill and not req.is_replay:
+                seen["decode"] += 1
+                if seen["decode"] == KILL_AFTER_DECODES:
+                    seen["stopped"] = client.route(kind="exotic")[-1].peer_id
+                    swarm.servers[seen["stopped"]].stop()
+            return resp
+
+        client.transport.call = stop_last
+        try:
+            got = client.generate(state["prompt_ids"][0], MAX_NEW_TOKENS,
+                                  sampling=state["requests"][0][1])
+        finally:
+            del client.transport.call
+        blamed = client.failed_peers.get(f"stage{spec3.index}", set())
+        log(f"chain failover: {seen.get('stopped')} stopped after the chain's "
+            f"{KILL_AFTER_DECODES}rd decode step, {client.recoveries} recovery, blamed "
+            f"{sorted(blamed)}, recovery step {1e3 * max(got.decode_times_s):.1f} ms")
+        if (got.tokens != chain_ref[0].tokens or client.recoveries < 1
+                or seen.get("stopped") not in blamed):
+            raise AssertionError(f"chain failover: tokens {got.tokens}, recoveries "
+                                 f"{client.recoveries}, blamed {blamed}")
+        tcp["failover"] = {"stopped": seen["stopped"], "recoveries": client.recoveries,
+                           "recovery_step_ms": 1e3 * max(got.decode_times_s),
+                           "median_step_ms": 1e3 * statistics.median(got.decode_times_s)}
+        tcp["seconds"] = time.monotonic() - t0
+        view["chain_tcp"] = tcp
+    finally:
+        mods["profiling"].disable_phase_profiling()
+        prof.reset()
+        if swarm is not None:
+            swarm.stop()
+        for rs in seeds:
+            rs.stop()
+        if registry_tel:
+            tel.disable()
+            tel.get_registry().reset()
+        tel.get_recorder().disable()
+        tel.get_recorder().clear()
+        for p, ex in remote.items():
+            ex.act_dtype = saved[p]
+        del replicas[:]
+    view["seconds"] = time.monotonic() - t_phase
+    log(f"control plane path: {view['seconds']:.1f}s")
+    return view
+
+
 def oracle_logits(torch, cfg, params, ids, cache_dtype=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
     logits after `ids` (one prefill)."""
@@ -5428,6 +6024,10 @@ def main(argv) -> int:
     log(json.dumps({"elastic_path": elastic}))
     gc.collect()
     torch.cuda.empty_cache()
+    control = control_plane_path(torch, kernel_mods, tmain, state, smi)
+    log(json.dumps({"control_plane_path": control}))
+    gc.collect()
+    torch.cuda.empty_cache()
     # What the CLI drives compare with; the weights go.
     int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
@@ -5491,6 +6091,20 @@ def main(argv) -> int:
     log(json.dumps({"elastic_cli_path": elastic["cli"]}))
     log(f"elastic phases: {elastic['seconds']:.1f}s in process, "
         f"{elastic['cli']['seconds']:.1f}s as processes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Step 11d: a relay volunteer, a server behind an address nothing
+    # listens on, and the registry SIGKILLed between two clients.
+    t0 = time.monotonic()
+    control["cli"] = cli_drive(
+        torch, tok, [(PROMPTS[0], int8_state["f32_chain_results"][0],
+                      int8_state["requests"][0][1])], smi,
+        stage_argv={1: ("--relay_capacity", "2"), 2: ("--public_ip", UNLISTENED_IP)},
+        relay_stages=(2,), registry_kill=True)
+    control["cli"]["seconds"] = time.monotonic() - t0
+    log(json.dumps({"control_cli_path": control["cli"]}))
+    log(f"control-plane phases: {control['seconds']:.1f}s in process, "
+        f"{control['cli']['seconds']:.1f}s as processes")
 
     kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m, int8_decode,
                             int8_batch, batched["in_process"], tcp["int8"], burst["engine"]),
@@ -5516,6 +6130,17 @@ def main(argv) -> int:
         "overlap_launches_by_route": elastic["int8_dot_launches_by_route"]["overlap"],
         "probe_launches_by_route": {p["span"][0]: p["int8_dot_launches_by_route"]
                                     for p in elastic["probes"]}}
+    # The control-plane path's runs (each counted alone), by route.
+    control_runs = {"gossip": control["gossip"]["run"], "relay": control["relay"]["run"],
+                    "chain_local": control["chain_local"]["chain"],
+                    "per_hop_local": control["chain_local"]["per_hop"],
+                    **{f"{kind}_tcp_{wire}": control["chain_tcp"][wire][f"{kind}_{i}"]
+                       for wire in ("f32", "bf16") for kind, i in (("per_hop", 3), ("chain", 2))}}
+    kernels[0]["control_plane_path"] = {
+        name: {"tokens": run["tokens"], "launches_by_route": run["int8_dot_launches_by_route"]}
+        for name, run in control_runs.items()}
+    kernels[2]["control_plane_path"] = {name: run["sample_draw_launches"]
+                                        for name, run in control_runs.items()}
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -76,10 +76,19 @@ Port of the JAX package's ``main.py`` for these modes:
   and held device memory as ``PEAK_MEMORY_BYTES=N ALLOCATED_BYTES=M
   RESERVED_BYTES=R`` and
   build the kernels and the wire codec before they serve; ``serve`` runs
-  one throwaway session through its span first, as the reference does. The reference's gossip mirror, dial-back
-  reachability vote and relay attach are not ported (ROADMAP Queue 1 #2b),
-  nor are the flags of the engines the port lacks (``--sp``, ``--tp``,
-  ``--use_cpu_offload``, ``--relay_capacity``): each exits naming itself.
+  one throwaway session through its span first, as the reference does.
+  Every ``serve`` process, fixed or elastic, embeds a gossip mirror of the
+  placement records (``scheduling/gossip.py``): it answers the registry
+  service's verbs and gossips with its peers every TTL/3, so a client
+  with every registry down still discovers the swarm through any server
+  (its ``--peers_cache`` file lists them). A fixed ``serve`` first asks its
+  live peers to dial its advertised address back (the dial-back vote);
+  when the vote fails it attaches to a relay volunteer (a server started
+  with ``--relay_capacity N``), advertises ``relay_via`` with its
+  throughput discounted by the relay penalty, renews the circuit every
+  heartbeat and prints ``RELAY: serving via volunteer <peer> ...``. The
+  flags of the engines the port lacks (``--sp``, ``--tp``,
+  ``--use_cpu_offload``) exit naming themselves.
 
 ``--prefix_cache_mb N`` gives every executor of ``local`` (stage 0
 included) and each ``serve`` executor, session or batched (``--stage 0
@@ -501,8 +510,7 @@ def run_oracle(args, cfg: ModelConfig, params) -> int:
 # Flags of the reference's serve and client modes whose engines or
 # features the port does not have, with their defaults: any other value
 # exits naming the flag.
-UNPORTED_FLAGS = (("sp", 1), ("tp", 1), ("use_cpu_offload", False),
-                  ("relay_capacity", 0))
+UNPORTED_FLAGS = (("sp", 1), ("tp", 1), ("use_cpu_offload", False))
 
 
 def refuse_unported_flags(args) -> None:
@@ -510,7 +518,8 @@ def refuse_unported_flags(args) -> None:
         if getattr(args, dest) != default:
             raise SystemExit(f"--{dest} is not ported: the port's servers run "
                              "the per-session or the batched engine on one "
-                             "device, with no relays")
+                             "device, resident, with no tensor or sequence "
+                             "parallelism")
 
 
 def _report_peak_memory(device: torch.device) -> None:
@@ -557,13 +566,90 @@ def run_registry(args) -> int:
     return 0
 
 
+def _gossip_loop(registry, gnode, record_fn):
+    """The serve process's anti-entropy loop (started): every TTL/3 it
+    republishes `record_fn()` (this server's record with its stats digest,
+    or None to skip a beat) and gossips with a few peers, drawn from its
+    mirror and whatever discovery still answers."""
+    from .runtime.net import gossip_exchange
+    from .scheduling.gossip import GossipLoop
+
+    loop = GossipLoop(gnode, gossip_exchange, record_fn=record_fn,
+                      extra_peers_fn=lambda: [r.address for r in registry.live_servers()
+                                              if r.address])
+    loop.start()
+    return loop
+
+
+def _with_stats(rec) -> dict:
+    """A record as the gossip wire carries it, with this process's stats
+    digest (``--mode top``'s input), which ``dict_to_rec`` ignores."""
+    from .scheduling.registry import rec_to_dict
+    from .telemetry.profiling import stats_digest
+
+    return dict(rec_to_dict(rec), stats=stats_digest())
+
+
+def _join_via_relay(args, cfg, spec, server, ping_tx, registry, bind_address: str) -> None:
+    """The dial-back vote on the advertised address; when it fails, attach
+    to a relay volunteer and advertise it as ``relay_via``, with the
+    throughput discounted by the relay penalty (the network-bound model's
+    relayed / direct ratio). A vote nobody answered (a server alone) counts
+    as reachable."""
+    from .runtime.net import attach_via_relay, check_direct_reachability
+    from .scheduling.throughput import get_server_throughput
+    from .telemetry import events as _events
+
+    if check_direct_reachability(ping_tx, registry, server.address) is not False:
+        return
+    got = attach_via_relay(ping_tx, registry, server.peer_id, bind_address)
+    if got is None:
+        _emit("WARNING: dial-back vote says this server is unreachable and no relay "
+              "volunteer accepted an attach; clients will not reach it (start a peer "
+              "with --relay_capacity N or fix --public_ip)", flush=True)
+        return
+    server.relay_via = got["relay"]
+    nb = max(1, spec.end - spec.start)
+    server.throughput *= (get_server_throughput(None, cfg.hidden_size, use_relay=True,
+                                                num_blocks=nb)
+                          / get_server_throughput(None, cfg.hidden_size, num_blocks=nb))
+    _events.emit("relay_attach", peer=server.peer_id, relay=server.relay_via,
+                 address=bind_address)
+    _emit(f"RELAY: serving via volunteer {server.relay_via} (dial-back vote failed "
+          f"for {server.address})", flush=True)
+
+
+def _renew_relay(server, ping_tx, registry, gnode, bind_address: str) -> None:
+    """A relay circuit is a lease: renew it every heartbeat. With the
+    volunteer gone, attach to another and advertise it."""
+    from .runtime.net import PeerUnavailable, attach_via_relay
+    from .scheduling.registry import rec_to_dict
+    from .telemetry import events as _events
+
+    try:
+        ping_tx.relay_attach(server.relay_via, server.peer_id, bind_address)
+    except (PeerUnavailable, TimeoutError, ConnectionError, OSError):
+        got = attach_via_relay(ping_tx, registry, server.peer_id, bind_address,
+                               exclude=(server.relay_via,))
+        if got is not None:
+            server.relay_via = got["relay"]
+            _events.emit("relay_attach", peer=server.peer_id, relay=server.relay_via,
+                         address=bind_address)
+            rec = server._record()
+            registry.register(rec)
+            gnode.publish(rec_to_dict(rec))
+
+
 def run_serve(args) -> int:
     """One fixed-split stage server over TCP until interrupted (an elastic
-    one under ``--use_load_balancing``); prints its peak device memory
-    again when it stops."""
+    one under ``--use_load_balancing``), with its gossip mirror and loop
+    and, after a failed dial-back vote, a relay volunteer; prints its peak
+    device memory again when it stops."""
     from .runtime.net import RemoteRegistry, TcpStageServer, TcpTransport
     from .runtime.server import FixedStageServer, _pinger_from_transport
     from .runtime.task_pool import StageRuntime
+    from .scheduling.gossip import GossipNode
+    from .scheduling.registry import rec_to_dict
 
     if args.use_load_balancing:
         return _run_serve_elastic(args)
@@ -622,13 +708,22 @@ def run_serve(args) -> int:
     runtime = (None if args.batched else
                StageRuntime(high_water=args.queue_high_water,
                             low_water=args.queue_low_water))
+    gnode = GossipNode(peer_id, ttl=registry.ttl,
+                       rng=random.Random(args.seed + os.getpid()))
     srv = TcpStageServer(ex, runtime, host=args.host, port=args.rpc_port,
                          wire_dtype=args.wire_dtype, model=_model_id(args),
-                         allow_fault_injection=args.allow_fault_injection)
+                         allow_fault_injection=args.allow_fault_injection,
+                         gossip=gnode, relay_capacity=args.relay_capacity)
     srv.start()
     server.address = (f"{args.public_ip}:{srv.address.rsplit(':', 1)[1]}"
                       if args.public_ip else srv.address)
+    gnode.self_address = server.address
+    if args.relay_capacity > 0:
+        server.relay_capacity = args.relay_capacity
+    _join_via_relay(args, cfg, spec, server, ping_tx, registry, srv.address)
     server.start_serving()
+    gnode.publish(rec_to_dict(server._record()))
+    gloop = _gossip_loop(registry, gnode, lambda: _with_stats(server._record()))
     _report_peak_memory(device)
     _emit(f"SERVING stage={args.stage} span=[{spec.start},{spec.end}) "
           f"addr={server.address} peer={peer_id}", flush=True)
@@ -639,9 +734,21 @@ def run_serve(args) -> int:
                 server.heartbeat_once()
             except (ConnectionError, OSError) as exc:
                 logger.warning("heartbeat failed: %s", exc)
+            if server.relay_via is not None:
+                # Renewed whether or not a registry answered the heartbeat.
+                try:
+                    _renew_relay(server, ping_tx, registry, gnode, srv.address)
+                except (ConnectionError, OSError) as exc:
+                    logger.warning("relay renewal failed: %s", exc)
     except KeyboardInterrupt:
         pass
     finally:
+        gloop.stop()
+        try:
+            registry.unregister(peer_id)
+        except (ConnectionError, OSError):
+            pass
+        gnode.apply_unregister(peer_id)
         ping_tx.close()
         srv.stop()
         _report_peak_memory(device)
@@ -655,28 +762,32 @@ def _run_serve_elastic(args) -> int:
     listening socket, which answers "server is re-spanning" in between.
     Each span's weights are drawn from ``--seed`` as `load_stage_model`
     draws a fixed stage's, so they equal the fixed split's slice; every
-    span (re)load warms its executor up before it goes ONLINE. The
-    reference's gossip loop beside it is not ported (ROADMAP Queue 1 #2b).
-    Prints ``SERVING elastic span=[a,b) addr=.. peer=..``."""
+    span (re)load warms its executor up before it goes ONLINE. Its gossip
+    mirror and loop run throughout: the socket answers gossip and the
+    registry verbs while it re-spans, and the loop skips the beats when no
+    span is set. Prints ``SERVING elastic span=[a,b) addr=.. peer=..``."""
     from .runtime.net import RemoteRegistry, TcpStageServer, TcpTransport
     from .runtime.server import ElasticStageServer, derive_num_blocks
     from .runtime.task_pool import StageRuntime
+    from .scheduling.gossip import GossipNode
 
     device = resolve_device(args.device)
     cfg = get_config(args.model)
     peer = args.peer_id or f"lb-{os.getpid()}"
     registry = RemoteRegistry(args.registry_addr, peers_cache=args.peers_cache)
     _build_native(args, device)
+    gnode = GossipNode(peer, ttl=registry.ttl, rng=random.Random(args.seed + os.getpid()))
     # One compute thread owns the card: an elastic server takes whatever
     # concurrency the swarm sends it.
     srv = TcpStageServer(None, StageRuntime(high_water=args.queue_high_water,
                                             low_water=args.queue_low_water),
                          host=args.host, port=args.rpc_port, wire_dtype=args.wire_dtype,
                          model=_model_id(args), peer_id=peer,
-                         allow_fault_injection=args.allow_fault_injection)
+                         allow_fault_injection=args.allow_fault_injection, gossip=gnode)
     srv.start()
     advert = (f"{args.public_ip}:{srv.address.rsplit(':', 1)[1]}"
               if args.public_ip else srv.address)
+    gnode.self_address = advert
 
     class _Membership:
         """The transport surface an elastic server joins, backed by the
@@ -716,8 +827,12 @@ def _run_serve_elastic(args) -> int:
                          "prefix_cache_bytes": args.prefix_cache_mb << 20},
         advertise_address=advert, warmup=True,
         rng=random.Random(args.seed + os.getpid()), model=_model_id(args))
+    gloop = None
     try:
         es.start()
+        # The record is None, and the beat skipped, while no span is set.
+        gloop = _gossip_loop(registry, gnode,
+                             lambda: None if es.spec is None else _with_stats(es._record()))
         _report_peak_memory(device)
         _emit(f"SERVING elastic span=[{es.spec.start},{es.spec.end}) "
               f"addr={advert} peer={peer}", flush=True)
@@ -726,7 +841,10 @@ def _run_serve_elastic(args) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if gloop is not None:
+            gloop.stop()
         es.stop()
+        gnode.apply_unregister(peer)
         ping_tx.close()
         srv.stop()
         _report_peak_memory(device)
@@ -1235,7 +1353,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sp", type=int, default=1, help="not ported")
     p.add_argument("--tp", type=int, default=1, help="not ported")
     p.add_argument("--use_cpu_offload", action="store_true", help="not ported")
-    p.add_argument("--relay_capacity", type=int, default=0, help="not ported")
+    p.add_argument("--relay_capacity", type=int, default=0,
+                   help="serve mode: volunteer to relay traffic for up to N "
+                        "peers that fail the dial-back reachability vote (0 = "
+                        "do not volunteer); attaches beyond N are shed")
     return p
 
 

@@ -44,7 +44,8 @@ Its digest coordinates carry the batch dim and the model tag.
 
 Not ported yet, and refused by the adapter with a retryable
 `StageExecutionError`: speculative rows and session rewind (ROADMAP
-Queue 1 #3), push chains.
+Queue 1 #3). A push chain's ``next_servers`` is relayed above the engine
+(``runtime/net.py``), so a batched server relays as a session one does.
 
 Deliberate divergences from the reference:
   * The last stage's head runs once a round, inside the captured decode
@@ -851,8 +852,6 @@ def _unported_reason(req: StageRequest) -> Optional[str]:
     or None."""
     if req.draft_tokens is not None:
         return "speculative verify is not ported"
-    if req.next_servers:
-        return "push chains are not ported"
     return None
 
 

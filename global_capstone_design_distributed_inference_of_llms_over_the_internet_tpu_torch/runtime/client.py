@@ -64,8 +64,19 @@ next-hop RTTs, the client's own pings of first-hop candidates, cached
 ``ping_cache_ttl`` seconds), falling back to the greedy walk when it finds
 none. The module router ignores the prompt head's affinity.
 
-Push chains, beam and speculative decoding and deep prompts are not ported
-yet.
+Push chains (``use_push_chain``, the reference's ``client.py:1011-1266``):
+the client makes one call a step, to the route's first hop, naming the
+rest of the route in ``next_servers``; each server hands its output to the
+next hop and relays the final token back. A hop behind a relay is named at
+its volunteer's address with ``relay_via``. The journal holds stage 0's
+outputs under ``CHAIN_KEY``, so a failed chain (the failed hop blamed,
+read from the error, or by a liveness probe after a bare timeout) is
+replayed whole through a freshly routed chain. Chain sessions route as
+the reference's "exotic" kind, around the batched engines where another
+peer serves the stage. Unlike the reference's chain, a prefill carries
+``prefix_len`` along the chain, as the per-hop walk does.
+
+Beam and speculative decoding and deep prompts are not ported yet.
 
 Deliberate difference: journal entries keep the activation tensor on its
 device (tensors are never modified after they are sent), where the
@@ -114,19 +125,22 @@ BURST_HOP_KEY = "burst"
 SESSION_ONLY_ENGINES = ("batched", "sp")
 # Prompt tokens the affinity digest covers: one prefix-store grain.
 AFFINITY_TOKENS = 64
-# The route cache's kind field: the port routes plain sessions only.
+# The route cache's kind field: plain sessions, and push-chain sessions,
+# whose retries and replays the single-session engines refuse ("exotic",
+# as in the reference).
 PLAIN = "plain"
+EXOTIC = "exotic"
 
 
-def _engine_usable(rec, full_span: bool = True,
+def _engine_usable(rec, kind: str = PLAIN, full_span: bool = True,
                    min_context: Optional[int] = None) -> bool:
-    """Can a plain session (needing `min_context` tokens) call `rec`'s
+    """Can a session of `kind` (needing `min_context` tokens) call `rec`'s
     engine for a hop that covers its full span iff `full_span`? A batched
-    or sp engine serves its full span only, and refuses a prefill past the
-    context it advertises."""
+    or sp engine serves its full span and plain sessions only, and refuses
+    a prefill past the context it advertises."""
     if rec.engine not in SESSION_ONLY_ENGINES:
         return True
-    if not full_span:
+    if kind == EXOTIC or not full_span:
         return False
     return (min_context is None or rec.max_context is None
             or rec.max_context >= min_context)
@@ -301,6 +315,7 @@ class PipelineClient:
     def __init__(self, cfg: ModelConfig, plan: StagePlan, stage0: StageExecutor,
                  transport: Transport, registry: PlacementRegistry, *,
                  use_module_routing: bool = False, route_by_latency: bool = False,
+                 use_push_chain: bool = False,
                  total_blocks: Optional[int] = None,
                  request_timeout: float = 60.0,
                  settle_seconds: float = SETTLE_SECONDS,
@@ -318,6 +333,7 @@ class PipelineClient:
             use_module_routing = True
         self.use_module_routing = use_module_routing
         self.route_by_latency = route_by_latency
+        self.use_push_chain = use_push_chain
         # peer -> (rtt_s, measured_at): the latency planner's first-hop
         # pings, reused for ping_cache_ttl seconds (a route is planned anew
         # on the recovery path, where re-pinging dead peers would add their
@@ -375,22 +391,23 @@ class PipelineClient:
     # Routing
     # ------------------------------------------------------------------
 
-    def _compute_route(self, min_context: Optional[int] = None,
+    def _compute_route(self, kind: str = PLAIN, min_context: Optional[int] = None,
                        affinity: Optional[str] = None) -> List[Hop]:
-        """Fixed stage-chain route: one discovered peer per remote stage,
-        a batched peer where the stage has one (every session of this
-        client is a plain one, which a batched peer serves); with
-        `affinity`, the replica its rendezvous hash picks. Under module
+        """Fixed stage-chain route: one discovered peer per remote stage, a
+        batched peer where the stage has one for a plain session, any other
+        engine where the stage has one for an exotic (push-chain) session;
+        with `affinity`, the replica its rendezvous hash picks. Under module
         routing, the block-coverage route instead."""
         if self.use_module_routing:
-            return self._compute_module_route(min_context)
+            return self._compute_module_route(kind, min_context)
         hops: List[Hop] = []
         for spec in self.plan.stages[1:]:
             key = f"stage{spec.index}"
             peer = self.registry.discover_stage(
                 spec.index, exclude=tuple(self.failed_peers.get(key, ())),
-                model=self.model, prefer_engine="batched", min_context=min_context,
-                affinity=affinity)
+                model=self.model, prefer_engine="batched" if kind == PLAIN else None,
+                avoid_engine=SESSION_ONLY_ENGINES if kind == EXOTIC else None,
+                min_context=min_context, affinity=affinity)
             if peer is None:
                 raise NoRouteError(f"no live server for {key}")
             hops.append(Hop(key, peer, spec.start, spec.end, spec.is_last))
@@ -421,7 +438,8 @@ class PipelineClient:
                         self._ping_cache[pid] = (rtt, now)
         return out
 
-    def _compute_latency_route(self, min_context: Optional[int] = None) -> Optional[List[Hop]]:
+    def _compute_latency_route(self, kind: str = PLAIN,
+                               min_context: Optional[int] = None) -> Optional[List[Hop]]:
         """The route of least estimated step time over block coverage
         (``scheduling/routing.plan_min_latency_route``): the servers'
         published next-hop RTTs and the client's pings of the first-hop
@@ -434,7 +452,9 @@ class PipelineClient:
         for peers in self.failed_peers.values():
             exclude |= peers
         records = self.registry.live_servers(model=self.model)
-        if min_context is not None:
+        if kind == EXOTIC:
+            records = _soft_filter(records, lambda r: r.engine not in SESSION_ONLY_ENGINES)
+        elif min_context is not None:
             # An sp peer advertising less context than the session needs
             # would refuse its prefill.
             records = _soft_filter(
@@ -461,14 +481,15 @@ class PipelineClient:
         return [Hop(f"blocks{h.entry}", h.record.peer_id, h.entry, h.end,
                     h.end >= self.total_blocks) for h in planned]
 
-    def _compute_module_route(self, min_context: Optional[int] = None) -> List[Hop]:
+    def _compute_module_route(self, kind: str = PLAIN,
+                              min_context: Optional[int] = None) -> List[Hop]:
         """Greedy block-coverage routing: cover [stage 0's end,
         total_blocks) hop by hop, each hop the candidate covering the next
         block with the largest end_block (then a batched engine, then
         throughput), loop-guarded; the final hop must serve the final
         stage."""
         if self.route_by_latency:
-            hops = self._compute_latency_route(min_context)
+            hops = self._compute_latency_route(kind, min_context)
             if hops is not None:
                 return hops
             logger.warning("latency planner found no route; "
@@ -483,10 +504,11 @@ class PipelineClient:
             # A batched or sp engine serves its full span only: drop it
             # softly where the hop would enter it mid-span.
             cands = _soft_filter(cands, lambda c: _engine_usable(
-                c, full_span=c.start_block == covered, min_context=min_context))
+                c, kind, full_span=c.start_block == covered, min_context=min_context))
             if not cands:
                 raise NoRouteError(f"no live server covers block {covered}")
-            best = max(cands, key=lambda c: (c.end_block, c.engine == "batched",
+            best = max(cands, key=lambda c: (c.end_block,
+                                             kind == PLAIN and c.engine == "batched",
                                              c.throughput))
             if best.end_block <= covered:       # loop guard
                 raise NoRouteError(f"route stuck at block {covered}")
@@ -499,9 +521,10 @@ class PipelineClient:
         self._m_route_hops.observe(len(hops))
         return hops
 
-    def route(self, refresh: bool = False, min_context: Optional[int] = None,
+    def route(self, refresh: bool = False, kind: str = PLAIN,
+              min_context: Optional[int] = None,
               affinity: Optional[str] = None) -> List[Hop]:
-        """The cached route of (kind, `min_context`, `affinity`), planned
+        """The cached route of (`kind`, `min_context`, `affinity`), planned
         anew with `refresh` (the reference's ``route``, ``client.py:618``).
         Past ``route_cache_capacity`` the least recently used route with an
         affinity goes: the affinity=None routes are a bounded handful that
@@ -510,7 +533,7 @@ class PipelineClient:
         router ignores `affinity` (its pick is deterministic already)."""
         if self.use_module_routing:
             affinity = None
-        key = (PLAIN, min_context, affinity)
+        key = (kind, min_context, affinity)
         if refresh or key not in self._routes:
             while len(self._routes) >= self.route_cache_capacity:
                 victim = next((k for k in self._routes if k[2] is not None), None)
@@ -519,7 +542,7 @@ class PipelineClient:
                 self._routes.pop(victim)
                 self._m_route_evictions.inc()
             self._routes.pop(key, None)
-            self._routes[key] = self._compute_route(min_context, affinity)
+            self._routes[key] = self._compute_route(kind, min_context, affinity)
         else:
             self._routes[key] = self._routes.pop(key)      # LRU touch
         return self._routes[key]
@@ -689,6 +712,12 @@ class PipelineClient:
         hops' time already spent) and the session's priority. `root` is
         the step's root span, opened by the generation loop so that stage 0
         and every hop share one trace (the no-op span with tracing off)."""
+        if self.use_push_chain:
+            return self._walk_chain(
+                hidden, seq_len, cur_len, session_id, is_prefill=is_prefill,
+                max_length=max_length, sampling=sampling, generated=generated,
+                step_seed=step_seed, stage_times=stage_times, root=root,
+                prefix_len=prefix_len, deadline_at=deadline_at)
         phase = "prefill" if is_prefill else "decode"
         tracer = get_tracer()
         cur = hidden
@@ -732,6 +761,180 @@ class PipelineClient:
                 raise RuntimeError(f"hop {hop.key} returned no hidden states")
             cur = resp.hidden
         raise RuntimeError("route had no final hop")
+
+    # ------------------------------------------------------------------
+    # Push chains: one client call a step; the servers relay the activation
+    # hop to hop and the final token back. The journal holds stage 0's
+    # outputs under CHAIN_KEY: recovery replays them through a freshly
+    # routed chain, which rebuilds every hop's KV at once.
+    # ------------------------------------------------------------------
+
+    CHAIN_KEY = "chain"
+
+    def _chain_request(self, hops: List[Hop], hidden: torch.Tensor, seq_len: int,
+                       cur_len: int, session_id: str, *, is_prefill: bool,
+                       is_replay: bool, max_length: int, sampling: SamplingParams,
+                       generated: Sequence[int], step_seed: int, prefix_len: int = 0,
+                       deadline_at: Optional[float] = None) -> StageRequest:
+        """The request to the chain's first hop, naming the others in
+        ``next_servers``; a relayed hop by its volunteer's address with
+        ``relay_via`` (the pushing server dials the volunteer and stamps
+        ``relay_to``)."""
+        nxt = []
+        for h in hops[1:]:
+            rec = self.registry.get(h.peer_id)
+            entry = {"peer_id": h.peer_id,
+                     "address": getattr(rec, "address", None) if rec else None,
+                     "start_block": h.start_block, "end_block": h.end_block}
+            via = getattr(rec, "relay_via", None) if rec else None
+            if via:
+                rrec = self.registry.get(via)
+                entry["relay_via"] = via
+                entry["address"] = getattr(rrec, "address", None) if rrec else None
+            nxt.append(entry)
+        return StageRequest(
+            session_id=session_id, hidden=hidden, seq_len=seq_len, cur_len=cur_len,
+            is_prefill=is_prefill, is_replay=is_replay, max_length=max_length,
+            sampling=sampling, generated_tokens=clip_generated(generated),
+            step_seed=step_seed, start_block=hops[0].start_block,
+            end_block=hops[0].end_block, next_servers=tuple(nxt),
+            prefix_len=prefix_len if is_prefill else 0,
+            deadline_budget_s=self._deadline_budget(deadline_at, session_id,
+                                                    peer=hops[0].peer_id),
+            priority=self._session_priority.get(session_id))
+
+    def _replay_chain(self, hops: List[Hop], session_id: str,
+                      sampling: SamplingParams, max_length: int) -> None:
+        """Rebuild every hop's KV: the chain journal through `hops`, the
+        first chunk as a prefill, the rest as replay chunks."""
+        entries = self.journal.get(self.CHAIN_KEY, {}).get(session_id, [])
+        tokens = sum(e.seq_len for e in entries)
+        _ev.emit("replay_start", session_id=session_id, peer=hops[0].peer_id,
+                 entries=len(entries), tokens=tokens)
+        t0 = time.monotonic()
+        for i, e in enumerate(entries):
+            req = self._chain_request(
+                hops, e.hidden, e.seq_len, e.cur_len, session_id, is_prefill=(i == 0),
+                is_replay=True, max_length=max_length, sampling=sampling, generated=(),
+                step_seed=0)
+            self.transport.call(hops[0].peer_id, req, self.request_timeout)
+        _ev.emit("replay_done", session_id=session_id, peer=hops[0].peer_id,
+                 tokens=tokens, seconds=round(time.monotonic() - t0, 4))
+
+    def _blame_chain_failure(self, hops: List[Hop], exc: Exception) -> None:
+        """Blacklist the hop a chain failure names and drop the cached
+        routes. A relayed error names its origin; a bare timeout names
+        nobody, so the first hop that fails a liveness probe is blamed,
+        else the entry hop."""
+        blame = getattr(exc, "peer_id", None)
+        if blame is None and isinstance(exc, TimeoutError):
+            blame = next((h.peer_id for h in hops
+                          if not self.transport.alive(h.peer_id)), None)
+        blame = blame or hops[0].peer_id
+        blamed_hop = next((h for h in hops if h.peer_id == blame), hops[0])
+        self.failed_peers.setdefault(blamed_hop.key, set()).add(blame)
+        _ev.emit("peer_failed", hop=blamed_hop.key, peer=blame, reason=type(exc).__name__)
+        self._routes.clear()
+        logger.warning("push chain failed at %s: %s", blame, exc)
+
+    def _walk_chain(self, hidden: torch.Tensor, seq_len: int, cur_len: int,
+                    session_id: str, *, is_prefill: bool, max_length: int,
+                    sampling: SamplingParams, generated: Sequence[int], step_seed: int,
+                    stage_times: Dict[str, float], root, prefix_len: int = 0,
+                    deadline_at: Optional[float] = None) -> StageResponse:
+        """One step as a push chain: up to MAX_ATTEMPTS chains, each a
+        single call to the route's first hop (its breaker gates the dial).
+        A retryable failure blames a hop (`_blame_chain_failure`), feeds the
+        breaker of the component at fault (a relay volunteer rather than
+        the peer behind it), re-routes and replays the chain journal before
+        the next attempt, which is sent as a replay; with every candidate
+        blacklisted the blacklist is cleared once (the amnesty)."""
+        tracer = get_tracer()
+        phase = "prefill" if is_prefill else "decode"
+        touched = self._session_peers.setdefault(session_id, set())
+        last_exc: Optional[Exception] = None
+        blacklist_cleared = False
+        for attempt in range(MAX_ATTEMPTS):
+            try:
+                hops = self.route(kind=EXOTIC)
+            except NoRouteError as exc:
+                last_exc = exc
+                if blacklist_cleared:
+                    continue
+                blacklist_cleared = True
+                _ev.emit("blacklist_amnesty", session_id=session_id, hop=self.CHAIN_KEY,
+                         cleared=sum(len(v) for v in self.failed_peers.values()))
+                self.failed_peers.clear()
+                self._routes.clear()
+                continue
+            touched.update(h.peer_id for h in hops)
+            if not self.breaker.allow(hops[0].peer_id):
+                # An open breaker on the entry hop: route around it (the
+                # breaker's half-open probe readmits it).
+                last_exc = _BreakerOpen(f"peer {hops[0].peer_id}: circuit breaker open")
+                self._m_retries.inc()
+                self.failed_peers.setdefault(hops[0].key, set()).add(hops[0].peer_id)
+                self._routes.clear()
+                continue
+            req = self._chain_request(
+                hops, hidden, seq_len, cur_len, session_id, is_prefill=is_prefill,
+                is_replay=attempt > 0, max_length=max_length, sampling=sampling,
+                generated=generated, step_seed=step_seed, prefix_len=prefix_len,
+                deadline_at=deadline_at)
+            req.trace = root.wire_context(hop=0) if root else None
+            chain_span = tracer.start_span(
+                "hop:chain", trace_id=root.trace_id, parent_id=root.span_id,
+                kind="client", peer=hops[0].peer_id, chain_len=len(hops)) if root else root
+            t0 = time.monotonic()
+            try:
+                with _get_profiler().phase("socket"):
+                    # The chain runs len(hops) computes before it answers.
+                    resp = self.transport.call(hops[0].peer_id, req,
+                                               self.request_timeout * max(1, len(hops)))
+                self.breaker.record_success(hops[0].peer_id)
+            except DeadlineExceeded:
+                chain_span.end(error="deadline")
+                raise
+            except _errors.retryable_types() as exc:
+                self.breaker.record_failure(_errors.breaker_blame(
+                    exc, getattr(exc, "peer_id", None) or hops[0].peer_id))
+                chain_span.end(error=repr(exc))
+                last_exc = exc
+                self._m_retries.inc()
+                _ev.emit("hop_retry", session_id=session_id,
+                         trace_id=root.trace_id if root else None, hop=self.CHAIN_KEY,
+                         peer=hops[0].peer_id, attempt=attempt + 1,
+                         error=f"{type(exc).__name__}: {exc}"[:200])
+                self._blame_chain_failure(hops, exc)
+                try:
+                    new_hops = self.route(kind=EXOTIC)
+                    self._replay_chain(new_hops, session_id, sampling, max_length)
+                except NoRouteError as rexc:
+                    last_exc = rexc
+                    continue
+                except _errors.retryable_types() as rexc:
+                    # A peer died during the replay: blame it too.
+                    last_exc = rexc
+                    self._blame_chain_failure(new_hops, rexc)
+                    continue
+                self._m_recoveries.inc()
+                _ev.emit("failover", session_id=session_id,
+                         trace_id=root.trace_id if root else None, hop=self.CHAIN_KEY,
+                         old_peer=hops[0].peer_id, new_peer=new_hops[0].peer_id)
+                if self.settle_seconds:
+                    time.sleep(self.settle_seconds)
+                continue
+            dt = time.monotonic() - t0
+            chain_span.end(server=resp.span)
+            stage_times[self.CHAIN_KEY] = dt
+            self._m_stage_time.labels(hop=self.CHAIN_KEY, phase=phase).observe(dt)
+            self._journal_append(self.CHAIN_KEY, session_id,
+                                 JournalEntry(hidden, seq_len, cur_len))
+            if not resp.is_token:
+                raise RuntimeError("push chain returned no token "
+                                   "(the route must end at the final stage)")
+            return resp
+        raise RuntimeError(f"push chain: all {MAX_ATTEMPTS} attempts failed") from last_exc
 
     # ------------------------------------------------------------------
     # Generation

@@ -25,10 +25,13 @@ reference's ``executor.py:544-661``): the chain's rows are copied into the
 fresh lease and only the tail runs, as a chunk at ``cache_len = p``.
 
 Differences from the reference's engine: offload, tensor parallelism, deep
-prompts, speculative verify, beam search, burst decode, push chains,
-session rewind and training are not ported: a request that asks for one is
-refused with a `StageExecutionError` naming its field (the TCP server sends
-it back as a ``kind: "stage"`` error frame).
+prompts, speculative verify, beam search, burst decode (the batched
+engine's), session rewind and training are not ported: a request that asks
+for one is refused with a `StageExecutionError` naming its field (the TCP
+server sends it back as a ``kind: "stage"`` error frame). A push chain's
+``next_servers`` is the transport's business (``runtime/net.py``,
+``runtime/transport.py``), above the engine, as in the reference: the
+executor computes its own span and ignores them.
 
 A float activation computes in the dtype it arrives in, as in the
 reference: after a TCP hop that is the float32 the wire decodes to, so a
@@ -109,7 +112,6 @@ def _unported_field(req: StageRequest) -> Optional[str]:
                          ("draft_tokens", req.draft_tokens is not None),
                          ("prompts", req.prompts is not None),
                          ("burst_len", req.burst_len > 0),
-                         ("next_servers", bool(req.next_servers)),
                          ("start_from_position", req.start_from_position is not None)):
         if is_set:
             return name

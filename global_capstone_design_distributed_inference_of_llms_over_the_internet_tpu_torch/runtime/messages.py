@@ -12,9 +12,9 @@ the reference's defaults, so that the TCP plane (``runtime/net.py``) builds
 one from any frame a client of either package sends. The deadline budget
 and the priority are honoured; the exotic fields (beam ``hypo_ids`` and
 ``num_logprobs``, speculative ``draft_tokens``, deep ``prompts``, burst
-decode, push-chain ``next_servers``, the ``start_from_position`` rewind)
-are refused by the executor with a `StageExecutionError` that names the
-field, never ignored. ``prefix_len`` marks a prefill's leading tokens
+decode on a session engine, the ``start_from_position`` rewind) are
+refused by the executor with a `StageExecutionError` that names the field,
+never ignored; push-chain ``next_servers`` are served by the transports. ``prefix_len`` marks a prefill's leading tokens
 shareable: a server with a prefix store (``runtime/prefix_cache.py``)
 reuses their stored KV, one without ignores it, as in the reference. The
 training fields and the backward messages are not ported.

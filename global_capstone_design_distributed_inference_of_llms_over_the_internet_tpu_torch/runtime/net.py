@@ -22,32 +22,48 @@ Components:
   * `TcpStageServer` serves one `StageExecutor` with the verbs ``forward``,
     ``stream_open`` / ``step`` (persistent streams: session metadata once,
     deltas per step), ``end_session``, ``info``, ``metrics``,
-    ``dump-events``, ``reach_check`` and the gated ``fault`` admin verb.
+    ``dump-events``, ``reach_check``, ``swarm-stats`` and the gated
+    ``fault`` admin verb.
     Compute goes through a `StageRuntime` (one compute thread owns the
     card, handler threads own the sockets), or, for a batched engine
     (``runtime/batching.py``), runs inline on the handler threads; ``info``
     reports the executor's ``engine`` and a batched engine's
     ``decode_steps``. A forward answers with ``token``, ``hidden`` or, for
     a burst request to a full-span batched peer, ``burst`` (the tokens
-    the burst emitted and why it stopped).
+    the burst emitted and why it stopped). A forward that names
+    ``next_servers`` is a push chain: the handler thread, once the compute
+    thread has handed back the response, sends the output on to the next
+    hop over a pooled connection and relays that hop's final answer back.
+    With a `GossipNode` (``scheduling/gossip.py``) the server is also a
+    mirror of the placement records: it answers ``gossip`` anti-entropy
+    rounds and the registry service's ``register`` / ``heartbeat`` /
+    ``unregister`` / ``list``, so a client with every registry down still
+    discovers the swarm. With ``relay_capacity`` > 0 it volunteers as a NAT
+    relay: ``relay_attach`` opens a leased circuit, and a frame stamped
+    ``relay_to`` is forwarded verbatim to the attached peer. These and the
+    socket-only verbs need no executor.
   * `TcpTransport` is the client side of `Transport`: peer addresses from
-    registry records, one persistent connection per peer, plain prefill
-    and decode on streams (a burst request rides the classic frame),
-    socket errors mapped onto the retryable taxonomy
-    (``runtime/errors.py``).
-  * `RegistryServer` / `RemoteRegistry`: the control plane, a JSON-over-TCP
-    registry with TTL expiry server-side, a comma-separated HA address
-    list and an on-disk peers cache on the client side.
+    registry records (a record with ``relay_via`` is dialed at its
+    volunteer, every frame stamped ``relay_to``), one persistent
+    connection per peer, plain prefill and decode on streams (a burst
+    request rides the classic frame), socket errors mapped onto the
+    retryable taxonomy (``runtime/errors.py``; through a relay the breaker
+    blames the volunteer).
+  * `check_direct_reachability` (the dial-back vote), `attach_via_relay`
+    and `gossip_exchange`: the serve process's side of the control plane.
+  * `RegistryServer` / `RemoteRegistry`: the registry service, JSON over
+    TCP with TTL expiry server-side, a comma-separated HA address list and
+    an on-disk peers cache on the client side; with every registry down,
+    reads fall back to a stage server's gossip mirror.
 
-Not ported (ROADMAP Queue 1 #4 and #6): the gossip mirror, relays (a frame
-stamped ``relay_to`` is refused; a record with ``relay_via`` raises
-`PeerUnavailable`), push chains, ``swarm-stats``, and the training verbs.
-A verb this server does not serve gets the reference's ``unknown verb``
-error frame.
+Not ported: the training verbs (``train_forward``, ``backward``). A verb
+this server does not serve gets the reference's ``unknown verb`` error
+frame.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -65,6 +81,7 @@ import torch
 
 from .. import native
 from ..ops.sampling import SamplingParams
+from ..scheduling.gossip import GossipNode
 from ..scheduling.registry import (
     PlacementRegistry,
     ServerRecord,
@@ -77,6 +94,7 @@ from ..telemetry import exposition as _texp
 from ..telemetry import get_registry as _get_metrics_registry
 from ..telemetry import get_tracer
 from ..telemetry.profiling import get_profiler as _get_profiler
+from ..telemetry.profiling import stats_digest as _prof_digest
 from . import errors as _errors
 from .executor import StageExecutionError, StageExecutor
 from .faults import SITE_KINDS, FaultPlan, FaultSocket
@@ -560,20 +578,40 @@ class TcpStageServer(_FramedTcpServer):
     is None a request gets the retryable stage error "server is
     re-spanning". `peer_id` is fixed when the server is built (the
     executor's, when one is given and no `peer_id`), so error frames name
-    this server whatever it serves."""
+    this server whatever it serves.
+
+    `gossip` (a `GossipNode`) makes the server a mirror of the placement
+    records; `relay_capacity` > 0 makes it a relay volunteer for that many
+    peers. Both, and the socket-only verbs, work with no executor, so a
+    re-spanning server keeps gossiping and relaying."""
+
+    # Relay circuit lease (seconds): an attached peer re-attaches on its
+    # heartbeat cadence, or the volunteer frees the slot.
+    RELAY_CIRCUIT_TTL = 90.0
 
     def __init__(self, executor: Optional[StageExecutor], runtime: Optional[StageRuntime],
                  host: str = "127.0.0.1",
                  port: int = 0, wire_dtype: str = "bf16",
                  model: Optional[str] = None,
                  allow_fault_injection: bool = False,
-                 peer_id: Optional[str] = None):
+                 peer_id: Optional[str] = None,
+                 gossip: Optional[GossipNode] = None,
+                 relay_capacity: int = 0):
         self.executor = executor
+        self.gossip = gossip
         self.peer_id = peer_id or (executor.peer_id if executor is not None else None)
         # Tagged requests for another model are refused before compute.
         self.model = model
         self.wire_dtype = wire_dtype
         self.runtime = runtime
+        # Pooled connections to push-chain next hops and relayed peers:
+        # address -> (socket, its send/receive lock).
+        self._relay_conns: Dict[str, tuple] = {}
+        self._relay_lock = threading.Lock()
+        # Relay volunteering: attached peer_id -> (the address this server
+        # dials it at, the circuit's expiry).
+        self.relay_capacity = int(relay_capacity)
+        self._relay_targets: Dict[str, tuple] = {}
         # Persistent inference streams: per CONNECTION, session_id -> stream
         # state (metadata shipped once at stream_open; steps carry deltas).
         # Dropped when the connection closes.
@@ -608,13 +646,248 @@ class TcpStageServer(_FramedTcpServer):
         super().stop()
         if self.runtime is not None:
             self.runtime.stop()
+        with self._relay_lock:
+            conns, self._relay_conns = dict(self._relay_conns), {}
+        for sock, _ in conns.values():
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    # ------------------------------------------------------------------
+    # Pooled connections: push-chain next hops and relayed peers
+    # ------------------------------------------------------------------
+
+    def _relay(self, nxt: dict, nreq: StageRequest,
+               wire_dtype: str) -> Tuple[dict, bytes]:
+        """Send a push-chain request to the next hop and return its raw
+        response frame, relayed upstream verbatim. The activation is
+        encoded at `wire_dtype`, the precision of this hop's own response,
+        so the next hop computes on what a per-hop client would hand it. A
+        stale pooled socket gets one reconnect."""
+        addr = nxt.get("address")
+        if not addr:
+            raise ConnectionError(f"no address for push target {nxt}")
+        meta, body = _encode_tensor(_host_array(nreq.hidden), wire_dtype)
+        # The originating client's model tag, where it has one.
+        hdr = _request_header(
+            nreq, meta, model=(nreq.model if nreq.model is not None else self.model))
+        hdr["wire_dtype"] = wire_dtype
+        if nxt.get("relay_via"):
+            # A NAT'd next hop: `addr` is its volunteer's, and relay_to
+            # names the circuit.
+            hdr["relay_to"] = nxt.get("peer_id")
+        # The answer covers the rest of the chain's computes.
+        timeout = COMPUTE_TIMEOUT_S * (1 + len(nreq.next_servers))
+        for fresh in (False, True):
+            sock, lock = self._relay_sock(addr)
+            try:
+                # Handler threads pushing to one hop share its socket.
+                with lock:
+                    sock.settimeout(timeout)
+                    _send_frame(sock, hdr, body)
+                    return _recv_frame(sock)
+            except (ConnectionError, OSError):
+                self._drop_relay(addr, sock)
+                if fresh:
+                    raise
+        raise ConnectionError("unreachable")  # pragma: no cover
+
+    def _relay_sock(self, addr: str):
+        """The pooled (socket, lock) for `addr`, dialed outside the pool
+        lock. A failed socket was dropped before a retry, so any entry
+        found here is usable; a concurrent dial's winner is kept."""
+        with self._relay_lock:
+            entry = self._relay_conns.get(addr)
+        if entry is not None:
+            return entry
+        host, port = addr.rsplit(":", 1)
+        sock = socket.create_connection((host, int(port)), timeout=CONNECT_TIMEOUT_S)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        new_entry = (sock, threading.Lock())
+        with self._relay_lock:
+            winner = self._relay_conns.setdefault(addr, new_entry)
+        if winner is not new_entry:
+            try:
+                sock.close()
+            except OSError:
+                pass
+        return winner
+
+    def _drop_relay(self, addr: str, sock: socket.socket) -> None:
+        with self._relay_lock:
+            entry = self._relay_conns.get(addr)
+            if entry is not None and entry[0] is sock:
+                del self._relay_conns[addr]
+        try:
+            sock.close()
+        except OSError:
+            pass
+
+    # ------------------------------------------------------------------
+    # NAT relay volunteering
+    # ------------------------------------------------------------------
+
+    def _prune_relay_targets_locked(self, now: float) -> None:
+        for peer in [p for p, (_, exp) in self._relay_targets.items() if now >= exp]:
+            del self._relay_targets[peer]
+
+    def _relay_attach(self, sock, header: dict) -> None:
+        """Open (or renew) a circuit for an unreachable peer, at the address
+        this volunteer can dial it at (its bind address, not the advertised
+        one that failed the vote). A saturated volunteer sheds with an
+        error frame, so the attacher tries the next one."""
+        peer = header.get("peer_id")
+        addr = header.get("address")
+        if not peer or not addr:
+            _send_frame(sock, {"verb": "error",
+                               "message": "relay_attach needs peer_id and address"})
+            return
+        now = time.monotonic()
+        with self._relay_lock:
+            self._prune_relay_targets_locked(now)
+            saturated = (peer not in self._relay_targets
+                         and len(self._relay_targets) >= self.relay_capacity)
+            if not saturated:
+                self._relay_targets[peer] = (addr, now + self.RELAY_CIRCUIT_TTL)
+            active = len(self._relay_targets)
+        _tm.get("relay_active_circuits").set(active)
+        if saturated:
+            _send_frame(sock, {"verb": "error", "relay_saturated": True,
+                               "peer": self.peer_id or "?",
+                               "message": f"relay at capacity "
+                                          f"({active}/{self.relay_capacity})"})
+            return
+        _send_frame(sock, {"verb": "ok", "peer": self.peer_id or "?",
+                           "active": active, "capacity": self.relay_capacity,
+                           "ttl": self.RELAY_CIRCUIT_TTL})
+
+    def _relay_forward(self, sock, target: str, header: dict,
+                       payload: bytes) -> None:
+        """Forward a frame verbatim to attached peer `target` and relay its
+        answer back; no tensor is decoded. A failure answers with the push
+        error shape: ``peer`` is the target (the client routes around it),
+        ``breaker_peer`` set only where this volunteer is at fault."""
+        verb = header.get("verb")
+        session = header.get("session_id")
+        m_fwd = _tm.get("relay_forwarded_total")
+        plan = self.fault_plan
+        if plan is not None:
+            rule = plan.fire("relay", SITE_KINDS["relay"], side=self.fault_side,
+                             peer=target, verb=verb, session=session)
+            if rule is not None:
+                if rule.kind == "relay_stall":
+                    time.sleep(rule.delay_s)
+                else:   # relay_drop: the volunteer eats the frame
+                    m_fwd.labels(outcome="drop").inc()
+                    _ev.emit("relay_forward_error", session_id=session,
+                             relay=self.peer_id or "?", peer=target, verb=verb,
+                             error="relay_drop (injected)")
+                    _send_frame(sock, {
+                        "verb": "error", "kind": "push", "peer": target,
+                        "breaker_peer": self.peer_id or "?",
+                        "message": f"relay dropped frame for {target} (injected)"})
+                    return
+        now = time.monotonic()
+        with self._relay_lock:
+            self._prune_relay_targets_locked(now)
+            entry = self._relay_targets.get(target)
+            active = len(self._relay_targets)
+        _tm.get("relay_active_circuits").set(active)
+        if entry is None:
+            # Never attached here, or its lease lapsed: the target is at
+            # fault, not this volunteer.
+            m_fwd.labels(outcome="no_circuit").inc()
+            _ev.emit("relay_forward_error", session_id=session,
+                     relay=self.peer_id or "?", peer=target, verb=verb,
+                     error="no circuit")
+            _send_frame(sock, {"verb": "error", "kind": "push", "peer": target,
+                               "message": f"no relay circuit for {target}"})
+            return
+        addr = entry[0]
+        timeout = COMPUTE_TIMEOUT_S * (1 + len(header.get("next_servers") or ()))
+        for fresh in (False, True):
+            fsock = None
+            try:
+                fsock, lock = self._relay_sock(addr)
+                with lock:
+                    fsock.settimeout(timeout)
+                    _send_frame(fsock, header, payload)
+                    rh, rp = _recv_frame(fsock)
+                break
+            except (ConnectionError, OSError) as exc:
+                if fsock is not None:
+                    self._drop_relay(addr, fsock)
+                if fresh:
+                    m_fwd.labels(outcome="error").inc()
+                    _ev.emit("relay_forward_error", session_id=session,
+                             relay=self.peer_id or "?", peer=target, verb=verb,
+                             error=str(exc)[:200])
+                    _send_frame(sock, {"verb": "error", "kind": "push", "peer": target,
+                                       "message": f"relay to {target} failed: {exc}"})
+                    return
+        m_fwd.labels(outcome="ok").inc()
+        _send_frame(sock, rh, rp)
+
+    def _gossip_dispatch(self, sock, header: dict) -> None:
+        """The control plane from this server's GossipNode: the ``gossip``
+        anti-entropy verb, and the registry service's register /
+        heartbeat / unregister / list with `RegistryServer`'s response
+        shapes, so a `RemoteRegistry` pointed here works unchanged."""
+        node = self.gossip
+        verb = header.get("verb")
+        if verb == "gossip":
+            plan = self.fault_plan
+            if plan is not None:
+                rule = plan.fire("gossip", SITE_KINDS["gossip"], side=self.fault_side,
+                                 peer=header.get("peer_id"), verb=verb)
+                if rule is not None:
+                    if rule.kind == "gossip_drop":
+                        # The initiator's round dies on its read timeout; a
+                        # later round converges.
+                        return
+                    node.merge(header.get("entries") or ())   # duplicate
+            merged = node.merge(header.get("entries") or ())
+            resp = {"verb": "gossip", "peer_id": self.peer_id, "merged": merged}
+            digest = header.get("digest")
+            if digest is not None:
+                # A round's opener: our digest, and the entries the
+                # initiator's digest lacks.
+                resp["digest"] = node.digest()
+                resp["entries"] = node.delta_for(digest)
+                _tm.get("gossip_rounds_total").labels(role="responder").inc()
+            _send_frame(sock, resp)
+            return
+        _tm.get("gossip_mirror_requests_total").labels(verb=verb).inc()
+        if verb == "register":
+            node.publish(dict(header["record"]))
+            _send_frame(sock, {"verb": "ok", "ttl": node.ttl})
+        elif verb == "heartbeat":
+            ok = node.apply_heartbeat(
+                header["peer_id"], throughput=header.get("throughput"),
+                cache_tokens_left=header.get("cache_tokens_left"),
+                next_server_rtts=header.get("next_server_rtts"))
+            _send_frame(sock, {"verb": "ok", "known": ok, "ttl": node.ttl})
+        elif verb == "unregister":
+            node.apply_unregister(header["peer_id"])
+            _send_frame(sock, {"verb": "ok"})
+        else:   # list: a client discovering through this server
+            now = time.monotonic()
+            records = [dict(rec_to_dict(r), age_s=max(0.0, now - r.timestamp))
+                       for r in node.live_servers()]
+            _ev.emit("gossip_served_discovery", peer=self.peer_id, records=len(records))
+            _send_frame(sock, {"verb": "records", "ttl": node.ttl, "records": records})
 
     def _dispatch(self, sock, header: dict, payload: bytes) -> None:
         verb = header.get("verb")
-        if header.get("relay_to") is not None:
-            _send_frame(sock, {"verb": "error",
-                               "message": "relay_to: this server relays for "
-                                          "no peer (relays are not ported)"})
+        relay_to = header.pop("relay_to", None)
+        if relay_to is not None:
+            # This server is the frame's relay volunteer: forward it, minus
+            # the routing key, whatever its verb.
+            self._relay_forward(sock, relay_to, header, payload)
+            return
+        if verb == "relay_attach":
+            self._relay_attach(sock, header)
             return
         if verb == "reach_check":
             self._reach_check(sock, header)
@@ -636,6 +909,21 @@ class TcpStageServer(_FramedTcpServer):
             return
         if verb == "fault":
             _send_frame(sock, self._fault_admin(header))
+            return
+        if verb == "swarm-stats":
+            # This process's stats digest and every live record its mirror
+            # holds (each with the stats digest its origin gossips).
+            _send_frame(sock, {
+                "verb": "swarm-stats", "peer_id": self.peer_id or "?",
+                "self": _prof_digest(),
+                "records": self.gossip.live_records() if self.gossip is not None else [],
+            })
+            return
+        if self.gossip is not None and verb in (
+                "gossip", "register", "heartbeat", "unregister", "list"):
+            # Before the executor check: a re-spanning server keeps
+            # gossiping and serving discovery.
+            self._gossip_dispatch(sock, header)
             return
         # One read: an elastic server may swap or unset the executor at any
         # moment, and the rest of this request must see one executor.
@@ -921,15 +1209,49 @@ class TcpStageServer(_FramedTcpServer):
             if resp.token_ids is not None:   # batch>1 per-row sampling
                 frame["token_ids"] = list(resp.token_ids)
             body = b""
+        elif req.next_servers:
+            # Push chain, on this handler thread once the compute thread
+            # has answered: the output goes straight to the next hop, whose
+            # final answer is relayed back (one client round trip a step).
+            nxt = req.next_servers[0]
+            nreq = dataclasses.replace(
+                req, hidden=resp.hidden, start_block=nxt.get("start_block"),
+                end_block=nxt.get("end_block"), next_servers=tuple(req.next_servers[1:]))
+            if req.deadline_budget_s is not None:
+                # The next hop judges expiry against what is left.
+                nreq = dataclasses.replace(
+                    nreq, deadline_budget_s=req.deadline_budget_s - (time.monotonic() - t_req))
+            try:
+                frame, body = self._relay(nxt, nreq, resp_wire_dtype)
+            except (ConnectionError, OSError) as exc:
+                m_requests.labels(outcome="error").inc()
+                err = {"verb": "error", "kind": "push", "peer": nxt.get("peer_id", "?"),
+                       "message": f"push to {nxt.get('peer_id')} failed: {exc}"}
+                if nxt.get("relay_via"):
+                    # The dial that failed was the volunteer's: it takes the
+                    # breaker's blame, the hop the routing blame.
+                    err["breaker_peer"] = nxt.get("relay_via")
+                _send_frame(sock, err)
+                return
+            if stream is not None and frame.get("verb") == "token" and (
+                    frame.get("token_id") is not None):
+                # A token sampled downstream joins this stream's window
+                # too, or the final stage's repetition penalty would see
+                # the window as of stream_open.
+                stream["generated"].append(int(frame["token_id"]))
+                del stream["generated"][:-50]
+            _send_frame(sock, frame, body)
+            frame = None
         else:
             meta, body = _encode_tensor(_host_array(resp.hidden), resp_wire_dtype)
             frame = {
                 "verb": "hidden", "session_id": resp.session_id,
                 "cache_len": resp.cache_len, "tensor": meta,
             }
-        if req.trace is not None:
-            frame["span"] = span.to_wire()
-        _send_frame(sock, frame, body)
+        if frame is not None:
+            if req.trace is not None:
+                frame["span"] = span.to_wire()
+            _send_frame(sock, frame, body)
         _tm.get("server_step_latency_seconds").labels(
             phase=phase).observe(time.monotonic() - t_req)
         _tm.get("server_tokens_total").labels(phase=phase).inc(req.seq_len)
@@ -961,7 +1283,10 @@ class TcpStageServer(_FramedTcpServer):
 # ---------------------------------------------------------------------------
 
 class TcpTransport(Transport):
-    """Client-side transport resolving peers via registry `address` fields."""
+    """Client-side transport resolving peers via registry `address` fields.
+    A peer whose record names a relay volunteer (``relay_via``) is dialed
+    at the volunteer's address, on a connection of its own, and every
+    frame to it is stamped ``relay_to``."""
 
     def __init__(self, registry, wire_dtype: str = "bf16",
                  model: Optional[str] = None):
@@ -973,6 +1298,9 @@ class TcpTransport(Transport):
         self._conns: Dict[str, socket.socket] = {}
         # (peer_id, session_id) -> {"snap", "sock", "window", "returns_tokens"}
         self._streams: Dict[Tuple[str, str], dict] = {}
+        # peer_id -> its relay volunteer's peer_id (None: dialed directly),
+        # refreshed by _addr at each dial.
+        self._via_relay: Dict[str, Optional[str]] = {}
         self._lock = threading.Lock()
         # Chaos layer: client-side injection hook (set_fault_plan).
         self.fault_plan: Optional[FaultPlan] = None
@@ -993,12 +1321,50 @@ class TcpTransport(Transport):
         rec = self.registry.get(peer_id)
         if rec is None or not rec.address:
             raise PeerUnavailable(f"no address for peer {peer_id}")
-        if getattr(rec, "relay_via", None):
-            raise PeerUnavailable(
-                f"peer {peer_id} is served through relay {rec.relay_via}, "
-                "and relays are not ported")
-        host, port = rec.address.rsplit(":", 1)
+        addr = rec.address
+        via = getattr(rec, "relay_via", None)
+        if via:
+            # A NAT'd peer's own address is unreachable: dial its volunteer.
+            rrec = self.registry.get(via)
+            if rrec is None or not rrec.address:
+                raise PeerUnavailable(f"no address for relay {via} of peer {peer_id}")
+            addr = rrec.address
+        with self._lock:
+            self._via_relay[peer_id] = via
+        host, port = addr.rsplit(":", 1)
         return host, int(port)
+
+    def _send(self, peer_id: str, sock, hdr: dict, body: bytes = b"") -> None:
+        """Every request frame to `peer_id` goes through here: a relayed
+        peer's is stamped ``relay_to``, whatever its verb."""
+        with self._lock:
+            via = self._via_relay.get(peer_id)
+        if via:
+            hdr["relay_to"] = peer_id
+        _send_frame(sock, hdr, body)
+
+    def _unavailable(self, peer_id: str, exc: Exception) -> PeerUnavailable:
+        """A socket failure on `peer_id`'s connection. Through a relay the
+        socket is the volunteer's: the breaker blames it
+        (``breaker_peer_id``), the routing blame stays on the peer."""
+        err = PeerUnavailable(f"peer {peer_id} connection failed: {exc}")
+        with self._lock:
+            via = self._via_relay.get(peer_id)
+        if via:
+            err.breaker_peer_id = via
+        return err
+
+    def _note_relay_failure(self, peer_id: str, request: StageRequest,
+                            error: Exception) -> None:
+        """The flight recorder's mark of a failed exchange with a peer
+        reached through a volunteer (the doctor tells a relay loss by it)."""
+        with self._lock:
+            via = self._via_relay.get(peer_id)
+        if via:
+            _ev.emit("relay_forward_error", session_id=request.session_id,
+                     trace_id=_trace_id(request), relay=via, peer=peer_id,
+                     verb="step" if self._streamable(request) else "forward",
+                     error=str(error)[:200])
 
     def _connect(self, peer_id: str) -> socket.socket:
         with self._lock:
@@ -1017,8 +1383,14 @@ class TcpTransport(Transport):
                                             timeout=CONNECT_TIMEOUT_S)
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         except OSError as exc:
-            raise PeerUnavailable(
-                f"cannot reach {peer_id} at {host}:{port}: {exc}") from exc
+            err = PeerUnavailable(f"cannot reach {peer_id} at {host}:{port}: {exc}")
+            with self._lock:
+                via = self._via_relay.get(peer_id)
+            if via:
+                # The volunteer's socket failed to open: it takes the
+                # breaker's blame.
+                err.breaker_peer_id = via
+            raise err from exc
         if plan is not None:
             sock = FaultSocket(sock, plan, side="client", peer=peer_id)
         with self._lock:
@@ -1068,7 +1440,7 @@ class TcpTransport(Transport):
         failures become the retryable taxonomy."""
         try:
             for hdr, body in frames:
-                _send_frame(sock, hdr, body)
+                self._send(peer_id, sock, hdr, body)
                 self._m_sent.inc(len(body))
             header, payload = _recv_frame(sock)
             self._m_recv.inc(len(payload))
@@ -1080,16 +1452,24 @@ class TcpTransport(Transport):
             raise TimeoutError(f"peer {peer_id} timed out") from exc
         except (ConnectionError, OSError) as exc:
             self._drop(peer_id)
+            self._note_relay_failure(peer_id, request, exc)
             _ev.emit("transport_error", session_id=request.session_id,
                      trace_id=_trace_id(request), peer=peer_id,
                      error=str(exc)[:200])
-            raise PeerUnavailable(f"peer {peer_id} connection failed: {exc}") from exc
+            raise self._unavailable(peer_id, exc) from exc
+
+    def _connect_for(self, peer_id: str, request: StageRequest) -> socket.socket:
+        try:
+            return self._connect(peer_id)
+        except PeerUnavailable as exc:
+            self._note_relay_failure(peer_id, request, exc)
+            raise
 
     def call(self, peer_id: str, request: StageRequest,
              timeout: Optional[float] = None) -> StageResponse:
         if self._streamable(request):
             return self._call_stream(peer_id, request, timeout)
-        sock = self._connect(peer_id)
+        sock = self._connect_for(peer_id, request)
         if self.fault_plan is not None and isinstance(sock, FaultSocket):
             sock.ctx_verb = "forward"
             sock.ctx_session = request.session_id
@@ -1124,7 +1504,7 @@ class TcpTransport(Transport):
                 request.max_length, request.start_block, request.end_block,
                 tuple(json.dumps(n, sort_keys=True)
                       for n in request.next_servers))
-        sock = self._connect(peer_id)
+        sock = self._connect_for(peer_id, request)
         if self.fault_plan is not None and isinstance(sock, FaultSocket):
             sock.ctx_verb = "step"
             sock.ctx_session = request.session_id
@@ -1245,7 +1625,7 @@ class TcpTransport(Transport):
         sock = self._connect(peer_id)
         try:
             sock.settimeout(timeout)
-            _send_frame(sock, header)
+            self._send(peer_id, sock, header)
             h, _ = _recv_frame(sock)
             return h
         except (ConnectionError, OSError) as exc:
@@ -1283,11 +1663,29 @@ class TcpTransport(Transport):
         return self._expect(peer_id, {"verb": "dump-events"}, "events",
                             timeout).get("lines", "")
 
+    def swarm_stats(self, peer_id: str, timeout: float = 5.0) -> dict:
+        """A peer's swarm view (the ``swarm-stats`` verb): its own stats
+        digest under ``"self"`` and every live record of its mirror under
+        ``"records"``."""
+        return self._expect(peer_id, {"verb": "swarm-stats"}, "swarm-stats", timeout)
+
     def reach_check(self, peer_id: str, target: str,
                     timeout: float = 8.0) -> bool:
         """Ask `peer_id` whether IT can dial `target` ("host:port")."""
         return bool(self._rpc(peer_id, {"verb": "reach_check", "target": target},
                               timeout).get("ok"))
+
+    def relay_attach(self, peer_id: str, my_peer_id: str, my_address: str,
+                     timeout: float = 5.0) -> dict:
+        """Ask volunteer `peer_id` to open (or renew: the verb is an
+        idempotent lease) a circuit to `my_peer_id` at `my_address`, an
+        address the volunteer can dial. Raises PeerUnavailable when it
+        sheds (saturated) or is gone, so the picker tries the next one."""
+        h = self._rpc(peer_id, {"verb": "relay_attach", "peer_id": my_peer_id,
+                                "address": my_address}, timeout)
+        if h.get("verb") != "ok":
+            raise PeerUnavailable(f"relay {peer_id} refused attach: {h.get('message')}")
+        return h
 
     # -- chaos layer (runtime.faults) -----------------------------------
 
@@ -1329,6 +1727,85 @@ class TcpTransport(Transport):
                 sock.close()
             except OSError:
                 pass
+
+
+def check_direct_reachability(transport: TcpTransport, registry,
+                              my_address: str, max_peers: int = 5,
+                              threshold: float = 0.5) -> Optional[bool]:
+    """The dial-back vote: am I reachable at `my_address`? Up to
+    `max_peers` live peers are asked to dial it; at least `threshold` of
+    the answers saying yes means direct. None when no peer answered (a
+    server alone in its swarm cannot tell)."""
+    votes = []
+    for rec in registry.live_servers():
+        if len(votes) >= max_peers:
+            break
+        if not getattr(rec, "address", None) or rec.address == my_address:
+            continue
+        try:
+            votes.append(transport.reach_check(rec.peer_id, my_address))
+        except (PeerUnavailable, TimeoutError, ConnectionError, OSError):
+            continue
+    if not votes:
+        return None
+    return sum(votes) / len(votes) >= threshold
+
+
+def attach_via_relay(transport: TcpTransport, registry, my_peer_id: str,
+                     my_address: str, exclude=()) -> Optional[dict]:
+    """Attach to a relay volunteer after a failed vote. Candidates: live
+    peers that advertise relay capacity and are not relayed themselves,
+    the most capacity first; a saturated one sheds and the next is tried.
+    Returns the volunteer's ok frame with ``"relay"`` its peer_id, or None
+    when nobody takes the attach."""
+    skip = set(exclude) | {my_peer_id}
+    cands = [r for r in registry.live_servers()
+             if r.peer_id not in skip and getattr(r, "address", None)
+             and (getattr(r, "relay_capacity", None) or 0) > 0
+             and not getattr(r, "relay_via", None)]
+    cands.sort(key=lambda r: -(r.relay_capacity or 0))
+    for rec in cands:
+        try:
+            ok = transport.relay_attach(rec.peer_id, my_peer_id, my_address)
+        except (PeerUnavailable, TimeoutError, ConnectionError, OSError, WireError):
+            continue
+        ok["relay"] = rec.peer_id
+        return ok
+    return None
+
+
+def gossip_exchange(node: GossipNode, address: str,
+                    timeout: float = 5.0) -> Tuple[int, int]:
+    """One digest-then-delta anti-entropy round with the stage server at
+    `address` (the initiator's side; `TcpStageServer._gossip_dispatch` is
+    the responder's): ship our digest and merge the entries the peer
+    answers with, then ship the entries its digest lacks. Returns
+    (entries sent, entries merged). Connection errors propagate: the
+    gossip loop takes a dead peer as one lost round."""
+    host, port = address.rsplit(":", 1)
+    sock = socket.create_connection((host, int(port)), timeout=timeout)
+    try:
+        sock.settimeout(timeout)
+        _send_frame(sock, {"verb": "gossip", "peer_id": node.peer_id,
+                           "digest": node.digest()})
+        resp, _ = _recv_frame(sock)
+        if resp.get("verb") != "gossip":
+            raise ConnectionError(f"peer at {address} does not gossip: "
+                                  f"{resp.get('message', resp.get('verb'))!r}")
+        merged = node.merge(resp.get("entries") or ())
+        delta = node.delta_for(resp.get("digest") or {})
+        if delta:
+            _send_frame(sock, {"verb": "gossip", "peer_id": node.peer_id,
+                               "entries": delta})
+            _recv_frame(sock)      # the ack: {"verb": "gossip", "merged": n}
+        _tm.get("gossip_rounds_total").labels(role="initiator").inc()
+        _ev.emit("gossip_round", peer=address, sent=len(delta), merged=merged)
+        return len(delta), merged
+    finally:
+        try:
+            sock.close()
+        except OSError:
+            pass
 
 
 # ---------------------------------------------------------------------------
@@ -1399,9 +1876,10 @@ class RemoteRegistry:
         succeed if any registry took them; a registration made while every
         registry is down is buffered and flushed on the next success;
       * reads (list) try the addresses from the last good one; when all are
-        down, a stage server that answers ``list`` (a reference server with
-        a gossip mirror; port servers do not) serves them, and failing that
-        the last snapshot serves under its records' TTL (stale-cache grace).
+        down, a stage server's gossip mirror answers ``list`` (every
+        ``--mode serve`` process of either package embeds one), and failing
+        that the last snapshot serves under its records' TTL (stale-cache
+        grace).
 
     ``peers_cache`` persists the snapshot's server addresses to a file, so
     a fresh process has bootstrap candidates with every registry down."""

@@ -439,7 +439,9 @@ class FixedStageServer:
     another front end serves `executor` at `address`. Given `executor`
     (a batched engine's adapter, say) it serves that one instead of
     building a `StageExecutor`; its record carries the executor's
-    ``engine`` tag."""
+    ``engine`` tag. ``--mode serve`` sets `throughput`, `relay_via` (the
+    volunteer of a server that failed the dial-back vote) and
+    `relay_capacity` (a volunteer's) before `start_serving`."""
 
     def __init__(
         self,
@@ -465,18 +467,22 @@ class FixedStageServer:
         self._pinger = (pinger if pinger is not None
                         else _pinger_from_transport(transport))
         self.next_server_rtts: Dict[str, float] = {}
+        self.throughput = 1.0
+        self.relay_via: Optional[str] = None
+        self.relay_capacity: Optional[int] = None
         self.executor = executor or StageExecutor(
             cfg, spec, params, peer_id=peer_id, **(executor_kwargs or {}))
 
     def _record(self) -> ServerRecord:
         return ServerRecord(
             peer_id=self.peer_id, start_block=self.spec.start,
-            end_block=self.spec.end,
+            end_block=self.spec.end, throughput=self.throughput,
             state=ServerState.ONLINE, final_stage=self.spec.is_last,
             stage_index=self.spec.index,
             next_server_rtts=self._published_rtts(),
             model=self.model, address=self.address,
             engine=getattr(self.executor, "engine", "session"),
+            relay_via=self.relay_via, relay_capacity=self.relay_capacity,
         )
 
     def start_serving(self) -> None:

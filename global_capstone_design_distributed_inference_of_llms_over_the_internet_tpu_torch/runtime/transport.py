@@ -10,16 +10,21 @@ over. `LocalTransport` is the serving boundary of its peers, so it records
 their ``transport_*`` and ``server_*`` metrics, the ``server_forward`` span
 and the phase profiler's ``server`` phase. Its timings are host time: an
 intermediate stage's step returns once its kernels are enqueued, and only
-the last stage's includes the token read it already does. Stalls (and with
-them ``transport_timeout``), deadlines, push chains and the training verb
-are not ported yet; the TCP transport is ``runtime/net.py``. The deadline
-error class lives here as in the reference, so that a server's
-``deadline_expired`` frame maps onto it (``errors.from_wire``).
+the last stage's includes the token read it already does. A request that
+names ``next_servers`` is a push chain: the output goes on to the next hop
+as it is (the dtype the per-hop walk would hand it), and a retryable
+failure downstream surfaces as `PushChainError` naming the failed hop.
+Stalls (and with them ``transport_timeout``), deadlines and the training
+verb are not ported yet; the TCP transport is ``runtime/net.py``. The
+deadline and push-chain error classes live here as in the reference, so
+that a server's ``deadline_expired`` and ``kind: "push"`` frames map onto
+them (``errors.from_wire``).
 """
 
 from __future__ import annotations
 
 import abc
+import dataclasses
 import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
@@ -29,6 +34,7 @@ from ..telemetry import events as _ev
 from ..telemetry import get_tracer
 from ..telemetry.profiling import get_profiler as _get_profiler
 from .errors import register as _catalog
+from .errors import retryable_types
 from .executor import StageExecutor
 from .messages import StageRequest, StageResponse
 
@@ -36,6 +42,16 @@ from .messages import StageRequest, StageResponse
 @_catalog
 class PeerUnavailable(ConnectionError):
     """The peer is dead/unreachable (the client must fail over)."""
+
+
+@_catalog
+class PushChainError(ConnectionError):
+    """A downstream hop of a push chain failed. Carries the failed peer, so
+    the client blacklists it and not the chain's entry hop."""
+
+    def __init__(self, peer_id: str, message: str):
+        super().__init__(message)
+        self.peer_id = peer_id
 
 
 @_catalog
@@ -192,4 +208,17 @@ class LocalTransport(Transport):
             self._m_recv.inc(resp.hidden.nbytes)
         if request.trace is not None:
             resp.span = span.to_wire()
+        if request.next_servers and resp.hidden is not None:
+            # Push chain: the output straight to the next hop, whose answer
+            # is returned; a downstream failure names the downstream peer.
+            nxt = request.next_servers[0]
+            nreq = dataclasses.replace(
+                request, hidden=resp.hidden, start_block=nxt.get("start_block"),
+                end_block=nxt.get("end_block"), next_servers=tuple(request.next_servers[1:]))
+            try:
+                return self.call(nxt["peer_id"], nreq, timeout)
+            except PushChainError:
+                raise
+            except retryable_types() as exc:
+                raise PushChainError(nxt["peer_id"], str(exc)) from exc
         return resp

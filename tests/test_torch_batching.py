@@ -526,11 +526,10 @@ def test_adapter_refuses_stale_cur_len_and_round_survives():
 
 # Requests both adapters refuse (of a session with no slot, as in
 # tests/test_batching.py:339), then those only the port's refuses (their
-# slices are not ported: speculative rows #3, push chains #2).
+# slice is not ported: speculative rows, ROADMAP Queue 1 #3).
 COMMON_REFUSALS = [dict(hypo_ids=(0,)), dict(num_logprobs=2), dict(is_replay=True),
                    dict(start_from_position=0, cur_len=3), dict(start_block=1), dict()]
-PORT_REFUSALS = [dict(draft_tokens=(1,)), dict(draft_tokens=(1, 2), seq_len=3),
-                 dict(next_servers=({"peer_id": "x"},))]
+PORT_REFUSALS = [dict(draft_tokens=(1,)), dict(draft_tokens=(1, 2), seq_len=3)]
 
 
 def _refusal_request(mk, sid, bad):
@@ -578,10 +577,34 @@ def test_adapter_serves_a_burst():
     assert len(got[1][1]) == 3 and got[1][3] == 6
 
 
+def test_adapter_computes_a_push_chain_request_as_the_jax_adapter():
+    """A request naming ``next_servers`` is computed by both adapters, which
+    leave the relay to the server above them: the same tokens, with no
+    refusal event."""
+    ja, ta = adapters(8, slots=2, window_s=0.0)
+    chain = dict(next_servers=({"peer_id": "x", "address": "127.0.0.1:9",
+                                "start_block": 2, "end_block": 4},))
+    got = []
+    for adapter, mk, tel in ((ja, _jreq, jtel), (ta, _treq, ttel)):
+        tel.get_recorder().enable()
+        tel.get_recorder().clear()
+        try:
+            first = adapter.forward(dataclasses.replace(mk("s", [5, 9, 23], 0, True), **chain))
+            nxt = adapter.forward(dataclasses.replace(mk("s", [first.token_id], 3, False),
+                                                      **chain))
+            assert [e.name for e in tel.get_recorder().events()
+                    if e.name == "task_rejected"] == []
+        finally:
+            tel.get_recorder().disable()
+            tel.get_recorder().clear()
+        got.append((first.token_id, nxt.token_id, nxt.cache_len))
+    assert got[1] == got[0]
+
+
 @pytest.mark.parametrize("bad", PORT_REFUSALS, ids=lambda b: "-".join(b))
 def test_adapter_refuses_what_is_not_ported(bad):
-    """Speculative rows and push chains are refused, retryably, with a
-    task_rejected event, and the session stays usable."""
+    """Speculative rows are refused, retryably, with a task_rejected event,
+    and the session stays usable."""
     _, ta = adapters(8, slots=2, window_s=0.0)
     ta.forward(_treq("s", [5, 9, 23], 0, True))
     ttel.get_recorder().enable()

@@ -158,12 +158,14 @@ def _without_module_docstring(path):
                                  "csrc/codec.cpp", "serving/__init__.py",
                                  "serving/admission.py", "serving/fair_queue.py",
                                  "serving/gateway.py", "scheduling/load_balancing.py",
-                                 "scheduling/throughput.py", "scheduling/routing.py"])
+                                 "scheduling/throughput.py", "scheduling/routing.py",
+                                 "scheduling/gossip.py"])
 def test_byte_equal_copies(rel):
     """The chaos layer, the task pool, the wire codec's C++ source, the
     serving gateway (admission, fair queue, gateway) and the swarm
     scheduling modules (load balancing, the throughput probe, latency
-    routing) are copies of the JAX package's, byte for byte (the codec's
+    routing, the gossip mirror) are copies of the JAX package's, byte for
+    byte (the codec's
     lives in its ``native/``); their relative imports resolve to the port's
     own runtime, ops, telemetry and registry."""
     original = rel.replace("csrc/", "native/")

@@ -23,6 +23,7 @@ a timeout (``REQUEST_TIMEOUT_S``).
 import json
 import os
 import pathlib
+import random
 import re
 import select
 import socket
@@ -404,8 +405,6 @@ UNPORTED_FIELDS = {
     "draft_tokens": {"draft_tokens": (3, 4)},
     "prompts": {"prompts": torch.zeros(1, 2, 256)},
     "burst_len": {"burst_len": 4, "burst_budget": 4},
-    "next_servers": {"next_servers": ({"peer_id": "x", "start_block": 2,
-                                       "end_block": 3},)},
     "start_from_position": {"start_from_position": 0},
 }
 
@@ -430,22 +429,120 @@ def test_unported_request_field_gets_a_stage_error_frame(port_swarm, field):
         port_swarm.client("port").transport.call("port-s1-r0", req, SOCKET_TIMEOUT_S)
 
 
-@pytest.mark.parametrize("verb", ["gossip", "relay_attach", "swarm-stats",
-                                  "train_forward", "backward", "list"])
+def test_next_servers_is_relayed_as_a_chain(port_swarm):
+    """A ``forward`` naming ``next_servers`` (the reference's push chain):
+    stage 1 computes, hands its output to stage 2, which hands it to stage
+    3, and the final token comes back on the first connection, equal to
+    the same activation walked hop by hop."""
+    addr = {p: port_swarm.servers[f"port-s{p}-r0"].address for p in (1, 2, 3)}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 3, 256))
+                         .astype(np.float32))
+
+    def request(sid, hidden, start, nxt=()):
+        return tnet.StageRequest(session_id=sid, hidden=hidden, seq_len=3, cur_len=0,
+                                 is_prefill=True, max_length=8, start_block=start,
+                                 end_block=start + 1, next_servers=nxt)
+
+    def exchange(peer, req):
+        meta, body = tnet._encode_tensor(tnet._host_array(req.hidden), "f32")
+        hdr = dict(tnet._request_header(req, meta), wire_dtype="f32")
+        host, port = addr[peer].rsplit(":", 1)
+        with socket.create_connection((host, int(port)), timeout=SOCKET_TIMEOUT_S) as s:
+            s.settimeout(SOCKET_TIMEOUT_S)
+            tnet._send_frame(s, hdr, body)
+            h, payload = tnet._recv_frame(s)
+        return h, payload
+
+    chain = exchange(1, request("chain", x, 1, (
+        {"peer_id": "port-s2-r0", "address": addr[2], "start_block": 2, "end_block": 3},
+        {"peer_id": "port-s3-r0", "address": addr[3], "start_block": 3, "end_block": 4})))[0]
+    hidden = x
+    for peer in (1, 2):
+        h, payload = exchange(peer, request("walk", hidden, peer))
+        hidden = tnet._to_tensor(tnet._decode_tensor(h["tensor"], payload))
+    walk = exchange(3, request("walk", hidden, 3))[0]
+    assert chain["verb"] == walk["verb"] == "token"
+    assert chain["token_id"] == walk["token_id"] and chain["cache_len"] == walk["cache_len"]
+
+
+def _control_plane_servers(pkg):
+    """An executor-less server of `pkg` with a gossip mirror holding one
+    record and a relay capacity of 2, as a ``--mode serve`` volunteer."""
+    from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.scheduling import (
+        gossip as jgossip,
+    )
+    from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu_torch.scheduling import (
+        gossip as tgossip,
+    )
+
+    gossip_mod = jgossip if pkg == "jax" else tgossip
+    node = gossip_mod.GossipNode("cp", ttl=30.0, rng=random.Random(0))
+    node.publish({"peer_id": "p1", "start_block": 1, "end_block": 2, "stage_index": 1,
+                  "address": "127.0.0.1:9"})
+    if pkg == "jax":
+        srv = jnet.TcpStageServer(None, wire_dtype="f32", peer_id="cp", gossip=node,
+                                  relay_capacity=2)
+    else:
+        srv = tnet.TcpStageServer(None, None, wire_dtype="f32", peer_id="cp", gossip=node,
+                                  relay_capacity=2)
+    srv.start()
+    return srv
+
+
+CONTROL_VERBS = {
+    "gossip": {"verb": "gossip", "peer_id": "g", "digest": {}},
+    "relay_attach": {"verb": "relay_attach", "peer_id": "nat", "address": "127.0.0.1:9"},
+    "swarm-stats": {"verb": "swarm-stats"},
+    "list": {"verb": "list"},
+}
+
+
+@pytest.mark.parametrize("verb", sorted(CONTROL_VERBS))
+def test_control_plane_verb_gets_the_reference_answer(verb):
+    """The control-plane verbs a port server now serves, answered as a JAX
+    server with the same mirror and relay capacity answers them (record
+    ages and the stats digest's values are the process's own)."""
+    answers = []
+    for pkg in ("jax", "port"):
+        srv = _control_plane_servers(pkg)
+        try:
+            h = _raw_exchange(srv.address, dict(CONTROL_VERBS[verb]))
+        finally:
+            srv.stop()
+        for rec in (*h.get("records", ()), *h.get("entries", ())):
+            rec.pop("age_s", None)    # seconds since the record's refresh
+            rec.pop("ttl_s", None)    # seconds of liveness left
+        if "self" in h:
+            h["self"] = sorted(h["self"])
+        answers.append(h)
+    assert answers[1] == answers[0]
+    assert answers[1]["verb"] in ("gossip", "ok", "swarm-stats", "records")
+
+
+@pytest.mark.parametrize("verb", ["train_forward", "backward"])
 def test_unported_verb_gets_unknown_verb_frame(port_swarm, verb):
     h = _raw_exchange(port_swarm.servers["port-s2-r0"].address,
                       {"verb": verb, "session_id": "v"})
     assert h == {"verb": "error", "message": f"unknown verb {verb!r}"}
 
 
-def test_jax_gossip_round_with_a_port_server_is_one_lost_round(port_swarm):
+def test_jax_gossip_round_with_a_port_server_converges():
+    """A JAX node's anti-entropy round with a port server's mirror: both
+    sides end with the union of their records."""
     from global_capstone_design_distributed_inference_of_llms_over_the_internet_tpu.scheduling.gossip import (
         GossipNode,
     )
 
-    with pytest.raises(ConnectionError, match="does not gossip"):
-        jnet.gossip_exchange(GossipNode("g"), port_swarm.servers["port-s1-r0"].address,
-                             timeout=SOCKET_TIMEOUT_S)
+    srv = _control_plane_servers("port")
+    try:
+        node = GossipNode("g")
+        node.publish({"peer_id": "p2", "start_block": 2, "end_block": 3, "stage_index": 2,
+                      "address": "127.0.0.1:8"})
+        assert jnet.gossip_exchange(node, srv.address, timeout=SOCKET_TIMEOUT_S) == (1, 1)
+        assert sorted(r.peer_id for r in node.live_servers()) == ["p1", "p2"]
+        assert sorted(r.peer_id for r in srv.gossip.live_servers()) == ["p1", "p2"]
+    finally:
+        srv.stop()
 
 
 def test_spent_deadline_and_model_mismatch_refused(port_swarm):
@@ -465,12 +562,20 @@ def test_spent_deadline_and_model_mismatch_refused(port_swarm):
         other.close()
 
 
-@pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"],
-                                  ["--use_cpu_offload"], ["--relay_capacity", "2"]])
+@pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"], ["--use_cpu_offload"]])
 def test_unported_serve_flag_exits_naming_it(flag):
     with pytest.raises(SystemExit, match=f"{flag[0]} is not ported"):
         tmain.main(["--mode", "serve", "--stage", "1", "--device", "cpu",
                     "--registry_addr", "127.0.0.1:1", *flag])
+
+
+def test_relay_capacity_flag_is_served():
+    """``--relay_capacity N`` passes the flag check (the CLI runs a
+    volunteer in tests/test_torch_gossip.py)."""
+    args = tmain.build_parser().parse_args(["--mode", "serve", "--stage", "1",
+                                            "--relay_capacity", "2", "--device", "cpu"])
+    tmain.refuse_unported_flags(args)
+    assert args.relay_capacity == 2
 
 
 @pytest.mark.parametrize("mode", ["serve", "client", "local"])
