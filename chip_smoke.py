@@ -321,6 +321,11 @@ on the kernels; it never prints the last line of a smoke pass.)
    must print step 8's generation and ``TOKENS=`` ids; then the registry is
    SIGKILLed and a second client with the same cache must print the same
    through a gossip mirror. Every child killed whatever happens.
+11e. Speculative CLI client, in step 11's batched CLI drive: its servers
+   run ``--mode serve --batched --speculative_k 4`` (the draft widths
+   warmed up), and a third, greedy ``--mode client --speculative_k 4``
+   must print step 12c's batched speculative run's generation and
+   ``TOKENS=`` ids.
 12a. Elastic path (after the prefix path, on the int8 path's weights;
    ``elastic_path``): ``--mode local --use_load_balancing`` built by
    ``main``'s functions, 3 elastic servers, each warmed up and probing
@@ -373,6 +378,40 @@ on the kernels; it never prints the last line of a smoke pass.)
    chain replay with the fault-free tokens. Every run's launch gate: every
    projection of every token on ``int8_dot``, none on the CUDA cores, a
    ``sample_draw`` a sampled token. The phase's seconds printed.
+12c. Speculative path (after the control-plane path, on the int8 path's
+   executors, each warmed up with ``speculative_k`` = SPEC_K = 4; 32 new
+   tokens; drafters: garbage (random tokens), perfect (a greedy request's
+   garbage run's tokens, what its verify steps give; a sampled one's plain
+   run's), the n-gram lookup; ``speculative_path``). In process, then over
+   in-process TCP at wire f32: a greedy and a sampled request each run
+   plain, with each drafter, with each again in reverse, plain (ABBA);
+   every speculative run's gates: greedy tokens equal the plain run's or
+   differ first at a near-tie (a verify step sums at M = 8, a plain one
+   at M = 1); perfect greedy drafts take ceil((n - 1) / 5) rounds (7 for
+   32 tokens), garbage ones n - 1; no capture; ``int8_dot``'s launches by
+   route exactly (a round with drafts at M = 8: the tensor cores on bf16
+   x, "f32mma" on stages 1-3's float32 x over TCP; a round without at M =
+   1 on the decode kernel; no CUDA-core launch); one ``sample_draw`` a
+   sampled round. A second pass of the sampled request with garbage and
+   perfect drafts records every verification: each equals the plain
+   ``speculative_verify`` on a host copy of its logits (tokens and
+   n_accepted; a difference only at a near-tie the plain loop shows), and
+   each went through the captured sampler's verify graph. The device ms
+   of the verify graph's replay, of the final stage's step at T = 1 and 8,
+   and of ``sample_draw`` at 5 rows of V = 128256 beside its bound. A push
+   chain in process and over TCP: the per-hop tokens. Batched: stages 1-3
+   on batched engines warmed up as ``serve --batched --speculative_k 4``
+   does, 4 speculative sessions at once over float32 hops, with n-gram
+   drafts (greedy) and then garbage drafts (one session sampled): each
+   greedy session held to the session engines' speculative run (float32
+   after stage 0), every verification held as above (a greedy slot's to
+   the argmax's), no capture, the last stage's rounds by width printed. Failover: a
+   stage-2 replica joins, the pinned stage-2 peer is killed after its 3rd
+   round, and the replica must be replayed contiguous rows that end where
+   the retried round starts, with the fault-free tokens. On the NF4 path
+   (after its TCP drive): over TCP at wire bf16, the greedy request plain,
+   garbage, perfect, perfect, garbage, plain, with the same gates
+   (``nf4_dot``'s rounds with drafts on "f32mma" at M = 8 on stages 1-3).
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``, ``paged_decode_attention`` with the paged path's
    launches and its times at the paged path's shape; each matmul with its
@@ -381,7 +420,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    layers; the prefix path's prefills by route and bucket and its layer at
    M = 1024; the elastic path's requests and probes by route; the
    control-plane path's runs by route, and ``sample_draw``'s launches on
-   each) and
+   each; the speculative path's runs by drafter and route, and
+   ``sample_draw``'s on the sampled ones) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -1348,7 +1388,7 @@ def sampler_phase(torch, vocab: int):
     probs = samp.sample_probs(logits, recent, *knobs)
     logp = torch.log(torch.clamp(probs, min=1e-20))
     key = tf3.prng_key(0)
-    entry = sampler._graphs[(False, 1, vocab)]
+    entry = sampler._graphs[("one", 1, vocab)]
     out = {"vocab": vocab, "rows_checked": checked, "captures": sampler.captures,
            "tokens_equal_eager": True}
     for what, fn in {
@@ -3211,7 +3251,7 @@ def _stderr_tail(path: pathlib.Path, n: int = 30) -> str:
 
 def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), client_argv=(),
               gateway=None, status=None, stage_argv=None, relay_stages=(),
-              registry_kill=False):
+              registry_kill=False, client_extra=None):
     """The port's swarm as processes on the card: a registry, a server a
     stage of `stages` (int8, bfloat16, seed 0, wire f32, and `serve_argv`)
     and one client a `wants` entry (prompt, the in-process result its
@@ -3228,7 +3268,8 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
     once the servers serve, a ``--mode status`` process must exit 0 and
     print that coverage line. `stage_argv` maps a stage to more argv of its
     server; each stage of `relay_stages` must print its ``RELAY:`` line
-    before ``SERVING``. With `registry_kill` the clients keep a
+    before ``SERVING``. `client_extra` maps a client's index in `wants` to
+    more argv of its own. With `registry_kill` the clients keep a
     ``--peers_cache`` file; once they are done the registry is SIGKILLed
     and the clients run again, with the same cache, to the same tokens (a
     gossip mirror serves discovery). Returns the summary (with each
@@ -3304,7 +3345,8 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
                         "--prompt", prompt, "--max_new_tokens", str(MAX_NEW_TOKENS),
                         "--temperature", str(sp.temperature), "--top_p", str(sp.top_p),
                         "--top_k", str(sp.top_k),
-                        "--repetition_penalty", str(sp.repetition_penalty), *client_argv])
+                        "--repetition_penalty", str(sp.repetition_penalty), *client_argv,
+                        *(client_extra or {}).get(i, ())])
                     clients.append((proc, out))
                 ttft, tps = [], []
                 for i, ((proc, out), (prompt, want, _)) in enumerate(zip(clients, wants)):
@@ -3554,12 +3596,14 @@ def batched_requests(tok, sampling_cls, cfg):
             for j, p in enumerate(BATCH_PROMPTS)]
 
 
-def batched_engines(torch, tmain, state, prefix_cache_bytes: int = 0):
+def batched_engines(torch, tmain, state, prefix_cache_bytes: int = 0,
+                    speculative_k: int = 0):
     """Stages 1-3 of the int8 path as `--mode serve --batched` builds them:
     batched engines (bfloat16 slot caches, SLOTS slots of MAX_SESSION_LEN
     rows; a prefix store of `prefix_cache_bytes` if > 0) behind adapters
-    with the default round window, each warmed up. Returns (adapters,
-    warm-up seconds a stage)."""
+    with the default round window, each warmed up (with `speculative_k`,
+    as ``--speculative_k`` warms it). Returns (adapters, warm-up seconds a
+    stage)."""
     from importlib import import_module
 
     batching = import_module(PORT + ".runtime.batching")
@@ -3567,12 +3611,12 @@ def batched_engines(torch, tmain, state, prefix_cache_bytes: int = 0):
     adapters, warm_s = [], {}
     for spec in state["client"].plan.stages[1:]:
         engine = batching.BatchedStageExecutor(
-            cfg, spec, tmain._stage_params(args, cfg, params, spec), device="cuda",
+            cfg, spec, tmain._stage_params(args, cfg, params, spec), device=args.device,
             slots=SLOTS, max_len=MAX_SESSION_LEN, dtype=torch.bfloat16,
             prefix_cache_bytes=prefix_cache_bytes, model=MODEL)
         adapter = batching.BatchingStageAdapter(engine, peer_id=f"batched-stage{spec.index}")
         t0 = time.monotonic()
-        adapter.warmup()
+        adapter.warmup(speculative_k=speculative_k)
         torch.cuda.synchronize()
         warm_s[adapter.peer_id] = time.monotonic() - t0
         adapters.append(adapter)
@@ -3600,7 +3644,7 @@ def stage0_executors(torch, tmain, state, n: int, prompt_len: int = 32,
     out = []
     for i in range(n):
         ex = executor_mod.StageExecutor(cfg, spec, shard, peer_id=f"batched-client{i}",
-                                        device="cuda", act_dtype=torch.bfloat16)
+                                        device=args.device, act_dtype=torch.bfloat16)
         for t, cur in ((prompt_len, 0), (1, prompt_len)):
             ex.forward(messages.StageRequest(
                 session_id="__warmup__", hidden=torch.zeros((1, t), dtype=torch.int64),
@@ -3611,14 +3655,17 @@ def stage0_executors(torch, tmain, state, n: int, prompt_len: int = 32,
     return out
 
 
-def run_clients(jobs, burst: int = 0, max_new_tokens: int = MAX_NEW_TOKENS):
+def run_clients(jobs, burst: int = 0, max_new_tokens: int = MAX_NEW_TOKENS,
+                speculative_k: int = 0, draft_fns=None):
     """Each (client, ids, sampling) job on a thread of its own, released
     together; the sessions start decoding together, once every one has its
     first token (requests admitted as one batch: sessions whose prefills
     end apart would decode a step or more apart, and two groups of them
     can then alternate rounds for the whole run); with `burst`, each asks
-    for bursts of that many ticks. Returns (results, wall seconds from the
-    release to the last end)."""
+    for bursts of that many ticks; with `speculative_k`, each drafts that
+    many tokens a round (job i with ``draft_fns[i]``, None the n-gram
+    lookup). Returns (results, wall seconds from the release to the last
+    end)."""
     barrier = threading.Barrier(len(jobs) + 1)
     prefilled = threading.Barrier(len(jobs))
     results, errors = [None] * len(jobs), []
@@ -3627,8 +3674,11 @@ def run_clients(jobs, burst: int = 0, max_new_tokens: int = MAX_NEW_TOKENS):
         client, ids, sp = jobs[i]
         barrier.wait(timeout=60)
         try:
-            steps = client.generate_stepwise(ids, max_new_tokens, sampling=sp,
-                                             **({"burst": burst} if burst else {}))
+            kw = {"burst": burst} if burst else {}
+            if speculative_k:
+                kw.update(speculative_k=speculative_k,
+                          draft_fn=draft_fns[i] if draft_fns else None)
+            steps = client.generate_stepwise(ids, max_new_tokens, sampling=sp, **kw)
             next(steps)                                 # prefill, first token
             prefilled.wait(timeout=CLI_STEP_TIMEOUT_S)
             for step in steps:          # to its end, which ends the session
@@ -4448,9 +4498,12 @@ def prefix_expected():
     return out
 
 
-def int8_routes(ik) -> dict:
-    return {"mma": ik._launches_mma, "gemv": ik._launches_gemv, "f32mma": ik._launches_f32mma,
-            "simt": ik._launches - ik._launches_mma - ik._launches_gemv - ik._launches_f32mma}
+def kernel_routes(mod) -> dict:
+    """A matmul kernel's (``int8_dot``'s or ``nf4_dot``'s) launches by route
+    since its counts were reset."""
+    return {"mma": mod._launches_mma, "gemv": mod._launches_gemv,
+            "f32mma": mod._launches_f32mma,
+            "simt": mod._launches - mod._launches_mma - mod._launches_gemv - mod._launches_f32mma}
 
 
 def memory_view(torch) -> dict:
@@ -4514,7 +4567,7 @@ def prefix_request(torch, kernels, client, probe, ids, sp) -> dict:
         steps = client.generate_stepwise(ids, PREFIX_NEW_TOKENS, sampling=sp)
         next(steps)
         probe.on = False
-        box.update(routes=int8_routes(kernels["int8_dot"]), buckets=sorted(probe.buckets),
+        box.update(routes=kernel_routes(kernels["int8_dot"]), buckets=sorted(probe.buckets),
                    rows=list(probe.rows))
         for step in steps:
             if step.done:
@@ -4986,7 +5039,7 @@ def elastic_probe(torch, server_cls, kernels, probes: dict):
         advertised = original(server)
         torch.cuda.synchronize()
         probes[server.peer_id] = {"span": [server.spec.start, server.spec.end],
-                                  "advertised": advertised, "routes": int8_routes(ik),
+                                  "advertised": advertised, "routes": kernel_routes(ik),
                                   "steps": list(server.probe_steps)}
         return advertised
 
@@ -5039,7 +5092,7 @@ def elastic_requests(torch, kernels, client, servers, state, what: str, gate_lau
     results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
                for ids, (_, sp) in zip(state["prompt_ids"], state["requests"])]
     torch.cuda.synchronize()
-    routes = int8_routes(ik)
+    routes = kernel_routes(ik)
     tokens = sum(len(r.tokens) for r in results)
     for i, (r, (_, sp)) in enumerate(zip(results, state["requests"])):
         if sp.greedy and r.tokens != state["results"][i].tokens:
@@ -5325,7 +5378,7 @@ def control_run(torch, kernels, client, executors, state, what: str, want=None,
                 raise AssertionError(f"{what}: request {i} gave {r.tokens}, want {w.tokens}")
     tokens = sum(len(r.tokens) for r in results)
     return {"results": results, "tokens": tokens,
-            "int8_dot_launches_by_route": int8_routes(kernels["int8_dot"]),
+            "int8_dot_launches_by_route": kernel_routes(kernels["int8_dot"]),
             "sample_draw_launches": kernels["sample_draw"]._launches,
             "client_calls": len(calls) if tcp else None, "calls_by_peer": dict(
                 (p, calls.count(p)) for p in sorted(set(calls))),
@@ -5721,6 +5774,623 @@ def control_plane_path(torch, kernels, tmain, state, smi: str) -> dict:
     return view
 
 
+SPEC_K = 4
+# The ABBA order of one request's runs: plain, each drafter, each again in
+# reverse, plain. Garbage comes first: its greedy tokens (one verify step a
+# token) are what the perfect drafts propose.
+SPEC_DRAFTERS = ("garbage", "perfect", "ngram")
+SPEC_ORDER = (None, *SPEC_DRAFTERS, *reversed(SPEC_DRAFTERS), None)
+SPEC_BATCH_SESSIONS = 4
+# A uniform this close to p(d), or two perturbed scores this close, is a
+# near-tie: the card's float32 sums and the host's may fall either side.
+SPEC_TIE = 1e-5
+
+
+def spec_drafter(name, plain, prompt_len: int, vocab: int, drafted: list):
+    """The draft function of `name`, each round's draft count appended to
+    `drafted`: "perfect" proposes the next tokens of `plain` (a run's
+    tokens); "garbage" random tokens, the first never the next one of
+    `plain`; "ngram" the client's n-gram prompt lookup."""
+    from importlib import import_module
+
+    ngram = import_module(PORT + ".runtime.speculative").ngram_draft
+    rng = random.Random(1234)
+
+    def fn(context, k):
+        pos = len(context) - prompt_len
+        if name == "perfect":
+            drafts = tuple(plain[pos:pos + k])
+        elif name == "garbage":
+            drafts = [rng.randrange(vocab) for _ in range(k)]
+            if pos < len(plain) and drafts[0] == plain[pos]:
+                drafts[0] = (drafts[0] + 1) % vocab
+            drafts = tuple(drafts)
+        else:
+            drafts = ngram(context, k)
+        drafted.append(len(drafts))
+        return drafts
+
+    return fn
+
+
+def spec_run(torch, kernels, name: str, client, executors, ids, sp, drafter, plain) -> dict:
+    """One request through `client`, plain (`drafter` None) or speculative
+    with K = SPEC_K and the drafter of that name (its drafts from `plain`,
+    the plain run's tokens), every count set to 0 just before: the result,
+    each round's draft count, `name`'s launches by route, sample_draw's
+    launches, and the executors' captures and replays."""
+    drafted = []
+    reset_counts(kernels, executors)
+    kw = {} if drafter is None else {"speculative_k": SPEC_K, "draft_fn": spec_drafter(
+        drafter, plain, len(ids), client.cfg.vocab_size, drafted)}
+    res = client.generate(ids, MAX_NEW_TOKENS, sampling=sp, **kw)
+    torch.cuda.synchronize()
+    decoded = len(res.tokens) - 1
+    return {"drafter": drafter, "result": res, "tokens": res.tokens, "drafted": drafted,
+            "rounds": len(res.decode_times_s),
+            "rounds_with_drafts": sum(1 for d in drafted if d > 0),
+            "ms_per_token": 1e3 * sum(res.decode_times_s) / max(decoded, 1),
+            "tokens_per_round": decoded / max(len(res.decode_times_s), 1),
+            "ttft_ms": 1e3 * res.ttft_s,
+            f"{name}_launches_by_route": kernel_routes(kernels[name]),
+            "sample_draw_launches": kernels["sample_draw"]._launches,
+            "captures": sum(ex.graphs.captures + ex.sampler.captures for ex in executors),
+            "verify_replays": executors[-1].sampler.replays}
+
+
+def spec_gates(what: str, name: str, run: dict, plain: dict, source, cfg,
+               stage0_layers: int, float32_hops: bool, greedy: bool, hold) -> None:
+    """Gates of one speculative run (`plain` the same request without
+    drafts, `source` the tokens its drafts came from): greedy tokens equal
+    the plain run's or differ first at a near-tie (`hold`: a verify step
+    sums its rows at M = 8, a plain step at M = 1); greedy perfect drafts
+    of a speculative run's tokens, when the run gives those tokens, take
+    ceil((n - 1) / (K + 1)) rounds, and garbage ones n - 1 (a random token
+    is the argmax with odds of 1 in the vocabulary); no capture (every
+    width was warmed up);
+    `name`'s launches by route exactly: a round with drafts runs every site
+    of every layer at M = 8 (the verify step's bucket: the tensor cores on
+    bf16 x, "f32mma" on the float32 x of the stages behind a hop at f32), a
+    round without drafts at M = 1 on the decode kernel, the prefill at its
+    bucket as a round with drafts; no CUDA-core launch; one sample_draw a
+    sampled round and one for the first token."""
+    tokens, rounds, wd = run["tokens"], run["rounds"], run["rounds_with_drafts"]
+    later = cfg.num_layers - stage0_layers
+    if float32_hops:
+        need = {"mma": 4 * stage0_layers * (1 + wd), "f32mma": 4 * later * (1 + wd)}
+    else:
+        need = {"mma": 4 * cfg.num_layers * (1 + wd), "f32mma": 0}
+    need.update(gemv=4 * cfg.num_layers * (rounds - wd), simt=0)
+    draws = 0 if greedy else 1 + rounds
+    got = run[f"{name}_launches_by_route"]
+    log(f"{what}: {run['drafter']} drafts, {len(tokens)} tokens in {rounds} rounds ({wd} "
+        f"with drafts), {run['ms_per_token']:.2f} ms/token, {run['tokens_per_round']:.2f} "
+        f"tokens a round; {name} {got} (want {need}); sample_draw "
+        f"{run['sample_draw_launches']} (want {draws}); captures {run['captures']}")
+    if got != need or run["sample_draw_launches"] != draws or run["captures"]:
+        raise AssertionError(f"{what}: {name} launches {got}, want {need}; sample_draw "
+                             f"{run['sample_draw_launches']}, want {draws}; "
+                             f"{run['captures']} captures")
+    if len(run["drafted"]) != rounds:
+        raise AssertionError(f"{what}: {len(run['drafted'])} drafts for {rounds} rounds")
+    if not greedy:
+        return
+    hold(tokens, plain["tokens"], f"{what}: {run['drafter']} drafts")
+    want = {"garbage": len(tokens) - 1}
+    if tokens == source:
+        want["perfect"] = -(-(len(tokens) - 1) // (SPEC_K + 1))
+    want = want.get(run["drafter"])
+    if want is not None and rounds != want:
+        raise AssertionError(f"{what}: {run['drafter']} drafts took {rounds} rounds, "
+                             f"want {want}")
+
+
+def spec_abba(torch, kernels, name: str, client, executors, requests, what: str, cfg,
+              stage0_layers: int, float32_hops: bool, hold, order=SPEC_ORDER) -> dict:
+    """Each (ids, sampling) request of `requests` run in `order` (plain,
+    then each drafter and back, then plain), every run gated
+    (`spec_gates`). The drafts come from the first plain run's tokens, a
+    greedy request's perfect ones from its first speculative run's (the
+    tokens its verify steps give). Returns {kind: {runs, summary}}: per
+    drafter the ms/token, tokens a round and rounds of each run."""
+    out = {}
+    for kind, (ids, sp) in requests.items():
+        runs = []
+        first_plain = first_spec = None
+        for drafter in order:
+            source = first_plain["tokens"] if first_plain else None
+            if drafter == "perfect" and sp.greedy and first_spec is not None:
+                source = first_spec["tokens"]
+            run = spec_run(torch, kernels, name, client, executors, ids, sp, drafter, source)
+            if drafter is None:
+                first_plain = first_plain or run
+            else:
+                first_spec = first_spec or run
+                spec_gates(f"{what} {kind}", name, run, first_plain, source, cfg,
+                           stage0_layers, float32_hops, sp.greedy, hold)
+            runs.append(run)
+        summary = {}
+        for drafter in (None, *SPEC_DRAFTERS):
+            mine = [r for r in runs if r["drafter"] == drafter]
+            if mine:
+                summary[drafter or "plain"] = {
+                    "ms_per_token": [r["ms_per_token"] for r in mine],
+                    "tokens_per_round": [r["tokens_per_round"] for r in mine],
+                    "rounds": [r["rounds"] for r in mine],
+                    "ttft_ms": [r["ttft_ms"] for r in mine],
+                    f"{name}_launches_by_route": mine[0][f"{name}_launches_by_route"],
+                    "sample_draw_launches": mine[0]["sample_draw_launches"]}
+        out[kind] = {"runs": runs, "summary": summary}
+        log(f"{what} {kind}: " + "; ".join(
+            f"{d} {statistics.median(v['ms_per_token']):.2f} ms/token, "
+            f"{statistics.median(v['tokens_per_round']):.2f} tokens a round"
+            for d, v in summary.items()))
+    return out
+
+
+def spec_view(abba: dict) -> dict:
+    return {kind: v["summary"] for kind, v in abba.items()}
+
+
+class VerifyTap:
+    """Wraps an executor's captured sampler: each verification's logits
+    copied to the host, its request and its answer, to hold the card's
+    verification to the plain one afterwards."""
+
+    def __init__(self, sampler):
+        self.sampler, self.calls = sampler, []
+        self._verify = sampler.verify
+
+        def verify(logits, requests):
+            out = self._verify(logits, requests)
+            self.calls.append((logits.float().cpu(), list(requests), out))
+            return out
+
+        sampler.verify = verify
+
+    def close(self):
+        del self.sampler.verify
+
+
+def hold_verifications(torch, calls, what: str) -> dict:
+    """Every recorded verification of the card against the plain
+    ``speculative_verify`` on the host copy of its logits, with the same
+    key, window and knobs: tokens and n_accepted equal. A difference must
+    be a near-tie the plain loop shows at its first differing position: a
+    uniform within SPEC_TIE of p(d), or a correction whose two best
+    perturbed scores lie within SPEC_TIE of each other. A greedy row (a
+    batched round's other slots) must equal the argmax's verification."""
+    from importlib import import_module
+
+    samp = import_module(PORT + ".ops.sampling")
+    tf3 = import_module(PORT + ".ops.threefry")
+    executor_mod = import_module(PORT + ".runtime.executor")
+    equal, ties, rows = 0, [], []
+    for logits, requests, out in calls:
+        for b, (window, sp, seed, drafts) in enumerate(requests):
+            got = (list(out[b][0]), out[b][1])
+            if sp.greedy:
+                # A batched round's other slots: greedy against the raw argmax.
+                want = executor_mod.greedy_verify(torch.argmax(logits[b], -1).tolist(), drafts)
+                if got != (list(want[0]), want[1]):
+                    raise AssertionError(f"{what}: greedy row {b} verified {got}, the "
+                                         f"argmax gives {want}")
+                continue
+            w = [int(t) for t in window][-samp.RECENT_WINDOW:]
+            recent = torch.zeros(samp.RECENT_WINDOW, dtype=torch.int32)
+            recent[:len(w)] = torch.tensor(w, dtype=torch.int32)
+            want = samp.speculative_verify(
+                tf3.prng_key(seed), logits[b], list(drafts), recent, len(w),
+                sp.temperature, sp.top_p, sp.top_k, sp.repetition_penalty)
+            rows.append(logits.shape[1])
+            if got == (want[0], want[1]):
+                equal += 1
+                continue
+            tie = spec_tie(torch, samp, tf3, logits[b], list(drafts), recent, len(w), sp,
+                           seed, min(got[1], want[1]))
+            log(f"{what}: verification differs: card {got}, plain {want}; near-tie {tie}")
+            if not tie["tie"]:
+                raise AssertionError(f"{what}: the card's verification {got} differs from "
+                                     f"the plain one's {want} at a decisive position")
+            ties.append(tie)
+    log(f"{what}: {equal} of {len(rows)} verifications equal the plain version's on the "
+        f"host copy of their logits ({len(ties)} near-ties), rows a draw {sorted(set(rows))}")
+    return {"verifications": len(rows), "equal": equal, "near_ties": ties,
+            "rows_a_draw": sorted(set(rows))}
+
+
+def spec_tie(torch, samp, tf3, logits, drafts, recent, nvalid, sp, seed, i) -> dict:
+    """The plain loop's position i: |uniform - p(d_i)| and the gap between
+    the two best perturbed scores of its correction (or bonus) draw."""
+    rng = tf3.prng_key(seed)
+    rt, nv = recent, torch.tensor(nvalid, dtype=torch.int32)
+    for j in range(i):
+        rng, _, _ = tf3.split(rng, 3)
+        rt, nv = samp.push_recent(rt, nv, drafts[j])
+    probs = samp.sample_probs(logits[i], rt, nv, sp.temperature, sp.top_p, sp.top_k,
+                              sp.repetition_penalty)
+    if i < len(drafts):
+        rng, key_u, key_r = tf3.split(rng, 3)
+        u = float(tf3.uniform(key_u, ()))
+        p = float(probs[drafts[i]])
+        rows = probs.clone()
+        rows[drafts[i]] = 0.0
+        rows = rows / rows.sum().clamp(min=1e-20) if rows.sum() > 0 else probs
+    else:
+        _, key_r = tf3.split(rng, 2)
+        u = p = None
+        rows = probs
+    logp = torch.log(torch.clamp(rows, min=1e-20))
+    top2 = torch.topk(tf3.gumbel(key_r, logp.shape) + logp, 2).values
+    gap = float(top2[0] - top2[1])
+    accept_gap = None if u is None else abs(u - p)
+    tie = (accept_gap is not None and accept_gap <= SPEC_TIE) or gap <= SPEC_TIE
+    return {"position": i, "uniform": u, "p_draft": p, "accept_gap": accept_gap,
+            "draw_gap": gap, "tie": tie}
+
+
+def spec_tcp_stages(torch, tmain, local, wire: str, kernels=None):
+    """`local`'s stages 1-3 behind TcpStageServers as ``--mode serve``
+    builds them (a StageRuntime each, no act_dtype: the float32 the wire
+    decodes to), each warmed up with speculative_k = SPEC_K, a registry
+    service and a TcpTransport client at `wire` with `local`'s stage 0.
+    Returns (client, servers, registry server, the executors' saved
+    act_dtypes)."""
+    from importlib import import_module
+
+    net = import_module(PORT + ".runtime.net")
+    task_pool = import_module(PORT + ".runtime.task_pool")
+    client_mod = import_module(PORT + ".runtime.client")
+    registry_srv = net.RegistryServer()
+    registry_srv.start()
+    servers, saved = [], {}
+    for peer in local.transport.peers():
+        ex = local.transport.executor(peer)
+        saved[peer] = ex.act_dtype
+        ex.act_dtype = None
+        ex.warmup(speculative_k=SPEC_K)
+        srv = net.TcpStageServer(ex, task_pool.StageRuntime(), wire_dtype=wire, model=MODEL)
+        srv.start()
+        servers.append(srv)
+        rec = client_mod.make_server_record(peer, ex.spec, model=MODEL)
+        rec.address = srv.address
+        registry_srv.registry.register(rec)
+    registry = net.RemoteRegistry(registry_srv.address)
+    transport = net.TcpTransport(registry, wire_dtype=wire, model=MODEL)
+    client = client_mod.PipelineClient(local.cfg, local.plan, local.stage0, transport,
+                                       registry, seed=0, model=MODEL)
+    return client, servers, registry_srv, saved
+
+
+def spec_tcp_close(local, client, servers, registry_srv, saved) -> None:
+    client.transport.close()
+    for srv in servers:
+        srv.stop()
+    registry_srv.stop()
+    for peer, dtype in saved.items():
+        local.transport.executor(peer).act_dtype = dtype
+
+
+def spec_draw_time(torch, bw: float) -> dict:
+    """sample_draw at B = K + 1 rows of V = 128256 (a verify round's one
+    draw), L2 as the verification leaves it, against its bound and the
+    plain version; the tokens equal the plain version's."""
+    from importlib import import_module
+
+    dk = import_module(PORT + ".ops.draw_kernel")
+    tf3 = import_module(PORT + ".ops.threefry")
+    rows, vocab = SPEC_K + 1, 128256
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    logp = torch.log_softmax(torch.randn((rows, vocab), generator=gen, device="cuda") * 4.0,
+                             dim=-1)
+    keys = tf3.split(torch.tensor(tf3.prng_key(9), device="cuda"), rows)
+    got, want = dk.sample_draw(keys, logp), dk.sample_draw_reference(keys, logp)
+    if not torch.equal(got, want):
+        raise AssertionError(f"sample_draw B={rows}: {got.tolist()} != {want.tolist()}")
+    bound_ms, bound_by = draw_bound(rows, vocab, bw)
+    return {"B": rows, "V": vocab, "tokens_equal_plain": True,
+            "ms": cuda_ms(lambda: dk.sample_draw(keys, logp), torch, reps=200, spin=True),
+            "plain_ms": cuda_ms(lambda: dk.sample_draw_reference(keys, logp), torch, spin=True),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def speculative_path(torch, kernels, tmain, state, bw: float, smi: str) -> dict:
+    """Step 12c: speculative decoding on the int8 path (K = SPEC_K, 32 new
+    tokens, drafters: the plain run's tokens, garbage, n-gram), every
+    executor warmed up with speculative_k first. In process, then over
+    in-process TCP at wire f32: a greedy and a sampled request, each plain,
+    then every drafter and back, then plain (`spec_abba`: every run's
+    launch, capture and token gates, `spec_gates`); each sampled
+    verification of a second pass held to the plain verification on a host
+    copy of its logits (`hold_verifications`). A push chain in process and
+    over TCP gives the per-hop run's tokens; a stage-2 peer killed after a
+    round's 3rd step fails over to a replica, which is replayed rows that
+    end where the retried round starts, with the fault-free tokens; the
+    batched engines (stages 1-3 as ``serve --batched --speculative_k``
+    builds them) serve SPEC_BATCH_SESSIONS speculative sessions at once,
+    held to the session engines' speculative tokens, rounds by width
+    printed. Device ms of the verify graph's replay and of sample_draw at
+    K + 1 rows. Returns the summary (with the batched run's tokens for the
+    CLI drive)."""
+    from importlib import import_module
+
+    client_mod = import_module(PORT + ".runtime.client")
+    executor_mod = import_module(PORT + ".runtime.executor")
+    registry_mod = import_module(PORT + ".scheduling.registry")
+    t_phase = time.monotonic()
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    executors = path_executors(local)
+    stage0_layers = local.plan.stages[0].num_layers
+    requests = {"greedy": (state["prompt_ids"][0], state["requests"][0][1]),
+                "sampled": (state["prompt_ids"][2], state["requests"][2][1])}
+
+    def hold(got, want, what):
+        hold_to_reference(torch, cfg, state["ref_params"], requests["greedy"][0], got, want,
+                          what)
+
+    view = {"k": SPEC_K, "new_tokens": MAX_NEW_TOKENS, "card": smi}
+    t0 = time.monotonic()
+    for ex in executors:
+        ex.warmup(speculative_k=SPEC_K)
+    torch.cuda.synchronize()
+    view["warmup_s"] = time.monotonic() - t0
+    # (a) In process.
+    abba = spec_abba(torch, kernels, "int8_dot", local, executors, requests, "spec in process",
+                     cfg, stage0_layers, False, hold)
+    view["in_process"] = spec_view(abba)
+    last = executors[-1]
+    tap = VerifyTap(last.sampler)
+    try:
+        # The drafters that draft every round: on random weights the
+        # n-gram lookup finds no match (its verification: the CPU tests).
+        checks = [spec_run(torch, kernels, "int8_dot", local, executors,
+                           *requests["sampled"], d,
+                           abba["sampled"]["runs"][0]["tokens"]) for d in ("garbage", "perfect")]
+    finally:
+        tap.close()
+    view["in_process_sampled_check"] = hold_verifications(torch, tap.calls,
+                                                          "spec in process sampled")
+    verify_rounds = sum(r["rounds_with_drafts"] for r in checks)
+    if len(tap.calls) != verify_rounds or any(r["captures"] for r in checks):
+        raise AssertionError(f"spec: {len(tap.calls)} verifications through the captured "
+                             f"sampler for {verify_rounds} rounds with drafts")
+    key = next(k for k in last.sampler._graphs if k[0] == "verify" and k[2] == SPEC_K + 1)
+    entry = last.sampler._graphs[key]
+    view["verify_graph_ms"] = cuda_ms(entry.graph.graph.replay, torch, reps=50, spin=True)
+    step_keys = {k[1]: e for k, e in last.graphs.entries()
+                 if k[1] in (1, 8) and k[4] == torch.bfloat16}
+    view["final_stage_step_ms"] = {f"T={t}": cuda_ms(e.graph.graph.replay, torch, reps=50,
+                                                     spin=True)
+                                   for t, e in sorted(step_keys.items())}
+    view["sample_draw_verify"] = spec_draw_time(torch, bw)
+    log(f"spec: verify graph {view['verify_graph_ms']:.4f} device ms (K + 1 = "
+        f"{SPEC_K + 1} rows), final stage's step {view['final_stage_step_ms']}; sample_draw "
+        f"{view['sample_draw_verify']}")
+    # Push chain over LocalTransport: the per-hop run's tokens.
+    greedy_runs = abba["greedy"]["runs"]
+    perfect = next(r for r in greedy_runs if r["drafter"] == "perfect")
+    garbage = next(r for r in greedy_runs if r["drafter"] == "garbage")
+    local.use_push_chain = True
+    try:
+        chained = spec_run(torch, kernels, "int8_dot", local, executors, *requests["greedy"],
+                           "perfect", garbage["tokens"])
+    finally:
+        local.use_push_chain = False
+        local._routes.clear()
+    if chained["tokens"] != perfect["tokens"]:
+        raise AssertionError(f"spec chain in process: {chained['tokens']} != "
+                             f"{perfect['tokens']}")
+    view["chain_in_process"] = {"tokens_equal_per_hop": True, "rounds": chained["rounds"],
+                                "ms_per_token": chained["ms_per_token"]}
+    # (b) Over TCP at wire f32.
+    t0 = time.monotonic()
+    client, servers, registry_srv, saved = spec_tcp_stages(torch, tmain, local, "f32")
+    try:
+        abba_tcp = spec_abba(torch, kernels, "int8_dot", client, executors, requests,
+                             "spec tcp f32", cfg, stage0_layers, True, hold)
+        view["tcp"] = spec_view(abba_tcp)
+        tap = VerifyTap(last.sampler)
+        try:
+            check = spec_run(torch, kernels, "int8_dot", client, executors,
+                             *requests["sampled"], "perfect",
+                             abba_tcp["sampled"]["runs"][0]["tokens"])
+        finally:
+            tap.close()
+        view["tcp_sampled_check"] = hold_verifications(torch, tap.calls, "spec tcp sampled")
+        if len(tap.calls) != check["rounds_with_drafts"]:
+            raise AssertionError("spec tcp: a round verified outside the captured sampler")
+        tcp_runs = abba_tcp["greedy"]["runs"]
+        tcp_perfect = next(r for r in tcp_runs if r["drafter"] == "perfect")
+        chain = client_mod.PipelineClient(cfg, local.plan, local.stage0, client.transport,
+                                          client.registry, seed=0, model=MODEL,
+                                          use_push_chain=True)
+        chained = spec_run(torch, kernels, "int8_dot", chain, executors,
+                           *requests["greedy"], "perfect",
+                           next(r for r in tcp_runs if r["drafter"] == "garbage")["tokens"])
+        if chained["tokens"] != tcp_perfect["tokens"]:
+            raise AssertionError(f"spec chain tcp: {chained['tokens']} != "
+                                 f"{tcp_perfect['tokens']}")
+        view["chain_tcp"] = {"tokens_equal_per_hop": True, "rounds": chained["rounds"],
+                             "ms_per_token": chained["ms_per_token"]}
+    finally:
+        spec_tcp_close(local, client, servers, registry_srv, saved)
+    view["tcp_seconds"] = time.monotonic() - t0
+    # (c) Batched: stages 1-3 on batched engines, SPEC_BATCH_SESSIONS
+    # speculative sessions at once, held to the session engines': greedy
+    # with n-gram drafts (the CLI drive's reference), then garbage drafts (a
+    # verify round every step), one session sampled.
+    t0 = time.monotonic()
+    tok = tmain.load_tokenizer()
+    greedy, sampled = state["requests"][0][1], state["requests"][2][1]
+    batch_ids = [[i % cfg.vocab_size for i in tok.encode(p)]
+                 for p in BATCH_PROMPTS[:SPEC_BATCH_SESSIONS]]
+    kinds = {"ngram": [greedy] * len(batch_ids),
+             "garbage": [sampled if i == 2 else greedy for i in range(len(batch_ids))]}
+
+    def drafters(name):
+        return [None if name == "ngram" else
+                spec_drafter(name, [], len(ids), cfg.vocab_size, []) for ids in batch_ids]
+
+    remote = [local.transport.executor(p) for p in local.transport.peers()]
+    saved = [ex.act_dtype for ex in remote]
+    for ex in remote:
+        ex.act_dtype = torch.float32
+    try:
+        session = {name: [local.generate(ids, MAX_NEW_TOKENS, sampling=sp,
+                                         speculative_k=SPEC_K, draft_fn=fn)
+                          for ids, sp, fn in zip(batch_ids, sps, drafters(name))]
+                   for name, sps in kinds.items()}
+    finally:
+        for ex, dtype in zip(remote, saved):
+            ex.act_dtype = dtype
+    adapters, _ = batched_engines(torch, tmain, state, speculative_k=SPEC_K)
+    stage0s = stage0_executors(torch, tmain, state, SPEC_BATCH_SESSIONS)
+    for ex in stage0s:
+        ex.warmup(speculative_k=SPEC_K)
+    transport = float32_hops()
+    registry = registry_mod.PlacementRegistry()
+    for a in adapters:
+        transport.add_peer(a.peer_id, a)
+        registry.register(client_mod.make_server_record(a.peer_id, a.spec, model=MODEL,
+                                                        engine="batched"))
+    widths = {}
+    decode_batch = adapters[-1].inner.decode_batch
+
+    def counted(inputs):
+        t = int(next(iter(inputs.values())).shape[1])
+        widths[t] = widths.get(t, 0) + 1
+        return decode_batch(inputs)
+
+    adapters[-1].inner.decode_batch = counted
+    view["batched"] = {"sessions": len(batch_ids)}
+    for name, sps in kinds.items():
+        jobs = [(client_mod.PipelineClient(cfg, local.plan, ex, transport, registry, seed=0,
+                                           model=MODEL), ids, sp)
+                for ex, ids, sp in zip(stage0s, batch_ids, sps)]
+        batched_counts(kernels, adapters, stage0s)
+        widths.clear()
+        tap = VerifyTap(adapters[-1].inner.sampler)
+        try:
+            results, wall = run_clients(jobs, speculative_k=SPEC_K, draft_fns=drafters(name))
+        finally:
+            tap.close()
+        torch.cuda.synchronize()
+        captures = (sum(a.inner.graphs.captures + a.inner.sampler.captures for a in adapters)
+                    + sum(ex.graphs.captures + ex.sampler.captures for ex in stage0s))
+        for i, (r, want, sp) in enumerate(zip(results, session[name], sps)):
+            if sp.greedy:
+                hold_to_reference(torch, cfg, state["ref_params"], batch_ids[i], r.tokens,
+                                  want.tokens, f"spec batched {name} session {i} against "
+                                  "the session engines' speculative run")
+        checked = hold_verifications(torch, tap.calls, f"spec batched {name}")
+        if captures:
+            raise AssertionError(f"spec batched {name}: {captures} captures after warm-up")
+        if any(not sp.greedy for sp in sps) and not tap.calls:
+            raise AssertionError(f"spec batched {name}: no round verified a sampled session")
+        view["batched"][name] = {
+            "wall_s": wall, "captures_after_warmup": captures,
+            "rounds_by_width": {str(t): n for t, n in sorted(widths.items())},
+            "tokens": sum(len(r.tokens) for r in results),
+            "aggregate_tokens_per_s": sum(len(r.tokens) for r in results) / wall,
+            "int8_dot_launches_by_route": kernel_routes(kernels["int8_dot"]),
+            "sample_draw_launches": kernels["sample_draw"]._launches,
+            "sampled_check": checked}
+        log(f"spec batched {name}: {len(jobs)} sessions, rounds of the last stage by width "
+            f"{view['batched'][name]['rounds_by_width']}, "
+            f"{view['batched'][name]['aggregate_tokens_per_s']:.1f} tokens/s, greedy tokens "
+            "held to the session engines'")
+        if name == "ngram":
+            view["batched_results"] = results
+    view["batched"]["seconds"] = time.monotonic() - t0
+    # (d) Failover in process: garbage drafts (a round a token), the pinned
+    # stage-2 peer killed after its 3rd round, a replica of stage 2 replayed.
+    spec2 = local.plan.stages[2]
+    replica_id = "spec-stage2-replica"
+    replica = executor_mod.StageExecutor(
+        cfg, spec2, tmain._stage_params(args, cfg, state["params"], spec2), peer_id=replica_id,
+        device=torch.device(args.device), act_dtype=torch.bfloat16)
+    local.transport.add_peer(replica_id, replica)
+    local.registry.register(client_mod.make_server_record(replica_id, spec2, model=MODEL))
+    seen, replays = {"pinned": None, "rounds": 0, "retried": None}, []
+
+    def tap_calls(peer_id, req):
+        if req.start_block != spec2.start:
+            return
+        if req.is_replay:
+            replays.append((req.cur_len, req.seq_len))
+            return
+        if seen["pinned"] is None:
+            seen["pinned"] = peer_id
+        elif peer_id == seen["pinned"] and not req.is_prefill:
+            seen["rounds"] += 1
+            if seen["rounds"] == KILL_AFTER_DECODES:
+                local.transport.kill(peer_id)
+        elif peer_id != seen["pinned"] and seen["retried"] is None:
+            seen["retried"] = req.cur_len
+
+    local.transport.on_call = tap_calls
+    before = local.recoveries
+    try:
+        got = local.generate(requests["greedy"][0], MAX_NEW_TOKENS,
+                             sampling=requests["greedy"][1], speculative_k=SPEC_K,
+                             draft_fn=spec_drafter("garbage", greedy_runs[0]["tokens"],
+                                                   len(requests["greedy"][0]),
+                                                   cfg.vocab_size, []))
+    finally:
+        local.transport.on_call = None
+    pos = 0
+    for cur, n in replays:
+        if cur != pos:
+            raise AssertionError(f"spec failover: replay chunks {replays} not contiguous")
+        pos += n
+    recoveries = local.recoveries - before
+    if (recoveries < 1 or got.tokens != garbage["tokens"] or seen["retried"] is None
+            or pos != seen["retried"]):
+        raise AssertionError(f"spec failover: {recoveries} recoveries, replayed {replays} "
+                             f"for a retried round at {seen['retried']}; tokens {got.tokens} "
+                             f"want {garbage['tokens']}")
+    view["failover"] = {"killed": seen["pinned"], "replica": replica_id,
+                        "recoveries": recoveries, "replayed_rows": pos,
+                        "replay_chunks": replays, "retried_round_at": seen["retried"],
+                        "tokens_equal_fault_free": True,
+                        "recovery_step_ms": 1e3 * max(got.decode_times_s)}
+    log(f"spec failover: {seen['pinned']} killed after {KILL_AFTER_DECODES} rounds, replica "
+        f"replayed {pos} rows in {len(replays)} chunks ending where the retried round "
+        f"starts, tokens equal the fault-free run's")
+    view["seconds"] = time.monotonic() - t_phase
+    log(f"speculative path: {view['seconds']:.1f}s")
+    return view
+
+
+def speculative_nf4(torch, kernels, tmain, state, smi: str) -> dict:
+    """Step 12c's NF4 part: the NF4 path's stages 1-3 over in-process TCP
+    at wire bf16 (``--wire_dtype``'s default), the greedy request plain,
+    with garbage drafts, with perfect drafts (the garbage run's tokens)
+    twice, with garbage drafts, plain: the speculative tokens equal the
+    plain run's (or differ first at a near-tie), perfect drafts take
+    ceil((n - 1) / (K + 1)) rounds, nf4_dot's launches by route exact
+    (stages 1-3's verify steps on "f32mma" at M = 8)."""
+    local, cfg = state["client"], state["cfg"]
+    executors = path_executors(local)
+    requests = {"greedy": (state["prompt_ids"][0], state["requests"][0][1])}
+
+    def hold(got, want, what):
+        hold_to_reference(torch, cfg, state["ref_params"], requests["greedy"][0], got, want,
+                          what)
+
+    t0 = time.monotonic()
+    local.stage0.warmup(speculative_k=SPEC_K)
+    client, servers, registry_srv, saved = spec_tcp_stages(torch, tmain, local, "bf16")
+    try:
+        abba = spec_abba(torch, kernels, "nf4_dot", client, executors, requests,
+                         "spec nf4 tcp bf16", cfg, local.plan.stages[0].num_layers, True, hold,
+                         order=(None, "garbage", "perfect", "perfect", "garbage", None))
+    finally:
+        spec_tcp_close(local, client, servers, registry_srv, saved)
+    return {**spec_view(abba), "wire_dtype": "bf16", "seconds": time.monotonic() - t0,
+            "card": smi}
+
+
 def oracle_logits(torch, cfg, params, ids, cache_dtype=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
     logits after `ids` (one prefill)."""
@@ -6028,6 +6698,11 @@ def main(argv) -> int:
     log(json.dumps({"control_plane_path": control}))
     gc.collect()
     torch.cuda.empty_cache()
+    spec = speculative_path(torch, kernel_mods, tmain, state, bw, smi)
+    spec_results = spec.pop("batched_results")
+    log(json.dumps({"speculative_path": spec}))
+    gc.collect()
+    torch.cuda.empty_cache()
     # What the CLI drives compare with; the weights go.
     int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
@@ -6038,6 +6713,8 @@ def main(argv) -> int:
     nf4_summary["capture"] = capture_phase(torch, state["client"], "nf4")
     tcp["nf4"] = tcp_drive(torch, kernel_mods, "nf4_dot", tmain, state, smi,
                            failover=False, wire="bf16")
+    spec["nf4_tcp_bf16"] = speculative_nf4(torch, kernel_mods, tmain, state, smi)
+    log(json.dumps({"speculative_nf4": spec["nf4_tcp_bf16"]}))
     tele = telemetry_phase(torch, tmain, nk, state, smi)
     nf4_summary["failover"] = tele.pop("failover")
     log(json.dumps({"nf4_path": nf4_summary, "card": smi}))
@@ -6060,9 +6737,15 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     greedy = sampling_cls(temperature=0.0)
+    # Step 11 and 11e: the batched servers warm the draft widths up; a
+    # third client decodes speculatively among the two plain ones.
+    t0 = time.monotonic()
     batched["cli"] = cli_drive(torch, tok, [(PROMPTS[0], batched_results[0], greedy),
-                                            (PROMPTS[1], batched_results[1], greedy)],
-                               smi, serve_argv=("--batched",))
+                                            (PROMPTS[1], batched_results[1], greedy),
+                                            (PROMPTS[0], spec_results[0], greedy)],
+                               smi, serve_argv=("--batched", "--speculative_k", str(SPEC_K)),
+                               client_extra={2: ("--speculative_k", str(SPEC_K))})
+    spec["cli"] = {"in": "batched_cli_path", "client": 2, "seconds": time.monotonic() - t0}
     log(json.dumps({"batched_cli_path": batched["cli"]}))
     gc.collect()
     torch.cuda.empty_cache()
@@ -6105,6 +6788,9 @@ def main(argv) -> int:
     log(json.dumps({"control_cli_path": control["cli"]}))
     log(f"control-plane phases: {control['seconds']:.1f}s in process, "
         f"{control['cli']['seconds']:.1f}s as processes")
+    log(f"speculative phases: {spec['seconds']:.1f}s in process (int8), "
+        f"{spec['nf4_tcp_bf16']['seconds']:.1f}s NF4, the CLI client in the batched CLI "
+        f"drive ({spec['cli']['seconds']:.1f}s with its two plain clients)")
 
     kernels = [kernel_entry("int8_dot", int8_rows, int8_summary, prefill_m, int8_decode,
                             int8_batch, batched["in_process"], tcp["int8"], burst["engine"]),
@@ -6141,6 +6827,24 @@ def main(argv) -> int:
         for name, run in control_runs.items()}
     kernels[2]["control_plane_path"] = {name: run["sample_draw_launches"]
                                         for name, run in control_runs.items()}
+    # The speculative path's runs by drafter (each counted alone), by route;
+    # sample_draw's on the sampled ones (one a round of K + 1 rows).
+    spec_kinds = (("int8_dot", 0, ("in_process", "tcp")), ("nf4_dot", 1, ()))
+    for kname, i, wheres in spec_kinds:
+        views = ({w: spec[w] for w in wheres} if wheres
+                 else {"tcp_bf16": {k: v for k, v in spec["nf4_tcp_bf16"].items()
+                                    if k == "greedy"}})
+        kernels[i]["speculative_path"] = {
+            where: {kind: {d: v[f"{kname}_launches_by_route"] for d, v in runs.items()}
+                    for kind, runs in view.items()} for where, view in views.items()}
+    kernels[0]["speculative_path"]["batched"] = {
+        name: spec["batched"][name]["int8_dot_launches_by_route"] for name in ("ngram", "garbage")}
+    kernels[2]["speculative_path"] = {
+        where: {d: v["sample_draw_launches"] for d, v in spec[where]["sampled"].items()}
+        for where in ("in_process", "tcp")}
+    kernels[2]["speculative_path"]["batched_garbage"] = spec["batched"]["garbage"][
+        "sample_draw_launches"]
+    kernels[2]["speculative_path"]["verify_draw"] = spec["sample_draw_verify"]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

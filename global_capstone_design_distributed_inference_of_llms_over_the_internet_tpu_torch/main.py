@@ -69,7 +69,12 @@ Port of the JAX package's ``main.py`` for these modes:
     the health summary; exit 1 with no live server, 2 when the swarm is
     unhealthy or a server does not answer. No weights load.
   ``--deadline_s`` gives ``client``, ``local`` and ``submit`` requests an
-  end-to-end budget.
+  end-to-end budget. ``--speculative_k K`` (``client`` and ``local``; the
+  oracle warns and ignores it) drafts up to K tokens a round by n-gram
+  prompt lookup and has the final stage verify them: greedy tokens equal
+  the plain run's. ``serve`` with ``--speculative_k`` captures the K + 1
+  draft widths (batched) and the final stage's verification in its
+  warm-up.
   ``serve`` and ``client`` hold only their stage's weights (every layer is
   still drawn, so the weights equal the full init's; an elastic ``serve``
   draws each span it takes the same way), print their peak
@@ -124,6 +129,8 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
     python -m ...main --mode serve --stage 1 --batched --slots 8 ...
     python -m ...main --mode serve --stage 0 --batched --burst 8 ...
     python -m ...main --mode client --burst 8 ...
+    python -m ...main --mode local --speculative_k 4 --temperature 0 ...
+    python -m ...main --mode serve --stage 3 --batched --speculative_k 4 ...
     python -m ...main --mode client --registry_addr 127.0.0.1:31330 \\
         --model llama-3.1-8b --quant int8 --dtype bfloat16 --prompt "Hi"
     python -m ...main --mode gateway --registry_addr 127.0.0.1:31330 \\
@@ -698,10 +705,11 @@ def run_serve(args) -> int:
     ex = server.executor
     _build_native(args, device)
     if args.batched:
-        # The N-tick burst too, so that no capture happens in a round.
-        ex.warmup(burst=args.burst)
+        # The K + 1 draft widths and the N-tick burst too, so that no
+        # capture happens in a round.
+        ex.warmup(speculative_k=args.speculative_k, burst=args.burst)
     else:
-        ex.warmup()
+        ex.warmup(speculative_k=args.speculative_k)
     # One compute thread owns the device; the handler threads own sockets.
     # Not for the batched engine: concurrent handler calls are how its
     # round window coalesces, and its own lock guards the device.
@@ -1172,7 +1180,7 @@ def _generate_and_report(args, generate_fn, cfg: ModelConfig,
                               top_k=args.top_k,
                               repetition_penalty=args.repetition_penalty)
     kw = {}
-    for flag in ("deadline_s", "burst"):
+    for flag in ("deadline_s", "burst", "speculative_k"):
         if getattr(args, flag):
             if pipeline_client:
                 kw[flag] = getattr(args, flag)
@@ -1318,6 +1326,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "a full-span batched peer's device (client and local "
                         "modes; serve --stage 0 --batched captures the N-tick "
                         "burst in its warm-up). 0 = per-step decode")
+    p.add_argument("--speculative_k", type=int, default=0,
+                   help="speculative decoding: draft up to K tokens per "
+                        "round trip (n-gram prompt lookup), verified by the "
+                        "final stage (greedy: token-identical; temperature>0: "
+                        "distribution-preserving rejection sampling)")
     p.add_argument("--prefix_cache_mb", type=int, default=0,
                    help="enable the content-addressed prompt-prefix KV "
                         "store with this byte budget (MiB) on every stage "

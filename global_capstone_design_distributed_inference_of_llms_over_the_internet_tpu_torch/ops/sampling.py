@@ -26,17 +26,37 @@ the reference jits ``sample_token`` once). Python numbers are accepted
 wherever a knob goes and become 0-d tensors by fills, never by copies
 from host memory. Logits may carry a leading batch axis ``[B, V]``: the
 rows share the window and the knobs and draw each with its own key.
+
+Speculative verification (the reference's ``speculative_verify``,
+``ops/sampling.py:152-217``), in two versions of one function:
+
+  * `speculative_verify`, the plain version, line for line the
+    reference's host loop: for each draft ``rng, key_u, key_r =
+    split(rng, 3)``; accept the draft if ``uniform(key_u) < p_i(d_i)``
+    (the window grows by each accepted draft), else draw the correction
+    from the residual (p_i with d_i zeroed, renormalized; p_i itself when
+    nothing is left) and stop; with every draft accepted, draw the bonus
+    from p_K with ``split(rng)[1]``.
+  * `speculative_verify_rows`, the device form: the key chain and every
+    position's window are known before any draw (position i is reached
+    only if d_1..d_i were accepted; `verify_schedule` lists them from host
+    ints), so all K + 1 target rows, the K uniforms, the residual rows and
+    the bonus row are computed at once and every correction and bonus is
+    drawn by one `sample_draw` over the rows, each with its own key; the
+    first rejected position then picks the run. It reads nothing back, so
+    a graph can hold it (``runtime/graphs.py``); a greedy row (temperature
+    <= 0) verifies against the unpenalized argmax instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
 from .draw_kernel import sample_draw
-from .threefry import Key
+from .threefry import Key, categorical, prng_key, split, uniform
 
 RECENT_WINDOW = 50  # reference: generated_tokens[-50:]
 
@@ -183,3 +203,161 @@ def sample_token(key: Key, logits: torch.Tensor, recent_tokens: torch.Tensor,
     sampled = sample_draw(key, torch.log(torch.clamp(probs, min=1e-20)))
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(knobs[0] <= 0.0, greedy, sampled).to(torch.int32)
+
+
+def _penalize_rows(logits: torch.Tensor, recent: torch.Tensor, num_valid: torch.Tensor,
+                   rp: torch.Tensor) -> torch.Tensor:
+    """`apply_repetition_penalty` row by row: logits [R, V], each row under
+    its own window ``recent[r]`` of ``num_valid[r]`` tokens and its own
+    penalty ``rp[r]`` ([R, 1]); the same elementwise arithmetic, so a row
+    equals the one-row call."""
+    dev = logits.device
+    window = recent.shape[1]
+    nv = num_valid.long()[:, None]
+    valid = torch.arange(window, device=dev)[None, :] < nv
+    safe = torch.where(valid, recent.long(), 0)
+    counts = torch.zeros_like(logits).scatter_add_(1, safe, valid.float())
+    penalty = rp ** counts
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    logits = torch.where(counts > 0, penalized, logits)
+    newest = torch.clamp(nv - torch.arange(1, 4, device=dev)[None, :], 0, window - 1)
+    t = recent.gather(1, newest).long()
+    is_triple = (nv >= 3) & (t[:, :1] == t[:, 1:2]) & (t[:, 1:2] == t[:, 2:3])
+    idx = t[:, :1]
+    cur = logits.gather(1, idx)
+    strong = rp ** 3
+    hit = torch.where(cur > 0, cur / strong, cur * strong)
+    return logits.scatter(1, idx, torch.where(is_triple, hit, cur))
+
+
+def sample_probs_rows(logits: torch.Tensor, recent: torch.Tensor, num_valid: torch.Tensor,
+                      temperature: torch.Tensor, top_p: torch.Tensor, top_k: torch.Tensor,
+                      repetition_penalty: torch.Tensor) -> torch.Tensor:
+    """`sample_probs` of logits [R, V], row r under its own window
+    ``recent[r]`` (int [R, W]) of ``num_valid[r]`` tokens and its own knobs
+    (each a tensor [R]): the one-row call's arithmetic, row by row."""
+    logits = logits.float()
+    vocab = logits.shape[-1]
+    temperature, top_p, rp = (x.float()[:, None] for x in
+                              (temperature, top_p, repetition_penalty))
+    top_k = top_k.long()[:, None]
+    apply_rp = (rp != 1.0) & (num_valid[:, None] > 0)
+    logits = torch.where(apply_rp, _penalize_rows(logits, recent, num_valid, rp), logits)
+    probs = torch.softmax(logits / torch.clamp(temperature, min=1e-5), dim=-1)
+    sorted_desc = torch.sort(probs, dim=-1, descending=True).values
+    kth = sorted_desc.gather(-1, torch.clamp(top_k - 1, 0, vocab - 1))
+    probs = torch.where((top_k > 0) & (top_k < vocab) & (probs < kth), 0.0, probs)
+    probs = _top_p_filter(probs, top_p)
+    return probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-20)
+
+
+def speculative_verify(rng: Key, logits: torch.Tensor, drafts, recent_tokens: torch.Tensor,
+                       num_valid: int, temperature: float, top_p: float, top_k: int,
+                       repetition_penalty: float):
+    """Rejection-sampling verification of K drafted tokens under sampling,
+    the plain version (the reference's host loop). logits: [K + 1, V]
+    float32, row i computed after consuming [last accepted, d_1..d_i];
+    drafts: K ints. Returns (tokens, n_accepted), ``len(tokens) ==
+    n_accepted + 1``: the accepted run, then one correction or bonus.
+
+    A deterministic draft is a point mass, so the accept rule min(1, p/q)
+    becomes: accept d_i with probability p_i(d_i); on a reject draw the
+    correction from the residual (p_i - q)+, p_i with d_i zeroed. Position
+    i's target is taken against the window with the accepted prefix in it,
+    what a plain decode would have used."""
+    k = len(drafts)
+    tokens = []
+    dev = logits.device
+    rt = recent_tokens.to(device=dev, dtype=torch.int32)
+    nv = _scalar(num_valid, torch.int32, dev)
+    knobs = sampling_scalars(temperature, top_p, top_k, repetition_penalty, dev)
+    for i in range(k):
+        rng, key_u, key_r = split(rng, 3)
+        probs = sample_probs(logits[i], rt, nv, *knobs)
+        d = int(drafts[i])
+        if float(uniform(key_u, (), device=dev)) < float(probs[d]):
+            tokens.append(d)
+            rt, nv = push_recent(rt, nv, d)
+            continue
+        # Reject: the correction from the residual. p(d) == 1 leaves it
+        # empty: fall back to p itself (measure-zero for real logits).
+        residual = probs.clone()
+        residual[d] = 0.0
+        z = residual.sum()
+        residual = torch.where(z > 0, residual / torch.clamp(z, min=1e-20), probs)
+        tokens.append(int(categorical(key_r, torch.log(torch.clamp(residual, min=1e-20)))))
+        return tokens, i
+    # Every draft accepted: the bonus token from the last position's target.
+    rng, key_b = split(rng, 2)
+    probs = sample_probs(logits[k], rt, nv, *knobs)
+    tokens.append(int(categorical(key_b, torch.log(torch.clamp(probs, min=1e-20)))))
+    return tokens, k
+
+
+def verify_schedule(window: Sequence[int], drafts: Sequence[int], step_seed: int):
+    """What the host loop of `speculative_verify` needs at each position,
+    known before any draw, from host ints: position i's window (the last
+    RECENT_WINDOW tokens of `window` with d_1..d_i pushed), its uniform's
+    key (i < K) and its draw's key (the correction's, and at i = K the
+    bonus's), the chain of ``PRNGKey(step_seed)``. Returns (windows,
+    key_u, key_r)."""
+    base = [int(t) for t in window][-RECENT_WINDOW:]
+    windows = [(base + [int(d) for d in drafts[:i]])[-RECENT_WINDOW:]
+               for i in range(len(drafts) + 1)]
+    rng = prng_key(step_seed)
+    key_u, key_r = [], []
+    for _ in drafts:
+        rng, ku, kr = split(rng, 3)
+        key_u.append(ku)
+        key_r.append(kr)
+    key_r.append(split(rng, 2)[1])
+    return windows, key_u, key_r
+
+
+def speculative_verify_rows(logits: torch.Tensor, drafts: torch.Tensor, windows: torch.Tensor,
+                            counts: torch.Tensor, key_u: torch.Tensor, key_r: torch.Tensor,
+                            temperature: torch.Tensor, top_p: torch.Tensor,
+                            top_k: torch.Tensor, repetition_penalty: torch.Tensor
+                            ) -> torch.Tensor:
+    """The device form of `speculative_verify` for B requests at once, over
+    `verify_schedule`'s windows and keys. logits [B, T, V] (T = K + 1),
+    drafts int [B, K], windows int [B, T, W] of counts [B, T] tokens,
+    key_u int64 [B, K, 2], key_r int64 [B, T, 2], knobs [B]. Every
+    position's target (all B x T rows at once), the K uniforms, the
+    residuals and the bonus rows, then one `sample_draw` over the B x T
+    rows, each with its own key; the first rejected position picks the
+    run. Returns int64 [B, T + 1]: the T tokens, entries past n_accepted +
+    1 set to 0, then n_accepted. A request with temperature <= 0 accepts
+    d_i while it equals the argmax of the raw logits of position i, and
+    ends on that argmax. Device work only."""
+    b_count, t, vocab = logits.shape
+    k = t - 1
+    dev = logits.device
+    logits = logits.float()
+    drafts = drafts.long()
+    knobs = [x.repeat_interleave(t) for x in (temperature, top_p, top_k, repetition_penalty)]
+    probs = sample_probs_rows(logits.reshape(b_count * t, vocab),
+                              windows.reshape(b_count * t, -1), counts.reshape(-1),
+                              *knobs).reshape(b_count, t, vocab)
+    argmax = torch.argmax(logits, dim=-1)
+    greedy = (temperature <= 0.0)[:, None]
+    if k:
+        d = drafts[..., None]
+        u = uniform(key_u.reshape(b_count * k, 2), (), device=dev).reshape(b_count, k)
+        accept = torch.where(greedy, drafts == argmax[:, :k],
+                             u < probs[:, :k].gather(2, d)[..., 0])
+        residual = probs[:, :k].scatter(2, d, 0.0)
+        z = residual.sum(-1, keepdim=True)
+        residual = torch.where(z > 0, residual / torch.clamp(z, min=1e-20), probs[:, :k])
+        probs = torch.cat([residual, probs[:, k:]], dim=1)
+    else:
+        accept = torch.zeros((b_count, 0), dtype=torch.bool, device=dev)
+    logp = torch.log(torch.clamp(probs, min=1e-20)).reshape(b_count * t, vocab)
+    drawn = sample_draw(key_r.reshape(b_count * t, 2), logp).long().reshape(b_count, t)
+    n_acc = torch.cumprod(accept.long(), dim=1).sum(1)
+    last = torch.where(greedy, argmax, drawn)
+    pos = torch.arange(t, device=dev)[None, :]
+    run = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    tokens = torch.where(pos < n_acc[:, None], run,
+                         torch.where(pos == n_acc[:, None], last, 0))
+    return torch.cat([tokens, n_acc[:, None]], dim=1)

@@ -10,6 +10,8 @@ implementation (``threefry2x32``, ``jax_threefry_partitionable=True``,
     (``jax/_src/prng.py`` ``threefry_seed``, the seed taken as 32 bits);
   * ``fold_in(key, data)``: ``threefry_2x32(key, (0, data))``
     (``prng.py:1163`` ``threefry_fold_in``);
+  * ``split(key, n)``: key i is the hash of the counter (0, i), the two
+    output words kept (``prng.py:1156`` ``_threefry_split_foldlike``);
   * ``random_bits(key, shape)``: the hash of a 64-bit iota split into
     (high, low) words, the two output words xor-ed
     (``prng.py:1184`` ``_threefry_random_bits_partitionable``);
@@ -90,6 +92,17 @@ def fold_in(key: Key, data: Union[int, torch.Tensor]) -> Key:
     return torch.stack(threefry2x32(k1, k2, 0, data & MASK), dim=-1)
 
 
+def split(key: Key, n: int = 2):
+    """``jax.random.split(key, n)``: a list of n pairs of ints for a pair
+    of ints; int64 keys ``[..., n, 2]`` for a tensor key ``[..., 2]`` (on
+    its device, nothing read back), key i ``threefry2x32(key, (0, i))``."""
+    if not isinstance(key, torch.Tensor):
+        return [threefry2x32(key[0], key[1], 0, i) for i in range(n)]
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[..., 0, None], key[..., 1, None], 0, idx)
+    return torch.stack([b1, b2], dim=-1)
+
+
 def key_tensor(key: Key, device) -> torch.Tensor:
     """`key` as int64 keys ``[..., 2]`` on `device`. A pair of ints is
     written with two fills (no copy from host memory, so it can be
@@ -115,7 +128,7 @@ def random_bits(key: Key, shape: Sequence[int], device="cpu") -> torch.Tensor:
         batch, (k1, k2) = (), key
     idx = torch.arange(n, dtype=torch.int64, device=device)
     b1, b2 = threefry2x32(k1, k2, idx >> 32, idx & MASK)
-    return (b1 ^ b2).reshape(*batch, *shape)
+    return (b1 ^ b2).reshape((*batch, *shape))
 
 
 def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,

@@ -42,17 +42,26 @@ step captured once a prefill bucket that attends over the slot's rows
 ``[0, p + T)`` with the reused length ``p`` a device value (`_tail_step`).
 Its digest coordinates carry the batch dim and the model tag.
 
-Not ported yet, and refused by the adapter with a retryable
-`StageExecutionError`: speculative rows and session rewind (ROADMAP
-Queue 1 #3). A push chain's ``next_servers`` is relayed above the engine
+Speculative rounds (the reference's ``batching.py:1466-1489``): a draft
+step of T = K + 1 rows joins the round of its width, whose step runs the
+T rows of every slot; a session that carries ``start_from_position``
+first rewinds its slot to it (`rewind`, the previous round's rejected
+overhang). On the last stage the round's leader verifies every draft
+session of the round (`verify_round`, the session executor's
+``verify_drafts_from_logits`` rules: greedy against the argmax, sampled
+through the captured sampler's verify form over every slot, one
+`sample_draw` for all their rows) and rewinds each slot past its rejected
+tail. A push chain's ``next_servers`` is relayed above the engine
 (``runtime/net.py``), so a batched server relays as a session one does.
 
 Deliberate divergences from the reference:
   * The last stage's head runs once a round, inside the captured decode
-    step, over row T-1 of every slot (``round_logits``), where the
-    reference's adapter runs ``logits(hidden_row)`` once per session after
-    the round (``batching.py:1228-1236``). The head's float32 copy of its
-    weight is then made once a round, not once a session.
+    step, over row T-1 of every slot (``round_logits``) at width 1 and
+    over every row of every slot (``round_rows``) at a wider width, where
+    the reference's adapter runs ``logits(hidden_row)`` once per session
+    after the round (``batching.py:1228-1236``) and one stacked head call
+    over the round's draft sessions (``:1480``). The head's float32 copy
+    of its weight is then made once a round, not once a session.
   * The round's leader samples every row of the round before it releases
     the followers (`sample_round`: the argmax when every row is greedy,
     else one captured sampler over the rows, each with its own request's
@@ -66,12 +75,15 @@ Deliberate divergences from the reference:
     last stage, the burst of ``burst`` ticks on a full-span engine, and
     with a store the tail step at every bucket), where the reference
     compiles the smallest bucket only (``:1130-1169``): a capture at first
-    use would happen while other threads run device work. With no
-    ``rewind`` yet, the burst warms a fresh warm-up session.
+    use would happen while other threads run device work. With
+    ``speculative_k`` it also captures the widths 2..K+1 and on the last
+    stage their verify graphs; each width and the burst rewind the warm-up
+    session to its 4-token prompt, as the reference's do.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -102,7 +114,7 @@ from ..telemetry import events as _ev
 from ..telemetry.profiling import get_profiler as _get_profiler
 from .client import REPEAT_STOP
 from .errors import register as _catalog
-from .executor import StageExecutionError, _sample_rows
+from .executor import StageExecutionError, _sample_rows, greedy_verify
 from .graphs import (
     _FLOATS,
     _NVALID,
@@ -223,9 +235,11 @@ class BatchedStageExecutor:
         self.graphs = SlotSteps(self.device)
         # The last stage's samplers: a prefill's row, and a round's rows.
         self.sampler = Sampler(self.device)
-        # The last decode round's head output [S, V] (last stage only): the
-        # step's static output, read before the next round.
+        # The last decode round's head output (last stage only), the step's
+        # static output, read before the next round: row T-1 of every slot
+        # [S, V], and every row [S, T, V].
         self.round_logits: Optional[torch.Tensor] = None
+        self.round_rows: Optional[torch.Tensor] = None
         # Burst decode (full-span engines only).
         self.burst_dispatches = 0          # bursts run
         self.burst_tokens = 0              # tokens the bursts emitted
@@ -262,6 +276,18 @@ class BatchedStageExecutor:
         if s is not None:
             self.lengths[s] = 0
             self._free.append(s)
+
+    def rewind(self, session_id: str, pos: int) -> None:
+        """Shrink a session's valid KV prefix to `pos` (the
+        ``start_from_position`` rewind, the speculative rollback). The host
+        length alone: rows past `pos` are never attended (the decode mask
+        allows positions <= length) and are overwritten as it advances."""
+        s = self._slot_of.get(session_id)
+        if s is None:
+            raise KeyError(f"unknown session {session_id}")
+        if not 0 <= pos <= int(self.lengths[s]):
+            raise ValueError(f"rewind to {pos} outside [0, {int(self.lengths[s])}]")
+        self.lengths[s] = pos
 
     def _recover_slot(self, session_id: str, s: int) -> None:
         """A failed prefill never established its session: recycle the
@@ -480,7 +506,9 @@ class BatchedStageExecutor:
         """One batched step of T tokens per slot. x: ids [S, T] or hidden
         [S, T, D]; scalars: the slots' lengths then their active flags.
         Returns the hidden rows [S, T, D] (inactive slots zeroed), and on
-        the last stage also the head's logits [S, V] of row T-1."""
+        the last stage also the head's logits: [S, V] of row T-1 at T = 1,
+        [S, T, V] of every row at T > 1 (a speculative round verifies all
+        of them)."""
         s_count = x.shape[0]
         return self._decode_rows(x, scalars[:s_count], scalars[s_count:].bool())
 
@@ -515,15 +543,17 @@ class BatchedStageExecutor:
         # Inactive slots computed garbage: zero them.
         h = torch.where(active[:, None, None], h, torch.zeros_like(h))
         if spec.is_last:
-            return h, lm_head(cfg, self.params, h[:, t - 1:])[:, 0]
+            logits = lm_head(cfg, self.params, h)
+            return h, (logits if t > 1 else logits[:, 0])
         return h
 
     def decode_batch(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One batched step. inputs: {session_id: ids [1, T] or hidden
         [1, T, D]}, one width T for every session of the call. Returns
         {session_id: hidden [1, T, D]}; on the last stage `round_logits`
-        holds the head's logits of row T-1 of every slot. Sessions not in
-        `inputs` are untouched (masked)."""
+        holds the head's logits of row T-1 of every slot and `round_rows`
+        those of every row. Sessions not in `inputs` are untouched
+        (masked)."""
         if not inputs:
             return {}
         sids = list(inputs)
@@ -557,7 +587,9 @@ class BatchedStageExecutor:
         out = self.graphs.run(("decode", t), self._decode_step, x,
                               [int(n) for n in self.lengths] + active.tolist())
         if self.spec.is_last:
-            out, self.round_logits = out
+            out, logits = out
+            self.round_rows = logits if logits.ndim == 3 else logits[:, None]
+            self.round_logits = self.round_rows[:, -1]
         for s in rows:
             self.lengths[s] += t
         self.decode_steps += 1
@@ -579,6 +611,34 @@ class BatchedStageExecutor:
                 per_row[s] = (req.generated_tokens, req.sampling, req.step_seed)
             tokens = self.sampler.rows(self.round_logits, per_row)
         return {sid: int(tokens[s]) for sid, s in rows.items()}
+
+    def verify_round(self, requests: Dict[str, StageRequest]) -> Dict[str, tuple]:
+        """The last round's draft sessions verified (last stage), each as
+        the session executor verifies (``verify_drafts_from_logits``) over
+        its slot's rows of `round_rows`, its slot then rewound to
+        ``cur_len + n_accepted + 1``. Every request greedy: the argmax of
+        their rows, one read. Else one replay of the captured sampler's
+        verify form over every slot (the other slots' rows greedy against
+        zero drafts), one read. Returns {session_id: (tokens,
+        n_accepted)}."""
+        rows = {sid: self._slot_of[sid] for sid in requests}
+        if all(req.sampling.greedy for req in requests.values()):
+            preds = torch.argmax(self.round_rows, dim=-1).tolist()
+            out = {sid: greedy_verify(preds[s], requests[sid].draft_tokens)
+                   for sid, s in rows.items()}
+        else:
+            k = self.round_rows.shape[1] - 1
+            idle = ((), SamplingParams(temperature=0.0), 0, (0,) * k)
+            per_row = [idle] * self.slots
+            for sid, s in rows.items():
+                req = requests[sid]
+                per_row[s] = (req.generated_tokens, req.sampling, req.step_seed,
+                              req.draft_tokens)
+            verified = self.sampler.verify(self.round_rows, per_row)
+            out = {sid: verified[s] for sid, s in rows.items()}
+        for sid, (_, n_acc) in out.items():
+            self.rewind(sid, requests[sid].cur_len + n_acc + 1)
+        return out
 
     # ------------------------------------------------------------------
     # Burst decode: N ticks a replay, sampling on the device
@@ -812,13 +872,14 @@ class _Round:
     single batched step. Rounds are keyed by step width T (seq_len), or by
     ("burst", N), so a round's sessions always share one captured step."""
 
-    __slots__ = ("reqs", "outs", "tokens", "err", "bad", "lengths", "event",
+    __slots__ = ("reqs", "outs", "tokens", "spec", "err", "bad", "lengths", "event",
                  "closed", "t_exec")
 
     def __init__(self):
         self.reqs: Dict[str, StageRequest] = {}
         self.outs: Dict[str, Any] = {}          # hidden rows, or burst results
         self.tokens: Dict[str, int] = {}            # last stage: sampled
+        self.spec: Dict[str, tuple] = {}            # last stage: (tokens, n_accepted)
         self.lengths: Dict[str, int] = {}
         self.err: Optional[Exception] = None      # whole-round failure
         self.bad: Dict[str, str] = {}             # per-session exclusions
@@ -847,24 +908,17 @@ class _SlotArenaView:
         return self._last
 
 
-def _unported_reason(req: StageRequest) -> Optional[str]:
-    """Why this port's adapter refuses a request the reference's serves,
-    or None."""
-    if req.draft_tokens is not None:
-        return "speculative verify is not ported"
-    return None
-
-
 class BatchingStageAdapter:
     """Drop-in StageExecutor replacement for transports: plain prefill and
-    decode (and a failed-over session's replay) ride the batched engine,
-    concurrent decode calls coalesced — the FIRST arrival leads its width's
-    round, waits ``window_s`` for followers, runs ONE `decode_batch` (and
-    on the last stage samples every row), and every waiter picks up its own
-    row. On a full-span engine burst requests coalesce the same way into
-    rounds keyed ``("burst", N)``, each one `decode_burst`. Other request
-    kinds are refused with a retryable stage error, so clients route them
-    to a per-session replica."""
+    decode, speculative draft steps (and a failed-over session's replay)
+    ride the batched engine, concurrent decode calls coalesced — the FIRST
+    arrival leads its width's round, waits ``window_s`` for followers, runs
+    ONE `decode_batch` (and on the last stage samples every row and
+    verifies every draft session), and every waiter picks up its own row.
+    On a full-span engine burst requests coalesce the same way into rounds
+    keyed ``("burst", N)``, each one `decode_burst`. Other request kinds
+    are refused with a retryable stage error, so clients route them to a
+    per-session replica."""
 
     engine = "batched"   # registry capability tag (ServerRecord.engine)
 
@@ -886,14 +940,16 @@ class BatchingStageAdapter:
         self._m_round = _tm.get("server_decode_round_seconds")
         self.arena = _SlotArenaView(inner, self._lock)
 
-    def warmup(self, burst: int = 0) -> None:
+    def warmup(self, speculative_k: int = 0, burst: int = 0) -> None:
         """Capture the steps serving runs before it serves: a prefill at
         every bucket up to ``max_len`` (with a store, the tail step of a
         prefix hit at every bucket too) and the decode step of width 1, on
-        the last stage the prefill's and the round's samplers, and with
-        ``burst > 0`` on a full-span engine the burst of that many ticks
-        (over a fresh warm-up session: the port has no rewind yet), under
-        the adapter's lock."""
+        the last stage the prefill's and the round's samplers; with
+        ``speculative_k`` the decode steps of widths 2..K+1 (a drafter may
+        propose fewer than K tokens) and on the last stage their verify
+        graphs; with ``burst > 0`` on a full-span engine the burst of that
+        many ticks. Each width and the burst run on the warm-up session
+        rewound to its 4-token prompt. Under the adapter's lock."""
         first = self.spec.is_first
         d = self.cfg.hidden_size
         inner = self.inner
@@ -909,16 +965,22 @@ class BatchingStageAdapter:
             if inner.prefix_store is not None:
                 for tb in buckets:
                     inner._run_tail(inner.slot("__warmup__"), inner._padded(x[:, :tb], tb), 0)
-            # The reference's warm-up session: 4 tokens, then one step.
+            # The reference's warm-up session: 4 tokens, then one step of
+            # each width.
             h = inner.prefill("__warmup__", x[:, :4])
-            step = (torch.zeros((1, 1), dtype=torch.int64) if first
-                    else torch.zeros((1, 1, d), dtype=torch.float32))
-            inner.decode_batch({"__warmup__": step})
-            if self.spec.is_last:
-                _sample_rows(inner.logits(h[:, -1:]), 1, sampled, inner.sampler)
-                inner.sample_round({"__warmup__": sampled})
+            for t in range(1, speculative_k + 2):
+                step = (torch.zeros((1, t), dtype=torch.int64) if first
+                        else torch.zeros((1, t, d), dtype=torch.float32))
+                inner.rewind("__warmup__", 4)
+                inner.decode_batch({"__warmup__": step})
+                if self.spec.is_last and t == 1:
+                    _sample_rows(inner.logits(h[:, -1:]), 1, sampled, inner.sampler)
+                    inner.sample_round({"__warmup__": sampled})
+                elif self.spec.is_last:
+                    inner.verify_round({"__warmup__": dataclasses.replace(
+                        sampled, seq_len=t, cur_len=4, draft_tokens=(0,) * (t - 1))})
             if burst > 0 and self.spec.is_first and self.spec.is_last:
-                inner.prefill("__warmup__", x[:, :4])
+                inner.rewind("__warmup__", 4)
                 inner.decode_burst(
                     {"__warmup__": {"token": 1, "seed": 0, "budget": burst, "eos": None,
                                     "generated": (1,), "temperature": 0.0, "top_p": 1.0,
@@ -935,20 +997,15 @@ class BatchingStageAdapter:
             _ev.emit("task_rejected", session_id=req.session_id,
                      pool="batched", reason="unsupported request kind")
             raise StageExecutionError(
-                "batched peer serves plain prefill/decode and replay only "
-                "(route beam/training/deep-prompt requests to a per-session "
-                "replica)")
+                "batched peer serves plain prefill/decode, speculative "
+                "verify, and replay only (route beam/training/deep-prompt "
+                "requests to a per-session replica)")
         if req.start_block is not None and (
                 req.start_block != self.spec.start
                 or (req.end_block or self.spec.end) != self.spec.end):
             _ev.emit("task_rejected", session_id=req.session_id,
                      pool="batched", reason="sub-span request")
             raise StageExecutionError("batched peer serves its full span only")
-        reason = _unported_reason(req)
-        if reason is not None:
-            _ev.emit("task_rejected", session_id=req.session_id,
-                     pool="batched", reason=reason)
-            raise StageExecutionError(f"batched peer: {reason}")
         if req.is_prefill:
             return self._prefill(req)
         if req.burst_len:
@@ -958,11 +1015,16 @@ class BatchingStageAdapter:
                 raise StageExecutionError(
                     "burst decode requires a full-span peer (on-device "
                     "sampling feeds tokens back into the embedding)")
-            if req.seq_len != 1:
+            if req.seq_len != 1 or req.draft_tokens is not None:
                 raise StageExecutionError(
                     "a burst step carries exactly the one last accepted token")
             return self._decode_burst(req)
-        if req.seq_len != 1 and not req.is_replay:
+        if req.draft_tokens is not None:
+            if req.seq_len != len(req.draft_tokens) + 1:
+                raise StageExecutionError(
+                    f"speculative step carries {req.seq_len} positions for "
+                    f"{len(req.draft_tokens)} drafts (want K+1)")
+        elif req.seq_len != 1 and not req.is_replay:
             # Replay chunks are plain multi-token KV rebuilds (the client
             # discards the sampled token): decode_batch's T > 1 shape.
             raise StageExecutionError(
@@ -1009,6 +1071,16 @@ class BatchingStageAdapter:
             return (f"session {req.session_id}: decode without a slot "
                     "(prefill first; replay-rebuild is per-session only)")
         cur = int(self.inner.lengths[s])
+        spos = req.start_from_position
+        if spos is not None and spos != cur:
+            # Speculative rollback: the previous round's rejected overhang
+            # is still in the slot; shrink the valid prefix before this
+            # round appends (forward() pinned spos == cur_len).
+            if spos > cur:
+                return (f"session {req.session_id}: rewind to {spos} beyond "
+                        f"cache {cur}")
+            self.inner.rewind(req.session_id, spos)
+            cur = spos
         if cur + req.seq_len > self.inner.max_len:
             return (f"session {req.session_id}: {req.seq_len} tokens past "
                     f"{cur} exceeds max_len {self.inner.max_len}")
@@ -1016,9 +1088,7 @@ class BatchingStageAdapter:
             # The batched path REFUSES a mismatch (the session executor
             # warns and trusts itself): the main cause is a retry after a
             # follower timeout whose step did advance, and the refusal is
-            # retryable, so the client fails over and replays. (The
-            # reference's rewind for a speculative rollback waits for
-            # ROADMAP Queue 1 #3.)
+            # retryable, so the client fails over and replays.
             return (f"session {req.session_id}: cur_len {req.cur_len} != "
                     f"server {cur} (stale retry?)")
         return None
@@ -1041,11 +1111,20 @@ class BatchingStageAdapter:
         def run(r: _Round, good: Dict[str, StageRequest]) -> None:
             r.outs = self.inner.decode_batch({s_id: rq.hidden for s_id, rq in good.items()})
             if self.spec.is_last:
-                r.tokens = self.inner.sample_round(good)
+                drafts = {s_id: rq for s_id, rq in good.items() if rq.draft_tokens is not None}
+                plain = {s_id: rq for s_id, rq in good.items() if s_id not in drafts}
+                if drafts:
+                    r.spec = self.inner.verify_round(drafts)
+                if plain:
+                    r.tokens = self.inner.sample_round(plain)
 
         r = self._coalesce(req.seq_len, req, self._validate, run)
-        return self._respond(req, r.outs[req.session_id], r.lengths[req.session_id],
-                             token=r.tokens.get(req.session_id))
+        sid = req.session_id
+        if sid in r.spec:
+            tokens, n_acc = r.spec[sid]
+            return StageResponse(session_id=sid, tokens=tokens, n_accepted=n_acc,
+                                 cache_len=r.lengths[sid])
+        return self._respond(req, r.outs[sid], r.lengths[sid], token=r.tokens.get(sid))
 
     def _decode_burst(self, req: StageRequest) -> StageResponse:
         """Burst requests coalesce into one `decode_burst` a round, keyed

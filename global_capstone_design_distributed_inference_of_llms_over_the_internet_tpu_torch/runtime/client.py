@@ -76,7 +76,21 @@ the reference's "exotic" kind, around the batched engines where another
 peer serves the stage. Unlike the reference's chain, a prefill carries
 ``prefix_len`` along the chain, as the per-hop walk does.
 
-Beam and speculative decoding and deep prompts are not ported yet.
+Speculative decoding (``generate(..., speculative_k=K)``, the reference's
+``client.py:1480-1560``): each decode round drafts up to K tokens
+(``draft_fn(context, k)``, by default the n-gram prompt lookup of
+``runtime/speculative.py``) and sends [last token, drafts] as one step of
+K + 1 rows through every stage; the final stage verifies them and answers
+with the accepted run and one correction or bonus token. Every speculative
+step, stage 0's included, carries ``start_from_position = cur_len``, which
+drops the previous round's rejected overhang; ``cur_len`` advances by the
+tokens accepted, and the EOS and repeat stops are checked token by token
+inside the run. Speculative sessions route as their own kind ("spec"): to
+batched peers where a stage has one, as plain sessions do. After each
+round the hop journals (or the chain journal) drop the step's rejected
+rows (`_amend_speculative_journal`).
+
+Beam decoding and deep prompts are not ported yet.
 
 Deliberate difference: journal entries keep the activation tensor on its
 device (tensors are never modified after they are sent), where the
@@ -125,10 +139,12 @@ BURST_HOP_KEY = "burst"
 SESSION_ONLY_ENGINES = ("batched", "sp")
 # Prompt tokens the affinity digest covers: one prefix-store grain.
 AFFINITY_TOKENS = 64
-# The route cache's kind field: plain sessions, and push-chain sessions,
-# whose retries and replays the single-session engines refuse ("exotic",
-# as in the reference).
+# The route cache's kind field: plain sessions; speculative sessions, which
+# batched peers serve too (their draft steps verify in multi-token rounds);
+# and push-chain sessions, whose retries and replays the single-session
+# engines refuse ("exotic", as in the reference).
 PLAIN = "plain"
+SPEC = "spec"
 EXOTIC = "exotic"
 
 
@@ -136,14 +152,17 @@ def _engine_usable(rec, kind: str = PLAIN, full_span: bool = True,
                    min_context: Optional[int] = None) -> bool:
     """Can a session of `kind` (needing `min_context` tokens) call `rec`'s
     engine for a hop that covers its full span iff `full_span`? A batched
-    or sp engine serves its full span and plain sessions only, and refuses
-    a prefill past the context it advertises."""
+    or sp engine serves its full span and plain sessions only (speculative
+    ones the batched engine alone), and refuses a prefill past the context
+    it advertises."""
     if rec.engine not in SESSION_ONLY_ENGINES:
         return True
     if kind == EXOTIC or not full_span:
         return False
-    return (min_context is None or rec.max_context is None
-            or rec.max_context >= min_context)
+    if (min_context is not None and rec.max_context is not None
+            and rec.max_context < min_context):
+        return False
+    return kind != SPEC or rec.engine == "batched"
 
 
 def _soft_filter(items, pred):
@@ -394,8 +413,9 @@ class PipelineClient:
     def _compute_route(self, kind: str = PLAIN, min_context: Optional[int] = None,
                        affinity: Optional[str] = None) -> List[Hop]:
         """Fixed stage-chain route: one discovered peer per remote stage, a
-        batched peer where the stage has one for a plain session, any other
-        engine where the stage has one for an exotic (push-chain) session;
+        batched peer where the stage has one for a plain or speculative
+        session (not an sp peer for a speculative one), any other engine
+        where the stage has one for an exotic (push-chain) session;
         with `affinity`, the replica its rendezvous hash picks. Under module
         routing, the block-coverage route instead."""
         if self.use_module_routing:
@@ -405,8 +425,10 @@ class PipelineClient:
             key = f"stage{spec.index}"
             peer = self.registry.discover_stage(
                 spec.index, exclude=tuple(self.failed_peers.get(key, ())),
-                model=self.model, prefer_engine="batched" if kind == PLAIN else None,
-                avoid_engine=SESSION_ONLY_ENGINES if kind == EXOTIC else None,
+                model=self.model,
+                prefer_engine="batched" if kind in (PLAIN, SPEC) else None,
+                avoid_engine=(SESSION_ONLY_ENGINES if kind == EXOTIC
+                              else ("sp",) if kind == SPEC else None),
                 min_context=min_context, affinity=affinity)
             if peer is None:
                 raise NoRouteError(f"no live server for {key}")
@@ -454,6 +476,11 @@ class PipelineClient:
         records = self.registry.live_servers(model=self.model)
         if kind == EXOTIC:
             records = _soft_filter(records, lambda r: r.engine not in SESSION_ONLY_ENGINES)
+        elif kind == SPEC:
+            # Batched peers verify drafts; sp peers refuse them.
+            records = _soft_filter(records, lambda r: r.engine != "sp" and (
+                min_context is None or r.max_context is None
+                or r.max_context >= min_context))
         elif min_context is not None:
             # An sp peer advertising less context than the session needs
             # would refuse its prefill.
@@ -508,7 +535,7 @@ class PipelineClient:
             if not cands:
                 raise NoRouteError(f"no live server covers block {covered}")
             best = max(cands, key=lambda c: (c.end_block,
-                                             kind == PLAIN and c.engine == "batched",
+                                             kind in (PLAIN, SPEC) and c.engine == "batched",
                                              c.throughput))
             if best.end_block <= covered:       # loop guard
                 raise NoRouteError(f"route stuck at block {covered}")
@@ -703,11 +730,15 @@ class PipelineClient:
               sampling: SamplingParams, generated: Sequence[int] = (),
               step_seed: int = 0, stage_times: Dict[str, float],
               root, prefix_len: int = 0, affinity: Optional[str] = None,
-              deadline_at: Optional[float] = None) -> StageResponse:
+              deadline_at: Optional[float] = None, kind: str = PLAIN,
+              draft_tokens: Optional[Tuple[int, ...]] = None,
+              start_from_position: Optional[int] = None) -> StageResponse:
         """Send the activation through every remote hop of the session's
-        route (keyed by its `max_length` and prompt-head `affinity`), each
-        call through the recovery wrapper; return the final hop's response
-        (a sampled token). A prefill carries `prefix_len` to every hop;
+        route (keyed by its `kind`, its `max_length` and prompt-head
+        `affinity`), each call through the recovery wrapper; return the
+        final hop's response (a sampled token, or with `draft_tokens` the
+        verified run). Every hop gets the drafts and `start_from_position`.
+        A prefill carries `prefix_len` to every hop;
         every hop the budget left of `deadline_at` as it is sent (earlier
         hops' time already spent) and the session's priority. `root` is
         the step's root span, opened by the generation loop so that stage 0
@@ -717,11 +748,13 @@ class PipelineClient:
                 hidden, seq_len, cur_len, session_id, is_prefill=is_prefill,
                 max_length=max_length, sampling=sampling, generated=generated,
                 step_seed=step_seed, stage_times=stage_times, root=root,
-                prefix_len=prefix_len, deadline_at=deadline_at)
+                prefix_len=prefix_len, deadline_at=deadline_at, draft_tokens=draft_tokens,
+                start_from_position=start_from_position)
         phase = "prefill" if is_prefill else "decode"
         tracer = get_tracer()
         cur = hidden
-        for i, hop in enumerate(self.route(min_context=max_length, affinity=affinity)):
+        for i, hop in enumerate(self.route(kind=kind, min_context=max_length,
+                                           affinity=affinity)):
             budget = self._deadline_budget(deadline_at, session_id,
                                            trace_id=root.trace_id if root else None,
                                            peer=hop.peer_id)
@@ -730,7 +763,8 @@ class PipelineClient:
                 cur_len=cur_len, is_prefill=is_prefill, max_length=max_length,
                 sampling=sampling, generated_tokens=clip_generated(generated),
                 step_seed=step_seed, start_block=hop.start_block,
-                end_block=hop.end_block,
+                end_block=hop.end_block, draft_tokens=draft_tokens,
+                start_from_position=start_from_position,
                 prefix_len=prefix_len if is_prefill else 0,
                 trace=root.wire_context(hop=i) if root else None,
                 deadline_budget_s=budget,
@@ -754,7 +788,9 @@ class PipelineClient:
             self._journal_append(hop.key, session_id,
                                  JournalEntry(cur, seq_len, cur_len))
             if hop.expect_token:
-                if not resp.is_token:
+                if draft_tokens is not None and not resp.is_speculative:
+                    raise RuntimeError(f"final hop {hop.key} returned no verified tokens")
+                if draft_tokens is None and not resp.is_token:
                     raise RuntimeError(f"final hop {hop.key} returned no token")
                 return resp
             if resp.hidden is None:
@@ -775,7 +811,9 @@ class PipelineClient:
                        cur_len: int, session_id: str, *, is_prefill: bool,
                        is_replay: bool, max_length: int, sampling: SamplingParams,
                        generated: Sequence[int], step_seed: int, prefix_len: int = 0,
-                       deadline_at: Optional[float] = None) -> StageRequest:
+                       deadline_at: Optional[float] = None,
+                       draft_tokens: Optional[Tuple[int, ...]] = None,
+                       start_from_position: Optional[int] = None) -> StageRequest:
         """The request to the chain's first hop, naming the others in
         ``next_servers``; a relayed hop by its volunteer's address with
         ``relay_via`` (the pushing server dials the volunteer and stamps
@@ -798,6 +836,7 @@ class PipelineClient:
             sampling=sampling, generated_tokens=clip_generated(generated),
             step_seed=step_seed, start_block=hops[0].start_block,
             end_block=hops[0].end_block, next_servers=tuple(nxt),
+            draft_tokens=draft_tokens, start_from_position=start_from_position,
             prefix_len=prefix_len if is_prefill else 0,
             deadline_budget_s=self._deadline_budget(deadline_at, session_id,
                                                     peer=hops[0].peer_id),
@@ -841,7 +880,9 @@ class PipelineClient:
                     session_id: str, *, is_prefill: bool, max_length: int,
                     sampling: SamplingParams, generated: Sequence[int], step_seed: int,
                     stage_times: Dict[str, float], root, prefix_len: int = 0,
-                    deadline_at: Optional[float] = None) -> StageResponse:
+                    deadline_at: Optional[float] = None,
+                    draft_tokens: Optional[Tuple[int, ...]] = None,
+                    start_from_position: Optional[int] = None) -> StageResponse:
         """One step as a push chain: up to MAX_ATTEMPTS chains, each a
         single call to the route's first hop (its breaker gates the dial).
         A retryable failure blames a hop (`_blame_chain_failure`), feeds the
@@ -880,7 +921,8 @@ class PipelineClient:
                 hops, hidden, seq_len, cur_len, session_id, is_prefill=is_prefill,
                 is_replay=attempt > 0, max_length=max_length, sampling=sampling,
                 generated=generated, step_seed=step_seed, prefix_len=prefix_len,
-                deadline_at=deadline_at)
+                deadline_at=deadline_at, draft_tokens=draft_tokens,
+                start_from_position=start_from_position)
             req.trace = root.wire_context(hop=0) if root else None
             chain_span = tracer.start_span(
                 "hop:chain", trace_id=root.trace_id, parent_id=root.span_id,
@@ -930,7 +972,9 @@ class PipelineClient:
             self._m_stage_time.labels(hop=self.CHAIN_KEY, phase=phase).observe(dt)
             self._journal_append(self.CHAIN_KEY, session_id,
                                  JournalEntry(hidden, seq_len, cur_len))
-            if not resp.is_token:
+            if draft_tokens is not None and not resp.is_speculative:
+                raise RuntimeError("push chain returned no verified tokens")
+            if draft_tokens is None and not resp.is_token:
                 raise RuntimeError("push chain returned no token "
                                    "(the route must end at the final stage)")
             return resp
@@ -945,19 +989,22 @@ class PipelineClient:
                  eos_token_id: Optional[int] = None,
                  session_id: Optional[str] = None,
                  max_length: Optional[int] = None,
-                 speculative_k: int = 0, deep_prompts=None,
+                 speculative_k: int = 0, draft_fn=None, deep_prompts=None,
                  deadline_s: Optional[float] = None,
                  burst: int = 0) -> GenerationResult:
-        """One generation. ``deadline_s`` sets an end-to-end wall-clock
-        budget for the whole of it: each hop carries the seconds left,
-        servers refuse work that arrives spent, and a spent budget raises
-        `DeadlineExceeded` (not retryable) instead of burning failover
-        attempts."""
+        """One generation. ``speculative_k > 0`` drafts up to K tokens a
+        round (``draft_fn(context, k)``, by default the n-gram prompt
+        lookup) and has the final stage verify them: greedy tokens equal a
+        non-speculative run's, sampled ones keep its distribution.
+        ``deadline_s`` sets an end-to-end wall-clock budget for the whole
+        of it: each hop carries the seconds left, servers refuse work that
+        arrives spent, and a spent budget raises `DeadlineExceeded` (not
+        retryable) instead of burning failover attempts."""
         result: Optional[GenerationResult] = None
         for step in self.generate_stepwise(
                 prompt_ids, max_new_tokens, sampling=sampling,
                 eos_token_id=eos_token_id, session_id=session_id,
-                max_length=max_length, speculative_k=speculative_k,
+                max_length=max_length, speculative_k=speculative_k, draft_fn=draft_fn,
                 deep_prompts=deep_prompts, deadline_s=deadline_s, burst=burst):
             if step.done:
                 result = step.result
@@ -969,13 +1016,14 @@ class PipelineClient:
                           eos_token_id: Optional[int] = None,
                           session_id: Optional[str] = None,
                           max_length: Optional[int] = None,
-                          speculative_k: int = 0, deep_prompts=None,
+                          speculative_k: int = 0, draft_fn=None, deep_prompts=None,
                           deadline_s: Optional[float] = None,
                           deadline_at: Optional[float] = None,
                           priority: Optional[float] = None,
                           burst: int = 0) -> Iterator[GenerationStep]:
         """Incremental ``generate``: yields after the prefill and after every
-        decode step (with ``burst > 0``, after every burst), so a caller (the
+        decode step (with ``burst > 0``, after every burst; with
+        ``speculative_k``, after every round), so a caller (the
         serving gateway) can interleave many sessions a step at a time. The
         per-step sampling seed is ``self.seed + len(generated)``, purely
         session-local, so interleaving changes no session's tokens and a
@@ -985,17 +1033,16 @@ class PipelineClient:
         spends the budget. ``priority`` is the gateway's tenant priority
         (lower = more urgent), stamped on every request of the session.
         Session state (KV leases, journal, priority) is released when the
-        generator finishes or is closed. ``speculative_k`` and
-        ``deep_prompts`` are the reference's arguments: not ported, they
-        raise (``ValueError`` beside ``burst``, as the reference's)."""
+        generator finishes or is closed. ``deep_prompts`` is the
+        reference's argument: not ported, it raises (``ValueError`` beside
+        ``burst``, as the reference's, and so does ``speculative_k``)."""
         if burst > 0 and (speculative_k > 0 or deep_prompts is not None):
             raise ValueError(
                 "burst decode samples on-device and is incompatible with "
                 "speculative drafting / deep prompts")
-        if speculative_k > 0 or deep_prompts is not None:
+        if deep_prompts is not None:
             raise NotImplementedError(
-                "speculative decoding and deep prompts are not ported (ROADMAP "
-                "Queue 1 #3)")
+                "deep prompts are not ported (ROADMAP Queue 1 #3)")
         session_id = session_id or f"sess-{time.monotonic_ns():x}"
         if priority is not None:
             self._session_priority[session_id] = float(priority)
@@ -1006,7 +1053,8 @@ class PipelineClient:
         recoveries_before = self.recoveries
         tokens_out = 0
         generate_steps = self._generate_steps_burst if burst > 0 else self._generate_steps
-        kw = {"burst": burst} if burst > 0 else {}
+        kw = ({"burst": burst} if burst > 0
+              else {"speculative_k": speculative_k, "draft_fn": draft_fn})
         try:
             for step in generate_steps(
                     prompt_ids, max_new_tokens, sampling=sampling or SamplingParams(),
@@ -1024,10 +1072,16 @@ class PipelineClient:
     def _generate_steps(self, prompt_ids: Sequence[int], max_new_tokens: int, *,
                         sampling: SamplingParams, eos_token_id: Optional[int],
                         session_id: str, max_length: Optional[int],
-                        deadline_at: Optional[float] = None
-                        ) -> Iterator[GenerationStep]:
+                        deadline_at: Optional[float] = None, speculative_k: int = 0,
+                        draft_fn=None) -> Iterator[GenerationStep]:
+        """The per-step loop. A plain decode step is the speculative round
+        with no drafts: with ``speculative_k == 0`` no step drafts or
+        carries ``start_from_position``. The session kind is fixed at
+        entry, so a speculative session's prefill already lands on peers
+        that take its draft steps."""
         prompt_len = len(prompt_ids)
-        max_length = max_length or prompt_len + max_new_tokens
+        kind = SPEC if speculative_k > 0 else PLAIN
+        max_length = max_length or prompt_len + max_new_tokens + max(speculative_k, 0)
         affinity = prompt_affinity(prompt_ids)
         # Ids are made on the host: stage 0 copies them to its device
         # without a host sync (a device tensor made from a list would sync).
@@ -1054,7 +1108,7 @@ class PipelineClient:
                               sampling=sampling, generated=generated,
                               step_seed=self.seed, stage_times=times, root=root,
                               prefix_len=prompt_len, affinity=affinity,
-                              deadline_at=deadline_at)
+                              deadline_at=deadline_at, kind=kind)
         finally:
             root.end()
         ttft = time.monotonic() - t0
@@ -1065,6 +1119,9 @@ class PipelineClient:
 
         decode_times: List[float] = []
         cur_len = prompt_len
+        if draft_fn is None and speculative_k > 0:
+            from .speculative import ngram_draft as draft_fn
+        context = [int(t) for t in prompt_ids] + generated
         while len(generated) < max_new_tokens:
             if eos_token_id is not None and generated[-1] == eos_token_id:
                 stopped_by = "eos"
@@ -1074,36 +1131,84 @@ class PipelineClient:
                 stopped_by = "repeat"
                 break
             t0 = time.monotonic()
-            step_ids = torch.tensor([[generated[-1]]], dtype=torch.int64)
+            drafts = tuple(draft_fn(context, speculative_k)) if speculative_k > 0 else ()
+            # start_from_position rides every speculative step, stage 0's
+            # too: it drops the previous round's rejected overhang.
+            spos = cur_len if speculative_k > 0 else None
+            t_in = 1 + len(drafts)
+            step_ids = torch.tensor([[generated[-1], *drafts]], dtype=torch.int64)
             step_span = tracer.start_span(
                 "pipeline_step", kind="client", session_id=session_id,
                 phase="decode", step=len(generated))
             try:
                 s0_resp = self.stage0.forward(StageRequest(
-                    session_id=session_id, hidden=step_ids, seq_len=1,
+                    session_id=session_id, hidden=step_ids, seq_len=t_in,
                     cur_len=cur_len, is_prefill=False, max_length=max_length,
-                    sampling=sampling))
+                    sampling=sampling, start_from_position=spos))
                 times = {}
-                resp = self._walk(s0_resp.hidden, 1, cur_len, session_id,
+                resp = self._walk(s0_resp.hidden, t_in, cur_len, session_id,
                                   is_prefill=False, max_length=max_length,
                                   sampling=sampling, generated=generated,
                                   step_seed=self.seed + len(generated),
                                   stage_times=times, root=step_span,
-                                  affinity=affinity, deadline_at=deadline_at)
+                                  affinity=affinity, deadline_at=deadline_at, kind=kind,
+                                  draft_tokens=drafts or None, start_from_position=spos)
             finally:
                 step_span.end()
+            accepted = list(resp.tokens) if drafts else [resp.token_id]
+            if drafts:
+                # Replay must rebuild only valid KV rows.
+                self._amend_speculative_journal(session_id, cur_len + t_in, t_in,
+                                                len(accepted))
             dt = time.monotonic() - t0
             decode_times.append(dt)
             self._m_step.observe(dt)
-            self._m_tokens.inc(1)
-            cur_len += 1
-            generated.append(int(resp.token_id))
-            yield GenerationStep(new_tokens=[generated[-1]])
+            self._m_tokens.inc(len(accepted))
+            cur_len += len(accepted)    # the last token and the accepted drafts
+            # The stops are checked token by token inside the accepted run:
+            # a round may overshoot the EOS or the repeat point.
+            n_before = len(generated)
+            stop = None
+            for tok in accepted:
+                if len(generated) >= max_new_tokens:
+                    break
+                generated.append(int(tok))
+                context.append(int(tok))
+                if eos_token_id is not None and tok == eos_token_id:
+                    stop = "eos"
+                    break
+                if (len(generated) >= REPEAT_STOP
+                        and len(set(generated[-REPEAT_STOP:])) == 1):
+                    stop = "repeat"
+                    break
+            yield GenerationStep(new_tokens=generated[n_before:])
+            if stop is not None:
+                stopped_by = stop
+                break
 
         self._m_generations.inc()
         yield GenerationStep(new_tokens=[], done=True, result=GenerationResult(
             tokens=generated, ttft_s=ttft, decode_times_s=decode_times,
             stopped_by=stopped_by))
+
+    def _amend_speculative_journal(self, session_id: str, end: int, t_in: int,
+                                   keep: int) -> None:
+        """Drop the rejected rows of the round just journaled, which ends
+        at position `end`: the step's last ``t_in - keep`` rows (`keep` =
+        n_accepted + 1: the last token and the accepted drafts), from the
+        last entry of every journal of the session (each hop's, or the
+        chain's) that ends there. The tail is cut, not the head kept:
+        `_journal_append` may have merged the step into the entry before
+        it, whose rows the reference's cut to ``keep`` rows would drop."""
+        drop = t_in - keep
+        if drop <= 0:
+            return
+        for sessions in self.journal.values():
+            entries = sessions.get(session_id)
+            e = entries[-1] if entries else None
+            if e is not None and e.cur_len + e.seq_len == end and e.seq_len > drop:
+                n = e.seq_len - drop
+                entries[-1] = JournalEntry(e.hidden[:, :n], n, e.cur_len)
 
     def _discover_burst_peer(self, exclude: Tuple[str, ...] = ()) -> Optional[str]:
         """A live batched final-stage peer that spans the whole model, the

@@ -24,11 +24,23 @@ the stored KV of its leading grains (``runtime/prefix_cache.py``, the
 reference's ``executor.py:544-661``): the chain's rows are copied into the
 fresh lease and only the tail runs, as a chunk at ``cache_len = p``.
 
+Speculative decoding as in the reference (``executor.py:101-139``,
+``:721-760``): a step that carries ``start_from_position`` first rewinds
+the session to it (the previous round's rejected overhang); on the final
+stage a step with ``draft_tokens`` (T = K + 1 positions: the last accepted
+token and the K drafts) reads the logits of all T rows, verifies the
+drafts (`verify_drafts_from_logits`) and rewinds its own cache past the
+rejected tail. Greedy verification is the argmax of the raw logits, read
+back in one sync; sampled verification is the captured sampler's verify
+form (``runtime/graphs.py``, ``ops.sampling.speculative_verify_rows``):
+every position's target, uniform, residual and draw on the device, one
+`sample_draw` over the T rows, one sync.
+
 Differences from the reference's engine: offload, tensor parallelism, deep
-prompts, speculative verify, beam search, burst decode (the batched
-engine's), session rewind and training are not ported: a request that asks
-for one is refused with a `StageExecutionError` naming its field (the TCP
-server sends it back as a ``kind: "stage"`` error frame). A push chain's
+prompts, beam search, burst decode (the batched engine's) and training are
+not ported: a request that asks for one is refused with a
+`StageExecutionError` naming its field (the TCP server sends it back as a
+``kind: "stage"`` error frame). A push chain's
 ``next_servers`` is the transport's business (``runtime/net.py``,
 ``runtime/transport.py``), above the engine, as in the reference: the
 executor computes its own span and ignores them.
@@ -48,7 +60,7 @@ every row's token comes back in one read.
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,6 +77,7 @@ from ..models.partition import (
 from ..models.quant import tree_map
 from ..models.transformer import fuse_qkv_params
 from ..ops.attention import check_cache_write
+from ..ops.sampling import SamplingParams
 from ..telemetry import events as _ev
 from .errors import register as _catalog
 from .graphs import Sampler, StepGraphs
@@ -104,15 +117,43 @@ def _sample_rows(logits: torch.Tensor, t_real: int, req: StageRequest,
     return sampler(last.float(), req.generated_tokens, sp, req.step_seed)
 
 
+def greedy_verify(preds, drafts) -> Tuple[Tuple[int, ...], int]:
+    """Greedy verification on the host: accept while draft i equals
+    ``preds[i]`` (the argmax of row i), then that row's argmax."""
+    n_acc = 0
+    while n_acc < len(drafts) and preds[n_acc] == int(drafts[n_acc]):
+        n_acc += 1
+    return tuple(preds[:n_acc + 1]), n_acc
+
+
+def verify_drafts_from_logits(logits2d: torch.Tensor, req: StageRequest,
+                              sampler: Sampler) -> Tuple[Tuple[int, ...], int]:
+    """Final-stage verification of one session's drafts. logits2d: [T, V]
+    for the T = K + 1 positions [last accepted, d_1..d_K], row i predicting
+    the token after position i. Returns (tokens, n_accepted), ``len(tokens)
+    == n_accepted + 1``. Shared by the session executor and the batched
+    adapter, so both engines verify alike.
+
+    Greedy: accept while d_{i+1} equals the argmax of row i (the raw
+    logits, as the reference applies greedy before the penalties), then
+    that argmax: the tokens a non-speculative greedy run gives. Sampled:
+    `sampler.verify`, the device form of the reference's rejection
+    sampling (accept d_i with probability p_i(d_i), else a draw from the
+    residual), keyed ``PRNGKey(step_seed)``, the window the request's
+    ``generated_tokens``. One host sync either way."""
+    if req.sampling.greedy:
+        return greedy_verify(torch.argmax(logits2d, dim=-1).tolist(), req.draft_tokens)
+    return sampler.verify(logits2d[None].float(), [(
+        req.generated_tokens, req.sampling, req.step_seed, req.draft_tokens)])[0]
+
+
 def _unported_field(req: StageRequest) -> Optional[str]:
     """The first request field this executor does not implement that the
     request sets, or None."""
     for name, is_set in (("hypo_ids", req.hypo_ids is not None),
                          ("num_logprobs", req.num_logprobs > 0),
-                         ("draft_tokens", req.draft_tokens is not None),
                          ("prompts", req.prompts is not None),
-                         ("burst_len", req.burst_len > 0),
-                         ("start_from_position", req.start_from_position is not None)):
+                         ("burst_len", req.burst_len > 0)):
         if is_set:
             return name
     return None
@@ -235,7 +276,10 @@ class StageExecutor:
                 raise StageExecutionError(
                     f"session {req.session_id}: decode step without KV cache "
                     "and not a replay")
-        if not req.is_prefill and handle.cache_len != req.cur_len and not req.is_replay:
+        if (not req.is_prefill and handle.cache_len != req.cur_len
+                and not req.is_replay and req.start_from_position is None):
+            # A rewinding step (cur_len == start_from_position < cache_len)
+            # is no mismatch: forward() adopts the client's position.
             logger.warning("session %s: past-len mismatch client=%d server=%d; "
                            "trusting server", req.session_id, req.cur_len,
                            handle.cache_len)
@@ -274,6 +318,18 @@ class StageExecutor:
         t_real = req.seq_len
         if x.shape[1] != t_real:
             raise StageExecutionError(f"seq_len {t_real} != tensor T {x.shape[1]}")
+        if (sub_spec.is_last and req.draft_tokens is not None
+                and t_real != len(req.draft_tokens) + 1):
+            raise StageExecutionError(
+                f"speculative step carries {t_real} positions for "
+                f"{len(req.draft_tokens)} drafts (want K+1)")
+        if req.start_from_position is not None and not req.is_prefill:
+            # Session rewind: drop the rows past the client's position (the
+            # previous speculative round's rejected overhang).
+            try:
+                handle.rewind(req.start_from_position)
+            except ValueError as exc:
+                raise StageExecutionError(str(exc)) from exc
         handle.admit(t_real)
 
         skip, pfx_outs, pfx_register = 0, [], []
@@ -308,6 +364,8 @@ class StageExecutor:
                     None if full is None else full[:, g0 - skip:g1 - skip].clone())
 
         if sub_spec.is_last:
+            if req.draft_tokens is not None:
+                return self._verify_drafts(req, outs, handle)
             tokens = _sample_rows(outs[-1], outs[-1].shape[1], req, self.sampler)
             return StageResponse(
                 session_id=req.session_id, token_id=tokens[0],
@@ -319,6 +377,18 @@ class StageExecutor:
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
         return StageResponse(session_id=req.session_id, hidden=out,
                              cache_len=handle.cache_len)
+
+    def _verify_drafts(self, req: StageRequest, outs, handle: KVHandle) -> StageResponse:
+        """The final stage's speculative verification over the logits of
+        all K + 1 rows of the step; the session's cache then rewinds to
+        ``cur_len + n_accepted + 1``, past the rejected drafts, and the
+        stages before this one drop theirs through the next step's
+        ``start_from_position``."""
+        logits = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+        tokens, n_acc = verify_drafts_from_logits(logits[0], req, self.sampler)
+        handle.rewind(req.cur_len + n_acc + 1)
+        return StageResponse(session_id=req.session_id, tokens=tokens,
+                             n_accepted=n_acc, cache_len=handle.cache_len)
 
     def _reuse_prefix(self, req: StageRequest, x: torch.Tensor, handle: KVHandle,
                       a: int, b: int, is_last: bool):
@@ -383,14 +453,17 @@ class StageExecutor:
     # Lifecycle
     # ------------------------------------------------------------------
 
-    def warmup(self) -> None:
+    def warmup(self, speculative_k: int = 0) -> None:
         """One throwaway session through the span before serving (prefill,
         then steps of the other lengths), as the reference's serve mode
         does: the first real request then pays no one-time device set-up
         (library handles, kernel modules) inside its client's deadline. On
         the card each step captures its graph, at the 128-token cache
         bucket; the session's buffers then go to the arena's free list, and
-        the next lease of that shape takes them and their graphs."""
+        the next lease of that shape takes them and their graphs. With
+        ``speculative_k`` the final stage also captures the sampled
+        verification of every width 2..K+1 (a drafter may propose fewer
+        than K tokens)."""
         cur = 0
         for i, t in enumerate(WARMUP_SEQ_LENS):
             if self.spec.is_first:
@@ -406,6 +479,12 @@ class StageExecutor:
                 logger.warning("warmup step (T=%d) failed: %s", t, exc,
                                exc_info=True)
         self.drop_session("__warmup__")
+        if self.spec.is_last and speculative_k > 0:
+            vocab = self.cfg.vocab_size
+            for t in range(2, speculative_k + 2):
+                self.sampler.verify(
+                    torch.zeros((1, t, vocab), dtype=torch.float32, device=self.device),
+                    [((1, 2, 3), SamplingParams(), 0, (0,) * (t - 1))])
 
     def drop_session(self, session_id: str) -> None:
         if self.arena.get(session_id) is not None:

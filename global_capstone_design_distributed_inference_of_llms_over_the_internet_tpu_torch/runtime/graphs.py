@@ -41,7 +41,12 @@ seed and the float32 bits of the three float knobs); the keys are built
 inside it, ``PRNGKey(step_seed)`` for row 0 and ``fold_in(base, i)`` for
 row i. A call copies the vector to the device from pinned memory without
 blocking (`StagedInts`), replays, and reads the tokens back: the one host
-sync.
+sync. Its third form verifies speculative drafts (`verify_rows_packed`,
+one graph per (requests, K + 1, vocabulary)): each request's vector
+(`pack_verify_inputs`) carries its knobs, its drafts and the host loop's
+schedule (each position's window and keys, ``ops.sampling.
+verify_schedule``), and a call reads back every request's accepted run
+and count at once.
 """
 
 from __future__ import annotations
@@ -56,7 +61,13 @@ from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 import torch
 
 from ..ops import draw_kernel, int8_kernel, launch_counts, nf4_kernel, paged_attention_kernel
-from ..ops.sampling import RECENT_WINDOW, SamplingParams, sample_token
+from ..ops.sampling import (
+    RECENT_WINDOW,
+    SamplingParams,
+    sample_token,
+    speculative_verify_rows,
+    verify_schedule,
+)
 from ..ops.threefry import fold_in, prng_key
 
 # The kernel wrappers' launch counters (module, attribute).
@@ -313,12 +324,45 @@ def sample_rows_packed(logits: torch.Tensor, packed: torch.Tensor) -> torch.Tens
                       for i in range(logits.shape[0])])
 
 
+def pack_verify_inputs(window: Sequence[int], sampling: SamplingParams, step_seed: int,
+                       drafts: Sequence[int]) -> List[int]:
+    """The host ints of one request's verification of its K drafts: top_k,
+    the float32 bits of temperature, top_p and repetition penalty, the
+    drafts, then `verify_schedule`'s uniform keys (K pairs) and draw keys
+    (K + 1 pairs), each position's window length and its window
+    zero-padded to RECENT_WINDOW (K + 1 of each)."""
+    windows, key_u, key_r = verify_schedule(window, drafts, step_seed)
+    return ([int(sampling.top_k)]
+            + [_f32_bits(x) for x in (sampling.temperature, sampling.top_p,
+                                      sampling.repetition_penalty)]
+            + [int(d) for d in drafts] + [w for key in key_u + key_r for w in key]
+            + [len(w) for w in windows]
+            + [t for w in windows for t in w + [0] * (RECENT_WINDOW - len(w))])
+
+
+def verify_rows_packed(logits: torch.Tensor, packed: torch.Tensor) -> torch.Tensor:
+    """`ops.sampling.speculative_verify_rows` of float32 logits [B, T, V]
+    under request b's packed ints ``packed[b]`` (`pack_verify_inputs`).
+    Returns int64 [B, T + 1]: each request's T tokens (the accepted run,
+    then the correction or bonus, then zeros), then its accepted count.
+    Device work only."""
+    b_count, t = logits.shape[:2]
+    k = t - 1
+    floats = packed[:, 1:4].to(torch.int32).view(torch.float32)
+    keys = packed[:, 4 + k:4 + k + 2 * (k + t)].reshape(b_count, k + t, 2)
+    counts = packed[:, 4 + 3 * k + 2 * t:4 + 3 * k + 3 * t]
+    windows = packed[:, 4 + 3 * k + 3 * t:].reshape(b_count, t, RECENT_WINDOW)
+    return speculative_verify_rows(
+        logits, packed[:, 4:4 + k], windows, counts, keys[:, :k], keys[:, k:],
+        floats[:, 0], floats[:, 1], packed[:, 0], floats[:, 2])
+
+
 class _SamplerGraph:
     """One captured sampler: its static logits, its packed scalars staged
     from the host (`StagedInts`) and its graph."""
 
-    def __init__(self, batch: int, vocab: int, packed_shape, device: torch.device):
-        self.logits = torch.zeros((batch, vocab), dtype=torch.float32, device=device)
+    def __init__(self, logits_shape, packed_shape, device: torch.device):
+        self.logits = torch.zeros(logits_shape, dtype=torch.float32, device=device)
         self.packed = StagedInts(packed_shape, device)
         self.graph: Optional[Captured] = None
 
@@ -330,20 +374,21 @@ class _SamplerGraph:
 class Sampler:
     """An owner's sampler for logits [B, V] on one device (the final
     stage's executor; the fused sampled oracle's first token; a batched
-    engine's rounds). On the card, one graph per (form, B, V), captured at
-    first use and replayed; elsewhere the function runs directly.
-    `captures` and `replays` count them.
+    engine's rounds). On the card, one graph per (form, logits' shape),
+    captured at first use and replayed; elsewhere the function runs
+    directly. `captures` and `replays` count them.
 
-    Two forms: a call samples every row with one request's scalars (row i
-    keyed ``fold_in(base, i)``); `rows` samples row i with request i's
-    own (`sample_rows_packed`)."""
+    Three forms: a call samples every row with one request's scalars (row
+    i keyed ``fold_in(base, i)``); `rows` samples row i with request i's
+    own (`sample_rows_packed`); `verify` checks request b's drafts against
+    its logits [T, V] (`verify_rows_packed`)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.enabled = self.device.type == "cuda"
         self.captures = 0
         self.replays = 0
-        self._graphs: Dict[Tuple[bool, int, int], _SamplerGraph] = {}
+        self._graphs: Dict[Tuple, _SamplerGraph] = {}
         self._lock = threading.Lock()
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
@@ -352,23 +397,39 @@ class Sampler:
                  sampling: SamplingParams, step_seed: int) -> List[int]:
         """The B sampled token ids of logits [B, V] (float32, on this
         device), read back to the host at once: the call's one sync."""
-        return self._run(False, logits, pack_sampler_inputs(window, sampling, step_seed))
+        return self._run("one", logits, pack_sampler_inputs(window, sampling, step_seed))
 
     def rows(self, logits: torch.Tensor,
              requests: Sequence[Tuple[Sequence[int], SamplingParams, int]]) -> List[int]:
         """Row i of logits [B, V] sampled with request i's (window,
         sampling, step_seed), all B tokens read back at once: one sync."""
         values = [v for req in requests for v in pack_sampler_inputs(*req)]
-        return self._run(True, logits, values)
+        return self._run("rows", logits, values)
 
-    def _run(self, per_row: bool, logits: torch.Tensor, values: List[int]) -> List[int]:
-        fn = sample_rows_packed if per_row else sample_packed
-        shape = (logits.shape[0], PACKED_LEN) if per_row else (PACKED_LEN,)
+    def verify(self, logits: torch.Tensor,
+               requests: Sequence[Tuple[Sequence[int], SamplingParams, int, Sequence[int]]]
+               ) -> List[Tuple[Tuple[int, ...], int]]:
+        """Request b's T - 1 drafts verified against logits[b] ([B, T, V],
+        float32) under its (window, sampling, step_seed, drafts): a list of
+        (tokens, n_accepted), ``len(tokens) == n_accepted + 1``, read back
+        at once: one sync."""
+        values = [v for req in requests for v in pack_verify_inputs(*req)]
+        out = self._run("verify", logits, values)
+        return [(tuple(row[:row[-1] + 1]), row[-1]) for row in out]
+
+    def _run(self, form: str, logits: torch.Tensor, values: List[int]) -> list:
+        fn, shape = {
+            "one": (sample_packed, (PACKED_LEN,)),
+            "rows": (sample_rows_packed, (logits.shape[0], PACKED_LEN)),
+            "verify": (verify_rows_packed, (logits.shape[0],
+                                            4 + (logits.shape[-2] - 1) * 3
+                                            + logits.shape[-2] * (3 + RECENT_WINDOW))),
+        }[form]
         if not self.enabled:
             packed = torch.tensor(values, dtype=torch.int64, device=self.device)
             return fn(logits.float(), packed.reshape(shape)).tolist()
         with self._lock:
-            key = (per_row, *logits.shape)
+            key = (form, *logits.shape)
             entry = self._graphs.get(key)
             if entry is None:
                 entry = self._capture(key, fn, shape)
@@ -381,7 +442,7 @@ class Sampler:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
-        entry = _SamplerGraph(key[1], key[2], shape, self.device)
+        entry = _SamplerGraph(key[1:], shape, self.device)
         entry.graph = capture(lambda: fn(entry.logits, entry.packed.tensor),
                               self._pool, self._stream)
         self._graphs[key] = entry

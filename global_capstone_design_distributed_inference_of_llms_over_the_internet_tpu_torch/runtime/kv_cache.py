@@ -84,6 +84,14 @@ class KVHandle:
         self.cache_len += new_tokens
         self.last_used = time.monotonic()
 
+    def rewind(self, position: int) -> None:
+        """Shrink the valid prefix to `position` (the ``start_from_position``
+        session rewind, also the speculative rollback). Rows past it are
+        never attended and are overwritten as the session advances."""
+        if not 0 <= position <= self.cache_len:
+            raise ValueError(f"rewind to {position} outside [0,{self.cache_len}]")
+        self.cache_len = position
+
 
 class KVArena:
     """Fixed-budget KV allocator for one pipeline stage."""

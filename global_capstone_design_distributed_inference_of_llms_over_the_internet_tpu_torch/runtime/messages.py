@@ -10,14 +10,17 @@ the request and the serving peer's span on the response.
 The request carries every header field the reference's wire carries, with
 the reference's defaults, so that the TCP plane (``runtime/net.py``) builds
 one from any frame a client of either package sends. The deadline budget
-and the priority are honoured; the exotic fields (beam ``hypo_ids`` and
-``num_logprobs``, speculative ``draft_tokens``, deep ``prompts``, burst
-decode on a session engine, the ``start_from_position`` rewind) are
-refused by the executor with a `StageExecutionError` that names the field,
-never ignored; push-chain ``next_servers`` are served by the transports. ``prefix_len`` marks a prefill's leading tokens
-shareable: a server with a prefix store (``runtime/prefix_cache.py``)
-reuses their stored KV, one without ignores it, as in the reference. The
-training fields and the backward messages are not ported.
+and the priority are honoured; so are speculative ``draft_tokens`` (the
+final stage verifies them and answers with the accepted run,
+``tokens`` / ``n_accepted``) and the ``start_from_position`` rewind. The
+other exotic fields (beam ``hypo_ids`` and ``num_logprobs``, deep
+``prompts``, burst decode on a session engine) are refused by the
+executor with a `StageExecutionError` that names the field, never
+ignored; push-chain ``next_servers`` are served by the transports.
+``prefix_len`` marks a prefill's leading tokens shareable: a server with a
+prefix store (``runtime/prefix_cache.py``) reuses their stored KV, one
+without ignores it, as in the reference. The training fields and the
+backward messages are not ported.
 
 A full-span batched peer (``runtime/batching.py``) serves a burst
 request (``burst_len > 0``) and answers it with a burst reply: the tokens one
@@ -53,18 +56,18 @@ class StageRequest:
     end_block: Optional[int] = None
     # Deep prompts [span_layers, pre_seq, D] (refused by the port's executor).
     prompts: Optional[torch.Tensor] = None
-    # Session rewind to this position before the step (refused).
+    # Session rewind to this position before the step.
     start_from_position: Optional[int] = None
     # Beam search: KV row each hypothesis continues from, and top-N
     # logprobs instead of a sampled token (refused).
     hypo_ids: Optional[Tuple[int, ...]] = None
     num_logprobs: int = 0
-    # Speculative decoding: the K client-drafted tokens to verify (refused).
+    # Speculative decoding: the K client-drafted tokens to verify.
     draft_tokens: Optional[Tuple[int, ...]] = None
     # Model identity declared by the originating client; a server holding
     # another model refuses the request.
     model: Optional[str] = None
-    # Push-chain route: the hops after this one (refused).
+    # Push-chain route: the hops after this one (the transports relay).
     next_servers: Tuple[dict, ...] = ()
     # Prompt-prefix sharing hint: the leading prefix_len tokens of a prefill
     # may be shared across sessions. A server with a prefix store reuses
@@ -103,6 +106,12 @@ class StageResponse:
     # is the KV length after every emitted tick.
     burst_tokens: Optional[Tuple[int, ...]] = None
     burst_stop: Optional[str] = None
+    # Speculative mode (request.draft_tokens set): n_accepted accepted
+    # drafts, then one correction or bonus token (len == n_accepted + 1).
+    # cache_len is the final stage's KV length after it rewound past the
+    # rejected tail.
+    tokens: Optional[Tuple[int, ...]] = None
+    n_accepted: Optional[int] = None
     # The serving peer's span summary (telemetry.tracing Span.to_wire()):
     # its own start/end plus attrs. None when the request carried no trace.
     span: Optional[dict] = None
@@ -114,6 +123,10 @@ class StageResponse:
     @property
     def is_burst(self) -> bool:
         return self.burst_tokens is not None
+
+    @property
+    def is_speculative(self) -> bool:
+        return self.tokens is not None
 
 
 def clip_generated(tokens: Sequence[int], window: int = 50) -> Tuple[int, ...]:

@@ -30,10 +30,12 @@ Components:
     reports the executor's ``engine`` and a batched engine's
     ``decode_steps``. A forward answers with ``token``, ``hidden`` or, for
     a burst request to a full-span batched peer, ``burst`` (the tokens
-    the burst emitted and why it stopped). A forward that names
-    ``next_servers`` is a push chain: the handler thread, once the compute
-    thread has handed back the response, sends the output on to the next
-    hop over a pooled connection and relays that hop's final answer back.
+    the burst emitted and why it stopped), or, for a speculative step on
+    the final stage, ``spec`` (the verified run and its accepted count).
+    A forward that names ``next_servers`` is a push chain: the handler
+    thread, once the compute thread has handed back the response, sends
+    the output on to the next hop over a pooled connection and relays that
+    hop's final answer back, a ``spec`` reply as it came.
     With a `GossipNode` (``scheduling/gossip.py``) the server is also a
     mirror of the placement records: it answers ``gossip`` anti-entropy
     rounds and the registry service's ``register`` / ``heartbeat`` /
@@ -46,7 +48,7 @@ Components:
     registry records (a record with ``relay_via`` is dialed at its
     volunteer, every frame stamped ``relay_to``), one persistent
     connection per peer, plain prefill and decode on streams (a burst
-    request rides the classic frame), socket errors mapped onto the
+    request and a draft step ride the classic frame), socket errors mapped onto the
     retryable taxonomy (``runtime/errors.py``; through a relay the breaker
     blames the volunteer).
   * `check_direct_reachability` (the dial-back vote), `attach_via_relay`
@@ -1209,6 +1211,14 @@ class TcpStageServer(_FramedTcpServer):
             if resp.token_ids is not None:   # batch>1 per-row sampling
                 frame["token_ids"] = list(resp.token_ids)
             body = b""
+        elif resp.is_speculative:
+            # The verified run: the reference's "spec" reply (net.py:1349).
+            frame = {
+                "verb": "spec", "session_id": resp.session_id,
+                "tokens": list(resp.tokens), "n_accepted": resp.n_accepted,
+                "cache_len": resp.cache_len,
+            }
+            body = b""
         elif req.next_servers:
             # Push chain, on this handler thread once the compute thread
             # has answered: the output goes straight to the next hop, whose
@@ -1590,6 +1600,14 @@ class TcpTransport(Transport):
                         payload: bytes) -> StageResponse:
         verb = header.get("verb")
         span = header.get("span")
+        if verb == "spec":
+            return StageResponse(
+                session_id=header["session_id"],
+                tokens=tuple(header["tokens"]),
+                n_accepted=header["n_accepted"],
+                cache_len=header["cache_len"],
+                span=span,
+            )
         if verb == "burst":
             return StageResponse(
                 session_id=header["session_id"],

@@ -525,8 +525,9 @@ def test_adapter_refuses_stale_cur_len_and_round_survives():
 
 
 # Requests both adapters refuse (of a session with no slot, as in
-# tests/test_batching.py:339), then those only the port's refuses (their
-# slice is not ported: speculative rows, ROADMAP Queue 1 #3).
+# tests/test_batching.py:339), then the speculative rows the port's adapter
+# refused until it served them: a draft step of the wrong width is refused
+# by both, one of K + 1 rows served by both.
 COMMON_REFUSALS = [dict(hypo_ids=(0,)), dict(num_logprobs=2), dict(is_replay=True),
                    dict(start_from_position=0, cur_len=3), dict(start_block=1), dict()]
 PORT_REFUSALS = [dict(draft_tokens=(1,)), dict(draft_tokens=(1, 2), seq_len=3)]
@@ -603,20 +604,34 @@ def test_adapter_computes_a_push_chain_request_as_the_jax_adapter():
 
 @pytest.mark.parametrize("bad", PORT_REFUSALS, ids=lambda b: "-".join(b))
 def test_adapter_refuses_what_is_not_ported(bad):
-    """Speculative rows are refused, retryably, with a task_rejected event,
-    and the session stays usable."""
-    _, ta = adapters(8, slots=2, window_s=0.0)
-    ta.forward(_treq("s", [5, 9, 23], 0, True))
-    ttel.get_recorder().enable()
-    ttel.get_recorder().clear()
-    try:
-        with pytest.raises(StageExecutionError, match="not ported"):
-            ta.forward(_refusal_request(_treq, "s", bad))
-        assert [e.name for e in ttel.get_recorder().events()] == ["task_rejected"]
-    finally:
-        ttel.get_recorder().disable()
-        ttel.get_recorder().clear()
-    assert ta.forward(_treq("s", [7], 3, False)).token_id is not None
+    """Speculative rows, once refused here as not ported, are served as the
+    JAX adapter serves them: a draft step of K + 1 rows is verified (the
+    same accepted run, cache length and no event), one of another width is
+    refused by both, retryably and with no event; the session stays
+    usable."""
+    ja, ta = adapters(8, slots=2, window_s=0.0)
+    got = []
+    for adapter, mk, err, tel in ((ja, _jreq, JStageExecutionError, jtel),
+                                  (ta, _treq, StageExecutionError, ttel)):
+        adapter.forward(mk("s", [5, 9, 23], 0, True))
+        tel.get_recorder().enable()
+        tel.get_recorder().clear()
+        try:
+            req = _refusal_request(mk, "s", bad)
+            if req.seq_len == len(req.draft_tokens) + 1:
+                r = adapter.forward(req)
+                got.append((tuple(int(t) for t in r.tokens), r.n_accepted, r.cache_len))
+            else:
+                with pytest.raises(err, match="want K\\+1"):
+                    adapter.forward(req)
+                got.append(None)
+            assert [e.name for e in tel.get_recorder().events()] == []
+        finally:
+            tel.get_recorder().disable()
+            tel.get_recorder().clear()
+        cur = 3 if got[-1] is None else got[-1][2]
+        assert adapter.forward(mk("s", [7], cur, False)).token_id is not None
+    assert got[1] == got[0]
     with pytest.raises(StageExecutionError):           # decode without a slot
         ta.forward(_treq("ghost", [7], 0, False))
 

@@ -96,7 +96,8 @@ def test_every_port_module_imports_with_jax_blocked():
 @pytest.mark.parametrize("module", ["draw_kernel", "int8_kernel", "nf4_kernel",
                                     "paged_attention_kernel"])
 def test_importing_a_kernel_wrapper_builds_nothing(module):
-    """A kernel wrapper, the sampler and the graphs import without building
+    """A kernel wrapper, the sampler, the graphs, the drafter and the
+    engines (with the speculative verification) import without building
     or loading any library: the build waits for the first launch (or
     ``build()``), so the CPU tests, which import every module, build
     nothing."""
@@ -104,6 +105,8 @@ def test_importing_a_kernel_wrapper_builds_nothing(module):
         "import importlib\n"
         f"m = importlib.import_module('{PORT_PKG}.ops.{module}')\n"
         f"importlib.import_module('{PORT_PKG}.runtime.graphs')\n"
+        f"importlib.import_module('{PORT_PKG}.runtime.speculative')\n"
+        f"importlib.import_module('{PORT_PKG}.runtime.batching')\n"
         f"from {PORT_PKG}.utils import cuda_build\n"
         "print(m._lib is None, m._launches, sorted(cuda_build._loaded), "
         "sorted(cuda_build.build_logs))\n")
@@ -159,13 +162,13 @@ def _without_module_docstring(path):
                                  "serving/admission.py", "serving/fair_queue.py",
                                  "serving/gateway.py", "scheduling/load_balancing.py",
                                  "scheduling/throughput.py", "scheduling/routing.py",
-                                 "scheduling/gossip.py"])
+                                 "scheduling/gossip.py", "runtime/speculative.py"])
 def test_byte_equal_copies(rel):
     """The chaos layer, the task pool, the wire codec's C++ source, the
     serving gateway (admission, fair queue, gateway) and the swarm
     scheduling modules (load balancing, the throughput probe, latency
-    routing, the gossip mirror) are copies of the JAX package's, byte for
-    byte (the codec's
+    routing, the gossip mirror) and the n-gram drafter are copies of the
+    JAX package's, byte for byte (the codec's
     lives in its ``native/``); their relative imports resolve to the port's
     own runtime, ops, telemetry and registry."""
     original = rel.replace("csrc/", "native/")
