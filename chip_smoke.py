@@ -412,6 +412,36 @@ on the kernels; it never prints the last line of a smoke pass.)
    (after its TCP drive): over TCP at wire bf16, the greedy request plain,
    garbage, perfect, perfect, garbage, plain, with the same gates
    (``nf4_dot``'s rounds with drafts on "f32mma" at M = 8 on stages 1-3).
+12d. Beam path (after the speculative path, on the int8 path's executors;
+   ``beam_path``): ``PipelineClient.beam_search`` with 4 beams, 32 new
+   tokens, length penalty 1 and no EOS over the first prompt, in process
+   twice (a plain greedy request beside), then over in-process TCP at wire
+   f32 twice; on the NF4 path (after its speculative part; ``beam_nf4``)
+   over TCP at wire bf16 twice. Each run is held to an unsplit beam oracle
+   (``full_forward`` at batch 4 with a float32 cache and the reference's
+   candidate policy, ``beam_oracle``): each step's top log-probs within
+   BEAM_LOGP_TOL x the step's max |logit| of the oracle's log-softmax,
+   the beams equal or parting first at a near-tie of the oracle's sorted
+   candidate scores around the cut (``hold_beam``). Gates: a second run's
+   tokens equal the first's and it captures nothing (its leases take the
+   freed pairs and their graphs); its launches by route exactly (the
+   batch-1 prefill at the prompt's bucket, then every site of every layer
+   at M = 4 a beam step: ``int8_dot``'s "simt" on bf16 x, ``nf4_dot``'s
+   tensor cores, "f32mma" on stages 1-3's float32 x over TCP); one host
+   sync a beam step in process; each stage's arena holds 4 rows of the
+   batch-1 lease's bytes after the growth and its old bytes after the
+   session. The in-place reorder: a stage's grown lease reordered by a
+   permutation holds the gather of a copy, in the same buffers and slot,
+   and the next step's replay is bit-equal to the eager step over a copy
+   of the reordered cache (``reorder_check``); ``hypo_ids`` out of range is
+   refused and a step after it runs. Failover: the journal bounded at 2
+   entries (reorders composed into the prefill's rows), the pinned
+   stage-2 peer killed after its 3rd beam step, a replica replayed, the
+   fault-free tokens. Device ms of the final stage's step at batch 4 and
+   1, the top-N graph and the reorder at cache buckets 128 and 2048; each
+   site at M = 4 (``beam_kernel_rows``): ``int8_dot``'s "simt" and "mma"
+   on bf16 x, ``nf4_dot``'s "mma", both "f32mma" on float32 x, each beside
+   its plain version, the library and its bound.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``, ``paged_decode_attention`` with the paged path's
    launches and its times at the paged path's shape; each matmul with its
@@ -421,7 +451,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    M = 1024; the elastic path's requests and probes by route; the
    control-plane path's runs by route, and ``sample_draw``'s launches on
    each; the speculative path's runs by drafter and route, and
-   ``sample_draw``'s on the sampled ones) and
+   ``sample_draw``'s on the sampled ones; the beam path's runs by route
+   and each route's layer at M = 4) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -6391,6 +6422,641 @@ def speculative_nf4(torch, kernels, tmain, state, smi: str) -> dict:
             "card": smi}
 
 
+BEAMS = 4
+# The beam runs' near-tie and log-prob rules against the unsplit beam
+# oracle, each a multiple of the step's max |logit| (the greedy rule's
+# LOGIT_GAP_TOL): where a run's beams differ from the oracle's choice, two
+# of the oracle's sorted candidate scores around the cut (its first BEAMS
+# + 1) lie within LOGIT_GAP_TOL of each other; each candidate's log-prob
+# lies within BEAM_LOGP_TOL of the oracle's log-softmax at that token, its
+# logit's error and its row's log-sum-exp's each within LOGIT_GAP_TOL.
+BEAM_LOGP_TOL = 2 * LOGIT_GAP_TOL
+# The reorder's device time at these cache buckets, every position valid.
+BEAM_REORDER_BUCKETS = (128, 2048)
+
+
+def beam_select(beams, scores, tokens, logps, nb: int):
+    """One step of the reference's candidate policy, no EOS: every row's
+    candidates row-major, stably sorted by score, the first `nb` kept.
+    Returns (beams, scores, parents, every candidate's score in order)."""
+    cands = [(scores[i] + float(lp), i, int(tok)) for i in range(len(beams))
+             for tok, lp in zip(tokens[i], logps[i])]
+    cands.sort(key=lambda c: c[0], reverse=True)
+    kept = cands[:nb]
+    return ([beams[p] + [t] for _, p, t in kept], [s for s, _, _ in kept],
+            tuple(p for _, p, _ in kept), [c[0] for c in cands])
+
+
+def beam_states(tops, nb: int):
+    """The client's beams after each step of a run whose steps answered
+    `tops` (each step's top tokens and log-probs): the prefill's row 0
+    seeds them, each later step keeps `beam_select`'s choice. Returns per
+    step (beams, scores, parents)."""
+    (tt, tl), states = tops[0], []
+    state = ([[int(t)] for t in tt[0][:nb]], [float(v) for v in tl[0][:nb]], (0,) * nb)
+    states.append(state)
+    for tt, tl in tops[1:]:
+        state = beam_select(state[0], state[1], tt, tl, nb)[:3]
+        states.append(state)
+    return states
+
+
+def beam_oracle(torch, cfg, params, ids, new: int, nb: int, follow=None) -> dict:
+    """The unsplit beam search of ``tests/test_beam_search.py``
+    (``oracle_beam``) on the card: ``full_forward`` at batch `nb` with a
+    float32 cache, the cache rows reordered by each step's parents, top 2 *
+    nb candidates a row, no EOS, length penalty 1. With `follow` (a run's
+    `beam_states`) it takes the run's beams at every step instead of its
+    own (teacher forcing), so that every step of the run has a counterpart.
+    Returns its best hypothesis and score and, per step, the log-softmax
+    rows (row 0 alone at the prefill, whose rows are equal), the beams its
+    own choice gives from the state it stepped, the candidates' sorted
+    scores and the rows' max |logit|."""
+    from importlib import import_module
+
+    tf = import_module(PORT + ".models.transformer")
+    dev = params["embed"]["wte"].device
+    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, nb, len(ids) + new + 1,
+                              dtype=torch.float32, device=dev)
+    steps, beams, scores, parents = [], None, None, (0,) * nb
+    for j in range(new):
+        if j == 0:
+            logits, kc, vc = tf.full_forward(cfg, params, torch.tensor([ids] * nb, device=dev),
+                                             kc, vc, 0)
+            logits = logits[:1, -1]
+        else:
+            order = torch.tensor(parents, device=dev)
+            kc, vc = kc.index_select(1, order), vc.index_select(1, order)
+            step_ids = torch.tensor([[b[-1]] for b in beams], device=dev)
+            logits, kc, vc = tf.full_forward(cfg, params, step_ids, kc, vc,
+                                             len(ids) + j - 1)
+            logits = logits[:, -1]
+        logp = torch.log_softmax(logits.float(), -1)
+        vals, idx = torch.topk(logp, 2 * nb)
+        if j == 0:
+            own = ([[t] for t in idx[0, :nb].tolist()], vals[0, :nb].tolist(), (0,) * nb,
+                   vals[0].tolist())
+        else:
+            own = beam_select(beams, scores, idx.tolist(), vals.tolist(), nb)
+        steps.append({"logp": logp, "beams": own[0], "cands": own[3],
+                      "scale": logits.abs().max().item()})
+        beams, scores, parents = follow[j] if follow is not None else own[:3]
+    if not all(torch.isfinite(s["logp"]).all() for s in steps):
+        raise AssertionError("beam oracle: log-probs not finite")
+    best = sorted(zip(scores, beams), key=lambda f: f[0], reverse=True)[0]
+    return {"tokens": best[1], "score": best[0] / len(best[1]), "steps": steps}
+
+
+def cut_gap(step: dict, nb: int) -> float:
+    """The least gap between neighbours of a step's sorted candidate scores
+    around the cut (its first nb + 1): an order within the beams, or which
+    candidate makes the cut, that a change within it moves."""
+    cut = step["cands"][:nb + 1]
+    return min(a - b for a, b in zip(cut, cut[1:]))
+
+
+def hold_beam(torch, what: str, free: dict, forced: dict, tops, result, nb: int) -> dict:
+    """A beam run (`tops`: each step's top tokens and log-probs; `result`
+    its BeamResult) against the unsplit oracle, free-running (`free`) and
+    following the run's beams (`forced`). Every step: each candidate's
+    log-prob within BEAM_LOGP_TOL x the step's max |logit| of the forced
+    oracle's log-softmax at that token; the run's beams equal the forced
+    oracle's own choice from the same beams, or the choice turns on a
+    near-tie (`cut_gap` <= LOGIT_GAP_TOL x max |logit|). The tokens: the
+    free oracle's, or its beams part first from the run's at a near-tie,
+    or the two best final scores lie within the log-probs' tolerance."""
+    states = beam_states(tops, nb)
+    if len(tops) != len(free["steps"]):
+        raise AssertionError(f"{what}: {len(tops)} beam steps, the oracle ran "
+                             f"{len(free['steps'])}")
+    errs, ties = [], []
+    for j, ((tt, tl), state) in enumerate(zip(tops, states)):
+        o = forced["steps"][j]
+        ref = o["logp"].gather(1, torch.tensor(tt, device=o["logp"].device))
+        err = (ref.double().cpu() - torch.tensor(tl, dtype=torch.float64)).abs().max().item()
+        errs.append(err / o["scale"])
+        if err > BEAM_LOGP_TOL * o["scale"]:
+            raise AssertionError(f"{what}: step {j}: log-probs {err:.4g} off the oracle's "
+                                 f"(tolerance {BEAM_LOGP_TOL * o['scale']:.4g})")
+        if state[0] != o["beams"]:
+            gap, tol = cut_gap(o, nb), LOGIT_GAP_TOL * o["scale"]
+            ties.append({"step": j, "least_gap_at_cut": gap, "tolerance": tol})
+            if not gap <= tol:
+                raise AssertionError(f"{what}: step {j}: the run's beams differ from the "
+                                     f"oracle's choice from the same beams at a decisive "
+                                     f"step (gap {gap:.4g} > {tol:.4g})")
+    parted = next((j for j, (state, o) in enumerate(zip(states, free["steps"]))
+                   if state[0] != o["beams"]), None)
+    if parted is not None:
+        o = free["steps"][parted]
+        gap, tol = cut_gap(o, nb), LOGIT_GAP_TOL * o["scale"]
+        parted = {"step": parted, "least_gap_at_cut": gap, "tolerance": tol}
+        if not gap <= tol:
+            raise AssertionError(f"{what}: the beams part from the free oracle's at a "
+                                 f"decisive step {parted}")
+    elif result.tokens != free["tokens"]:
+        finals = sorted((sc / len(b) for b, sc in zip(*states[-1][:2])), reverse=True)
+        if not finals[0] - finals[1] <= BEAM_LOGP_TOL * max(s["scale"] for s in free["steps"]):
+            raise AssertionError(f"{what}: best hypothesis {result.tokens} != the oracle's "
+                                 f"{free['tokens']} with the beams equal")
+    # The run's best hypothesis scored by the oracle along the same beams.
+    o_scores = [forced["steps"][0]["logp"][0, b[0]].item() for b in states[0][0]]
+    for j in range(1, len(states)):
+        logp = forced["steps"][j]["logp"]
+        o_scores = [o_scores[p] + logp[p, b[-1]].item()
+                    for p, b in zip(states[j][2], states[j][0])]
+    o_score = o_scores[states[-1][0].index(result.tokens)] / len(result.tokens)
+    if not abs(o_score - result.score) <= BEAM_LOGP_TOL * max(
+            s["scale"] for s in forced["steps"]):
+        raise AssertionError(f"{what}: score {result.score} against the oracle's {o_score} "
+                             "for the same hypothesis")
+    log(f"  {what}: {len(tops)} steps held to the beam oracle following its beams: max "
+        f"log-prob error {max(errs):.3g} x max|logit| (tolerance {BEAM_LOGP_TOL:.3g}), "
+        f"{len(ties)} near-tie choices; against the free-running oracle: "
+        + ("tokens equal" if parted is None else f"parted at {parted}"))
+    return {"max_logp_err_over_scale": max(errs), "near_tie_choices": ties,
+            "parted_from_free_oracle": parted,
+            "tokens_equal_free_oracle": result.tokens == free["tokens"],
+            "score": result.score, "oracle_score_same_tokens": o_score,
+            "free_oracle_score": free["score"]}
+
+
+class BeamTap:
+    """Records each beam step of a client: the final response's top
+    candidates, and its wall from stage 0's call to the last hop's answer."""
+
+    def __init__(self, client):
+        self.client, self.stage0 = client, client.stage0
+        self.tops, self.walls = [], []
+        self._t0 = None
+        forward, walk = client.stage0.forward, client._walk
+
+        def stage0_forward(req):
+            self._t0 = time.monotonic()
+            return forward(req)
+
+        def tapped_walk(*a, **kw):
+            resp = walk(*a, **kw)
+            self.walls.append(time.monotonic() - self._t0)
+            if resp.is_beam:
+                self.tops.append((resp.top_tokens, resp.top_logprobs))
+            return resp
+
+        self.stage0.forward, client._walk = stage0_forward, tapped_walk
+
+    def close(self):
+        del self.stage0.forward
+        del self.client._walk
+
+
+def beam_run(torch, kernels, name: str, client, executors, ids, syncs: bool = False,
+             on_call=None) -> dict:
+    """One beam search of `ids` (BEAMS beams, MAX_NEW_TOKENS), every count
+    set to 0 just before: tokens, score, TTFT, ms a step (median of the
+    decode steps), each step's candidates, `name`'s launches by route, the
+    executors' captures, the recoveries and, with `syncs`, the host syncs
+    torch's sync debug mode reports."""
+    tap = BeamTap(client)
+    if on_call is not None:
+        client.transport.on_call = on_call
+    reset_counts(kernels, executors)
+    before = client.recoveries
+    box = {}
+
+    def search():
+        box["r"] = client.beam_search(ids, MAX_NEW_TOKENS, BEAMS)
+
+    try:
+        n_syncs = count_syncs(torch, search) if syncs else search()
+    finally:
+        tap.close()
+        if on_call is not None:
+            client.transport.on_call = None
+    torch.cuda.synchronize()
+    res = box["r"]
+    return {"result": res, "tokens": res.tokens, "score": res.score, "ttft_ms": 1e3 * res.ttft_s,
+            "ms_per_step": 1e3 * statistics.median(tap.walls[1:]),
+            "step_ms": [1e3 * w for w in tap.walls], "tops": tap.tops,
+            f"{name}_launches_by_route": kernel_routes(kernels[name]),
+            "captures": sum(ex.graphs.captures + ex.sampler.captures for ex in executors),
+            "syncs": n_syncs, "recoveries": client.recoveries - before}
+
+
+def beam_launches(cfg, stage0_layers: int, float32_hops: bool, bf16_route: str) -> dict:
+    """A beam search's launches by route: every site of every layer once
+    for the batch-1 prefill (the prompt's bucket: the tensor cores on bf16
+    x, "f32mma" on float32) and once a beam step at M = BEAMS (bf16 x on
+    `bf16_route`, float32 x on "f32mma"); stages 1-3 take float32 x behind
+    a TCP hop."""
+    steps = MAX_NEW_TOKENS - 1
+    bf16_layers = stage0_layers if float32_hops else cfg.num_layers
+    need = {"mma": 0, "gemv": 0, "f32mma": 4 * (cfg.num_layers - bf16_layers) * (1 + steps),
+            "simt": 0}
+    need["mma"] += 4 * bf16_layers
+    need[bf16_route] += 4 * bf16_layers * steps
+    return need
+
+
+def beam_gates(torch, what: str, name: str, runs, need: dict, oracle: dict, cfg, params,
+               ids) -> dict:
+    """Both runs of one path: tokens and scores equal, the first held to
+    the free-running `oracle` and to the oracle following its beams
+    (`hold_beam`), no recovery; the second run captures nothing
+    (its leases take the first run's freed pairs and their graphs) and
+    launches `name` exactly `need` by route; the first, whose captures
+    each run their step once eagerly before, at least that on the same
+    routes."""
+    first, second = runs
+    forced = beam_oracle(torch, cfg, params, ids, MAX_NEW_TOKENS, BEAMS,
+                         follow=beam_states(first["tops"], BEAMS))
+    held = hold_beam(torch, what, oracle, forced, first["tops"], first["result"], BEAMS)
+    for i, run in enumerate(runs):
+        got = run[f"{name}_launches_by_route"]
+        log(f"{what} run {i + 1}: {run['tokens']} score {run['score']:.5f}, TTFT "
+            f"{run['ttft_ms']:.1f} ms, {run['ms_per_step']:.2f} ms a step; {name} {got} "
+            f"(want {need}); {run['captures']} captures")
+        exact = got == need
+        if i == 0 and run["captures"]:
+            exact = all(got[r] >= need[r] and bool(got[r]) == bool(need[r]) for r in need)
+        if not exact or run["recoveries"]:
+            raise AssertionError(f"{what} run {i + 1}: {name} launches {got}, want {need}; "
+                                 f"{run['recoveries']} recoveries")
+    if (second["tokens"], second["score"]) != (first["tokens"], first["score"]):
+        raise AssertionError(f"{what}: the second run's tokens {second['tokens']} differ "
+                             f"from the first's {first['tokens']}")
+    if second["captures"]:
+        raise AssertionError(f"{what}: the second run captured {second['captures']} graphs")
+    return {"tokens": first["tokens"], "score": first["score"], "oracle": held,
+            "ttft_ms": [r["ttft_ms"] for r in runs],
+            "ms_per_step": [r["ms_per_step"] for r in runs],
+            "captures": [r["captures"] for r in runs],
+            f"{name}_launches_by_route": second[f"{name}_launches_by_route"],
+            f"{name}_launches_by_route_first_run": first[f"{name}_launches_by_route"]}
+
+
+def reorder_check(torch, cfg, ex, prompt_len: int) -> dict:
+    """Stage `ex`'s session grown from a batch-1 prefill to BEAMS rows (the
+    beam runs' freed pairs, so their graphs), its rows made distinct by a
+    step, then reordered in place (`KVHandle.reorder`) by a permutation:
+    the valid rows equal a gather of a copy taken before, the buffers and
+    slot unchanged. The next step replays the captured graph of that
+    lease (no capture) and must be bit-equal, output and cache writes, to
+    the eager step over a copy of the reordered cache: no graph reads
+    stale rows. Then ``hypo_ids`` out of range must raise
+    StageExecutionError, and a plain step after it runs."""
+    from importlib import import_module
+
+    executor_mod = import_module(PORT + ".runtime.executor")
+    messages = import_module(PORT + ".runtime.messages")
+    dev, dt = ex.device, ex.act_dtype or torch.float32
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sid, max_length, perm = "beam-reorder-check", prompt_len + MAX_NEW_TOKENS, (3, 1, 0, 2)
+
+    def x(rows: int, t: int):
+        return torch.randn((rows, t, cfg.hidden_size), generator=gen, device=dev).to(dt)
+
+    def request(hidden, cur: int, **kw):
+        return messages.StageRequest(sid, hidden, hidden.shape[1], cur, cur == 0, max_length,
+                                     **kw)
+
+    ex.forward(request(x(1, prompt_len), 0))
+    ex.forward(request(x(BEAMS, 1), prompt_len, hypo_ids=(0,) * BEAMS))
+    h = ex.arena.get(sid)
+    n = h.cache_len
+    want = []
+    for buf in (h.k, h.v):
+        w = buf.clone()
+        w[:, :, :n] = buf[:, list(perm), :n]
+        want.append(w)
+    before = (h.k.data_ptr(), h.v.data_ptr(), h.slot)
+    h.reorder(perm)
+    torch.cuda.synchronize()
+    if not (torch.equal(h.k, want[0]) and torch.equal(h.v, want[1])
+            and (h.k.data_ptr(), h.v.data_ptr(), h.slot) == before):
+        raise AssertionError("beam reorder: the lease's rows are not the gather, or its "
+                             "buffers moved")
+    captures, replays = ex.graphs.captures, ex.graphs.replays
+    step_x = x(BEAMS, 1)
+    kr, vr = want[0].clone(), want[1].clone()
+    got = ex.forward(request(step_x, n)).hidden
+    _, sub_params, step = ex._get_subspan(0, ex.spec.num_layers)
+    eager = step(sub_params, step_x, kr, vr,
+                 torch.full((), n, dtype=torch.int64, device=dev))[0][:, :1]
+    torch.cuda.synchronize()
+    if (ex.graphs.captures, ex.graphs.replays) != (captures, replays + 1):
+        raise AssertionError(f"beam reorder: the step after it captured "
+                             f"{ex.graphs.captures - captures}, replayed "
+                             f"{ex.graphs.replays - replays}")
+    if not (torch.equal(got, eager) and torch.equal(h.k, kr) and torch.equal(h.v, vr)):
+        err = (got.float() - eager.float()).abs().max().item()
+        raise AssertionError(f"beam reorder: the replay after it differs from the eager "
+                             f"step over the reordered cache (max err {err})")
+    try:
+        ex.forward(request(x(BEAMS, 1), n + 1, hypo_ids=(0, BEAMS, 0, 0)))
+    except executor_mod.StageExecutionError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("beam reorder: hypo_ids out of range was served")
+    after = ex.forward(request(x(BEAMS, 1), n + 1)).hidden
+    torch.cuda.synchronize()
+    if not torch.isfinite(after.float()).all() or ex.arena.get(sid).cache_len != n + 2:
+        raise AssertionError("beam reorder: the step after the refusal failed")
+    ex.drop_session(sid)
+    log(f"beam reorder on {ex.peer_id}: rows gathered in place (same buffers, slot "
+        f"{before[2]}), the replay after it bit-equal to the eager step over the "
+        f"reordered cache; out of range refused ({refused}), the next step ran")
+    return {"stage": ex.peer_id, "in_place": True, "replay_bit_equal": True,
+            "out_of_range": refused}
+
+
+def reorder_ms(torch, cfg, layers: int, bw: float) -> dict:
+    """`KVHandle.reorder` of a lease of `layers` layers and BEAMS rows at
+    each of BEAM_REORDER_BUCKETS, every position valid (float32 cache, L2
+    as the copy leaves it), beside its bound: k and v read and written
+    once."""
+    from importlib import import_module
+
+    kv = import_module(PORT + ".runtime.kv_cache")
+    out = {}
+    for bucket in BEAM_REORDER_BUCKETS:
+        arena = kv.KVArena(num_layers=layers, num_kv_heads=cfg.num_kv_heads,
+                           head_dim=cfg.head_dim, max_bytes=1 << 40, device="cuda",
+                           dtype=torch.float32)
+        h = arena.allocate("r", bucket, batch=BEAMS)
+        h.advance(bucket)
+        nbytes = 2 * 2 * h.k.numel() * h.k.element_size()
+        out[str(bucket)] = {"ms": cuda_ms(lambda: h.reorder((3, 1, 0, 2)), torch, spin=True),
+                            "bound_ms": 1e3 * nbytes / bw, "bound_by": "bytes",
+                            "bytes": nbytes}
+        arena.free("r")
+    return out
+
+
+def beam_kernel_rows(torch, ik, nk, bw: float, flops: float) -> dict:
+    """Every site at M = BEAMS, L2 cold: `int8_dot`'s "simt" (the route
+    bf16 x takes there) beside its "mma", both kernels' "f32mma" (float32
+    x, the stages behind TCP) and `nf4_dot`'s "mma" (bf16 x), each held to
+    its plain version (BF16_TOL, F32_TOL) and timed beside the plain
+    version, one library call (``torch.matmul(x, q.to(x.dtype)) * s``,
+    NF4: the dequantized weight) and its bound. Returns the rows and each
+    (kernel, route)'s layer."""
+    from importlib import import_module
+
+    quant = import_module(PORT + ".models.quant")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    m, rows = BEAMS, []
+    for site, k, n in SITES:
+        w8 = int8_weight(torch, quant, gen, "cuda", k, n)
+        q, s = w8.q, w8.s
+        w4 = nf4_weight(torch, quant, gen, "cuda", k, n)
+        deq, deq32 = w4.dequant(), w4.dequant_f32()
+        xb = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        xf = torch.randn((m, k), generator=gen, device="cuda")
+        if (ik._route(m, k, n, xb.dtype), nk._route(m, k, n, xb.dtype),
+                ik._route(m, k, n, xf.dtype), nk._route(m, k, n, xf.dtype)) != (
+                "simt", "mma", "f32mma", "f32mma"):
+            raise AssertionError(f"beam kernels {site}: routes at M = {m} changed")
+        cases = (
+            ("int8_dot", "simt", xb, lambda x: ik._launch(x, q, s, "simt"),
+             lambda x: ik.int8_dot_reference(x, q, s),
+             lambda x: torch.matmul(x, q.to(x.dtype)) * s, int8_bytes(m, k, n, 2)),
+            ("int8_dot", "mma", xb, lambda x: ik._launch(x, q, s, "mma"),
+             lambda x: ik.int8_dot_reference(x, q, s),
+             lambda x: torch.matmul(x, q.to(x.dtype)) * s, int8_bytes(m, k, n, 2)),
+            ("int8_dot", "f32mma", xf, lambda x: ik._launch(x, q, s, "f32mma"),
+             lambda x: ik.int8_dot_reference(x, q, s),
+             lambda x: torch.matmul(x, q.to(x.dtype)) * s, int8_bytes(m, k, n, 4)),
+            ("nf4_dot", "mma", xb, lambda x: nk._launch(x, w4, "mma"),
+             lambda x: nk.nf4_dot_reference(x, w4), lambda x: torch.matmul(x, deq),
+             nf4_bytes(m, k, n, 2)),
+            ("nf4_dot", "f32mma", xf, lambda x: nk._launch(x, w4, "f32mma"),
+             lambda x: nk.nf4_dot_reference(x, w4), lambda x: torch.matmul(x, deq32),
+             nf4_bytes(m, k, n, 4)))
+        for kname, route, x, launch, plain, library, nbytes in cases:
+            ref = plain(x)
+            y = launch(x)
+            torch.cuda.synchronize()
+            err = (check_f32(kname, f"{site} {route} M={m}", y, ref) if x.dtype == torch.float32
+                   else check_bf16(torch, kname, f"{site} {route}", x, y, ref))
+            ops = 2 * m * k * n
+            rate = flops / F32_TERMS if x.dtype == torch.float32 else flops
+            rows.append({"kernel": kname, "route": route, "dtype": str(x.dtype)[6:],
+                         "site": site, "M": m, "K": k, "N": n, "max_abs_err": err,
+                         "ms": cuda_ms(lambda: launch(x), torch, flush=flush),
+                         "plain_ms": cuda_ms(lambda: plain(x), torch, flush=flush),
+                         "library_ms": cuda_ms(lambda: library(x), torch, flush=flush),
+                         "bound_ms": max(nbytes / bw, ops / rate) * 1e3,
+                         "bound_by": "bytes" if nbytes / bw >= ops / rate else "operations"})
+        del w8, q, s, w4, deq, deq32
+    del flush
+    layers = {}
+    for kname, route in sorted({(r["kernel"], r["route"]) for r in rows}):
+        mine = [r for r in rows if (r["kernel"], r["route"]) == (kname, route)]
+        layers[f"{kname} {route} {mine[0]['dtype']}"] = {
+            key: sum(r[key] for r in mine)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        layers[f"{kname} {route} {mine[0]['dtype']}"]["max_abs_err"] = max(
+            r["max_abs_err"] for r in mine)
+    log("beam kernels at M = 4, one layer (L2 cold): " + "; ".join(
+        f"{key} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, library {v['library_ms']:.4f}, "
+        f"bound {v['bound_ms']:.4f})" for key, v in layers.items()))
+    return {"rows": rows, "per_layer": layers}
+
+
+def beam_device_ms(torch, cfg, last) -> dict:
+    """Device ms (CUDA events, the stream kept busy) of the final stage's
+    captured step at T = 1 on its batch-BEAMS lease against its batch-1
+    lease (cache bucket 128), and of the captured top-N graph."""
+    steps = {}
+    for key, e in last.graphs.entries():
+        if key[1] == 1 and key[2] == 128 and key[4] == torch.bfloat16:
+            steps.setdefault(e.k.shape[1], e)
+    if set(steps) < {1, BEAMS}:
+        raise AssertionError(f"beam: the final stage holds T = 1 steps of batches "
+                             f"{sorted(steps)}")
+    topn = last.sampler._graphs[("topn", BEAMS, cfg.vocab_size, 2 * BEAMS)]
+    return {"final_stage_step_ms": {f"batch {b}": cuda_ms(steps[b].graph.graph.replay, torch,
+                                                          reps=50, spin=True)
+                                    for b in (1, BEAMS)},
+            "topn_graph_ms": cuda_ms(topn.graph.graph.replay, torch, reps=50, spin=True)}
+
+
+def beam_path(torch, kernels, tmain, state, bw: float, flops: float, smi: str) -> dict:
+    """Step 12d: beam search on the int8 path (BEAMS = 4 beams, 32 new
+    tokens, length penalty 1, no EOS, the first prompt), on the executors
+    of the earlier phases. In process twice (the second run's host syncs
+    counted), a plain greedy request beside; over in-process TCP at wire
+    f32 twice; each run's tokens and each step's candidates held to the
+    unsplit beam oracle (`hold_beam`), `int8_dot`'s launches by route
+    exactly, no capture on a second run, one host sync a beam step in
+    process, each stage's arena holding BEAMS rows of the batch-1 lease's
+    bytes after the growth and its old bytes after the session. The
+    in-place reorder checked against a captured step's replay
+    (`reorder_check`), with the out-of-range refusal; a failover with the
+    journal bounded at 2 entries (reorders composed by merges): the pinned
+    stage-2 peer killed after its 3rd beam step, a replica replayed, the
+    fault-free tokens. Device ms of the final stage's step at batch 4 and
+    1, the top-N graph and the reorder; the kernels at M = 4
+    (`beam_kernel_rows`). Returns the summary."""
+    from importlib import import_module
+
+    client_mod = import_module(PORT + ".runtime.client")
+    executor_mod = import_module(PORT + ".runtime.executor")
+    t_phase = time.monotonic()
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    local._routes.clear()
+    executors = path_executors(local)
+    ids = state["prompt_ids"][0]
+    stage0_layers = local.plan.stages[0].num_layers
+    view = {"num_beams": BEAMS, "new_tokens": MAX_NEW_TOKENS, "prompt_tokens": len(ids),
+            "card": smi}
+    t0 = time.monotonic()
+    oracle = beam_oracle(torch, cfg, state["ref_params"], ids, MAX_NEW_TOKENS, BEAMS)
+    view["oracle"] = {"tokens": oracle["tokens"], "score": oracle["score"],
+                      "seconds": time.monotonic() - t0}
+    # (a) In process: the arena read at the second beam step's first hop
+    # (every stage grown by then), the second run's syncs counted. The
+    # route's peers are the ones called (an earlier failover may have left
+    # a stage with a dead peer beside its replica).
+    arenas = [ex.arena for ex in executors]
+    used_before = [a.used_bytes for a in arenas]
+    one_row = [a.bytes_for(128, a.num_layers, 1) for a in arenas]
+    grown, called = [], {local.stage0.peer_id}
+
+    def read_arenas(peer_id, req):
+        called.add(peer_id)
+        if not grown and req.cur_len == len(ids) + 1 and not req.is_replay:
+            grown.extend(a.used_bytes - u for a, u in zip(arenas, used_before))
+
+    runs = [beam_run(torch, kernels, "int8_dot", local, executors, ids, on_call=read_arenas),
+            beam_run(torch, kernels, "int8_dot", local, executors, ids, syncs=True)]
+    need = beam_launches(cfg, stage0_layers, False, "simt")
+    view["in_process"] = beam_gates(torch, "beam in process", "int8_dot", runs, need, oracle,
+                                    cfg, state["ref_params"], ids)
+    routed = [ex.peer_id in called for ex in executors]
+    want = [BEAMS * r if on else 0 for r, on in zip(one_row, routed)]
+    if grown != want or sum(routed) != local.plan.num_stages:
+        raise AssertionError(f"beam: arena bytes after the growth {grown}, want {want}")
+    after = [a.used_bytes for a in arenas]
+    free_ok = all(a._free_bytes + a.used_bytes <= a.max_bytes
+                  and any(shape[1] == BEAMS and pairs for shape, pairs in a._free.items())
+                  for a, on in zip(arenas, routed) if on)
+    if after != used_before or not free_ok:
+        raise AssertionError(f"beam: arena bytes after the session {after}, before "
+                             f"{used_before}; free lists {[a._free_bytes for a in arenas]}")
+    if runs[1]["syncs"] != MAX_NEW_TOKENS:
+        raise AssertionError(f"beam: {runs[1]['syncs']} host syncs for {MAX_NEW_TOKENS} "
+                             "beam steps, want one a step")
+    view["in_process"].update(syncs=runs[1]["syncs"], arena_grown_bytes=grown,
+                              arena_one_row_bytes=one_row,
+                              route=[ex.peer_id for ex, on in zip(executors, routed) if on])
+    # Stage 0 first, then the route's stages in order.
+    on_route = sorted((ex for ex, on in zip(executors, routed) if on), key=lambda ex: ex.spec.index)
+    log(f"beam in process: {runs[1]['syncs']} host syncs for {MAX_NEW_TOKENS} steps; arena "
+        f"bytes after the growth {grown} (BEAMS x {one_row}), back to {after} after it")
+    plain = local.generate(ids, MAX_NEW_TOKENS, sampling=state["requests"][0][1])
+    view["in_process"]["plain_greedy"] = {
+        "ms_per_token": 1e3 * statistics.median(plain.decode_times_s),
+        "ttft_ms": 1e3 * plain.ttft_s}
+    # (b) The in-place reorder against a captured step's replay, the range
+    # error; device times.
+    view["reorder_check"] = reorder_check(torch, cfg, on_route[1], len(ids))
+    view["device_ms"] = beam_device_ms(torch, cfg,
+                                       next(ex for ex in on_route if ex.spec.is_last))
+    view["device_ms"]["reorder"] = reorder_ms(torch, cfg, stage0_layers, bw)
+    log(f"beam device ms: {view['device_ms']}")
+    # (c) Over TCP at wire f32.
+    t0 = time.monotonic()
+    client, servers, registry_srv, saved = spec_tcp_stages(torch, tmain, local, "f32")
+    try:
+        tcp_runs = [beam_run(torch, kernels, "int8_dot", client, executors, ids)
+                    for _ in range(2)]
+    finally:
+        spec_tcp_close(local, client, servers, registry_srv, saved)
+    view["tcp_f32"] = beam_gates(torch, "beam tcp f32", "int8_dot", tcp_runs,
+                                 beam_launches(cfg, stage0_layers, True, "simt"), oracle,
+                                 cfg, state["ref_params"], ids)
+    view["tcp_f32"]["seconds"] = time.monotonic() - t0
+    # (d) Failover in process, the journal bounded at 2 entries.
+    spec2 = local.plan.stages[2]
+    replica_id = "beam-stage2-replica"
+    local.transport.add_peer(replica_id, executor_mod.StageExecutor(
+        cfg, spec2, tmain._stage_params(args, cfg, state["params"], spec2), peer_id=replica_id,
+        device=torch.device(args.device), act_dtype=torch.bfloat16))
+    local.registry.register(client_mod.make_server_record(replica_id, spec2, model=MODEL))
+    seen = {"pinned": None, "steps": 0, "journal": None, "replayed": []}
+
+    def kill_stage2(peer_id, req):
+        if req.start_block != spec2.start:
+            return
+        if req.is_replay:
+            if seen["journal"] is None:
+                seen["journal"] = [e.hypo_ids for e in
+                                   local.journal[f"stage{spec2.index}"][req.session_id]]
+            seen["replayed"].append((req.hidden.shape[0], req.hypo_ids))
+            return
+        if seen["pinned"] is None:
+            seen["pinned"] = peer_id
+        elif peer_id == seen["pinned"]:
+            seen["steps"] += 1
+            if seen["steps"] == KILL_AFTER_DECODES:
+                local.transport.kill(peer_id)
+
+    saved_journal = local.journal_max_entries
+    local.journal_max_entries = 2
+    try:
+        fail = beam_run(torch, kernels, "int8_dot", local, executors + [
+            local.transport.executor(replica_id)], ids, on_call=kill_stage2)
+    finally:
+        local.journal_max_entries = saved_journal
+    want = view["in_process"]["tokens"]
+    journal = seen["journal"] or []
+    if (fail["recoveries"] < 1 or fail["tokens"] != want or len(journal) > 3
+            or not journal or journal[0] is None or seen["replayed"][0][1] is not None):
+        raise AssertionError(f"beam failover: {fail['recoveries']} recoveries, journal "
+                             f"{journal}, replayed {seen['replayed']}; tokens {fail['tokens']} "
+                             f"want {want}")
+    view["failover"] = {"killed": seen["pinned"], "replica": replica_id,
+                        "recoveries": fail["recoveries"], "journal_at_replay": journal,
+                        "replayed": seen["replayed"], "tokens_equal_fault_free": True,
+                        "recovery_step_ms": max(fail["step_ms"]),
+                        "ms_per_step": fail["ms_per_step"]}
+    log(f"beam failover: {seen['pinned']} killed after {KILL_AFTER_DECODES} beam steps, the "
+        f"replica replayed {seen['replayed']} (journal {journal}: the reorders composed "
+        f"into the prefill's rows), recovery step {max(fail['step_ms']):.1f} ms, tokens "
+        "equal the fault-free run's")
+    # (e) The kernels at M = BEAMS.
+    view["kernels_m4"] = beam_kernel_rows(torch, kernels["int8_dot"], kernels["nf4_dot"], bw,
+                                          flops)
+    view["seconds"] = time.monotonic() - t_phase
+    log(f"beam path: {view['seconds']:.1f}s")
+    return view
+
+
+def beam_nf4(torch, kernels, tmain, state, smi: str) -> dict:
+    """Step 12d's NF4 part: the NF4 path's stages 1-3 over in-process TCP
+    at wire bf16, the beam search twice, held to the NF4 oracle; `nf4_dot`'s
+    launches by route exactly (stage 0's beam steps on its tensor cores,
+    stages 1-3 on "f32mma"), no capture on the second run."""
+    local, cfg = state["client"], state["cfg"]
+    executors = path_executors(local)
+    ids = state["prompt_ids"][0]
+    t0 = time.monotonic()
+    oracle = beam_oracle(torch, cfg, state["ref_params"], ids, MAX_NEW_TOKENS, BEAMS)
+    client, servers, registry_srv, saved = spec_tcp_stages(torch, tmain, local, "bf16")
+    try:
+        runs = [beam_run(torch, kernels, "nf4_dot", client, executors, ids) for _ in range(2)]
+    finally:
+        spec_tcp_close(local, client, servers, registry_srv, saved)
+    view = beam_gates(torch, "beam nf4 tcp bf16", "nf4_dot", runs,
+                      beam_launches(cfg, local.plan.stages[0].num_layers, True, "mma"),
+                      oracle, cfg, state["ref_params"], ids)
+    view.update(wire_dtype="bf16", seconds=time.monotonic() - t0, card=smi)
+    return view
+
+
 def oracle_logits(torch, cfg, params, ids, cache_dtype=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
     logits after `ids` (one prefill)."""
@@ -6703,6 +7369,10 @@ def main(argv) -> int:
     log(json.dumps({"speculative_path": spec}))
     gc.collect()
     torch.cuda.empty_cache()
+    beam = beam_path(torch, kernel_mods, tmain, state, bw, flops, smi)
+    log(json.dumps({"beam_path": beam}))
+    gc.collect()
+    torch.cuda.empty_cache()
     # What the CLI drives compare with; the weights go.
     int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
@@ -6715,6 +7385,8 @@ def main(argv) -> int:
                            failover=False, wire="bf16")
     spec["nf4_tcp_bf16"] = speculative_nf4(torch, kernel_mods, tmain, state, smi)
     log(json.dumps({"speculative_nf4": spec["nf4_tcp_bf16"]}))
+    beam["nf4_tcp_bf16"] = beam_nf4(torch, kernel_mods, tmain, state, smi)
+    log(json.dumps({"beam_nf4": beam["nf4_tcp_bf16"]}))
     tele = telemetry_phase(torch, tmain, nk, state, smi)
     nf4_summary["failover"] = tele.pop("failover")
     log(json.dumps({"nf4_path": nf4_summary, "card": smi}))
@@ -6788,6 +7460,7 @@ def main(argv) -> int:
     log(json.dumps({"control_cli_path": control["cli"]}))
     log(f"control-plane phases: {control['seconds']:.1f}s in process, "
         f"{control['cli']['seconds']:.1f}s as processes")
+    log(f"beam phases: {beam['seconds']:.1f}s int8, {beam['nf4_tcp_bf16']['seconds']:.1f}s NF4")
     log(f"speculative phases: {spec['seconds']:.1f}s in process (int8), "
         f"{spec['nf4_tcp_bf16']['seconds']:.1f}s NF4, the CLI client in the batched CLI "
         f"drive ({spec['cli']['seconds']:.1f}s with its two plain clients)")
@@ -6845,6 +7518,16 @@ def main(argv) -> int:
     kernels[2]["speculative_path"]["batched_garbage"] = spec["batched"]["garbage"][
         "sample_draw_launches"]
     kernels[2]["speculative_path"]["verify_draw"] = spec["sample_draw_verify"]
+    # The beam path's runs (each counted alone), by route, and each route's
+    # layer at M = BEAMS.
+    m4 = beam["kernels_m4"]["per_layer"]
+    kernels[0]["beam_path"] = {
+        "in_process": beam["in_process"]["int8_dot_launches_by_route"],
+        "tcp_f32": beam["tcp_f32"]["int8_dot_launches_by_route"],
+        "at_m4": {k: v for k, v in m4.items() if k.startswith("int8_dot")}}
+    kernels[1]["beam_path"] = {
+        "tcp_bf16": beam["nf4_tcp_bf16"]["nf4_dot_launches_by_route"],
+        "at_m4": {k: v for k, v in m4.items() if k.startswith("nf4_dot")}}
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -90,7 +90,20 @@ batched peers where a stage has one, as plain sessions do. After each
 round the hop journals (or the chain journal) drop the step's rejected
 rows (`_amend_speculative_journal`).
 
-Beam decoding and deep prompts are not ported yet.
+Beam search (``beam_search``, the reference's ``client.py:1747-1864``):
+the prompt is prefilled once at batch 1; every later step sends the
+surviving hypotheses' last tokens as one batch with ``hypo_ids``, the KV
+row each continues from (``(0,) * num_beams`` at the first step grows every
+stage's session to num_beams rows; an identity reorder is sent as None),
+and ``num_logprobs = 2 * num_beams``, so the final stage answers each
+row's top candidates. The client keeps the reference's candidate pool,
+stable sort, EOS and length-penalty rules. Beam sessions route as the
+"exotic" kind, around the batched engines, which refuse both fields.
+Each hop journals its reorder with the activation; `_merge_entries`
+composes the reorders of two coalesced entries, and a replay sends each
+entry's reorder but the first's.
+
+Deep prompts are not ported yet.
 
 Deliberate difference: journal entries keep the activation tensor on its
 device (tensors are never modified after they are sent), where the
@@ -296,12 +309,39 @@ class JournalEntry:
     hidden: torch.Tensor     # [B, T, D] activation as sent
     seq_len: int
     cur_len: int             # session length before this entry
+    # The beam reorder the entry's step applied before it (None: none).
+    hypo_ids: Optional[Tuple[int, ...]] = None
 
 
 def _merge_entries(a: JournalEntry, b: JournalEntry) -> JournalEntry:
-    """Coalesce two adjacent journal entries into one replayable chunk."""
-    return JournalEntry(hidden=torch.cat([a.hidden, b.hidden], dim=1),
-                        seq_len=a.seq_len + b.seq_len, cur_len=a.cur_len)
+    """Coalesce two adjacent journal entries into one replayable chunk.
+
+    A reorder of `b` is hoisted to the front of the merged chunk by
+    composition (the reference's ``client.py:222-243``): replaying
+    ``[reorder p_a; A; reorder p_b; B]`` equals ``[reorder p_a∘p_b; A[p_b];
+    B]``: merged row j takes its A rows from A's row ``p_b[j]`` and its
+    prefix KV from row ``p_a[p_b[j]]`` (rows attend only to their own KV,
+    so permuting whole rows commutes with the step). Without it no pair
+    that carries a reorder could merge, and a beam session's journal would
+    grow without bound."""
+    if b.hypo_ids is None:
+        hidden, hypo = torch.cat([a.hidden, b.hidden], dim=1), a.hypo_ids
+    else:
+        sel = torch.tensor(b.hypo_ids, dtype=torch.int64).to(a.hidden.device,
+                                                              non_blocking=True)
+        hidden = torch.cat([a.hidden.index_select(0, sel), b.hidden], dim=1)
+        hypo = (tuple(b.hypo_ids) if a.hypo_ids is None
+                else tuple(a.hypo_ids[i] for i in b.hypo_ids))
+    return JournalEntry(hidden=hidden, seq_len=a.seq_len + b.seq_len,
+                        cur_len=a.cur_len, hypo_ids=hypo)
+
+
+@dataclasses.dataclass
+class BeamResult:
+    tokens: List[int]        # the best hypothesis (new tokens only)
+    score: float             # its length-normalized log-probability
+    num_beams: int
+    ttft_s: float
 
 
 @dataclasses.dataclass
@@ -622,7 +662,8 @@ class PipelineClient:
                 session_id=session_id, hidden=e.hidden, seq_len=e.seq_len,
                 cur_len=e.cur_len, is_prefill=(i == 0), is_replay=True,
                 max_length=max_length, sampling=sampling,
-                start_block=hop.start_block, end_block=hop.end_block)
+                start_block=hop.start_block, end_block=hop.end_block,
+                hypo_ids=None if i == 0 else e.hypo_ids)
             self.transport.call(hop.peer_id, req, self.request_timeout)
         _ev.emit("replay_done", session_id=session_id, peer=hop.peer_id,
                  tokens=tokens, seconds=round(time.monotonic() - t0, 4))
@@ -732,12 +773,16 @@ class PipelineClient:
               root, prefix_len: int = 0, affinity: Optional[str] = None,
               deadline_at: Optional[float] = None, kind: str = PLAIN,
               draft_tokens: Optional[Tuple[int, ...]] = None,
-              start_from_position: Optional[int] = None) -> StageResponse:
+              start_from_position: Optional[int] = None,
+              hypo_ids: Optional[Tuple[int, ...]] = None,
+              num_logprobs: int = 0) -> StageResponse:
         """Send the activation through every remote hop of the session's
         route (keyed by its `kind`, its `max_length` and prompt-head
         `affinity`), each call through the recovery wrapper; return the
-        final hop's response (a sampled token, or with `draft_tokens` the
-        verified run). Every hop gets the drafts and `start_from_position`.
+        final hop's response (a sampled token, with `draft_tokens` the
+        verified run, with ``num_logprobs > 0`` each row's top candidates).
+        Every hop gets the drafts, `start_from_position`, the beam reorder
+        `hypo_ids` (journaled with the activation) and `num_logprobs`.
         A prefill carries `prefix_len` to every hop;
         every hop the budget left of `deadline_at` as it is sent (earlier
         hops' time already spent) and the session's priority. `root` is
@@ -764,7 +809,8 @@ class PipelineClient:
                 sampling=sampling, generated_tokens=clip_generated(generated),
                 step_seed=step_seed, start_block=hop.start_block,
                 end_block=hop.end_block, draft_tokens=draft_tokens,
-                start_from_position=start_from_position,
+                start_from_position=start_from_position, hypo_ids=hypo_ids,
+                num_logprobs=num_logprobs,
                 prefix_len=prefix_len if is_prefill else 0,
                 trace=root.wire_context(hop=i) if root else None,
                 deadline_budget_s=budget,
@@ -786,11 +832,17 @@ class PipelineClient:
             # Journal AFTER success: replay rebuilds exactly the applied
             # history.
             self._journal_append(hop.key, session_id,
-                                 JournalEntry(cur, seq_len, cur_len))
+                                 JournalEntry(cur, seq_len, cur_len, hypo_ids))
             if hop.expect_token:
-                if draft_tokens is not None and not resp.is_speculative:
-                    raise RuntimeError(f"final hop {hop.key} returned no verified tokens")
-                if draft_tokens is None and not resp.is_token:
+                if num_logprobs > 0:
+                    if not resp.is_beam:
+                        raise RuntimeError(f"final hop {hop.key} returned no beam "
+                                           "candidates")
+                elif draft_tokens is not None:
+                    if not resp.is_speculative:
+                        raise RuntimeError(f"final hop {hop.key} returned no verified "
+                                           "tokens")
+                elif not resp.is_token:
                     raise RuntimeError(f"final hop {hop.key} returned no token")
                 return resp
             if resp.hidden is None:
@@ -1208,7 +1260,7 @@ class PipelineClient:
             e = entries[-1] if entries else None
             if e is not None and e.cur_len + e.seq_len == end and e.seq_len > drop:
                 n = e.seq_len - drop
-                entries[-1] = JournalEntry(e.hidden[:, :n], n, e.cur_len)
+                entries[-1] = JournalEntry(e.hidden[:, :n], n, e.cur_len, e.hypo_ids)
 
     def _discover_burst_peer(self, exclude: Tuple[str, ...] = ()) -> Optional[str]:
         """A live batched final-stage peer that spans the whole model, the
@@ -1335,6 +1387,117 @@ class PipelineClient:
         yield GenerationStep(new_tokens=[], done=True, result=GenerationResult(
             tokens=generated, ttft_s=ttft, decode_times_s=decode_times,
             stopped_by=stopped_by))
+
+    # ------------------------------------------------------------------
+    # Beam search: the client's bookkeeping; the servers reorder their KV
+    # rows by hypo_ids and the final stage answers top-N log-probs.
+    # ------------------------------------------------------------------
+
+    def beam_search(self, prompt_ids: Sequence[int], max_new_tokens: int = 64,
+                    num_beams: int = 4, *, length_penalty: float = 1.0,
+                    eos_token_id: Optional[int] = None,
+                    session_id: Optional[str] = None,
+                    max_length: Optional[int] = None) -> BeamResult:
+        """Distributed beam search (the reference's ``client.py:1747-1864``).
+        The session holds num_beams KV rows on every stage; each step sends
+        ``hypo_ids`` so the stages reorder their rows to the surviving
+        hypotheses before computing. The prompt is prefilled once at batch
+        1: the first decode step's ``(0,) * num_beams`` grows every stage's
+        rows, so no stage runs num_beams - 1 redundant prefills. Candidates:
+        each row's top ``2 * num_beams``, row-major, stably sorted by score;
+        an EOS candidate finishes a hypothesis, scored ``score / length **
+        length_penalty``; the search stops early once num_beams have
+        finished and the best of them beats the best live beam. Every
+        session lease is released at the end."""
+        if self.use_push_chain:
+            raise ValueError("beam search uses the per-hop walk; disable use_push_chain")
+        session_id = session_id or f"beam-{time.monotonic_ns():x}"
+        prompt_len = len(prompt_ids)
+        max_length = max_length or (prompt_len + max_new_tokens)
+        nb = num_beams
+        topn = 2 * nb  # the candidate pool a row (HF's convention)
+        tracer = get_tracer()
+
+        def step(ids: torch.Tensor, cur_len: int, hypo) -> StageResponse:
+            is_prefill = cur_len == 0
+            root = tracer.start_span("pipeline_step", kind="client", session_id=session_id,
+                                     phase="prefill" if is_prefill else "decode")
+            try:
+                s0_resp = self.stage0.forward(StageRequest(
+                    session_id=session_id, hidden=ids, seq_len=ids.shape[1],
+                    cur_len=cur_len, is_prefill=is_prefill, max_length=max_length,
+                    hypo_ids=hypo))
+                times: Dict[str, float] = {}
+                resp = self._walk(s0_resp.hidden, ids.shape[1], cur_len, session_id,
+                                  is_prefill=is_prefill, max_length=max_length,
+                                  sampling=SamplingParams(), stage_times=times, root=root,
+                                  kind=EXOTIC, hypo_ids=hypo, num_logprobs=topn)
+            finally:
+                root.end()
+            if is_prefill:
+                self.last_prefill_stage_times = times
+            return resp
+
+        def norm(score: float, length: int) -> float:
+            return score / (max(length, 1) ** length_penalty)
+
+        try:
+            t0 = time.monotonic()
+            # Ids are made on the host: stage 0 copies them without a sync.
+            resp = step(torch.tensor([list(prompt_ids)], dtype=torch.int64), 0, None)
+            ttft = time.monotonic() - t0
+            self._m_ttft.observe(ttft)
+            # The beams grow from the prefill's one row, under the EOS rule
+            # of every later step (an EOS first token is a finished
+            # one-token hypothesis, not a live beam).
+            beams: List[List[int]] = []
+            scores: List[float] = []
+            finished: List[Tuple[float, List[int]]] = []
+            for tok, lp in zip(resp.top_tokens[0], resp.top_logprobs[0]):
+                if eos_token_id is not None and tok == eos_token_id:
+                    finished.append((norm(float(lp), 1), [int(tok)]))
+                    continue
+                beams.append([int(tok)])
+                scores.append(float(lp))
+                if len(beams) == nb:
+                    break
+            identity = tuple(range(nb))
+            parents: Tuple[int, ...] = (0,) * nb
+            cur_len = prompt_len
+            for _ in range(1, max_new_tokens):
+                # An identity reorder carries nothing; as None it keeps the
+                # journal's entries coalescible without composition.
+                hypo = None if parents == identity else parents
+                resp = step(torch.tensor([[b[-1]] for b in beams], dtype=torch.int64),
+                            cur_len, hypo)
+                cur_len += 1
+                cands = []
+                for i in range(len(beams)):
+                    for tok, lp in zip(resp.top_tokens[i], resp.top_logprobs[i]):
+                        cands.append((scores[i] + float(lp), i, int(tok)))
+                cands.sort(key=lambda c: c[0], reverse=True)
+                new_beams, new_scores, new_parents = [], [], []
+                for score, parent, tok in cands:
+                    if eos_token_id is not None and tok == eos_token_id:
+                        finished.append((norm(score, len(beams[parent]) + 1),
+                                         beams[parent] + [tok]))
+                        continue
+                    new_beams.append(beams[parent] + [tok])
+                    new_scores.append(score)
+                    new_parents.append(parent)
+                    if len(new_beams) == nb:
+                        break
+                beams, scores, parents = new_beams, new_scores, tuple(new_parents)
+                if finished and len(finished) >= nb:
+                    if max(f[0] for f in finished) >= norm(max(scores), len(beams[0])):
+                        break
+            for score, beam in zip(scores, beams):
+                finished.append((norm(score, len(beam)), beam))
+            finished.sort(key=lambda f: f[0], reverse=True)
+            return BeamResult(tokens=finished[0][1], score=finished[0][0], num_beams=nb,
+                              ttft_s=ttft)
+        finally:
+            self._end_session(session_id)
 
     def _end_session(self, session_id: str) -> None:
         self.stage0.drop_session(session_id)

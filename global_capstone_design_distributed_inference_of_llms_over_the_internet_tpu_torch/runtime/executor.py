@@ -36,8 +36,20 @@ form (``runtime/graphs.py``, ``ops.sampling.speculative_verify_rows``):
 every position's target, uniform, residual and draw on the device, one
 `sample_draw` over the T rows, one sync.
 
+Beam search as in the reference (``executor.py:504-531``, ``:638-650``):
+a decode step with ``hypo_ids`` first reorders the session's KV rows, row
+j continuing from row ``hypo_ids[j]`` (range-checked on the host), in place
+in the lease's buffers (`KVHandle.reorder`), or, when the step's batch is
+another one (the first beam step grows a batch-1 prefill to num_beams
+rows), by moving the session to a buffer pair of the new shape with the
+rows gathered into it (`KVArena.resize_batch`; a full arena is a
+`StageExecutionError`, so the client fails over). On the final stage a
+step with ``num_logprobs > 0`` answers each row's top-N candidates of the
+float32 log-softmax of its last position instead of a token, from the
+captured top-N form of the sampler, read back in one sync.
+
 Differences from the reference's engine: offload, tensor parallelism, deep
-prompts, beam search, burst decode (the batched engine's) and training are
+prompts, burst decode (the batched engine's) and training are
 not ported: a request that asks for one is refused with a
 `StageExecutionError` naming its field (the TCP server sends it back as a
 ``kind: "stage"`` error frame). A push chain's
@@ -150,9 +162,7 @@ def verify_drafts_from_logits(logits2d: torch.Tensor, req: StageRequest,
 def _unported_field(req: StageRequest) -> Optional[str]:
     """The first request field this executor does not implement that the
     request sets, or None."""
-    for name, is_set in (("hypo_ids", req.hypo_ids is not None),
-                         ("num_logprobs", req.num_logprobs > 0),
-                         ("prompts", req.prompts is not None),
+    for name, is_set in (("prompts", req.prompts is not None),
                          ("burst_len", req.burst_len > 0)):
         if is_set:
             return name
@@ -311,10 +321,6 @@ class StageExecutor:
             raise StageExecutionError(
                 f"session {req.session_id} was allocated for {handle.k.shape[0]} "
                 f"layers but the request covers {b - a}")
-        if handle.k.shape[1] != x.shape[0]:
-            raise StageExecutionError(
-                f"session {req.session_id} holds KV for batch {handle.k.shape[1]}, "
-                f"request batch is {x.shape[0]}")
         t_real = req.seq_len
         if x.shape[1] != t_real:
             raise StageExecutionError(f"seq_len {t_real} != tensor T {x.shape[1]}")
@@ -323,6 +329,10 @@ class StageExecutor:
             raise StageExecutionError(
                 f"speculative step carries {t_real} positions for "
                 f"{len(req.draft_tokens)} drafts (want K+1)")
+        if sub_spec.is_last and req.num_logprobs > self.cfg.vocab_size:
+            raise StageExecutionError(
+                f"num_logprobs {req.num_logprobs} exceeds the vocabulary "
+                f"({self.cfg.vocab_size})")
         if req.start_from_position is not None and not req.is_prefill:
             # Session rewind: drop the rows past the client's position (the
             # previous speculative round's rejected overhang).
@@ -330,6 +340,12 @@ class StageExecutor:
                 handle.rewind(req.start_from_position)
             except ValueError as exc:
                 raise StageExecutionError(str(exc)) from exc
+        if req.hypo_ids is not None and not req.is_prefill:
+            handle = self._reorder(req, handle, x.shape[0])
+        if handle.k.shape[1] != x.shape[0]:
+            raise StageExecutionError(
+                f"session {req.session_id} holds KV for batch {handle.k.shape[1]}, "
+                f"request batch is {x.shape[0]}")
         handle.admit(t_real)
 
         skip, pfx_outs, pfx_register = 0, [], []
@@ -366,6 +382,11 @@ class StageExecutor:
         if sub_spec.is_last:
             if req.draft_tokens is not None:
                 return self._verify_drafts(req, outs, handle)
+            if req.num_logprobs > 0:
+                # Beam mode: each row's top-N candidates, no sampling.
+                top, logp = self.sampler.top_logprobs(outs[-1][:, -1], req.num_logprobs)
+                return StageResponse(session_id=req.session_id, cache_len=handle.cache_len,
+                                     top_tokens=top, top_logprobs=logp)
             tokens = _sample_rows(outs[-1], outs[-1].shape[1], req, self.sampler)
             return StageResponse(
                 session_id=req.session_id, token_id=tokens[0],
@@ -377,6 +398,31 @@ class StageExecutor:
         out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
         return StageResponse(session_id=req.session_id, hidden=out,
                              cache_len=handle.cache_len)
+
+    def _reorder(self, req: StageRequest, handle: KVHandle, batch: int) -> KVHandle:
+        """The beam reorder before the step (petals ``backend.py:154-158``):
+        hypothesis j continues from KV row ``hypo_ids[j]``. The ids are
+        range-checked on the host first: on the card an out-of-range
+        `index_select` is a device-side assert that ends the process's CUDA
+        context (the reference checks because ``jnp.take`` clamps). A step
+        of another batch (``(0,) * nb`` grows a batch-1 prefill) moves the
+        session to a buffer pair of that shape, the rows gathered into it;
+        an arena too full to grow is a stage error, so the client fails
+        over to a replica that can hold the rows."""
+        ids = tuple(int(i) for i in req.hypo_ids)
+        if len(ids) != batch:
+            raise StageExecutionError(f"hypo_ids has {len(ids)} rows, batch is {batch}")
+        old_batch = handle.k.shape[1]
+        if ids and (min(ids) < 0 or max(ids) >= old_batch):
+            raise StageExecutionError(
+                f"hypo_ids {ids} out of range for KV batch {old_batch}")
+        if batch == old_batch:
+            handle.reorder(ids)
+            return handle
+        try:
+            return self.arena.resize_batch(req.session_id, batch, ids)
+        except AllocationFailed as exc:
+            raise StageExecutionError(str(exc)) from exc
 
     def _verify_drafts(self, req: StageRequest, outs, handle: KVHandle) -> StageResponse:
         """The final stage's speculative verification over the logits of

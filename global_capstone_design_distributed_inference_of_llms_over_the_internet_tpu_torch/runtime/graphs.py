@@ -46,7 +46,12 @@ one graph per (requests, K + 1, vocabulary)): each request's vector
 (`pack_verify_inputs`) carries its knobs, its drafts and the host loop's
 schedule (each position's window and keys, ``ops.sampling.
 verify_schedule``), and a call reads back every request's accepted run
-and count at once.
+and count at once. Its fourth form is a beam step's candidates
+(`Sampler.top_logprobs`, one graph per (rows, vocabulary, N)): each row's
+top N of the float32 log-softmax (the reference's ``jax.nn.log_softmax``
+and ``jax.lax.top_k``, ``runtime/executor.py:638-650``), the log-probs and
+the token ids packed into one float64 tensor (ids below 2^53 are exact
+there) and read back at once; it takes no host value.
 """
 
 from __future__ import annotations
@@ -357,13 +362,22 @@ def verify_rows_packed(logits: torch.Tensor, packed: torch.Tensor) -> torch.Tens
         floats[:, 0], floats[:, 1], packed[:, 0], floats[:, 2])
 
 
+def top_logprobs_packed(logits: torch.Tensor, n: int) -> torch.Tensor:
+    """float64 [B, 2n] of logits [B, V]: row b's n greatest float32
+    log-softmax values in descending order, then their token ids. Device
+    work only: what `Sampler.top_logprobs` captures."""
+    vals, idx = torch.topk(torch.log_softmax(logits.float(), dim=-1), n, dim=-1)
+    return torch.cat([vals.double(), idx.double()], dim=-1)
+
+
 class _SamplerGraph:
     """One captured sampler: its static logits, its packed scalars staged
-    from the host (`StagedInts`) and its graph."""
+    from the host (`StagedInts`; None for a form that takes none) and its
+    graph."""
 
     def __init__(self, logits_shape, packed_shape, device: torch.device):
         self.logits = torch.zeros(logits_shape, dtype=torch.float32, device=device)
-        self.packed = StagedInts(packed_shape, device)
+        self.packed = None if packed_shape is None else StagedInts(packed_shape, device)
         self.graph: Optional[Captured] = None
 
     def load(self, values: List[int], logits: torch.Tensor) -> None:
@@ -378,10 +392,11 @@ class Sampler:
     captured at first use and replayed; elsewhere the function runs
     directly. `captures` and `replays` count them.
 
-    Three forms: a call samples every row with one request's scalars (row
+    Four forms: a call samples every row with one request's scalars (row
     i keyed ``fold_in(base, i)``); `rows` samples row i with request i's
     own (`sample_rows_packed`); `verify` checks request b's drafts against
-    its logits [T, V] (`verify_rows_packed`)."""
+    its logits [T, V] (`verify_rows_packed`); `top_logprobs` gives each
+    row's top-N candidates of a beam step (`top_logprobs_packed`)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -417,6 +432,27 @@ class Sampler:
         out = self._run("verify", logits, values)
         return [(tuple(row[:row[-1] + 1]), row[-1]) for row in out]
 
+    def top_logprobs(self, logits: torch.Tensor, n: int
+                     ) -> Tuple[Tuple[Tuple[int, ...], ...], Tuple[Tuple[float, ...], ...]]:
+        """Each row's top-n candidates of logits [B, V] (on this device):
+        (tokens, log-probs), B tuples of n each, best first, read back at
+        once: one sync."""
+        if not self.enabled:
+            out = top_logprobs_packed(logits, n).tolist()
+        else:
+            with self._lock:
+                key = ("topn", *logits.shape, n)
+                entry = self._graphs.get(key)
+                if entry is None:
+                    entry = self._capture(key, lambda lg, _: top_logprobs_packed(lg, n),
+                                          tuple(logits.shape), None)
+                entry.logits.copy_(logits)
+                entry.graph.replay()
+                self.replays += 1
+                out = entry.graph.out.tolist()
+        return (tuple(tuple(int(t) for t in row[n:]) for row in out),
+                tuple(tuple(row[:n]) for row in out))
+
     def _run(self, form: str, logits: torch.Tensor, values: List[int]) -> list:
         fn, shape = {
             "one": (sample_packed, (PACKED_LEN,)),
@@ -432,19 +468,20 @@ class Sampler:
             key = (form, *logits.shape)
             entry = self._graphs.get(key)
             if entry is None:
-                entry = self._capture(key, fn, shape)
+                entry = self._capture(key, fn, tuple(logits.shape), shape)
             entry.load(values, logits)
             entry.graph.replay()
             self.replays += 1
             return entry.graph.out.tolist()
 
-    def _capture(self, key, fn, shape) -> _SamplerGraph:
+    def _capture(self, key, fn, logits_shape, shape) -> _SamplerGraph:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
-        entry = _SamplerGraph(key[1:], shape, self.device)
-        entry.graph = capture(lambda: fn(entry.logits, entry.packed.tensor),
-                              self._pool, self._stream)
+        entry = _SamplerGraph(logits_shape, shape, self.device)
+        entry.graph = capture(
+            lambda: fn(entry.logits, None if entry.packed is None else entry.packed.tensor),
+            self._pool, self._stream)
         self._graphs[key] = entry
         self.captures += 1
         return entry

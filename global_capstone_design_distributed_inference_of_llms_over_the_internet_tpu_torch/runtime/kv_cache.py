@@ -19,6 +19,15 @@ bytes count as free for admission (``used_bytes``, ``bytes_left`` and
 hooks told (the executor drops the graphs that read them), when an
 allocation of another shape needs the room. Each buffer pair keeps one
 ``slot`` number for its life, the key its graphs are filed under.
+
+The beam reorder follows from the same rule. `KVHandle.reorder` moves
+rows in place in the lease's own buffers (the reference rebinds the cache
+to a new array, ``jnp.take``, which would leave every captured step of the
+lease reading the old rows), and only the valid positions ``[:cache_len]``.
+`KVArena.resize_batch` charges the reference's per-row bytes for a batch
+that grows or shrinks, and also swaps the buffers: the session takes a
+pair of the new shape (free-listed, with its slot and graphs, or new) with
+the rows gathered into it, and its old pair goes on the free list.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import dataclasses
 import itertools
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -56,6 +65,15 @@ def round_to_bucket(n: int, buckets: Tuple[int, ...]) -> int:
 
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
+
+
+def _gather_rows(dst: torch.Tensor, src: torch.Tensor, ids: Sequence[int], n: int) -> None:
+    """``dst[:, j, :n] = src[:, ids[j], :n]`` for every row j of `dst`
+    (`dst` may be `src`). The ids cross to the device without a host sync."""
+    if n == 0:
+        return
+    index = torch.tensor(list(ids), dtype=torch.int64).to(src.device, non_blocking=True)
+    dst[:, :, :n].copy_(src[:, :, :n].index_select(1, index))
 
 
 @dataclasses.dataclass
@@ -91,6 +109,14 @@ class KVHandle:
         if not 0 <= position <= self.cache_len:
             raise ValueError(f"rewind to {position} outside [0,{self.cache_len}]")
         self.cache_len = position
+
+    def reorder(self, ids: Sequence[int]) -> None:
+        """The beam reorder: row j continues from row ``ids[j]``, in place
+        in the lease's own buffers (the captured steps read their
+        addresses), valid positions only: rows past ``cache_len`` are never
+        attended. The caller range-checks `ids` on the host."""
+        for buf in (self.k, self.v):
+            _gather_rows(buf, buf, ids, self.cache_len)
 
 
 class KVArena:
@@ -256,6 +282,76 @@ class KVArena:
             if not entries:
                 del self._free[shape]
         return released
+
+    def resize_batch(self, session_id: str, batch: int, ids: Sequence[int]) -> KVHandle:
+        """Re-lease a session for `batch` rows (beam expansion: a batch-1
+        prefill growing to num_beams rows at the first reorder). The
+        accounting is the reference's (``kv_cache.py:300-330``): per-row
+        bytes times the change in rows, charged at once; growth never waits
+        (two sessions growing against each other could deadlock), so an
+        arena that cannot grow raises `AllocationFailed` at once. The
+        buffers change too: the session takes a pair of the new shape from
+        the free list (its slot and graphs with it) or a new pair under a
+        new slot, row j of it gets the valid positions of old row
+        ``ids[j]`` (`ids` has `batch` rows), and the old pair goes on the
+        free list under its shape. The caller range-checks `ids` on the
+        host."""
+        with self._lock:
+            handle = self._handles.get(session_id)
+            if handle is None:
+                raise AllocationFailed(f"session {session_id} not allocated")
+            old_batch = int(handle.k.shape[1])
+            if batch == old_batch:
+                return handle
+            per_row = handle.nbytes // old_batch
+            delta = per_row * (batch - old_batch)
+            if delta > 0 and self.max_bytes - self._used_bytes < delta:
+                self._m_alloc_failures.inc()
+                raise AllocationFailed(
+                    f"arena full: cannot grow session {session_id} from batch "
+                    f"{old_batch} to {batch} (+{delta} bytes, {self.bytes_left} left)")
+            self._used_bytes += delta
+            shape = (handle.k.shape[0], batch, *handle.k.shape[2:])
+            reused = self._free.get(shape)
+            reused = reused.pop() if reused else None
+            if reused is not None:
+                self._free_bytes -= reused[3]
+                released = []
+            else:
+                released = self._release_free()
+        for slot in released:
+            for hook in self._release_hooks:
+                hook(slot)
+        try:
+            if reused is not None:
+                slot, k, v, _ = reused
+            else:
+                slot = next(self._slots)
+                k = torch.zeros(shape, dtype=self.dtype, device=self.device)
+                v = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        except BaseException:
+            with self._lock:
+                self._used_bytes -= delta
+                self._lock.notify_all()
+                self._m_alloc_failures.inc()
+                self._publish_occupancy()
+            raise
+        _gather_rows(k, handle.k, ids, handle.cache_len)
+        _gather_rows(v, handle.v, ids, handle.cache_len)
+        with self._lock:
+            self._free.setdefault(tuple(handle.k.shape), []).append(
+                (handle.slot, handle.k, handle.v, handle.nbytes))
+            self._free_bytes += handle.nbytes
+            handle.k, handle.v, handle.slot = k, v, slot
+            handle.nbytes += delta
+            released = self._release_free()
+            if delta < 0:
+                self._lock.notify_all()
+            self._publish_occupancy()
+        for slot in released:
+            for hook in self._release_hooks:
+                hook(slot)
+        return handle
 
     def add_release_hook(self, hook: Callable[[int], None]) -> None:
         """Call ``hook(slot)`` whenever a free-listed buffer pair is released."""

@@ -12,11 +12,14 @@ the reference's defaults, so that the TCP plane (``runtime/net.py``) builds
 one from any frame a client of either package sends. The deadline budget
 and the priority are honoured; so are speculative ``draft_tokens`` (the
 final stage verifies them and answers with the accepted run,
-``tokens`` / ``n_accepted``) and the ``start_from_position`` rewind. The
-other exotic fields (beam ``hypo_ids`` and ``num_logprobs``, deep
-``prompts``, burst decode on a session engine) are refused by the
-executor with a `StageExecutionError` that names the field, never
-ignored; push-chain ``next_servers`` are served by the transports.
+``tokens`` / ``n_accepted``), the ``start_from_position`` rewind and beam
+search: ``hypo_ids`` reorders (and may grow) a session's KV rows before
+the step, and ``num_logprobs > 0`` has the final stage answer each row's
+top-N candidates (``top_tokens`` / ``top_logprobs``) instead of a token.
+The other exotic fields (deep ``prompts``, burst decode on a session
+engine) are refused by the executor with a `StageExecutionError` that
+names the field, never ignored; push-chain ``next_servers`` are served by
+the transports.
 ``prefix_len`` marks a prefill's leading tokens shareable: a server with a
 prefix store (``runtime/prefix_cache.py``) reuses their stored KV, one
 without ignores it, as in the reference. The training fields and the
@@ -59,7 +62,7 @@ class StageRequest:
     # Session rewind to this position before the step.
     start_from_position: Optional[int] = None
     # Beam search: KV row each hypothesis continues from, and top-N
-    # logprobs instead of a sampled token (refused).
+    # logprobs instead of a sampled token.
     hypo_ids: Optional[Tuple[int, ...]] = None
     num_logprobs: int = 0
     # Speculative decoding: the K client-drafted tokens to verify.
@@ -100,6 +103,10 @@ class StageResponse:
     # Batch>1 sampling: one token per batch row (token_id mirrors row 0).
     token_ids: Optional[Tuple[int, ...]] = None
     cache_len: int = 0                     # server-side KV length after the step
+    # Beam mode (request.num_logprobs > 0): per batch row, the top-N
+    # continuation candidates of the final stage's logits.
+    top_tokens: Optional[Tuple[Tuple[int, ...], ...]] = None     # [B][N]
+    top_logprobs: Optional[Tuple[Tuple[float, ...], ...]] = None  # [B][N]
     # Burst mode (request.burst_len > 0): the tokens one burst emitted
     # (<= burst_len; the device's stop rules truncate it) and why it ended
     # early: None (budget or burst boundary), "eos" or "repeat". cache_len
@@ -127,6 +134,10 @@ class StageResponse:
     @property
     def is_speculative(self) -> bool:
         return self.tokens is not None
+
+    @property
+    def is_beam(self) -> bool:
+        return self.top_tokens is not None
 
 
 def clip_generated(tokens: Sequence[int], window: int = 50) -> Tuple[int, ...]:

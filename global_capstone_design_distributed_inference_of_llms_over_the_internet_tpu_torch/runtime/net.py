@@ -31,7 +31,9 @@ Components:
     ``decode_steps``. A forward answers with ``token``, ``hidden`` or, for
     a burst request to a full-span batched peer, ``burst`` (the tokens
     the burst emitted and why it stopped), or, for a speculative step on
-    the final stage, ``spec`` (the verified run and its accepted count).
+    the final stage, ``spec`` (the verified run and its accepted count),
+    or, for a beam step (``num_logprobs > 0``) on the final stage, ``beam``
+    (each row's top-N tokens and log-probs).
     A forward that names ``next_servers`` is a push chain: the handler
     thread, once the compute thread has handed back the response, sends
     the output on to the next hop over a pooled connection and relays that
@@ -48,7 +50,7 @@ Components:
     registry records (a record with ``relay_via`` is dialed at its
     volunteer, every frame stamped ``relay_to``), one persistent
     connection per peer, plain prefill and decode on streams (a burst
-    request and a draft step ride the classic frame), socket errors mapped onto the
+    request, a draft step and a beam step ride the classic frame), socket errors mapped onto the
     retryable taxonomy (``runtime/errors.py``; through a relay the breaker
     blames the volunteer).
   * `check_direct_reachability` (the dial-back vote), `attach_via_relay`
@@ -1219,6 +1221,16 @@ class TcpStageServer(_FramedTcpServer):
                 "cache_len": resp.cache_len,
             }
             body = b""
+        elif resp.is_beam:
+            # Each row's top-N candidates: the reference's "beam" reply
+            # (net.py:1359).
+            frame = {
+                "verb": "beam", "session_id": resp.session_id,
+                "cache_len": resp.cache_len,
+                "top_tokens": [list(r) for r in resp.top_tokens],
+                "top_logprobs": [list(r) for r in resp.top_logprobs],
+            }
+            body = b""
         elif req.next_servers:
             # Push chain, on this handler thread once the compute thread
             # has answered: the output goes straight to the next hop, whose
@@ -1606,6 +1618,14 @@ class TcpTransport(Transport):
                 tokens=tuple(header["tokens"]),
                 n_accepted=header["n_accepted"],
                 cache_len=header["cache_len"],
+                span=span,
+            )
+        if verb == "beam":
+            return StageResponse(
+                session_id=header["session_id"],
+                cache_len=header["cache_len"],
+                top_tokens=tuple(tuple(r) for r in header["top_tokens"]),
+                top_logprobs=tuple(tuple(r) for r in header["top_logprobs"]),
                 span=span,
             )
         if verb == "burst":
