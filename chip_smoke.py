@@ -442,6 +442,36 @@ on the kernels; it never prints the last line of a smoke pass.)
    site at M = 4 (``beam_kernel_rows``): ``int8_dot``'s "simt" and "mma"
    on bf16 x, ``nf4_dot``'s "mma", both "f32mma" on float32 x, each beside
    its plain version, the library and its bound.
+12e. Deep prompts and LoRA (after the beam path, on the int8 path's
+   executors; ``prompt_lora_path``). Deep prompts: seeded float32 prompts
+   [32 layers, PROMPT_PRE = 40, 4096] at scale PROMPT_SCALE (past the
+   first prompt's 30 tokens, so its first 10 decode steps are inside the
+   region), the greedy request in process plain, prompted, prompted, plain:
+   the prompted tokens held to an unsplit float32-cache greedy loop over
+   ``full_forward(prompts=...)`` and different from the plain run's; every
+   stage step inside the region (prefill included) on a prompt graph and
+   every step past it on the plain key (each step's key recorded); the
+   second prompted run and the plain runs capture nothing; ``int8_dot``'s
+   launches by route exactly (the prefill on the tensor cores, every
+   decode step on the decode kernel, no CUDA-core launch); one host sync a
+   token. ms/token inside the region, past it and plain. Then the same
+   request with every stage after stage 0 computing in float32 (the
+   in-process float32 chain), and over in-process TCP at wire f32 (host
+   prompts) plain, prompted, prompted, plain: the prompted tokens equal the
+   float32 chain's, the steps past the region ride the persistent stream
+   (each server's ``stream_steps`` one a step past it), the launches by
+   route exactly ("f32mma" for stages 1-3's prefill), TTFT with and without
+   prompts, the prompt tensor's bytes a hop. LoRA: an adapter (``wq`` and
+   ``wv``, rank LORA_RANK, a and b seeded, scale LORA_SCALE) written with
+   ``save_lora`` into a temporary directory; the port's merge of the full
+   model timed, its peak memory above the weights, and its ``wq`` / ``wv``
+   held within one bf16 ulp of a plain merge (one float32 einsum over all
+   layers, cast, scaled, added); ``--mode local --quant int8 --lora`` built
+   through ``main.build_local_client``; the greedy request unmerged, merged,
+   merged, unmerged: the merged tokens held to the greedy loop over the
+   plainly merged, then quantized weights and different from the
+   unmerged run's, the second merged run capturing nothing, launches by
+   route exactly, decode ms/token merged against unmerged.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``, ``paged_decode_attention`` with the paged path's
    launches and its times at the paged path's shape; each matmul with its
@@ -452,7 +482,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    control-plane path's runs by route, and ``sample_draw``'s launches on
    each; the speculative path's runs by drafter and route, and
    ``sample_draw``'s on the sampled ones; the beam path's runs by route
-   and each route's layer at M = 4) and
+   and each route's layer at M = 4; the deep-prompt and LoRA runs by
+   route) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -1568,15 +1599,15 @@ def first_difference(a, b) -> int:
 
 
 def hold_to_reference(torch, cfg, params, ids, got, want, what: str,
-                      cache_dtype=None) -> None:
+                      cache_dtype=None, prompts=None) -> None:
     """Equal tokens, or a first difference at a near-tie of the reference's
-    logits (its KV cache `cache_dtype`, float32 by default; top-2 gap <=
-    LOGIT_GAP_TOL * max|logit|)."""
+    logits (its KV cache `cache_dtype`, float32 by default, its deep
+    `prompts` if any; top-2 gap <= LOGIT_GAP_TOL * max|logit|)."""
     if got == want:
         log(f"  {what}: tokens equal ({len(want)} tokens)")
         return
     i = first_difference(got, want)
-    logits = oracle_logits(torch, cfg, params, ids + want[:i], cache_dtype)
+    logits = oracle_logits(torch, cfg, params, ids + want[:i], cache_dtype, prompts)
     top2 = torch.topk(logits, 2).values
     gap = (top2[0] - top2[1]).item()
     tol = LOGIT_GAP_TOL * logits.abs().max().item()
@@ -1586,10 +1617,12 @@ def hold_to_reference(torch, cfg, params, ids, got, want, what: str,
         raise AssertionError(f"{what}: tokens differ at a decisive step")
 
 
-def greedy_reference(torch, cfg, params, ids, max_new_tokens: int, cache_dtype=None):
+def greedy_reference(torch, cfg, params, ids, max_new_tokens: int, cache_dtype=None,
+                     prompts=None):
     """Unsplit greedy loop over ``full_forward`` with a float32 KV cache,
     what the stage executors keep (or `cache_dtype`, what another engine
-    keeps), and the pipeline's stop rules."""
+    keeps), deep `prompts` on every step if given, and the pipeline's stop
+    rules."""
     from importlib import import_module
 
     tf = import_module(PORT + ".models.transformer")
@@ -1602,7 +1635,7 @@ def greedy_reference(torch, cfg, params, ids, max_new_tokens: int, cache_dtype=N
     while len(out) < max_new_tokens:
         if len(out) >= REPEAT_STOP and len(set(out[-REPEAT_STOP:])) == 1:
             break
-        logits, kc, vc = tf.full_forward(cfg, params, x, kc, vc, cur)
+        logits, kc, vc = tf.full_forward(cfg, params, x, kc, vc, cur, prompts=prompts)
         cur += x.shape[1]
         out.append(int(torch.argmax(logits[0, -1])))
         x = torch.tensor([[out[-1]]], device=dev)
@@ -1919,17 +1952,21 @@ def graph_counts(what: str, executors, tokens: int):
                           for ex in executors}}
 
 
-def capture_phase(torch, client, quant: str):
-    """For every key the served run captured, on every stage: one replay of
-    its graph and the eager step, each on its own copy of the same cache
-    (the lease buffer as the run left it) and the same static input and
-    cache_len. Output and cache writes must be bit-equal."""
+def capture_phase(torch, client, quant: str, select=None):
+    """For every key the served run captured, on every stage (those
+    `select(key, entry)` picks, if given): one replay of its graph and the
+    eager step, each on its own copy of the same cache (the lease buffer as
+    the run left it) and the same static input, cache_len and deep
+    prompts. Output and cache writes must be bit-equal."""
     keys = 0
     for ex in path_executors(client):
         for key, st in ex.graphs.entries():
+            if select is not None and not select(key, st):
+                continue
             k0, v0 = st.k.clone(), st.v.clone()
             ek, ev = k0.clone(), v0.clone()
-            eager = st.step(st.x, ek, ev, st.cache_len)
+            eager = st.step(st.x, ek, ev, st.cache_len,
+                            *(() if st.prompts is None else (st.prompts,)))
             st.graph.replay()
             torch.cuda.synchronize()
             if not (torch.equal(st.graph.out, eager) and torch.equal(st.k, ek)
@@ -7057,16 +7094,360 @@ def beam_nf4(torch, kernels, tmain, state, smi: str) -> dict:
     return view
 
 
-def oracle_logits(torch, cfg, params, ids, cache_dtype=None):
+PROMPT_PRE = 40          # deep prompts' pre_seq: the first prompt's 30 tokens, then 10 steps
+PROMPT_SCALE = 0.5       # the CPU tests' scale: large enough to change the tokens
+LORA_RANK = 16
+LORA_TARGETS = ("wq", "wv")
+LORA_STD = 0.05          # a and b ~ N(0, LORA_STD): a delta element ~ 0.01 before the scale
+LORA_SCALE = 2.0
+
+
+class KeyTap:
+    """Records every stage step of a run: (peer, cache_len, whether its
+    graph key is a deep-prompt step's)."""
+
+    def __init__(self, executors):
+        self.steps, self._executors = [], executors
+        for ex in executors:
+            def tapped(key, slot, step, x, k, v, cache_len, n, *prompts, _run=ex.graphs.run,
+                       _peer=ex.peer_id):
+                self.steps.append((_peer, int(cache_len), len(key) > 5))
+                return _run(key, slot, step, x, k, v, cache_len, n, *prompts)
+
+            ex.graphs.run = tapped
+
+    def close(self):
+        for ex in self._executors:
+            del ex.graphs.run
+
+
+def prompt_launches(cfg, stage0_layers: int, tokens: int, float32_hops: bool) -> dict:
+    """A greedy request's launches by route: every site of every layer once
+    for the prefill at the prompt's bucket (the tensor cores on bf16 x,
+    "f32mma" on float32 x) and once a decode step at M = 1 (the decode
+    kernel in both dtypes); with `float32_hops` the stages after stage 0
+    take float32 x (behind a TCP hop, or in the float32 chain)."""
+    later = cfg.num_layers - stage0_layers if float32_hops else 0
+    return {"mma": 4 * (cfg.num_layers - later), "gemv": 4 * cfg.num_layers * (tokens - 1),
+            "f32mma": 4 * later, "simt": 0}
+
+
+def prompt_run(torch, kernels, client, executors, ids, greedy, prompts,
+               syncs: bool = False) -> dict:
+    """One greedy request of `ids` (MAX_NEW_TOKENS) with deep `prompts`
+    (None: without), every count set to 0 just before: tokens, TTFT,
+    decode ms/token inside the prompt region, past it and over every step,
+    `int8_dot`'s launches by route, the executors' captures, each stage
+    step's key kind and, with `syncs`, the host syncs."""
+    tap = KeyTap(executors)
+    reset_counts(kernels, executors)
+    box = {}
+
+    def run():
+        box["r"] = client.generate(ids, MAX_NEW_TOKENS, sampling=greedy, deep_prompts=prompts)
+
+    try:
+        n_syncs = count_syncs(torch, run) if syncs else run()
+    finally:
+        tap.close()
+    torch.cuda.synchronize()
+    res = box["r"]
+    times = res.decode_times_s
+
+    def med(ts):
+        return 1e3 * statistics.median(ts) if ts else None
+
+    return {"tokens": res.tokens, "ttft_ms": 1e3 * res.ttft_s, "ms_per_token": med(times),
+            "inside_ms": med([t for i, t in enumerate(times) if len(ids) + i < PROMPT_PRE]),
+            "past_ms": med([t for i, t in enumerate(times) if len(ids) + i >= PROMPT_PRE]),
+            "int8_dot_launches_by_route": kernel_routes(kernels["int8_dot"]),
+            "captures": sum(ex.graphs.captures + ex.sampler.captures for ex in executors),
+            "steps": tap.steps, "syncs": n_syncs}
+
+
+def prompt_gates(what: str, run: dict, need: dict, prompted: bool) -> dict:
+    """One run's gates: every stage step inside the region (the prefill
+    included) on a deep-prompt graph and every step past it on the plain
+    key, or, without prompts, plain keys only; `int8_dot`'s launches by
+    route exactly `need`, or, on a run that captured (a capture runs its
+    step once eagerly first), at least that on the same routes. Returns
+    the run's view."""
+    wrong = [s for s in run["steps"] if s[2] != (prompted and s[1] < PROMPT_PRE)]
+    got = run["int8_dot_launches_by_route"]
+    exact = got == need
+    if run["captures"]:
+        exact = all(got[r] >= need[r] and bool(got[r]) == bool(need[r]) for r in need)
+    inside = sum(1 for s in run["steps"] if s[2])
+    log(f"{what}: {run['tokens']}, TTFT {run['ttft_ms']:.1f} ms, {run['ms_per_token']:.2f} "
+        f"ms/token (inside the region {run['inside_ms']}, past it {run['past_ms']}); "
+        f"int8_dot {got} (want {need}); {run['captures']} captures; {inside} of "
+        f"{len(run['steps'])} stage steps on prompt graphs")
+    if wrong or not run["steps"] or not exact:
+        raise AssertionError(f"{what}: stage steps on the wrong key {wrong[:8]}, or int8_dot "
+                             f"launches {got}, want {need}")
+    return {k: run[k] for k in ("tokens", "ttft_ms", "ms_per_token", "inside_ms", "past_ms",
+                                "int8_dot_launches_by_route", "captures", "syncs")} | {
+        "prompt_graph_steps": inside, "stage_steps": len(run["steps"])}
+
+
+def ulp_check(torch, got, want) -> dict:
+    """`got` against `want` (bf16 [L, D, N]) layer by layer: elements that
+    differ, the largest difference, and those more than one bf16 ulp of
+    `want` apart."""
+    differing, over, worst = 0, 0, 0.0
+    for li in range(want.shape[0]):
+        g, w = got[li].float(), want[li].float()
+        diff = (g - w).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+        differing += int((diff > 0).sum())
+        over += int((diff > ulp).sum())
+        worst = max(worst, diff.max().item())
+    return {"differing": differing, "over_one_ulp": over, "max_abs": worst}
+
+
+def prompt_wire_ms(torch, net, prompts_hop, hidden: int, reps: int = 7) -> dict:
+    """Host ms of one hop's classic frame carrying a decode step's float32
+    activation and `prompts_hop` (float32, on the host), by part (medians):
+    encoding both tensors, the CRC-32C of the payload, decoding it, the
+    prompts' pageable copy to the card, and the frame sent and received
+    over a loopback TCP connection with TCP_NODELAY, as the transport's
+    (a thread receives)."""
+    import socket
+
+    x = net._host_array(torch.zeros((1, 1, hidden)))
+    pr = net._host_array(prompts_hop)
+    parts = {k: [] for k in ("encode", "crc32c", "decode", "to_device", "loopback_frame")}
+    listener = socket.create_server(("127.0.0.1", 0))
+    send = socket.create_connection(listener.getsockname())
+    recv, _ = listener.accept()
+    try:
+        send.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            metas, body = net._encode_tensors([x, pr], ["f32", "f32"])
+            t1 = time.perf_counter()
+            net.native.crc32c(body)
+            t2 = time.perf_counter()
+            arrs = net._decode_tensors(metas, body)
+            t3 = time.perf_counter()
+            net._to_tensor(arrs[1]).to("cuda", non_blocking=True)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            box = {}
+            reader = threading.Thread(target=lambda: box.update(frame=net._recv_frame(recv)))
+            reader.start()
+            net._send_frame(send, {"verb": "forward", "tensor": metas[0]}, body)
+            reader.join()
+            t5 = time.perf_counter()
+            if len(box["frame"][1]) != len(body):
+                raise AssertionError("prompt wire: the loopback frame lost bytes")
+            for k, a, b in (("encode", t0, t1), ("crc32c", t1, t2), ("decode", t2, t3),
+                            ("to_device", t3, t4), ("loopback_frame", t4, t5)):
+                parts[k].append(1e3 * (b - a))
+    finally:
+        for sock in (send, recv, listener):
+            sock.close()
+    return {k: statistics.median(v) for k, v in parts.items()} | {"payload_bytes": len(body)}
+
+
+def prompt_lora_path(torch, kernels, tmain, state, smi: str) -> dict:
+    """Step 12e: deep prompts and --lora on the int8 path (the first
+    prompt, greedy, 32 new tokens). Returns the summary."""
+    from importlib import import_module
+
+    lora_mod = import_module(PORT + ".models.lora")
+    graphs_mod = import_module(PORT + ".runtime.graphs")
+    t_phase = time.monotonic()
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    dev = torch.device(args.device)
+    local._routes.clear()
+    executors = path_executors(local)
+    ids = state["prompt_ids"][0]
+    greedy = state["requests"][0][1]
+    stage0_layers = local.plan.stages[0].num_layers
+    gen = torch.Generator(device=dev).manual_seed(11)
+    prompts = PROMPT_SCALE * torch.randn((cfg.num_layers, PROMPT_PRE, cfg.hidden_size),
+                                         generator=gen, device=dev)
+    view = {"pre_seq": PROMPT_PRE, "prompt_tokens": len(ids), "new_tokens": MAX_NEW_TOKENS,
+            "prompts_shape": list(prompts.shape), "card": smi}
+
+    def need(run, float32_hops):
+        return prompt_launches(cfg, stage0_layers, len(run["tokens"]), float32_hops)
+
+    # (a) In process: plain, prompted, prompted (its host syncs counted), plain.
+    runs = [prompt_run(torch, kernels, local, executors, ids, greedy, p, syncs=i == 2)
+            for i, p in enumerate((None, prompts, prompts, None))]
+    ref = greedy_reference(torch, cfg, state["ref_params"], ids, MAX_NEW_TOKENS, prompts=prompts)
+    hold_to_reference(torch, cfg, state["ref_params"], ids, runs[1]["tokens"], ref,
+                      "deep prompts in process: greedy tokens against the float32-cache "
+                      "full_forward(prompts=) reference", prompts=prompts)
+    views = [prompt_gates(f"deep prompts in process, run {i + 1}", r, need(r, False),
+                          i in (1, 2)) for i, r in enumerate(runs)]
+    if (runs[1]["tokens"] != runs[2]["tokens"] or runs[0]["tokens"] != runs[3]["tokens"]
+            or runs[1]["tokens"] == runs[0]["tokens"]):
+        raise AssertionError("deep prompts in process: the prompted runs' tokens differ from "
+                             "each other, the plain runs' from each other, or the prompts "
+                             "changed nothing")
+    if runs[2]["captures"] or runs[3]["captures"]:
+        raise AssertionError(f"deep prompts in process: a second prompted run captured "
+                             f"{runs[2]['captures']}, the plain run after "
+                             f"{runs[3]['captures']}")
+    if runs[2]["syncs"] != len(runs[2]["tokens"]):
+        raise AssertionError(f"deep prompts in process: {runs[2]['syncs']} host syncs for "
+                             f"{len(runs[2]['tokens'])} tokens, want one a token")
+    view["in_process"] = {"plain": [views[0], views[3]], "prompted": views[1:3],
+                          "reference_tokens": ref}
+    # Each prompt graph's replay against its eager step.
+    view["in_process"]["capture"] = capture_phase(torch, local, "int8 deep-prompt",
+                                                  lambda key, st: st.prompts is not None)
+    if not view["in_process"]["capture"]["keys"]:
+        raise AssertionError("deep prompts in process: no prompt graph was captured")
+    # (b) The float32 chain: stages 1-3 compute in float32, as behind TCP.
+    remote = [local.transport.executor(p) for p in local.transport.peers()]
+    saved = [ex.act_dtype for ex in remote]
+    for ex in remote:
+        ex.act_dtype = torch.float32
+    try:
+        chain = prompt_run(torch, kernels, local, executors, ids, greedy, prompts)
+    finally:
+        for ex, dtype in zip(remote, saved):
+            ex.act_dtype = dtype
+    hold_to_reference(torch, cfg, state["ref_params"], ids, chain["tokens"], ref,
+                      "deep prompts, float32 chain: greedy tokens against the reference",
+                      prompts=prompts)
+    view["float32_chain"] = prompt_gates("deep prompts, float32 chain", chain,
+                                         need(chain, True), True)
+    # (c) Over in-process TCP at wire f32, the prompts on the host as a
+    # remote client holds them: plain, prompted, prompted, plain.
+    host_prompts = prompts.cpu()
+    t0 = time.monotonic()
+    client, servers, registry_srv, saved_dt = spec_tcp_stages(torch, tmain, local, "f32")
+    tcp_runs, streamed = [], []
+    try:
+        for p in (None, host_prompts, host_prompts, None):
+            before = sum(srv.stream_steps for srv in servers)
+            tcp_runs.append(prompt_run(torch, kernels, client, executors, ids, greedy, p))
+            streamed.append(sum(srv.stream_steps for srv in servers) - before)
+    finally:
+        spec_tcp_close(local, client, servers, registry_srv, saved_dt)
+    tviews = [prompt_gates(f"deep prompts over TCP at f32, run {i + 1}", r, need(r, True),
+                           i in (1, 2)) for i, r in enumerate(tcp_runs)]
+    hops = local.plan.num_stages - 1
+    for i, (r, n) in enumerate(zip(tcp_runs, streamed)):
+        # One stream step a hop (a routed server; replicas an earlier phase
+        # added serve too, off the route) for every step that carries no
+        # prompts: a plain run's prefill and decode steps, a prompted run's
+        # decode steps past the region.
+        past = (len(r["tokens"]) if i in (0, 3) else
+                sum(1 for j in range(len(r["tokens"]) - 1) if len(ids) + j >= PROMPT_PRE))
+        tviews[i]["stream_steps"] = n
+        if n != hops * past:
+            raise AssertionError(f"deep prompts over TCP, run {i + 1}: {n} stream steps, "
+                                 f"want {hops} hops x {past} steps")
+    if (tcp_runs[1]["tokens"] != chain["tokens"] or tcp_runs[2]["tokens"] != chain["tokens"]
+            or tcp_runs[2]["captures"]):
+        raise AssertionError(f"deep prompts over TCP: tokens {tcp_runs[1]['tokens']}, "
+                             f"{tcp_runs[2]['tokens']}, want the float32 chain's "
+                             f"{chain['tokens']}; {tcp_runs[2]['captures']} captures")
+    spec1 = local.plan.stages[1]
+    wire = prompt_wire_ms(torch, import_module(PORT + ".runtime.net"),
+                          host_prompts[spec1.start:spec1.end], cfg.hidden_size)
+    view["tcp_f32"] = {"plain": [tviews[0], tviews[3]], "prompted": tviews[1:3],
+                       "prompts_bytes_a_hop": host_prompts[spec1.start:spec1.end].nbytes,
+                       "hop_wire_ms": wire, "seconds": time.monotonic() - t0}
+    log(f"deep prompts: TTFT over TCP {[v['ttft_ms'] for v in tviews[1:3]]} ms prompted, "
+        f"{[v['ttft_ms'] for v in (tviews[0], tviews[3])]} plain; stream steps {streamed}; "
+        f"one hop's prompt frame on this host, ms: {wire}")
+    # (d) --lora: an adapter file, the merge timed and held to a plain one,
+    # then --mode local --quant int8 --lora through main.build_local_client.
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    try:
+        path = os.path.join(tmp, "adapter.npz")
+        lgen = torch.Generator(device=dev).manual_seed(13)
+        tree = {t: {"a": LORA_STD * torch.randn((cfg.num_layers, cfg.hidden_size, LORA_RANK),
+                                                generator=lgen, device=dev),
+                    "b": LORA_STD * torch.randn((cfg.num_layers, LORA_RANK,
+                                                 lora_mod.target_out_dim(cfg, t)),
+                                                generator=lgen, device=dev)}
+                for t in sorted(LORA_TARGETS)}
+        lora_mod.save_lora(path, tree, LORA_SCALE)
+        largv = ["--mode", "local", "--model", MODEL, "--quant", args.quant, "--dtype",
+                 "bfloat16", "--device", args.device, "--seed", str(args.seed), "--lora", path]
+        largs = tmain.build_parser().parse_args(largv)
+        params = state["params"]
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        merged = tmain._maybe_lora(largs, cfg, params)
+        torch.cuda.synchronize()
+        merge_s = time.monotonic() - t0
+        merge_peak = torch.cuda.max_memory_allocated() - base
+        attn = params["layers"]["attn"]
+        plain, ulps = {}, {}
+        for t, ab in tree.items():
+            w = attn[t]
+            delta = torch.einsum("ldr,lro->ldo", ab["a"], ab["b"])
+            plain[t] = w + torch.tensor(LORA_SCALE, dtype=w.dtype, device=dev) * delta.to(w.dtype)
+            del delta
+            ulps[t] = ulp_check(torch, merged["layers"]["attn"][t], plain[t])
+        del merged
+        log(f"lora merge of {cfg.num_layers} layers x {sorted(tree)}: {merge_s:.3f} s, peak "
+            f"{merge_peak / 1e9:.3f} GB above the weights; against a plain merge {ulps}")
+        if any(u["over_one_ulp"] for u in ulps.values()):
+            raise AssertionError(f"lora: the merged weights differ from a plain merge by more "
+                                 f"than one bf16 ulp: {ulps}")
+        lora_ref = tmain._maybe_quantize(largs, {**params, "layers": {
+            **params["layers"], "attn": {**attn, **plain}}})
+        del plain
+        t0 = time.monotonic()
+        lclient = tmain.build_local_client(largs, cfg, params)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        lexec = path_executors(lclient)
+        lruns = [prompt_run(torch, kernels, c, ex_list, ids, greedy, None)
+                 for c, ex_list in ((local, executors), (lclient, lexec), (lclient, lexec),
+                                    (local, executors))]
+        memory = memory_view(torch)
+        lref = greedy_reference(torch, cfg, lora_ref, ids, MAX_NEW_TOKENS)
+        hold_to_reference(torch, cfg, lora_ref, ids, lruns[1]["tokens"], lref,
+                          "lora in process: greedy tokens against the plainly merged, then "
+                          "quantized weights' reference")
+        lviews = [prompt_gates(f"lora, run {i + 1} ({'merged' if i in (1, 2) else 'unmerged'})",
+                               r, need(r, False), False) for i, r in enumerate(lruns)]
+        if (lruns[1]["tokens"] != lruns[2]["tokens"] or lruns[0]["tokens"] != lruns[3]["tokens"]
+                or lruns[1]["tokens"] == lruns[0]["tokens"] or lruns[2]["captures"]):
+            raise AssertionError("lora: the merged runs' tokens differ from each other or equal "
+                                 f"the unmerged run's, or the second merged run captured "
+                                 f"{lruns[2]['captures']}")
+        view["lora"] = {"targets": sorted(tree), "rank": LORA_RANK, "scale": LORA_SCALE,
+                        "merge_s": merge_s, "merge_peak_gb": merge_peak / 1e9,
+                        "against_plain_merge": ulps, "build_client_s": build_s,
+                        "memory_after_build": memory, "unmerged": [lviews[0], lviews[3]],
+                        "merged": lviews[1:3], "reference_tokens": lref}
+        del lclient, lexec, lora_ref
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmain._maybe_lora._cache.clear()
+    graphs_mod.collect_garbage()
+    torch.cuda.empty_cache()
+    view["seconds"] = time.monotonic() - t_phase
+    log(f"prompt/lora path: {view['seconds']:.1f}s")
+    return view
+
+
+def oracle_logits(torch, cfg, params, ids, cache_dtype=None, prompts=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
-    logits after `ids` (one prefill)."""
+    logits after `ids` (one prefill, with deep `prompts` if given)."""
     from importlib import import_module
 
     tf = import_module(PORT + ".models.transformer")
     dev = params["embed"]["wte"].device
     kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids),
                               dtype=cache_dtype or torch.float32, device=dev)
-    logits, _, _ = tf.full_forward(cfg, params, torch.tensor([ids], device=dev), kc, vc, 0)
+    logits, _, _ = tf.full_forward(cfg, params, torch.tensor([ids], device=dev), kc, vc, 0,
+                                   prompts=prompts)
     if not (torch.isfinite(logits).all() and tuple(logits.shape) == (1, len(ids), cfg.vocab_size)):
         raise AssertionError("reference logits are not finite or have the wrong shape")
     return logits[0, -1]
@@ -7373,6 +7754,10 @@ def main(argv) -> int:
     log(json.dumps({"beam_path": beam}))
     gc.collect()
     torch.cuda.empty_cache()
+    prompt_lora = prompt_lora_path(torch, kernel_mods, tmain, state, smi)
+    log(json.dumps({"prompt_lora_path": prompt_lora}))
+    gc.collect()
+    torch.cuda.empty_cache()
     # What the CLI drives compare with; the weights go.
     int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
@@ -7461,6 +7846,7 @@ def main(argv) -> int:
     log(f"control-plane phases: {control['seconds']:.1f}s in process, "
         f"{control['cli']['seconds']:.1f}s as processes")
     log(f"beam phases: {beam['seconds']:.1f}s int8, {beam['nf4_tcp_bf16']['seconds']:.1f}s NF4")
+    log(f"prompt/lora phase: {prompt_lora['seconds']:.1f}s")
     log(f"speculative phases: {spec['seconds']:.1f}s in process (int8), "
         f"{spec['nf4_tcp_bf16']['seconds']:.1f}s NF4, the CLI client in the batched CLI "
         f"drive ({spec['cli']['seconds']:.1f}s with its two plain clients)")
@@ -7528,6 +7914,12 @@ def main(argv) -> int:
     kernels[1]["beam_path"] = {
         "tcp_bf16": beam["nf4_tcp_bf16"]["nf4_dot_launches_by_route"],
         "at_m4": {k: v for k, v in m4.items() if k.startswith("nf4_dot")}}
+    # The deep-prompt and LoRA runs (each counted alone), by route.
+    kernels[0]["prompt_lora_path"] = {
+        "in_process": prompt_lora["in_process"]["prompted"][1]["int8_dot_launches_by_route"],
+        "float32_chain": prompt_lora["float32_chain"]["int8_dot_launches_by_route"],
+        "tcp_f32": prompt_lora["tcp_f32"]["prompted"][1]["int8_dot_launches_by_route"],
+        "lora": prompt_lora["lora"]["merged"][1]["int8_dot_launches_by_route"]}
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -114,7 +114,9 @@ to PATH at exit, on a fatal exception and on SIGTERM/SIGINT;
 JSON object per line.
 
 Weights are random-initialized from the ``--model`` preset and ``--seed``
-(no checkpoint loading yet); tokenization is the UTF-8 byte fallback.
+(no checkpoint loading yet); ``--lora PATH`` folds a saved adapter into
+the attention weights before ``--quant`` (``models/lora.py``), in every
+mode that loads weights; tokenization is the UTF-8 byte fallback.
 Runs on ``--device cuda`` (the default) unless asked for ``cpu``; with no
 GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
 
@@ -130,6 +132,7 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
     python -m ...main --mode serve --stage 0 --batched --burst 8 ...
     python -m ...main --mode client --burst 8 ...
     python -m ...main --mode local --speculative_k 4 --temperature 0 ...
+    python -m ...main --mode local --lora adapter.npz --quant int8 ...
     python -m ...main --mode serve --stage 3 --batched --speculative_k 4 ...
     python -m ...main --mode client --registry_addr 127.0.0.1:31330 \\
         --model llama-3.1-8b --quant int8 --dtype bfloat16 --prompt "Hi"
@@ -158,6 +161,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .models.config import ModelConfig, get_config
+from .models.lora import load_lora, merge_lora, slice_lora
 from .models.partition import StagePlan, StageSpec, parse_splits, slice_stage_params
 from .models.quant import quantize_params
 from .models.transformer import full_forward, init_kv_cache, init_params
@@ -241,7 +245,10 @@ def load_stage_model(args, spec: StageSpec) -> Tuple[ModelConfig, dict]:
     # The kept layers are stacked from index 0: slice them as a span that
     # starts there.
     local = StageSpec(spec.index, spec.role, 0, spec.num_layers)
-    shard = _maybe_quantize(args, slice_stage_params(cfg, params, local))
+    shard = slice_stage_params(cfg, params, local)
+    # The span's slice of the adapter merges into the local stack, before
+    # the quantization.
+    shard = _maybe_quantize(args, _maybe_lora(args, cfg, shard, spec.start, spec.end))
     del params
     gc.collect()
     if device.type == "cuda":
@@ -256,8 +263,40 @@ def _maybe_quantize(args, params):
     return quantize_params(params, args.quant)
 
 
+def _maybe_lora(args, cfg: ModelConfig, params, start=None, end=None):
+    """Apply ``--lora``: fold a saved adapter's deltas (a ``save_lora``
+    .npz) into the attention weights at load time, before ``--quant``, so
+    quantized weights include them and serving needs no adapter support.
+    `start`/`end` select the span's slice of the adapter, merged into
+    `params`' stacked layers (a stage's, stacked from index 0); None, the
+    full model. The file is loaded once per process."""
+    path = getattr(args, "lora", None)
+    if not path or "layers" not in params:
+        return params
+    cached = _maybe_lora._cache.get(path)
+    if cached is None:
+        cached = _maybe_lora._cache[path] = load_lora(path)
+    tree, scale = cached
+    # The adapter's FULL depth first: a wrong model's adapter could slice
+    # to a span's width and merge another model's layers silently.
+    for t, ab in tree.items():
+        if ab["a"].shape[0] != cfg.num_layers:
+            raise SystemExit(
+                f"--lora: adapter {t!r} covers {ab['a'].shape[0]} layers, "
+                f"the model has {cfg.num_layers} (adapter trained for a "
+                "different model?)")
+    if start is not None:
+        tree = slice_lora(tree, start, end)
+    return {**params, "layers": merge_lora(cfg, params["layers"], tree, scale)}
+
+
+_maybe_lora._cache = {}
+
+
 def _stage_params(args, cfg: ModelConfig, params, spec):
-    return _maybe_quantize(args, slice_stage_params(cfg, params, spec))
+    sp = _maybe_lora(args, cfg, slice_stage_params(cfg, params, spec),
+                     spec.start, spec.end)
+    return _maybe_quantize(args, sp)
 
 
 # ---------------------------------------------------------------------------
@@ -430,7 +469,7 @@ def make_oracle_generate(args, cfg: ModelConfig, params):
     weights' dtype, where the stage executors keep a float32 cache; under
     ``--dtype bfloat16`` the oracle therefore computes other numbers than
     ``--mode local``."""
-    params = _maybe_quantize(args, params)
+    params = _maybe_quantize(args, _maybe_lora(args, cfg, params))
     wte = params["embed"]["wte"]
     device = wte.device
     engines = {}
@@ -1216,6 +1255,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="weight-only block quantization; int8 runs every "
                         "projection through the int8_dot kernel, nf4 through "
                         "the nf4_dot kernel when NF4_KERNEL=1")
+    p.add_argument("--lora", default=None, metavar="PATH",
+                   help="serve a fine-tune: fold the adapters of a save_lora "
+                        ".npz into the attention weights at load (merged "
+                        "before --quant; every mode that loads weights "
+                        "honors it)")
     p.add_argument("--prompt", default="Hello, my name is")
     p.add_argument("--max_new_tokens", type=int, default=32)
     p.add_argument("--temperature", type=float, default=0.7)

@@ -9,7 +9,7 @@ spans [0,s0) [s0,s1) [s1,s2) [s2,L).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -121,18 +121,23 @@ def slice_stage_params(cfg: ModelConfig, params: Params, spec: StageSpec) -> Par
 
 def stage_forward(cfg: ModelConfig, spec: StageSpec, params: Params,
                   inputs: torch.Tensor, k_caches: torch.Tensor,
-                  v_caches: torch.Tensor, cache_len: CacheLen
+                  v_caches: torch.Tensor, cache_len: CacheLen,
+                  prompts: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Uniform stage forward, role-dispatched. inputs: int token ids [B, T]
     for the first stage, float hidden [B, T, D] otherwise. Returns
     (hidden-or-logits, k_caches, v_caches); caches are updated in place.
-    `cache_len` is an int or a 0-d int64 device tensor (a captured step)."""
+    `cache_len` is an int or a 0-d int64 device tensor (a captured step).
+    prompts: optional [span_layers, pre_seq, D] inference-time deep prompts
+    added at each block's entry (Petals' ``block_functions.py:57-65,
+    171-226``, the ptune serving path)."""
     t = inputs.shape[1]
     positions = cache_len + torch.arange(t, device=inputs.device)[None, :]
     x = embed_tokens(cfg, params["embed"], inputs, positions) if spec.is_first else inputs
     if spec.num_layers > 0:
         x, k_caches, v_caches = stack_forward(cfg, params["layers"], x, positions,
-                                              k_caches, v_caches, cache_len)
+                                              k_caches, v_caches, cache_len,
+                                              prompts=prompts)
     if spec.is_last:
         x = lm_head(cfg, params, x)
     return x, k_caches, v_caches

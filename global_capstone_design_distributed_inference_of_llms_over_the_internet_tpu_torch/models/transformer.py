@@ -21,9 +21,11 @@ Every projection goes through `_dot`, which sends packed int8 leaves to
 ``ops.int8_kernel.int8_dot`` and packed NF4 leaves to
 ``ops.nf4_kernel.nf4_dot``. With ``cfg.decode_kv_page`` set, a decode
 step's attention reads the occupied pages of the cache only
-(``ops.paged_attention_kernel``), under the reference's condition. MoE,
-deep prompts and the training forward are not ported yet and are refused
-loudly.
+(``ops.paged_attention_kernel``), under the reference's condition.
+Inference-time deep prompts (``prompts=`` of `stack_forward` and
+`full_forward`) are added at each layer's entry, at absolute positions, on
+the device. MoE and the training forward are not ported yet and are
+refused loudly.
 """
 
 from __future__ import annotations
@@ -368,16 +370,42 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
     return x + mlp_out
 
 
+def _apply_deep_prompt(h: torch.Tensor, pr: torch.Tensor,
+                       cache_len: CacheLen) -> torch.Tensor:
+    """Add a learned per-layer deep prompt to ABSOLUTE positions < pre_seq.
+
+    h: [B, T, D] hidden states at absolute positions cache_len ..
+    cache_len+T; pr: [pre_seq, D]. Petals adds prompts to the first pre_seq
+    positions of each block's input; indexing by absolute position extends
+    that to a chunked prefill and makes a step past the region an exact
+    no-op. Everything stays on the device (`cache_len` may be a 0-d device
+    tensor), so the step can be captured. The rows are cast to h's dtype
+    before the add, as the reference does."""
+    t = h.shape[1]
+    pre = pr.shape[0]
+    idx = cache_len + torch.arange(t, device=h.device)          # [T] absolute
+    rows = pr[idx.clamp(0, pre - 1)]                            # [T, D]
+    add = torch.where((idx < pre)[:, None], rows,
+                      torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return h + add.to(h.dtype)[None]
+
+
 def stack_forward(cfg: ModelConfig, layers: Params, x: torch.Tensor,
                   positions: torch.Tensor, k_caches: torch.Tensor,
-                  v_caches: torch.Tensor, cache_len: CacheLen
+                  v_caches: torch.Tensor, cache_len: CacheLen,
+                  prompts: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run a span of stacked layers (a loop over the leading axis L).
-    k_caches/v_caches: [L, B, S, Hkv, Dh], updated in place and returned."""
+    k_caches/v_caches: [L, B, S, Hkv, Dh], updated in place and returned.
+    prompts: optional [L, pre_seq, D] inference-time deep prompts, added
+    into each layer's input at absolute positions < pre_seq
+    (`_apply_deep_prompt`), for prefill and decode alike."""
     _check_supported(cfg)
     rope = make_rope(cfg, positions)
     for li in range(k_caches.shape[0]):
         lp = tree_map(lambda a: a[li], layers)
+        if prompts is not None:
+            x = _apply_deep_prompt(x, prompts[li], cache_len)
         x = layer_forward(cfg, lp, x, rope, k_caches[li], v_caches[li], cache_len)
     return x, k_caches, v_caches
 
@@ -403,13 +431,16 @@ def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_len: int,
 
 def full_forward(cfg: ModelConfig, params: Params, input_ids: torch.Tensor,
                  k_caches: torch.Tensor, v_caches: torch.Tensor,
-                 cache_len: CacheLen
+                 cache_len: CacheLen, prompts: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole unpartitioned model (the single-device oracle path). Returns
-    (logits [B, T, V] float32, caches updated in place)."""
+    (logits [B, T, V] float32, caches updated in place). prompts: optional
+    [num_layers, pre_seq, D] deep prompts (the monolithic oracle for the
+    distributed injection)."""
     t = input_ids.shape[1]
     positions = cache_len + torch.arange(t, device=input_ids.device)[None, :]
     x = embed_tokens(cfg, params["embed"], input_ids, positions)
     x, k_caches, v_caches = stack_forward(cfg, params["layers"], x, positions,
-                                          k_caches, v_caches, cache_len)
+                                          k_caches, v_caches, cache_len,
+                                          prompts=prompts)
     return lm_head(cfg, params, x), k_caches, v_caches

@@ -103,7 +103,15 @@ Each hop journals its reorder with the activation; `_merge_entries`
 composes the reorders of two coalesced entries, and a replay sends each
 entry's reorder but the first's.
 
-Deep prompts are not ported yet.
+Inference-time deep prompts as in the reference (``client.py:705-722``,
+Petals' client-side prompt split): ``deep_prompts`` ([total blocks,
+pre_seq, D]) is kept per session, and stage 0's requests, each hop of the
+walk and every journal replay chunk carry their span's slice of it. A
+step that sits wholly past the region (``cur_len >= pre_seq``) carries
+none: the injection is a no-op there, so it runs the plain graph and, over
+TCP, the persistent-stream fast path. Such a session routes as "exotic"
+(the batched engines refuse prompts) and never push-chains (a relay would
+need the next hop's slice, which only the client holds).
 
 Deliberate difference: journal entries keep the activation tensor on its
 device (tensors are never modified after they are sent), where the
@@ -437,6 +445,8 @@ class PipelineClient:
         # Gateway-assigned tenant priority of each live session (lower = more
         # urgent), stamped on every request the session sends.
         self._session_priority: Dict[str, float] = {}
+        # The deep prompts of each live session that has them.
+        self._session_prompts: Dict[str, torch.Tensor] = {}
         # Seeded with the client seed so fault runs reproduce.
         self.breaker = CircuitBreaker(seed=seed, metrics=self.metrics)
 
@@ -663,10 +673,36 @@ class PipelineClient:
                 cur_len=e.cur_len, is_prefill=(i == 0), is_replay=True,
                 max_length=max_length, sampling=sampling,
                 start_block=hop.start_block, end_block=hop.end_block,
-                hypo_ids=None if i == 0 else e.hypo_ids)
+                hypo_ids=None if i == 0 else e.hypo_ids,
+                prompts=self._hop_prompts(session_id, hop, e.cur_len))
             self.transport.call(hop.peer_id, req, self.request_timeout)
         _ev.emit("replay_done", session_id=session_id, peer=hop.peer_id,
                  tokens=tokens, seconds=round(time.monotonic() - t0, 4))
+
+    def _hop_prompts(self, session_id: str, hop: Hop, cur_len: int = 0):
+        return self._span_prompts(session_id, hop.start_block, hop.end_block, cur_len)
+
+    def _stage0_prompts(self, session_id: str, cur_len: int) -> Optional[torch.Tensor]:
+        """Stage 0's slice of the session's deep prompts (`_span_prompts`
+        over its spec, read only for a session that has prompts)."""
+        if session_id not in self._session_prompts:
+            return None
+        s0 = self.stage0.spec
+        return self._span_prompts(session_id, s0.start, s0.end, cur_len)
+
+    def _span_prompts(self, session_id: str, start: int, end: int,
+                      cur_len: int = 0) -> Optional[torch.Tensor]:
+        """One span's slice of the session's deep prompts (rows are
+        absolute block indices: each server gets exactly its span's
+        blocks), or None once the step sits entirely past the prompt
+        region (``cur_len >= pre_seq``): the injection is an exact no-op
+        there, and dropping the tensor keeps the step on the plain graph
+        and off the classic frame that re-ships [span, pre, D] floats a
+        hop. The slice is a view of the session's tensor."""
+        pr = self._session_prompts.get(session_id)
+        if pr is None or cur_len >= pr.shape[1] or start >= end:
+            return None
+        return pr[start:end]
 
     def _call_with_recovery(self, hop: Hop, req: StageRequest) -> StageResponse:
         """Up to MAX_ATTEMPTS attempts, gated by the per-peer circuit
@@ -782,13 +818,17 @@ class PipelineClient:
         final hop's response (a sampled token, with `draft_tokens` the
         verified run, with ``num_logprobs > 0`` each row's top candidates).
         Every hop gets the drafts, `start_from_position`, the beam reorder
-        `hypo_ids` (journaled with the activation) and `num_logprobs`.
+        `hypo_ids` (journaled with the activation), `num_logprobs` and its
+        span's slice of the session's deep prompts.
         A prefill carries `prefix_len` to every hop;
         every hop the budget left of `deadline_at` as it is sent (earlier
         hops' time already spent) and the session's priority. `root` is
         the step's root span, opened by the generation loop so that stage 0
-        and every hop share one trace (the no-op span with tracing off)."""
-        if self.use_push_chain:
+        and every hop share one trace (the no-op span with tracing off).
+        A deep-prompt session never push-chains: a relay would need the
+        next hop's prompt slice, which only the client holds (Petals'
+        handler sets ``can_push = not has_prompts``)."""
+        if self.use_push_chain and session_id not in self._session_prompts:
             return self._walk_chain(
                 hidden, seq_len, cur_len, session_id, is_prefill=is_prefill,
                 max_length=max_length, sampling=sampling, generated=generated,
@@ -811,6 +851,7 @@ class PipelineClient:
                 end_block=hop.end_block, draft_tokens=draft_tokens,
                 start_from_position=start_from_position, hypo_ids=hypo_ids,
                 num_logprobs=num_logprobs,
+                prompts=self._hop_prompts(session_id, hop, cur_len),
                 prefix_len=prefix_len if is_prefill else 0,
                 trace=root.wire_context(hop=i) if root else None,
                 deadline_budget_s=budget,
@@ -1084,18 +1125,20 @@ class PipelineClient:
         ``deadline_s``): the gateway stamps it at admission, so queue wait
         spends the budget. ``priority`` is the gateway's tenant priority
         (lower = more urgent), stamped on every request of the session.
-        Session state (KV leases, journal, priority) is released when the
-        generator finishes or is closed. ``deep_prompts`` is the
-        reference's argument: not ported, it raises (``ValueError`` beside
-        ``burst``, as the reference's, and so does ``speculative_k``)."""
+        ``deep_prompts`` ([total blocks, pre_seq, D]) adds each block's
+        learned prompts at its entry, at absolute positions < pre_seq, on
+        every step (Petals' ``block_functions.py:57-65,171-226``); the
+        session routes as "exotic", around the batched engines. Session
+        state (KV leases, journal, priority, deep prompts) is released when
+        the generator finishes or is closed. ``burst`` with deep prompts or
+        ``speculative_k`` is a ``ValueError``, as in the reference."""
         if burst > 0 and (speculative_k > 0 or deep_prompts is not None):
             raise ValueError(
                 "burst decode samples on-device and is incompatible with "
                 "speculative drafting / deep prompts")
-        if deep_prompts is not None:
-            raise NotImplementedError(
-                "deep prompts are not ported (ROADMAP Queue 1 #3)")
         session_id = session_id or f"sess-{time.monotonic_ns():x}"
+        if deep_prompts is not None:
+            self._session_prompts[session_id] = torch.as_tensor(deep_prompts)
         if priority is not None:
             self._session_priority[session_id] = float(priority)
         if deadline_at is None and deadline_s is not None:
@@ -1130,11 +1173,16 @@ class PipelineClient:
         with no drafts: with ``speculative_k == 0`` no step drafts or
         carries ``start_from_position``. The session kind is fixed at
         entry, so a speculative session's prefill already lands on peers
-        that take its draft steps."""
+        that take its draft steps, and a deep-prompt session's routes
+        around the engines that refuse prompts (by capability, with no
+        prompt-head affinity)."""
         prompt_len = len(prompt_ids)
-        kind = SPEC if speculative_k > 0 else PLAIN
+        if session_id in self._session_prompts:
+            kind = EXOTIC
+        else:
+            kind = SPEC if speculative_k > 0 else PLAIN
         max_length = max_length or prompt_len + max_new_tokens + max(speculative_k, 0)
-        affinity = prompt_affinity(prompt_ids)
+        affinity = None if kind == EXOTIC else prompt_affinity(prompt_ids)
         # Ids are made on the host: stage 0 copies them to its device
         # without a host sync (a device tensor made from a list would sync).
         ids = torch.tensor([list(prompt_ids)], dtype=torch.int64)
@@ -1151,6 +1199,7 @@ class PipelineClient:
         s0_resp = self.stage0.forward(StageRequest(
             session_id=session_id, hidden=ids, seq_len=prompt_len, cur_len=0,
             is_prefill=True, max_length=max_length, sampling=sampling,
+            prompts=self._stage0_prompts(session_id, 0),
             prefix_len=prompt_len))
         s0_span.end()
         times: Dict[str, float] = {}
@@ -1196,7 +1245,8 @@ class PipelineClient:
                 s0_resp = self.stage0.forward(StageRequest(
                     session_id=session_id, hidden=step_ids, seq_len=t_in,
                     cur_len=cur_len, is_prefill=False, max_length=max_length,
-                    sampling=sampling, start_from_position=spos))
+                    sampling=sampling, start_from_position=spos,
+                    prompts=self._stage0_prompts(session_id, cur_len)))
                 times = {}
                 resp = self._walk(s0_resp.hidden, t_in, cur_len, session_id,
                                   is_prefill=False, max_length=max_length,
@@ -1501,6 +1551,7 @@ class PipelineClient:
 
     def _end_session(self, session_id: str) -> None:
         self.stage0.drop_session(session_id)
+        self._session_prompts.pop(session_id, None)
         # Every peer that held the session's KV: the ones it called (failed
         # over from included) and those of the cached routes.
         peers = set(self._session_peers.pop(session_id, ()))

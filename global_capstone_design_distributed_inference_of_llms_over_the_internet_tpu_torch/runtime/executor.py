@@ -48,8 +48,18 @@ step with ``num_logprobs > 0`` answers each row's top-N candidates of the
 float32 log-softmax of its last position instead of a token, from the
 captured top-N form of the sampler, read back in one sync.
 
-Differences from the reference's engine: offload, tensor parallelism, deep
-prompts, burst decode (the batched engine's) and training are
+Inference-time deep prompts as in the reference (``executor.py:361-393``,
+``:467-477``; Petals' ``block_functions.py:57-65,171-226``): a request
+with ``prompts`` ([span layers, pre_seq, D]) runs the prompt form of the
+span's step, which adds each layer's rows at absolute positions < pre_seq
+at the layer's entry (``models.transformer._apply_deep_prompt``), through
+every chunk of a chunked prefill. On the card it is its own graph, keyed
+by pre_seq and the prompts' dtype beside the plain key, its prompts a
+static input copied in before each replay; the plain step keeps its
+graphs. Such a prefill skips the prefix store.
+
+Differences from the reference's engine: offload, tensor parallelism,
+burst decode (the batched engine's) and training are
 not ported: a request that asks for one is refused with a
 `StageExecutionError` naming its field (the TCP server sends it back as a
 ``kind: "stage"`` error frame). A push chain's
@@ -162,11 +172,7 @@ def verify_drafts_from_logits(logits2d: torch.Tensor, req: StageRequest,
 def _unported_field(req: StageRequest) -> Optional[str]:
     """The first request field this executor does not implement that the
     request sets, or None."""
-    for name, is_set in (("prompts", req.prompts is not None),
-                         ("burst_len", req.burst_len > 0)):
-        if is_set:
-            return name
-    return None
+    return "burst_len" if req.burst_len > 0 else None
 
 
 class StageExecutor:
@@ -237,8 +243,9 @@ class StageExecutor:
                                            "wte": self.params["embed"]["wte"]}
         cfg = self.cfg
 
-        def step(params, x, k_cache, v_cache, cache_len):
-            return stage_forward(cfg, sub_spec, params, x, k_cache, v_cache, cache_len)
+        def step(params, x, k_cache, v_cache, cache_len, prompts=None):
+            return stage_forward(cfg, sub_spec, params, x, k_cache, v_cache,
+                                 cache_len, prompts=prompts)
 
         entry = (sub_spec, sub_params, step)
         self._subspans[(a, b)] = entry
@@ -308,6 +315,16 @@ class StageExecutor:
                 "plain prefill and decode steps")
         a, b = self._resolve_range(req)
         sub_spec, sub_params, step = self._get_subspan(a, b)
+        prompts = None
+        if req.prompts is not None:
+            # Inference-time deep prompt tuning: the client's per-block
+            # prompts are injected at every block entry, every step.
+            prompts = req.prompts
+            if prompts.ndim != 3 or prompts.shape[0] != b - a:
+                raise StageExecutionError(
+                    f"prompts shape {tuple(prompts.shape)} does not cover "
+                    f"the requested {b - a} blocks (want [span, pre, D])")
+            prompts = prompts.to(self.device, non_blocking=True)
         # An id tensor from the host crosses without a host sync.
         x = req.hidden.to(self.device, non_blocking=True)
         if x.is_floating_point() and self.act_dtype not in (None, x.dtype):
@@ -349,7 +366,8 @@ class StageExecutor:
         handle.admit(t_real)
 
         skip, pfx_outs, pfx_register = 0, [], []
-        if self.prefix_store is not None and req.is_prefill and req.prefix_len > 0:
+        if (self.prefix_store is not None and req.is_prefill and req.prefix_len > 0
+                and prompts is None):
             skip, pfx_outs, pfx_register = self._reuse_prefix(req, x, handle, a, b,
                                                               sub_spec.is_last)
 
@@ -358,11 +376,12 @@ class StageExecutor:
         # attends causally to everything already written). Intermediate
         # stages concatenate chunk outputs; the last samples from the last.
         chunk = self._max_chunk_tokens(x.shape[0])
+        with_prompts = () if prompts is None else (prompts,)
         outs = []
         for off in range(skip, t_real, chunk):
             n = min(chunk, t_real - off)
             outs.append(self._dispatch_chunk((a, b), step, sub_params,
-                                             x[:, off:off + n], handle, n))
+                                             x[:, off:off + n], handle, n, *with_prompts))
         self.requests_served += 1
 
         if pfx_register:
@@ -467,10 +486,15 @@ class StageExecutor:
                 [(keys[g], g * grain, (g + 1) * grain) for g in range(len(chain), n_grains)])
 
     def _dispatch_chunk(self, span: tuple, step, sub_params, x: torch.Tensor,
-                        handle: KVHandle, n: int) -> torch.Tensor:
+                        handle: KVHandle, n: int,
+                        prompts: Optional[torch.Tensor] = None) -> torch.Tensor:
         """ONE bucket-padded step of n real tokens against the session
         cache (the reference's ``_dispatch_chunk``, ``executor.py:690``):
-        advances the cache and returns the output trimmed to n rows."""
+        advances the cache and returns the output trimmed to n rows. With
+        `prompts` the step is the prompt form, its graph keyed by pre_seq
+        and the prompts' dtype too; bucket-padded tail rows may get the
+        injection as well, harmless as in the reference: their outputs are
+        trimmed and their KV rows sit past ``cache_len``."""
         tb = round_to_bucket(n, SEQ_BUCKETS)
         if handle.cache_len + tb > handle.bucket_len:
             # Padding would write past the lease: run the exact length (its
@@ -480,10 +504,14 @@ class StageExecutor:
         if tb != n:
             x = F.pad(x, (0, 0) * (x.ndim - 2) + (0, tb - n))
         key = (span, tb, handle.bucket_len, handle.slot, x.dtype)
+        with_prompts = ()
+        if prompts is not None:
+            key += (prompts.shape[1], prompts.dtype)
+            with_prompts = (prompts,)
         out = self.graphs.run(
             key, handle.slot,
-            lambda xs, k, v, cache_len: step(sub_params, xs, k, v, cache_len)[0],
-            x, handle.k, handle.v, handle.cache_len, n)
+            lambda xs, k, v, cache_len, *pr: step(sub_params, xs, k, v, cache_len, *pr)[0],
+            x, handle.k, handle.v, handle.cache_len, n, *with_prompts)
         handle.advance(n)
         return out
 

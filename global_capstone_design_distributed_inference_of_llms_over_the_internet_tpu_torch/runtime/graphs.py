@@ -9,7 +9,9 @@ replayed from then on: one launch of host time a step.
 `capture` turns a function of fixed tensors into a `Captured` graph;
 `StepGraphs` is one executor's set of them, each keyed by (span, seq
 bucket, cache bucket, lease slot, input dtype), with a static input buffer
-and a 0-d ``cache_len`` tensor that the host fills before each replay.
+and a 0-d ``cache_len`` tensor that the host fills before each replay. A
+step with deep prompts is its own graph (the executor adds pre_seq and
+the prompts' dtype to its key) whose prompts are one more static input.
 
   * Warm up first: every new key runs once eagerly on a side stream before
     its capture. Each kernel library (``csrc/*.cu``) links its own static
@@ -182,9 +184,9 @@ def capture(fn: Callable[[], torch.Tensor], pool, stream: torch.cuda.Stream) -> 
 @dataclasses.dataclass
 class CapturedStep:
     """A captured stage step and the fixed tensors it reads: the static
-    input `x`, the lease buffers `k`/`v` (kept alive with the graph) and
-    the 0-d `cache_len`. ``step(x, k, v, cache_len)`` is the function it
-    captured."""
+    input `x`, the lease buffers `k`/`v` (kept alive with the graph), the
+    0-d `cache_len` and, for a deep-prompt step, the static `prompts`.
+    ``step(x, k, v, cache_len[, prompts])`` is the function it captured."""
 
     step: Callable
     x: torch.Tensor
@@ -193,6 +195,7 @@ class CapturedStep:
     cache_len: torch.Tensor
     slot: int
     graph: Captured
+    prompts: Optional[torch.Tensor] = None
 
 
 class StepGraphs:
@@ -211,33 +214,41 @@ class StepGraphs:
         self._stream: Optional[torch.cuda.Stream] = None
 
     def run(self, key: Hashable, slot: int, step: Callable, x: torch.Tensor,
-            k: torch.Tensor, v: torch.Tensor, cache_len: int, n: int) -> torch.Tensor:
+            k: torch.Tensor, v: torch.Tensor, cache_len: int, n: int,
+            prompts: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``step(x, k, v, cache_len)[:, :n]`` for a step that writes the
-        lease buffers `k`/`v` (slot `slot`) in place. On the card: the
-        graph of `key` (captured now if new) replayed with `x` and
-        `cache_len` filled in, its output's first n rows cloned. On the
-        CPU: the direct call."""
+        lease buffers `k`/`v` (slot `slot`) in place, or with `prompts`
+        ``step(x, k, v, cache_len, prompts)[:, :n]`` (`key` must then tell
+        the prompts' shape and dtype apart). On the card: the graph of
+        `key` (captured now if new) replayed with `x`, `cache_len` and the
+        prompts filled in, its output's first n rows cloned. On the CPU:
+        the direct call."""
         if not self.enabled:
-            return step(x, k, v, cache_len)[:, :n]
+            return step(x, k, v, cache_len, *(() if prompts is None else (prompts,)))[:, :n]
         with self._lock:
             entry = self._steps.get(key)
             if entry is None:
-                entry = self._capture(key, slot, step, x, k, v, cache_len)
+                entry = self._capture(key, slot, step, x, k, v, cache_len, prompts)
             entry.x.copy_(x)
             entry.cache_len.fill_(cache_len)
+            if prompts is not None:
+                entry.prompts.copy_(prompts)
             entry.graph.replay()
             self.replays += 1
             return entry.graph.out[:, :n].clone()
 
-    def _capture(self, key, slot, step, x, k, v, cache_len: int) -> CapturedStep:
+    def _capture(self, key, slot, step, x, k, v, cache_len: int,
+                 prompts: Optional[torch.Tensor] = None) -> CapturedStep:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
         static_x = x.clone()
         static_len = torch.full((), cache_len, dtype=torch.int64, device=self.device)
-        graph = capture(lambda: step(static_x, k, v, static_len), self._pool,
+        static_pr = None if prompts is None else prompts.clone()
+        extra = () if static_pr is None else (static_pr,)
+        graph = capture(lambda: step(static_x, k, v, static_len, *extra), self._pool,
                         self._stream)
-        entry = CapturedStep(step, static_x, k, v, static_len, slot, graph)
+        entry = CapturedStep(step, static_x, k, v, static_len, slot, graph, static_pr)
         self._steps[key] = entry
         self.captures += 1
         return entry

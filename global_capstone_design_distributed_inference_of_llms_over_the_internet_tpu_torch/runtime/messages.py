@@ -15,11 +15,13 @@ final stage verifies them and answers with the accepted run,
 ``tokens`` / ``n_accepted``), the ``start_from_position`` rewind and beam
 search: ``hypo_ids`` reorders (and may grow) a session's KV rows before
 the step, and ``num_logprobs > 0`` has the final stage answer each row's
-top-N candidates (``top_tokens`` / ``top_logprobs``) instead of a token.
-The other exotic fields (deep ``prompts``, burst decode on a session
-engine) are refused by the executor with a `StageExecutionError` that
-names the field, never ignored; push-chain ``next_servers`` are served by
-the transports.
+top-N candidates (``top_tokens`` / ``top_logprobs``) instead of a token;
+deep ``prompts`` ([span layers, pre_seq, D]) are added at each block's
+entry at absolute positions < pre_seq, on the session engines (the batched
+engines refuse them, as the reference's). Burst decode on a session
+engine is refused by the executor with a `StageExecutionError` that names
+the field, never ignored; push-chain ``next_servers`` are served by the
+transports.
 ``prefix_len`` marks a prefill's leading tokens shareable: a server with a
 prefix store (``runtime/prefix_cache.py``) reuses their stored KV, one
 without ignores it, as in the reference. The training fields and the
@@ -57,7 +59,7 @@ class StageRequest:
     # Absolute block sub-range to execute (None = the server's whole span).
     start_block: Optional[int] = None
     end_block: Optional[int] = None
-    # Deep prompts [span_layers, pre_seq, D] (refused by the port's executor).
+    # Inference-time deep prompts [span_layers, pre_seq, D] (session engines).
     prompts: Optional[torch.Tensor] = None
     # Session rewind to this position before the step.
     start_from_position: Optional[int] = None

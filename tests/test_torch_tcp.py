@@ -408,18 +408,20 @@ UNPORTED_FIELDS = {
     "burst_len": {"burst_len": 4, "burst_budget": 4},
     "start_from_position": {"start_from_position": 0},
 }
-# Fields once refused here and served since (the speculative and beam
-# slices), each with its value when unset.
+# Fields once refused here and served since (the speculative, beam and
+# deep-prompt slices), each with its value when unset. Zero prompts add
+# nothing, so the prompt step's rows equal the plain step's.
 SERVED_FIELDS = {"draft_tokens": None, "start_from_position": None, "hypo_ids": None,
-                 "num_logprobs": 0}
+                 "num_logprobs": 0, "prompts": None}
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED_FIELDS))
 def test_unported_request_field_gets_a_stage_error_frame(port_swarm, field):
     """A field the port's executor does not implement is refused with a
     ``kind: "stage"`` frame naming it, never served without it. The
-    speculative and beam fields are served: a prefill of stage 1 that
-    carries one answers the hidden rows of the same prefill without it."""
+    speculative, beam and deep-prompt fields are served: a prefill of stage
+    1 that carries one answers the hidden rows of the same prefill without
+    it."""
     req = tnet.StageRequest(session_id="f", hidden=torch.zeros(1, 1, 256), seq_len=1,
                             cur_len=0, is_prefill=True, max_length=8,
                             **UNPORTED_FIELDS[field])
