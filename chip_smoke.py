@@ -472,6 +472,27 @@ on the kernels; it never prints the last line of a smoke pass.)
    plainly merged, then quantized weights and different from the
    unmerged run's, the second merged run capturing nothing, launches by
    route exactly, decode ms/token merged against unmerged.
+12f. Fine-tuning (after 12e; ``finetune_path``): ``DistributedFineTuner``
+   over ``main.build_local_client``'s swarm, B = FT_BATCH, T = FT_SEQ
+   seeded ids, deep prompts of FT_PRE_SEQ rows. (a) ``--quant none`` spans
+   (built beside the int8 ones from the same weights), prompts and LoRA
+   (wq, wv, rank FT_LORA_RANK, b seeded): the step at lr 0, its loss and
+   every trainable's gradient held to one single-process autograd with
+   remat=False over the same executors' weights (FT_GRAD_TOL), then
+   FT_STEPS AdamW steps at FT_LR on the same batch whose loss must fall;
+   no ``int8_dot`` / ``nf4_dot`` launch and no capture. (c) One step over
+   in-process TCP at wire f32 (the same executors, keeping their bf16
+   act_dtype), its gradients held to (a)'s. (b) The int8 path's spans,
+   prompts only: held to the oracle the same way, ``int8_dot``'s launches
+   of the lr-0 step exactly 4 sites x (2 x stage 0's layers + 3 x the
+   remote layers) on ``mma``, 0 on any other route. Each run's phases
+   (local forward, remote forwards, head and loss, remote backwards,
+   local backward, AdamW) timed between device syncs, tokens/s, peak
+   memory above the weights held, and one step under ``torch.profiler``
+   (device busy, idle share, top kernels). Then each kernel's gradient
+   (its wrapper's ``autograd.Function``) at the four sites at M = B * T
+   against float64, its backward product timed beside the forward kernel,
+   their plain versions, the library and the bound.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``, ``paged_decode_attention`` with the paged path's
    launches and its times at the paged path's shape; each matmul with its
@@ -483,7 +504,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    each; the speculative path's runs by drafter and route, and
    ``sample_draw``'s on the sampled ones; the beam path's runs by route
    and each route's layer at M = 4; the deep-prompt and LoRA runs by
-   route) and
+   route; the int8 fine-tuning step by route and each kernel's gradient
+   rows at M = 256) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -7437,6 +7459,441 @@ def prompt_lora_path(torch, kernels, tmain, state, smi: str) -> dict:
     return view
 
 
+# The fine-tuning path (step 12f): one batch of FT_BATCH x FT_SEQ seeded ids
+# (targets the next id, the last position ignored), deep prompts of
+# FT_PRE_SEQ rows, LoRA adapters of rank FT_LORA_RANK over LORA_TARGETS on
+# the unquantized spans, FT_STEPS AdamW steps at FT_LR on that batch after
+# the step at lr 0 whose gradients are held to the single-process oracle.
+FT_BATCH = 2
+FT_SEQ = 128
+FT_PRE_SEQ = 16
+FT_LORA_RANK = 16
+FT_STEPS = 5
+FT_LR = 1e-2
+FT_B_STD = 0.02          # LoRA b ~ N(0, FT_B_STD) before the first step
+# A trainable's gradient against the oracle's: max|got - oracle| <= this *
+# max|oracle|. Both run the same kernels at the same shapes on the same
+# weights (the executors' own), so they differ only where a kernel's order
+# of sums does; one bf16 ulp at the gradient's scale bounds that.
+FT_GRAD_TOL = 2.0 ** -7
+# The tuner's phases, each timed between two device syncs.
+FT_PHASES = ("_local_forward", "_remote_forward", "_head_loss", "_remote_backward",
+             "_local_backward", "_apply")
+
+
+class FtProbe:
+    """On a fine-tuner: each phase's host ms between device syncs (one dict
+    a step), and the gradients each `_apply` is given. `close` takes the
+    wrappers off."""
+
+    def __init__(self, torch, ft):
+        self.ft, self.steps, self.grads = ft, [], []
+
+        def wrap(name, fn):
+            def timed(*args, **kwargs):
+                if name == "_local_forward":
+                    self.steps.append({})
+                if name == "_apply":
+                    self.grads.append(args[0])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.steps[-1][name] = 1e3 * (time.perf_counter() - t0)
+                return out
+            return timed
+
+        for name in FT_PHASES:
+            setattr(ft, name, wrap(name, getattr(ft, name)))
+
+    def close(self) -> None:
+        for name in FT_PHASES:
+            delattr(self.ft, name)
+
+
+def ft_batch(cfg):
+    rng = random.Random(21)
+    ids = [[rng.randrange(cfg.vocab_size) for _ in range(FT_SEQ)] for _ in range(FT_BATCH)]
+    targets = [row[1:] + [-1] for row in ids]
+    return ids, targets
+
+
+def ft_oracle(torch, cfg, client, head, trainables, lora_scale, ids, targets):
+    """The step's loss and gradients from one single-process autograd with
+    remat=False over the client's own weights: stage 0's embedding and
+    span, each hop's executor's span (the tuner's route) and the head,
+    prompts and adapters sliced as the tuner slices them."""
+    from importlib import import_module
+
+    tf = import_module(PORT + ".models.transformer")
+    lora_mod = import_module(PORT + ".models.lora")
+    trainer = import_module(PORT + ".parallel.trainer")
+    dev = client.stage0.device
+    spans = [(0, client.plan.stages[0].end, client.stage0)] + [
+        (h.start_block, h.end_block, client.transport.executor(h.peer_id))
+        for h in client.route(kind="exotic")]
+    prompts = trainables["prompts"].detach().clone().requires_grad_()
+    lora = None
+    if "lora" in trainables:
+        lora = {t: {k: v.detach().clone().requires_grad_() for k, v in ab.items()}
+                for t, ab in trainables["lora"].items()}
+    ids_t = torch.tensor(ids, device=dev)
+    pos = torch.arange(FT_SEQ, device=dev)[None, :].expand(FT_BATCH, FT_SEQ)
+    with torch.enable_grad():
+        x = tf.embed_tokens(cfg, client.stage0.params["embed"], ids_t, pos)
+        for a, b, ex in spans:
+            x = tf.stack_forward_train(
+                cfg, ex.params["layers"], x, pos, remat=False, prompts=prompts[a:b],
+                lora=None if lora is None else lora_mod.slice_lora(lora, a, b),
+                lora_scale=lora_scale)
+        loss = trainer.softmax_xent(tf.lm_head(cfg, head, x), torch.tensor(targets, device=dev))
+        leaves = [prompts] + ([] if lora is None else
+                              [lora[t][k] for t in sorted(lora) for k in ("a", "b")])
+        grads = torch.autograd.grad(loss, leaves)
+    out = {"prompts": grads[0]}
+    if lora is not None:
+        out["lora"] = {t: {"a": grads[1 + 2 * i], "b": grads[2 + 2 * i]}
+                       for i, t in enumerate(sorted(lora))}
+    return float(loss.detach()), out
+
+
+def ft_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from ft_leaves(tree[k], path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def ft_hold(what: str, got: dict, want: dict) -> dict:
+    """Each trainable's gradient held to `want`'s: max|got - want| <=
+    FT_GRAD_TOL * max|want|. Returns (err, scale) by leaf."""
+    view = {}
+    wants = dict(ft_leaves(want))
+    for name, g in ft_leaves(got):
+        w = wants[name].float()
+        err = (g.float() - w).abs().max().item()
+        scale = w.abs().max().item()
+        view[name] = {"max_abs_err": err, "max_abs": scale}
+        if not (scale > 0 and err <= FT_GRAD_TOL * scale):
+            raise AssertionError(f"{what}: {name} gradient max|err| {err} > {FT_GRAD_TOL} * "
+                                 f"{scale} (or all zero)")
+    log(f"{what}: gradients held ({FT_GRAD_TOL} of each one's max): {view}")
+    return view
+
+
+def ft_steps_view(steps, tokens: int) -> dict:
+    """Median ms of each phase and of the step over `steps` (an FtProbe's
+    dicts), and tokens/s at the median step."""
+    phases = {name.lstrip("_"): statistics.median(s[name] for s in steps)
+              for name in FT_PHASES}
+    step = statistics.median(sum(s.values()) for s in steps)
+    return {"phases_ms": phases, "step_ms": step, "tokens_per_s": tokens / (step / 1e3),
+            "steps_timed": len(steps)}
+
+
+def ft_tcp_stages(torch, local):
+    """`local`'s stages 1-3 behind TcpStageServers at wire f32, keeping
+    their act_dtype (so an arriving float32 activation, a bf16 value on
+    the wire, computes in bf16 as in process), a registry service and a
+    TcpTransport client with `local`'s stage 0."""
+    from importlib import import_module
+
+    net = import_module(PORT + ".runtime.net")
+    task_pool = import_module(PORT + ".runtime.task_pool")
+    client_mod = import_module(PORT + ".runtime.client")
+    registry_srv = net.RegistryServer()
+    registry_srv.start()
+    servers = []
+    for peer in local.transport.peers():
+        ex = local.transport.executor(peer)
+        srv = net.TcpStageServer(ex, task_pool.StageRuntime(), wire_dtype="f32", model=MODEL)
+        srv.start()
+        servers.append(srv)
+        rec = client_mod.make_server_record(peer, ex.spec, model=MODEL)
+        rec.address = srv.address
+        registry_srv.registry.register(rec)
+    registry = net.RemoteRegistry(registry_srv.address)
+    transport = net.TcpTransport(registry, wire_dtype="f32", model=MODEL)
+    client = client_mod.PipelineClient(local.cfg, local.plan, local.stage0, transport,
+                                       registry, seed=0, model=MODEL)
+    return client, servers, registry_srv
+
+
+def ft_kernel_rows(torch, ik, nk, bw: float, flops: float) -> list:
+    """Each kernel's gradient (its wrapper's autograd.Function) at the four
+    llama-3.1-8b sites at M = B * T, bf16 x: the output has a grad_fn, the
+    gradient within BF16_TOL of a float64 ``(g * s) @ q.T`` (int8) or ``g @
+    deq.T`` (NF4, deq rounded to bf16 as the plain version rounds it); the
+    backward product timed beside the forward kernel (and the forward's
+    plain version and library call ``x @ W``), the plain version's
+    backward (autograd through it) and one library call (``g @ W.T`` on a
+    bf16 weight made beforehand), with its bound (g, the weight and x's
+    gradient moved once; 2MKN operations at the bf16 rate: the forward's
+    bound too)."""
+    from importlib import import_module
+
+    quant = import_module(PORT + ".models.quant")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    m = FT_BATCH * FT_SEQ
+    rows = []
+    for site, k, n in SITES:
+        x = (torch.randn((m, k), generator=gen, device="cuda")).to(torch.bfloat16)
+        g = torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
+        for name, mod, w in (("int8_dot", ik, int8_weight(torch, quant, gen, "cuda", k, n)),
+                             ("nf4_dot", nk, nf4_weight(torch, quant, gen, "cuda", k, n))):
+            xg = x.clone().requires_grad_()
+            y = getattr(mod, name)(xg, w)
+            if y.grad_fn is None:
+                raise AssertionError(f"{name} {site}: an output of an input that needs a "
+                                     "gradient has no grad_fn")
+            (gx,) = torch.autograd.grad(y, xg, g)
+            if name == "int8_dot":
+                w_bf16 = w.dequant()
+                ref = (g.double() * w.s.double()) @ w.q.double().T
+
+                def grad_fn(w=w):
+                    return ik.int8_dot_grad_x(g, w.q, w.s, torch.bfloat16)
+
+                def fwd(w=w):
+                    return ik._launch(x, w.q, w.s)
+
+                def plain_fwd(w=w):
+                    return ik.int8_dot_reference(x, w.q, w.s)
+
+                def plain_bwd(w=w):
+                    xp = x.clone().requires_grad_()
+                    return torch.autograd.grad(ik.int8_dot_reference(xp, w.q, w.s), xp, g)[0]
+
+                wbytes = k * n + n * 4
+            else:
+                w_bf16 = w.dequant_f32().to(torch.bfloat16)
+                ref = g.double() @ w_bf16.double().T
+
+                def grad_fn(w=w):
+                    return nk.nf4_dot_grad_x(g, w, torch.bfloat16)
+
+                def fwd(w=w):
+                    return nk._launch(x, w)
+
+                def plain_fwd(w=w):
+                    return nk.nf4_dot_reference(x, w)
+
+                def plain_bwd(w=w):
+                    xp = x.clone().requires_grad_()
+                    return torch.autograd.grad(nk.nf4_dot_reference(xp, w), xp, g)[0]
+
+                wbytes = k * n // 2 + (k // 64) * n * 2
+            err = (gx.double() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            if not (gx.dtype == torch.bfloat16 and err <= BF16_TOL * scale):
+                raise AssertionError(f"{name} {site} M={m}: gradient max|err| {err} > "
+                                     f"{BF16_TOL} * {scale} against float64")
+            nbytes = m * n * 2 + wbytes + m * k * 2
+            ops = 2 * m * k * n
+            rows.append({
+                "kernel": name, "site": site, "M": m, "K": k, "N": n, "max_abs_err": err,
+                "max_abs": scale, "forward_ms": cuda_ms(fwd, torch, flush=flush),
+                "forward_route": mod._route(m, k, n, torch.bfloat16),
+                "forward_plain_ms": cuda_ms(plain_fwd, torch, flush=flush),
+                "forward_library_ms": cuda_ms(lambda w_bf16=w_bf16: x @ w_bf16, torch,
+                                              flush=flush),
+                "backward_ms": cuda_ms(grad_fn, torch, flush=flush),
+                "plain_backward_ms": cuda_ms(plain_bwd, torch, flush=flush),
+                "library_ms": cuda_ms(lambda w_bf16=w_bf16: g @ w_bf16.T, torch, flush=flush),
+                "bytes": nbytes, "bound_ms": max(nbytes / bw, ops / flops) * 1e3,
+                "bound_by": "bytes" if nbytes / bw >= ops / flops else "operations",
+                "library": "g @ W.T on a bf16 weight made beforehand: a yardstick the "
+                           "port never calls"})
+            del w_bf16, ref
+    del flush
+    return rows
+
+
+def ft_profile(torch, ft, ids, targets) -> dict:
+    """torch.profiler over one training step: its wall ms (host clock to
+    the synced end), the device's busy ms (the union of the traced
+    kernels), the idle share and the top kernels by device ms."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ft.step(ids, targets)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"wall_ms": wall_ms, "kernels": len(kernels)}
+    if not kernels:
+        out["device_busy_ms"] = "not measured: the profiler saw no device time"
+        return out
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    by_name = {}
+    for e in kernels:
+        ms_n = by_name.setdefault(e.name[:80], [0.0, 0])
+        ms_n[0] += (e.time_range.end - e.time_range.start) / 1e3
+        ms_n[1] += 1
+    out.update(device_busy_ms=busy, device_idle_share=1 - busy / wall_ms,
+               top_kernels_ms=[{"name": k, "ms": v[0], "launches": v[1]} for k, v in
+                               sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]])
+    return out
+
+
+def ft_launches(cfg, stage0_layers: int) -> dict:
+    """int8_dot's launches by route for one prompt step on int8 spans, all
+    bf16 at M = B * T (the tensor cores): every site of stage 0's layers in
+    the local forward and again in its checkpointed backward; every site of
+    the remote layers in ``train_forward``, in ``backward``'s re-forward and
+    again in its checkpointed backward."""
+    remote = cfg.num_layers - stage0_layers
+    return {"mma": 4 * (2 * stage0_layers + 3 * remote), "gemv": 0, "f32mma": 0, "simt": 0}
+
+
+def ft_tuner(torch, client, cfg, params, lora: bool, lr: float):
+    from importlib import import_module
+
+    finetune = import_module(PORT + ".runtime.finetune")
+    head = {"final_norm": params["final_norm"], "lm_head": params["lm_head"]}
+    ft = finetune.DistributedFineTuner(
+        cfg, client, head, pre_seq=FT_PRE_SEQ, lr=lr,
+        lora_rank=FT_LORA_RANK if lora else 0, lora_targets=LORA_TARGETS, seed=5)
+    if lora:
+        # A zero b gives a zero gradient in a: b seeded too, as the
+        # reference's test perturbs it, so that both factors are held.
+        gen = torch.Generator(device=ft.device).manual_seed(9)
+        for ab in ft.trainables["lora"].values():
+            ab["b"] = FT_B_STD * torch.randn(ab["b"].shape, generator=gen,
+                                                   device=ft.device)
+    return ft, head
+
+
+def ft_run(torch, kernels, what: str, ft, head, cfg, ids, targets, steps: int) -> dict:
+    """The step at lr 0 (its gradients held to the oracle), then `steps`
+    steps at FT_LR from the same trainables, every phase timed; the
+    launches and captures of the lr-0 step; peak memory above what was
+    held before the steps."""
+    from importlib import import_module
+
+    trainer = import_module(PORT + ".parallel.trainer")
+    client = ft.client
+    executors = path_executors(client)
+    start = trainer.tree_map(lambda t: t.detach().clone(), ft.trainables)
+    t0 = time.monotonic()
+    oracle_loss, oracle = ft_oracle(torch, cfg, client, head, start, ft.lora_scale, ids, targets)
+    torch.cuda.synchronize()
+    oracle_s = time.monotonic() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    probe = FtProbe(torch, ft)
+    try:
+        reset_counts(kernels, executors)
+        loss0 = ft.step(ids, targets)
+        torch.cuda.synchronize()
+        launches = {name: kernel_routes(kernels[name]) for name in ("int8_dot", "nf4_dot")}
+        captures = sum(ex.graphs.captures + ex.sampler.captures for ex in executors)
+        grads0 = probe.grads[0]
+        ft.lr = FT_LR
+        ft.opt_state = trainer.adamw_init(ft.trainables)
+        losses = [ft.step(ids, targets) for _ in range(steps)]
+        torch.cuda.synchronize()
+    finally:
+        probe.close()
+    peak = torch.cuda.max_memory_allocated() - base
+    if not (abs(loss0 - oracle_loss) <= 1e-3 * abs(oracle_loss)):
+        raise AssertionError(f"{what}: step loss {loss0}, oracle {oracle_loss}")
+    held = ft_hold(f"{what}, step at lr 0 against the oracle", grads0, oracle)
+    view = {"loss_lr0": loss0, "oracle_loss": oracle_loss, "oracle_s": oracle_s,
+            "grads_vs_oracle": held, "losses": losses, "launches_lr0_step": launches,
+            "captures": captures, "peak_above_held_gb": peak / 1e9,
+            "held_gb": base / 1e9, **ft_steps_view(probe.steps[1:], FT_BATCH * FT_SEQ)}
+    log(f"{what}: loss {loss0:.5f} (oracle {oracle_loss:.5f}), then {losses}; step "
+        f"{view['step_ms']:.1f} ms ({view['phases_ms']}), {view['tokens_per_s']:.0f} tokens/s; "
+        f"peak {peak / 1e9:.2f} GB above {base / 1e9:.2f} GB held; launches {launches}; "
+        f"{captures} captures")
+    if captures:
+        raise AssertionError(f"{what}: the training steps captured {captures} graphs")
+    view["profile"] = ft_profile(torch, ft, ids, targets)
+    log(f"{what}: a profiled step {view['profile']}")
+    return {**view, "grads_lr0": grads0, "start": start}
+
+
+def finetune_path(torch, kernels, tmain, state, bw: float, flops: float, smi: str) -> dict:
+    """Step 12f: DistributedFineTuner at llama-3.1-8b's full width and
+    depth through main's swarm functions. Returns the summary."""
+    t_phase = time.monotonic()
+    cfg, params = state["cfg"], state["params"]
+    ids, targets = ft_batch(cfg)
+    view = {"batch": FT_BATCH, "seq": FT_SEQ, "pre_seq": FT_PRE_SEQ, "card": smi}
+    # (a) --quant none spans, prompts and LoRA.
+    nargs = tmain.build_parser().parse_args(
+        ["--mode", "local", "--model", MODEL, "--quant", "none", "--dtype", "bfloat16",
+         "--device", state["args"].device, "--seed", str(state["args"].seed)])
+    local = tmain.build_local_client(nargs, cfg, params)
+    ft, head = ft_tuner(torch, local, cfg, params, lora=True, lr=0.0)
+    a = ft_run(torch, kernels, "finetune (a) --quant none, prompts + LoRA", ft, head, cfg, ids,
+               targets, FT_STEPS)
+    if not a["losses"][-1] < a["losses"][0]:
+        raise AssertionError(f"finetune (a): the loss did not fall: {a['losses']}")
+    if any(sum(r.values()) for r in a["launches_lr0_step"].values()):
+        raise AssertionError(f"finetune (a): quantized kernels launched on unquantized spans: "
+                             f"{a['launches_lr0_step']}")
+    # (c) One step over in-process TCP at wire f32 from (a)'s first trainables.
+    t0 = time.monotonic()
+    client, servers, registry_srv = ft_tcp_stages(torch, local)
+    try:
+        tft, _ = ft_tuner(torch, client, cfg, params, lora=True, lr=0.0)
+        tft.trainables = a["start"]
+        probe = FtProbe(torch, tft)
+        try:
+            tloss = tft.step(ids, targets)
+        finally:
+            probe.close()
+    finally:
+        client.transport.close()
+        for srv in servers:
+            srv.stop()
+        registry_srv.stop()
+    if not abs(tloss - a["loss_lr0"]) <= 1e-3 * abs(a["loss_lr0"]):
+        raise AssertionError(f"finetune (c): loss over TCP {tloss}, in process {a['loss_lr0']}")
+    view["c_tcp_f32"] = {"loss": tloss, "grads_vs_local": ft_hold(
+        "finetune (c) over TCP at wire f32 against (a)'s local transport", probe.grads[0],
+        a["grads_lr0"]), **ft_steps_view(probe.steps, FT_BATCH * FT_SEQ),
+        "seconds": time.monotonic() - t0}
+    view["a_none_prompts_lora"] = {k: v for k, v in a.items() if k not in ("grads_lr0", "start")}
+    del ft, local, a, tft, client, servers
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) The int8 path's spans, prompts only.
+    lclient = state["client"]
+    lclient._routes.clear()
+    ft, head = ft_tuner(torch, lclient, cfg, params, lora=False, lr=0.0)
+    b = ft_run(torch, kernels, "finetune (b) --quant int8, prompts", ft, head, cfg, ids, targets,
+               FT_STEPS)
+    need = ft_launches(cfg, lclient.plan.stages[0].num_layers)
+    got = b["launches_lr0_step"]["int8_dot"]
+    log(f"finetune (b): int8_dot launches of the lr-0 step {got} (want {need})")
+    if got != need or sum(b["launches_lr0_step"]["nf4_dot"].values()):
+        raise AssertionError(f"finetune (b): int8_dot launches {got}, want {need}; nf4_dot "
+                             f"{b['launches_lr0_step']['nf4_dot']}")
+    view["b_int8_prompts"] = {k: v for k, v in b.items() if k not in ("grads_lr0", "start")}
+    view["b_int8_prompts"]["want_launches"] = need
+    del ft, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    view["kernel_grads"] = ft_kernel_rows(torch, kernels["int8_dot"], kernels["nf4_dot"], bw,
+                                          flops)
+    for r in view["kernel_grads"]:
+        log(f"  {r['kernel']} {r['site']} M={r['M']}: gradient err {r['max_abs_err']:.3g} of "
+            f"{r['max_abs']:.3g}; forward ({r['forward_route']}) {r['forward_ms']:.4f} ms, "
+            f"backward product {r['backward_ms']:.4f} ms (plain {r['plain_backward_ms']:.4f}, "
+            f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f})")
+    view["seconds"] = time.monotonic() - t_phase
+    log(f"finetune path: {view['seconds']:.1f}s")
+    return view
+
+
 def oracle_logits(torch, cfg, params, ids, cache_dtype=None, prompts=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
     logits after `ids` (one prefill, with deep `prompts` if given)."""
@@ -7758,6 +8215,10 @@ def main(argv) -> int:
     log(json.dumps({"prompt_lora_path": prompt_lora}))
     gc.collect()
     torch.cuda.empty_cache()
+    finetune = finetune_path(torch, kernel_mods, tmain, state, bw, flops, smi)
+    log(json.dumps({"finetune_path": finetune}))
+    gc.collect()
+    torch.cuda.empty_cache()
     # What the CLI drives compare with; the weights go.
     int8_state = {k: state[k] for k in ("f32_chain_results", "requests")}
     del state
@@ -7847,6 +8308,7 @@ def main(argv) -> int:
         f"{control['cli']['seconds']:.1f}s as processes")
     log(f"beam phases: {beam['seconds']:.1f}s int8, {beam['nf4_tcp_bf16']['seconds']:.1f}s NF4")
     log(f"prompt/lora phase: {prompt_lora['seconds']:.1f}s")
+    log(f"finetune phase: {finetune['seconds']:.1f}s")
     log(f"speculative phases: {spec['seconds']:.1f}s in process (int8), "
         f"{spec['nf4_tcp_bf16']['seconds']:.1f}s NF4, the CLI client in the batched CLI "
         f"drive ({spec['cli']['seconds']:.1f}s with its two plain clients)")
@@ -7920,6 +8382,13 @@ def main(argv) -> int:
         "float32_chain": prompt_lora["float32_chain"]["int8_dot_launches_by_route"],
         "tcp_f32": prompt_lora["tcp_f32"]["prompted"][1]["int8_dot_launches_by_route"],
         "lora": prompt_lora["lora"]["merged"][1]["int8_dot_launches_by_route"]}
+    # The fine-tuning runs' lr-0 steps by route, and each kernel's gradient
+    # at the four sites beside its forward kernel.
+    kernels[0]["finetune_path"] = {
+        "int8_prompt_step": finetune["b_int8_prompts"]["launches_lr0_step"]["int8_dot"],
+        "grad_rows": [r for r in finetune["kernel_grads"] if r["kernel"] == "int8_dot"]}
+    kernels[1]["finetune_path"] = {
+        "grad_rows": [r for r in finetune["kernel_grads"] if r["kernel"] == "nf4_dot"]}
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

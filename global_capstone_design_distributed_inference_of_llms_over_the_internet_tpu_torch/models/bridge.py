@@ -7,7 +7,8 @@ and ``dtype`` attributes (the reference's int8 ``QuantizedTensor``) or with
 ``packed``, ``scales``, ``in_dim`` and ``dtype`` (its ``NF4Tensor``). The
 output is the same tree of torch tensors, with quantized leaves as the
 port's `QuantizedTensor` and `NF4Tensor`. Nothing of JAX is imported: bfloat16 arrays cross
-as their uint16 bit patterns, viewed back as ``torch.bfloat16``.
+as their uint16 bit patterns, viewed back as ``torch.bfloat16``. A fine-tuner's
+trainables and optimizer state cross the same way (`tuner_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -49,3 +50,10 @@ def from_jax_tree(tree: Any, device="cpu") -> Any:
         return QuantizedTensor(array_to_torch(tree.q, device),
                                array_to_torch(tree.s, device), str(tree.dtype))
     return array_to_torch(tree, device)
+
+
+def tuner_state_from_jax(trainables: Any, opt_state: Any, device="cpu") -> tuple:
+    """A JAX ``DistributedFineTuner``'s trainables and AdamW state (numpy
+    leaves) -> the port tuner's (trainables, opt_state) on `device`, so both
+    packages' tuners start from the same prompts, adapters and moments."""
+    return from_jax_tree(trainables, device), from_jax_tree(opt_state, device)

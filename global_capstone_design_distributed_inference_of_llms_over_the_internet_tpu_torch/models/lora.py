@@ -81,19 +81,31 @@ def _fused_qkv_offset(cfg: ModelConfig, wqkv_width: int, target: str) -> int:
     return {"wq": 0, "wk": hd, "wv": hd + kd}[target]
 
 
+def _check_dense(w) -> None:
+    if not isinstance(w, torch.Tensor) or not w.is_floating_point():
+        raise ValueError("merge_lora takes dense weights: merge before --quant")
+
+
+def _merged_cols(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 s: torch.Tensor) -> torch.Tensor:
+    """One layer's columns `w` [D, o] plus ``s * a @ b`` (a [D, r], b [r,
+    o]) in the reference's rounding order: the float32 product, cast to
+    w's dtype, times the scale `s` in that dtype, added in that dtype."""
+    delta = a.to(w.device, torch.float32) @ b.to(w.device, torch.float32)
+    return w + s * delta.to(w.dtype)
+
+
 def _add_delta(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor, scale: float,
                cols: Optional[slice] = None) -> torch.Tensor:
     """A copy of the stacked weight `w` [L, D, N] with ``scale * a[l] @
     b[l]`` added to each layer's columns `cols` (all of them by default),
     one layer's float32 delta at a time."""
-    if not isinstance(w, torch.Tensor) or not w.is_floating_point():
-        raise ValueError("merge_lora takes dense weights: merge before --quant")
+    _check_dense(w)
     out = w.clone()
     s = torch.tensor(scale, dtype=w.dtype, device=w.device)
     cols = cols if cols is not None else slice(None)
     for li in range(w.shape[0]):
-        delta = a[li].to(w.device, torch.float32) @ b[li].to(w.device, torch.float32)
-        out[li, :, cols] = w[li, :, cols] + s * delta.to(w.dtype)
+        out[li, :, cols] = _merged_cols(w[li, :, cols], a[li], b[li], s)
     return out
 
 
@@ -122,6 +134,38 @@ def merge_lora(cfg: ModelConfig, layers: Params, lora: Optional[Params],
         else:
             raise ValueError(f"LoRA target {t!r} not present in layer params")
     return {**layers, "attn": attn}
+
+
+def merge_lora_layer(cfg: ModelConfig, attn: Params, lora: Optional[Params],
+                     scale: float) -> Params:
+    """One layer's attention params (2-D leaves) with each target's ``W +
+    scale * a @ b``, `lora` holding that layer's ``a`` [D, r] and ``b`` [r,
+    O]: the bits `merge_lora` gives that layer, on either layout. Nothing
+    is written in place, so the result is differentiable in a and b: the
+    training forward (``models/transformer.stack_forward_train``) merges
+    each layer inside its checkpointed body, so at most one layer's merged
+    weights live at a time."""
+    if not lora:
+        return attn
+    attn = dict(attn)
+    for t, ab in lora.items():
+        if t in attn:
+            w = attn[t]
+            _check_dense(w)
+            s = torch.tensor(scale, dtype=w.dtype, device=w.device)
+            attn[t] = _merged_cols(w, ab["a"], ab["b"], s)
+        elif "wqkv" in attn and t in ("wq", "wk", "wv"):
+            w = attn["wqkv"]
+            _check_dense(w)
+            s = torch.tensor(scale, dtype=w.dtype, device=w.device)
+            off = _fused_qkv_offset(cfg, w.shape[-1], t)
+            o = ab["b"].shape[-1]
+            attn["wqkv"] = torch.cat(
+                [w[:, :off], _merged_cols(w[:, off:off + o], ab["a"], ab["b"], s),
+                 w[:, off + o:]], dim=-1)
+        else:
+            raise ValueError(f"LoRA target {t!r} not present in layer params")
+    return attn
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,16 @@ step's attention reads the occupied pages of the cache only
 (``ops.paged_attention_kernel``), under the reference's condition.
 Inference-time deep prompts (``prompts=`` of `stack_forward` and
 `full_forward`) are added at each layer's entry, at absolute positions, on
-the device. MoE and the training forward are not ported yet and are
+the device.
+
+The training forward (`stack_forward_train`, the reference's
+``models/transformer.py:598-650``) runs a span cache-free: each layer's
+causal attention over the sequence itself (`layer_forward` with no cache),
+deep prompts added to the first ``min(pre_seq, T)`` rows of each layer's
+input, LoRA adapters merged for a layer inside that layer's body (one
+layer's merged weights at a time, the rounding of `models.lora`), and with
+``remat`` each layer checkpointed (``torch.utils.checkpoint``), its
+activations recomputed in the backward. MoE is not ported yet and is
 refused loudly.
 """
 
@@ -34,14 +43,16 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import CacheLen, cached_attention, update_kv_cache
+from ..ops.attention import CacheLen, cached_attention, causal_attention, update_kv_cache
 from ..ops.int8_kernel import int8_dot
 from ..ops.nf4_kernel import nf4_dot
 from ..ops.paged_attention_kernel import paged_decode_attention
 from ..ops.norms import layer_norm, rms_norm
 from ..ops.rotary import apply_rope, rope_cos_sin
 from .config import ModelConfig
+from .lora import merge_lora_layer
 from .quant import NF4Tensor, QuantizedTensor, dequant_tree, tree_map
 
 Params = Dict[str, Any]
@@ -318,23 +329,29 @@ def make_rope(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _attention(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
-               k_cache: torch.Tensor, v_cache: torch.Tensor, cache_len: CacheLen,
-               window=None) -> torch.Tensor:
+               k_cache: Optional[torch.Tensor], v_cache: Optional[torch.Tensor],
+               cache_len: CacheLen, window=None) -> torch.Tensor:
+    """k_cache None selects the training path: causal attention of the
+    fresh keys over themselves, nothing written."""
     b, t, _ = x.shape
     q, k, v = qkv_proj(cfg, p, x)
     if rope is not None:
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    update_kv_cache(k_cache, v_cache, k, v, cache_len)
-    if (cfg.decode_kv_page and t == 1 and window is None
+    if k_cache is None:
+        out = causal_attention(q, k, v, sliding_window=window, scale=cfg.query_scale,
+                               logit_softcap=cfg.attn_softcap)
+    elif (cfg.decode_kv_page and t == 1 and window is None
             and not cfg.attn_softcap and not cfg.query_scale
             and k_cache.shape[1] % cfg.decode_kv_page == 0):
         # The reference's condition (models/transformer.py:436-440): the
         # decode step reads only the pages that hold real rows.
+        update_kv_cache(k_cache, v_cache, k, v, cache_len)
         out = paged_decode_attention(q, k_cache, v_cache, cache_len,
                                      cfg.decode_kv_page)
     else:
+        update_kv_cache(k_cache, v_cache, k, v, cache_len)
         out = cached_attention(q, k_cache, v_cache, cache_len,
                                sliding_window=window, scale=cfg.query_scale,
                                logit_softcap=cfg.attn_softcap)
@@ -353,10 +370,11 @@ def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
-                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  k_cache: Optional[torch.Tensor], v_cache: Optional[torch.Tensor],
                   cache_len: CacheLen) -> torch.Tensor:
     """Pre-norm residual block. x: [B, T, D] -> [B, T, D]; writes this
-    layer's new keys/values into k_cache/v_cache ([B, S, Hkv, Dh]) in place."""
+    layer's new keys/values into k_cache/v_cache ([B, S, Hkv, Dh]) in place,
+    or, with no cache, attends over x's own positions (the training path)."""
     p = dequant_tree(p)
     window = p.get("window", cfg.sliding_window)
     attn_out = _attention(cfg, p["attn"], _norm(cfg, p["ln1"], x), rope,
@@ -408,6 +426,66 @@ def stack_forward(cfg: ModelConfig, layers: Params, x: torch.Tensor,
             x = _apply_deep_prompt(x, prompts[li], cache_len)
         x = layer_forward(cfg, lp, x, rope, k_caches[li], v_caches[li], cache_len)
     return x, k_caches, v_caches
+
+
+def _stack_depth(layers: Params) -> int:
+    """The leading (layer) axis of a stacked layer tree."""
+    node = layers
+    while isinstance(node, dict):
+        node = next(iter(node.values()))
+    if isinstance(node, QuantizedTensor):
+        return node.q.shape[0]
+    if isinstance(node, NF4Tensor):
+        return node.packed.shape[0]
+    return node.shape[0]
+
+
+def _train_layer(cfg: ModelConfig, lp: Params, h: torch.Tensor, rope,
+                 prompt: Optional[torch.Tensor], lora: Optional[Params],
+                 lora_scale: float) -> torch.Tensor:
+    """One layer of the training forward: its adapters merged, its deep
+    prompt rows [n, D] added to the first n rows of h (cast to h's dtype,
+    as the reference casts them), then the cache-free block."""
+    if lora:
+        lp = {**lp, "attn": merge_lora_layer(cfg, lp["attn"], lora, lora_scale)}
+    if prompt is not None and prompt.shape[0]:
+        n = prompt.shape[0]
+        h = torch.cat([(h[:, :n] + prompt[None]).to(h.dtype), h[:, n:]], dim=1)
+    return layer_forward(cfg, lp, h, rope, None, None, 0)
+
+
+def stack_forward_train(cfg: ModelConfig, layers: Params, x: torch.Tensor,
+                        positions: torch.Tensor, remat: bool = True,
+                        prompts: Optional[torch.Tensor] = None,
+                        lora: Optional[Params] = None,
+                        lora_scale: float = 0.0) -> torch.Tensor:
+    """Training forward of a span of stacked layers: no KV cache, causal
+    attention over the sequence (the reference's ``stack_forward_train``).
+
+    remat=True checkpoints each layer (``torch.utils.checkpoint``,
+    non-reentrant): the backward recomputes the layer instead of keeping
+    its activations; remat=False keeps them (the oracle's form).
+
+    prompts: optional [L, pre_seq, D] deep prompts, added into the first
+    ``min(pre_seq, T)`` positions of each layer's input; a sequence shorter
+    than pre_seq uses the first T rows and the rest get zero gradients.
+    lora: optional adapters over the span's L layers (``{target: {"a": [L,
+    D, r], "b": [L, r, O]}}``), merged for each layer inside its body at
+    ``lora_scale``."""
+    _check_supported(cfg)
+    rope = make_rope(cfg, positions)
+    pre = 0 if prompts is None else min(prompts.shape[1], x.shape[1])
+    for li in range(_stack_depth(layers)):
+        lp = tree_map(lambda a: a[li], layers)
+        prompt = None if prompts is None else prompts[li, :pre]
+        lora_l = ({t: {k: v[li] for k, v in ab.items()} for t, ab in lora.items()}
+                  if lora else None)
+        if remat:
+            x = checkpoint(_train_layer, cfg, lp, x, rope, prompt, lora_l, lora_scale,
+                           use_reentrant=False)
+        else:
+            x = _train_layer(cfg, lp, x, rope, prompt, lora_l, lora_scale)
+    return x
 
 
 def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,10 @@ be captured as a CUDA graph and replayed at other lengths
 the whole cache bucket and the causal mask hides the rows at or past
 ``cache_len + T``, as the reference's jitted step does.
 
+`causal_attention` is the training path's: the fresh keys over themselves,
+causally, as the reference's ``cached_attention(q, k, v, 0)`` there. It
+writes nothing, so autograd sees no in-place update.
+
 `paged_decode_attention` is the plain version of the reference's decode
 attention over the occupied pages (``decode_kv_page``). It walks the pages
 with a trip count read to the host, so a captured step cannot run it: on
@@ -159,6 +163,18 @@ def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(b, t, h, dh).to(q.dtype)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     sliding_window=None, scale: float = 0.0,
+                     logit_softcap: float = 0.0) -> torch.Tensor:
+    """Cache-free causal attention of T queries over their own T keys (the
+    training forward; ``models/transformer.py:429-433`` of the reference):
+    `cached_attention` at ``cache_len = 0`` with the fresh k, v [B, T, Hkv,
+    Dh] as the cache, so position i attends to keys 0..i. Differentiable in
+    q, k and v; nothing is written."""
+    return cached_attention(q, k, v, 0, sliding_window=sliding_window, scale=scale,
+                            logit_softcap=logit_softcap)
 
 
 def slot_cache_write(cache: torch.Tensor, new: torch.Tensor,

@@ -30,6 +30,15 @@ Two versions of one function:
 
 `int8_dot` launches the routed kernel or raises; it never falls back from
 one kernel to the other, or from the card to the plain version.
+
+A launch returns a tensor with no autograd history, so on the card an x
+that needs a gradient goes through `_Int8Dot`, whose backward is the
+gradient of the plain version with respect to x (`int8_dot_grad_x`, the
+transpose of the reference's ``dot_general`` fallback: the weights are
+frozen, as in the reference's training path). That product is plain
+PyTorch, as it is XLA's in the reference, over the weight widened to
+float32 a block of columns at a time. On the CPU the plain version is
+differentiable as it stands.
 ``_launches`` counts kernel launches of every route (not calls of the plain
 version), ``_launches_mma`` those of the tensor-core route and
 ``_launches_gemv`` those of the decode route and ``_launches_f32mma``
@@ -88,6 +97,11 @@ F32MMA_MAX_FRAGS = 2
 F32MMA_TERMS = 3
 F32MMA_STAGES = 3
 
+# The gradient's product widens the weight to float32 a block of columns at
+# a time, at most this many bytes of it at once: wgu of llama-3.1-8b
+# (4096 x 28672) is 470 MB widened whole.
+GRAD_CHUNK_BYTES = 256 << 20
+
 _launches = 0
 _launches_mma = 0
 _launches_gemv = 0
@@ -124,6 +138,41 @@ def int8_dot_reference(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> tor
     """Plain PyTorch version: x [M, K] @ int8 q [K, N], float32 accumulate,
     times s [1, N], cast to x.dtype."""
     return ((x.float() @ q.float()) * s).to(x.dtype)
+
+
+def grad_column_blocks(k: int, n: int, itemsize: int = 4) -> list:
+    """Column ranges [n0, n1) of a [k, n] weight whose widened copy, at
+    `itemsize` bytes a weight, fits GRAD_CHUNK_BYTES (one column at least)."""
+    cols = max(1, GRAD_CHUNK_BYTES // (itemsize * max(k, 1)))
+    return [(n0, min(n, n0 + cols)) for n0 in range(0, n, cols)]
+
+
+def int8_dot_grad_x(g: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of `int8_dot_reference` with respect to x for the
+    output's gradient g [M, N]: ``(g * s) @ q.T`` in float32, cast to x's
+    `dtype`, summed over blocks of columns (`grad_column_blocks`)."""
+    gs = g.float() * s.reshape(1, -1)
+    out = None
+    for n0, n1 in grad_column_blocks(q.shape[0], q.shape[1]):
+        part = gs[:, n0:n1] @ q[:, n0:n1].float().T
+        out = part if out is None else out.add_(part)
+    return out.to(dtype)
+
+
+class _Int8Dot(torch.autograd.Function):
+    """The routed launch, differentiable in x (q and s are frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, q, s):
+        ctx.save_for_backward(q, s)
+        ctx.x_dtype = x.dtype
+        return _launch(x, q, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, s = ctx.saved_tensors
+        return int8_dot_grad_x(g, q, s, ctx.x_dtype), None, None
 
 
 def _route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
@@ -231,13 +280,15 @@ _COUNTED = {"simt": ("_launches",), "mma": ("_launches", "_launches_mma"),
 def int8_dot(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
     """x [..., K] @ int8 weight [K, N] with the scale folded into the
     epilogue -> [..., N] in x.dtype. CPU tensors take the plain version;
-    CUDA tensors launch the routed kernel (or raise)."""
+    CUDA tensors launch the routed kernel (or raise), through `_Int8Dot`
+    where x needs a gradient, so that no such output leaves without one."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.device.type == "cpu":
         y = int8_dot_reference(x2, w.q, w.s)
     elif x2.device.type == "cuda":
-        y = _launch(x2, w.q, w.s)
+        y = (_Int8Dot.apply(x2, w.q, w.s) if x2.requires_grad and torch.is_grad_enabled()
+             else _launch(x2, w.q, w.s))
     else:
         raise ValueError(f"int8_dot has no version for device {x2.device}")
     return y.reshape(*lead, -1)

@@ -32,6 +32,12 @@ Two versions of one function:
 
 `nf4_dot` launches the routed kernel or raises; it never falls back from
 one kernel to the other, or from the card to the plain version.
+
+On the card an x that needs a gradient goes through `_NF4Dot`, whose
+backward is the gradient of the plain version with respect to x
+(`nf4_dot_grad_x`: ``g @ deq.T``, the reference's fallback ``x @
+w.dequant()`` transposed), a plain PyTorch product over blocks of columns
+dequantized one at a time, as ``ops/int8_kernel.py`` does for int8.
 ``_launches`` counts kernel launches of every route (not calls of the plain
 version), ``_launches_mma`` those of the tensor-core route,
 ``_launches_gemv`` those of the decode route and ``_launches_f32mma`` those
@@ -50,6 +56,7 @@ import torch
 from ..models.quant import NF4_BLOCK, NF4Tensor
 from ..utils.cuda_build import load_kernel_library
 from . import launch_counts
+from .int8_kernel import grad_column_blocks
 
 SOURCE = "nf4_dot.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -124,6 +131,39 @@ def nf4_dot_reference(x: torch.Tensor, w: NF4Tensor) -> torch.Tensor:
     x.dtype, float32 accumulate, cast to x.dtype."""
     deq = w.dequant_f32().to(x.dtype)
     return (x.float() @ deq.float()).to(x.dtype)
+
+
+# Bytes a weight of the gradient's dequantized block holds at its widest:
+# the codes as int64 indices, the levels and the scaled values in float32.
+GRAD_ITEMSIZE = 16
+
+
+def nf4_dot_grad_x(g: torch.Tensor, w: NF4Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The gradient of `nf4_dot_reference` with respect to x for the
+    output's gradient g [M, N]: ``g @ deq.T`` in float32, deq the weight
+    dequantized and rounded to x's `dtype` as the plain version rounds it,
+    cast to `dtype`, a block of columns at a time (`grad_column_blocks`)."""
+    g32 = g.float()
+    out = None
+    for n0, n1 in grad_column_blocks(w.in_dim, w.packed.shape[1], GRAD_ITEMSIZE):
+        part_w = NF4Tensor(w.packed[:, n0:n1], w.scales[:, n0:n1], w.in_dim, w.dtype)
+        part = g32[:, n0:n1] @ part_w.dequant_f32().to(dtype).float().T
+        out = part if out is None else out.add_(part)
+    return out.to(dtype)
+
+
+class _NF4Dot(torch.autograd.Function):
+    """The routed launch, differentiable in x (the weight is frozen)."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scales, w):
+        ctx.w = w
+        ctx.x_dtype = x.dtype
+        return _launch(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        return nf4_dot_grad_x(g, ctx.w, ctx.x_dtype), None, None, None
 
 
 def _route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
@@ -249,13 +289,15 @@ _COUNTED = {"simt": ("_launches",), "mma": ("_launches", "_launches_mma"),
 def nf4_dot(x: torch.Tensor, w: NF4Tensor) -> torch.Tensor:
     """x [..., K] @ NF4 weight [K, N] -> [..., N] in x.dtype. CPU tensors
     take the plain version; CUDA tensors launch the routed kernel (or
-    raise)."""
+    raise), through `_NF4Dot` where x needs a gradient, so that no such
+    output leaves without one."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.device.type == "cpu":
         y = nf4_dot_reference(x2, w)
     elif x2.device.type == "cuda":
-        y = _launch(x2, w)
+        y = (_NF4Dot.apply(x2, w.packed, w.scales, w)
+             if x2.requires_grad and torch.is_grad_enabled() else _launch(x2, w))
     else:
         raise ValueError(f"nf4_dot has no version for device {x2.device}")
     return y.reshape(*lead, -1)

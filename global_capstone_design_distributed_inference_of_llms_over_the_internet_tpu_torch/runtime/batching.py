@@ -989,17 +989,30 @@ class BatchingStageAdapter:
 
     # -- protocol ----------------------------------------------------------
 
+    def _refuse(self, session_id: str) -> None:
+        _ev.emit("task_rejected", session_id=session_id,
+                 pool="batched", reason="unsupported request kind")
+        raise StageExecutionError(
+            "batched peer serves plain prefill/decode, speculative "
+            "verify, and replay only (route beam/training/deep-prompt "
+            "requests to a per-session replica)")
+
+    def train_forward(self, req: StageRequest) -> StageResponse:
+        """Training is the session engines': refused as the reference's
+        ``forward`` refuses ``train`` (``batching.py:1177``)."""
+        return self.forward(req)
+
+    def backward(self, req) -> None:
+        """Refused, as `train_forward` is."""
+        self.requests_served += 1
+        self._refuse(req.session_id)
+
     def forward(self, req: StageRequest) -> StageResponse:
         self.requests_served += 1
-        if (req.hypo_ids is not None or req.num_logprobs
+        if (req.train or req.hypo_ids is not None or req.num_logprobs
                 or req.prompts is not None
                 or req.start_from_position not in (None, req.cur_len)):
-            _ev.emit("task_rejected", session_id=req.session_id,
-                     pool="batched", reason="unsupported request kind")
-            raise StageExecutionError(
-                "batched peer serves plain prefill/decode, speculative "
-                "verify, and replay only (route beam/training/deep-prompt "
-                "requests to a per-session replica)")
+            self._refuse(req.session_id)
         if req.start_block is not None and (
                 req.start_block != self.spec.start
                 or (req.end_block or self.spec.end) != self.spec.end):

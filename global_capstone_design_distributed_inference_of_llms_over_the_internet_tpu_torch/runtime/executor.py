@@ -58,8 +58,20 @@ by pre_seq and the prompts' dtype beside the plain key, its prompts a
 static input copied in before each replay; the plain step keeps its
 graphs. Such a prefill skips the prefix store.
 
-Differences from the reference's engine: offload, tensor parallelism,
-burst decode (the batched engine's) and training are
+Fine-tuning as in the reference (``executor.py:764-894``, Petals'
+``rpc_forward`` / ``rpc_backward``): `train_forward` runs blocks [a, b) of
+the span cache-free (``models.transformer.stack_forward_train``) with the
+request's deep prompts and LoRA adapters, padded to a sequence bucket, and
+returns the hidden states; `backward` re-forwards the same blocks from the
+input it is given, with each layer checkpointed, and returns the
+gradients of the input, the prompts and the adapters (``torch.autograd
+.grad``; zero cotangents on the padding). Nothing is kept between the two:
+the weights are frozen and the server is stateless. LoRA on a quantized
+span is refused, as in the reference. These steps run eagerly: no graph
+is captured for them.
+
+Differences from the reference's engine: offload, tensor parallelism and
+burst decode (the batched engine's) are
 not ported: a request that asks for one is refused with a
 `StageExecutionError` naming its field (the TCP server sends it back as a
 ``kind: "stage"`` error frame). A push chain's
@@ -96,15 +108,15 @@ from ..models.partition import (
     StageSpec,
     stage_forward,
 )
-from ..models.quant import tree_map
-from ..models.transformer import fuse_qkv_params
+from ..models.quant import NF4Tensor, QuantizedTensor, tree_map
+from ..models.transformer import fuse_qkv_params, stack_forward_train
 from ..ops.attention import check_cache_write
 from ..ops.sampling import SamplingParams
 from ..telemetry import events as _ev
 from .errors import register as _catalog
 from .graphs import Sampler, StepGraphs
 from .kv_cache import AllocationFailed, KVArena, KVHandle, round_to_bucket
-from .messages import StageRequest, StageResponse
+from .messages import BackwardRequest, BackwardResponse, StageRequest, StageResponse
 from .prefix_cache import PrefixStore, chain_digests, grain_blocks
 
 logger = logging.getLogger(__name__)
@@ -522,6 +534,136 @@ class StageExecutor:
         per_token = batch * self.cfg.hidden_size * 4 * max(self.spec.num_layers, 1)
         est = max(16, min(self.max_chunk_bytes // max(per_token, 1), SEQ_BUCKETS[-1]))
         return max(b for b in SEQ_BUCKETS if b <= est)
+
+    # ------------------------------------------------------------------
+    # Fine-tuning (the reference's rpc_forward / rpc_backward)
+    # ------------------------------------------------------------------
+
+    def _train_fns(self, a: int, b: int):
+        """(forward, backward) over blocks [a, b) of the loaded span, made
+        once per range: views of the span's stacked weights (no copy),
+        frozen; the gradients flow to the input, the prompts and the LoRA
+        adapters."""
+        key = ("train", a, b)
+        entry = self._subspans.get(key)
+        if entry is not None:
+            return entry
+        cfg = self.cfg
+        layers = self.params["layers"]
+        if not (a == 0 and b == self.spec.num_layers):
+            layers = tree_map(lambda w: w[a:b], layers)
+
+        def run(x, prompts, lora, lora_scale, remat):
+            bsz, t = x.shape[:2]
+            positions = torch.arange(t, device=x.device)[None, :].expand(bsz, t)
+            return stack_forward_train(cfg, layers, x, positions, remat=remat,
+                                       prompts=prompts, lora=lora, lora_scale=lora_scale)
+
+        def fwd(x, prompts, lora, lora_scale):
+            with torch.no_grad():
+                return run(x, prompts, lora, lora_scale, remat=False)
+
+        def bwd(x, prompts, lora, lora_scale, grad_out):
+            x = x.detach().requires_grad_()
+            prompts = None if prompts is None else prompts.detach().requires_grad_()
+            lora = None if lora is None else {
+                t: {k: v.detach().requires_grad_() for k, v in ab.items()}
+                for t, ab in lora.items()}
+            wrt = [x] + ([] if prompts is None else [prompts]) + (
+                [] if lora is None else [lora[t][k] for t in sorted(lora) for k in ("a", "b")])
+            with torch.enable_grad():
+                out = run(x, prompts, lora, lora_scale, remat=True)
+                grads = torch.autograd.grad(out, wrt, grad_out.to(out.dtype),
+                                            allow_unused=True)
+            grads = [torch.zeros_like(w) if g is None else g for g, w in zip(grads, wrt)]
+            gx, rest = grads[0], grads[1:]
+            gp = None
+            if prompts is not None:
+                gp, rest = rest[0], rest[1:]
+            gl = None if lora is None else {
+                t: {"a": rest[2 * i], "b": rest[2 * i + 1]} for i, t in enumerate(sorted(lora))}
+            return gx, gp, gl
+
+        entry = (fwd, bwd)
+        self._subspans[key] = entry
+        return entry
+
+    def _train_args(self, req) -> tuple:
+        """The training verbs' shared checks, with the reference's messages:
+        (a, b, x, prompts, lora) on the device. x is cast to ``act_dtype``
+        as a forward's arrival is."""
+        a, b = self._resolve_range(req)
+        x = req.hidden.to(self.device, non_blocking=True)
+        if x.ndim != 3 or not x.is_floating_point():
+            raise StageExecutionError(
+                f"training forward expects hidden [B, T, D], got {tuple(x.shape)}")
+        if self.act_dtype not in (None, x.dtype):
+            x = x.to(self.act_dtype)
+        if x.shape[1] != req.seq_len:
+            raise StageExecutionError(f"seq_len {req.seq_len} != tensor T {x.shape[1]}")
+        prompts = None if req.prompts is None else req.prompts.to(self.device)
+        if prompts is not None and (prompts.ndim != 3 or prompts.shape[0] != b - a):
+            raise StageExecutionError(
+                f"prompts cover {prompts.shape[0] if prompts.ndim else 0} layers, "
+                f"request spans {b - a}")
+        lora = req.lora or None
+        if lora:
+            attn = self.params["layers"].get("attn", {})
+            if any(isinstance(w, (QuantizedTensor, NF4Tensor)) for w in attn.values()):
+                # The merge adds deltas to dense weights; a --quant span's
+                # are packed: a clean stage error, not a TypeError the
+                # client would take for a dead peer.
+                raise StageExecutionError(
+                    "LoRA training is unsupported on a quantized span "
+                    "(serve this span unquantized to fine-tune against it)")
+            for t, ab in lora.items():
+                if t not in attn and not ("wqkv" in attn and t in ("wq", "wk", "wv")):
+                    raise StageExecutionError(
+                        f"LoRA target {t!r} not in this span's attn params")
+                for leaf in ("a", "b"):
+                    arr = ab.get(leaf)
+                    if arr is None or arr.shape[0] != b - a:
+                        raise StageExecutionError(
+                            f"LoRA {t}/{leaf} covers "
+                            f"{None if arr is None else arr.shape[0]} layers, "
+                            f"request spans {b - a}")
+            lora = {t: {k: v.to(self.device) for k, v in ab.items()} for t, ab in lora.items()}
+        return a, b, x, prompts, lora
+
+    def train_forward(self, req: StageRequest) -> StageResponse:
+        """Cache-free forward of the span's BLOCKS only (no head, no
+        sampling): the training ``rpc_forward``. The sequence is padded to a
+        bucket, as the reference pads it to bound its compiles."""
+        a, b, x, prompts, lora = self._train_args(req)
+        fwd, _ = self._train_fns(a, b)
+        t_real = req.seq_len
+        tb = round_to_bucket(t_real, SEQ_BUCKETS)
+        if tb != t_real:
+            x = F.pad(x, (0, 0, 0, tb - t_real))
+        out = fwd(x, prompts, lora, float(req.lora_scale))
+        self.requests_served += 1
+        return StageResponse(session_id=req.session_id, hidden=out[:, :t_real], cache_len=0)
+
+    def backward(self, req: BackwardRequest) -> BackwardResponse:
+        """Re-forward blocks [a, b) from the given input and return the
+        gradients of the input, the prompts and the adapters: activations
+        are recomputed, never kept between training calls (the reference's
+        ``run_rpc_backward`` re-forward)."""
+        a, b, x, prompts, lora = self._train_args(req)
+        g = req.grad_output.to(self.device, non_blocking=True)
+        if tuple(g.shape) != tuple(x.shape):
+            raise StageExecutionError(
+                f"grad_output shape {tuple(g.shape)} != hidden shape {tuple(x.shape)}")
+        _, bwd = self._train_fns(a, b)
+        t_real = req.seq_len
+        tb = round_to_bucket(t_real, SEQ_BUCKETS)
+        if tb != t_real:
+            x = F.pad(x, (0, 0, 0, tb - t_real))
+            g = F.pad(g, (0, 0, 0, tb - t_real))   # zero cotangents on the padding
+        gx, gp, gl = bwd(x, prompts, lora, float(req.lora_scale), g)
+        self.requests_served += 1
+        return BackwardResponse(session_id=req.session_id, grad_input=gx[:, :t_real],
+                                grad_prompts=gp, grad_lora=gl)
 
     # ------------------------------------------------------------------
     # Lifecycle

@@ -24,8 +24,15 @@ the field, never ignored; push-chain ``next_servers`` are served by the
 transports.
 ``prefix_len`` marks a prefill's leading tokens shareable: a server with a
 prefix store (``runtime/prefix_cache.py``) reuses their stored KV, one
-without ignores it, as in the reference. The training fields and the
-backward messages are not ported.
+without ignores it, as in the reference.
+
+Training (the reference's ``rpc_forward`` / ``rpc_backward``): a request
+with ``train`` is a cache-free forward of the span's blocks with the
+client's ``prompts`` and ``lora`` adapters (scaled by ``lora_scale``) and
+no head, served by the executor's ``train_forward``; a `BackwardRequest`
+carries the span's input and the gradient of its output, and the
+`BackwardResponse` the gradients of the input, the prompts and the
+adapters. Servers keep nothing between training calls.
 
 A full-span batched peer (``runtime/batching.py``) serves a burst
 request (``burst_len > 0``) and answers it with a burst reply: the tokens one
@@ -59,8 +66,17 @@ class StageRequest:
     # Absolute block sub-range to execute (None = the server's whole span).
     start_block: Optional[int] = None
     end_block: Optional[int] = None
-    # Inference-time deep prompts [span_layers, pre_seq, D] (session engines).
+    # Fine-tuning forward: cache-free, the span's blocks only (no head, no
+    # sampling, no session), served by the executor's train_forward.
+    train: bool = False
+    # Deep prompts [span_layers, pre_seq, D]: with train, added at each
+    # block's entry for the training forward; without, inference-time deep
+    # prompts (session engines).
     prompts: Optional[torch.Tensor] = None
+    # Client-owned LoRA adapters over the span ({target: {"a": [span, D, r],
+    # "b": [span, r, O]}}), merged per step at lora_scale (train only).
+    lora: Optional[dict] = None
+    lora_scale: float = 1.0
     # Session rewind to this position before the step.
     start_from_position: Optional[int] = None
     # Beam search: KV row each hypothesis continues from, and top-N
@@ -93,6 +109,34 @@ class StageRequest:
     burst_len: int = 0
     burst_budget: int = 0
     eos_token_id: Optional[int] = None
+
+
+@dataclasses.dataclass
+class BackwardRequest:
+    """The training backward (``rpc_backward``): the server re-forwards
+    its span from the input it is given (nothing is kept between training
+    calls) and returns the gradients of the input, the prompts and the
+    adapters."""
+
+    session_id: str
+    hidden: torch.Tensor           # [B, T, D] span INPUT (what forward consumed)
+    grad_output: torch.Tensor      # [B, T, D] dL/d(span output)
+    seq_len: int                   # real tokens in hidden / grad_output
+    prompts: Optional[torch.Tensor] = None   # [span_layers, pre_seq, D]
+    start_block: Optional[int] = None
+    end_block: Optional[int] = None
+    # LoRA adapters, the layout of StageRequest.lora: the re-forward merges
+    # them and their gradients come back.
+    lora: Optional[dict] = None
+    lora_scale: float = 1.0
+
+
+@dataclasses.dataclass
+class BackwardResponse:
+    session_id: str
+    grad_input: torch.Tensor                    # [B, T, D]
+    grad_prompts: Optional[torch.Tensor] = None  # [span_layers, pre_seq, D]
+    grad_lora: Optional[dict] = None             # the tree of lora
 
 
 @dataclasses.dataclass

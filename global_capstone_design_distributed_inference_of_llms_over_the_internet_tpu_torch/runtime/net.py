@@ -60,9 +60,22 @@ Components:
     an on-disk peers cache on the client side; with every registry down,
     reads fall back to a stage server's gossip mirror.
 
-Not ported: the training verbs (``train_forward``, ``backward``). A verb
-this server does not serve gets the reference's ``unknown verb`` error
-frame.
+The training verbs (the reference's ``net.py:1440-1520``, ``:1763-1830``,
+``:2044-2100``): ``train_forward`` carries the span's input at the
+client's wire dtype, then, float32, the deep prompts (``has_prompts``) and
+the LoRA adapters named by the header's ``lora_manifest`` (at
+``lora_scale``), and is answered with ``hidden`` at the server's wire
+dtype; ``backward`` carries the input, the output's gradient, the prompts
+and the adapters, all float32, and is answered with ``grads`` (float32:
+the input's, the prompts', then the adapters' under a manifest). They ride
+the classic frame, never a stream. A server checks that a frame's tensor
+count is the input (and gradient), the prompts if ``has_prompts`` and one a
+manifest entry, and answers a stage error naming the mismatch otherwise.
+``info`` says ``lora: true``, and the client asks a peer's ``info`` once
+before it ships adapters to it: a peer that does not advertise LoRA gets a
+stage error naming it, and no frame (the reference's fix of a pre-LoRA
+server reading the adapters as prompts). A verb this server does not serve
+gets the reference's ``unknown verb`` error frame.
 """
 
 from __future__ import annotations
@@ -84,6 +97,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..models.lora import lora_from_list, lora_to_list
 from ..ops.sampling import SamplingParams
 from ..scheduling.gossip import GossipNode
 from ..scheduling.registry import (
@@ -102,7 +116,7 @@ from ..telemetry.profiling import stats_digest as _prof_digest
 from . import errors as _errors
 from .executor import StageExecutionError, StageExecutor
 from .faults import SITE_KINDS, FaultPlan, FaultSocket
-from .messages import StageRequest, StageResponse
+from .messages import BackwardRequest, BackwardResponse, StageRequest, StageResponse
 from .task_pool import StageRuntime, TaskRejected
 from .transport import PeerUnavailable, Transport
 
@@ -954,6 +968,8 @@ class TcpStageServer(_FramedTcpServer):
         elif verb == "forward":
             self._run_forward(sock, ex, _header_to_request(header, payload),
                               resp_wire_dtype=header.get("wire_dtype"))
+        elif verb in ("train_forward", "backward"):
+            self._train_verbs(sock, ex, verb, header, payload)
         elif verb == "end_session":
             self._end_session(sock, ex, header["session_id"])
         elif verb == "info":
@@ -989,8 +1005,9 @@ class TcpStageServer(_FramedTcpServer):
             "requests_served": ex.requests_served,
             "engine": getattr(ex, "engine", "session"),
             "version": 1,
-            # No LoRA training here: a trainer checks this before shipping.
-            "lora": False,
+            # LoRA training is served: a trainer checks this before shipping
+            # adapters to a peer.
+            "lora": True,
             "recent_requests": self.request_log.tail(20),
             "telemetry": _texp.summary(_get_metrics_registry()),
         }
@@ -1280,6 +1297,72 @@ class TcpStageServer(_FramedTcpServer):
         m_requests.labels(outcome="ok").inc()
         _log("ok")
 
+    def _train_verbs(self, sock, ex, verb: str, header: dict, payload: bytes) -> None:
+        """``train_forward`` and ``backward`` (the reference's
+        ``_train_verbs``), through the runtime's forward and backward pools,
+        which inference outranks. A malformed manifest, or a tensor count
+        that the header does not account for, is a clean stage error, not a
+        connection-level one the client would take for a dead peer."""
+        try:
+            tensors = [_to_tensor(a) for a in _decode_tensors(header["tensors"], payload)]
+            manifest = header.get("lora_manifest") or []
+            base = 1 if verb == "train_forward" else 2
+            has_prompts = bool(header.get("has_prompts", len(tensors) - len(manifest) > base))
+            want = base + int(has_prompts) + len(manifest)
+            if len(tensors) != want:
+                raise StageExecutionError(
+                    f"{verb} frame carries {len(tensors)} tensors, want {want}: {base} "
+                    f"activation{'s' if base > 1 else ''}, {int(has_prompts)} prompts "
+                    f"(has_prompts), {len(manifest)} LoRA (lora_manifest)")
+            lora = None
+            if manifest:
+                try:
+                    lora = lora_from_list(manifest, tensors[-len(manifest):])
+                except ValueError as exc:
+                    raise StageExecutionError(str(exc)) from exc
+                tensors = tensors[:-len(manifest)]
+            lora_scale = float(header.get("lora_scale", 1.0))
+            prompts = tensors[base] if has_prompts else None
+            if verb == "train_forward":
+                req = StageRequest(
+                    session_id=header["session_id"], hidden=tensors[0],
+                    seq_len=header["seq_len"], cur_len=0, is_prefill=False,
+                    max_length=0, train=True, prompts=prompts, lora=lora,
+                    lora_scale=lora_scale, start_block=header.get("start_block"),
+                    end_block=header.get("end_block"))
+                resp = self._compute("forward", ex.train_forward, req, size=req.seq_len)
+                meta, body = _encode_tensor(_host_array(resp.hidden), self.wire_dtype)
+                _send_frame(sock, {"verb": "hidden", "session_id": resp.session_id,
+                                   "cache_len": 0, "tensor": meta}, body)
+                return
+            breq = BackwardRequest(
+                session_id=header["session_id"], hidden=tensors[0], grad_output=tensors[1],
+                seq_len=header["seq_len"], prompts=prompts, lora=lora,
+                lora_scale=lora_scale, start_block=header.get("start_block"),
+                end_block=header.get("end_block"))
+            bresp = self._compute("backward", ex.backward, breq, size=breq.seq_len)
+            arrs = [_host_array(bresp.grad_input)]
+            if bresp.grad_prompts is not None:
+                arrs.append(_host_array(bresp.grad_prompts))
+            out = {"verb": "grads", "session_id": bresp.session_id}
+            if bresp.grad_lora:
+                gmanifest, garrs = lora_to_list(bresp.grad_lora)
+                out["lora_manifest"] = gmanifest
+                arrs += [_host_array(a) for a in garrs]
+            metas, body = _encode_tensors(arrs, "f32")
+            out["tensors"] = metas
+            _send_frame(sock, out, body)
+        except (StageExecutionError, TaskRejected) as exc:
+            frame = {"verb": "error", "message": str(exc), "kind": "stage",
+                     "peer": ex.peer_id}
+            if isinstance(exc, TaskRejected) and exc.permanent:
+                frame["task_rejected"] = True
+            _send_frame(sock, frame)
+        except TimeoutError:
+            _send_frame(sock, {"verb": "error", "kind": "stage", "peer": ex.peer_id,
+                               "message": f"stage compute timed out after "
+                                          f"{COMPUTE_TIMEOUT_S:.0f}s"})
+
     def _reach_check(self, sock, header: dict) -> None:
         """"Can YOU dial this address?": peers answer for each other, so a
         booting server can learn whether its advertised address is
@@ -1326,6 +1409,9 @@ class TcpTransport(Transport):
         self._lock = threading.Lock()
         # Chaos layer: client-side injection hook (set_fault_plan).
         self.fault_plan: Optional[FaultPlan] = None
+        # peer_id -> its cached `info` reply (None: the probe failed; the
+        # capability check then lets the call through).
+        self._peer_caps: Dict[str, Optional[dict]] = {}
         # Byte counters cover tensor payloads, not frame overhead, as
         # LocalTransport's do.
         self._m_calls = _tm.get("transport_calls_total")
@@ -1383,9 +1469,10 @@ class TcpTransport(Transport):
         with self._lock:
             via = self._via_relay.get(peer_id)
         if via:
+            verb = ("backward" if isinstance(request, BackwardRequest)
+                    else "step" if self._streamable(request) else "forward")
             _ev.emit("relay_forward_error", session_id=request.session_id,
-                     trace_id=_trace_id(request), relay=via, peer=peer_id,
-                     verb="step" if self._streamable(request) else "forward",
+                     trace_id=_trace_id(request), relay=via, peer=peer_id, verb=verb,
                      error=str(error)[:200])
 
     def _connect(self, peer_id: str) -> socket.socket:
@@ -1452,8 +1539,9 @@ class TcpTransport(Transport):
 
     def _streamable(self, request: StageRequest) -> bool:
         """Plain prefill and decode ride the persistent stream; every other
-        request shape (replay among them) the classic full frame."""
-        return (request.hypo_ids is None and request.num_logprobs == 0
+        request shape (training and replay among them) the classic full
+        frame."""
+        return (not request.train and request.hypo_ids is None and request.num_logprobs == 0
                 and request.draft_tokens is None and not request.is_replay
                 and request.prompts is None and not request.burst_len)
 
@@ -1487,16 +1575,73 @@ class TcpTransport(Transport):
             self._note_relay_failure(peer_id, request, exc)
             raise
 
+    def _capabilities(self, peer_id: str) -> Optional[dict]:
+        """The peer's `info` reply (its capability flags: version, lora),
+        asked once per peer. An unreachable peer or a failed probe caches
+        None, and the capability check lets the call through: only a reply
+        that lacks a capability blocks one."""
+        with self._lock:
+            if peer_id in self._peer_caps:
+                return self._peer_caps[peer_id]
+        try:
+            caps: Optional[dict] = self.info(peer_id)
+            if not isinstance(caps, dict) or caps.get("verb") != "info":
+                caps = None
+        except (PeerUnavailable, TimeoutError, ConnectionError, OSError):
+            caps = None
+        with self._lock:
+            self._peer_caps[peer_id] = caps
+        return caps
+
+    def _train_frame(self, request: StageRequest) -> Tuple[dict, bytes]:
+        """A ``train_forward`` frame: the activation at the session's wire
+        dtype; the prompts and the adapters float32 (they are trained, and
+        rounding them every step would round the tuning signal)."""
+        arrs, wds = [_host_array(request.hidden)], [self.wire_dtype]
+        if request.prompts is not None:
+            arrs.append(_host_array(request.prompts))
+            wds.append("f32")
+        hdr = {"verb": "train_forward", "session_id": request.session_id,
+               "seq_len": request.seq_len, "start_block": request.start_block,
+               "end_block": request.end_block, "has_prompts": request.prompts is not None}
+        if request.lora:
+            manifest, lora_arrs = lora_to_list(request.lora)
+            hdr["lora_manifest"] = manifest
+            hdr["lora_scale"] = float(request.lora_scale)
+            arrs += [_host_array(a) for a in lora_arrs]
+            wds += ["f32"] * len(lora_arrs)
+        metas, body = _encode_tensors(arrs, wds)
+        hdr["tensors"] = metas
+        return hdr, body
+
     def call(self, peer_id: str, request: StageRequest,
              timeout: Optional[float] = None) -> StageResponse:
+        if request.train and request.lora:
+            # A pre-LoRA server would take the adapters at the frame's tail
+            # for prompts and train the base span: refuse before shipping,
+            # with a stage error (retryable: the trainer fails over to a
+            # replica that advertises the capability).
+            caps = self._capabilities(peer_id)
+            if caps is not None and not caps.get("lora"):
+                exc = StageExecutionError(
+                    f"peer {peer_id} (info version {caps.get('version', 0)}) does not "
+                    "advertise LoRA support; upgrade that server or detach the "
+                    "adapters for this span")
+                exc.peer_id = peer_id
+                raise exc
         if self._streamable(request):
             return self._call_stream(peer_id, request, timeout)
         sock = self._connect_for(peer_id, request)
         if self.fault_plan is not None and isinstance(sock, FaultSocket):
-            sock.ctx_verb = "forward"
+            sock.ctx_verb = "train_forward" if request.train else "forward"
             sock.ctx_session = request.session_id
-        self._m_calls.labels(verb="forward").inc()
+        self._m_calls.labels(verb="train" if request.train else "forward").inc()
         sock.settimeout(timeout)
+        if request.train:
+            hdr, body = self._train_frame(request)
+            header, payload = self._exchange(peer_id, request, sock,
+                                             [(self._tagged(hdr), body)])
+            return self._parse_response(peer_id, header, payload)
         if request.prompts is not None:
             # Deep prompts ride as a second payload tensor, kept float32.
             metas, body = _encode_tensors(
@@ -1656,6 +1801,44 @@ class TcpTransport(Transport):
             # Wire markers -> typed exceptions through the one catalog.
             raise _errors.from_wire(header, peer_id)
         raise WireError(f"unexpected response verb {verb!r}")
+
+    def backward(self, peer_id: str, request: BackwardRequest,
+                 timeout: Optional[float] = None) -> BackwardResponse:
+        """The training backward over the classic frame, every tensor
+        float32: bf16 gradients would lose mantissa at every hop."""
+        sock = self._connect_for(peer_id, request)
+        if self.fault_plan is not None and isinstance(sock, FaultSocket):
+            sock.ctx_verb = "backward"
+            sock.ctx_session = request.session_id
+        self._m_calls.labels(verb="backward").inc()
+        sock.settimeout(timeout)
+        arrs = [_host_array(request.hidden), _host_array(request.grad_output)]
+        if request.prompts is not None:
+            arrs.append(_host_array(request.prompts))
+        hdr = {"verb": "backward", "session_id": request.session_id,
+               "seq_len": request.seq_len, "start_block": request.start_block,
+               "end_block": request.end_block, "has_prompts": request.prompts is not None}
+        if request.lora:
+            manifest, lora_arrs = lora_to_list(request.lora)
+            hdr["lora_manifest"] = manifest
+            hdr["lora_scale"] = float(request.lora_scale)
+            arrs += [_host_array(a) for a in lora_arrs]
+        metas, body = _encode_tensors(arrs, "f32")
+        hdr["tensors"] = metas
+        header, payload = self._exchange(peer_id, request, sock, [(self._tagged(hdr), body)])
+        if header.get("verb") == "grads":
+            tensors = [_to_tensor(a) for a in _decode_tensors(header["tensors"], payload)]
+            n_lora = len(header.get("lora_manifest", ()))
+            grad_lora = None
+            if n_lora:
+                grad_lora = lora_from_list(header["lora_manifest"], tensors[-n_lora:])
+                tensors = tensors[:-n_lora]
+            return BackwardResponse(session_id=header["session_id"], grad_input=tensors[0],
+                                    grad_prompts=tensors[1] if len(tensors) > 1 else None,
+                                    grad_lora=grad_lora)
+        if header.get("verb") == "error":
+            raise _errors.from_wire(header, peer_id)
+        raise WireError(f"unexpected response verb {header.get('verb')!r}")
 
     def _rpc(self, peer_id: str, header: dict, timeout: float) -> dict:
         """One request/response on the pooled connection; a socket failure

@@ -14,8 +14,11 @@ the last stage's includes the token read it already does. A request that
 names ``next_servers`` is a push chain: the output goes on to the next hop
 as it is (the dtype the per-hop walk would hand it), and a retryable
 failure downstream surfaces as `PushChainError` naming the failed hop.
-Stalls (and with them ``transport_timeout``), deadlines and the training
-verb are not ported yet; the TCP transport is ``runtime/net.py``. The
+A request with ``train`` goes to the executor's ``train_forward`` (phase
+``"train"`` in the metrics and the span) and never on down a push chain;
+`backward` carries the training backward. Stalls (and with them
+``transport_timeout``) and deadlines are not ported yet; the TCP transport
+is ``runtime/net.py``. The
 deadline and push-chain error classes live here as in the reference, so
 that a server's ``deadline_expired`` and ``kind: "push"`` frames map onto
 them (``errors.from_wire``).
@@ -36,7 +39,7 @@ from ..telemetry.profiling import get_profiler as _get_profiler
 from .errors import register as _catalog
 from .errors import retryable_types
 from .executor import StageExecutor
-from .messages import StageRequest, StageResponse
+from .messages import BackwardRequest, BackwardResponse, StageRequest, StageResponse
 
 
 @_catalog
@@ -69,6 +72,12 @@ class Transport(abc.ABC):
     def call(self, peer_id: str, request: StageRequest,
              timeout: Optional[float] = None) -> StageResponse:
         ...
+
+    def backward(self, peer_id: str, request: BackwardRequest,
+                 timeout: Optional[float] = None) -> BackwardResponse:
+        """The fine-tuning backward hop (``rpc_backward``). Optional: a
+        transport that serves inference only leaves it unimplemented."""
+        raise NotImplementedError(f"{type(self).__name__} does not support the training path")
 
     def end_session(self, peer_id: str, session_id: str) -> None:
         """Best-effort: release the session's KV lease on a peer."""
@@ -182,7 +191,8 @@ class LocalTransport(Transport):
                      trace_id=trace_id, peer=peer_id, verb="forward",
                      error="transient failure (injected)")
             raise PeerUnavailable(f"peer {peer_id} transient failure (injected)")
-        phase = "prefill" if request.is_prefill else "decode"
+        phase = ("train" if request.train
+                 else "prefill" if request.is_prefill else "decode")
         self._m_calls.labels(verb="forward").inc()
         if request.hidden is not None:
             self._m_sent.inc(request.hidden.nbytes)
@@ -191,7 +201,8 @@ class LocalTransport(Transport):
             phase=phase)
         t0 = time.monotonic()
         try:
-            resp = executor.forward(request)
+            resp = (executor.train_forward(request) if request.train
+                    else executor.forward(request))
         except BaseException as exc:
             self._m_requests.labels(outcome="error").inc()
             span.end(error=repr(exc))
@@ -208,6 +219,8 @@ class LocalTransport(Transport):
             self._m_recv.inc(resp.hidden.nbytes)
         if request.trace is not None:
             resp.span = span.to_wire()
+        if request.train:
+            return resp
         if request.next_servers and resp.hidden is not None:
             # Push chain: the output straight to the next hop, whose answer
             # is returned; a downstream failure names the downstream peer.
@@ -222,3 +235,13 @@ class LocalTransport(Transport):
             except retryable_types() as exc:
                 raise PushChainError(nxt["peer_id"], str(exc)) from exc
         return resp
+
+    def backward(self, peer_id: str, request: BackwardRequest,
+                 timeout: Optional[float] = None) -> BackwardResponse:
+        with self._lock:
+            executor = self._peers.get(peer_id)
+            dead = self._dead.get(peer_id, True)
+        if executor is None or dead:
+            raise PeerUnavailable(f"peer {peer_id} is not reachable")
+        self._m_calls.labels(verb="backward").inc()
+        return executor.backward(request)

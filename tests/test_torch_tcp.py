@@ -535,11 +535,27 @@ def test_control_plane_verb_gets_the_reference_answer(verb):
     assert answers[1]["verb"] in ("gossip", "ok", "swarm-stats", "records")
 
 
-@pytest.mark.parametrize("verb", ["train_forward", "backward"])
+@pytest.mark.parametrize("verb", ["register", "no_such_verb"])
 def test_unported_verb_gets_unknown_verb_frame(port_swarm, verb):
+    """A verb this server does not serve (``register`` needs a gossip
+    mirror, which these servers have not) gets the reference's frame."""
     h = _raw_exchange(port_swarm.servers["port-s2-r0"].address,
                       {"verb": verb, "session_id": "v"})
     assert h == {"verb": "error", "message": f"unknown verb {verb!r}"}
+
+
+@pytest.mark.parametrize("verb", ["train_forward", "backward"])
+def test_training_verbs_are_served(port_swarm, verb):
+    """Both training verbs reach the training path: a frame whose tensor
+    count its header does not account for gets a stage error that names
+    the mismatch, not ``unknown verb``."""
+    metas, body = tnet._encode_tensors([np.zeros((1, 1, 256), np.float32)] * 3, "f32")
+    h = _raw_exchange(port_swarm.servers["port-s2-r0"].address,
+                      {"verb": verb, "session_id": "v", "seq_len": 1, "start_block": 2,
+                       "end_block": 3, "has_prompts": False, "tensors": metas}, body)
+    assert h["verb"] == "error" and h["kind"] == "stage", h
+    want = 1 if verb == "train_forward" else 2
+    assert f"{verb} frame carries 3 tensors, want {want}" in h["message"]
 
 
 def test_jax_gossip_round_with_a_port_server_converges():
