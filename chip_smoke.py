@@ -493,6 +493,29 @@ on the kernels; it never prints the last line of a smoke pass.)
    (its wrapper's ``autograd.Function``) at the four sites at M = B * T
    against float64, its backward product timed beside the forward kernel,
    their plain versions, the library and the bound.
+12g. Checkpoint loading (after the CLI drives; ``checkpoint_path``): an
+   HF-layout llama checkpoint written by `write_checkpoint` (no
+   ``safetensors`` package needed) into a ``tempfile.mkdtemp()`` directory,
+   deleted at the end: ``config.json``, ``model.safetensors.index.json``
+   and shards of at most CKPT_SHARD_BYTES, the port's random init at
+   llama-3.1-8b's full widths cut to CKPT_LAYERS layers, bf16, seed 0,
+   [out, in] weights. ``config_from_checkpoint`` must equal the preset
+   with that depth. For each stage of splits CKPT_SPLITS, ``--quant
+   none``: ``load_stage_model`` with ``--checkpoint`` bit-equal to the
+   random init's shard of that span, its load seconds, GB/s (warm: the
+   writer's pages are in the page cache) and shards opened (the middle
+   stages none of the embedding's or the head's), its peak device memory
+   above what was held before against the random init's (at most the
+   shard plus two copy chunks). ``--mode local --quant int8`` through
+   ``--checkpoint`` (``main.load_model``, ``build_local_client``; the
+   greedy and the sampled request of the int8 path, MAX_NEW_TOKENS each)
+   against the same run on the random weights: the same tokens,
+   ``int8_dot`` launches by route, ``sample_draw`` launches, captures and
+   replays. The byte-fallback warning of ``load_tokenizer``. Then the
+   registry, a ``serve`` process a stage and a client, every one with
+   ``--checkpoint`` (``cli_drive``): the client's tokens equal the
+   in-process float32 chain's on the checkpoint, its stderr carries the
+   byte-fallback warning, each server's ``PEAK_MEMORY_BYTES`` line.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``, ``paged_decode_attention`` with the paged path's
    launches and its times at the paged path's shape; each matmul with its
@@ -525,6 +548,7 @@ import re
 import shutil
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -669,6 +693,16 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 DRAW_LIBRARY_NOTE = ("no single PyTorch call draws threefry Gumbel-max tokens; "
                      "multinomial_ms times torch.multinomial on the same probs, "
                      "another draw, as a yardstick only")
+# The checkpoint path (step 12g): the depth the written llama-3.1-8b
+# checkpoint is cut to (its full widths, 8 of 32 layers: ~5.6 GB on disk,
+# not 16), the shard size (HF's default is 5 GB; at 2 GB, whole layers a
+# shard, the embedding and layers 0-1, layers 2-5, and layers 6-7 with the
+# head fall in three shards), and the 4-stage plan its stages load.
+CKPT_LAYERS = 8
+CKPT_SHARD_BYTES = 2 * 10**9
+CKPT_SPLITS = "2,4,6"
+# The warning load_tokenizer logs when it falls back to bytes.
+BYTE_FALLBACK = "using byte fallback"
 # The memory line `--mode serve` and `--mode client` print.
 MEMORY_LINE = r"PEAK_MEMORY_BYTES=(\d+) ALLOCATED_BYTES=(\d+) RESERVED_BYTES=(\d+)"
 
@@ -3341,7 +3375,7 @@ def _stderr_tail(path: pathlib.Path, n: int = 30) -> str:
 
 def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), client_argv=(),
               gateway=None, status=None, stage_argv=None, relay_stages=(),
-              registry_kill=False, client_extra=None):
+              registry_kill=False, client_extra=None, checkpoint=None):
     """The port's swarm as processes on the card: a registry, a server a
     stage of `stages` (int8, bfloat16, seed 0, wire f32, and `serve_argv`)
     and one client a `wants` entry (prompt, the in-process result its
@@ -3362,11 +3396,15 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
     more argv of its own. With `registry_kill` the clients keep a
     ``--peers_cache`` file; once they are done the registry is SIGKILLed
     and the clients run again, with the same cache, to the same tokens (a
-    gossip mirror serves discovery). Returns the summary (with each
+    gossip mirror serves discovery). With `checkpoint` every process loads
+    that directory (``--checkpoint``) and each client's stderr must carry
+    the tokenizer's byte-fallback warning. Returns the summary (with each
     server's ``SERVING`` line)."""
     main = [sys.executable, "-m", PORT + ".main"]
     model_args = ["--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
                   "--seed", "0", "--device", "cuda", "--wire_dtype", "f32"]
+    if checkpoint is not None:
+        model_args += ["--checkpoint", checkpoint]
     env = dict(os.environ, PYTHONIOENCODING="utf-8", PYTHONUNBUFFERED="1")
     procs = []
     peaks, held, reserved = {}, {}, {}
@@ -3447,6 +3485,10 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
                     if code != 0:
                         raise AssertionError(f"client {i}{tag} exited {code}:\n"
                                              + _stderr_tail(tmp / f"client{i}{tag}.err", 60))
+                    if checkpoint is not None and BYTE_FALLBACK not in (
+                            tmp / f"client{i}{tag}.err").read_text(errors="replace"):
+                        raise AssertionError(f"cli client {i}{tag}: no {BYTE_FALLBACK!r} "
+                                             "warning on its stderr")
                     expect = (f"=== Generation ({len(want.tokens)} tokens, stopped by "
                               f"{want.stopped_by}) ===\n{tok.decode(want.tokens)}\n")
                     if expect not in stdout:
@@ -3544,7 +3586,8 @@ def cli_drive(torch, tok, wants, smi: str, serve_argv=(), stages=(1, 2, 3), clie
             missing = [k for k, v in peaks.items() if v is None]
             if missing:
                 raise AssertionError(f"cli: no peak device memory from {missing}")
-            summary = {"model": MODEL, "quant": "int8", "wire_dtype": "f32",
+            summary = {"model": MODEL, "checkpoint": checkpoint is not None,
+                       "quant": "int8", "wire_dtype": "f32",
                        "serve_argv": list(serve_argv), "stages": list(stages),
                        "client_argv": list(client_argv),
                        "processes": 1 + len(stages) + len(wants),
@@ -7894,6 +7937,313 @@ def finetune_path(torch, kernels, tmain, state, bw: float, flops: float, smi: st
     return view
 
 
+# ---------------------------------------------------------------------------
+# The checkpoint path (step 12g)
+# ---------------------------------------------------------------------------
+
+def checkpoint_tensors(cfg, params):
+    """(HF name, tensor) of a llama-layout port tree in the order HF's
+    ``save_pretrained`` writes them: the embedding, each layer's, the final
+    norm, the head; each [in, out] weight as the [out, in] view HF keeps."""
+    yield "model.embed_tokens.weight", params["embed"]["wte"]
+    names = (("self_attn.q_proj.weight", "attn", "wq", True),
+             ("self_attn.k_proj.weight", "attn", "wk", True),
+             ("self_attn.v_proj.weight", "attn", "wv", True),
+             ("self_attn.o_proj.weight", "attn", "wo", True),
+             ("mlp.gate_proj.weight", "mlp", "wg", True),
+             ("mlp.up_proj.weight", "mlp", "wu", True),
+             ("mlp.down_proj.weight", "mlp", "wd", True),
+             ("input_layernorm.weight", "ln1", "w", False),
+             ("post_attention_layernorm.weight", "ln2", "w", False))
+    for i in range(cfg.num_layers):
+        for name, group, leaf, transposed in names:
+            t = params["layers"][group][leaf][i]
+            yield f"model.layers.{i}.{name}", t.t() if transposed else t
+    yield "model.norm.weight", params["final_norm"]["w"]
+    if not cfg.tie_word_embeddings:
+        yield "lm_head.weight", params["lm_head"]["w"].t()
+
+
+def hf_llama_config(cfg) -> dict:
+    """The ``config.json`` of a llama-family `cfg`, as transformers names
+    its fields."""
+    rs = cfg.rope_scaling
+    return {"model_type": "llama", "vocab_size": cfg.vocab_size,
+            "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
+            "tie_word_embeddings": cfg.tie_word_embeddings,
+            "rope_scaling": None if rs is None else {
+                "rope_type": "llama3", "factor": rs[0], "low_freq_factor": rs[1],
+                "high_freq_factor": rs[2], "original_max_position_embeddings": rs[3]}}
+
+
+def write_checkpoint(torch, path: str, cfg, params, shard_bytes: int) -> dict:
+    """Write a llama-layout port tree (on any device) under `path` as a
+    sharded HF checkpoint: ``config.json``, ``model.safetensors.index.json``
+    and ``model-0000k-of-0000n.safetensors`` files of at most `shard_bytes`
+    of tensors each, filled in `checkpoint_tensors`' order, a layer's
+    tensors never split across two files (a layer or a tensor larger than
+    `shard_bytes` alone in its file). Each file is the safetensors format: an
+    8-byte little-endian header length, a JSON header of ``dtype``,
+    ``shape`` and ``data_offsets`` padded to 8 bytes, then the raw bytes.
+    One tensor at a time comes to the host. Returns the index's weight map."""
+    from importlib import import_module
+
+    names = {v: k for k, v in
+             import_module(PORT + ".models.hf_import").SAFETENSORS_DTYPES.items()}
+    units = {}   # a layer's tensors, or one tensor, in order
+    for name, t in checkpoint_tensors(cfg, params):
+        layer = re.match(r"model\.layers\.(\d+)\.", name)
+        units.setdefault(layer.group(1) if layer else name, []).append((name, t))
+    shards, size = [[]], 0
+    for unit in units.values():
+        n = sum(t.numel() * t.element_size() for _, t in unit)
+        if shards[-1] and size + n > shard_bytes:
+            shards.append([])
+            size = 0
+        shards[-1].extend(unit)
+        size += n
+    weight_map, total = {}, 0
+    for k, shard in enumerate(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for name, t in shard:
+            n = t.numel() * t.element_size()
+            header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                            "data_offsets": [offset, offset + n]}
+            offset += n
+            weight_map[name] = fname
+        total += offset
+        raw = json.dumps(header, separators=(",", ":")).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(path, fname), "wb") as f:
+            f.write(struct.pack("<Q", len(raw)))
+            f.write(raw)
+            for _, t in shard:
+                f.write(t.contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_llama_config(cfg), f, indent=2)
+    return weight_map
+
+
+class OpenedShards:
+    """Every `LazyCheckpoint` the port makes while this is open, kept (its
+    ``opened`` is the set of shards a load read)."""
+
+    def __init__(self, hf):
+        loads = self.loads = []
+        self._hf, self._base = hf, hf.LazyCheckpoint
+
+        class Recording(self._base):
+            def __init__(self, path):
+                super().__init__(path)
+                loads.append(self)
+
+        hf.LazyCheckpoint = Recording
+
+    def close(self) -> None:
+        self._hf.LazyCheckpoint = self._base
+
+
+def measured_load(torch, fn):
+    """fn() with the device's peak allocation above what was held before
+    it (bytes) and its seconds, the device synced at both ends."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before, time.monotonic() - t0
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in ft_leaves(tree))
+
+
+def local_run(torch, kernels, tmain, args, requests, prompt_ids) -> dict:
+    """``--mode local`` as `main` builds it from `args` (``load_model``,
+    ``build_local_client``), the requests run with every count set to 0
+    just before them: tokens, ``int8_dot`` launches by route, ``sample_draw``
+    launches, captures and replays; the client stays for the float32 chain."""
+    t0 = time.monotonic()
+    cfg, params = tmain.load_model(args)
+    client = tmain.build_local_client(args, cfg, params)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    executors = path_executors(client)
+    reset_counts(kernels, executors)
+    results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
+               for ids, (_, sp) in zip(prompt_ids, requests)]
+    torch.cuda.synchronize()
+    return {"client": client, "results": results, "params": params, "view": {
+        "tokens": [r.tokens for r in results], "setup_s": setup_s,
+        "int8_dot_launches_by_route": kernel_routes(kernels["int8_dot"]),
+        "sample_draw_launches": kernels["sample_draw"]._launches,
+        "captures": sum(ex.graphs.captures + ex.sampler.captures for ex in executors),
+        "replays": sum(ex.graphs.replays + ex.sampler.replays for ex in executors),
+        "ttft_ms": [r.ttft_s * 1e3 for r in results],
+        **greedy_and_sampled_ms(results, requests)}}
+
+
+def checkpoint_path(torch, kernels, tmain, sampling_cls, smi: str) -> dict:
+    """Step 12g (see the module docstring)."""
+    import logging
+    from importlib import import_module
+
+    t_start = time.monotonic()
+    hf = import_module(PORT + ".models.hf_import")
+    tf = import_module(PORT + ".models.transformer")
+    cfg = dataclasses.replace(tmain.get_config(MODEL), num_layers=CKPT_LAYERS)
+    bf16 = torch.bfloat16
+    out = {"model": MODEL, "layers": CKPT_LAYERS, "splits": CKPT_SPLITS,
+           "shard_bytes": CKPT_SHARD_BYTES, "card": smi}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    get_config = tmain.get_config
+    # The random-weight runs take the same depth from the preset.
+    tmain.get_config = lambda name: cfg
+    opened = OpenedShards(hf)
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        t0 = time.monotonic()
+        params = tf.init_params(cfg, gen, dtype=bf16, device="cuda")
+        weight_map = write_checkpoint(torch, tmp, cfg, params, CKPT_SHARD_BYTES)
+        del params
+        files = sorted(set(weight_map.values()))
+        disk = sum(os.path.getsize(os.path.join(tmp, f)) for f in files)
+        out["write"] = {"seconds": time.monotonic() - t0, "files": files, "bytes": disk}
+        log(f"checkpoint: {len(files)} shards, {disk / 1e9:.2f} GB written in "
+            f"{out['write']['seconds']:.1f}s to {tmp}")
+        got = hf.config_from_checkpoint(tmp)
+        if got != cfg:
+            raise AssertionError(f"checkpoint config {got} != the preset at "
+                                 f"{CKPT_LAYERS} layers {cfg}")
+        # The shards that hold the embedding and the head.
+        edge = {weight_map["model.embed_tokens.weight"], weight_map["lm_head.weight"]}
+
+        base = ["--mode", "local", "--model", MODEL, "--dtype", "bfloat16", "--device",
+                "cuda", "--seed", "0", "--splits", CKPT_SPLITS]
+        parse = tmain.build_parser().parse_args
+        stages = []
+        plan = tmain.stage_plan(parse(base), cfg)
+        for spec in plan.stages:
+            rand, rand_peak, rand_s = measured_load(
+                torch, lambda: tmain.load_stage_model(parse(base), spec)[1])
+            rand_leaves = dict(ft_leaves(rand))
+            del rand
+            ck, peak, load_s = measured_load(
+                torch, lambda: tmain.load_stage_model(parse(base + ["--checkpoint", tmp]),
+                                                      spec)[1])
+            shard = tree_bytes(ck)
+            leaves = dict(ft_leaves(ck))
+            if leaves.keys() != rand_leaves.keys() or not all(
+                    torch.equal(leaves[k], rand_leaves[k]) for k in leaves):
+                raise AssertionError(f"checkpoint: stage {spec.index}'s streamed shard is "
+                                     "not bit-equal to the random init's")
+            del ck, leaves, rand_leaves
+            read = sorted(opened.loads[-1].opened)
+            row = {"stage": spec.index, "span": [spec.start, spec.end], "shard_gb": shard / 1e9,
+                   "load_s": load_s, "gb_per_s_warm": shard / 1e9 / load_s,
+                   "peak_above_held_gb": peak / 1e9, "random_init_s": rand_s,
+                   "random_peak_above_held_gb": rand_peak / 1e9, "opened": read,
+                   "bit_equal_random": True}
+            stages.append(row)
+            log(f"checkpoint stage {spec.index} [{spec.start},{spec.end}): {shard / 1e9:.3f} "
+                f"GB in {load_s:.3f}s ({row['gb_per_s_warm']:.2f} GB/s, page cache), peak "
+                f"{peak / 1e9:.3f} GB above held (random init {rand_peak / 1e9:.3f} GB, "
+                f"{rand_s:.3f}s), shards {read}")
+            if peak > shard + 2 * hf.COPY_CHUNK_BYTES:
+                raise AssertionError(f"checkpoint: stage {spec.index}'s load peaked "
+                                     f"{peak} bytes above held for a {shard}-byte shard")
+            if 0 < spec.index < plan.num_stages - 1 and edge & set(read):
+                raise AssertionError(f"checkpoint: middle stage {spec.index} opened "
+                                     f"{sorted(edge & set(read))}")
+        out["stages"] = stages
+
+        tokenizer_log = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                tokenizer_log.append(record.getMessage())
+
+        keep = Keep(logging.WARNING)
+        tmain.logger.addHandler(keep)
+        try:
+            tok = tmain.load_tokenizer(tmp)
+        finally:
+            tmain.logger.removeHandler(keep)
+        if not isinstance(tok, tmain.ByteTokenizer) or not any(
+                BYTE_FALLBACK in line for line in tokenizer_log):
+            raise AssertionError(f"checkpoint: load_tokenizer gave {type(tok).__name__} "
+                                 f"with warnings {tokenizer_log}")
+        out["tokenizer_warning"] = tokenizer_log
+        requests = [(PROMPTS[0], sampling_cls(temperature=0.0)),
+                    (PROMPTS[2], sampling_cls(temperature=0.7, top_p=0.9, top_k=50,
+                                              repetition_penalty=1.5))]
+        prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p, _ in requests]
+        runs = {}
+        for which, extra in (("random", []), ("checkpoint", ["--checkpoint", tmp])):
+            gc.collect()
+            torch.cuda.empty_cache()
+            runs[which] = local_run(torch, kernels, tmain, parse(base + ["--quant", "int8"]
+                                                                 + extra),
+                                    requests, prompt_ids)
+            log(f"checkpoint: --mode local --quant int8 ({which}): "
+                f"{json.dumps(runs[which]['view'])}")
+            if which == "random":
+                del runs[which]["client"], runs[which]["params"]
+        views = {k: v["view"] for k, v in runs.items()}
+        same = ("tokens", "int8_dot_launches_by_route", "sample_draw_launches",
+                "captures", "replays")
+        for key in same:
+            if views["checkpoint"][key] != views["random"][key]:
+                raise AssertionError(f"checkpoint: {key} {views['checkpoint'][key]} != the "
+                                     f"random weights' {views['random'][key]}")
+        if runs["checkpoint"]["params"] is not None:
+            raise AssertionError("checkpoint: --mode local loaded the full model")
+        # The kernels ran on the checkpoint's run: every projection of every
+        # token, and one draw a sampled token.
+        ck = views["checkpoint"]
+        tokens = sum(len(t) for t in ck["tokens"])
+        sampled = len(ck["tokens"][1])
+        need = 4 * cfg.num_layers * tokens
+        if sum(ck["int8_dot_launches_by_route"].values()) < need or \
+                ck["sample_draw_launches"] < sampled:
+            raise AssertionError(f"checkpoint: int8_dot {ck['int8_dot_launches_by_route']} "
+                                 f"(want >= {need}), sample_draw "
+                                 f"{ck['sample_draw_launches']} (want >= {sampled})")
+        out["local_int8"] = views
+        # The CLI's reference: the greedy request with stages 1-3 computing
+        # in float32, as a serve process computes what the wire hands it.
+        client = runs["checkpoint"]["client"]
+        remote = [client.transport.executor(p) for p in client.transport.peers()]
+        for ex in remote:
+            ex.act_dtype = torch.float32
+        chain = client.generate(prompt_ids[0], MAX_NEW_TOKENS, sampling=requests[0][1])
+        del client, remote, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["float32_chain_tokens"] = chain.tokens
+        t0 = time.monotonic()
+        out["cli"] = cli_drive(torch, tok, [(PROMPTS[0], chain, requests[0][1])], smi,
+                               checkpoint=tmp)
+        out["cli"]["seconds"] = time.monotonic() - t0
+    finally:
+        opened.close()
+        tmain.get_config = get_config
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
 def oracle_logits(torch, cfg, params, ids, cache_dtype=None, prompts=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
     logits after `ids` (one prefill, with deep `prompts` if given)."""
@@ -8306,6 +8656,11 @@ def main(argv) -> int:
     log(json.dumps({"control_cli_path": control["cli"]}))
     log(f"control-plane phases: {control['seconds']:.1f}s in process, "
         f"{control['cli']['seconds']:.1f}s as processes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_path(torch, kernel_mods, tmain, sampling_cls, smi)
+    log(json.dumps({"checkpoint_path": ckpt}))
+    log(f"checkpoint phase: {ckpt['seconds']:.1f}s (the CLI drive {ckpt['cli']['seconds']:.1f}s)")
     log(f"beam phases: {beam['seconds']:.1f}s int8, {beam['nf4_tcp_bf16']['seconds']:.1f}s NF4")
     log(f"prompt/lora phase: {prompt_lora['seconds']:.1f}s")
     log(f"finetune phase: {finetune['seconds']:.1f}s")
@@ -8389,6 +8744,12 @@ def main(argv) -> int:
         "grad_rows": [r for r in finetune["kernel_grads"] if r["kernel"] == "int8_dot"]}
     kernels[1]["finetune_path"] = {
         "grad_rows": [r for r in finetune["kernel_grads"] if r["kernel"] == "nf4_dot"]}
+    # The checkpoint path's --mode local run, by route, and the random
+    # weights' same run.
+    kernels[0]["checkpoint_path"] = {
+        which: ckpt["local_int8"][which]["int8_dot_launches_by_route"]
+        for which in ("checkpoint", "random")}
+    kernels[2]["checkpoint_path"] = ckpt["local_int8"]["checkpoint"]["sample_draw_launches"]
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -75,9 +75,10 @@ Port of the JAX package's ``main.py`` for these modes:
   the plain run's. ``serve`` with ``--speculative_k`` captures the K + 1
   draft widths (batched) and the final stage's verification in its
   warm-up.
-  ``serve`` and ``client`` hold only their stage's weights (every layer is
-  still drawn, so the weights equal the full init's; an elastic ``serve``
-  draws each span it takes the same way), print their peak
+  ``serve`` and ``client`` hold only their stage's weights (streamed from
+  ``--checkpoint``, or drawn with every layer still drawn, so the weights
+  equal the full init's; an elastic ``serve`` loads each span it takes the
+  same way), print their peak
   and held device memory as ``PEAK_MEMORY_BYTES=N ALLOCATED_BYTES=M
   RESERVED_BYTES=R`` and
   build the kernels and the wire codec before they serve; ``serve`` runs
@@ -113,10 +114,20 @@ to PATH at exit, on a fatal exception and on SIGTERM/SIGINT;
 ``--profile_phases`` turns on the phase profiler; ``--log-json`` logs one
 JSON object per line.
 
-Weights are random-initialized from the ``--model`` preset and ``--seed``
-(no checkpoint loading yet); ``--lora PATH`` folds a saved adapter into
-the attention weights before ``--quant`` (``models/lora.py``), in every
-mode that loads weights; tokenization is the UTF-8 byte fallback.
+Weights: ``--checkpoint DIR`` loads a local Hugging Face checkpoint
+directory (``models/hf_import.py``: safetensors, sharded or not, or
+``pytorch_model.bin``; read without ``transformers``): ``oracle`` reads the
+full model, while ``local``, ``serve`` (fixed and elastic: each span it
+takes), ``client`` and ``gateway`` stream each stage's span alone, reading
+only the shards that hold it. The config comes from the checkpoint's
+``config.json``; ``--model`` then names the swarm only. An ``http(s)://``
+checkpoint exits (remote weight stores are not ported). Without a
+checkpoint, weights are random-initialized from the ``--model`` preset and
+``--seed``. ``--lora PATH`` folds a saved adapter into the attention
+weights before ``--quant`` (``models/lora.py``), in every mode that loads
+weights. Tokenization uses the checkpoint's tokenizer
+(``AutoTokenizer``, offline) when ``transformers`` loads one, else the
+UTF-8 byte fallback, with a warning.
 Runs on ``--device cuda`` (the default) unless asked for ``cpu``; with no
 GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
 
@@ -133,6 +144,7 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
     python -m ...main --mode client --burst 8 ...
     python -m ...main --mode local --speculative_k 4 --temperature 0 ...
     python -m ...main --mode local --lora adapter.npz --quant int8 ...
+    python -m ...main --mode local --checkpoint /path/to/hf-dir --quant int8 ...
     python -m ...main --mode serve --stage 3 --batched --speculative_k 4 ...
     python -m ...main --mode client --registry_addr 127.0.0.1:31330 \\
         --model llama-3.1-8b --quant int8 --dtype bfloat16 --prompt "Hi"
@@ -161,8 +173,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from .models.config import ModelConfig, get_config
+from .models.hf_import import config_from_checkpoint, load_stage_checkpoint
 from .models.lora import load_lora, merge_lora, slice_lora
-from .models.partition import StagePlan, StageSpec, parse_splits, slice_stage_params
+from .models.partition import ROLE_FULL, StagePlan, StageSpec, parse_splits, slice_stage_params
 from .models.quant import quantize_params
 from .models.transformer import full_forward, init_kv_cache, init_params
 from .ops.sampling import RECENT_WINDOW, SamplingParams, sample_token
@@ -193,7 +206,7 @@ def resolve_device(name: str) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
-# Tokenizer (byte-level fallback)
+# Tokenizer (the checkpoint's, else the byte-level fallback)
 # ---------------------------------------------------------------------------
 
 class ByteTokenizer:
@@ -208,8 +221,27 @@ class ByteTokenizer:
         return bytes(int(i) % 256 for i in ids).decode("utf-8", errors="replace")
 
 
-def load_tokenizer():
-    """The byte fallback (checkpoint tokenizers are not ported yet)."""
+# The files a saved tokenizer leaves in its directory, one of them at least.
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "tokenizer.model",
+                   "vocab.json", "vocab.txt", "spiece.model")
+
+
+def load_tokenizer(checkpoint: Optional[str] = None):
+    """The checkpoint's tokenizer through ``transformers`` (offline), or on
+    any failure (no tokenizer file in the directory, no ``transformers``)
+    the byte fallback, with a warning. Unlike the reference, which asks
+    ``AutoTokenizer`` whatever the directory holds, a directory with none
+    of `TOKENIZER_FILES` is not asked: transformers 5 answers it with a
+    tokenizer of a few special tokens, where 4.x raises."""
+    if checkpoint:
+        try:
+            if not any(os.path.exists(os.path.join(checkpoint, f)) for f in TOKENIZER_FILES):
+                raise FileNotFoundError(f"no tokenizer file under {checkpoint}")
+            from transformers import AutoTokenizer
+
+            return AutoTokenizer.from_pretrained(checkpoint, local_files_only=True)
+        except Exception as exc:
+            logger.warning("tokenizer load failed (%s); using byte fallback", exc)
     return ByteTokenizer()
 
 
@@ -217,9 +249,27 @@ def load_tokenizer():
 # Model
 # ---------------------------------------------------------------------------
 
-def load_model(args) -> Tuple[ModelConfig, dict]:
-    """Random init of the ``--model`` preset from ``--seed`` on the device."""
+def model_config(args) -> ModelConfig:
+    """The checkpoint's config, or the ``--model`` preset."""
+    return config_from_checkpoint(args.checkpoint) if args.checkpoint else get_config(args.model)
+
+
+def load_model(args) -> Tuple[ModelConfig, Optional[dict]]:
+    """The full model on the device: from ``--checkpoint`` (every shard,
+    read as a one-stage span), or the random init of the ``--model``
+    preset from ``--seed``. With a checkpoint only ``oracle`` reads the
+    full tree; the serving modes get None for the params, as in the
+    reference (``main.py:142-155``), and each stage then streams its own
+    span (`_stage_params`)."""
     device = resolve_device(args.device)
+    if args.checkpoint:
+        cfg = config_from_checkpoint(args.checkpoint)
+        if args.mode != "oracle":
+            return cfg, None
+        logger.info("loading %s (%d layers) on %s", args.checkpoint, cfg.num_layers, device)
+        return cfg, load_stage_checkpoint(args.checkpoint, cfg,
+                                          StageSpec(0, ROLE_FULL, 0, cfg.num_layers),
+                                          dtype=_DTYPE_MAP[args.dtype], device=device)
     cfg = get_config(args.model)
     logger.info("random-initializing %s (%d layers) on %s", args.model,
                 cfg.num_layers, device)
@@ -229,12 +279,17 @@ def load_model(args) -> Tuple[ModelConfig, dict]:
 
 
 def load_stage_model(args, spec: StageSpec) -> Tuple[ModelConfig, dict]:
-    """Random init of the ``--model`` preset from ``--seed`` that keeps one
-    stage's shard only, quantized as ``--quant`` asks: its layers, the
-    embeddings for the first stage, the final norm and head for the last.
-    Every layer is drawn in order, so the shard equals that stage's slice
-    of `load_model`'s weights; the rest is freed before this returns."""
+    """One stage's shard only, LoRA-merged and quantized as ``--lora`` and
+    ``--quant`` ask: its layers, the embeddings for the first stage, the
+    final norm and head for the last. With ``--checkpoint`` the span is
+    streamed from the shards that hold it (`_stage_params`). Otherwise the
+    random init of the ``--model`` preset from ``--seed``: every layer is
+    drawn in order, so the shard equals that stage's slice of
+    `load_model`'s weights; the rest is freed before this returns."""
     device = resolve_device(args.device)
+    if args.checkpoint:
+        cfg = config_from_checkpoint(args.checkpoint)
+        return cfg, _stage_params(args, cfg, None, spec)
     cfg = get_config(args.model)
     logger.info("random-initializing %s layers [%d, %d) of %d on %s",
                 args.model, spec.start, spec.end, cfg.num_layers, device)
@@ -294,8 +349,15 @@ _maybe_lora._cache = {}
 
 
 def _stage_params(args, cfg: ModelConfig, params, spec):
-    sp = _maybe_lora(args, cfg, slice_stage_params(cfg, params, spec),
-                     spec.start, spec.end)
+    """A serving role's stage weights: streamed from ``--checkpoint`` when
+    `params` is None, sliced from the loaded tree otherwise; then
+    ``--lora`` merged and ``--quant`` applied."""
+    if params is None:
+        sp = load_stage_checkpoint(args.checkpoint, cfg, spec, dtype=_DTYPE_MAP[args.dtype],
+                                   device=resolve_device(args.device))
+    else:
+        sp = slice_stage_params(cfg, params, spec)
+    sp = _maybe_lora(args, cfg, sp, spec.start, spec.end)
     return _maybe_quantize(args, sp)
 
 
@@ -560,6 +622,11 @@ UNPORTED_FLAGS = (("sp", 1), ("tp", 1), ("use_cpu_offload", False))
 
 
 def refuse_unported_flags(args) -> None:
+    if args.checkpoint and args.checkpoint.startswith(("http://", "https://")):
+        # Never random weights in their place.
+        raise SystemExit(f"--checkpoint {args.checkpoint}: remote weight stores "
+                         "(models/remote_store.py, ROADMAP Queue 1 #3f) are not "
+                         "ported; pass a local checkpoint directory")
     for dest, default in UNPORTED_FLAGS:
         if getattr(args, dest) != default:
             raise SystemExit(f"--{dest} is not ported: the port's servers run "
@@ -700,7 +767,7 @@ def run_serve(args) -> int:
     if args.use_load_balancing:
         return _run_serve_elastic(args)
     device = resolve_device(args.device)
-    cfg = get_config(args.model)
+    cfg = model_config(args)
     plan = stage_plan(args, cfg)
     if args.stage == 0:
         # The full-span server, the only shape that runs burst decode: its
@@ -807,8 +874,9 @@ def _run_serve_elastic(args) -> int:
     the span is chosen from the swarm's live coverage (rule 1), chosen anew
     when the swarm would gain (rule 2), and the executor is swapped on the
     listening socket, which answers "server is re-spanning" in between.
-    Each span's weights are drawn from ``--seed`` as `load_stage_model`
-    draws a fixed stage's, so they equal the fixed split's slice; every
+    Each span's weights are streamed from ``--checkpoint`` (its shards
+    alone), or drawn from ``--seed`` as `load_stage_model` draws a fixed
+    stage's, so they equal the fixed split's slice; every
     span (re)load warms its executor up before it goes ONLINE. Its gossip
     mirror and loop run throughout: the socket answers gossip and the
     registry verbs while it re-spans, and the loop skips the beats when no
@@ -819,7 +887,7 @@ def _run_serve_elastic(args) -> int:
     from .scheduling.gossip import GossipNode
 
     device = resolve_device(args.device)
-    cfg = get_config(args.model)
+    cfg = model_config(args)
     peer = args.peer_id or f"lb-{os.getpid()}"
     registry = RemoteRegistry(args.registry_addr, peers_cache=args.peers_cache)
     _build_native(args, device)
@@ -903,7 +971,7 @@ def run_client(args) -> int:
     from .runtime.net import RemoteRegistry, TcpTransport
 
     device = resolve_device(args.device)
-    plan = stage_plan(args, get_config(args.model))
+    plan = stage_plan(args, model_config(args))
     registry = RemoteRegistry(args.registry_addr, peers_cache=args.peers_cache)
     transport = TcpTransport(registry, wire_dtype=args.wire_dtype,
                              model=_model_id(args))
@@ -948,7 +1016,7 @@ def run_gateway(args) -> int:
 
     tenants, max_queue_depth, max_active = _load_tenants_config(args.tenants)
     device = resolve_device(args.device)
-    plan = stage_plan(args, get_config(args.model))
+    plan = stage_plan(args, model_config(args))
     registry = RemoteRegistry(args.registry_addr, peers_cache=args.peers_cache)
     cfg, shard = load_stage_model(args, plan.stages[0])
     _build_native(args, device)
@@ -994,7 +1062,7 @@ def run_submit(args) -> int:
     from .serving import GatewaySubmitClient, Overloaded
 
     cfg = get_config(args.model)
-    tokenizer = load_tokenizer()
+    tokenizer = load_tokenizer(args.checkpoint)
     prompt_ids = [i % cfg.vocab_size for i in tokenizer.encode(args.prompt)]
     client = GatewaySubmitClient(args.gateway_addr)
     shed = 0
@@ -1213,7 +1281,7 @@ def run_doctor(args) -> int:
 
 def _generate_and_report(args, generate_fn, cfg: ModelConfig,
                          pipeline_client: bool = False) -> int:
-    tokenizer = load_tokenizer()
+    tokenizer = load_tokenizer(args.checkpoint)
     prompt_ids = [i % cfg.vocab_size for i in tokenizer.encode(args.prompt)]
     sampling = SamplingParams(temperature=args.temperature, top_p=args.top_p,
                               top_k=args.top_k,
@@ -1248,6 +1316,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="local")
     p.add_argument("--model", default="gpt2",
                    help="architecture preset (gpt2, llama-3.1-8b, ...)")
+    p.add_argument("--checkpoint", default=None,
+                   help="local HF checkpoint dir (an http(s):// weight store is "
+                        "not ported) — servers then read ONLY the shards "
+                        "covering their span; omit for random init")
     p.add_argument("--splits", default=None,
                    help='stage boundaries, e.g. "10,20,30" (default: 4 even stages)')
     p.add_argument("--dtype", choices=sorted(_DTYPE_MAP), default="float32")
