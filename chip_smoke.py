@@ -516,6 +516,46 @@ on the kernels; it never prints the last line of a smoke pass.)
    ``--checkpoint`` (``cli_drive``): the client's tokens equal the
    in-process float32 chain's on the checkpoint, its stderr carries the
    byte-fallback warning, each server's ``PEAK_MEMORY_BYTES`` line.
+12h. The remote weight store (after 12g; ``remote_store_path``): the
+   CKPT checkpoint written again with a ``digests.json`` (each shard's
+   sha256, its hashing seconds timed) and served by
+   ``http.server.ThreadingHTTPServer`` on 127.0.0.1 from a thread. ``--mode
+   local --quant int8 --checkpoint http://127.0.0.1:<port>
+   --weight_cache_dir <tmp>`` (``main.load_model``, ``build_local_client``;
+   the greedy and the sampled request) against the same run on the local
+   directory: the same tokens, ``int8_dot`` launches by route,
+   ``sample_draw`` launches, captures and replays; the shards each stage's
+   ``load_stage`` fetched, every one of its span's (``shards_for_span``),
+   each shard fetched once; the fetch seconds and GB/s over loopback; each
+   stage's first load against a warm one through a new store on the same
+   cache (no shard fetched). A second store with a ``--weight_cache_bytes``
+   budget below two spans: a re-span from the last stage's shards to stage
+   1's evicts the old span's and keeps the cache under the budget. One
+   ``serve`` process (stage 1) with the remote checkpoint and a cache of
+   its own, registered with an in-process registry: the files it asked
+   the store for are its span's shards and the metadata.
+12i. Host offload (after 12h; ``offload_path``): ``--mode local`` at
+   llama-3.1-8b's full widths and depth, random weights, seed 0, splits
+   OFFLOAD_SPLITS, once resident and once with ``--use_cpu_offload
+   --keep_layers_on_gpu OFFLOAD_KEEP`` (stages 1-3 stream 6 of their 8
+   layers from pinned host memory; stage 0, in the client, stays
+   resident): ``--quant int8`` greedy and sampled and ``--quant nf4``
+   greedy, MAX_NEW_TOKENS each, after a warm-up request of each kind. The
+   offloaded runs must give the resident runs' tokens, the final stage's
+   logits bit for bit at every step, the same ``int8_dot`` / ``nf4_dot``
+   launches by route and ``sample_draw`` launches, and no capture after
+   the warm-up. Reported beside the card: ms/token both ways, the bytes
+   streamed a token, the pinned host-to-device copy rate of one layer's
+   buffer alone (CUDA events), the bound (streamed bytes over that rate);
+   each stage's device memory built alone, resident and offloaded: its
+   load's peak, its held bytes and its steady-state peak through a
+   warm-up, the offloaded one below the resident one by at least its
+   streamed layers less its two slots; a ``torch.profiler`` trace of the
+   offloaded decode steps, whose device busy time must be below the sum
+   of its host-to-device copies' and its kernels' (the copies overlap the
+   compute). Then a ``serve --use_cpu_offload`` process for stage 2 among
+   in-process TCP servers for stages 1 and 3 (wire f32): the client's
+   greedy tokens equal the in-process run's with float32 arrivals.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``, ``paged_decode_attention`` with the paged path's
    launches and its times at the paged path's shape; each matmul with its
@@ -528,7 +568,8 @@ on the kernels; it never prints the last line of a smoke pass.)
    ``sample_draw``'s on the sampled ones; the beam path's runs by route
    and each route's layer at M = 4; the deep-prompt and LoRA runs by
    route; the int8 fine-tuning step by route and each kernel's gradient
-   rows at M = 256) and
+   rows at M = 256; the checkpoint, remote-store and offload runs by
+   route) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -701,6 +742,11 @@ DRAW_LIBRARY_NOTE = ("no single PyTorch call draws threefry Gumbel-max tokens; "
 CKPT_LAYERS = 8
 CKPT_SHARD_BYTES = 2 * 10**9
 CKPT_SPLITS = "2,4,6"
+# Host offload (step 12i): the full-depth model's splits (three servers of
+# 8 layers each behind stage 0's 8) and the layers each server keeps on
+# the device (the other 6 stream from pinned host memory).
+OFFLOAD_SPLITS = "8,16,24"
+OFFLOAD_KEEP = 2
 # The warning load_tokenizer logs when it falls back to bytes.
 BYTE_FALLBACK = "using byte fallback"
 # The memory line `--mode serve` and `--mode client` print.
@@ -8244,6 +8290,580 @@ def checkpoint_path(torch, kernels, tmain, sampling_cls, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The remote weight store (step 12h) and host offload (step 12i)
+# ---------------------------------------------------------------------------
+
+def store_server(directory: str):
+    """A static file server over `directory` on 127.0.0.1 in a thread, as
+    any HTTP host of a checkpoint would be, recording every path asked
+    for. Returns (server, base URL, the list of paths)."""
+    import functools
+    import http.server
+
+    asked, lock = [], threading.Lock()
+
+    class Handler(http.server.SimpleHTTPRequestHandler):
+        def do_GET(self):
+            with lock:
+                asked.append(self.path.lstrip("/"))
+            super().do_GET()
+
+        def log_message(self, *args):
+            pass
+
+    httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                            functools.partial(Handler, directory=directory))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}", asked
+
+
+class StoreTap:
+    """While open, every ``RemoteShardStore.load_stage`` of the port: the
+    span, the shards fetched during it and its seconds; and every GET: its
+    file, bytes and seconds."""
+
+    def __init__(self, rs):
+        self.loads, self.gets = [], []
+        self._cls = rs.RemoteShardStore
+        self._load, self._get = self._cls.load_stage, self._cls._get
+        tap = self
+
+        def load_stage(store, cfg, spec, *a, **kw):
+            n = len(store.fetches)
+            t0 = time.monotonic()
+            out = tap._load(store, cfg, spec, *a, **kw)
+            tap.loads.append({"stage": spec.index, "span": [spec.start, spec.end],
+                              "fetched": [f for f in store.fetches[n:]
+                                          if f.endswith(".safetensors")],
+                              "want": store.shards_for_span(spec.start, spec.end,
+                                                            is_first=spec.is_first,
+                                                            is_last=spec.is_last),
+                              "seconds": time.monotonic() - t0})
+            return out
+
+        def get(store, name):
+            t0 = time.monotonic()
+            data = tap._get(store, name)
+            tap.gets.append((name, len(data), time.monotonic() - t0))
+            return data
+
+        self._cls.load_stage, self._cls._get = load_stage, get
+
+    def close(self) -> None:
+        self._cls.load_stage, self._cls._get = self._load, self._get
+
+
+def serve_process(tmp: pathlib.Path, what: str, argv):
+    """A ``--mode serve`` process of the port with `argv`: (process, its
+    SERVING line, its stdout and stderr files)."""
+    env = dict(os.environ, PYTHONIOENCODING="utf-8", PYTHONUNBUFFERED="1")
+    out, err = tmp / f"{what}.out", tmp / f"{what}.err"
+    with open(out, "wb") as fo, open(err, "wb") as fe:
+        proc = subprocess.Popen([sys.executable, "-m", PORT + ".main", "--mode", "serve",
+                                 *argv], stdout=fo, stderr=fe, env=env,
+                                cwd=str(LOG_PATH.parents[1]))
+    try:
+        line = _wait_line(proc, out, "SERVING ", what)
+    except AssertionError as exc:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{exc}\n{_stderr_tail(err)}") from None
+    return proc, line, out, err
+
+
+def stop_process(proc, out: pathlib.Path) -> dict:
+    """SIGINT a serve process, wait for it, and read its memory lines."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    lines = re.findall(MEMORY_LINE, out.read_text(errors="replace"))
+    return {"exit": proc.returncode,
+            "peak_gb": [int(m[0]) / 1e9 for m in lines], "held_gb": [int(m[1]) / 1e9
+                                                                    for m in lines]}
+
+
+def remote_store_path(torch, kernels, tmain, smi: str) -> dict:
+    """Step 12h (see the module docstring)."""
+    import hashlib
+    from importlib import import_module
+
+    t_start = time.monotonic()
+    rs = import_module(PORT + ".models.remote_store")
+    tf = import_module(PORT + ".models.transformer")
+    net = import_module(PORT + ".runtime.net")
+    sampling_cls = import_module(PORT + ".ops.sampling").SamplingParams
+    cfg = dataclasses.replace(tmain.get_config(MODEL), num_layers=CKPT_LAYERS)
+    out = {"model": MODEL, "layers": CKPT_LAYERS, "splits": CKPT_SPLITS,
+           "shard_bytes": CKPT_SHARD_BYTES, "card": smi}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-store-"))
+    store_dir = tmp / "store"
+    store_dir.mkdir()
+    httpd, tap, proc = None, None, None
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = tf.init_params(cfg, gen, dtype=torch.bfloat16, device="cuda")
+        weight_map = write_checkpoint(torch, str(store_dir), cfg, params, CKPT_SHARD_BYTES)
+        del params
+        files = sorted(set(weight_map.values()))
+        sizes = {f: os.path.getsize(store_dir / f) for f in files}
+        digests, hash_s = {}, 0.0
+        for f in files:
+            data = (store_dir / f).read_bytes()
+            t0 = time.monotonic()
+            digests[f] = hashlib.sha256(data).hexdigest()
+            hash_s += time.monotonic() - t0
+            del data
+        (store_dir / rs.DIGESTS).write_text(json.dumps(digests))
+        total = sum(sizes.values())
+        out["sha256"] = {"seconds": hash_s, "gb_per_s": total / 1e9 / hash_s}
+        httpd, url, asked = store_server(str(store_dir))
+        log(f"remote store: {len(files)} shards, {total / 1e9:.2f} GB at {url}; sha256 "
+            f"{total / 1e9 / hash_s:.2f} GB/s on the host")
+
+        base = ["--mode", "local", "--model", MODEL, "--dtype", "bfloat16", "--device",
+                "cuda", "--seed", "0", "--splits", CKPT_SPLITS, "--quant", "int8"]
+        parse = tmain.build_parser().parse_args
+        requests = [(PROMPTS[0], sampling_cls(temperature=0.0)),
+                    (PROMPTS[2], sampling_cls(temperature=0.7, top_p=0.9, top_k=50,
+                                              repetition_penalty=1.5))]
+        tok = tmain.load_tokenizer()
+        prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p, _ in requests]
+        cache = tmp / "cache"
+        runs = {}
+        tap = StoreTap(rs)
+        for which, extra in (("directory", ["--checkpoint", str(store_dir)]),
+                             ("remote", ["--checkpoint", url, "--weight_cache_dir",
+                                         str(cache)])):
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = local_run(torch, kernels, tmain, parse(base + extra), requests, prompt_ids)
+            if run["params"] is not None:
+                raise AssertionError(f"remote store: --mode local ({which}) loaded the "
+                                     "full model")
+            run["view"]["nf4_dot_launches"] = kernels["nf4_dot"]._launches
+            runs[which] = run["view"]
+            log(f"remote store: --mode local --quant int8 ({which}): "
+                f"{json.dumps(run['view'])}")
+            del run
+        for key in ("tokens", "int8_dot_launches_by_route", "sample_draw_launches",
+                    "captures", "replays"):
+            if runs["remote"][key] != runs["directory"][key]:
+                raise AssertionError(f"remote store: {key} {runs['remote'][key]} != the "
+                                     f"local directory's {runs['directory'][key]}")
+        out["local_int8"] = runs
+        loads = tap.loads
+        fetched = [f for load in loads for f in load["fetched"]]
+        for load in loads:
+            if not set(load["fetched"]) <= set(load["want"]):
+                raise AssertionError(f"remote store: stage {load['stage']} fetched "
+                                     f"{load['fetched']}, its span needs {load['want']}")
+        if sorted(fetched) != files:
+            raise AssertionError(f"remote store: fetched {sorted(fetched)}, want each of "
+                                 f"{files} once")
+        shard_gets = [(n, b, t) for n, b, t in tap.gets if n.endswith(".safetensors")]
+        get_s = sum(t for _, _, t in shard_gets)
+        out["fetch"] = {"seconds": get_s, "bytes": sum(b for _, b, _ in shard_gets),
+                        "gb_per_s": sum(b for _, b, _ in shard_gets) / 1e9 / get_s,
+                        "per_shard": [{"file": n, "gb": b / 1e9, "seconds": t}
+                                      for n, b, t in shard_gets],
+                        # The store hashes each shard it fetched (the same
+                        # bytes as the digests above): its share of a fetch.
+                        "sha256_share": hash_s / (get_s + hash_s)}
+        # Each stage loaded again through a new store over the same cache:
+        # nothing fetched.
+        plan = tmain.stage_plan(parse(base), cfg)
+        warm = rs.RemoteShardStore(url, str(cache))
+        first = {load["stage"]: load for load in loads}
+        stages = []
+        for spec in plan.stages:
+            shard, peak, warm_s = measured_load(
+                torch, lambda: warm.load_stage(cfg, spec, dtype=torch.bfloat16, device="cuda"))
+            del shard
+            stages.append({"stage": spec.index, "span": [spec.start, spec.end],
+                           "shards": first[spec.index]["want"],
+                           "fetched_first": first[spec.index]["fetched"],
+                           "first_load_s": first[spec.index]["seconds"], "warm_load_s": warm_s,
+                           "warm_peak_above_held_gb": peak / 1e9})
+        if [f for f in warm.fetches if f.endswith(".safetensors") or f == rs.INDEX]:
+            raise AssertionError(f"remote store: the warm store fetched {warm.fetches}")
+        out["stages"] = stages
+        log(f"remote store: shards {json.dumps(out['fetch'])}; stages {json.dumps(stages)}")
+        # A budget below two spans: the last stage's shards, then stage 1's.
+        last, mid = plan.stages[-1], plan.stages[1]
+        kw = lambda spec: {"is_first": spec.is_first, "is_last": spec.is_last}  # noqa: E731
+        budget = sum(sizes[f] for f in warm.shards_for_span(mid.start, mid.end, **kw(mid)))
+        budget += 4096
+        small = rs.RemoteShardStore(url, str(tmp / "small"), max_cache_bytes=budget)
+        small.evict_grace_s = 0.0
+        # The old span's shards as a fetch would leave them (links to the
+        # first cache's files: nothing fetched again).
+        for f in warm.shards_for_span(last.start, last.end, **kw(last)):
+            os.link(cache / f, tmp / "small" / f)
+        old = small.ensure_span(last.start, last.end, **kw(last))
+        over = small.cache_bytes()
+        t0 = time.monotonic()
+        small.ensure_span(mid.start, mid.end, **kw(mid))
+        left = sorted(f for f in os.listdir(small.cache_dir) if f.endswith(".safetensors"))
+        want_left = small.shards_for_span(mid.start, mid.end, **kw(mid))
+        out["eviction"] = {"budget_gb": budget / 1e9, "old_span_gb": over / 1e9,
+                           "old_span": [os.path.basename(p) for p in old],
+                           "left": left, "cache_gb": small.cache_bytes() / 1e9,
+                           "respan_s": time.monotonic() - t0}
+        log(f"remote store: eviction {json.dumps(out['eviction'])}")
+        if small.cache_bytes() > budget or left != want_left:
+            raise AssertionError(f"remote store: after the re-span the cache holds {left} "
+                                 f"({small.cache_bytes()} bytes) for a {budget}-byte budget")
+        # One serve process with the remote checkpoint: stage 1 asks the
+        # store for its span's shards and the metadata only.
+        registry_srv = net.RegistryServer()
+        registry_srv.start()
+        try:
+            n = len(asked)
+            t0 = time.monotonic()
+            proc, line, pout, perr = serve_process(tmp, "stage1", [
+                "--stage", "1", "--registry_addr", registry_srv.address, "--rpc_port", "0",
+                "--model", MODEL, "--quant", "int8", "--dtype", "bfloat16", "--seed", "0",
+                "--device", "cuda", "--splits", CKPT_SPLITS, "--checkpoint", url,
+                "--weight_cache_dir", str(tmp / "serve_cache")])
+            up_s = time.monotonic() - t0
+            memory = stop_process(proc, pout)
+        finally:
+            registry_srv.stop()
+        got = sorted(set(f for f in asked[n:] if f.endswith(".safetensors")))
+        want = warm.shards_for_span(mid.start, mid.end, **kw(mid))
+        out["serve"] = {"line": line, "up_s": up_s, "asked": asked[n:], **memory}
+        log(f"remote store: serve stage 1 ({up_s:.1f}s): {line}; asked {asked[n:]}")
+        if got != want or memory["exit"] != 0:
+            raise AssertionError(f"remote store: the serve process fetched {got}, its span "
+                                 f"needs {want} (exit {memory['exit']})")
+    finally:
+        if tap is not None:
+            tap.close()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
+class LogitsTap:
+    """The final stage's output rows (its logits, float32) of every chunk
+    while installed, on the device."""
+
+    def __init__(self, ex):
+        self.rows = []
+        real = ex._dispatch_chunk
+
+        def dispatch(*args, **kwargs):
+            got = real(*args, **kwargs)
+            self.rows.append(got.clone())
+            return got
+
+        ex._dispatch_chunk = dispatch
+
+
+def offload_run(torch, kernels, tmain, args, kname: str, requests, prompt_ids) -> dict:
+    """``--mode local`` as `main` builds it (``load_model``,
+    ``build_local_client``), a warm-up request of each of `requests`' kinds
+    (a few tokens: every graph the requests replay is captured), then the
+    requests with every count set to 0 just before them and the final
+    stage's logits tapped."""
+    t0 = time.monotonic()
+    cfg, params = tmain.load_model(args)
+    client = tmain.build_local_client(args, cfg, params)
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    for ids, (_, sp) in zip(prompt_ids, requests):
+        client.generate(ids, 4, sampling=sp)
+    executors = path_executors(client)
+    tap = LogitsTap(next(ex for ex in executors if ex.spec.is_last))
+    reset_counts(kernels, executors)
+    results = [client.generate(ids, MAX_NEW_TOKENS, sampling=sp)
+               for ids, (_, sp) in zip(prompt_ids, requests)]
+    torch.cuda.synchronize()
+    runners = [ex._subspans[(0, ex.spec.num_layers)][2] for ex in executors[1:]
+               if getattr(ex, "offload", False)]
+    return {"client": client, "logits": tap.rows, "view": {
+        "tokens": [r.tokens for r in results], "setup_s": setup_s,
+        f"{kname}_launches_by_route": kernel_routes(kernels[kname]),
+        "sample_draw_launches": kernels["sample_draw"]._launches,
+        "step_captures": sum(ex.graphs.captures for ex in executors),
+        "captures": sum(ex.graphs.captures + ex.sampler.captures for ex in executors),
+        "replays": sum(ex.graphs.replays + ex.sampler.replays for ex in executors),
+        "streamed_bytes_per_token": sum(r.streamed_bytes for r in runners),
+        "offloaded_stages": len(runners),
+        "ttft_ms": [r.ttft_s * 1e3 for r in results],
+        **greedy_and_sampled_ms(results, requests)}}
+
+
+def pinned_copy_rate(torch, nbytes: int, reps: int = 20) -> dict:
+    """One layer's buffer copied alone from pinned host memory to the
+    device (``Tensor.copy_(non_blocking=True)``), timed with CUDA events
+    over `reps` copies after a warm-up: ms a copy and GB/s."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        dev.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        dev.copy_(host, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    return {"bytes": nbytes, "ms": ms, "gb_per_s": nbytes / 1e6 / ms}
+
+
+def stage_memory(torch, tmain, args, cfg, spec, offload: bool) -> dict:
+    """One stage built alone as `main` builds a server's
+    (``_stage_params``, a ``StageExecutor``), resident or offloaded: the
+    load's peak above what was held before, the bytes held after, and the
+    steady-state peak above that baseline through its warm-up (a session's
+    prefill and steps, each captured)."""
+    from importlib import import_module
+
+    executor_mod = import_module(PORT + ".runtime.executor")
+    graphs = import_module(PORT + ".runtime.graphs")
+    gc.collect()
+    # cuBLAS keeps a 32 MiB workspace a stream it has run on, for good:
+    # dropped here, so that each build's warm-up pays its capture stream's
+    # alike, whichever streams earlier phases left one on.
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    shard = tmain._stage_params(args, cfg, None, spec, offload=offload)
+    ex = executor_mod.StageExecutor(cfg, spec, shard, device=tmain.resolve_device(args.device),
+                                    peer_id="measured",
+                                    act_dtype=torch.bfloat16, offload=offload,
+                                    keep_layers_resident=args.keep_layers_on_gpu)
+    del shard
+    gc.collect()
+    torch.cuda.synchronize()
+    row = {"stage": spec.index, "offload": offload, "build_s": time.monotonic() - t0,
+           "load_peak_above_held_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+           "held_gb": (torch.cuda.memory_allocated() - before) / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    ex.warmup()
+    torch.cuda.synchronize()
+    row["steady_peak_bytes"] = torch.cuda.max_memory_allocated() - before
+    row["steady_peak_above_held_gb"] = row["steady_peak_bytes"] / 1e9
+    if offload:
+        runner = ex._subspans[(0, spec.num_layers)][2]
+        row["streamed_bytes"] = runner.streamed_bytes
+        row["slot_bytes"] = sum(s.nbytes for s in runner.slots)
+        row["streamed_layers"] = len(runner.layers.host)
+    del ex
+    graphs.collect_garbage()
+    torch.cuda.empty_cache()
+    return row
+
+
+def offload_overlap(torch, client, ids, greedy, steps: int = 2) -> dict:
+    """torch.profiler over `steps` captured decode steps of the offloaded
+    client: the device's busy time (the union of every traced kernel and
+    copy), the host-to-device copies' (the copy stream's) and the kernels'
+    (the compute streams'), each a union, ms a step. Without overlap the
+    busy time is their sum."""
+    gen = client.generate_stepwise(ids, steps + 2, sampling=greedy)
+    next(gen)
+    next(gen)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            next(gen)
+    wall = time.perf_counter() - t0
+    gen.close()
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in device if "htod" in e.name.lower().replace(" ", "")]
+    kernels_ = [e for e in device if "memcpy" not in e.name.lower()
+                and "memset" not in e.name.lower()]
+    span = lambda evs: busy_us([(e.time_range.start, e.time_range.end)  # noqa: E731
+                                for e in evs]) / 1e3 / steps
+    out = {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+           "device_busy_ms": span(device), "htod_copy_ms": span(copies),
+           "kernel_ms": span(kernels_), "htod_copies_per_step": len(copies) / steps,
+           "kernels_per_step": len(kernels_) / steps}
+    log(f"offload profile: {json.dumps(out)}")
+    if not copies or not kernels_:
+        raise AssertionError(f"offload: the profiler saw {len(copies)} host-to-device "
+                             f"copies and {len(kernels_)} kernels")
+    if out["device_busy_ms"] >= out["htod_copy_ms"] + out["kernel_ms"]:
+        raise AssertionError(f"offload: device busy {out['device_busy_ms']:.3f} ms a step, "
+                             "not below its copies' and kernels' sum: no overlap")
+    return out
+
+
+def offload_tcp(torch, tmain, client, prompt_ids, greedy, tmp: pathlib.Path) -> dict:
+    """Stage 2 as a ``serve --use_cpu_offload`` process among the in-process
+    client's stages 1 and 3 behind TcpStageServers (wire f32, a registry
+    service): its greedy tokens must equal the in-process run's with every
+    server computing float32 arrivals."""
+    from importlib import import_module
+
+    net = import_module(PORT + ".runtime.net")
+    task_pool = import_module(PORT + ".runtime.task_pool")
+    client_mod = import_module(PORT + ".runtime.client")
+    peers = {client.transport.executor(p).spec.index: p for p in client.transport.peers()}
+    saved = {p: client.transport.executor(p).act_dtype for p in peers.values()}
+    registry_srv, servers, proc, transport = net.RegistryServer(), [], None, None
+    registry_srv.start()
+    try:
+        for p in peers.values():
+            client.transport.executor(p).act_dtype = torch.float32
+        chain = client.generate(prompt_ids, MAX_NEW_TOKENS, sampling=greedy)
+        for index in (1, 3):
+            ex = client.transport.executor(peers[index])
+            ex.act_dtype = None
+            srv = net.TcpStageServer(ex, task_pool.StageRuntime(), wire_dtype="f32",
+                                     model=MODEL)
+            srv.start()
+            servers.append(srv)
+            rec = client_mod.make_server_record(peers[index], ex.spec, model=MODEL)
+            rec.address = srv.address
+            registry_srv.registry.register(rec)
+        t0 = time.monotonic()
+        proc, line, pout, _ = serve_process(tmp, "offload_stage2", [
+            "--stage", "2", "--registry_addr", registry_srv.address, "--rpc_port", "0",
+            "--model", MODEL, "--quant", "int8", "--dtype", "bfloat16", "--seed", "0",
+            "--device", "cuda", "--wire_dtype", "f32", "--splits", OFFLOAD_SPLITS,
+            "--use_cpu_offload", "--keep_layers_on_gpu", str(OFFLOAD_KEEP)])
+        up_s = time.monotonic() - t0
+        registry = net.RemoteRegistry(registry_srv.address)
+        transport = net.TcpTransport(registry, wire_dtype="f32", model=MODEL)
+        tcp = client_mod.PipelineClient(client.cfg, client.plan, client.stage0, transport,
+                                        registry, seed=0, model=MODEL)
+        res = tcp.generate(prompt_ids, MAX_NEW_TOKENS, sampling=greedy)
+        memory = stop_process(proc, pout)
+        out = {"line": line, "up_s": up_s, "tokens": res.tokens, "chain_tokens": chain.tokens,
+               "decode_ms_per_token": 1e3 * statistics.median(res.decode_times_s),
+               "ttft_ms": res.ttft_s * 1e3, **memory}
+        log(f"offload over TCP: {json.dumps(out)}")
+        if res.tokens != chain.tokens or memory["exit"] != 0:
+            raise AssertionError(f"offload over TCP: tokens {res.tokens} != the in-process "
+                                 f"float32 chain's {chain.tokens} (exit {memory['exit']})")
+        return out
+    finally:
+        if transport is not None:
+            transport.close()
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for srv in servers:
+            srv.stop()
+        registry_srv.stop()
+        for p, dtype in saved.items():
+            client.transport.executor(p).act_dtype = dtype
+
+
+def offload_path(torch, kernels, tmain, smi: str) -> dict:
+    """Step 12i (see the module docstring)."""
+    from importlib import import_module
+
+    t_start = time.monotonic()
+    sampling_cls = import_module(PORT + ".ops.sampling").SamplingParams
+    greedy = sampling_cls(temperature=0.0)
+    sampled = sampling_cls(temperature=0.7, top_p=0.9, top_k=50, repetition_penalty=1.5)
+    parse = tmain.build_parser().parse_args
+    base = ["--mode", "local", "--model", MODEL, "--dtype", "bfloat16", "--device", "cuda",
+            "--seed", "0", "--splits", OFFLOAD_SPLITS]
+    off = ["--use_cpu_offload", "--keep_layers_on_gpu", str(OFFLOAD_KEEP)]
+    cfg = tmain.get_config(MODEL)
+    tok = tmain.load_tokenizer()
+    out = {"model": MODEL, "splits": OFFLOAD_SPLITS, "keep_layers_on_gpu": OFFLOAD_KEEP,
+           "card": smi}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-offload-"))
+    try:
+        for quant, kname, reqs in (("int8", "int8_dot", [(PROMPTS[0], greedy),
+                                                         (PROMPTS[2], sampled)]),
+                                   ("nf4", "nf4_dot", [(PROMPTS[0], greedy)])):
+            prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p, _ in reqs]
+            runs, logits, keep = {}, {}, None
+            for which, extra in (("resident", []), ("offloaded", off)):
+                gc.collect()
+                torch.cuda.empty_cache()
+                run = offload_run(torch, kernels, tmain, parse(base + ["--quant", quant] + extra),
+                                  kname, reqs, prompt_ids)
+                runs[which], logits[which] = run["view"], run["logits"]
+                log(f"offload: --mode local --quant {quant} ({which}): "
+                    f"{json.dumps(run['view'])}")
+                if which == "offloaded":
+                    keep = run["client"]
+                del run
+            for key in ("tokens", f"{kname}_launches_by_route", "sample_draw_launches",
+                        "captures", "replays"):
+                if runs["offloaded"][key] != runs["resident"][key]:
+                    raise AssertionError(f"offload {quant}: {key} {runs['offloaded'][key]} != "
+                                         f"the resident run's {runs['resident'][key]}")
+            if runs["offloaded"]["step_captures"] or runs["offloaded"]["offloaded_stages"] != 3:
+                raise AssertionError(f"offload {quant}: {runs['offloaded']['step_captures']} "
+                                     "step captures after the warm-up, "
+                                     f"{runs['offloaded']['offloaded_stages']} offloaded stages")
+            a, b = logits["resident"], logits["offloaded"]
+            if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"offload {quant}: the final stage's logits differ from "
+                                     "the resident run's")
+            tokens = sum(len(t) for t in runs["offloaded"]["tokens"])
+            need = 4 * cfg.num_layers * tokens
+            if sum(runs["offloaded"][f"{kname}_launches_by_route"].values()) < need:
+                raise AssertionError(f"offload {quant}: {kname} "
+                                     f"{runs['offloaded'][f'{kname}_launches_by_route']}, "
+                                     f"want >= {need}")
+            del logits
+            out[quant] = {"runs": runs, "logits_bit_equal_steps": len(a)}
+            if quant == "int8":
+                out["profile"] = offload_overlap(torch, keep, prompt_ids[0], greedy)
+                out["tcp_f32"] = offload_tcp(torch, tmain, keep, prompt_ids[0], greedy, tmp)
+            del keep
+            gc.collect()
+            torch.cuda.empty_cache()
+            # Priced from its parts: the bytes a token over the copy rate
+            # of one layer's buffer alone, measured here.
+            streamed = runs["offloaded"]["streamed_bytes_per_token"]
+            rate = pinned_copy_rate(torch, streamed // (3 * (8 - OFFLOAD_KEEP)))
+            out[quant]["copy"] = rate
+            out[quant]["bound_ms_per_token"] = streamed / 1e6 / rate["gb_per_s"]
+            log(f"offload {quant}: {streamed / 1e9:.3f} GB streamed a token; one layer's "
+                f"pinned copy {rate['ms']:.3f} ms, {rate['gb_per_s']:.2f} GB/s; bound "
+                f"{out[quant]['bound_ms_per_token']:.2f} ms/token; greedy "
+                f"{runs['offloaded']['greedy_decode_ms_per_token']:.2f} ms/token offloaded, "
+                f"{runs['resident']['greedy_decode_ms_per_token']:.2f} resident ({smi})")
+        # Each server's stage built alone, resident and offloaded (int8).
+        args = parse(base + ["--quant", "int8"] + off)
+        plan = tmain.stage_plan(args, cfg)
+        memory = []
+        for spec in plan.stages[1:]:
+            res = stage_memory(torch, tmain, args, cfg, spec, offload=False)
+            offl = stage_memory(torch, tmain, args, cfg, spec, offload=True)
+            memory += [res, offl]
+            saved = res["steady_peak_bytes"] - offl["steady_peak_bytes"]
+            log(f"offload memory stage {spec.index}: {json.dumps([res, offl])}")
+            if saved < offl["streamed_bytes"] - offl["slot_bytes"]:
+                raise AssertionError(f"offload: stage {spec.index}'s steady peak is {saved} "
+                                     "bytes below the resident one's, want >= "
+                                     f"{offl['streamed_bytes'] - offl['slot_bytes']}")
+        out["stage_memory"] = memory
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
 def oracle_logits(torch, cfg, params, ids, cache_dtype=None, prompts=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
     logits after `ids` (one prefill, with deep `prompts` if given)."""
@@ -8661,6 +9281,16 @@ def main(argv) -> int:
     ckpt = checkpoint_path(torch, kernel_mods, tmain, sampling_cls, smi)
     log(json.dumps({"checkpoint_path": ckpt}))
     log(f"checkpoint phase: {ckpt['seconds']:.1f}s (the CLI drive {ckpt['cli']['seconds']:.1f}s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    store = remote_store_path(torch, kernel_mods, tmain, smi)
+    log(json.dumps({"remote_store_path": store}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    offload = offload_path(torch, kernel_mods, tmain, smi)
+    log(json.dumps({"offload_path": offload}))
+    log(f"remote store phase: {store['seconds']:.1f}s; offload phase: "
+        f"{offload['seconds']:.1f}s")
     log(f"beam phases: {beam['seconds']:.1f}s int8, {beam['nf4_tcp_bf16']['seconds']:.1f}s NF4")
     log(f"prompt/lora phase: {prompt_lora['seconds']:.1f}s")
     log(f"finetune phase: {finetune['seconds']:.1f}s")
@@ -8750,6 +9380,19 @@ def main(argv) -> int:
         which: ckpt["local_int8"][which]["int8_dot_launches_by_route"]
         for which in ("checkpoint", "random")}
     kernels[2]["checkpoint_path"] = ckpt["local_int8"]["checkpoint"]["sample_draw_launches"]
+    # The remote store's --mode local run (int8) beside the local
+    # directory's, and the offload runs beside the resident ones, by route.
+    kernels[0]["remote_store_path"] = {
+        which: store["local_int8"][which]["int8_dot_launches_by_route"]
+        for which in ("remote", "directory")}
+    kernels[1]["remote_store_path"] = store["local_int8"]["remote"]["nf4_dot_launches"]
+    kernels[2]["remote_store_path"] = store["local_int8"]["remote"]["sample_draw_launches"]
+    for i, (quant, kname) in enumerate((("int8", "int8_dot"), ("nf4", "nf4_dot"))):
+        kernels[i]["offload_path"] = {
+            which: offload[quant]["runs"][which][f"{kname}_launches_by_route"]
+            for which in ("offloaded", "resident")}
+    kernels[2]["offload_path"] = {quant: offload[quant]["runs"]["offloaded"]["sample_draw_launches"]
+                                  for quant in ("int8", "nf4")}
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

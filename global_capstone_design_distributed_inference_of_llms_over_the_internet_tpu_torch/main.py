@@ -93,8 +93,17 @@ Port of the JAX package's ``main.py`` for these modes:
   with ``--relay_capacity N``), advertises ``relay_via`` with its
   throughput discounted by the relay penalty, renews the circuit every
   heartbeat and prints ``RELAY: serving via volunteer <peer> ...``. The
-  flags of the engines the port lacks (``--sp``, ``--tp``,
-  ``--use_cpu_offload``) exit naming themselves.
+  flags of the engines the port lacks (``--sp``, ``--tp``) exit naming
+  themselves.
+
+Host offload as in the reference: with ``--use_cpu_offload`` every server
+of ``local`` (fixed and elastic) and every per-session ``serve`` (fixed and
+elastic) keeps the layers of its span past the first
+``--keep_layers_on_gpu`` in pinned host memory and streams them through two
+device slots inside its captured step (``runtime/offload.py``); each such
+layer is built on the card alone, merged and quantized, and moved to the
+host before the next. The client's stage 0 stays resident. ``--batched``
+refuses both flags, as the reference's does.
 
 ``--prefix_cache_mb N`` gives every executor of ``local`` (stage 0
 included) and each ``serve`` executor, session or batched (``--stage 0
@@ -121,9 +130,13 @@ full model, while ``local``, ``serve`` (fixed and elastic: each span it
 takes), ``client`` and ``gateway`` stream each stage's span alone, reading
 only the shards that hold it. The config comes from the checkpoint's
 ``config.json``; ``--model`` then names the swarm only. An ``http(s)://``
-checkpoint exits (remote weight stores are not ported). Without a
-checkpoint, weights are random-initialized from the ``--model`` preset and
-``--seed``. ``--lora PATH`` folds a saved adapter into the attention
+checkpoint is a remote weight store (``models/remote_store.py``, any static
+file server over a checkpoint directory): each role fetches the config,
+the tokenizer files and the shards of its span alone into a cache
+directory (``--weight_cache_dir``, LRU-bounded by ``--weight_cache_bytes``,
+sha256-checked against the store's ``digests.json``) and loads from there.
+Without a checkpoint, weights are random-initialized from the ``--model``
+preset and ``--seed``. ``--lora PATH`` folds a saved adapter into the attention
 weights before ``--quant`` (``models/lora.py``), in every mode that loads
 weights. Tokenization uses the checkpoint's tokenizer
 (``AutoTokenizer``, offline) when ``transformers`` loads one, else the
@@ -145,6 +158,9 @@ GPU and no ``--device cpu`` it refuses rather than quietly using the CPU.
     python -m ...main --mode local --speculative_k 4 --temperature 0 ...
     python -m ...main --mode local --lora adapter.npz --quant int8 ...
     python -m ...main --mode local --checkpoint /path/to/hf-dir --quant int8 ...
+    python -m ...main --mode serve --stage 1 --checkpoint http://host:8000/llama \
+        --weight_cache_dir /var/cache/shards --weight_cache_bytes 20000000000 ...
+    python -m ...main --mode serve --stage 2 --use_cpu_offload --keep_layers_on_gpu 2 ...
     python -m ...main --mode serve --stage 3 --batched --speculative_k 4 ...
     python -m ...main --mode client --registry_addr 127.0.0.1:31330 \\
         --model llama-3.1-8b --quant int8 --dtype bfloat16 --prompt "Hi"
@@ -166,6 +182,7 @@ import json
 import logging
 import os
 import random
+import re
 import sys
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -176,7 +193,7 @@ from .models.config import ModelConfig, get_config
 from .models.hf_import import config_from_checkpoint, load_stage_checkpoint
 from .models.lora import load_lora, merge_lora, slice_lora
 from .models.partition import ROLE_FULL, StagePlan, StageSpec, parse_splits, slice_stage_params
-from .models.quant import quantize_params
+from .models.quant import quantize_params, tree_map
 from .models.transformer import full_forward, init_kv_cache, init_params
 from .ops.sampling import RECENT_WINDOW, SamplingParams, sample_token
 from .ops.threefry import prng_key
@@ -249,28 +266,74 @@ def load_tokenizer(checkpoint: Optional[str] = None):
 # Model
 # ---------------------------------------------------------------------------
 
+# One RemoteShardStore a (checkpoint, cache directory) in the process.
+_STORES: dict = {}
+
+
+def _remote_store(args):
+    """The memoized ``RemoteShardStore`` of an http(s):// ``--checkpoint``:
+    one cache and one LRU state a process, shared by `model_config`,
+    `load_model` and `_stage_params`. The cache is ``--weight_cache_dir``,
+    by default ``~/.cache/mini_petals_tpu/<the URL, sanitized>`` (the
+    reference's directory, so that both packages' servers on one host share
+    it), bounded by ``--weight_cache_bytes``."""
+    from .models.remote_store import RemoteShardStore
+
+    key = (args.checkpoint, args.weight_cache_dir)
+    store = _STORES.get(key)
+    if store is None:
+        cache = args.weight_cache_dir or os.path.join(
+            os.path.expanduser("~"), ".cache", "mini_petals_tpu",
+            re.sub(r"[^A-Za-z0-9._-]+", "_", args.checkpoint))
+        store = RemoteShardStore(args.checkpoint, cache,
+                                 max_cache_bytes=args.weight_cache_bytes)
+        _STORES[key] = store
+    return store
+
+
+def _is_remote(checkpoint) -> bool:
+    return bool(checkpoint) and checkpoint.startswith(("http://", "https://"))
+
+
+def _checkpoint_dir(args) -> Optional[str]:
+    """The local directory of ``--checkpoint``: the store's cache, with
+    ``config.json`` and any tokenizer file fetched, for a remote one."""
+    if _is_remote(args.checkpoint):
+        return _remote_store(args).fetch_config()
+    return args.checkpoint
+
+
 def model_config(args) -> ModelConfig:
-    """The checkpoint's config, or the ``--model`` preset."""
-    return config_from_checkpoint(args.checkpoint) if args.checkpoint else get_config(args.model)
+    """The checkpoint's config (a remote store's fetched), or the
+    ``--model`` preset."""
+    return (config_from_checkpoint(_checkpoint_dir(args)) if args.checkpoint
+            else get_config(args.model))
 
 
 def load_model(args) -> Tuple[ModelConfig, Optional[dict]]:
     """The full model on the device: from ``--checkpoint`` (every shard,
-    read as a one-stage span), or the random init of the ``--model``
-    preset from ``--seed``. With a checkpoint only ``oracle`` reads the
-    full tree; the serving modes get None for the params, as in the
-    reference (``main.py:142-155``), and each stage then streams its own
-    span (`_stage_params`)."""
+    read as a one-stage span; a remote store's fetched first), or the
+    random init of the ``--model`` preset from ``--seed``. With a
+    checkpoint only ``oracle`` reads the full tree; the serving modes get
+    None for the params, as in the reference (``main.py:119-155``), and
+    each stage then streams its own span (`_stage_params`). So does
+    ``--mode local --use_cpu_offload`` on random weights: each stage draws
+    its own span, and an offloaded one never holds it on the card."""
     device = resolve_device(args.device)
     if args.checkpoint:
-        cfg = config_from_checkpoint(args.checkpoint)
+        cfg = model_config(args)
         if args.mode != "oracle":
             return cfg, None
         logger.info("loading %s (%d layers) on %s", args.checkpoint, cfg.num_layers, device)
-        return cfg, load_stage_checkpoint(args.checkpoint, cfg,
-                                          StageSpec(0, ROLE_FULL, 0, cfg.num_layers),
+        full = StageSpec(0, ROLE_FULL, 0, cfg.num_layers)
+        if _is_remote(args.checkpoint):
+            return cfg, _remote_store(args).load_stage(cfg, full, dtype=_DTYPE_MAP[args.dtype],
+                                                       device=device)
+        return cfg, load_stage_checkpoint(args.checkpoint, cfg, full,
                                           dtype=_DTYPE_MAP[args.dtype], device=device)
     cfg = get_config(args.model)
+    if args.mode == "local" and args.use_cpu_offload:
+        return cfg, None
     logger.info("random-initializing %s (%d layers) on %s", args.model,
                 cfg.num_layers, device)
     gen = torch.Generator(device=device)
@@ -281,32 +344,16 @@ def load_model(args) -> Tuple[ModelConfig, Optional[dict]]:
 def load_stage_model(args, spec: StageSpec) -> Tuple[ModelConfig, dict]:
     """One stage's shard only, LoRA-merged and quantized as ``--lora`` and
     ``--quant`` ask: its layers, the embeddings for the first stage, the
-    final norm and head for the last. With ``--checkpoint`` the span is
-    streamed from the shards that hold it (`_stage_params`). Otherwise the
-    random init of the ``--model`` preset from ``--seed``: every layer is
-    drawn in order, so the shard equals that stage's slice of
-    `load_model`'s weights; the rest is freed before this returns."""
-    device = resolve_device(args.device)
-    if args.checkpoint:
-        cfg = config_from_checkpoint(args.checkpoint)
-        return cfg, _stage_params(args, cfg, None, spec)
-    cfg = get_config(args.model)
-    logger.info("random-initializing %s layers [%d, %d) of %d on %s",
-                args.model, spec.start, spec.end, cfg.num_layers, device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    params = init_params(cfg, gen, dtype=_DTYPE_MAP[args.dtype], device=device,
-                         layer_range=(spec.start, spec.end))
-    # The kept layers are stacked from index 0: slice them as a span that
-    # starts there.
-    local = StageSpec(spec.index, spec.role, 0, spec.num_layers)
-    shard = slice_stage_params(cfg, params, local)
-    # The span's slice of the adapter merges into the local stack, before
-    # the quantization.
-    shard = _maybe_quantize(args, _maybe_lora(args, cfg, shard, spec.start, spec.end))
-    del params
+    final norm and head for the last (`_stage_params`: streamed from
+    ``--checkpoint``, local or remote, or the span of the random init). A
+    ``serve`` process's layers are split for host offload under
+    ``--use_cpu_offload``; the stage 0 of ``client`` and ``gateway`` stays
+    resident. What the load left is freed before this returns."""
+    cfg = model_config(args)
+    offload = bool(args.use_cpu_offload) and args.mode == "serve"
+    shard = _stage_params(args, cfg, None, spec, offload=offload)
     gc.collect()
-    if device.type == "cuda":
+    if resolve_device(args.device).type == "cuda":
         torch.cuda.empty_cache()
     return cfg, shard
 
@@ -348,17 +395,73 @@ def _maybe_lora(args, cfg: ModelConfig, params, start=None, end=None):
 _maybe_lora._cache = {}
 
 
-def _stage_params(args, cfg: ModelConfig, params, spec):
-    """A serving role's stage weights: streamed from ``--checkpoint`` when
-    `params` is None, sliced from the loaded tree otherwise; then
-    ``--lora`` merged and ``--quant`` applied."""
-    if params is None:
-        sp = load_stage_checkpoint(args.checkpoint, cfg, spec, dtype=_DTYPE_MAP[args.dtype],
-                                   device=resolve_device(args.device))
-    else:
+def _stage_params(args, cfg: ModelConfig, params, spec, offload: bool = False):
+    """A serving role's stage weights, then ``--lora`` merged and
+    ``--quant`` applied: sliced from the loaded tree `params`, or when it
+    is None streamed from ``--checkpoint`` (a local directory, or a remote
+    store's span of shards, `_remote_store`), or without a checkpoint the
+    span of the random init of the ``--model`` preset from ``--seed``
+    (every layer is drawn in order, so the shard equals that stage's slice
+    of `load_model`'s weights).
+
+    With `offload` (``--use_cpu_offload``) the layers past
+    ``--keep_layers_on_gpu`` are built on the device one at a time (loaded
+    or drawn, merged, quantized) and each is moved to pinned host memory
+    before the next is built; the tree's ``layers`` is then a
+    ``runtime.offload.OffloadedLayers``. The values are the resident
+    span's, and the device never holds more than the resident part and one
+    layer's working set of them (the reference loads the span onto the
+    device, then moves it to the host)."""
+    device = resolve_device(args.device)
+    dtype = _DTYPE_MAP[args.dtype]
+    n = spec.num_layers
+    keep = min(max(args.keep_layers_on_gpu, 0), n) if offload else n
+
+    def finish(tree, first, last):
+        """--lora over the stacked layers [first, last), then --quant."""
+        return _maybe_quantize(args, _maybe_lora(args, cfg, tree, first, last))
+
+    host, stream = [], None
+    if keep < n:
+        from .runtime.offload import host_layer
+
+        def sink(j, layer):
+            one = finish({"layers": layer}, spec.start + j, spec.start + j + 1)["layers"]
+            host.append(host_layer(tree_map(lambda a: a[0], one), device))
+
+        stream = (keep, sink)
+    if params is not None:
         sp = slice_stage_params(cfg, params, spec)
-    sp = _maybe_lora(args, cfg, sp, spec.start, spec.end)
-    return _maybe_quantize(args, sp)
+        if stream is not None:
+            layers = sp["layers"]
+            for j in range(keep, n):
+                sink(j, tree_map(lambda a, j=j: a[j:j + 1], layers))
+            sp["layers"] = tree_map(lambda a: a[:keep], layers)
+    elif _is_remote(args.checkpoint):
+        sp = _remote_store(args).load_stage(cfg, spec, dtype=dtype, device=device,
+                                            stream=stream)
+    elif args.checkpoint:
+        sp = load_stage_checkpoint(args.checkpoint, cfg, spec, dtype=dtype, device=device,
+                                   stream=stream)
+    else:
+        logger.info("random-initializing %s layers [%d, %d) of %d on %s",
+                    args.model, spec.start, spec.end, cfg.num_layers, device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        full = init_params(cfg, gen, dtype=dtype, device=device,
+                           layer_range=(spec.start, spec.end), stream=stream)
+        # The kept layers are stacked from index 0: slice them as a span
+        # that starts there.
+        sp = slice_stage_params(cfg, full, StageSpec(spec.index, spec.role, 0, n))
+        del full
+    # The span's slice of the adapter merges into the local stack, before
+    # the quantization.
+    sp = finish(sp, spec.start, spec.start + keep)
+    if stream is not None:
+        from .runtime.offload import OffloadedLayers
+
+        sp["layers"] = OffloadedLayers(sp["layers"], host)
+    return sp
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +512,11 @@ def build_local_swarm(args, cfg: ModelConfig, params, **server_kw):
     registry = PlacementRegistry(ttl=float("inf"), rng=random.Random(args.seed))
     executor_kwargs = {"device": device, "act_dtype": _DTYPE_MAP[args.dtype],
                        "prefix_cache_bytes": args.prefix_cache_mb << 20}
+    # The servers' spans, host-offloaded under --use_cpu_offload; stage 0,
+    # inside the client, stays resident, as in the reference.
+    offload = bool(args.use_cpu_offload)
+    server_kwargs = dict(executor_kwargs, offload=offload,
+                         keep_layers_resident=args.keep_layers_on_gpu)
     total = args.total_blocks or cfg.num_layers
     servers = []
     if args.use_load_balancing:
@@ -419,8 +527,9 @@ def build_local_swarm(args, cfg: ModelConfig, params, **server_kw):
             1, (cfg.num_layers - min_block) // max(plan.num_stages - 1, 1))
         for i in range(args.num_servers):
             server = ElasticStageServer(
-                f"server-{i}", cfg, lambda spec: _stage_params(args, cfg, params, spec),
-                registry, transport, executor_kwargs=executor_kwargs,
+                f"server-{i}", cfg,
+                lambda spec: _stage_params(args, cfg, params, spec, offload=offload),
+                registry, transport, executor_kwargs=server_kwargs,
                 num_blocks=num_blocks, total_blocks=total, min_block=min_block,
                 balance_quality=args.balance_quality,
                 mean_balance_check_period=args.mean_balance_check_period,
@@ -431,8 +540,8 @@ def build_local_swarm(args, cfg: ModelConfig, params, **server_kw):
     else:
         for spec in plan.stages[1:]:
             peer = f"server-stage{spec.index}"
-            ex = StageExecutor(cfg, spec, _stage_params(args, cfg, params, spec),
-                               peer_id=peer, **executor_kwargs)
+            ex = StageExecutor(cfg, spec, _stage_params(args, cfg, params, spec, offload=offload),
+                               peer_id=peer, **server_kwargs)
             transport.add_peer(peer, ex)
             registry.register(make_server_record(peer, spec, model=_model_id(args)))
     stage0 = StageExecutor(cfg, plan.stages[0],
@@ -618,21 +727,15 @@ def run_oracle(args, cfg: ModelConfig, params) -> int:
 # Flags of the reference's serve and client modes whose engines or
 # features the port does not have, with their defaults: any other value
 # exits naming the flag.
-UNPORTED_FLAGS = (("sp", 1), ("tp", 1), ("use_cpu_offload", False))
+UNPORTED_FLAGS = (("sp", 1), ("tp", 1))
 
 
 def refuse_unported_flags(args) -> None:
-    if args.checkpoint and args.checkpoint.startswith(("http://", "https://")):
-        # Never random weights in their place.
-        raise SystemExit(f"--checkpoint {args.checkpoint}: remote weight stores "
-                         "(models/remote_store.py, ROADMAP Queue 1 #3f) are not "
-                         "ported; pass a local checkpoint directory")
     for dest, default in UNPORTED_FLAGS:
         if getattr(args, dest) != default:
             raise SystemExit(f"--{dest} is not ported: the port's servers run "
                              "the per-session or the batched engine on one "
-                             "device, resident, with no tensor or sequence "
-                             "parallelism")
+                             "device, with no tensor or sequence parallelism")
 
 
 def _report_peak_memory(device: torch.device) -> None:
@@ -764,6 +867,12 @@ def run_serve(args) -> int:
     from .scheduling.gossip import GossipNode
     from .scheduling.registry import rec_to_dict
 
+    if args.batched and (args.use_cpu_offload or args.keep_layers_on_gpu):
+        raise SystemExit(
+            "--batched keeps its span resident in HBM (the batched step "
+            "reads every layer every round); host offload is a "
+            "per-session-executor feature — drop --use_cpu_offload/"
+            "--keep_layers_on_gpu or serve without --batched")
     if args.use_load_balancing:
         return _run_serve_elastic(args)
     device = resolve_device(args.device)
@@ -804,7 +913,9 @@ def run_serve(args) -> int:
     server = FixedStageServer(peer_id, cfg, spec, shard, registry,
                               executor_kwargs={
                                   "device": device,
-                                  "prefix_cache_bytes": args.prefix_cache_mb << 20},
+                                  "prefix_cache_bytes": args.prefix_cache_mb << 20,
+                                  "offload": args.use_cpu_offload,
+                                  "keep_layers_resident": args.keep_layers_on_gpu},
                               pinger=_pinger_from_transport(ping_tx),
                               model=_model_id(args), executor=executor)
     del shard
@@ -939,7 +1050,9 @@ def _run_serve_elastic(args) -> int:
         # No act_dtype: an arriving activation computes in the float32 the
         # wire decodes to, as the fixed server's.
         executor_kwargs={"device": device,
-                         "prefix_cache_bytes": args.prefix_cache_mb << 20},
+                         "prefix_cache_bytes": args.prefix_cache_mb << 20,
+                         "offload": args.use_cpu_offload,
+                         "keep_layers_resident": args.keep_layers_on_gpu},
         advertise_address=advert, warmup=True,
         rng=random.Random(args.seed + os.getpid()), model=_model_id(args))
     gloop = None
@@ -1062,7 +1175,7 @@ def run_submit(args) -> int:
     from .serving import GatewaySubmitClient, Overloaded
 
     cfg = get_config(args.model)
-    tokenizer = load_tokenizer(args.checkpoint)
+    tokenizer = load_tokenizer(_checkpoint_dir(args))
     prompt_ids = [i % cfg.vocab_size for i in tokenizer.encode(args.prompt)]
     client = GatewaySubmitClient(args.gateway_addr)
     shed = 0
@@ -1281,7 +1394,8 @@ def run_doctor(args) -> int:
 
 def _generate_and_report(args, generate_fn, cfg: ModelConfig,
                          pipeline_client: bool = False) -> int:
-    tokenizer = load_tokenizer(args.checkpoint)
+    # A remote checkpoint's tokenizer files are in the store's cache.
+    tokenizer = load_tokenizer(_checkpoint_dir(args))
     prompt_ids = [i % cfg.vocab_size for i in tokenizer.encode(args.prompt)]
     sampling = SamplingParams(temperature=args.temperature, top_p=args.top_p,
                               top_k=args.top_k,
@@ -1317,9 +1431,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model", default="gpt2",
                    help="architecture preset (gpt2, llama-3.1-8b, ...)")
     p.add_argument("--checkpoint", default=None,
-                   help="local HF checkpoint dir (an http(s):// weight store is "
-                        "not ported) — servers then read ONLY the shards "
+                   help="local HF checkpoint dir, or an http(s):// weight "
+                        "store (an HF checkpoint layout behind any static "
+                        "file server) — servers then fetch ONLY the shards "
                         "covering their span; omit for random init")
+    p.add_argument("--weight_cache_dir", default=None,
+                   help="remote --checkpoint: local shard cache directory")
+    p.add_argument("--weight_cache_bytes", type=int, default=None,
+                   help="remote --checkpoint: LRU-evict cached shards "
+                        "beyond this many bytes")
     p.add_argument("--splits", default=None,
                    help='stage boundaries, e.g. "10,20,30" (default: 4 even stages)')
     p.add_argument("--dtype", choices=sorted(_DTYPE_MAP), default="float32")
@@ -1481,7 +1601,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--network_bandwidth_mbps", type=float, default=None)
     p.add_argument("--sp", type=int, default=1, help="not ported")
     p.add_argument("--tp", type=int, default=1, help="not ported")
-    p.add_argument("--use_cpu_offload", action="store_true", help="not ported")
+    p.add_argument("--use_cpu_offload", action="store_true",
+                   help="local/serve: each server keeps its span's layers in "
+                        "pinned host memory and streams them through the "
+                        "device a layer at a time, the next layer's copy "
+                        "overlapping the current layer's compute (stage 0, "
+                        "inside the client, stays resident)")
+    p.add_argument("--keep_layers_on_gpu", type=int, default=0,
+                   help="--use_cpu_offload: the first N layers of each "
+                        "offloaded span stay on the device")
     p.add_argument("--relay_capacity", type=int, default=0,
                    help="serve mode: volunteer to relay traffic for up to N "
                         "peers that fail the dial-back reachability vote (0 = "

@@ -344,17 +344,31 @@ def _load(t, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 def _stack_layers(layer: Callable[[int], Params], start: int, end: int,
-                  dtype: torch.dtype, device: torch.device) -> Params:
+                  dtype: torch.dtype, device: torch.device,
+                  stream: Optional[Tuple[int, Callable[[int, Params], None]]] = None
+                  ) -> Params:
     """Layers start..end-1 stacked from index 0: each leaf allocated once
-    on `device` from the first layer's shapes, filled a layer at a time."""
-    out = None
+    on `device` from the first layer's shapes, filled a layer at a time.
+
+    ``stream=(k, sink)`` stacks the first k only: each later layer n is
+    filled into one one-layer tree (leaves ``[1, ...]``, reused) and handed
+    to ``sink(n, tree)``, which must be done with it when it returns."""
+    keep = end - start if stream is None else min(stream[0], end - start)
+    out = scratch = None
     for n, i in enumerate(range(start, end)):
         leaves = layer(i)
         if out is None:
-            out = _tree(lambda t: torch.empty((end - start, *t.shape),
+            out = _tree(lambda t: torch.empty((keep, *t.shape),
                                               dtype=_target(t, dtype), device=device),
                         leaves)
-        _tree(lambda dst, src: _fill(dst[n], src), out, leaves)
+        if n < keep:
+            _tree(lambda dst, src: _fill(dst[n], src), out, leaves)
+            continue
+        if scratch is None:
+            scratch = _tree(lambda t: torch.empty((1, *t.shape), dtype=_target(t, dtype),
+                                                  device=device), leaves)
+        _tree(lambda dst, src: _fill(dst[0], src), scratch, leaves)
+        stream[1](n, scratch)
     return out
 
 
@@ -366,6 +380,7 @@ def convert_state_dict(
     include_embed: bool = True,
     include_head: bool = True,
     device="cuda",
+    stream: Optional[Tuple[int, Callable[[int, Params], None]]] = None,
 ) -> Params:
     """Convert an HF state dict (tensors or numpy arrays, or a
     `LazyCheckpoint`) to the stacked layout on `device`.
@@ -373,6 +388,9 @@ def convert_state_dict(
     layer_range=(start, end) keeps only that span of layers; include_embed /
     include_head decide whether the embeddings and the final norm + LM head
     are read (the stage-role pruning of ``src/llama_partition.py:506-525``).
+    ``stream=(k, sink)`` stacks the span's first k layers only and hands
+    each later one to `sink` as `_stack_layers` does (a host-offloaded
+    span, ``runtime/offload.py``).
     """
     device = torch.device(device)
     start, end = layer_range if layer_range is not None else (0, cfg.num_layers)
@@ -382,7 +400,7 @@ def convert_state_dict(
     if end > start:
         layer = ((lambda i: _gpt2_layer(sd, i)) if is_gpt2
                  else (lambda i: _llama_layer(sd, i, cfg)))
-        params["layers"] = _stack_layers(layer, start, end, dtype, device)
+        params["layers"] = _stack_layers(layer, start, end, dtype, device, stream)
 
     wte_key = "transformer.wte.weight" if is_gpt2 else "model.embed_tokens.weight"
     if include_embed:
@@ -542,10 +560,13 @@ def config_from_checkpoint(path: str) -> ModelConfig:
 
 
 def load_stage_checkpoint(path: str, cfg: ModelConfig, spec,
-                          dtype: torch.dtype = torch.float32, device="cuda") -> Params:
+                          dtype: torch.dtype = torch.float32, device="cuda",
+                          stream: Optional[Tuple[int, Callable[[int, Params], None]]] = None
+                          ) -> Params:
     """Exactly one stage's parameters from a local HF checkpoint, on
     `device`, reading only the shards its span touches (never the full
-    model). `spec` is a ``models.partition.StageSpec``."""
+    model). `spec` is a ``models.partition.StageSpec``; `stream` as in
+    `convert_state_dict`."""
     sd = LazyCheckpoint(path)
     return convert_state_dict(
         cfg, sd, dtype,
@@ -553,4 +574,5 @@ def load_stage_checkpoint(path: str, cfg: ModelConfig, spec,
         include_embed=spec.is_first,
         include_head=spec.is_last,
         device=device,
+        stream=stream,
     )

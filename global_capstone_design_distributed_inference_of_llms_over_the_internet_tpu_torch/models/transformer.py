@@ -39,7 +39,7 @@ refused loudly.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -107,7 +107,8 @@ def _dense(gen: torch.Generator, shape, dtype, device, scale: float = 0.02):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32,
-                device="cpu", layer_range: Optional[Tuple[int, int]] = None
+                device="cpu", layer_range: Optional[Tuple[int, int]] = None,
+                stream: Optional[Tuple[int, Callable[[int, Params], None]]] = None
                 ) -> Params:
     """Random init of the FULL model with stacked layers, N(0, 0.02) dense
     weights, drawn from `generator` (which must live on `device`).
@@ -119,23 +120,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     ``layer_range=(a, b)`` keeps layers a..b-1 only (stacked from index 0):
     every layer is still drawn, in order, so the kept ones hold the values
-    of the full init, and a process serving one span never holds the rest."""
+    of the full init, and a process serving one span never holds the rest.
+
+    ``stream=(k, sink)`` stacks the first k kept layers only: each later
+    kept layer j is drawn into one one-layer tree (leaves ``[1, ...]``,
+    reused) and handed to ``sink(j, tree)``, which must be done with it
+    when it returns (a host-offloaded span, ``runtime/offload.py``)."""
     _check_supported(cfg)
     schema = _layer_schema(cfg)
     lo, hi = (0, cfg.num_layers) if layer_range is None else layer_range
-    n = hi - lo
+    n = hi - lo if stream is None else min(stream[0], hi - lo)
 
-    def alloc(node):
+    def alloc(node, rows):
         if isinstance(node, dict):
-            return {k: alloc(v) for k, v in node.items()}
+            return {k: alloc(v, rows) for k, v in node.items()}
         shape, init = node
         if init == "ones":
-            return torch.ones((n, *shape), dtype=dtype, device=device)
+            return torch.ones((rows, *shape), dtype=dtype, device=device)
         if init == "zeros":
-            return torch.zeros((n, *shape), dtype=dtype, device=device)
-        return torch.empty((n, *shape), dtype=dtype, device=device)
+            return torch.zeros((rows, *shape), dtype=dtype, device=device)
+        return torch.empty((rows, *shape), dtype=dtype, device=device)
 
-    layers = alloc(schema)
+    layers = alloc(schema, n)
+    scratch = None
 
     def fill(node, out, li):
         for k, v in node.items():
@@ -151,15 +158,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             elif v[1] == "dense":
                 _dense(generator, v[0], dtype, device)
 
+    def window(first, last):
+        return torch.tensor([cfg.altern_window if i % 2 == 0 else 0
+                             for i in range(first, last)], dtype=torch.int32, device=device)
+
     for li in range(cfg.num_layers):
-        if lo <= li < hi:
+        if lo <= li < lo + n:
             fill(schema, layers, li - lo)
+        elif lo <= li < hi:
+            if scratch is None:
+                scratch = alloc(schema, 1)
+            fill(schema, scratch, 0)
+            if cfg.altern_window:
+                scratch["window"] = window(li, li + 1)
+            stream[1](li - lo, scratch)
         else:
             draw(schema)   # advance the generator past a layer not kept
     if cfg.altern_window:
-        layers["window"] = torch.tensor(
-            [cfg.altern_window if i % 2 == 0 else 0 for i in range(lo, hi)],
-            dtype=torch.int32, device=device)
+        layers["window"] = window(lo, lo + n)
 
     d = cfg.hidden_size
     embed: Params = {"wte": _dense(generator, (cfg.vocab_size, d), dtype, device)}

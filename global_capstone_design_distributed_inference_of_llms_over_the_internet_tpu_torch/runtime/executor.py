@@ -70,11 +70,25 @@ the weights are frozen and the server is stateless. LoRA on a quantized
 span is refused, as in the reference. These steps run eagerly: no graph
 is captured for them.
 
-Differences from the reference's engine: offload, tensor parallelism and
-burst decode (the batched engine's) are
-not ported: a request that asks for one is refused with a
-`StageExecutionError` naming its field (the TCP server sends it back as a
-``kind: "stage"`` error frame). A push chain's
+Host offload as in the reference (``executor.py:238-251``, ``:338-345``;
+``--use_cpu_offload`` / ``--keep_layers_on_gpu``): with ``offload`` set
+each sub-span's step is an ``OffloadedSpanRunner`` (``runtime/offload.py``)
+that keeps the first ``keep_layers_resident`` layers on the device and
+streams the rest from pinned host memory into two device slots inside the
+captured step; the executor keeps no device copy of the streamed layers.
+Deep prompts, beam reorders, batch growth, speculative verification and
+the prefix store work on the arena and run unchanged. Two differences:
+the span's layers arrive already split (`runtime.offload.OffloadedLayers`,
+built a layer at a time by ``main._stage_params``) where the reference
+loads the span onto the device and then moves it to the host; and the
+training verbs are refused on an offloaded span with a
+`StageExecutionError` naming offload (the reference runs them over its
+host copy of the span).
+
+Differences from the reference's engine: tensor parallelism and burst
+decode (the batched engine's) are not ported: a request that asks for one
+is refused with a `StageExecutionError` naming its field (the TCP server
+sends it back as a ``kind: "stage"`` error frame). A push chain's
 ``next_servers`` is the transport's business (``runtime/net.py``,
 ``runtime/transport.py``), above the engine, as in the reference: the
 executor computes its own span and ignores them.
@@ -117,6 +131,7 @@ from .errors import register as _catalog
 from .graphs import Sampler, StepGraphs
 from .kv_cache import AllocationFailed, KVArena, KVHandle, round_to_bucket
 from .messages import BackwardRequest, BackwardResponse, StageRequest, StageResponse
+from .offload import OffloadedLayers, OffloadedSpanRunner, offload_layers
 from .prefix_cache import PrefixStore, chain_digests, grain_blocks
 
 logger = logging.getLogger(__name__)
@@ -197,12 +212,26 @@ class StageExecutor:
                  peer_id: str = "local",
                  max_chunk_bytes: int = 256 * 1024 * 1024,
                  act_dtype: Optional[torch.dtype] = None,
-                 prefix_cache_bytes: int = 0):
+                 prefix_cache_bytes: int = 0,
+                 offload: bool = False,
+                 keep_layers_resident: int = 0):
         self.cfg = cfg
         self.spec = spec
         self.device = torch.device(device)
-        # Engine-side fused layout: one wqkv and one wgu matmul per layer.
-        self.params = fuse_qkv_params(params)
+        # Host offload (--use_cpu_offload / --keep_layers_on_gpu): the span's
+        # layers past the first keep_layers_resident live in pinned host
+        # memory and stream through the device a layer at a time.
+        self.offload = offload
+        self.keep_layers_resident = max(keep_layers_resident, 0)
+        layers = params.get("layers")
+        if offload and layers is not None:
+            self.params = dict(params, layers=offload_layers(
+                layers, self.keep_layers_resident, self.device))
+        elif isinstance(layers, OffloadedLayers):
+            raise ValueError("offloaded layers need an executor with offload=True")
+        else:
+            # Engine-side fused layout: one wqkv and one wgu matmul per layer.
+            self.params = fuse_qkv_params(params)
         # The dtype float activations are cast to on arrival (None: as they
         # arrive, float32 after a TCP hop, as the reference computes them).
         self.act_dtype = act_dtype
@@ -243,7 +272,9 @@ class StageExecutor:
             sub_spec = StageSpec(spec.index, role, spec.start + a, spec.start + b)
             sub_params = {}
             if "layers" in self.params:
-                sub_params["layers"] = tree_map(lambda x: x[a:b], self.params["layers"])
+                layers = self.params["layers"]
+                sub_params["layers"] = (layers.slice(a, b) if isinstance(layers, OffloadedLayers)
+                                        else tree_map(lambda x: x[a:b], layers))
             if first and "embed" in self.params:
                 sub_params["embed"] = self.params["embed"]
             if last:
@@ -254,10 +285,16 @@ class StageExecutor:
                     sub_params["embed"] = {**sub_params.get("embed", {}),
                                            "wte": self.params["embed"]["wte"]}
         cfg = self.cfg
-
-        def step(params, x, k_cache, v_cache, cache_len, prompts=None):
-            return stage_forward(cfg, sub_spec, params, x, k_cache, v_cache,
-                                 cache_len, prompts=prompts)
+        if self.offload:
+            # The runner owns the sub-span's weights: its split of the
+            # layers, its slots and its copy stream.
+            step = OffloadedSpanRunner(cfg, sub_spec, sub_params,
+                                       keep_resident=self.keep_layers_resident,
+                                       device=self.device)
+        else:
+            def step(params, x, k_cache, v_cache, cache_len, prompts=None):
+                return stage_forward(cfg, sub_spec, params, x, k_cache, v_cache,
+                                     cache_len, prompts=prompts)
 
         entry = (sub_spec, sub_params, step)
         self._subspans[(a, b)] = entry
@@ -591,7 +628,13 @@ class StageExecutor:
     def _train_args(self, req) -> tuple:
         """The training verbs' shared checks, with the reference's messages:
         (a, b, x, prompts, lora) on the device. x is cast to ``act_dtype``
-        as a forward's arrival is."""
+        as a forward's arrival is. An offloaded span refuses them: its
+        streamed layers are not on the device outside the captured step."""
+        if self.offload:
+            raise StageExecutionError(
+                "training verbs (train_forward / backward) are not served on a "
+                "host-offloaded span (--use_cpu_offload); serve this span resident "
+                "to fine-tune against it")
         a, b = self._resolve_range(req)
         x = req.hidden.to(self.device, non_blocking=True)
         if x.ndim != 3 or not x.is_floating_point():

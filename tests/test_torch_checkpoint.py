@@ -28,7 +28,10 @@ factories (llama with the llama3 RoPE remap). Covered:
     byte fallback with its warning where there is none;
 (g) ``load_tokenizer`` and ``load_stage_checkpoint`` in a subprocess with
     ``jax`` blocked;
-(h) an ``http(s)://`` checkpoint exiting, naming ROADMAP Queue 1 #3f.
+(h) an ``http(s)://`` checkpoint served by a local store: ``local`` prints
+    the local directory's tokens, ``serve`` loads only its span's shards,
+    ``submit`` reads the store's tokenizer (tests/test_torch_remote_store.py
+    holds the store itself to the JAX package's).
 
 Tolerance: trees bit for bit; logits within RTOL / ATOL of the compared
 tensor's scale; tokens exactly.
@@ -37,6 +40,7 @@ tensor's scale; tokens exactly.
 import dataclasses
 import json
 import logging
+import os
 import pathlib
 import re
 import subprocess
@@ -634,9 +638,93 @@ def test_tokenizer_and_stage_load_run_with_jax_blocked(tokenizer_ckpt, llama6):
         jmain.load_tokenizer(tokenizer_ckpt).encode("hello world"))
 
 
-@pytest.mark.parametrize("mode,url", [("local", "https://127.0.0.1:9/ckpt"),
-                                      ("serve", "http://127.0.0.1:9/ckpt"),
-                                      ("submit", "https://localhost:9/ckpt")])
-def test_remote_checkpoint_exits_naming_queue_1_3f(mode, url):
-    with pytest.raises(SystemExit, match=r"--checkpoint https?://.*Queue 1 #3f"):
-        tmain.main(["--mode", mode, "--checkpoint", url, "--device", "cpu"])
+@pytest.fixture(scope="module")
+def http_store():
+    """`url(directory)`: a checkpoint directory behind a local static file
+    server (one a directory, stopped at the module's end)."""
+    import functools
+    import http.server
+    import threading
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+    servers = {}
+
+    def url(directory):
+        if directory not in servers:
+            httpd = http.server.ThreadingHTTPServer(
+                ("127.0.0.1", 0), functools.partial(Quiet, directory=directory))
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            servers[directory] = httpd
+        return f"http://127.0.0.1:{servers[directory].server_address[1]}"
+
+    yield url
+    for httpd in servers.values():
+        httpd.shutdown()
+
+
+class _Loaded(Exception):
+    """Stops a serving mode once it has loaded what the test reads."""
+
+
+@pytest.mark.parametrize("mode", ["local", "serve", "submit"])
+def test_remote_checkpoint_exits_naming_queue_1_3f(mode, monkeypatch, capsys, tmp_path,
+                                                   llama6, tokenizer_ckpt, http_store):
+    """An ``http(s)://`` checkpoint is a remote weight store (no longer
+    refused): ``local`` prints the local directory's tokens, ``serve``
+    fetches and loads only its stage's shards, and ``submit`` reads the
+    checkpoint's tokenizer from the store's cache."""
+    cache = str(tmp_path / "cache")
+    if mode == "local":
+        base = ["--mode", "local", "--splits", "2,4", "--prompt", PROMPT, "--max_new_tokens",
+                str(STEPS), "--temperature", "0", "--quant", "int8", "--device", "cpu"]
+        outs = []
+        for where in (["--checkpoint", llama6],
+                      ["--checkpoint", http_store(llama6), "--weight_cache_dir", cache]):
+            assert tmain.main(base + where) == 0
+            outs.append(_tokens(capsys.readouterr().out))
+        assert outs[1] == outs[0] and len(outs[0]) == 1
+        return
+    if mode == "serve":
+        loads = []
+        real = tmain.load_stage_model
+
+        def load_then_stop(args, spec, **kw):
+            loads.append((spec, real(args, spec, **kw)[1]))
+            raise _Loaded
+
+        monkeypatch.setattr(tmain, "load_stage_model", load_then_stop)
+        url = http_store(llama6)
+        with pytest.raises(_Loaded):
+            tmain.main(["--mode", "serve", "--stage", "1", "--splits", "2,4", "--checkpoint",
+                        url, "--weight_cache_dir", cache, "--registry_addr", "127.0.0.1:1",
+                        "--device", "cpu"])
+        (spec, shard), = loads
+        store = tmain._STORES[(url, cache)]
+        fetched = {n for n in store.fetches if n.endswith(".safetensors")}
+        assert (spec.start, spec.end) == (2, 4)
+        assert fetched == set(store.shards_for_span(2, 4, is_first=False, is_last=False))
+        assert fetched < set(json.load(open(f"{llama6}/model.safetensors.index.json"))
+                             ["weight_map"].values())
+        assert_trees_bit_equal(shard, jh.load_stage_checkpoint(
+            llama6, jh.config_from_checkpoint(llama6),
+            JStagePlan.from_splits(6, [2, 4]).stages[1]))
+        return
+    read = []
+    real_tok = tmain.load_tokenizer
+
+    def tokenizer_then_stop(path=None):
+        read.append((path, real_tok(path)))
+        raise _Loaded
+
+    monkeypatch.setattr(tmain, "load_tokenizer", tokenizer_then_stop)
+    with pytest.raises(_Loaded):
+        tmain.main(["--mode", "submit", "--checkpoint", http_store(tokenizer_ckpt),
+                    "--weight_cache_dir", cache, "--gateway_addr", "127.0.0.1:1"])
+    (path, tok), = read
+    assert path == cache and os.path.exists(os.path.join(cache, "tokenizer.json"))
+    assert not isinstance(tok, tmain.ByteTokenizer)
+    want = jmain.load_tokenizer(tokenizer_ckpt)
+    assert [tok.encode(t) for t in TEXTS] == [want.encode(t) for t in TEXTS]

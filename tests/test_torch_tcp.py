@@ -594,9 +594,14 @@ def test_spent_deadline_and_model_mismatch_refused(port_swarm):
         other.close()
 
 
-@pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"], ["--use_cpu_offload"]])
+@pytest.mark.parametrize("flag", [["--sp", "2"], ["--tp", "2"],
+                                  ["--use_cpu_offload", "--batched"]])
 def test_unported_serve_flag_exits_naming_it(flag):
-    with pytest.raises(SystemExit, match=f"{flag[0]} is not ported"):
+    """``--sp`` and ``--tp`` exit naming themselves; host offload is ported,
+    and ``--batched`` refuses it with the reference's message."""
+    want = ("--batched keeps its span resident .* drop --use_cpu_offload/--keep_layers_on_gpu"
+            if "--batched" in flag else f"{flag[0]} is not ported")
+    with pytest.raises(SystemExit, match=want):
         tmain.main(["--mode", "serve", "--stage", "1", "--device", "cpu",
                     "--registry_addr", "127.0.0.1:1", *flag])
 
