@@ -556,6 +556,44 @@ on the kernels; it never prints the last line of a smoke pass.)
    compute). Then a ``serve --use_cpu_offload`` process for stage 2 among
    in-process TCP servers for stages 1 and 3 (wire f32): the client's
    greedy tokens equal the in-process run's with float32 arrivals.
+12j. MoE (after 12i; ``moe_path``): mixtral-8x7b at its full widths,
+   random weights, seed 0. (a) One MoE layer's MLP (router, 8 experts of
+   4096 x 14336, top 2) at N = 1, 8, 32 rows with bf16 and float32 x: the
+   dispatch through ``int8_dot`` / ``nf4_dot`` (3 x 8 launches a call, by
+   route) held to the same dispatch through their plain versions
+   (BF16_TOL / F32_TOL), the expert ids and kept slots on the card equal a
+   float32 host copy's at the rows clear of a router tie (ROUTING_TOL; at
+   least ROUTING_CLEAR_SHARE of them, and the row at N = 1), timed L2 cold
+   beside the plain version, ``torch.bmm`` over
+   the bf16 stacks and the bound; the sparse dispatch equals the dense one
+   (``MOE_SPARSE=0``) at ``MOE_CAPACITY_FACTOR=0``. (b) ``--mode local
+   --quant int8`` at all 32 layers in 4 stages, each stage drawing and
+   quantizing its own span: 2 greedy and 2 sampled requests held to the
+   float32-cache references run over the stages' own weights (the MoE
+   token gate, `hold_forced`: where a run's tokens differ from the free
+   reference's, every step against the reference teacher-forced on the
+   run's tokens, each token its choice, or within a logit near-tie, or at
+   most ROUTER_STEPS_MAX steps whose own rows hold a router near-tie,
+   ROUTER_GAP_TOL), ``int8_dot`` launches exactly by route, replays
+   bit-equal to eager steps, no capture and one sync a token on later
+   requests, a profile of 8 captured decode steps; the gate refuses runs
+   with a planted fault (every router reversed, or every ``wd`` scale
+   doubled, on stage 1). (c) The same executors behind TCP at wire f32:
+   tokens equal to the float32 chain's, every decode step on the decode
+   kernel and the float32 prefill on "f32mma". (d) Batched engines on
+   stages 1-3 over the same weights at ``MOE_CAPACITY_FACTOR=0``:
+   MOE_BATCHED_SESSIONS sessions, the batching gates, held by the token
+   gate to references at that capacity; (d') SLOTS sessions in lockstep
+   on batched engines for all four stages at the default capacity, every
+   slot in every round, held by the token gate to a reference that runs
+   each round's rows through one dispatch, whose rounds must drop slots.
+   (e) NF4
+   (``NF4_KERNEL=1``) at MOE_NF4_LAYERS layers in 2 stages, held likewise,
+   ``nf4_dot`` launches exactly by route; (f) ``--mode oracle --quant
+   nf4`` fused against its per-token loop. Then a MOE_CKPT_LAYERS-layer
+   Mixtral checkpoint written by ``write_checkpoint``: ``--mode local
+   --checkpoint DIR --quant int8`` as a process prints the in-process run's
+   tokens.
 12. Prints the ``kernels`` JSON line (``int8_dot``, ``nf4_dot``,
    ``sample_draw``, ``paged_decode_attention`` with the paged path's
    launches and its times at the paged path's shape; each matmul with its
@@ -569,7 +607,7 @@ on the kernels; it never prints the last line of a smoke pass.)
    and each route's layer at M = 4; the deep-prompt and LoRA runs by
    route; the int8 fine-tuning step by route and each kernel's gradient
    rows at M = 256; the checkpoint, remote-store and offload runs by
-   route) and
+   route; the MoE path's expert regime and runs by route) and
    ``{"ok": true, "device": {...}}`` as its last line.
 
 Any failure raises and the script exits non-zero without the last line. It
@@ -579,6 +617,7 @@ refuses to run without a CUDA device, and outside a checkout of the repo.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -705,6 +744,11 @@ KILL_AFTER_DECODES = 3  # the failover drives kill the pinned peer after this
 UNROUTABLE = "127.0.0.1:9"
 UNLISTENED_IP = "127.0.0.2"
 GOSSIP_INTERVAL_S = 0.25
+# The gossip seeds' ports, drawn below Linux's default ephemeral range
+# (32768-60999): a port that bind(0) or a connect() hands out can be taken by
+# another socket once its seed stops, and the drive restarts a seed at its
+# old address.
+SEED_PORTS = range(20000, 32768)
 #                         many decode steps it served
 CLI_STEP_TIMEOUT_S = 300  # each CLI process: its handshake line, or the client's run
 TELEMETRY_PAIRS = 4     # telemetry off / on runs of one request, in ABBA order
@@ -747,6 +791,44 @@ CKPT_SPLITS = "2,4,6"
 # the device (the other 6 stream from pinned host memory).
 OFFLOAD_SPLITS = "8,16,24"
 OFFLOAD_KEEP = 2
+# The MoE path (step 12j): mixtral-8x7b at its full widths, int8 at its
+# full depth in 4 stages of 8 layers; NF4 and the fused oracle cut to
+# MOE_NF4_LAYERS layers in 2 stages (for time); the Mixtral checkpoint the
+# CLI drive reads, cut to MOE_CKPT_LAYERS layers; the batched drive's
+# sessions and their tokens; the rows the dispatch phase runs (a decode
+# step, a batched round of SLOTS rows, a prefill bucket).
+MOE_MODEL = "mixtral-8x7b"
+MOE_NF4_LAYERS = 8
+MOE_CKPT_LAYERS = 2
+MOE_BATCHED_SESSIONS = 4
+MOE_BATCHED_TOKENS = 16
+MOE_DISPATCH_N = (1, 8, 32)
+MOE_PROMPTS = PROMPTS + ("Experts take two of eight routes",)
+# The lockstep drive at the default capacity: one prompt a slot, all of one
+# length, so every round holds every slot at one position.
+MOE_ROUND_PROMPTS = tuple(f"Session {i}: two of eight experts" for i in range(SLOTS))
+# The MoE token gate (`judge_steps`): a step of a run whose token is not
+# the teacher-forced reference's choice, nor within a logit near-tie of
+# it, departs. A run may depart at most ROUTER_STEPS_MAX times, and only if
+# its first departure's own rows hold a router near-tie: at some layer a
+# row's k-th and (k+1)-th router logits within ROUTER_GAP_TOL x max|router
+# logit| of the row (float32 logits). Set from readings on the H100
+# (PERF.md, the MoE findings): the first departures of sound runs read margins of
+# 6.8e-5 to 9.6e-4; the gated runs departed at most twice in 16 steps
+# (a lockstep at capacity over bf16 slot caches, not run now, 5 times);
+# runs with a planted fault departed at every one of 32 steps, the first
+# at a margin of 5.3e-4 (the prompt's rows): the count refuses them.
+ROUTER_GAP_TOL = 2.0 ** -9
+ROUTER_STEPS_MAX = 4
+# The dispatch phase: the card's routing against a float32 host copy's, at
+# rows whose top k + 1 router logits lie more than ROUTING_TOL x max|logit|
+# apart (float32 logits on both sides, sums in another order); at least
+# ROUTING_CLEAR_SHARE of a call's rows, and the one row at N = 1.
+ROUTING_TOL = 1e-5
+ROUTING_CLEAR_SHARE = 0.9
+# The spin after each flush when timing one MoE MLP (~50 launches to
+# enqueue): ~10 ms at the H100's clocks.
+MOE_HOLD_CYCLES = 20_000_000
 # The warning load_tokenizer logs when it falls back to bytes.
 BYTE_FALLBACK = "using byte fallback"
 # The memory line `--mode serve` and `--mode client` print.
@@ -817,19 +899,24 @@ def build_kernels(modules) -> float:
     return time.monotonic() - t0
 
 
-def cuda_ms(fn, torch, reps: int = 25, flush=None, spin: bool = False) -> float:
+def cuda_ms(fn, torch, reps: int = 25, flush=None, spin: bool = False,
+            hold_cycles: int = 0) -> float:
     """Median device time of one call, CUDA events around each call. A
     write of `flush` (1 GiB) before each call evicts the L2 (the main path
     reads each weight cold) and keeps the stream busy while the host
     enqueues the call, so the events bracket device time, not host time.
     `spin` keeps the stream busy with a spin kernel instead, leaving the
-    L2 as the last call left it (inputs the main path has just written)."""
+    L2 as the last call left it (inputs the main path has just written).
+    `hold_cycles` adds a spin kernel of that many cycles after the flush,
+    for a call whose host enqueue outlasts the flush (many launches)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+            if hold_cycles:
+                torch.cuda._sleep(hold_cycles)
         elif spin:
             torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
@@ -1695,6 +1782,125 @@ def draw_phase(torch, dk, tf3, bw: float):
             "sass": sass_counts("sample_draw", "draw_partial_kernel"), "times": rows_out}
 
 
+def sites_per_layer(cfg) -> int:
+    """The matmul kernel's launches a layer and pass: wqkv, wo, wgu, wd;
+    on an MoE layer wqkv, wo and three a expert (the expert products run
+    one launch a expert, `models.moe._expert_dot`)."""
+    return 2 + 3 * cfg.num_experts if cfg.is_moe else 4
+
+
+class StagedParams(dict):
+    """A model's weights as its stage executors hold them, for the MoE
+    references: the embedding, final norm and head, and ``stages``, each
+    stage's stacked layers in the executors' own (fused) layout, in order;
+    optionally ``acts``, the dtype each stage casts its input to (an
+    executor's act_dtype; None: as it arrives), and ``cache_dtypes``, the
+    dtype of each stage's KV cache (None: the caller's cache)."""
+
+
+def staged_params(client, acts=None, cache_dtypes=None) -> StagedParams:
+    executors = path_executors(client)
+    first, last = executors[0].params, executors[-1].params
+    out = StagedParams(embed=first["embed"], final_norm=last["final_norm"],
+                       stages=[ex.params["layers"] for ex in executors])
+    if "lm_head" in last:
+        out["lm_head"] = last["lm_head"]
+    n = len(executors)
+    out["acts"] = acts or [None] * n
+    out["cache_dtypes"] = cache_dtypes or [None] * n
+    return out
+
+
+def reference_forward(tf, cfg, params, x, kc, vc, cur, prompts=None):
+    """``full_forward`` as the references run it. On `StagedParams`, each
+    stage's layers in turn over the one cache. On an MoE model a prefill is
+    padded to its sequence bucket, as the executors pad it: the dispatch's
+    capacity follows the rows it sees (padding rows come after the real
+    ones, so they never take a real row's place in an expert)."""
+    from importlib import import_module
+
+    t = x.shape[1]
+    if cfg.is_moe and t > 1:
+        kv = import_module(PORT + ".runtime.kv_cache")
+        pad = kv.round_to_bucket(t, import_module(PORT + ".runtime.executor").SEQ_BUCKETS)
+        x = tf.torch.nn.functional.pad(x, (0, pad - t))
+    if not isinstance(params, StagedParams):
+        logits, kc, vc = tf.full_forward(cfg, params, x, kc, vc, cur, prompts=prompts)
+        return logits[:, :t], kc, vc
+    positions = cur + tf.torch.arange(x.shape[1], device=x.device)[None, :]
+    h = tf.embed_tokens(cfg, params["embed"], x, positions)
+    if cur == 0:
+        params["_caches"] = {}     # a new sequence: the stages' own caches anew
+    li = 0
+    for s, layers in enumerate(params["stages"]):
+        n = tf._stack_depth(layers)
+        if params["acts"][s] is not None:
+            h = h.to(params["acts"][s])
+        k, v = kc[li:li + n], vc[li:li + n]
+        if params["cache_dtypes"][s] is not None:
+            if s not in params["_caches"]:
+                params["_caches"][s] = (tf.torch.zeros_like(k, dtype=params["cache_dtypes"][s]),
+                                        tf.torch.zeros_like(v, dtype=params["cache_dtypes"][s]))
+            k, v = params["_caches"][s]
+        h, _, _ = tf.stack_forward(cfg, layers, h, positions, k, v, cur,
+                                   prompts=None if prompts is None else prompts[li:li + n])
+        li += n
+    return tf.lm_head(cfg, params, h)[:, :t], kc, vc
+
+
+class TokenGateFailed(AssertionError):
+    """A run's tokens refused by the MoE token gate (`judge_steps`), with
+    what was read at the steps that differ."""
+
+    def __init__(self, message: str, readings=None):
+        super().__init__(message)
+        self.readings = readings
+
+
+@contextlib.contextmanager
+def router_readings(moe, real_rows):
+    """While open, ``models.moe.top_k_stable`` is wrapped: each dispatch
+    appends to the yielded list, as device tensors, the least router margin
+    of its first `real_rows()` rows (the gap between the k-th and (k+1)-th
+    router logits over max|router logit| of the row: only the set of
+    experts chosen decides where a token's slots go) and the slots it
+    drops at capacity (`moe_capacity` of all its rows, padding included,
+    as the dispatch counts them)."""
+    import torch
+
+    seen = []
+    top_k = moe.top_k_stable
+
+    def record(logits, k):
+        flat = logits.reshape(-1, logits.shape[-1]).float()
+        rows = flat[:real_rows()]
+        top = torch.sort(rows, dim=-1, descending=True).values
+        scale = rows.abs().amax(dim=-1).clamp(min=1e-30)
+        vals, idx = top_k(logits, k)
+        e = flat.shape[-1]
+        counts = (idx.reshape(-1, 1) == torch.arange(e, device=idx.device)).sum(dim=0)
+        cap = moe.moe_capacity(flat.shape[0], e, k)
+        seen.append((((top[:, k - 1] - top[:, k]) / scale).min(),
+                     (counts - cap).clamp(min=0).sum()))
+        return vals, idx
+
+    moe.top_k_stable = record
+    try:
+        yield seen
+    finally:
+        moe.top_k_stable = top_k
+
+
+def read_step(torch, seen) -> tuple:
+    """(least router margin, slots dropped) over the dispatches in `seen`,
+    in one read; `seen` is emptied."""
+    margin = torch.stack([m for m, _ in seen]).min().double()
+    dropped = torch.stack([d for _, d in seen]).sum().double()
+    out = torch.stack([margin, dropped]).tolist()
+    seen.clear()
+    return out[0], int(out[1])
+
+
 def first_difference(a, b) -> int:
     return next(j for j in range(min(len(a), len(b)) + 1)
                 if j >= min(len(a), len(b)) or a[j] != b[j])
@@ -1715,7 +1921,7 @@ def hold_to_reference(torch, cfg, params, ids, got, want, what: str,
     tol = LOGIT_GAP_TOL * logits.abs().max().item()
     log(f"  {what}:\n    got  {got}\n    want {want}\n  first difference at "
         f"step {i}: reference top-2 logit gap {gap:.4g} (near-tie tolerance {tol:.4g})")
-    if not gap <= tol:
+    if gap > tol:
         raise AssertionError(f"{what}: tokens differ at a decisive step")
 
 
@@ -1730,14 +1936,15 @@ def greedy_reference(torch, cfg, params, ids, max_new_tokens: int, cache_dtype=N
     tf = import_module(PORT + ".models.transformer")
     REPEAT_STOP = import_module(PORT + ".runtime.client").REPEAT_STOP
     dev = params["embed"]["wte"].device
-    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids) + max_new_tokens + 1,
+    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1,
+                              len(ids) + max_new_tokens + 1 + (64 if cfg.is_moe else 0),
                               dtype=cache_dtype or torch.float32, device=dev)
     x = torch.tensor([ids], device=dev)
     cur, out = 0, []
     while len(out) < max_new_tokens:
         if len(out) >= REPEAT_STOP and len(set(out[-REPEAT_STOP:])) == 1:
             break
-        logits, kc, vc = tf.full_forward(cfg, params, x, kc, vc, cur, prompts=prompts)
+        logits, kc, vc = reference_forward(tf, cfg, params, x, kc, vc, cur, prompts=prompts)
         cur += x.shape[1]
         out.append(int(torch.argmax(logits[0, -1])))
         x = torch.tensor([[out[-1]]], device=dev)
@@ -1764,14 +1971,15 @@ def sampled_reference(torch, cfg, params, ids, sp, seed: int, max_new_tokens: in
     dk = import_module(PORT + ".ops.draw_kernel")
     REPEAT_STOP = import_module(PORT + ".runtime.client").REPEAT_STOP
     dev = params["embed"]["wte"].device
-    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids) + max_new_tokens + 1,
+    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1,
+                              len(ids) + max_new_tokens + 1 + (64 if cfg.is_moe else 0),
                               dtype=cache_dtype or torch.float32, device=dev)
     x = torch.tensor([ids], device=dev)
     cur, out, gaps, steps = 0, [], [], []
     while len(out) < max_new_tokens:
         if len(out) >= REPEAT_STOP and len(set(out[-REPEAT_STOP:])) == 1:
             break
-        logits, kc, vc = tf.full_forward(cfg, params, x, kc, vc, cur)
+        logits, kc, vc = reference_forward(tf, cfg, params, x, kc, vc, cur)
         logits = logits[0, -1]
         cur += x.shape[1]
         w = out[-samp.RECENT_WINDOW:]
@@ -1864,32 +2072,37 @@ def hold_sampled(ref, got, what: str) -> None:
 
 
 def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: str,
-          extra_argv=()):
-    """The port's --mode local cluster serving 3 requests through kernel
-    `name` (`kernels` maps each kernel's name to its wrapper module; every
-    count is set to 0 just before the requests and read just after), the
-    launch counts of both routes, and the greedy tokens held to the float32
-    reference. `extra_argv` goes to the CLI parser.
+          extra_argv=(), model: str = MODEL, built=None, requests=None):
+    """The port's --mode local cluster serving 3 requests (or `requests`,
+    (prompt, sampling) each) through kernel `name` (`kernels` maps each
+    kernel's name to its wrapper module; every count is set to 0 just
+    before the requests and read just after), the launch counts of both
+    routes, and the greedy tokens held to the float32 reference.
+    `extra_argv` goes to the CLI parser. `built` = (cfg, params) stands for
+    ``load_model``'s (params None: each stage draws its own span, and the
+    references run over the stages' own weights, `StagedParams`).
     Returns (summary, state for the telemetry phase and the failover drive)."""
     args = tmain.build_parser().parse_args(
-        ["--mode", "local", "--model", MODEL, "--quant", quant,
+        ["--mode", "local", "--model", model, "--quant", quant,
          "--dtype", "bfloat16", "--device", dev_name, "--seed", "0", *extra_argv])
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    cfg, params = tmain.load_model(args)
+    cfg, params = tmain.load_model(args) if built is None else built
     client = tmain.build_local_client(args, cfg, params)
     torch.cuda.synchronize()
     setup_s = time.monotonic() - t0
-    log(f"{quant} path: {MODEL} {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{quant} path: {model} {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
         f"{client.plan.num_stages} stages "
-        f"{[(s.start, s.end) for s in client.plan.stages]}, set-up {setup_s:.1f}s")
+        f"{[(s.start, s.end) for s in client.plan.stages]}, set-up {setup_s:.1f}s, "
+        f"peak {build_peak_gb:.2f} GB")
     tok = tmain.load_tokenizer()
-    requests = [(PROMPTS[0], sampling_cls(temperature=0.0)),
-                (PROMPTS[1], sampling_cls(temperature=0.0)),
-                (PROMPTS[2], sampling_cls(temperature=0.7, top_p=0.9, top_k=50,
-                                          repetition_penalty=1.5))]
+    requests = requests or [(PROMPTS[0], sampling_cls(temperature=0.0)),
+                            (PROMPTS[1], sampling_cls(temperature=0.0)),
+                            (PROMPTS[2], sampling_cls(temperature=0.7, top_p=0.9, top_k=50,
+                                                      repetition_penalty=1.5))]
     prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p, _ in requests]
     executors = path_executors(client)
     reset_counts(kernels, executors)
@@ -1906,15 +2119,16 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
     reserved_gb = torch.cuda.memory_reserved() / 1e9
     tokens = sum(len(r.tokens) for r in results)
     graphs = graph_counts(f"{quant} path", executors, tokens)
-    need = 4 * cfg.num_layers * tokens
+    sites = sites_per_layer(cfg)
+    need = sites * cfg.num_layers * tokens
     log(f"{quant} path: {tokens} tokens over {len(results)} requests, {name} "
-        f"launches {launches} (>= 4 x {cfg.num_layers} x {tokens} = {need})")
+        f"launches {launches} (>= {sites} x {cfg.num_layers} x {tokens} = {need})")
     if launches < need:
         raise AssertionError(f"{name} launched {launches} times, want >= {need}")
     # One prefill call per site, layer and request, on the tensor cores.
-    need_mma = 4 * cfg.num_layers * len(results)
+    need_mma = sites * cfg.num_layers * len(results)
     log(f"{quant} path: {name} tensor-core launches {launches_mma} "
-        f"(>= 4 x {cfg.num_layers} x {len(results)} = {need_mma})")
+        f"(>= {sites} x {cfg.num_layers} x {len(results)} = {need_mma})")
     if launches_mma < need_mma:
         raise AssertionError(f"{name} took the tensor-core route {launches_mma} "
                              f"times, want >= {need_mma}")
@@ -1933,11 +2147,14 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
             f"{1e3 * sum(r.decode_times_s) / max(len(r.decode_times_s), 1):.2f} "
             f"ms/token: {r.tokens}")
 
-    ref_params = tmain._maybe_quantize(args, params)
+    ref_params = (staged_params(client) if cfg.is_moe
+                  else tmain._maybe_quantize(args, params))
+    t0 = time.monotonic()
     refs = references(torch, cfg, ref_params, prompt_ids, requests, args.seed)
     hold_requests(torch, cfg, ref_params, refs, results, f"{quant} path")
+    log(f"{quant} path: references and holds {time.monotonic() - t0:.1f}s")
     decode = [t for r in results for t in r.decode_times_s]
-    summary = {"model": MODEL, "quant": quant, "layers": cfg.num_layers,
+    summary = {"model": model, "quant": quant, "layers": cfg.num_layers,
                "stages": client.plan.num_stages, "requests": len(results),
                "tokens": tokens, f"{name}_launches": launches,
                f"{name}_launches_mma": launches_mma,
@@ -1953,7 +2170,8 @@ def serve(torch, kernels, name: str, tmain, sampling_cls, quant: str, dev_name: 
                "decode_ms_per_token_mean": 1e3 * sum(decode) / len(decode),
                **greedy_and_sampled_ms(results, requests), "sample_draw": draws,
                "peak_memory_gb": peak_gb, "held_memory_gb": held_gb,
-               "reserved_memory_gb": reserved_gb, "setup_s": setup_s}
+               "reserved_memory_gb": reserved_gb, "build_peak_memory_gb": build_peak_gb,
+               "setup_s": setup_s}
     state = {"args": args, "cfg": cfg, "params": params, "client": client,
              "ref_params": ref_params, "prompt_ids": prompt_ids,
              "results": results, "requests": requests, "references": refs}
@@ -2013,23 +2231,164 @@ def references(torch, cfg, params, prompt_ids, requests, seed, cache_dtype=None,
         else:
             out.append({"ids": ids, **sampled_reference(torch, cfg, params, ids, sp, seed,
                                                         max_new_tokens, cache_dtype)})
-        out[-1]["cache_dtype"] = cache_dtype
+        out[-1].update(cache_dtype=cache_dtype, sp=sp, seed=seed, max_new=max_new_tokens)
     return out
 
 
-def hold_requests(torch, cfg, params, refs, results, what: str) -> None:
+def hold_requests(torch, cfg, params, refs, results, what: str) -> list:
     """Each request's tokens against its reference (float32-cache unless
     it names another cache dtype): equal, or a first difference at a
-    near-tie (greedy: of the logits; sampled: of the perturbed scores)."""
+    near-tie (greedy: of the logits; sampled: of the perturbed scores); on
+    an MoE model every step against the reference teacher-forced on the
+    run's tokens (`hold_forced`, whose readings this returns)."""
+    out = []
     for ref, r in zip(refs, results):
-        if "gaps" in ref:
-            hold_sampled(ref, r.tokens, f"{what}: sampled tokens against the "
-                         f"{ref.get('cache_dtype') or 'float32'}-cache sampled reference")
+        kind = "sampled" if "gaps" in ref else "greedy"
+        label = f"{what}: {kind} tokens against the {ref.get('cache_dtype') or 'float32'}-cache"
+        if cfg.is_moe:
+            out.append(hold_forced(torch, cfg, params, ref, r.tokens, f"{label} reference"))
+        elif "gaps" in ref:
+            hold_sampled(ref, r.tokens, f"{label} sampled reference")
         else:
             hold_to_reference(torch, cfg, params, ref["ids"], r.tokens, ref["tokens"],
-                              f"{what}: greedy tokens against the "
-                              f"{ref.get('cache_dtype') or 'float32'}-cache reference",
-                              ref.get("cache_dtype"))
+                              f"{label} reference", ref.get("cache_dtype"))
+    return out
+
+
+def stops_at(tokens, max_new: int) -> int:
+    """Where the pipeline's stop rules end a run whose tokens begin with
+    `tokens`: REPEAT_STOP equal tokens in a row, or `max_new` tokens."""
+    from importlib import import_module
+
+    repeat = import_module(PORT + ".runtime.client").REPEAT_STOP
+    return next((j for j in range(repeat, len(tokens) + 1)
+                 if len(set(tokens[j - repeat:j])) == 1), max_new)
+
+
+def forced_reference(torch, cfg, params, ids, tokens, sp, seed: int, cache_dtype=None):
+    """The reference teacher-forced on a run's `tokens`: the prefill of
+    `ids` (padded as the executors pad it), then a decode step for each of
+    the run's tokens but the last, fed that token. Per step i, on the
+    run's own prefix: the reference's choice (greedy: the argmax; sampled:
+    the plain draw with key PRNGKey(seed + i) over the run's window), by
+    how much the run's token falls short of it (in logits; sampled: in
+    perturbed score) beside the near-tie tolerance that
+    `greedy_reference` / `sampled_reference` state, and the least router
+    margin of the step's own rows (the prompt's at step 0, else its one
+    decode row; `router_readings`); sampled steps keep their probs after
+    and before the filters, for `filter_tie`."""
+    from importlib import import_module
+
+    tf = import_module(PORT + ".models.transformer")
+    moe = import_module(PORT + ".models.moe")
+    samp = import_module(PORT + ".ops.sampling")
+    tf3 = import_module(PORT + ".ops.threefry")
+    dk = import_module(PORT + ".ops.draw_kernel")
+    dev = params["embed"]["wte"].device
+    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids) + len(tokens) + 64,
+                              dtype=cache_dtype or torch.float32, device=dev)
+    real = {"rows": len(ids)}
+    x, cur, steps = torch.tensor([ids], device=dev), 0, []
+    with router_readings(moe, lambda: real["rows"]) as seen:
+        for i, got in enumerate(tokens):
+            logits, kc, vc = reference_forward(tf, cfg, params, x, kc, vc, cur)
+            logits = logits[0, -1]
+            cur += x.shape[1]
+            margin, _ = read_step(torch, seen)
+            if sp.greedy:
+                steps.append(greedy_step(logits, got, margin))
+            else:
+                w = tokens[:i][-samp.RECENT_WINDOW:]
+                recent = torch.zeros(samp.RECENT_WINDOW, dtype=torch.int32, device=dev)
+                if w:
+                    recent[:len(w)] = torch.tensor(w, dtype=torch.int32, device=dev)
+                probs = samp.sample_probs(logits, recent, len(w), sp.temperature, sp.top_p,
+                                          sp.top_k, sp.repetition_penalty)
+                logp = torch.log(torch.clamp(probs, min=1e-20))
+                unfiltered = samp.sample_probs(logits, recent, len(w), sp.temperature, 1.0, 0,
+                                               sp.repetition_penalty)
+                key = tf3.prng_key(seed + i)
+                score = tf3.gumbel(key, logp.shape, dev) + logp
+                want = int(dk.sample_draw_reference(key, logp))
+                steps.append({"want": want, "short": (score[want] - score[got]).item(),
+                              "tol": LOGIT_GAP_TOL * logits.abs().max().item()
+                              / max(sp.temperature, 1e-5), "router": margin,
+                              "steps": {i: (probs, unfiltered)}, "seed": seed})
+            x, real["rows"] = torch.tensor([[got]], device=dev), 1
+    return steps
+
+
+def greedy_step(logits, got: int, margin: float) -> dict:
+    """One teacher-forced greedy step: the reference's argmax, by how much
+    the run's token `got` falls short of it in logits, the near-tie
+    tolerance (LOGIT_GAP_TOL x max|logit|) and the step's least router
+    margin."""
+    return {"want": int(logits.argmax()), "short": (logits.max() - logits[got]).item(),
+            "tol": LOGIT_GAP_TOL * logits.abs().max().item(), "router": margin}
+
+
+def judge_steps(got, steps, what: str, sampled: bool = False) -> dict:
+    """The MoE token gate over one run's teacher-forced steps (`steps[i]`:
+    the reference's choice `want`, the run's token's shortfall `short`
+    against its near-tie tolerance `tol`, the least router margin `router`
+    of the step's own rows). A step whose token is not the reference's
+    choice, nor within the tolerance of it (sampled: nor the draw with the
+    filters' cut moved, `filter_tie`), is a departure. The run passes with
+    no departure, or with at most ROUTER_STEPS_MAX of them where the first
+    one's own rows hold a router near-tie (<= ROUTER_GAP_TOL): an expert
+    chosen the other way there changes that token and the cache the later
+    steps read, which teacher forcing does not reset. Logs each step that
+    differs; raises TokenGateFailed, with what was read, otherwise."""
+    readings = []
+    for i, (tok, st) in enumerate(zip(got, steps)):
+        if tok == st["want"]:
+            continue
+        why = "logit near-tie" if st["short"] <= st["tol"] else None
+        if why is None and sampled and filter_tie(st, i, tok, st["want"], st["tol"])[0]:
+            why = "moved filter cut"
+        readings.append({"step": i, "got": tok, "want": st["want"], "short": st["short"],
+                         "tol": st["tol"], "router_margin": st["router"], "explained_by": why})
+    departures = [r for r in readings if r["explained_by"] is None]
+    flip = bool(departures) and departures[0]["router_margin"] <= ROUTER_GAP_TOL
+    for r in departures:
+        r["explained_by"] = (("router near-tie" if r is departures[0] else
+                              f"after the router near-tie at step {departures[0]['step']}")
+                             if flip and len(departures) <= ROUTER_STEPS_MAX else None)
+    for r in readings:
+        log(f"  {what}: step {r['step']} got {r['got']}, reference {r['want']}: short by "
+            f"{r['short']:.4g} (near-tie {r['tol']:.4g}), least router margin of the step's "
+            f"rows {r['router_margin']:.4g} (near-tie {ROUTER_GAP_TOL:.4g}): "
+            f"{r['explained_by'] or 'decisive'}")
+    out = {"steps": len(got), "differing": readings,
+           "departures": [r["step"] for r in departures]}
+    if departures and not (flip and len(departures) <= ROUTER_STEPS_MAX):
+        raise TokenGateFailed(
+            f"{what}: departures at steps {out['departures']} (at most {ROUTER_STEPS_MAX}, "
+            f"the first at a router near-tie; its margin "
+            f"{departures[0]['router_margin']:.4g} against {ROUTER_GAP_TOL:.4g})", out)
+    return out
+
+
+def hold_forced(torch, cfg, params, ref, got, what: str) -> dict:
+    """An MoE run's tokens against its reference teacher-forced on them
+    (`forced_reference`, judged by `judge_steps`), and its length against
+    the pipeline's stop rules. Tokens equal to the free-running
+    reference's (`ref`) hold already. Logs and returns what was read."""
+    if got == ref["tokens"]:
+        log(f"  {what}: tokens equal ({len(got)} tokens)")
+        out = {"steps": len(got), "differing": [], "departures": []}
+    else:
+        sp = ref["sp"]
+        steps = forced_reference(torch, cfg, params, ref["ids"], got, sp, ref["seed"],
+                                 ref.get("cache_dtype"))
+        log(f"  {what}: {len(got)} tokens, teacher-forced:\n    got  {got}\n    free "
+            f"{ref['tokens']}")
+        out = judge_steps(got, steps, what, sampled=not sp.greedy)
+        if len(got) != stops_at(got, ref["max_new"]):
+            raise TokenGateFailed(f"{what}: {len(got)} tokens, the stop rules end the run at "
+                                  f"{stops_at(got, ref['max_new'])}", out)
+    log(json.dumps({"moe_token_gate": {"what": what, **out}}))
+    return out
 
 
 def path_executors(client):
@@ -2204,7 +2563,8 @@ def profile_phase(torch, client, ids, greedy, smi: str, steps: int = 8) -> dict:
     return out
 
 
-def oracle_phase(torch, tmain, sampling_cls, dk, cfg, params, ids, smi: str) -> dict:
+def oracle_phase(torch, tmain, sampling_cls, dk, cfg, params, ids, smi: str,
+                 model: str = MODEL, quant: str = "int8") -> dict:
     """``--mode oracle --quant int8`` through the fused engines (one
     captured decode step replayed a token) against the eager per-token
     loop of the same oracle, greedy and then sampled (the fused sampled
@@ -2212,7 +2572,7 @@ def oracle_phase(torch, tmain, sampling_cls, dk, cfg, params, ids, smi: str) -> 
     equal tokens; at least one sample_draw a sampled token in the fused
     calls. Times of both; the first fused call pays the captures."""
     args = tmain.build_parser().parse_args(
-        ["--mode", "oracle", "--model", MODEL, "--quant", "int8", "--dtype", "bfloat16",
+        ["--mode", "oracle", "--model", model, "--quant", quant, "--dtype", "bfloat16",
          "--device", "cuda", "--seed", "0"])
     generate = tmain.make_oracle_generate(args, cfg, params)
 
@@ -2227,7 +2587,7 @@ def oracle_phase(torch, tmain, sampling_cls, dk, cfg, params, ids, smi: str) -> 
         fused = [generate(ids, MAX_NEW_TOKENS, sp) for _ in range(2)]
         draws = dk._launches
         eager = generate.per_token(ids, MAX_NEW_TOKENS, sp)
-        log(f"oracle int8 {what}: fused {fused[0].tokens}\n  per-token {eager.tokens}")
+        log(f"oracle {quant} {what}: fused {fused[0].tokens}\n  per-token {eager.tokens}")
         if not fused[0].tokens == fused[1].tokens == eager.tokens:
             raise AssertionError(f"oracle {what}: the fused engine's tokens differ from "
                                  "the per-token loop's")
@@ -2240,7 +2600,7 @@ def oracle_phase(torch, tmain, sampling_cls, dk, cfg, params, ids, smi: str) -> 
                      "per_token_decode_ms_per_token": ms(eager),
                      "fused_ttft_ms": [1e3 * r.ttft_s for r in fused],
                      "per_token_ttft_ms": 1e3 * eager.ttft_s}
-        log(f"oracle int8 {what}: decode {out[what]['fused_decode_ms_per_token']} ms/token "
+        log(f"oracle {quant} {what}: decode {out[what]['fused_decode_ms_per_token']} ms/token "
             f"fused (first call pays the capture), "
             f"{out[what]['per_token_decode_ms_per_token']:.2f} per token eager")
     return out
@@ -3148,7 +3508,8 @@ def f32_chain(torch, state) -> dict:
     finally:
         for ex, dtype in zip(remote, saved):
             ex.act_dtype = dtype
-    hold_requests(torch, cfg, state["ref_params"], state["references"], results,
+    params, refs = state.get("f32_references", (state["ref_params"], state["references"]))
+    hold_requests(torch, cfg, params, refs, results,
                   f"{state['args'].quant} float32-after-stage-0 chain")
     return {"results": results,
             "ttft_ms": [r.ttft_s * 1e3 for r in results],
@@ -3166,15 +3527,17 @@ def gemv_gate(what: str, name: str, cfg, local, graphs, tokens: int, requests: i
     a capture); besides stage 0's prefill on the tensor cores, no launch
     takes any other route. `by_route` maps each route to its launches."""
     later = cfg.num_layers - local.plan.stages[0].num_layers
-    need_gemv = 4 * cfg.num_layers * (tokens - requests)
+    sites = sites_per_layer(cfg)
+    need_gemv = sites * cfg.num_layers * (tokens - requests)
     captures = sum(c for peer, (c, _) in graphs["per_stage"].items()
                    if peer != local.stage0.peer_id)
-    passes, rest = divmod(by_route[prefill_route], 4 * later)
+    passes, rest = divmod(by_route[prefill_route], sites * later)
     others = {route: n for route, n in by_route.items()
               if route not in ("mma", "gemv", prefill_route) and n}
-    log(f"{what}: {name} decode-kernel launches {by_route['gemv']} (>= 4 x "
+    log(f"{what}: {name} decode-kernel launches {by_route['gemv']} (>= {sites} x "
         f"{cfg.num_layers} x {tokens - requests} decode steps = {need_gemv}), "
-        f"{prefill_route} {by_route[prefill_route]} (float32 prefill: 4 x {later} layers x "
+        f"{prefill_route} {by_route[prefill_route]} (float32 prefill: {sites} x {later} "
+        f"layers x "
         f"{passes} passes, {requests} requests + <= {captures} warm-ups), other routes "
         f"{others or 0}")
     if (by_route["gemv"] < need_gemv or rest or not requests <= passes <= requests + captures
@@ -3264,7 +3627,8 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
         assert len(prefill_route) == 1, prefill_route
         prefill_route = prefill_route.pop()
         stage0_layers = local.plan.stages[0].num_layers
-        need, need_mma = 4 * cfg.num_layers * tokens, 4 * stage0_layers * len(results)
+        sites = sites_per_layer(cfg)
+        need, need_mma = sites * cfg.num_layers * tokens, sites * stage0_layers * len(results)
         log(f"tcp {args.quant}: {tokens} tokens over {len(results)} requests, {name} "
             f"launches {launches} (>= {need}), tensor-core {launches_mma} (>= 4 x "
             f"{stage0_layers} stage-0 layers x {len(results)} = {need_mma})")
@@ -3287,7 +3651,7 @@ def tcp_drive(torch, kernels, name: str, tmain, state, smi: str, failover: bool,
         decode = [t for r in results for t in r.decode_times_s]
         local_decode = [t for r in state["results"] for t in r.decode_times_s]
         summary = {
-            "model": MODEL, "quant": args.quant, "wire_dtype": wire,
+            "model": args.model, "quant": args.quant, "wire_dtype": wire,
             "act_dtype_after_hop": "float32",
             "stages": local.plan.num_stages, "requests": len(results),
             "tokens": tokens,
@@ -3776,7 +4140,7 @@ def batched_requests(tok, sampling_cls, cfg):
 
 
 def batched_engines(torch, tmain, state, prefix_cache_bytes: int = 0,
-                    speculative_k: int = 0):
+                    speculative_k: int = 0, shards=None, max_len: int = MAX_SESSION_LEN):
     """Stages 1-3 of the int8 path as `--mode serve --batched` builds them:
     batched engines (bfloat16 slot caches, SLOTS slots of MAX_SESSION_LEN
     rows; a prefix store of `prefix_cache_bytes` if > 0) behind adapters
@@ -3789,9 +4153,11 @@ def batched_engines(torch, tmain, state, prefix_cache_bytes: int = 0,
     args, cfg, params = state["args"], state["cfg"], state["params"]
     adapters, warm_s = [], {}
     for spec in state["client"].plan.stages[1:]:
+        shard = (tmain._stage_params(args, cfg, params, spec) if shards is None
+                 else shards[spec.index])
         engine = batching.BatchedStageExecutor(
-            cfg, spec, tmain._stage_params(args, cfg, params, spec), device=args.device,
-            slots=SLOTS, max_len=MAX_SESSION_LEN, dtype=torch.bfloat16,
+            cfg, spec, shard, device=args.device,
+            slots=SLOTS, max_len=max_len, dtype=torch.bfloat16,
             prefix_cache_bytes=prefix_cache_bytes, model=MODEL)
         adapter = batching.BatchingStageAdapter(engine, peer_id=f"batched-stage{spec.index}")
         t0 = time.monotonic()
@@ -3799,14 +4165,14 @@ def batched_engines(torch, tmain, state, prefix_cache_bytes: int = 0,
         torch.cuda.synchronize()
         warm_s[adapter.peer_id] = time.monotonic() - t0
         adapters.append(adapter)
-    log(f"batched: stages 1-3 engines, {SLOTS} slots x {MAX_SESSION_LEN} rows, warm-up "
+    log(f"batched: stages 1-3 engines, {SLOTS} slots x {max_len} rows, warm-up "
         f"{ {k: round(v, 2) for k, v in warm_s.items()} } s, "
         f"{[a.inner.graphs.captures for a in adapters]} step captures")
     return adapters, warm_s
 
 
 def stage0_executors(torch, tmain, state, n: int, prompt_len: int = 32,
-                     new_tokens: int = MAX_NEW_TOKENS):
+                     new_tokens: int = MAX_NEW_TOKENS, shard=None):
     """`n` stage-0 executors, one a client (each `--mode client` process has
     its own), on one fused copy of stage 0's weights, each warmed up with a
     prefill and a step of the prompts' shape (`prompt_len` tokens and
@@ -3819,7 +4185,8 @@ def stage0_executors(torch, tmain, state, n: int, prompt_len: int = 32,
     transformer = import_module(PORT + ".models.transformer")
     args, cfg = state["args"], state["cfg"]
     spec = state["client"].plan.stages[0]
-    shard = transformer.fuse_qkv_params(tmain._stage_params(args, cfg, state["params"], spec))
+    shard = transformer.fuse_qkv_params(
+        tmain._stage_params(args, cfg, state["params"], spec) if shard is None else shard)
     out = []
     for i in range(n):
         ex = executor_mod.StageExecutor(cfg, spec, shard, peer_id=f"batched-client{i}",
@@ -3892,7 +4259,7 @@ def batched_counts(kernels, adapters, stage0s) -> None:
 
 
 def batched_gates(what: str, kernels, cfg, adapters, stage0s, results, requests,
-                  rounds_before) -> dict:
+                  rounds_before, max_new: int = MAX_NEW_TOKENS) -> dict:
     """Gates of one batched run (counts set to 0 just before it): no
     capture anywhere (every shape was warmed up); each stage's rounds at
     most MAX_NEW_TOKENS - 1 + ROUND_SLACK; int8_dot launches by route
@@ -3909,15 +4276,16 @@ def batched_gates(what: str, kernels, cfg, adapters, stage0s, results, requests,
     decode_tokens = tokens - len(results)
     simt = ik._launches - ik._launches_mma - ik._launches_gemv - ik._launches_f32mma
     layers0 = stage0s[0].spec.num_layers
-    need = {"mma": 4 * layers0 * len(results), "gemv": 4 * layers0 * decode_tokens,
-            "f32mma": sum(4 * a.spec.num_layers * (rounds[a.peer_id] + len(results))
+    sites = sites_per_layer(cfg)
+    need = {"mma": sites * layers0 * len(results), "gemv": sites * layers0 * decode_tokens,
+            "f32mma": sum(sites * a.spec.num_layers * (rounds[a.peer_id] + len(results))
                           for a in adapters),
             "simt": 0}
     got = {"mma": ik._launches_mma, "gemv": ik._launches_gemv,
            "f32mma": ik._launches_f32mma, "simt": simt}
     sampled = sum(len(r.tokens) for r, (_, sp) in zip(results, requests) if not sp.greedy)
     draws = kernels["sample_draw"]._launches
-    limit = MAX_NEW_TOKENS - 1 + ROUND_SLACK
+    limit = max_new - 1 + ROUND_SLACK
     spread = arrivals(adapters)
     log(f"{what}: {tokens} tokens over {len(results)} sessions; rounds a stage {rounds} "
         f"(<= {limit}; one session a round would take {decode_tokens}); int8_dot "
@@ -5585,6 +5953,20 @@ def run_view(run: dict) -> dict:
     return {k: v for k, v in run.items() if k != "results"}
 
 
+def seed_registry(net):
+    """A RegistryServer on a free port of SEED_PORTS, so that the same address
+    can be bound again after it stops."""
+    import errno
+    ports = random.Random().sample(SEED_PORTS, 64)
+    for port in ports:
+        try:
+            return net.RegistryServer(port=port)
+        except OSError as exc:
+            if exc.errno != errno.EADDRINUSE:
+                raise
+    raise RuntimeError(f"no free seed port among {len(ports)} tried in {SEED_PORTS}")
+
+
 def control_plane_path(torch, kernels, tmain, state, smi: str) -> dict:
     """Step 12b: the decentralized control plane on the int8 path's
     executors (stages 1-3 computing in the float32 the wire decodes to, as
@@ -5671,7 +6053,7 @@ def control_plane_path(torch, kernels, tmain, state, smi: str) -> dict:
         tel.get_recorder().enable()
         tel.get_recorder().clear()
         for _ in range(2):
-            rs = net.RegistryServer()
+            rs = seed_registry(net)
             rs.start()
             seeds.append(rs)
         seed_addrs = ",".join(rs.address for rs in seeds)
@@ -7988,33 +8370,47 @@ def finetune_path(torch, kernels, tmain, state, bw: float, flops: float, smi: st
 # ---------------------------------------------------------------------------
 
 def checkpoint_tensors(cfg, params):
-    """(HF name, tensor) of a llama-layout port tree in the order HF's
-    ``save_pretrained`` writes them: the embedding, each layer's, the final
-    norm, the head; each [in, out] weight as the [out, in] view HF keeps."""
+    """(HF name, tensor) of a llama- or Mixtral-layout port tree in the
+    order HF's ``save_pretrained`` writes them: the embedding, each
+    layer's, the final norm, the head; each [in, out] weight as the [out,
+    in] view HF keeps (Mixtral: the router as ``block_sparse_moe.gate`` and
+    expert e's gate, down and up projections as ``experts.{e}.w1 / w2 /
+    w3``)."""
     yield "model.embed_tokens.weight", params["embed"]["wte"]
     names = (("self_attn.q_proj.weight", "attn", "wq", True),
              ("self_attn.k_proj.weight", "attn", "wk", True),
              ("self_attn.v_proj.weight", "attn", "wv", True),
              ("self_attn.o_proj.weight", "attn", "wo", True),
-             ("mlp.gate_proj.weight", "mlp", "wg", True),
-             ("mlp.up_proj.weight", "mlp", "wu", True),
-             ("mlp.down_proj.weight", "mlp", "wd", True),
+             *((("block_sparse_moe.gate.weight", "mlp", "router", True),) if cfg.is_moe else
+               (("mlp.gate_proj.weight", "mlp", "wg", True),
+                ("mlp.up_proj.weight", "mlp", "wu", True),
+                ("mlp.down_proj.weight", "mlp", "wd", True))),
              ("input_layernorm.weight", "ln1", "w", False),
              ("post_attention_layernorm.weight", "ln2", "w", False))
+    experts = (("w1", "wg"), ("w2", "wd"), ("w3", "wu"))
     for i in range(cfg.num_layers):
         for name, group, leaf, transposed in names:
             t = params["layers"][group][leaf][i]
             yield f"model.layers.{i}.{name}", t.t() if transposed else t
+            if leaf == "router":
+                for e in range(cfg.num_experts):
+                    for hf_name, ours in experts:
+                        yield (f"model.layers.{i}.block_sparse_moe.experts.{e}.{hf_name}"
+                               ".weight", params["layers"]["mlp"][ours][i, e].t())
     yield "model.norm.weight", params["final_norm"]["w"]
     if not cfg.tie_word_embeddings:
         yield "lm_head.weight", params["lm_head"]["w"].t()
 
 
 def hf_llama_config(cfg) -> dict:
-    """The ``config.json`` of a llama-family `cfg`, as transformers names
-    its fields."""
+    """The ``config.json`` of a llama-family or Mixtral `cfg`, as
+    transformers names its fields."""
     rs = cfg.rope_scaling
-    return {"model_type": "llama", "vocab_size": cfg.vocab_size,
+    moe = ({"num_local_experts": cfg.num_experts,
+            "num_experts_per_tok": cfg.num_experts_per_tok,
+            "sliding_window": cfg.sliding_window} if cfg.is_moe else {})
+    return {"model_type": cfg.model_type if cfg.is_moe else "llama", **moe,
+            "vocab_size": cfg.vocab_size,
             "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
             "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
             "num_key_value_heads": cfg.num_kv_heads,
@@ -8864,6 +9260,662 @@ def offload_path(torch, kernels, tmain, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The MoE path (step 12j)
+# ---------------------------------------------------------------------------
+
+class PlainExperts:
+    """While open, `models.moe`'s expert products take the plain versions
+    of the kernels (``int8_dot_reference`` / ``nf4_dot_reference`` a
+    expert, on the card): the same routing, dispatch and combine around
+    them. Their calls count no launch."""
+
+    def __init__(self, moe, ik, nk):
+        self.moe, self.saved = moe, (moe.int8_dot, moe.nf4_dot)
+        moe.int8_dot = lambda x, w: ik.int8_dot_reference(x, w.q, w.s)
+        moe.nf4_dot = nk.nf4_dot_reference
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.int8_dot, self.moe.nf4_dot = self.saved
+
+
+class FlagSet:
+    """Environment flags set while open, restored after."""
+
+    def __init__(self, **flags):
+        self.flags, self.saved = flags, {k: os.environ.get(k) for k in flags}
+
+    def __enter__(self):
+        os.environ.update(self.flags)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def expert_bytes(cfg, quant: str) -> int:
+    """Bytes of one expert's three matrices (wg, wu [D, I], wd [I, D]) and
+    their scales as the port holds them."""
+    d, i = cfg.hidden_size, cfg.intermediate_size
+    if quant == "int8":
+        return 3 * d * i + 4 * (2 * i + d)
+    if quant == "nf4":
+        return 3 * d * i // 2 + 2 * (2 * (d // 64) * i + (i // 64) * d)
+    return 3 * d * i * 2
+
+
+def moe_dispatch_phase(torch, kernels, cfg, bw: float, flops: float, flush, smi: str) -> dict:
+    """(a) One MoE layer's MLP at full width: the router and the expert
+    stacks drawn N(0, 0.02) in bf16 (seed 0), quantized int8 and NF4. At N
+    = MOE_DISPATCH_N rows, bf16 and float32 x: the dispatch through the
+    kernels held to the same dispatch through their plain versions (BF16_TOL
+    / F32_TOL of max|plain|), 3 x E launches a call by route; the expert ids
+    on the card equal a float32 host copy's at every row clear of a router
+    near-tie (ROUTING_TOL; at least ROUTING_CLEAR_SHARE of the rows, and the
+    row at N = 1, whose x is drawn again until it is), and the kept count
+    where every row is; timed L2 cold beside
+    the plain version, the library (``torch.bmm`` over the bf16 stack: the
+    same function on bf16 experts) and the bound (the bytes of the experts
+    that hold a kept slot, the router, x and y, over the card's rate; or
+    the kept slots' operations). Then at MOE_CAPACITY_FACTOR=0 the sparse
+    dispatch on bf16 experts equals the dense formulation (MOE_SPARSE=0)."""
+    from importlib import import_module
+
+    moe = import_module(PORT + ".models.moe")
+    quant = import_module(PORT + ".models.quant")
+    tf = import_module(PORT + ".models.transformer")
+    ik, nk = kernels["int8_dot"], kernels["nf4_dot"]
+    e, d, i, k = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size, cfg.num_experts_per_tok
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+
+    def draw(*shape):
+        return (0.02 * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    plain = {"router": draw(d, e), "wg": draw(e, d, i), "wu": draw(e, d, i),
+             "wd": draw(e, i, d)}
+    stacks = {q: quant.quantize_layers(plain, q) for q in ("int8", "nf4")}
+    # The library's stacks in x's dtype, made outside the timing.
+    library = {torch.bfloat16: plain,
+               torch.float32: {k: v.float() for k, v in plain.items()}}
+
+    def timed(fn):
+        # The call enqueues ~50 launches (24 kernels and the dispatch):
+        # a spin of ~10 ms after the flush keeps the events on device time.
+        return cuda_ms(fn, torch, reps=10, flush=flush, hold_cycles=MOE_HOLD_CYCLES)
+
+    router_host = plain["router"].float().cpu()
+    rows, gen_x = [], torch.Generator(device="cuda")
+    gen_x.manual_seed(1)
+
+    def clear_rows(x):
+        # The rows whose top k + 1 router logits (a float32 host copy's)
+        # lie apart by more than ROUTING_TOL x max|logit|.
+        xh = x.float().cpu().reshape(-1, d)
+        logits = xh @ router_host
+        top = torch.sort(logits, dim=-1, descending=True).values[:, :k + 1]
+        return xh, ((top[:, :-1] - top[:, 1:]).amin(dim=-1)
+                    > ROUTING_TOL * logits.abs().amax(dim=-1))
+
+    for n in MOE_DISPATCH_N:
+        for _ in range(8):
+            x32 = torch.randn((1, n, d), generator=gen_x, device="cuda")
+            if n > 1 or all(bool(clear_rows(x32.to(dt))[1].all())
+                            for dt in (torch.bfloat16, torch.float32)):
+                break
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            # The routing on the card against a float32 host copy's.
+            e_dev, _ = moe._route(plain["router"], x.reshape(n, d), k)
+            xh, clear = clear_rows(x)
+            e_host, _ = moe._route(router_host, xh, k)
+            if clear.float().mean().item() < ROUTING_CLEAR_SHARE or (n == 1 and not clear.all()):
+                raise AssertionError(f"moe dispatch N={n} {dtype}: {int(clear.sum())} of {n} "
+                                     f"rows clear of a router near-tie (ROUTING_TOL "
+                                     f"{ROUTING_TOL:g}), want >= {ROUTING_CLEAR_SHARE:.0%}")
+            ids_equal = torch.equal(e_dev.cpu().reshape(n, k)[clear],
+                                    e_host.reshape(n, k)[clear])
+            counts, kept, cap = moe.dispatch_stats(cfg, plain["router"], x)
+            h_counts, h_kept, _ = moe.dispatch_stats(cfg, router_host, xh[None])
+            if not ids_equal or (bool(clear.all()) and kept != h_kept):
+                raise AssertionError(f"moe dispatch N={n} {dtype}: expert ids or kept slots "
+                                     f"on the card ({kept}) differ from the host's ({h_kept})")
+            busy = int((counts > 0).sum())
+            for q, mod in (("int8", ik), ("nf4", nk)):
+                stack = stacks[q]
+
+                def run(stack=stack):
+                    return moe.sparse_moe_mlp(cfg, stack, x)
+
+                reset_counts(kernels, [])
+                y = run()
+                torch.cuda.synchronize()
+                routes = kernel_routes(mod)
+                if sum(routes.values()) != 3 * e:
+                    raise AssertionError(f"moe dispatch {q} N={n}: launches {routes}, want "
+                                         f"3 x {e} a call")
+                with PlainExperts(moe, ik, nk):
+                    ref = run()
+                    plain_ms = timed(run)
+                err = (y.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) * scale
+                if not (err <= tol and torch.isfinite(y).all()
+                        and tuple(y.shape) == (1, n, d) and y.dtype == dtype):
+                    raise AssertionError(f"moe dispatch {q} N={n} {dtype}: max|kernel-plain| "
+                                         f"{err} > {tol}")
+                xsize = x.element_size()
+                nbytes = busy * expert_bytes(cfg, q) + d * e * 2 + 2 * n * d * xsize
+                ops = 2 * kept * 3 * d * i
+                peak = flops if dtype == torch.bfloat16 else flops / F32_TERMS
+                rows.append({
+                    "quant": q, "N": n, "dtype": str(dtype).removeprefix("torch."),
+                    "capacity": cap, "kept_slots": kept, "experts_with_slots": busy,
+                    "rows_clear_of_router_tie": int(clear.sum()),
+                    "launches_by_route": routes, "max_abs_err": err,
+                    "ms": timed(run), "plain_ms": plain_ms,
+                    "library_ms": timed(lambda: moe.sparse_moe_mlp(cfg, library[dtype], x)),
+                    "bytes": nbytes, "bound_ms": max(nbytes / bw, ops / peak) * 1e3,
+                    "bound_by": "bytes" if nbytes / bw >= ops / peak else "operations"})
+                r = rows[-1]
+                log(f"moe dispatch {q} N={n} {r['dtype']}: C={cap}, {kept} kept slots on "
+                    f"{busy} experts, routes {routes}, {r['ms']:.3f} ms (plain "
+                    f"{r['plain_ms']:.3f}, bmm {r['library_ms']:.3f}, bound "
+                    f"{r['bound_ms']:.3f}), err {err:.3g}")
+    # Sparse against dense, drop-free, on the bf16 experts.
+    x = torch.randn((1, MOE_DISPATCH_N[-1], d), generator=gen_x, device="cuda").to(torch.bfloat16)
+    with FlagSet(MOE_CAPACITY_FACTOR="0"):
+        sparse = moe.sparse_moe_mlp(cfg, plain, x)
+        dense = tf._moe_mlp_dense(cfg, plain, x)
+    dense_err = (sparse.float() - dense.float()).abs().max().item()
+    if not dense_err <= BF16_TOL * dense.float().abs().max().item():
+        raise AssertionError(f"moe dispatch: sparse differs from dense by {dense_err}")
+    log(f"moe dispatch: sparse = dense (MOE_CAPACITY_FACTOR=0, bf16 experts, N="
+        f"{MOE_DISPATCH_N[-1]}) within {dense_err:.3g}")
+    del plain, stacks, library
+    return {"rows": rows, "sparse_vs_dense_max_abs_err": dense_err, "card": smi,
+            "library": "torch.bmm over the expert stacks in x's dtype (a bf16 copy, and "
+                       "for float32 x a float32 copy, made outside the timing; the same "
+                       "dispatch)",
+            "at": f"one {MOE_MODEL} MoE MLP (E={e}, top {k}, D={d}, I={i}), L2 cold"}
+
+
+def summary_routes(summary: dict, name: str) -> dict:
+    """A serve() summary's launches of kernel `name` by route (read before
+    its references ran)."""
+    routes = {r: summary[f"{name}_launches_{r}"] for r in ("mma", "gemv", "f32mma")}
+    return {**routes, "simt": summary[f"{name}_launches"] - sum(routes.values())}
+
+
+def exact_moe_routes(what: str, cfg, executors, routes: dict, requests: int,
+                     decode_steps: int, prefill_route: str, decode_route: str) -> dict:
+    """Launches by route of an in-process MoE run, exactly: every stage's
+    prefills (the requests' and each prefill capture's eager warm-up) on
+    `prefill_route` and its decode steps (and each decode capture's warm-up)
+    on `decode_route`, `sites_per_layer` launches a layer each, no other
+    route."""
+    sites = sites_per_layer(cfg)
+    want = {prefill_route: 0, decode_route: 0}
+    for ex in executors:
+        keys = [key for key, _ in ex.graphs.entries()]
+        prefills = sum(1 for key in keys if key[1] > 1)
+        per = sites * ex.spec.num_layers
+        want[prefill_route] += per * (requests + prefills)
+        want[decode_route] += per * (decode_steps + len(keys) - prefills)
+    got = {r: n for r, n in routes.items() if n}
+    log(f"{what}: launches by route {routes}, want {want}")
+    if got != {r: n for r, n in want.items() if n}:
+        raise AssertionError(f"{what}: launches by route {routes}, want exactly {want}")
+    return want
+
+
+def moe_cli_drive(torch, kernels, tmain, sampling_cls, cfg, smi: str) -> dict:
+    """The CLI on a Mixtral checkpoint: a MOE_CKPT_LAYERS-layer checkpoint
+    of mixtral-8x7b's widths (random bf16 weights, seed 0) written by
+    `write_checkpoint`, ``--mode local --checkpoint DIR --quant int8`` in
+    process, then the same command as a process: its ``TOKENS=`` line
+    equals the in-process run's."""
+    t_start = time.monotonic()
+    from importlib import import_module
+
+    tf = import_module(PORT + ".models.transformer")
+    hf = import_module(PORT + ".models.hf_import")
+    cfg2 = dataclasses.replace(cfg, num_layers=MOE_CKPT_LAYERS)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-mixtral-"))
+    try:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        params = tf.init_params(cfg2, gen, dtype=torch.bfloat16, device="cuda")
+        write_checkpoint(torch, str(tmp), cfg2, params, CKPT_SHARD_BYTES)
+        del params
+        if hf.config_from_checkpoint(str(tmp)) != cfg2:
+            raise AssertionError("mixtral checkpoint: its config is not the preset's")
+        argv = ["--mode", "local", "--checkpoint", str(tmp), "--quant", "int8", "--dtype",
+                "bfloat16", "--device", "cuda", "--seed", "0", "--splits", "1"]
+        greedy = sampling_cls(temperature=0.0)
+        tok = tmain.load_tokenizer(str(tmp))
+        ids = [i % cfg2.vocab_size for i in tok.encode(MOE_PROMPTS[0])]
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = local_run(torch, kernels, tmain, tmain.build_parser().parse_args(argv),
+                        [(MOE_PROMPTS[0], greedy)], [ids])
+        want = run["view"]["tokens"][0]
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
+        env = dict(os.environ, PYTHONIOENCODING="utf-8", PYTHONUNBUFFERED="1")
+        out = tmp / "local.out"
+        t0 = time.monotonic()
+        with open(out, "wb") as fo, open(tmp / "local.err", "wb") as fe:
+            proc = subprocess.run(
+                [sys.executable, "-m", PORT + ".main", *argv, "--prompt", MOE_PROMPTS[0],
+                 "--max_new_tokens", str(MAX_NEW_TOKENS), "--temperature", "0"],
+                stdout=fo, stderr=fe, env=env, cwd=str(LOG_PATH.parents[1]),
+                timeout=CLI_STEP_TIMEOUT_S)
+        text = out.read_text(errors="replace")
+        got = re.findall(r"^TOKENS=(\[[0-9, ]*\])$", text, re.M)
+        if proc.returncode != 0 or got != [json.dumps(want)]:
+            raise AssertionError(f"mixtral cli: exit {proc.returncode}, TOKENS {got}, want "
+                                 f"{want}\n{_stderr_tail(tmp / 'local.err')}")
+        log(f"mixtral cli: --mode local --checkpoint ({MOE_CKPT_LAYERS} layers) --quant int8 "
+            f"as a process printed the in-process tokens ({len(want)})")
+        return {"layers": MOE_CKPT_LAYERS, "tokens": want, "equal_in_process": True,
+                "process_s": time.monotonic() - t0, "seconds": time.monotonic() - t_start,
+                "card": smi}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def moe_batched(torch, kernels, tmain, sampling_cls, state, smi: str) -> dict:
+    """(d) Stages 1-3 of the int8 MoE path on batched engines over the
+    session executors' own weights, MOE_BATCHED_SESSIONS sessions of
+    MOE_BATCHED_TOKENS tokens in process over float32 hops, every engine
+    built, warmed up and run at MOE_CAPACITY_FACTOR=0: a round's rows share
+    one dispatch, and at the default capacity a row may lose its expert to
+    another session's (GShard capacity), which a session's own decode step
+    (N = 1, C = 1) never does; a round here may hold empty slots, whose
+    rows no reference can model (`moe_lockstep` holds the default
+    capacity). Held to per-session references at the same capacity that
+    compute as the path does (float32 activations after stage 0, bf16
+    caches on stages 1-3), teacher-forced where they differ (`hold_forced`);
+    the batching gates; every captured key's replay against its eager
+    step."""
+    from importlib import import_module
+
+    client_mod = import_module(PORT + ".runtime.client")
+    registry_mod = import_module(PORT + ".scheduling.registry")
+    args, cfg, local = state["args"], state["cfg"], state["client"]
+    tok = tmain.load_tokenizer()
+    greedy = sampling_cls(temperature=0.0)
+    sampled = sampling_cls(temperature=0.7, top_p=0.9, top_k=50, repetition_penalty=1.5)
+    requests = [([i % cfg.vocab_size for i in tok.encode(p)], greedy if j < 2 else sampled)
+                for j, p in enumerate(MOE_PROMPTS[:MOE_BATCHED_SESSIONS])]
+    reqs = [(None, sp) for _, sp in requests]
+    shards = {ex.spec.index: ex.params for ex in path_executors(local)}
+    with FlagSet(MOE_CAPACITY_FACTOR="0"):
+        adapters, warm_s = batched_engines(torch, tmain, state, shards=shards,
+                                           max_len=2 * MAX_NEW_TOKENS + 64)
+        window = adapters[-1].window_s
+        stage0s = stage0_executors(torch, tmain, state, MOE_BATCHED_SESSIONS,
+                                   new_tokens=MOE_BATCHED_TOKENS, shard=local.stage0.params)
+        transport = float32_hops()
+        registry = registry_mod.PlacementRegistry()
+        for a in adapters:
+            transport.add_peer(a.peer_id, a)
+            registry.register(client_mod.make_server_record(a.peer_id, a.spec, model=MODEL,
+                                                            engine="batched"))
+        clients = [client_mod.PipelineClient(cfg, local.plan, ex, transport, registry,
+                                             seed=args.seed, model=MODEL) for ex in stage0s]
+        jobs = [(c, ids, sp) for c, (ids, sp) in zip(clients, requests)]
+        batched_counts(kernels, adapters, stage0s)
+        observe_fills(adapters)
+        round_windows(adapters, len(jobs), window)
+        before = {a.peer_id: a.inner.decode_steps for a in adapters}
+        results, wall = run_clients(jobs, max_new_tokens=MOE_BATCHED_TOKENS)
+        torch.cuda.synchronize()
+        out = {**batched_run_view(results, wall, reqs),
+               **batched_gates("moe batched", kernels, cfg, adapters, stage0s, results, reqs,
+                               before, max_new=MOE_BATCHED_TOKENS),
+               "warmup_s": warm_s, "capacity_factor": 0, "card": smi}
+        # References that compute as the batched path does: stage 0 a
+        # session executor (float32 cache), stages 1-3 float32 activations
+        # over bf16 slot caches.
+        stages = len(path_executors(local))
+        ref = staged_params(local, acts=[None] + [torch.float32] * (stages - 1),
+                            cache_dtypes=[None] + [torch.bfloat16] * (stages - 1))
+        refs = references(torch, cfg, ref, [ids for ids, _ in requests], reqs, args.seed,
+                          max_new_tokens=MOE_BATCHED_TOKENS)
+        out["token_gate"] = hold_requests(torch, cfg, ref, refs, results, "moe batched")
+        out["capture"] = batched_capture_check(torch, adapters)
+    log(f"moe batched: {out['tokens']} tokens, {out['aggregate_tokens_per_s']:.1f} tokens/s, "
+        f"{out['per_session_ms_per_token']:.2f} ms/token a session")
+    return out
+
+
+def lockstep_run(torch, cfg, local, prompt_ids, n: int, device):
+    """SLOTS sessions in lockstep over an in-process MoE client's weights:
+    stage 0 of each session as its client computes it (bf16 activations,
+    a float32 cache, a prefill padded to its sequence bucket), stages 1-3
+    on batched engines over the session executors' own shards with float32
+    slot caches (``--dtype float32``), float32 between stages as a wire f32
+    hop hands them. Each session is prefilled in turn, then n - 1 rounds of
+    every slot run through `decode_batch`, each token the last engine's
+    argmax. Returns the tokens (by session), each session's slot, what the
+    engines were given from stage 0 (each session's prefill rows; each
+    round's rows in slot order), and the engines."""
+    from importlib import import_module
+
+    batching = import_module(PORT + ".runtime.batching")
+    tf = import_module(PORT + ".models.transformer")
+    kv = import_module(PORT + ".runtime.kv_cache")
+    buckets = import_module(PORT + ".runtime.executor").SEQ_BUCKETS
+    executors = path_executors(local)
+    t = len(prompt_ids[0])
+    engines = [batching.BatchedStageExecutor(cfg, ex.spec, ex.params, device=device,
+                                             slots=SLOTS, max_len=t + n + 32,
+                                             dtype=torch.float32, model=MOE_MODEL)
+               for ex in executors[1:]]
+    first = executors[0].params
+    caches = [tf.init_kv_cache(cfg, executors[0].spec.num_layers, 1, t + n + 64,
+                               dtype=torch.float32, device=device) for _ in prompt_ids]
+
+    def stage0(ids, s: int, cur: int):
+        x = torch.tensor([ids], device=device)
+        pad = kv.round_to_bucket(len(ids), buckets) - len(ids) if len(ids) > 1 else 0
+        x = torch.nn.functional.pad(x, (0, pad))
+        positions = cur + torch.arange(x.shape[1], device=device)[None, :]
+        h = tf.embed_tokens(cfg, first["embed"], x, positions)
+        h, _, _ = tf.stack_forward(cfg, first["layers"], h, positions, *caches[s], cur)
+        return h[:, :len(ids)].float()
+
+    sids = [f"lockstep-{i}" for i in range(len(prompt_ids))]
+    tokens, prefills = [], []
+    for s, (sid, ids) in enumerate(zip(sids, prompt_ids)):
+        h = stage0(ids, s, 0)
+        prefills.append(h)
+        for eng in engines:
+            h = eng.prefill(sid, h)
+        tokens.append([int(engines[-1].logits(h[:, -1:]).argmax())])
+    # Each session's slot, one on every engine (each fills its free slots
+    # in one order, from the top).
+    slots = [engines[0].slot(sid) for sid in sids]
+    if any([eng.slot(sid) for sid in sids] != slots for eng in engines) or \
+            sorted(slots) != list(range(SLOTS)):
+        raise AssertionError("lockstep: the engines put the sessions in other slots")
+    rounds = []
+    for j in range(1, n):
+        x = {sid: stage0([tk[-1]], s, t + j - 1)
+             for s, (sid, tk) in enumerate(zip(sids, tokens))}
+        rounds.append(torch.cat([x[sids[slots.index(b)]] for b in range(SLOTS)]))
+        for eng in engines:
+            x = eng.decode_batch(x)
+        nxt = engines[-1].round_logits.argmax(dim=-1).tolist()
+        for tk, slot in zip(tokens, slots):
+            tk.append(nxt[slot])
+    return tokens, slots, prefills, rounds, engines
+
+
+def slot_round_reference(torch, cfg, params, prefills, rounds, tokens):
+    """The reference of a lockstep run's batched stages (`lockstep_run`),
+    teacher-forced on its greedy tokens, fed what the engines were fed:
+    each session's prefill rows (`prefills[b]`, the session in slot b)
+    alone, padded with zero rows to the engine's prefill bucket, into row b
+    of each stage's cache; then each round's rows (`rounds[j - 1]`, [B, 1,
+    D]) at once, so each layer's dispatch sees the round's rows in slot
+    order, as the engine's does. `params` is `StagedParams` of those stages
+    (their input and cache dtypes). Returns, per session, its steps as
+    `greedy_step` reads them (the router margin: of the session's prompt
+    rows at step 0, else of the round's rows), and the slots the rounds'
+    dispatches dropped."""
+    from importlib import import_module
+
+    tf = import_module(PORT + ".models.transformer")
+    moe = import_module(PORT + ".models.moe")
+    kv = import_module(PORT + ".runtime.kv_cache")
+    buckets = import_module(PORT + ".runtime.batching").PREFILL_BUCKETS
+    b, t, n = len(prefills), prefills[0].shape[1], len(tokens[0])
+    dev = prefills[0].device
+    caches = [tf.init_kv_cache(cfg, tf._stack_depth(layers), b, t + n + 64,
+                               dtype=dtype or torch.float32, device=dev)
+              for layers, dtype in zip(params["stages"], params["cache_dtypes"])]
+
+    def forward(h, rows, cur):
+        positions = cur + torch.arange(h.shape[1], device=dev)[None, :]
+        for (k, v), layers, act in zip(caches, params["stages"], params["acts"]):
+            if act is not None:
+                h = h.to(act)
+            h, _, _ = tf.stack_forward(cfg, layers, h, positions, k[:, rows], v[:, rows], cur)
+        return tf.lm_head(cfg, params, h)
+
+    real = {"rows": t}
+    steps, dropped = [[] for _ in range(b)], 0
+    with router_readings(moe, lambda: real["rows"]) as seen:
+        for r, h in enumerate(prefills):
+            pad = kv.round_to_bucket(t, buckets) - t
+            logits = forward(torch.nn.functional.pad(h, (0, 0, 0, pad)), slice(r, r + 1),
+                             0)[0, t - 1]
+            steps[r].append(greedy_step(logits, tokens[r][0], read_step(torch, seen)[0]))
+        real["rows"] = b
+        for j, h in enumerate(rounds, start=1):
+            logits = forward(h, slice(0, b), t + j - 1)[:, 0]
+            margin, d = read_step(torch, seen)
+            dropped += d
+            for r in range(b):
+                steps[r].append(greedy_step(logits[r], tokens[r][j], margin))
+    return steps, dropped
+
+
+def moe_lockstep(torch, kernels, tmain, state, smi: str) -> dict:
+    """(d') Every slot of every round at the default MOE_CAPACITY_FACTOR:
+    SLOTS greedy sessions (MOE_ROUND_PROMPTS, one length) in lockstep
+    (`lockstep_run`: stage 0 as the client computes it, stages 1-3 on
+    batched engines with float32 slot caches, driven through their own
+    calls) for MOE_BATCHED_TOKENS tokens. A round's SLOTS rows share one
+    dispatch a layer at C = moe_capacity(SLOTS) (4 of 8), so rows compete
+    for capacity across sessions. Held, teacher-forced, to
+    `slot_round_reference` over the same rows (`judge_steps`); the
+    reference's rounds must drop slots, or the capacity went untested.
+    Float32 caches leave the run and the reference apart only by float32
+    sums in other orders."""
+    from importlib import import_module
+
+    moe = import_module(PORT + ".models.moe")
+    cfg, local = state["cfg"], state["client"]
+    tok = tmain.load_tokenizer()
+    prompt_ids = [[i % cfg.vocab_size for i in tok.encode(p)] for p in MOE_ROUND_PROMPTS]
+    n = MOE_BATCHED_TOKENS
+    if any(len(ids) != len(prompt_ids[0]) for ids in prompt_ids):
+        raise AssertionError(f"moe lockstep: prompts of {[len(i) for i in prompt_ids]} tokens")
+    cap = moe.moe_capacity(SLOTS, cfg.num_experts, cfg.num_experts_per_tok)
+    reset_counts(kernels, [])
+    t0 = time.monotonic()
+    tokens, slots, prefills, rounds, engines = lockstep_run(torch, cfg, local, prompt_ids, n,
+                                                            "cuda")
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    routes = kernel_routes(kernels["int8_dot"])
+    steps_run = [eng.decode_steps for eng in engines]
+    captures = [eng.graphs.captures for eng in engines]
+    del engines
+    t0 = time.monotonic()
+    staged = staged_params(local)
+    ref = StagedParams(staged, stages=staged["stages"][1:],
+                       acts=[torch.float32] * (len(staged["stages"]) - 1),
+                       cache_dtypes=[torch.float32] * (len(staged["stages"]) - 1))
+    by_slot = sorted(range(SLOTS), key=lambda i: slots[i])
+    steps, dropped = slot_round_reference(torch, cfg, ref, [prefills[i] for i in by_slot],
+                                          rounds, [tokens[i] for i in by_slot])
+    gates = [judge_steps(tokens[i], st, f"moe lockstep slot {b}")
+             for b, (i, st) in enumerate(zip(by_slot, steps))]
+    log(f"moe lockstep: {SLOTS} sessions x {n} tokens at capacity C={cap} of {SLOTS} rows "
+        f"(factor {moe.moe_capacity_factor():g}); the reference's rounds dropped {dropped} "
+        f"slots; {sum(len(g['differing']) for g in gates)} steps differ, none past the gate; "
+        f"int8_dot launches by route {routes}; run {run_s:.1f}s (captures included), "
+        f"reference {time.monotonic() - t0:.1f}s")
+    if dropped == 0:
+        raise AssertionError("moe lockstep: the reference's rounds dropped no slot, so the "
+                             "capacity went untested")
+    if steps_run != [n - 1] * len(steps_run):
+        raise AssertionError(f"moe lockstep: {steps_run} decode rounds a stage, want {n - 1}")
+    return {"sessions": SLOTS, "tokens": n, "capacity": cap, "rows": SLOTS,
+            "capacity_factor": moe.moe_capacity_factor(), "reference_dropped_slots": dropped,
+            "token_gate": gates, "int8_dot_launches_by_route": routes,
+            "captures": captures, "run_s": run_s, "card": smi}
+
+
+def planted_faults(torch, cfg, state, smi: str) -> dict:
+    """The MoE token gate can fail. Each fault is planted in place in stage
+    1's weights, the first greedy request runs through the in-process path,
+    the weights are put back bit for bit, and `hold_forced` against the
+    sound model's reference must refuse the run's tokens.
+    "wrong_experts" reverses every layer's router columns (each row takes
+    other experts, as a dispatch indexing the wrong expert would);
+    "doubled_scales" doubles every expert's ``wd`` scales in every layer
+    (the down products come out twice as large, as a kernel applying its
+    scale twice would). Returns what the gate read on each."""
+    client = state["client"]
+    mlp = path_executors(client)[1].params["layers"]["mlp"]
+    router, scales = mlp["router"], mlp["wd"].s
+    saved_router, saved_scales = router.clone(), scales.clone()
+
+    def reverse():
+        router.copy_(router.flip(-1))
+
+    faults = {"wrong_experts": (reverse, reverse),
+              "doubled_scales": (lambda: scales.mul_(2.0), lambda: scales.copy_(saved_scales))}
+    ref = next(r for r in state["references"] if r["sp"].greedy)
+    out = {}
+    for name, (plant, undo) in faults.items():
+        plant()
+        try:
+            run = client.generate(ref["ids"], ref["max_new"], sampling=ref["sp"])
+        finally:
+            undo()
+        if not (torch.equal(router, saved_router) and torch.equal(scales, saved_scales)):
+            raise AssertionError(f"planted {name}: the weights were not put back")
+        try:
+            hold_forced(torch, cfg, state["ref_params"], ref, run.tokens, f"planted {name}")
+        except TokenGateFailed as exc:
+            got = exc.readings or {"differing": []}
+            margins = [r["router_margin"] for r in got["differing"]]
+            out[name] = {"tokens": len(run.tokens), "differing_steps": len(got["differing"]),
+                         "departures": len(got.get("departures", [])),
+                         "router_margins": margins, "refused": str(exc)}
+            log(f"planted {name}: refused ({exc}); router margins at its differing steps "
+                f"{[f'{m:.3g}' for m in margins]}")
+            continue
+        raise AssertionError(f"planted {name}: the token gate passed a run with a planted "
+                             "fault")
+    return {**out, "card": smi}
+
+
+
+def moe_path(torch, kernels, tmain, sampling_cls, bw: float, flops: float, smi: str) -> dict:
+    """Step 12j (see the module docstring)."""
+    from importlib import import_module
+
+    t_start = time.monotonic()
+    quant = import_module(PORT + ".models.quant")
+    tf = import_module(PORT + ".models.transformer")
+    cfg = tmain.get_config(MOE_MODEL)
+    out = {"model": MOE_MODEL, "card": smi}
+    flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    out["dispatch"] = moe_dispatch_phase(torch, kernels, cfg, bw, flops, flush, smi)
+    del flush
+    log(json.dumps({"moe_dispatch": out["dispatch"]}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_dispatch"] = time.monotonic() - t_start
+
+    greedy = sampling_cls(temperature=0.0)
+    sampled = sampling_cls(temperature=0.7, top_p=0.9, top_k=50, repetition_penalty=1.5)
+    requests = [(p, greedy if j < 2 else sampled) for j, p in enumerate(MOE_PROMPTS)]
+    # (b) int8 at full depth, each stage drawing and quantizing its span.
+    summary, state = serve(torch, kernels, "int8_dot", tmain, sampling_cls, "int8", "cuda",
+                           model=MOE_MODEL, built=(cfg, None), requests=requests)
+    client = state["client"]
+    executors = path_executors(client)
+    tokens = sum(len(r.tokens) for r in state["results"])
+    summary["launches_exact"] = exact_moe_routes(
+        "moe int8 in process", cfg, executors, summary_routes(summary, "int8_dot"),
+        len(requests), tokens - len(requests), "mma", "gemv")
+    summary["capture"] = capture_phase(torch, client, "moe int8")
+    reset_counts(kernels, executors)
+    summary["syncs_per_request"] = sync_phase(torch, client, state["prompt_ids"], requests)
+    captured = sum(ex.graphs.captures + ex.sampler.captures for ex in executors)
+    if captured:
+        raise AssertionError(f"moe int8: later requests captured {captured} graphs")
+    summary["profile"] = profile_phase(torch, client, state["prompt_ids"][0], greedy, smi)
+    log(json.dumps({"moe_int8_path": summary}))
+    out["int8"] = summary
+    # The token gate refuses runs with a planted fault.
+    out["planted_faults"] = planted_faults(torch, cfg, state, smi)
+    log(json.dumps({"moe_planted_faults": out["planted_faults"]}))
+    # (c) The same stages behind TCP at wire f32. The float32 chain it
+    # equals is held to references that compute as it does: stages 1-3
+    # cast what arrives to float32.
+    t0 = time.monotonic()
+    ref32 = staged_params(client, acts=[None] + [torch.float32] * (len(executors) - 1))
+    state["f32_references"] = (ref32, references(torch, cfg, ref32, state["prompt_ids"],
+                                                 requests, state["args"].seed))
+    log(f"moe int8: float32-after-stage-0 references {time.monotonic() - t0:.1f}s")
+    out["tcp_f32"] = tcp_drive(torch, kernels, "int8_dot", tmain, state, smi, failover=False,
+                               wire="f32")
+    log(json.dumps({"moe_tcp_f32": {k: v for k, v in out["tcp_f32"].items()}}))
+    # (d) The batched engine on stages 1-3.
+    out["batched"] = moe_batched(torch, kernels, tmain, sampling_cls, state, smi)
+    log(json.dumps({"moe_batched": out["batched"]}))
+    # (d') Every slot of every round at the default capacity, in lockstep.
+    out["lockstep"] = moe_lockstep(torch, kernels, tmain, state, smi)
+    log(json.dumps({"moe_lockstep": out["lockstep"]}))
+    del state, client, executors, ref32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_int8"] = time.monotonic() - t_start - out["seconds_dispatch"]
+
+    # (e) NF4 (NF4_KERNEL=1), MOE_NF4_LAYERS layers in 2 stages, and (f) the
+    # fused oracle over the same weights.
+    t0 = time.monotonic()
+    cfg_nf4 = dataclasses.replace(cfg, num_layers=MOE_NF4_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    params = quant.quantize_params(
+        tf.init_params(cfg_nf4, gen, dtype=torch.bfloat16, device="cuda"), "nf4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    nf4, state = serve(torch, kernels, "nf4_dot", tmain, sampling_cls, "nf4", "cuda",
+                       extra_argv=("--splits", str(MOE_NF4_LAYERS // 2)), model=MOE_MODEL,
+                       built=(cfg_nf4, params), requests=requests)
+    executors = path_executors(state["client"])
+    tokens = sum(len(r.tokens) for r in state["results"])
+    nf4["launches_exact"] = exact_moe_routes(
+        "moe nf4 in process", cfg_nf4, executors, summary_routes(nf4, "nf4_dot"),
+        len(requests), tokens - len(requests), "mma", "gemv")
+    log(json.dumps({"moe_nf4_path": nf4}))
+    out["nf4"] = nf4
+    del state, executors
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["oracle_nf4"] = oracle_phase(torch, tmain, sampling_cls, kernels["sample_draw"],
+                                     cfg_nf4, params, tmain.load_tokenizer().encode(
+                                         MOE_PROMPTS[0]), smi, model=MOE_MODEL, quant="nf4")
+    log(json.dumps({"moe_oracle": out["oracle_nf4"]}))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_nf4"] = time.monotonic() - t0
+    out["cli"] = moe_cli_drive(torch, kernels, tmain, sampling_cls, cfg, smi)
+    out["seconds"] = time.monotonic() - t_start
+    return out
+
+
 def oracle_logits(torch, cfg, params, ids, cache_dtype=None, prompts=None):
     """The float32-cache (or `cache_dtype`-cache) reference's next-token
     logits after `ids` (one prefill, with deep `prompts` if given)."""
@@ -8871,10 +9923,10 @@ def oracle_logits(torch, cfg, params, ids, cache_dtype=None, prompts=None):
 
     tf = import_module(PORT + ".models.transformer")
     dev = params["embed"]["wte"].device
-    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids),
+    kc, vc = tf.init_kv_cache(cfg, cfg.num_layers, 1, len(ids) + (64 if cfg.is_moe else 0),
                               dtype=cache_dtype or torch.float32, device=dev)
-    logits, _, _ = tf.full_forward(cfg, params, torch.tensor([ids], device=dev), kc, vc, 0,
-                                   prompts=prompts)
+    logits, _, _ = reference_forward(tf, cfg, params, torch.tensor([ids], device=dev), kc, vc,
+                                     0, prompts=prompts)
     if not (torch.isfinite(logits).all() and tuple(logits.shape) == (1, len(ids), cfg.vocab_size)):
         raise AssertionError("reference logits are not finite or have the wrong shape")
     return logits[0, -1]
@@ -9291,6 +10343,15 @@ def main(argv) -> int:
     log(json.dumps({"offload_path": offload}))
     log(f"remote store phase: {store['seconds']:.1f}s; offload phase: "
         f"{offload['seconds']:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = moe_path(torch, kernel_mods, tmain, sampling_cls, bw, flops, smi)
+    log(json.dumps({"moe_path": {k: v for k, v in moe.items()
+                                 if k not in ("dispatch", "int8", "tcp_f32", "batched", "nf4",
+                                              "oracle_nf4")}}))
+    log(f"moe phase: {moe['seconds']:.1f}s (dispatch {moe['seconds_dispatch']:.1f}s, int8 "
+        f"{moe['seconds_int8']:.1f}s, nf4 {moe['seconds_nf4']:.1f}s, cli "
+        f"{moe['cli']['seconds']:.1f}s)")
     log(f"beam phases: {beam['seconds']:.1f}s int8, {beam['nf4_tcp_bf16']['seconds']:.1f}s NF4")
     log(f"prompt/lora phase: {prompt_lora['seconds']:.1f}s")
     log(f"finetune phase: {finetune['seconds']:.1f}s")
@@ -9393,6 +10454,20 @@ def main(argv) -> int:
             for which in ("offloaded", "resident")}
     kernels[2]["offload_path"] = {quant: offload[quant]["runs"]["offloaded"]["sample_draw_launches"]
                                   for quant in ("int8", "nf4")}
+    # The MoE path: each kernel's expert regime (one MoE MLP by N and x's
+    # dtype, beside its plain version, torch.bmm and its bound) and its
+    # runs by route: int8 in process, over TCP and batched; NF4 in process.
+    for i, (quant, kname) in enumerate((("int8", "int8_dot"), ("nf4", "nf4_dot"))):
+        kernels[i]["moe_path"] = {
+            "model": MOE_MODEL, "at": moe["dispatch"]["at"],
+            "library": moe["dispatch"]["library"],
+            "dispatch": [r for r in moe["dispatch"]["rows"] if r["quant"] == quant],
+            "in_process_by_route": summary_routes(moe[quant], kname),
+            "in_process_launches_exact": moe[quant]["launches_exact"]}
+    kernels[0]["moe_path"]["tcp_f32_by_route"] = moe["tcp_f32"]["int8_dot_launches_by_route"]
+    kernels[0]["moe_path"]["batched_by_route"] = moe["batched"]["int8_dot_launches_by_route"]
+    kernels[2]["moe_path"] = {quant: moe[quant]["sample_draw"]["launches"]
+                              for quant in ("int8", "nf4")}
     log(json.dumps({"kernels": kernels}))
     log(f"total {time.monotonic() - t_start:.1f}s")
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

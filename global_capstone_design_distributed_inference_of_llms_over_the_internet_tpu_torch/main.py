@@ -193,7 +193,7 @@ from .models.config import ModelConfig, get_config
 from .models.hf_import import config_from_checkpoint, load_stage_checkpoint
 from .models.lora import load_lora, merge_lora, slice_lora
 from .models.partition import ROLE_FULL, StagePlan, StageSpec, parse_splits, slice_stage_params
-from .models.quant import quantize_params, tree_map
+from .models.quant import params_per_block, quantize_params, tree_map
 from .models.transformer import full_forward, init_kv_cache, init_params
 from .ops.sampling import RECENT_WINDOW, SamplingParams, sample_token
 from .ops.threefry import prng_key
@@ -318,7 +318,10 @@ def load_model(args) -> Tuple[ModelConfig, Optional[dict]]:
     None for the params, as in the reference (``main.py:119-155``), and
     each stage then streams its own span (`_stage_params`). So does
     ``--mode local --use_cpu_offload`` on random weights: each stage draws
-    its own span, and an offloaded one never holds it on the card."""
+    its own span, and an offloaded one never holds it on the card; and
+    ``--mode local`` on a preset whose whole tree would take more than
+    WHOLE_INIT_SHARE of the device's memory (`_whole_init_fits`; e.g.
+    mixtral-8x7b, 93 GB at bf16, on an 80 GB card)."""
     device = resolve_device(args.device)
     if args.checkpoint:
         cfg = model_config(args)
@@ -332,13 +335,36 @@ def load_model(args) -> Tuple[ModelConfig, Optional[dict]]:
         return cfg, load_stage_checkpoint(args.checkpoint, cfg, full,
                                           dtype=_DTYPE_MAP[args.dtype], device=device)
     cfg = get_config(args.model)
-    if args.mode == "local" and args.use_cpu_offload:
+    dtype = _DTYPE_MAP[args.dtype]
+    if args.mode == "local" and (args.use_cpu_offload
+                                 or not _whole_init_fits(cfg, dtype, device)):
         return cfg, None
     logger.info("random-initializing %s (%d layers) on %s", args.model,
                 cfg.num_layers, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
-    return cfg, init_params(cfg, gen, dtype=_DTYPE_MAP[args.dtype], device=device)
+    return cfg, init_params(cfg, gen, dtype=dtype, device=device)
+
+
+# `--mode local` draws a preset's whole random init (each stage then a
+# slice of it) only while that tree takes at most this share of the
+# device's memory: the stages' quantized copies are built beside it.
+WHOLE_INIT_SHARE = 0.5
+
+
+def device_memory_bytes(device: torch.device) -> int:
+    """A CUDA device's memory, or the host's for the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def _whole_init_fits(cfg: ModelConfig, dtype: torch.dtype, device: torch.device) -> bool:
+    """Whether the whole tree (the layers, the embedding and a head) at
+    `dtype` takes at most WHOLE_INIT_SHARE of the device's memory."""
+    count = cfg.num_layers * params_per_block(cfg) + 2 * cfg.vocab_size * cfg.hidden_size
+    size = torch.tensor([], dtype=dtype).element_size()
+    return count * size <= WHOLE_INIT_SHARE * device_memory_bytes(device)
 
 
 def load_stage_model(args, spec: StageSpec) -> Tuple[ModelConfig, dict]:
@@ -1652,6 +1678,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         atexit.register(
             lambda: _events.get_recorder().dump(args.events_dump, registry=reg))
     refuse_unported_flags(args)
+    try:
+        return _run_mode(args)
+    except NotImplementedError as exc:
+        # What a layer refuses as not ported (MoE on a host-offloaded
+        # span) ends the process with its message.
+        raise SystemExit(str(exc)) from exc
+
+
+def _run_mode(args) -> int:
     if args.mode == "doctor":
         return run_doctor(args)  # no model needed
     if args.mode == "registry":

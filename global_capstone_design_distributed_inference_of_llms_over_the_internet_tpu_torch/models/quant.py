@@ -245,20 +245,32 @@ def int8_fold_enabled() -> bool:
     return bool_flag("INT8_FOLD")
 
 
-def dequant_tree(tree: Params) -> Params:
+def dequant_tree(tree: Params, keep_experts: bool = False) -> Params:
     """Materialize full-precision weights for quantized leaves, except that
     per-layer (2-D) NF4 leaves stay packed under `nf4_kernel_enabled()` and
-    per-layer int8 leaves under `int8_fold_enabled()`."""
+    per-layer int8 leaves under `int8_fold_enabled()`.
+
+    ``keep_experts=True`` is for a layer's tree of an MoE model, where a
+    3-D quantized leaf is an [E, in, out] expert stack: such stacks stay
+    packed whenever the sparse dispatch is on (``models.moe``), whose
+    expert products take them a expert at a time. The default is False
+    because a whole stacked tree's 3-D leaves are [L, in, out] weights."""
     keep_nf4 = nf4_kernel_enabled()
     keep_int8 = int8_fold_enabled()
+    if keep_experts:
+        from .moe import moe_sparse_enabled
+
+        keep_experts = moe_sparse_enabled()
 
     def f(x):
         if isinstance(x, dict):
             return {k: f(v) for k, v in x.items()}
         if isinstance(x, NF4Tensor):
-            return x if keep_nf4 and x.packed.ndim == 2 else x.dequant()
+            nd = x.packed.ndim
+            return x if (keep_nf4 and nd == 2) or (keep_experts and nd == 3) else x.dequant()
         if isinstance(x, QuantizedTensor):
-            return x if keep_int8 and x.q.ndim == 2 else x.dequant()
+            nd = x.q.ndim
+            return x if (keep_int8 and nd == 2) or (keep_experts and nd == 3) else x.dequant()
         return x
 
     return f(tree)

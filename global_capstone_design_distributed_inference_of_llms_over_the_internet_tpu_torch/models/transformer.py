@@ -33,8 +33,14 @@ deep prompts added to the first ``min(pre_seq, T)`` rows of each layer's
 input, LoRA adapters merged for a layer inside that layer's body (one
 layer's merged weights at a time, the rounding of `models.lora`), and with
 ``remat`` each layer checkpointed (``torch.utils.checkpoint``), its
-activations recomputed in the backward. MoE is not ported yet and is
-refused loudly.
+activations recomputed in the backward.
+
+Mixtral-style MoE layers (``router`` [D, E] and expert stacks ``wg`` /
+``wu`` [E, D, I], ``wd`` [E, I, D]) run the sparse dispatch of
+``models/moe.py`` by default, or the dense all-expert products under
+``MOE_SPARSE=0``; their quantized expert stacks stay packed through the
+layer (`dequant_tree` with ``keep_experts``). The training forward refuses
+MoE spans (ROADMAP Queue 1 #4a-ii).
 """
 
 from __future__ import annotations
@@ -58,9 +64,11 @@ from .quant import NF4Tensor, QuantizedTensor, dequant_tree, tree_map
 Params = Dict[str, Any]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_trainable(cfg: ModelConfig) -> None:
     if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
+        raise NotImplementedError(
+            "training an MoE span is not ported (ROADMAP Queue 1 #4a-ii: MoE in "
+            "training and on host-offloaded spans)")
 
 
 # ---------------------------------------------------------------------------
@@ -89,7 +97,11 @@ def _layer_schema(cfg: ModelConfig) -> Params:
         p["attn"]["bv"] = ((hkv * dh,), "zeros")
     if cfg.use_bias:
         p["attn"]["bo"] = ((d,), "zeros")
-    if cfg.mlp == "swiglu":
+    if cfg.is_moe:
+        e = cfg.num_experts
+        p["mlp"] = {"router": ((d, e), "dense"), "wg": ((e, d, i), "dense"),
+                    "wu": ((e, d, i), "dense"), "wd": ((e, i, d), "dense")}
+    elif cfg.mlp == "swiglu":
         p["mlp"] = {"wg": ((d, i), "dense"), "wu": ((d, i), "dense"),
                     "wd": ((i, d), "dense")}
     else:
@@ -126,7 +138,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     kept layer j is drawn into one one-layer tree (leaves ``[1, ...]``,
     reused) and handed to ``sink(j, tree)``, which must be done with it
     when it returns (a host-offloaded span, ``runtime/offload.py``)."""
-    _check_supported(cfg)
     schema = _layer_schema(cfg)
     lo, hi = (0, cfg.num_layers) if layer_range is None else layer_range
     n = hi - lo if stream is None else min(stream[0], hi - lo)
@@ -318,6 +329,8 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.is_moe:
+        return _moe_mlp(cfg, p, x)
     if cfg.mlp == "swiglu":
         act = _gelu_tanh if cfg.activation == "gelu_tanh" else F.silu
         if "wgu" in p:
@@ -334,6 +347,37 @@ def _mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     if "bo" in p:
         y = y + p["bo"]
     return y
+
+
+def _moe_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Mixtral-style top-k routed SwiGLU experts: the sparse dispatch
+    (``models.moe.sparse_moe_mlp``), or under ``MOE_SPARSE=0`` the dense
+    formulation below. The switch is read when the step runs."""
+    from .moe import moe_sparse_enabled, sparse_moe_mlp
+
+    if moe_sparse_enabled():
+        return sparse_moe_mlp(cfg, p, x)
+    return _moe_mlp_dense(cfg, p, x)
+
+
+def _moe_mlp_dense(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Dense MoE formulation (the reference's ``_moe_mlp_dense``): every
+    expert runs on every token and the router's weights, softmax over the
+    top k and zero elsewhere, combine them. Work scales with the number of
+    experts: the kill switch behind ``MOE_SPARSE=0``."""
+    from .moe import promoted, top_k_stable
+
+    logits = x.float() @ p["router"].float()                       # [B, T, E]
+    topv, topi = top_k_stable(logits, cfg.num_experts_per_tok)
+    dense_w = torch.zeros_like(logits).scatter(-1, topi, torch.softmax(topv, dim=-1))
+
+    def einsum(eq, a, w):
+        return torch.einsum(eq, *promoted(a, w))
+
+    gate = F.silu(einsum("btd,edi->btei", x, p["wg"]))
+    up = einsum("btd,edi->btei", x, p["wu"])
+    per_expert = einsum("btei,eid->bted", gate * up, p["wd"])
+    return einsum("bted,bte->btd", per_expert, dense_w.to(x.dtype))
 
 
 def make_rope(cfg: ModelConfig, positions: torch.Tensor):
@@ -391,7 +435,7 @@ def layer_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, rope,
     """Pre-norm residual block. x: [B, T, D] -> [B, T, D]; writes this
     layer's new keys/values into k_cache/v_cache ([B, S, Hkv, Dh]) in place,
     or, with no cache, attends over x's own positions (the training path)."""
-    p = dequant_tree(p)
+    p = dequant_tree(p, keep_experts=cfg.is_moe)
     window = p.get("window", cfg.sliding_window)
     attn_out = _attention(cfg, p["attn"], _norm(cfg, p["ln1"], x), rope,
                           k_cache, v_cache, cache_len, window=window)
@@ -434,7 +478,6 @@ def stack_forward(cfg: ModelConfig, layers: Params, x: torch.Tensor,
     prompts: optional [L, pre_seq, D] inference-time deep prompts, added
     into each layer's input at absolute positions < pre_seq
     (`_apply_deep_prompt`), for prefill and decode alike."""
-    _check_supported(cfg)
     rope = make_rope(cfg, positions)
     for li in range(k_caches.shape[0]):
         lp = tree_map(lambda a: a[li], layers)
@@ -487,8 +530,8 @@ def stack_forward_train(cfg: ModelConfig, layers: Params, x: torch.Tensor,
     than pre_seq uses the first T rows and the rest get zero gradients.
     lora: optional adapters over the span's L layers (``{target: {"a": [L,
     D, r], "b": [L, r, O]}}``), merged for each layer inside its body at
-    ``lora_scale``."""
-    _check_supported(cfg)
+    ``lora_scale``. MoE spans are refused (ROADMAP Queue 1 #4a-ii)."""
+    _check_trainable(cfg)
     rope = make_rope(cfg, positions)
     pre = 0 if prompts is None else min(prompts.shape[1], x.shape[1])
     for li in range(_stack_depth(layers)):

@@ -96,7 +96,6 @@ from ..models.config import ModelConfig
 from ..models.partition import StageSpec
 from ..models.quant import dequant_tree, tree_map
 from ..models.transformer import (
-    _check_supported,
     _dot,
     _mlp,
     _norm,
@@ -215,7 +214,6 @@ class BatchedStageExecutor:
                  device, slots: int = 8, max_len: int = 2048,
                  dtype: torch.dtype = torch.float32, prefix_cache_bytes: int = 0,
                  model: Optional[str] = None):
-        _check_supported(cfg)
         self.cfg = cfg
         self.spec = spec
         self.device = torch.device(device)
@@ -316,7 +314,8 @@ class BatchedStageExecutor:
     # ------------------------------------------------------------------
 
     def _layer(self, li: int) -> Params:
-        return dequant_tree(tree_map(lambda a: a[li], self.params["layers"]))
+        return dequant_tree(tree_map(lambda a: a[li], self.params["layers"]),
+                            keep_experts=self.cfg.is_moe)
 
     def _attn_out(self, lp: Params, out: torch.Tensor) -> torch.Tensor:
         out = _dot(out.reshape(*out.shape[:2], -1), lp["attn"]["wo"])

@@ -131,7 +131,7 @@ from .errors import register as _catalog
 from .graphs import Sampler, StepGraphs
 from .kv_cache import AllocationFailed, KVArena, KVHandle, round_to_bucket
 from .messages import BackwardRequest, BackwardResponse, StageRequest, StageResponse
-from .offload import OffloadedLayers, OffloadedSpanRunner, offload_layers
+from .offload import MOE_REFUSAL, OffloadedLayers, OffloadedSpanRunner, offload_layers
 from .prefix_cache import PrefixStore, chain_digests, grain_blocks
 
 logger = logging.getLogger(__name__)
@@ -224,6 +224,8 @@ class StageExecutor:
         self.offload = offload
         self.keep_layers_resident = max(keep_layers_resident, 0)
         layers = params.get("layers")
+        if offload and cfg.is_moe:
+            raise NotImplementedError(MOE_REFUSAL)
         if offload and layers is not None:
             self.params = dict(params, layers=offload_layers(
                 layers, self.keep_layers_resident, self.device))
@@ -635,6 +637,11 @@ class StageExecutor:
                 "training verbs (train_forward / backward) are not served on a "
                 "host-offloaded span (--use_cpu_offload); serve this span resident "
                 "to fine-tune against it")
+        if self.cfg.is_moe:
+            raise StageExecutionError(
+                "training verbs (train_forward / backward) are not served on an MoE "
+                "span (ROADMAP Queue 1 #4a-ii: MoE in training and on host-offloaded "
+                "spans)")
         a, b = self._resolve_range(req)
         x = req.hidden.to(self.device, non_blocking=True)
         if x.ndim != 3 or not x.is_floating_point():

@@ -48,7 +48,6 @@ from ..models.partition import StageSpec
 from ..models.quant import tree_map
 from ..models.transformer import (
     _apply_deep_prompt,
-    _check_supported,
     _stack_depth,
     embed_tokens,
     fuse_gate_up_layers,
@@ -62,6 +61,12 @@ Params = Dict[str, Any]
 
 # Each leaf of a packed layer starts at a multiple of this many bytes.
 ALIGN_BYTES = 256
+
+# MoE layers are not streamed: their packed layout and the expert products
+# on a streamed slot are a later slice. The executor that owns the offload
+# refuses them (`StageExecutor`), before a runner is built.
+MOE_REFUSAL = ("host offload of an MoE model is not ported (ROADMAP Queue 1 #4a-ii: "
+               "MoE in training and on host-offloaded spans); serve its spans resident")
 
 
 def _fused(layer: Params) -> Params:
@@ -245,7 +250,6 @@ class OffloadedSpanRunner:
                prompts, ready, freed) -> torch.Tensor:
         """``stack_forward`` over the span: the resident layers, then each
         streamed layer from its slot, the copy of the next one in flight."""
-        _check_supported(self.cfg)
         rope = make_rope(self.cfg, positions)
         host = self.layers.host
         resident = self.layers.resident

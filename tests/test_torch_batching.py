@@ -7,8 +7,9 @@ admission, a multi-token (replay-width) step, a failed prefill, two
 engines chained as stages; the adapter behind ``LocalTransport`` with
 concurrent clients (greedy and seeded sampled), coalescing, refusals and
 stale retries; the three batching telemetry families and the
-``task_rejected`` events. Plus the port's own refusals (MoE, speculative
-rows, push chains, ``--stage 0`` without ``--batched``), a burst served
+``task_rejected`` events; a Mixtral span's rounds (``test_engine_refuses_moe``,
+named for the refusal it replaced). Plus the port's own refusals
+(speculative rows, push chains, ``--stage 0`` without ``--batched``), a burst served
 by the full-span adapter as the JAX one serves it, and the captured steps
 replayed through a CPU stub of a graph.
 
@@ -430,14 +431,36 @@ def test_captured_steps_replay_through_a_stub_graph(monkeypatch):
 
 
 def test_engine_refuses_moe():
+    """The engine no longer refuses MoE: a Mixtral span's rounds (every
+    slot's row, empty ones included, through one capacity-bounded dispatch
+    of 8 experts, top 2) match the JAX package's engine row for row, as
+    tests/test_batching.py's Mixtral case holds its own engine to its
+    oracle; sessions join mid-stream so that rounds run partial."""
+    moe_lockstep("none")
+
+
+def test_moe_int8_engine_matches_jax_engine():
+    """The same Mixtral rounds on int8 expert stacks (one int8_dot a
+    expert), at the quantized trees' tolerance."""
+    moe_lockstep("int8")
+
+
+def moe_lockstep(quant):
     jcfg = jconfig.mixtral_config(
         vocab_size=257, hidden_size=64, num_layers=2, num_heads=4,
-        num_kv_heads=2, intermediate_size=96, num_experts=4,
+        num_kv_heads=2, intermediate_size=96, num_experts=8,
         num_experts_per_tok=2, max_position_embeddings=256)
-    tcfg = port_cfg(jcfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tbatching.BatchedStageExecutor(tcfg, StageSpec(0, ROLE_FULL, 0, 2), {},
-                                       device="cpu")
+    jp, tp = weights(jcfg, seed=13, quant=quant)
+    je, te = engines(jcfg, jp, tp)
+    run = Lockstep(je, te, **({} if quant == "none" else QUANT_TOL))
+    run.prefill("a", PROMPTS["a"])
+    run.prefill("b", PROMPTS["b"])
+    for _ in range(2):
+        run.decode(["a", "b"])
+    run.prefill("c", PROMPTS["c"])
+    for _ in range(2):
+        run.decode(["a", "b", "c"])
+    run.decode(["c"])
 
 
 def test_stage0_serve_without_batched_exits():

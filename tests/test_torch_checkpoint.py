@@ -10,7 +10,8 @@ factories (llama with the llama3 RoPE remap). Covered:
     config class's, and the refusals raising in both packages;
 (b) ``load_stage_checkpoint`` for every stage of a 3-stage plan equal to
     JAX's bit for bit, at float32 and at bfloat16 from a bf16 save (the
-    window leaf int32), and a full load shaped as ``init_params``' tree;
+    window leaf int32), and a full load shaped as ``init_params``' tree
+    (Mixtral's experts included, and its converted tree's forward);
 (c) the port's safetensors reader against ``safetensors.safe_open``; a
     middle stage opening a strict subset of the shards; an unprefixed
     ``GPT2Model`` save; a sharded ``.bin`` save giving the safetensors
@@ -19,7 +20,8 @@ factories (llama with the llama3 RoPE remap). Covered:
 (d) the port's ``full_forward`` on imported llama, gemma2 and gpt2 weights
     against JAX's on the JAX import (RTOL / ATOL at float32);
 (e) ``main --mode local / oracle --checkpoint`` printing the JAX CLI's
-    greedy tokens at ``--quant none`` and ``int8``; ``load_stage_model``
+    greedy tokens at ``--quant none`` and ``int8``, on llama and on
+    Mixtral; ``load_stage_model``
     with ``--lora`` equal to JAX's ``_stage_params`` for every stage; an
     elastic server's re-span reading only its new span's shards; the
     registry / serve / client / gateway / submit processes with
@@ -268,18 +270,18 @@ def test_stage_loads_equal_jax_bit_for_bit(saved, family, dtype):
         assert_trees_bit_equal(got, jh.load_stage_checkpoint(path, jcfg, jspec, dtype=jdt))
         if tcfg.altern_window and "layers" in got:
             assert got["layers"]["window"].dtype == torch.int32
-    if not tcfg.is_moe:
-        # The full tree is init_params' tree: keys, shapes, dtypes, stacking.
-        full = th.load_stage_checkpoint(path, tcfg, StagePlan.even(tcfg.num_layers, 1)
-                                        .stages[0], dtype=tdt, device="cpu")
-        init = ttf.init_params(tcfg, torch.Generator().manual_seed(0), dtype=tdt)
-        assert [(p, t.shape, t.dtype) for p, t in _leaves(full)] == \
-            [(p, t.shape, t.dtype) for p, t in _leaves(init)]
+    # The full tree is init_params' tree: keys, shapes, dtypes, stacking.
+    full = th.load_stage_checkpoint(path, tcfg, StagePlan.even(tcfg.num_layers, 1)
+                                    .stages[0], dtype=tdt, device="cpu")
+    init = ttf.init_params(tcfg, torch.Generator().manual_seed(0), dtype=tdt)
+    assert [(p, t.shape, t.dtype) for p, t in _leaves(full)] == \
+        [(p, t.shape, t.dtype) for p, t in _leaves(init)]
 
 
 def test_mixtral_expert_layout_matches_jax(saved):
-    """Mixtral's router and stacked experts convert as JAX's (the port's
-    model still refuses MoE layers)."""
+    """Mixtral's router and stacked experts convert as JAX's, and the
+    converted tree's forward (the sparse dispatch) gives the logits of
+    JAX's forward over JAX's import of the same checkpoint."""
     path = saved["mixtral"]["float32"]
     cfg = th.config_from_checkpoint(path)
     got = th.load_stage_checkpoint(path, cfg, StagePlan.even(cfg.num_layers, 1).stages[0],
@@ -288,8 +290,15 @@ def test_mixtral_expert_layout_matches_jax(saved):
     assert mlp["router"].shape == (cfg.num_layers, cfg.hidden_size, cfg.num_experts)
     assert mlp["wg"].shape == (cfg.num_layers, cfg.num_experts, cfg.hidden_size,
                                cfg.intermediate_size)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttf.init_params(cfg, torch.Generator())
+    jcfg = jh.config_from_checkpoint(path)
+    jparams = jh.load_stage_checkpoint(path, jcfg, JStagePlan.even(jcfg.num_layers, 1)
+                                       .stages[0])
+    ids = (np.arange(20, dtype=np.int32)[None, :] * 7) % cfg.vocab_size
+    kc, vc = jtf.init_kv_cache(jcfg, jcfg.num_layers, 1, 32)
+    want, _, _ = jtf.full_forward(jcfg, jparams, jnp.asarray(ids), kc, vc, jnp.int32(0))
+    kc, vc = ttf.init_kv_cache(cfg, cfg.num_layers, 1, 32)
+    logits, _, _ = ttf.full_forward(cfg, got, torch.from_numpy(ids).long(), kc, vc, 0)
+    assert_close(logits, np.asarray(want))
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +448,34 @@ def test_cli_local_and_oracle_print_the_jax_tokens(monkeypatch, capsys, llama6, 
     jgen, _ = jax_mode_generate(monkeypatch, ["--mode", "local", *base],
                                 jh.config_from_checkpoint(llama6), None)
     cfg = th.config_from_checkpoint(llama6)
+    ids = [i % cfg.vocab_size for i in tmain.load_tokenizer().encode(PROMPT)]
+    want = jgen(ids, STEPS, sampling=GREEDY).tokens
+    assert _tokens(outs["local"]) == _tokens(outs["oracle"]) == [json.dumps(want)]
+
+
+@pytest.fixture(scope="module")
+def mixtral2(tmp_path_factory):
+    """A 2-layer Mixtral checkpoint (4 experts, top 2) in several shards."""
+    path = tmp_path_factory.mktemp("mixtral2")
+    FAMILIES["mixtral"]().save_pretrained(path, max_shard_size="100KB",
+                                          safe_serialization=True)
+    return str(path)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_cli_mixtral_local_and_oracle_print_the_jax_tokens(monkeypatch, capsys, mixtral2,
+                                                           quant):
+    """A Mixtral checkpoint through --mode local (2 stages) and --mode
+    oracle: the JAX CLI's greedy tokens."""
+    base = ["--splits", "1", "--checkpoint", mixtral2, "--prompt", PROMPT,
+            "--max_new_tokens", str(STEPS), "--temperature", "0", "--quant", quant]
+    outs = {}
+    for mode in ("local", "oracle"):
+        assert tmain.main(["--mode", mode, *base, "--device", "cpu"]) == 0
+        outs[mode] = capsys.readouterr().out
+    jgen, _ = jax_mode_generate(monkeypatch, ["--mode", "local", *base],
+                                jh.config_from_checkpoint(mixtral2), None)
+    cfg = th.config_from_checkpoint(mixtral2)
     ids = [i % cfg.vocab_size for i in tmain.load_tokenizer().encode(PROMPT)]
     want = jgen(ids, STEPS, sampling=GREEDY).tokens
     assert _tokens(outs["local"]) == _tokens(outs["oracle"]) == [json.dumps(want)]
@@ -728,3 +765,22 @@ def test_remote_checkpoint_exits_naming_queue_1_3f(mode, monkeypatch, capsys, tm
     assert not isinstance(tok, tmain.ByteTokenizer)
     want = jmain.load_tokenizer(tokenizer_ckpt)
     assert [tok.encode(t) for t in TEXTS] == [want.encode(t) for t in TEXTS]
+
+
+def test_chip_smoke_writer_reads_back_mixtral(tmp_path):
+    """chip_smoke's writer on a Mixtral tree (the router and each expert's
+    w1 / w2 / w3): AutoConfig and the port read its config, and the port
+    loads the tree it wrote."""
+    from transformers import AutoConfig
+
+    cfg = dataclasses.replace(tmain.get_config("mixtral-8x7b"), vocab_size=320,
+                              hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+                              intermediate_size=96, num_experts=4)
+    params = ttf.init_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+    chip_smoke.write_checkpoint(torch, str(tmp_path), cfg, params, shard_bytes=100_000)
+    assert AutoConfig.from_pretrained(str(tmp_path)).model_type == "mixtral"
+    assert th.config_from_checkpoint(str(tmp_path)) == cfg
+    got = th.load_stage_checkpoint(str(tmp_path), cfg, StagePlan.even(2, 1).stages[0],
+                                   dtype=torch.bfloat16, device="cpu")
+    want = dict(_leaves(params))
+    assert all(torch.equal(t, want[p]) for p, t in _leaves(got))

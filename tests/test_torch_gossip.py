@@ -21,6 +21,7 @@ in-process swarm; gpt2 for the CLI. Tolerance: none, tokens are compared
 for equality.
 """
 
+import errno
 import json
 import os
 import random
@@ -220,6 +221,19 @@ def test_gossip_fault_plan_installs_over_the_wire_from_jax():
         srv.stop()
 
 
+def seed_registry():
+    """A seed RegistryServer on a port below Linux's default ephemeral range
+    (32768-60999), so that no bind(0) or connect() takes the port after the
+    seed stops and the restart test can bind it again."""
+    for port in random.Random().sample(range(20000, 32768), 64):
+        try:
+            return tnet.RegistryServer(port=port)
+        except OSError as exc:
+            if exc.errno != errno.EADDRINUSE:
+                raise
+    raise RuntimeError("no free seed port")
+
+
 class GossipSwarm:
     """Two registries and a port stage server a remote stage, each with a
     mirror and a gossip loop, as ``--mode serve`` runs them."""
@@ -230,7 +244,7 @@ class GossipSwarm:
         self.plan = StagePlan.from_splits(tcfg.num_layers, parse_splits(SPLITS))
         self.seeds = []
         for _ in range(2):
-            rs = tnet.RegistryServer()
+            rs = seed_registry()
             rs.start()
             self.seeds.append(rs)
         self.seed_addrs = ",".join(rs.address for rs in self.seeds)
